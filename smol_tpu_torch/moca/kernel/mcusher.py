@@ -1,0 +1,49 @@
+"""MC step proposers (ushers): the single-site Flip.
+
+A minimal counterpart of ``smol_tpu/moca/kernel/mcusher.py`` (:40-55 and
+``Flip``): the usher carries the active sublattices and the probability of
+proposing on each.  The proposals themselves are drawn on the device by
+the flip chain (:func:`smol_tpu_torch.ops.chain.rank_sequence`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["MCUsher", "Flip", "mcusher_factory"]
+
+
+class MCUsher:
+    """Proposer over the active sublattices of an ensemble."""
+
+    def __init__(self, sublattices, sublattice_probabilities=None):
+        self.sublattices = sublattices
+        self.active_sublattices = [s for s in sublattices if s.is_active]
+        n = len(self.active_sublattices)
+        if sublattice_probabilities is None:
+            probs = np.full(n, 1.0 / n)
+        else:
+            probs = np.asarray(sublattice_probabilities, dtype=np.float64)
+            if len(probs) != n:
+                raise ValueError(
+                    "Sublattice probabilities must match the number of "
+                    "active sublattices."
+                )
+            if abs(probs.sum() - 1) > 1e-12:
+                raise ValueError("Sublattice probabilities must sum to one.")
+        self.sublattice_probabilities = probs
+
+
+class Flip(MCUsher):
+    """Recolor one site to another allowed code (semigrand moves)."""
+
+
+def mcusher_factory(step_type: str, sublattices, **kwargs) -> MCUsher:
+    """The usher for ``step_type``; the port has ``"flip"`` only."""
+    if step_type.replace("-", "").replace("_", "").lower() != "flip":
+        raise NotImplementedError(
+            f"step type {step_type!r} is not ported yet (ROADMAP.md Queue 1: "
+            "canonical swaps are item 3, table flips item 4, other ushers "
+            "item 8)"
+        )
+    return Flip(sublattices, **kwargs)

@@ -1,0 +1,90 @@
+"""The Metropolis kernel on the shared-proposal flip chain.
+
+Counterpart of ``smol_tpu/moca/kernel/metropolis.py`` (:197-301,
+``_build_chain_tables`` and ``make_chain_fn``).  The port covers what its
+main path runs: single-site ``Flip`` moves with no bias and no tracked
+features, with shared random proposals or the deterministic sweep.
+Anything else raises ``NotImplementedError`` naming the ROADMAP.md item
+that ports it; nothing silently takes another path.
+"""
+
+from __future__ import annotations
+
+from smol_tpu_torch.moca.kernel.base import MCKernel, ThermalKernelMixin
+from smol_tpu_torch.ops import chain
+
+__all__ = ["Metropolis", "mckernel_factory"]
+
+
+class Metropolis(ThermalKernelMixin, MCKernel):
+    """Metropolis-Hastings single-flip kernel.
+
+    Args:
+        ensemble: the :class:`~smol_tpu_torch.moca.ensemble.Ensemble`.
+        step_type: ``"flip"``.
+        temperature: in K.
+        seed: seed of the run's generator.
+        shared_proposals: must be True: walkers of one block share the
+            proposal site sequence (see :mod:`smol_tpu_torch.ops.chain`).
+        chain_block_size: walkers per block (the sharing granularity).
+        proposal_mode: ``"random"`` or ``"sweep"``.
+        rng: ``"philox"`` (run mode) or ``"hash"`` (the reference's
+            interpret-mode random numbers, for parity checks).
+    """
+
+    def __init__(self, ensemble, step_type, temperature, *, seed=None,
+                 bias_type=None, shared_proposals=True, chain_block_size=1024,
+                 proposal_mode="random", rng="philox",
+                 sublattice_probabilities=None):
+        if bias_type is not None:
+            raise NotImplementedError(
+                "MC biases are not ported yet (ROADMAP.md Queue 1 item 8)"
+            )
+        if proposal_mode not in ("random", "sweep"):
+            raise ValueError(f"unknown proposal mode: {proposal_mode!r}")
+        if not shared_proposals and proposal_mode != "sweep":
+            raise NotImplementedError(
+                "independent per-walker proposals are not ported yet "
+                "(ROADMAP.md Queue 1 item 8)"
+            )
+        if rng not in chain.RNG_MODES:
+            raise ValueError(f"unknown rng mode: {rng!r}")
+        self.chain_block_size = int(chain_block_size)
+        self.proposal_mode = str(proposal_mode)
+        self.rng = rng
+        super().__init__(
+            temperature, ensemble, step_type, seed=seed,
+            sublattice_probabilities=sublattice_probabilities,
+        )
+        self._chain_tables = None
+
+    def chain_tables(self) -> chain.ChainTables:
+        """The flip-chain tables of this kernel's ensemble (built once)."""
+        if self._chain_tables is None:
+            ens = self._ensemble
+            self._chain_tables = chain.build_chain_tables(
+                ens.processor,
+                ens.sublattices,
+                mu_table=ens.chemical_potential_table,
+                sublattice_probabilities=self.mcusher.sublattice_probabilities,
+            )
+        return self._chain_tables
+
+    def make_chain_fn(self, n_steps: int):
+        return chain.make_shared_proposal_chain(
+            self.chain_tables(),
+            n_steps,
+            block_size=self.chain_block_size,
+            proposal_mode=self.proposal_mode,
+            rng=self.rng,
+        )
+
+
+def mckernel_factory(kernel_type, ensemble, step_type, *args, **kwargs):
+    """The kernel for ``kernel_type``; the port has ``"Metropolis"`` only."""
+    if kernel_type.replace("-", "").replace("_", "").lower() != "metropolis":
+        raise NotImplementedError(
+            f"kernel type {kernel_type!r} is not ported yet (ROADMAP.md "
+            "Queue 1: Wang-Landau is item 7, the others item 8)"
+        )
+    return Metropolis(ensemble, step_type, *args, **kwargs)

@@ -1,0 +1,151 @@
+"""A cluster-expansion system carried from smol_tpu into the port as data.
+
+The JAX package builds a system on the host (crystal symmetry, cluster
+subspace, supercell packing, coefficient folding); the port does not
+repeat that work yet.  :func:`export_system` reads a built ``smol_tpu``
+ensemble and returns plain numpy arrays, which :func:`save_system` writes
+to a compressed ``.npz`` file and :func:`load_system` reads back.  These
+arrays are the port's "weights": the port loads them and runs on the card.
+
+The exporter is duck-typed: it reads attributes of the objects it is given
+and imports neither ``smol_tpu`` nor ``jax``.
+
+Keys of a system dict (N sites, C clusters of at most K sites, P
+(function, cluster) pairs, L local clusters per site, TM largest tensor):
+
+- ``num_sites``, ``size`` (prims in the supercell), ``num_corr``,
+  ``num_energy_coefs``: 0-d int64;
+- ``cluster_sites``, ``cluster_strides`` [C, K] int32; ``corr_flat`` f64;
+  ``pair_fn``, ``pair_cluster``, ``pair_offset`` [P] int32;
+  ``fn_cluster_count`` [num_corr] f64 — the packed supercell fields that
+  ``smol_tpu.ops.correlations.to_device`` moves to the device;
+- ``local_sites``, ``local_strides`` [N, L, K] int32, ``local_d2`` [N, L]
+  int32, ``local_g`` [N, L, TM] f64 — the per-site local-cluster arrays of
+  ``smol_tpu.ops.fastmc.site_local_arrays`` (coefficient-folded energy
+  tables);
+- ``sublattice_sites``, ``sublattice_active_sites``,
+  ``sublattice_encoding`` with ``*_offsets`` [S + 1]: each sublattice's
+  arrays concatenated in sublattice order;
+- ``natural_parameters`` [F] f64 and, for a semigrand ensemble,
+  ``chemical_potential_table`` [N, max code + 1] f64.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["export_system", "save_system", "load_system"]
+
+
+def local_arrays(packed, energy_flat, energy_weights):
+    """Per-site local-cluster arrays of a packed supercell.
+
+    Computes what ``smol_tpu.ops.fastmc.site_local_arrays`` computes, with
+    the same element-wise arithmetic: ``(sites [N, L, K], strides
+    [N, L, K], d2 [N, L], g [N, L, TM], tmax)``.  ``d2`` is the summed
+    stride of the site's own slots in each local cluster, and ``g`` the
+    coefficient-folded energy tensor of that cluster's orbit.
+    """
+    lc = np.asarray(packed.local_clusters)
+    n = lc.shape[0]
+    tsize = np.asarray(packed.orbit_tensor_size)
+    tmax = int(tsize.max())
+    valid = lc >= 0
+    lc_safe = np.where(valid, lc, 0)
+    sites = np.asarray(packed.cluster_sites)[lc_safe] * valid[:, :, None]
+    strides = np.asarray(packed.cluster_strides)[lc_safe] * valid[:, :, None]
+    orb = np.asarray(packed.cluster_orbit)[lc_safe]
+    own = (sites == np.arange(n)[:, None, None]) & (strides > 0)
+    d2 = np.where(own, strides, 0).sum(axis=2)
+    flat = np.asarray(energy_flat, dtype=np.float64)
+    t = np.arange(tmax)
+    idx = np.asarray(packed.orbit_offset)[orb][:, :, None] + t
+    in_tensor = (t < tsize[orb][:, :, None]) & valid[:, :, None]
+    weights = np.asarray(energy_weights, dtype=np.float64)[orb][:, :, None]
+    g = np.where(
+        in_tensor, weights * flat[np.minimum(idx, len(flat) - 1)], 0.0
+    )
+    return (
+        sites.astype(np.int32),
+        strides.astype(np.int32),
+        d2.astype(np.int32),
+        g,
+        tmax,
+    )
+
+
+def _ragged(arrays, dtype):
+    flat = np.concatenate([np.asarray(a, dtype=dtype) for a in arrays])
+    offsets = np.cumsum([0] + [len(a) for a in arrays]).astype(np.int64)
+    return flat, offsets
+
+
+def export_system(ensemble) -> dict:
+    """Numpy arrays of a ``smol_tpu`` semigrand or canonical ensemble.
+
+    The ensemble's processor must be a cluster-expansion processor (its
+    features are the extensive correlation vector), the form the port's
+    :class:`~smol_tpu_torch.moca.processor.expansion.ClusterExpansionProcessor`
+    evaluates.  Build it with ``Ensemble.from_cluster_expansion(...,
+    processor_type="expansion")``.
+    """
+    processor = ensemble.processor
+    if type(processor).__name__ != "ClusterExpansionProcessor":
+        raise ValueError(
+            "export_system needs a ClusterExpansionProcessor (build the "
+            "ensemble with processor_type='expansion'); got "
+            f"{type(processor).__name__}"
+        )
+    packed = processor.packed
+    sites, strides, d2, g, _ = local_arrays(
+        packed, processor._energy_flat, processor._energy_weights
+    )
+    subs = ensemble.sublattices
+    sub_sites, sub_off = _ragged([s.sites for s in subs], np.int64)
+    act_sites, act_off = _ragged([s.active_sites for s in subs], np.int64)
+    enc, enc_off = _ragged([s.encoding for s in subs], np.int32)
+    system = {
+        "num_sites": np.int64(packed.num_sites),
+        "size": np.int64(processor.size),
+        "num_corr": np.int64(packed.num_corr),
+        "num_energy_coefs": np.int64(len(processor.coefs)),
+        "cluster_sites": np.asarray(packed.cluster_sites, dtype=np.int32),
+        "cluster_strides": np.asarray(packed.cluster_strides, dtype=np.int32),
+        "corr_flat": np.asarray(packed.corr_flat, dtype=np.float64),
+        "pair_fn": np.asarray(packed.pair_fn, dtype=np.int32),
+        "pair_cluster": np.asarray(packed.pair_cluster, dtype=np.int32),
+        "pair_offset": np.asarray(packed.pair_offset, dtype=np.int32),
+        "fn_cluster_count": np.asarray(
+            packed.fn_cluster_count, dtype=np.float64
+        ),
+        "local_sites": sites,
+        "local_strides": strides,
+        "local_d2": d2,
+        "local_g": g,
+        "sublattice_sites": sub_sites,
+        "sublattice_sites_offsets": sub_off,
+        "sublattice_active_sites": act_sites,
+        "sublattice_active_sites_offsets": act_off,
+        "sublattice_encoding": enc,
+        "sublattice_encoding_offsets": enc_off,
+        "natural_parameters": np.asarray(
+            ensemble.natural_parameters, dtype=np.float64
+        ),
+    }
+    mu_table = ensemble.chemical_potential_table
+    if mu_table is not None:
+        system["chemical_potential_table"] = np.asarray(
+            mu_table, dtype=np.float64
+        )
+    return system
+
+
+def save_system(system: dict, path) -> None:
+    """Write a system dict to a compressed ``.npz`` file."""
+    np.savez_compressed(path, **system)
+
+
+def load_system(path) -> dict:
+    """Read a system dict written by :func:`save_system`."""
+    with np.load(path, allow_pickle=False) as data:
+        return {key: data[key] for key in data.files}

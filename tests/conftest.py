@@ -29,6 +29,12 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without a card"
+    )
+
+
 @pytest.fixture(scope="module")
 def rng():
     return np.random.default_rng(seed=13)

@@ -1,0 +1,131 @@
+"""The port's system files and its independence from JAX.
+
+- a fresh ``export_system`` of the bench spinel, built with ``smol_tpu``,
+  equals the committed ``tests/data/torch_spinel_*.npz`` array for array
+  (so the files cannot go stale), and the exporter's local-cluster arrays
+  equal ``smol_tpu.ops.fastmc.site_local_arrays`` exactly;
+- with ``jax`` blocked from importing, a subprocess imports the port and
+  runs a short CPU slice from a system file;
+- no module of ``smol_tpu_torch`` imports ``jax`` or ``smol_tpu``.
+"""
+
+import ast
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from smol_tpu.ops.fastmc import site_local_arrays
+from smol_tpu_torch.system import export_system, load_system, save_system
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "scripts"))
+from export_torch_systems import SUPERCELLS, spinel_ensemble, system_path  # noqa: E402
+
+
+@pytest.fixture(scope="module", params=sorted(SUPERCELLS))
+def bench_spinel(request):
+    name = request.param
+    return name, spinel_ensemble(SUPERCELLS[name])
+
+
+def test_committed_system_matches_fresh_export(bench_spinel):
+    name, ensemble = bench_spinel
+    fresh = export_system(ensemble)
+    committed = load_system(system_path(name))
+    assert sorted(fresh) == sorted(committed)
+    for key, value in fresh.items():
+        stored = committed[key]
+        assert stored.dtype == np.asarray(value).dtype, key
+        np.testing.assert_array_equal(stored, value, err_msg=key)
+
+
+def test_local_arrays_equal_reference(bench_spinel):
+    _, ensemble = bench_spinel
+    ref = site_local_arrays(ensemble.processor)
+    system = export_system(ensemble)
+    mine = [system[k] for k in ("local_sites", "local_strides", "local_d2", "local_g")]
+    for r, m in zip(ref[:4], mine):
+        np.testing.assert_array_equal(np.asarray(r), m)
+    assert system["local_g"].shape[2] == ref[4]
+
+
+def test_export_requires_expansion_processor():
+    from smol_tpu.benchmarks.systems import random_expansion, spinel_prim
+    from smol_tpu.moca import Ensemble
+
+    ce = random_expansion(spinel_prim(), {2: 4.0}, seed=11)
+    ens = Ensemble.from_cluster_expansion(ce, np.diag([1, 1, 1]))
+    with pytest.raises(ValueError, match="ClusterExpansionProcessor"):
+        export_system(ens)
+
+
+def test_save_load_roundtrip(tmp_path):
+    system = load_system(system_path("2x2x2"))
+    save_system(system, tmp_path / "s.npz")
+    again = load_system(tmp_path / "s.npz")
+    assert sorted(again) == sorted(system)
+    for key in system:
+        np.testing.assert_array_equal(again[key], system[key])
+
+
+def test_port_runs_with_jax_blocked():
+    """The port imports and samples on the CPU where ``import jax`` fails."""
+    script = textwrap.dedent(
+        f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import numpy as np
+        from smol_tpu_torch.system import load_system
+        from smol_tpu_torch.moca.ensemble import Ensemble
+        from smol_tpu_torch.moca.sampler.sampler import Sampler
+        try:
+            import jax  # noqa: F401
+        except ImportError:
+            pass
+        else:
+            raise SystemExit("jax was importable")
+        ens = Ensemble.from_system(load_system({str(system_path("2x2x2"))!r}), "cpu")
+        codes = np.ones(ens.num_sites, dtype=np.int64)
+        for sl in ens.sublattices:
+            codes[sl.sites] = len(sl.encoding)
+        rng = np.random.default_rng(0)
+        occ = (rng.random((64, ens.num_sites)) * codes).astype(np.int32)
+        sampler = Sampler.from_ensemble(ens, 1000.0, 64, seed=3, device="cpu")
+        sampler.run(200, occ, thin_by=50)
+        assert sampler.samples.num_samples == 4
+        bad = [m for m in sys.modules if m == "smol_tpu" or m.startswith("smol_tpu.")]
+        assert not bad, bad
+        print("ok", sampler.execution_path(50))
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        timeout=120, cwd=ROOT,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "ok cpu-twin[flip]" in proc.stdout
+
+
+def test_port_never_imports_jax_or_reference():
+    package = ROOT / "smol_tpu_torch"
+    offenders = []
+    for path in sorted(package.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                root = name.split(".")[0]
+                if root in ("jax", "jaxlib", "smol_tpu"):
+                    offenders.append(f"{path.relative_to(ROOT)}: {name}")
+    assert not offenders, offenders
+    assert (package / "csrc" / "flip_chain.cu").exists()
