@@ -5,28 +5,45 @@ CUDA device and the CUDA toolkit (``nvcc``), and exits non-zero without
 printing its last line when any phase fails:
 
 1. requires a CUDA device and prints the card's name and power limit;
-2. builds the flip-chain kernel from ``smol_tpu_torch/csrc`` (into
-   ``build/smol_tpu_torch``) and prints the build time and register use;
-3. runs the kernel and its plain torch twin on the same inputs at the
-   shapes the main path gives the kernel (8192 walkers in 8 sequence
-   blocks of 1024, one 100-step window) on both bench spinel sizes, in
-   ``hash`` mode and in ``philox`` mode with a seed above 2**32; then one
-   hash-mode chain of 2100 steps through ``make_shared_proposal_chain``,
-   whose second chunk restarts the step counter and takes the next chunk
-   seed, against the twin run chunk by chunk.  Occupancies and accept
-   counts must be identical, except where the twin shows the decision
-   within 4 f32 ulps of log U, and enthalpies must agree to 1e-9 absolute;
-4. drives the main path on the 2x2x2 and then the 3x3x3 bench spinel:
-   ``Ensemble.from_system`` -> ``Sampler.from_ensemble(T=1000 K, 8192
-   walkers, seed=3)`` -> ``run(20000 steps, thin_by=100)``, twice per size
-   (a first, cold run and a warm one on a fresh sampler, which must record
-   the same occupancies and enthalpies to 1e-9), and checks that the kernel was launched, the
-   execution path, the recorded enthalpy of the last sample against
-   features . theta (< 1e-9) and the acceptance fraction.  The rate is the
-   warm run's; the set-up (system load, table build, and the cold run's
-   excess over the warm one) is printed on its own;
+2. builds the flip-chain and swap-chain kernels from ``smol_tpu_torch/csrc``
+   (into ``build/smol_tpu_torch``, one ``nvcc`` per source, all at once)
+   and prints the build time and each kernel's registers and spills;
+3. runs each kernel and its plain torch twin on the same inputs at the
+   shapes the main paths give the kernel (8192 walkers, one 100-step
+   window, sequence blocks of 1024, or 512 for Au-Cu), in ``hash`` mode
+   and in ``philox`` mode with a seed above 2**32: the flip chain on both
+   semigrand bench spinels and, with the Ewald term, on the spinel
+   CE + Ewald 2x2x2; the swap chain on the spinel CE + Ewald 2x2x2 and
+   3x3x3 and on Au-Cu 4x4x4.  Then one hash-mode chain of 2100 steps per
+   kernel through ``make_shared_proposal_chain``, whose second chunk
+   restarts the step counter and takes the next chunk seed, against the
+   twin run chunk by chunk.  Occupancies and accept (and move) counts must
+   be identical, except where the twin shows the decision within 4 f32
+   ulps of log U, and enthalpies must agree to 1e-9 absolute;
+4. drives the main paths, each with the launch counts set to 0 just
+   before and read just after:
+   - flips: ``Ensemble.from_system(spinel 2x2x2, then 3x3x3)`` ->
+     ``Sampler.from_ensemble(T=1000 K, 8192 walkers, seed=3)`` ->
+     ``run(20000 steps, thin_by=100)``;
+   - canonical swaps: the same on the spinel CE + Ewald 2x2x2 and 3x3x3
+     (1000 K) and on Au-Cu 4x4x4 (300 K, blocks of 512), from each file's
+     ``initial_occupancy``; no chemical potentials, so the sampler takes
+     swaps;
+   twice per cell (a first, cold run and a warm one on a fresh sampler,
+   which must record the same occupancies and enthalpies to 1e-9), and
+   checks the execution path, that the kernel was launched, the recorded
+   enthalpy of the last sample against features . theta (< 1e-9
+   absolute; the spinel CE + Ewald energies are about -385 eV (2x2x2) and
+   -1300 eV (3x3x3), so this is at most 3e-12 of the energy scale), the
+   acceptance fraction and, for swaps, that every walker of every sample
+   keeps its starting composition.  The rate is the warm run's; the
+   set-up (system load, table build, and the cold run's excess over the
+   warm one) is printed on its own.  Swaps also print the fraction of
+   non-null proposals (pairs of different codes) and its rate;
 5. times one 100-step window at 8192 walkers, kernel against twin, for
-   both sizes.
+   each cell, the swap kernel also without its Ewald term (K4's share),
+   and works out each kernel's bound: the larger of the bytes it must
+   move over the memory rate and its f64 operations over the f64 rate.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -34,7 +51,9 @@ is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -56,7 +75,18 @@ BLOCK = 1024  # the sampler's default sequence block
 NSTEPS = 20_000
 THIN = 100
 TEMPERATURE = 1000.0
-CELLS = ("2x2x2", "3x3x3")
+FLIP_CELLS = ("spinel_2x2x2", "spinel_3x3x3")
+# canonical cells: system file stem -> (temperature K, sequence block)
+SWAP_CELLS = {
+    "spinel_ewald_2x2x2": (1000.0, 1024),
+    "spinel_ewald_3x3x3": (1000.0, 1024),
+    "aucu_4x4x4": (300.0, 512),  # bench.py's canonical config
+}
+SEEDS = (("hash", 987654321), ("philox", 0x2545F4914F6CDD1D))
+# NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; FP64 (vector, not the
+# tensor cores) at 34 TFLOP/s, both at the 700 W limit
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F64_PER_S = 34e12
 
 
 def check(condition, message):
@@ -72,16 +102,31 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def load_ensemble(name):
-    path = ROOT / "tests" / "data" / f"torch_spinel_{name}.npz"
-    return Ensemble.from_system(load_system(path), "cuda")
+def load(stem):
+    system = load_system(ROOT / "tests" / "data" / f"torch_{stem}.npz")
+    return Ensemble.from_system(system, "cuda"), system
 
 
-def tables_of(ensemble):
+def tables_of(ensemble, move):
     return chain.build_chain_tables(
         ensemble.processor, ensemble.sublattices,
-        mu_table=ensemble.chemical_potential_table,
+        mu_table=ensemble.chemical_potential_table if move == "flip" else None,
     )
+
+
+def ptxas_summary(log):
+    """One line per compiled kernel: its template arguments, spills, registers."""
+    lines, name, spills = [], "", ""
+    for line in log.splitlines():
+        found = re.search(r"([a-z]+_chain_kernel)ILi(\d+)ELb([01])E", line)
+        if "Compiling entry function" in line and found:
+            kernel, k, ewald = found.groups()
+            name = f"{kernel}<K={k if k != '0' else 'runtime'}, ewald={ewald == '1'}>"
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spills}")
+    return lines
 
 
 def cuda_ms(fn, reps):
@@ -98,32 +143,66 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def window_operands(ensemble, tables, occ_seed, seq_seed, n_steps=THIN):
-    """Operands of one main-path launch: 8192 walkers, 8 sequence blocks."""
+# ---------------- one launch, kernel against twin ----------------
+
+KERNELS = {  # move -> (kernel wrapper, twin)
+    "flip": (chain.flip_chain, chain.flip_chain_reference),
+    "swap": (chain.swap_chain, chain.swap_chain_reference),
+}
+STATE = ("occ", "enthalpy", "naccept", "nmove")
+
+
+def window_operands(ensemble, tables, move, block, occ_seed, seq_seed, n_steps=THIN):
+    """Operands of one main-path launch: 8192 walkers in blocks of ``block``."""
     device = ensemble.device
     occu = torch.as_tensor(random_occupancies(ensemble, WALKERS, occ_seed),
                            device=device)
     gen = torch.Generator(device=device).manual_seed(seq_seed)
-    return dict(
+    shape = (WALKERS // block, n_steps)
+    ops = dict(
         occ=occu[:, tables.rank_sites].T.to(torch.int8).contiguous(),
         enthalpy=torch.zeros(WALKERS, dtype=torch.float64, device=device),
         naccept=torch.zeros(WALKERS, dtype=torch.int32, device=device),
         beta32=torch.full((WALKERS,), 1.0 / (kB * TEMPERATURE),
                           dtype=torch.float32, device=device),
-        seq=chain.rank_sequence(tables, gen, (WALKERS // BLOCK, n_steps)),
+        tables=tables, n_steps=n_steps, block_size=block,
     )
+    if move == "swap":
+        ops["useq"], ops["vseq"] = chain.rank_pair_sequence(tables, gen, shape)
+        ops["nmove"] = torch.zeros(WALKERS, dtype=torch.int32, device=device)
+    else:
+        ops["seq"] = chain.rank_sequence(tables, gen, shape)
+    return ops
 
 
-def compare(label, occ_k, occ_t, n_k, n_t, e_k, e_t, margin, n_steps):
-    """Kernel against twin: equal walkers, or a decision within ULP_SLACK."""
-    same = (occ_k == occ_t).all(dim=0) & (n_k == n_t)
+def compositions(occ, tables):
+    """[S * max codes, W] count of each code on each active sublattice."""
+    return torch.stack([
+        (occ[off: off + n] == code).sum(dim=0)
+        for off, n in zip(tables.sub_offset, tables.n_active)
+        for code in range(int(tables.ncode.max()))
+    ])
+
+
+def compare(label, kernel, twin, margin, n_steps, start=None):
+    """Kernel against twin: equal walkers, or a decision within ULP_SLACK.
+
+    For swaps, ``start`` holds the compositions every walker must keep.
+    """
+    same = (kernel["occ"] == twin["occ"]).all(dim=0) & (kernel["naccept"] == twin["naccept"])
+    if "nmove" in kernel:
+        same &= kernel["nmove"] == twin["nmove"]
+        tables = twin["tables"]
+        for side in (kernel, twin):
+            check(torch.equal(compositions(side["occ"], tables), start),
+                  f"{label}: a swap changed a composition")
     near_tie = margin <= ULP_SLACK
     check(bool((same | near_tie).all()),
           f"{label}: {int((~same & ~near_tie).sum())} walkers differ without a near-tie")
     check(float(same.float().mean()) >= 0.99, f"{label}: too many near-tie mismatches")
-    err = float((e_k - e_t)[same].abs().max())
+    err = float((kernel["enthalpy"] - twin["enthalpy"])[same].abs().max())
     check(err <= 1e-9, f"{label}: enthalpy difference {err}")
-    accept_frac = float(n_k.double().mean()) / n_steps
+    accept_frac = float(kernel["naccept"].double().mean()) / n_steps
     check(0.0 < accept_frac < 1.0, f"{label}: acceptance {accept_frac}")
     print(f"phase 3 [{label}]: kernel == twin on {int(same.sum())}/{len(same)} "
           f"walkers ({int((~same).sum())} near-tie), max |dH| {err:.3e}, "
@@ -131,26 +210,24 @@ def compare(label, occ_k, occ_t, n_k, n_t, e_k, e_t, margin, n_steps):
     return err
 
 
-def window_vs_twin(ensemble, name, rng, seed):
+def window_vs_twin(ensemble, name, move, block, rng, seed):
     """Phase 3: one main-path window, kernel against twin."""
-    tables = tables_of(ensemble)
-    ops = window_operands(ensemble, tables, occ_seed=7, seq_seed=17)
-    seed_t = torch.tensor([seed], dtype=torch.int64, device=ensemble.device)
-    k = {key: v.clone() for key, v in ops.items()}
-    t = {key: v.clone() for key, v in ops.items()}
+    tables = tables_of(ensemble, move)
+    ops = window_operands(ensemble, tables, move, block, occ_seed=7, seq_seed=17)
+    ops["seed"] = torch.tensor([seed], dtype=torch.int64, device=ensemble.device)
+    kernel_fn, twin_fn = KERNELS[move]
+    k = {key: (v.clone() if key in STATE else v) for key, v in ops.items()}
+    t = {key: (v.clone() if key in STATE else v) for key, v in ops.items()}
     margin = torch.full((WALKERS,), float("inf"), device=ensemble.device)
-    chain.flip_chain(k["occ"], k["enthalpy"], k["naccept"], k["beta32"],
-                     k["seq"], seed_t, tables, THIN, BLOCK, rng)
-    chain.flip_chain_reference(t["occ"], t["enthalpy"], t["naccept"],
-                               t["beta32"], t["seq"], seed_t, tables, THIN,
-                               BLOCK, rng, margin=margin)
+    kernel_fn(**k, rng=rng)
+    twin_fn(**t, rng=rng, margin=margin)
     torch.cuda.synchronize()
-    return compare(f"{name} {rng} seed {seed:#x}", k["occ"], t["occ"],
-                   k["naccept"], t["naccept"], k["enthalpy"], t["enthalpy"],
-                   margin, THIN)
+    ewald = "+ewald" if tables.has_ewald else ""
+    return compare(f"{move}{ewald} {name} {rng} seed {seed:#x}", k, t, margin, THIN,
+                   compositions(ops["occ"], tables))
 
 
-def chunked_hash_vs_twin(ensemble, name):
+def chunked_hash_vs_twin(ensemble, name, move, block):
     """Phase 3: a hash-mode chain across a chunk boundary, kernel vs twin.
 
     The kernel runs through ``make_shared_proposal_chain`` (which splits
@@ -159,11 +236,15 @@ def chunked_hash_vs_twin(ensemble, name):
     ``seed0 + c * SEED_STRIDE`` and counts its steps from 0.
     """
     device = ensemble.device
-    tables = tables_of(ensemble)
+    tables = tables_of(ensemble, move)
     chunk = chain.MAX_CHUNK_STEPS
     n_steps = chunk + 52
     gen = torch.Generator(device=device).manual_seed(29)
-    seqs = chain.rank_sequence(tables, gen, (2, WALKERS // BLOCK, chunk))
+    shape = (2, WALKERS // block, chunk)
+    if move == "swap":
+        seqs = chain.rank_pair_sequence(tables, gen, shape)
+    else:
+        seqs = (chain.rank_sequence(tables, gen, shape),)
     seeds = [123456789 + c * chain.SEED_STRIDE for c in range(2)]
     occu = torch.as_tensor(random_occupancies(ensemble, WALKERS, 11), device=device)
     beta = torch.full((WALKERS,), 1.0 / (kB * TEMPERATURE), dtype=torch.float64,
@@ -174,50 +255,67 @@ def chunked_hash_vs_twin(ensemble, name):
         "beta": beta,
         "naccept": torch.zeros(WALKERS, dtype=torch.int32, device=device),
         "accepted": torch.ones(WALKERS, dtype=torch.bool, device=device),
+        "nmove": torch.zeros(WALKERS, dtype=torch.int32, device=device),
     }
+    host_seqs = [s.cpu().numpy() for s in seqs]
     run = chain.make_shared_proposal_chain(
-        tables, n_steps, block_size=BLOCK, rng="hash",
-        seqs=seqs.cpu().numpy(), seeds=np.asarray(seeds),
+        tables, n_steps, block_size=block, rng="hash", move=move,
+        seqs=host_seqs if move == "swap" else host_seqs[0], seeds=np.asarray(seeds),
     )
-    before = chain.flip_chain.launches
+    kernel_fn, twin_fn = KERNELS[move]
+    before = kernel_fn.launches
     state = run(state, None)
-    check(chain.flip_chain.launches - before == 2, "chunked run: two launches")
+    check(kernel_fn.launches - before == 2, "chunked run: two launches")
 
-    occ = occu[:, tables.rank_sites].T.to(torch.int8).contiguous()
-    enthalpy = torch.zeros(WALKERS, dtype=torch.float64, device=device)
-    nacc = torch.zeros(WALKERS, dtype=torch.int32, device=device)
+    occ0 = occu[:, tables.rank_sites].T.to(torch.int8).contiguous()
+    twin = dict(
+        occ=occ0.clone(),
+        enthalpy=torch.zeros(WALKERS, dtype=torch.float64, device=device),
+        naccept=torch.zeros(WALKERS, dtype=torch.int32, device=device),
+        beta32=beta.to(torch.float32), tables=tables, block_size=block,
+    )
+    if move == "swap":
+        twin["nmove"] = torch.zeros(WALKERS, dtype=torch.int32, device=device)
     margin = torch.full((WALKERS,), float("inf"), device=device)
     for c, seed in enumerate(seeds):
-        chain.flip_chain_reference(
-            occ, enthalpy, nacc, beta.to(torch.float32), seqs[c],
-            torch.tensor([seed], dtype=torch.int64, device=device), tables,
-            min(chunk, n_steps - c * chunk), BLOCK, "hash", margin=margin,
-        )
+        rows = dict(zip(("useq", "vseq") if move == "swap" else ("seq",),
+                        (s[c] for s in seqs)))
+        twin_fn(**twin, **rows, n_steps=min(chunk, n_steps - c * chunk),
+                seed=torch.tensor([seed], dtype=torch.int64, device=device),
+                rng="hash", margin=margin)
     torch.cuda.synchronize()
-    occ_k = state["occupancy"][:, tables.rank_sites].T.to(torch.int8)
-    return compare(f"{name} hash {n_steps} steps, 2 chunks", occ_k, occ,
-                   state["naccept"], nacc, state["enthalpy"], enthalpy,
-                   margin, n_steps)
+    kernel = {"occ": state["occupancy"][:, tables.rank_sites].T.to(torch.int8),
+              "enthalpy": state["enthalpy"], "naccept": state["naccept"]}
+    if move == "swap":
+        kernel["nmove"] = state["nmove"]
+    return compare(f"{move} {name} hash {n_steps} steps, 2 chunks", kernel, twin,
+                   margin, n_steps, compositions(occ0, tables))
 
 
-def drive_main_path(name, card):
-    """Phase 4: the port's main path, as a user calls it; cold, then warm."""
+# ---------------- the main paths ----------------
+
+def drive_main_path(stem, card, temperature, block):
+    """Phase 4: one main path, as a user calls it; cold, then warm."""
     t0 = time.perf_counter()
-    ensemble = load_ensemble(name)
+    ensemble, system = load(stem)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    occ0 = random_occupancies(ensemble, WALKERS, 0)
+    canonical = ensemble.chemical_potential_table is None
+    occ0 = system["initial_occupancy"] if canonical else random_occupancies(ensemble, WALKERS, 0)
     runs = []
     for _ in ("cold", "warm"):
         t0 = time.perf_counter()
-        sampler = Sampler.from_ensemble(ensemble, TEMPERATURE, WALKERS, seed=3)
+        sampler = Sampler.from_ensemble(ensemble, temperature, WALKERS, seed=3,
+                                        chain_block_size=block)
         path = sampler.execution_path(THIN)  # builds the chain tables
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         sampler.run(NSTEPS, occ0, thin_by=THIN)
         torch.cuda.synchronize()
         runs.append((sampler, t1 - t0, time.perf_counter() - t1))
-    check(path.startswith("cuda-chain[flip]"), f"execution path {path}")
+    move = "swap" if canonical else "flip"
+    ewald = "+ewald" if "ewald_matrix" in system else ""
+    check(path.startswith(f"cuda-chain[{move}]{ewald}+direct"), f"execution path {path}")
     (cold, tables_s, cold_s), (sampler, _, wall) = runs
 
     samples = sampler.samples
@@ -226,44 +324,114 @@ def drive_main_path(name, card):
     # the same trajectories; the enthalpies may differ in the last bits,
     # since the initial features sum with index_add_, whose f64 atomics on
     # CUDA add in no fixed order
-    check(np.array_equal(cold.samples.get_occupancies(), samples.get_occupancies()),
-          f"{name}: the warm run did not repeat the cold run's occupancies")
+    occupancies = samples.get_occupancies(flat=False)  # [S, W, N]
+    check(np.array_equal(cold.samples.get_occupancies(flat=False), occupancies),
+          f"{stem}: the warm run did not repeat the cold run's occupancies")
     repeat = float(np.abs(cold.samples.get_enthalpies() - samples.get_enthalpies()).max())
-    check(repeat <= 1e-9, f"{name}: warm and cold enthalpies differ by {repeat}")
+    check(repeat <= 1e-9, f"{stem}: warm and cold enthalpies differ by {repeat}")
     last_h = samples.get_enthalpies(discard=n - 1)
     last_f = samples.get_feature_vectors(discard=n - 1)
     check(last_f.shape == (WALKERS, len(ensemble.natural_parameters)),
           f"feature shape {last_f.shape}")
     check(np.isfinite(last_h).all() and np.isfinite(last_f).all(), "non-finite")
     parity = float(np.abs(last_f @ ensemble.natural_parameters - last_h).max())
-    check(parity < 1e-9, f"{name}: recorded enthalpy vs features.theta {parity}")
+    check(parity < 1e-9, f"{stem}: recorded enthalpy vs features.theta {parity}")
     accept = float(sampler.efficiency())
-    check(0.0 < accept < 1.0, f"{name}: acceptance {accept}")
+    check(0.0 < accept < 1.0, f"{stem}: acceptance {accept}")
     mean_h = float(samples.mean_enthalpy(discard=n // 2))
     rate = WALKERS * NSTEPS / wall
-    print(f"phase 4 [{name}] {card}: {ensemble.num_sites} sites, path {path}, "
-          f"mean enthalpy {mean_h:.6f} eV, acceptance {accept:.4f}, "
-          f"parity(e) {parity:.3e}, warm vs cold |dH| {repeat:.3e}, warm run {rate / 1e6:.1f} M attempts/s end "
-          f"to end ({wall:.4f} s for {WALKERS} walkers x {NSTEPS} steps); "
-          f"set-up: system load {load_s:.4f} s, sampler + tables {tables_s:.4f} s, "
-          f"cold run {cold_s:.4f} s (+{cold_s - wall:.4f} s over warm)")
+    extra = ""
+    if canonical:
+        for sl in ensemble.sublattices:
+            for code in sl.encoding:
+                start = int((occ0[sl.sites] == code).sum())
+                kept = (occupancies[:, :, sl.sites] == code).sum(axis=-1) == start
+                check(bool(kept.all()), f"{stem}: a walker's composition changed")
+        # nmove: proposals whose two sites held different codes (bench.py:551-562)
+        frac = float(sampler._state["nmove"].double().sum()) / (WALKERS * NSTEPS)
+        check(0.0 < frac < 1.0, f"{stem}: non-null fraction {frac}")
+        extra = (f", compositions kept on all {n} x {WALKERS} records, non-null "
+                 f"move fraction {frac:.4f} ({rate * frac / 1e6:.1f} M non-null "
+                 f"moves/s)")
+    print(f"phase 4 [{stem}] {card}: {ensemble.num_sites} sites, path {path}, "
+          f"T {temperature:g} K, mean enthalpy {mean_h:.6f} eV, acceptance "
+          f"{accept:.4f}, parity(e) {parity:.3e}, warm vs cold |dH| {repeat:.3e}, "
+          f"warm run {rate / 1e6:.1f} M attempts/s end to end ({wall:.4f} s for "
+          f"{WALKERS} walkers x {NSTEPS} steps){extra}; set-up: system load "
+          f"{load_s:.4f} s, sampler + tables {tables_s:.4f} s, cold run "
+          f"{cold_s:.4f} s ({cold_s - wall:+.4f} s over warm)")
     return ensemble, rate
 
 
-def time_window(ensemble, name, card, kernel_reps=50, twin_reps=3):
+def drive(move, cells, card):
+    """Phase 4 for one move: counts set to 0 just before, read just after."""
+    kernel_fn = KERNELS[move][0]
+    kernel_fn.launches = 0
+    results = {stem: drive_main_path(stem, card, *args) for stem, args in cells.items()}
+    launches = kernel_fn.launches
+    check(launches == len(cells) * 2 * (NSTEPS // THIN),
+          f"{launches} {move} kernel launches")
+    print(f"phase 4: {move}_chain launches on the {move} main path: {launches}")
+    return results, launches
+
+
+# ---------------- timing and bounds ----------------
+
+def bound(tables, ops, move):
+    """The least time of one launch: (ms, "bytes" or "operations", bytes,
+    f64 operations, ms of the Ewald term's operations alone).
+
+    Bytes: every operand read once and every output written once (the
+    occupancy [R, W] int8 in and out, the per-walker state, the sequences
+    and the tables).  Operations: the f64 adds and subtracts per
+    walker-step (two per local cluster of each changed site, R + 2 per
+    Ewald term, the chemical work's two for a flip, the enthalpy's one).
+    """
+    R, W = ops["occ"].shape
+    L, steps = tables.nbr.shape[1], ops["n_steps"]
+    seqs = [v for k, v in ops.items() if k in ("seq", "useq", "vseq")]
+    table_tensors = [tables.nbr, tables.stride, tables.d2, tables.g]
+    if move == "flip":
+        table_tensors += [tables.mu, tables.ncode]
+    if tables.has_ewald:
+        table_tensors += [tables.ew_v, tables.ew_c]
+    nbytes = (2 * R * W + W * (2 * 8 + 4) + 2 * 4 * W * (1 + (move == "swap"))
+              + sum(s[:, :steps].numel() * 4 for s in seqs)
+              + sum(t.numel() * t.element_size() for t in table_tensors))
+    sites = 2 if move == "swap" else 1
+    ewald = sites * (R + 2) if tables.has_ewald else 0
+    n_ops = W * steps * (sites * 2 * L + 1 + (2 if move == "flip" else 0) + ewald)
+    ops_s = n_ops / PEAK_F64_PER_S
+    bytes_s = nbytes / PEAK_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes",
+            nbytes, n_ops, W * steps * ewald / PEAK_F64_PER_S * 1e3)
+
+
+def time_window(ensemble, name, card, move, block, kernel_reps=50, twin_reps=3):
     """Phase 5: one 100-step window at 8192 walkers, kernel against twin."""
-    tables = tables_of(ensemble)
-    ops = window_operands(ensemble, tables, occ_seed=5, seq_seed=1)
-    seed = torch.tensor([42], dtype=torch.int64, device=ensemble.device)
-    args = (ops["occ"], ops["enthalpy"], ops["naccept"], ops["beta32"],
-            ops["seq"], seed, tables, THIN, BLOCK, "philox")
-    kernel_ms = cuda_ms(lambda: chain.flip_chain(*args), kernel_reps)
-    twin_ms = cuda_ms(lambda: chain.flip_chain_reference(*args), twin_reps)
+    tables = tables_of(ensemble, move)
+    ops = window_operands(ensemble, tables, move, block, occ_seed=5, seq_seed=1)
+    ops["seed"] = torch.tensor([42], dtype=torch.int64, device=ensemble.device)
+    kernel_fn, twin_fn = KERNELS[move]
+    kernel_ms = cuda_ms(lambda: kernel_fn(**ops), kernel_reps)
+    twin_ms = cuda_ms(lambda: twin_fn(**ops), twin_reps)
+    bound_ms, bound_by, nbytes, n_ops, ewald_ms = bound(tables, ops, move)
     rate = WALKERS * THIN / (kernel_ms * 1e-3)
-    print(f"phase 5 [{name}] {card}: 100-step window at {WALKERS} walkers: kernel "
-          f"{kernel_ms:.4f} ms ({rate / 1e6:.1f} M attempts/s), twin "
-          f"{twin_ms:.2f} ms, twin/kernel {twin_ms / kernel_ms:.1f}x")
-    return kernel_ms, twin_ms
+    line = (f"phase 5 [{move} {name}] {card}: 100-step window at {WALKERS} walkers: "
+            f"kernel {kernel_ms:.4f} ms ({rate / 1e6:.1f} M attempts/s), twin "
+            f"{twin_ms:.2f} ms, twin/kernel {twin_ms / kernel_ms:.1f}x, bound "
+            f"{bound_ms * 1e3:.3f} us ({bound_by}; {nbytes / 1e6:.3f} MB, "
+            f"{n_ops / 1e6:.1f} M f64 operations), kernel/bound "
+            f"{kernel_ms / bound_ms:.0f}x")
+    result = {"kernel_ms": kernel_ms, "twin_ms": twin_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by}
+    if tables.has_ewald:  # K4's share: the same launch without the Ewald term
+        plain = {**ops, "tables": dataclasses.replace(tables, ew_v=None, ew_c=None)}
+        result["kernel_no_ewald_ms"] = cuda_ms(lambda: kernel_fn(**plain), kernel_reps)
+        line += (f"; without the Ewald term {result['kernel_no_ewald_ms']:.4f} ms "
+                 f"(the term's own bound {ewald_ms * 1e3:.3f} us)")
+    print(line)
+    return result
 
 
 def main():
@@ -273,50 +441,70 @@ def main():
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
 
-    # phase 2: build from the checkout's sources
-    lib_path, log, seconds = _build.build_library("flip_chain")
-    _build.load_flip_chain()
-    print(f"phase 2: built {lib_path.relative_to(ROOT)} in {seconds:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    # phase 2: build from the checkout's sources, all kernels at once
+    built = _build.build_libraries(tuple(_build.KERNELS))
+    for name, (lib_path, log, seconds) in built.items():
+        _build.load_chain(name)
+        print(f"phase 2: built {lib_path.relative_to(ROOT)} in {seconds:.1f} s")
+        for line in ptxas_summary(log):
+            print("  ptxas:", line)
 
-    # phase 3: kernel against twin at the main path's shapes
-    ensembles = {name: load_ensemble(name) for name in CELLS}
-    errs = [
-        window_vs_twin(ensembles[name], name, rng, seed)
-        for name in CELLS
-        for rng, seed in (("hash", 987654321), ("philox", 0x2545F4914F6CDD1D))
-    ]
-    errs.append(chunked_hash_vs_twin(ensembles["2x2x2"], "2x2x2"))
+    # phase 3: kernels against twins at the main paths' shapes
+    flips = {stem: load(stem)[0] for stem in FLIP_CELLS}
+    swaps = {stem: load(stem)[0] for stem in SWAP_CELLS}
+    errs = {"flip": [], "swap": []}
+    for stem, ens in flips.items():
+        for rng, seed in SEEDS:
+            errs["flip"].append(window_vs_twin(ens, stem, "flip", BLOCK, rng, seed))
+    errs["flip"].append(chunked_hash_vs_twin(flips["spinel_2x2x2"], "spinel_2x2x2",
+                                             "flip", BLOCK))
+    for rng, seed in SEEDS:  # the flip chain with the Ewald term (K4)
+        errs["flip"].append(window_vs_twin(swaps["spinel_ewald_2x2x2"],
+                                           "spinel_ewald_2x2x2", "flip", BLOCK, rng, seed))
+    for stem, ens in swaps.items():
+        for rng, seed in SEEDS:
+            errs["swap"].append(window_vs_twin(ens, stem, "swap", SWAP_CELLS[stem][1],
+                                               rng, seed))
+    errs["swap"].append(chunked_hash_vs_twin(swaps["spinel_ewald_2x2x2"],
+                                             "spinel_ewald_2x2x2", "swap", BLOCK))
+    print(f"phases 2-3 took {time.perf_counter() - t_start:.1f} s")
 
-    # phase 4: the main path; only these runs are counted
-    chain.flip_chain.launches = 0
-    runs = [drive_main_path(name, card) for name in CELLS]
-    launches = chain.flip_chain.launches
-    check(launches == len(CELLS) * 2 * (NSTEPS // THIN), f"{launches} kernel launches")
-    print(f"phase 4: flip_chain launches on the main path: {launches}")
+    # phase 4: the main paths; only these runs are counted
+    flip_runs, flip_launches = drive(
+        "flip", {stem: (TEMPERATURE, BLOCK) for stem in FLIP_CELLS}, card)
+    swap_runs, swap_launches = drive("swap", SWAP_CELLS, card)
+    print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # phase 5: window timings, kernel against twin
-    timings = {
-        name: time_window(ens, name, card) for (ens, _), name in zip(runs, CELLS)
-    }
+    timings = {("flip", stem): time_window(ens, stem, card, "flip", BLOCK)
+               for stem, (ens, _) in flip_runs.items()}
+    timings[("flip", "spinel_ewald_2x2x2")] = time_window(
+        swaps["spinel_ewald_2x2x2"], "spinel_ewald_2x2x2", card, "flip", BLOCK)
+    for stem, (ens, _) in swap_runs.items():
+        timings[("swap", stem)] = time_window(ens, stem, card, "swap", SWAP_CELLS[stem][1])
     print("timings " + card + ": " + json.dumps(
-        {k: {"kernel_ms": v[0], "twin_ms": v[1]} for k, v in timings.items()}
-    ))
+        {f"{move} {stem}": v for (move, stem), v in timings.items()}))
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
 
-    kernel_ms, twin_ms = timings["2x2x2"]
-    print(json.dumps({"kernels": [{
-        "name": "flip_chain",
-        "route": "cuda",
-        "source": "smol_tpu_torch/csrc/flip_chain.cu",
-        "replaces": "smol_tpu/ops/pallas_chain.py:1545",
-        "launches": launches,
-        "max_abs_err": max(errs),
-        "ms": kernel_ms,
-        "plain_ms": twin_ms,
-    }]}))
+    def entry(move, stem, source, replaces, launches):
+        t = timings[(move, stem)]
+        return {
+            "name": f"{move}_chain", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(errs[move]), "ms": t["kernel_ms"],
+            "plain_ms": t["twin_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,  # no single PyTorch call runs a Metropolis chain
+        }
+
+    print(json.dumps({"kernels": [
+        entry("flip", "spinel_2x2x2", "smol_tpu_torch/csrc/flip_chain.cu",
+              "smol_tpu/ops/pallas_chain.py:1545", flip_launches),
+        entry("swap", "spinel_ewald_2x2x2", "smol_tpu_torch/csrc/swap_chain.cu",
+              "smol_tpu/ops/pallas_chain.py:1817", swap_launches),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

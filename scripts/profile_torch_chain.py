@@ -1,0 +1,120 @@
+"""Where the time of the port's main paths goes on one GPU: a profiler trace.
+
+For each cell (the semigrand spinel's flips, and the canonical swaps on
+the spinel CE + Ewald and on Au-Cu), a warm-up run and then a run of
+``WINDOWS`` thinning windows (8192 walkers, 100 steps each) under
+``torch.profiler``.  Prints, beside the card's name and power limit:
+
+- the wall time of the profiled run (host clock, ending in a synchronize)
+  and of one window;
+- the device busy time (the union of the device activity intervals in the
+  trace) and the device idle share, 1 - busy / wall;
+- the device time of the chain kernel and of everything else, by name;
+- the host time of the CUDA runtime calls (launches, copies,
+  synchronisations), by name: a call that waits for the device shows here.
+
+Run from the repository root with ``python scripts/profile_torch_chain.py``;
+it needs one CUDA device and ``nvcc`` (the kernels are built at first use).
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from smol_tpu_torch.moca.ensemble import Ensemble, random_occupancies  # noqa: E402
+from smol_tpu_torch.moca.sampler.sampler import Sampler  # noqa: E402
+from smol_tpu_torch.system import load_system  # noqa: E402
+
+WALKERS = 8192
+THIN = 100
+WINDOWS = 50
+CELLS = {  # system file stem -> (temperature K, sequence block)
+    "spinel_2x2x2": (1000.0, 1024),
+    "spinel_ewald_2x2x2": (1000.0, 1024),
+    "spinel_ewald_3x3x3": (1000.0, 1024),
+    "aucu_4x4x4": (300.0, 512),
+}
+
+
+def busy_us(events):
+    """Length of the union of [start, end) intervals, in microseconds."""
+    total, last_end = 0.0, -np.inf
+    for start, end in sorted(events):
+        if end > last_end:
+            total += end - max(start, last_end)
+            last_end = end
+    return total
+
+
+def profile_cell(stem, temperature, block, card):
+    system = load_system(ROOT / "tests" / "data" / f"torch_{stem}.npz")
+    ensemble = Ensemble.from_system(system, "cuda")
+    occ0 = system.get("initial_occupancy")
+    if occ0 is None:
+        occ0 = random_occupancies(ensemble, WALKERS, 0)
+    sampler = Sampler.from_ensemble(ensemble, temperature, WALKERS, seed=3,
+                                    chain_block_size=block)
+    sampler.run(WINDOWS * THIN, occ0, thin_by=THIN)  # warm-up
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        start = time.perf_counter()
+        sampler.run(WINDOWS * THIN, thin_by=THIN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    path = sampler.execution_path(THIN)
+    head = (f"[{stem}] {card}: {path}, {WINDOWS} windows x {THIN} steps x "
+            f"{WALKERS} walkers: wall {wall * 1e3:.3f} ms "
+            f"({wall / WINDOWS * 1e3:.4f} ms per window)")
+    if not device:
+        print(head + "; device time: not measured (the trace holds no device events)")
+        return
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in device]) * 1e-6
+    by_name = defaultdict(float)
+    for e in device:
+        by_name[e.name] += (e.time_range.end - e.time_range.start) * 1e-3  # ms
+    chain = sum(v for k, v in by_name.items() if "chain_kernel" in k)
+    print(head + f"; device busy {busy * 1e3:.3f} ms, idle share "
+          f"{1 - busy / wall:.4f}; chain kernel {chain:.3f} ms "
+          f"({chain / WINDOWS:.4f} ms per window), other device work "
+          f"{sum(by_name.values()) - chain:.3f} ms in "
+          f"{len(device) - sum(1 for e in device if 'chain_kernel' in e.name)} "
+          f"activities")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {ms:9.3f} ms  {name[:110]}")
+    runtime = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("cuda"):
+            runtime[e.name][0] += (e.time_range.end - e.time_range.start) * 1e-3
+            runtime[e.name][1] += 1
+    for name, (ms, count) in sorted(runtime.items(), key=lambda kv: -kv[1][0])[:5]:
+        print(f"    host {ms:9.3f} ms in {count:6d} calls  {name}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_chain: torch sees no CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(card)
+    for stem, (temperature, block) in CELLS.items():
+        profile_cell(stem, temperature, block, card)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,10 @@
 """Thermodynamic ensemble: processor + sublattices + chemical potentials.
 
 Counterpart of ``smol_tpu/moca/ensemble.py`` (``Ensemble`` :85).  The
-natural parameters are the expansion coefficients, plus -1 for the
-chemical-work feature when chemical potentials are set (semigrand); the
+natural parameters are the expansion coefficients, then the Ewald
+coefficient when the system has an Ewald term (the composite processor of
+:142-156), plus -1 for the chemical-work feature when chemical potentials
+are set (semigrand; without them the ensemble is canonical); the
 per-(site, code) chemical-potential table feeds both the feature vector
 and the flip chain.  Built from a system dict rather than from a cluster
 expansion: the host layer that builds systems is not ported yet.
@@ -13,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from smol_tpu_torch.moca.processor.composite import CompositeProcessor
+from smol_tpu_torch.moca.processor.ewald import EwaldProcessor
 from smol_tpu_torch.moca.processor.expansion import ClusterExpansionProcessor
 from smol_tpu_torch.moca.sublattice import sublattices_from_system
 
@@ -54,14 +58,27 @@ class Ensemble:
 
     @classmethod
     def from_system(cls, system: dict, device) -> "Ensemble":
-        """An ensemble from a system dict, with its tables on ``device``."""
+        """An ensemble from a system dict, with its tables on ``device``.
+
+        A system with ``ewald_matrix`` gets the composite processor (the
+        expansion, then the Ewald term); one without a
+        ``chemical_potential_table`` is canonical.
+        """
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"device {device} requested but torch sees no CUDA device"
             )
+        processor = ClusterExpansionProcessor(system, device)
+        if "ewald_matrix" in system:
+            processor = CompositeProcessor([processor, EwaldProcessor(system, device)])
+        if processor.num_energy_coefs != int(system["num_energy_coefs"]):
+            raise ValueError(
+                f"the system has {int(system['num_energy_coefs'])} energy "
+                f"coefficients but its processors {processor.num_energy_coefs}"
+            )
         return cls(
-            ClusterExpansionProcessor(system, device),
+            processor,
             sublattices_from_system(system),
             system["natural_parameters"],
             system.get("chemical_potential_table"),
@@ -74,7 +91,7 @@ class Ensemble:
         return self._processor.device
 
     @property
-    def processor(self) -> ClusterExpansionProcessor:
+    def processor(self) -> ClusterExpansionProcessor | CompositeProcessor:
         return self._processor
 
     @property

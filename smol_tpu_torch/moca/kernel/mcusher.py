@@ -1,16 +1,17 @@
-"""MC step proposers (ushers): the single-site Flip.
+"""MC step proposers (ushers): the single-site Flip and the two-site Swap.
 
-A minimal counterpart of ``smol_tpu/moca/kernel/mcusher.py`` (:40-55 and
-``Flip``): the usher carries the active sublattices and the probability of
-proposing on each.  The proposals themselves are drawn on the device by
-the flip chain (:func:`smol_tpu_torch.ops.chain.rank_sequence`).
+A minimal counterpart of ``smol_tpu/moca/kernel/mcusher.py`` (:40-55,
+``Flip`` and ``Swap``): the usher carries the active sublattices and the
+probability of proposing on each.  The proposals themselves are drawn on
+the device by the chain (:func:`smol_tpu_torch.ops.chain.rank_sequence`,
+:func:`~smol_tpu_torch.ops.chain.rank_pair_sequence`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["MCUsher", "Flip", "mcusher_factory"]
+__all__ = ["MCUsher", "Flip", "Swap", "mcusher_factory"]
 
 
 class MCUsher:
@@ -38,12 +39,19 @@ class Flip(MCUsher):
     """Recolor one site to another allowed code (semigrand moves)."""
 
 
+class Swap(MCUsher):
+    """Exchange the codes of two sites of one sublattice (canonical moves)."""
+
+
+USHERS = {"flip": Flip, "swap": Swap}
+
+
 def mcusher_factory(step_type: str, sublattices, **kwargs) -> MCUsher:
-    """The usher for ``step_type``; the port has ``"flip"`` only."""
-    if step_type.replace("-", "").replace("_", "").lower() != "flip":
+    """The usher for ``step_type``; the port has ``"flip"`` and ``"swap"``."""
+    usher = USHERS.get(step_type.replace("-", "").replace("_", "").lower())
+    if usher is None:
         raise NotImplementedError(
             f"step type {step_type!r} is not ported yet (ROADMAP.md Queue 1: "
-            "canonical swaps are item 3, table flips item 4, other ushers "
-            "item 8)"
+            "table flips are item 4, other ushers item 8)"
         )
-    return Flip(sublattices, **kwargs)
+    return usher(sublattices, **kwargs)

@@ -1,33 +1,37 @@
-"""The Metropolis kernel on the shared-proposal flip chain.
+"""The Metropolis kernel on the shared-proposal chains.
 
-Counterpart of ``smol_tpu/moca/kernel/metropolis.py`` (:197-301,
-``_build_chain_tables`` and ``make_chain_fn``).  The port covers what its
-main path runs: single-site ``Flip`` moves with no bias and no tracked
-features, with shared random proposals or the deterministic sweep.
-Anything else raises ``NotImplementedError`` naming the ROADMAP.md item
-that ports it; nothing silently takes another path.
+Counterpart of ``smol_tpu/moca/kernel/metropolis.py`` (:83-95 and
+:197-301: ``initial_state``, ``_build_chain_tables`` and
+``make_chain_fn``).  The port covers single-site ``Flip`` moves
+(semigrand) and two-site ``Swap`` moves (canonical), with no bias and no
+tracked features, with shared random proposals or, for flips, the
+deterministic sweep.  Anything else raises ``NotImplementedError`` naming
+the ROADMAP.md item that ports it; nothing silently takes another path.
 """
 
 from __future__ import annotations
 
+import torch
+
 from smol_tpu_torch.moca.kernel.base import MCKernel, ThermalKernelMixin
+from smol_tpu_torch.moca.kernel.mcusher import Swap
 from smol_tpu_torch.ops import chain
 
 __all__ = ["Metropolis", "mckernel_factory"]
 
 
 class Metropolis(ThermalKernelMixin, MCKernel):
-    """Metropolis-Hastings single-flip kernel.
+    """Metropolis-Hastings kernel of single flips or canonical swaps.
 
     Args:
         ensemble: the :class:`~smol_tpu_torch.moca.ensemble.Ensemble`.
-        step_type: ``"flip"``.
+        step_type: ``"flip"`` or ``"swap"``.
         temperature: in K.
         seed: seed of the run's generator.
         shared_proposals: must be True: walkers of one block share the
             proposal site sequence (see :mod:`smol_tpu_torch.ops.chain`).
         chain_block_size: walkers per block (the sharing granularity).
-        proposal_mode: ``"random"`` or ``"sweep"``.
+        proposal_mode: ``"random"`` or ``"sweep"`` (flips only).
         rng: ``"philox"`` (run mode) or ``"hash"`` (the reference's
             interpret-mode random numbers, for parity checks).
     """
@@ -58,14 +62,30 @@ class Metropolis(ThermalKernelMixin, MCKernel):
         )
         self._chain_tables = None
 
+    @property
+    def move(self) -> str:
+        """The chain's move: ``"swap"`` for a Swap usher, else ``"flip"``."""
+        return "swap" if isinstance(self.mcusher, Swap) else "flip"
+
+    def initial_state(self, occupancies) -> dict:
+        state = super().initial_state(occupancies)
+        if self.move == "swap":
+            # non-null proposals: pairs of equal codes are identity moves,
+            # so this count gives the rate of moves that change something
+            state["nmove"] = torch.zeros_like(state["naccept"])
+        return state
+
     def chain_tables(self) -> chain.ChainTables:
-        """The flip-chain tables of this kernel's ensemble (built once)."""
+        """The chain tables of this kernel's ensemble (built once)."""
         if self._chain_tables is None:
             ens = self._ensemble
             self._chain_tables = chain.build_chain_tables(
                 ens.processor,
                 ens.sublattices,
-                mu_table=ens.chemical_potential_table,
+                # swaps conserve composition: no chemical work, no mu table
+                mu_table=(
+                    ens.chemical_potential_table if self.move == "flip" else None
+                ),
                 sublattice_probabilities=self.mcusher.sublattice_probabilities,
             )
         return self._chain_tables
@@ -77,6 +97,7 @@ class Metropolis(ThermalKernelMixin, MCKernel):
             block_size=self.chain_block_size,
             proposal_mode=self.proposal_mode,
             rng=self.rng,
+            move=self.move,
         )
 
 

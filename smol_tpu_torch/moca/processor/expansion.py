@@ -30,7 +30,7 @@ class ClusterExpansionProcessor:
         self.num_sites = int(system["num_sites"])
         self.size = int(system["size"])
         self.num_corr = int(system["num_corr"])
-        self.num_energy_coefs = int(system["num_energy_coefs"])
+        self.num_energy_coefs = self.num_corr  # one coefficient per feature
         self.packed = corr_ops.to_device(system, self.device)
         # host arrays of the per-site local clusters (chain-table input)
         self.local_sites = np.asarray(system["local_sites"])

@@ -1,4 +1,4 @@
-"""Sampler: drives the flip chain and stores its traces.
+"""Sampler: drives the flip or swap chain and stores its traces.
 
 Counterpart of ``smol_tpu/moca/sampler/sampler.py``.  ``run`` drives one
 chain call per thinning window (:func:`smol_tpu_torch.ops.mc.run_chain_fused`)
@@ -48,8 +48,9 @@ class Sampler:
                       replica_exchange_period=None, **kwargs):
         """A Sampler of ``ensemble`` on ``device``.
 
-        The default step type is ``"flip"`` for a semigrand ensemble (the
-        one the port has).  ``kwargs`` go to the kernel
+        The default step type is ``"flip"`` for a semigrand ensemble and
+        ``"swap"`` for a canonical one (no chemical potentials), as in the
+        reference.  ``kwargs`` go to the kernel
         (:class:`~smol_tpu_torch.moca.kernel.metropolis.Metropolis`).
         """
         if replica_exchange_period is not None:
@@ -69,12 +70,9 @@ class Sampler:
                 f"the ensemble lives on {ensemble.device}, not on {device}"
             )
         if step_type is None:
-            if ensemble.chemical_potential_table is None:
-                raise NotImplementedError(
-                    "canonical (swap) sampling is not ported yet (ROADMAP.md "
-                    "Queue 1 item 3)"
-                )
-            step_type = "flip"
+            step_type = (
+                "flip" if ensemble.chemical_potential_table is not None else "swap"
+            )
         kernel = mckernel_factory(
             kernel_type, ensemble, step_type, temperature, seed=seed, **kwargs
         )
@@ -100,15 +98,19 @@ class Sampler:
     def execution_path(self, thin_by: int = 1) -> str:
         """The path ``run(thin_by=...)`` dispatches, as one string.
 
-        ``"cuda-chain[flip]"`` on a CUDA device (the hand-written kernel),
-        ``"cpu-twin[flip]"`` on the CPU (the plain torch chain), then the
-        energy delta (``direct``: one table lookup per local cluster) and
-        the proposal schedule.
+        ``"cuda-chain[flip]"`` or ``"cuda-chain[swap]"`` on a CUDA device
+        (the hand-written kernel), ``"cpu-twin[...]"`` on the CPU (the plain
+        torch chain), then ``ewald`` when the delta carries the Ewald term,
+        the energy delta (``direct``: one table lookup per local cluster)
+        and the proposal schedule.
         """
         self._get_chain_fn(int(thin_by))
         kern = self._kernel
         where = "cuda-chain" if kern.device.type == "cuda" else "cpu-twin"
-        parts = [f"{where}[flip]", "direct"]
+        parts = [f"{where}[{kern.move}]"]
+        if kern.chain_tables().has_ewald:
+            parts.append("ewald")
+        parts.append("direct")
         if kern.proposal_mode == "sweep":
             parts.append("sweep-schedule+independent-walkers")
         else:

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
+Each ``csrc/<name>.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, under
 ``build/smol_tpu_torch/`` at the repository root, and loaded with
-``ctypes``.  The library's file name carries a hash of its source, so an
-edited source is rebuilt and a stale library is never loaded.  Nothing is
-built or loaded when a module is imported.
+``ctypes``.  The library's file name carries a hash of its source and of
+the headers in ``csrc/``, so an edited source is rebuilt and a stale
+library is never loaded.  Nothing is built or loaded when a module is
+imported.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "build_library", "load_flip_chain"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "KERNELS", "build_libraries", "load_chain"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "smol_tpu_torch"
@@ -27,6 +28,17 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+# name -> argtypes of its entry point smol_<name>
+KERNELS = {
+    # occ enthalpy naccept beta seq | seq_stride | seed nbr stride d2 g mu
+    # ncode ew_v ew_c | R L K TM C W block_size n_steps rng_mode | stream
+    "flip_chain": [_ptr] * 5 + [_i32] + [_ptr] * 9 + [_i32] * 9 + [_ptr],
+    # occ enthalpy naccept nmove beta useq vseq | seq_stride | seed nbr
+    # stride d2 g ew_v ew_c | R L K TM W block_size n_steps rng_mode | stream
+    "swap_chain": [_ptr] * 7 + [_i32] + [_ptr] * 7 + [_i32] * 8 + [_ptr],
+}
 
 
 def _nvcc() -> str:
@@ -41,43 +53,55 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build")
 
 
-def build_library(name: str) -> tuple[Path, str, float]:
-    """Compile ``csrc/<name>.cu``; return (library path, nvcc log, seconds).
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
-    The seconds are 0 and the log empty when the library was already built
-    from the same source.
+
+def build_libraries(names) -> dict:
+    """Compile ``csrc/<name>.cu`` for each name, all nvcc runs at once.
+
+    Returns ``{name: (library path, nvcc log, seconds)}``; the seconds are
+    0 and the log empty for a library already built from the same sources.
     """
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(source.read_bytes()).hexdigest()[:12]
-    lib = BUILD_DIR / f"lib{name}_{digest}.so"
-    if lib.exists():
-        return lib, "", 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    results, running = {}, {}
     start = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-        capture_output=True, text=True, check=False,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed on {source} (exit {proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}"
+    for name in names:
+        lib = _library_path(name)
+        if lib.exists():
+            results[name] = (lib, "", 0.0)
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        source = CSRC_DIR / f"{name}.cu"
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr, time.perf_counter() - start
+        running[name] = (proc, lib, tmp, source)
+    failures = []
+    for name, (proc, lib, tmp, source) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed on {source} (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, lib)
+        results[name] = (lib, log, time.perf_counter() - start)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return results
 
 
 @functools.lru_cache(maxsize=None)
-def load_flip_chain() -> ctypes.CDLL:
-    """The flip-chain library (built on first call), with its signatures."""
-    path, _, _ = build_library("flip_chain")
+def load_chain(name: str) -> ctypes.CDLL:
+    """The library of kernel ``name`` (built on first call), with signatures."""
+    (path, _, _), = build_libraries([name]).values()
     lib = ctypes.CDLL(str(path))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.smol_flip_chain.argtypes = (
-        [ptr] * 5 + [i32, ptr] + [ptr] * 6 + [i32] * 9 + [ptr]
-    )
-    lib.smol_flip_chain.restype = i32
-    lib.smol_cuda_error_string.argtypes = [i32]
+    entry = getattr(lib, f"smol_{name}")
+    entry.argtypes = KERNELS[name]
+    entry.restype = _i32
+    lib.smol_cuda_error_string.argtypes = [_i32]
     lib.smol_cuda_error_string.restype = ctypes.c_char_p
     return lib

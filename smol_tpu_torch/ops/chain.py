@@ -1,23 +1,33 @@
-"""Shared-proposal single-flip Metropolis chain.
+"""Shared-proposal Metropolis chains: single flips and canonical swaps.
 
-Counterpart of ``smol_tpu/ops/pallas_chain.py`` for ``move="flip"``
-(``build_chain_tables`` :841, ``rank_sequence`` :1142,
+Counterpart of ``smol_tpu/ops/pallas_chain.py`` for ``move="flip"`` and
+``move="swap"`` (``build_chain_tables`` :841 with the Ewald fold
+:1043-1091, ``rank_sequence`` :1142, ``rank_pair_sequence`` :1161,
 ``make_shared_proposal_chain`` :1439).  The statistical contract is the
 reference's: the proposal sites follow an exogenous sequence shared by
 the walkers of one block (``block_size``), every other draw is per walker,
 and each walker is an exact Metropolis chain.  ``proposal_mode="sweep"``
-replaces the random sequence with one fixed permutation of the active
-ranks, repeated, so that the walkers are fully independent.
+replaces the random sequence of flips with one fixed permutation of the
+active ranks, repeated, so that the walkers are fully independent.
 
-The chain runs in :func:`flip_chain`: on a CUDA tensor it launches the
-hand-written kernel ``csrc/flip_chain.cu``; on a CPU tensor it runs
-:func:`flip_chain_reference`, the plain torch twin that does the same
-arithmetic in the same order.
+A swap takes an exogenous pair (u, v) of ranks of one sublattice; a pair
+whose sites hold the same code (or u == v) is an identity proposal that
+is never accepted, and the chain counts the other, non-null proposals
+(``nmove``).  The joint delta is exact: dE(u: a -> b) + dE(v: b -> a with
+u already holding b).
+
+The chains run in :func:`flip_chain` and :func:`swap_chain`: on a CUDA
+tensor they launch the hand-written kernels ``csrc/flip_chain.cu`` and
+``csrc/swap_chain.cu``; on a CPU tensor they run
+:func:`flip_chain_reference` and :func:`swap_chain_reference`, the plain
+torch twins that do the same arithmetic in the same order.
 
 Tables hold the rank layout of the reference (rank = position in the
 concatenated active sites of the active sublattices) on plain f64
 lookups; nothing of the TPU layout (bf16 gather rows, double-float splits,
-L segments, Ising or q-ary character tables) is kept.
+L segments, Ising or q-ary character tables) is kept.  With an Ewald term
+the tables carry the reference's fold in f64 (no hi/lo split): the Ewald
+change of rank u going from code a to b is (b - a) * (C_u + V_u . occ).
 """
 
 from __future__ import annotations
@@ -27,18 +37,26 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from smol_tpu_torch.moca.processor.composite import CompositeProcessor
+from smol_tpu_torch.moca.processor.ewald import EwaldProcessor
+from smol_tpu_torch.moca.processor.expansion import ClusterExpansionProcessor
 from smol_tpu_torch.ops import _build
 from smol_tpu_torch.ops.rng import hash_bits, philox4x32_10, uniform01_from_bits
 
 __all__ = [
     "ChainTables",
     "build_chain_tables",
+    "fold_ewald",
     "rank_sequence",
+    "rank_pair_sequence",
     "sweep_schedule",
     "chain_draws",
     "flip_step_reference",
     "flip_chain_reference",
     "flip_chain",
+    "swap_step_reference",
+    "swap_chain_reference",
+    "swap_chain",
     "make_shared_proposal_chain",
 ]
 
@@ -47,11 +65,12 @@ SEED_STRIDE = 999983  # hash mode: seed of chunk c = seed0 + c * SEED_STRIDE
 BLOCK_SEED_STRIDE = 7919  # hash mode: block seed = chunk seed + block * 7919
 SWEEP_SEED = 0x5EED  # seed of the sweep schedule's fixed permutation
 RNG_MODES = {"philox": 0, "hash": 1}
+MOVES = ("flip", "swap")
 
 
 @dataclass(frozen=True)
 class ChainTables:
-    """Static operands of the flip chain, on one device.
+    """Static operands of the chain kernels, on one device.
 
     R active ranks, L local clusters per site, K slots per cluster, TM the
     largest tensor, C code columns of the chemical-potential table.
@@ -68,6 +87,8 @@ class ChainTables:
     cum_probs: np.ndarray  # [S] f64 sublattice pick cdf
     sub_offset: np.ndarray  # [S] int64 first rank of each active sublattice
     n_active: np.ndarray  # [S] int64 active sites of each sublattice
+    ew_v: torch.Tensor | None = None  # [R, R] f64 Ewald fold, V[u, u] = 0
+    ew_c: torch.Tensor | None = None  # [R] f64 Ewald fold constants
 
     @property
     def num_ranks(self) -> int:
@@ -77,20 +98,73 @@ class ChainTables:
     def device(self) -> torch.device:
         return self.g.device
 
+    @property
+    def has_ewald(self) -> bool:
+        return self.ew_v is not None
+
+
+def _split_processor(processor):
+    """(expansion part, Ewald part or None) of a processor (ref :854-866)."""
+    if not isinstance(processor, CompositeProcessor):
+        return processor, None
+    parts = processor.processors
+    ce = [p for p in parts if isinstance(p, ClusterExpansionProcessor)]
+    ew = [p for p in parts if isinstance(p, EwaldProcessor)]
+    if len(ce) != 1 or len(ew) > 1 or len(ce) + len(ew) != len(parts):
+        raise NotImplementedError(
+            "the chain takes one cluster expansion and at most one Ewald term"
+        )
+    return ce[0], (ew[0] if ew else None)
+
+
+def fold_ewald(ewald_matrix, ewald_inds, coef, rank_sites, n_codes):
+    """The reference's Ewald fold over binary ranks, in f64: (V [R, R], C [R]).
+
+    Counterpart of ``pallas_chain.py:1043-1091``.  With code 0 and 1 of
+    rank u on Ewald rows r0(u), r1(u) (none for a vacancy) and
+    dm_u = M[r1(u)] - M[r0(u)], flipping u from 0 to 1 changes the Ewald
+    energy by C_u + sum_t V[u, t] occ_t, where
+    V[u, t] = 2 coef (dm_u[r1(t)] - dm_u[r0(t)]) for t != u, V[u, u] = 0,
+    and C_u = coef (M[r1, r1] - M[r0, r0] + 2 sum over the fixed
+    single-code sites' rows of dm_u + 2 sum_{t != u} dm_u[r0(t)]).
+    """
+    M = np.asarray(ewald_matrix, dtype=np.float64)
+    inds = np.asarray(ewald_inds)
+    n_ew = M.shape[0]
+    Mp = np.zeros((n_ew + 1, n_ew + 1))  # row and column n_ew: no row, zeros
+    Mp[:n_ew, :n_ew] = M
+
+    def rows(sites, code):
+        r = inds[sites, code] if code < inds.shape[1] else np.full(len(sites), -1)
+        return np.where((r >= 0) & (r < n_ew), r, n_ew)
+
+    fixed = rows(np.flatnonzero(n_codes == 1), 0)
+    r0, r1 = rows(rank_sites, 0), rows(rank_sites, 1)
+    dm = Mp[r1] - Mp[r0]  # [R, n_ew + 1]
+    m0, m1 = dm[:, r0], dm[:, r1]  # [u, t] = dm_u[r(t)]
+    off = ~np.eye(len(rank_sites), dtype=bool)
+    V = np.where(off, 2.0 * (m1 - m0), 0.0)
+    C = (Mp[r1, r1] - Mp[r0, r0]) + 2.0 * dm[:, fixed].sum(axis=1) \
+        + 2.0 * np.where(off, m0, 0.0).sum(axis=1)
+    return coef * V, coef * C
+
 
 def build_chain_tables(processor, sublattices, mu_table=None,
                        sublattice_probabilities=None) -> ChainTables:
     """Chain tables of a processor's local clusters, on its device.
 
-    Requirements, as in the reference: active sublattices with default
-    (arange) encodings and no restricted sites, and every non-self slot of
-    a local cluster on an active site or on a single-code (code 0) site.
-    Raises ``NotImplementedError`` otherwise.
+    The processor is a cluster expansion, or a composite of one and an
+    Ewald term, whose fold the tables then carry.  Requirements, as in the
+    reference: active sublattices with default (arange) encodings and no
+    restricted sites, every non-self slot of a local cluster on an active
+    site or on a single-code (code 0) site, and, with an Ewald term,
+    binary active sites.  Raises ``NotImplementedError`` otherwise.
     """
-    sites3 = processor.local_sites
-    strides3 = processor.local_strides
-    d2 = processor.local_d2
-    g3 = processor.local_g
+    ce, ewald = _split_processor(processor)
+    sites3 = ce.local_sites
+    strides3 = ce.local_strides
+    d2 = ce.local_d2
+    g3 = ce.local_g
     n = sites3.shape[0]
 
     active = [s for s in sublattices if s.is_active]
@@ -101,6 +175,8 @@ def build_chain_tables(processor, sublattices, mu_table=None,
             raise NotImplementedError("non-default sublattice encodings")
         if len(s.active_sites) != len(s.sites):
             raise NotImplementedError("sublattices with restricted sites")
+    if ewald is not None and any(len(s.encoding) != 2 for s in active):
+        raise NotImplementedError("the Ewald fold needs binary active sites")
     n_codes = np.ones(n, dtype=np.int64)
     for s in sublattices:
         n_codes[s.sites] = len(s.encoding)
@@ -135,10 +211,16 @@ def build_chain_tables(processor, sublattices, mu_table=None,
         if len(probs) != len(active):
             raise ValueError("one sublattice probability per active sublattice")
 
-    device = processor.device
+    device = ce.device
 
     def dev(x, dtype):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
+
+    ew_v = ew_c = None
+    if ewald is not None:
+        V, C = fold_ewald(ewald.ewald_matrix, ewald.ewald_inds, ewald.coef,
+                          rank_sites, n_codes)
+        ew_v, ew_c = dev(V, torch.float64), dev(C, torch.float64)
 
     return ChainTables(
         num_sites=n,
@@ -152,7 +234,27 @@ def build_chain_tables(processor, sublattices, mu_table=None,
         cum_probs=np.cumsum(probs),
         sub_offset=np.concatenate([[0], np.cumsum(n_active)[:-1]]).astype(np.int64),
         n_active=n_active,
+        ew_v=ew_v,
+        ew_c=ew_c,
     )
+
+
+def _sublattice_draw(tables: ChainTables, generator, shape):
+    """(first rank, active sites) of a sublattice drawn by its probability."""
+    device = tables.device
+    cum = torch.as_tensor(tables.cum_probs, device=device)
+    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float64)
+    sl = (cum <= u[..., None]).sum(dim=-1).clamp(max=len(cum) - 1)
+    n_act = torch.as_tensor(tables.n_active, device=device)[sl]
+    off = torch.as_tensor(tables.sub_offset, device=device)[sl]
+    return off, n_act
+
+
+def _uniform_rank(off, n_act, generator):
+    """A rank uniform within each drawn sublattice, int32."""
+    v = torch.rand(off.shape, generator=generator, device=off.device,
+                   dtype=torch.float64)
+    return (off + torch.minimum((v * n_act).long(), n_act - 1)).to(torch.int32)
 
 
 def rank_sequence(tables: ChainTables, generator, shape) -> torch.Tensor:
@@ -162,15 +264,21 @@ def rank_sequence(tables: ChainTables, generator, shape) -> torch.Tensor:
     uniform within it: the reference Flip usher's proposal distribution.
     Drawn on the tables' device from ``generator``.
     """
-    device = tables.device
-    cum = torch.as_tensor(tables.cum_probs, device=device)
-    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float64)
-    sl = (cum <= u[..., None]).sum(dim=-1).clamp(max=len(cum) - 1)
-    n_act = torch.as_tensor(tables.n_active, device=device)[sl]
-    off = torch.as_tensor(tables.sub_offset, device=device)[sl]
-    v = torch.rand(shape, generator=generator, device=device, dtype=torch.float64)
-    site = torch.minimum((v * n_act).long(), n_act - 1)
-    return (off + site).to(torch.int32)
+    off, n_act = _sublattice_draw(tables, generator, shape)
+    return _uniform_rank(off, n_act, generator)
+
+
+def rank_pair_sequence(tables: ChainTables, generator, shape):
+    """State-independent swap pairs ``(u, v)`` of ``shape``, int32 each.
+
+    The sublattice follows the sublattice probabilities; u and v are iid
+    uniform within it (the reference's ``rank_pair_sequence`` :1161).
+    Pairs with u == v, or with equal codes at run time, are identity
+    proposals: the proposal is state-independent and symmetric, so each
+    walker stays an exact canonical Metropolis chain.
+    """
+    off, n_act = _sublattice_draw(tables, generator, shape)
+    return _uniform_rank(off, n_act, generator), _uniform_rank(off, n_act, generator)
 
 
 def sweep_schedule(num_ranks: int, n_steps: int) -> np.ndarray:
@@ -187,11 +295,12 @@ def chain_draws(rng: str, seed: int, n_steps: int, num_walkers: int,
                 block_size: int, device):
     """Random bits of one chain launch: (r_u, r_j), int64 [n_steps, W].
 
-    ``r_u`` feeds the acceptance uniform and ``r_j`` the proposed code;
-    both are 31-bit.  ``"hash"`` reproduces the reference's interpret-mode
-    hash (lane = w % block_size, block seed = seed + block * 7919);
-    ``"philox"`` is Philox4x32-10 with key (seed low word, walker) and
-    counter (step, seed high word, 0, 0).  The CUDA kernel draws the same.
+    ``r_u`` feeds the acceptance uniform and ``r_j`` the proposed code (a
+    swap draws only ``r_u``); both are 31-bit.  ``"hash"`` reproduces the
+    reference's interpret-mode hash (lane = w % block_size, block seed =
+    seed + block * 7919); ``"philox"`` is Philox4x32-10 with key (seed low
+    word, walker) and counter (step, seed high word, 0, 0).  The CUDA
+    kernels draw the same.
     """
     walkers = torch.arange(num_walkers, device=device, dtype=torch.int64)
     steps = torch.arange(n_steps, device=device, dtype=torch.int64)[:, None]
@@ -214,13 +323,67 @@ def chain_draws(rng: str, seed: int, n_steps: int, num_walkers: int,
     return bits[..., 0] & 0x7FFFFFFF, bits[..., 1] & 0x7FFFFFFF
 
 
+def _ce_terms(tables: ChainTables, occ, u, a, b):
+    """[W, L] f64 energy change of each local cluster of rank u[w], a -> b."""
+    walkers = torch.arange(occ.shape[1], device=occ.device)
+    nb = tables.nbr[u].long()  # [W, L, K]
+    codes = occ[nb.clamp(min=0), walkers[:, None, None]].long()
+    d2 = tables.d2[u].long()  # [W, L]
+    t = d2 * a[:, None] + (tables.stride[u].long() * codes).sum(dim=-1)
+    tn = t + d2 * (b - a)[:, None]
+    g_u = tables.g[u]  # [W, L, TM]
+    return g_u.gather(2, tn[..., None])[..., 0] - g_u.gather(2, t[..., None])[..., 0]
+
+
+def _ewald_term(tables: ChainTables, occ, u, sign):
+    """[W] f64 Ewald change sign * (C_u + V_u . occ) of rank u[w].
+
+    The dot sums in rank order, t = 0 .. R-1, as the kernels' loop does;
+    codes are 0/1, so each product is exact and both give the same sum.
+    """
+    prod = tables.ew_v[u] * occ.T.to(torch.float64)  # [W, R]
+    acc = torch.zeros(occ.shape[1], dtype=torch.float64, device=occ.device)
+    for t in range(prod.shape[1]):
+        acc = acc + prod[:, t]
+    return sign.to(torch.float64) * (tables.ew_c[u] + acc)
+
+
+def _accumulate(*columns):
+    """0.0 plus each [W] column in turn: the kernels' summation order."""
+    total = torch.zeros_like(columns[0])
+    for col in columns:
+        total = total + col
+    return total
+
+
+def _metropolis(dE, r_u, beta32):
+    """(accept, expo, log_u): the f32 Metropolis decision on f64 ``dE``."""
+    log_u = torch.log(uniform01_from_bits(r_u))
+    expo = -beta32 * dE.to(torch.float32)
+    return (expo >= 0) | (expo > log_u), expo, log_u
+
+
+def _lower_margin(margin, expo, log_u, beta32, slack, decided):
+    """margin = min(margin, distance of this decision beyond beta * slack).
+
+    The distance is counted in f32 ulps of log U; walkers whose decision
+    is ``decided`` regardless (null swaps) keep their margin.
+    """
+    ulp = (torch.nextafter(log_u, log_u.new_tensor(-float("inf"))) - log_u).abs()
+    gap = ((expo - log_u).abs() - beta32 * slack).clamp(min=0) / ulp
+    gap = torch.where(decided, torch.full_like(gap, float("inf")), gap)
+    torch.minimum(margin, gap, out=margin)
+
+
 def flip_step_reference(tables: ChainTables, occ, u, r_u, r_j, beta32):
     """One flip proposal for every walker, without applying it.
 
     ``occ`` [R, W] int8 codes, ``u`` [W] proposal ranks, ``r_u``/``r_j``
     [W] random bits, ``beta32`` [W] f32.  Returns ``(accept, b, dE, expo,
     log_u)``: the decision, the proposed codes, the f64 enthalpy change and
-    the f32 exponent and log uniform it was decided on.
+    the f32 exponent and log uniform it was decided on.  dE sums the
+    clusters' terms in order l = 0 .. L-1, then the Ewald term, then the
+    chemical work, as the kernel does.
     """
     walkers = torch.arange(occ.shape[1], device=occ.device)
     u = u.long()
@@ -229,22 +392,43 @@ def flip_step_reference(tables: ChainTables, occ, u, r_u, r_j, beta32):
     j = r_j % nc
     b = j + (j >= a).long()
 
-    nb = tables.nbr[u].long()  # [W, L, K]
-    codes = occ[nb.clamp(min=0), walkers[:, None, None]].long()
-    d2 = tables.d2[u].long()  # [W, L]
-    t = d2 * a[:, None] + (tables.stride[u].long() * codes).sum(dim=-1)
-    tn = t + d2 * (b - a)[:, None]
-    g_u = tables.g[u]  # [W, L, TM]
-    terms = g_u.gather(2, tn[..., None])[..., 0] - g_u.gather(2, t[..., None])[..., 0]
-    dE = torch.zeros(occ.shape[1], dtype=torch.float64, device=occ.device)
-    for l in range(terms.shape[1]):  # the kernel's summation order
-        dE = dE + terms[:, l]
-    dE = dE - (tables.mu[u, b] - tables.mu[u, a])
-
-    log_u = torch.log(uniform01_from_bits(r_u))
-    expo = -beta32 * dE.to(torch.float32)
-    accept = (expo >= 0) | (expo > log_u)
+    terms = _ce_terms(tables, occ, u, a, b)
+    columns = list(terms.unbind(1))
+    if tables.has_ewald:
+        columns.append(_ewald_term(tables, occ, u, b - a))
+    dE = _accumulate(*columns) - (tables.mu[u, b] - tables.mu[u, a])
+    accept, expo, log_u = _metropolis(dE, r_u, beta32)
     return accept, b, dE, expo, log_u
+
+
+def swap_step_reference(tables: ChainTables, occ, u, v, r_u, beta32):
+    """One swap proposal for every walker, without applying it.
+
+    ``occ`` [R, W] int8 codes (left as it was), ``u``/``v`` [W] ranks,
+    ``r_u`` [W] random bits, ``beta32`` [W] f32.  Returns ``(accept,
+    is_move, a, b, dE, expo, log_u)``: u holds a and v holds b; on accept
+    u takes b and v takes a.  dE sums u's cluster terms, then v's with u
+    already holding b, then u's Ewald term, then v's (against the same
+    occupancy), as the kernel does.  A null pair (a == b) is never
+    accepted.
+    """
+    walkers = torch.arange(occ.shape[1], device=occ.device)
+    u, v = u.long(), v.long()
+    a = occ[u, walkers].long()
+    b = occ[v, walkers].long()
+    is_move = a != b
+
+    columns = list(_ce_terms(tables, occ, u, a, b).unbind(1))
+    if tables.has_ewald:
+        ewald_u = _ewald_term(tables, occ, u, b - a)
+    occ[u, walkers] = b.to(occ.dtype)  # v's delta sees u already holding b
+    columns += list(_ce_terms(tables, occ, v, b, a).unbind(1))
+    if tables.has_ewald:
+        columns += [ewald_u, _ewald_term(tables, occ, v, a - b)]
+    occ[u, walkers] = a.to(occ.dtype)
+    dE = _accumulate(*columns)
+    accept, expo, log_u = _metropolis(dE, r_u, beta32)
+    return accept & is_move, is_move, a, b, dE, expo, log_u
 
 
 def flip_chain_reference(occ, enthalpy, naccept, beta32, seq, seed, tables,
@@ -267,41 +451,85 @@ def flip_chain_reference(occ, enthalpy, naccept, beta32, seq, seed, tables,
             tables, occ, u, r_u[i], r_j[i], beta32
         )
         if margin is not None:
-            ulp = (torch.nextafter(log_u, log_u.new_tensor(-float("inf"))) - log_u).abs()
-            torch.minimum(margin, (expo - log_u).abs() / ulp, out=margin)
+            _lower_margin(margin, expo, log_u, beta32, 0.0, torch.zeros_like(accept))
         occ[u, walkers] = torch.where(accept, b, occ[u, walkers].long()).to(occ.dtype)
         enthalpy += torch.where(accept, dE, torch.zeros_like(dE))
         naccept += accept.to(naccept.dtype)
 
 
-def _check_operands(occ, enthalpy, naccept, beta32, seq, seed, tables,
+def swap_chain_reference(occ, enthalpy, naccept, nmove, beta32, useq, vseq,
+                         seed, tables, n_steps, block_size, rng="philox",
+                         margin=None, slack=0.0):
+    """Plain torch twin of the CUDA swap-chain kernel (same arguments).
+
+    Updates ``occ``, ``enthalpy``, ``naccept`` and ``nmove`` (non-null
+    proposals) in place.  ``margin`` as in :func:`flip_chain_reference`,
+    with each distance taken beyond beta * ``slack`` (eV): where another
+    implementation's delta may be off by up to ``slack``, its decision
+    can differ only on walkers whose margin is a few ulps.  Null pairs
+    never lower the margin.
+    """
+    W = occ.shape[1]
+    walkers = torch.arange(W, device=occ.device)
+    group = walkers // block_size
+    r_u, _ = chain_draws(rng, int(seed[0]), n_steps, W, block_size, occ.device)
+    for i in range(n_steps):
+        u, v = useq[group, i].long(), vseq[group, i].long()
+        accept, is_move, a, b, dE, expo, log_u = swap_step_reference(
+            tables, occ, u, v, r_u[i], beta32
+        )
+        if margin is not None:
+            _lower_margin(margin, expo, log_u, beta32, slack, ~is_move)
+        occ[u, walkers] = torch.where(accept, b, a).to(occ.dtype)
+        occ[v, walkers] = torch.where(accept, a, b).to(occ.dtype)
+        enthalpy += torch.where(accept, dE, torch.zeros_like(dE))
+        naccept += accept.to(naccept.dtype)
+        nmove += is_move.to(nmove.dtype)
+
+
+def _check_operands(name, occ, enthalpy, counts, beta32, seqs, seed, tables,
                     n_steps, block_size):
     R, W = occ.shape
     expect = (
         (occ, torch.int8, (tables.num_ranks, W)),
         (enthalpy, torch.float64, (W,)),
-        (naccept, torch.int32, (W,)),
+        *((c, torch.int32, (W,)) for c in counts),
         (beta32, torch.float32, (W,)),
         (seed, torch.int64, (1,)),
     )
     for tensor, dtype, shape in expect:
         if tensor.dtype != dtype or tuple(tensor.shape) != shape:
             raise ValueError(
-                f"flip_chain operand: expected {dtype} {shape}, got "
+                f"{name} operand: expected {dtype} {shape}, got "
                 f"{tensor.dtype} {tuple(tensor.shape)}"
             )
     groups = -(-W // block_size)
-    if block_size < 1 or seq.dtype != torch.int32 or seq.dim() != 2 \
-            or seq.shape[0] != groups or seq.shape[1] < n_steps:
-        raise ValueError(
-            f"flip_chain sequence: expected int32 [{groups}, >={n_steps}], got "
-            f"{seq.dtype} {tuple(seq.shape)}"
-        )
-    operands = (occ, enthalpy, naccept, beta32, seq, seed, tables.g)
+    for seq in seqs:
+        if block_size < 1 or seq.dtype != torch.int32 or seq.dim() != 2 \
+                or seq.shape[0] != groups or seq.shape[1] < n_steps \
+                or seq.stride() != seqs[0].stride():
+            raise ValueError(
+                f"{name} sequence: expected int32 [{groups}, >={n_steps}] "
+                f"(all of one layout), got {seq.dtype} {tuple(seq.shape)}"
+            )
+    operands = (occ, enthalpy, *counts, beta32, *seqs, seed, tables.g)
     if any(t.device != occ.device for t in operands):
-        raise ValueError("flip_chain operands lie on different devices")
+        raise ValueError(f"{name} operands lie on different devices")
     if not all(t.is_contiguous() for t in operands):
-        raise ValueError("flip_chain operands must be contiguous")
+        raise ValueError(f"{name} operands must be contiguous")
+
+
+def _launch_check(lib, name, rc):
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: " + lib.smol_cuda_error_string(rc).decode()
+        )
+
+
+def _ewald_pointers(tables):
+    if not tables.has_ewald:
+        return None, None
+    return tables.ew_v.data_ptr(), tables.ew_c.data_ptr()
 
 
 def flip_chain(occ, enthalpy, naccept, beta32, seq, seed, tables, n_steps,
@@ -322,8 +550,8 @@ def flip_chain(occ, enthalpy, naccept, beta32, seq, seed, tables, n_steps,
     A CUDA tensor launches the kernel (``flip_chain.launches`` counts the
     launches); a CPU tensor runs :func:`flip_chain_reference`.
     """
-    _check_operands(occ, enthalpy, naccept, beta32, seq, seed, tables,
-                    n_steps, block_size)
+    _check_operands("flip_chain", occ, enthalpy, (naccept,), beta32, (seq,),
+                    seed, tables, n_steps, block_size)
     if occ.device.type == "cpu":
         flip_chain_reference(occ, enthalpy, naccept, beta32, seq, seed,
                              tables, n_steps, block_size, rng)
@@ -332,7 +560,7 @@ def flip_chain(occ, enthalpy, naccept, beta32, seq, seed, tables, n_steps,
         raise ValueError(f"flip_chain runs on cuda or cpu, not {occ.device}")
     if rng not in RNG_MODES:
         raise ValueError(f"unknown rng mode: {rng!r}")
-    lib = _build.load_flip_chain()
+    lib = _build.load_chain("flip_chain")
     R, W = occ.shape
     L, K = tables.nbr.shape[1:]
     with torch.cuda.device(occ.device):
@@ -342,62 +570,114 @@ def flip_chain(occ, enthalpy, naccept, beta32, seq, seed, tables, n_steps,
             beta32.data_ptr(), seq.data_ptr(), seq.stride(0), seed.data_ptr(),
             tables.nbr.data_ptr(), tables.stride.data_ptr(),
             tables.d2.data_ptr(), tables.g.data_ptr(), tables.mu.data_ptr(),
-            tables.ncode.data_ptr(), R, L, K, tables.g.shape[2],
-            tables.mu.shape[1], W, block_size, n_steps, RNG_MODES[rng],
-            stream,
+            tables.ncode.data_ptr(), *_ewald_pointers(tables), R, L, K,
+            tables.g.shape[2], tables.mu.shape[1], W, block_size, n_steps,
+            RNG_MODES[rng], stream,
         )
     flip_chain.launches += 1
-    if rc != 0:
-        raise RuntimeError(
-            "flip_chain kernel launch failed: "
-            + lib.smol_cuda_error_string(rc).decode()
-        )
+    _launch_check(lib, "flip_chain", rc)
 
 
 flip_chain.launches = 0
 
 
+def swap_chain(occ, enthalpy, naccept, nmove, beta32, useq, vseq, seed,
+               tables, n_steps, block_size, rng="philox"):
+    """Run ``n_steps`` shared-proposal swaps on every walker, in place.
+
+    Arguments as :func:`flip_chain`, with the pair sequences ``useq`` and
+    ``vseq`` ([G, >= n_steps] int32 each, one layout) in place of ``seq``
+    and ``nmove`` [W] int32, to which the non-null proposals are added.
+    A CUDA tensor launches the kernel (``swap_chain.launches`` counts the
+    launches); a CPU tensor runs :func:`swap_chain_reference`.
+    """
+    _check_operands("swap_chain", occ, enthalpy, (naccept, nmove), beta32,
+                    (useq, vseq), seed, tables, n_steps, block_size)
+    if occ.device.type == "cpu":
+        swap_chain_reference(occ, enthalpy, naccept, nmove, beta32, useq, vseq,
+                             seed, tables, n_steps, block_size, rng)
+        return
+    if occ.device.type != "cuda":
+        raise ValueError(f"swap_chain runs on cuda or cpu, not {occ.device}")
+    if rng not in RNG_MODES:
+        raise ValueError(f"unknown rng mode: {rng!r}")
+    lib = _build.load_chain("swap_chain")
+    R, W = occ.shape
+    L, K = tables.nbr.shape[1:]
+    with torch.cuda.device(occ.device):
+        stream = torch.cuda.current_stream(occ.device).cuda_stream
+        rc = lib.smol_swap_chain(
+            occ.data_ptr(), enthalpy.data_ptr(), naccept.data_ptr(),
+            nmove.data_ptr(), beta32.data_ptr(), useq.data_ptr(),
+            vseq.data_ptr(), useq.stride(0), seed.data_ptr(),
+            tables.nbr.data_ptr(), tables.stride.data_ptr(),
+            tables.d2.data_ptr(), tables.g.data_ptr(), *_ewald_pointers(tables),
+            R, L, K, tables.g.shape[2], W, block_size, n_steps, RNG_MODES[rng],
+            stream,
+        )
+    swap_chain.launches += 1
+    _launch_check(lib, "swap_chain", rc)
+
+
+swap_chain.launches = 0
+
+
 def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
                                block_size: int = 1024,
                                proposal_mode: str = "random",
-                               rng: str = "philox", seqs=None, seeds=None):
-    """Build ``fn(state, generator) -> state`` running ``n_steps`` flips.
+                               rng: str = "philox", seqs=None, seeds=None,
+                               move: str = "flip"):
+    """Build ``fn(state, generator) -> state`` running ``n_steps`` moves.
 
-    ``state`` holds ``occupancy`` [W, N] int32, ``enthalpy`` [W] f64,
-    ``beta`` [W] f64, ``naccept`` [W] int32 and ``accepted`` [W] bool, and
-    optionally ``window_naccept`` [W] int32; ``fn`` updates these tensors
-    in place and returns the state.  ``generator`` is a
-    ``torch.Generator`` on the state's device for the site sequence and
-    the launch seeds.
+    ``move`` is ``"flip"`` (single-site, semigrand) or ``"swap"`` (two
+    sites of one sublattice exchange codes, canonical).  ``state`` holds
+    ``occupancy`` [W, N] int32, ``enthalpy`` [W] f64, ``beta`` [W] f64,
+    ``naccept`` [W] int32 and ``accepted`` [W] bool, and optionally
+    ``window_naccept`` [W] int32 and, for swaps, ``nmove`` [W] int32 (the
+    non-null proposals); ``fn`` updates these tensors in place and returns
+    the state.  ``generator`` is a ``torch.Generator`` on the state's
+    device for the site sequence and the launch seeds.
 
     ``rng="hash"`` reproduces the reference interpret-mode chain: the
     steps run in chunks of at most 2048 with the step counted within the
     chunk and chunk seeds ``seed0 + c * 999983``.  ``seqs``
-    [n_chunks, G, chunk] and ``seeds`` [n_chunks] replace the draws (the
-    tests pass the reference's own draws); in ``"philox"`` mode a window
-    is one chunk.
+    [n_chunks, G, chunk] (for swaps a pair ``(u_seqs, v_seqs)`` of them)
+    and ``seeds`` [n_chunks] replace the draws (the tests pass the
+    reference's own draws); in ``"philox"`` mode a window is one chunk.
+    ``proposal_mode="sweep"`` is defined for flips only.
     """
+    if move not in MOVES:
+        raise ValueError(f"unknown move type: {move!r}")
     if proposal_mode not in ("random", "sweep"):
         raise ValueError(f"unknown proposal mode: {proposal_mode!r}")
+    if proposal_mode == "sweep" and move != "flip":
+        raise ValueError('proposal_mode="sweep" supports move="flip" only')
     if rng not in RNG_MODES:
         raise ValueError(f"unknown rng mode: {rng!r}")
+    swap = move == "swap"
     chunk = min(n_steps, MAX_CHUNK_STEPS) if rng == "hash" else n_steps
     n_chunks = -(-n_steps // chunk)
     rank_sites = tables.rank_sites
+
+    def as_seq(x, device):
+        return torch.as_tensor(np.asarray(x), dtype=torch.int32, device=device)
 
     def fn(state, generator):
         occu = state["occupancy"]
         W = occu.shape[0]
         device = occu.device
         groups = -(-W // block_size)
+        shape = (n_chunks, groups, chunk)
         if seqs is not None:
-            seq = torch.as_tensor(np.asarray(seqs), dtype=torch.int32, device=device)
+            seq = [as_seq(s, device) for s in seqs] if swap else [as_seq(seqs, device)]
+        elif swap:
+            seq = list(rank_pair_sequence(tables, generator, shape))
         elif proposal_mode == "sweep":
             sched = sweep_schedule(tables.num_ranks, n_chunks * chunk)
-            seq = torch.as_tensor(sched, device=device).reshape(n_chunks, 1, chunk)
-            seq = seq.expand(n_chunks, groups, chunk)
+            sched = torch.as_tensor(sched, device=device).reshape(n_chunks, 1, chunk)
+            seq = [sched.expand(shape)]
         else:
-            seq = rank_sequence(tables, generator, (n_chunks, groups, chunk))
+            seq = [rank_sequence(tables, generator, shape)]
         if seeds is not None:
             seed = torch.as_tensor(np.asarray(seeds), dtype=torch.int64, device=device)
         elif rng == "hash":
@@ -413,17 +693,24 @@ def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
         occ = occu[:, rank_sites].T.to(torch.int8).contiguous()  # [R, W]
         beta32 = state["beta"].to(torch.float32)
         nacc = torch.zeros(W, dtype=torch.int32, device=device)
+        nmv = torch.zeros(W, dtype=torch.int32, device=device)
         for c in range(n_chunks):
-            flip_chain(
-                occ, state["enthalpy"], nacc, beta32, seq[c].contiguous(),
-                seed[c: c + 1].contiguous(), tables,
-                min(chunk, n_steps - c * chunk), block_size, rng,
-            )
+            steps = min(chunk, n_steps - c * chunk)
+            seed_c = seed[c: c + 1].contiguous()
+            seq_c = [s[c].contiguous() for s in seq]
+            if swap:
+                swap_chain(occ, state["enthalpy"], nacc, nmv, beta32, *seq_c,
+                           seed_c, tables, steps, block_size, rng)
+            else:
+                flip_chain(occ, state["enthalpy"], nacc, beta32, *seq_c,
+                           seed_c, tables, steps, block_size, rng)
         occu[:, rank_sites] = occ.T.to(occu.dtype)
         state["naccept"] += nacc
         state["accepted"] = nacc > 0  # coarse: any accept in the window
         if "window_naccept" in state:
             state["window_naccept"] += nacc
+        if swap and "nmove" in state:
+            state["nmove"] += nmv
         return state
 
     return fn

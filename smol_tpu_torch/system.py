@@ -27,7 +27,17 @@ Keys of a system dict (N sites, C clusters of at most K sites, P
   ``sublattice_encoding`` with ``*_offsets`` [S + 1]: each sublattice's
   arrays concatenated in sublattice order;
 - ``natural_parameters`` [F] f64 and, for a semigrand ensemble,
-  ``chemical_potential_table`` [N, max code + 1] f64.
+  ``chemical_potential_table`` [N, max code + 1] f64;
+- for a cluster expansion with an Ewald term (the reference's
+  ``CompositeProcessor`` of a cluster-expansion and an ``EwaldProcessor``):
+  ``ewald_matrix`` [n_ew, n_ew] f64, ``ewald_inds`` [N, max codes] int32
+  (the Ewald row of each (site, code), -1 for a vacancy) and
+  ``ewald_coef`` 0-d f64.  ``num_energy_coefs`` and
+  ``natural_parameters`` then hold the expansion's coefficients followed
+  by the Ewald coefficient;
+- optionally ``initial_occupancy`` [N] int32, a starting occupancy the
+  system's user runs from (added by the exporting script, not by
+  :func:`export_system`).
 """
 
 from __future__ import annotations
@@ -86,16 +96,24 @@ def export_system(ensemble) -> dict:
     The ensemble's processor must be a cluster-expansion processor (its
     features are the extensive correlation vector), the form the port's
     :class:`~smol_tpu_torch.moca.processor.expansion.ClusterExpansionProcessor`
-    evaluates.  Build it with ``Ensemble.from_cluster_expansion(...,
+    evaluates, or a composite of one such and an Ewald processor (what
+    ``from_cluster_expansion`` builds for a subspace with an Ewald term).
+    Build it with ``Ensemble.from_cluster_expansion(...,
     processor_type="expansion")``.
     """
     processor = ensemble.processor
-    if type(processor).__name__ != "ClusterExpansionProcessor":
+    parts = getattr(processor, "processors", [processor])
+    names = [type(p).__name__ for p in parts]
+    if names not in (["ClusterExpansionProcessor"],
+                     ["ClusterExpansionProcessor", "EwaldProcessor"]):
         raise ValueError(
-            "export_system needs a ClusterExpansionProcessor (build the "
+            "export_system needs a ClusterExpansionProcessor, alone or "
+            "followed by an EwaldProcessor in a composite (build the "
             "ensemble with processor_type='expansion'); got "
-            f"{type(processor).__name__}"
+            f"{type(processor).__name__} of {names}"
         )
+    ewald = parts[1] if len(parts) == 2 else None
+    processor = parts[0]
     packed = processor.packed
     sites, strides, d2, g, _ = local_arrays(
         packed, processor._energy_flat, processor._energy_weights
@@ -108,7 +126,7 @@ def export_system(ensemble) -> dict:
         "num_sites": np.int64(packed.num_sites),
         "size": np.int64(processor.size),
         "num_corr": np.int64(packed.num_corr),
-        "num_energy_coefs": np.int64(len(processor.coefs)),
+        "num_energy_coefs": np.int64(len(ensemble.processor.coefs)),
         "cluster_sites": np.asarray(packed.cluster_sites, dtype=np.int32),
         "cluster_strides": np.asarray(packed.cluster_strides, dtype=np.int32),
         "corr_flat": np.asarray(packed.corr_flat, dtype=np.float64),
@@ -137,6 +155,10 @@ def export_system(ensemble) -> dict:
         system["chemical_potential_table"] = np.asarray(
             mu_table, dtype=np.float64
         )
+    if ewald is not None:
+        system["ewald_matrix"] = np.asarray(ewald.ewald_matrix, dtype=np.float64)
+        system["ewald_inds"] = np.asarray(ewald._ewald_inds, dtype=np.int32)
+        system["ewald_coef"] = np.float64(np.atleast_1d(ewald.coefs)[0])
     return system
 
 

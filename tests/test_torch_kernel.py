@@ -1,4 +1,4 @@
-"""The CUDA flip-chain kernel against its plain torch twin, on the card.
+"""The CUDA chain kernels against their plain torch twins, on the card.
 
 Marked ``cuda``: each test skips without a CUDA device (and ``nvcc``).
 This file imports neither ``jax`` nor ``smol_tpu``, so it also runs where
@@ -6,12 +6,13 @@ they are not installed; there, run it without the suite's conftest:
 
     python -m pytest --noconftest tests/test_torch_kernel.py
 
-The kernel must equal the twin on every walker in both RNG modes
-(occupancies and accept counts exactly, enthalpies to 1e-9 absolute),
-including a partial CUDA block, sequence blocks smaller than a CUDA
-block, the main path's launch shape (8192 walkers in blocks of 1024) and
-the general (runtime slot count) kernel; a refused operand raises before
-any launch.
+The flip kernel, and the swap kernel, must equal their twins on every
+walker in both RNG modes (occupancies, accept and move counts exactly,
+enthalpies to 1e-9 absolute), including a partial CUDA block, sequence
+blocks smaller than a CUDA block, the main paths' launch shapes (8192
+walkers in blocks of 1024, or 512 for Au-Cu), the Ewald term (the flip
+kernel on the canonical spinel CE + Ewald too) and the general (runtime
+slot count) kernels; a refused operand raises before any launch.
 """
 
 import dataclasses
@@ -35,22 +36,55 @@ def card():
     return torch.device("cuda")
 
 
-def _operands(card, cell, W, n_steps, block_size):
-    ens = Ensemble.from_system(load_system(DATA / f"torch_spinel_{cell}.npz"), card)
+def _operands(card, cell, W, n_steps, block_size, move="flip"):
+    """Operands of one launch on system file ``torch_<cell>.npz`` (a bare
+    supercell name is the semigrand spinel)."""
+    stem = cell if "_" in cell else f"spinel_{cell}"
+    ens = Ensemble.from_system(load_system(DATA / f"torch_{stem}.npz"), card)
     tables = chain.build_chain_tables(
         ens.processor, ens.sublattices, mu_table=ens.chemical_potential_table
     )
     occu = torch.as_tensor(random_occupancies(ens, W, seed=3), device=card)
     gen = torch.Generator(device=card).manual_seed(0)
-    return dict(
+    shape = (-(-W // block_size), n_steps)
+    ops = dict(
         occ=occu[:, tables.rank_sites].T.to(torch.int8).contiguous(),
         enthalpy=torch.zeros(W, dtype=torch.float64, device=card),
         naccept=torch.zeros(W, dtype=torch.int32, device=card),
         beta32=torch.full((W,), 1 / (kB * 1000.0), dtype=torch.float32, device=card),
-        seq=chain.rank_sequence(tables, gen, (-(-W // block_size), n_steps)),
         seed=torch.tensor([12345], dtype=torch.int64, device=card),
         tables=tables, n_steps=n_steps, block_size=block_size,
     )
+    if move == "swap":
+        ops["useq"], ops["vseq"] = chain.rank_pair_sequence(tables, gen, shape)
+        ops["nmove"] = torch.zeros(W, dtype=torch.int32, device=card)
+    else:
+        ops["seq"] = chain.rank_sequence(tables, gen, shape)
+    return ops
+
+
+STATE = ("occ", "enthalpy", "naccept", "nmove")
+
+
+def _kernel_and_twin(ops, kernel, twin, rng, kernel_tables=None):
+    """Run kernel and twin on copies of ``ops``; return both results."""
+    outs = []
+    for fn, tables in ((kernel, kernel_tables or ops["tables"]), (twin, ops["tables"])):
+        run = {k: (v.clone() if k in STATE else v) for k, v in ops.items()}
+        before = kernel.launches
+        fn(**{**run, "tables": tables}, rng=rng)
+        torch.cuda.synchronize()
+        assert kernel.launches - before == (1 if fn is kernel else 0)
+        outs.append(run)
+    return outs
+
+
+def _assert_same(kernel, twin, n_steps):
+    for key in ("occ", "naccept", "nmove"):
+        if key in kernel:
+            assert torch.equal(kernel[key], twin[key]), key
+    assert float((kernel["enthalpy"] - twin["enthalpy"]).abs().max()) <= 1e-9
+    assert 0 < float(kernel["naccept"].double().mean()) < n_steps
 
 
 @pytest.mark.cuda
@@ -112,3 +146,45 @@ def test_refused_operand_raises_before_launch(card):
     with pytest.raises(ValueError):
         chain.flip_chain(**{**ops, "seed": ops["seed"].cpu()})
     assert chain.flip_chain.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+@pytest.mark.parametrize(
+    "cell,W,block_size",
+    [("spinel_ewald_2x2x2", 256, 64), ("spinel_ewald_3x3x3", 1000, 1024),
+     ("aucu_4x4x4", 200, 8),
+     ("aucu_4x4x4", 8192, 512)],  # the last: the canonical main path's shape
+)
+def test_swap_kernel_matches_twin(card, rng, cell, W, block_size):
+    ops = _operands(card, cell, W, 400, block_size, move="swap")
+    kernel, twin = _kernel_and_twin(ops, chain.swap_chain, chain.swap_chain_reference, rng)
+    _assert_same(kernel, twin, 400)
+    assert torch.all(kernel["nmove"] >= kernel["naccept"])
+    counts = [(o["occ"] == 1).sum(dim=0) for o in (ops, kernel)]
+    assert torch.equal(*counts)  # each walker keeps its composition
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+def test_flip_kernel_with_ewald_matches_twin(card, rng):
+    ops = _operands(card, "spinel_ewald_2x2x2", 256, 400, 64)
+    assert ops["tables"].has_ewald
+    kernel, twin = _kernel_and_twin(ops, chain.flip_chain, chain.flip_chain_reference, rng)
+    _assert_same(kernel, twin, 400)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["spinel_ewald_2x2x2", "aucu_4x4x4"])
+def test_general_slot_count_swap_matches_twin(card, cell):
+    """A fourth, empty slot (nbr -1, stride 0) takes the runtime-K swap kernel."""
+    ops = _operands(card, cell, 256, 400, 64, move="swap")
+    t = ops["tables"]
+    padded = dataclasses.replace(
+        t,
+        nbr=torch.nn.functional.pad(t.nbr, (0, 1), value=-1),
+        stride=torch.nn.functional.pad(t.stride, (0, 1), value=0),
+    )
+    kernel, twin = _kernel_and_twin(ops, chain.swap_chain, chain.swap_chain_reference,
+                                    "philox", kernel_tables=padded)
+    _assert_same(kernel, twin, 400)

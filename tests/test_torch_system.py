@@ -3,10 +3,16 @@
 - a fresh ``export_system`` of the bench spinel, built with ``smol_tpu``,
   equals the committed ``tests/data/torch_spinel_*.npz`` array for array
   (so the files cannot go stale), and the exporter's local-cluster arrays
-  equal ``smol_tpu.ops.fastmc.site_local_arrays`` exactly;
+  equal ``smol_tpu.ops.fastmc.site_local_arrays`` exactly; so does a
+  fresh export of each canonical system (spinel CE + Ewald 2x2x2 and
+  3x3x3, Au-Cu 4x4x4), initial occupancy included;
+- the exporter refuses a processor the port cannot evaluate, alone or as
+  the expansion part of a composite;
 - with ``jax`` blocked from importing, a subprocess imports the port and
-  runs a short CPU slice from a system file;
-- no module of ``smol_tpu_torch`` imports ``jax`` or ``smol_tpu``.
+  runs short CPU slices from the system files, semigrand flips and
+  canonical swaps with Ewald;
+- neither ``chip_smoke.py`` nor any module of ``smol_tpu_torch`` imports
+  ``jax`` or ``smol_tpu``.
 """
 
 import ast
@@ -23,7 +29,14 @@ from smol_tpu_torch.system import export_system, load_system, save_system
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "scripts"))
-from export_torch_systems import SUPERCELLS, spinel_ensemble, system_path  # noqa: E402
+from export_torch_systems import (  # noqa: E402
+    CANONICAL,
+    SUPERCELLS,
+    canonical_system,
+    data_path,
+    spinel_ensemble,
+    system_path,
+)
 
 
 @pytest.fixture(scope="module", params=sorted(SUPERCELLS))
@@ -37,6 +50,19 @@ def test_committed_system_matches_fresh_export(bench_spinel):
     fresh = export_system(ensemble)
     committed = load_system(system_path(name))
     assert sorted(fresh) == sorted(committed)
+    for key, value in fresh.items():
+        stored = committed[key]
+        assert stored.dtype == np.asarray(value).dtype, key
+        np.testing.assert_array_equal(stored, value, err_msg=key)
+
+
+@pytest.mark.parametrize("stem", sorted(CANONICAL))
+def test_committed_canonical_system_matches_fresh_export(stem):
+    fresh = canonical_system(stem)
+    committed = load_system(data_path(stem))
+    assert sorted(fresh) == sorted(committed)
+    assert "chemical_potential_table" not in committed
+    assert ("ewald_matrix" in committed) == stem.startswith("spinel_ewald")
     for key, value in fresh.items():
         stored = committed[key]
         assert stored.dtype == np.asarray(value).dtype, key
@@ -59,6 +85,17 @@ def test_export_requires_expansion_processor():
 
     ce = random_expansion(spinel_prim(), {2: 4.0}, seed=11)
     ens = Ensemble.from_cluster_expansion(ce, np.diag([1, 1, 1]))
+    with pytest.raises(ValueError, match="ClusterExpansionProcessor"):
+        export_system(ens)
+
+
+def test_export_refuses_composite_of_decomposition():
+    from smol_tpu.benchmarks.systems import random_expansion, spinel_prim
+    from smol_tpu.moca import Ensemble
+
+    ce = random_expansion(spinel_prim(), {2: 4.0}, seed=11, ewald=True)
+    ens = Ensemble.from_cluster_expansion(ce, np.diag([1, 1, 1]))
+    assert type(ens.processor).__name__ == "CompositeProcessor"
     with pytest.raises(ValueError, match="ClusterExpansionProcessor"):
         export_system(ens)
 
@@ -98,9 +135,15 @@ def test_port_runs_with_jax_blocked():
         sampler = Sampler.from_ensemble(ens, 1000.0, 64, seed=3, device="cpu")
         sampler.run(200, occ, thin_by=50)
         assert sampler.samples.num_samples == 4
+        print("ok", sampler.execution_path(50))
+        system = load_system({str(data_path("spinel_ewald_2x2x2"))!r})
+        ens = Ensemble.from_system(system, "cpu")
+        sampler = Sampler.from_ensemble(ens, 1000.0, 16, seed=3, device="cpu")
+        sampler.run(100, system["initial_occupancy"], thin_by=50)
+        assert sampler.samples.num_samples == 2
+        print("ok", sampler.execution_path(50))
         bad = [m for m in sys.modules if m == "smol_tpu" or m.startswith("smol_tpu.")]
         assert not bad, bad
-        print("ok", sampler.execution_path(50))
         """
     )
     proc = subprocess.run(
@@ -109,12 +152,13 @@ def test_port_runs_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "ok cpu-twin[flip]" in proc.stdout
+    assert "ok cpu-twin[swap]+ewald" in proc.stdout
 
 
 def test_port_never_imports_jax_or_reference():
     package = ROOT / "smol_tpu_torch"
     offenders = []
-    for path in sorted(package.rglob("*.py")):
+    for path in [*sorted(package.rglob("*.py")), ROOT / "chip_smoke.py"]:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -129,3 +173,4 @@ def test_port_never_imports_jax_or_reference():
                     offenders.append(f"{path.relative_to(ROOT)}: {name}")
     assert not offenders, offenders
     assert (package / "csrc" / "flip_chain.cu").exists()
+    assert (package / "csrc" / "swap_chain.cu").exists()
