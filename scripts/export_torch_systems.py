@@ -12,7 +12,17 @@ writes each supercell as a system file that ``smol_tpu_torch`` loads
   charge-neutral ``initial_occupancy`` drawn as ``bench.py`` draws it;
 - ``torch_aucu_4x4x4.npz``: the binary Au-Cu FCC of ``bench.py``'s
   ``canonical`` config (``random_expansion(fcc_binary_prim(), {2: 6.0,
-  3: 4.0}, seed=7)``), with a half-Au, half-Cu ``initial_occupancy``.
+  3: 4.0}, seed=7)``), with a half-Au, half-Cu ``initial_occupancy``;
+- ``torch_spinel_ewald_sgc_{2x2x2,3x3x3}.npz``: ``bench.py``'s
+  ``spinel-ewald`` config, the spinel CE + Ewald with the bench chemical
+  potentials, for charge-neutral semigrand table flips: the ``TableFlip``
+  usher's flip table and dimension ids, the site charges and a
+  charge-neutral ``initial_occupancy``;
+- ``torch_lmof_2x2x2.npz``: a small Li+/Mn3+/vacancy, O2-/F- rocksalt
+  whose charge-neutral flips recolor up to three sites (the table chain's
+  multi-slot case), with a charge-neutral ``initial_occupancy``;
+- ``torch_limn_tiny_2x1x1.npz``: a {Li+, vacancy} x {Mn3+, Mn4+} cell with
+  fixed O2-, small enough to enumerate its charge-neutral states.
 
 The files are committed under ``tests/data``; regenerate them with
 
@@ -35,6 +45,12 @@ CANONICAL = {  # file stem -> (system, supercell edge) of the canonical files
     "spinel_ewald_2x2x2": ("spinel_ewald", 2),
     "spinel_ewald_3x3x3": ("spinel_ewald", 3),
     "aucu_4x4x4": ("aucu", 4),
+}
+TABLE = {  # file stem -> (system, its argument) of the table-flip files
+    "spinel_ewald_sgc_2x2x2": ("spinel_ewald_sgc", 2),
+    "spinel_ewald_sgc_3x3x3": ("spinel_ewald_sgc", 3),
+    "lmof_2x2x2": ("lmof", (2, 2, 2)),
+    "limn_tiny_2x1x1": ("limn_tiny", None),
 }
 
 
@@ -70,6 +86,93 @@ def aucu_ensemble(n: int):
     return Ensemble.from_cluster_expansion(
         ce, np.diag([n, n, n]), processor_type="expansion"
     )
+
+
+def _small_expansion(prim, cutoffs, seed, scale, constant):
+    from smol_tpu.cofe import ClusterSubspace
+    from smol_tpu.cofe.expansion import ClusterExpansion
+
+    subspace = ClusterSubspace.from_cutoffs(prim, cutoffs)
+    coefs = np.random.default_rng(seed).normal(
+        scale=scale, size=subspace.num_corr_functions
+    )
+    coefs[0] = constant
+    return ClusterExpansion(subspace, coefs)
+
+
+def lmof_ensemble(cell=(2, 2, 2)):
+    """Li+/Mn3+/vacancy and O2-/F- on a rocksalt, semigrand: its
+    charge-neutral flips take up to three site recolorings."""
+    from smol_tpu.crystal import Lattice, Structure
+    from smol_tpu.moca import Ensemble
+
+    lat = Lattice(np.array([[0, 0.5, 0.5], [0.5, 0, 0.5], [0.5, 0.5, 0]]) * 4.2)
+    prim = Structure(
+        lat,
+        [{"Li+": 1 / 3, "Mn3+": 1 / 3}, {"O2-": 0.8, "F-": 0.2}],
+        [[0, 0, 0], [0.5, 0.5, 0.5]],
+    )
+    ce = _small_expansion(prim, {2: 3.1}, seed=1, scale=0.02, constant=-0.3)
+    mus = {"Li+": 0.1, "Mn3+": -0.2, "vacA0+": 0.0, "O2-": 0.0, "F-": 0.05}
+    return Ensemble.from_cluster_expansion(
+        ce, np.diag(cell), processor_type="expansion", chemical_potentials=mus
+    )
+
+
+def limn_tiny_ensemble():
+    """{Li+, vacancy} x {Mn3+, Mn4+} with fixed O2- on a 2x1x1 cubic cell."""
+    from smol_tpu.crystal import Lattice, Structure
+    from smol_tpu.moca import Ensemble
+
+    prim = Structure(
+        Lattice(np.eye(3) * 4.1),
+        [{"Li+": 0.5}, {"Mn3+": 0.5, "Mn4+": 0.5}, {"O2-": 1.0}, {"O2-": 1.0}],
+        [[0, 0, 0], [0.5, 0.5, 0.5], [0.25, 0.25, 0.25], [0.75, 0.75, 0.75]],
+    )
+    ce = _small_expansion(prim, {2: 4.2}, seed=5, scale=0.02, constant=-1.0)
+    mus = {"Li+": 0.08, "vacA0+": 0.0, "Mn3+": 0.0, "Mn4+": -0.03}
+    return Ensemble.from_cluster_expansion(
+        ce, np.diag([2, 1, 1]), processor_type="expansion", chemical_potentials=mus
+    )
+
+
+def spinel_ewald_sgc_ensemble(n: int):
+    """``bench.py``'s ``spinel-ewald``: the spinel CE + Ewald, semigrand."""
+    from smol_tpu.benchmarks.systems import random_expansion, spinel_prim
+    from smol_tpu.moca import Ensemble
+
+    ce = random_expansion(spinel_prim(), {2: 5.3, 3: 3.7}, seed=11, ewald=True)
+    return Ensemble.from_cluster_expansion(
+        ce, np.diag([n, n, n]), processor_type="expansion",
+        chemical_potentials=BENCH_MUS,
+    )
+
+
+def lmof_initial_occupancy(ensemble) -> np.ndarray:
+    """Half Li+, half Mn3+ on the cation sites, O2- on the anion sites."""
+    cations = np.asarray(ensemble.sublattices[0].sites)
+    occ = np.zeros(ensemble.num_sites, dtype=np.int32)
+    occ[cations[len(cations) // 2:]] = 1
+    return occ
+
+
+def table_system(stem: str) -> dict:
+    """The system dict of one table-flip file: usher data included."""
+    from smol_tpu.moca.kernel.tableflip import TableFlip
+    from smol_tpu_torch.system import export_system
+
+    kind, arg = TABLE[stem]
+    ensemble = {
+        "spinel_ewald_sgc": spinel_ewald_sgc_ensemble,
+        "lmof": lmof_ensemble,
+        "limn_tiny": lambda _: limn_tiny_ensemble(),
+    }[kind](arg)
+    system = export_system(ensemble, usher=TableFlip(ensemble.sublattices))
+    if kind == "spinel_ewald_sgc":
+        system["initial_occupancy"] = initial_occupancy("spinel_ewald", ensemble)
+    elif kind == "lmof":
+        system["initial_occupancy"] = lmof_initial_occupancy(ensemble)
+    return system
 
 
 def initial_occupancy(kind: str, ensemble) -> np.ndarray:
@@ -120,6 +223,7 @@ def main():
     systems = {f"spinel_{name}": (lambda n=n: export_system(spinel_ensemble(n)))
                for name, n in SUPERCELLS.items()}
     systems.update({stem: (lambda s=stem: canonical_system(s)) for stem in CANONICAL})
+    systems.update({stem: (lambda s=stem: table_system(s)) for stem in TABLE})
     for stem, build in systems.items():
         save_system(build(), data_path(stem))
         print(stem, data_path(stem), data_path(stem).stat().st_size, "bytes")

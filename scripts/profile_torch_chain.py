@@ -1,7 +1,8 @@
 """Where the time of the port's main paths goes on one GPU: a profiler trace.
 
-For each cell (the semigrand spinel's flips, and the canonical swaps on
-the spinel CE + Ewald and on Au-Cu), a warm-up run and then a run of
+For each cell (the semigrand spinel's flips, the canonical swaps on the
+spinel CE + Ewald and on Au-Cu, and the charge-neutral table flips on the
+semigrand spinel CE + Ewald), a warm-up run and then a run of
 ``WINDOWS`` thinning windows (8192 walkers, 100 steps each) under
 ``torch.profiler``.  Prints, beside the card's name and power limit:
 
@@ -38,11 +39,13 @@ from smol_tpu_torch.system import load_system  # noqa: E402
 WALKERS = 8192
 THIN = 100
 WINDOWS = 50
-CELLS = {  # system file stem -> (temperature K, sequence block)
-    "spinel_2x2x2": (1000.0, 1024),
-    "spinel_ewald_2x2x2": (1000.0, 1024),
-    "spinel_ewald_3x3x3": (1000.0, 1024),
-    "aucu_4x4x4": (300.0, 512),
+CELLS = {  # system file stem -> (temperature K, sequence block, step type)
+    "spinel_2x2x2": (1000.0, 1024, None),  # None: the sampler's default
+    "spinel_ewald_2x2x2": (1000.0, 1024, None),
+    "spinel_ewald_3x3x3": (1000.0, 1024, None),
+    "aucu_4x4x4": (300.0, 512, None),
+    "spinel_ewald_sgc_2x2x2": (1000.0, 1024, "table-flip"),
+    "spinel_ewald_sgc_3x3x3": (1000.0, 1024, "table-flip"),
 }
 
 
@@ -56,14 +59,14 @@ def busy_us(events):
     return total
 
 
-def profile_cell(stem, temperature, block, card):
+def profile_cell(stem, temperature, block, step_type, card):
     system = load_system(ROOT / "tests" / "data" / f"torch_{stem}.npz")
     ensemble = Ensemble.from_system(system, "cuda")
     occ0 = system.get("initial_occupancy")
     if occ0 is None:
         occ0 = random_occupancies(ensemble, WALKERS, 0)
     sampler = Sampler.from_ensemble(ensemble, temperature, WALKERS, seed=3,
-                                    chain_block_size=block)
+                                    chain_block_size=block, step_type=step_type)
     sampler.run(WINDOWS * THIN, occ0, thin_by=THIN)  # warm-up
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU,
@@ -112,8 +115,8 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card)
-    for stem, (temperature, block) in CELLS.items():
-        profile_cell(stem, temperature, block, card)
+    for stem, args in CELLS.items():
+        profile_cell(stem, *args, card)
 
 
 if __name__ == "__main__":

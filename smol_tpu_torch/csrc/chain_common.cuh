@@ -1,4 +1,5 @@
-// Pieces shared by the chain kernels flip_chain.cu and swap_chain.cu.
+// Pieces shared by the chain kernels flip_chain.cu, swap_chain.cu and
+// table_chain.cu.
 //
 // - the random bits: the reference's interpret-mode hash, bit for bit, and
 //   Philox4x32-10 (replacing the TPU hardware PRNG of smol_tpu/ops/prims.py);

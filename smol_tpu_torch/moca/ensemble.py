@@ -41,7 +41,8 @@ class Ensemble:
     """A thermodynamic ensemble over a fixed supercell, on one device."""
 
     def __init__(self, processor, sublattices, natural_parameters,
-                 chemical_potential_table=None):
+                 chemical_potential_table=None, table_data=None,
+                 site_charges=None):
         self._processor = processor
         self._sublattices = sublattices
         self._params = np.asarray(natural_parameters, dtype=np.float64)
@@ -55,6 +56,11 @@ class Ensemble:
             if self._mu_table is None
             else torch.as_tensor(self._mu_table, device=processor.device)
         )
+        self._table_data = table_data
+        self._site_charges = (
+            None if site_charges is None
+            else np.asarray(site_charges, dtype=np.float64)
+        )
 
     @classmethod
     def from_system(cls, system: dict, device) -> "Ensemble":
@@ -62,7 +68,8 @@ class Ensemble:
 
         A system with ``ewald_matrix`` gets the composite processor (the
         expansion, then the Ewald term); one without a
-        ``chemical_potential_table`` is canonical.
+        ``chemical_potential_table`` is canonical; one with a
+        ``flip_table`` can be sampled with table flips.
         """
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -77,11 +84,21 @@ class Ensemble:
                 f"the system has {int(system['num_energy_coefs'])} energy "
                 f"coefficients but its processors {processor.num_energy_coefs}"
             )
+        table_data = None
+        if "flip_table" in system:
+            ids = np.asarray(system["usher_dim_ids"])
+            off = np.asarray(system["usher_dim_ids_offsets"])
+            table_data = {
+                "flip_table": np.asarray(system["flip_table"]),
+                "dim_ids": [ids[off[i]: off[i + 1]] for i in range(len(off) - 1)],
+            }
         return cls(
             processor,
             sublattices_from_system(system),
             system["natural_parameters"],
             system.get("chemical_potential_table"),
+            table_data=table_data,
+            site_charges=system.get("site_charges"),
         )
 
     # ---------------- properties ----------------
@@ -114,6 +131,16 @@ class Ensemble:
     def chemical_potential_table(self):
         """[num_sites, max_code+1] f64 per-(site, code) chemical potentials."""
         return self._mu_table
+
+    @property
+    def table_data(self):
+        """``{"flip_table": [F, D], "dim_ids": per sublattice}`` or None."""
+        return self._table_data
+
+    @property
+    def site_charges(self):
+        """[num_sites, max codes] f64 charge of each (site, code), or None."""
+        return self._site_charges
 
     # ---------------- feature evaluation ----------------
 

@@ -23,14 +23,13 @@ __all__ = ["MCKernel", "ThermalKernelMixin"]
 class MCKernel:
     """An MC transition kernel over an ensemble."""
 
-    def __init__(self, ensemble, step_type, *, seed=None,
-                 sublattice_probabilities=None):
+    def __init__(self, ensemble, step_type, *, seed=None, **usher_kwargs):
         self._ensemble = ensemble
         self.natural_params = np.asarray(ensemble.natural_parameters)
         self._seed = int(seed) if seed is not None else secrets.randbits(62)
         self.mcusher = mcusher_factory(
-            step_type, ensemble.sublattices,
-            sublattice_probabilities=sublattice_probabilities,
+            step_type, ensemble.sublattices, table_data=ensemble.table_data,
+            **usher_kwargs,
         )
 
     @property

@@ -4,7 +4,8 @@ A minimal counterpart of ``smol_tpu/moca/kernel/mcusher.py`` (:40-55,
 ``Flip`` and ``Swap``): the usher carries the active sublattices and the
 probability of proposing on each.  The proposals themselves are drawn on
 the device by the chain (:func:`smol_tpu_torch.ops.chain.rank_sequence`,
-:func:`~smol_tpu_torch.ops.chain.rank_pair_sequence`).
+:func:`~smol_tpu_torch.ops.chain.rank_pair_sequence`).  The factory also
+builds the :class:`~smol_tpu_torch.moca.kernel.tableflip.TableFlip` usher.
 """
 
 from __future__ import annotations
@@ -46,12 +47,24 @@ class Swap(MCUsher):
 USHERS = {"flip": Flip, "swap": Swap}
 
 
-def mcusher_factory(step_type: str, sublattices, **kwargs) -> MCUsher:
-    """The usher for ``step_type``; the port has ``"flip"`` and ``"swap"``."""
-    usher = USHERS.get(step_type.replace("-", "").replace("_", "").lower())
+def mcusher_factory(step_type: str, sublattices, table_data=None,
+                    **kwargs) -> MCUsher:
+    """The usher for ``step_type``: ``"flip"``, ``"swap"`` or ``"table-flip"``.
+
+    ``table_data`` holds the ensemble's ``flip_table`` and ``dim_ids`` (or
+    None for a system without them); only the table-flip usher reads it.
+    ``kwargs`` go to the usher; None values are left to its defaults.
+    """
+    name = step_type.replace("-", "").replace("_", "").lower()
+    kwargs = {key: value for key, value in kwargs.items() if value is not None}
+    if name == "tableflip":
+        from smol_tpu_torch.moca.kernel.tableflip import TableFlip
+
+        return TableFlip(sublattices, **(table_data or {}), **kwargs)
+    usher = USHERS.get(name)
     if usher is None:
         raise NotImplementedError(
-            f"step type {step_type!r} is not ported yet (ROADMAP.md Queue 1: "
-            "table flips are item 4, other ushers item 8)"
+            f"step type {step_type!r} is not ported yet (ROADMAP.md Queue 1 "
+            "item 8)"
         )
     return usher(sublattices, **kwargs)

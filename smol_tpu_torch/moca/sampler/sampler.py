@@ -1,4 +1,4 @@
-"""Sampler: drives the flip or swap chain and stores its traces.
+"""Sampler: drives the flip, swap or table chain and stores its traces.
 
 Counterpart of ``smol_tpu/moca/sampler/sampler.py``.  ``run`` drives one
 chain call per thinning window (:func:`smol_tpu_torch.ops.mc.run_chain_fused`)
@@ -50,7 +50,8 @@ class Sampler:
 
         The default step type is ``"flip"`` for a semigrand ensemble and
         ``"swap"`` for a canonical one (no chemical potentials), as in the
-        reference.  ``kwargs`` go to the kernel
+        reference; ``"table-flip"`` takes the constrained (charge-neutral)
+        moves of the system's flip table.  ``kwargs`` go to the kernel
         (:class:`~smol_tpu_torch.moca.kernel.metropolis.Metropolis`).
         """
         if replica_exchange_period is not None:
@@ -98,8 +99,9 @@ class Sampler:
     def execution_path(self, thin_by: int = 1) -> str:
         """The path ``run(thin_by=...)`` dispatches, as one string.
 
-        ``"cuda-chain[flip]"`` or ``"cuda-chain[swap]"`` on a CUDA device
-        (the hand-written kernel), ``"cpu-twin[...]"`` on the CPU (the plain
+        ``"cuda-chain[flip]"``, ``"cuda-chain[swap]"`` or
+        ``"cuda-chain[table]"`` on a CUDA device (the hand-written
+        kernel), ``"cpu-twin[...]"`` on the CPU (the plain
         torch chain), then ``ewald`` when the delta carries the Ewald term,
         the energy delta (``direct``: one table lookup per local cluster)
         and the proposal schedule.

@@ -38,6 +38,10 @@ KERNELS = {
     # occ enthalpy naccept nmove beta useq vseq | seq_stride | seed nbr
     # stride d2 g ew_v ew_c | R L K TM W block_size n_steps rng_mode | stream
     "swap_chain": [_ptr] * 7 + [_i32] + [_ptr] * 7 + [_i32] * 8 + [_ptr],
+    # occ enthalpy naccept beta dirs ranks | dir_stride rank_stride | seed nbr
+    # stride d2 g mu move_rows ew_v ew_c | R L K TM C W block_size n_steps
+    # rng_mode k_max n_rows | stream
+    "table_chain": [_ptr] * 6 + [_i32] * 2 + [_ptr] * 9 + [_i32] * 11 + [_ptr],
 }
 
 

@@ -1,9 +1,10 @@
-"""Shared-proposal Metropolis chains: single flips and canonical swaps.
+"""Shared-proposal Metropolis chains: flips, canonical swaps, table moves.
 
-Counterpart of ``smol_tpu/ops/pallas_chain.py`` for ``move="flip"`` and
-``move="swap"`` (``build_chain_tables`` :841 with the Ewald fold
-:1043-1091, ``rank_sequence`` :1142, ``rank_pair_sequence`` :1161,
-``make_shared_proposal_chain`` :1439).  The statistical contract is the
+Counterpart of ``smol_tpu/ops/pallas_chain.py`` for ``move="flip"``,
+``move="swap"`` and ``move="table"`` (``build_chain_tables`` :841 with the
+Ewald fold :1043-1091, ``rank_sequence`` :1142, ``rank_pair_sequence``
+:1161, ``TableMove`` :1186, ``build_table_move`` :1233,
+``table_sequences`` :1328, ``make_shared_proposal_chain`` :1439).  The statistical contract is the
 reference's: the proposal sites follow an exogenous sequence shared by
 the walkers of one block (``block_size``), every other draw is per walker,
 and each walker is an exact Metropolis chain.  ``proposal_mode="sweep"``
@@ -16,10 +17,20 @@ is never accepted, and the chain counts the other, non-null proposals
 (``nmove``).  The joint delta is exact: dE(u: a -> b) + dE(v: b -> a with
 u already holding b).
 
-The chains run in :func:`flip_chain` and :func:`swap_chain`: on a CUDA
-tensor they launch the hand-written kernels ``csrc/flip_chain.cu`` and
-``csrc/swap_chain.cu``; on a CPU tensor they run
-:func:`flip_chain_reference` and :func:`swap_chain_reference`, the plain
+A table move (constrained composition moves, e.g. charge-neutral
+semigrand flips) takes an exogenous direction row of a :class:`TableMove`
+and one rank per slot of that row; it recolors the row's valid slots in
+order, each against the occupancy as the earlier slots left it, if every
+checked slot holds its from-code, and is an identity proposal otherwise.
+Every direction's negation is in the table with the same weight and the
+slot sites are uniform over fixed sublattices, so the proposal is
+symmetric and plain Metropolis acceptance is exact.
+
+The chains run in :func:`flip_chain`, :func:`swap_chain` and
+:func:`table_chain`: on a CUDA tensor they launch the hand-written kernels
+``csrc/flip_chain.cu``, ``csrc/swap_chain.cu`` and ``csrc/table_chain.cu``;
+on a CPU tensor they run :func:`flip_chain_reference`,
+:func:`swap_chain_reference` and :func:`table_chain_reference`, the plain
 torch twins that do the same arithmetic in the same order.
 
 Tables hold the rank layout of the reference (rank = position in the
@@ -57,6 +68,13 @@ __all__ = [
     "swap_step_reference",
     "swap_chain_reference",
     "swap_chain",
+    "TableMove",
+    "make_table_move",
+    "build_table_move",
+    "table_sequences",
+    "table_step_reference",
+    "table_chain_reference",
+    "table_chain",
     "make_shared_proposal_chain",
 ]
 
@@ -65,7 +83,9 @@ SEED_STRIDE = 999983  # hash mode: seed of chunk c = seed0 + c * SEED_STRIDE
 BLOCK_SEED_STRIDE = 7919  # hash mode: block seed = chunk seed + block * 7919
 SWEEP_SEED = 0x5EED  # seed of the sweep schedule's fixed permutation
 RNG_MODES = {"philox": 0, "hash": 1}
-MOVES = ("flip", "swap")
+MOVES = ("flip", "swap", "table")
+MAX_TABLE_SLOTS = 8  # most site recolorings of one table move
+MAX_SHARED_BYTES = 232448  # shared memory one block can use on sm_90 (227 KB)
 
 
 @dataclass(frozen=True)
@@ -287,6 +307,191 @@ def sweep_schedule(num_ranks: int, n_steps: int) -> np.ndarray:
     return np.resize(perm, n_steps).astype(np.int32)
 
 
+@dataclass(frozen=True)
+class TableMove:
+    """Static description of the chain's table (composition) moves.
+
+    Row layout of the per-direction tables, as the reference's: rows
+    ``0 .. n_dirs - 1`` are the flip directions (each flip vector, then its
+    negation), row ``n_dirs`` is the canonical swap, row ``n_dirs + 1`` is
+    the null move (taken when a drawn proposal collides with itself).  A
+    direction expands into at most ``k_max`` site recolorings (slots).
+
+    Sentinels: ``from_code == -1`` means no from-code check (an unused
+    slot, or the swap), ``to_code == -2`` "take the partner slot's code"
+    (the swap), ``slot_sub == -1`` "the sublattice drawn from the
+    sublattice probabilities" (the swap).
+
+    The host arrays equal the reference's; ``dev`` holds what the chain
+    reads on the tables' device: ``rows`` [3, n_dirs + 2, k_max] int32
+    (from_code, to_code, slot_valid), ``slot_sub`` and ``slot_valid``
+    [n_dirs + 2, k_max] int64, the direction cdf ``dir_cum`` [n_dirs] f64,
+    and the sublattices' pick cdf ``sub_cum`` [S] f64, first ranks
+    ``sub_offset`` [S] and sizes ``n_active`` [S] int64.
+    """
+
+    n_dirs: int  # 2F flip directions (the rows beyond: swap, null)
+    k_max: int
+    swap_weight: float
+    from_code: np.ndarray  # [n_dirs + 2, k_max] int32
+    to_code: np.ndarray  # [n_dirs + 2, k_max] int32
+    slot_valid: np.ndarray  # [n_dirs + 2, k_max] int32
+    slot_sub: np.ndarray  # [n_dirs + 2, k_max] int32
+    dir_cum_probs: np.ndarray  # [n_dirs] f64 cumulative direction weights
+    dev: dict  # name -> tensor on the tables' device
+
+
+def make_table_move(tables, n_dirs, k_max, swap_weight, from_code, to_code,
+                    slot_valid, slot_sub, dir_cum_probs) -> TableMove:
+    """A :class:`TableMove` of these host arrays, with its device copies."""
+    device = tables.device
+
+    def dev(x, dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
+
+    return TableMove(
+        n_dirs=n_dirs, k_max=k_max, swap_weight=swap_weight,
+        from_code=from_code, to_code=to_code, slot_valid=slot_valid,
+        slot_sub=slot_sub, dir_cum_probs=dir_cum_probs,
+        dev={
+            "rows": dev(np.stack([from_code, to_code, slot_valid]), torch.int32),
+            "slot_sub": dev(slot_sub, torch.int64),
+            "slot_valid": dev(slot_valid, torch.int64),
+            "dir_cum": dev(dir_cum_probs, torch.float64),
+            "sub_cum": dev(tables.cum_probs, torch.float64),
+            "sub_offset": dev(tables.sub_offset, torch.int64),
+            "n_active": dev(tables.n_active, torch.int64),
+        },
+    )
+
+
+def build_table_move(tables: ChainTables, usher) -> TableMove:
+    """Expand a TableFlip usher's flip table into the chain's TableMove.
+
+    Counterpart of ``pallas_chain.py:1233-1325``, with the same arrays.
+    Where the chain cannot honour the usher exactly (direction-asymmetric
+    flip weights, which break the proposal's symmetry; a flip vector that
+    touches an inactive sublattice or changes a sublattice's site count; a
+    direction of more than ``MAX_TABLE_SLOTS`` recolorings) the reference
+    falls back to its per-step path; the port has none yet and raises
+    ``NotImplementedError``.
+    """
+
+    def refuse(why):
+        return NotImplementedError(
+            f"the table chain cannot take this usher ({why}), and the "
+            "per-step path is not ported yet (ROADMAP.md Queue 1 item 8)"
+        )
+
+    flip_table = np.asarray(usher.flip_table, dtype=np.int64)  # [F, D]
+    if flip_table.size == 0:
+        raise refuse("its flip table is empty")
+    weights = np.asarray(usher.flip_weights, dtype=np.float64)  # [2F]
+    pairs = weights.reshape(-1, 2)
+    if not np.allclose(pairs[:, 0], pairs[:, 1]):
+        raise refuse("direction-asymmetric flip weights")
+    if weights.sum() <= 0:
+        raise refuse("its flip weights sum to zero")
+
+    # each dimension -> (active sublattice index, code); the active
+    # sublattices in the order of the tables' rank layout
+    active_index, n_active = {}, 0
+    for si, sl in enumerate(usher.sublattices):
+        if sl.is_active:
+            active_index[si] = n_active
+            n_active += 1
+    dim_sub = -np.ones(usher.d, dtype=np.int64)
+    dim_code = np.zeros(usher.d, dtype=np.int64)
+    for si, dim_ids in enumerate(usher.dim_ids):
+        for code, dim in enumerate(dim_ids):
+            dim_sub[dim] = active_index.get(si, -1)
+            dim_code[dim] = code  # encodings are arange (the tables check)
+
+    directions = np.concatenate([(u, -u) for u in flip_table], axis=0)  # [2F, D]
+    slots = []  # per direction: (active sublattice, from code, to code) each
+    for u in directions:
+        if np.any((u != 0) & (dim_sub < 0)):
+            raise refuse("a flip vector touches an inactive sublattice")
+        dir_slots = []
+        for sub in range(n_active):
+            removed, added = [], []
+            for dim in np.flatnonzero((u != 0) & (dim_sub == sub)):
+                target = removed if u[dim] < 0 else added
+                target.extend([int(dim_code[dim])] * int(abs(u[dim])))
+            if len(removed) != len(added):
+                raise refuse("a flip vector changes a sublattice's site count")
+            dir_slots.extend((sub, fc, tc) for fc, tc in zip(removed, added))
+        if not dir_slots:
+            raise refuse("a flip vector changes nothing")
+        slots.append(dir_slots)
+
+    n_dirs = len(directions)
+    k_max = max(2, max(len(dir_slots) for dir_slots in slots))
+    if k_max > MAX_TABLE_SLOTS:
+        raise refuse(f"a direction of {k_max} > {MAX_TABLE_SLOTS} recolorings")
+
+    rows = n_dirs + 2  # + the swap row and the null row
+    from_code = -np.ones((rows, k_max), dtype=np.int32)
+    to_code = -np.ones((rows, k_max), dtype=np.int32)
+    slot_valid = np.zeros((rows, k_max), dtype=np.int32)
+    slot_sub = np.zeros((rows, k_max), dtype=np.int32)
+    for di, dir_slots in enumerate(slots):
+        for j, (sub, fc, tc) in enumerate(dir_slots):
+            from_code[di, j] = fc
+            to_code[di, j] = tc
+            slot_valid[di, j] = 1
+            slot_sub[di, j] = sub
+    # the swap row: slots 0 and 1 exchange their codes within one sublattice
+    to_code[n_dirs, :2] = -2
+    slot_valid[n_dirs, :2] = 1
+    slot_sub[n_dirs, :2] = -1
+
+    return make_table_move(
+        tables, n_dirs, k_max, float(usher.swap_weight), from_code, to_code,
+        slot_valid, slot_sub, np.cumsum(weights / weights.sum()),
+    )
+
+
+def table_sequences(tables: ChainTables, tm: TableMove, generator, shape):
+    """Exogenous ``(dirs, ranks)`` of table moves, int32, on the device.
+
+    ``dirs`` has ``shape`` and ``ranks`` ``shape + (k_max,)``.  A direction
+    follows the (direction-symmetric) flip weights with probability
+    ``1 - swap_weight`` and is the swap row otherwise; each slot's rank is
+    uniform over its sublattice's active ranks (the swap row's sublattice
+    follows the sublattice probabilities).  A proposal whose valid slots
+    collide (one rank twice, u == v of a swap included) is redirected to
+    the null row (the reference's ``table_sequences`` :1328).
+    """
+    device = tables.device
+    d = tm.dev
+
+    def rand(size):
+        return torch.rand(size, generator=generator, device=device,
+                          dtype=torch.float64)
+
+    dirs = (d["dir_cum"] <= rand(shape)[..., None]).sum(dim=-1).clamp(max=tm.n_dirs - 1)
+    if tm.swap_weight > 0:
+        dirs = torch.where(rand(shape) < tm.swap_weight,
+                           torch.full_like(dirs, tm.n_dirs), dirs)
+    swap_sub = (d["sub_cum"] <= rand(shape)[..., None]).sum(dim=-1)
+    swap_sub = swap_sub.clamp(max=len(d["sub_cum"]) - 1)
+
+    sub = d["slot_sub"][dirs]  # [*shape, k_max]
+    valid = d["slot_valid"][dirs] > 0
+    sub = torch.where(sub < 0, swap_sub[..., None], sub)
+    n_act = d["n_active"][sub]
+    ranks = d["sub_offset"][sub] + torch.minimum(
+        (rand(tuple(shape) + (tm.k_max,)) * n_act).long(), n_act - 1
+    )
+    collide = torch.zeros(shape, dtype=torch.bool, device=device)
+    for j in range(tm.k_max):
+        for k in range(j + 1, tm.k_max):
+            collide |= valid[..., j] & valid[..., k] & (ranks[..., j] == ranks[..., k])
+    dirs = torch.where(collide, torch.full_like(dirs, tm.n_dirs + 1), dirs)
+    return dirs.to(torch.int32), ranks.to(torch.int32)
+
+
 def _wrap_int32(x):
     return ((x + 2**31) % 2**32) - 2**31
 
@@ -431,6 +636,57 @@ def swap_step_reference(tables: ChainTables, occ, u, v, r_u, beta32):
     return accept & is_move, is_move, a, b, dE, expo, log_u
 
 
+def table_step_reference(tables: ChainTables, tm: TableMove, occ, d, ranks,
+                         r_u, beta32):
+    """One table-move proposal for every walker, without applying it.
+
+    ``occ`` [R, W] int8 codes (left as it was), ``d`` [W] direction rows,
+    ``ranks`` [W, k_max] slot ranks, ``r_u`` [W] random bits, ``beta32``
+    [W] f32.  Returns ``(accept, valid, a0, b, dE, expo, log_u)``: ``a0``
+    and ``b`` [W, k_max] are the slots' codes before the move and the
+    codes they take (``b == a0`` on a slot that is not valid).  The move
+    is valid if its row has a valid slot, every checked slot holds its
+    from-code and, on the swap row, the two codes differ; all of these
+    read the codes from before the move.  dE sums, for each valid slot in
+    order and against the occupancy as the earlier slots left it, the
+    slot's cluster terms in order l = 0 .. L-1, then its Ewald term, then
+    minus its chemical work, as the kernel does (``table_step`` of the
+    reference, :1701-1785).  An invalid move is never accepted.
+    """
+    walkers = torch.arange(occ.shape[1], device=occ.device)
+    d, ranks = d.long(), ranks.long()
+    from_code, to_code, slot_valid = (t[d].long() for t in tm.dev["rows"])  # [W, k_max]
+    a0 = occ[ranks, walkers[:, None]].long()  # codes before the move
+    slot_on = slot_valid > 0
+    valid = slot_on[:, 0] & (~(slot_on & (from_code >= 0)) | (a0 == from_code)).all(dim=1)
+    valid &= (to_code[:, 0] != -2) | (a0[:, 0] != a0[:, 1])
+
+    partner_slot = list(range(tm.k_max))
+    partner_slot[:2] = [1, 0]  # only the swap row's two slots take a partner
+    partner = a0[:, partner_slot]
+    b = torch.where(to_code >= 0, to_code, partner)
+    b = torch.where(slot_on, b, a0)
+    dE = torch.zeros(occ.shape[1], dtype=torch.float64, device=occ.device)
+    for j in range(tm.k_max):
+        on = slot_on[:, j]
+        if not bool(on.any()):
+            continue  # a slot no walker's row uses adds exactly zero
+        u, a, bj = ranks[:, j], a0[:, j], b[:, j]
+        # where the slot is off, a == bj and every term below is exactly 0
+        for col in _ce_terms(tables, occ, u, a, bj).unbind(1):
+            dE = dE + col
+        if tables.has_ewald:
+            dE = dE + _ewald_term(tables, occ, u, bj - a)
+        dE = dE - (tables.mu[u, bj] - tables.mu[u, a])
+        written = on & valid  # distinct sites are certain only among these
+        occ[u[written], walkers[written]] = bj[written].to(occ.dtype)
+    for j in range(tm.k_max):
+        back = slot_on[:, j] & valid
+        occ[ranks[back, j], walkers[back]] = a0[back, j].to(occ.dtype)
+    accept, expo, log_u = _metropolis(dE, r_u, beta32)
+    return accept & valid, valid, a0, b, dE, expo, log_u
+
+
 def flip_chain_reference(occ, enthalpy, naccept, beta32, seq, seed, tables,
                          n_steps, block_size, rng="philox", margin=None):
     """Plain torch twin of the CUDA flip-chain kernel (same arguments).
@@ -485,6 +741,40 @@ def swap_chain_reference(occ, enthalpy, naccept, nmove, beta32, useq, vseq,
         enthalpy += torch.where(accept, dE, torch.zeros_like(dE))
         naccept += accept.to(naccept.dtype)
         nmove += is_move.to(nmove.dtype)
+
+
+def table_chain_reference(occ, enthalpy, naccept, beta32, dirs, ranks, seed,
+                          tables, table_move, n_steps, block_size,
+                          rng="philox", margin=None, slack=0.0, nslot=None):
+    """Plain torch twin of the CUDA table-chain kernel (same arguments).
+
+    Updates ``occ``, ``enthalpy`` and ``naccept`` in place.  ``margin`` and
+    ``slack`` as in :func:`swap_chain_reference`; invalid (identity)
+    proposals never lower the margin.  ``nslot``, an optional [W] int32
+    tensor, gains the site recolorings whose delta a walker had to
+    compute: the valid slots of its valid proposals.
+    """
+    W = occ.shape[1]
+    walkers = torch.arange(W, device=occ.device)
+    group = walkers // block_size
+    r_u, _ = chain_draws(rng, int(seed[0]), n_steps, W, block_size, occ.device)
+    for i in range(n_steps):
+        slot_ranks = ranks[group, i].long()  # [W, k_max]
+        accept, valid, _, b, dE, expo, log_u = table_step_reference(
+            tables, table_move, occ, dirs[group, i], slot_ranks, r_u[i], beta32
+        )
+        if margin is not None:
+            _lower_margin(margin, expo, log_u, beta32, slack, ~valid)
+        slot_on = table_move.dev["slot_valid"][dirs[group, i].long()] > 0  # [W, k_max]
+        for j in range(table_move.k_max):
+            # an accepted move recolors its valid slots (elsewhere b == a0,
+            # and an unused slot's rank may repeat a valid slot's)
+            on = accept & slot_on[:, j]
+            occ[slot_ranks[on, j], walkers[on]] = b[on, j].to(occ.dtype)
+        if nslot is not None:
+            nslot += (slot_on.sum(dim=1) * valid).to(nslot.dtype)
+        enthalpy += torch.where(accept, dE, torch.zeros_like(dE))
+        naccept += accept.to(naccept.dtype)
 
 
 def _check_operands(name, occ, enthalpy, counts, beta32, seqs, seed, tables,
@@ -622,15 +912,95 @@ def swap_chain(occ, enthalpy, naccept, nmove, beta32, useq, vseq, seed,
 swap_chain.launches = 0
 
 
+def _cuda_block_threads(W, block_size):
+    """Threads of a CUDA block, as ``block_threads`` of chain_common.cuh."""
+    if W <= block_size or block_size % 64 == 0:
+        return 64
+    return int(np.gcd(block_size, 64))
+
+
+def table_chain_shared_bytes(tables, k_max, W, block_size):
+    """Dynamic shared memory of one table-chain launch, in bytes: two
+    buffers of ``k_max`` row sets and the block's codes."""
+    L, K = tables.nbr.shape[1:]
+    ewald_row = tables.num_ranks if tables.has_ewald else 0
+    row_set = L * tables.g.shape[2] * 8 + ewald_row * 8 + L * (2 * K + 1) * 4
+    row_set = -(-row_set // 16) * 16
+    return 2 * k_max * row_set + tables.num_ranks * _cuda_block_threads(W, block_size)
+
+
+def table_chain(occ, enthalpy, naccept, beta32, dirs, ranks, seed, tables,
+                table_move, n_steps, block_size, rng="philox"):
+    """Run ``n_steps`` shared-proposal table moves on every walker, in place.
+
+    Arguments as :func:`flip_chain`, with the direction rows ``dirs``
+    [G, >= n_steps] int32 and the slot ranks ``ranks`` [G, >= n_steps,
+    k_max] int32 in place of ``seq``, and the :class:`TableMove` of the
+    same tables.  A CUDA tensor launches the kernel
+    (``table_chain.launches`` counts the launches); a CPU tensor runs
+    :func:`table_chain_reference`.
+    """
+    _check_operands("table_chain", occ, enthalpy, (naccept,), beta32, (dirs,),
+                    seed, tables, n_steps, block_size)
+    k_max = table_move.k_max
+    if ranks.dtype != torch.int32 or tuple(ranks.shape) != (*dirs.shape, k_max) \
+            or not ranks.is_contiguous() or ranks.device != occ.device:
+        raise ValueError(
+            f"table_chain ranks: expected contiguous int32 {(*dirs.shape, k_max)} "
+            f"on {occ.device}, got {ranks.dtype} {tuple(ranks.shape)} on {ranks.device}"
+        )
+    rows = table_move.dev["rows"]
+    if rows.device != occ.device or tuple(rows.shape[1:]) != (table_move.n_dirs + 2, k_max):
+        raise ValueError("table_chain: the table move does not match its operands")
+    if occ.device.type == "cpu":
+        table_chain_reference(occ, enthalpy, naccept, beta32, dirs, ranks, seed,
+                              tables, table_move, n_steps, block_size, rng)
+        return
+    if occ.device.type != "cuda":
+        raise ValueError(f"table_chain runs on cuda or cpu, not {occ.device}")
+    if rng not in RNG_MODES:
+        raise ValueError(f"unknown rng mode: {rng!r}")
+    R, W = occ.shape
+    L, K = tables.nbr.shape[1:]
+    smem = table_chain_shared_bytes(tables, k_max, W, block_size)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"table_chain needs {smem} bytes of shared memory per block (two "
+            f"buffers of k_max = {k_max} row sets of L = {L}, K = {K}, TM = "
+            f"{tables.g.shape[2]}, Ewald row {R if tables.has_ewald else 0}, and "
+            f"{R} ranks of codes), above the card's {MAX_SHARED_BYTES}"
+        )
+    lib = _build.load_chain("table_chain")
+    with torch.cuda.device(occ.device):
+        stream = torch.cuda.current_stream(occ.device).cuda_stream
+        rc = lib.smol_table_chain(
+            occ.data_ptr(), enthalpy.data_ptr(), naccept.data_ptr(),
+            beta32.data_ptr(), dirs.data_ptr(), ranks.data_ptr(),
+            dirs.stride(0), ranks.stride(0), seed.data_ptr(),
+            tables.nbr.data_ptr(), tables.stride.data_ptr(),
+            tables.d2.data_ptr(), tables.g.data_ptr(), tables.mu.data_ptr(),
+            rows.data_ptr(), *_ewald_pointers(tables), R, L, K,
+            tables.g.shape[2], tables.mu.shape[1], W, block_size, n_steps,
+            RNG_MODES[rng], k_max, table_move.n_dirs + 2, stream,
+        )
+    table_chain.launches += 1
+    _launch_check(lib, "table_chain", rc)
+
+
+table_chain.launches = 0
+
+
 def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
                                block_size: int = 1024,
                                proposal_mode: str = "random",
                                rng: str = "philox", seqs=None, seeds=None,
-                               move: str = "flip"):
+                               move: str = "flip", table_move=None):
     """Build ``fn(state, generator) -> state`` running ``n_steps`` moves.
 
-    ``move`` is ``"flip"`` (single-site, semigrand) or ``"swap"`` (two
-    sites of one sublattice exchange codes, canonical).  ``state`` holds
+    ``move`` is ``"flip"`` (single-site, semigrand), ``"swap"`` (two
+    sites of one sublattice exchange codes, canonical) or ``"table"``
+    (constrained composition moves of ``table_move``, a
+    :class:`TableMove`).  ``state`` holds
     ``occupancy`` [W, N] int32, ``enthalpy`` [W] f64, ``beta`` [W] f64,
     ``naccept`` [W] int32 and ``accepted`` [W] bool, and optionally
     ``window_naccept`` [W] int32 and, for swaps, ``nmove`` [W] int32 (the
@@ -639,23 +1009,28 @@ def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
     device for the site sequence and the launch seeds.
 
     ``rng="hash"`` reproduces the reference interpret-mode chain: the
-    steps run in chunks of at most 2048 with the step counted within the
-    chunk and chunk seeds ``seed0 + c * 999983``.  ``seqs``
-    [n_chunks, G, chunk] (for swaps a pair ``(u_seqs, v_seqs)`` of them)
-    and ``seeds`` [n_chunks] replace the draws (the tests pass the
-    reference's own draws); in ``"philox"`` mode a window is one chunk.
-    ``proposal_mode="sweep"`` is defined for flips only.
+    steps run in chunks of at most 2048 (``2048 // k_max`` for table
+    moves) with the step counted within the chunk and chunk seeds
+    ``seed0 + c * 999983``.  ``seqs`` [n_chunks, G, chunk] (for swaps a
+    pair ``(u_seqs, v_seqs)`` of them, for table moves ``(dirs, ranks)``
+    with ranks [n_chunks, G, chunk, k_max]) and ``seeds`` [n_chunks]
+    replace the draws (the tests pass the reference's own draws); in
+    ``"philox"`` mode a window is one chunk.  ``proposal_mode="sweep"`` is
+    defined for flips only.
     """
     if move not in MOVES:
         raise ValueError(f"unknown move type: {move!r}")
+    if (move == "table") != (table_move is not None):
+        raise ValueError('move="table" goes with a table_move, and no other move')
     if proposal_mode not in ("random", "sweep"):
         raise ValueError(f"unknown proposal mode: {proposal_mode!r}")
     if proposal_mode == "sweep" and move != "flip":
         raise ValueError('proposal_mode="sweep" supports move="flip" only')
     if rng not in RNG_MODES:
         raise ValueError(f"unknown rng mode: {rng!r}")
-    swap = move == "swap"
-    chunk = min(n_steps, MAX_CHUNK_STEPS) if rng == "hash" else n_steps
+    swap, table = move == "swap", move == "table"
+    max_chunk = MAX_CHUNK_STEPS // table_move.k_max if table else MAX_CHUNK_STEPS
+    chunk = min(n_steps, max_chunk) if rng == "hash" else n_steps
     n_chunks = -(-n_steps // chunk)
     rank_sites = tables.rank_sites
 
@@ -669,7 +1044,10 @@ def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
         groups = -(-W // block_size)
         shape = (n_chunks, groups, chunk)
         if seqs is not None:
-            seq = [as_seq(s, device) for s in seqs] if swap else [as_seq(seqs, device)]
+            pair = swap or table
+            seq = [as_seq(s, device) for s in seqs] if pair else [as_seq(seqs, device)]
+        elif table:
+            seq = list(table_sequences(tables, table_move, generator, shape))
         elif swap:
             seq = list(rank_pair_sequence(tables, generator, shape))
         elif proposal_mode == "sweep":
@@ -698,7 +1076,10 @@ def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
             steps = min(chunk, n_steps - c * chunk)
             seed_c = seed[c: c + 1].contiguous()
             seq_c = [s[c].contiguous() for s in seq]
-            if swap:
+            if table:
+                table_chain(occ, state["enthalpy"], nacc, beta32, *seq_c,
+                            seed_c, tables, table_move, steps, block_size, rng)
+            elif swap:
                 swap_chain(occ, state["enthalpy"], nacc, nmv, beta32, *seq_c,
                            seed_c, tables, steps, block_size, rng)
             else:

@@ -35,6 +35,14 @@ Keys of a system dict (N sites, C clusters of at most K sites, P
   ``ewald_coef`` 0-d f64.  ``num_energy_coefs`` and
   ``natural_parameters`` then hold the expansion's coefficients followed
   by the Ewald coefficient;
+- for table flips (``export_system(ensemble, usher=...)`` with the
+  reference's ``TableFlip`` usher): ``flip_table`` [F, D] int64, the flip
+  vectors over the D (sublattice, species) dimensions of the composition
+  space; ``usher_dim_ids`` with ``usher_dim_ids_offsets`` [S + 1], each
+  sublattice's dimension ids (one per code, in code order) concatenated
+  in sublattice order; and ``site_charges`` [N, max codes] f64, the
+  oxidation state of each (site, code), 0 for a vacancy, a neutral
+  species or a code the site does not take;
 - optionally ``initial_occupancy`` [N] int32, a starting occupancy the
   system's user runs from (added by the exporting script, not by
   :func:`export_system`).
@@ -90,7 +98,17 @@ def _ragged(arrays, dtype):
     return flat, offsets
 
 
-def export_system(ensemble) -> dict:
+def site_charges(allowed_species) -> np.ndarray:
+    """[N, max codes] f64 oxidation state of each (site, code), else 0."""
+    width = max(len(species) for species in allowed_species)
+    charges = np.zeros((len(allowed_species), width), dtype=np.float64)
+    for site, species in enumerate(allowed_species):
+        for code, sp in enumerate(species):
+            charges[site, code] = float(getattr(sp, "oxi_state", 0) or 0)
+    return charges
+
+
+def export_system(ensemble, usher=None) -> dict:
     """Numpy arrays of a ``smol_tpu`` semigrand or canonical ensemble.
 
     The ensemble's processor must be a cluster-expansion processor (its
@@ -99,7 +117,9 @@ def export_system(ensemble) -> dict:
     evaluates, or a composite of one such and an Ewald processor (what
     ``from_cluster_expansion`` builds for a subspace with an Ewald term).
     Build it with ``Ensemble.from_cluster_expansion(...,
-    processor_type="expansion")``.
+    processor_type="expansion")``.  With ``usher``, a ``TableFlip`` usher
+    of the ensemble's sublattices, the system also carries its flip table,
+    its dimension ids and the site charges (see the module docstring).
     """
     processor = ensemble.processor
     parts = getattr(processor, "processors", [processor])
@@ -159,6 +179,12 @@ def export_system(ensemble) -> dict:
         system["ewald_matrix"] = np.asarray(ewald.ewald_matrix, dtype=np.float64)
         system["ewald_inds"] = np.asarray(ewald._ewald_inds, dtype=np.int32)
         system["ewald_coef"] = np.float64(np.atleast_1d(ewald.coefs)[0])
+    if usher is not None:
+        system["flip_table"] = np.asarray(usher.flip_table, dtype=np.int64)
+        system["usher_dim_ids"], system["usher_dim_ids_offsets"] = _ragged(
+            usher.dim_ids, np.int64
+        )
+        system["site_charges"] = site_charges(ensemble.processor.allowed_species)
     return system
 
 

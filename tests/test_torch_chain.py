@@ -316,7 +316,10 @@ def test_sampler_device_is_explicit(spinel):
                                    bias_type="square-charge")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
-                                   step_type="table-flip")
+                                   step_type="table-flip")  # no flip table
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
+                                   kernel_type="wang-landau")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
                                    replica_exchange_period=10)

@@ -12,17 +12,23 @@ enthalpies to 1e-9 absolute), including a partial CUDA block, sequence
 blocks smaller than a CUDA block, the main paths' launch shapes (8192
 walkers in blocks of 1024, or 512 for Au-Cu), the Ewald term (the flip
 kernel on the canonical spinel CE + Ewald too) and the general (runtime
-slot count) kernels; a refused operand raises before any launch.
+slot count) kernels; a refused operand raises before any launch.  The
+table-move kernel likewise, in its two-slot body (the semigrand spinel
+CE + Ewald), its runtime slot count body (the rocksalt whose moves recolor
+up to three sites, and the spinel's table padded to four slots), keeping
+every walker's net charge.
 """
 
 import dataclasses
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from smol_tpu_torch.constants import kB
 from smol_tpu_torch.moca.ensemble import Ensemble, random_occupancies
+from smol_tpu_torch.moca.kernel.tableflip import TableFlip
 from smol_tpu_torch.ops import chain
 from smol_tpu_torch.system import load_system
 
@@ -58,6 +64,12 @@ def _operands(card, cell, W, n_steps, block_size, move="flip"):
     if move == "swap":
         ops["useq"], ops["vseq"] = chain.rank_pair_sequence(tables, gen, shape)
         ops["nmove"] = torch.zeros(W, dtype=torch.int32, device=card)
+    elif move == "table":
+        usher = TableFlip(ens.sublattices, **ens.table_data)
+        ops["table_move"] = chain.build_table_move(tables, usher)
+        ops["dirs"], ops["ranks"] = chain.table_sequences(
+            tables, ops["table_move"], gen, shape)
+        ops["charges"] = torch.as_tensor(ens.site_charges, device=card)[tables.rank_sites]
     else:
         ops["seq"] = chain.rank_sequence(tables, gen, shape)
     return ops
@@ -188,3 +200,68 @@ def test_general_slot_count_swap_matches_twin(card, cell):
     kernel, twin = _kernel_and_twin(ops, chain.swap_chain, chain.swap_chain_reference,
                                     "philox", kernel_tables=padded)
     _assert_same(kernel, twin, 400)
+
+
+def _table_kernel_and_twin(ops, rng, kernel_move=None):
+    charges = ops.pop("charges")
+    kernel_ops = {**ops, "table_move": kernel_move or ops["table_move"]}
+    if kernel_move is not None:  # the padded table takes padded ranks
+        pad = kernel_move.k_max - ops["ranks"].shape[-1]
+        kernel_ops["ranks"] = torch.nn.functional.pad(ops["ranks"], (0, pad)).contiguous()
+    outs = []
+    for fn, operands in ((chain.table_chain, kernel_ops),
+                         (chain.table_chain_reference, ops)):
+        run = {k: (v.clone() if k in STATE else v) for k, v in operands.items()}
+        before = chain.table_chain.launches
+        fn(**run, rng=rng)
+        torch.cuda.synchronize()
+        assert chain.table_chain.launches - before == (1 if fn is chain.table_chain else 0)
+        outs.append(run)
+    kernel, twin = outs
+    _assert_same(kernel, twin, ops["n_steps"])
+    net = [charges.gather(1, o["occ"].long()).sum(dim=0) for o in (ops, kernel)]
+    assert torch.equal(*net)  # each walker keeps its net charge
+    assert not torch.equal(kernel["occ"], ops["occ"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+@pytest.mark.parametrize(
+    "cell,W,block_size",
+    [("spinel_ewald_sgc_2x2x2", 256, 64), ("spinel_ewald_sgc_3x3x3", 1000, 1024),
+     ("spinel_ewald_sgc_2x2x2", 200, 8), ("lmof_2x2x2", 256, 64),
+     ("spinel_ewald_sgc_3x3x3", 8192, 1024)],  # the last: the main path's shape
+)
+def test_table_kernel_matches_twin(card, rng, cell, W, block_size):
+    ops = _operands(card, cell, W, 400, block_size, move="table")
+    assert ops["table_move"].k_max == (3 if cell == "lmof_2x2x2" else 2)
+    _table_kernel_and_twin(ops, rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_max", [4, 8])
+def test_table_kernel_runtime_slot_count_matches_twin(card, k_max):
+    """The spinel's table padded with unused slots takes the runtime body."""
+    ops = _operands(card, "spinel_ewald_sgc_3x3x3", 256, 400, 64, move="table")
+    tm = ops["table_move"]
+    pad = k_max - tm.k_max
+    padded = chain.make_table_move(
+        ops["tables"], tm.n_dirs, k_max, tm.swap_weight,
+        *(np.pad(x, ((0, 0), (0, pad)), constant_values=fill)
+          for x, fill in ((tm.from_code, -1), (tm.to_code, -1), (tm.slot_valid, 0),
+                          (tm.slot_sub, 0))),
+        tm.dir_cum_probs,
+    )
+    _table_kernel_and_twin(ops, "philox", kernel_move=padded)
+
+
+@pytest.mark.cuda
+def test_table_kernel_refuses_what_it_cannot_take(card):
+    ops = _operands(card, "spinel_ewald_sgc_2x2x2", 64, 10, 64, move="table")
+    ops.pop("charges")
+    before = chain.table_chain.launches
+    with pytest.raises(ValueError, match="ranks"):
+        chain.table_chain(**{**ops, "ranks": ops["ranks"][..., :1].contiguous()})
+    with pytest.raises(ValueError):
+        chain.table_chain(**{**ops, "dirs": ops["dirs"].cpu()})
+    assert chain.table_chain.launches == before

@@ -5,7 +5,10 @@
   (so the files cannot go stale), and the exporter's local-cluster arrays
   equal ``smol_tpu.ops.fastmc.site_local_arrays`` exactly; so does a
   fresh export of each canonical system (spinel CE + Ewald 2x2x2 and
-  3x3x3, Au-Cu 4x4x4), initial occupancy included;
+  3x3x3, Au-Cu 4x4x4), initial occupancy included, and of each table-flip
+  system (the semigrand spinel CE + Ewald 2x2x2 and 3x3x3, the multi-slot
+  rocksalt and the tiny enumeration cell) with its flip table, dimension
+  ids and site charges;
 - the exporter refuses a processor the port cannot evaluate, alone or as
   the expansion part of a composite;
 - with ``jax`` blocked from importing, a subprocess imports the port and
@@ -32,10 +35,12 @@ sys.path.insert(0, str(ROOT / "scripts"))
 from export_torch_systems import (  # noqa: E402
     CANONICAL,
     SUPERCELLS,
+    TABLE,
     canonical_system,
     data_path,
     spinel_ensemble,
     system_path,
+    table_system,
 )
 
 
@@ -67,6 +72,32 @@ def test_committed_canonical_system_matches_fresh_export(stem):
         stored = committed[key]
         assert stored.dtype == np.asarray(value).dtype, key
         np.testing.assert_array_equal(stored, value, err_msg=key)
+
+
+@pytest.mark.parametrize("stem", sorted(TABLE))
+def test_committed_table_system_matches_fresh_export(stem):
+    fresh = table_system(stem)
+    committed = load_system(data_path(stem))
+    assert sorted(fresh) == sorted(committed)
+    assert {"flip_table", "usher_dim_ids", "usher_dim_ids_offsets", "site_charges",
+            "chemical_potential_table"} <= set(committed)
+    assert ("ewald_matrix" in committed) == stem.startswith("spinel_ewald")
+    for key, value in fresh.items():
+        stored = committed[key]
+        assert stored.dtype == np.asarray(value).dtype, key
+        np.testing.assert_array_equal(stored, value, err_msg=key)
+    # the flip vectors keep the charge, and a stored start is neutral
+    charges = committed["site_charges"]
+    dim_charge = np.zeros(committed["flip_table"].shape[1])
+    subs = np.split(committed["sublattice_sites"],
+                    committed["sublattice_sites_offsets"][1:-1])
+    dims = np.split(committed["usher_dim_ids"], committed["usher_dim_ids_offsets"][1:-1])
+    for sites, ids in zip(subs, dims):
+        dim_charge[ids] = charges[sites[0], : len(ids)]
+    assert np.all(committed["flip_table"] @ dim_charge == 0)
+    if "initial_occupancy" in committed:
+        occ = committed["initial_occupancy"]
+        assert charges[np.arange(len(occ)), occ].sum() == 0
 
 
 def test_local_arrays_equal_reference(bench_spinel):
@@ -142,6 +173,13 @@ def test_port_runs_with_jax_blocked():
         sampler.run(100, system["initial_occupancy"], thin_by=50)
         assert sampler.samples.num_samples == 2
         print("ok", sampler.execution_path(50))
+        system = load_system({str(data_path("spinel_ewald_sgc_2x2x2"))!r})
+        ens = Ensemble.from_system(system, "cpu")
+        sampler = Sampler.from_ensemble(ens, 1000.0, 16, seed=3, device="cpu",
+                                        step_type="table-flip")
+        sampler.run(100, system["initial_occupancy"], thin_by=50)
+        assert sampler.samples.num_samples == 2
+        print("ok", sampler.execution_path(50))
         bad = [m for m in sys.modules if m == "smol_tpu" or m.startswith("smol_tpu.")]
         assert not bad, bad
         """
@@ -153,6 +191,7 @@ def test_port_runs_with_jax_blocked():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "ok cpu-twin[flip]" in proc.stdout
     assert "ok cpu-twin[swap]+ewald" in proc.stdout
+    assert "ok cpu-twin[table]+ewald" in proc.stdout
 
 
 def test_port_never_imports_jax_or_reference():
@@ -174,3 +213,8 @@ def test_port_never_imports_jax_or_reference():
     assert not offenders, offenders
     assert (package / "csrc" / "flip_chain.cu").exists()
     assert (package / "csrc" / "swap_chain.cu").exists()
+    assert (package / "csrc" / "table_chain.cu").exists()
+    from smol_tpu_torch.ops import _build
+
+    assert sorted(_build.KERNELS) == ["flip_chain", "swap_chain", "table_chain"]
+    assert all((_build.CSRC_DIR / f"{name}.cu").exists() for name in _build.KERNELS)
