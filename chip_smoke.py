@@ -5,10 +5,10 @@ CUDA device and the CUDA toolkit (``nvcc``), and exits non-zero without
 printing its last line when any phase fails:
 
 1. requires a CUDA device and prints the card's name and power limit;
-2. builds the flip-chain, swap-chain and table-chain kernels from
-   ``smol_tpu_torch/csrc`` (into ``build/smol_tpu_torch``, one ``nvcc`` per
-   source, all at once) and prints the build time and each kernel's
-   registers and spills;
+2. builds the flip-chain, swap-chain, table-chain and Wang-Landau-chain
+   kernels from ``smol_tpu_torch/csrc`` (into ``build/smol_tpu_torch``, one
+   ``nvcc`` per source, all at once) and prints the build time and each
+   kernel's registers and spills;
 3. runs each kernel and its plain torch twin on the same inputs at the
    shapes the main paths give the kernel (8192 walkers, one 100-step
    window, sequence blocks of 1024, or 512 for Au-Cu), in ``hash`` mode
@@ -26,7 +26,18 @@ printing its last line when any phase fails:
    chunk.  Occupancies and accept (and move) counts must be identical,
    except where the twin shows the decision within 4 f32 ulps of log U,
    and enthalpies must agree to 1e-9 absolute; swaps must keep every
-   walker's composition and table moves every walker's net charge;
+   walker's composition and table moves every walker's net charge.
+   The Wang-Landau chain against its twin on every walker and plane
+   (occupancy, entropy to 0.0, histogram, occurrences, ``mod_factor``,
+   ``wl_counter``, ``naccept``; enthalpy to 1e-9), 2048 walkers, 100
+   steps with a flatness check every 20, in both RNG modes: flips on
+   Au-Cu 3x3x3 at the bench's ~250 bins, swaps on Au-Cu 4x4x4, then one
+   hash-mode run across the 2048-step chunk boundary, one with
+   ``update_period = 3``, and swaps with the Ewald term on the spinel
+   CE + Ewald 2x2x2; every compared run must hold a flatness reset.
+   Last, the main path's own launch for both moves: 2048 walkers from
+   planes of zeros, one philox window of 15000 steps at flatness 0.8 with
+   a check every 1000 steps (about a minute of the twin per move);
 4. drives the main paths, each with the launch counts set to 0 just
    before and read just after:
    - flips: ``Ensemble.from_system(spinel 2x2x2, then 3x3x3)`` ->
@@ -39,6 +50,17 @@ printing its last line when any phase fails:
    - charge-neutral table flips: the same with ``step_type="table-flip"``
      on the semigrand spinel CE + Ewald 2x2x2 and 3x3x3 (1000 K), all
      walkers from the file's charge-neutral ``initial_occupancy``;
+   - Wang-Landau: ``Sampler.from_ensemble(kernel_type="wang-landau",
+     2048 walkers, flatness 0.8, seed=13)`` -> ``run(90000 steps,
+     thin_by=15000)``, (a) ``bench.py``'s ``wang-landau`` config, flips on
+     Au-Cu 3x3x3 from its random starts, (b) swaps on Au-Cu 4x4x4 from
+     shuffled half-and-half starts, each in the window its system file
+     carries; checked: the counters, the planes' invariants, the
+     modification factors, the compositions, the chain's accumulated
+     enthalpy against the exact recompute (< 1e-9) and the one aux record;
+     (c) the 8-site nearest-neighbour system, 64 walkers x 200000 steps
+     (flatness 0.9, a check every 5000 steps): every walker's log density
+     of states within 0.5 of the exact degeneracies;
    twice per cell (a first, cold run and a warm one on a fresh sampler,
    which must record the same occupancies and enthalpies to 1e-9), and
    checks the execution path, that the kernel was launched, the recorded
@@ -57,7 +79,11 @@ printing its last line when any phase fails:
    (K4's share), and works out each kernel's bound: the larger of the
    bytes it must move over the memory rate and its f64 operations over
    the f64 rate (for table moves, the operations of the valid proposals
-   only: an identity proposal computes nothing).
+   only: an identity proposal computes nothing; for the Wang-Landau
+   planes, what the launch's data needs: the flatness passes, the cells
+   visited, the histograms reset).  The Wang-Landau chain
+   is timed on both its cells beside the flip and swap chains on the same
+   tables, and at the 2048 walkers of its main path.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -102,6 +128,17 @@ TABLE_CELLS = {  # bench.py's spinel-ewald config, and its 3x3x3
     "spinel_ewald_sgc_3x3x3": (1000.0, 1024),
 }
 MULTI_SLOT_CELL = "lmof_2x2x2"  # table moves of up to three recolorings
+# Wang-Landau cells: system file stem -> move; bench.py's wang-landau config
+# (2048 walkers, 90000 steps in windows of 15000, flatness 0.8, seed 13)
+WL_CELLS = {"aucu_wl_3x3x3": "flip", "aucu_4x4x4": "swap"}
+WL_WALKERS = 2048
+WL_NSTEPS = 90_000
+WL_THIN = 15_000
+WL_SEED = 13
+WL_DOS_CELL = "aucu_nn_2x2x2"  # 8 sites: exact degeneracies
+WL_DOS_WALKERS = 64
+WL_DOS_NSTEPS = 200_000
+WL_DOS_TOLERANCE = 0.5  # on every walker's log-DOS
 SEEDS = (("hash", 987654321), ("philox", 0x2545F4914F6CDD1D))
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; FP64 (vector, not the
 # tensor cores) at 34 TFLOP/s, both at the 700 W limit
@@ -147,6 +184,8 @@ def ptxas_summary(log):
         if "Compiling entry function" in line and found:
             kernel, k, km, ewald = found.groups()
             slots = "" if km is None else f", k_max={km if km != '0' else 'runtime'}"
+            if kernel == "wl_chain_kernel":  # <move, K, ewald>
+                slots, k = f", move={('flip', 'swap')[int(k)]}", km
             name = (f"{kernel}<K={k if k != '0' else 'runtime'}{slots}, "
                     f"ewald={ewald == '1'}>")
         elif "spill" in line:
@@ -187,7 +226,13 @@ KERNELS = {  # move -> (kernel wrapper, twin)
     "table": (chain.table_chain, chain.table_chain_reference),
 }
 SEQUENCES = {"flip": ("seq",), "swap": ("useq", "vseq"), "table": ("dirs", "ranks")}
-STATE = ("occ", "enthalpy", "naccept", "nmove")
+WL_PLANES = ("entropy", "histogram", "occurrences", "mod_factor", "wl_counter")
+STATE = ("occ", "enthalpy", "naccept", "nmove") + WL_PLANES
+
+
+def fresh(ops):
+    """``ops`` with a copy of every operand a launch updates in place."""
+    return {key: (v.clone() if key in STATE else v) for key, v in ops.items()}
 
 
 def window_operands(ensemble, tables, move, block, occ_seed, seq_seed, n_steps=THIN):
@@ -275,8 +320,8 @@ def window_vs_twin(ensemble, name, move, block, rng, seed):
     ops = window_operands(ensemble, tables, move, block, occ_seed=7, seq_seed=17)
     ops["seed"] = torch.tensor([seed], dtype=torch.int64, device=ensemble.device)
     kernel_fn, twin_fn = KERNELS[move]
-    k = {key: (v.clone() if key in STATE else v) for key, v in ops.items()}
-    t = {key: (v.clone() if key in STATE else v) for key, v in ops.items()}
+    k = fresh(ops)
+    t = fresh(ops)
     margin = torch.full((WALKERS,), float("inf"), device=ensemble.device)
     kernel_fn(**k, rng=rng)
     twin_fn(**t, rng=rng, margin=margin)
@@ -358,6 +403,175 @@ def chunked_hash_vs_twin(ensemble, name, move, block):
                    margin, n_steps, invariant, invariant and invariant(occ0))
 
 
+# ---------------- the Wang-Landau chain against its twin ----------------
+
+def wl_window_of(system):
+    """The Wang-Landau window a system file carries, as kernel arguments."""
+    return {"min_enthalpy": float(system["wl_min_enthalpy"]),
+            "max_enthalpy": float(system["wl_max_enthalpy"]),
+            "bin_size": float(system["wl_bin_size"])}
+
+
+def shuffled_occupancies(ensemble, occupancy, count, seed):
+    """``count`` occupancies [count, N] int32: ``occupancy`` with the codes of
+    each sublattice shuffled among its sites (every composition kept)."""
+    rng = np.random.default_rng(seed)
+    occu = np.tile(np.asarray(occupancy, dtype=np.int32), (count, 1))
+    for sl in ensemble.sublattices:
+        occu[:, sl.sites] = rng.permuted(occu[:, sl.sites], axis=1)
+    return occu
+
+
+def wl_starts(ensemble, system, move, count, seed):
+    """Starting occupancies of a Wang-Landau run: uniform codes for flips,
+    shuffles of the file's ``initial_occupancy`` for swaps."""
+    if move == "swap":
+        return shuffled_occupancies(ensemble, system["initial_occupancy"], count, seed)
+    return np.random.default_rng(seed).integers(
+        0, 2, (count, ensemble.num_sites)).astype(np.int32)
+
+
+def wl_operands(ensemble, system, move, walkers, n_steps, block, occ_seed, seq_seed,
+                n_chunks=None, **options):
+    """Operands of Wang-Landau launches from fresh planes.  The window is the
+    system file's or, for a file without one, five times the span of the
+    starting enthalpies in 250 bins (``bench.py``'s scheme)."""
+    device = ensemble.device
+    tables = tables_of(ensemble, move)
+    occu = torch.as_tensor(wl_starts(ensemble, system, move, walkers, occ_seed),
+                           device=device)
+    theta = torch.as_tensor(ensemble.natural_parameters, device=device)
+    enthalpy = (ensemble.compute_features(occu) @ theta).contiguous()
+    if "wl_bin_size" in system:
+        window = wl_window_of(system)
+    else:
+        lo, hi = float(enthalpy.min()), float(enthalpy.max())
+        span = hi - lo + 1e-3
+        window = {"min_enthalpy": lo - 2 * span, "max_enthalpy": hi + 2 * span,
+                  "bin_size": span / 50}
+    bins = len(np.arange(window["min_enthalpy"], window["max_enthalpy"],
+                         window["bin_size"]))
+    params = dict(min_enthalpy=window["min_enthalpy"], bin_size=window["bin_size"],
+                  num_levels=bins, flatness=0.8, check_period=1000, update_period=1,
+                  mod_divisor=2.0)
+    params.update(options)
+    gen = torch.Generator(device=device).manual_seed(seq_seed)
+    return chain.wl_launch_operands(tables, chain.WLChain(**params), move, occu,
+                                    enthalpy, n_steps, block, gen, n_chunks)
+
+
+def compare_wl(label, kernel, twin, start_occ, tables, n_steps, need_reset=True):
+    """Kernel against twin on every walker and plane; returns the largest
+    difference (entropies must agree to 0.0, enthalpies to 1e-9)."""
+    for key in ("occ", "naccept") + WL_PLANES:
+        check(torch.equal(kernel[key], twin[key]), f"{label}: {key} differs from the twin's")
+    err = float((kernel["enthalpy"] - twin["enthalpy"]).abs().max())
+    check(err <= 1e-9, f"{label}: enthalpy difference {err}")
+    resets = int((kernel["mod_factor"] < 1).sum())
+    check(resets > 0 or not need_reset, f"{label}: no flatness reset in the compared run")
+    accept_frac = float(kernel["naccept"].double().mean()) / n_steps
+    check(0.0 < accept_frac < 1.0, f"{label}: acceptance {accept_frac}")
+    if kernel["move"] == "swap":
+        check(torch.equal(compositions(kernel["occ"], tables),
+                          compositions(start_occ, tables)),
+              f"{label}: a swap changed a composition")
+    print(f"phase 3 [{label}]: kernel == twin on all {kernel['occ'].shape[1]} walkers "
+          f"and all planes (entropy to 0.0), max |dH| {err:.3e}, acceptance "
+          f"{accept_frac:.4f}, {resets} walkers with a flatness reset, least "
+          f"mod_factor {float(kernel['mod_factor'].min()):g}")
+    return err
+
+
+def wl_window_vs_twin(ensemble, system, name, move, rng, seed, **options):
+    """Phase 3: one Wang-Landau launch, kernel against twin."""
+    ops = wl_operands(ensemble, system, move, WL_WALKERS, THIN, BLOCK, occ_seed=7,
+                      seq_seed=17, **{"flatness": 0.3, "check_period": 20, **options})
+    ops["seed"] = torch.tensor([seed], dtype=torch.int64, device=ensemble.device)
+    k = fresh(ops)
+    t = fresh(ops)
+    chain.wl_chain(**k, rng=rng)
+    chain.wl_chain_reference(**t, rng=rng)
+    torch.cuda.synchronize()
+    ewald = "+ewald" if ops["tables"].has_ewald else ""
+    extra = "".join(f", {key}={value}" for key, value in options.items())
+    return compare_wl(f"wl-{move}{ewald} {name} {rng} seed {seed:#x}, "
+                      f"{ops['wl'].num_levels} bins{extra}", k, t, ops["occ"],
+                      ops["tables"], THIN)
+
+
+def wl_main_launch_vs_twin(ensemble, system, name, move):
+    """Phase 3: the main path's own launch, kernel against twin: 2048
+    walkers from the cell's starts and planes of zeros, one philox window of
+    15000 steps (step indices far above a hash chunk's 2048), flatness 0.8,
+    a check every 1000 steps on planes that fill as the launch goes.  Swaps
+    reach no flat histogram in one such window; the runs above cover the
+    reset."""
+    t0 = time.perf_counter()
+    ops = wl_operands(ensemble, system, move, WL_WALKERS, WL_THIN, BLOCK, occ_seed=0,
+                      seq_seed=41)
+    ops["seed"] = torch.tensor([SEEDS[1][1]], dtype=torch.int64, device=ensemble.device)
+    k = fresh(ops)
+    t = fresh(ops)
+    chain.wl_chain(**k)
+    chain.wl_chain_reference(**t)
+    torch.cuda.synchronize()
+    wl = ops["wl"]
+    err = compare_wl(f"wl-{move} {name} philox, the main path's launch: {WL_THIN} "
+                     f"steps, {wl.num_levels} bins, flatness {wl.flatness:g}, "
+                     f"check_period {wl.check_period}", k, t, ops["occ"],
+                     ops["tables"], WL_THIN, need_reset=False)
+    print(f"phase 3: that comparison took {time.perf_counter() - t0:.1f} s")
+    return err
+
+
+def wl_chunked_hash_vs_twin(ensemble, system, name, move):
+    """Phase 3: a hash-mode Wang-Landau chain across the chunk boundary.
+
+    The kernel runs through ``make_shared_proposal_chain`` (two launches:
+    2048 steps, then 52, each counting its own steps for the flatness
+    check and checking at its last step); the twin runs chunk by chunk.
+    """
+    device = ensemble.device
+    chunk = chain.MAX_CHUNK_STEPS
+    n_steps = chunk + 52
+    ops = wl_operands(ensemble, system, move, WL_WALKERS, chunk, BLOCK, occ_seed=11,
+                      seq_seed=29, n_chunks=2, flatness=0.2, check_period=150)
+    tables, wl, seqs = ops["tables"], ops["wl"], ops["seqs"]
+    seeds = [123456789 + c * chain.SEED_STRIDE for c in range(2)]
+    occu = torch.zeros((WL_WALKERS, ensemble.num_sites), dtype=torch.int32, device=device)
+    occu[:, tables.rank_sites] = ops["occ"].T.to(torch.int32)
+    state = {
+        "occupancy": occu, "enthalpy": ops["enthalpy"].clone(),
+        "naccept": ops["naccept"].clone(),
+        "accepted": torch.ones(WL_WALKERS, dtype=torch.bool, device=device),
+        **{key: ops[key].T.contiguous() if ops[key].dim() == 2 else ops[key].clone()
+           for key in WL_PLANES},
+    }
+    host_seqs = [q.cpu().numpy() for q in seqs]
+    run = chain.make_shared_proposal_chain(
+        tables, n_steps, block_size=BLOCK, rng="hash", move=move, wl=wl,
+        seqs=host_seqs[0] if move == "flip" else host_seqs, seeds=np.asarray(seeds))
+    before = chain.wl_chain.launches
+    state = run(state, None)
+    check(chain.wl_chain.launches - before == 2, "chunked Wang-Landau run: two launches")
+
+    twin = fresh(ops)
+    for c, seed in enumerate(seeds):
+        chain.wl_chain_reference(
+            **{**twin, "seqs": [q[c] for q in seqs],
+               "n_steps": min(chunk, n_steps - c * chunk)},
+            seed=torch.tensor([seed], dtype=torch.int64, device=device), rng="hash")
+    torch.cuda.synchronize()
+    kernel = {
+        "occ": state["occupancy"][:, tables.rank_sites].T.to(torch.int8),
+        "enthalpy": state["enthalpy"], "naccept": state["naccept"], "move": move,
+        **{key: state[key].T if state[key].dim() == 2 else state[key]
+           for key in WL_PLANES},
+    }
+    return compare_wl(f"wl-{move} {name} hash {n_steps} steps, 2 chunks, "
+                      f"{wl.num_levels} bins", kernel, twin, ops["occ"], tables, n_steps)
+
+
 # ---------------- the main paths ----------------
 
 def drive_main_path(move, stem, card, temperature, block):
@@ -391,9 +605,7 @@ def drive_main_path(move, stem, card, temperature, block):
     samples = sampler.samples
     n = samples.num_samples
     check(n == NSTEPS // THIN, f"{n} samples recorded")
-    # the same trajectories; the enthalpies may differ in the last bits,
-    # since the initial features sum with index_add_, whose f64 atomics on
-    # CUDA add in no fixed order
+    # the same trajectories, and the same enthalpies
     occupancies = samples.get_occupancies(flat=False)  # [S, W, N]
     check(np.array_equal(cold.samples.get_occupancies(flat=False), occupancies),
           f"{stem}: the warm run did not repeat the cold run's occupancies")
@@ -453,6 +665,163 @@ def drive(move, cells, card):
     return results, launches
 
 
+def plane_invariants(label, state, steps):
+    """What every Wang-Landau state must satisfy after ``steps`` steps of
+    walkers that began inside the window (``update_period = 1``)."""
+    counter, occurrences = state["wl_counter"], state["occurrences"]
+    check(bool((counter == steps).all()),
+          f"{label}: a walker's in-window count is not {steps}")
+    check(torch.equal(occurrences.sum(dim=1), counter),
+          f"{label}: occurrences do not sum to the counter")
+    check(bool((state["histogram"] <= occurrences).all()) and
+          int(state["histogram"].min()) >= 0, f"{label}: histogram above occurrences")
+    check(torch.equal(state["entropy"] > 0, occurrences > 0),
+          f"{label}: entropy is not positive exactly where a bin was visited")
+    mod = state["mod_factor"]
+    check(bool((mod <= 1.0).all()) and bool((torch.frexp(mod).mantissa == 0.5).all()),
+          f"{label}: a mod_factor is above its start or no power of two")
+
+
+def drive_wl(stem, move, card):
+    """Phase 4: one Wang-Landau cell, as a user calls it; cold, then warm."""
+    ensemble, system = load(stem)
+    window = wl_window_of(system)
+    # (a) bench.py's starts: default_rng(0).integers(0, 2, (2048, N))
+    occ0 = wl_starts(ensemble, system, move, WL_WALKERS, 0)
+    runs = []
+    for _ in ("cold", "warm"):
+        sampler = Sampler.from_ensemble(
+            ensemble, kernel_type="wang-landau", step_type=move,
+            nwalkers=WL_WALKERS, seed=WL_SEED, flatness=0.8, **window)
+        path = sampler.execution_path(WL_THIN)  # builds the chain tables
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler.run(WL_NSTEPS, occ0, thin_by=WL_THIN)
+        torch.cuda.synchronize()
+        runs.append((sampler, time.perf_counter() - t0))
+    check(path.startswith(f"cuda-chain[wl-{move}]+direct"), f"execution path {path}")
+    (cold, cold_s), (sampler, wall) = runs
+    samples, state = sampler.samples, sampler._state
+    n = samples.num_samples
+    check(n == WL_NSTEPS // WL_THIN, f"{n} samples recorded")
+    check("temperature" not in samples.traced_values, "a temperature trace")
+
+    wl = sampler.mckernel.wl_chain()
+    enthalpies = samples.get_enthalpies(flat=False)  # [S, W]
+    features = samples.get_feature_vectors(flat=False)
+    check(np.isfinite(enthalpies).all() and np.isfinite(features).all(), "non-finite")
+    exact = float(np.abs(features @ ensemble.natural_parameters - enthalpies).max())
+    check(exact < 1e-9, f"{stem}: recorded enthalpy vs features.theta {exact}")
+    start = sampler.mckernel.initial_state(occ0)["enthalpy"].cpu().numpy()
+    w = np.concatenate([start[None], enthalpies]) - wl.min_enthalpy
+    check(bool(((w >= 0) & (w < wl.span)).all()), f"{stem}: a walker outside the window")
+    # parity (e): what the chain accumulated over the last window against
+    # the exact recompute that replaces it
+    parity = float((state["chain_enthalpy"] - state["enthalpy"]).abs().max())
+    check(parity < 1e-9, f"{stem}: chain enthalpy vs recompute {parity}")
+    plane_invariants(stem, state, WL_NSTEPS)
+
+    check(samples.num_aux_records == 1 and samples.aux_sample_indices.tolist() == [n - 1],
+          f"{stem}: not one aux record at the end")
+    check(sorted(samples.aux_traced_values) == sorted(
+        ["histogram", "occurrences", "entropy", "cumulative_mean_features",
+         "cumulative_mean_counts"]), f"{stem}: aux traces {samples.aux_traced_values}")
+    entropy = samples.get_trace_value("entropy", flat=False)[-1]
+    check(np.array_equal(entropy, state["entropy"].cpu().numpy()),
+          f"{stem}: the aux record is not the final entropy")
+    counts = samples.get_trace_value("cumulative_mean_counts", flat=False)[-1]
+    check(bool((counts.sum(axis=1) == n).all()), f"{stem}: mean-feature counts")
+
+    # the same trajectories, bit for bit: bench.py's window puts the lowest
+    # of its 64 probe states, and every state of that level, exactly on a
+    # bin edge, where the enthalpy's last bit decides the bin; the runs
+    # repeat each other because the features sum in a fixed order
+    occupancies = samples.get_occupancies(flat=False)  # [S, W, N]
+    check(np.array_equal(cold.samples.get_occupancies(flat=False), occupancies),
+          f"{stem}: the warm run did not repeat the cold run's occupancies")
+    check(np.array_equal(cold.samples.get_trace_value("entropy"),
+                         samples.get_trace_value("entropy")),
+          f"{stem}: the warm run did not repeat the cold run's entropies")
+    extra = ""
+    if move == "swap":
+        for sl in ensemble.sublattices:
+            for code in sl.encoding:
+                kept = ((occupancies[:, :, sl.sites] == code).sum(axis=-1)
+                        == (occ0[:, sl.sites] == code).sum(axis=-1))
+                check(bool(kept.all()), f"{stem}: a walker's composition changed")
+        extra = f", compositions kept on all {n} x {WL_WALKERS} records"
+    mod = state["mod_factor"]
+    visited = (state["entropy"] > 0).sum(dim=1).double()
+    rate = WL_WALKERS * WL_NSTEPS / wall
+    print(f"phase 4 [wl {stem}] {card}: {ensemble.num_sites} sites, path {path}, "
+          f"{wl.num_levels} bins, acceptance {float(sampler.efficiency()):.4f}, "
+          f"parity(e) {parity:.3e}, recorded vs features.theta {exact:.3e}, bins "
+          f"visited per walker {float(visited.mean()):.1f} (most {int(visited.max())}), "
+          f"mod_factor {float(mod.min()):g} to {float(mod.max()):g}, "
+          f"warm run {rate / 1e6:.1f} M attempts/s end to end ({wall:.4f} s for "
+          f"{WL_WALKERS} walkers x {WL_NSTEPS} steps in {n} windows), cold run "
+          f"{cold_s:.4f} s{extra}")
+    return ensemble, system, rate
+
+
+def drive_wl_dos(card):
+    """Phase 4 (c): the density of states of the 8-site system on the card.
+
+    The window and bin of the reference's own test of this system (levels
+    mid-bin).  Its flatness 0.7 with a check every 250 steps halves the
+    modification factor faster than the entropies can follow, and the
+    error it leaves stays (about 0.25 for the median walker of 64, 0.6 for
+    the worst, whatever the run's length); a check every 5000 steps at
+    flatness 0.9 leaves 0.07 and 0.23.
+    """
+    ensemble, system = load(WL_DOS_CELL)
+    exact_e = system["exact_enthalpies"]
+    levels = np.unique(np.round(exact_e, 9))
+    bin_size = float(levels[1] - levels[0])
+    lo = float(levels[0] - bin_size / 2)
+    sampler = Sampler.from_ensemble(
+        ensemble, kernel_type="wang-landau", step_type="flip",
+        min_enthalpy=lo, max_enthalpy=float(levels[-1] + bin_size), bin_size=bin_size,
+        flatness=0.9, check_period=5000, nwalkers=WL_DOS_WALKERS, seed=9)
+    occ0 = np.random.default_rng(0).integers(
+        0, 2, (WL_DOS_WALKERS, ensemble.num_sites)).astype(np.int32)
+    t0 = time.perf_counter()
+    sampler.run(WL_DOS_NSTEPS, occ0, thin_by=WL_DOS_NSTEPS // 10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    plane_invariants(WL_DOS_CELL, sampler._state, WL_DOS_NSTEPS)
+    entropy = sampler.samples.get_trace_value("entropy", flat=False)[-1]  # [W, B]
+    dos = np.bincount(np.floor((exact_e - lo) / bin_size).astype(int),
+                      minlength=entropy.shape[1])
+    visited = dos > 0
+    check(bool((entropy[:, visited] > 0).all()) and bool((entropy[:, ~visited] == 0).all()),
+          "density of states: entropy off the system's levels")
+    estimate = entropy[:, visited] - entropy[:, visited][:, :1]
+    exact = np.log(dos[visited]) - np.log(dos[visited][0])
+    worst = float(np.abs(estimate - exact).max())
+    check(worst < WL_DOS_TOLERANCE,
+          f"density of states: log-DOS off by {worst} on some walker")
+    mod = sampler._state["mod_factor"]
+    print(f"phase 4 [wl {WL_DOS_CELL}] {card}: {WL_DOS_WALKERS} walkers x "
+          f"{WL_DOS_NSTEPS} steps in {wall:.4f} s, log-DOS against the exact "
+          f"degeneracies {dos[visited].tolist()}: worst walker off by {worst:.4f} "
+          f"(limit {WL_DOS_TOLERANCE}), mod_factor {float(mod.min()):g} to "
+          f"{float(mod.max()):g}")
+    return worst
+
+
+def drive_wl_cells(card):
+    """Phase 4 for Wang-Landau: counts set to 0 just before, read just after."""
+    chain.wl_chain.launches = 0
+    results = {stem: drive_wl(stem, move, card) for stem, move in WL_CELLS.items()}
+    drive_wl_dos(card)
+    launches = chain.wl_chain.launches
+    check(launches == len(WL_CELLS) * 2 * (WL_NSTEPS // WL_THIN) + 10,
+          f"{launches} Wang-Landau kernel launches")
+    print(f"phase 4: wl_chain launches on the Wang-Landau main path: {launches}")
+    return results, launches
+
+
 # ---------------- timing and bounds ----------------
 
 def bound(tables, ops, move, recolorings=0, accepted=0):
@@ -506,7 +875,7 @@ def time_window(ensemble, name, card, move, block, kernel_reps=50, twin_reps=3):
     kernel_fn, twin_fn = KERNELS[move]
     counts = {}
     if move == "table":  # what this launch's data needs, from the twin
-        run = {key: (v.clone() if key in STATE else v) for key, v in ops.items()}
+        run = fresh(ops)
         nslot = torch.zeros(WALKERS, dtype=torch.int32, device=ensemble.device)
         twin_fn(**run, nslot=nslot)
         counts = {"recolorings": int(nslot.sum()), "accepted": int(run["naccept"].sum())}
@@ -531,6 +900,76 @@ def time_window(ensemble, name, card, move, block, kernel_reps=50, twin_reps=3):
             same_window(kernel_fn, plain, kernel_reps), kernel_reps)
         line += (f"; without the Ewald term {result['kernel_no_ewald_ms']:.4f} ms "
                  f"(the term's own bound {ewald_ms * 1e3:.3f} us)")
+    print(line)
+    return result
+
+
+def wl_bound(ops, after):
+    """The least time of one Wang-Landau launch: (ms, by, bytes, operations).
+
+    Bytes: the chain's operands as :func:`bound` counts them, ``mod_factor``
+    and ``wl_counter`` read and written once, and of the three [B, W] planes
+    what this launch's data needs, read off ``after``, the state one such
+    launch leaves: entropy and histogram over all bins for every flatness
+    pass of the launch (12 B a cell), the cells that a walker visited (the
+    launch starts from planes of zeros, so those with an occurrence) read
+    once and written once in all three planes (16 B each way), and the
+    histogram's zeroing (4 B a bin) for every reset (``mod_factor`` halves
+    at each).  The occurrences are never moved in whole.
+    Operations: the delta's f64 adds, and six per step for the rule and
+    the bookkeeping (E + dE, minus the window's start, the division, its
+    floor, S[b_cur] - S[b'], S + mod_factor).
+    """
+    tables, move, steps = ops["tables"], ops["move"], ops["n_steps"]
+    R, W = ops["occ"].shape
+    L, B = tables.nbr.shape[1], ops["wl"].num_levels
+    table_tensors = [tables.nbr, tables.stride, tables.d2, tables.g]
+    if move == "flip":
+        table_tensors += [tables.mu, tables.ncode]
+    if tables.has_ewald:
+        table_tensors += [tables.ew_v, tables.ew_c]
+    check = ops["wl"].check_period
+    passes = steps // check + (1 if steps % check else 0)
+    visited = int((after["occurrences"] > 0).sum())
+    resets = int(torch.round(-torch.log2(after["mod_factor"] / ops["mod_factor"])).sum())
+    nbytes = (2 * R * W + W * (2 * 8 + 2 * 4) + 2 * W * (8 + 4)
+              + passes * B * W * 12 + visited * 2 * 16 + resets * B * 4
+              + sum(q[:, :steps].numel() * 4 for q in ops["seqs"])
+              + sum(t.numel() * t.element_size() for t in table_tensors))
+    sites = 2 if move == "swap" else 1
+    ewald_site = R + 2 if tables.has_ewald else 0
+    n_ops = W * steps * (sites * (2 * L + ewald_site) + 6 + (2 if move == "flip" else 0))
+    ops_s, bytes_s = n_ops / PEAK_F64_PER_S, nbytes / PEAK_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes",
+            nbytes, n_ops)
+
+
+def time_wl_window(ensemble, system, name, card, move, walkers, block=BLOCK,
+                   kernel_reps=50, twin_reps=0):
+    """Phase 5: one 100-step Wang-Landau window from fresh planes, the
+    bench's parameters (flatness 0.8, a check every 1000 steps and at the
+    window's end), every repetition on a copy of the starting state."""
+    ops = wl_operands(ensemble, system, move, walkers, THIN, block, occ_seed=5,
+                      seq_seed=1)
+    ops["seed"] = torch.tensor([42], dtype=torch.int64, device=ensemble.device)
+    kernel_ms = cuda_ms(same_window(chain.wl_chain, ops, kernel_reps), kernel_reps)
+    after = fresh(ops)  # what this launch's data needs, from one more launch
+    chain.wl_chain(**after)
+    bound_ms, bound_by, nbytes, n_ops = wl_bound(ops, after)
+    rate = walkers * THIN / (kernel_ms * 1e-3)
+    result = {"kernel_ms": kernel_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    line = (f"phase 5 [wl-{move} {name}] {card}: 100-step window at {walkers} walkers "
+            f"({-(-walkers // 64)} CUDA blocks on "
+            f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs), "
+            f"{ops['wl'].num_levels} bins: kernel {kernel_ms:.4f} ms "
+            f"({rate / 1e6:.1f} M attempts/s), bound {bound_ms * 1e3:.3f} us "
+            f"({bound_by}; {nbytes / 1e6:.3f} MB, {n_ops / 1e6:.1f} M f64 operations), "
+            f"kernel/bound {kernel_ms / bound_ms:.0f}x")
+    if twin_reps:
+        result["twin_ms"] = cuda_ms(
+            same_window(chain.wl_chain_reference, ops, twin_reps), twin_reps)
+        line += (f", twin {result['twin_ms']:.2f} ms, twin/kernel "
+                 f"{result['twin_ms'] / kernel_ms:.1f}x")
     print(line)
     return result
 
@@ -579,6 +1018,22 @@ def main():
     # up to three recolorings per move: the runtime slot count body
     errs["table"].append(window_vs_twin(load(MULTI_SLOT_CELL)[0], MULTI_SLOT_CELL,
                                         "table", BLOCK, *SEEDS[1]))
+    # the Wang-Landau chain: both moves, both RNG modes, a chunk boundary,
+    # update_period = 3, and the Ewald instantiation
+    wl_systems = {stem: load(stem) for stem in WL_CELLS}
+    errs["wl"] = []
+    for stem, move in WL_CELLS.items():
+        for rng, seed in SEEDS:
+            errs["wl"].append(wl_window_vs_twin(*wl_systems[stem], stem, move, rng, seed))
+    errs["wl"].append(wl_chunked_hash_vs_twin(
+        *wl_systems["aucu_wl_3x3x3"], "aucu_wl_3x3x3", "flip"))
+    errs["wl"].append(wl_window_vs_twin(
+        *wl_systems["aucu_wl_3x3x3"], "aucu_wl_3x3x3", "flip", *SEEDS[1],
+        update_period=3))
+    errs["wl"].append(wl_window_vs_twin(
+        *load("spinel_ewald_2x2x2"), "spinel_ewald_2x2x2", "swap", *SEEDS[1]))
+    for stem, move in WL_CELLS.items():  # the main path's own launch
+        errs["wl"].append(wl_main_launch_vs_twin(*wl_systems[stem], stem, move))
     print(f"phases 2-3 took {time.perf_counter() - t_start:.1f} s")
 
     # phase 4: the main paths; only these runs are counted
@@ -586,6 +1041,7 @@ def main():
         "flip", {stem: (TEMPERATURE, BLOCK) for stem in FLIP_CELLS}, card)
     swap_runs, swap_launches = drive("swap", SWAP_CELLS, card)
     table_runs, table_launches = drive("table", TABLE_CELLS, card)
+    wl_runs, wl_launches = drive_wl_cells(card)
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # phase 5: window timings, kernel against twin
@@ -597,19 +1053,35 @@ def main():
         timings[("swap", stem)] = time_window(ens, stem, card, "swap", SWAP_CELLS[stem][1])
     for stem, (ens, _) in table_runs.items():
         timings[("table", stem)] = time_window(ens, stem, card, "table", BLOCK)
+    # the Wang-Landau chain beside the flip and swap chains on its tables
+    timings[("flip", "aucu_wl_3x3x3")] = time_window(
+        wl_runs["aucu_wl_3x3x3"][0], "aucu_wl_3x3x3", card, "flip", BLOCK)
+    for stem, (ens, system, _) in wl_runs.items():
+        move = WL_CELLS[stem]
+        block = SWAP_CELLS[stem][1] if stem in SWAP_CELLS else BLOCK
+        timings[(f"wl-{move}", stem)] = time_wl_window(
+            ens, system, stem, card, move, WALKERS, block, twin_reps=3)
+        timings[(f"wl-{move} at {WL_WALKERS} walkers", stem)] = time_wl_window(
+            ens, system, stem, card, move, WL_WALKERS)
+        plain = timings[(move, stem)]["kernel_ms"]
+        mine = timings[(f"wl-{move}", stem)]["kernel_ms"]
+        print(f"phase 5 [{stem}]: the Wang-Landau {move} window takes "
+              f"{mine / plain:.3f}x the Metropolis {move} window on the same tables "
+              f"({mine:.4f} vs {plain:.4f} ms)")
     print("timings " + card + ": " + json.dumps(
         {f"{move} {stem}": v for (move, stem), v in timings.items()}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
 
     def entry(move, stem, source, replaces, launches):
         t = timings[(move, stem)]
+        name = move.split("-")[0]  # "wl-flip" is the wl_chain kernel
         return {
-            "name": f"{move}_chain", "route": "cuda", "source": source,
+            "name": f"{name}_chain", "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
-            "max_abs_err": max(errs[move]), "ms": t["kernel_ms"],
+            "max_abs_err": max(errs[name]), "ms": t["kernel_ms"],
             "plain_ms": t["twin_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
-            "library_ms": None,  # no single PyTorch call runs a Metropolis chain
+            "library_ms": None,  # no single PyTorch call runs a Monte Carlo chain
         }
 
     print(json.dumps({"kernels": [
@@ -619,6 +1091,8 @@ def main():
               "smol_tpu/ops/pallas_chain.py:1817", swap_launches),
         entry("table", "spinel_ewald_sgc_2x2x2", "smol_tpu_torch/csrc/table_chain.cu",
               "smol_tpu/ops/pallas_chain.py:1701", table_launches),
+        entry("wl-flip", "aucu_wl_3x3x3", "smol_tpu_torch/csrc/wl_chain.cu",
+              "smol_tpu/ops/pallas_chain.py:1866", wl_launches),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -12,7 +12,20 @@ writes each supercell as a system file that ``smol_tpu_torch`` loads
   charge-neutral ``initial_occupancy`` drawn as ``bench.py`` draws it;
 - ``torch_aucu_4x4x4.npz``: the binary Au-Cu FCC of ``bench.py``'s
   ``canonical`` config (``random_expansion(fcc_binary_prim(), {2: 6.0,
-  3: 4.0}, seed=7)``), with a half-Au, half-Cu ``initial_occupancy``;
+  3: 4.0}, seed=7)``), with a half-Au, half-Cu ``initial_occupancy`` and a
+  Wang-Landau window for swaps at that composition (``wl_min_enthalpy``,
+  ``wl_max_enthalpy``, ``wl_bin_size``: ``bench.py``'s scheme on 64 random
+  half-and-half occupancies from ``default_rng(1)``);
+- ``torch_aucu_wl_3x3x3.npz``: ``bench.py``'s ``wang-landau`` config, the
+  same expansion on 3x3x3 (27 sites) without chemical potentials, for
+  Wang-Landau flips, with the window the bench derives from its first 64
+  starting occupancies (``default_rng(0).integers(0, 2, (2048, 27))``):
+  five times their enthalpy span in about 250 bins;
+- ``torch_aucu_nn_2x2x2.npz``: the 8-site Au-Cu FCC with only the
+  nearest-neighbour pair interaction (0.1 eV) and zero chemical
+  potentials, whose density of states is countable, with the
+  ``exact_enthalpies`` of its 256 states in the order of
+  ``itertools.product((0, 1), repeat=8)``;
 - ``torch_spinel_ewald_sgc_{2x2x2,3x3x3}.npz``: ``bench.py``'s
   ``spinel-ewald`` config, the spinel CE + Ewald with the bench chemical
   potentials, for charge-neutral semigrand table flips: the ``TableFlip``
@@ -46,6 +59,7 @@ CANONICAL = {  # file stem -> (system, supercell edge) of the canonical files
     "spinel_ewald_3x3x3": ("spinel_ewald", 3),
     "aucu_4x4x4": ("aucu", 4),
 }
+WANG_LANDAU = ("aucu_wl_3x3x3", "aucu_nn_2x2x2")  # the Wang-Landau files
 TABLE = {  # file stem -> (system, its argument) of the table-flip files
     "spinel_ewald_sgc_2x2x2": ("spinel_ewald_sgc", 2),
     "spinel_ewald_sgc_3x3x3": ("spinel_ewald_sgc", 3),
@@ -86,6 +100,70 @@ def aucu_ensemble(n: int):
     return Ensemble.from_cluster_expansion(
         ce, np.diag([n, n, n]), processor_type="expansion"
     )
+
+
+def aucu_nn_ensemble():
+    """8-site Au-Cu FCC, nearest-neighbour pair only, zero chemical potentials."""
+    from smol_tpu.benchmarks.systems import fcc_binary_prim
+    from smol_tpu.cofe import ClusterSubspace
+    from smol_tpu.cofe.expansion import ClusterExpansion
+    from smol_tpu.moca import Ensemble
+
+    subspace = ClusterSubspace.from_cutoffs(fcc_binary_prim(), {2: 2.8})
+    coefs = np.zeros(subspace.num_corr_functions)
+    coefs[-1] = 0.1
+    return Ensemble.from_cluster_expansion(
+        ClusterExpansion(subspace, coefs), np.diag([2, 2, 2]),
+        processor_type="expansion", chemical_potentials={"Au": 0.0, "Cu": 0.0},
+    )
+
+
+def enthalpies(ensemble, occupancies) -> np.ndarray:
+    """features . natural parameters of each occupancy, f64."""
+    return np.array([
+        float(ensemble.compute_feature_vector(occ) @ ensemble.natural_parameters)
+        for occ in occupancies
+    ])
+
+
+def wl_window(probe: np.ndarray) -> dict:
+    """``bench.py``'s Wang-Landau window around probe enthalpies: five
+    times their span (plus 1e-3), in bins of a fiftieth of it."""
+    span = probe.max() - probe.min() + 1e-3
+    return {
+        "wl_min_enthalpy": np.float64(probe.min() - 2 * span),
+        "wl_max_enthalpy": np.float64(probe.max() + 2 * span),
+        "wl_bin_size": np.float64(span / 50),
+    }
+
+
+def half_occupancies(num_sites: int, count: int, seed: int) -> np.ndarray:
+    """``count`` occupancies [count, N] int32 with code 1 on a random half."""
+    rng = np.random.default_rng(seed)
+    occ = np.zeros((count, num_sites), dtype=np.int32)
+    for row in occ:
+        row[rng.choice(num_sites, num_sites // 2, replace=False)] = 1
+    return occ
+
+
+def wang_landau_system(stem: str) -> dict:
+    """The system dict of one Wang-Landau file."""
+    from itertools import product
+
+    from smol_tpu_torch.system import export_system
+
+    if stem == "aucu_wl_3x3x3":
+        ensemble = aucu_ensemble(3)
+        system = export_system(ensemble)
+        starts = np.random.default_rng(0).integers(
+            0, 2, (2048, ensemble.num_sites)).astype(np.int32)
+        system.update(wl_window(enthalpies(ensemble, starts[:64])))
+        return system
+    ensemble = aucu_nn_ensemble()
+    system = export_system(ensemble)
+    states = np.array(list(product((0, 1), repeat=8)), dtype=np.int32)
+    system["exact_enthalpies"] = enthalpies(ensemble, states)
+    return system
 
 
 def _small_expansion(prim, cutoffs, seed, scale, constant):
@@ -204,6 +282,9 @@ def canonical_system(stem: str) -> dict:
     ensemble = {"spinel_ewald": spinel_ewald_ensemble, "aucu": aucu_ensemble}[kind](n)
     system = export_system(ensemble)
     system["initial_occupancy"] = initial_occupancy(kind, ensemble)
+    if kind == "aucu":
+        probe = half_occupancies(ensemble.num_sites, 64, seed=1)
+        system.update(wl_window(enthalpies(ensemble, probe)))
     return system
 
 
@@ -224,6 +305,7 @@ def main():
                for name, n in SUPERCELLS.items()}
     systems.update({stem: (lambda s=stem: canonical_system(s)) for stem in CANONICAL})
     systems.update({stem: (lambda s=stem: table_system(s)) for stem in TABLE})
+    systems.update({stem: (lambda s=stem: wang_landau_system(s)) for stem in WANG_LANDAU})
     for stem, build in systems.items():
         save_system(build(), data_path(stem))
         print(stem, data_path(stem), data_path(stem).stat().st_size, "bytes")

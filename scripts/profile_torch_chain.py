@@ -4,7 +4,9 @@ For each cell (the semigrand spinel's flips, the canonical swaps on the
 spinel CE + Ewald and on Au-Cu, and the charge-neutral table flips on the
 semigrand spinel CE + Ewald), a warm-up run and then a run of
 ``WINDOWS`` thinning windows (8192 walkers, 100 steps each) under
-``torch.profiler``.  Prints, beside the card's name and power limit:
+``torch.profiler``; for the two Wang-Landau cells (flips on Au-Cu 3x3x3,
+swaps on Au-Cu 4x4x4) the main path's run: 2048 walkers, six windows of
+15000 steps.  Prints, beside the card's name and power limit:
 
 - the wall time of the profiled run (host clock, ending in a synchronize)
   and of one window;
@@ -47,6 +49,10 @@ CELLS = {  # system file stem -> (temperature K, sequence block, step type)
     "spinel_ewald_sgc_2x2x2": (1000.0, 1024, "table-flip"),
     "spinel_ewald_sgc_3x3x3": (1000.0, 1024, "table-flip"),
 }
+WL_CELLS = {"aucu_wl_3x3x3": "flip", "aucu_4x4x4": "swap"}  # stem -> move
+WL_WALKERS = 2048
+WL_THIN = 15_000
+WL_WINDOWS = 6
 
 
 def busy_us(events):
@@ -59,29 +65,57 @@ def busy_us(events):
     return total
 
 
-def profile_cell(stem, temperature, block, step_type, card):
+def load(stem):
     system = load_system(ROOT / "tests" / "data" / f"torch_{stem}.npz")
-    ensemble = Ensemble.from_system(system, "cuda")
+    return Ensemble.from_system(system, "cuda"), system
+
+
+def metropolis_cell(stem, temperature, block, step_type):
+    """(sampler, starting occupancies) of a Metropolis cell."""
+    ensemble, system = load(stem)
     occ0 = system.get("initial_occupancy")
     if occ0 is None:
         occ0 = random_occupancies(ensemble, WALKERS, 0)
     sampler = Sampler.from_ensemble(ensemble, temperature, WALKERS, seed=3,
                                     chain_block_size=block, step_type=step_type)
-    sampler.run(WINDOWS * THIN, occ0, thin_by=THIN)  # warm-up
+    return sampler, occ0
+
+
+def wang_landau_cell(stem, move):
+    """(sampler, starting occupancies) of a Wang-Landau cell: the window of
+    the system file, uniform starts for flips, shuffles of the file's
+    half-and-half occupancy for swaps."""
+    ensemble, system = load(stem)
+    rng = np.random.default_rng(0)
+    if move == "swap":
+        occ0 = rng.permuted(np.tile(system["initial_occupancy"], (WL_WALKERS, 1)), axis=1)
+    else:
+        occ0 = rng.integers(0, 2, (WL_WALKERS, ensemble.num_sites)).astype(np.int32)
+    sampler = Sampler.from_ensemble(
+        ensemble, kernel_type="wang-landau", step_type=move, nwalkers=WL_WALKERS,
+        seed=13, flatness=0.8, min_enthalpy=float(system["wl_min_enthalpy"]),
+        max_enthalpy=float(system["wl_max_enthalpy"]),
+        bin_size=float(system["wl_bin_size"]))
+    return sampler, occ0
+
+
+def profile_cell(stem, card, sampler, occ0, windows, thin):
+    walkers = len(np.atleast_2d(occ0)) if np.ndim(occ0) > 1 else WALKERS
+    sampler.run(windows * thin, occ0, thin_by=thin)  # warm-up
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         start = time.perf_counter()
-        sampler.run(WINDOWS * THIN, thin_by=THIN)
+        sampler.run(windows * thin, thin_by=thin)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    path = sampler.execution_path(THIN)
-    head = (f"[{stem}] {card}: {path}, {WINDOWS} windows x {THIN} steps x "
-            f"{WALKERS} walkers: wall {wall * 1e3:.3f} ms "
-            f"({wall / WINDOWS * 1e3:.4f} ms per window)")
+    path = sampler.execution_path(thin)
+    head = (f"[{stem}] {card}: {path}, {windows} windows x {thin} steps x "
+            f"{walkers} walkers: wall {wall * 1e3:.3f} ms "
+            f"({wall / windows * 1e3:.4f} ms per window)")
     if not device:
         print(head + "; device time: not measured (the trace holds no device events)")
         return
@@ -92,7 +126,7 @@ def profile_cell(stem, temperature, block, step_type, card):
     chain = sum(v for k, v in by_name.items() if "chain_kernel" in k)
     print(head + f"; device busy {busy * 1e3:.3f} ms, idle share "
           f"{1 - busy / wall:.4f}; chain kernel {chain:.3f} ms "
-          f"({chain / WINDOWS:.4f} ms per window), other device work "
+          f"({chain / windows:.4f} ms per window), other device work "
           f"{sum(by_name.values()) - chain:.3f} ms in "
           f"{len(device) - sum(1 for e in device if 'chain_kernel' in e.name)} "
           f"activities")
@@ -116,7 +150,9 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(card)
     for stem, args in CELLS.items():
-        profile_cell(stem, *args, card)
+        profile_cell(stem, card, *metropolis_cell(stem, *args), WINDOWS, THIN)
+    for stem, move in WL_CELLS.items():
+        profile_cell(stem, card, *wang_landau_cell(stem, move), WL_WINDOWS, WL_THIN)
 
 
 if __name__ == "__main__":

@@ -12,9 +12,13 @@ unpack the other version beside this one (``git archive <commit> | tar -x
 Each run builds the named checkout's kernels (default: the checkout this
 script lies in) and times ``chip_smoke.time_window`` of that checkout: one
 100-step window at 8192 walkers on the spinel CE + Ewald cells, canonical
-swaps and charge-neutral table flips, with and without the Ewald term.
+swaps and charge-neutral table flips, with and without the Ewald term,
+and, where the checkout has them, the two Wang-Landau cells (flips on
+Au-Cu 3x3x3, swaps on Au-Cu 4x4x4, each in its main path's sequence block;
+``chip_smoke.time_wl_window``).
 Prints the card's name and power limit and one ``AB`` line per cell:
-label, move, cell, kernel ms, kernel ms without the Ewald term.
+label, move, cell, kernel ms, kernel ms without the Ewald term (``nan``
+for a cell without one).
 """
 
 from __future__ import annotations
@@ -34,7 +38,9 @@ def main():
 
     card = chip_smoke.card_line()
     print(card)
-    chip_smoke._build.build_libraries(("swap_chain", "table_chain"))
+    wl_cells = getattr(chip_smoke, "WL_CELLS", {})  # absent before the WL slice
+    chip_smoke._build.build_libraries(
+        ("swap_chain", "table_chain") + (("wl_chain",) if wl_cells else ()))
     cells = [("table", stem) for stem in chip_smoke.TABLE_CELLS]
     cells += [("swap", stem) for stem in chip_smoke.SWAP_CELLS if "ewald" in stem]
     for move, stem in cells:
@@ -43,6 +49,11 @@ def main():
                                    twin_reps=1)
         print("AB", label, move, stem, t["kernel_ms"], t["kernel_no_ewald_ms"],
               flush=True)
+    for stem, move in wl_cells.items():
+        block = chip_smoke.SWAP_CELLS.get(stem, (None, chip_smoke.BLOCK))[1]
+        t = chip_smoke.time_wl_window(*chip_smoke.load(stem), stem, card, move,
+                                      chip_smoke.WALKERS, block)
+        print("AB", label, f"wl-{move}", stem, t["kernel_ms"], float("nan"), flush=True)
 
 
 if __name__ == "__main__":

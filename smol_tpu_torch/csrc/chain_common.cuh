@@ -1,5 +1,5 @@
-// Pieces shared by the chain kernels flip_chain.cu, swap_chain.cu and
-// table_chain.cu.
+// Pieces shared by the chain kernels flip_chain.cu, swap_chain.cu,
+// table_chain.cu and wl_chain.cu.
 //
 // - the random bits: the reference's interpret-mode hash, bit for bit, and
 //   Philox4x32-10 (replacing the TPU hardware PRNG of smol_tpu/ops/prims.py);
@@ -9,7 +9,9 @@
 // - the cluster-expansion delta of one site (direct f64 lookups, summed in
 //   the order l = 0, 1, ...);
 // - K4, the Ewald term sign * (C_r + V_r . occ) of pallas_chain.py
-//   `ewald_delta` (:1651), in f64 over the block's codes in rank order.
+//   `ewald_delta` (:1651), in f64 over the block's codes in rank order;
+// - the whole delta of a flip and of a swap (flip_delta, swap_delta), which
+//   the Metropolis chains and the Wang-Landau chain both call.
 //
 // The plain torch twins in ops/chain.py sum in the same orders, so kernel
 // and twin give the same f64 deltas.  Build without fast-math: nothing may
@@ -81,11 +83,16 @@ struct Draws {
   }
 };
 
+// Accept on an f32 exponent: expo >= 0 or expo > log U, with U in (0, 1]
+// from the 31 random bits r_u, as the reference takes it (:1879, :1883).
+__device__ __forceinline__ bool accept_exponent(float expo, uint32_t r_u) {
+  const float unif = ((float)(r_u >> 7) + 1.0f) * 5.9604644775390625e-8f;
+  return expo >= 0.0f || expo > logf(unif);
+}
+
 // The Metropolis decision in f32, as the reference takes it (:1882).
 __device__ __forceinline__ bool metropolis(float beta, double dE, uint32_t r_u) {
-  const float unif = ((float)(r_u >> 7) + 1.0f) * 5.9604644775390625e-8f;
-  const float expo = -beta * (float)dE;
-  return expo >= 0.0f || expo > logf(unif);
+  return accept_exponent(-beta * (float)dE, r_u);
 }
 
 struct Rows {  // one rank's table rows in shared memory
@@ -185,6 +192,49 @@ __device__ __forceinline__ double ewald_term(const double* row, double c,
     acc += row[t] * (double)s_occ[t * nt + tid];
   }
   return (double)sign * (c + acc);
+}
+
+// A flip's delta: rank u (rows `rows`) going from code a to b.  Cluster
+// terms, then the Ewald term, then minus the chemical work mu[u, b] -
+// mu[u, a] (mu is [R, C]).
+template <int KT, bool EW>
+__device__ __forceinline__ double flip_delta(const Rows& rows, int u, int a,
+                                             int b, const int8_t* s_occ,
+                                             int nt, int tid, int R, int L,
+                                             int K, int TM, int C,
+                                             const double* __restrict__ mu,
+                                             const double* __restrict__ ew_c) {
+  double dE = ce_add<KT>(0.0, rows, s_occ, nt, tid, L, K, TM, a, b);
+  if (EW) {
+    dE += ewald_term(rows.ew, __ldg(ew_c + u), s_occ, nt, tid, R, b - a);
+  }
+  const double work = __ldg(mu + u * C + b) - __ldg(mu + u * C + a);
+  dE -= work;
+  return dE;
+}
+
+// A swap's joint delta: rank u (rows ru, cell cu) going a -> b, then rank v
+// (rows rv) going b -> a against the occupancy with u already holding b,
+// then u's Ewald term (taken before u is recolored), then v's.  Leaves b in
+// u's cell: on accept the caller writes a into v's cell, on reject a back
+// into u's.
+template <int KT, bool EW>
+__device__ __forceinline__ double swap_delta(const Rows& ru, const Rows& rv,
+                                             int u, int v, int8_t* cu, int a,
+                                             int b, const int8_t* s_occ,
+                                             int nt, int tid, int R, int L,
+                                             int K, int TM,
+                                             const double* __restrict__ ew_c) {
+  double ewald_u = 0.0;
+  if (EW) ewald_u = ewald_term(ru.ew, __ldg(ew_c + u), s_occ, nt, tid, R, b - a);
+  double dE = ce_add<KT>(0.0, ru, s_occ, nt, tid, L, K, TM, a, b);
+  *cu = (int8_t)b;  // v's delta sees u already holding b
+  dE = ce_add<KT>(dE, rv, s_occ, nt, tid, L, K, TM, b, a);
+  if (EW) {
+    dE += ewald_u;
+    dE += ewald_term(rv.ew, __ldg(ew_c + v), s_occ, nt, tid, R, a - b);
+  }
+  return dE;
 }
 
 inline int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }

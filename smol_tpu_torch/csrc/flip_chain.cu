@@ -115,12 +115,8 @@ flip_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
     const int j = (int)(bits.y % (uint32_t)nc);
     const int b = j + (j >= a ? 1 : 0);
 
-    double dE = ce_add<KT>(0.0, rows, s_occ, nt, tid, L, K, TM, a, b);
-    if (EW) {
-      dE += ewald_term(rows.ew, __ldg(ew_c + u), s_occ, nt, tid, R, b - a);
-    }
-    const double work = __ldg(mu + u * C + b) - __ldg(mu + u * C + a);
-    dE -= work;
+    const double dE = flip_delta<KT, EW>(rows, u, a, b, s_occ, nt, tid, R, L, K,
+                                         TM, C, mu, ew_c);
 
     if (metropolis(b32, dE, bits.x)) {
       *cell = (int8_t)b;

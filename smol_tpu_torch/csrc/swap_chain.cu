@@ -107,15 +107,9 @@ swap_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
     const int b = *cv;
     const bool is_move = a != b;
 
-    double ewald_u = 0.0;
-    if (EW) ewald_u = ewald_term(ru.ew, __ldg(ew_c + u), s_occ, nt, tid, R, b - a);
-    double dE = ce_add<KT>(0.0, ru, s_occ, nt, tid, L, K, TM, a, b);
-    *cu = (int8_t)b;  // v's delta sees u already holding b
-    dE = ce_add<KT>(dE, rv, s_occ, nt, tid, L, K, TM, b, a);
-    if (EW) {
-      dE += ewald_u;
-      dE += ewald_term(rv.ew, __ldg(ew_c + v), s_occ, nt, tid, R, a - b);
-    }
+    // leaves b in u's cell: v's delta sees u already holding b
+    const double dE = swap_delta<KT, EW>(ru, rv, u, v, cu, a, b, s_occ, nt, tid,
+                                         R, L, K, TM, ew_c);
 
     if (is_move && metropolis(b32, dE, draws.at(i, rng_mode).x)) {
       *cv = (int8_t)a;

@@ -8,21 +8,22 @@ Counterpart of ``smol_tpu/moca/kernel/metropolis.py`` (:83-95 and
 no tracked features, with shared random proposals or, for flips, the
 deterministic sweep.  Anything else raises ``NotImplementedError`` naming
 the ROADMAP.md item that ports it; nothing silently takes another path.
+The factory also builds the Wang-Landau kernel
+(:mod:`smol_tpu_torch.moca.kernel.wanglandau`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from smol_tpu_torch.moca.kernel.base import MCKernel, ThermalKernelMixin
-from smol_tpu_torch.moca.kernel.mcusher import Swap
-from smol_tpu_torch.moca.kernel.tableflip import TableFlip
+from smol_tpu_torch.moca.kernel.base import ChainKernel, ThermalKernelMixin
+from smol_tpu_torch.moca.kernel.wanglandau import WangLandau
 from smol_tpu_torch.ops import chain
 
 __all__ = ["Metropolis", "mckernel_factory"]
 
 
-class Metropolis(ThermalKernelMixin, MCKernel):
+class Metropolis(ThermalKernelMixin, ChainKernel):
     """Metropolis-Hastings kernel of flips, canonical swaps or table flips.
 
     Args:
@@ -30,51 +31,21 @@ class Metropolis(ThermalKernelMixin, MCKernel):
         step_type: ``"flip"``, ``"swap"`` or ``"table-flip"``.
         temperature: in K.
         seed: seed of the run's generator.
-        shared_proposals: must be True: walkers of one block share the
-            proposal site sequence (see :mod:`smol_tpu_torch.ops.chain`).
-        chain_block_size: walkers per block (the sharing granularity).
-        proposal_mode: ``"random"`` or ``"sweep"`` (flips only).
-        rng: ``"philox"`` (run mode) or ``"hash"`` (the reference's
-            interpret-mode random numbers, for parity checks).
+        shared_proposals, chain_block_size, proposal_mode, rng: see
+            :class:`~smol_tpu_torch.moca.kernel.base.ChainKernel`.
         flip_weights, swap_weight: for ``"table-flip"``, see
             :class:`~smol_tpu_torch.moca.kernel.tableflip.TableFlip`.
     """
 
     def __init__(self, ensemble, step_type, temperature, *, seed=None,
-                 bias_type=None, shared_proposals=True, chain_block_size=1024,
-                 proposal_mode="random", rng="philox",
                  sublattice_probabilities=None, flip_weights=None,
-                 swap_weight=None):
-        if bias_type is not None:
-            raise NotImplementedError(
-                "MC biases are not ported yet (ROADMAP.md Queue 1 item 8)"
-            )
-        if proposal_mode not in ("random", "sweep"):
-            raise ValueError(f"unknown proposal mode: {proposal_mode!r}")
-        if not shared_proposals and proposal_mode != "sweep":
-            raise NotImplementedError(
-                "independent per-walker proposals are not ported yet "
-                "(ROADMAP.md Queue 1 item 8)"
-            )
-        if rng not in chain.RNG_MODES:
-            raise ValueError(f"unknown rng mode: {rng!r}")
-        self.chain_block_size = int(chain_block_size)
-        self.proposal_mode = str(proposal_mode)
-        self.rng = rng
+                 swap_weight=None, **chain_options):
         super().__init__(
             temperature, ensemble, step_type, seed=seed,
             sublattice_probabilities=sublattice_probabilities,
-            flip_weights=flip_weights, swap_weight=swap_weight,
+            flip_weights=flip_weights, swap_weight=swap_weight, **chain_options,
         )
-        self._chain_tables = None
         self._table_move = None
-
-    @property
-    def move(self) -> str:
-        """The chain's move: ``"flip"``, ``"swap"`` or ``"table"``, by usher."""
-        if isinstance(self.mcusher, TableFlip):
-            return "table"
-        return "swap" if isinstance(self.mcusher, Swap) else "flip"
 
     def initial_state(self, occupancies) -> dict:
         state = super().initial_state(occupancies)
@@ -83,24 +54,6 @@ class Metropolis(ThermalKernelMixin, MCKernel):
             # so this count gives the rate of moves that change something
             state["nmove"] = torch.zeros_like(state["naccept"])
         return state
-
-    def chain_tables(self) -> chain.ChainTables:
-        """The chain tables of this kernel's ensemble (built once)."""
-        if self._chain_tables is None:
-            ens = self._ensemble
-            # a table move's embedded swaps follow its swapper's sublattice
-            # probabilities; its flip directions carry their own sublattices
-            usher = self.mcusher._swapper if self.move == "table" else self.mcusher
-            self._chain_tables = chain.build_chain_tables(
-                ens.processor,
-                ens.sublattices,
-                # swaps conserve composition: no chemical work, no mu table
-                mu_table=(
-                    None if self.move == "swap" else ens.chemical_potential_table
-                ),
-                sublattice_probabilities=usher.sublattice_probabilities,
-            )
-        return self._chain_tables
 
     def table_move(self):
         """The :class:`~smol_tpu_torch.ops.chain.TableMove` of a TableFlip
@@ -122,10 +75,13 @@ class Metropolis(ThermalKernelMixin, MCKernel):
 
 
 def mckernel_factory(kernel_type, ensemble, step_type, *args, **kwargs):
-    """The kernel for ``kernel_type``; the port has ``"Metropolis"`` only."""
-    if kernel_type.replace("-", "").replace("_", "").lower() != "metropolis":
+    """The kernel for ``kernel_type``: ``"Metropolis"`` (with a temperature)
+    or ``"wang-landau"`` (any spelling of the two words; with a window)."""
+    name = kernel_type.replace("-", "").replace("_", "").lower()
+    kernels = {"metropolis": Metropolis, "wanglandau": WangLandau}
+    if name not in kernels:
         raise NotImplementedError(
             f"kernel type {kernel_type!r} is not ported yet (ROADMAP.md "
-            "Queue 1: Wang-Landau is item 7, the others item 8)"
+            "Queue 1 item 8)"
         )
-    return Metropolis(ensemble, step_type, *args, **kwargs)
+    return kernels[name](ensemble, step_type, *args, **kwargs)

@@ -9,8 +9,15 @@ The ``features`` trace is derived: a sampler that does not track features
 registers a function of the occupancies (:meth:`set_derived_value`), and
 the container evaluates it on the rows a reader selects, when it reads
 them.  A batch that already carries the derived entry (one restored from
-saved traces) is served as it is and never recomputed.  HDF5 storage is
-not ported yet (ROADMAP.md Queue 1 item 8).
+saved traces) is served as it is and never recomputed.
+
+Aux records (counterpart of the reference's aux trace, ``container.py``
+:32-78, :506-556) hold bulky cumulative kernel state, such as the
+Wang-Landau entropy, histogram and mean-feature planes, on a cadence of
+their own: each record is cumulative, so the last one carries the result.
+They too stay device tensors until read, and
+:meth:`SampleContainer.get_trace_value` serves them by name on the record
+axis.  HDF5 storage is not ported yet (ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -34,11 +41,14 @@ class SampleContainer:
         trace_names: the recorded quantities (``occupancy`` first).
         traces: optional restored batch, a dict of arrays [k, W, ...]
             holding every name in ``trace_names``.
+        aux_names: the quantities recorded as aux records.
     """
 
-    def __init__(self, ensemble, trace_names, traces=None):
+    def __init__(self, ensemble, trace_names, traces=None, aux_names=()):
         self._ensemble = ensemble
         self._names = tuple(trace_names)
+        self._aux_names = tuple(aux_names)
+        self._aux_records = []  # (dict of tensors [W, ...], sample index)
         self._batches = []  # dicts of tensors [k, W, ...], in sample order
         self._derived = {}  # name -> fn(occupancies [n, N]) -> [n, ...]
         if traces is not None:
@@ -57,7 +67,20 @@ class SampleContainer:
 
     @property
     def traced_values(self) -> list:
-        return list(self._names)
+        return list(self._names + self._aux_names)
+
+    @property
+    def aux_traced_values(self) -> list:
+        return list(self._aux_names)
+
+    @property
+    def num_aux_records(self) -> int:
+        return len(self._aux_records)
+
+    @property
+    def aux_sample_indices(self) -> np.ndarray:
+        """The sample index each aux record was taken at."""
+        return np.array([index for _, index in self._aux_records], dtype=np.int64)
 
     @property
     def num_samples(self) -> int:
@@ -76,7 +99,31 @@ class SampleContainer:
         if len(traces["occupancy"]):
             self._batches.append(dict(traces))
 
+    def save_aux_record(self, record: dict, sample_index=None):
+        """Append one aux record, tensors [W, ...] that nothing modifies
+        later; they stay where they are.  ``sample_index`` is the sample
+        the record was taken at (default: the latest)."""
+        missing = set(self._aux_names) - set(record)
+        if missing:
+            raise ValueError(f"the aux record lacks {sorted(missing)}")
+        if sample_index is None:
+            sample_index = self.num_samples - 1
+        self._aux_records.append((dict(record), int(sample_index)))
+
     # ---------------- trace access ----------------
+
+    def last_trace_value(self, name) -> torch.Tensor:
+        """The newest record [W, ...] of a recorded (not derived) or aux
+        quantity, as the device tensor it was saved as."""
+        if name in self._aux_names:
+            if not self._aux_records:
+                raise IndexError("no aux record saved")
+            return self._aux_records[-1][0][name]
+        if name not in self._names:
+            raise ValueError(f"{name} is not a traced quantity.")
+        if not self._batches:
+            raise IndexError("no samples saved")
+        return self._batches[-1][name][-1]
 
     def _selection(self, discard, thin_by):
         """Per-batch boolean host masks of the selected sample rows."""
@@ -109,7 +156,17 @@ class SampleContainer:
         return segments, kept
 
     def get_trace_value(self, name, discard=0, thin_by=1, flat=True):
-        """Host array of one traced quantity over the selected samples."""
+        """Host array of one traced quantity over the selected samples.
+
+        An aux quantity is served on the aux record axis: ``discard`` and
+        ``thin_by`` then select records, not samples.
+        """
+        if name in self._aux_names:
+            records = self._aux_records[discard + thin_by - 1:: thin_by]
+            if not records:
+                raise IndexError("no aux records selected")
+            value = np.stack([record[name].cpu().numpy() for record, _ in records])
+            return value.reshape(-1, *value.shape[2:]) if flat else value
         segments, masks = self._segments(name, self._selection(discard, thin_by))
         parts = [
             values.index_select(

@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+_ptr, _i32, _f64, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_float
 # name -> argtypes of its entry point smol_<name>
 KERNELS = {
     # occ enthalpy naccept beta seq | seq_stride | seed nbr stride d2 g mu
@@ -42,6 +42,12 @@ KERNELS = {
     # stride d2 g mu move_rows ew_v ew_c | R L K TM C W block_size n_steps
     # rng_mode k_max n_rows | stream
     "table_chain": [_ptr] * 6 + [_i32] * 2 + [_ptr] * 9 + [_i32] * 11 + [_ptr],
+    # occ enthalpy naccept entropy histogram occurrences mod_factor wl_counter
+    # useq vseq | seq_stride | seed nbr stride d2 g mu ncode ew_v ew_c | R L K
+    # TM C W block_size n_steps rng_mode move num_levels check_period
+    # update_period | min_enthalpy bin_size span mod_divisor | flatness | stream
+    "wl_chain": [_ptr] * 10 + [_i32] + [_ptr] * 9 + [_i32] * 13 + [_f64] * 4
+                + [_f32] + [_ptr],
 }
 
 

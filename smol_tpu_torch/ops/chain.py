@@ -1,10 +1,12 @@
-"""Shared-proposal Metropolis chains: flips, canonical swaps, table moves.
+"""Shared-proposal chains: flips, canonical swaps, table moves, Wang-Landau.
 
 Counterpart of ``smol_tpu/ops/pallas_chain.py`` for ``move="flip"``,
-``move="swap"`` and ``move="table"`` (``build_chain_tables`` :841 with the
+``move="swap"`` and ``move="table"`` and for ``wl=WLChain(...)``
+(``build_chain_tables`` :841 with the
 Ewald fold :1043-1091, ``rank_sequence`` :1142, ``rank_pair_sequence``
 :1161, ``TableMove`` :1186, ``build_table_move`` :1233,
-``table_sequences`` :1328, ``make_shared_proposal_chain`` :1439).  The statistical contract is the
+``table_sequences`` :1328, ``WLChain`` :1399,
+``make_shared_proposal_chain`` :1439).  The statistical contract is the
 reference's: the proposal sites follow an exogenous sequence shared by
 the walkers of one block (``block_size``), every other draw is per walker,
 and each walker is an exact Metropolis chain.  ``proposal_mode="sweep"``
@@ -26,11 +28,18 @@ Every direction's negation is in the table with the same weight and the
 slot sites are uniform over fixed sublattices, so the proposal is
 symmetric and plain Metropolis acceptance is exact.
 
-The chains run in :func:`flip_chain`, :func:`swap_chain` and
-:func:`table_chain`: on a CUDA tensor they launch the hand-written kernels
-``csrc/flip_chain.cu``, ``csrc/swap_chain.cu`` and ``csrc/table_chain.cu``;
-on a CPU tensor they run :func:`flip_chain_reference`,
-:func:`swap_chain_reference` and :func:`table_chain_reference`, the plain
+With a :class:`WLChain` the flips or swaps are accepted by the
+Wang-Landau rule on the entropy difference of the enthalpy bins instead of
+the Metropolis rule, and the chain keeps each walker's entropy, histogram,
+occurrences, modification factor and in-window step count
+(:func:`wl_chain`).
+
+The chains run in :func:`flip_chain`, :func:`swap_chain`,
+:func:`table_chain` and :func:`wl_chain`: on a CUDA tensor they launch the
+hand-written kernels ``csrc/flip_chain.cu``, ``csrc/swap_chain.cu``,
+``csrc/table_chain.cu`` and ``csrc/wl_chain.cu``; on a CPU tensor they run
+:func:`flip_chain_reference`, :func:`swap_chain_reference`,
+:func:`table_chain_reference` and :func:`wl_chain_reference`, the plain
 torch twins that do the same arithmetic in the same order.
 
 Tables hold the rank layout of the reference (rank = position in the
@@ -75,6 +84,11 @@ __all__ = [
     "table_step_reference",
     "table_chain_reference",
     "table_chain",
+    "WLChain",
+    "wl_step_reference",
+    "wl_chain_reference",
+    "wl_chain",
+    "wl_launch_operands",
     "make_shared_proposal_chain",
 ]
 
@@ -778,14 +792,20 @@ def table_chain_reference(occ, enthalpy, naccept, beta32, dirs, ranks, seed,
 
 
 def _check_operands(name, occ, enthalpy, counts, beta32, seqs, seed, tables,
-                    n_steps, block_size):
+                    n_steps, block_size, extra=()):
+    """Raise ``ValueError`` on an operand the chain does not take.
+
+    ``beta32`` is None for a chain without a temperature; ``extra`` holds
+    further ``(tensor, dtype, shape)`` operands of the same device.
+    """
     R, W = occ.shape
     expect = (
         (occ, torch.int8, (tables.num_ranks, W)),
         (enthalpy, torch.float64, (W,)),
         *((c, torch.int32, (W,)) for c in counts),
-        (beta32, torch.float32, (W,)),
+        *(() if beta32 is None else ((beta32, torch.float32, (W,)),)),
         (seed, torch.int64, (1,)),
+        *extra,
     )
     for tensor, dtype, shape in expect:
         if tensor.dtype != dtype or tuple(tensor.shape) != shape:
@@ -802,7 +822,7 @@ def _check_operands(name, occ, enthalpy, counts, beta32, seqs, seed, tables,
                 f"{name} sequence: expected int32 [{groups}, >={n_steps}] "
                 f"(all of one layout), got {seq.dtype} {tuple(seq.shape)}"
             )
-    operands = (occ, enthalpy, *counts, beta32, *seqs, seed, tables.g)
+    operands = [t for t, _, _ in expect] + [*seqs, tables.g]
     if any(t.device != occ.device for t in operands):
         raise ValueError(f"{name} operands lie on different devices")
     if not all(t.is_contiguous() for t in operands):
@@ -919,14 +939,21 @@ def _cuda_block_threads(W, block_size):
     return int(np.gcd(block_size, 64))
 
 
-def table_chain_shared_bytes(tables, k_max, W, block_size):
-    """Dynamic shared memory of one table-chain launch, in bytes: two
-    buffers of ``k_max`` row sets and the block's codes."""
+def _shared_bytes(tables, row_sets, W, block_size):
+    """Dynamic shared memory of one launch, in bytes: ``row_sets`` sets of
+    one rank's table rows (``rows_bytes`` of chain_common.cuh) and the
+    block's codes."""
     L, K = tables.nbr.shape[1:]
     ewald_row = tables.num_ranks if tables.has_ewald else 0
     row_set = L * tables.g.shape[2] * 8 + ewald_row * 8 + L * (2 * K + 1) * 4
     row_set = -(-row_set // 16) * 16
-    return 2 * k_max * row_set + tables.num_ranks * _cuda_block_threads(W, block_size)
+    return row_sets * row_set + tables.num_ranks * _cuda_block_threads(W, block_size)
+
+
+def table_chain_shared_bytes(tables, k_max, W, block_size):
+    """Dynamic shared memory of one table-chain launch, in bytes: two
+    buffers of ``k_max`` row sets and the block's codes."""
+    return _shared_bytes(tables, 2 * k_max, W, block_size)
 
 
 def table_chain(occ, enthalpy, naccept, beta32, dirs, ranks, seed, tables,
@@ -990,11 +1017,326 @@ def table_chain(occ, enthalpy, naccept, beta32, dirs, ranks, seed, tables,
 table_chain.launches = 0
 
 
+# ---------------- Wang-Landau ----------------
+
+@dataclass(frozen=True)
+class WLChain:
+    """Static parameters of Wang-Landau sampling inside the chain.
+
+    The reference's ``WLChain`` (``pallas_chain.py:1399``), field for
+    field.  The thermal Metropolis acceptance gives way to the rule on the
+    entropy difference S(bin of E) - S(bin of E'), and the chain keeps the
+    per-walker bookkeeping.  Per step and walker, with E' = E + dE of the
+    proposed flip or swap, w' = E' - ``min_enthalpy`` and b' =
+    clip(floor(w' / ``bin_size``), 0, ``num_levels`` - 1): the proposal is
+    rejected if w' lies outside [0, ``num_levels`` * ``bin_size``), else
+    accepted if x = S[b_cur] - S[b'] >= 0 or x > log U (a null swap is
+    never accepted).  After the decision, at the walker's current state:
+    inside the window its counter gains one, and on every
+    ``update_period``-th count S[b_cur] += mod_factor and the histogram and
+    the occurrences at b_cur gain one.  Flatness is checked when ``(i + 1)
+    % check_period == 0``, with i the step index within the launch, and at
+    the launch's last step: over the bins with S > 0, if at least two are
+    visited and min(histogram) > ``flatness`` * mean(histogram), the
+    walker's histogram is zeroed and its mod_factor divided by
+    ``mod_divisor``.
+
+    Enthalpy, window coordinate, bin, entropy and mod_factor are f64; the
+    exponent x is compared in f32, as the Metropolis chains' is, and the
+    flatness test is taken in f32 on the exact integer sum and minimum, as
+    the reference's.  The reference bins in f32 and keeps mod_factor in
+    f32 and the entropy as a double-float pair, so its walkers can differ
+    from this chain's where an enthalpy lies within a few f32 ulps of a
+    bin edge; with ``mod_divisor = 2`` every entropy is a short dyadic sum
+    that both representations hold exactly.
+    """
+
+    min_enthalpy: float
+    bin_size: float
+    num_levels: int
+    flatness: float
+    check_period: int
+    update_period: int
+    mod_divisor: float
+
+    @property
+    def span(self) -> float:
+        """Width of the window: the enthalpies in [min, min + span) count."""
+        return self.num_levels * self.bin_size
+
+
+def _true_divide(x, divisor: float):
+    """``x / divisor`` rounded as IEEE division, as the kernel divides.
+
+    The divisor goes in as a tensor on ``x``'s device: torch's CUDA
+    division by a host scalar multiplies by the reciprocal instead, which
+    can differ in the last bit and put an enthalpy that lies on a bin edge
+    into the other bin.
+    """
+    return x / torch.tensor(divisor, dtype=x.dtype, device=x.device)
+
+
+def _wl_bin(w, wl: WLChain):
+    """Clipped bin of window coordinates ``w`` [W] f64, int64."""
+    return torch.floor(_true_divide(w, wl.bin_size)).clamp(0, wl.num_levels - 1).long()
+
+
+def _lower_bin_margin(bin_margin, w, wl: WLChain, counts):
+    """bin_margin = min(bin_margin, distance of w from a bin edge).
+
+    The edges are k * bin_size for k = 0 .. num_levels (the window's ends
+    included); the distance is counted in f32 ulps of w, so it bounds
+    where an implementation that bins in f32 could bin otherwise.  Only
+    walkers in ``counts`` lower their margin.
+    """
+    k = torch.floor(_true_divide(w, wl.bin_size))
+    lo = k.clamp(0, wl.num_levels) * wl.bin_size
+    hi = (k + 1).clamp(0, wl.num_levels) * wl.bin_size
+    dist = torch.minimum((w - lo).abs(), (w - hi).abs())
+    w32 = w.to(torch.float32)
+    ulp = (torch.nextafter(w32, w32.new_tensor(float("inf"))) - w32).abs()
+    gap = (dist / ulp.to(torch.float64)).to(bin_margin.dtype)
+    gap = torch.where(counts, gap, torch.full_like(gap, float("inf")))
+    torch.minimum(bin_margin, gap, out=bin_margin)
+
+
+def wl_step_reference(tables: ChainTables, wl: WLChain, occ, ranks, r_u, r_j,
+                      enthalpy, entropy, s_cur, move="flip"):
+    """One Wang-Landau proposal for every walker, without applying it.
+
+    ``occ`` [R, W] int8 codes (left as it was), ``ranks`` the proposal
+    ranks ``(u,)`` of a flip or ``(u, v)`` of a swap, [W] each, ``r_u`` /
+    ``r_j`` [W] random bits, ``enthalpy`` [W] f64, ``entropy`` [B, W] f64
+    and ``s_cur`` [W] f64 the entropy of each walker's current bin.
+    Returns ``(accept, is_move, a, b, dE, w_new, b_new, expo, log_u,
+    in_win)``: u holds a and takes b (for a swap v holds b and takes a);
+    dE is :func:`flip_step_reference`'s or :func:`swap_step_reference`'s;
+    ``expo`` is the f32 exponent S[b_cur] - S[b_new] and ``log_u`` the f32
+    log uniform it is compared with.
+    """
+    W = occ.shape[1]
+    walkers = torch.arange(W, device=occ.device)
+    no_beta = torch.zeros(W, dtype=torch.float32, device=occ.device)
+    if move == "swap":
+        _, is_move, a, b, dE, _, log_u = swap_step_reference(
+            tables, occ, ranks[0], ranks[1], r_u, no_beta)
+    else:
+        _, b, dE, _, log_u = flip_step_reference(
+            tables, occ, ranks[0], r_u, r_j, no_beta)
+        a = occ[ranks[0].long(), walkers].long()
+        is_move = torch.ones(W, dtype=torch.bool, device=occ.device)
+    w_new = (enthalpy + dE) - wl.min_enthalpy
+    b_new = _wl_bin(w_new, wl)
+    in_win = (w_new >= 0) & (w_new < wl.span)
+    expo = (s_cur - entropy[b_new, walkers]).to(torch.float32)
+    accept = ((expo >= 0) | (expo > log_u)) & in_win & is_move
+    return accept, is_move, a, b, dE, w_new, b_new, expo, log_u, in_win
+
+
+def _wl_flatness(entropy, histogram, mod_factor, wl: WLChain):
+    """The flatness check of every walker, in place (see :class:`WLChain`)."""
+    visited = entropy > 0  # [B, W]
+    nvis = visited.sum(dim=0)
+    hsum = torch.where(visited, histogram, 0).sum(dim=0, dtype=torch.int64)
+    big = torch.iinfo(torch.int32).max
+    hmin = torch.where(visited, histogram, big).min(dim=0).values
+    hmean = hsum.to(torch.float32) / nvis.clamp(min=1).to(torch.float32)
+    flatness = torch.tensor(wl.flatness, dtype=torch.float32, device=entropy.device)
+    flat = (nvis >= 2) & (hmin.to(torch.float32) > flatness * hmean)
+    histogram[:, flat] = 0
+    mod_factor[flat] = _true_divide(mod_factor[flat], wl.mod_divisor)
+
+
+def wl_chain_reference(occ, enthalpy, naccept, entropy, histogram, occurrences,
+                       mod_factor, wl_counter, seqs, seed, tables, wl, n_steps,
+                       block_size, move="flip", rng="philox", margin=None,
+                       bin_margin=None):
+    """Plain torch twin of the CUDA Wang-Landau chain kernel (same arguments).
+
+    Updates ``occ``, ``enthalpy``, ``naccept``, the planes ``entropy``,
+    ``histogram``, ``occurrences`` [B, W], ``mod_factor`` and
+    ``wl_counter`` in place.  ``margin``, an optional [W] f32 tensor, is
+    lowered to each walker's closest decision, |x - log U| in f32 ulps of
+    log U (proposals outside the window and null swaps, decided
+    regardless, do not count).  ``bin_margin``, an optional [W] tensor, is
+    lowered to the least distance from a bin edge, in f32 ulps of the
+    window coordinate, of the walker's coordinate at the launch's start
+    and of every non-null proposal's.
+    """
+    W = occ.shape[1]
+    walkers = torch.arange(W, device=occ.device)
+    group = walkers // block_size
+    r_u, r_j = chain_draws(rng, int(seed[0]), n_steps, W, block_size, occ.device)
+    w_cur = enthalpy - wl.min_enthalpy
+    b_cur = _wl_bin(w_cur, wl)
+    s_cur = entropy[b_cur, walkers]
+    everyone = torch.ones(W, dtype=torch.bool, device=occ.device)
+    if bin_margin is not None:
+        _lower_bin_margin(bin_margin, w_cur, wl, everyone)
+    no_beta = torch.zeros(W, dtype=torch.float32, device=occ.device)
+    for i in range(n_steps):
+        ranks = [s[group, i].long() for s in seqs]
+        accept, is_move, a, b, dE, w_new, b_new, expo, log_u, in_win = wl_step_reference(
+            tables, wl, occ, ranks, r_u[i], r_j[i], enthalpy, entropy, s_cur, move)
+        if margin is not None:
+            _lower_margin(margin, expo, log_u, no_beta, 0.0, ~(in_win & is_move))
+        if bin_margin is not None:
+            _lower_bin_margin(bin_margin, w_new, wl, is_move)
+        u = ranks[0]
+        occ[u, walkers] = torch.where(accept, b, a).to(occ.dtype)
+        if move == "swap":
+            occ[ranks[1], walkers] = torch.where(accept, a, b).to(occ.dtype)
+        enthalpy += torch.where(accept, dE, torch.zeros_like(dE))
+        naccept += accept.to(naccept.dtype)
+        w_cur = torch.where(accept, w_new, w_cur)
+        b_cur = torch.where(accept, b_new, b_cur)
+        s_cur = torch.where(accept, entropy[b_new, walkers], s_cur)
+        # the bookkeeping at the (possibly new) current state
+        valid = (w_cur >= 0) & (w_cur < wl.span)
+        wl_counter += valid.to(wl_counter.dtype)
+        update = valid & (wl_counter % wl.update_period == 0)
+        s_cur = torch.where(update, s_cur + mod_factor, s_cur)
+        rows, cols = b_cur[update], walkers[update]
+        entropy[rows, cols] = s_cur[update]
+        histogram[rows, cols] += 1
+        occurrences[rows, cols] += 1
+        if (i + 1) % wl.check_period == 0 or i + 1 == n_steps:
+            _wl_flatness(entropy, histogram, mod_factor, wl)
+
+
+def _wl_operands(wl, W, entropy, histogram, occurrences, mod_factor, wl_counter):
+    planes = (wl.num_levels, W)
+    return (
+        (entropy, torch.float64, planes),
+        (histogram, torch.int32, planes),
+        (occurrences, torch.int32, planes),
+        (mod_factor, torch.float64, (W,)),
+        (wl_counter, torch.int32, (W,)),
+    )
+
+
+def wl_chain_shared_bytes(tables, W, block_size, move):
+    """Dynamic shared memory of one Wang-Landau launch, in bytes: two
+    buffers of the step's row sets (two for a swap) and the block's codes."""
+    return _shared_bytes(tables, 4 if move == "swap" else 2, W, block_size)
+
+
+def wl_chain(occ, enthalpy, naccept, entropy, histogram, occurrences,
+             mod_factor, wl_counter, seqs, seed, tables, wl, n_steps,
+             block_size, move="flip", rng="philox"):
+    """Run ``n_steps`` shared-proposal Wang-Landau steps on every walker.
+
+    Args:
+        occ, enthalpy, naccept, seed, tables, block_size, rng: as
+            :func:`flip_chain`; all updated in place.
+        entropy: [B, W] f64, bin-major (B = ``wl.num_levels``).
+        histogram, occurrences: [B, W] int32.
+        mod_factor: [W] f64.
+        wl_counter: [W] int32, the walker's steps inside the window.
+        seqs: ``(seq,)`` for ``move="flip"``, ``(useq, vseq)`` for
+            ``move="swap"``: [G, >= n_steps] int32 each, one layout.
+        wl: the :class:`WLChain`; its flatness check counts the steps of
+            this launch (a launch is one chunk).
+
+    A CUDA tensor launches the kernel (``wl_chain.launches`` counts the
+    launches); a CPU tensor runs :func:`wl_chain_reference`.
+    """
+    if move not in ("flip", "swap"):
+        raise ValueError("the Wang-Landau chain supports flip/swap moves only")
+    seqs = tuple(seqs)
+    if len(seqs) != (2 if move == "swap" else 1):
+        raise ValueError(f"wl_chain: move={move!r} takes {2 if move == 'swap' else 1} "
+                         f"sequence(s), got {len(seqs)}")
+    if wl.num_levels < 1 or wl.check_period < 1 or wl.update_period < 1:
+        raise ValueError("wl_chain: num_levels, check_period and update_period "
+                         "must be positive")
+    W = occ.shape[1]
+    _check_operands(
+        "wl_chain", occ, enthalpy, (naccept,), None, seqs, seed, tables, n_steps,
+        block_size,
+        extra=_wl_operands(wl, W, entropy, histogram, occurrences, mod_factor,
+                           wl_counter),
+    )
+    if occ.device.type == "cpu":
+        wl_chain_reference(occ, enthalpy, naccept, entropy, histogram, occurrences,
+                           mod_factor, wl_counter, seqs, seed, tables, wl, n_steps,
+                           block_size, move, rng)
+        return
+    if occ.device.type != "cuda":
+        raise ValueError(f"wl_chain runs on cuda or cpu, not {occ.device}")
+    if rng not in RNG_MODES:
+        raise ValueError(f"unknown rng mode: {rng!r}")
+    R = occ.shape[0]
+    L, K = tables.nbr.shape[1:]
+    smem = wl_chain_shared_bytes(tables, W, block_size, move)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"wl_chain needs {smem} bytes of shared memory per block, above "
+            f"the card's {MAX_SHARED_BYTES}"
+        )
+    lib = _build.load_chain("wl_chain")
+    vseq = seqs[1] if move == "swap" else seqs[0]
+    with torch.cuda.device(occ.device):
+        stream = torch.cuda.current_stream(occ.device).cuda_stream
+        rc = lib.smol_wl_chain(
+            occ.data_ptr(), enthalpy.data_ptr(), naccept.data_ptr(),
+            entropy.data_ptr(), histogram.data_ptr(), occurrences.data_ptr(),
+            mod_factor.data_ptr(), wl_counter.data_ptr(), seqs[0].data_ptr(),
+            vseq.data_ptr(), seqs[0].stride(0), seed.data_ptr(),
+            tables.nbr.data_ptr(), tables.stride.data_ptr(),
+            tables.d2.data_ptr(), tables.g.data_ptr(), tables.mu.data_ptr(),
+            tables.ncode.data_ptr(), *_ewald_pointers(tables), R, L, K,
+            tables.g.shape[2], tables.mu.shape[1], W, block_size, n_steps,
+            RNG_MODES[rng], MOVES.index(move), wl.num_levels, wl.check_period,
+            wl.update_period, wl.min_enthalpy, wl.bin_size, wl.span,
+            wl.mod_divisor, wl.flatness, stream,
+        )
+    wl_chain.launches += 1
+    _launch_check(lib, "wl_chain", rc)
+
+
+wl_chain.launches = 0
+
+
+def wl_launch_operands(tables: ChainTables, wl: WLChain, move, occu, enthalpy,
+                       n_steps, block_size, generator, n_chunks=None) -> dict:
+    """Keyword operands of :func:`wl_chain` (and of its twin) for walkers
+    that have not sampled yet: ``occu`` [W, N] and their ``enthalpy`` [W]
+    f64, planes of zeros, ``mod_factor`` 1, and proposal sequences drawn
+    from ``generator`` ([G, n_steps], or [n_chunks, G, n_steps] for a run
+    in chunks).  The launch seed is the caller's to add.
+    """
+    W, device = occu.shape[0], occu.device
+    shape = (-(-W // block_size), n_steps)
+    if n_chunks is not None:
+        shape = (n_chunks, *shape)
+    if move == "swap":
+        seqs = list(rank_pair_sequence(tables, generator, shape))
+    else:
+        seqs = [rank_sequence(tables, generator, shape)]
+
+    def plane(dtype):
+        return torch.zeros((wl.num_levels, W), dtype=dtype, device=device)
+
+    return dict(
+        occ=occu[:, tables.rank_sites].T.to(torch.int8).contiguous(),
+        enthalpy=enthalpy,
+        naccept=torch.zeros(W, dtype=torch.int32, device=device),
+        entropy=plane(torch.float64), histogram=plane(torch.int32),
+        occurrences=plane(torch.int32),
+        mod_factor=torch.ones(W, dtype=torch.float64, device=device),
+        wl_counter=torch.zeros(W, dtype=torch.int32, device=device),
+        seqs=seqs, tables=tables, wl=wl, n_steps=n_steps, block_size=block_size,
+        move=move,
+    )
+
+
 def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
                                block_size: int = 1024,
                                proposal_mode: str = "random",
                                rng: str = "philox", seqs=None, seeds=None,
-                               move: str = "flip", table_move=None):
+                               move: str = "flip", table_move=None,
+                               wl: WLChain | None = None):
     """Build ``fn(state, generator) -> state`` running ``n_steps`` moves.
 
     ``move`` is ``"flip"`` (single-site, semigrand), ``"swap"`` (two
@@ -1017,6 +1359,14 @@ def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
     replace the draws (the tests pass the reference's own draws); in
     ``"philox"`` mode a window is one chunk.  ``proposal_mode="sweep"`` is
     defined for flips only.
+
+    ``wl`` switches flips or swaps to Wang-Landau sampling
+    (:class:`WLChain`).  The state then carries ``entropy`` [W, B] f64,
+    ``histogram`` and ``occurrences`` [W, B] int32, ``mod_factor`` [W] f64
+    and ``wl_counter`` [W] int32, all updated in place, and needs no
+    ``beta``.  The chain works on bin-major [B, W] copies of the planes,
+    transposed once per call of ``fn``, not per step; the flatness check
+    counts its steps within each chunk.
     """
     if move not in MOVES:
         raise ValueError(f"unknown move type: {move!r}")
@@ -1028,6 +1378,8 @@ def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
         raise ValueError('proposal_mode="sweep" supports move="flip" only')
     if rng not in RNG_MODES:
         raise ValueError(f"unknown rng mode: {rng!r}")
+    if wl is not None and move == "table":
+        raise ValueError("the Wang-Landau chain supports flip/swap moves only")
     swap, table = move == "swap", move == "table"
     max_chunk = MAX_CHUNK_STEPS // table_move.k_max if table else MAX_CHUNK_STEPS
     chunk = min(n_steps, max_chunk) if rng == "hash" else n_steps
@@ -1069,14 +1421,22 @@ def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
                                  device=device, dtype=torch.int64)
 
         occ = occu[:, rank_sites].T.to(torch.int8).contiguous()  # [R, W]
-        beta32 = state["beta"].to(torch.float32)
         nacc = torch.zeros(W, dtype=torch.int32, device=device)
         nmv = torch.zeros(W, dtype=torch.int32, device=device)
+        if wl is not None:
+            plane_names = ("entropy", "histogram", "occurrences")
+            planes = [state[name].T.contiguous() for name in plane_names]  # [B, W]
+        else:
+            beta32 = state["beta"].to(torch.float32)
         for c in range(n_chunks):
             steps = min(chunk, n_steps - c * chunk)
             seed_c = seed[c: c + 1].contiguous()
             seq_c = [s[c].contiguous() for s in seq]
-            if table:
+            if wl is not None:
+                wl_chain(occ, state["enthalpy"], nacc, *planes,
+                         state["mod_factor"], state["wl_counter"], seq_c, seed_c,
+                         tables, wl, steps, block_size, move, rng)
+            elif table:
                 table_chain(occ, state["enthalpy"], nacc, beta32, *seq_c,
                             seed_c, tables, table_move, steps, block_size, rng)
             elif swap:
@@ -1086,11 +1446,14 @@ def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
                 flip_chain(occ, state["enthalpy"], nacc, beta32, *seq_c,
                            seed_c, tables, steps, block_size, rng)
         occu[:, rank_sites] = occ.T.to(occu.dtype)
+        if wl is not None:
+            for name, plane in zip(plane_names, planes):
+                state[name].copy_(plane.T)
         state["naccept"] += nacc
         state["accepted"] = nacc > 0  # coarse: any accept in the window
         if "window_naccept" in state:
             state["window_naccept"] += nacc
-        if swap and "nmove" in state:
+        if swap and wl is None and "nmove" in state:
             state["nmove"] += nmv
         return state
 

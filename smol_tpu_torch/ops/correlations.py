@@ -3,7 +3,12 @@
 Counterpart of ``smol_tpu/ops/correlations.py`` (``tensor_indices`` :125,
 ``corr_from_occupancy`` :149).  The reference selects each cluster's tensor
 value from precomputed planes, because gathers are slow on a TPU; here the
-value is one direct gather and the per-function sums one ``index_add_``.
+value is one direct gather, and the functions' sums one reduction over the
+(function, cluster) pairs laid out [num_corr, Pmax], each function's run
+padded to the longest with pairs of weight zero: a reduction along a
+dimension adds in a fixed order on every device, so the same occupancy
+gives the same bits in every run (``index_add_`` adds with f64 atomics on
+CUDA, in no fixed order).
 Correlations are float64, indices int64 (torch's index type).
 """
 
@@ -25,9 +30,9 @@ class PackedTensors:
     cluster_sites: torch.Tensor  # [C, K] int64
     cluster_strides: torch.Tensor  # [C, K] int64
     corr_flat: torch.Tensor  # [T] f64
-    pair_fn: torch.Tensor  # [P] int64
-    pair_cluster: torch.Tensor  # [P] int64
-    pair_offset: torch.Tensor  # [P] int64
+    pair_cluster: torch.Tensor  # [num_corr * Pmax] int64, function-major
+    pair_offset: torch.Tensor  # [num_corr * Pmax] int64
+    pair_weight: torch.Tensor  # [num_corr, Pmax] f64: 1 for a pair, 0 for padding
     fn_cluster_count: torch.Tensor  # [num_corr] f64
 
 
@@ -42,14 +47,27 @@ def to_device(system: dict, device) -> PackedTensors:
             np.asarray(system[name], dtype=np.float64), device=device
         )
 
+    num_corr = int(system["num_corr"])
+    # the pairs function by function, each run padded to the longest
+    pair_fn = np.asarray(system["pair_fn"])
+    order = np.argsort(pair_fn, kind="stable")
+    counts = np.bincount(pair_fn, minlength=num_corr)
+    starts = np.cumsum(counts) - counts
+    slot = pair_fn[order] * counts.max() + np.arange(len(order)) - starts[pair_fn[order]]
+
+    def padded(name, dtype):
+        flat = np.zeros(num_corr * counts.max(), dtype=dtype)
+        flat[slot] = 1 if name is None else np.asarray(system[name])[order]
+        return torch.as_tensor(flat, device=device)
+
     return PackedTensors(
-        num_corr=int(system["num_corr"]),
+        num_corr=num_corr,
         cluster_sites=ints("cluster_sites"),
         cluster_strides=ints("cluster_strides"),
         corr_flat=floats("corr_flat"),
-        pair_fn=ints("pair_fn"),
-        pair_cluster=ints("pair_cluster"),
-        pair_offset=ints("pair_offset"),
+        pair_cluster=padded("pair_cluster", np.int64),
+        pair_offset=padded("pair_offset", np.int64),
+        pair_weight=padded(None, np.float64).view(num_corr, -1),
         fn_cluster_count=floats("fn_cluster_count"),
     )
 
@@ -69,10 +87,8 @@ def corr_from_occupancy(occu: torch.Tensor, packed: PackedTensors) -> torch.Tens
     occu = torch.atleast_2d(occu)
     tidx = tensor_indices(occu, packed)  # [W, C]
     vals = packed.corr_flat[packed.pair_offset + tidx[:, packed.pair_cluster]]
-    sums = torch.zeros(
-        (occu.shape[0], packed.num_corr), dtype=torch.float64, device=occu.device
-    )
-    sums.index_add_(1, packed.pair_fn, vals)
+    weight = packed.pair_weight
+    sums = (vals.view(len(vals), *weight.shape) * weight).sum(dim=-1)
     corr = sums / packed.fn_cluster_count
     corr[:, 0] = 1.0
     return corr

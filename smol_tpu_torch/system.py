@@ -43,9 +43,13 @@ Keys of a system dict (N sites, C clusters of at most K sites, P
   in sublattice order; and ``site_charges`` [N, max codes] f64, the
   oxidation state of each (site, code), 0 for a vacancy, a neutral
   species or a code the site does not take;
-- optionally ``initial_occupancy`` [N] int32, a starting occupancy the
-  system's user runs from (added by the exporting script, not by
-  :func:`export_system`).
+- optionally, added by the exporting script and not by
+  :func:`export_system`: ``initial_occupancy`` [N] int32, a starting
+  occupancy the system's user runs from; ``wl_min_enthalpy``,
+  ``wl_max_enthalpy`` and ``wl_bin_size`` 0-d f64, a Wang-Landau window
+  for the system and the width of its bins; ``exact_enthalpies`` f64,
+  the enthalpy of every state of a system small enough to enumerate, in
+  the order of ``itertools.product`` over the sites' codes.
 """
 
 from __future__ import annotations

@@ -319,6 +319,9 @@ def test_sampler_device_is_explicit(spinel):
                                    step_type="table-flip")  # no flip table
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
+                                   kernel_type="uniformly-random")
+    with pytest.raises(TypeError):  # Wang-Landau takes a window, no temperature
+        TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
                                    kernel_type="wang-landau")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",

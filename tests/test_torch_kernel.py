@@ -16,7 +16,10 @@ slot count) kernels; a refused operand raises before any launch.  The
 table-move kernel likewise, in its two-slot body (the semigrand spinel
 CE + Ewald), its runtime slot count body (the rocksalt whose moves recolor
 up to three sites, and the spinel's table padded to four slots), keeping
-every walker's net charge.
+every walker's net charge.  The Wang-Landau kernel must equal its twin on
+every walker and every plane (entropies to 0.0), for flips and swaps, with
+both slot-count bodies, the Ewald term, a partial block, sequence blocks
+below a CUDA block, 8192 walkers and a flatness reset in every run.
 """
 
 import dataclasses
@@ -265,3 +268,115 @@ def test_table_kernel_refuses_what_it_cannot_take(card):
     with pytest.raises(ValueError):
         chain.table_chain(**{**ops, "dirs": ops["dirs"].cpu()})
     assert chain.table_chain.launches == before
+
+
+# ---------------- the Wang-Landau kernel (K6) ----------------
+
+WL_STATE = ("occ", "enthalpy", "naccept", "entropy", "histogram", "occurrences",
+            "mod_factor", "wl_counter")
+
+
+def _wl_operands(card, cell, W, n_steps, block_size, move, bins=250, **options):
+    """Operands of one Wang-Landau launch on ``torch_<cell>.npz``: a window
+    of ``bins`` bins, five times as wide as the starting enthalpies span."""
+    system = load_system(DATA / f"torch_{cell}.npz")
+    ens = Ensemble.from_system(system, card)
+    tables = chain.build_chain_tables(
+        ens.processor, ens.sublattices,
+        mu_table=None if move == "swap" else ens.chemical_potential_table)
+    if move == "swap":  # every walker a shuffle of the file's composition
+        rng = np.random.default_rng(3)
+        occu = np.stack([rng.permuted(system["initial_occupancy"]) for _ in range(W)])
+        if "ewald_matrix" in system:  # shuffle within each sublattice only
+            occu = np.tile(system["initial_occupancy"], (W, 1))
+            for sl in ens.sublattices:
+                occu[:, sl.sites] = rng.permuted(occu[:, sl.sites], axis=1)
+        occu = torch.as_tensor(occu, device=card)
+    else:
+        occu = torch.as_tensor(random_occupancies(ens, W, seed=3), device=card)
+    theta = torch.as_tensor(ens.natural_parameters, device=card)
+    enthalpy = (ens.compute_features(occu) @ theta).contiguous()
+    lo, hi = float(enthalpy.min()), float(enthalpy.max())
+    span = hi - lo + 1e-3
+    params = dict(min_enthalpy=lo - 2 * span, bin_size=5 * span / bins, num_levels=bins,
+                  flatness=0.3, check_period=20, update_period=1, mod_divisor=2.0)
+    params.update(options)
+    gen = torch.Generator(device=card).manual_seed(0)
+    return dict(
+        chain.wl_launch_operands(tables, chain.WLChain(**params), move, occu,
+                                 enthalpy, n_steps, block_size, gen),
+        seed=torch.tensor([12345], dtype=torch.int64, device=card))
+
+
+def _wl_kernel_and_twin(ops, rng, kernel_tables=None):
+    outs = []
+    for fn, tables in ((chain.wl_chain, kernel_tables or ops["tables"]),
+                       (chain.wl_chain_reference, ops["tables"])):
+        run = {k: (v.clone() if k in WL_STATE else v) for k, v in ops.items()}
+        before = chain.wl_chain.launches
+        fn(**{**run, "tables": tables}, rng=rng)
+        torch.cuda.synchronize()
+        assert chain.wl_chain.launches - before == (1 if fn is chain.wl_chain else 0)
+        outs.append(run)
+    kernel, twin = outs
+    for key in WL_STATE:
+        if key != "enthalpy":
+            assert torch.equal(kernel[key], twin[key]), key  # entropies to 0.0
+    assert float((kernel["enthalpy"] - twin["enthalpy"]).abs().max()) <= 1e-9
+    n_steps = ops["n_steps"]
+    assert 0 < float(kernel["naccept"].double().mean()) < n_steps
+    assert bool((kernel["mod_factor"] < 1).any())  # a flatness reset happened
+    assert torch.equal(kernel["occurrences"].sum(dim=0),
+                       kernel["wl_counter"] // ops["wl"].update_period)
+    assert bool((kernel["histogram"] <= kernel["occurrences"]).all())
+    assert torch.equal(kernel["entropy"] > 0, kernel["occurrences"] > 0)
+    return kernel, twin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+@pytest.mark.parametrize(
+    "cell,move,W,block_size",
+    [("aucu_wl_3x3x3", "flip", 256, 64), ("aucu_wl_3x3x3", "flip", 1000, 1024),
+     ("aucu_nn_2x2x2", "flip", 200, 8), ("aucu_wl_3x3x3", "flip", 8192, 1024),
+     ("aucu_4x4x4", "swap", 256, 64), ("aucu_4x4x4", "swap", 1000, 1024),
+     ("aucu_4x4x4", "swap", 200, 8), ("aucu_4x4x4", "swap", 8192, 512),
+     ("spinel_ewald_2x2x2", "swap", 256, 64), ("spinel_ewald_2x2x2", "flip", 256, 64)],
+)
+def test_wl_kernel_matches_twin(card, rng, cell, move, W, block_size):
+    bins = 10 if cell == "aucu_nn_2x2x2" else 250
+    ops = _wl_operands(card, cell, W, 400, block_size, move, bins=bins)
+    kernel, _ = _wl_kernel_and_twin(ops, rng)
+    if move == "swap":
+        counts = [(o["occ"] == 1).sum(dim=0) for o in (ops, kernel)]
+        assert torch.equal(*counts)  # each walker keeps its composition
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("move,cell", [("flip", "aucu_wl_3x3x3"), ("swap", "aucu_4x4x4")])
+def test_wl_kernel_general_slot_count_and_update_period(card, move, cell):
+    """A fourth, empty slot takes the runtime-K body; ``update_period = 3``
+    and a ``check_period`` above the launch (only its last step checks)."""
+    ops = _wl_operands(card, cell, 256, 400, 64, move, update_period=3,
+                       check_period=5000, flatness=0.1)
+    t = ops["tables"]
+    padded = dataclasses.replace(
+        t,
+        nbr=torch.nn.functional.pad(t.nbr, (0, 1), value=-1),
+        stride=torch.nn.functional.pad(t.stride, (0, 1), value=0),
+    )
+    kernel, _ = _wl_kernel_and_twin(ops, "philox", kernel_tables=padded)
+    assert bool((kernel["mod_factor"] == 0.5).any())
+
+
+@pytest.mark.cuda
+def test_wl_kernel_refuses_what_it_cannot_take(card):
+    ops = _wl_operands(card, "aucu_nn_2x2x2", 64, 10, 64, "flip", bins=10)
+    before = chain.wl_chain.launches
+    with pytest.raises(ValueError, match="operand"):
+        chain.wl_chain(**{**ops, "entropy": ops["entropy"].T.contiguous()})
+    with pytest.raises(ValueError):
+        chain.wl_chain(**{**ops, "mod_factor": ops["mod_factor"].cpu()})
+    with pytest.raises(ValueError, match="flip/swap"):
+        chain.wl_chain(**{**ops, "move": "table"})
+    assert chain.wl_chain.launches == before

@@ -8,12 +8,14 @@
   3x3x3, Au-Cu 4x4x4), initial occupancy included, and of each table-flip
   system (the semigrand spinel CE + Ewald 2x2x2 and 3x3x3, the multi-slot
   rocksalt and the tiny enumeration cell) with its flip table, dimension
-  ids and site charges;
+  ids and site charges, and of each Wang-Landau system (Au-Cu 3x3x3 with
+  the bench's window, the 8-site nearest-neighbour cell with its exact
+  enthalpies);
 - the exporter refuses a processor the port cannot evaluate, alone or as
   the expansion part of a composite;
 - with ``jax`` blocked from importing, a subprocess imports the port and
-  runs short CPU slices from the system files, semigrand flips and
-  canonical swaps with Ewald;
+  runs short CPU slices from the system files, semigrand flips,
+  canonical swaps with Ewald, table flips and Wang-Landau flips;
 - neither ``chip_smoke.py`` nor any module of ``smol_tpu_torch`` imports
   ``jax`` or ``smol_tpu``.
 """
@@ -36,11 +38,13 @@ from export_torch_systems import (  # noqa: E402
     CANONICAL,
     SUPERCELLS,
     TABLE,
+    WANG_LANDAU,
     canonical_system,
     data_path,
     spinel_ensemble,
     system_path,
     table_system,
+    wang_landau_system,
 )
 
 
@@ -98,6 +102,32 @@ def test_committed_table_system_matches_fresh_export(stem):
     if "initial_occupancy" in committed:
         occ = committed["initial_occupancy"]
         assert charges[np.arange(len(occ)), occ].sum() == 0
+
+
+@pytest.mark.parametrize("stem", sorted(WANG_LANDAU))
+def test_committed_wang_landau_system_matches_fresh_export(stem):
+    fresh = wang_landau_system(stem)
+    committed = load_system(data_path(stem))
+    assert sorted(fresh) == sorted(committed)
+    for key, value in fresh.items():
+        stored = committed[key]
+        assert stored.dtype == np.asarray(value).dtype, key
+        np.testing.assert_array_equal(stored, value, err_msg=key)
+    if stem == "aucu_wl_3x3x3":  # the bench's window: about 250 bins
+        assert "chemical_potential_table" not in committed
+        width = committed["wl_max_enthalpy"] - committed["wl_min_enthalpy"]
+        assert 249 < width / committed["wl_bin_size"] <= 250
+    else:  # 256 states on six levels, zero chemical potentials
+        assert not committed["chemical_potential_table"].any()
+        levels, counts = np.unique(np.round(committed["exact_enthalpies"], 9),
+                                   return_counts=True)
+        assert counts.tolist() == [6, 96, 88, 48, 16, 2]
+
+
+def test_canonical_aucu_carries_its_wang_landau_window():
+    committed = load_system(data_path("aucu_4x4x4"))
+    width = committed["wl_max_enthalpy"] - committed["wl_min_enthalpy"]
+    assert 249 < width / committed["wl_bin_size"] <= 250
 
 
 def test_local_arrays_equal_reference(bench_spinel):
@@ -180,6 +210,17 @@ def test_port_runs_with_jax_blocked():
         sampler.run(100, system["initial_occupancy"], thin_by=50)
         assert sampler.samples.num_samples == 2
         print("ok", sampler.execution_path(50))
+        system = load_system({str(data_path("aucu_wl_3x3x3"))!r})
+        ens = Ensemble.from_system(system, "cpu")
+        sampler = Sampler.from_ensemble(
+            ens, nwalkers=16, seed=13, device="cpu", kernel_type="wang-landau",
+            step_type="flip", min_enthalpy=float(system["wl_min_enthalpy"]),
+            max_enthalpy=float(system["wl_max_enthalpy"]),
+            bin_size=float(system["wl_bin_size"]))
+        sampler.run(100, rng.integers(0, 2, (16, ens.num_sites)), thin_by=50)
+        assert sampler.samples.num_samples == 2
+        assert sampler.samples.num_aux_records == 1
+        print("ok", sampler.execution_path(50))
         bad = [m for m in sys.modules if m == "smol_tpu" or m.startswith("smol_tpu.")]
         assert not bad, bad
         """
@@ -192,6 +233,7 @@ def test_port_runs_with_jax_blocked():
     assert "ok cpu-twin[flip]" in proc.stdout
     assert "ok cpu-twin[swap]+ewald" in proc.stdout
     assert "ok cpu-twin[table]+ewald" in proc.stdout
+    assert "ok cpu-twin[wl-flip]+direct" in proc.stdout
 
 
 def test_port_never_imports_jax_or_reference():
@@ -214,7 +256,10 @@ def test_port_never_imports_jax_or_reference():
     assert (package / "csrc" / "flip_chain.cu").exists()
     assert (package / "csrc" / "swap_chain.cu").exists()
     assert (package / "csrc" / "table_chain.cu").exists()
+    assert (package / "csrc" / "wl_chain.cu").exists()
+    assert (package / "moca" / "kernel" / "wanglandau.py").exists()
     from smol_tpu_torch.ops import _build
 
-    assert sorted(_build.KERNELS) == ["flip_chain", "swap_chain", "table_chain"]
+    assert sorted(_build.KERNELS) == [
+        "flip_chain", "swap_chain", "table_chain", "wl_chain"]
     assert all((_build.CSRC_DIR / f"{name}.cu").exists() for name in _build.KERNELS)
