@@ -5,10 +5,10 @@ CUDA device and the CUDA toolkit (``nvcc``), and exits non-zero without
 printing its last line when any phase fails:
 
 1. requires a CUDA device and prints the card's name and power limit;
-2. builds the flip-chain, swap-chain, table-chain and Wang-Landau-chain
-   kernels from ``smol_tpu_torch/csrc`` (into ``build/smol_tpu_torch``, one
-   ``nvcc`` per source, all at once) and prints the build time and each
-   kernel's registers and spills;
+2. builds the flip-chain, swap-chain, table-chain, Wang-Landau-chain and
+   distance-chain kernels from ``smol_tpu_torch/csrc`` (into
+   ``build/smol_tpu_torch``, one ``nvcc`` per source, all at once) and
+   prints the build time and each kernel's registers and spills;
 3. runs each kernel and its plain torch twin on the same inputs at the
    shapes the main paths give the kernel (8192 walkers, one 100-step
    window, sequence blocks of 1024, or 512 for Au-Cu), in ``hash`` mode
@@ -35,9 +35,19 @@ printing its last line when any phase fails:
    hash-mode run across the 2048-step chunk boundary, one with
    ``update_period = 3``, and swaps with the Ewald term on the spinel
    CE + Ewald 2x2x2; every compared run must hold a flatness reset.
-   Last, the main path's own launch for both moves: 2048 walkers from
-   planes of zeros, one philox window of 15000 steps at flatness 0.8 with
-   a check every 1000 steps (about a minute of the twin per move);
+   Last, the main path's launch for both moves: 2048 walkers from planes
+   of zeros, one philox window at flatness 0.8 with a check every 1000
+   steps, the first 5000 of its 15000 steps (the twin's time sets that).
+   The distance (SQS) chain against its twin, bit for bit on every walker
+   (occupancy, best occupancy, features, score, best score, accepts),
+   2048 walkers from the generator's starts in blocks of 512: 300 steps on
+   the bench's first 8-site shape and on the 64-site shape in both RNG
+   modes, a hash-mode chain across the 2048-step chunk boundary through
+   ``make_distance_chain``, beta 0, beta 50 (T = 0.02), no match term, and
+   the main path's own launch (8000 philox steps at the first stage's
+   beta) on the bench shape, its first 2000 steps on the 64-site shape;
+   every walker keeps its composition and its score equals the exact
+   rescore;
 4. drives the main paths, each with the launch counts set to 0 just
    before and read just after:
    - flips: ``Ensemble.from_system(spinel 2x2x2, then 3x3x3)`` ->
@@ -61,6 +71,15 @@ printing its last line when any phase fails:
      (c) the 8-site nearest-neighbour system, 64 walkers x 200000 steps
      (flatness 0.9, a check every 5000 steps): every walker's log density
      of states within 0.5 of the exact degeneracies;
+   - SQS: ``StochasticSQSGenerator.from_processors(<shapes>,
+     device="cuda").generate(mcmc_steps=8000, temperatures=linspace(5,
+     0.02, 4), nwalkers=2048, seed=23)``, (a) ``bench.py``'s ``sqs``
+     config, the 20 shapes of 8 sites, (b) the 64-site shape, each cold
+     and then warm on the same generator (bit for bit the same search);
+     checked: every launch's compositions and final score against the
+     exact rescore (< 1e-9), the stored scores against an exact rescore on
+     the CPU (< 1e-9), every walker's best no worse than its start, and a
+     matched shell (a negative score) found;
    twice per cell (a first, cold run and a warm one on a fresh sampler,
    which must record the same occupancies and enthalpies to 1e-9), and
    checks the execution path, that the kernel was launched, the recorded
@@ -83,7 +102,11 @@ printing its last line when any phase fails:
    planes, what the launch's data needs: the flatness passes, the cells
    visited, the histograms reset).  The Wang-Landau chain
    is timed on both its cells beside the flip and swap chains on the same
-   tables, and at the 2048 walkers of its main path.
+   tables, and at the 2048 walkers of its main path.  The distance chain
+   is timed on the main path's own 8000-step launch at 2048 walkers on both
+   SQS shapes; on the launches of phase 3 that were timed (8000 steps on
+   the bench shape, 2000 on the 64-site one) beside the twin's time of the
+   same launch and the bound of the operations that launch's data needs.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -102,12 +125,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from smol_tpu_torch.capp.generate.special.sqs import StochasticSQSGenerator, random_starts
 from smol_tpu_torch.constants import kB
 from smol_tpu_torch.moca.ensemble import Ensemble, random_occupancies
 from smol_tpu_torch.moca.kernel.tableflip import TableFlip
+from smol_tpu_torch.moca.processor.distance import CorrelationDistanceProcessor
 from smol_tpu_torch.moca.sampler.sampler import Sampler
-from smol_tpu_torch.ops import _build, chain
-from smol_tpu_torch.system import load_system
+from smol_tpu_torch.ops import _build, chain, sqs
+from smol_tpu_torch.system import load_system, load_systems
 
 ROOT = Path(__file__).resolve().parent
 ULP_SLACK = 4
@@ -134,11 +159,23 @@ WL_CELLS = {"aucu_wl_3x3x3": "flip", "aucu_4x4x4": "swap"}
 WL_WALKERS = 2048
 WL_NSTEPS = 90_000
 WL_THIN = 15_000
+WL_TWIN_STEPS = 5000  # phase 3's run of the main path's launch: the twin's time sets it
 WL_SEED = 13
 WL_DOS_CELL = "aucu_nn_2x2x2"  # 8 sites: exact degeneracies
 WL_DOS_WALKERS = 64
 WL_DOS_NSTEPS = 200_000
 WL_DOS_TOLERANCE = 0.5  # on every walker's log-DOS
+# SQS cells: bench.py's sqs config (the 20 shapes of 8 sites; 2048 walkers
+# x 4 temperatures x 8000 swap steps per shape, seed 23) and the 64-site
+# diag(4, 4, 4) shape run the same way
+SQS_CELLS = ("sqs_fcc8", "sqs_fcc_4x4x4")
+SQS_WALKERS = 2048
+SQS_STEPS = 8000
+SQS_TEMPERATURES = np.linspace(5.0, 0.02, 4)
+SQS_SEED = 23
+SQS_BLOCK = 512  # the generator's sequence block
+SQS_WINDOW = 300  # phase 3's launches
+SQS_TWIN_STEPS = 2000  # the twin's part of the 64-site launch (its time sets it)
 SEEDS = (("hash", 987654321), ("philox", 0x2545F4914F6CDD1D))
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; FP64 (vector, not the
 # tensor cores) at 34 TFLOP/s, both at the 700 W limit
@@ -180,14 +217,16 @@ def ptxas_summary(log):
     """One line per compiled kernel: its template arguments, spills, registers."""
     lines, name, spills = [], "", ""
     for line in log.splitlines():
-        found = re.search(r"([a-z]+_chain_kernel)ILi(\d+)E(?:Li(\d+)E)?Lb([01])E", line)
+        found = re.search(r"([a-z]+_chain_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?", line)
         if "Compiling entry function" in line and found:
             kernel, k, km, ewald = found.groups()
             slots = "" if km is None else f", k_max={km if km != '0' else 'runtime'}"
             if kernel == "wl_chain_kernel":  # <move, K, ewald>
                 slots, k = f", move={('flip', 'swap')[int(k)]}", km
-            name = (f"{kernel}<K={k if k != '0' else 'runtime'}{slots}, "
-                    f"ewald={ewald == '1'}>")
+            if kernel == "distance_chain_kernel":  # <K, FMAX>
+                slots = f", FMAX={km}"
+            name = f"{kernel}<K={k if k != '0' else 'runtime'}{slots}"
+            name += ">" if ewald is None else f", ewald={ewald == '1'}>"
         elif "spill" in line:
             spills = line.strip()
         elif "registers" in line:
@@ -500,15 +539,15 @@ def wl_window_vs_twin(ensemble, system, name, move, rng, seed, **options):
 
 
 def wl_main_launch_vs_twin(ensemble, system, name, move):
-    """Phase 3: the main path's own launch, kernel against twin: 2048
-    walkers from the cell's starts and planes of zeros, one philox window of
-    15000 steps (step indices far above a hash chunk's 2048), flatness 0.8,
-    a check every 1000 steps on planes that fill as the launch goes.  Swaps
-    reach no flat histogram in one such window; the runs above cover the
-    reset."""
+    """Phase 3: the main path's launch, kernel against twin: 2048 walkers
+    from the cell's starts and planes of zeros, one philox window (step
+    indices far above a hash chunk's 2048), flatness 0.8, a check every
+    1000 steps on planes that fill as the launch goes; the first
+    ``WL_TWIN_STEPS`` of its 15000 steps.  Swaps reach no flat histogram in
+    one such window; the runs above cover the reset."""
     t0 = time.perf_counter()
-    ops = wl_operands(ensemble, system, move, WL_WALKERS, WL_THIN, BLOCK, occ_seed=0,
-                      seq_seed=41)
+    ops = wl_operands(ensemble, system, move, WL_WALKERS, WL_TWIN_STEPS, BLOCK,
+                      occ_seed=0, seq_seed=41)
     ops["seed"] = torch.tensor([SEEDS[1][1]], dtype=torch.int64, device=ensemble.device)
     k = fresh(ops)
     t = fresh(ops)
@@ -516,10 +555,10 @@ def wl_main_launch_vs_twin(ensemble, system, name, move):
     chain.wl_chain_reference(**t)
     torch.cuda.synchronize()
     wl = ops["wl"]
-    err = compare_wl(f"wl-{move} {name} philox, the main path's launch: {WL_THIN} "
-                     f"steps, {wl.num_levels} bins, flatness {wl.flatness:g}, "
-                     f"check_period {wl.check_period}", k, t, ops["occ"],
-                     ops["tables"], WL_THIN, need_reset=False)
+    err = compare_wl(f"wl-{move} {name} philox, the main path's launch: "
+                     f"{WL_TWIN_STEPS} of its {WL_THIN} steps, {wl.num_levels} bins, "
+                     f"flatness {wl.flatness:g}, check_period {wl.check_period}", k, t,
+                     ops["occ"], ops["tables"], WL_TWIN_STEPS, need_reset=False)
     print(f"phase 3: that comparison took {time.perf_counter() - t0:.1f} s")
     return err
 
@@ -822,6 +861,227 @@ def drive_wl_cells(card):
     return results, launches
 
 
+# ---------------- the SQS distance chain ----------------
+
+DISTANCE_STATE = ("occ", "best_occ", "feat", "d", "best_d", "naccept")
+
+
+def sqs_processors(stem, device="cuda"):
+    """The distance processors of an SQS file, one per supercell shape."""
+    systems = load_systems(ROOT / "tests" / "data" / f"torch_{stem}.npz")
+    return [CorrelationDistanceProcessor(system, device) for system in systems]
+
+
+def sqs_compositions(occu, proc):
+    """[W, S * codes] count of each code on each sublattice of occupancies
+    ``occu`` [W, N] (a tensor)."""
+    return torch.stack([(occu[:, sl.sites] == code).sum(dim=1)
+                        for sl in proc.get_sublattices() for code in sl.encoding], dim=1)
+
+
+def distance_operands(proc, n_steps, beta, seed, occ_seed=7, seq_seed=17):
+    """Operands of one distance launch at the main path's shape: 2048 walkers
+    from the generator's starts (``random_starts``), blocks of 512."""
+    tables = sqs.build_distance_tables(proc)
+    occu = torch.as_tensor(
+        random_starts(proc, SQS_WALKERS, np.random.default_rng(occ_seed)), device=proc.device)
+    gen = torch.Generator(device=proc.device).manual_seed(seq_seed)
+    beta = torch.full((SQS_WALKERS,), beta, dtype=torch.float64, device=proc.device)
+    ops = sqs.distance_launch_operands(tables, proc.compute_corr, occu, beta, n_steps,
+                                       SQS_BLOCK, gen)
+    ops["seed"] = torch.tensor([seed], dtype=torch.int64, device=proc.device)
+    return ops
+
+
+def occupancy_of(occ, tables):
+    """[W, N] occupancy of rank-major codes (every site of these cells is a
+    rank)."""
+    occu = torch.zeros((occ.shape[1], tables.num_sites), dtype=torch.int64,
+                       device=occ.device)
+    occu[:, tables.rank_sites] = occ.T.long()
+    return occu
+
+
+def compare_distance(label, proc, kernel, twin, start, n_steps):
+    """Kernel against twin: every walker equal bit for bit; returns the
+    largest score difference (0.0)."""
+    for key in DISTANCE_STATE:
+        if key in kernel:
+            check(torch.equal(kernel[key], twin[key]), f"{label}: {key} differs from the twin's")
+    tables = start["tables"]
+    before = sqs_compositions(occupancy_of(start["occ"], tables), proc)
+    for key in ("occ", "best_occ"):
+        check(torch.equal(sqs_compositions(occupancy_of(kernel[key], tables), proc), before),
+              f"{label}: a swap changed a composition")
+    exact = proc.compute_scores(occupancy_of(kernel["occ"], tables))
+    drift = float((exact - kernel["d"]).abs().max())
+    check(drift < 1e-9, f"{label}: score vs exact rescore {drift}")
+    accept = float(kernel["naccept"].double().mean()) / n_steps
+    check(0.0 < accept < 1.0, f"{label}: acceptance {accept}")
+    print(f"phase 3 [{label}]: kernel == twin bit for bit on all {len(kernel['d'])} "
+          f"walkers (occupancy, best occupancy, features, score, best score, accepts), "
+          f"score vs exact rescore {drift:.3e}, acceptance {accept:.4f}, best score "
+          f"{float(kernel['best_d'].min()):.6f}")
+    return float((kernel["d"] - twin["d"]).abs().max())
+
+
+def distance_vs_twin(proc, name, rng, seed, beta=2.0, n_steps=SQS_WINDOW, timed=False,
+                     match_weight=None):
+    """Phase 3: one launch, kernel against twin (with ``match_weight``, on
+    the shape's system with that match weight); with ``timed`` the twin's
+    time (CUDA events) and the work its data needs come back too."""
+    extra = ""
+    if match_weight is not None:
+        coefs = np.concatenate([[-match_weight], proc.coefs[1:]])
+        proc = CorrelationDistanceProcessor({**proc.system, "distance_coefs": coefs},
+                                            proc.device)
+        extra = f", match_weight {match_weight:g}"
+    ops = distance_operands(proc, n_steps, beta, seed)
+    k, t = fresh_distance(ops), fresh_distance(ops)
+    sqs.distance_chain(**k, rng=rng)
+    work = torch.zeros((2, SQS_WALKERS), dtype=torch.int64, device=proc.device)
+    start_ev = torch.cuda.Event(enable_timing=True)
+    end_ev = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start_ev.record()
+    sqs.distance_chain_reference(**t, rng=rng, work=work)
+    end_ev.record()
+    torch.cuda.synchronize()
+    err = compare_distance(f"distance {name} {rng} seed {seed:#x}, beta {beta:g}, "
+                           f"{n_steps} steps{extra}", proc, k, t, ops, n_steps)
+    if not timed:
+        return err
+    return err, {"ops": ops, "twin_ms": start_ev.elapsed_time(end_ev), "work": work}
+
+
+def fresh_distance(ops):
+    return {key: (v.clone() if key in DISTANCE_STATE else v) for key, v in ops.items()}
+
+
+def distance_chunked_hash_vs_twin(proc, name):
+    """Phase 3: a hash-mode chain across a chunk boundary through
+    ``make_distance_chain`` (2048 steps, then 52, each counting its steps
+    from 0 with the next chunk seed), against the twin chunk by chunk."""
+    chunk = chain.MAX_CHUNK_STEPS
+    n_steps = chunk + 52
+    ops = distance_operands(proc, chunk, 2.0, 0, occ_seed=11)
+    tables = ops["tables"]
+    gen = torch.Generator(device=proc.device).manual_seed(29)
+    seqs = chain.rank_pair_sequence(tables, gen, (2, SQS_WALKERS // SQS_BLOCK, chunk))
+    seeds = [123456789 + c * chain.SEED_STRIDE for c in range(2)]
+    occu = occupancy_of(ops["occ"], tables).to(torch.int32)
+    state = {
+        "occupancy": occu.clone(), "enthalpy": ops["d"].clone(),
+        "beta": torch.full((SQS_WALKERS,), 2.0, dtype=torch.float64, device=proc.device),
+        "naccept": torch.zeros(SQS_WALKERS, dtype=torch.int32, device=proc.device),
+        "best_enthalpy": ops["best_d"].clone(), "best_occupancy": occu.clone(),
+    }
+    run = sqs.make_distance_chain(tables, n_steps, proc.compute_corr, block_size=SQS_BLOCK,
+                                  rng="hash", seqs=[q.cpu().numpy() for q in seqs],
+                                  seeds=np.asarray(seeds))
+    before = sqs.distance_chain.launches
+    state = run(state, None)
+    check(sqs.distance_chain.launches - before == 2, "chunked distance run: two launches")
+    twin = fresh_distance(ops)
+    for c, seed in enumerate(seeds):
+        sqs.distance_chain_reference(
+            **{**twin, "useq": seqs[0][c], "vseq": seqs[1][c],
+               "n_steps": min(chunk, n_steps - c * chunk),
+               "seed": torch.tensor([seed], dtype=torch.int64, device=proc.device)},
+            rng="hash")
+    torch.cuda.synchronize()
+    feat = proc.compute_corr(state["occupancy"])[:, torch.as_tensor(tables.feature_ids)]
+    kernel = {  # the state carries no features: checked below against the twin's
+        "occ": state["occupancy"][:, tables.rank_sites].T.to(torch.int8),
+        "best_occ": state["best_occupancy"][:, tables.rank_sites].T.to(torch.int8),
+        "d": state["enthalpy"], "best_d": state["best_enthalpy"],
+        "naccept": state["naccept"],
+    }
+    feat_err = float((feat.T - twin["feat"]).abs().max())
+    check(feat_err < 1e-12, f"chunked distance run: features off by {feat_err}")
+    return compare_distance(f"distance {name} hash {n_steps} steps, 2 chunks", proc,
+                            kernel, twin, ops, n_steps)
+
+
+def drive_sqs(stem, card):
+    """Phase 4: the SQS search of one cell as a user calls it; cold, then
+    warm with the same seed on the same generator."""
+    t0 = time.perf_counter()
+    procs = sqs_processors(stem)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    generator = StochasticSQSGenerator.from_processors(procs, device="cuda")
+    runs = []
+    for _ in ("cold", "warm"):
+        t0 = time.perf_counter()
+        generator.generate(mcmc_steps=SQS_STEPS, temperatures=SQS_TEMPERATURES,
+                           nwalkers=SQS_WALKERS, seed=SQS_SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append((wall, [tuple(np.copy(x) for x in rec[1:]) for rec in generator._best],
+                     [{k: (v.clone() if torch.is_tensor(v) else v) for k, v in rec.items()}
+                      for rec in generator.stage_records]))
+    (cold_s, cold_best, cold_stages), (wall, best, stages) = runs
+    path = generator.execution_path
+    check(path == "cuda-distance-chain", f"execution path {path}")
+    check(len(stages) == len(procs) * len(SQS_TEMPERATURES), f"{len(stages)} stages")
+    # the same search, bit for bit
+    for (o1, s1, f1), (o2, s2, f2) in zip(cold_best, best):
+        check(np.array_equal(o1, o2) and np.array_equal(s1, s2) and np.array_equal(f1, f2),
+              f"{stem}: the warm run did not repeat the cold run's best structures")
+    for r1, r2 in zip(cold_stages, stages):
+        check(torch.equal(r1["occupancy"], r2["occupancy"])
+              and torch.equal(r1["enthalpy"], r2["enthalpy"]),
+              f"{stem}: the warm run did not repeat the cold run's stages")
+    # every launch: compositions kept, final score == exact rescore
+    drift, accepts = 0.0, []
+    for rec in stages:
+        proc = procs[rec["shape"]]
+        occu = rec["occupancy"]
+        target = torch.as_tensor([round(x * len(sl.sites)) for sl in proc.get_sublattices()
+                                  for x in sl.composition], device=occu.device)
+        check(bool((sqs_compositions(occu, proc) == target).all()),
+              f"{stem}: a walker's composition changed")
+        drift = max(drift, float((proc.compute_scores(occu) - rec["enthalpy"]).abs().max()))
+        accepts.append(float(rec["naccept"].double().mean()) / SQS_STEPS)
+    check(drift < 1e-9, f"{stem}: a launch's final score vs the exact rescore {drift}")
+    # stored scores against an exact rescore on the CPU; never behind a start
+    rescore, found = 0.0, np.inf
+    for (shape, occupancies, scores, _), start in zip(generator._best, generator.start_scores):
+        cpu = CorrelationDistanceProcessor(procs[shape].system, "cpu")
+        exact = cpu.compute_scores(torch.as_tensor(occupancies)).numpy()
+        rescore = max(rescore, float(np.abs(exact - scores).max()))
+        check(bool((scores <= start.cpu().numpy() + 1e-12).all()),
+              f"{stem}: a walker's best is worse than its start")
+        found = min(found, float(scores.min()))
+    check(rescore < 1e-9, f"{stem}: stored score vs exact CPU rescore {rescore}")
+    check(found < 0, f"{stem}: best score {found} is not a matched shell")
+    best_sqs = generator.get_best_sqs(1)[0]
+    attempts = len(procs) * len(SQS_TEMPERATURES) * SQS_STEPS * SQS_WALKERS
+    rate = attempts / wall
+    print(f"phase 4 [sqs {stem}] {card}: {len(procs)} shapes x {len(SQS_TEMPERATURES)} "
+          f"temperatures x {SQS_STEPS} steps x {SQS_WALKERS} walkers, path {path}, "
+          f"warm run {rate / 1e6:.1f} M attempts/s end to end ({wall:.4f} s for "
+          f"{attempts} attempts), best score {best_sqs.score:.6f} (shape "
+          f"{best_sqs.supercell_matrix.tolist()}), acceptance per stage "
+          f"{np.round(accepts[:len(SQS_TEMPERATURES)], 4).tolist()} (first shape), "
+          f"final score vs exact rescore {drift:.3e}, stored vs CPU rescore "
+          f"{rescore:.3e}, warm == cold bit for bit; set-up: load {load_s:.4f} s, "
+          f"cold run {cold_s:.4f} s ({cold_s - wall:+.4f} s over warm)")
+    return procs, rate
+
+
+def drive_sqs_cells(card):
+    """Phase 4 for SQS: counts set to 0 just before, read just after."""
+    sqs.distance_chain.launches = 0
+    results = {stem: drive_sqs(stem, card) for stem in SQS_CELLS}
+    launches = sqs.distance_chain.launches
+    expected = sum(2 * len(procs) * len(SQS_TEMPERATURES) for procs, _ in results.values())
+    check(launches == expected, f"{launches} distance kernel launches, not {expected}")
+    print(f"phase 4: distance_chain launches on the SQS main path: {launches}")
+    return results, launches
+
+
 # ---------------- timing and bounds ----------------
 
 def bound(tables, ops, move, recolorings=0, accepted=0):
@@ -974,6 +1234,68 @@ def time_wl_window(ensemble, system, name, card, move, walkers, block=BLOCK,
     return result
 
 
+def distance_bound(ops, work):
+    """The least time of one distance launch: (ms, by, bytes, operations).
+
+    Bytes: every operand read once and every output written once (codes
+    and best codes [R, W] int8, the feature plane [F, W] f64, score, best
+    score and accept count in and out, beta, the pair sequences and the
+    tables).  Operations: what this launch's data needs, from the twin's
+    ``work`` count of the same launch: a null pair computes nothing; a
+    non-null one two f64 operations per row of u and of v that it reads
+    (the lookup difference and the sum), four per feature for the score
+    (f + df, minus T, times W, the sum) and three more (w L, its
+    subtraction, d_new - d).
+    """
+    t, steps = ops["tables"], ops["n_steps"]
+    R, W = ops["occ"].shape
+    F = t.num_feats
+    table_tensors = [t.nbr, t.stride, t.d2, t.g, t.seg, t.target, t.weight,
+                     t.group_last, t.group_diameter]
+    nbytes = (4 * R * W + 2 * F * W * 8 + W * (4 * 8 + 2 * 4 + 4)
+              + sum(q[:, :steps].numel() * 4 for q in (ops["useq"], ops["vseq"]))
+              + sum(x.numel() * x.element_size() for x in table_tensors))
+    nonnull, rows = (int(x) for x in work.sum(dim=1))
+    n_ops = 2 * rows + (4 * F + 3) * nonnull
+    ops_s, bytes_s = n_ops / PEAK_F64_PER_S, nbytes / PEAK_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes",
+            nbytes, n_ops)
+
+
+def time_distance(name, card, timed, kernel_reps):
+    """Phase 5: the kernel on the operands of a timed phase-3 launch (every
+    repetition on a copy of its starting state), beside the twin's time and
+    the bound of that launch; where that launch is shorter than the main
+    path's, the kernel alone on the main path's 8000-step launch too."""
+    ops, work = timed["ops"], timed["work"]
+    if ops["n_steps"] < SQS_STEPS:
+        main = distance_operands(timed["proc"], SQS_STEPS, 1.0 / SQS_TEMPERATURES[0],
+                                 SEEDS[1][1])
+        main_ms = cuda_ms(same_distance_window(main, kernel_reps), kernel_reps)
+        print(f"phase 5 [distance {name}] {card}: the main path's {SQS_STEPS}-step "
+              f"launch at {SQS_WALKERS} walkers: kernel {main_ms:.4f} ms "
+              f"({main_ms * 1e3 / SQS_STEPS:.3f} us per step)")
+    kernel_ms = cuda_ms(same_distance_window(ops, kernel_reps), kernel_reps)
+    bound_ms, bound_by, nbytes, n_ops = distance_bound(ops, work)
+    W, steps = ops["occ"].shape[1], ops["n_steps"]
+    nonnull = int(work[0].sum())
+    rate = W * steps / (kernel_ms * 1e-3)
+    print(f"phase 5 [distance {name}] {card}: {steps}-step launch at {W} walkers "
+          f"({-(-W // 64)} CUDA blocks): kernel {kernel_ms:.4f} ms ({rate / 1e6:.1f} M "
+          f"attempts/s, {kernel_ms * 1e3 / steps:.3f} us per step), twin "
+          f"{timed['twin_ms']:.2f} ms, twin/kernel {timed['twin_ms'] / kernel_ms:.1f}x, "
+          f"bound {bound_ms * 1e3:.3f} us ({bound_by}; {nbytes / 1e6:.3f} MB, "
+          f"{n_ops / 1e6:.1f} M f64 operations; {nonnull} non-null of {W * steps} "
+          f"proposals), kernel/bound {kernel_ms / bound_ms:.0f}x")
+    return {"kernel_ms": kernel_ms, "twin_ms": timed["twin_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "steps": steps}
+
+
+def same_distance_window(ops, reps):
+    copies = iter([fresh_distance(ops) for _ in range(reps + 1)])
+    return lambda: sqs.distance_chain(**next(copies))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device")
@@ -1034,6 +1356,28 @@ def main():
         *load("spinel_ewald_2x2x2"), "spinel_ewald_2x2x2", "swap", *SEEDS[1]))
     for stem, move in WL_CELLS.items():  # the main path's own launch
         errs["wl"].append(wl_main_launch_vs_twin(*wl_systems[stem], stem, move))
+    # the distance chain: both cells and RNG modes, a chunk boundary, beta 0
+    # and 50 (T = 0.02), no match term, and the main path's own launch
+    fcc8, fcc64 = sqs_processors("sqs_fcc8")[0], sqs_processors("sqs_fcc_4x4x4")[0]
+    errs["distance"] = []
+    for name, proc in (("sqs_fcc8 shape 0", fcc8), ("sqs_fcc_4x4x4", fcc64)):
+        for rng, seed in SEEDS:
+            errs["distance"].append(distance_vs_twin(proc, name, rng, seed))
+    errs["distance"].append(distance_chunked_hash_vs_twin(fcc8, "sqs_fcc8 shape 0"))
+    errs["distance"].append(distance_vs_twin(fcc8, "sqs_fcc8 shape 0", *SEEDS[1], beta=0.0))
+    errs["distance"].append(distance_vs_twin(fcc64, "sqs_fcc_4x4x4", *SEEDS[1], beta=50.0))
+    errs["distance"].append(distance_vs_twin(fcc8, "sqs_fcc8 shape 0", *SEEDS[1],
+                                             match_weight=0.0))
+    sqs_timed = {}
+    for name, proc, steps in (("sqs_fcc8 shape 0", fcc8, SQS_STEPS),
+                              ("sqs_fcc_4x4x4", fcc64, SQS_TWIN_STEPS)):
+        t0 = time.perf_counter()
+        err, sqs_timed[name] = distance_vs_twin(  # the first stage's launch
+            proc, f"{name}, the main path's launch:", *SEEDS[1],
+            beta=1.0 / SQS_TEMPERATURES[0], n_steps=steps, timed=True)
+        sqs_timed[name]["proc"] = proc
+        errs["distance"].append(err)
+        print(f"phase 3: that comparison took {time.perf_counter() - t0:.1f} s")
     print(f"phases 2-3 took {time.perf_counter() - t_start:.1f} s")
 
     # phase 4: the main paths; only these runs are counted
@@ -1042,6 +1386,7 @@ def main():
     swap_runs, swap_launches = drive("swap", SWAP_CELLS, card)
     table_runs, table_launches = drive("table", TABLE_CELLS, card)
     wl_runs, wl_launches = drive_wl_cells(card)
+    _, sqs_launches = drive_sqs_cells(card)
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # phase 5: window timings, kernel against twin
@@ -1068,6 +1413,8 @@ def main():
         print(f"phase 5 [{stem}]: the Wang-Landau {move} window takes "
               f"{mine / plain:.3f}x the Metropolis {move} window on the same tables "
               f"({mine:.4f} vs {plain:.4f} ms)")
+    for name, timed in sqs_timed.items():
+        timings[("distance", name)] = time_distance(name, card, timed, kernel_reps=5)
     print("timings " + card + ": " + json.dumps(
         {f"{move} {stem}": v for (move, stem), v in timings.items()}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
@@ -1093,6 +1440,8 @@ def main():
               "smol_tpu/ops/pallas_chain.py:1701", table_launches),
         entry("wl-flip", "aucu_wl_3x3x3", "smol_tpu_torch/csrc/wl_chain.cu",
               "smol_tpu/ops/pallas_chain.py:1866", wl_launches),
+        entry("distance", "sqs_fcc8 shape 0", "smol_tpu_torch/csrc/distance_chain.cu",
+              "smol_tpu/ops/pallas_sqs.py:649", sqs_launches),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

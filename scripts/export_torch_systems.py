@@ -35,7 +35,15 @@ writes each supercell as a system file that ``smol_tpu_torch`` loads
   whose charge-neutral flips recolor up to three sites (the table chain's
   multi-slot case), with a charge-neutral ``initial_occupancy``;
 - ``torch_limn_tiny_2x1x1.npz``: a {Li+, vacancy} x {Mn3+, Mn4+} cell with
-  fixed O2-, small enough to enumerate its charge-neutral states.
+  fixed O2-, small enough to enumerate its charge-neutral states;
+- ``torch_sqs_fcc8.npz``: ``bench.py``'s ``sqs`` config, the 20 supercell
+  shapes of 8 sites that ``StochasticSQSGenerator.from_structure(
+  fcc_binary_prim(), {2: 5.0, 3: 3.5}, supercell_size=8)`` enumerates, in
+  its order and after its re-padding of the local tables, one distance
+  system each (``smol_tpu_torch.system.save_systems``);
+- ``torch_sqs_fcc_4x4x4.npz``: the same subspace and generator defaults on
+  the 64-site ``diag(4, 4, 4)`` supercell, the SQS users build for a 50/50
+  FCC alloy.
 
 The files are committed under ``tests/data``; regenerate them with
 
@@ -66,6 +74,8 @@ TABLE = {  # file stem -> (system, its argument) of the table-flip files
     "lmof_2x2x2": ("lmof", (2, 2, 2)),
     "limn_tiny_2x1x1": ("limn_tiny", None),
 }
+SQS = ("sqs_fcc8", "sqs_fcc_4x4x4")  # the distance (SQS) files
+SQS_CUTOFFS = {2: 5.0, 3: 3.5}  # bench.py's sqs config
 
 
 def spinel_ensemble(n: int):
@@ -288,6 +298,26 @@ def canonical_system(stem: str) -> dict:
     return system
 
 
+def sqs_generator(stem: str):
+    """The ``smol_tpu`` SQS generator of one distance file."""
+    from smol_tpu.benchmarks.systems import fcc_binary_prim
+    from smol_tpu.capp import StochasticSQSGenerator
+
+    if stem == "sqs_fcc8":
+        return StochasticSQSGenerator.from_structure(
+            fcc_binary_prim(), SQS_CUTOFFS, supercell_size=8)
+    return StochasticSQSGenerator.from_structure(
+        fcc_binary_prim(), SQS_CUTOFFS, supercell_size=64,
+        supercell_matrices=[np.diag([4, 4, 4])])
+
+
+def sqs_systems(stem: str) -> list[dict]:
+    """The distance system of each shape of one SQS file, in order."""
+    from smol_tpu_torch.system import export_distance_system
+
+    return [export_distance_system(p) for p in sqs_generator(stem).processors]
+
+
 def data_path(stem: str) -> Path:
     return ROOT / "tests" / "data" / f"torch_{stem}.npz"
 
@@ -299,7 +329,7 @@ def system_path(name: str) -> Path:
 
 def main():
     sys.path.insert(0, str(ROOT))
-    from smol_tpu_torch.system import export_system, save_system
+    from smol_tpu_torch.system import export_system, save_system, save_systems
 
     systems = {f"spinel_{name}": (lambda n=n: export_system(spinel_ensemble(n)))
                for name, n in SUPERCELLS.items()}
@@ -308,6 +338,13 @@ def main():
     systems.update({stem: (lambda s=stem: wang_landau_system(s)) for stem in WANG_LANDAU})
     for stem, build in systems.items():
         save_system(build(), data_path(stem))
+        print(stem, data_path(stem), data_path(stem).stat().st_size, "bytes")
+    for stem in SQS:
+        shapes = sqs_systems(stem)
+        if len(shapes) == 1:
+            save_system(shapes[0], data_path(stem))
+        else:
+            save_systems(shapes, data_path(stem))
         print(stem, data_path(stem), data_path(stem).stat().st_size, "bytes")
 
 

@@ -6,7 +6,10 @@ semigrand spinel CE + Ewald), a warm-up run and then a run of
 ``WINDOWS`` thinning windows (8192 walkers, 100 steps each) under
 ``torch.profiler``; for the two Wang-Landau cells (flips on Au-Cu 3x3x3,
 swaps on Au-Cu 4x4x4) the main path's run: 2048 walkers, six windows of
-15000 steps.  Prints, beside the card's name and power limit:
+15000 steps; for the two SQS cells (``bench.py``'s 20 shapes of 8 sites,
+and the 64-site shape) one warm ``generate`` of 2048 walkers x 4
+temperatures x 8000 steps per shape.  Prints, beside the card's name and
+power limit:
 
 - the wall time of the profiled run (host clock, ending in a synchronize)
   and of one window;
@@ -16,8 +19,10 @@ swaps on Au-Cu 4x4x4) the main path's run: 2048 walkers, six windows of
 - the host time of the CUDA runtime calls (launches, copies,
   synchronisations), by name: a call that waits for the device shows here.
 
-Run from the repository root with ``python scripts/profile_torch_chain.py``;
-it needs one CUDA device and ``nvcc`` (the kernels are built at first use).
+Run from the repository root with ``python scripts/profile_torch_chain.py
+[metropolis] [wang-landau] [sqs]`` (the paths to trace; all without an
+argument); it needs one CUDA device and ``nvcc`` (the kernels are built at
+first use).
 """
 
 from __future__ import annotations
@@ -34,9 +39,11 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+from smol_tpu_torch.capp import StochasticSQSGenerator  # noqa: E402
 from smol_tpu_torch.moca.ensemble import Ensemble, random_occupancies  # noqa: E402
+from smol_tpu_torch.moca.processor.distance import CorrelationDistanceProcessor  # noqa: E402
 from smol_tpu_torch.moca.sampler.sampler import Sampler  # noqa: E402
-from smol_tpu_torch.system import load_system  # noqa: E402
+from smol_tpu_torch.system import load_system, load_systems  # noqa: E402
 
 WALKERS = 8192
 THIN = 100
@@ -53,6 +60,9 @@ WL_CELLS = {"aucu_wl_3x3x3": "flip", "aucu_4x4x4": "swap"}  # stem -> move
 WL_WALKERS = 2048
 WL_THIN = 15_000
 WL_WINDOWS = 6
+SQS_CELLS = ("sqs_fcc8", "sqs_fcc_4x4x4")
+SQS_WALKERS = 2048
+SQS_STEPS = 8000
 
 
 def busy_us(events):
@@ -99,23 +109,58 @@ def wang_landau_cell(stem, move):
     return sampler, occ0
 
 
-def profile_cell(stem, card, sampler, occ0, windows, thin):
-    walkers = len(np.atleast_2d(occ0)) if np.ndim(occ0) > 1 else WALKERS
-    sampler.run(windows * thin, occ0, thin_by=thin)  # warm-up
-    torch.cuda.synchronize()
+def profiled(run):
+    """(profiler, wall seconds) of ``run()`` under ``torch.profiler``."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         start = time.perf_counter()
-        sampler.run(windows * thin, thin_by=thin)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-    device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return prof, wall
+
+
+def profile_cell(stem, card, sampler, occ0, windows, thin):
+    walkers = len(np.atleast_2d(occ0)) if np.ndim(occ0) > 1 else WALKERS
+    sampler.run(windows * thin, occ0, thin_by=thin)  # warm-up
+    torch.cuda.synchronize()
+    prof, wall = profiled(lambda: sampler.run(windows * thin, thin_by=thin))
     path = sampler.execution_path(thin)
     head = (f"[{stem}] {card}: {path}, {windows} windows x {thin} steps x "
             f"{walkers} walkers: wall {wall * 1e3:.3f} ms "
             f"({wall / windows * 1e3:.4f} ms per window)")
+    summarize(head, prof, wall, windows)
+
+
+def profile_sqs(stem, card):
+    """The SQS cell: one warm ``generate`` of ``bench.py``'s sqs config (all
+    shapes of the file, 2048 walkers x 4 temperatures x 8000 steps), after a
+    first one that builds the tables; a window is one launch."""
+    systems = load_systems(ROOT / "tests" / "data" / f"torch_{stem}.npz")
+    generator = StochasticSQSGenerator.from_processors(
+        [CorrelationDistanceProcessor(s, "cuda") for s in systems], device="cuda")
+    temperatures = np.linspace(5.0, 0.02, 4)
+
+    def run():
+        generator.generate(mcmc_steps=SQS_STEPS, temperatures=temperatures,
+                           nwalkers=SQS_WALKERS, seed=23)
+
+    run()  # warm-up
+    torch.cuda.synchronize()
+    prof, wall = profiled(run)
+    launches = len(systems) * len(temperatures)
+    head = (f"[sqs {stem}] {card}: {generator.execution_path}, {len(systems)} shapes x "
+            f"{len(temperatures)} temperatures x {SQS_STEPS} steps x {SQS_WALKERS} "
+            f"walkers: wall {wall * 1e3:.3f} ms ({wall / launches * 1e3:.4f} ms per launch)")
+    summarize(head, prof, wall, launches)
+
+
+def summarize(head, prof, wall, windows):
+    """Print the device busy time and idle share, the kernels' time by name
+    and the host's CUDA calls of one profiled run of ``windows`` windows."""
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
     if not device:
         print(head + "; device time: not measured (the trace holds no device events)")
         return
@@ -149,10 +194,16 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card)
-    for stem, args in CELLS.items():
-        profile_cell(stem, card, *metropolis_cell(stem, *args), WINDOWS, THIN)
-    for stem, move in WL_CELLS.items():
-        profile_cell(stem, card, *wang_landau_cell(stem, move), WL_WINDOWS, WL_THIN)
+    paths = set(sys.argv[1:]) or {"metropolis", "wang-landau", "sqs"}
+    if "metropolis" in paths:
+        for stem, args in CELLS.items():
+            profile_cell(stem, card, *metropolis_cell(stem, *args), WINDOWS, THIN)
+    if "wang-landau" in paths:
+        for stem, move in WL_CELLS.items():
+            profile_cell(stem, card, *wang_landau_cell(stem, move), WL_WINDOWS, WL_THIN)
+    if "sqs" in paths:
+        for stem in SQS_CELLS:
+            profile_sqs(stem, card)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 // Pieces shared by the chain kernels flip_chain.cu, swap_chain.cu,
-// table_chain.cu and wl_chain.cu.
+// table_chain.cu, wl_chain.cu and distance_chain.cu.
 //
 // - the random bits: the reference's interpret-mode hash, bit for bit, and
 //   Philox4x32-10 (replacing the TPU hardware PRNG of smol_tpu/ops/prims.py);

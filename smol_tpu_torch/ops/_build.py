@@ -48,6 +48,11 @@ KERNELS = {
     # update_period | min_enthalpy bin_size span mod_divisor | flatness | stream
     "wl_chain": [_ptr] * 10 + [_i32] + [_ptr] * 9 + [_i32] * 13 + [_f64] * 4
                 + [_f32] + [_ptr],
+    # occ best_occ feat d best_d naccept beta useq vseq | seq_stride | seed nbr
+    # stride d2 g seg target weight group_last group_diameter | R L K TM F W
+    # block_size n_steps rng_mode | match_tol match_weight | stream
+    "distance_chain": [_ptr] * 9 + [_i32] + [_ptr] * 10 + [_i32] * 9 + [_f64] * 2
+                      + [_ptr],
 }
 
 

@@ -273,8 +273,13 @@ def build_chain_tables(processor, sublattices, mu_table=None,
     )
 
 
-def _sublattice_draw(tables: ChainTables, generator, shape):
-    """(first rank, active sites) of a sublattice drawn by its probability."""
+def _sublattice_draw(tables, generator, shape):
+    """(first rank, active sites) of a sublattice drawn by its probability.
+
+    ``tables`` holds ``cum_probs``, ``n_active`` and ``sub_offset`` as host
+    arrays (:class:`ChainTables`: each call copies them to the device) or as
+    tensors on its device (the distance tables: no copy, no wait).
+    """
     device = tables.device
     cum = torch.as_tensor(tables.cum_probs, device=device)
     u = torch.rand(shape, generator=generator, device=device, dtype=torch.float64)
@@ -302,14 +307,15 @@ def rank_sequence(tables: ChainTables, generator, shape) -> torch.Tensor:
     return _uniform_rank(off, n_act, generator)
 
 
-def rank_pair_sequence(tables: ChainTables, generator, shape):
+def rank_pair_sequence(tables, generator, shape):
     """State-independent swap pairs ``(u, v)`` of ``shape``, int32 each.
 
     The sublattice follows the sublattice probabilities; u and v are iid
     uniform within it (the reference's ``rank_pair_sequence`` :1161).
     Pairs with u == v, or with equal codes at run time, are identity
     proposals: the proposal is state-independent and symmetric, so each
-    walker stays an exact canonical Metropolis chain.
+    walker stays an exact canonical Metropolis chain.  ``tables`` is a
+    :class:`ChainTables` or a :class:`~smol_tpu_torch.ops.sqs.DistanceTables`.
     """
     off, n_act = _sublattice_draw(tables, generator, shape)
     return _uniform_rank(off, n_act, generator), _uniform_rank(off, n_act, generator)

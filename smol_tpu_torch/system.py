@@ -50,13 +50,42 @@ Keys of a system dict (N sites, C clusters of at most K sites, P
   for the system and the width of its bins; ``exact_enthalpies`` f64,
   the enthalpy of every state of a system small enough to enumerate, in
   the order of ``itertools.product`` over the sites' codes.
+
+A distance system (:func:`export_distance_system`, one supercell shape of
+an SQS search) has the packed fields, the sublattices and the local
+``local_sites``, ``local_strides``, ``local_d2`` above (no energy tables,
+no natural parameters), and:
+
+- ``local_orbit`` [N, L] int32, the orbit of each local cluster (-1 for
+  padding); ``orbit_bit_id``, ``orbit_num_combos``,
+  ``orbit_tensor_size`` [orbits] int32: each orbit's first correlation
+  function, its function count and its tensor size;
+- ``target_vector`` [num_corr] f64; ``distance_coefs`` [num_corr] f64,
+  ``[-match_weight, *target_weights]``; ``match_tol`` 0-d f64;
+- ``diameter_group_features`` with ``diameter_group_features_offsets``
+  [G + 1] and ``diameter_group_diameters`` [G] f64: the feature ids of
+  each diameter group, in the processor's (ascending) order;
+- ``supercell_matrix`` [3, 3] int64;
+- ``sublattice_composition`` (with the offsets of
+  ``sublattice_encoding``): the fraction of each code on its sublattice.
+
+:func:`save_systems` writes several such dicts into one file, each key
+prefixed with its shape (``s00_``, ``s01_``, ...), and
+:func:`load_systems` reads them back in order.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["export_system", "save_system", "load_system"]
+__all__ = [
+    "export_system",
+    "export_distance_system",
+    "save_system",
+    "load_system",
+    "save_systems",
+    "load_systems",
+]
 
 
 def local_arrays(packed, energy_flat, energy_weights):
@@ -142,34 +171,14 @@ def export_system(ensemble, usher=None) -> dict:
     sites, strides, d2, g, _ = local_arrays(
         packed, processor._energy_flat, processor._energy_weights
     )
-    subs = ensemble.sublattices
-    sub_sites, sub_off = _ragged([s.sites for s in subs], np.int64)
-    act_sites, act_off = _ragged([s.active_sites for s in subs], np.int64)
-    enc, enc_off = _ragged([s.encoding for s in subs], np.int32)
     system = {
-        "num_sites": np.int64(packed.num_sites),
-        "size": np.int64(processor.size),
-        "num_corr": np.int64(packed.num_corr),
+        **_packed_fields(packed, processor.size),
         "num_energy_coefs": np.int64(len(ensemble.processor.coefs)),
-        "cluster_sites": np.asarray(packed.cluster_sites, dtype=np.int32),
-        "cluster_strides": np.asarray(packed.cluster_strides, dtype=np.int32),
-        "corr_flat": np.asarray(packed.corr_flat, dtype=np.float64),
-        "pair_fn": np.asarray(packed.pair_fn, dtype=np.int32),
-        "pair_cluster": np.asarray(packed.pair_cluster, dtype=np.int32),
-        "pair_offset": np.asarray(packed.pair_offset, dtype=np.int32),
-        "fn_cluster_count": np.asarray(
-            packed.fn_cluster_count, dtype=np.float64
-        ),
         "local_sites": sites,
         "local_strides": strides,
         "local_d2": d2,
         "local_g": g,
-        "sublattice_sites": sub_sites,
-        "sublattice_sites_offsets": sub_off,
-        "sublattice_active_sites": act_sites,
-        "sublattice_active_sites_offsets": act_off,
-        "sublattice_encoding": enc,
-        "sublattice_encoding_offsets": enc_off,
+        **_sublattice_fields(ensemble.sublattices),
         "natural_parameters": np.asarray(
             ensemble.natural_parameters, dtype=np.float64
         ),
@@ -192,6 +201,82 @@ def export_system(ensemble, usher=None) -> dict:
     return system
 
 
+def _packed_fields(packed, size) -> dict:
+    """The packed-supercell fields that the correlation evaluation reads."""
+    return {
+        "num_sites": np.int64(packed.num_sites),
+        "size": np.int64(size),
+        "num_corr": np.int64(packed.num_corr),
+        "cluster_sites": np.asarray(packed.cluster_sites, dtype=np.int32),
+        "cluster_strides": np.asarray(packed.cluster_strides, dtype=np.int32),
+        "corr_flat": np.asarray(packed.corr_flat, dtype=np.float64),
+        "pair_fn": np.asarray(packed.pair_fn, dtype=np.int32),
+        "pair_cluster": np.asarray(packed.pair_cluster, dtype=np.int32),
+        "pair_offset": np.asarray(packed.pair_offset, dtype=np.int32),
+        "fn_cluster_count": np.asarray(packed.fn_cluster_count, dtype=np.float64),
+    }
+
+
+def _sublattice_fields(subs) -> dict:
+    sub_sites, sub_off = _ragged([s.sites for s in subs], np.int64)
+    act_sites, act_off = _ragged([s.active_sites for s in subs], np.int64)
+    enc, enc_off = _ragged([s.encoding for s in subs], np.int32)
+    return {
+        "sublattice_sites": sub_sites,
+        "sublattice_sites_offsets": sub_off,
+        "sublattice_active_sites": act_sites,
+        "sublattice_active_sites_offsets": act_off,
+        "sublattice_encoding": enc,
+        "sublattice_encoding_offsets": enc_off,
+    }
+
+
+def export_distance_system(processor) -> dict:
+    """Numpy arrays of a ``smol_tpu`` ``CorrelationDistanceProcessor``.
+
+    One supercell shape of an SQS search, as the generator holds it (after
+    its ``repad_local_tables``); see the module docstring for the keys.  A
+    distance processor has no ensemble: the sublattices are its own
+    (``processor.get_sublattices()``).
+    """
+    if type(processor).__name__ != "CorrelationDistanceProcessor":
+        raise ValueError(
+            "export_distance_system needs a CorrelationDistanceProcessor, got "
+            f"{type(processor).__name__}"
+        )
+    packed = processor.packed
+    sites, strides, d2, _, _ = local_arrays(
+        packed, np.zeros(len(packed.corr_flat)), np.zeros(len(packed.orbit_tensor_size))
+    )
+    lc = np.asarray(packed.local_clusters)
+    orbit = np.asarray(packed.cluster_orbit)[np.where(lc >= 0, lc, 0)]
+    subs = processor.get_sublattices()
+    groups = processor._diameter_groups
+    features, feature_off = _ragged([indices for _, indices in groups], np.int64)
+    composition, _ = _ragged(
+        [[sl.site_space[sp] for sp in sl.species] for sl in subs], np.float64
+    )
+    return {
+        **_packed_fields(packed, processor.size),
+        "local_sites": sites,
+        "local_strides": strides,
+        "local_d2": d2,
+        "local_orbit": np.where(lc >= 0, orbit, -1).astype(np.int32),
+        "orbit_bit_id": np.asarray(packed.orbit_bit_id, dtype=np.int32),
+        "orbit_num_combos": np.asarray(packed.orbit_num_combos, dtype=np.int32),
+        "orbit_tensor_size": np.asarray(packed.orbit_tensor_size, dtype=np.int32),
+        **_sublattice_fields(subs),
+        "sublattice_composition": composition,
+        "target_vector": np.asarray(processor.target_vector, dtype=np.float64),
+        "distance_coefs": np.asarray(processor.coefs, dtype=np.float64),
+        "match_tol": np.float64(processor.match_tol),
+        "diameter_group_features": features,
+        "diameter_group_features_offsets": feature_off,
+        "diameter_group_diameters": np.array([d for d, _ in groups], dtype=np.float64),
+        "supercell_matrix": np.asarray(processor.supercell_matrix, dtype=np.int64),
+    }
+
+
 def save_system(system: dict, path) -> None:
     """Write a system dict to a compressed ``.npz`` file."""
     np.savez_compressed(path, **system)
@@ -201,3 +286,29 @@ def load_system(path) -> dict:
     """Read a system dict written by :func:`save_system`."""
     with np.load(path, allow_pickle=False) as data:
         return {key: data[key] for key in data.files}
+
+
+def _shape_prefix(i: int) -> str:
+    return f"s{i:02d}_"
+
+
+def save_systems(systems, path) -> None:
+    """Write several system dicts (the shapes of one search) to one file."""
+    merged = {"num_shapes": np.int64(len(systems))}
+    for i, system in enumerate(systems):
+        merged.update({_shape_prefix(i) + key: value for key, value in system.items()})
+    np.savez_compressed(path, **merged)
+
+
+def load_systems(path) -> list[dict]:
+    """Read the system dicts written by :func:`save_systems`, in order (or
+    the one of a file written by :func:`save_system`)."""
+    merged = load_system(path)
+    if "num_shapes" not in merged:
+        return [merged]
+    systems = []
+    for i in range(int(merged["num_shapes"])):
+        prefix = _shape_prefix(i)
+        systems.append({key[len(prefix):]: value for key, value in merged.items()
+                        if key.startswith(prefix)})
+    return systems

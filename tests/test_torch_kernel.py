@@ -19,7 +19,13 @@ up to three sites, and the spinel's table padded to four slots), keeping
 every walker's net charge.  The Wang-Landau kernel must equal its twin on
 every walker and every plane (entropies to 0.0), for flips and swaps, with
 both slot-count bodies, the Ewald term, a partial block, sequence blocks
-below a CUDA block, 8192 walkers and a flatness reset in every run.
+below a CUDA block, 8192 walkers and a flatness reset in every run.  The
+distance (SQS) kernel must equal its twin bit for bit on every walker
+(occupancy, best occupancy, features, score, best score, accept count) in
+both RNG modes, at beta 0, 0.2, 2 and 50, on the bench's 8-site shapes and
+the 64-site one, at the main path's 2048 walkers in blocks of 512, with a
+partial CUDA block, sequence blocks below a CUDA block, without the match
+term, and in its general body (runtime K, up to 32 features).
 """
 
 import dataclasses
@@ -380,3 +386,127 @@ def test_wl_kernel_refuses_what_it_cannot_take(card):
     with pytest.raises(ValueError, match="flip/swap"):
         chain.wl_chain(**{**ops, "move": "table"})
     assert chain.wl_chain.launches == before
+
+
+# ---------------- the distance (SQS) kernel (K7) ----------------
+
+DISTANCE_STATE = ("occ", "best_occ", "feat", "d", "best_d", "naccept")
+
+
+def _distance_operands(card, stem, W, n_steps, block_size, beta=2.0, shape=0):
+    """Operands of one distance launch on shape ``shape`` of
+    ``torch_<stem>.npz``: walkers at random permutations of a half-and-half
+    occupancy, each its own best, at inverse temperature ``beta``."""
+    from smol_tpu_torch.moca.processor.distance import CorrelationDistanceProcessor
+    from smol_tpu_torch.ops import sqs
+    from smol_tpu_torch.system import load_systems
+
+    path = DATA / f"torch_{stem}.npz"
+    systems = load_systems(path)
+    proc = CorrelationDistanceProcessor(systems[shape], card)
+    tables = sqs.build_distance_tables(proc)
+    rng = np.random.default_rng(3)
+    half = np.arange(proc.num_sites) % 2
+    occu = torch.as_tensor(np.stack([rng.permutation(half) for _ in range(W)]),
+                           dtype=torch.int32, device=card)
+    gen = torch.Generator(device=card).manual_seed(0)
+    beta = torch.full((W,), beta, dtype=torch.float64, device=card)
+    ops = sqs.distance_launch_operands(tables, proc.compute_corr, occu, beta, n_steps,
+                                       block_size, gen)
+    return dict(ops, seed=torch.tensor([12345], dtype=torch.int64, device=card)), proc
+
+
+def _distance_kernel_and_twin(ops, rng, kernel_ops=None):
+    """Kernel (on ``kernel_ops``, default ``ops``) and twin on copies; every
+    walker's state must be equal bit for bit."""
+    from smol_tpu_torch.ops import sqs
+
+    outs = []
+    for fn, operands in ((sqs.distance_chain, kernel_ops or ops),
+                         (sqs.distance_chain_reference, ops)):
+        run = {k: (v.clone() if k in DISTANCE_STATE else v) for k, v in operands.items()}
+        before = sqs.distance_chain.launches
+        fn(**run, rng=rng)
+        torch.cuda.synchronize()
+        assert sqs.distance_chain.launches - before == (1 if fn is sqs.distance_chain else 0)
+        outs.append(run)
+    kernel, twin = outs
+    F = ops["feat"].shape[0]
+    for key in DISTANCE_STATE:
+        mine = kernel[key][:F] if key == "feat" else kernel[key]
+        assert torch.equal(mine, twin[key]), key
+    counts = [(o["occ"] == 1).sum(dim=0) for o in (ops, kernel)]
+    assert torch.equal(*counts)  # each walker keeps its composition
+    assert bool((kernel["best_d"] <= ops["best_d"]).all())
+    return kernel, twin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+@pytest.mark.parametrize(
+    "stem,shape,W,block_size,beta",
+    [("sqs_fcc8", 0, 256, 64, 2.0), ("sqs_fcc8", 7, 100, 64, 2.0),
+     ("sqs_fcc8", 19, 96, 8, 0.0), ("sqs_fcc_4x4x4", 0, 1000, 512, 50.0),
+     ("sqs_fcc8", 0, 2048, 512, 0.2),  # the main path's launch shape
+     ("sqs_fcc_4x4x4", 0, 2048, 512, 2.0)],
+)
+def test_distance_kernel_matches_twin(card, rng, stem, shape, W, block_size, beta):
+    ops, proc = _distance_operands(card, stem, W, 300, block_size, beta, shape)
+    kernel, _ = _distance_kernel_and_twin(ops, rng)
+    accepted = float(kernel["naccept"].double().mean()) / 300
+    assert 0 < accepted < 1
+    exact = proc.compute_scores(_occupancy(ops, kernel["occ"], proc))
+    assert float((exact - kernel["d"]).abs().max()) < 1e-12
+
+
+def _occupancy(ops, occ, proc):
+    """[W, N] occupancy of rank-major codes ``occ`` (the sites outside the
+    ranks hold code 0)."""
+    occu = torch.zeros((occ.shape[1], proc.num_sites), dtype=torch.int64, device=occ.device)
+    occu[:, ops["tables"].rank_sites] = occ.T.long()
+    return occu
+
+
+@pytest.mark.cuda
+def test_distance_kernel_without_match_term(card):
+    ops, _ = _distance_operands(card, "sqs_fcc8", 256, 300, 64, beta=2.0)
+    ops["tables"] = dataclasses.replace(ops["tables"], match_weight=0.0)
+    _distance_kernel_and_twin(ops, "philox")
+
+
+@pytest.mark.cuda
+def test_distance_kernel_general_bodies(card):
+    """A fourth, empty slot and four more features with no rows, zero
+    weight and target, in a last group of diameter 0, take the general
+    body (runtime K, up to 32 features); neither changes a result."""
+    ops, _ = _distance_operands(card, "sqs_fcc_4x4x4", 256, 300, 64, beta=2.0)
+    t = ops["tables"]
+    extra = 4
+    zeros = torch.zeros(extra, dtype=torch.float64, device=card)
+    padded = dataclasses.replace(
+        t,
+        nbr=torch.nn.functional.pad(t.nbr, (0, 1), value=-1),
+        stride=torch.nn.functional.pad(t.stride, (0, 1), value=0),
+        seg=torch.cat([t.seg, t.seg[:, -1:].expand(-1, extra)], dim=1).contiguous(),
+        feature_ids=np.concatenate([t.feature_ids, np.zeros(extra, dtype=np.int64)]),
+        target=torch.cat([t.target, zeros]), weight=torch.cat([t.weight, zeros]),
+        group_last=torch.nn.functional.pad(t.group_last, (0, extra), value=1),
+        group_diameter=torch.cat([t.group_diameter, zeros]),
+    )
+    kernel_ops = {**ops, "tables": padded,
+                  "feat": torch.cat([ops["feat"], ops["feat"].new_zeros(extra, 256)])}
+    kernel, _ = _distance_kernel_and_twin(ops, "philox", kernel_ops=kernel_ops)
+    assert not bool(kernel["feat"][t.num_feats:].any())
+
+
+@pytest.mark.cuda
+def test_distance_kernel_refuses_what_it_cannot_take(card):
+    from smol_tpu_torch.ops import sqs
+
+    ops, _ = _distance_operands(card, "sqs_fcc8", 64, 10, 64)
+    before = sqs.distance_chain.launches
+    with pytest.raises(ValueError, match="operand"):
+        sqs.distance_chain(**{**ops, "feat": ops["feat"][:2].contiguous()})
+    with pytest.raises(ValueError):
+        sqs.distance_chain(**{**ops, "best_occ": ops["best_occ"].cpu()})
+    assert sqs.distance_chain.launches == before

@@ -10,12 +10,14 @@
   rocksalt and the tiny enumeration cell) with its flip table, dimension
   ids and site charges, and of each Wang-Landau system (Au-Cu 3x3x3 with
   the bench's window, the 8-site nearest-neighbour cell with its exact
-  enthalpies);
+  enthalpies), and of each SQS file (the bench's 20 shapes of 8 sites, in
+  its generator's order, and the 64-site shape) shape for shape;
 - the exporter refuses a processor the port cannot evaluate, alone or as
   the expansion part of a composite;
 - with ``jax`` blocked from importing, a subprocess imports the port and
   runs short CPU slices from the system files, semigrand flips,
-  canonical swaps with Ewald, table flips and Wang-Landau flips;
+  canonical swaps with Ewald, table flips, Wang-Landau flips and an SQS
+  search;
 - neither ``chip_smoke.py`` nor any module of ``smol_tpu_torch`` imports
   ``jax`` or ``smol_tpu``.
 """
@@ -30,18 +32,20 @@ import numpy as np
 import pytest
 
 from smol_tpu.ops.fastmc import site_local_arrays
-from smol_tpu_torch.system import export_system, load_system, save_system
+from smol_tpu_torch.system import export_system, load_system, load_systems, save_system
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "scripts"))
 from export_torch_systems import (  # noqa: E402
     CANONICAL,
+    SQS,
     SUPERCELLS,
     TABLE,
     WANG_LANDAU,
     canonical_system,
     data_path,
     spinel_ensemble,
+    sqs_systems,
     system_path,
     table_system,
     wang_landau_system,
@@ -122,6 +126,21 @@ def test_committed_wang_landau_system_matches_fresh_export(stem):
         levels, counts = np.unique(np.round(committed["exact_enthalpies"], 9),
                                    return_counts=True)
         assert counts.tolist() == [6, 96, 88, 48, 16, 2]
+
+
+@pytest.mark.parametrize("stem", SQS)
+def test_committed_sqs_systems_match_fresh_export(stem):
+    fresh = sqs_systems(stem)
+    committed = load_systems(data_path(stem))
+    assert len(fresh) == len(committed) == (20 if stem == "sqs_fcc8" else 1)
+    for shape, (mine, stored) in enumerate(zip(fresh, committed)):
+        assert sorted(mine) == sorted(stored), shape
+        for key, value in mine.items():
+            assert stored[key].dtype == np.asarray(value).dtype, (shape, key)
+            np.testing.assert_array_equal(stored[key], value, err_msg=f"{shape} {key}")
+    matrices = {tuple(map(tuple, s["supercell_matrix"])) for s in committed}
+    assert len(matrices) == len(committed)  # distinct shapes
+    assert all(round(abs(np.linalg.det(s["supercell_matrix"]))) == s["size"] for s in committed)
 
 
 def test_canonical_aucu_carries_its_wang_landau_window():
@@ -221,6 +240,15 @@ def test_port_runs_with_jax_blocked():
         assert sampler.samples.num_samples == 2
         assert sampler.samples.num_aux_records == 1
         print("ok", sampler.execution_path(50))
+        from smol_tpu_torch.capp import StochasticSQSGenerator
+        from smol_tpu_torch.moca.processor.distance import CorrelationDistanceProcessor
+        from smol_tpu_torch.system import load_systems
+        shapes = load_systems({str(data_path("sqs_fcc8"))!r})[:2]
+        generator = StochasticSQSGenerator.from_processors(
+            [CorrelationDistanceProcessor(s, "cpu") for s in shapes], device="cpu")
+        generator.generate(mcmc_steps=20, temperatures=[1.0], nwalkers=4, seed=0)
+        assert generator.num_structures == 8
+        print("ok", generator.execution_path)
         bad = [m for m in sys.modules if m == "smol_tpu" or m.startswith("smol_tpu.")]
         assert not bad, bad
         """
@@ -234,6 +262,7 @@ def test_port_runs_with_jax_blocked():
     assert "ok cpu-twin[swap]+ewald" in proc.stdout
     assert "ok cpu-twin[table]+ewald" in proc.stdout
     assert "ok cpu-twin[wl-flip]+direct" in proc.stdout
+    assert "ok cpu-twin[distance]" in proc.stdout
 
 
 def test_port_never_imports_jax_or_reference():
@@ -257,9 +286,10 @@ def test_port_never_imports_jax_or_reference():
     assert (package / "csrc" / "swap_chain.cu").exists()
     assert (package / "csrc" / "table_chain.cu").exists()
     assert (package / "csrc" / "wl_chain.cu").exists()
+    assert (package / "csrc" / "distance_chain.cu").exists()
     assert (package / "moca" / "kernel" / "wanglandau.py").exists()
     from smol_tpu_torch.ops import _build
 
     assert sorted(_build.KERNELS) == [
-        "flip_chain", "swap_chain", "table_chain", "wl_chain"]
+        "distance_chain", "flip_chain", "swap_chain", "table_chain", "wl_chain"]
     assert all((_build.CSRC_DIR / f"{name}.cu").exists() for name in _build.KERNELS)
