@@ -8,7 +8,9 @@ printing its last line when any phase fails:
 2. builds the flip-chain, swap-chain, table-chain, Wang-Landau-chain and
    distance-chain kernels from ``smol_tpu_torch/csrc`` (into
    ``build/smol_tpu_torch``, one ``nvcc`` per source, all at once) and
-   prints the build time and each kernel's registers and spills;
+   prints the build time and each kernel's registers and spills (the flip
+   and swap chains in each site body: direct, and K3's q-ary rows for
+   q = 2 and 3), and the dynamic shared memory of the ``sgc`` launches;
 3. runs each kernel and its plain torch twin on the same inputs at the
    shapes the main paths give the kernel (8192 walkers, one 100-step
    window, sequence blocks of 1024, or 512 for Au-Cu), in ``hash`` mode
@@ -27,6 +29,12 @@ printing its last line when any phase fails:
    except where the twin shows the decision within 4 f32 ulps of log U,
    and enthalpies must agree to 1e-9 absolute; swaps must keep every
    walker's composition and table moves every walker's net charge.
+   K3, the q-ary body, in the flip chain on bench ``sgc`` 6x6x6 (8192
+   walkers, blocks of 1024, 800 K) and the direct body on the same cell
+   (a ternary lookup, TM = 27); the swap chain with K3 on the ternary
+   CE 3x3x3 without chemical potentials; both chains with q = 2 on Au-Cu
+   4x4x4; all in both RNG modes, and one hash-mode q-ary flip chain across
+   the chunk boundary on ``sgc`` 6x6x6.
    The Wang-Landau chain against its twin on every walker and plane
    (occupancy, entropy to 0.0, histogram, occurrences, ``mod_factor``,
    ``wl_counter``, ``naccept``; enthalpy to 1e-9), 2048 walkers, 100
@@ -60,6 +68,13 @@ printing its last line when any phase fails:
    - charge-neutral table flips: the same with ``step_type="table-flip"``
      on the semigrand spinel CE + Ewald 2x2x2 and 3x3x3 (1000 K), all
      walkers from the file's charge-neutral ``initial_occupancy``;
+   - ternary semigrand flips, ``bench.py``'s ``sgc``:
+     ``Ensemble.from_system(sgc 6x6x6)`` (the decomposition processor) ->
+     ``Sampler.from_ensemble(T=800 K, 8192 walkers, seed=3)`` ->
+     ``run(20000 steps, thin_by=100)`` from the bench's starts, with the
+     default site body and with ``chain_delta="qary"`` (K3), and once more
+     with the container's record cap set to one byte, which must move
+     every batch to host memory and record what the uncapped run did;
    - Wang-Landau: ``Sampler.from_ensemble(kernel_type="wang-landau",
      2048 walkers, flatness 0.8, seed=13)`` -> ``run(90000 steps,
      thin_by=15000)``, (a) ``bench.py``'s ``wang-landau`` config, flips on
@@ -107,6 +122,10 @@ printing its last line when any phase fails:
    SQS shapes; on the launches of phase 3 that were timed (8000 steps on
    the bench shape, 2000 on the 64-site one) beside the twin's time of the
    same launch and the bound of the operations that launch's data needs.
+   K3 against the direct body on the same cells, in turns (direct, q-ary,
+   q-ary, direct): the flip chain on ``sgc`` 6x6x6, the swap chain on the
+   ternary CE 3x3x3; K3's operations are counted from the character rows
+   of the ranks this launch proposes.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -115,6 +134,7 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -169,6 +189,13 @@ WL_DOS_TOLERANCE = 0.5  # on every walker's log-DOS
 # x 4 temperatures x 8000 swap steps per shape, seed 23) and the 64-site
 # diag(4, 4, 4) shape run the same way
 SQS_CELLS = ("sqs_fcc8", "sqs_fcc_4x4x4")
+# bench.py's sgc config (ternary Au-Ag-Cu FCC, decomposition processor,
+# 8192 walkers at 800 K, seed 3) and its 3x3x3 companion, whose tables
+# without chemical potentials serve the canonical (swap) K3 cell
+SGC_CELL = "sgc_6x6x6"
+SGC_TEMPERATURE = 800.0
+TERNARY_CELL = "sgc_3x3x3"
+QARY2_CELL = "aucu_4x4x4"  # binary: K3 with q = 2
 SQS_WALKERS = 2048
 SQS_STEPS = 8000
 SQS_TEMPERATURES = np.linspace(5.0, 0.02, 4)
@@ -201,10 +228,13 @@ def load(stem):
     return Ensemble.from_system(system, "cuda"), system
 
 
-def tables_of(ensemble, move):
+@functools.lru_cache(maxsize=None)
+def tables_of(ensemble, move, delta="direct"):
+    """The chain tables of an ensemble (read-only: built once per call)."""
     return chain.build_chain_tables(
         ensemble.processor, ensemble.sublattices,
         mu_table=None if move == "swap" else ensemble.chemical_potential_table,
+        delta=delta,
     )
 
 
@@ -217,8 +247,15 @@ def ptxas_summary(log):
     """One line per compiled kernel: its template arguments, spills, registers."""
     lines, name, spills = [], "", ""
     for line in log.splitlines():
+        body = re.search(r"([a-z]+_chain_kernel)IN4smol(?:6DirectILi(\d+)E|4QaryILi(\d+)ELi(\d+)E)"
+                         r"EELb([01])E", line)
         found = re.search(r"([a-z]+_chain_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?", line)
-        if "Compiling entry function" in line and found:
+        if "Compiling entry function" in line and body:  # flip and swap chains
+            kernel, k, q, nb, ewald = body.groups()
+            site = (f"Direct<K={k if k != '0' else 'runtime'}>" if k is not None else
+                    f"Qary<q={q}, NB={nb if nb != '0' else 'runtime'}>")
+            name = f"{kernel}<{site}, ewald={ewald == '1'}>"
+        elif "Compiling entry function" in line and found:
             kernel, k, km, ewald = found.groups()
             slots = "" if km is None else f", k_max={km if km != '0' else 'runtime'}"
             if kernel == "wl_chain_kernel":  # <move, K, ewald>
@@ -274,7 +311,8 @@ def fresh(ops):
     return {key: (v.clone() if key in STATE else v) for key, v in ops.items()}
 
 
-def window_operands(ensemble, tables, move, block, occ_seed, seq_seed, n_steps=THIN):
+def window_operands(ensemble, tables, move, block, occ_seed, seq_seed, n_steps=THIN,
+                    temperature=TEMPERATURE):
     """Operands of one main-path launch: 8192 walkers in blocks of ``block``."""
     device = ensemble.device
     occu = torch.as_tensor(random_occupancies(ensemble, WALKERS, occ_seed),
@@ -285,7 +323,7 @@ def window_operands(ensemble, tables, move, block, occ_seed, seq_seed, n_steps=T
         occ=occu[:, tables.rank_sites].T.to(torch.int8).contiguous(),
         enthalpy=torch.zeros(WALKERS, dtype=torch.float64, device=device),
         naccept=torch.zeros(WALKERS, dtype=torch.int32, device=device),
-        beta32=torch.full((WALKERS,), 1.0 / (kB * TEMPERATURE),
+        beta32=torch.full((WALKERS,), 1.0 / (kB * temperature),
                           dtype=torch.float32, device=device),
         tables=tables, n_steps=n_steps, block_size=block,
     )
@@ -353,10 +391,17 @@ def compare(label, kernel, twin, margin, n_steps, invariant=None, start=None):
     return err
 
 
-def window_vs_twin(ensemble, name, move, block, rng, seed):
+def body_label(tables):
+    """The site body of ``tables`` as the execution path names it."""
+    return f"qary{tables.qary}" if tables.qary else "direct"
+
+
+def window_vs_twin(ensemble, name, move, block, rng, seed, delta="direct",
+                   temperature=TEMPERATURE):
     """Phase 3: one main-path window, kernel against twin."""
-    tables = tables_of(ensemble, move)
-    ops = window_operands(ensemble, tables, move, block, occ_seed=7, seq_seed=17)
+    tables = tables_of(ensemble, move, delta)
+    ops = window_operands(ensemble, tables, move, block, occ_seed=7, seq_seed=17,
+                          temperature=temperature)
     ops["seed"] = torch.tensor([seed], dtype=torch.int64, device=ensemble.device)
     kernel_fn, twin_fn = KERNELS[move]
     k = fresh(ops)
@@ -367,11 +412,11 @@ def window_vs_twin(ensemble, name, move, block, rng, seed):
     torch.cuda.synchronize()
     ewald = "+ewald" if tables.has_ewald else ""
     invariant = invariant_of(move, tables, ensemble)
-    return compare(f"{move}{ewald} {name} {rng} seed {seed:#x}", k, t, margin, THIN,
-                   invariant, invariant and invariant(ops["occ"]))
+    return compare(f"{move}{ewald}+{body_label(tables)} {name} {rng} seed {seed:#x}", k, t,
+                   margin, THIN, invariant, invariant and invariant(ops["occ"]))
 
 
-def chunked_hash_vs_twin(ensemble, name, move, block):
+def chunked_hash_vs_twin(ensemble, name, move, block, delta="direct"):
     """Phase 3: a hash-mode chain across a chunk boundary, kernel vs twin.
 
     The kernel runs through ``make_shared_proposal_chain`` (which splits
@@ -380,7 +425,7 @@ def chunked_hash_vs_twin(ensemble, name, move, block):
     ``seed0 + c * SEED_STRIDE`` and counts its steps from 0.
     """
     device = ensemble.device
-    tables = tables_of(ensemble, move)
+    tables = tables_of(ensemble, move, delta)
     table_move = table_move_of(ensemble, tables) if move == "table" else None
     chunk = chain.MAX_CHUNK_STEPS // (table_move.k_max if table_move else 1)
     n_steps = chunk + 52
@@ -438,8 +483,8 @@ def chunked_hash_vs_twin(ensemble, name, move, block):
     if move == "swap":
         kernel["nmove"] = state["nmove"]
     invariant = invariant_of(move, tables, ensemble)
-    return compare(f"{move} {name} hash {n_steps} steps, 2 chunks", kernel, twin,
-                   margin, n_steps, invariant, invariant and invariant(occ0))
+    return compare(f"{move}+{body_label(tables)} {name} hash {n_steps} steps, 2 chunks",
+                   kernel, twin, margin, n_steps, invariant, invariant and invariant(occ0))
 
 
 # ---------------- the Wang-Landau chain against its twin ----------------
@@ -613,8 +658,11 @@ def wl_chunked_hash_vs_twin(ensemble, system, name, move):
 
 # ---------------- the main paths ----------------
 
-def drive_main_path(move, stem, card, temperature, block):
-    """Phase 4: one main path, as a user calls it; cold, then warm."""
+def drive_main_path(move, stem, card, temperature, block, capped=False, **options):
+    """Phase 4: one main path, as a user calls it; cold, then warm (and, with
+    ``capped``, once more with a record cap of one byte, which must move
+    every batch to host memory and record what the warm run did).
+    ``options`` go to ``Sampler.from_ensemble`` (the site body)."""
     t0 = time.perf_counter()
     ensemble, system = load(stem)
     torch.cuda.synchronize()
@@ -627,10 +675,12 @@ def drive_main_path(move, stem, card, temperature, block):
     # flips and swaps are the sampler's defaults; table flips are asked for
     step_type = "table-flip" if move == "table" else None
     runs = []
-    for _ in ("cold", "warm"):
+    for _ in ("cold", "warm", "capped")[:3 if capped else 2]:
         t0 = time.perf_counter()
         sampler = Sampler.from_ensemble(ensemble, temperature, WALKERS, seed=3,
-                                        chain_block_size=block, step_type=step_type)
+                                        chain_block_size=block, step_type=step_type,
+                                        **options)
+        sampler.samples.pending_bytes_max = 1 if len(runs) == 2 else None
         path = sampler.execution_path(THIN)  # builds the chain tables
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -638,8 +688,12 @@ def drive_main_path(move, stem, card, temperature, block):
         torch.cuda.synchronize()
         runs.append((sampler, t1 - t0, time.perf_counter() - t1))
     ewald = "+ewald" if "ewald_matrix" in system else ""
-    check(path.startswith(f"cuda-chain[{move}]{ewald}+direct"), f"execution path {path}")
-    (cold, tables_s, cold_s), (sampler, _, wall) = runs
+    tables = sampler.mckernel.chain_tables()
+    check(tables.delta == options.get("chain_delta", chain.DEFAULT_DELTA),
+          f"{stem}: the {tables.delta} body ran")
+    body = body_label(tables)
+    check(path.startswith(f"cuda-chain[{move}]{ewald}+{body}"), f"execution path {path}")
+    (cold, tables_s, cold_s), (sampler, _, wall) = runs[:2]
 
     samples = sampler.samples
     n = samples.num_samples
@@ -650,6 +704,21 @@ def drive_main_path(move, stem, card, temperature, block):
           f"{stem}: the warm run did not repeat the cold run's occupancies")
     repeat = float(np.abs(cold.samples.get_enthalpies() - samples.get_enthalpies()).max())
     check(repeat <= 1e-9, f"{stem}: warm and cold enthalpies differ by {repeat}")
+    capped_note = ""
+    if capped:  # every batch on the host, the same records
+        held = runs[2][0].samples
+        on_host = all(v.device.type == "cpu" for batch in held._batches for v in batch.values())
+        check(held.moved_batches == len(held._batches) > 1 and on_host,
+              f"{stem}: {held.moved_batches} of {len(held._batches)} batches moved to the host")
+        check(np.array_equal(held.get_occupancies(flat=False), occupancies)
+              and np.array_equal(held.get_enthalpies(), samples.get_enthalpies()),
+              f"{stem}: the capped run did not record what the uncapped run did")
+        last = held.get_feature_vectors(discard=n - 1)
+        check(np.array_equal(last, samples.get_feature_vectors(discard=n - 1)),
+              f"{stem}: features derived from host batches differ")
+        capped_note = (f"; with a 1-byte record cap {held.moved_batches} batches in pinned "
+                       f"host memory, the same occupancies, enthalpies and features, "
+                       f"{WALKERS * NSTEPS / runs[2][2] / 1e6:.1f} M attempts/s")
     last_h = samples.get_enthalpies(discard=n - 1)
     last_f = samples.get_feature_vectors(discard=n - 1)
     check(last_f.shape == (WALKERS, len(ensemble.natural_parameters)),
@@ -687,7 +756,7 @@ def drive_main_path(move, stem, card, temperature, block):
           f"warm run {rate / 1e6:.1f} M attempts/s end to end ({wall:.4f} s for "
           f"{WALKERS} walkers x {NSTEPS} steps){extra}; set-up: system load "
           f"{load_s:.4f} s, sampler + tables {tables_s:.4f} s, cold run "
-          f"{cold_s:.4f} s ({cold_s - wall:+.4f} s over warm)")
+          f"{cold_s:.4f} s ({cold_s - wall:+.4f} s over warm){capped_note}")
     return ensemble, rate
 
 
@@ -702,6 +771,24 @@ def drive(move, cells, card):
           f"{launches} {move} kernel launches")
     print(f"phase 4: {move}_chain launches on the {move} main path: {launches}")
     return results, launches
+
+
+def drive_sgc(card):
+    """Phase 4 for bench ``sgc``: the default body (cold, warm and capped)
+    and K3 (cold and warm); counts set to 0 just before, read just after."""
+    chain.flip_chain.launches = chain.flip_chain.qary_launches = 0
+    runs = {"default": drive_main_path("flip", SGC_CELL, card, SGC_TEMPERATURE, BLOCK,
+                                       capped=True),
+            "qary": drive_main_path("flip", SGC_CELL, card, SGC_TEMPERATURE, BLOCK,
+                                    chain_delta="qary")}
+    launches, qary = chain.flip_chain.launches, chain.flip_chain.qary_launches
+    windows = NSTEPS // THIN
+    check(launches == 5 * windows, f"{launches} flip kernel launches on the sgc path")
+    check(qary == (2 if chain.DEFAULT_DELTA == "direct" else 5) * windows,
+          f"{qary} q-ary flip launches on the sgc path")
+    print(f"phase 4: flip_chain launches on the sgc path: {launches}, {qary} of them "
+          f"with the q-ary body (K3)")
+    return runs, launches, qary
 
 
 def plane_invariants(label, state, steps):
@@ -1056,7 +1143,7 @@ def drive_sqs(stem, card):
         found = min(found, float(scores.min()))
     check(rescore < 1e-9, f"{stem}: stored score vs exact CPU rescore {rescore}")
     check(found < 0, f"{stem}: best score {found} is not a matched shell")
-    best_sqs = generator.get_best_sqs(1)[0]
+    best_sqs = generator.get_best_sqs(1, remove_duplicates=False)[0]
     attempts = len(procs) * len(SQS_TEMPERATURES) * SQS_STEPS * SQS_WALKERS
     rate = attempts / wall
     print(f"phase 4 [sqs {stem}] {card}: {len(procs)} shapes x {len(SQS_TEMPERATURES)} "
@@ -1102,6 +1189,9 @@ def bound(tables, ops, move, recolorings=0, accepted=0):
     L, steps = tables.nbr.shape[1], ops["n_steps"]
     seqs = [ops[name] for name in SEQUENCES[move]]
     table_tensors = [tables.nbr, tables.stride, tables.d2, tables.g]
+    if tables.qary:  # K3 reads its character rows instead
+        table_tensors = [tables.qnbr, tables.qfreq, tables.qms, tables.qac, tables.qas,
+                         tables.qrows]
     if move != "swap":
         table_tensors += [tables.mu]
     if move == "flip":
@@ -1117,6 +1207,16 @@ def bound(tables, ops, move, recolorings=0, accepted=0):
     if move == "table":
         ewald = recolorings * ewald_site
         n_ops = recolorings * (2 * L + 2) + ewald + accepted
+    elif tables.qary:
+        # the character rows of the ranks proposed, walker by walker: a row
+        # costs its products and sum (two for q = 2, three for q = 3) and
+        # its add into the delta
+        per_row = 2 if tables.qary == 2 else 4
+        walkers = torch.bincount(torch.arange(W, device=seqs[0].device) // ops["block_size"])
+        rows = sum(int((tables.qrows[s[:, :steps].long()].sum(dim=1) * walkers).sum())
+                   for s in seqs)
+        ewald = 0
+        n_ops = rows * per_row + W * steps * (1 + (2 if move == "flip" else 0))
     else:
         sites = 2 if move == "swap" else 1
         ewald = W * steps * sites * ewald_site
@@ -1127,10 +1227,13 @@ def bound(tables, ops, move, recolorings=0, accepted=0):
             nbytes, n_ops, ewald / PEAK_F64_PER_S * 1e3)
 
 
-def time_window(ensemble, name, card, move, block, kernel_reps=50, twin_reps=3):
-    """Phase 5: one 100-step window at 8192 walkers, kernel against twin."""
-    tables = tables_of(ensemble, move)
-    ops = window_operands(ensemble, tables, move, block, occ_seed=5, seq_seed=1)
+def time_window(ensemble, name, card, move, block, kernel_reps=50, twin_reps=3,
+                delta="direct", temperature=TEMPERATURE):
+    """Phase 5: one 100-step window at 8192 walkers, kernel against twin
+    (``twin_reps=0``: the kernel alone)."""
+    tables = tables_of(ensemble, move, delta)
+    ops = window_operands(ensemble, tables, move, block, occ_seed=5, seq_seed=1,
+                          temperature=temperature)
     ops["seed"] = torch.tensor([42], dtype=torch.int64, device=ensemble.device)
     kernel_fn, twin_fn = KERNELS[move]
     counts = {}
@@ -1140,14 +1243,15 @@ def time_window(ensemble, name, card, move, block, kernel_reps=50, twin_reps=3):
         twin_fn(**run, nslot=nslot)
         counts = {"recolorings": int(nslot.sum()), "accepted": int(run["naccept"].sum())}
     kernel_ms = cuda_ms(same_window(kernel_fn, ops, kernel_reps), kernel_reps)
-    twin_ms = cuda_ms(same_window(twin_fn, ops, twin_reps), twin_reps)
+    twin_ms = cuda_ms(same_window(twin_fn, ops, twin_reps), twin_reps) if twin_reps else None
     bound_ms, bound_by, nbytes, n_ops, ewald_ms = bound(tables, ops, move, **counts)
     rate = WALKERS * THIN / (kernel_ms * 1e-3)
-    line = (f"phase 5 [{move} {name}] {card}: 100-step window at {WALKERS} walkers: "
-            f"kernel {kernel_ms:.4f} ms ({rate / 1e6:.1f} M attempts/s), twin "
-            f"{twin_ms:.2f} ms, twin/kernel {twin_ms / kernel_ms:.1f}x, bound "
-            f"{bound_ms * 1e3:.3f} us ({bound_by}; {nbytes / 1e6:.3f} MB, "
-            f"{n_ops / 1e6:.1f} M f64 operations), kernel/bound "
+    twin = (f", twin {twin_ms:.2f} ms, twin/kernel {twin_ms / kernel_ms:.1f}x"
+            if twin_reps else "")
+    line = (f"phase 5 [{move}+{body_label(tables)} {name}] {card}: 100-step window at "
+            f"{WALKERS} walkers: kernel {kernel_ms:.4f} ms ({rate / 1e6:.1f} M "
+            f"attempts/s){twin}, bound {bound_ms * 1e3:.3f} us ({bound_by}; "
+            f"{nbytes / 1e6:.3f} MB, {n_ops / 1e6:.1f} M f64 operations), kernel/bound "
             f"{kernel_ms / bound_ms:.0f}x")
     if counts:
         line += (f"; {counts['recolorings']} recolorings in valid proposals and "
@@ -1313,6 +1417,12 @@ def main():
         for line in ptxas_summary(log):
             print("  ptxas:", line)
 
+    sgc, ternary, aucu = (load(stem)[0] for stem in (SGC_CELL, TERNARY_CELL, QARY2_CELL))
+    for delta in chain.DELTAS:
+        smem = chain.chain_shared_bytes(tables_of(sgc, "flip", delta), "flip", WALKERS, BLOCK)
+        print(f"phase 2: {SGC_CELL} flip launch, {delta} body: {smem} bytes of dynamic "
+              f"shared memory per block of 64 walkers")
+
     # phase 3: kernels against twins at the main paths' shapes
     flips = {stem: load(stem)[0] for stem in FLIP_CELLS}
     swaps = {stem: load(stem)[0] for stem in SWAP_CELLS}
@@ -1340,6 +1450,23 @@ def main():
     # up to three recolorings per move: the runtime slot count body
     errs["table"].append(window_vs_twin(load(MULTI_SLOT_CELL)[0], MULTI_SLOT_CELL,
                                         "table", BLOCK, *SEEDS[1]))
+    # K3: the q-ary body in K1 (sgc 6x6x6, with the direct body beside it),
+    # in K2 (the ternary CE, canonical), and q = 2 in both on Au-Cu
+    t0 = time.perf_counter()
+    errs["qary"] = []
+    for rng, seed in SEEDS:
+        errs["qary"].append(window_vs_twin(sgc, SGC_CELL, "flip", BLOCK, rng, seed,
+                                           "qary", SGC_TEMPERATURE))
+        errs["flip"].append(window_vs_twin(sgc, SGC_CELL, "flip", BLOCK, rng, seed,
+                                           "direct", SGC_TEMPERATURE))
+        errs["qary"].append(window_vs_twin(ternary, TERNARY_CELL, "swap", BLOCK, rng, seed,
+                                           "qary", SGC_TEMPERATURE))
+        errs["qary"].append(window_vs_twin(aucu, QARY2_CELL, "flip", BLOCK, rng, seed,
+                                           "qary"))
+        errs["qary"].append(window_vs_twin(aucu, QARY2_CELL, "swap", SWAP_CELLS[QARY2_CELL][1],
+                                           rng, seed, "qary", SWAP_CELLS[QARY2_CELL][0]))
+    errs["qary"].append(chunked_hash_vs_twin(sgc, SGC_CELL, "flip", BLOCK, "qary"))
+    print(f"phase 3: the K3 comparisons took {time.perf_counter() - t0:.1f} s")
     # the Wang-Landau chain: both moves, both RNG modes, a chunk boundary,
     # update_period = 3, and the Ewald instantiation
     wl_systems = {stem: load(stem) for stem in WL_CELLS}
@@ -1385,6 +1512,7 @@ def main():
         "flip", {stem: (TEMPERATURE, BLOCK) for stem in FLIP_CELLS}, card)
     swap_runs, swap_launches = drive("swap", SWAP_CELLS, card)
     table_runs, table_launches = drive("table", TABLE_CELLS, card)
+    _, _, qary_launches = drive_sgc(card)
     wl_runs, wl_launches = drive_wl_cells(card)
     _, sqs_launches = drive_sqs_cells(card)
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
@@ -1415,13 +1543,29 @@ def main():
               f"({mine:.4f} vs {plain:.4f} ms)")
     for name, timed in sqs_timed.items():
         timings[("distance", name)] = time_distance(name, card, timed, kernel_reps=5)
+    # K3 against the direct body on the same cells, in turns
+    for move, ens, name in (("flip", sgc, SGC_CELL), ("swap", ternary, TERNARY_CELL)):
+        turns = {}
+        for delta in ("direct", "qary", "qary", "direct"):
+            again = delta in turns
+            turns.setdefault(delta, []).append(time_window(
+                ens, name, card, move, BLOCK, twin_reps=0 if again else 3, delta=delta,
+                temperature=SGC_TEMPERATURE))
+        for delta, (first, second) in turns.items():
+            timings[(f"{move}+{delta}", name)] = {
+                **first, "kernel_ms": (first["kernel_ms"] + second["kernel_ms"]) / 2}
+        direct, qary = (timings[(f"{move}+{d}", name)]["kernel_ms"] for d in chain.DELTAS)
+        print(f"phase 5 [{move} {name}] {card}: K3 (q-ary) {qary:.4f} ms against the "
+              f"direct body {direct:.4f} ms per window (means of two turns): "
+              f"{'q-ary' if qary < direct else 'direct'} faster by "
+              f"{max(qary, direct) / min(qary, direct):.3f}x")
     print("timings " + card + ": " + json.dumps(
         {f"{move} {stem}": v for (move, stem), v in timings.items()}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
 
     def entry(move, stem, source, replaces, launches):
         t = timings[(move, stem)]
-        name = move.split("-")[0]  # "wl-flip" is the wl_chain kernel
+        name = move.split("-")[0].split("+")[0]  # "wl-flip" is the wl_chain kernel
         return {
             "name": f"{name}_chain", "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1442,6 +1586,9 @@ def main():
               "smol_tpu/ops/pallas_chain.py:1866", wl_launches),
         entry("distance", "sqs_fcc8 shape 0", "smol_tpu_torch/csrc/distance_chain.cu",
               "smol_tpu/ops/pallas_sqs.py:649", sqs_launches),
+        {**entry("flip+qary", SGC_CELL, "smol_tpu_torch/csrc/chain_common.cuh",
+                 "smol_tpu/ops/pallas_chain.py:519", qary_launches),
+         "name": "qary_body (K3, in flip_chain)", "max_abs_err": max(errs["qary"])},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

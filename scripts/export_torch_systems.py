@@ -43,7 +43,18 @@ writes each supercell as a system file that ``smol_tpu_torch`` loads
   system each (``smol_tpu_torch.system.save_systems``);
 - ``torch_sqs_fcc_4x4x4.npz``: the same subspace and generator defaults on
   the 64-site ``diag(4, 4, 4)`` supercell, the SQS users build for a 50/50
-  FCC alloy.
+  FCC alloy;
+- ``torch_sgc_6x6x6.npz``: ``bench.py``'s ``sgc`` config, the ternary
+  Au-Ag-Cu FCC (``fcc_ternary_prim``, ``random_expansion(..., {2: 5.5,
+  3: 4.0}, seed=7)``) on 6x6x6 (216 sites) with its chemical potentials
+  (Au 0.05, Ag 0, Cu -0.05), built as the bench builds it, with
+  ``from_cluster_expansion``'s default cluster-decomposition processor;
+  the bench's starts are ``default_rng(0)``'s uniform codes,
+  ``smol_tpu_torch.moca.ensemble.random_occupancies(ensemble, 8192, 0)``;
+- ``torch_sgc_3x3x3.npz``: the same on 3x3x3, for the CPU tests;
+- ``torch_spinel_cd_2x2x2.npz``: the semigrand bench spinel 2x2x2 in the
+  decomposition form that ``bench.py`` builds (its features are the
+  cluster interactions, its natural parameters the orbit multiplicities).
 
 The files are committed under ``tests/data``; regenerate them with
 
@@ -76,6 +87,12 @@ TABLE = {  # file stem -> (system, its argument) of the table-flip files
 }
 SQS = ("sqs_fcc8", "sqs_fcc_4x4x4")  # the distance (SQS) files
 SQS_CUTOFFS = {2: 5.0, 3: 3.5}  # bench.py's sqs config
+SGC_MUS = {"Au": 0.05, "Ag": 0.0, "Cu": -0.05}  # bench.py's sgc config
+DECOMPOSITION = {  # file stem -> (system, supercell edge), as bench.py builds them
+    "sgc_6x6x6": ("sgc", 6),
+    "sgc_3x3x3": ("sgc", 3),
+    "spinel_cd_2x2x2": ("spinel_cd", 2),
+}
 
 
 def spinel_ensemble(n: int):
@@ -88,6 +105,38 @@ def spinel_ensemble(n: int):
         ce, np.diag([n, n, n]), processor_type="expansion",
         chemical_potentials=BENCH_MUS,
     )
+
+
+def sgc_ensemble(n: int):
+    """``bench.py``'s ``sgc`` on an n x n x n supercell (decomposition
+    processor, the default, as the bench builds it)."""
+    from smol_tpu.benchmarks.systems import fcc_ternary_prim, random_expansion
+    from smol_tpu.moca import Ensemble
+
+    ce = random_expansion(fcc_ternary_prim(), {2: 5.5, 3: 4.0}, seed=7)
+    return Ensemble.from_cluster_expansion(
+        ce, np.diag([n, n, n]), chemical_potentials=SGC_MUS
+    )
+
+
+def spinel_cd_ensemble(n: int):
+    """The bench spinel on an n x n x n supercell as ``bench.py`` builds it
+    (decomposition processor)."""
+    from smol_tpu.benchmarks.systems import random_expansion, spinel_prim
+    from smol_tpu.moca import Ensemble
+
+    ce = random_expansion(spinel_prim(), {2: 5.3, 3: 3.7}, seed=11)
+    return Ensemble.from_cluster_expansion(
+        ce, np.diag([n, n, n]), chemical_potentials=BENCH_MUS
+    )
+
+
+def decomposition_system(stem: str) -> dict:
+    """The system dict of one decomposition-form file."""
+    from smol_tpu_torch.system import export_system
+
+    kind, n = DECOMPOSITION[stem]
+    return export_system({"sgc": sgc_ensemble, "spinel_cd": spinel_cd_ensemble}[kind](n))
 
 
 def spinel_ewald_ensemble(n: int):
@@ -336,6 +385,7 @@ def main():
     systems.update({stem: (lambda s=stem: canonical_system(s)) for stem in CANONICAL})
     systems.update({stem: (lambda s=stem: table_system(s)) for stem in TABLE})
     systems.update({stem: (lambda s=stem: wang_landau_system(s)) for stem in WANG_LANDAU})
+    systems.update({stem: (lambda s=stem: decomposition_system(s)) for stem in DECOMPOSITION})
     for stem, build in systems.items():
         save_system(build(), data_path(stem))
         print(stem, data_path(stem), data_path(stem).stat().st_size, "bytes")

@@ -2,9 +2,10 @@
 
 For each cell (the semigrand spinel's flips, the canonical swaps on the
 spinel CE + Ewald and on Au-Cu, and the charge-neutral table flips on the
-semigrand spinel CE + Ewald), a warm-up run and then a run of
-``WINDOWS`` thinning windows (8192 walkers, 100 steps each) under
-``torch.profiler``; for the two Wang-Landau cells (flips on Au-Cu 3x3x3,
+semigrand spinel CE + Ewald), and for ``bench.py``'s ``sgc`` (ternary
+flips on 6x6x6 at 800 K, once with each site body: direct and K3's
+q-ary rows), a warm-up run and then a run of ``WINDOWS`` thinning windows
+(8192 walkers, 100 steps each) under ``torch.profiler``; for the two Wang-Landau cells (flips on Au-Cu 3x3x3,
 swaps on Au-Cu 4x4x4) the main path's run: 2048 walkers, six windows of
 15000 steps; for the two SQS cells (``bench.py``'s 20 shapes of 8 sites,
 and the 64-site shape) one warm ``generate`` of 2048 walkers x 4
@@ -20,7 +21,7 @@ power limit:
   synchronisations), by name: a call that waits for the device shows here.
 
 Run from the repository root with ``python scripts/profile_torch_chain.py
-[metropolis] [wang-landau] [sqs]`` (the paths to trace; all without an
+[metropolis] [sgc] [wang-landau] [sqs]`` (the paths to trace; all without an
 argument); it needs one CUDA device and ``nvcc`` (the kernels are built at
 first use).
 """
@@ -56,6 +57,7 @@ CELLS = {  # system file stem -> (temperature K, sequence block, step type)
     "spinel_ewald_sgc_2x2x2": (1000.0, 1024, "table-flip"),
     "spinel_ewald_sgc_3x3x3": (1000.0, 1024, "table-flip"),
 }
+SGC_CELL = ("sgc_6x6x6", 800.0, 1024)  # bench.py's sgc: stem, temperature K, block
 WL_CELLS = {"aucu_wl_3x3x3": "flip", "aucu_4x4x4": "swap"}  # stem -> move
 WL_WALKERS = 2048
 WL_THIN = 15_000
@@ -80,14 +82,16 @@ def load(stem):
     return Ensemble.from_system(system, "cuda"), system
 
 
-def metropolis_cell(stem, temperature, block, step_type):
-    """(sampler, starting occupancies) of a Metropolis cell."""
+def metropolis_cell(stem, temperature, block, step_type, **options):
+    """(sampler, starting occupancies) of a Metropolis cell; ``options`` go
+    to the sampler (the site body)."""
     ensemble, system = load(stem)
     occ0 = system.get("initial_occupancy")
     if occ0 is None:
         occ0 = random_occupancies(ensemble, WALKERS, 0)
     sampler = Sampler.from_ensemble(ensemble, temperature, WALKERS, seed=3,
-                                    chain_block_size=block, step_type=step_type)
+                                    chain_block_size=block, step_type=step_type,
+                                    **options)
     return sampler, occ0
 
 
@@ -194,10 +198,14 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card)
-    paths = set(sys.argv[1:]) or {"metropolis", "wang-landau", "sqs"}
+    paths = set(sys.argv[1:]) or {"metropolis", "sgc", "wang-landau", "sqs"}
     if "metropolis" in paths:
         for stem, args in CELLS.items():
             profile_cell(stem, card, *metropolis_cell(stem, *args), WINDOWS, THIN)
+    if "sgc" in paths:
+        for delta in ("direct", "qary"):
+            profile_cell(SGC_CELL[0], card,
+                         *metropolis_cell(*SGC_CELL, None, chain_delta=delta), WINDOWS, THIN)
     if "wang-landau" in paths:
         for stem, move in WL_CELLS.items():
             profile_cell(stem, card, *wang_landau_cell(stem, move), WL_WINDOWS, WL_THIN)

@@ -1,4 +1,4 @@
-"""Time the swap, table, Wang-Landau and distance chains of one checkout on one GPU.
+"""Time the flip, swap, table, Wang-Landau and distance chains of one checkout on one GPU.
 
 For an A/B of two versions of a kernel on the same card, one after the other:
 unpack the other version beside this one (``git archive <commit> | tar -x
@@ -11,15 +11,17 @@ unpack the other version beside this one (``git archive <commit> | tar -x
 
 Each run builds the named checkout's kernels (default: the checkout this
 script lies in) and times ``chip_smoke.time_window`` of that checkout: one
-100-step window at 8192 walkers on the spinel CE + Ewald cells, canonical
-swaps and charge-neutral table flips, with and without the Ewald term,
-and, where the checkout has them, the two Wang-Landau cells (flips on
+100-step window at 8192 walkers on the semigrand spinel cells (flips), on
+the canonical cells (swaps, the spinel CE + Ewald with and without the
+Ewald term, and Au-Cu) and on the charge-neutral table-flip cells (with
+and without the Ewald term), and, where the checkout has them, the two
+Wang-Landau cells (flips on
 Au-Cu 3x3x3, swaps on Au-Cu 4x4x4, each in its main path's sequence block;
 ``chip_smoke.time_wl_window``) and the distance chain on the SQS main
 path's launch (8000 steps at 2048 walkers on the bench's first 8-site
 shape and on the 64-site shape, mean of 5, each on a copy of one starting
 state).  Further arguments after the tree name the kinds to time
-(``swap``, ``table``, ``wl``, ``distance``; all without).
+(``flip``, ``swap``, ``table``, ``wl``, ``distance``; all without).
 Prints the card's name and power limit and one ``AB`` line per cell:
 label, move, cell, kernel ms, kernel ms without the Ewald term (``nan``
 for a cell without one); a distance line ends with a checksum of the
@@ -36,7 +38,7 @@ from pathlib import Path
 def main():
     label = sys.argv[1]
     tree = Path(sys.argv[2] if len(sys.argv) > 2 else Path(__file__).parent.parent)
-    kinds = set(sys.argv[3:]) or {"swap", "table", "wl", "distance"}
+    kinds = set(sys.argv[3:]) or {"flip", "swap", "table", "wl", "distance"}
     tree = tree.resolve()
     os.chdir(tree)
     sys.path.insert(0, str(tree))
@@ -47,19 +49,22 @@ def main():
     wl_cells = getattr(chip_smoke, "WL_CELLS", {}) if "wl" in kinds else {}
     sqs_cells = getattr(chip_smoke, "SQS_CELLS", ()) if "distance" in kinds else ()
     chip_smoke._build.build_libraries(
-        tuple(name for name, on in (("swap_chain", "swap" in kinds),
+        tuple(name for name, on in (("flip_chain", "flip" in kinds),
+                                    ("swap_chain", "swap" in kinds),
                                     ("table_chain", "table" in kinds),
                                     ("wl_chain", bool(wl_cells)),
                                     ("distance_chain", bool(sqs_cells))) if on))
-    cells = [("table", stem) for stem in chip_smoke.TABLE_CELLS if "table" in kinds]
-    cells += [("swap", stem) for stem in chip_smoke.SWAP_CELLS
-              if "ewald" in stem and "swap" in kinds]
-    for move, stem in cells:
+    cells = [("flip", stem, chip_smoke.BLOCK) for stem in chip_smoke.FLIP_CELLS
+             if "flip" in kinds]
+    cells += [("table", stem, chip_smoke.BLOCK) for stem in chip_smoke.TABLE_CELLS
+              if "table" in kinds]
+    cells += [("swap", stem, block) for stem, (_, block) in chip_smoke.SWAP_CELLS.items()
+              if "swap" in kinds]
+    for move, stem, block in cells:
         ensemble = chip_smoke.load(stem)[0]
-        t = chip_smoke.time_window(ensemble, stem, card, move, chip_smoke.BLOCK,
-                                   twin_reps=1)
-        print("AB", label, move, stem, t["kernel_ms"], t["kernel_no_ewald_ms"],
-              flush=True)
+        t = chip_smoke.time_window(ensemble, stem, card, move, block, twin_reps=1)
+        print("AB", label, move, stem, t["kernel_ms"],
+              t.get("kernel_no_ewald_ms", float("nan")), flush=True)
     for stem, move in wl_cells.items():
         block = chip_smoke.SWAP_CELLS.get(stem, (None, chip_smoke.BLOCK))[1]
         t = chip_smoke.time_wl_window(*chip_smoke.load(stem), stem, card, move,

@@ -6,7 +6,7 @@ sublattice's own composition, the start of an SQS search.  It draws from a
 numpy ``Generator`` exactly as the reference does, so the same generator
 state gives the same occupancy.  The unconstrained and charge-neutral
 occupancies, and compositions given by species, need the host layer
-(ROADMAP.md Queue 1 item 1).
+(ROADMAP.md Queue 1 item 5).
 """
 
 from __future__ import annotations

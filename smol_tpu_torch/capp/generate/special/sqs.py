@@ -28,7 +28,7 @@ from smol_tpu_torch.ops.sqs import build_distance_tables, make_distance_chain
 
 __all__ = ["SQS", "SQSGenerator", "StochasticSQSGenerator", "random_starts"]
 
-HOST_LAYER = "the host layer is not ported yet (ROADMAP.md Queue 1 item 1)"
+HOST_LAYER = "the host layer is not ported yet (ROADMAP.md Queue 1 item 5)"
 
 
 @dataclass(frozen=True)
@@ -82,7 +82,7 @@ class SQSGenerator(ABC):
             if type(p).__name__ != "CorrelationDistanceProcessor":
                 raise NotImplementedError(
                     f"{type(p).__name__}: only the correlation distance is ported "
-                    "(ROADMAP.md Queue 1 item 8)"
+                    "(ROADMAP.md Queue 1 item 6)"
                 )
             if p.device.type != device.type or (
                 device.index is not None and p.device != device
@@ -137,9 +137,15 @@ class SQSGenerator(ABC):
         """Distance features of an occupancy [N] of one of the shapes."""
         return self._processor_of(supercell_matrix).compute_feature_vector(occupancy)
 
-    def get_best_sqs(self, num_structures=1, remove_duplicates=False):
+    def get_best_sqs(self, num_structures=1, remove_duplicates=True):
         """The best SQS found so far, ranked by score (ties in shape, then
-        walker order)."""
+        walker order).
+
+        ``remove_duplicates=True``, the reference's default, drops
+        symmetry-equivalent structures with a structure matcher, which is
+        not ported yet: it raises ``NotImplementedError``.  Pass
+        ``remove_duplicates=False`` to rank every walker's best as it is.
+        """
         if remove_duplicates:
             raise NotImplementedError(
                 f"removing duplicates needs a structure matcher: {HOST_LAYER}")
@@ -175,7 +181,7 @@ class StochasticSQSGenerator(SQSGenerator):
         if step_type != "swap":
             raise NotImplementedError(
                 f"step_type={step_type!r}: only swaps run on the distance chain, and "
-                "the per-step path is not ported yet (ROADMAP.md Queue 1 item 8)"
+                "the per-step path is not ported yet (ROADMAP.md Queue 1 item 6)"
             )
         super().__init__(processors, device=device)
         self._tables = {}  # shape -> DistanceTables
@@ -195,7 +201,7 @@ class StochasticSQSGenerator(SQSGenerator):
     def sampler(self):
         """The reference's MulticellMetropolis sampler: not ported."""
         raise NotImplementedError(
-            "the multicell sampler is not ported yet (ROADMAP.md Queue 1 item 8)"
+            "the multicell sampler is not ported yet (ROADMAP.md Queue 1 item 6)"
         )
 
     def _chain_fn(self, shape, mcmc_steps):

@@ -6,12 +6,16 @@
 // - one rank's table rows in shared memory and their cp.async prefetch
 //   (the analog of the reference's streamed-table DMA, pallas_chain.py
 //   :1590-1626);
-// - the cluster-expansion delta of one site (direct f64 lookups, summed in
-//   the order l = 0, 1, ...);
+// - the cluster-expansion delta of one site, in one of two bodies: Direct
+//   (one f64 lookup per local cluster, summed in the order l = 0, 1, ...)
+//   and Qary, K3, the Z_q character delta of pallas_chain.py
+//   `make_site_delta_qary` (:519) and `make_swap_pair_delta_qary` (:570),
+//   summed in row order;
 // - K4, the Ewald term sign * (C_r + V_r . occ) of pallas_chain.py
 //   `ewald_delta` (:1651), in f64 over the block's codes in rank order;
-// - the whole delta of a flip and of a swap (flip_delta, swap_delta), which
-//   the Metropolis chains and the Wang-Landau chain both call.
+// - the whole delta of a flip and of a swap (flip_delta, swap_delta, with
+//   the body as a template parameter), which the Metropolis chains and the
+//   Wang-Landau chain call.
 //
 // The plain torch twins in ops/chain.py sum in the same orders, so kernel
 // and twin give the same f64 deltas.  Build without fast-math: nothing may
@@ -180,6 +184,165 @@ __device__ __forceinline__ double ce_add(double dE, const Rows& rows,
   return dE;
 }
 
+// K3's character rows of one rank in shared memory (ops/chain.py
+// qary_tables): row l is the character sum_k freq[l, k] code(nbr[l, k]) +
+// ms[l] code(self) (mod Q) with folded amplitudes ac[l], as[l].
+// The q-ary body takes no Ewald term (the tables refuse one).
+struct QRows {
+  double* ac;     // [Lq]
+  double* as;     // [Lq]
+  int32_t* nbr;   // [Lq, NB] neighbour rank, -1 = none
+  int32_t* freq;  // [Lq, NB] scaled frequency in [0, Q)
+  int32_t* ms;    // [Lq] scaled self frequency in [1, Q)
+};
+
+__host__ __device__ __forceinline__ size_t qrows_bytes(int Lq, int NB) {
+  const size_t bytes = (size_t)Lq * 16 + (size_t)Lq * (2 * NB + 1) * 4;
+  return (bytes + 15) / 16 * 16;
+}
+
+__device__ __forceinline__ QRows qrows_at(unsigned char* base, int Lq, int NB) {
+  QRows r;
+  r.ac = reinterpret_cast<double*>(base);
+  r.as = r.ac + Lq;
+  r.nbr = reinterpret_cast<int32_t*>(r.as + Lq);
+  r.freq = r.nbr + Lq * NB;
+  r.ms = r.freq + Lq * NB;
+  return r;
+}
+
+// The table operands of the flip and swap chains, passed by value.
+struct Tables {
+  // the direct body: [R, L, K], [R, L, K], [R, L], [R, L, TM]
+  const int32_t* nbr;
+  const int32_t* stride;
+  const int32_t* d2;
+  const double* g;
+  const double* ew_v;  // [R, RE] Ewald rows, RE = R with an Ewald term
+  // K3: [R, Lq, NB], [R, Lq, NB], [R, Lq], [R, Lq], [R, Lq], [R]
+  const int32_t* qnbr;
+  const int32_t* qfreq;
+  const int32_t* qms;
+  const double* qac;
+  const double* qas;
+  const int32_t* qrows;
+  int L, K, TM, RE, Lq, NB;
+};
+
+// The direct body: one rank's local-cluster rows (Rows), ce_add.
+template <int KT>
+struct Direct {
+  using Rows = smol::Rows;
+  // the slot count as a compile-time constant where the body has one
+  __device__ static void pin(Tables& t) {
+    if constexpr (KT > 0) t.K = KT;
+  }
+  __host__ __device__ static size_t bytes(const Tables& t) {
+    return rows_bytes(t.L, t.K, t.TM, t.RE);
+  }
+  __device__ static Rows at(unsigned char* base, const Tables& t) {
+    return rows_at(base, t.L, t.K, t.TM, t.RE);
+  }
+  __device__ static void copy(unsigned char* dst, int u, const Tables& t,
+                              int tid, int nt) {
+    copy_rows(at(dst, t), u, t.nbr, t.stride, t.d2, t.g, t.ew_v, t.L, t.K,
+              t.TM, t.RE, tid, nt);
+  }
+  __device__ static double add(double dE, const Rows& r, const Tables& t, int u,
+                               const int8_t* s_occ, int nt, int tid, int a,
+                               int b) {
+    return ce_add<KT>(dE, r, s_occ, nt, tid, t.L, t.K, t.TM, a, b);
+  }
+};
+
+// K3's folded phase selectors, pallas_chain.py `_phase_sel` (:476): cos and
+// sin of 2 pi w / Q over their folds (ops/chain.py QARY_SIGMA).
+template <int Q>
+__device__ __forceinline__ int sigma_c(int w) {
+  if constexpr (Q == 2) return 1 - 2 * w;
+  return w == 0 ? 1 : 0;
+}
+
+template <int Q>
+__device__ __forceinline__ int sigma_s(int w) {
+  if constexpr (Q == 2) return 0;
+  return (w == 1 ? 1 : 0) - (w == 2 ? 1 : 0);
+}
+
+// K3: dE plus the change of the rank's n character rows (rows `r`) when
+// its code goes a -> b, in row order l = 0 .. n-1.  The neighbour phase
+// u = sum_k freq * code(nbr) is an integer >= 0, the phases (u + ms a) mod Q
+// and (u + ms b) mod Q, and the row's change ac dc + as ds with dc, ds in
+// {0, +-1, +-2}: both products are exact, so whether nvcc contracts the sum
+// into an FMA or not, it rounds once, as the twin's does (Q = 2 has no sin
+// characters).  NBT > 0: the neighbours per row as a compile-time constant.
+template <int Q, int NBT>
+__device__ __forceinline__ double qary_add(double dE, const QRows& r, int n,
+                                           const int8_t* s_occ, int nt,
+                                           int tid, int NB_rt, int a, int b) {
+  const int NB = NBT > 0 ? NBT : NB_rt;
+#pragma unroll 4
+  for (int l = 0; l < n; ++l) {
+    int ph = 0;
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+      const int nb = r.nbr[l * NB + k];
+      const int code = nb >= 0 ? (int)s_occ[nb * nt + tid] : 0;
+      ph += r.freq[l * NB + k] * code;
+    }
+    const int m = r.ms[l];
+    const int wo = (ph + m * a) % Q;
+    const int wn = (ph + m * b) % Q;
+    double term = r.ac[l] * (double)(sigma_c<Q>(wn) - sigma_c<Q>(wo));
+    if constexpr (Q != 2) {
+      term += r.as[l] * (double)(sigma_s<Q>(wn) - sigma_s<Q>(wo));
+    }
+    dE += term;
+  }
+  return dE;
+}
+
+// The q-ary body: a rank's qrows[u] character rows (QRows), qary_add.
+template <int Q, int NBT>
+struct Qary {
+  using Rows = QRows;
+  // the neighbour count as a compile-time constant where the body has one
+  __device__ static void pin(Tables& t) {
+    if constexpr (NBT > 0) t.NB = NBT;
+  }
+  __host__ __device__ static size_t bytes(const Tables& t) {
+    return qrows_bytes(t.Lq, t.NB);
+  }
+  __device__ static Rows at(unsigned char* base, const Tables& t) {
+    return qrows_at(base, t.Lq, t.NB);
+  }
+  // Issue the asynchronous copy of rank u's rows into `dst` (all threads).
+  __device__ static void copy(unsigned char* dst, int u, const Tables& t,
+                              int tid, int nt) {
+    const QRows r = at(dst, t);
+    const int n = __ldg(t.qrows + u);
+    const size_t row0 = (size_t)u * t.Lq;
+    for (int x = tid; x < n; x += nt) {
+      __pipeline_memcpy_async(r.ac + x, t.qac + row0 + x, sizeof(double));
+      __pipeline_memcpy_async(r.as + x, t.qas + row0 + x, sizeof(double));
+      __pipeline_memcpy_async(r.ms + x, t.qms + row0 + x, sizeof(int32_t));
+    }
+    for (int x = tid; x < n * t.NB; x += nt) {
+      __pipeline_memcpy_async(r.nbr + x, t.qnbr + row0 * t.NB + x,
+                              sizeof(int32_t));
+      __pipeline_memcpy_async(r.freq + x, t.qfreq + row0 * t.NB + x,
+                              sizeof(int32_t));
+    }
+    __pipeline_commit();
+  }
+  __device__ static double add(double dE, const Rows& r, const Tables& t, int u,
+                               const int8_t* s_occ, int nt, int tid, int a,
+                               int b) {
+    return qary_add<Q, NBT>(dE, r, __ldg(t.qrows + u), s_occ, nt, tid, t.NB, a,
+                            b);
+  }
+};
+
 // K4: sign * (C_r + V_r . occ) with the dot over the walker's codes in rank
 // order t = 0 .. R-1.  Ewald systems have 0/1 codes, so every product is
 // exact and the sum rounds as the twin's rank-order loop does.
@@ -194,18 +357,18 @@ __device__ __forceinline__ double ewald_term(const double* row, double c,
   return (double)sign * (c + acc);
 }
 
-// A flip's delta: rank u (rows `rows`) going from code a to b.  Cluster
-// terms, then the Ewald term, then minus the chemical work mu[u, b] -
-// mu[u, a] (mu is [R, C]).
-template <int KT, bool EW>
-__device__ __forceinline__ double flip_delta(const Rows& rows, int u, int a,
+// A flip's delta: rank u (rows `rows` of the body `Body`) going from code a
+// to b.  Cluster terms, then the Ewald term, then minus the chemical work
+// mu[u, b] - mu[u, a] (mu is [R, C]).
+template <class Body, bool EW>
+__device__ __forceinline__ double flip_delta(const typename Body::Rows& rows,
+                                             const Tables& t, int u, int a,
                                              int b, const int8_t* s_occ,
-                                             int nt, int tid, int R, int L,
-                                             int K, int TM, int C,
+                                             int nt, int tid, int R, int C,
                                              const double* __restrict__ mu,
                                              const double* __restrict__ ew_c) {
-  double dE = ce_add<KT>(0.0, rows, s_occ, nt, tid, L, K, TM, a, b);
-  if (EW) {
+  double dE = Body::add(0.0, rows, t, u, s_occ, nt, tid, a, b);
+  if constexpr (EW) {
     dE += ewald_term(rows.ew, __ldg(ew_c + u), s_occ, nt, tid, R, b - a);
   }
   const double work = __ldg(mu + u * C + b) - __ldg(mu + u * C + a);
@@ -217,20 +380,24 @@ __device__ __forceinline__ double flip_delta(const Rows& rows, int u, int a,
 // (rows rv) going b -> a against the occupancy with u already holding b,
 // then u's Ewald term (taken before u is recolored), then v's.  Leaves b in
 // u's cell: on accept the caller writes a into v's cell, on reject a back
-// into u's.
-template <int KT, bool EW>
-__device__ __forceinline__ double swap_delta(const Rows& ru, const Rows& rv,
-                                             int u, int v, int8_t* cu, int a,
-                                             int b, const int8_t* s_occ,
-                                             int nt, int tid, int R, int L,
-                                             int K, int TM,
+// into u's.  With the q-ary body v's phases read u's new code, which stands
+// for the reference's rank-1 correction `corr` (:596-603).
+template <class Body, bool EW>
+__device__ __forceinline__ double swap_delta(const typename Body::Rows& ru,
+                                             const typename Body::Rows& rv,
+                                             const Tables& t, int u, int v,
+                                             int8_t* cu, int a, int b,
+                                             const int8_t* s_occ, int nt,
+                                             int tid, int R,
                                              const double* __restrict__ ew_c) {
   double ewald_u = 0.0;
-  if (EW) ewald_u = ewald_term(ru.ew, __ldg(ew_c + u), s_occ, nt, tid, R, b - a);
-  double dE = ce_add<KT>(0.0, ru, s_occ, nt, tid, L, K, TM, a, b);
+  if constexpr (EW) {
+    ewald_u = ewald_term(ru.ew, __ldg(ew_c + u), s_occ, nt, tid, R, b - a);
+  }
+  double dE = Body::add(0.0, ru, t, u, s_occ, nt, tid, a, b);
   *cu = (int8_t)b;  // v's delta sees u already holding b
-  dE = ce_add<KT>(dE, rv, s_occ, nt, tid, L, K, TM, b, a);
-  if (EW) {
+  dE = Body::add(dE, rv, t, v, s_occ, nt, tid, b, a);
+  if constexpr (EW) {
     dE += ewald_u;
     dE += ewald_term(rv.ew, __ldg(ew_c + v), s_occ, nt, tid, R, a - b);
   }

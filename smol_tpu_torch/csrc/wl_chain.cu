@@ -107,6 +107,16 @@ wl_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t rb = rows_bytes(L, K, TM, RE);
   int8_t* s_occ = reinterpret_cast<int8_t*>(smem + 2 * NR * rb);
+  Tables t{};  // the direct body's operands (flip_delta, swap_delta)
+  t.nbr = nbr;
+  t.stride = stride;
+  t.d2 = d2;
+  t.g = g;
+  t.ew_v = ew_v;
+  t.L = L;
+  t.K = K;
+  t.TM = TM;
+  t.RE = RE;
 
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -171,14 +181,14 @@ wl_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
         cv = s_occ + v * nt + tid;
         b = *cv;
         is_move = a != b;
-        dE = swap_delta<KT, EW>(ru, rv, u, v, cu, a, b, s_occ, nt, tid, R, L, K,
-                                TM, ew_c);
+        dE = swap_delta<Direct<KT>, EW>(ru, rv, t, u, v, cu, a, b, s_occ, nt, tid,
+                                        R, ew_c);
       } else {
         const int nc = max(__ldg(ncode + u) - 1, 1);
         const int j = (int)(bits.y % (uint32_t)nc);
         b = j + (j >= a ? 1 : 0);
-        dE = flip_delta<KT, EW>(ru, u, a, b, s_occ, nt, tid, R, L, K, TM, C, mu,
-                                ew_c);
+        dE = flip_delta<Direct<KT>, EW>(ru, t, u, a, b, s_occ, nt, tid, R, C, mu,
+                                        ew_c);
       }
 
       // the Wang-Landau rule on the proposed bin

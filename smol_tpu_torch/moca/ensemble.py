@@ -1,10 +1,14 @@
 """Thermodynamic ensemble: processor + sublattices + chemical potentials.
 
 Counterpart of ``smol_tpu/moca/ensemble.py`` (``Ensemble`` :85).  The
-natural parameters are the expansion coefficients, then the Ewald
-coefficient when the system has an Ewald term (the composite processor of
-:142-156), plus -1 for the chemical-work feature when chemical potentials
-are set (semigrand; without them the ensemble is canonical); the
+processor is the one the system file names (``processor_type``, :104-126):
+a cluster expansion (the default of a file without the key), whose natural
+parameters are its coefficients, then the Ewald coefficient when the
+system has an Ewald term (the composite processor of :142-156), or a
+cluster decomposition, whose natural parameters are its coefficients (by
+default the orbit multiplicities); then -1 for the chemical-work feature
+when chemical potentials are set (semigrand; without them the ensemble is
+canonical); the
 per-(site, code) chemical-potential table feeds both the feature vector
 and the flip chain.  Built from a system dict rather than from a cluster
 expansion: the host layer that builds systems is not ported yet.
@@ -17,8 +21,14 @@ import torch
 
 from smol_tpu_torch.moca.processor.composite import CompositeProcessor
 from smol_tpu_torch.moca.processor.ewald import EwaldProcessor
-from smol_tpu_torch.moca.processor.expansion import ClusterExpansionProcessor
+from smol_tpu_torch.moca.processor.expansion import (
+    ClusterDecompositionProcessor,
+    ClusterExpansionProcessor,
+)
 from smol_tpu_torch.moca.sublattice import sublattices_from_system
+
+PROCESSORS = {"expansion": ClusterExpansionProcessor,
+              "decomposition": ClusterDecompositionProcessor}
 
 __all__ = ["Ensemble", "random_occupancies"]
 
@@ -66,8 +76,11 @@ class Ensemble:
     def from_system(cls, system: dict, device) -> "Ensemble":
         """An ensemble from a system dict, with its tables on ``device``.
 
-        A system with ``ewald_matrix`` gets the composite processor (the
-        expansion, then the Ewald term); one without a
+        The processor is the one ``processor_type`` names (``"expansion"``
+        for a file without the key, or ``"decomposition"``).  A system
+        with ``ewald_matrix`` gets the composite processor (the expansion,
+        then the Ewald term; with a decomposition it raises
+        ``NotImplementedError``); one without a
         ``chemical_potential_table`` is canonical; one with a
         ``flip_table`` can be sampled with table flips.
         """
@@ -76,7 +89,14 @@ class Ensemble:
             raise RuntimeError(
                 f"device {device} requested but torch sees no CUDA device"
             )
-        processor = ClusterExpansionProcessor(system, device)
+        kind = str(system.get("processor_type", "expansion"))
+        if kind not in PROCESSORS:
+            raise ValueError(f"unknown processor type {kind!r}")
+        if kind == "decomposition" and "ewald_matrix" in system:
+            raise NotImplementedError(
+                "a cluster decomposition with an Ewald term is not ported yet "
+                "(ROADMAP.md Queue 1 item 6)")
+        processor = PROCESSORS[kind](system, device)
         if "ewald_matrix" in system:
             processor = CompositeProcessor([processor, EwaldProcessor(system, device)])
         if processor.num_energy_coefs != int(system["num_energy_coefs"]):

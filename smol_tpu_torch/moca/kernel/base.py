@@ -102,6 +102,11 @@ class ChainKernel(MCKernel):
         proposal_mode: ``"random"`` or ``"sweep"`` (flips only).
         rng: ``"philox"`` (run mode) or ``"hash"`` (the reference's
             interpret-mode random numbers, for parity checks).
+        chain_delta: the flip and swap chains' site body, ``"direct"``
+            (the default) or ``"qary"`` (K3's Z_q character rows, for
+            systems whose tables take them; see
+            :func:`~smol_tpu_torch.ops.chain.build_chain_tables`).  Table
+            moves and Wang-Landau take the direct body only.
         usher_kwargs: go to the usher of ``step_type``.
 
     What the reference sends to its per-step path (a bias, independent
@@ -111,25 +116,33 @@ class ChainKernel(MCKernel):
 
     def __init__(self, ensemble, step_type, *, seed=None, bias_type=None,
                  shared_proposals=True, chain_block_size=1024,
-                 proposal_mode="random", rng="philox", **usher_kwargs):
+                 proposal_mode="random", rng="philox", chain_delta=chain.DEFAULT_DELTA,
+                 **usher_kwargs):
         if bias_type is not None:
             raise NotImplementedError(
-                "MC biases are not ported yet (ROADMAP.md Queue 1 item 8)"
+                "MC biases are not ported yet (ROADMAP.md Queue 1 item 6)"
             )
         if proposal_mode not in ("random", "sweep"):
             raise ValueError(f"unknown proposal mode: {proposal_mode!r}")
         if not shared_proposals and proposal_mode != "sweep":
             raise NotImplementedError(
                 "independent per-walker proposals are not ported yet "
-                "(ROADMAP.md Queue 1 item 8)"
+                "(ROADMAP.md Queue 1 item 6)"
             )
         if rng not in chain.RNG_MODES:
             raise ValueError(f"unknown rng mode: {rng!r}")
+        if chain_delta not in chain.DELTAS:
+            raise ValueError(f"unknown chain delta {chain_delta!r}: one of {chain.DELTAS}")
+        self.chain_delta = chain_delta
         self.chain_block_size = int(chain_block_size)
         self.proposal_mode = str(proposal_mode)
         self.rng = rng
         super().__init__(ensemble, step_type, seed=seed, **usher_kwargs)
         self._chain_tables = None
+        if chain_delta != "direct" and self.move == "table":
+            raise NotImplementedError(
+                f"the {chain_delta} body of table moves is not ported yet "
+                "(ROADMAP.md Queue 2)")
 
     @property
     def move(self) -> str:
@@ -158,6 +171,7 @@ class ChainKernel(MCKernel):
                     None if self.move == "swap" else ens.chemical_potential_table
                 ),
                 sublattice_probabilities=usher.sublattice_probabilities,
+                delta=self.chain_delta,
             )
         return self._chain_tables
 
@@ -181,7 +195,7 @@ class ThermalKernelMixin:
         if temperature.ndim != 0:
             raise NotImplementedError(
                 "per-walker temperature ladders are not ported yet "
-                "(ROADMAP.md Queue 1 item 6, replica exchange)"
+                "(ROADMAP.md Queue 1 item 3, replica exchange)"
             )
         self._temperature = float(temperature)
         self.beta = 1.0 / (self._kB * self._temperature)

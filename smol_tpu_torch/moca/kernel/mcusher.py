@@ -65,6 +65,6 @@ def mcusher_factory(step_type: str, sublattices, table_data=None,
     if usher is None:
         raise NotImplementedError(
             f"step type {step_type!r} is not ported yet (ROADMAP.md Queue 1 "
-            "item 8)"
+            "item 6)"
         )
     return usher(sublattices, **kwargs)

@@ -82,6 +82,6 @@ def mckernel_factory(kernel_type, ensemble, step_type, *args, **kwargs):
     if name not in kernels:
         raise NotImplementedError(
             f"kernel type {kernel_type!r} is not ported yet (ROADMAP.md "
-            "Queue 1 item 8)"
+            "Queue 1 item 6)"
         )
     return kernels[name](ensemble, step_type, *args, **kwargs)

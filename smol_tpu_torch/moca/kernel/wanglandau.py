@@ -13,7 +13,7 @@ estimator on the thinned subchain).
 
 The reference's host single-walker path (``_accept_step``,
 ``_do_post_step``, the ``dos``/``levels`` properties of one walker) and
-its per-step device path are not ported yet (ROADMAP.md Queue 1 item 8);
+its per-step device path are not ported yet (ROADMAP.md Queue 1 item 6);
 what the reference sends to the latter raises ``NotImplementedError``.
 """
 
@@ -82,8 +82,12 @@ class WangLandau(ChainKernel):
             raise NotImplementedError(
                 "Wang-Landau sampling with this usher takes the reference's "
                 "per-step path, which is not ported yet (ROADMAP.md Queue 1 "
-                "item 8); the chain takes flips and swaps"
+                "item 6); the chain takes flips and swaps"
             )
+        if self.chain_delta != "direct":
+            raise NotImplementedError(
+                f"the {self.chain_delta} body of the Wang-Landau chain is not "
+                "ported yet (ROADMAP.md Queue 2)")
 
     @property
     def bin_size(self):

@@ -129,5 +129,5 @@ class ClusterInteractionDistanceProcessor:
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "the cluster-interaction distance is not ported yet (ROADMAP.md "
-            "Queue 1 item 8)"
+            "Queue 1 item 6)"
         )

@@ -1,10 +1,16 @@
-"""Cluster-expansion processor.
+"""Cluster-expansion and cluster-decomposition processors.
 
 Counterpart of ``smol_tpu/moca/processor/expansion.py``
-(``ClusterExpansionProcessor`` :183, ``_ce_features_fn`` :60): the feature
-vector is the extensive correlation vector, ``corr * size``.  The processor
-also holds the per-site local-cluster arrays (host numpy) from which the
-flip chain builds its tables (:mod:`smol_tpu_torch.ops.chain`).
+(``ClusterExpansionProcessor`` :183, ``_ce_features_fn`` :60;
+``ClusterDecompositionProcessor`` :263-372, ``_cd_features_fn`` :76).  The
+expansion's feature vector is the extensive correlation vector,
+``corr * size``; the decomposition's is the extensive cluster-interaction
+vector, ``interactions * size``, one entry per orbit, whose natural
+parameters are the decomposition's coefficients (by default the orbit
+multiplicities).  Both processors also hold the per-site local-cluster
+arrays (host numpy) from which the chains build their tables
+(:mod:`smol_tpu_torch.ops.chain`): the coefficient-folded energy tensors
+of the system file, as the reference builds them for each processor.
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ import torch
 
 from smol_tpu_torch.ops import correlations as corr_ops
 
-__all__ = ["ClusterExpansionProcessor"]
+__all__ = ["ClusterExpansionProcessor", "ClusterDecompositionProcessor"]
 
 
 class ClusterExpansionProcessor:
@@ -46,3 +52,21 @@ class ClusterExpansionProcessor:
         """Feature vector of one occupancy [N], as a host array."""
         occu = torch.as_tensor(np.asarray(occupancy), device=self.device)
         return self.compute_features(occu[None, :])[0].cpu().numpy()
+
+
+class ClusterDecompositionProcessor(ClusterExpansionProcessor):
+    """Features of a supercell occupancy under a cluster decomposition:
+    the cluster-interaction vector times the supercell size, one entry per
+    orbit (the system's ``inter_flat``, ``offset``, ``orbit_offset``,
+    ``cluster_orbit`` and ``orbit_cluster_count``)."""
+
+    def __init__(self, system: dict, device):
+        super().__init__(system, device)
+        self.interactions = corr_ops.interactions_to_device(system, self.device)
+        self.num_orbits = self.interactions.num_orbits
+        self.num_energy_coefs = self.num_orbits  # one coefficient per orbit
+
+    def compute_features(self, occupancies: torch.Tensor) -> torch.Tensor:
+        """Feature vectors [W, num_orbits] f64 of occupancies [W, N]."""
+        return corr_ops.interactions_from_occupancy(
+            occupancies, self.packed, self.interactions) * self.size

@@ -2,14 +2,22 @@
 
 Counterpart of ``smol_tpu/moca/sampler/container.py``.  Record batches
 [k, W, ...] stay on the device where the chain wrote them; a getter copies
-only the rows it selects, and the statistics reduce on the device
-(:mod:`smol_tpu_torch.ops.reductions`) and copy one result.
+only the rows it selects, and the statistics reduce where each batch lives
+(:mod:`smol_tpu_torch.ops.reductions`) and copy one result.  Once the
+batches kept on the device pass a cap (:attr:`SampleContainer.
+pending_bytes_max`), they move to host memory, pinned where a card is
+present.  By default they stay while they hold at most 2 GiB (the
+reference's cap, ``container.py`` :97-102, 468-486) or at most half of the
+device memory free besides them, which ``torch.cuda.mem_get_info`` reads
+only past 2 GiB (the call waits for the device).
 
 The ``features`` trace is derived: a sampler that does not track features
 registers a function of the occupancies (:meth:`set_derived_value`), and
 the container evaluates it on the rows a reader selects, when it reads
-them.  A batch that already carries the derived entry (one restored from
-saved traces) is served as it is and never recomputed.
+them, on the ensemble's device wherever the batch lives, so a batch moved
+to the host gives the same values.  A batch that already carries the
+derived entry (one restored from saved traces) is served as it is and
+never recomputed.
 
 Aux records (counterpart of the reference's aux trace, ``container.py``
 :32-78, :506-556) hold bulky cumulative kernel state, such as the
@@ -17,7 +25,7 @@ Wang-Landau entropy, histogram and mean-feature planes, on a cadence of
 their own: each record is cumulative, so the last one carries the result.
 They too stay device tensors until read, and
 :meth:`SampleContainer.get_trace_value` serves them by name on the record
-axis.  HDF5 storage is not ported yet (ROADMAP.md Queue 1 item 8).
+axis.  HDF5 storage is not ported yet (ROADMAP.md Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -33,6 +41,19 @@ from smol_tpu_torch.ops.reductions import (
 __all__ = ["SampleContainer"]
 
 
+def _batch_bytes(batch) -> int:
+    return sum(v.numel() * v.element_size() for v in batch.values())
+
+
+def _to_host(tensor):
+    """A host copy of a device tensor, pinned (a CPU tensor stays)."""
+    if tensor.device.type == "cpu":
+        return tensor
+    host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+    host.copy_(tensor)
+    return host
+
+
 class SampleContainer:
     """Holds the sampled traces of an MC run.
 
@@ -42,7 +63,16 @@ class SampleContainer:
         traces: optional restored batch, a dict of arrays [k, W, ...]
             holding every name in ``trace_names``.
         aux_names: the quantities recorded as aux records.
+
+    ``pending_bytes_max``: the bytes of record batches kept where the run
+    wrote them before they move to host memory.  None (the default) keeps
+    up to 2 GiB on a CUDA device, or more while they take at most half of
+    the device memory free besides them, and sets no cap on the CPU; set it
+    to bound them yourself.
     """
+
+    pending_bytes_max = None
+    PENDING_BYTES_KEPT = 2 << 30  # kept on the device without asking (the reference's cap)
 
     def __init__(self, ensemble, trace_names, traces=None, aux_names=()):
         self._ensemble = ensemble
@@ -50,6 +80,9 @@ class SampleContainer:
         self._aux_names = tuple(aux_names)
         self._aux_records = []  # (dict of tensors [W, ...], sample index)
         self._batches = []  # dicts of tensors [k, W, ...], in sample order
+        self._pending = []  # indices of the batches kept where they were written
+        self._pending_bytes = 0
+        self.moved_batches = 0  # batches moved to host memory past the cap
         self._derived = {}  # name -> fn(occupancies [n, N]) -> [n, ...]
         if traces is not None:
             missing = set(self._names) - set(traces)
@@ -95,9 +128,28 @@ class SampleContainer:
         self._derived[name] = fn
 
     def save_sampled_traces(self, traces):
-        """Append a batch of records [k, W, ...]; they stay where they are."""
-        if len(traces["occupancy"]):
-            self._batches.append(dict(traces))
+        """Append a batch of records [k, W, ...]; it stays where it is until
+        the kept batches pass the cap, when they all move to host memory."""
+        if not len(traces["occupancy"]):
+            return
+        batch = dict(traces)
+        self._pending.append(len(self._batches))
+        self._batches.append(batch)
+        self._pending_bytes += _batch_bytes(batch)
+        if self._pending_bytes > self._pending_cap(batch["occupancy"].device):
+            for index in self._pending:
+                self._batches[index] = {name: _to_host(value) for name, value
+                                        in self._batches[index].items()}
+            self.moved_batches += len(self._pending)
+            self._pending, self._pending_bytes = [], 0
+
+    def _pending_cap(self, device) -> float:
+        if self.pending_bytes_max is not None:
+            return self.pending_bytes_max
+        if device.type != "cuda" or self._pending_bytes <= self.PENDING_BYTES_KEPT:
+            return float("inf")
+        free, _ = torch.cuda.mem_get_info(device)
+        return (free + self._pending_bytes) // 2
 
     def save_aux_record(self, record: dict, sample_index=None):
         """Append one aux record, tensors [W, ...] that nothing modifies
@@ -149,7 +201,7 @@ class SampleContainer:
                 raise ValueError(f"{name} is not a traced quantity.")
             occ = batch["occupancy"]
             index = torch.as_tensor(np.flatnonzero(mask), device=occ.device)
-            rows = occ.index_select(0, index)
+            rows = occ.index_select(0, index).to(self._ensemble.device)
             values = self._derived[name](rows.reshape(-1, rows.shape[-1]))
             segments.append(values.reshape(*rows.shape[:2], *values.shape[1:]))
             kept.append(np.ones(len(index), dtype=bool))

@@ -2,11 +2,14 @@
 
 Counterpart of ``smol_tpu/moca/sampler/sampler.py``.  ``run`` drives one
 chain call per thinning window (:func:`smol_tpu_torch.ops.mc.run_chain_fused`)
-on the ensemble's device; the records stay there, in the
+on the ensemble's device, in launches of a bounded number of records
+(about 256 MB each, as the reference's ``samples_per_launch``); the records
+stay on the device, in the
 :class:`~smol_tpu_torch.moca.sampler.container.SampleContainer`, until a
-reader asks for them.  The device is explicit: with ``device="cuda"`` the
-chain runs the CUDA kernel or fails, and it runs on the CPU only when the
-caller asks for ``device="cpu"``.
+reader asks for them or their bytes pass the container's cap.  The device
+is explicit: with ``device="cuda"`` the chain runs the CUDA kernel or
+fails, and it runs on the CPU only when the caller asks for
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from smol_tpu_torch.ops.mc import run_chain_fused
 __all__ = ["Sampler"]
 
 TRACE_NAMES = ("occupancy", "features", "enthalpy", "accepted", "accept_rate")
+LAUNCH_RECORD_BYTES = 256 << 20  # records of one launch (the reference's bound)
 
 
 class Sampler:
@@ -59,7 +63,7 @@ class Sampler:
         """
         if replica_exchange_period is not None:
             raise NotImplementedError(
-                "replica exchange is not ported yet (ROADMAP.md Queue 1 item 6)"
+                "replica exchange is not ported yet (ROADMAP.md Queue 1 item 3)"
             )
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -116,16 +120,18 @@ class Sampler:
         ``"cuda-chain[wl-swap]"`` on a CUDA device (the hand-written
         kernel), ``"cpu-twin[...]"`` on the CPU (the plain
         torch chain), then ``ewald`` when the delta carries the Ewald term,
-        the energy delta (``direct``: one table lookup per local cluster)
-        and the proposal schedule.
+        the energy delta (``direct``: one table lookup per local cluster;
+        ``qary2`` or ``qary3``: the Z_q character rows of K3) and the
+        proposal schedule.
         """
         self._get_chain_fn(int(thin_by))
         kern = self._kernel
         where = "cuda-chain" if kern.device.type == "cuda" else "cpu-twin"
         parts = [f"{where}[{kern.chain_name}]"]
-        if kern.chain_tables().has_ewald:
+        tables = kern.chain_tables()
+        if tables.has_ewald:
             parts.append("ewald")
-        parts.append("direct")
+        parts.append(f"qary{tables.qary}" if tables.qary else "direct")
         if kern.proposal_mode == "sweep":
             parts.append("sweep-schedule+independent-walkers")
         else:
@@ -135,20 +141,28 @@ class Sampler:
         return "+".join(parts)
 
     def _record(self, state, thin_by):
-        """One sample: tensors that no later window modifies."""
+        """One sample, as views of the state where it can (the launch's
+        stack copies them before the next window)."""
         rec = {
-            "occupancy": self._kernel.state_occupancy(state).clone(),
-            "enthalpy": state["enthalpy"].clone(),
-            "accepted": state["accepted"].clone(),
+            "occupancy": self._kernel.state_occupancy(state),
+            "enthalpy": state["enthalpy"],
+            "accepted": state["accepted"],
             "accept_rate": state["window_naccept"].to(torch.float64) / thin_by,
         }
         if self._kernel.track_features:
-            rec["features"] = state["features"].clone()
+            rec["features"] = state["features"]
         if "beta" in state:
             rec["temperature"] = 1.0 / (kB * state["beta"])
         for name in self._kernel.trace_names:
-            rec[name] = state[name].clone()
+            rec[name] = state[name]
         return rec
+
+    def _record_bytes(self, thin_by) -> int:
+        """Bytes of one record of the current state."""
+        state = {"window_naccept": torch.zeros_like(self._state["naccept"]),
+                 **self._state}
+        return sum(v.numel() * v.element_size()
+                   for v in self._record(state, thin_by).values())
 
     def _aux_record(self, state):
         """One aux record: copies of the cumulative Wang-Landau planes (the
@@ -170,7 +184,8 @@ class Sampler:
         return self._state
 
     def run(self, nsteps, initial_occupancies=None, thin_by=1,
-            stream_chunk=0, profile_dir=None, aux_every=None):
+            stream_chunk=0, profile_dir=None, aux_every=None,
+            samples_per_launch=None):
         """Run ``nsteps`` MC steps per walker, saving a sample every ``thin_by``.
 
         Args:
@@ -185,13 +200,16 @@ class Sampler:
                 ``SampleContainer.aux_traced_values``).  By default one
                 record is saved at the end of the run: every record is
                 cumulative, so the last one carries the result.
+            samples_per_launch: records stacked per launch of windows; by
+                default as many as fill about 256 MB (at least one), and at
+                most ``aux_every`` where aux records are kept.
             stream_chunk, profile_dir: not ported yet; must be left at
                 their defaults.
         """
         if stream_chunk or profile_dir is not None:
             raise NotImplementedError(
                 "HDF5 streaming and profiling are not ported yet "
-                "(ROADMAP.md Queue 1 item 8)"
+                "(ROADMAP.md Queue 1 item 6)"
             )
         if nsteps % thin_by != 0:
             warn(
@@ -215,12 +233,18 @@ class Sampler:
                 self._kernel.seed + self._container.num_samples)
         chain_fn = self._get_chain_fn(int(thin_by))
         nsamples = nsteps // thin_by
+        if samples_per_launch is None:
+            samples_per_launch = max(
+                1, min(nsamples, LAUNCH_RECORD_BYTES // max(self._record_bytes(thin_by), 1)))
+        per_launch = int(samples_per_launch)
+        if per_launch < 1:
+            raise ValueError(f"samples_per_launch must be positive, not {per_launch}")
         has_aux = bool(self._container.aux_traced_values)
-        # aux records land between launches: cap the launch at the cadence
-        per_launch = int(aux_every) if has_aux and aux_every is not None else nsamples
         done = since_aux = 0
         while done < nsamples:
             launch = min(per_launch, nsamples - done)
+            if has_aux and aux_every is not None:
+                launch = min(launch, int(aux_every) - since_aux)
             self._state, traces = run_chain_fused(
                 self._state, self._generator, chain_fn,
                 lambda st: self._record(st, thin_by), launch,
@@ -228,6 +252,7 @@ class Sampler:
             self._container.save_sampled_traces(traces)
             done += launch
             since_aux += launch
-            if has_aux and (done >= nsamples or since_aux >= per_launch):
+            if has_aux and (done >= nsamples or (
+                    aux_every is not None and since_aux >= int(aux_every))):
                 self._container.save_aux_record(self._aux_record(self._state))
                 since_aux = 0

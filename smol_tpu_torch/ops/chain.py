@@ -45,14 +45,27 @@ torch twins that do the same arithmetic in the same order.
 Tables hold the rank layout of the reference (rank = position in the
 concatenated active sites of the active sublattices) on plain f64
 lookups; nothing of the TPU layout (bf16 gather rows, double-float splits,
-L segments, Ising or q-ary character tables) is kept.  With an Ewald term
-the tables carry the reference's fold in f64 (no hi/lo split): the Ewald
-change of rank u going from code a to b is (b - a) * (C_u + V_u . occ).
+L segments, Ising tables) is kept.  With an Ewald term the tables carry
+the reference's fold in f64 (no hi/lo split): the Ewald change of rank u
+going from code a to b is (b - a) * (C_u + V_u . occ).
+
+The flip and swap chains have two bodies for the cluster-expansion delta
+of a site.  ``direct`` (the default) looks up each local cluster's
+coefficient-folded tensor: g[l, t_new] - g[l, t_old].  ``qary`` is K3, the
+reference's Z_q character delta (``make_site_delta_qary`` :519,
+``make_swap_pair_delta_qary`` :570, tables ``_qary_tables`` :651): every
+local cluster's tensor is a real Fourier series over Z_q characters, and
+recoloring the self site a -> b moves each character's phase
+u + m_self a to u + m_self b, where u = sum_j f_j code(nbr_j) is the
+neighbour phase; its rows (:func:`qary_tables`) are stored sparse, the
+neighbour ranks and their scaled frequencies, not as the reference's dense
+frequency matrix for the MXU.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from math import lcm
 
 import numpy as np
 import torch
@@ -65,6 +78,8 @@ from smol_tpu_torch.ops.rng import hash_bits, philox4x32_10, uniform01_from_bits
 
 __all__ = [
     "ChainTables",
+    "QaryTables",
+    "qary_tables",
     "build_chain_tables",
     "fold_ewald",
     "rank_sequence",
@@ -74,6 +89,7 @@ __all__ = [
     "flip_step_reference",
     "flip_chain_reference",
     "flip_chain",
+    "chain_shared_bytes",
     "swap_step_reference",
     "swap_chain_reference",
     "swap_chain",
@@ -100,6 +116,177 @@ RNG_MODES = {"philox": 0, "hash": 1}
 MOVES = ("flip", "swap", "table")
 MAX_TABLE_SLOTS = 8  # most site recolorings of one table move
 MAX_SHARED_BYTES = 232448  # shared memory one block can use on sm_90 (227 KB)
+DELTAS = ("direct", "qary")  # the flip and swap chains' site bodies
+DEFAULT_DELTA = "direct"  # faster on bench sgc, the body's own cell (PERF.md)
+QARY_MAX_ROWS = 2048  # the reference's limit on character rows per rank
+# q -> the amplitude folds (fold_c, fold_s) of the reference's _qary_fold
+# (:453): every difference of cos(2 pi w / q) is fold_c times an integer in
+# {0, +-1, +-2}, likewise for sin, and the folded selectors below (its
+# _phase_sel :476, cos and sin over the fold, for w = 0 .. q - 1) take
+# those integers.  q = 4 is refused until a test covers it.
+QARY_FOLD = {2: (1.0, 0.0), 3: (1.5, np.sqrt(3.0) / 2.0)}
+QARY_SIGMA = {2: ((1, -1), (0, 0)), 3: ((1, 0, 0), (0, 1, -1))}
+
+
+class QaryRefused(NotImplementedError):
+    """The system's tables have no Z_q character form the chain takes."""
+
+
+@dataclass(frozen=True)
+class QaryTables:
+    """K3's character rows, R ranks of at most Lq rows of NB neighbours.
+
+    Row j of rank r is the character sum_k qfreq[r, j, k] code(qnbr[r, j,
+    k]) + qms[r, j] code(r) (mod q) with folded amplitudes qac, qas; rows
+    at and beyond qrows[r], and neighbour slots qnbr = -1, are padding
+    (amplitudes and frequencies 0).
+    """
+
+    q: int
+    qnbr: np.ndarray  # [R, Lq, NB] int32 neighbour rank, -1 = none
+    qfreq: np.ndarray  # [R, Lq, NB] int32 scaled frequency in [0, q)
+    qms: np.ndarray  # [R, Lq] int32 scaled self frequency in [1, q)
+    qac: np.ndarray  # [R, Lq] f64 folded cos amplitude
+    qas: np.ndarray  # [R, Lq] f64 folded sin amplitude (0 for q = 2)
+    qrows: np.ndarray  # [R] int32 character rows of each rank
+
+
+def _characters(row, strides, shape, q, tmax):
+    """The delta-relevant characters of one local tensor.
+
+    ``row`` is the cluster's energy table, ``strides`` its members' summed
+    strides and ``shape`` their code counts.  The reference's arithmetic
+    (:700-756): the tensor over the members' code grid, its real DFT,
+    conjugate pairs folded into cos and sin amplitudes, characters below
+    1e-13 of the scale dropped, the reconstruction checked to 1e-11 of the
+    scale.  Returns ``[(scaled frequencies, a_c, a_s)]`` of the characters
+    with a nonzero self frequency, or raises :class:`QaryRefused`.
+    """
+    members_scale = np.array([q // qk for qk in shape])
+    grid = np.stack(np.meshgrid(*(np.arange(qk) for qk in shape), indexing="ij"))
+    t_grid = np.tensordot(np.array(strides), grid, axes=(0, 0))
+    if t_grid.max() >= tmax:
+        raise QaryRefused("a local tensor index beyond the table")
+    v = row[t_grid]
+    scale = max(float(np.abs(v).max()), 1e-300)
+    F = np.fft.fftn(v) / v.size
+    tiny = 1e-13 * scale
+    consumed = np.zeros(shape, dtype=bool)
+    recon = np.zeros(shape, dtype=np.float64)
+    kept = []
+    for m in np.ndindex(shape):
+        if consumed[m]:
+            continue
+        consumed[m] = True
+        mc = tuple((-mi) % qk for mi, qk in zip(m, shape))
+        if mc == m:  # self-conjugate: a purely real character
+            a_c, a_s = float(F[m].real), 0.0
+        else:
+            consumed[mc] = True
+            a_c = 2.0 * float(F[m].real)
+            a_s = -2.0 * float(F[m].imag)
+        if max(abs(a_c), abs(a_s)) < tiny:
+            continue
+        sm = np.array(m) * members_scale  # scaled frequencies
+        w = np.mod(np.tensordot(sm, grid, axes=(0, 0)), q)
+        theta = 2.0 * np.pi * w / q
+        recon += a_c * np.cos(theta) + a_s * np.sin(theta)
+        if sm[0] % q:  # delta-relevant: nonzero self frequency
+            kept.append((sm, a_c, a_s))
+    if np.abs(recon - v).max() > 1e-11 * scale:
+        raise QaryRefused("a local tensor's character sum misses it by more than "
+                          "1e-11 of its scale")
+    return kept
+
+
+def qary_tables(rank_sites, rank_of_site, sites3, strides3, g3, n_codes, tmax,
+                max_rows=QARY_MAX_ROWS) -> QaryTables:
+    """K3's Z_q character rows of every rank (the reference's ``_qary_tables``
+    :651-780, with its arithmetic, row order and refusals).
+
+    For each valid local cluster of a rank's site: its slots grouped by
+    member site (a site may fill several slots in a small cell), the
+    self site first and then the neighbours that are ranks (a frozen
+    single-code site holds code 0 and drops out); the tensor over the
+    members' code grid; its characters (:func:`_characters`), each
+    member's frequency scaled by q / (its code count), q the lcm of the
+    ranks' code counts.  Characters of the same (neighbour frequencies,
+    self frequency) merge across the rank's clusters, their amplitudes
+    summed in insertion order, and the fold is applied after the merge.
+    Raises :class:`QaryRefused` where the reference returns None: q not
+    in {2, 3, 4}, a tensor index at or beyond ``tmax``, a row without a
+    self slot, a reconstruction error above 1e-11 of the scale, more than
+    ``max_rows`` rows on a rank, or no row at all; and for q = 4, which
+    the port does not take yet (ROADMAP.md Queue 2).
+    """
+    R, (_, L0, K) = len(rank_sites), sites3.shape
+    valid_cluster = strides3.sum(axis=2) > 0
+    q = 1
+    for site in rank_sites:
+        q = lcm(q, int(n_codes[site]))
+    if q not in (2, 3, 4):
+        raise QaryRefused(f"the active code counts have lcm {q}, not 2, 3 or 4")
+    if q not in QARY_FOLD:
+        raise QaryRefused("the q = 4 character body is not ported yet (ROADMAP.md "
+                          "Queue 2)")
+    fold_c, fold_s = QARY_FOLD[q]
+    cache = {}  # (code counts, strides, energy table) -> characters
+    rows = [{} for _ in range(R)]  # (neighbours, ms) -> [neighbours, A_c, A_s]
+    for ri, site in enumerate(rank_sites):
+        site = int(site)
+        for l in range(L0):
+            if not valid_cluster[site, l]:
+                continue
+            groups = {}  # member site -> summed stride
+            for k in range(K):
+                st = int(strides3[site, l, k])
+                if st > 0:
+                    member = int(sites3[site, l, k])
+                    groups[member] = groups.get(member, 0) + st
+            if site not in groups:
+                raise QaryRefused("a local cluster without a self slot")
+            members = [site] + [m for m in groups if m != site and rank_of_site[m] >= 0]
+            shape = tuple(int(n_codes[m]) for m in members)
+            strides = tuple(groups[m] for m in members)
+            key = (shape, strides, g3[site, l].tobytes())
+            if key not in cache:
+                cache[key] = _characters(g3[site, l], strides, shape, q, tmax)
+            for sm, a_c, a_s in cache[key]:
+                nbrs = tuple((int(rank_of_site[m]), int(f))
+                             for m, f in zip(members[1:], sm[1:]) if f)
+                entry = rows[ri].setdefault((tuple(sorted(nbrs)), int(sm[0] % q)),
+                                            [nbrs, 0.0, 0.0])
+                entry[1] += a_c
+                entry[2] += a_s
+        if len(rows[ri]) > max_rows:
+            raise QaryRefused(f"a rank with {len(rows[ri])} character rows, above "
+                              f"{max_rows}")
+    n_max = max((len(r) for r in rows), default=0)
+    if n_max == 0:
+        raise QaryRefused("no character changes with a site's code")
+    Lq = max(16, -(-n_max // 16) * 16)  # the reference's row padding
+    NB = max(1, K - 1)  # a row's distinct neighbour sites
+    out = QaryTables(
+        q=q,
+        qnbr=np.full((R, Lq, NB), -1, dtype=np.int32),
+        qfreq=np.zeros((R, Lq, NB), dtype=np.int32),
+        qms=np.zeros((R, Lq), dtype=np.int32),
+        qac=np.zeros((R, Lq), dtype=np.float64),
+        qas=np.zeros((R, Lq), dtype=np.float64),
+        qrows=np.array([len(r) for r in rows], dtype=np.int32),
+    )
+    for ri in range(R):
+        for j, ((_, ms), (nbrs, a_c, a_s)) in enumerate(rows[ri].items()):
+            for k, (rank, f) in enumerate(nbrs):
+                out.qnbr[ri, j, k], out.qfreq[ri, j, k] = rank, f
+            out.qms[ri, j] = ms
+            # fold after the merge, as the reference does
+            out.qac[ri, j], out.qas[ri, j] = fold_c * a_c, fold_s * a_s
+    # the phases are sums of non-negative integers: mod q needs no sign care
+    assert out.qfreq.min() >= 0 and out.qfreq.max() < q
+    assert np.all((out.qms > 0) == (np.arange(Lq) < out.qrows[:, None]))
+    assert out.qms.max() < q
+    return out
 
 
 @dataclass(frozen=True)
@@ -123,6 +310,14 @@ class ChainTables:
     n_active: np.ndarray  # [S] int64 active sites of each sublattice
     ew_v: torch.Tensor | None = None  # [R, R] f64 Ewald fold, V[u, u] = 0
     ew_c: torch.Tensor | None = None  # [R] f64 Ewald fold constants
+    # K3, the q-ary body (qary = q), as :class:`QaryTables`; 0: direct
+    qary: int = 0
+    qnbr: torch.Tensor | None = None  # [R, Lq, NB] int32
+    qfreq: torch.Tensor | None = None  # [R, Lq, NB] int32
+    qms: torch.Tensor | None = None  # [R, Lq] int32
+    qac: torch.Tensor | None = None  # [R, Lq] f64
+    qas: torch.Tensor | None = None  # [R, Lq] f64
+    qrows: torch.Tensor | None = None  # [R] int32
 
     @property
     def num_ranks(self) -> int:
@@ -135,6 +330,11 @@ class ChainTables:
     @property
     def has_ewald(self) -> bool:
         return self.ew_v is not None
+
+    @property
+    def delta(self) -> str:
+        """The site body of the flip and swap chains: ``direct`` or ``qary``."""
+        return "qary" if self.qary else "direct"
 
 
 def _split_processor(processor):
@@ -184,16 +384,24 @@ def fold_ewald(ewald_matrix, ewald_inds, coef, rank_sites, n_codes):
 
 
 def build_chain_tables(processor, sublattices, mu_table=None,
-                       sublattice_probabilities=None) -> ChainTables:
+                       sublattice_probabilities=None, delta=DEFAULT_DELTA) -> ChainTables:
     """Chain tables of a processor's local clusters, on its device.
 
-    The processor is a cluster expansion, or a composite of one and an
-    Ewald term, whose fold the tables then carry.  Requirements, as in the
-    reference: active sublattices with default (arange) encodings and no
-    restricted sites, every non-self slot of a local cluster on an active
-    site or on a single-code (code 0) site, and, with an Ewald term,
-    binary active sites.  Raises ``NotImplementedError`` otherwise.
+    The processor is a cluster expansion (of correlations or of cluster
+    interactions), or a composite of one and an Ewald term, whose fold the
+    tables then carry.  Requirements, as in the reference: active
+    sublattices with default (arange) encodings and no restricted sites,
+    every non-self slot of a local cluster on an active site or on a
+    single-code (code 0) site, and, with an Ewald term, binary active
+    sites.  Raises ``NotImplementedError`` otherwise.
+
+    ``delta`` picks the flip and swap chains' site body: ``"direct"`` or
+    ``"qary"``, K3's character rows (:func:`qary_tables`), which raises
+    where those refuse the system, and with an Ewald term (not ported
+    with that body yet, ROADMAP.md Queue 2).  Nothing falls back.
     """
+    if delta not in DELTAS:
+        raise ValueError(f"unknown chain delta {delta!r}: one of {DELTAS}")
     ce, ewald = _split_processor(processor)
     sites3 = ce.local_sites
     strides3 = ce.local_strides
@@ -255,6 +463,18 @@ def build_chain_tables(processor, sublattices, mu_table=None,
         V, C = fold_ewald(ewald.ewald_matrix, ewald.ewald_inds, ewald.coef,
                           rank_sites, n_codes)
         ew_v, ew_c = dev(V, torch.float64), dev(C, torch.float64)
+    qary = {}
+    if delta == "qary":
+        if ewald is not None:
+            raise NotImplementedError(
+                "the q-ary body with an Ewald term is not ported yet "
+                "(ROADMAP.md Queue 2)")
+        qt = qary_tables(rank_sites, rank_of_site, sites3, strides3, g3, n_codes,
+                         g3.shape[2])
+        qary = {"qary": qt.q, "qnbr": dev(qt.qnbr, torch.int32),
+                "qfreq": dev(qt.qfreq, torch.int32), "qms": dev(qt.qms, torch.int32),
+                "qac": dev(qt.qac, torch.float64), "qas": dev(qt.qas, torch.float64),
+                "qrows": dev(qt.qrows, torch.int32)}
 
     return ChainTables(
         num_sites=n,
@@ -270,6 +490,7 @@ def build_chain_tables(processor, sublattices, mu_table=None,
         n_active=n_active,
         ew_v=ew_v,
         ew_c=ew_c,
+        **qary,
     )
 
 
@@ -400,7 +621,7 @@ def build_table_move(tables: ChainTables, usher) -> TableMove:
     def refuse(why):
         return NotImplementedError(
             f"the table chain cannot take this usher ({why}), and the "
-            "per-step path is not ported yet (ROADMAP.md Queue 1 item 8)"
+            "per-step path is not ported yet (ROADMAP.md Queue 1 item 6)"
         )
 
     flip_table = np.asarray(usher.flip_table, dtype=np.int64)  # [F, D]
@@ -560,6 +781,38 @@ def _ce_terms(tables: ChainTables, occ, u, a, b):
     return g_u.gather(2, tn[..., None])[..., 0] - g_u.gather(2, t[..., None])[..., 0]
 
 
+def _qary_terms(tables: ChainTables, occ, u, a, b):
+    """[W, Lq] f64 change of each character row of rank u[w], a -> b (K3).
+
+    u = sum_k f_k code(nbr_k) is the row's neighbour phase, an integer
+    >= 0; the phases before and after are (u + ms a) mod q and
+    (u + ms b) mod q, and the row's change is qac dc + qas ds with the
+    integer differences dc, ds in {0, +-1, +-2} of the folded selectors.
+    Each product is exact, so the one rounding of the sum is the kernel's.
+    Rows beyond the rank's count have zero amplitudes and add 0.
+    """
+    q = tables.qary
+    walkers = torch.arange(occ.shape[1], device=occ.device)
+    nb = tables.qnbr[u].long()  # [W, Lq, NB]
+    codes = occ[nb.clamp(min=0), walkers[:, None, None]].long()
+    phase = (tables.qfreq[u].long() * codes).sum(dim=-1)  # padding has f = 0
+    ms = tables.qms[u].long()
+    wo = (phase + ms * a[:, None]) % q
+    wn = (phase + ms * b[:, None]) % q
+    sigma_c, sigma_s = (torch.tensor(x, device=occ.device) for x in QARY_SIGMA[q])
+    terms = tables.qac[u] * (sigma_c[wn] - sigma_c[wo]).to(torch.float64)
+    if q != 2:  # q = 2 has no sin characters
+        terms = terms + tables.qas[u] * (sigma_s[wn] - sigma_s[wo]).to(torch.float64)
+    return terms
+
+
+def _site_terms(tables: ChainTables, occ, u, a, b):
+    """[W, *] f64 terms of the site body of the tables, in summation order."""
+    if tables.qary:
+        return _qary_terms(tables, occ, u, a, b)
+    return _ce_terms(tables, occ, u, a, b)
+
+
 def _ewald_term(tables: ChainTables, occ, u, sign):
     """[W] f64 Ewald change sign * (C_u + V_u . occ) of rank u[w].
 
@@ -607,7 +860,8 @@ def flip_step_reference(tables: ChainTables, occ, u, r_u, r_j, beta32):
     [W] random bits, ``beta32`` [W] f32.  Returns ``(accept, b, dE, expo,
     log_u)``: the decision, the proposed codes, the f64 enthalpy change and
     the f32 exponent and log uniform it was decided on.  dE sums the
-    clusters' terms in order l = 0 .. L-1, then the Ewald term, then the
+    clusters' terms in order l = 0 .. L-1 (with the q-ary body, the
+    character rows' terms in row order), then the Ewald term, then the
     chemical work, as the kernel does.
     """
     walkers = torch.arange(occ.shape[1], device=occ.device)
@@ -617,8 +871,7 @@ def flip_step_reference(tables: ChainTables, occ, u, r_u, r_j, beta32):
     j = r_j % nc
     b = j + (j >= a).long()
 
-    terms = _ce_terms(tables, occ, u, a, b)
-    columns = list(terms.unbind(1))
+    columns = list(_site_terms(tables, occ, u, a, b).unbind(1))
     if tables.has_ewald:
         columns.append(_ewald_term(tables, occ, u, b - a))
     dE = _accumulate(*columns) - (tables.mu[u, b] - tables.mu[u, a])
@@ -643,11 +896,13 @@ def swap_step_reference(tables: ChainTables, occ, u, v, r_u, beta32):
     b = occ[v, walkers].long()
     is_move = a != b
 
-    columns = list(_ce_terms(tables, occ, u, a, b).unbind(1))
+    columns = list(_site_terms(tables, occ, u, a, b).unbind(1))
     if tables.has_ewald:
         ewald_u = _ewald_term(tables, occ, u, b - a)
-    occ[u, walkers] = b.to(occ.dtype)  # v's delta sees u already holding b
-    columns += list(_ce_terms(tables, occ, v, b, a).unbind(1))
+    # v's delta sees u already holding b: with the q-ary body, v's phases
+    # take u's new code, which stands for the reference's rank-1 correction
+    occ[u, walkers] = b.to(occ.dtype)
+    columns += list(_site_terms(tables, occ, v, b, a).unbind(1))
     if tables.has_ewald:
         columns += [ewald_u, _ewald_term(tables, occ, v, a - b)]
     occ[u, walkers] = a.to(occ.dtype)
@@ -848,6 +1103,28 @@ def _ewald_pointers(tables):
     return tables.ew_v.data_ptr(), tables.ew_c.data_ptr()
 
 
+def _qary_pointers(tables):
+    """K3's table pointers (all None for the direct body)."""
+    names = ("qnbr", "qfreq", "qms", "qac", "qas", "qrows")
+    if not tables.qary:
+        return (None,) * len(names)
+    return tuple(getattr(tables, name).data_ptr() for name in names)
+
+
+def _qary_shape(tables):
+    """(q, Lq, NB) of K3's rows, zeros for the direct body."""
+    if not tables.qary:
+        return 0, 0, 0
+    return tables.qary, *tables.qnbr.shape[1:]
+
+
+def _direct_only(name, tables):
+    if tables.qary:
+        raise NotImplementedError(
+            f"{name} takes the direct body only; its q-ary body is not ported "
+            "yet (ROADMAP.md Queue 2)")
+
+
 def flip_chain(occ, enthalpy, naccept, beta32, seq, seed, tables, n_steps,
                block_size, rng="philox"):
     """Run ``n_steps`` shared-proposal flips on every walker, in place.
@@ -860,11 +1137,13 @@ def flip_chain(occ, enthalpy, naccept, beta32, seq, seed, tables, n_steps,
         seq: [G, >= n_steps] int32 proposal ranks, one row per block of
             ``block_size`` walkers (G = ceil(W / block_size)).
         seed: [1] int64 seed of this launch.
-        tables: :class:`ChainTables` on the same device.
+        tables: :class:`ChainTables` on the same device; their site body
+            (``tables.delta``, direct or K3's q-ary rows) is the kernel's.
         rng: ``"philox"`` (run mode) or ``"hash"`` (reference parity).
 
     A CUDA tensor launches the kernel (``flip_chain.launches`` counts the
-    launches); a CPU tensor runs :func:`flip_chain_reference`.
+    launches, ``flip_chain.qary_launches`` those with the q-ary body); a
+    CPU tensor runs :func:`flip_chain_reference`.
     """
     _check_operands("flip_chain", occ, enthalpy, (naccept,), beta32, (seq,),
                     seed, tables, n_steps, block_size)
@@ -886,15 +1165,18 @@ def flip_chain(occ, enthalpy, naccept, beta32, seq, seed, tables, n_steps,
             beta32.data_ptr(), seq.data_ptr(), seq.stride(0), seed.data_ptr(),
             tables.nbr.data_ptr(), tables.stride.data_ptr(),
             tables.d2.data_ptr(), tables.g.data_ptr(), tables.mu.data_ptr(),
-            tables.ncode.data_ptr(), *_ewald_pointers(tables), R, L, K,
-            tables.g.shape[2], tables.mu.shape[1], W, block_size, n_steps,
-            RNG_MODES[rng], stream,
+            tables.ncode.data_ptr(), *_ewald_pointers(tables),
+            *_qary_pointers(tables), R, L, K, tables.g.shape[2],
+            tables.mu.shape[1], W, block_size, n_steps, RNG_MODES[rng],
+            *_qary_shape(tables), stream,
         )
     flip_chain.launches += 1
+    flip_chain.qary_launches += bool(tables.qary)
     _launch_check(lib, "flip_chain", rc)
 
 
 flip_chain.launches = 0
+flip_chain.qary_launches = 0  # of the launches, those with K3's q-ary body
 
 
 def swap_chain(occ, enthalpy, naccept, nmove, beta32, useq, vseq, seed,
@@ -905,7 +1187,8 @@ def swap_chain(occ, enthalpy, naccept, nmove, beta32, useq, vseq, seed,
     ``vseq`` ([G, >= n_steps] int32 each, one layout) in place of ``seq``
     and ``nmove`` [W] int32, to which the non-null proposals are added.
     A CUDA tensor launches the kernel (``swap_chain.launches`` counts the
-    launches); a CPU tensor runs :func:`swap_chain_reference`.
+    launches, ``swap_chain.qary_launches`` those with the q-ary body); a
+    CPU tensor runs :func:`swap_chain_reference`.
     """
     _check_operands("swap_chain", occ, enthalpy, (naccept, nmove), beta32,
                     (useq, vseq), seed, tables, n_steps, block_size)
@@ -928,14 +1211,16 @@ def swap_chain(occ, enthalpy, naccept, nmove, beta32, useq, vseq, seed,
             vseq.data_ptr(), useq.stride(0), seed.data_ptr(),
             tables.nbr.data_ptr(), tables.stride.data_ptr(),
             tables.d2.data_ptr(), tables.g.data_ptr(), *_ewald_pointers(tables),
-            R, L, K, tables.g.shape[2], W, block_size, n_steps, RNG_MODES[rng],
-            stream,
+            *_qary_pointers(tables), R, L, K, tables.g.shape[2], W, block_size,
+            n_steps, RNG_MODES[rng], *_qary_shape(tables), stream,
         )
     swap_chain.launches += 1
+    swap_chain.qary_launches += bool(tables.qary)
     _launch_check(lib, "swap_chain", rc)
 
 
 swap_chain.launches = 0
+swap_chain.qary_launches = 0  # of the launches, those with K3's q-ary body
 
 
 def _cuda_block_threads(W, block_size):
@@ -947,13 +1232,24 @@ def _cuda_block_threads(W, block_size):
 
 def _shared_bytes(tables, row_sets, W, block_size):
     """Dynamic shared memory of one launch, in bytes: ``row_sets`` sets of
-    one rank's table rows (``rows_bytes`` of chain_common.cuh) and the
-    block's codes."""
-    L, K = tables.nbr.shape[1:]
-    ewald_row = tables.num_ranks if tables.has_ewald else 0
-    row_set = L * tables.g.shape[2] * 8 + ewald_row * 8 + L * (2 * K + 1) * 4
+    one rank's rows (``rows_bytes`` of chain_common.cuh, or ``qrows_bytes``
+    for K3's character rows) and the block's codes."""
+    if tables.qary:  # no Ewald row: the q-ary tables refuse the term
+        Lq, NB = tables.qnbr.shape[1:]
+        row_set = Lq * 16 + Lq * (2 * NB + 1) * 4
+    else:
+        L, K = tables.nbr.shape[1:]
+        ewald_row = tables.num_ranks if tables.has_ewald else 0
+        row_set = L * tables.g.shape[2] * 8 + ewald_row * 8 + L * (2 * K + 1) * 4
     row_set = -(-row_set // 16) * 16
     return row_sets * row_set + tables.num_ranks * _cuda_block_threads(W, block_size)
+
+
+def chain_shared_bytes(tables, move, W, block_size):
+    """Dynamic shared memory of one flip- or swap-chain launch, in bytes:
+    two buffers of the step's row sets (u's, and v's for a swap) and the
+    block's codes."""
+    return _shared_bytes(tables, 4 if move == "swap" else 2, W, block_size)
 
 
 def table_chain_shared_bytes(tables, k_max, W, block_size):
@@ -973,6 +1269,7 @@ def table_chain(occ, enthalpy, naccept, beta32, dirs, ranks, seed, tables,
     (``table_chain.launches`` counts the launches); a CPU tensor runs
     :func:`table_chain_reference`.
     """
+    _direct_only("table_chain", tables)
     _check_operands("table_chain", occ, enthalpy, (naccept,), beta32, (dirs,),
                     seed, tables, n_steps, block_size)
     k_max = table_move.k_max
@@ -1256,6 +1553,7 @@ def wl_chain(occ, enthalpy, naccept, entropy, histogram, occurrences,
     if wl.num_levels < 1 or wl.check_period < 1 or wl.update_period < 1:
         raise ValueError("wl_chain: num_levels, check_period and update_period "
                          "must be positive")
+    _direct_only("wl_chain", tables)
     W = occ.shape[1]
     _check_operands(
         "wl_chain", occ, enthalpy, (naccept,), None, seqs, seed, tables, n_steps,
@@ -1386,6 +1684,9 @@ def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
         raise ValueError(f"unknown rng mode: {rng!r}")
     if wl is not None and move == "table":
         raise ValueError("the Wang-Landau chain supports flip/swap moves only")
+    if wl is not None or move == "table":
+        _direct_only("the Wang-Landau chain" if wl is not None else "table_chain",
+                     tables)
     swap, table = move == "swap", move == "table"
     max_chunk = MAX_CHUNK_STEPS // table_move.k_max if table else MAX_CHUNK_STEPS
     chunk = min(n_steps, max_chunk) if rng == "hash" else n_steps

@@ -1,15 +1,17 @@
-"""Correlation vectors of a batch of occupancies.
+"""Correlation and cluster-interaction vectors of a batch of occupancies.
 
 Counterpart of ``smol_tpu/ops/correlations.py`` (``tensor_indices`` :125,
-``corr_from_occupancy`` :149).  The reference selects each cluster's tensor
-value from precomputed planes, because gathers are slow on a TPU; here the
-value is one direct gather, and the functions' sums one reduction over the
-(function, cluster) pairs laid out [num_corr, Pmax], each function's run
-padded to the longest with pairs of weight zero: a reduction along a
-dimension adds in a fixed order on every device, so the same occupancy
-gives the same bits in every run (``index_add_`` adds with f64 atomics on
-CUDA, in no fixed order).
-Correlations are float64, indices int64 (torch's index type).
+``corr_from_occupancy`` :149, ``interactions_from_occupancy`` :159).  The
+reference selects each cluster's tensor value from precomputed planes,
+because gathers are slow on a TPU; here the value is one direct gather, and
+the functions' (or orbits') sums one reduction over the (function, cluster)
+pairs laid out [num_corr, Pmax] (the clusters laid out [num_orbits, Cmax]),
+each run padded to the longest with entries of weight zero: a reduction
+along a dimension adds in a fixed order on every device, so the same
+occupancy gives the same bits in every run (``index_add_`` adds with f64
+atomics on CUDA, in no fixed order).
+Correlations and interactions are float64, indices int64 (torch's index
+type).
 """
 
 from __future__ import annotations
@@ -19,7 +21,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-__all__ = ["PackedTensors", "to_device", "tensor_indices", "corr_from_occupancy"]
+__all__ = [
+    "PackedTensors",
+    "to_device",
+    "tensor_indices",
+    "corr_from_occupancy",
+    "PackedInteractions",
+    "interactions_to_device",
+    "interactions_from_occupancy",
+]
 
 
 @dataclass(frozen=True)
@@ -36,6 +46,38 @@ class PackedTensors:
     fn_cluster_count: torch.Tensor  # [num_corr] f64
 
 
+@dataclass(frozen=True)
+class PackedInteractions:
+    """The interaction tensors of a cluster-decomposition processor."""
+
+    num_orbits: int
+    offset: float  # the constant (empty-cluster) interaction
+    inter_flat: torch.Tensor  # [T] f64 every orbit's interaction tensor
+    cluster_index: torch.Tensor  # [num_orbits * Cmax] int64, orbit-major
+    cluster_offset: torch.Tensor  # [num_orbits * Cmax] int64 tensor start
+    cluster_weight: torch.Tensor  # [num_orbits, Cmax] f64: 1 a cluster, 0 padding
+    orbit_cluster_count: torch.Tensor  # [num_orbits] f64
+
+
+def _grouped(keys, num_groups):
+    """(order, slot, width): the entries sorted by key (stably) and each
+    one's slot in a [num_groups, width] layout, every group's run padded
+    to the longest."""
+    keys = np.asarray(keys)
+    order = np.argsort(keys, kind="stable")
+    counts = np.bincount(keys, minlength=num_groups)
+    starts = np.cumsum(counts) - counts
+    width = max(int(counts.max()), 1)
+    slot = keys[order] * width + np.arange(len(order)) - starts[keys[order]]
+    return order, slot, width
+
+
+def _padded(values, order, slot, size, dtype, device):
+    flat = np.zeros(size, dtype=dtype)
+    flat[slot] = values[order]
+    return torch.as_tensor(flat, device=device)
+
+
 def to_device(system: dict, device) -> PackedTensors:
     """Move a system's packed-supercell arrays to ``device``."""
 
@@ -49,26 +91,43 @@ def to_device(system: dict, device) -> PackedTensors:
 
     num_corr = int(system["num_corr"])
     # the pairs function by function, each run padded to the longest
-    pair_fn = np.asarray(system["pair_fn"])
-    order = np.argsort(pair_fn, kind="stable")
-    counts = np.bincount(pair_fn, minlength=num_corr)
-    starts = np.cumsum(counts) - counts
-    slot = pair_fn[order] * counts.max() + np.arange(len(order)) - starts[pair_fn[order]]
+    order, slot, width = _grouped(system["pair_fn"], num_corr)
 
-    def padded(name, dtype):
-        flat = np.zeros(num_corr * counts.max(), dtype=dtype)
-        flat[slot] = 1 if name is None else np.asarray(system[name])[order]
-        return torch.as_tensor(flat, device=device)
+    def padded(values, dtype):
+        return _padded(np.asarray(values), order, slot, num_corr * width, dtype, device)
 
     return PackedTensors(
         num_corr=num_corr,
         cluster_sites=ints("cluster_sites"),
         cluster_strides=ints("cluster_strides"),
         corr_flat=floats("corr_flat"),
-        pair_cluster=padded("pair_cluster", np.int64),
-        pair_offset=padded("pair_offset", np.int64),
-        pair_weight=padded(None, np.float64).view(num_corr, -1),
+        pair_cluster=padded(system["pair_cluster"], np.int64),
+        pair_offset=padded(system["pair_offset"], np.int64),
+        pair_weight=padded(np.ones(len(order)), np.float64).view(num_corr, -1),
         fn_cluster_count=floats("fn_cluster_count"),
+    )
+
+
+def interactions_to_device(system: dict, device) -> PackedInteractions:
+    """Move a decomposition system's interaction arrays to ``device``."""
+    num_orbits = len(np.asarray(system["orbit_cluster_count"]))
+    cluster_orbit = np.asarray(system["cluster_orbit"])
+    # the clusters orbit by orbit, each run padded to the longest
+    order, slot, width = _grouped(cluster_orbit, num_orbits)
+    size = num_orbits * width
+    starts = np.asarray(system["orbit_offset"])[cluster_orbit]
+    return PackedInteractions(
+        num_orbits=num_orbits,
+        offset=float(system["offset"]),
+        inter_flat=torch.as_tensor(np.asarray(system["inter_flat"], dtype=np.float64),
+                                   device=device),
+        cluster_index=_padded(np.arange(len(cluster_orbit)), order, slot, size,
+                              np.int64, device),
+        cluster_offset=_padded(starts, order, slot, size, np.int64, device),
+        cluster_weight=_padded(np.ones(len(order)), order, slot, size, np.float64,
+                               device).view(num_orbits, -1),
+        orbit_cluster_count=torch.as_tensor(
+            np.asarray(system["orbit_cluster_count"], dtype=np.float64), device=device),
     )
 
 
@@ -92,3 +151,21 @@ def corr_from_occupancy(occu: torch.Tensor, packed: PackedTensors) -> torch.Tens
     corr = sums / packed.fn_cluster_count
     corr[:, 0] = 1.0
     return corr
+
+
+def interactions_from_occupancy(occu: torch.Tensor, packed: PackedTensors,
+                                inter: PackedInteractions) -> torch.Tensor:
+    """Cluster-interaction vectors [W, num_orbits] f64 of occupancies [W, N].
+
+    Each cluster's value is its orbit's interaction tensor at the cluster's
+    tensor index; an orbit's entry is the sum over its clusters divided by
+    its cluster count, and entry 0 is the offset.
+    """
+    occu = torch.atleast_2d(occu)
+    tidx = tensor_indices(occu, packed)  # [W, C]
+    vals = inter.inter_flat[inter.cluster_offset + tidx[:, inter.cluster_index]]
+    weight = inter.cluster_weight
+    sums = (vals.view(len(vals), *weight.shape) * weight).sum(dim=-1)
+    out = sums / inter.orbit_cluster_count
+    out[:, 0] = inter.offset
+    return out

@@ -1,9 +1,10 @@
 """Reductions over buffered sample segments, where the samples live.
 
 Counterpart of ``smol_tpu/ops/reductions.py`` (:65-184).  The sample
-container keeps record batches on the device; these helpers reduce each
-segment on its own device and combine the partial sums there, so only the
-per-walker (or pooled) results are copied to the host, once.  Two-pass
+container keeps record batches on the device (or, past its cap, on the
+host); these helpers reduce each segment where it lives and combine the
+partial sums on the first one's device, so only the per-walker (or
+pooled) results are copied to the host, once.  Two-pass
 mean and variance: the squared deviations are taken against the final
 mean.
 
@@ -57,10 +58,18 @@ def _partials(segments, masks):
             yield _selected(values, mask)
 
 
+def _add(total, part):
+    """total + part, on the device of the first part (segments may lie on
+    the card or, once moved, on the host)."""
+    if isinstance(total, torch.Tensor):
+        part = part.to(total.device)
+    return total + part
+
+
 def _mean(segments, masks, rows, pool):
     total = 0.0
     for x in _partials(segments, masks):
-        total = total + _sum(x, pool)
+        total = _add(total, _sum(x, pool))
     return total / _count(segments, rows, pool)
 
 
@@ -76,7 +85,7 @@ def _sqdev(segments, masks, rows, mean, pool):
     total = 0.0
     for x in _partials(segments, masks):
         center = torch.as_tensor(mean, dtype=torch.float64, device=x.device)
-        total = total + _sum((x - center) ** 2, pool)
+        total = _add(total, _sum((x - center) ** 2, pool))
     return total / _count(segments, rows, pool)
 
 

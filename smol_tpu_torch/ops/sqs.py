@@ -155,7 +155,7 @@ def build_distance_tables(processor) -> DistanceTables:
     def refuse(why):
         return NotImplementedError(
             f"the distance chain cannot take this processor ({why}), and the "
-            "per-step path is not ported yet (ROADMAP.md Queue 1 item 8)"
+            "per-step path is not ported yet (ROADMAP.md Queue 1 item 6)"
         )
 
     if type(processor).__name__ != "CorrelationDistanceProcessor":

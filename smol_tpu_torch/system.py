@@ -28,6 +28,14 @@ Keys of a system dict (N sites, C clusters of at most K sites, P
   arrays concatenated in sublattice order;
 - ``natural_parameters`` [F] f64 and, for a semigrand ensemble,
   ``chemical_potential_table`` [N, max code + 1] f64;
+- for the reference's ``ClusterDecompositionProcessor`` (the default
+  processor of ``Ensemble.from_cluster_expansion``): ``processor_type``
+  0-d str ``"decomposition"`` (a file without the key holds an
+  expansion), ``inter_flat`` f64 (every orbit's interaction tensor),
+  ``offset`` 0-d f64 (the empty cluster's interaction), ``orbit_offset``
+  [orbits] int32, ``cluster_orbit`` [C] int32 and ``orbit_cluster_count``
+  [orbits] f64; ``num_energy_coefs`` is then the orbit count and
+  ``natural_parameters`` starts with the decomposition's coefficients;
 - for a cluster expansion with an Ewald term (the reference's
   ``CompositeProcessor`` of a cluster-expansion and an ``EwaldProcessor``):
   ``ewald_matrix`` [n_ew, n_ew] f64, ``ewald_inds`` [N, max codes] int32
@@ -147,22 +155,32 @@ def export_system(ensemble, usher=None) -> dict:
     The ensemble's processor must be a cluster-expansion processor (its
     features are the extensive correlation vector), the form the port's
     :class:`~smol_tpu_torch.moca.processor.expansion.ClusterExpansionProcessor`
-    evaluates, or a composite of one such and an Ewald processor (what
-    ``from_cluster_expansion`` builds for a subspace with an Ewald term).
-    Build it with ``Ensemble.from_cluster_expansion(...,
-    processor_type="expansion")``.  With ``usher``, a ``TableFlip`` usher
-    of the ensemble's sublattices, the system also carries its flip table,
-    its dimension ids and the site charges (see the module docstring).
+    evaluates, alone or in a composite followed by an Ewald processor
+    (``from_cluster_expansion(..., processor_type="expansion")``), or a
+    cluster-decomposition processor alone (``from_cluster_expansion``'s
+    default), whose features the port's
+    :class:`~smol_tpu_torch.moca.processor.expansion.ClusterDecompositionProcessor`
+    evaluates.  A composite of a decomposition and an Ewald term raises
+    ``NotImplementedError``.  With ``usher``, a ``TableFlip`` usher of the
+    ensemble's sublattices, the system also carries its flip table, its
+    dimension ids and the site charges (see the module docstring).
     """
     processor = ensemble.processor
     parts = getattr(processor, "processors", [processor])
     names = [type(p).__name__ for p in parts]
+    if names == ["ClusterDecompositionProcessor", "EwaldProcessor"]:
+        raise NotImplementedError(
+            "a cluster decomposition with an Ewald term is not ported yet "
+            "(ROADMAP.md Queue 1 item 6); build the ensemble with "
+            "processor_type='expansion'"
+        )
     if names not in (["ClusterExpansionProcessor"],
-                     ["ClusterExpansionProcessor", "EwaldProcessor"]):
+                     ["ClusterExpansionProcessor", "EwaldProcessor"],
+                     ["ClusterDecompositionProcessor"]):
         raise ValueError(
             "export_system needs a ClusterExpansionProcessor, alone or "
-            "followed by an EwaldProcessor in a composite (build the "
-            "ensemble with processor_type='expansion'); got "
+            "followed by an EwaldProcessor in a composite, or a "
+            "ClusterDecompositionProcessor alone; got "
             f"{type(processor).__name__} of {names}"
         )
     ewald = parts[1] if len(parts) == 2 else None
@@ -183,6 +201,16 @@ def export_system(ensemble, usher=None) -> dict:
             ensemble.natural_parameters, dtype=np.float64
         ),
     }
+    if names == ["ClusterDecompositionProcessor"]:
+        system.update({
+            "processor_type": np.str_("decomposition"),
+            "inter_flat": np.asarray(processor._inter_flat, dtype=np.float64),
+            "offset": np.float64(processor._offset),
+            "orbit_offset": np.asarray(packed.orbit_offset, dtype=np.int32),
+            "cluster_orbit": np.asarray(packed.cluster_orbit, dtype=np.int32),
+            "orbit_cluster_count": np.asarray(packed.orbit_cluster_count,
+                                              dtype=np.float64),
+        })
     mu_table = ensemble.chemical_potential_table
     if mu_table is not None:
         system["chemical_potential_table"] = np.asarray(

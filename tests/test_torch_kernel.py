@@ -12,7 +12,11 @@ enthalpies to 1e-9 absolute), including a partial CUDA block, sequence
 blocks smaller than a CUDA block, the main paths' launch shapes (8192
 walkers in blocks of 1024, or 512 for Au-Cu), the Ewald term (the flip
 kernel on the canonical spinel CE + Ewald too) and the general (runtime
-slot count) kernels; a refused operand raises before any launch.  The
+slot count) kernels; a refused operand raises before any launch.  So must
+both with K3's q-ary body: q = 3 on bench ``sgc`` (3x3x3, and 6x6x6 at the
+main path's launch shape) and the ternary CE's canonical swaps, q = 2 on
+Au-Cu, and the runtime neighbour count body; and the direct body on the
+ternary tables.  The
 table-move kernel likewise, in its two-slot body (the semigrand spinel
 CE + Ewald), its runtime slot count body (the rocksalt whose moves recolor
 up to three sites, and the spinel's table padded to four slots), keeping
@@ -51,13 +55,14 @@ def card():
     return torch.device("cuda")
 
 
-def _operands(card, cell, W, n_steps, block_size, move="flip"):
+def _operands(card, cell, W, n_steps, block_size, move="flip", delta="direct"):
     """Operands of one launch on system file ``torch_<cell>.npz`` (a bare
-    supercell name is the semigrand spinel)."""
+    supercell name is the semigrand spinel), with the site body ``delta``."""
     stem = cell if "_" in cell else f"spinel_{cell}"
     ens = Ensemble.from_system(load_system(DATA / f"torch_{stem}.npz"), card)
     tables = chain.build_chain_tables(
-        ens.processor, ens.sublattices, mu_table=ens.chemical_potential_table
+        ens.processor, ens.sublattices, mu_table=ens.chemical_potential_table,
+        delta=delta,
     )
     occu = torch.as_tensor(random_occupancies(ens, W, seed=3), device=card)
     gen = torch.Generator(device=card).manual_seed(0)
@@ -208,6 +213,49 @@ def test_general_slot_count_swap_matches_twin(card, cell):
     )
     kernel, twin = _kernel_and_twin(ops, chain.swap_chain, chain.swap_chain_reference,
                                     "philox", kernel_tables=padded)
+    _assert_same(kernel, twin, 400)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+@pytest.mark.parametrize(
+    "cell,move,W,block_size",
+    [("sgc_3x3x3", "flip", 256, 64), ("sgc_3x3x3", "flip", 200, 8),
+     ("sgc_6x6x6", "flip", 8192, 1024),  # the sgc main path's launch shape
+     ("sgc_3x3x3", "swap", 1000, 1024),  # the ternary CE, canonical swaps
+     ("aucu_4x4x4", "flip", 256, 64), ("aucu_4x4x4", "swap", 8192, 512)],  # q = 2
+)
+def test_qary_kernel_matches_twin(card, rng, cell, move, W, block_size):
+    """K3 in the flip and swap kernels against the q-ary twin."""
+    ops = _operands(card, cell, W, 400, block_size, move=move, delta="qary")
+    assert ops["tables"].qary == (2 if cell.startswith("aucu") else 3)
+    kernel_fn, twin_fn = {"flip": (chain.flip_chain, chain.flip_chain_reference),
+                          "swap": (chain.swap_chain, chain.swap_chain_reference)}[move]
+    kernel, twin = _kernel_and_twin(ops, kernel_fn, twin_fn, rng)
+    _assert_same(kernel, twin, 400)
+    if move == "swap":
+        counts = [torch.stack([(o["occ"] == c).sum(dim=0) for c in range(3)])
+                  for o in (ops, kernel)]
+        assert torch.equal(*counts)  # each walker keeps its composition
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("move", ["flip", "swap"])
+def test_qary_general_neighbour_count_matches_twin(card, move):
+    """A third, empty neighbour slot (-1, frequency 0) takes the runtime-NB
+    body; the direct body on the same ternary tables (TM = 27) too."""
+    ops = _operands(card, "sgc_3x3x3", 256, 400, 64, move=move, delta="qary")
+    t = ops["tables"]
+    padded = dataclasses.replace(
+        t, qnbr=torch.nn.functional.pad(t.qnbr, (0, 1), value=-1).contiguous(),
+        qfreq=torch.nn.functional.pad(t.qfreq, (0, 1), value=0).contiguous())
+    kernel_fn, twin_fn = {"flip": (chain.flip_chain, chain.flip_chain_reference),
+                          "swap": (chain.swap_chain, chain.swap_chain_reference)}[move]
+    kernel, twin = _kernel_and_twin(ops, kernel_fn, twin_fn, "philox",
+                                    kernel_tables=padded)
+    _assert_same(kernel, twin, 400)
+    direct = _operands(card, "sgc_3x3x3", 256, 400, 64, move=move)
+    kernel, twin = _kernel_and_twin(direct, kernel_fn, twin_fn, "hash")
     _assert_same(kernel, twin, 400)
 
 

@@ -11,7 +11,10 @@ walkers, fixed seeds):
 - every recorded enthalpy equals the recorded (lazily derived) features
   dotted with the natural parameters to < 1e-9 (parity e);
 - the records stay on the run's device and the statistics match the
-  host arrays they reduce.
+  host arrays they reduce;
+- records come in bounded launches, and past the container's cap the
+  batches move to host memory: a run with a tiny cap takes more than one
+  launch and records the same traces and statistics as an uncapped run.
 """
 
 import sys
@@ -186,3 +189,45 @@ def test_reductions_match_numpy(pool):
     np.testing.assert_array_equal(
         reductions.masked_min_segments(segments, masks, pool), picked.min(axis=axis)
     )
+
+
+def test_bounded_launches_and_record_cap(port_run):
+    """(f) P1: a tiny cap moves every batch to host memory, and a run of
+    several launches records what one launch does."""
+    from smol_tpu_torch.ops import mc
+
+    ens, _ = port_run
+    occ0 = _initial(ens)[:8]
+    launches = []
+    real = mc.run_chain_fused
+
+    def counted(*args):
+        launches.append(args[-1])
+        return real(*args)
+
+    runs = []
+    for per_launch, cap in ((None, None), (3, 1)):
+        s = TorchSampler.from_ensemble(ens, 1000.0, 8, seed=7, device="cpu")
+        s.samples.pending_bytes_max = cap
+        launches.clear()
+        import smol_tpu_torch.moca.sampler.sampler as sampler_module
+
+        sampler_module.run_chain_fused = counted
+        try:
+            s.run(200, occ0, thin_by=20, samples_per_launch=per_launch)
+        finally:
+            sampler_module.run_chain_fused = real
+        runs.append((s, list(launches)))
+    (whole, one), (capped, several) = runs
+    assert one == [10]  # 10 records of 8 walkers: far below 256 MB
+    assert several == [3, 3, 3, 1]
+    assert whole.samples.moved_batches == 0
+    assert capped.samples.moved_batches == 4  # every batch passed the cap
+    for name in ("occupancy", "enthalpy", "accept_rate", "features"):
+        np.testing.assert_array_equal(capped.samples.get_trace_value(name),
+                                      whole.samples.get_trace_value(name))
+    # four segments sum in another order than one
+    np.testing.assert_allclose(capped.samples.mean_enthalpy(),
+                               whole.samples.mean_enthalpy(), rtol=1e-14)
+    with pytest.raises(ValueError, match="samples_per_launch"):
+        capped.run(20, occ0, thin_by=20, samples_per_launch=0)

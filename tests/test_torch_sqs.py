@@ -315,7 +315,7 @@ def test_generator_on_cpu():
                                                       generator.start_scores):
         assert np.all(occupancies.sum(axis=1) == ports[shape].num_sites // 2)
         assert np.all(scores <= start.numpy() + 1e-12)  # never loses ground
-    best = generator.get_best_sqs(num_structures=5)
+    best = generator.get_best_sqs(num_structures=5, remove_duplicates=False)
     assert len(best) == 5 and all(a.score <= b.score for a, b in zip(best, best[1:]))
     for record in best:
         exact = generator.compute_score(record.occupancy, record.supercell_matrix)
@@ -327,25 +327,27 @@ def test_generator_on_cpu():
     generator.generate(mcmc_steps=20, temperatures=[1.0], nwalkers=4, seed=1,
                        clear_previous=False, max_save_num=10)
     assert generator.num_structures == 10
-    assert generator.get_best_sqs(1)[0].score == best[0].score
+    assert generator.get_best_sqs(1, remove_duplicates=False)[0].score == best[0].score
 
 
 def test_refusals():
     refs, ports = _small_generator_shapes()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         ClusterInteractionDistanceProcessor(ports[0].system, "cpu")
     with pytest.raises(NotImplementedError, match="step_type"):
         StochasticSQSGenerator(ports, device="cpu", step_type="flip")
     generator = StochasticSQSGenerator.from_processors(ports[:1], device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         generator.sampler
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         StochasticSQSGenerator.from_structure(fcc_binary_prim(), {2: 4.0}, 8)
     generator.generate(mcmc_steps=5, temperatures=[1.0], nwalkers=2, seed=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         generator.get_best_sqs(1, remove_duplicates=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        generator.get_best_sqs(1)[0].structure
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        generator.get_best_sqs(1)  # the reference's default removes duplicates
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        generator.get_best_sqs(1, remove_duplicates=False)[0].structure
     restricted = CorrelationDistanceProcessor(ports[0].system, "cpu")
     restricted.get_sublattices()[0].active_sites = restricted.get_sublattices()[0].sites[1:]
     with pytest.raises(NotImplementedError, match="restricted"):

@@ -11,13 +11,15 @@
   ids and site charges, and of each Wang-Landau system (Au-Cu 3x3x3 with
   the bench's window, the 8-site nearest-neighbour cell with its exact
   enthalpies), and of each SQS file (the bench's 20 shapes of 8 sites, in
-  its generator's order, and the 64-site shape) shape for shape;
+  its generator's order, and the 64-site shape) shape for shape, and of
+  each decomposition-form system (bench ``sgc`` 6x6x6 and 3x3x3, the bench
+  spinel 2x2x2), which the port loads with its decomposition processor;
 - the exporter refuses a processor the port cannot evaluate, alone or as
   the expansion part of a composite;
 - with ``jax`` blocked from importing, a subprocess imports the port and
   runs short CPU slices from the system files, semigrand flips,
-  canonical swaps with Ewald, table flips, Wang-Landau flips and an SQS
-  search;
+  canonical swaps with Ewald, table flips, Wang-Landau flips, an SQS
+  search and ternary flips on ``sgc`` with the q-ary body;
 - neither ``chip_smoke.py`` nor any module of ``smol_tpu_torch`` imports
   ``jax`` or ``smol_tpu``.
 """
@@ -38,12 +40,14 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "scripts"))
 from export_torch_systems import (  # noqa: E402
     CANONICAL,
+    DECOMPOSITION,
     SQS,
     SUPERCELLS,
     TABLE,
     WANG_LANDAU,
     canonical_system,
     data_path,
+    decomposition_system,
     spinel_ensemble,
     sqs_systems,
     system_path,
@@ -143,6 +147,31 @@ def test_committed_sqs_systems_match_fresh_export(stem):
     assert all(round(abs(np.linalg.det(s["supercell_matrix"]))) == s["size"] for s in committed)
 
 
+@pytest.mark.parametrize("stem", sorted(DECOMPOSITION))
+def test_committed_decomposition_system_matches_fresh_export(stem):
+    from smol_tpu_torch.moca.ensemble import Ensemble as TorchEnsemble
+    from smol_tpu_torch.moca.processor.expansion import ClusterDecompositionProcessor
+
+    fresh = decomposition_system(stem)
+    committed = load_system(data_path(stem))
+    assert sorted(fresh) == sorted(committed)
+    for key, value in fresh.items():
+        stored = committed[key]
+        assert stored.dtype == np.asarray(value).dtype, key
+        np.testing.assert_array_equal(stored, value, err_msg=key)
+    assert str(committed["processor_type"]) == "decomposition"
+    assert "chemical_potential_table" in committed and "ewald_matrix" not in committed
+    num_orbits = len(committed["orbit_cluster_count"])
+    assert committed["num_energy_coefs"] == num_orbits
+    assert committed["natural_parameters"][-1] == -1.0  # the chemical work
+    ensemble = TorchEnsemble.from_system(committed, "cpu")
+    assert isinstance(ensemble.processor, ClusterDecompositionProcessor)
+    if stem.startswith("sgc"):  # bench.py's sgc: 7 orbits, ternary codes
+        n = int(stem[4])
+        assert num_orbits == 7 and committed["num_sites"] == n ** 3
+        assert committed["local_g"].shape[1:] == (104, 27)
+
+
 def test_canonical_aucu_carries_its_wang_landau_window():
     committed = load_system(data_path("aucu_4x4x4"))
     width = committed["wl_max_enthalpy"] - committed["wl_min_enthalpy"]
@@ -160,13 +189,26 @@ def test_local_arrays_equal_reference(bench_spinel):
 
 
 def test_export_requires_expansion_processor():
+    """The exporter takes the two cluster processors (a decomposition is
+    written with its ``processor_type``) and refuses any other."""
+    from types import SimpleNamespace
+
     from smol_tpu.benchmarks.systems import random_expansion, spinel_prim
     from smol_tpu.moca import Ensemble
 
     ce = random_expansion(spinel_prim(), {2: 4.0}, seed=11)
     ens = Ensemble.from_cluster_expansion(ce, np.diag([1, 1, 1]))
+    assert type(ens.processor).__name__ == "ClusterDecompositionProcessor"
+    assert str(export_system(ens)["processor_type"]) == "decomposition"
+    expansion = Ensemble.from_cluster_expansion(ce, np.diag([1, 1, 1]),
+                                                processor_type="expansion")
+    assert "processor_type" not in export_system(expansion)
+
+    class OtherProcessor:
+        pass
+
     with pytest.raises(ValueError, match="ClusterExpansionProcessor"):
-        export_system(ens)
+        export_system(SimpleNamespace(processor=OtherProcessor()))
 
 
 def test_export_refuses_composite_of_decomposition():
@@ -176,7 +218,7 @@ def test_export_refuses_composite_of_decomposition():
     ce = random_expansion(spinel_prim(), {2: 4.0}, seed=11, ewald=True)
     ens = Ensemble.from_cluster_expansion(ce, np.diag([1, 1, 1]))
     assert type(ens.processor).__name__ == "CompositeProcessor"
-    with pytest.raises(ValueError, match="ClusterExpansionProcessor"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
         export_system(ens)
 
 
@@ -249,6 +291,14 @@ def test_port_runs_with_jax_blocked():
         generator.generate(mcmc_steps=20, temperatures=[1.0], nwalkers=4, seed=0)
         assert generator.num_structures == 8
         print("ok", generator.execution_path)
+        ens = Ensemble.from_system(load_system({str(data_path("sgc_3x3x3"))!r}), "cpu")
+        sampler = Sampler.from_ensemble(ens, 800.0, 16, seed=3, device="cpu",
+                                        chain_delta="qary")
+        sampler.run(100, (rng.random((16, ens.num_sites)) * 3).astype(np.int32),
+                    thin_by=50)
+        feats = sampler.samples.get_feature_vectors()
+        assert abs(feats @ ens.natural_parameters - sampler.samples.get_enthalpies()).max() < 1e-9
+        print("ok", sampler.execution_path(50))
         bad = [m for m in sys.modules if m == "smol_tpu" or m.startswith("smol_tpu.")]
         assert not bad, bad
         """
@@ -263,6 +313,7 @@ def test_port_runs_with_jax_blocked():
     assert "ok cpu-twin[table]+ewald" in proc.stdout
     assert "ok cpu-twin[wl-flip]+direct" in proc.stdout
     assert "ok cpu-twin[distance]" in proc.stdout
+    assert "ok cpu-twin[flip]+qary3" in proc.stdout
 
 
 def test_port_never_imports_jax_or_reference():

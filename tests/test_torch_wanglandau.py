@@ -407,9 +407,9 @@ def test_refusals(nn):
     with pytest.raises(ValueError, match="flip/swap moves only"):
         chain.make_shared_proposal_chain(tables, 10, move="table", wl=wl,
                                          table_move=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         WangLandau(port, "flip", **window, bias_type="square-charge")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         WangLandau(port, "flip", **window, shared_proposals=False)
     kernel = WangLandau(port, "flip", **window, shared_proposals=False,
                         proposal_mode="sweep")  # sweeps are independent anyway
@@ -423,7 +423,7 @@ def test_refusals(nn):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TorchSampler.from_ensemble(port, kernel_type="wang-landau", **window)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         _nn_sampler(port, window, 2, seed=1).run(10, np.zeros((2, 8)), stream_chunk=2)
     state = kernel.initial_state(np.zeros((4, 8), dtype=np.int32))
     with pytest.raises(ValueError, match="wl_chain operand"):
