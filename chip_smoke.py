@@ -5,12 +5,15 @@ CUDA device and the CUDA toolkit (``nvcc``), and exits non-zero without
 printing its last line when any phase fails:
 
 1. requires a CUDA device and prints the card's name and power limit;
-2. builds the flip-chain, swap-chain, table-chain, Wang-Landau-chain and
-   distance-chain kernels from ``smol_tpu_torch/csrc`` (into
-   ``build/smol_tpu_torch``, one ``nvcc`` per source, all at once) and
-   prints the build time and each kernel's registers and spills (the flip
-   and swap chains in each site body: direct, and K3's q-ary rows for
-   q = 2 and 3), and the dynamic shared memory of the ``sgc`` launches;
+2. builds the flip-chain, swap-chain, table-chain, Wang-Landau-chain,
+   distance-chain and replica-exchange kernels from ``smol_tpu_torch/csrc``
+   (into ``build/smol_tpu_torch``, one ``nvcc`` per source, all started at
+   once; the distance chain's, the longest, in a thread while phase 3
+   compares the others) and prints the build time and each kernel's
+   registers and spills (the
+   flip and swap chains in each site body: direct, K3's q-ary rows for
+   q = 2 and 3, and K1-Ising's parity rows for 1 to 4 words of rank bits),
+   and the dynamic shared memory of the ``sgc`` launches;
 3. runs each kernel and its plain torch twin on the same inputs at the
    shapes the main paths give the kernel (8192 walkers, one 100-step
    window, sequence blocks of 1024, or 512 for Au-Cu), in ``hash`` mode
@@ -45,7 +48,7 @@ printing its last line when any phase fails:
    CE + Ewald 2x2x2; every compared run must hold a flatness reset.
    Last, the main path's launch for both moves: 2048 walkers from planes
    of zeros, one philox window at flatness 0.8 with a check every 1000
-   steps, the first 5000 of its 15000 steps (the twin's time sets that).
+   steps, the first 2500 of its 15000 steps (the twin's time sets that).
    The distance (SQS) chain against its twin, bit for bit on every walker
    (occupancy, best occupancy, features, score, best score, accepts),
    2048 walkers from the generator's starts in blocks of 512: 300 steps on
@@ -55,16 +58,26 @@ printing its last line when any phase fails:
    the main path's own launch (8000 philox steps at the first stage's
    beta) on the bench shape, its first 2000 steps on the 64-site shape;
    every walker keeps its composition and its score equals the exact
-   rescore;
+   rescore.
+   K1-Ising, the parity body, in the flip chain on both semigrand spinels
+   and on bench ``tempering``'s Au-Cu 3x3x3 (at 1000 K) and in the swap
+   chain on Au-Cu 4x4x4 and the spinel CE + Ewald 2x2x2 and 3x3x3, in both
+   RNG modes, and a hash chain across the chunk boundary in each kernel,
+   against the Ising twin; then the replica-exchange kernel against its
+   twin over 3000 sweeps of alternating phase at 8192 walkers, betas and
+   their f32 copies bit for bit;
 4. drives the main paths, each with the launch counts set to 0 just
    before and read just after:
-   - flips: ``Ensemble.from_system(spinel 2x2x2, then 3x3x3)`` ->
+   - flips (with the default site body, K1-Ising where the system's
+     tables take it, on every flip and swap path but ``sgc``):
+     ``Ensemble.from_system(spinel 2x2x2, then 3x3x3)`` ->
      ``Sampler.from_ensemble(T=1000 K, 8192 walkers, seed=3)`` ->
      ``run(20000 steps, thin_by=100)``;
    - canonical swaps: the same on the spinel CE + Ewald 2x2x2 and 3x3x3
      (1000 K) and on Au-Cu 4x4x4 (300 K, blocks of 512), from each file's
      ``initial_occupancy``; no chemical potentials, so the sampler takes
-     swaps;
+     swaps; then Au-Cu 4x4x4 once more with ``chain_delta="direct"``, the
+     swap chain's direct body;
    - charge-neutral table flips: the same with ``step_type="table-flip"``
      on the semigrand spinel CE + Ewald 2x2x2 and 3x3x3 (1000 K), all
      walkers from the file's charge-neutral ``initial_occupancy``;
@@ -95,6 +108,28 @@ printing its last line when any phase fails:
      exact rescore (< 1e-9), the stored scores against an exact rescore on
      the CPU (< 1e-9), every walker's best no worse than its start, and a
      matched shell (a negative score) found;
+   - replica exchange, ``bench.py``'s ``tempering``:
+     ``Ensemble.from_system(aucu_pt 3x3x3)`` -> ``Sampler.from_ensemble(
+     temperature=make_temperature_ladder(300, 3000, 8192), nwalkers=8192,
+     seed=3, replica_exchange_period=10)`` -> ``run(20000 steps,
+     thin_by=100)`` from the bench's starts (200 windows of 10 segments, a
+     flip launch and an exchange launch each), on the default body
+     (K1-Ising) and once more with ``chain_delta="direct"``; checked: the
+     execution path,
+     parity (e) on the last record, every record's temperatures a
+     permutation of the ladder, the walkers travelling along it (each
+     walker's rung at the first and the last record: more than
+     ``PT_MIN_TRAVEL`` rungs apart on average), the warm run equal to the
+     cold one bit for bit (occupancies, enthalpies, temperatures), the
+     coldest eighth of the ladder annealing (its mean enthalpy over the
+     last quarter of the records below its first record's); printed: the
+     flip and exchange
+     acceptance, the coldest and hottest eighths' mean enthalpy and
+     composition, attempts/s and exchange attempts/s.  Then replica
+     exchange at equilibrium: the 8-site Au-Cu FCC, 6 temperatures over
+     600-4000 K with 128 walkers each, every temperature's mean enthalpy
+     within 5 standard errors of exact enumeration and the coldest below
+     the hottest;
    twice per cell (a first, cold run and a warm one on a fresh sampler,
    which must record the same occupancies and enthalpies to 1e-9), and
    checks the execution path, that the kernel was launched, the recorded
@@ -125,10 +160,18 @@ printing its last line when any phase fails:
    K3 against the direct body on the same cells, in turns (direct, q-ary,
    q-ary, direct): the flip chain on ``sgc`` 6x6x6, the swap chain on the
    ternary CE 3x3x3; K3's operations are counted from the character rows
-   of the ranks this launch proposes.
+   of the ranks this launch proposes.  K1-Ising against the direct body
+   in turns on every cell of phase 3's Ising comparisons (its operations
+   counted from the parity rows of the ranks proposed); the exchange
+   kernel at 8192 walkers against its plain version and its bound; one
+   tempering segment (a 10-step flip launch and an exchange) on the
+   device's clock and a 100-step window of 10 segments on the host's.
 
-The line before the last is a JSON summary of the kernels; the last line
-is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON summary of the kernels, the flip and
+swap chains once for each site body: an entry's launches are the main
+paths' launches of that body, its times that body's on a cell where a main
+path ran it, and a kernel no main path launched fails the run.  The last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -139,6 +182,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -152,6 +196,13 @@ from smol_tpu_torch.moca.kernel.tableflip import TableFlip
 from smol_tpu_torch.moca.processor.distance import CorrelationDistanceProcessor
 from smol_tpu_torch.moca.sampler.sampler import Sampler
 from smol_tpu_torch.ops import _build, chain, sqs
+from smol_tpu_torch.parallel import (
+    ExchangeLaunches,
+    exchange_attempts,
+    exchange_betas,
+    make_temperature_ladder,
+    tempering_exchange,
+)
 from smol_tpu_torch.system import load_system, load_systems
 
 ROOT = Path(__file__).resolve().parent
@@ -179,7 +230,7 @@ WL_CELLS = {"aucu_wl_3x3x3": "flip", "aucu_4x4x4": "swap"}
 WL_WALKERS = 2048
 WL_NSTEPS = 90_000
 WL_THIN = 15_000
-WL_TWIN_STEPS = 5000  # phase 3's run of the main path's launch: the twin's time sets it
+WL_TWIN_STEPS = 2500  # phase 3's run of the main path's launch: the twin's time sets it
 WL_SEED = 13
 WL_DOS_CELL = "aucu_nn_2x2x2"  # 8 sites: exact degeneracies
 WL_DOS_WALKERS = 64
@@ -203,6 +254,27 @@ SQS_SEED = 23
 SQS_BLOCK = 512  # the generator's sequence block
 SQS_WINDOW = 300  # phase 3's launches
 SQS_TWIN_STEPS = 2000  # the twin's part of the 64-site launch (its time sets it)
+# bench.py's tempering config: 8192 replicas on Au-Cu FCC 3x3x3 with zero
+# chemical potentials (decomposition processor), a geometric ladder over
+# 300-3000 K, an exchange every 10 steps, starts default_rng(0).integers(0,
+# 2, (8192, 27)); run as the other Metropolis paths are (20000 steps thinned
+# by 100: 200 windows of 10 segments)
+PT_CELL = "aucu_pt_3x3x3"
+PT_PERIOD = 10
+PT_LADDER = (300.0, 3000.0)
+PT_TEMPERATURE = 1000.0  # phase 3's and 5's single-temperature windows
+PT_SWEEPS = 3000  # phase 3's exchange kernel against its twin
+PT_MIN_TRAVEL = 10  # rungs a walker moves on average, first record to last
+# K1-Ising against its twin (phase 3) and the direct body (phase 5): every
+# cell where its tables exist, (stem, move) -> (sequence block, temperature)
+ISING_CELLS = {
+    ("spinel_2x2x2", "flip"): (BLOCK, TEMPERATURE),
+    ("spinel_3x3x3", "flip"): (BLOCK, TEMPERATURE),
+    (PT_CELL, "flip"): (BLOCK, PT_TEMPERATURE),
+    ("aucu_4x4x4", "swap"): (512, 300.0),
+    ("spinel_ewald_2x2x2", "swap"): (BLOCK, TEMPERATURE),
+    ("spinel_ewald_3x3x3", "swap"): (BLOCK, TEMPERATURE),
+}
 SEEDS = (("hash", 987654321), ("philox", 0x2545F4914F6CDD1D))
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; FP64 (vector, not the
 # tensor cores) at 34 TFLOP/s, both at the 700 W limit
@@ -247,12 +319,13 @@ def ptxas_summary(log):
     """One line per compiled kernel: its template arguments, spills, registers."""
     lines, name, spills = [], "", ""
     for line in log.splitlines():
-        body = re.search(r"([a-z]+_chain_kernel)IN4smol(?:6DirectILi(\d+)E|4QaryILi(\d+)ELi(\d+)E)"
-                         r"EELb([01])E", line)
+        body = re.search(r"([a-z]+_chain_kernel)IN4smol(?:6DirectILi(\d+)E|4QaryILi(\d+)ELi(\d+)E"
+                         r"|5IsingILi(\d+)E)EELb([01])E", line)
         found = re.search(r"([a-z]+_chain_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?", line)
         if "Compiling entry function" in line and body:  # flip and swap chains
-            kernel, k, q, nb, ewald = body.groups()
+            kernel, k, q, nb, nw, ewald = body.groups()
             site = (f"Direct<K={k if k != '0' else 'runtime'}>" if k is not None else
+                    f"Ising<NW={nw}>" if nw is not None else
                     f"Qary<q={q}, NB={nb if nb != '0' else 'runtime'}>")
             name = f"{kernel}<{site}, ewald={ewald == '1'}>"
         elif "Compiling entry function" in line and found:
@@ -393,7 +466,7 @@ def compare(label, kernel, twin, margin, n_steps, invariant=None, start=None):
 
 def body_label(tables):
     """The site body of ``tables`` as the execution path names it."""
-    return f"qary{tables.qary}" if tables.qary else "direct"
+    return f"qary{tables.qary}" if tables.qary else tables.delta
 
 
 def window_vs_twin(ensemble, name, move, block, rng, seed, delta="direct",
@@ -485,6 +558,44 @@ def chunked_hash_vs_twin(ensemble, name, move, block, delta="direct"):
     invariant = invariant_of(move, tables, ensemble)
     return compare(f"{move}+{body_label(tables)} {name} hash {n_steps} steps, 2 chunks",
                    kernel, twin, margin, n_steps, invariant, invariant and invariant(occ0))
+
+
+def pt_betas(device):
+    """[8192] f64 betas of the tempering ladder, in ladder order."""
+    return torch.as_tensor(1.0 / (kB * make_temperature_ladder(*PT_LADDER, WALKERS)),
+                           device=device)
+
+
+def exchange_vs_twin(device="cuda"):
+    """Phase 3: the exchange kernel against its twin (``tempering_exchange``
+    on the same tensors) over ``PT_SWEEPS`` sweeps of alternating phase at
+    8192 walkers, fresh enthalpies (0.5 eV spread, a quarter of them tied)
+    and uniforms per sweep: betas bit for bit, the f32 copy its rounding."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(31)
+    beta = pt_betas(device)
+    beta32 = beta.to(torch.float32)
+    twin = beta.clone()
+    counts = torch.zeros(WALKERS, dtype=torch.int32, device=device)
+    before = exchange_betas.launches
+    for s in range(PT_SWEEPS):
+        enthalpy = 0.5 * torch.randn(WALKERS, generator=gen, dtype=torch.float64,
+                                     device=device)
+        enthalpy[: WALKERS // 4] = 0.0
+        u = torch.rand(WALKERS, generator=gen, dtype=torch.float64, device=device)
+        exchange_betas(beta, beta32, enthalpy, u, (s + 1) % 2, counts)
+        twin = tempering_exchange(twin, enthalpy, u, (s + 1) % 2)
+    torch.cuda.synchronize()
+    check(exchange_betas.launches - before == PT_SWEEPS, "exchange launches")
+    check(torch.equal(beta, twin), "exchange kernel: betas differ from the twin's")
+    check(torch.equal(beta32, twin.to(torch.float32)), "exchange kernel: beta32")
+    check(torch.equal(torch.sort(beta).values, torch.sort(pt_betas(device)).values),
+          "exchange kernel: the betas are no longer the ladder")
+    acceptance = int(counts.sum()) / exchange_attempts(WALKERS, PT_SWEEPS)
+    check(0.0 < acceptance <= 1.0, f"exchange acceptance {acceptance}")
+    print(f"phase 3 [exchange {WALKERS} walkers]: kernel == twin bit for bit over "
+          f"{PT_SWEEPS} sweeps (betas and their f32 copies), acceptance {acceptance:.4f}")
+    return 0.0
 
 
 # ---------------- the Wang-Landau chain against its twin ----------------
@@ -689,8 +800,9 @@ def drive_main_path(move, stem, card, temperature, block, capped=False, **option
         runs.append((sampler, t1 - t0, time.perf_counter() - t1))
     ewald = "+ewald" if "ewald_matrix" in system else ""
     tables = sampler.mckernel.chain_tables()
-    check(tables.delta == options.get("chain_delta", chain.DEFAULT_DELTA),
-          f"{stem}: the {tables.delta} body ran")
+    expect = options.get("chain_delta") or chain.default_delta(
+        ensemble.processor, ensemble.sublattices, move)
+    check(tables.delta == expect, f"{stem}: the {tables.delta} body ran, not {expect}")
     body = body_label(tables)
     check(path.startswith(f"cuda-chain[{move}]{ewald}+{body}"), f"execution path {path}")
     (cold, tables_s, cold_s), (sampler, _, wall) = runs[:2]
@@ -760,35 +872,233 @@ def drive_main_path(move, stem, card, temperature, block, capped=False, **option
     return ensemble, rate
 
 
+def reset_counts(*kernels):
+    """Set the launch counts of ``kernels`` to 0 (the flip and swap chains'
+    per-body counts too)."""
+    for kernel_fn in kernels:
+        kernel_fn.launches = 0
+        if kernel_fn in (chain.flip_chain, chain.swap_chain):
+            kernel_fn.qary_launches = kernel_fn.ising_launches = 0
+
+
+def body_counts(kernel_fn):
+    """The flip or swap chain's launches since :func:`reset_counts`, by the
+    site body that launched: {"direct": n, "qary": n, "ising": n}."""
+    qary, ising = kernel_fn.qary_launches, kernel_fn.ising_launches
+    return {"direct": kernel_fn.launches - qary - ising, "qary": qary, "ising": ising}
+
+
 def drive(move, cells, card):
-    """Phase 4 for one move: counts set to 0 just before, read just after."""
+    """Phase 4 for one move: counts set to 0 just before, read just after.
+    Returns the runs and the launches (for flips and swaps, by site body)."""
     kernel_fn = KERNELS[move][0]
-    kernel_fn.launches = 0
+    reset_counts(kernel_fn)
     results = {stem: drive_main_path(move, stem, card, *args)
                for stem, args in cells.items()}
     launches = kernel_fn.launches
     check(launches == len(cells) * 2 * (NSTEPS // THIN),
           f"{launches} {move} kernel launches")
-    print(f"phase 4: {move}_chain launches on the {move} main path: {launches}")
-    return results, launches
+    if move == "table":
+        print(f"phase 4: table_chain launches on the table main path: {launches}")
+        return results, launches
+    expect = {"direct": 0, "qary": 0, "ising": 0}
+    for ens, _ in results.values():  # every cell runs the sampler's default body
+        expect[chain.default_delta(ens.processor, ens.sublattices, move)] += \
+            2 * (NSTEPS // THIN)
+    bodies = body_counts(kernel_fn)
+    check(bodies == expect, f"{move} main path launches by body {bodies}, not {expect}")
+    print(f"phase 4: {move}_chain launches on the {move} main path: {launches} "
+          f"(by site body {bodies})")
+    return results, bodies
+
+
+def drive_swap_direct(card):
+    """Phase 4: bench ``canonical``'s Au-Cu 4x4x4 swaps with
+    ``chain_delta="direct"``, the swap chain's direct body on a main path
+    (every canonical cell's default is K1-Ising); counts set to 0 just
+    before, read just after."""
+    reset_counts(chain.swap_chain)
+    drive_main_path("swap", QARY2_CELL, card, *SWAP_CELLS[QARY2_CELL],
+                    chain_delta="direct")
+    bodies = body_counts(chain.swap_chain)
+    check(bodies == {"direct": 2 * (NSTEPS // THIN), "qary": 0, "ising": 0},
+          f"swap launches by body {bodies} with the direct body asked for")
+    print(f"phase 4: swap_chain launches on {QARY2_CELL} with the direct body: "
+          f"{bodies['direct']}")
+    return bodies
 
 
 def drive_sgc(card):
     """Phase 4 for bench ``sgc``: the default body (cold, warm and capped)
     and K3 (cold and warm); counts set to 0 just before, read just after."""
-    chain.flip_chain.launches = chain.flip_chain.qary_launches = 0
+    reset_counts(chain.flip_chain)
     runs = {"default": drive_main_path("flip", SGC_CELL, card, SGC_TEMPERATURE, BLOCK,
                                        capped=True),
             "qary": drive_main_path("flip", SGC_CELL, card, SGC_TEMPERATURE, BLOCK,
                                     chain_delta="qary")}
-    launches, qary = chain.flip_chain.launches, chain.flip_chain.qary_launches
+    bodies = body_counts(chain.flip_chain)
     windows = NSTEPS // THIN
-    check(launches == 5 * windows, f"{launches} flip kernel launches on the sgc path")
-    check(qary == (2 if chain.DEFAULT_DELTA == "direct" else 5) * windows,
-          f"{qary} q-ary flip launches on the sgc path")
-    print(f"phase 4: flip_chain launches on the sgc path: {launches}, {qary} of them "
-          f"with the q-ary body (K3)")
-    return runs, launches, qary
+    check(bodies == {"direct": 3 * windows, "qary": 2 * windows, "ising": 0},
+          f"flip launches on the sgc path by body {bodies}")
+    print(f"phase 4: flip_chain launches on the sgc path: {chain.flip_chain.launches}, "
+          f"{bodies['qary']} of them with the q-ary body (K3), {bodies['direct']} with "
+          f"the direct body (the ternary system's default)")
+    return runs, bodies
+
+
+def drive_tempering(card, delta):
+    """Phase 4, bench ``tempering``: ``Sampler.from_ensemble(temperature=
+    ladder, nwalkers=8192, replica_exchange_period=10, chain_delta=delta)``
+    -> ``run(20000, thin_by=100)``, cold, then warm on a fresh sampler;
+    ``delta=None`` is the sampler's default body."""
+    t0 = time.perf_counter()
+    ensemble, _ = load(PT_CELL)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ladder = make_temperature_ladder(*PT_LADDER, WALKERS)
+    occ0 = np.random.default_rng(0).integers(
+        0, 2, (WALKERS, ensemble.num_sites)).astype(np.int32)  # bench.py:503-505
+    runs = []
+    for _ in ("cold", "warm"):
+        t0 = time.perf_counter()
+        sampler = Sampler.from_ensemble(ensemble, temperature=ladder, nwalkers=WALKERS,
+                                        seed=3, chain_block_size=BLOCK,
+                                        replica_exchange_period=PT_PERIOD,
+                                        chain_delta=delta)
+        path = sampler.execution_path(THIN)  # builds the chain tables
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sampler.run(NSTEPS, occ0, thin_by=THIN)
+        torch.cuda.synchronize()
+        runs.append((sampler, t1 - t0, time.perf_counter() - t1))
+    (cold, tables_s, cold_s), (sampler, _, wall) = runs
+    tables = sampler.mckernel.chain_tables()
+    delta = delta or chain.default_delta(ensemble.processor, ensemble.sublattices, "flip")
+    check(tables.delta == delta, f"{PT_CELL}: the {tables.delta} body ran, not {delta}")
+    expect = f"cuda-chain[flip]+{delta}+shared-proposals+replica-exchange@{PT_PERIOD}"
+    check(path == expect, f"execution path {path}")
+    samples = sampler.samples
+    n = samples.num_samples
+    check(n == NSTEPS // THIN, f"{n} samples recorded")
+    occupancies = samples.get_occupancies(flat=False)
+    enthalpies = samples.get_enthalpies(flat=False)
+    temps = samples.get_temperatures(flat=False)  # [S, W]
+    check(np.array_equal(cold.samples.get_occupancies(flat=False), occupancies)
+          and np.array_equal(cold.samples.get_enthalpies(flat=False), enthalpies)
+          and np.array_equal(cold.samples.get_temperatures(flat=False), temps),
+          f"{PT_CELL}: the warm run did not repeat the cold run bit for bit")
+    recorded = np.sort(1.0 / (kB * (1.0 / (kB * ladder))))  # T -> beta -> T
+    check(bool((np.sort(temps, axis=1) == recorded).all()),
+          f"{PT_CELL}: a record's temperatures are not a permutation of the ladder")
+    # the replicas travel along the ladder: each walker's rung at the first
+    # and at the last record (with no exchange, no walker moves)
+    rungs = np.searchsorted(recorded, temps)  # [S, W]
+    travel = np.abs(rungs[-1] - rungs[0])
+    check(travel.mean() > PT_MIN_TRAVEL,
+          f"{PT_CELL}: the walkers moved {travel.mean()} rungs on average from the "
+          f"first record to the last, not more than {PT_MIN_TRAVEL}")
+    last_h = samples.get_enthalpies(discard=n - 1)
+    last_f = samples.get_feature_vectors(discard=n - 1)
+    check(np.isfinite(last_h).all() and np.isfinite(last_f).all(), "non-finite")
+    parity = float(np.abs(last_f @ ensemble.natural_parameters - last_h).max())
+    check(parity < 1e-9, f"{PT_CELL}: recorded enthalpy vs features.theta {parity}")
+    # the coldest and the hottest eighth of the ladder: mean enthalpy and
+    # composition (code 1) over the last quarter of the records, and the
+    # coldest eighth's at the first record.  From the bench's random starts
+    # the cold replicas stay in metastable mixed states for the whole run
+    # (PERF.md, PR 7) while the hot ones reach the Au-rich equilibrium, so
+    # the cold mean enthalpy lies above the hot one; what is checked here is
+    # that the cold replicas anneal.  The ladder's equilibrium ordering is
+    # checked on the 8-site system against exact enumeration
+    # (``tempering_vs_enumeration``).
+    order = np.argsort(temps, axis=1)
+    by_t = np.take_along_axis(enthalpies, order, axis=1)
+    codes = np.take_along_axis(occupancies.mean(axis=2), order, axis=1)
+    eighth, tail = WALKERS // 8, slice(3 * n // 4, None)
+    cold_h, hot_h = by_t[tail, :eighth].mean(), by_t[tail, -eighth:].mean()
+    cold_x, hot_x = codes[tail, :eighth].mean(), codes[tail, -eighth:].mean()
+    first_h = by_t[0, :eighth].mean()
+    check(cold_h < first_h, f"{PT_CELL}: the coldest eighth did not anneal "
+          f"({first_h} -> {cold_h})")
+    sweeps = sampler._state["pt_counter"]
+    check(sweeps == NSTEPS // PT_PERIOD, f"{sweeps} exchange sweeps")
+    attempts = exchange_attempts(WALKERS, sweeps)
+    exchange = int(sampler._state["pt_accepted"].sum()) / attempts
+    check(0.0 < exchange <= 1.0, f"exchange acceptance {exchange}")
+    accept = float(sampler.efficiency())
+    check(0.0 < accept < 1.0, f"{PT_CELL}: acceptance {accept}")
+    rate = WALKERS * NSTEPS / wall
+    print(f"phase 4 [tempering {PT_CELL}, {delta}] {card}: {ensemble.num_sites} sites, "
+          f"path {path}, ladder {PT_LADDER[0]:g}-{PT_LADDER[1]:g} K, flip acceptance "
+          f"{accept:.4f}, exchange acceptance {exchange:.4f} ({attempts} attempts), "
+          f"coldest eighth of the ladder: mean enthalpy {first_h:.6f} eV at the first "
+          f"record, {cold_h:.6f} eV over the last quarter (code-1 fraction {cold_x:.4f}); "
+          f"hottest eighth {hot_h:.6f} eV ({hot_x:.4f}), walkers moved "
+          f"{travel.mean():.1f} rungs on average (median {np.median(travel):g}, "
+          f"{(travel == 0).mean():.4f} of them none) from the first record to the last, "
+          f"parity(e) {parity:.3e}, the ladder permuted at all {n} records, warm == cold "
+          f"bit for bit; warm run {rate / 1e6:.1f} M attempts/s end to end ({wall:.4f} s "
+          f"for {WALKERS} walkers x {NSTEPS} steps, {attempts / wall / 1e6:.3f} M "
+          f"exchange attempts/s); set-up: system load {load_s:.4f} s, sampler + tables "
+          f"{tables_s:.4f} s, cold run {cold_s:.4f} s ({cold_s - wall:+.4f} s over warm)")
+    return ensemble, rate
+
+
+def tempering_vs_enumeration(card, copies=128, t_ladder=(600.0, 4000.0, 6)):
+    """Phase 4: replica exchange at equilibrium on the card.  The 8-site
+    Au-Cu FCC (flips at zero chemical potential, 256 states): a ladder of 6
+    temperatures, each on ``copies`` walkers, an exchange every 10 steps,
+    20000 steps thinned by 100.  Each temperature's mean enthalpy must lie
+    within 5 standard errors (20 batch means over the last 160 records) of
+    the exact Boltzmann mean, and the coldest rung's below the hottest's."""
+    ensemble, system = load(WL_DOS_CELL)
+    h = system["exact_enthalpies"]
+    temperatures = make_temperature_ladder(*t_ladder)
+    ladder = np.tile(temperatures, copies)  # every adjacent pair a valid exchange
+    walkers = len(ladder)
+    sampler = Sampler.from_ensemble(ensemble, temperature=ladder, nwalkers=walkers,
+                                    seed=23, chain_block_size=64,
+                                    replica_exchange_period=PT_PERIOD)
+    occ0 = np.random.default_rng(4).integers(0, 2, (walkers, ensemble.num_sites))
+    sampler.run(NSTEPS, occ0, thin_by=THIN)
+    check(sampler.execution_path(THIN).endswith(f"+replica-exchange@{PT_PERIOD}"),
+          "the 8-site tempering path")
+    discard = NSTEPS // THIN // 5
+    enth = sampler.samples.get_enthalpies(discard=discard, flat=False)
+    temps = sampler.samples.get_temperatures(discard=discard, flat=False)
+    means, worst = [], 0.0
+    for t in temperatures:
+        at = np.isclose(temps, t, rtol=1e-12, atol=0)
+        check(bool((at.sum(axis=1) == copies).all()), "a rung lost a replica")
+        series = np.where(at, enth, 0.0).sum(axis=1) / copies
+        batch = np.array([b.mean() for b in np.array_split(series, 20)])
+        sem = batch.std(ddof=1) / np.sqrt(len(batch))
+        weights = np.exp(-(h - h.min()) / (kB * t))
+        exact = float(h @ weights / weights.sum())
+        worst = max(worst, abs(series.mean() - exact) / sem)
+        means.append(series.mean())
+    check(worst < 5.0, f"8-site tempering: a rung's mean enthalpy {worst:.2f} SE from exact")
+    check(means[0] < means[-1], "8-site tempering: the coldest rung is not the lowest")
+    print(f"phase 4 [tempering {WL_DOS_CELL}] {card}: {walkers} walkers on "
+          f"{len(temperatures)} rungs of {t_ladder[0]:g}-{t_ladder[1]:g} K, every rung's "
+          f"mean enthalpy within {worst:.2f} standard errors of exact enumeration; "
+          f"mean enthalpy coldest rung {means[0]:.6f} eV < hottest {means[-1]:.6f} eV")
+
+
+def drive_tempering_cells(card):
+    """Phase 4 for bench ``tempering``, with the Ising body (K1-Ising) and
+    with the direct body; counts set to 0 just before, read just after."""
+    reset_counts(chain.flip_chain, exchange_betas)
+    runs = {delta: drive_tempering(card, delta) for delta in (None, "direct")}
+    bodies, exchanges = body_counts(chain.flip_chain), exchange_betas.launches
+    segments = 2 * (NSTEPS // PT_PERIOD)  # cold and warm
+    check(bodies == {"direct": segments, "qary": 0, "ising": segments}
+          and exchanges == 2 * segments,
+          f"tempering path: flip launches by body {bodies}, {exchanges} exchange launches")
+    print(f"phase 4: on the tempering path flip_chain launches "
+          f"{chain.flip_chain.launches} ({bodies['ising']} with the Ising body, "
+          f"{bodies['direct']} with the direct body), exchange kernel launches {exchanges}")
+    return runs, bodies, exchanges
 
 
 def plane_invariants(label, state, steps):
@@ -1189,7 +1499,9 @@ def bound(tables, ops, move, recolorings=0, accepted=0):
     L, steps = tables.nbr.shape[1], ops["n_steps"]
     seqs = [ops[name] for name in SEQUENCES[move]]
     table_tensors = [tables.nbr, tables.stride, tables.d2, tables.g]
-    if tables.qary:  # K3 reads its character rows instead
+    if tables.ising:  # K1-Ising reads its parity rows instead
+        table_tensors = [tables.imask, tables.iamp, tables.irows]
+    elif tables.qary:  # K3 reads its character rows instead
         table_tensors = [tables.qnbr, tables.qfreq, tables.qms, tables.qac, tables.qas,
                          tables.qrows]
     if move != "swap":
@@ -1204,7 +1516,18 @@ def bound(tables, ops, move, recolorings=0, accepted=0):
               + sum(s[:, :steps].numel() * 4 for s in seqs)
               + sum(t.numel() * t.element_size() for t in table_tensors))
     ewald_site = R + 2 if tables.has_ewald else 0
-    if move == "table":
+    walkers = torch.bincount(torch.arange(W, device=seqs[0].device) // ops["block_size"])
+    if tables.ising:
+        # the parity rows of the ranks proposed, walker by walker: one f64 add
+        # a row (the sign is a select, the mask test integer work), then per
+        # site the scale's multiply-add, the Ewald term's R + 2, and per step
+        # the enthalpy's add and a flip's chemical work
+        rows = sum(int((tables.irows[s[:, :steps].long()].sum(dim=1) * walkers).sum())
+                   for s in seqs)
+        sites = len(seqs)
+        ewald = W * steps * sites * ewald_site
+        n_ops = rows + W * steps * (sites + 1 + (2 if move == "flip" else 0)) + ewald
+    elif move == "table":
         ewald = recolorings * ewald_site
         n_ops = recolorings * (2 * L + 2) + ewald + accepted
     elif tables.qary:
@@ -1212,7 +1535,6 @@ def bound(tables, ops, move, recolorings=0, accepted=0):
         # costs its products and sum (two for q = 2, three for q = 3) and
         # its add into the delta
         per_row = 2 if tables.qary == 2 else 4
-        walkers = torch.bincount(torch.arange(W, device=seqs[0].device) // ops["block_size"])
         rows = sum(int((tables.qrows[s[:, :steps].long()].sum(dim=1) * walkers).sum())
                    for s in seqs)
         ewald = 0
@@ -1266,6 +1588,128 @@ def time_window(ensemble, name, card, move, block, kernel_reps=50, twin_reps=3,
                  f"(the term's own bound {ewald_ms * 1e3:.3f} us)")
     print(line)
     return result
+
+
+def graph_ms(capture, reps=50):
+    """Device ms of one replay of a CUDA graph of ``capture()``, over
+    ``reps`` replays between CUDA events.  For launches shorter than the
+    host's work to issue them (a 10-step segment, an exchange), events
+    around eager calls time the host; a replay issues them all at once."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        capture()  # warm-up, off the capturing stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        capture()
+    return cuda_ms(graph.replay, reps)
+
+
+def time_exchange(card, sweeps=10):
+    """Phase 5: the exchange kernel at 8192 walkers against its plain
+    version (``tempering_exchange`` and the copies into beta and beta32, as
+    the wrapper's CPU path), each ``sweeps`` sweeps of alternating phase in
+    one CUDA graph; and its bound, from this launch's data: each paired
+    walker reads its beta and enthalpy (16 bytes), each pair its left
+    member's uniform (8), and each accepted pair writes both betas and
+    their f32 copies and reads and writes its count (32), the accepted
+    pairs counted over one more pass of the same sweeps after the timing."""
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(7)
+    beta = pt_betas(device)
+    beta32 = beta.to(torch.float32)
+    enthalpy = torch.randn(WALKERS, generator=gen, dtype=torch.float64, device=device)
+    u = torch.rand((sweeps, WALKERS), generator=gen, dtype=torch.float64, device=device)
+    counts = torch.zeros(WALKERS, dtype=torch.int32, device=device)
+
+    def kernel():
+        exchanges = ExchangeLaunches(beta, beta32, enthalpy, u, counts)
+        for s in range(sweeps):
+            exchanges(s, (s + 1) % 2)
+
+    def plain():
+        for s in range(sweeps):
+            new = tempering_exchange(beta, enthalpy, u[s], (s + 1) % 2)
+            beta.copy_(new)
+            beta32.copy_(new.to(torch.float32))
+
+    kernel_ms = graph_ms(kernel) / sweeps
+    plain_ms = graph_ms(plain) / sweeps
+    counts.zero_()
+    kernel()
+    accepted = int(counts.sum()) / sweeps  # accepted pairs per sweep
+    pairs = exchange_attempts(WALKERS, sweeps) / sweeps  # pairs per sweep
+    nbytes = pairs * (2 * 16 + 8) + accepted * 32
+    n_ops = pairs * 3  # two differences and their product per pair
+    bytes_s, ops_s = nbytes / PEAK_BYTES_PER_S, n_ops / PEAK_F64_PER_S
+    bound_ms = max(bytes_s, ops_s) * 1e3
+    bound_by = "bytes" if bytes_s >= ops_s else "operations"
+    print(f"phase 5 [exchange {WALKERS} walkers] {card}: kernel {kernel_ms * 1e3:.2f} us, "
+          f"plain torch {plain_ms * 1e3:.2f} us ({plain_ms / kernel_ms:.1f}x; device "
+          f"time per sweep, graphs of {sweeps} sweeps), bound {bound_ms * 1e3:.4f} us "
+          f"({bound_by}; {nbytes / 1e3:.1f} kB a sweep at {accepted / pairs:.4f} of "
+          f"{pairs:g} pairs accepted), kernel/bound {kernel_ms / bound_ms:.0f}x")
+    return {"kernel_ms": kernel_ms, "twin_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def time_segment(card, ensemble, delta, windows=20):
+    """Phase 5: tempering segments at 8192 walkers on the device's clock (a
+    CUDA graph of a window's 10 segments, each a 10-step flip launch and an
+    exchange, as the port issues them; and of the 10 flip launches alone),
+    and a whole 100-step window through the tempering chain on the host's
+    clock (draws, launches, the occupancy's gather and scatter)."""
+    from smol_tpu_torch.parallel import make_tempering_chain
+
+    segments = THIN // PT_PERIOD
+    tables = tables_of(ensemble, "flip", delta)
+    ops = window_operands(ensemble, tables, "flip", BLOCK, occ_seed=5, seq_seed=1,
+                          n_steps=PT_PERIOD)
+    device = ensemble.device
+    gen = torch.Generator(device=device).manual_seed(11)
+    seqs = chain.rank_sequence(tables, gen, (segments, WALKERS // BLOCK, PT_PERIOD))
+    seeds = torch.randint(0, 2**62, (segments,), generator=gen, device=device)
+    u = torch.rand((segments, WALKERS), generator=gen, dtype=torch.float64, device=device)
+    beta = pt_betas(device)
+    beta32 = beta.to(torch.float32)
+
+    def window(exchange):
+        launches = chain.ChainLaunches("flip", ops["occ"], ops["enthalpy"],
+                                       (ops["naccept"],), beta32, (seqs,), seeds, tables,
+                                       BLOCK, "philox")
+        exchanges = ExchangeLaunches(beta, beta32, ops["enthalpy"], u, None)
+        for s in range(segments):
+            launches.launch(s, PT_PERIOD)
+            if exchange:
+                exchanges(s, (s + 1) % 2)
+
+    segment_ms = graph_ms(lambda: window(True)) / segments
+    launch_ms = graph_ms(lambda: window(False)) / segments
+    occu = torch.as_tensor(random_occupancies(ensemble, WALKERS, 5), device=device)
+    theta = torch.as_tensor(ensemble.natural_parameters, device=device)
+    state = {"occupancy": occu,
+             "enthalpy": (ensemble.compute_features(occu) @ theta).contiguous(),
+             "beta": pt_betas(device),
+             "naccept": torch.zeros(WALKERS, dtype=torch.int32, device=device),
+             "accepted": torch.ones(WALKERS, dtype=torch.bool, device=device),
+             "pt_counter": 0}
+    run = make_tempering_chain(chain.make_shared_proposal_chain(
+        tables, PT_PERIOD, block_size=BLOCK), segments)
+    run(state, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(windows):
+        run(state, gen)
+    torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t0) / windows * 1e3
+    print(f"phase 5 [tempering segment {PT_CELL}, {delta}] {card}: on the device "
+          f"{launch_ms * 1e3:.2f} us per {PT_PERIOD}-step flip launch, "
+          f"{segment_ms * 1e3:.2f} us per segment (launch and exchange; graphs of a "
+          f"window's {segments}); a 100-step window on the host's clock "
+          f"{window_ms:.4f} ms against {segments * segment_ms:.4f} ms of its segments' "
+          f"kernels")
+    return {"launch_ms": launch_ms, "segment_ms": segment_ms, "window_ms": window_ms}
 
 
 def wl_bound(ops, after):
@@ -1409,16 +1853,32 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
 
-    # phase 2: build from the checkout's sources, all kernels at once
-    built = _build.build_libraries(tuple(_build.KERNELS))
-    for name, (lib_path, log, seconds) in built.items():
-        _build.load_chain(name)
-        print(f"phase 2: built {lib_path.relative_to(ROOT)} in {seconds:.1f} s")
-        for line in ptxas_summary(log):
-            print("  ptxas:", line)
+    # phase 2: build from the checkout's sources, all kernels at once; the
+    # distance chain, whose build takes the longest, in a thread, so that
+    # phase 3 compares the other kernels meanwhile
+    late = ("distance_chain",)
+    late_build = {}
+
+    def build_late():
+        try:
+            late_build["built"] = _build.build_libraries(late)
+        except Exception as error:  # re-raised in this thread below
+            late_build["error"] = error
+
+    builder = threading.Thread(target=build_late)
+    builder.start()
+
+    def report(built):
+        for name, (lib_path, log, seconds) in built.items():
+            _build.load_chain(name)
+            print(f"phase 2: built {lib_path.relative_to(ROOT)} in {seconds:.1f} s")
+            for line in ptxas_summary(log):
+                print("  ptxas:", line)
+
+    report(_build.build_libraries(tuple(k for k in _build.KERNELS if k not in late)))
 
     sgc, ternary, aucu = (load(stem)[0] for stem in (SGC_CELL, TERNARY_CELL, QARY2_CELL))
-    for delta in chain.DELTAS:
+    for delta in ("direct", "qary"):  # the bodies sgc's ternary tables take
         smem = chain.chain_shared_bytes(tables_of(sgc, "flip", delta), "flip", WALKERS, BLOCK)
         print(f"phase 2: {SGC_CELL} flip launch, {delta} body: {smem} bytes of dynamic "
               f"shared memory per block of 64 walkers")
@@ -1467,6 +1927,23 @@ def main():
                                            rng, seed, "qary", SWAP_CELLS[QARY2_CELL][0]))
     errs["qary"].append(chunked_hash_vs_twin(sgc, SGC_CELL, "flip", BLOCK, "qary"))
     print(f"phase 3: the K3 comparisons took {time.perf_counter() - t0:.1f} s")
+    # K1-Ising: the parity body in K1 and K2 on every cell where its tables
+    # exist, both RNG modes, and a hash chain across the chunk boundary in
+    # each kernel; then the exchange kernel over PT_SWEEPS sweeps
+    t0 = time.perf_counter()
+    ising_cells = {**flips, **swaps, PT_CELL: load(PT_CELL)[0]}
+    errs["ising"] = []
+    for (stem, move), (block, temperature) in ISING_CELLS.items():
+        for rng, seed in SEEDS:
+            errs["ising"].append(window_vs_twin(ising_cells[stem], stem, move, block, rng,
+                                                seed, "ising", temperature))
+    errs["ising"].append(chunked_hash_vs_twin(ising_cells[PT_CELL], PT_CELL, "flip", BLOCK,
+                                              "ising"))
+    errs["ising"].append(chunked_hash_vs_twin(swaps["aucu_4x4x4"], "aucu_4x4x4", "swap",
+                                              SWAP_CELLS["aucu_4x4x4"][1], "ising"))
+    errs["exchange"] = [exchange_vs_twin()]
+    print(f"phase 3: the K1-Ising and exchange comparisons took "
+          f"{time.perf_counter() - t0:.1f} s")
     # the Wang-Landau chain: both moves, both RNG modes, a chunk boundary,
     # update_period = 3, and the Ewald instantiation
     wl_systems = {stem: load(stem) for stem in WL_CELLS}
@@ -1483,6 +1960,10 @@ def main():
         *load("spinel_ewald_2x2x2"), "spinel_ewald_2x2x2", "swap", *SEEDS[1]))
     for stem, move in WL_CELLS.items():  # the main path's own launch
         errs["wl"].append(wl_main_launch_vs_twin(*wl_systems[stem], stem, move))
+    builder.join()
+    if "error" in late_build:
+        raise late_build["error"]
+    report(late_build["built"])
     # the distance chain: both cells and RNG modes, a chunk boundary, beta 0
     # and 50 (T = 0.02), no match term, and the main path's own launch
     fcc8, fcc64 = sqs_processors("sqs_fcc8")[0], sqs_processors("sqs_fcc_4x4x4")[0]
@@ -1508,11 +1989,19 @@ def main():
     print(f"phases 2-3 took {time.perf_counter() - t_start:.1f} s")
 
     # phase 4: the main paths; only these runs are counted
-    flip_runs, flip_launches = drive(
+    # launches of the flip and swap chains by site body, summed over the paths
+    flip_runs, flip_bodies = drive(
         "flip", {stem: (TEMPERATURE, BLOCK) for stem in FLIP_CELLS}, card)
-    swap_runs, swap_launches = drive("swap", SWAP_CELLS, card)
+    swap_runs, swap_bodies = drive("swap", SWAP_CELLS, card)
+    swap_direct = drive_swap_direct(card)
     table_runs, table_launches = drive("table", TABLE_CELLS, card)
-    _, _, qary_launches = drive_sgc(card)
+    _, sgc_bodies = drive_sgc(card)
+    _, pt_bodies, exchange_launches = drive_tempering_cells(card)
+    launches = {("flip", body): flip_bodies[body] + sgc_bodies[body] + pt_bodies[body]
+                for body in ("direct", "qary", "ising")}
+    launches.update({("swap", body): swap_bodies[body] + swap_direct[body]
+                     for body in ("direct", "qary", "ising")})
+    tempering_vs_enumeration(card)
     wl_runs, wl_launches = drive_wl_cells(card)
     _, sqs_launches = drive_sqs_cells(card)
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
@@ -1554,11 +2043,35 @@ def main():
         for delta, (first, second) in turns.items():
             timings[(f"{move}+{delta}", name)] = {
                 **first, "kernel_ms": (first["kernel_ms"] + second["kernel_ms"]) / 2}
-        direct, qary = (timings[(f"{move}+{d}", name)]["kernel_ms"] for d in chain.DELTAS)
+        direct, qary = (timings[(f"{move}+{d}", name)]["kernel_ms"] for d in ("direct", "qary"))
         print(f"phase 5 [{move} {name}] {card}: K3 (q-ary) {qary:.4f} ms against the "
               f"direct body {direct:.4f} ms per window (means of two turns): "
               f"{'q-ary' if qary < direct else 'direct'} faster by "
               f"{max(qary, direct) / min(qary, direct):.3f}x")
+    # K1-Ising against the direct body on every cell where its tables exist,
+    # in turns; then the exchange kernel and one tempering segment
+    for (stem, move), (block, temperature) in ISING_CELLS.items():
+        turns = {}
+        for delta in ("direct", "ising", "ising", "direct"):
+            again = delta in turns
+            turns.setdefault(delta, []).append(time_window(
+                ising_cells[stem], stem, card, move, block, twin_reps=0 if again else 1,
+                delta=delta, temperature=temperature))
+        for delta, (first, second) in turns.items():
+            timings[(f"{move}+{delta}", stem)] = {
+                **first, "kernel_ms": (first["kernel_ms"] + second["kernel_ms"]) / 2}
+        direct, ising = (timings[(f"{move}+{d}", stem)]["kernel_ms"] for d in ("direct", "ising"))
+        tables = tables_of(ising_cells[stem], move, "ising")
+        rows = float(tables.irows.double().mean()) * (2 if move == "swap" else 1)
+        print(f"phase 5 [{move} {stem}] {card}: K1-Ising {ising:.4f} ms against the direct "
+              f"body {direct:.4f} ms per window (means of two turns): "
+              f"{'Ising' if ising < direct else 'direct'} faster by "
+              f"{max(ising, direct) / min(ising, direct):.3f}x; Ising "
+              f"{ising * 1e6 / THIN / rows:.1f} ns per parity row ({rows:.0f} a step)")
+    timings[("exchange", PT_CELL)] = time_exchange(card)
+    for delta in ("ising", "direct"):
+        timings[(f"segment+{delta}", PT_CELL)] = time_segment(card, ising_cells[PT_CELL],
+                                                              delta)
     print("timings " + card + ": " + json.dumps(
         {f"{move} {stem}": v for (move, stem), v in timings.items()}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
@@ -1575,11 +2088,16 @@ def main():
             "library_ms": None,  # no single PyTorch call runs a Monte Carlo chain
         }
 
-    print(json.dumps({"kernels": [
-        entry("flip", "spinel_2x2x2", "smol_tpu_torch/csrc/flip_chain.cu",
-              "smol_tpu/ops/pallas_chain.py:1545", flip_launches),
-        entry("swap", "spinel_ewald_2x2x2", "smol_tpu_torch/csrc/swap_chain.cu",
-              "smol_tpu/ops/pallas_chain.py:1817", swap_launches),
+    # each entry's launches are those of the body its times were taken on,
+    # on a cell where the main path ran that body: the direct flip body on
+    # sgc (its default there), the direct swap body on Au-Cu 4x4x4
+    kernels = [
+        {**entry("flip+direct", SGC_CELL, "smol_tpu_torch/csrc/flip_chain.cu",
+                 "smol_tpu/ops/pallas_chain.py:1545", launches[("flip", "direct")]),
+         "name": "flip_chain (direct body)"},
+        {**entry("swap+direct", QARY2_CELL, "smol_tpu_torch/csrc/swap_chain.cu",
+                 "smol_tpu/ops/pallas_chain.py:1817", launches[("swap", "direct")]),
+         "name": "swap_chain (direct body)"},
         entry("table", "spinel_ewald_sgc_2x2x2", "smol_tpu_torch/csrc/table_chain.cu",
               "smol_tpu/ops/pallas_chain.py:1701", table_launches),
         entry("wl-flip", "aucu_wl_3x3x3", "smol_tpu_torch/csrc/wl_chain.cu",
@@ -1587,9 +2105,21 @@ def main():
         entry("distance", "sqs_fcc8 shape 0", "smol_tpu_torch/csrc/distance_chain.cu",
               "smol_tpu/ops/pallas_sqs.py:649", sqs_launches),
         {**entry("flip+qary", SGC_CELL, "smol_tpu_torch/csrc/chain_common.cuh",
-                 "smol_tpu/ops/pallas_chain.py:519", qary_launches),
+                 "smol_tpu/ops/pallas_chain.py:519", launches[("flip", "qary")]),
          "name": "qary_body (K3, in flip_chain)", "max_abs_err": max(errs["qary"])},
-    ]}))
+        {**entry("flip+ising", PT_CELL, "smol_tpu_torch/csrc/chain_common.cuh",
+                 "smol_tpu/ops/pallas_chain.py:374", launches[("flip", "ising")]),
+         "name": "ising_body (K1-Ising, in flip_chain)", "max_abs_err": max(errs["ising"])},
+        {**entry("swap+ising", "aucu_4x4x4", "smol_tpu_torch/csrc/chain_common.cuh",
+                 "smol_tpu/ops/pallas_chain.py:410", launches[("swap", "ising")]),
+         "name": "ising_body (K1-Ising, in swap_chain)", "max_abs_err": max(errs["ising"])},
+        {**entry("exchange", PT_CELL, "smol_tpu_torch/csrc/tempering.cu",
+                 "smol_tpu/parallel/tempering.py:42", exchange_launches),
+         "name": "tempering_exchange", "max_abs_err": max(errs["exchange"])},
+    ]
+    for k in kernels:  # every kernel of the paths ran on them
+        check(k["launches"] > 0, f"{k['name']}: no launch on the main paths")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

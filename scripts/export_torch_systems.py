@@ -54,7 +54,13 @@ writes each supercell as a system file that ``smol_tpu_torch`` loads
 - ``torch_sgc_3x3x3.npz``: the same on 3x3x3, for the CPU tests;
 - ``torch_spinel_cd_2x2x2.npz``: the semigrand bench spinel 2x2x2 in the
   decomposition form that ``bench.py`` builds (its features are the
-  cluster interactions, its natural parameters the orbit multiplicities).
+  cluster interactions, its natural parameters the orbit multiplicities);
+- ``torch_aucu_pt_3x3x3.npz``: ``bench.py``'s ``tempering`` config, the
+  binary Au-Cu FCC expansion of ``canonical`` on 3x3x3 (27 sites) with
+  zero chemical potentials (Au 0, Cu 0), built as the bench builds it,
+  with the default cluster-decomposition processor; the bench's starts
+  are ``default_rng(0).integers(0, 2, (8192, 27))`` on the ladder
+  ``make_temperature_ladder(300, 3000, 8192)``.
 
 The files are committed under ``tests/data``; regenerate them with
 
@@ -92,6 +98,7 @@ DECOMPOSITION = {  # file stem -> (system, supercell edge), as bench.py builds t
     "sgc_6x6x6": ("sgc", 6),
     "sgc_3x3x3": ("sgc", 3),
     "spinel_cd_2x2x2": ("spinel_cd", 2),
+    "aucu_pt_3x3x3": ("aucu_pt", 3),
 }
 
 
@@ -131,12 +138,27 @@ def spinel_cd_ensemble(n: int):
     )
 
 
+def aucu_pt_ensemble(n: int):
+    """``bench.py``'s ``tempering`` on an n x n x n supercell: the bench Au-Cu
+    expansion with zero chemical potentials (decomposition processor, the
+    default, as the bench builds it)."""
+    from smol_tpu.benchmarks.systems import fcc_binary_prim, random_expansion
+    from smol_tpu.moca import Ensemble
+
+    ce = random_expansion(fcc_binary_prim(), {2: 6.0, 3: 4.0}, seed=7)
+    return Ensemble.from_cluster_expansion(
+        ce, np.diag([n, n, n]), chemical_potentials={"Au": 0.0, "Cu": 0.0}
+    )
+
+
 def decomposition_system(stem: str) -> dict:
     """The system dict of one decomposition-form file."""
     from smol_tpu_torch.system import export_system
 
     kind, n = DECOMPOSITION[stem]
-    return export_system({"sgc": sgc_ensemble, "spinel_cd": spinel_cd_ensemble}[kind](n))
+    build = {"sgc": sgc_ensemble, "spinel_cd": spinel_cd_ensemble,
+             "aucu_pt": aucu_pt_ensemble}[kind]
+    return export_system(build(n))
 
 
 def spinel_ewald_ensemble(n: int):

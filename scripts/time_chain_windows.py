@@ -20,8 +20,10 @@ Au-Cu 3x3x3, swaps on Au-Cu 4x4x4, each in its main path's sequence block;
 ``chip_smoke.time_wl_window``) and the distance chain on the SQS main
 path's launch (8000 steps at 2048 walkers on the bench's first 8-site
 shape and on the 64-site shape, mean of 5, each on a copy of one starting
-state).  Further arguments after the tree name the kinds to time
-(``flip``, ``swap``, ``table``, ``wl``, ``distance``; all without).
+state), and, where the checkout has them, the flip and swap cells of
+K1-Ising (``chip_smoke.ISING_CELLS``) with the Ising body.  Further
+arguments after the tree name the kinds to time (``flip``, ``swap``,
+``table``, ``wl``, ``distance``, ``ising``; all without).
 Prints the card's name and power limit and one ``AB`` line per cell:
 label, move, cell, kernel ms, kernel ms without the Ewald term (``nan``
 for a cell without one); a distance line ends with a checksum of the
@@ -38,7 +40,7 @@ from pathlib import Path
 def main():
     label = sys.argv[1]
     tree = Path(sys.argv[2] if len(sys.argv) > 2 else Path(__file__).parent.parent)
-    kinds = set(sys.argv[3:]) or {"flip", "swap", "table", "wl", "distance"}
+    kinds = set(sys.argv[3:]) or {"flip", "swap", "table", "wl", "distance", "ising"}
     tree = tree.resolve()
     os.chdir(tree)
     sys.path.insert(0, str(tree))
@@ -48,9 +50,10 @@ def main():
     print(card)
     wl_cells = getattr(chip_smoke, "WL_CELLS", {}) if "wl" in kinds else {}
     sqs_cells = getattr(chip_smoke, "SQS_CELLS", ()) if "distance" in kinds else ()
+    ising_cells = getattr(chip_smoke, "ISING_CELLS", {}) if "ising" in kinds else {}
     chip_smoke._build.build_libraries(
-        tuple(name for name, on in (("flip_chain", "flip" in kinds),
-                                    ("swap_chain", "swap" in kinds),
+        tuple(name for name, on in (("flip_chain", "flip" in kinds or bool(ising_cells)),
+                                    ("swap_chain", "swap" in kinds or bool(ising_cells)),
                                     ("table_chain", "table" in kinds),
                                     ("wl_chain", bool(wl_cells)),
                                     ("distance_chain", bool(sqs_cells))) if on))
@@ -65,6 +68,11 @@ def main():
         t = chip_smoke.time_window(ensemble, stem, card, move, block, twin_reps=1)
         print("AB", label, move, stem, t["kernel_ms"],
               t.get("kernel_no_ewald_ms", float("nan")), flush=True)
+    for (stem, move), (block, temperature) in ising_cells.items():
+        ensemble = chip_smoke.load(stem)[0]
+        t = chip_smoke.time_window(ensemble, stem, card, move, block, twin_reps=0,
+                                   delta="ising", temperature=temperature)
+        print("AB", label, f"{move}+ising", stem, t["kernel_ms"], float("nan"), flush=True)
     for stem, move in wl_cells.items():
         block = chip_smoke.SWAP_CELLS.get(stem, (None, chip_smoke.BLOCK))[1]
         t = chip_smoke.time_wl_window(*chip_smoke.load(stem), stem, card, move,

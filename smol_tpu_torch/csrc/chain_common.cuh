@@ -6,11 +6,13 @@
 // - one rank's table rows in shared memory and their cp.async prefetch
 //   (the analog of the reference's streamed-table DMA, pallas_chain.py
 //   :1590-1626);
-// - the cluster-expansion delta of one site, in one of two bodies: Direct
-//   (one f64 lookup per local cluster, summed in the order l = 0, 1, ...)
-//   and Qary, K3, the Z_q character delta of pallas_chain.py
+// - the cluster-expansion delta of one site, in one of three bodies: Direct
+//   (one f64 lookup per local cluster, summed in the order l = 0, 1, ...),
+//   Qary, K3, the Z_q character delta of pallas_chain.py
 //   `make_site_delta_qary` (:519) and `make_swap_pair_delta_qary` (:570),
-//   summed in row order;
+//   summed in row order, and Ising, K1-Ising, the parity delta of
+//   `make_site_delta_ising` (:374) and `make_swap_pair_delta_ising` (:410),
+//   with the walker's codes as rank bits in registers, summed in row order;
 // - K4, the Ewald term sign * (C_r + V_r . occ) of pallas_chain.py
 //   `ewald_delta` (:1651), in f64 over the block's codes in rank order;
 // - the whole delta of a flip and of a swap (flip_delta, swap_delta, with
@@ -211,6 +213,13 @@ __device__ __forceinline__ QRows qrows_at(unsigned char* base, int Lq, int NB) {
   return r;
 }
 
+// The per-walker state a body keeps in registers beside the block's codes:
+// none for the direct and the q-ary bodies.
+struct NoWalker {
+  __device__ void load(const int8_t*, int, int, int) {}
+  __device__ void set(int, int) {}
+};
+
 // The table operands of the flip and swap chains, passed by value.
 struct Tables {
   // the direct body: [R, L, K], [R, L, K], [R, L], [R, L, TM]
@@ -227,12 +236,18 @@ struct Tables {
   const double* qas;
   const int32_t* qrows;
   int L, K, TM, RE, Lq, NB;
+  // K1-Ising: [R, Li, NW] rank-bit masks, [R, Li] amplitudes, [R] row counts
+  const uint64_t* imask;
+  const double* iamp;
+  const int32_t* irows;
+  int Li, NW;
 };
 
 // The direct body: one rank's local-cluster rows (Rows), ce_add.
 template <int KT>
 struct Direct {
   using Rows = smol::Rows;
+  using Walker = NoWalker;
   // the slot count as a compile-time constant where the body has one
   __device__ static void pin(Tables& t) {
     if constexpr (KT > 0) t.K = KT;
@@ -250,7 +265,7 @@ struct Direct {
   }
   __device__ static double add(double dE, const Rows& r, const Tables& t, int u,
                                const int8_t* s_occ, int nt, int tid, int a,
-                               int b) {
+                               int b, const Walker&) {
     return ce_add<KT>(dE, r, s_occ, nt, tid, t.L, t.K, t.TM, a, b);
   }
 };
@@ -306,6 +321,7 @@ __device__ __forceinline__ double qary_add(double dE, const QRows& r, int n,
 template <int Q, int NBT>
 struct Qary {
   using Rows = QRows;
+  using Walker = NoWalker;
   // the neighbour count as a compile-time constant where the body has one
   __device__ static void pin(Tables& t) {
     if constexpr (NBT > 0) t.NB = NBT;
@@ -337,9 +353,156 @@ struct Qary {
   }
   __device__ static double add(double dE, const Rows& r, const Tables& t, int u,
                                const int8_t* s_occ, int nt, int tid, int a,
-                               int b) {
+                               int b, const Walker&) {
     return qary_add<Q, NBT>(dE, r, __ldg(t.qrows + u), s_occ, nt, tid, t.NB, a,
                             b);
+  }
+};
+
+// K1-Ising's rows of one rank in shared memory (ops/chain.py ising_tables,
+// the rows of nonzero amplitude in local-cluster order): row l's amplitude
+// amp[l] and its neighbour-membership mask mask[l * NW .. l * NW + NW) of
+// rank bits, and, with an Ewald term, the Ewald row.
+struct IRows {
+  double* amp;     // [Li]
+  double* ew;      // [RE] Ewald row V_r (RE = R with an Ewald term, else 0)
+  uint64_t* mask;  // [Li, NW]
+};
+
+__host__ __device__ __forceinline__ size_t irows_bytes(int Li, int NW, int RE) {
+  const size_t bytes = ((size_t)Li * (NW + 1) + (size_t)RE) * 8;
+  return (bytes + 15) / 16 * 16;
+}
+
+__device__ __forceinline__ IRows irows_at(unsigned char* base, int Li, int NW,
+                                          int RE) {
+  IRows r;
+  r.amp = reinterpret_cast<double*>(base);
+  r.ew = r.amp + Li;
+  r.mask = reinterpret_cast<uint64_t*>(r.ew + RE);
+  return r;
+}
+
+// The walker's binary codes as NW words of rank bits (rank r is bit r % 64
+// of word r / 64), held in registers: every index into w is a compile-time
+// constant once the loops over k are unrolled.
+template <int NW>
+struct Bits {
+  uint64_t w[NW];
+
+  __device__ __forceinline__ void load(const int8_t* s_occ, int R, int nt,
+                                       int tid) {
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      uint64_t x = 0;
+      for (int j = 0; j < 64 && 64 * k + j < R; ++j) {
+        x |= (uint64_t)(s_occ[(64 * k + j) * nt + tid] != 0) << j;
+      }
+      w[k] = x;
+    }
+  }
+
+  __device__ __forceinline__ void set(int r, int code) {
+    const uint64_t m = 1ull << (r & 63);
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      if ((r >> 6) == k) w[k] = code ? (w[k] | m) : (w[k] & ~m);
+    }
+  }
+};
+
+// One parity row's signed amplitude: A (-1)^t, t = popc(mask & bits).  The
+// parity of a sum of popcounts is that of the popcount of the xor of the
+// words, folded to 32 bits; the sign is set by an xor into A's high word,
+// which is -A exactly (as the twin's torch.where(odd, -amp, amp)).
+template <int NW>
+__device__ __forceinline__ double ising_term(const uint64_t (&mask)[NW], double A,
+                                             const Bits<NW>& bits) {
+  uint64_t x = 0;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) x ^= mask[k] & bits.w[k];
+  const unsigned odd = (unsigned)__popc((unsigned)x ^ (unsigned)(x >> 32)) << 31;
+  return __hiloint2double(__double2hiint(A) ^ (int)odd, __double2loint(A));
+}
+
+// K1-Ising: dE plus -2 (b - a) S for the rank's n rows, S = sum over rows l
+// of A_l (-1)^{t_l}, summed in row order l = 0 .. n-1 from 0.0.  Every term
+// is +-A_l exactly and the scale is 0 or +-2, so the f64 adds of S are the
+// only roundings, and the one dependent chain: the rows are taken in
+// batches of kIsingBatch whose masks and amplitudes are all loaded before
+// any is used, an empty asm with a memory clobber between the loads and
+// the sums (without it ptxas moved each row's shared-memory loads next to
+// their use, a round trip per row, in one loop as in batches).  The twin
+// (ops/chain.py _ising_terms) sums in this order.
+constexpr int kIsingBatch = 16;
+
+template <int NW>
+__device__ __forceinline__ double ising_add(double dE, const IRows& r, int n,
+                                            const Bits<NW>& bits, int a, int b) {
+  double s = 0.0;
+  int l = 0;
+  for (; l + kIsingBatch <= n; l += kIsingBatch) {
+    uint64_t mask[kIsingBatch][NW];
+    double A[kIsingBatch];
+#pragma unroll
+    for (int j = 0; j < kIsingBatch; ++j) {
+#pragma unroll
+      for (int k = 0; k < NW; ++k) mask[j][k] = r.mask[(l + j) * NW + k];
+      A[j] = r.amp[l + j];
+    }
+    asm volatile("" ::: "memory");  // every load of the batch issued first
+#pragma unroll
+    for (int j = 0; j < kIsingBatch; ++j) s += ising_term<NW>(mask[j], A[j], bits);
+  }
+  for (; l < n; ++l) {
+    uint64_t mask[NW];
+#pragma unroll
+    for (int k = 0; k < NW; ++k) mask[k] = r.mask[l * NW + k];
+    s += ising_term<NW>(mask, r.amp[l], bits);
+  }
+  return dE + (double)(-2 * (b - a)) * s;
+}
+
+// The Ising body: a rank's irows[u] parity rows (IRows) and the walker's
+// codes as bits (Bits<NW>), ising_add.  NW, the words of rank bits (1 to 4:
+// up to 256 ranks), is a compile-time constant.
+template <int NW>
+struct Ising {
+  using Rows = IRows;
+  using Walker = Bits<NW>;
+  __device__ static void pin(Tables& t) { t.NW = NW; }
+  __host__ __device__ static size_t bytes(const Tables& t) {
+    return irows_bytes(t.Li, t.NW, t.RE);
+  }
+  __device__ static Rows at(unsigned char* base, const Tables& t) {
+    return irows_at(base, t.Li, t.NW, t.RE);
+  }
+  // Issue the asynchronous copy of rank u's rows into `dst` (all threads).
+  __device__ static void copy(unsigned char* dst, int u, const Tables& t,
+                              int tid, int nt) {
+    const IRows r = at(dst, t);
+    const int n = __ldg(t.irows + u);
+    const size_t row0 = (size_t)u * t.Li;
+    for (int x = tid; x < n; x += nt) {
+      __pipeline_memcpy_async(r.amp + x, t.iamp + row0 + x, sizeof(double));
+    }
+    for (int x = tid; x < n * NW; x += nt) {
+      __pipeline_memcpy_async(r.mask + x, t.imask + row0 * NW + x,
+                              sizeof(uint64_t));
+    }
+    const double* ew_u = t.ew_v + (size_t)u * t.RE;
+    for (int x = tid; x < t.RE; x += nt) {
+      __pipeline_memcpy_async(r.ew + x, ew_u + x, sizeof(double));
+    }
+    __pipeline_commit();
+  }
+  // inlined, so that the walker's bits stay in registers (a call taking
+  // them by reference would put them on the stack)
+  static __device__ __forceinline__ double add(double dE, const Rows& r,
+                                               const Tables& t, int u,
+                                               const int8_t*, int, int, int a,
+                                               int b, const Walker& bits) {
+    return ising_add<NW>(dE, r, __ldg(t.irows + u), bits, a, b);
   }
 };
 
@@ -357,17 +520,17 @@ __device__ __forceinline__ double ewald_term(const double* row, double c,
   return (double)sign * (c + acc);
 }
 
-// A flip's delta: rank u (rows `rows` of the body `Body`) going from code a
-// to b.  Cluster terms, then the Ewald term, then minus the chemical work
-// mu[u, b] - mu[u, a] (mu is [R, C]).
+// A flip's delta: rank u (rows `rows` of the body `Body`, the walker's
+// register state `wk`) going from code a to b.  Cluster terms, then the
+// Ewald term, then minus the chemical work mu[u, b] - mu[u, a] (mu is
+// [R, C]).
 template <class Body, bool EW>
-__device__ __forceinline__ double flip_delta(const typename Body::Rows& rows,
-                                             const Tables& t, int u, int a,
-                                             int b, const int8_t* s_occ,
-                                             int nt, int tid, int R, int C,
-                                             const double* __restrict__ mu,
-                                             const double* __restrict__ ew_c) {
-  double dE = Body::add(0.0, rows, t, u, s_occ, nt, tid, a, b);
+__device__ __forceinline__ double flip_delta(
+    const typename Body::Rows& rows, const Tables& t, int u, int a, int b,
+    const int8_t* s_occ, int nt, int tid, int R, int C,
+    const double* __restrict__ mu, const double* __restrict__ ew_c,
+    const typename Body::Walker& wk = typename Body::Walker()) {
+  double dE = Body::add(0.0, rows, t, u, s_occ, nt, tid, a, b, wk);
   if constexpr (EW) {
     dE += ewald_term(rows.ew, __ldg(ew_c + u), s_occ, nt, tid, R, b - a);
   }
@@ -380,23 +543,27 @@ __device__ __forceinline__ double flip_delta(const typename Body::Rows& rows,
 // (rows rv) going b -> a against the occupancy with u already holding b,
 // then u's Ewald term (taken before u is recolored), then v's.  Leaves b in
 // u's cell: on accept the caller writes a into v's cell, on reject a back
-// into u's.  With the q-ary body v's phases read u's new code, which stands
-// for the reference's rank-1 correction `corr` (:596-603).
+// into u's (and on accept updates the walker's register state `wk`).  With
+// the q-ary body v's phases read u's new code, which stands for the
+// reference's rank-1 correction `corr` (:596-603); with the Ising body v's
+// parities read a copy of the walker's bits with u's bit set to b, which
+// stands for the reference's membership correction (:424-432).
 template <class Body, bool EW>
-__device__ __forceinline__ double swap_delta(const typename Body::Rows& ru,
-                                             const typename Body::Rows& rv,
-                                             const Tables& t, int u, int v,
-                                             int8_t* cu, int a, int b,
-                                             const int8_t* s_occ, int nt,
-                                             int tid, int R,
-                                             const double* __restrict__ ew_c) {
+__device__ __forceinline__ double swap_delta(
+    const typename Body::Rows& ru, const typename Body::Rows& rv,
+    const Tables& t, int u, int v, int8_t* cu, int a, int b,
+    const int8_t* s_occ, int nt, int tid, int R,
+    const double* __restrict__ ew_c,
+    const typename Body::Walker& wk = typename Body::Walker()) {
   double ewald_u = 0.0;
   if constexpr (EW) {
     ewald_u = ewald_term(ru.ew, __ldg(ew_c + u), s_occ, nt, tid, R, b - a);
   }
-  double dE = Body::add(0.0, ru, t, u, s_occ, nt, tid, a, b);
+  double dE = Body::add(0.0, ru, t, u, s_occ, nt, tid, a, b, wk);
   *cu = (int8_t)b;  // v's delta sees u already holding b
-  dE = Body::add(dE, rv, t, v, s_occ, nt, tid, b, a);
+  typename Body::Walker wv = wk;
+  wv.set(u, b);
+  dE = Body::add(dE, rv, t, v, s_occ, nt, tid, b, a, wv);
   if constexpr (EW) {
     dE += ewald_u;
     dE += ewald_term(rv.ew, __ldg(ew_c + v), s_occ, nt, tid, R, a - b);

@@ -13,13 +13,16 @@
 //   CUDA block size, which divides it so that a CUDA block shares one
 //   sequence row.  The steps of a whole window run in a loop inside the
 //   kernel.
-// - The energy delta of the site, in one of two bodies (chain_common.cuh):
+// - The energy delta of the site, in one of three bodies (chain_common.cuh):
 //   the direct lookup, one table load per local cluster:
 //   t = d2 * a + sum_k stride * code(nbr), dE = sum_l g[l, t_new] - g[l, t_old];
 //   or K3, the q-ary character rows: per row an integer phase over at most
 //   K - 1 neighbours and two compare-selects mod q (no tensor row), the
 //   rows stored sparse, not as the reference's dense frequency matrix for
-//   the MXU.  Either is summed in native f64 in row order, then the Ewald
+//   the MXU; or K1-Ising, the parity rows of binary sign-symmetric systems:
+//   per row a mask load, an AND with the walker's codes held as rank bits
+//   in registers, a popcount and one f64 add (no gather of neighbour codes
+//   at all).  Each is summed in native f64 in row order, then the Ewald
 //   term (b - a) * (C_u + V_u . occ) in f64, then the chemical work (the
 //   reference needs double-float pairs and select loops because a TPU has
 //   no f64 vector unit and slow gathers, and takes the Ewald dot in f32).
@@ -54,8 +57,8 @@ namespace {
 using namespace smol;
 
 // Body: Direct<KT> (KT: the slot count K as a compile-time constant, 0:
-// runtime K) or Qary<Q, NBT> (K3); EW: the tables carry the Ewald fold
-// (ew_v [R, R], ew_c [R]).
+// runtime K), Qary<Q, NBT> (K3) or Ising<NW> (K1-Ising, NW words of rank
+// bits); EW: the tables carry the Ewald fold (ew_v [R, R], ew_c [R]).
 template <class Body, bool EW>
 __global__ void __launch_bounds__(kMaxThreads)
 flip_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
@@ -85,6 +88,8 @@ flip_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
   for (int r = 0; r < R; ++r) {
     s_occ[r * nt + tid] = occ[(size_t)r * W + wc];
   }
+  typename Body::Walker wk;  // the Ising body's rank bits; nothing otherwise
+  wk.load(s_occ, R, nt, tid);
   double e = enthalpy[wc];
   const float b32 = beta[wc];
   int nacc = 0;
@@ -113,10 +118,11 @@ flip_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
     const int b = j + (j >= a ? 1 : 0);
 
     const double dE = flip_delta<Body, EW>(rows, t, u, a, b, s_occ, nt, tid, R,
-                                           C, mu, ew_c);
+                                           C, mu, ew_c, wk);
 
     if (metropolis(b32, dE, bits.x)) {
       *cell = (int8_t)b;
+      wk.set(u, b);
       e += dE;
       ++nacc;
     }
@@ -136,8 +142,17 @@ flip_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
 using Kernel = decltype(&flip_chain_kernel<Direct<3>, false>);
 
 // The instantiation of a launch: the direct body with or without Ewald, K =
-// 3 or runtime K; K3 for q = 2 or 3 without Ewald, NB = 2 or runtime NB.
-Kernel pick_kernel(int q, bool ew, int K, int NB) {
+// 3 or runtime K; K3 for q = 2 or 3 without Ewald, NB = 2 or runtime NB;
+// K1-Ising for NW = 1 to 4 words, with or without Ewald.
+Kernel pick_kernel(int q, int nw, bool ew, int K, int NB) {
+  switch (nw) {
+    case 0: break;
+    case 1: return ew ? flip_chain_kernel<Ising<1>, true> : flip_chain_kernel<Ising<1>, false>;
+    case 2: return ew ? flip_chain_kernel<Ising<2>, true> : flip_chain_kernel<Ising<2>, false>;
+    case 3: return ew ? flip_chain_kernel<Ising<3>, true> : flip_chain_kernel<Ising<3>, false>;
+    case 4: return ew ? flip_chain_kernel<Ising<4>, true> : flip_chain_kernel<Ising<4>, false>;
+    default: return nullptr;
+  }
   if (q == 0) {
     return ew ? (K == 3 ? flip_chain_kernel<Direct<3>, true> : flip_chain_kernel<Direct<0>, true>)
               : (K == 3 ? flip_chain_kernel<Direct<3>, false> : flip_chain_kernel<Direct<0>, false>);
@@ -159,20 +174,24 @@ extern "C" int smol_flip_chain(void* occ, void* enthalpy, void* naccept,
                                const void* ew_c, const void* qnbr,
                                const void* qfreq, const void* qms,
                                const void* qac, const void* qas,
-                               const void* qrows, int R, int L, int K, int TM,
-                               int C, int W, int block_size, int n_steps,
-                               int rng_mode, int q, int Lq, int NB,
-                               void* stream) {
+                               const void* qrows, const void* imask,
+                               const void* iamp, const void* irows, int R,
+                               int L, int K, int TM, int C, int W,
+                               int block_size, int n_steps, int rng_mode, int q,
+                               int Lq, int NB, int Li, int NW, void* stream) {
   const int threads = block_threads(W, block_size);
   const bool ew = ew_v != nullptr;
   const Tables t{(const int32_t*)nbr, (const int32_t*)stride, (const int32_t*)d2,
                  (const double*)g, (const double*)ew_v, (const int32_t*)qnbr,
                  (const int32_t*)qfreq, (const int32_t*)qms, (const double*)qac,
                  (const double*)qas, (const int32_t*)qrows, L, K, TM, ew ? R : 0, Lq,
-                 NB};
-  const Kernel kernel = pick_kernel(q, ew, K, NB);
+                 NB, (const uint64_t*)imask, (const double*)iamp,
+                 (const int32_t*)irows, Li, NW};
+  const Kernel kernel = pick_kernel(q, NW, ew, K, NB);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t rb = q == 0 ? Direct<0>::bytes(t) : Qary<2, 0>::bytes(t);
+  const size_t rb = NW > 0   ? Ising<1>::bytes(t)
+                    : q == 0 ? Direct<0>::bytes(t)
+                             : Qary<2, 0>::bytes(t);
   const size_t smem = 2 * rb + (size_t)R * threads;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;

@@ -6,7 +6,7 @@
 // ewald_delta (K4), the accept :1882-1898 and the non-null move count).
 // It keeps flip_chain.cu's frame (one thread per walker, the block's codes
 // in shared memory for the whole window, Philox or the reference's hash,
-// the direct or the q-ary site body of chain_common.cuh):
+// the direct, the q-ary or the Ising site body of chain_common.cuh):
 //
 // - Each step takes a pair (u, v) of ranks of one sublattice from two
 //   exogenous sequences shared by the walkers of a group.  With a = occ[u],
@@ -20,8 +20,9 @@
 //   V_v . occ with u holding b) (:1830-1838).  Summed in f64 in that order,
 //   as the plain torch twin in ops/chain.py sums.  With the q-ary body, v's
 //   phases read u's new code from its cell, which takes the place of the
-//   reference's rank-1 correction of v's phases (:596-603): one site body
-//   serves both moves.
+//   reference's rank-1 correction of v's phases (:596-603), and with the
+//   Ising body v's parities read the walker's bits with u's set to b
+//   (:427-432): one site body serves both moves.
 // - The acceptance uniform is the only draw of a swap: r_u, slot 1 of the
 //   hash, word x of Philox (the reference :1862-1863).
 //
@@ -43,8 +44,8 @@ namespace {
 using namespace smol;
 
 // Body: Direct<KT> (KT: the slot count K as a compile-time constant, 0:
-// runtime K) or Qary<Q, NBT> (K3); EW: the tables carry the Ewald fold
-// (ew_v [R, R], ew_c [R]).
+// runtime K), Qary<Q, NBT> (K3) or Ising<NW> (K1-Ising); EW: the tables
+// carry the Ewald fold (ew_v [R, R], ew_c [R]).
 template <class Body, bool EW>
 __global__ void __launch_bounds__(kMaxThreads)
 swap_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
@@ -64,16 +65,19 @@ swap_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
                   const int32_t* __restrict__ qms,
                   const double* __restrict__ qac,
                   const double* __restrict__ qas,
-                  const int32_t* __restrict__ qrows, int R, int L, int K,
-                  int TM, int Lq, int NB, int W, int block_size, int n_steps,
-                  int rng_mode) {
+                  const int32_t* __restrict__ qrows,
+                  const uint64_t* __restrict__ imask,
+                  const double* __restrict__ iamp,
+                  const int32_t* __restrict__ irows, int R, int L, int K,
+                  int TM, int Lq, int NB, int Li, int NW, int W,
+                  int block_size, int n_steps, int rng_mode) {
   // the tables with their compile-time counts: the slot (or neighbour)
   // count of the body and, without an Ewald term, no Ewald row.  The
   // pointers come in as __restrict__ parameters: taken from a Tables
   // parameter instead, the window on the Ewald cells ran 10 % slower (A/B
   // on an H100, scripts/time_chain_windows.py)
   Tables t{nbr, stride, d2, g, ew_v, qnbr, qfreq, qms, qac, qas, qrows,
-           L, K, TM, EW ? R : 0, Lq, NB};
+           L, K, TM, EW ? R : 0, Lq, NB, imask, iamp, irows, Li, NW};
   Body::pin(t);
   extern __shared__ __align__(16) unsigned char smem[];
   // two slots (this step, next step), each the rows of u then of v
@@ -89,6 +93,8 @@ swap_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
   for (int r = 0; r < R; ++r) {
     s_occ[r * nt + tid] = occ[(size_t)r * W + wc];
   }
+  typename Body::Walker wk;  // the Ising body's rank bits; nothing otherwise
+  wk.load(s_occ, R, nt, tid);
   double e = enthalpy[wc];
   const float b32 = beta[wc];
   int nacc = 0;
@@ -125,10 +131,12 @@ swap_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
 
     // leaves b in u's cell: v's delta sees u already holding b
     const double dE = swap_delta<Body, EW>(ru, rv, t, u, v, cu, a, b, s_occ, nt,
-                                           tid, R, ew_c);
+                                           tid, R, ew_c, wk);
 
     if (is_move && metropolis(b32, dE, draws.at(i, rng_mode).x)) {
       *cv = (int8_t)a;
+      wk.set(u, b);
+      wk.set(v, a);
       e += dE;
       ++nacc;
     } else {
@@ -152,7 +160,15 @@ swap_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
 using Kernel = decltype(&swap_chain_kernel<Direct<3>, false>);
 
 // The instantiation of a launch, as flip_chain.cu picks it.
-Kernel pick_kernel(int q, bool ew, int K, int NB) {
+Kernel pick_kernel(int q, int nw, bool ew, int K, int NB) {
+  switch (nw) {
+    case 0: break;
+    case 1: return ew ? swap_chain_kernel<Ising<1>, true> : swap_chain_kernel<Ising<1>, false>;
+    case 2: return ew ? swap_chain_kernel<Ising<2>, true> : swap_chain_kernel<Ising<2>, false>;
+    case 3: return ew ? swap_chain_kernel<Ising<3>, true> : swap_chain_kernel<Ising<3>, false>;
+    case 4: return ew ? swap_chain_kernel<Ising<4>, true> : swap_chain_kernel<Ising<4>, false>;
+    default: return nullptr;
+  }
   if (q == 0) {
     return ew ? (K == 3 ? swap_chain_kernel<Direct<3>, true> : swap_chain_kernel<Direct<0>, true>)
               : (K == 3 ? swap_chain_kernel<Direct<3>, false> : swap_chain_kernel<Direct<0>, false>);
@@ -174,19 +190,24 @@ extern "C" int smol_swap_chain(void* occ, void* enthalpy, void* naccept,
                                const void* ew_c, const void* qnbr,
                                const void* qfreq, const void* qms,
                                const void* qac, const void* qas,
-                               const void* qrows, int R, int L, int K, int TM,
-                               int W, int block_size, int n_steps, int rng_mode,
-                               int q, int Lq, int NB, void* stream) {
+                               const void* qrows, const void* imask,
+                               const void* iamp, const void* irows, int R,
+                               int L, int K, int TM, int W, int block_size,
+                               int n_steps, int rng_mode, int q, int Lq, int NB,
+                               int Li, int NW, void* stream) {
   const int threads = block_threads(W, block_size);
   const bool ew = ew_v != nullptr;
   const Tables t{(const int32_t*)nbr, (const int32_t*)stride, (const int32_t*)d2,
                  (const double*)g, (const double*)ew_v, (const int32_t*)qnbr,
                  (const int32_t*)qfreq, (const int32_t*)qms, (const double*)qac,
                  (const double*)qas, (const int32_t*)qrows, L, K, TM, ew ? R : 0, Lq,
-                 NB};
-  const Kernel kernel = pick_kernel(q, ew, K, NB);
+                 NB, (const uint64_t*)imask, (const double*)iamp,
+                 (const int32_t*)irows, Li, NW};
+  const Kernel kernel = pick_kernel(q, NW, ew, K, NB);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t rb = q == 0 ? Direct<0>::bytes(t) : Qary<2, 0>::bytes(t);
+  const size_t rb = NW > 0   ? Ising<1>::bytes(t)
+                    : q == 0 ? Direct<0>::bytes(t)
+                             : Qary<2, 0>::bytes(t);
   const size_t smem = 4 * rb + (size_t)R * threads;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -195,8 +216,9 @@ extern "C" int smol_swap_chain(void* occ, void* enthalpy, void* naccept,
       (int8_t*)occ, (double*)enthalpy, (int32_t*)naccept, (int32_t*)nmove,
       (const float*)beta, (const int32_t*)useq, (const int32_t*)vseq,
       seq_stride, (const int64_t*)seed, t.nbr, t.stride, t.d2, t.g, t.ew_v,
-      (const double*)ew_c, t.qnbr, t.qfreq, t.qms, t.qac, t.qas, t.qrows, R, L,
-      K, TM, Lq, NB, W, block_size, n_steps, rng_mode);
+      (const double*)ew_c, t.qnbr, t.qfreq, t.qms, t.qac, t.qas, t.qrows,
+      t.imask, t.iamp, t.irows, R, L, K, TM, Lq, NB, Li, NW, W, block_size,
+      n_steps, rng_mode);
   return (int)cudaGetLastError();
 }
 

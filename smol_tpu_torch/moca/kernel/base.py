@@ -102,11 +102,14 @@ class ChainKernel(MCKernel):
         proposal_mode: ``"random"`` or ``"sweep"`` (flips only).
         rng: ``"philox"`` (run mode) or ``"hash"`` (the reference's
             interpret-mode random numbers, for parity checks).
-        chain_delta: the flip and swap chains' site body, ``"direct"``
-            (the default) or ``"qary"`` (K3's Z_q character rows, for
-            systems whose tables take them; see
-            :func:`~smol_tpu_torch.ops.chain.build_chain_tables`).  Table
-            moves and Wang-Landau take the direct body only.
+        chain_delta: the flip and swap chains' site body, ``"direct"``,
+            ``"qary"`` (K3's Z_q character rows) or ``"ising"`` (K1-Ising's
+            parity rows), each for systems whose tables take it (see
+            :func:`~smol_tpu_torch.ops.chain.build_chain_tables`); None
+            (the default) takes the body
+            :func:`~smol_tpu_torch.ops.chain.default_delta` names for the
+            system and the chain.  Table moves and Wang-Landau take the
+            direct body only.
         usher_kwargs: go to the usher of ``step_type``.
 
     What the reference sends to its per-step path (a bias, independent
@@ -116,7 +119,7 @@ class ChainKernel(MCKernel):
 
     def __init__(self, ensemble, step_type, *, seed=None, bias_type=None,
                  shared_proposals=True, chain_block_size=1024,
-                 proposal_mode="random", rng="philox", chain_delta=chain.DEFAULT_DELTA,
+                 proposal_mode="random", rng="philox", chain_delta=None,
                  **usher_kwargs):
         if bias_type is not None:
             raise NotImplementedError(
@@ -131,7 +134,7 @@ class ChainKernel(MCKernel):
             )
         if rng not in chain.RNG_MODES:
             raise ValueError(f"unknown rng mode: {rng!r}")
-        if chain_delta not in chain.DELTAS:
+        if chain_delta is not None and chain_delta not in chain.DELTAS:
             raise ValueError(f"unknown chain delta {chain_delta!r}: one of {chain.DELTAS}")
         self.chain_delta = chain_delta
         self.chain_block_size = int(chain_block_size)
@@ -139,7 +142,7 @@ class ChainKernel(MCKernel):
         self.rng = rng
         super().__init__(ensemble, step_type, seed=seed, **usher_kwargs)
         self._chain_tables = None
-        if chain_delta != "direct" and self.move == "table":
+        if chain_delta not in (None, "direct") and self.move == "table":
             raise NotImplementedError(
                 f"the {chain_delta} body of table moves is not ported yet "
                 "(ROADMAP.md Queue 2)")
@@ -171,13 +174,19 @@ class ChainKernel(MCKernel):
                     None if self.move == "swap" else ens.chemical_potential_table
                 ),
                 sublattice_probabilities=usher.sublattice_probabilities,
-                delta=self.chain_delta,
+                delta=self.chain_delta or chain.default_delta(
+                    ens.processor, ens.sublattices, self.chain_name),
             )
         return self._chain_tables
 
 
 class ThermalKernelMixin:
-    """Mixin adding a temperature and beta to a kernel."""
+    """Mixin adding a temperature and beta to a kernel.
+
+    The temperature is a scalar, or a per-walker ladder [W] (replica
+    exchange): ``state["beta"]`` is then each walker's 1 / (kB T), f64,
+    and the chains read its f32 copy.
+    """
 
     _kB: float = kB
 
@@ -186,24 +195,25 @@ class ThermalKernelMixin:
         self.temperature = temperature
 
     @property
-    def temperature(self) -> float:
+    def temperature(self):
+        """Temperature (a float, or a per-walker array for a ladder)."""
         return self._temperature
 
     @temperature.setter
     def temperature(self, temperature):
-        temperature = np.asarray(temperature, dtype=np.float64)
-        if temperature.ndim != 0:
-            raise NotImplementedError(
-                "per-walker temperature ladders are not ported yet "
-                "(ROADMAP.md Queue 1 item 3, replica exchange)"
-            )
-        self._temperature = float(temperature)
+        temperature = np.array(temperature, dtype=np.float64)
+        if temperature.ndim > 1:
+            raise ValueError("the temperature is a scalar or a per-walker ladder [W]")
+        self._temperature = float(temperature) if temperature.ndim == 0 else temperature
         self.beta = 1.0 / (self._kB * self._temperature)
 
     def initial_state(self, occupancies) -> dict:
         state = super().initial_state(occupancies)
-        state["beta"] = torch.full(
-            (state["enthalpy"].shape[0],), self.beta, dtype=torch.float64,
-            device=self.device,
-        )
+        nwalkers = state["enthalpy"].shape[0]
+        beta = np.asarray(self.beta, dtype=np.float64)
+        if beta.ndim == 1 and len(beta) != nwalkers:
+            raise ValueError(
+                f"a temperature ladder of {len(beta)} for {nwalkers} walkers")
+        state["beta"] = torch.as_tensor(
+            np.broadcast_to(beta, (nwalkers,)).copy(), device=self.device)
         return state

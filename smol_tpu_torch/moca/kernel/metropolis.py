@@ -6,7 +6,8 @@ Counterpart of ``smol_tpu/moca/kernel/metropolis.py`` (:83-95 and
 (semigrand), two-site ``Swap`` moves (canonical) and ``TableFlip`` moves
 (constrained-composition semigrand, e.g. charge-neutral), with no bias and
 no tracked features, with shared random proposals or, for flips, the
-deterministic sweep.  Anything else raises ``NotImplementedError`` naming
+deterministic sweep, at one temperature or on a per-walker ladder
+(replica exchange).  Anything else raises ``NotImplementedError`` naming
 the ROADMAP.md item that ports it; nothing silently takes another path.
 The factory also builds the Wang-Landau kernel
 (:mod:`smol_tpu_torch.moca.kernel.wanglandau`).
@@ -63,6 +64,10 @@ class Metropolis(ThermalKernelMixin, ChainKernel):
         return self._table_move
 
     def make_chain_fn(self, n_steps: int):
+        """The chain of ``n_steps`` per call: one thinning window, or, with
+        replica exchange, one exchange period, which the sampler runs as
+        segments of a window (``fn(state, generator, segments=,
+        between=)``, :func:`~smol_tpu_torch.parallel.tempering.make_tempering_chain`)."""
         return chain.make_shared_proposal_chain(
             self.chain_tables(),
             n_steps,

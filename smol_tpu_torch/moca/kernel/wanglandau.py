@@ -84,7 +84,7 @@ class WangLandau(ChainKernel):
                 "per-step path, which is not ported yet (ROADMAP.md Queue 1 "
                 "item 6); the chain takes flips and swaps"
             )
-        if self.chain_delta != "direct":
+        if self.chain_delta not in (None, "direct"):
             raise NotImplementedError(
                 f"the {self.chain_delta} body of the Wang-Landau chain is not "
                 "ported yet (ROADMAP.md Queue 2)")

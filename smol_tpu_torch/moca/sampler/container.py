@@ -257,6 +257,11 @@ class SampleContainer:
     def get_feature_vectors(self, discard=0, thin_by=1, flat=True):
         return self.get_trace_value("features", discard, thin_by, flat)
 
+    def get_temperatures(self, discard=0, thin_by=1, flat=True):
+        """Each walker's temperature at each sample (per-walker under
+        replica exchange)."""
+        return self.get_trace_value("temperature", discard, thin_by, flat)
+
     # ---------------- statistics ----------------
 
     def mean_enthalpy(self, discard=0, thin_by=1, flat=True):

@@ -2,7 +2,9 @@
 
 Counterpart of ``smol_tpu/moca/sampler/sampler.py``.  ``run`` drives one
 chain call per thinning window (:func:`smol_tpu_torch.ops.mc.run_chain_fused`)
-on the ensemble's device, in launches of a bounded number of records
+on the ensemble's device (with replica exchange, one call of thin_by /
+period segments with an exchange sweep after each, the reference's
+``sampler.py:252-273``), in launches of a bounded number of records
 (about 256 MB each, as the reference's ``samples_per_launch``); the records
 stay on the device, in the
 :class:`~smol_tpu_torch.moca.sampler.container.SampleContainer`, until a
@@ -23,6 +25,7 @@ from smol_tpu_torch.constants import kB
 from smol_tpu_torch.moca.kernel.metropolis import mckernel_factory
 from smol_tpu_torch.moca.sampler.container import SampleContainer
 from smol_tpu_torch.ops.mc import run_chain_fused
+from smol_tpu_torch.parallel.tempering import make_tempering_chain
 
 __all__ = ["Sampler"]
 
@@ -33,8 +36,15 @@ LAUNCH_RECORD_BYTES = 256 << 20  # records of one launch (the reference's bound)
 class Sampler:
     """Runs MCMC sampling of an ensemble on one device."""
 
-    def __init__(self, kernel, container, nwalkers=1):
+    def __init__(self, kernel, container, nwalkers=1, replica_exchange_period=None):
         """Prefer :meth:`from_ensemble`."""
+        if replica_exchange_period is not None:
+            if not hasattr(kernel, "temperature"):
+                raise ValueError("replica exchange needs a kernel with a temperature")
+            if int(replica_exchange_period) < 1:
+                raise ValueError("the replica exchange period must be positive")
+            replica_exchange_period = int(replica_exchange_period)
+        self._replica_exchange_period = replica_exchange_period
         self._kernel = kernel
         self._container = container
         self._nwalkers = int(nwalkers)
@@ -59,12 +69,11 @@ class Sampler:
         needs a ``temperature``, or, with ``kernel_type="wang-landau"``,
         :class:`~smol_tpu_torch.moca.kernel.wanglandau.WangLandau`, which
         takes none and needs ``min_enthalpy``, ``max_enthalpy`` and
-        ``bin_size``.
+        ``bin_size``.  A ``temperature`` ladder [nwalkers] with
+        ``replica_exchange_period`` runs parallel tempering: every period
+        steps adjacent walkers try to exchange their temperatures
+        (:mod:`smol_tpu_torch.parallel.tempering`).
         """
-        if replica_exchange_period is not None:
-            raise NotImplementedError(
-                "replica exchange is not ported yet (ROADMAP.md Queue 1 item 3)"
-            )
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -90,7 +99,8 @@ class Sampler:
         container = SampleContainer(
             ensemble, names + tuple(kernel.trace_names),
             aux_names=tuple(kernel.aux_traces.values()))
-        return cls(kernel, container, nwalkers=nwalkers)
+        return cls(kernel, container, nwalkers=nwalkers,
+                   replica_exchange_period=replica_exchange_period)
 
     # ---------------- properties ----------------
 
@@ -108,8 +118,22 @@ class Sampler:
     # ---------------- running ----------------
 
     def _get_chain_fn(self, thin_by: int):
+        """The chain of one thinning window: with replica exchange, thin_by /
+        period segments of the kernel's period chain with an exchange sweep
+        after each (``make_tempering_chain``)."""
         if thin_by not in self._chain_fns:
-            self._chain_fns[thin_by] = self._kernel.make_chain_fn(thin_by)
+            period = self._replica_exchange_period
+            if period is None:
+                fn = self._kernel.make_chain_fn(thin_by)
+            elif thin_by % period:
+                raise NotImplementedError(
+                    f"replica exchange runs a window of thin_by / period segments; "
+                    f"thin_by {thin_by} is not a multiple of the period {period}, "
+                    "which needs the per-step path (ROADMAP.md Queue 1 item 6)")
+            else:
+                fn = make_tempering_chain(self._kernel.make_chain_fn(period),
+                                          thin_by // period)
+            self._chain_fns[thin_by] = fn
         return self._chain_fns[thin_by]
 
     def execution_path(self, thin_by: int = 1) -> str:
@@ -121,8 +145,9 @@ class Sampler:
         kernel), ``"cpu-twin[...]"`` on the CPU (the plain
         torch chain), then ``ewald`` when the delta carries the Ewald term,
         the energy delta (``direct``: one table lookup per local cluster;
-        ``qary2`` or ``qary3``: the Z_q character rows of K3) and the
-        proposal schedule.
+        ``qary2`` or ``qary3``: the Z_q character rows of K3; ``ising``:
+        the parity rows of K1-Ising), the proposal schedule and, with
+        replica exchange, ``replica-exchange@<period>``.
         """
         self._get_chain_fn(int(thin_by))
         kern = self._kernel
@@ -131,13 +156,15 @@ class Sampler:
         tables = kern.chain_tables()
         if tables.has_ewald:
             parts.append("ewald")
-        parts.append(f"qary{tables.qary}" if tables.qary else "direct")
+        parts.append(f"qary{tables.qary}" if tables.qary else tables.delta)
         if kern.proposal_mode == "sweep":
             parts.append("sweep-schedule+independent-walkers")
         else:
             parts.append("shared-proposals")
         if kern.rng == "hash":
             parts.append("hash-rng")
+        if self._replica_exchange_period is not None:
+            parts.append(f"replica-exchange@{self._replica_exchange_period}")
         return "+".join(parts)
 
     def _record(self, state, thin_by):
@@ -181,6 +208,10 @@ class Sampler:
                 )
             occupancies = np.repeat(occupancies, self._nwalkers, axis=0)
         self._state = self._kernel.initial_state(occupancies)
+        if self._replica_exchange_period is not None:
+            self._state["pt_counter"] = 0  # exchange sweeps so far (a host int)
+            # accepted exchanges, at each pair's left member
+            self._state["pt_accepted"] = torch.zeros_like(self._state["naccept"])
         return self._state
 
     def run(self, nsteps, initial_occupancies=None, thin_by=1,

@@ -33,13 +33,13 @@ _ptr, _i32, _f64, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.
 # name -> argtypes of its entry point smol_<name>
 KERNELS = {
     # occ enthalpy naccept beta seq | seq_stride | seed nbr stride d2 g mu
-    # ncode ew_v ew_c qnbr qfreq qms qac qas qrows | R L K TM C W block_size
-    # n_steps rng_mode q Lq NB | stream
-    "flip_chain": [_ptr] * 5 + [_i32] + [_ptr] * 15 + [_i32] * 12 + [_ptr],
+    # ncode ew_v ew_c qnbr qfreq qms qac qas qrows imask iamp irows | R L K
+    # TM C W block_size n_steps rng_mode q Lq NB Li NW | stream
+    "flip_chain": [_ptr] * 5 + [_i32] + [_ptr] * 18 + [_i32] * 14 + [_ptr],
     # occ enthalpy naccept nmove beta useq vseq | seq_stride | seed nbr
-    # stride d2 g ew_v ew_c qnbr qfreq qms qac qas qrows | R L K TM W
-    # block_size n_steps rng_mode q Lq NB | stream
-    "swap_chain": [_ptr] * 7 + [_i32] + [_ptr] * 13 + [_i32] * 11 + [_ptr],
+    # stride d2 g ew_v ew_c qnbr qfreq qms qac qas qrows imask iamp irows | R
+    # L K TM W block_size n_steps rng_mode q Lq NB Li NW | stream
+    "swap_chain": [_ptr] * 7 + [_i32] + [_ptr] * 16 + [_i32] * 13 + [_ptr],
     # occ enthalpy naccept beta dirs ranks | dir_stride rank_stride | seed nbr
     # stride d2 g mu move_rows ew_v ew_c | R L K TM C W block_size n_steps
     # rng_mode k_max n_rows | stream
@@ -55,6 +55,8 @@ KERNELS = {
     # block_size n_steps rng_mode | match_tol match_weight | stream
     "distance_chain": [_ptr] * 9 + [_i32] + [_ptr] * 10 + [_i32] * 9 + [_f64] * 2
                       + [_ptr],
+    # beta beta32 enthalpy uniforms accepted | W phase | stream
+    "tempering": [_ptr] * 5 + [_i32] * 2 + [_ptr],
 }
 
 

@@ -45,13 +45,22 @@ torch twins that do the same arithmetic in the same order.
 Tables hold the rank layout of the reference (rank = position in the
 concatenated active sites of the active sublattices) on plain f64
 lookups; nothing of the TPU layout (bf16 gather rows, double-float splits,
-L segments, Ising tables) is kept.  With an Ewald term the tables carry
+L segments, dense membership matrices for the MXU) is kept.  With an Ewald term the tables carry
 the reference's fold in f64 (no hi/lo split): the Ewald change of rank u
 going from code a to b is (b - a) * (C_u + V_u . occ).
 
-The flip and swap chains have two bodies for the cluster-expansion delta
-of a site.  ``direct`` (the default) looks up each local cluster's
-coefficient-folded tensor: g[l, t_new] - g[l, t_old].  ``qary`` is K3, the
+The flip and swap chains have three bodies for the cluster-expansion
+delta of a site.  ``direct`` looks up each local cluster's
+coefficient-folded tensor: g[l, t_new] - g[l, t_old].  ``ising`` (the
+samplers' default where the system's tables take it: :func:`default_delta`)
+is K1-Ising, the reference's parity delta (``make_site_delta_ising`` :374,
+``make_swap_pair_delta_ising`` :410, tables ``_ising_tables`` :781): on
+binary sites with a sign-symmetric basis every local tensor is A (-1)^t,
+t the number of members holding code 1, so recoloring the self site
+a -> b changes the cluster by -2 (b - a) A (-1)^{t_nbr}; its rows
+(:func:`ising_tables`) are each a neighbour mask of rank bits and one
+amplitude, and the kernels hold the walker's codes as rank bits in
+registers.  ``qary`` is K3, the
 reference's Z_q character delta (``make_site_delta_qary`` :519,
 ``make_swap_pair_delta_qary`` :570, tables ``_qary_tables`` :651): every
 local cluster's tensor is a real Fourier series over Z_q characters, and
@@ -80,6 +89,8 @@ __all__ = [
     "ChainTables",
     "QaryTables",
     "qary_tables",
+    "IsingTables",
+    "ising_tables",
     "build_chain_tables",
     "fold_ewald",
     "rank_sequence",
@@ -116,8 +127,9 @@ RNG_MODES = {"philox": 0, "hash": 1}
 MOVES = ("flip", "swap", "table")
 MAX_TABLE_SLOTS = 8  # most site recolorings of one table move
 MAX_SHARED_BYTES = 232448  # shared memory one block can use on sm_90 (227 KB)
-DELTAS = ("direct", "qary")  # the flip and swap chains' site bodies
-DEFAULT_DELTA = "direct"  # faster on bench sgc, the body's own cell (PERF.md)
+DELTAS = ("direct", "qary", "ising")  # the flip and swap chains' site bodies
+ISING_MAX_WORDS = 4  # 64-bit words of rank bits the Ising body holds (256 ranks)
+ISING_TOLERANCE = 1e-11  # the reference's relative check of the sign pattern
 QARY_MAX_ROWS = 2048  # the reference's limit on character rows per rank
 # q -> the amplitude folds (fold_c, fold_s) of the reference's _qary_fold
 # (:453): every difference of cos(2 pi w / q) is fold_c times an integer in
@@ -290,6 +302,80 @@ def qary_tables(rank_sites, rank_of_site, sites3, strides3, g3, n_codes, tmax,
 
 
 @dataclass(frozen=True)
+class IsingTables:
+    """K1-Ising's parity rows, one per local cluster of each rank's site.
+
+    Row l of rank r (the reference's ``_ising_tables`` :781, the same rows
+    in the same order) changes by -2 (b - a) amp[r, l] (-1)^t when rank r
+    recolors a -> b, t the number of ranks of ``mask[r, l]`` holding code
+    1: the members that fill an odd number of the cluster's slots (frozen
+    single-code members dropped), as bit r' % 64 of word r' // 64.  A row
+    whose self site fills an even number of slots, and a padding row, has
+    amplitude 0.
+    """
+
+    words: int  # NW 64-bit words of rank bits per row
+    mask: np.ndarray  # [R, L, NW] uint64
+    amp: np.ndarray  # [R, L] f64
+
+
+def ising_tables(rank_sites, rank_of_site, sites3, strides3, g3, n_codes,
+                 tmax) -> IsingTables | None:
+    """K1-Ising's rows of every rank, or None where the system does not
+    factor (the reference's ``_ising_tables`` :781-838 and its binary test
+    :974-978).
+
+    For each valid local cluster of a rank's site: its slots grouped by
+    member site (a site may fill several slots in a small cell), frozen
+    members dropped (their code 0 adds nothing); every code pattern the
+    members and the self site can reach is enumerated jointly per site,
+    and the tensor must equal A (-1)^p on each, A = g[l, 0] and p the
+    number of slots holding code 1, to ``ISING_TOLERANCE`` of |A|.  Returns
+    None on a rank that is not binary, on a tensor index at or beyond
+    ``tmax`` and on the first row that misses the pattern.
+    """
+    R, (_, L0, K) = len(rank_sites), sites3.shape
+    if np.any(np.asarray(n_codes)[np.asarray(rank_sites)] != 2):
+        return None
+    valid_cluster = strides3.sum(axis=2) > 0
+    words = max(1, -(-R // 64))
+    mask = np.zeros((R, L0, words), dtype=np.uint64)
+    amp = np.zeros((R, L0), dtype=np.float64)
+    for ri, site in enumerate(rank_sites):
+        site = int(site)
+        for l in range(L0):
+            if not valid_cluster[site, l]:
+                continue
+            row = g3[site, l]
+            a0 = row[0]
+            groups = {}  # member site -> [summed stride, slot count]
+            for k in range(K):
+                st = int(strides3[site, l, k])
+                if st > 0:
+                    entry = groups.setdefault(int(sites3[site, l, k]), [0, 0])
+                    entry[0] += st
+                    entry[1] += 1
+            self_sum, self_count = groups.pop(site, [0, 0])
+            members = [(ssum, cnt) for member, (ssum, cnt) in groups.items()
+                       if rank_of_site[member] >= 0]
+            if self_count:
+                members.append((self_sum, self_count))
+            combos = [(0, 0)]  # (tensor index, slots holding code 1)
+            for ssum, cnt in members:
+                combos = [(t + c * ssum, p + c * cnt) for t, p in combos for c in (0, 1)]
+            tol = ISING_TOLERANCE * max(abs(a0), 1e-300)
+            for t, p in combos:
+                if t >= tmax or abs(row[t] - a0 * (-1.0) ** p) > tol:
+                    return None
+            amp[ri, l] = a0 if self_count % 2 else 0.0
+            for member, (_, cnt) in groups.items():
+                nr = int(rank_of_site[member])
+                if nr >= 0 and cnt % 2:
+                    mask[ri, l, nr // 64] |= np.uint64(1) << np.uint64(nr % 64)
+    return IsingTables(words=words, mask=mask, amp=amp)
+
+
+@dataclass(frozen=True)
 class ChainTables:
     """Static operands of the chain kernels, on one device.
 
@@ -305,9 +391,9 @@ class ChainTables:
     g: torch.Tensor  # [R, L, TM] f64 coefficient-folded energy tables
     mu: torch.Tensor  # [R, C] f64 chemical potentials (zeros: canonical)
     ncode: torch.Tensor  # [R] int32 codes of each rank
-    cum_probs: np.ndarray  # [S] f64 sublattice pick cdf
-    sub_offset: np.ndarray  # [S] int64 first rank of each active sublattice
-    n_active: np.ndarray  # [S] int64 active sites of each sublattice
+    cum_probs: torch.Tensor  # [S] f64 sublattice pick cdf
+    sub_offset: torch.Tensor  # [S] int64 first rank of each active sublattice
+    n_active: torch.Tensor  # [S] int64 active sites of each sublattice
     ew_v: torch.Tensor | None = None  # [R, R] f64 Ewald fold, V[u, u] = 0
     ew_c: torch.Tensor | None = None  # [R] f64 Ewald fold constants
     # K3, the q-ary body (qary = q), as :class:`QaryTables`; 0: direct
@@ -318,6 +404,13 @@ class ChainTables:
     qac: torch.Tensor | None = None  # [R, Lq] f64
     qas: torch.Tensor | None = None  # [R, Lq] f64
     qrows: torch.Tensor | None = None  # [R] int32
+    # K1-Ising, the parity body (ising = NW words of rank bits); 0: another
+    # body.  The rows of nonzero amplitude of :class:`IsingTables`, in order,
+    # padded to Li with zero rows
+    ising: int = 0
+    imask: torch.Tensor | None = None  # [R, Li, NW] int64 (the uint64 words)
+    iamp: torch.Tensor | None = None  # [R, Li] f64
+    irows: torch.Tensor | None = None  # [R] int32 rows of each rank
 
     @property
     def num_ranks(self) -> int:
@@ -333,7 +426,10 @@ class ChainTables:
 
     @property
     def delta(self) -> str:
-        """The site body of the flip and swap chains: ``direct`` or ``qary``."""
+        """The site body of the flip and swap chains: ``direct``, ``qary`` or
+        ``ising``."""
+        if self.ising:
+            return "ising"
         return "qary" if self.qary else "direct"
 
 
@@ -383,32 +479,11 @@ def fold_ewald(ewald_matrix, ewald_inds, coef, rank_sites, n_codes):
     return coef * V, coef * C
 
 
-def build_chain_tables(processor, sublattices, mu_table=None,
-                       sublattice_probabilities=None, delta=DEFAULT_DELTA) -> ChainTables:
-    """Chain tables of a processor's local clusters, on its device.
-
-    The processor is a cluster expansion (of correlations or of cluster
-    interactions), or a composite of one and an Ewald term, whose fold the
-    tables then carry.  Requirements, as in the reference: active
-    sublattices with default (arange) encodings and no restricted sites,
-    every non-self slot of a local cluster on an active site or on a
-    single-code (code 0) site, and, with an Ewald term, binary active
-    sites.  Raises ``NotImplementedError`` otherwise.
-
-    ``delta`` picks the flip and swap chains' site body: ``"direct"`` or
-    ``"qary"``, K3's character rows (:func:`qary_tables`), which raises
-    where those refuse the system, and with an Ewald term (not ported
-    with that body yet, ROADMAP.md Queue 2).  Nothing falls back.
-    """
-    if delta not in DELTAS:
-        raise ValueError(f"unknown chain delta {delta!r}: one of {DELTAS}")
-    ce, ewald = _split_processor(processor)
-    sites3 = ce.local_sites
-    strides3 = ce.local_strides
-    d2 = ce.local_d2
-    g3 = ce.local_g
-    n = sites3.shape[0]
-
+def _rank_layout(ce, ewald, sublattices):
+    """The rank layout of :func:`build_chain_tables`, after its requirement
+    checks: (active sublattices, rank_sites [R], rank_of_site [N] (-1 off
+    the active sites), n_codes [N])."""
+    n = ce.local_sites.shape[0]
     active = [s for s in sublattices if s.is_active]
     if not active:
         raise NotImplementedError("no active sublattice: nothing to flip")
@@ -422,11 +497,65 @@ def build_chain_tables(processor, sublattices, mu_table=None,
     n_codes = np.ones(n, dtype=np.int64)
     for s in sublattices:
         n_codes[s.sites] = len(s.encoding)
-
     rank_sites = np.concatenate([np.asarray(s.active_sites) for s in active])
-    R = len(rank_sites)
     rank_of_site = -np.ones(n, dtype=np.int64)
-    rank_of_site[rank_sites] = np.arange(R)
+    rank_of_site[rank_sites] = np.arange(len(rank_sites))
+    return active, rank_sites, rank_of_site, n_codes
+
+
+def default_delta(processor, sublattices, chain="flip") -> str:
+    """The site body the samplers take without a ``chain_delta``.
+
+    ``chain`` is the kernel's chain: ``"flip"`` or ``"swap"`` take
+    ``"ising"`` (K1-Ising) where the system's tables factor
+    (:func:`ising_tables`) within ``ISING_MAX_WORDS`` words of rank bits,
+    and ``"direct"`` elsewhere, as the reference's ``build_chain_tables``
+    picks its body by the system (:974-1029); table moves and the
+    Wang-Landau chains (``"table"``, ``"wl-flip"``, ``"wl-swap"``) take
+    the direct body, the only one ported there.  K1-Ising beat the direct
+    body on every cell where its tables exist, and K3 lost on its own
+    (PERF.md, each timed on the card), so K3 is never the default.
+    """
+    if chain not in ("flip", "swap"):
+        return "direct"
+    ce, ewald = _split_processor(processor)
+    _, rank_sites, rank_of_site, n_codes = _rank_layout(ce, ewald, sublattices)
+    it = ising_tables(rank_sites, rank_of_site, ce.local_sites, ce.local_strides,
+                      ce.local_g, n_codes, ce.local_g.shape[2])
+    return "ising" if it is not None and it.words <= ISING_MAX_WORDS else "direct"
+
+
+def build_chain_tables(processor, sublattices, mu_table=None,
+                       sublattice_probabilities=None, delta="direct") -> ChainTables:
+    """Chain tables of a processor's local clusters, on its device.
+
+    The processor is a cluster expansion (of correlations or of cluster
+    interactions), or a composite of one and an Ewald term, whose fold the
+    tables then carry.  Requirements, as in the reference: active
+    sublattices with default (arange) encodings and no restricted sites,
+    every non-self slot of a local cluster on an active site or on a
+    single-code (code 0) site, and, with an Ewald term, binary active
+    sites.  Raises ``NotImplementedError`` otherwise.
+
+    ``delta`` picks the flip and swap chains' site body: ``"direct"``,
+    ``"qary"``, K3's character rows (:func:`qary_tables`), which raises
+    where those refuse the system, and with an Ewald term (not ported
+    with that body yet, ROADMAP.md Queue 2), or ``"ising"``, K1-Ising's
+    parity rows (:func:`ising_tables`), which raises where the system does
+    not factor (a rank that is not binary, a basis that is not
+    sign-symmetric) and above ``ISING_MAX_WORDS`` * 64 ranks.  Nothing
+    falls back; :func:`default_delta` names the body the samplers take.
+    """
+    if delta not in DELTAS:
+        raise ValueError(f"unknown chain delta {delta!r}: one of {DELTAS}")
+    ce, ewald = _split_processor(processor)
+    sites3 = ce.local_sites
+    strides3 = ce.local_strides
+    d2 = ce.local_d2
+    g3 = ce.local_g
+    n = sites3.shape[0]
+    active, rank_sites, rank_of_site, n_codes = _rank_layout(ce, ewald, sublattices)
+    R = len(rank_sites)
 
     nb_sites = sites3[rank_sites]  # [R, L, K]
     st = strides3[rank_sites]
@@ -463,7 +592,7 @@ def build_chain_tables(processor, sublattices, mu_table=None,
         V, C = fold_ewald(ewald.ewald_matrix, ewald.ewald_inds, ewald.coef,
                           rank_sites, n_codes)
         ew_v, ew_c = dev(V, torch.float64), dev(C, torch.float64)
-    qary = {}
+    body = {}  # the fields of the q-ary or the Ising body
     if delta == "qary":
         if ewald is not None:
             raise NotImplementedError(
@@ -471,10 +600,23 @@ def build_chain_tables(processor, sublattices, mu_table=None,
                 "(ROADMAP.md Queue 2)")
         qt = qary_tables(rank_sites, rank_of_site, sites3, strides3, g3, n_codes,
                          g3.shape[2])
-        qary = {"qary": qt.q, "qnbr": dev(qt.qnbr, torch.int32),
+        body = {"qary": qt.q, "qnbr": dev(qt.qnbr, torch.int32),
                 "qfreq": dev(qt.qfreq, torch.int32), "qms": dev(qt.qms, torch.int32),
                 "qac": dev(qt.qac, torch.float64), "qas": dev(qt.qas, torch.float64),
                 "qrows": dev(qt.qrows, torch.int32)}
+    if delta == "ising":
+        it = ising_tables(rank_sites, rank_of_site, sites3, strides3, g3, n_codes,
+                          g3.shape[2])
+        if it is None:
+            raise NotImplementedError(
+                "the Ising body needs binary sites and a sign-symmetric basis, "
+                "and this system's local tensors do not factor as A (-1)^t; "
+                "its delta takes the direct or the q-ary body")
+        elif it.words > ISING_MAX_WORDS:
+            raise NotImplementedError(
+                f"the Ising body holds at most {64 * ISING_MAX_WORDS} ranks in "
+                f"registers, not {R}")
+        body = {"ising": it.words, **_compact_ising(it, dev)}
 
     return ChainTables(
         num_sites=n,
@@ -485,29 +627,45 @@ def build_chain_tables(processor, sublattices, mu_table=None,
         g=dev(g3[rank_sites], torch.float64),
         mu=dev(mu, torch.float64),
         ncode=dev(ncode, torch.int32),
-        cum_probs=np.cumsum(probs),
-        sub_offset=np.concatenate([[0], np.cumsum(n_active)[:-1]]).astype(np.int64),
-        n_active=n_active,
+        cum_probs=dev(np.cumsum(probs), torch.float64),
+        sub_offset=dev(np.concatenate([[0], np.cumsum(n_active)[:-1]]), torch.int64),
+        n_active=dev(n_active, torch.int64),
         ew_v=ew_v,
         ew_c=ew_c,
-        **qary,
+        **body,
     )
+
+
+def _compact_ising(it: IsingTables, dev) -> dict:
+    """The :class:`ChainTables` fields of K1-Ising: each rank's rows of
+    nonzero amplitude, in local-cluster order (a zero row adds nothing),
+    padded with zero rows to the most of any rank (at least 1)."""
+    keep = it.amp != 0.0
+    counts = keep.sum(axis=1)
+    Li = max(1, int(counts.max()))
+    R = it.amp.shape[0]
+    mask = np.zeros((R, Li, it.words), dtype=np.uint64)
+    amp = np.zeros((R, Li), dtype=np.float64)
+    for r in range(R):
+        rows = np.flatnonzero(keep[r])
+        mask[r, :len(rows)] = it.mask[r, rows]
+        amp[r, :len(rows)] = it.amp[r, rows]
+    return {"imask": dev(mask.view(np.int64), torch.int64),
+            "iamp": dev(amp, torch.float64), "irows": dev(counts, torch.int32)}
 
 
 def _sublattice_draw(tables, generator, shape):
     """(first rank, active sites) of a sublattice drawn by its probability.
 
-    ``tables`` holds ``cum_probs``, ``n_active`` and ``sub_offset`` as host
-    arrays (:class:`ChainTables`: each call copies them to the device) or as
-    tensors on its device (the distance tables: no copy, no wait).
+    ``tables`` (:class:`ChainTables` or the distance tables) holds
+    ``cum_probs``, ``n_active`` and ``sub_offset`` on its device: the draw
+    copies nothing and never waits for the device.
     """
     device = tables.device
-    cum = torch.as_tensor(tables.cum_probs, device=device)
+    cum = tables.cum_probs
     u = torch.rand(shape, generator=generator, device=device, dtype=torch.float64)
     sl = (cum <= u[..., None]).sum(dim=-1).clamp(max=len(cum) - 1)
-    n_act = torch.as_tensor(tables.n_active, device=device)[sl]
-    off = torch.as_tensor(tables.sub_offset, device=device)[sl]
-    return off, n_act
+    return tables.sub_offset[sl], tables.n_active[sl]
 
 
 def _uniform_rank(off, n_act, generator):
@@ -588,6 +746,8 @@ def make_table_move(tables, n_dirs, k_max, swap_weight, from_code, to_code,
     device = tables.device
 
     def dev(x, dtype):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=device, dtype=dtype).contiguous()
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
 
     return TableMove(
@@ -806,8 +966,49 @@ def _qary_terms(tables: ChainTables, occ, u, a, b):
     return terms
 
 
+def _walker_words(occ, words):
+    """[W, words] int64: each walker's 0/1 codes ``occ`` [R, W] as rank bits,
+    rank r at bit r % 64 of word r // 64 (bit 63 is the int64 sign bit)."""
+    R, W = occ.shape
+    bits = torch.zeros((words * 64, W), dtype=torch.int64, device=occ.device)
+    bits[:R] = occ.to(torch.int64)
+    shifts = torch.arange(64, dtype=torch.int64, device=occ.device)[None, :, None]
+    return (bits.view(words, 64, W) << shifts).sum(dim=1).T  # distinct bits: no carry
+
+
+def _parity(x):
+    """The parity (0 or 1) of the set bits of each int64 of ``x``: the
+    halves folded by xor (an arithmetic shift brings sign bits only into
+    the bits that later folds drop)."""
+    for shift in (32, 16, 8, 4, 2, 1):
+        x = x ^ (x >> shift)
+    return x & 1
+
+
+def _ising_terms(tables: ChainTables, occ, u, a, b):
+    """[W, 1] f64 change of rank u[w]'s parity rows, a -> b (K1-Ising).
+
+    S = sum over rows l of A_l (-1)^{t_l}, t_l the parity of the walker's
+    codes under the row's mask, taken from 0.0 in row order l = 0 .. Li-1,
+    as ``ising_add`` of chain_common.cuh sums; the change is -2 (b - a) S.
+    Every term is +-A_l and the scale 0 or +-2, so only the adds of S
+    round.  Padding rows (zero amplitude, zero mask) add +0.0.
+    """
+    words = _walker_words(occ, tables.ising)  # [W, NW]
+    hits = tables.imask[u.long()] & words[:, None, :]  # [W, Li, NW]
+    odd = _parity(hits).sum(dim=-1) % 2 == 1
+    amp = tables.iamp[u.long()]
+    signed = torch.where(odd, -amp, amp)
+    s = torch.zeros(occ.shape[1], dtype=torch.float64, device=occ.device)
+    for l in range(signed.shape[1]):
+        s = s + signed[:, l]
+    return ((-2 * (b - a)).to(torch.float64) * s)[:, None]
+
+
 def _site_terms(tables: ChainTables, occ, u, a, b):
     """[W, *] f64 terms of the site body of the tables, in summation order."""
+    if tables.ising:
+        return _ising_terms(tables, occ, u, a, b)
     if tables.qary:
         return _qary_terms(tables, occ, u, a, b)
     return _ce_terms(tables, occ, u, a, b)
@@ -861,8 +1062,9 @@ def flip_step_reference(tables: ChainTables, occ, u, r_u, r_j, beta32):
     log_u)``: the decision, the proposed codes, the f64 enthalpy change and
     the f32 exponent and log uniform it was decided on.  dE sums the
     clusters' terms in order l = 0 .. L-1 (with the q-ary body, the
-    character rows' terms in row order), then the Ewald term, then the
-    chemical work, as the kernel does.
+    character rows' terms in row order; with the Ising body, -2 (b - a)
+    times the parity rows' sum), then the Ewald term, then the chemical
+    work, as the kernel does.
     """
     walkers = torch.arange(occ.shape[1], device=occ.device)
     u = u.long()
@@ -900,7 +1102,8 @@ def swap_step_reference(tables: ChainTables, occ, u, v, r_u, beta32):
     if tables.has_ewald:
         ewald_u = _ewald_term(tables, occ, u, b - a)
     # v's delta sees u already holding b: with the q-ary body, v's phases
-    # take u's new code, which stands for the reference's rank-1 correction
+    # (with the Ising body, v's parities) take u's new code, which stands
+    # for the reference's rank-1 correction
     occ[u, walkers] = b.to(occ.dtype)
     columns += list(_site_terms(tables, occ, v, b, a).unbind(1))
     if tables.has_ewald:
@@ -1118,11 +1321,26 @@ def _qary_shape(tables):
     return tables.qary, *tables.qnbr.shape[1:]
 
 
+def _ising_pointers(tables):
+    """K1-Ising's table pointers (all None for another body)."""
+    names = ("imask", "iamp", "irows")
+    if not tables.ising:
+        return (None,) * len(names)
+    return tuple(getattr(tables, name).data_ptr() for name in names)
+
+
+def _ising_shape(tables):
+    """(Li, NW) of K1-Ising's rows, zeros for another body."""
+    if not tables.ising:
+        return 0, 0
+    return tables.imask.shape[1], tables.ising
+
+
 def _direct_only(name, tables):
-    if tables.qary:
+    if tables.qary or tables.ising:
         raise NotImplementedError(
-            f"{name} takes the direct body only; its q-ary body is not ported "
-            "yet (ROADMAP.md Queue 2)")
+            f"{name} takes the direct body only; its {tables.delta} body is not "
+            "ported yet (ROADMAP.md Queue 2)")
 
 
 def flip_chain(occ, enthalpy, naccept, beta32, seq, seed, tables, n_steps,
@@ -1138,45 +1356,28 @@ def flip_chain(occ, enthalpy, naccept, beta32, seq, seed, tables, n_steps,
             ``block_size`` walkers (G = ceil(W / block_size)).
         seed: [1] int64 seed of this launch.
         tables: :class:`ChainTables` on the same device; their site body
-            (``tables.delta``, direct or K3's q-ary rows) is the kernel's.
+            (``tables.delta``: direct, K3's q-ary rows or K1-Ising's parity
+            rows) is the kernel's.
         rng: ``"philox"`` (run mode) or ``"hash"`` (reference parity).
 
     A CUDA tensor launches the kernel (``flip_chain.launches`` counts the
-    launches, ``flip_chain.qary_launches`` those with the q-ary body); a
-    CPU tensor runs :func:`flip_chain_reference`.
+    launches, ``flip_chain.qary_launches`` and ``flip_chain.ising_launches``
+    those with the q-ary and the Ising body); a CPU tensor runs
+    :func:`flip_chain_reference`.
     """
-    _check_operands("flip_chain", occ, enthalpy, (naccept,), beta32, (seq,),
-                    seed, tables, n_steps, block_size)
     if occ.device.type == "cpu":
+        _check_operands("flip_chain", occ, enthalpy, (naccept,), beta32, (seq,),
+                        seed, tables, n_steps, block_size)
         flip_chain_reference(occ, enthalpy, naccept, beta32, seq, seed,
                              tables, n_steps, block_size, rng)
         return
-    if occ.device.type != "cuda":
-        raise ValueError(f"flip_chain runs on cuda or cpu, not {occ.device}")
-    if rng not in RNG_MODES:
-        raise ValueError(f"unknown rng mode: {rng!r}")
-    lib = _build.load_chain("flip_chain")
-    R, W = occ.shape
-    L, K = tables.nbr.shape[1:]
-    with torch.cuda.device(occ.device):
-        stream = torch.cuda.current_stream(occ.device).cuda_stream
-        rc = lib.smol_flip_chain(
-            occ.data_ptr(), enthalpy.data_ptr(), naccept.data_ptr(),
-            beta32.data_ptr(), seq.data_ptr(), seq.stride(0), seed.data_ptr(),
-            tables.nbr.data_ptr(), tables.stride.data_ptr(),
-            tables.d2.data_ptr(), tables.g.data_ptr(), tables.mu.data_ptr(),
-            tables.ncode.data_ptr(), *_ewald_pointers(tables),
-            *_qary_pointers(tables), R, L, K, tables.g.shape[2],
-            tables.mu.shape[1], W, block_size, n_steps, RNG_MODES[rng],
-            *_qary_shape(tables), stream,
-        )
-    flip_chain.launches += 1
-    flip_chain.qary_launches += bool(tables.qary)
-    _launch_check(lib, "flip_chain", rc)
+    ChainLaunches("flip", occ, enthalpy, (naccept,), beta32, (seq[None],),
+                  seed, tables, block_size, rng).launch(0, n_steps)
 
 
 flip_chain.launches = 0
 flip_chain.qary_launches = 0  # of the launches, those with K3's q-ary body
+flip_chain.ising_launches = 0  # of the launches, those with K1-Ising's body
 
 
 def swap_chain(occ, enthalpy, naccept, nmove, beta32, useq, vseq, seed,
@@ -1187,40 +1388,98 @@ def swap_chain(occ, enthalpy, naccept, nmove, beta32, useq, vseq, seed,
     ``vseq`` ([G, >= n_steps] int32 each, one layout) in place of ``seq``
     and ``nmove`` [W] int32, to which the non-null proposals are added.
     A CUDA tensor launches the kernel (``swap_chain.launches`` counts the
-    launches, ``swap_chain.qary_launches`` those with the q-ary body); a
-    CPU tensor runs :func:`swap_chain_reference`.
+    launches, ``swap_chain.qary_launches`` and ``swap_chain.ising_launches``
+    those with the q-ary and the Ising body); a CPU tensor runs
+    :func:`swap_chain_reference`.
     """
-    _check_operands("swap_chain", occ, enthalpy, (naccept, nmove), beta32,
-                    (useq, vseq), seed, tables, n_steps, block_size)
     if occ.device.type == "cpu":
+        _check_operands("swap_chain", occ, enthalpy, (naccept, nmove), beta32,
+                        (useq, vseq), seed, tables, n_steps, block_size)
         swap_chain_reference(occ, enthalpy, naccept, nmove, beta32, useq, vseq,
                              seed, tables, n_steps, block_size, rng)
         return
-    if occ.device.type != "cuda":
-        raise ValueError(f"swap_chain runs on cuda or cpu, not {occ.device}")
-    if rng not in RNG_MODES:
-        raise ValueError(f"unknown rng mode: {rng!r}")
-    lib = _build.load_chain("swap_chain")
-    R, W = occ.shape
-    L, K = tables.nbr.shape[1:]
-    with torch.cuda.device(occ.device):
-        stream = torch.cuda.current_stream(occ.device).cuda_stream
-        rc = lib.smol_swap_chain(
-            occ.data_ptr(), enthalpy.data_ptr(), naccept.data_ptr(),
-            nmove.data_ptr(), beta32.data_ptr(), useq.data_ptr(),
-            vseq.data_ptr(), useq.stride(0), seed.data_ptr(),
-            tables.nbr.data_ptr(), tables.stride.data_ptr(),
-            tables.d2.data_ptr(), tables.g.data_ptr(), *_ewald_pointers(tables),
-            *_qary_pointers(tables), R, L, K, tables.g.shape[2], W, block_size,
-            n_steps, RNG_MODES[rng], *_qary_shape(tables), stream,
-        )
-    swap_chain.launches += 1
-    swap_chain.qary_launches += bool(tables.qary)
-    _launch_check(lib, "swap_chain", rc)
+    ChainLaunches("swap", occ, enthalpy, (naccept, nmove), beta32,
+                  (useq[None], vseq[None]), seed, tables, block_size, rng).launch(0, n_steps)
 
 
 swap_chain.launches = 0
 swap_chain.qary_launches = 0  # of the launches, those with K3's q-ary body
+swap_chain.ising_launches = 0  # of the launches, those with K1-Ising's body
+
+
+class ChainLaunches:
+    """Launches of the flip or swap kernel on the operands of one window.
+
+    The operands are checked (as :func:`flip_chain` and :func:`swap_chain`
+    check them) and turned into the kernel's argument list once; launch k
+    then points the list at row k of the sequences ``seqs`` (each [n, G,
+    >= n_steps] int32, contiguous) and of the seeds ``seed`` ([n] int64)
+    and makes one foreign call.  A window of replica-exchange segments
+    launches the kernel once per segment on the same operands, and the
+    checks and the list cost the host several times the call itself.  CUDA
+    tensors only; the object holds every operand whose address the list
+    carries, so none returns to the allocator while a launch may read it.
+    Every launch counts on the wrapper (``launches``, and
+    ``qary_launches`` or ``ising_launches`` by the tables' body).
+    """
+
+    def __init__(self, move, occ, enthalpy, counts, beta32, seqs, seed, tables,
+                 block_size, rng):
+        self.kernel = flip_chain if move == "flip" else swap_chain
+        name = self.kernel.__name__
+        rows = tuple(s[0] for s in seqs)
+        _check_operands(name, occ, enthalpy, counts, beta32, rows, seed[:1], tables,
+                        seqs[0].shape[-1], block_size)
+        if occ.device.type != "cuda":
+            raise ValueError(f"{name} runs on cuda or cpu, not {occ.device}")
+        if rng not in RNG_MODES:
+            raise ValueError(f"unknown rng mode: {rng!r}")
+        if not all(s.is_contiguous() for s in seqs) or not seed.is_contiguous() \
+                or len(seed) != seqs[0].shape[0]:
+            raise ValueError(f"{name}: one contiguous seed per contiguous sequence row")
+        self.lib = _build.load_chain(name)
+        self.entry = getattr(self.lib, f"smol_{name}")
+        self.operands = (occ, enthalpy, counts, beta32, seqs, seed, tables)
+        R, W = occ.shape
+        L, K = tables.nbr.shape[1:]
+        with torch.cuda.device(occ.device):
+            stream = torch.cuda.current_stream(occ.device).cuda_stream
+        args = [t.data_ptr() for t in (occ, enthalpy, *counts, beta32)]
+        self.seq_slots = range(len(args), len(args) + len(seqs))
+        self.seq_rows = [(s.data_ptr(), s.stride(0) * s.element_size()) for s in seqs]
+        args += [s.data_ptr() for s in rows] + [rows[0].stride(0)]
+        self.seed_slot, self.seed_ptr = len(args), seed.data_ptr()
+        args += [seed.data_ptr(), tables.nbr.data_ptr(), tables.stride.data_ptr(),
+                 tables.d2.data_ptr(), tables.g.data_ptr()]
+        if move == "flip":
+            args += [tables.mu.data_ptr(), tables.ncode.data_ptr()]
+        args += [*_ewald_pointers(tables), *_qary_pointers(tables),
+                 *_ising_pointers(tables), R, L, K, tables.g.shape[2]]
+        if move == "flip":
+            args.append(tables.mu.shape[1])
+        args += [W, block_size]
+        self.steps_slot = len(args)
+        args += [0, RNG_MODES[rng], *_qary_shape(tables), *_ising_shape(tables), stream]
+        self.args = args
+        self.qary, self.ising = bool(tables.qary), bool(tables.ising)
+        self.rows, self.max_steps = len(seed), seqs[0].shape[-1]
+
+    def launch(self, k, n_steps):
+        """Launch ``n_steps`` steps on sequence row ``k`` and seed ``k``."""
+        if not (0 <= k < self.rows and 0 <= n_steps <= self.max_steps):
+            raise ValueError(
+                f"{self.kernel.__name__}: launch {k} of {self.rows}, {n_steps} steps "
+                f"of sequences of {self.max_steps}")
+        args = self.args
+        for slot, (base, row_bytes) in zip(self.seq_slots, self.seq_rows):
+            args[slot] = base + k * row_bytes
+        args[self.seed_slot] = self.seed_ptr + 8 * k
+        args[self.steps_slot] = n_steps
+        rc = self.entry(*args)
+        self.kernel.launches += 1
+        self.kernel.qary_launches += self.qary
+        self.kernel.ising_launches += self.ising
+        _launch_check(self.lib, self.kernel.__name__, rc)
 
 
 def _cuda_block_threads(W, block_size):
@@ -1232,9 +1491,13 @@ def _cuda_block_threads(W, block_size):
 
 def _shared_bytes(tables, row_sets, W, block_size):
     """Dynamic shared memory of one launch, in bytes: ``row_sets`` sets of
-    one rank's rows (``rows_bytes`` of chain_common.cuh, or ``qrows_bytes``
-    for K3's character rows) and the block's codes."""
-    if tables.qary:  # no Ewald row: the q-ary tables refuse the term
+    one rank's rows (``rows_bytes`` of chain_common.cuh, ``qrows_bytes``
+    for K3's character rows, ``irows_bytes`` for K1-Ising's parity rows)
+    and the block's codes."""
+    if tables.ising:
+        ewald_row = tables.num_ranks if tables.has_ewald else 0
+        row_set = (tables.iamp.shape[1] * (tables.ising + 1) + ewald_row) * 8
+    elif tables.qary:  # no Ewald row: the q-ary tables refuse the term
         Lq, NB = tables.qnbr.shape[1:]
         row_set = Lq * 16 + Lq * (2 * NB + 1) * 4
     else:
@@ -1671,6 +1934,17 @@ def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
     ``beta``.  The chain works on bin-major [B, W] copies of the planes,
     transposed once per call of ``fn``, not per step; the flatness check
     counts its steps within each chunk.
+
+    ``fn(state, generator, segments=k, between=cb)`` (the Metropolis
+    chains) runs k segments of ``n_steps`` in one call, as k calls of
+    ``fn`` would, and calls ``cb(s, beta32)`` after segment s: the
+    sequences and seeds of all k segments are drawn at once (in hash mode
+    with injected ``seqs`` [k * n_chunks, G, chunk] and ``seeds`` [k *
+    n_chunks], or with a leading segment axis), the occupancy is gathered
+    once, and between segments only the kernels are launched, with no host
+    wait.  ``beta32`` [W] f32 is what the chain reads, which ``cb`` may
+    change in place together with ``state["beta"]`` (replica exchange,
+    :func:`smol_tpu_torch.parallel.tempering.make_tempering_chain`).
     """
     if move not in MOVES:
         raise ValueError(f"unknown move type: {move!r}")
@@ -1696,15 +1970,22 @@ def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
     def as_seq(x, device):
         return torch.as_tensor(np.asarray(x), dtype=torch.int32, device=device)
 
-    def fn(state, generator):
+    def fn(state, generator, segments=1, between=None):
+        if segments != 1 and wl is not None:
+            raise ValueError("segments are defined for the Metropolis chains")
         occu = state["occupancy"]
         W = occu.shape[0]
         device = occu.device
         groups = -(-W // block_size)
-        shape = (n_chunks, groups, chunk)
+        launches = segments * n_chunks
+        shape = (launches, groups, chunk)
         if seqs is not None:
             pair = swap or table
             seq = [as_seq(s, device) for s in seqs] if pair else [as_seq(seqs, device)]
+            # a leading segment axis, or none (a table move's ranks have one
+            # axis more than its directions)
+            seq = [x.flatten(0, 1) if x.dim() == 4 + (table and i == 1) else x
+                   for i, x in enumerate(seq)]
         elif table:
             seq = list(table_sequences(tables, table_move, generator, shape))
         elif swap:
@@ -1712,34 +1993,44 @@ def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
         elif proposal_mode == "sweep":
             sched = sweep_schedule(tables.num_ranks, n_chunks * chunk)
             sched = torch.as_tensor(sched, device=device).reshape(n_chunks, 1, chunk)
-            seq = [sched.expand(shape)]
+            seq = [sched.repeat(segments, 1, 1).expand(shape)]
         else:
             seq = [rank_sequence(tables, generator, shape)]
+        seq = [s.contiguous() for s in seq]  # kept until the last launch
         if seeds is not None:
-            seed = torch.as_tensor(np.asarray(seeds), dtype=torch.int64, device=device)
+            seed = torch.as_tensor(np.asarray(seeds), dtype=torch.int64,
+                                   device=device).reshape(launches)
         elif rng == "hash":
-            seed0 = torch.randint(0, 2**30 - 1, (1,), generator=generator,
+            seed0 = torch.randint(0, 2**30 - 1, (segments, 1), generator=generator,
                                   device=device, dtype=torch.int64)
             seed = _wrap_int32(
                 seed0 + torch.arange(n_chunks, device=device) * SEED_STRIDE
-            )
+            ).reshape(launches)
         else:
-            seed = torch.randint(0, 2**63 - 1, (n_chunks,), generator=generator,
+            seed = torch.randint(0, 2**63 - 1, (launches,), generator=generator,
                                  device=device, dtype=torch.int64)
 
         occ = occu[:, rank_sites].T.to(torch.int8).contiguous()  # [R, W]
         nacc = torch.zeros(W, dtype=torch.int32, device=device)
         nmv = torch.zeros(W, dtype=torch.int32, device=device)
+        launcher = None
         if wl is not None:
             plane_names = ("entropy", "histogram", "occurrences")
             planes = [state[name].T.contiguous() for name in plane_names]  # [B, W]
         else:
             beta32 = state["beta"].to(torch.float32)
-        for c in range(n_chunks):
+            if device.type == "cuda" and not table:  # checked once per window
+                launcher = ChainLaunches(
+                    move, occ, state["enthalpy"], (nacc, nmv) if swap else (nacc,),
+                    beta32, seq, seed, tables, block_size, rng)
+        for k in range(launches):
+            c = k % n_chunks
             steps = min(chunk, n_steps - c * chunk)
-            seed_c = seed[c: c + 1].contiguous()
-            seq_c = [s[c].contiguous() for s in seq]
-            if wl is not None:
+            seed_c = seed[k: k + 1]
+            seq_c = [s[k] for s in seq] if launcher is None else None
+            if launcher is not None:
+                launcher.launch(k, steps)
+            elif wl is not None:
                 wl_chain(occ, state["enthalpy"], nacc, *planes,
                          state["mod_factor"], state["wl_counter"], seq_c, seed_c,
                          tables, wl, steps, block_size, move, rng)
@@ -1752,6 +2043,8 @@ def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
             else:
                 flip_chain(occ, state["enthalpy"], nacc, beta32, *seq_c,
                            seed_c, tables, steps, block_size, rng)
+            if between is not None and c == n_chunks - 1:
+                between(k // n_chunks, beta32)
         occu[:, rank_sites] = occ.T.to(occu.dtype)
         if wl is not None:
             for name, plane in zip(plane_names, planes):

@@ -323,8 +323,11 @@ def test_sampler_device_is_explicit(spinel):
     with pytest.raises(TypeError):  # Wang-Landau takes a window, no temperature
         TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
                                    kernel_type="wang-landau")
+    # replica exchange is ported: a window the period does not divide still
+    # needs the per-step path, and a ladder needs one temperature per walker
+    tempering = TorchSampler.from_ensemble(port, [900.0, 1000.0], 4, seed=1,
+                                           device="cpu", replica_exchange_period=10)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
-                                   replica_exchange_period=10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchSampler.from_ensemble(port, [900.0, 1000.0], 4, seed=1, device="cpu")
+        tempering.execution_path(15)
+    with pytest.raises(ValueError, match="ladder"):
+        tempering.setup_sample(np.zeros((4, port.num_sites), dtype=np.int32))

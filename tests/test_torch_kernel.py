@@ -29,7 +29,16 @@ distance (SQS) kernel must equal its twin bit for bit on every walker
 both RNG modes, at beta 0, 0.2, 2 and 50, on the bench's 8-site shapes and
 the 64-site one, at the main path's 2048 walkers in blocks of 512, with a
 partial CUDA block, sequence blocks below a CUDA block, without the match
-term, and in its general body (runtime K, up to 32 features).
+term, and in its general body (runtime K, up to 32 features).  The flip
+and swap kernels with K1-Ising's parity body must equal the Ising twin on
+the spinels (1 and 3 words of rank bits, with and without the Ewald
+term), bench ``tempering``'s Au-Cu 3x3x3 (its launch shape, and a partial
+block) and Au-Cu 4x4x4 swaps (the canonical launch shape), in both RNG
+modes, and with masks padded to 2 and 4 words; the replica-exchange kernel
+must equal its twin bit for bit (betas, their f32 copies and the accepted
+counts) over 3000 sweeps, for even and odd walker counts; and a tempering
+window on the card must equal the same window of twins on the CPU, as must
+sweep-mode flips run in several segments of one call.
 """
 
 import dataclasses
@@ -558,3 +567,165 @@ def test_distance_kernel_refuses_what_it_cannot_take(card):
     with pytest.raises(ValueError):
         sqs.distance_chain(**{**ops, "best_occ": ops["best_occ"].cpu()})
     assert sqs.distance_chain.launches == before
+
+
+# ---------------- K1-Ising and the replica-exchange kernel ----------------
+
+ISING_CELLS = [  # (cell, move, W, block_size)
+    ("spinel_2x2x2", "flip", 256, 64), ("spinel_3x3x3", "flip", 1000, 1024),  # NW = 3
+    ("aucu_pt_3x3x3", "flip", 8192, 1024),  # bench tempering's launch shape
+    ("aucu_pt_3x3x3", "flip", 200, 8),  # a partial block, sequence blocks of 8
+    ("aucu_4x4x4", "swap", 8192, 512),  # bench canonical's launch shape
+    ("spinel_ewald_2x2x2", "swap", 256, 64), ("spinel_ewald_3x3x3", "swap", 1000, 1024),
+    ("spinel_ewald_2x2x2", "flip", 256, 64),  # the flip chain with the Ewald term
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+@pytest.mark.parametrize("cell,move,W,block_size", ISING_CELLS)
+def test_ising_kernel_matches_twin(card, rng, cell, move, W, block_size):
+    """K1-Ising in the flip and swap kernels against the Ising twin."""
+    ops = _operands(card, cell, W, 400, block_size, move=move, delta="ising")
+    assert ops["tables"].ising == (3 if cell.endswith("3x3x3") and "spinel" in cell else 1)
+    kernel_fn, twin_fn = {"flip": (chain.flip_chain, chain.flip_chain_reference),
+                          "swap": (chain.swap_chain, chain.swap_chain_reference)}[move]
+    before = kernel_fn.ising_launches
+    kernel, twin = _kernel_and_twin(ops, kernel_fn, twin_fn, rng)
+    assert kernel_fn.ising_launches - before == 1
+    _assert_same(kernel, twin, 400)
+    if move == "swap":
+        counts = [(o["occ"] == 1).sum(dim=0) for o in (ops, kernel)]
+        assert torch.equal(*counts)  # each walker keeps its composition
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("words", [2, 4])
+@pytest.mark.parametrize("move,cell", [("flip", "aucu_pt_3x3x3"),
+                                       ("swap", "spinel_ewald_2x2x2")])
+def test_ising_wider_words_match_twin(card, words, move, cell):
+    """Masks padded with zero words take the Ising<2> and Ising<4> bodies
+    (the ranks beyond R hold no code) and change nothing."""
+    ops = _operands(card, cell, 256, 400, 64, move=move, delta="ising")
+    t = ops["tables"]
+    padded = dataclasses.replace(
+        t, ising=words,
+        imask=torch.nn.functional.pad(t.imask, (0, words - t.ising)).contiguous())
+    kernel_fn, twin_fn = {"flip": (chain.flip_chain, chain.flip_chain_reference),
+                          "swap": (chain.swap_chain, chain.swap_chain_reference)}[move]
+    kernel, twin = _kernel_and_twin(ops, kernel_fn, twin_fn, "philox",
+                                    kernel_tables=padded)
+    _assert_same(kernel, twin, 400)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [8192, 8191, 2])
+def test_exchange_kernel_matches_twin(card, W):
+    """3000 sweeps of alternating phase, bit for bit: beta, its f32 copy and
+    the accepted exchanges."""
+    from smol_tpu_torch.parallel import exchange_betas, make_temperature_ladder
+
+    gen = torch.Generator(device=card).manual_seed(5)
+    ladder = torch.as_tensor(make_temperature_ladder(300.0, 3000.0, W), device=card)
+    beta = 1.0 / (kB * ladder)
+    beta32 = beta.to(torch.float32)
+    twin, twin32 = beta.cpu(), beta32.cpu()
+    counts = torch.zeros(W, dtype=torch.int32, device=card)
+    twin_counts = counts.cpu()
+    before = exchange_betas.launches
+    sweeps, accepted = 3000, 0
+    for s in range(sweeps):
+        enthalpy = torch.randn(W, generator=gen, dtype=torch.float64, device=card)
+        enthalpy[: W // 4] = 0.0  # exact ties
+        u = torch.rand(W, generator=gen, dtype=torch.float64, device=card)
+        old = beta.clone()
+        exchange_betas(beta, beta32, enthalpy, u, s % 2, counts)
+        exchange_betas(twin, twin32, enthalpy.cpu(), u.cpu(), s % 2, twin_counts)
+        accepted += int((beta != old).sum())
+    torch.cuda.synchronize()
+    assert exchange_betas.launches - before == sweeps
+    assert torch.equal(beta.cpu(), twin) and torch.equal(beta32.cpu(), twin32)
+    assert torch.equal(counts.cpu(), twin_counts)
+    assert torch.equal(beta32, beta.to(torch.float32))
+    assert torch.equal(torch.sort(beta).values, torch.sort(1.0 / (kB * ladder)).values)
+    assert accepted > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delta", ["direct", "ising"])
+def test_tempering_chain_on_card_matches_cpu(card, delta):
+    """The same segmented window (hash mode, the same draws) through the
+    kernels on the card and through the twins on the CPU."""
+    from smol_tpu_torch.parallel import make_temperature_ladder, make_tempering_chain
+
+    ens = Ensemble.from_system(load_system(DATA / "torch_aucu_pt_3x3x3.npz"), card)
+    W, period, n_seg, block = 256, 10, 8, 64
+    tables = {dev: chain.build_chain_tables(
+        e.processor, e.sublattices, mu_table=e.chemical_potential_table, delta=delta)
+        for dev, e in (("cuda", ens), ("cpu", Ensemble.from_system(
+            load_system(DATA / "torch_aucu_pt_3x3x3.npz"), "cpu")))}
+    gen = torch.Generator().manual_seed(1)
+    seqs = chain.rank_sequence(tables["cpu"], gen, (n_seg, 1, W // block, period)).numpy()
+    seeds = np.arange(n_seg, dtype=np.int64)[:, None] * 7919 + 99
+    uniforms = torch.rand((n_seg, W), generator=gen, dtype=torch.float64).numpy()
+    occu = random_occupancies(ens, W, seed=2)
+    beta = 1.0 / (kB * make_temperature_ladder(300.0, 3000.0, W))
+    theta = torch.as_tensor(ens.natural_parameters)
+    enthalpy = ens.compute_features(torch.as_tensor(occu, device=card)).cpu() @ theta
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        run = make_tempering_chain(chain.make_shared_proposal_chain(
+            tables[dev], period, block_size=block, rng="hash", seqs=seqs, seeds=seeds),
+            n_seg, uniforms=uniforms)
+        state = {"occupancy": torch.tensor(occu, device=dev),
+                 "enthalpy": enthalpy.to(dev).contiguous(),
+                 "beta": torch.tensor(beta, device=dev),  # a copy: exchanged in place
+                 "naccept": torch.zeros(W, dtype=torch.int32, device=dev),
+                 "accepted": torch.ones(W, dtype=torch.bool, device=dev), "pt_counter": 0}
+        outs[dev] = run(state, None)
+    torch.cuda.synchronize()
+    for key in ("occupancy", "beta", "naccept"):
+        assert torch.equal(outs["cuda"][key].cpu(), outs["cpu"][key]), key
+    assert float((outs["cuda"]["enthalpy"].cpu() - outs["cpu"]["enthalpy"]).abs().max()) <= 1e-9
+    assert outs["cuda"]["pt_counter"] == n_seg
+    assert not np.array_equal(outs["cpu"]["beta"].numpy(), beta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delta", ["direct", "ising"])
+def test_sweep_segments_on_card_match_cpu(card, delta):
+    """Sweep-mode flips in several segments of one call, on the card and on
+    the CPU.  The launches read a contiguous copy of the expanded sweep
+    schedule; between segments an allocation the size of that copy is
+    filled with -1, which would overwrite it had it gone back to the
+    allocator before the last launch."""
+    W, period, n_seg, block = 256, 10, 6, 64
+    seeds = np.arange(n_seg, dtype=np.int64) * 7919 + 99
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        ens = Ensemble.from_system(load_system(DATA / "torch_aucu_pt_3x3x3.npz"), dev)
+        tables = chain.build_chain_tables(ens.processor, ens.sublattices,
+                                          mu_table=ens.chemical_potential_table,
+                                          delta=delta)
+        fn = chain.make_shared_proposal_chain(tables, period, block_size=block,
+                                              proposal_mode="sweep", rng="hash",
+                                              seeds=seeds)
+        occu = torch.as_tensor(random_occupancies(ens, W, seed=2), device=dev)
+        theta = torch.as_tensor(ens.natural_parameters, device=dev)
+        state = {"occupancy": occu,
+                 "enthalpy": (ens.compute_features(occu) @ theta).contiguous(),
+                 "beta": torch.full((W,), 1.0 / (kB * 1000.0), dtype=torch.float64,
+                                    device=dev),
+                 "naccept": torch.zeros(W, dtype=torch.int32, device=dev),
+                 "accepted": torch.ones(W, dtype=torch.bool, device=dev)}
+
+        def between(s, beta32):
+            torch.full((n_seg * (W // block) * period,), -1, dtype=torch.int32,
+                       device=dev)
+
+        outs[dev] = fn(state, None, segments=n_seg, between=between)
+    torch.cuda.synchronize()
+    for key in ("occupancy", "naccept"):
+        assert torch.equal(outs["cuda"][key].cpu(), outs["cpu"][key]), key
+    assert float((outs["cuda"]["enthalpy"].cpu() - outs["cpu"]["enthalpy"]).abs().max()) <= 1e-9
+    assert 0 < int(outs["cpu"]["naccept"].sum()) < W * period * n_seg

@@ -277,7 +277,12 @@ def test_sampler_names_the_body_and_refuses_what_it_cannot_take():
     np.testing.assert_allclose(runs[0], runs[1], rtol=0, atol=1e-9)
     with pytest.raises(ValueError, match="chain delta"):
         TorchSampler.from_ensemble(port, 800.0, 8, seed=3, device="cpu",
-                                   chain_delta="ising")
+                                   chain_delta="parity")
+    # the Ising body is ported, and a ternary system refuses it
+    ising = TorchSampler.from_ensemble(port, 800.0, 8, seed=3, device="cpu",
+                                       chain_delta="ising")
+    with pytest.raises(NotImplementedError, match="sign-symmetric"):
+        ising.execution_path(10)
     with pytest.raises(NotImplementedError, match="Queue 2"):
         TorchSampler.from_ensemble(port, kernel_type="wang-landau", nwalkers=8, seed=3,
                                    device="cpu", min_enthalpy=-10.0, max_enthalpy=0.0,

@@ -86,7 +86,7 @@ def test_records_and_statistics(port_run):
     ens, sampler = port_run
     samples = sampler.samples
     assert samples.num_samples == NSTEPS // THIN
-    assert sampler.execution_path(THIN) == "cpu-twin[flip]+direct+shared-proposals"
+    assert sampler.execution_path(THIN) == "cpu-twin[flip]+ising+shared-proposals"
     occ = samples.get_occupancies(discard=DISCARD, flat=False)
     assert occ.shape == (NSTEPS // THIN - DISCARD, W, ens.num_sites)
     enth = samples.get_enthalpies(discard=DISCARD)

@@ -307,8 +307,9 @@ def test_canonical_averages_match_enumeration():
 def test_sampler_default_step_type_and_refusals():
     _, port = _systems(*AUCU)
     ewald = TorchEnsemble.from_system(load_system(data_path("spinel_ewald_2x2x2")), "cpu")
-    for ens, path in ((port, "cpu-twin[swap]+direct+shared-proposals"),
-                      (ewald, "cpu-twin[swap]+ewald+direct+shared-proposals")):
+    # the default body: K1-Ising, where the system's tables take it
+    for ens, path in ((port, "cpu-twin[swap]+ising+shared-proposals"),
+                      (ewald, "cpu-twin[swap]+ewald+ising+shared-proposals")):
         sampler = TorchSampler.from_ensemble(ens, 1000.0, 4, seed=1, device="cpu")
         assert sampler.execution_path(10) == path
         if torch.cuda.is_available():

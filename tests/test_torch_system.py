@@ -299,6 +299,14 @@ def test_port_runs_with_jax_blocked():
         feats = sampler.samples.get_feature_vectors()
         assert abs(feats @ ens.natural_parameters - sampler.samples.get_enthalpies()).max() < 1e-9
         print("ok", sampler.execution_path(50))
+        from smol_tpu_torch.parallel import make_temperature_ladder
+        ens = Ensemble.from_system(load_system({str(data_path("aucu_pt_3x3x3"))!r}), "cpu")
+        sampler = Sampler.from_ensemble(ens, make_temperature_ladder(300.0, 3000.0, 16), 16,
+                                        seed=3, device="cpu", chain_delta="ising",
+                                        replica_exchange_period=10)
+        sampler.run(100, rng.integers(0, 2, (16, ens.num_sites)), thin_by=50)
+        assert sampler.samples.get_temperatures().shape == (32,)
+        print("ok", sampler.execution_path(50))
         bad = [m for m in sys.modules if m == "smol_tpu" or m.startswith("smol_tpu.")]
         assert not bad, bad
         """
@@ -314,6 +322,7 @@ def test_port_runs_with_jax_blocked():
     assert "ok cpu-twin[wl-flip]+direct" in proc.stdout
     assert "ok cpu-twin[distance]" in proc.stdout
     assert "ok cpu-twin[flip]+qary3" in proc.stdout
+    assert "ok cpu-twin[flip]+ising+shared-proposals+replica-exchange@10" in proc.stdout
 
 
 def test_port_never_imports_jax_or_reference():
@@ -338,9 +347,11 @@ def test_port_never_imports_jax_or_reference():
     assert (package / "csrc" / "table_chain.cu").exists()
     assert (package / "csrc" / "wl_chain.cu").exists()
     assert (package / "csrc" / "distance_chain.cu").exists()
+    assert (package / "csrc" / "tempering.cu").exists()
     assert (package / "moca" / "kernel" / "wanglandau.py").exists()
     from smol_tpu_torch.ops import _build
 
     assert sorted(_build.KERNELS) == [
-        "distance_chain", "flip_chain", "swap_chain", "table_chain", "wl_chain"]
+        "distance_chain", "flip_chain", "swap_chain", "table_chain", "tempering",
+        "wl_chain"]
     assert all((_build.CSRC_DIR / f"{name}.cu").exists() for name in _build.KERNELS)

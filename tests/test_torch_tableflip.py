@@ -188,7 +188,7 @@ def test_table_sequences(kind, cell):
     for j in range(tm.k_max):  # no row keeps a collision among its valid slots
         for k in range(j + 1, tm.k_max):
             assert not np.any(valid[..., j] & valid[..., k] & (ranks[..., j] == ranks[..., k]))
-    first, size = tables.sub_offset, tables.n_active
+    first, size = tables.sub_offset.numpy(), tables.n_active.numpy()
     sub = tm.slot_sub[dirs]
     for s in range(len(first)):  # a slot's rank lies in the slot's sublattice
         mine = ranks[valid & (sub == s)]
@@ -198,7 +198,7 @@ def test_table_sequences(kind, cell):
     assert np.all(swap_sub[:, 0] == swap_sub[:, 1])  # a swap stays in one sublattice
     assert set(np.unique(swap_sub)) == set(range(len(first)))
     # the swap row's share: swap_weight, less the pairs with u == v
-    probs = np.diff(tables.cum_probs, prepend=0.0)
+    probs = np.diff(tables.cum_probs.numpy(), prepend=0.0)
     expect = tm.swap_weight * (1 - np.sum(probs / size))
     n = dirs.size
     share = np.mean(dirs == tm.n_dirs)
