@@ -8,12 +8,13 @@ printing its last line when any phase fails:
 2. builds the flip-chain, swap-chain, table-chain, Wang-Landau-chain,
    distance-chain and replica-exchange kernels from ``smol_tpu_torch/csrc``
    (into ``build/smol_tpu_torch``, one ``nvcc`` per source, all started at
-   once; the distance chain's, the longest, in a thread while phase 3
-   compares the others) and prints the build time and each kernel's
-   registers and spills (the
-   flip and swap chains in each site body: direct, K3's q-ary rows for
-   q = 2 and 3, and K1-Ising's parity rows for 1 to 4 words of rank bits),
-   and the dynamic shared memory of the ``sgc`` launches;
+   once; the table, Wang-Landau and distance chains', the longest, in a
+   thread while phase 3 compares the flip and swap chains) and prints the
+   build time and each kernel's registers and spills (the flip, swap,
+   table and Wang-Landau chains in each site body: direct, K3's q-ary rows
+   for q = 2 (with or without the Ewald term), 3 and 4, and K1-Ising's
+   parity rows for 1 to 4 words of rank bits), and the dynamic shared
+   memory of the ``sgc`` launches;
 3. runs each kernel and its plain torch twin on the same inputs at the
    shapes the main paths give the kernel (8192 walkers, one 100-step
    window, sequence blocks of 1024, or 512 for Au-Cu), in ``hash`` mode
@@ -65,7 +66,15 @@ printing its last line when any phase fails:
    RNG modes, and a hash chain across the chunk boundary in each kernel,
    against the Ising twin; then the replica-exchange kernel against its
    twin over 3000 sweeps of alternating phase at 8192 walkers, betas and
-   their f32 copies bit for bit;
+   their f32 copies bit for bit.  K3 with q = 4 in the flip chain on the
+   quaternary and binary rocksalt, and q = 2 with the Ewald term in both
+   chains on the spinel CE + Ewald 2x2x2, both RNG modes and a chunk
+   crossing.  The site bodies of the table chain: K1-Ising on both
+   semigrand spinel CE + Ewald cells and K3 (q = 2, Ewald) on 2x2x2, in
+   both RNG modes, each body across the chunk boundary; of the
+   Wang-Landau chain: every comparison above once more with K1-Ising
+   (the main path's flip launch included), and K3 (q = 3) on the ternary
+   ``sgc`` 3x3x3 window in both RNG modes and across the chunk boundary;
 4. drives the main paths, each with the launch counts set to 0 just
    before and read just after:
    - flips (with the default site body, K1-Ising where the system's
@@ -78,9 +87,13 @@ printing its last line when any phase fails:
      ``initial_occupancy``; no chemical potentials, so the sampler takes
      swaps; then Au-Cu 4x4x4 once more with ``chain_delta="direct"``, the
      swap chain's direct body;
-   - charge-neutral table flips: the same with ``step_type="table-flip"``
-     on the semigrand spinel CE + Ewald 2x2x2 and 3x3x3 (1000 K), all
-     walkers from the file's charge-neutral ``initial_occupancy``;
+   - charge-neutral table flips, ``bench.py``'s ``spinel-ewald``: the
+     same with ``step_type="table-flip"`` on the semigrand spinel CE +
+     Ewald 2x2x2 and 3x3x3 (1000 K), all walkers from the file's
+     charge-neutral ``initial_occupancy``, with the default site body, then
+     each cell once with the other (direct or K1-Ising) and 2x2x2 with K3;
+   - K3 on a main path with the Ewald term (swaps on the spinel CE + Ewald
+     2x2x2) and with q = 4 (flips on the quaternary and binary rocksalt);
    - ternary semigrand flips, ``bench.py``'s ``sgc``:
      ``Ensemble.from_system(sgc 6x6x6)`` (the decomposition processor) ->
      ``Sampler.from_ensemble(T=800 K, 8192 walkers, seed=3)`` ->
@@ -93,12 +106,15 @@ printing its last line when any phase fails:
      thin_by=15000)``, (a) ``bench.py``'s ``wang-landau`` config, flips on
      Au-Cu 3x3x3 from its random starts, (b) swaps on Au-Cu 4x4x4 from
      shuffled half-and-half starts, each in the window its system file
-     carries; checked: the counters, the planes' invariants, the
+     carries, with the default site body and once with the other (direct
+     or K1-Ising); checked: the counters, the planes' invariants, the
      modification factors, the compositions, the chain's accumulated
      enthalpy against the exact recompute (< 1e-9) and the one aux record;
      (c) the 8-site nearest-neighbour system, 64 walkers x 200000 steps
-     (flatness 0.9, a check every 5000 steps): every walker's log density
-     of states within 0.5 of the exact degeneracies;
+     (flatness 0.9, a check every 5000 steps), with the direct body and
+     with K1-Ising: every walker's log density of states within 0.5 of the
+     exact degeneracies; (d) K3 (q = 3) on the ternary ``sgc`` 3x3x3 window,
+     flips with its chemical potentials;
    - SQS: ``StochasticSQSGenerator.from_processors(<shapes>,
      device="cuda").generate(mcmc_steps=8000, temperatures=linspace(5,
      0.02, 4), nwalkers=2048, seed=23)``, (a) ``bench.py``'s ``sqs``
@@ -152,7 +168,8 @@ printing its last line when any phase fails:
    planes, what the launch's data needs: the flatness passes, the cells
    visited, the histograms reset).  The Wang-Landau chain
    is timed on both its cells beside the flip and swap chains on the same
-   tables, and at the 2048 walkers of its main path.  The distance chain
+   tables, and at the 2048 walkers of its main path, with the direct body
+   and with K1-Ising.  The distance chain
    is timed on the main path's own 8000-step launch at 2048 walkers on both
    SQS shapes; on the launches of phase 3 that were timed (8000 steps on
    the bench shape, 2000 on the 64-site one) beside the twin's time of the
@@ -160,17 +177,22 @@ printing its last line when any phase fails:
    K3 against the direct body on the same cells, in turns (direct, q-ary,
    q-ary, direct): the flip chain on ``sgc`` 6x6x6, the swap chain on the
    ternary CE 3x3x3; K3's operations are counted from the character rows
-   of the ranks this launch proposes.  K1-Ising against the direct body
-   in turns on every cell of phase 3's Ising comparisons (its operations
-   counted from the parity rows of the ranks proposed); the exchange
+   of the ranks this launch proposes; likewise K3 with q = 4 (flips on the
+   rocksalt) and with the Ewald term (swaps on the spinel CE + Ewald).
+   K1-Ising against the direct body in turns on every cell of phase 3's
+   Ising comparisons (its operations counted from the parity rows of the
+   ranks proposed), and on every cell of the table and Wang-Landau main
+   paths, the measurement ``default_delta`` follows; K3 against the
+   direct body in the table chain (spinel 2x2x2) and the Wang-Landau chain
+   (the ternary window); the exchange
    kernel at 8192 walkers against its plain version and its bound; one
    tempering segment (a 10-step flip launch and an exchange) on the
    device's clock and a 100-step window of 10 segments on the host's.
 
-The line before the last is a JSON summary of the kernels, the flip and
-swap chains once for each site body: an entry's launches are the main
-paths' launches of that body, its times that body's on a cell where a main
-path ran it, and a kernel no main path launched fails the run.  The last
+The line before the last is a JSON summary of the kernels, each chain once
+for each site body: an entry's launches are the main paths' launches of
+that (kernel, body) pair, its times that pair's on a cell where a main
+path ran it, and a pair no main path launched fails the run.  The last
 line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -230,7 +252,7 @@ WL_CELLS = {"aucu_wl_3x3x3": "flip", "aucu_4x4x4": "swap"}
 WL_WALKERS = 2048
 WL_NSTEPS = 90_000
 WL_THIN = 15_000
-WL_TWIN_STEPS = 2500  # phase 3's run of the main path's launch: the twin's time sets it
+WL_TWIN_STEPS = 1000  # phase 3's run of the main path's launch: the twin's time sets it
 WL_SEED = 13
 WL_DOS_CELL = "aucu_nn_2x2x2"  # 8 sites: exact degeneracies
 WL_DOS_WALKERS = 64
@@ -275,7 +297,18 @@ ISING_CELLS = {
     ("spinel_ewald_2x2x2", "swap"): (BLOCK, TEMPERATURE),
     ("spinel_ewald_3x3x3", "swap"): (BLOCK, TEMPERATURE),
 }
+# K1-Ising and K3 in the table and Wang-Landau chains, and K3 with the
+# Ewald term and for q = 4: bench spinel-ewald's table cells (both bodies on
+# 2x2x2), bench wang-landau's cells, the ternary sgc window (q = 3), the
+# spinel CE + Ewald (q = 2 with the Ewald term), the quaternary and binary
+# rocksalt (q = 4)
+TABLE_BODY_CELLS = {"spinel_ewald_sgc_2x2x2": ("ising", "qary"),
+                    "spinel_ewald_sgc_3x3x3": ("ising",)}
+WL_QARY_CELL = "sgc_wl_3x3x3"
+EWALD_QARY_CELL = "spinel_ewald_2x2x2"
+Q4_CELL = "rocksalt_q4_2x2x2"
 SEEDS = (("hash", 987654321), ("philox", 0x2545F4914F6CDD1D))
+T_START = time.perf_counter()  # the script's start, for the phase 3 lines
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; FP64 (vector, not the
 # tensor cores) at 34 TFLOP/s, both at the 700 W limit
 PEAK_BYTES_PER_S = 3.35e12
@@ -315,28 +348,42 @@ def table_move_of(ensemble, tables):
     return chain.build_table_move(tables, usher)
 
 
+def kernel_label(line):
+    """A compiled chain kernel's template arguments, read off its mangled
+    name: the site body, the Wang-Landau move, the table's slot count, the
+    distance chain's counts and whether it takes the Ewald term."""
+    kernel = re.search(r"([a-z]+_chain_kernel|[a-z_]+_kernel)", line)
+    if kernel is None:
+        return line.strip()
+    name, args = kernel.group(1), []
+    wl = re.search(r"wl_chain_kernelILi(\d)E", line)
+    if wl:
+        args.append(f"move={('flip', 'swap')[int(wl.group(1))]}")
+    body = re.search(r"6DirectILi(\d+)E|4QaryILi(\d+)ELi(\d+)E|5IsingILi(\d+)E", line)
+    if body:
+        k, q, nb, nw = body.groups()
+        args.append(f"Direct<K={k if k != '0' else 'runtime'}>" if k is not None else
+                    f"Ising<NW={nw}>" if nw is not None else
+                    f"Qary<q={q}, NB={nb if nb != '0' else 'runtime'}>")
+    slots = re.search(r"table_chain_kernel.*EELi(\d+)ELb", line)
+    if slots:
+        args.append(f"k_max={slots.group(1) if slots.group(1) != '0' else 'runtime'}")
+    counts = re.search(r"distance_chain_kernelILi(\d+)ELi(\d+)E", line)
+    if counts:
+        k, fmax = counts.groups()
+        args.append(f"K={k if k != '0' else 'runtime'}, FMAX={fmax}")
+    ewald = re.search(r"Lb([01])E", line)
+    if ewald:
+        args.append(f"ewald={ewald.group(1) == '1'}")
+    return f"{name}<{', '.join(args)}>"
+
+
 def ptxas_summary(log):
     """One line per compiled kernel: its template arguments, spills, registers."""
     lines, name, spills = [], "", ""
     for line in log.splitlines():
-        body = re.search(r"([a-z]+_chain_kernel)IN4smol(?:6DirectILi(\d+)E|4QaryILi(\d+)ELi(\d+)E"
-                         r"|5IsingILi(\d+)E)EELb([01])E", line)
-        found = re.search(r"([a-z]+_chain_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?", line)
-        if "Compiling entry function" in line and body:  # flip and swap chains
-            kernel, k, q, nb, nw, ewald = body.groups()
-            site = (f"Direct<K={k if k != '0' else 'runtime'}>" if k is not None else
-                    f"Ising<NW={nw}>" if nw is not None else
-                    f"Qary<q={q}, NB={nb if nb != '0' else 'runtime'}>")
-            name = f"{kernel}<{site}, ewald={ewald == '1'}>"
-        elif "Compiling entry function" in line and found:
-            kernel, k, km, ewald = found.groups()
-            slots = "" if km is None else f", k_max={km if km != '0' else 'runtime'}"
-            if kernel == "wl_chain_kernel":  # <move, K, ewald>
-                slots, k = f", move={('flip', 'swap')[int(k)]}", km
-            if kernel == "distance_chain_kernel":  # <K, FMAX>
-                slots = f", FMAX={km}"
-            name = f"{kernel}<K={k if k != '0' else 'runtime'}{slots}"
-            name += ">" if ewald is None else f", ewald={ewald == '1'}>"
+        if "Compiling entry function" in line:
+            name = kernel_label(line)
         elif "spill" in line:
             spills = line.strip()
         elif "registers" in line:
@@ -458,7 +505,8 @@ def compare(label, kernel, twin, margin, n_steps, invariant=None, start=None):
     check(err <= 1e-9, f"{label}: enthalpy difference {err}")
     accept_frac = float(kernel["naccept"].double().mean()) / n_steps
     check(0.0 < accept_frac < 1.0, f"{label}: acceptance {accept_frac}")
-    print(f"phase 3 [{label}]: kernel == twin on {int(same.sum())}/{len(same)} "
+    print(f"phase 3 [{label}] at {time.perf_counter() - T_START:.1f} s: kernel == twin "
+          f"on {int(same.sum())}/{len(same)} "
           f"walkers ({int((~same).sum())} near-tie), max |dH| {err:.3e}, "
           f"acceptance {accept_frac:.4f}")
     return err
@@ -618,21 +666,28 @@ def shuffled_occupancies(ensemble, occupancy, count, seed):
 
 
 def wl_starts(ensemble, system, move, count, seed):
-    """Starting occupancies of a Wang-Landau run: uniform codes for flips,
-    shuffles of the file's ``initial_occupancy`` for swaps."""
+    """Starting occupancies of a Wang-Landau run: uniform codes for flips
+    (``bench.py``'s ``integers(0, 2, ...)`` on binary sites), shuffles of
+    the file's ``initial_occupancy`` for swaps."""
     if move == "swap":
         return shuffled_occupancies(ensemble, system["initial_occupancy"], count, seed)
-    return np.random.default_rng(seed).integers(
-        0, 2, (count, ensemble.num_sites)).astype(np.int32)
+    codes = np.ones(ensemble.num_sites, dtype=np.int64)
+    for sl in ensemble.sublattices:
+        codes[sl.sites] = len(sl.encoding)
+    rng = np.random.default_rng(seed)
+    if (codes == 2).all():
+        return rng.integers(0, 2, (count, ensemble.num_sites)).astype(np.int32)
+    return rng.integers(0, codes, (count, ensemble.num_sites)).astype(np.int32)
 
 
 def wl_operands(ensemble, system, move, walkers, n_steps, block, occ_seed, seq_seed,
-                n_chunks=None, **options):
-    """Operands of Wang-Landau launches from fresh planes.  The window is the
-    system file's or, for a file without one, five times the span of the
-    starting enthalpies in 250 bins (``bench.py``'s scheme)."""
+                n_chunks=None, delta="direct", **options):
+    """Operands of Wang-Landau launches from fresh planes, with the site body
+    ``delta``.  The window is the system file's or, for a file without one,
+    five times the span of the starting enthalpies in 250 bins (``bench.py``'s
+    scheme)."""
     device = ensemble.device
-    tables = tables_of(ensemble, move)
+    tables = tables_of(ensemble, move, delta)
     occu = torch.as_tensor(wl_starts(ensemble, system, move, walkers, occ_seed),
                            device=device)
     theta = torch.as_tensor(ensemble.natural_parameters, device=device)
@@ -670,17 +725,20 @@ def compare_wl(label, kernel, twin, start_occ, tables, n_steps, need_reset=True)
         check(torch.equal(compositions(kernel["occ"], tables),
                           compositions(start_occ, tables)),
               f"{label}: a swap changed a composition")
-    print(f"phase 3 [{label}]: kernel == twin on all {kernel['occ'].shape[1]} walkers "
+    print(f"phase 3 [{label}] at {time.perf_counter() - T_START:.1f} s: kernel == twin "
+          f"on all {kernel['occ'].shape[1]} walkers "
           f"and all planes (entropy to 0.0), max |dH| {err:.3e}, acceptance "
           f"{accept_frac:.4f}, {resets} walkers with a flatness reset, least "
           f"mod_factor {float(kernel['mod_factor'].min()):g}")
     return err
 
 
-def wl_window_vs_twin(ensemble, system, name, move, rng, seed, **options):
+def wl_window_vs_twin(ensemble, system, name, move, rng, seed, delta="direct",
+                      **options):
     """Phase 3: one Wang-Landau launch, kernel against twin."""
     ops = wl_operands(ensemble, system, move, WL_WALKERS, THIN, BLOCK, occ_seed=7,
-                      seq_seed=17, **{"flatness": 0.3, "check_period": 20, **options})
+                      seq_seed=17, delta=delta,
+                      **{"flatness": 0.3, "check_period": 20, **options})
     ops["seed"] = torch.tensor([seed], dtype=torch.int64, device=ensemble.device)
     k = fresh(ops)
     t = fresh(ops)
@@ -689,12 +747,12 @@ def wl_window_vs_twin(ensemble, system, name, move, rng, seed, **options):
     torch.cuda.synchronize()
     ewald = "+ewald" if ops["tables"].has_ewald else ""
     extra = "".join(f", {key}={value}" for key, value in options.items())
-    return compare_wl(f"wl-{move}{ewald} {name} {rng} seed {seed:#x}, "
-                      f"{ops['wl'].num_levels} bins{extra}", k, t, ops["occ"],
+    return compare_wl(f"wl-{move}{ewald}+{body_label(ops['tables'])} {name} {rng} seed "
+                      f"{seed:#x}, {ops['wl'].num_levels} bins{extra}", k, t, ops["occ"],
                       ops["tables"], THIN)
 
 
-def wl_main_launch_vs_twin(ensemble, system, name, move):
+def wl_main_launch_vs_twin(ensemble, system, name, move, delta="direct"):
     """Phase 3: the main path's launch, kernel against twin: 2048 walkers
     from the cell's starts and planes of zeros, one philox window (step
     indices far above a hash chunk's 2048), flatness 0.8, a check every
@@ -703,7 +761,7 @@ def wl_main_launch_vs_twin(ensemble, system, name, move):
     one such window; the runs above cover the reset."""
     t0 = time.perf_counter()
     ops = wl_operands(ensemble, system, move, WL_WALKERS, WL_TWIN_STEPS, BLOCK,
-                      occ_seed=0, seq_seed=41)
+                      occ_seed=0, seq_seed=41, delta=delta)
     ops["seed"] = torch.tensor([SEEDS[1][1]], dtype=torch.int64, device=ensemble.device)
     k = fresh(ops)
     t = fresh(ops)
@@ -711,7 +769,8 @@ def wl_main_launch_vs_twin(ensemble, system, name, move):
     chain.wl_chain_reference(**t)
     torch.cuda.synchronize()
     wl = ops["wl"]
-    err = compare_wl(f"wl-{move} {name} philox, the main path's launch: "
+    err = compare_wl(f"wl-{move}+{body_label(ops['tables'])} {name} philox, the main "
+                     f"path's launch: "
                      f"{WL_TWIN_STEPS} of its {WL_THIN} steps, {wl.num_levels} bins, "
                      f"flatness {wl.flatness:g}, check_period {wl.check_period}", k, t,
                      ops["occ"], ops["tables"], WL_TWIN_STEPS, need_reset=False)
@@ -719,7 +778,7 @@ def wl_main_launch_vs_twin(ensemble, system, name, move):
     return err
 
 
-def wl_chunked_hash_vs_twin(ensemble, system, name, move):
+def wl_chunked_hash_vs_twin(ensemble, system, name, move, delta="direct"):
     """Phase 3: a hash-mode Wang-Landau chain across the chunk boundary.
 
     The kernel runs through ``make_shared_proposal_chain`` (two launches:
@@ -730,7 +789,8 @@ def wl_chunked_hash_vs_twin(ensemble, system, name, move):
     chunk = chain.MAX_CHUNK_STEPS
     n_steps = chunk + 52
     ops = wl_operands(ensemble, system, move, WL_WALKERS, chunk, BLOCK, occ_seed=11,
-                      seq_seed=29, n_chunks=2, flatness=0.2, check_period=150)
+                      seq_seed=29, n_chunks=2, delta=delta, flatness=0.2,
+                      check_period=150)
     tables, wl, seqs = ops["tables"], ops["wl"], ops["seqs"]
     seeds = [123456789 + c * chain.SEED_STRIDE for c in range(2)]
     occu = torch.zeros((WL_WALKERS, ensemble.num_sites), dtype=torch.int32, device=device)
@@ -763,8 +823,9 @@ def wl_chunked_hash_vs_twin(ensemble, system, name, move):
         **{key: state[key].T if state[key].dim() == 2 else state[key]
            for key in WL_PLANES},
     }
-    return compare_wl(f"wl-{move} {name} hash {n_steps} steps, 2 chunks, "
-                      f"{wl.num_levels} bins", kernel, twin, ops["occ"], tables, n_steps)
+    return compare_wl(f"wl-{move}+{body_label(tables)} {name} hash {n_steps} steps, "
+                      f"2 chunks, {wl.num_levels} bins", kernel, twin, ops["occ"], tables,
+                      n_steps)
 
 
 # ---------------- the main paths ----------------
@@ -801,7 +862,7 @@ def drive_main_path(move, stem, card, temperature, block, capped=False, **option
     ewald = "+ewald" if "ewald_matrix" in system else ""
     tables = sampler.mckernel.chain_tables()
     expect = options.get("chain_delta") or chain.default_delta(
-        ensemble.processor, ensemble.sublattices, move)
+        ensemble.processor, ensemble.sublattices)
     check(tables.delta == expect, f"{stem}: the {tables.delta} body ran, not {expect}")
     body = body_label(tables)
     check(path.startswith(f"cuda-chain[{move}]{ewald}+{body}"), f"execution path {path}")
@@ -872,18 +933,21 @@ def drive_main_path(move, stem, card, temperature, block, capped=False, **option
     return ensemble, rate
 
 
+BODY_KERNELS = (chain.flip_chain, chain.swap_chain, chain.table_chain, chain.wl_chain)
+
+
 def reset_counts(*kernels):
-    """Set the launch counts of ``kernels`` to 0 (the flip and swap chains'
-    per-body counts too)."""
+    """Set the launch counts of ``kernels`` to 0 (the chains' per-body
+    counts too)."""
     for kernel_fn in kernels:
         kernel_fn.launches = 0
-        if kernel_fn in (chain.flip_chain, chain.swap_chain):
+        if kernel_fn in BODY_KERNELS:
             kernel_fn.qary_launches = kernel_fn.ising_launches = 0
 
 
 def body_counts(kernel_fn):
-    """The flip or swap chain's launches since :func:`reset_counts`, by the
-    site body that launched: {"direct": n, "qary": n, "ising": n}."""
+    """A chain's launches since :func:`reset_counts`, by the site body that
+    launched: {"direct": n, "qary": n, "ising": n}."""
     qary, ising = kernel_fn.qary_launches, kernel_fn.ising_launches
     return {"direct": kernel_fn.launches - qary - ising, "qary": qary, "ising": ising}
 
@@ -898,18 +962,31 @@ def drive(move, cells, card):
     launches = kernel_fn.launches
     check(launches == len(cells) * 2 * (NSTEPS // THIN),
           f"{launches} {move} kernel launches")
-    if move == "table":
-        print(f"phase 4: table_chain launches on the table main path: {launches}")
-        return results, launches
     expect = {"direct": 0, "qary": 0, "ising": 0}
     for ens, _ in results.values():  # every cell runs the sampler's default body
-        expect[chain.default_delta(ens.processor, ens.sublattices, move)] += \
+        expect[chain.default_delta(ens.processor, ens.sublattices)] += \
             2 * (NSTEPS // THIN)
     bodies = body_counts(kernel_fn)
     check(bodies == expect, f"{move} main path launches by body {bodies}, not {expect}")
     print(f"phase 4: {move}_chain launches on the {move} main path: {launches} "
           f"(by site body {bodies})")
     return results, bodies
+
+
+def drive_bodies(label, runs, card):
+    """Phase 4: main paths with a site body asked for, ``runs`` a list of
+    (move, stem, temperature, block, delta); counts set to 0 just before,
+    read just after.  Returns the launches by kernel and body."""
+    kernels = {move: KERNELS[move][0] for move, *_ in runs}
+    reset_counts(*kernels.values())
+    expect = {move: {"direct": 0, "qary": 0, "ising": 0} for move in kernels}
+    for move, stem, temperature, block, delta in runs:
+        drive_main_path(move, stem, card, temperature, block, chain_delta=delta)
+        expect[move][delta] += 2 * (NSTEPS // THIN)
+    bodies = {move: body_counts(fn) for move, fn in kernels.items()}
+    check(bodies == expect, f"{label}: launches by body {bodies}, not {expect}")
+    print(f"phase 4: {label}: launches by kernel and site body {bodies}")
+    return bodies
 
 
 def drive_swap_direct(card):
@@ -973,7 +1050,7 @@ def drive_tempering(card, delta):
         runs.append((sampler, t1 - t0, time.perf_counter() - t1))
     (cold, tables_s, cold_s), (sampler, _, wall) = runs
     tables = sampler.mckernel.chain_tables()
-    delta = delta or chain.default_delta(ensemble.processor, ensemble.sublattices, "flip")
+    delta = delta or chain.default_delta(ensemble.processor, ensemble.sublattices)
     check(tables.delta == delta, f"{PT_CELL}: the {tables.delta} body ran, not {delta}")
     expect = f"cuda-chain[flip]+{delta}+shared-proposals+replica-exchange@{PT_PERIOD}"
     check(path == expect, f"execution path {path}")
@@ -1118,8 +1195,9 @@ def plane_invariants(label, state, steps):
           f"{label}: a mod_factor is above its start or no power of two")
 
 
-def drive_wl(stem, move, card):
-    """Phase 4: one Wang-Landau cell, as a user calls it; cold, then warm."""
+def drive_wl(stem, move, card, delta=None):
+    """Phase 4: one Wang-Landau cell, as a user calls it; cold, then warm;
+    ``delta=None`` is the sampler's default body."""
     ensemble, system = load(stem)
     window = wl_window_of(system)
     # (a) bench.py's starts: default_rng(0).integers(0, 2, (2048, N))
@@ -1128,14 +1206,18 @@ def drive_wl(stem, move, card):
     for _ in ("cold", "warm"):
         sampler = Sampler.from_ensemble(
             ensemble, kernel_type="wang-landau", step_type=move,
-            nwalkers=WL_WALKERS, seed=WL_SEED, flatness=0.8, **window)
+            nwalkers=WL_WALKERS, seed=WL_SEED, flatness=0.8, chain_delta=delta, **window)
         path = sampler.execution_path(WL_THIN)  # builds the chain tables
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sampler.run(WL_NSTEPS, occ0, thin_by=WL_THIN)
         torch.cuda.synchronize()
         runs.append((sampler, time.perf_counter() - t0))
-    check(path.startswith(f"cuda-chain[wl-{move}]+direct"), f"execution path {path}")
+    body = delta or chain.default_delta(ensemble.processor, ensemble.sublattices)
+    tables = sampler.mckernel.chain_tables()
+    check(tables.delta == body, f"{stem}: the {tables.delta} body ran, not {body}")
+    check(path.startswith(f"cuda-chain[wl-{move}]+{body_label(tables)}+"),
+          f"execution path {path}")
     (cold, cold_s), (sampler, wall) = runs
     samples, state = sampler.samples, sampler._state
     n = samples.num_samples
@@ -1200,7 +1282,7 @@ def drive_wl(stem, move, card):
     return ensemble, system, rate
 
 
-def drive_wl_dos(card):
+def drive_wl_dos(card, delta):
     """Phase 4 (c): the density of states of the 8-site system on the card.
 
     The window and bin of the reference's own test of this system (levels
@@ -1218,7 +1300,10 @@ def drive_wl_dos(card):
     sampler = Sampler.from_ensemble(
         ensemble, kernel_type="wang-landau", step_type="flip",
         min_enthalpy=lo, max_enthalpy=float(levels[-1] + bin_size), bin_size=bin_size,
-        flatness=0.9, check_period=5000, nwalkers=WL_DOS_WALKERS, seed=9)
+        flatness=0.9, check_period=5000, nwalkers=WL_DOS_WALKERS, seed=9,
+        chain_delta=delta)
+    path = sampler.execution_path(WL_DOS_NSTEPS // 10)
+    check(f"+{delta}+" in path, f"execution path {path}")
     occ0 = np.random.default_rng(0).integers(
         0, 2, (WL_DOS_WALKERS, ensemble.num_sites)).astype(np.int32)
     t0 = time.perf_counter()
@@ -1238,7 +1323,7 @@ def drive_wl_dos(card):
     check(worst < WL_DOS_TOLERANCE,
           f"density of states: log-DOS off by {worst} on some walker")
     mod = sampler._state["mod_factor"]
-    print(f"phase 4 [wl {WL_DOS_CELL}] {card}: {WL_DOS_WALKERS} walkers x "
+    print(f"phase 4 [wl {WL_DOS_CELL}, {delta} body] {card}: {WL_DOS_WALKERS} walkers x "
           f"{WL_DOS_NSTEPS} steps in {wall:.4f} s, log-DOS against the exact "
           f"degeneracies {dos[visited].tolist()}: worst walker off by {worst:.4f} "
           f"(limit {WL_DOS_TOLERANCE}), mod_factor {float(mod.min()):g} to "
@@ -1247,15 +1332,30 @@ def drive_wl_dos(card):
 
 
 def drive_wl_cells(card):
-    """Phase 4 for Wang-Landau: counts set to 0 just before, read just after."""
-    chain.wl_chain.launches = 0
+    """Phase 4 for Wang-Landau: each cell with the default body and once
+    with the other (direct or K1-Ising), the 8-site density of states with
+    both, and K3 on the ternary window; counts set to 0 just before, read
+    just after.  Returns the default runs and the launches by body."""
+    reset_counts(chain.wl_chain)
     results = {stem: drive_wl(stem, move, card) for stem, move in WL_CELLS.items()}
-    drive_wl_dos(card)
-    launches = chain.wl_chain.launches
-    check(launches == len(WL_CELLS) * 2 * (WL_NSTEPS // WL_THIN) + 10,
-          f"{launches} Wang-Landau kernel launches")
-    print(f"phase 4: wl_chain launches on the Wang-Landau main path: {launches}")
-    return results, launches
+    windows = 2 * (WL_NSTEPS // WL_THIN)
+    expect = {"direct": 0, "qary": 0, "ising": 0}
+    for stem, (ens, _, _) in results.items():
+        default = chain.default_delta(ens.processor, ens.sublattices)
+        other = "direct" if default == "ising" else "ising"
+        drive_wl(stem, WL_CELLS[stem], card, delta=other)
+        expect[default] += windows
+        expect[other] += windows
+    for delta in ("direct", "ising"):
+        drive_wl_dos(card, delta)
+        expect[delta] += 10
+    drive_wl(WL_QARY_CELL, "flip", card, delta="qary")
+    expect["qary"] += windows
+    bodies = body_counts(chain.wl_chain)
+    check(bodies == expect, f"Wang-Landau launches by body {bodies}, not {expect}")
+    print(f"phase 4: wl_chain launches on the Wang-Landau main paths: "
+          f"{chain.wl_chain.launches} (by site body {bodies})")
+    return results, bodies
 
 
 # ---------------- the SQS distance chain ----------------
@@ -1481,29 +1581,58 @@ def drive_sqs_cells(card):
 
 # ---------------- timing and bounds ----------------
 
-def bound(tables, ops, move, recolorings=0, accepted=0):
+def body_tables(tables):
+    """The table tensors a launch reads for its site body."""
+    if tables.ising:  # K1-Ising's parity rows
+        return [tables.imask, tables.iamp, tables.irows]
+    if tables.qary:  # K3's character rows
+        return [tables.qnbr, tables.qfreq, tables.qms, tables.qac, tables.qas,
+                tables.qrows]
+    return [tables.nbr, tables.stride, tables.d2, tables.g]
+
+
+def body_ops(tables, rows, sites):
+    """The site body's f64 operations for ``sites`` recolorings that read
+    ``rows`` rows (:func:`smol_tpu_torch.ops.chain.body_rows`): the direct
+    lookup's two a local cluster; K1-Ising's one add a parity row (the sign
+    is a select, the mask test integer work) and the scale's multiply-add a
+    site; K3's products and sum a character row (two for q = 2, four
+    above) with its add into the delta."""
+    if tables.ising:
+        return rows + sites
+    if tables.qary:
+        return rows * (2 if tables.qary == 2 else 4)
+    return 2 * rows
+
+
+def proposed_rows(tables, ops, seqs):
+    """The body rows of the ranks the sequences ``seqs`` propose, summed
+    over every walker and step of the launch."""
+    steps, W = ops["n_steps"], ops["occ"].shape[1]
+    walkers = torch.bincount(torch.arange(W, device=seqs[0].device) // ops["block_size"])
+    rows = chain.body_rows(tables)
+    return sum(int((rows[s[:, :steps].long()].sum(dim=1) * walkers).sum()) for s in seqs)
+
+
+def bound(tables, ops, move, recolorings=0, accepted=0, rows=0):
     """The least time of one launch: (ms, "bytes" or "operations", bytes,
     f64 operations, ms of the Ewald term's operations alone).
 
     Bytes: every operand read once and every output written once (the
     occupancy [R, W] int8 in and out, the per-walker state, the sequences
-    and the tables).  Operations: the f64 adds and subtracts per
-    walker-step (two per local cluster of each changed site, R + 2 per
-    Ewald term, the chemical work's two for a flip, the enthalpy's one).
-    A table move's work depends on the data: ``recolorings`` counts the
-    site recolorings these inputs need (the valid slots of the valid
-    proposals, from a twin run of the same launch); each costs a flip's
-    operations, and an identity proposal none.
+    and the site body's tables).  Operations: the site body's on the rows
+    of the ranks proposed (:func:`body_ops`), R + 2 per Ewald term, the
+    chemical work's two for a flip, the enthalpy's one a step.  A table
+    move's work depends on the data: ``recolorings`` counts the site
+    recolorings these inputs need (the valid slots of the valid proposals,
+    from a twin run of the same launch) and ``rows`` their body rows; each
+    recoloring costs a flip's operations, an identity proposal none, and
+    ``accepted`` moves an enthalpy add each.
     """
     R, W = ops["occ"].shape
-    L, steps = tables.nbr.shape[1], ops["n_steps"]
+    steps = ops["n_steps"]
     seqs = [ops[name] for name in SEQUENCES[move]]
-    table_tensors = [tables.nbr, tables.stride, tables.d2, tables.g]
-    if tables.ising:  # K1-Ising reads its parity rows instead
-        table_tensors = [tables.imask, tables.iamp, tables.irows]
-    elif tables.qary:  # K3 reads its character rows instead
-        table_tensors = [tables.qnbr, tables.qfreq, tables.qms, tables.qac, tables.qas,
-                         tables.qrows]
+    table_tensors = body_tables(tables)
     if move != "swap":
         table_tensors += [tables.mu]
     if move == "flip":
@@ -1516,33 +1645,14 @@ def bound(tables, ops, move, recolorings=0, accepted=0):
               + sum(s[:, :steps].numel() * 4 for s in seqs)
               + sum(t.numel() * t.element_size() for t in table_tensors))
     ewald_site = R + 2 if tables.has_ewald else 0
-    walkers = torch.bincount(torch.arange(W, device=seqs[0].device) // ops["block_size"])
-    if tables.ising:
-        # the parity rows of the ranks proposed, walker by walker: one f64 add
-        # a row (the sign is a select, the mask test integer work), then per
-        # site the scale's multiply-add, the Ewald term's R + 2, and per step
-        # the enthalpy's add and a flip's chemical work
-        rows = sum(int((tables.irows[s[:, :steps].long()].sum(dim=1) * walkers).sum())
-                   for s in seqs)
-        sites = len(seqs)
-        ewald = W * steps * sites * ewald_site
-        n_ops = rows + W * steps * (sites + 1 + (2 if move == "flip" else 0)) + ewald
-    elif move == "table":
+    if move == "table":
         ewald = recolorings * ewald_site
-        n_ops = recolorings * (2 * L + 2) + ewald + accepted
-    elif tables.qary:
-        # the character rows of the ranks proposed, walker by walker: a row
-        # costs its products and sum (two for q = 2, three for q = 3) and
-        # its add into the delta
-        per_row = 2 if tables.qary == 2 else 4
-        rows = sum(int((tables.qrows[s[:, :steps].long()].sum(dim=1) * walkers).sum())
-                   for s in seqs)
-        ewald = 0
-        n_ops = rows * per_row + W * steps * (1 + (2 if move == "flip" else 0))
+        n_ops = body_ops(tables, rows, recolorings) + 2 * recolorings + ewald + accepted
     else:
-        sites = 2 if move == "swap" else 1
-        ewald = W * steps * sites * ewald_site
-        n_ops = W * steps * (sites * 2 * L + 1 + (2 if move == "flip" else 0)) + ewald
+        sites = W * steps * len(seqs)
+        ewald = sites * ewald_site
+        n_ops = (body_ops(tables, proposed_rows(tables, ops, seqs), sites) + ewald
+                 + W * steps * (1 + (2 if move == "flip" else 0)))
     ops_s = n_ops / PEAK_F64_PER_S
     bytes_s = nbytes / PEAK_BYTES_PER_S
     return (max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes",
@@ -1562,8 +1672,10 @@ def time_window(ensemble, name, card, move, block, kernel_reps=50, twin_reps=3,
     if move == "table":  # what this launch's data needs, from the twin
         run = fresh(ops)
         nslot = torch.zeros(WALKERS, dtype=torch.int32, device=ensemble.device)
-        twin_fn(**run, nslot=nslot)
-        counts = {"recolorings": int(nslot.sum()), "accepted": int(run["naccept"].sum())}
+        nrow = torch.zeros(WALKERS, dtype=torch.int64, device=ensemble.device)
+        twin_fn(**run, nslot=nslot, nrow=nrow)
+        counts = {"recolorings": int(nslot.sum()), "accepted": int(run["naccept"].sum()),
+                  "rows": int(nrow.sum())}
     kernel_ms = cuda_ms(same_window(kernel_fn, ops, kernel_reps), kernel_reps)
     twin_ms = cuda_ms(same_window(twin_fn, ops, twin_reps), twin_reps) if twin_reps else None
     bound_ms, bound_by, nbytes, n_ops, ewald_ms = bound(tables, ops, move, **counts)
@@ -1576,8 +1688,9 @@ def time_window(ensemble, name, card, move, block, kernel_reps=50, twin_reps=3,
             f"{nbytes / 1e6:.3f} MB, {n_ops / 1e6:.1f} M f64 operations), kernel/bound "
             f"{kernel_ms / bound_ms:.0f}x")
     if counts:
-        line += (f"; {counts['recolorings']} recolorings in valid proposals and "
-                 f"{counts['accepted']} accepted moves of {WALKERS * THIN} proposals")
+        line += (f"; {counts['recolorings']} recolorings in valid proposals "
+                 f"({counts['rows']} body rows) and {counts['accepted']} accepted moves "
+                 f"of {WALKERS * THIN} proposals")
     result = {"kernel_ms": kernel_ms, "twin_ms": twin_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, **counts}
     if tables.has_ewald:  # K4's share: the same launch without the Ewald term
@@ -1724,14 +1837,15 @@ def wl_bound(ops, after):
     once and written once in all three planes (16 B each way), and the
     histogram's zeroing (4 B a bin) for every reset (``mod_factor`` halves
     at each).  The occurrences are never moved in whole.
-    Operations: the delta's f64 adds, and six per step for the rule and
-    the bookkeeping (E + dE, minus the window's start, the division, its
-    floor, S[b_cur] - S[b'], S + mod_factor).
+    Operations: the delta's (:func:`body_ops` on the rows of the ranks
+    proposed, R + 2 per Ewald term, a flip's chemical work), and six per
+    step for the rule and the bookkeeping (E + dE, minus the window's
+    start, the division, its floor, S[b_cur] - S[b'], S + mod_factor).
     """
     tables, move, steps = ops["tables"], ops["move"], ops["n_steps"]
     R, W = ops["occ"].shape
-    L, B = tables.nbr.shape[1], ops["wl"].num_levels
-    table_tensors = [tables.nbr, tables.stride, tables.d2, tables.g]
+    B = ops["wl"].num_levels
+    table_tensors = body_tables(tables)
     if move == "flip":
         table_tensors += [tables.mu, tables.ncode]
     if tables.has_ewald:
@@ -1744,21 +1858,23 @@ def wl_bound(ops, after):
               + passes * B * W * 12 + visited * 2 * 16 + resets * B * 4
               + sum(q[:, :steps].numel() * 4 for q in ops["seqs"])
               + sum(t.numel() * t.element_size() for t in table_tensors))
-    sites = 2 if move == "swap" else 1
+    sites = W * steps * len(ops["seqs"])
     ewald_site = R + 2 if tables.has_ewald else 0
-    n_ops = W * steps * (sites * (2 * L + ewald_site) + 6 + (2 if move == "flip" else 0))
+    rows = proposed_rows(tables, ops, ops["seqs"])
+    n_ops = (body_ops(tables, rows, sites) + sites * ewald_site
+             + W * steps * (6 + (2 if move == "flip" else 0)))
     ops_s, bytes_s = n_ops / PEAK_F64_PER_S, nbytes / PEAK_BYTES_PER_S
     return (max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes",
             nbytes, n_ops)
 
 
 def time_wl_window(ensemble, system, name, card, move, walkers, block=BLOCK,
-                   kernel_reps=50, twin_reps=0):
+                   kernel_reps=50, twin_reps=0, delta="direct"):
     """Phase 5: one 100-step Wang-Landau window from fresh planes, the
     bench's parameters (flatness 0.8, a check every 1000 steps and at the
     window's end), every repetition on a copy of the starting state."""
     ops = wl_operands(ensemble, system, move, walkers, THIN, block, occ_seed=5,
-                      seq_seed=1)
+                      seq_seed=1, delta=delta)
     ops["seed"] = torch.tensor([42], dtype=torch.int64, device=ensemble.device)
     kernel_ms = cuda_ms(same_window(chain.wl_chain, ops, kernel_reps), kernel_reps)
     after = fresh(ops)  # what this launch's data needs, from one more launch
@@ -1766,7 +1882,8 @@ def time_wl_window(ensemble, system, name, card, move, walkers, block=BLOCK,
     bound_ms, bound_by, nbytes, n_ops = wl_bound(ops, after)
     rate = walkers * THIN / (kernel_ms * 1e-3)
     result = {"kernel_ms": kernel_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-    line = (f"phase 5 [wl-{move} {name}] {card}: 100-step window at {walkers} walkers "
+    line = (f"phase 5 [wl-{move}+{body_label(ops['tables'])} {name}] {card}: 100-step "
+            f"window at {walkers} walkers "
             f"({-(-walkers // 64)} CUDA blocks on "
             f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs), "
             f"{ops['wl'].num_levels} bins: kernel {kernel_ms:.4f} ms "
@@ -1854,19 +1971,28 @@ def main():
     t_start = time.perf_counter()
 
     # phase 2: build from the checkout's sources, all kernels at once; the
-    # distance chain, whose build takes the longest, in a thread, so that
-    # phase 3 compares the other kernels meanwhile
-    late = ("distance_chain",)
-    late_build = {}
+    # table and Wang-Landau chains, and the distance chain, whose builds take
+    # the longest, in two threads, so that phase 3 compares the other
+    # kernels meanwhile
+    late = (("table_chain", "wl_chain"), ("distance_chain",))
+    late_builds = [{} for _ in late]
 
-    def build_late():
+    def build_late(names, result):
         try:
-            late_build["built"] = _build.build_libraries(late)
-        except Exception as error:  # re-raised in this thread below
-            late_build["error"] = error
+            result["built"] = _build.build_libraries(names)
+        except Exception as error:  # re-raised in the main thread below
+            result["error"] = error
 
-    builder = threading.Thread(target=build_late)
-    builder.start()
+    builders = [threading.Thread(target=build_late, args=args)
+                for args in zip(late, late_builds)]
+    for builder in builders:
+        builder.start()
+
+    def join_build(k):
+        builders[k].join()
+        if "error" in late_builds[k]:
+            raise late_builds[k]["error"]
+        report(late_builds[k]["built"])
 
     def report(built):
         for name, (lib_path, log, seconds) in built.items():
@@ -1875,7 +2001,8 @@ def main():
             for line in ptxas_summary(log):
                 print("  ptxas:", line)
 
-    report(_build.build_libraries(tuple(k for k in _build.KERNELS if k not in late)))
+    report(_build.build_libraries(tuple(k for k in _build.KERNELS
+                                        if not any(k in names for names in late))))
 
     sgc, ternary, aucu = (load(stem)[0] for stem in (SGC_CELL, TERNARY_CELL, QARY2_CELL))
     for delta in ("direct", "qary"):  # the bodies sgc's ternary tables take
@@ -1886,8 +2013,7 @@ def main():
     # phase 3: kernels against twins at the main paths' shapes
     flips = {stem: load(stem)[0] for stem in FLIP_CELLS}
     swaps = {stem: load(stem)[0] for stem in SWAP_CELLS}
-    table_cells = {stem: load(stem)[0] for stem in TABLE_CELLS}
-    errs = {"flip": [], "swap": [], "table": []}
+    errs = {"flip": [], "swap": []}
     for stem, ens in flips.items():
         for rng, seed in SEEDS:
             errs["flip"].append(window_vs_twin(ens, stem, "flip", BLOCK, rng, seed))
@@ -1902,18 +2028,13 @@ def main():
                                                rng, seed))
     errs["swap"].append(chunked_hash_vs_twin(swaps["spinel_ewald_2x2x2"],
                                              "spinel_ewald_2x2x2", "swap", BLOCK))
-    for stem, ens in table_cells.items():
-        for rng, seed in SEEDS:
-            errs["table"].append(window_vs_twin(ens, stem, "table", BLOCK, rng, seed))
-    errs["table"].append(chunked_hash_vs_twin(
-        table_cells["spinel_ewald_sgc_2x2x2"], "spinel_ewald_sgc_2x2x2", "table", BLOCK))
-    # up to three recolorings per move: the runtime slot count body
-    errs["table"].append(window_vs_twin(load(MULTI_SLOT_CELL)[0], MULTI_SLOT_CELL,
-                                        "table", BLOCK, *SEEDS[1]))
     # K3: the q-ary body in K1 (sgc 6x6x6, with the direct body beside it),
-    # in K2 (the ternary CE, canonical), and q = 2 in both on Au-Cu
+    # in K2 (the ternary CE, canonical), q = 2 in both on Au-Cu, q = 2 with
+    # the Ewald term in both on the spinel CE + Ewald, and q = 4 in K1 on
+    # the quaternary and binary rocksalt
     t0 = time.perf_counter()
-    errs["qary"] = []
+    q4 = load(Q4_CELL)[0]
+    errs.update({"qary": [], "qary4": [], "qary+ewald": []})
     for rng, seed in SEEDS:
         errs["qary"].append(window_vs_twin(sgc, SGC_CELL, "flip", BLOCK, rng, seed,
                                            "qary", SGC_TEMPERATURE))
@@ -1925,7 +2046,14 @@ def main():
                                            "qary"))
         errs["qary"].append(window_vs_twin(aucu, QARY2_CELL, "swap", SWAP_CELLS[QARY2_CELL][1],
                                            rng, seed, "qary", SWAP_CELLS[QARY2_CELL][0]))
+        for move in ("flip", "swap"):
+            errs["qary+ewald"].append(window_vs_twin(
+                swaps[EWALD_QARY_CELL], EWALD_QARY_CELL, move, BLOCK, rng, seed, "qary"))
+        errs["qary4"].append(window_vs_twin(q4, Q4_CELL, "flip", BLOCK, rng, seed, "qary"))
     errs["qary"].append(chunked_hash_vs_twin(sgc, SGC_CELL, "flip", BLOCK, "qary"))
+    errs["qary+ewald"].append(chunked_hash_vs_twin(
+        swaps[EWALD_QARY_CELL], EWALD_QARY_CELL, "swap", BLOCK, "qary"))
+    errs["qary4"].append(chunked_hash_vs_twin(q4, Q4_CELL, "flip", BLOCK, "qary"))
     print(f"phase 3: the K3 comparisons took {time.perf_counter() - t0:.1f} s")
     # K1-Ising: the parity body in K1 and K2 on every cell where its tables
     # exist, both RNG modes, and a hash chain across the chunk boundary in
@@ -1944,26 +2072,58 @@ def main():
     errs["exchange"] = [exchange_vs_twin()]
     print(f"phase 3: the K1-Ising and exchange comparisons took "
           f"{time.perf_counter() - t0:.1f} s")
+    join_build(0)
+    # the table chain: the direct body on both spinel cells, K1-Ising on
+    # both, K3 (q = 2, with the Ewald term) on 2x2x2, each in both RNG modes
+    # and across the chunk boundary, and the rocksalt's three recolorings
+    t0 = time.perf_counter()
+    table_cells = {stem: load(stem)[0] for stem in TABLE_CELLS}
+    errs.update({"table": [], "table+ising": [], "table+qary": []})
+    for stem, ens in table_cells.items():
+        for delta in ("direct", *TABLE_BODY_CELLS[stem]):
+            key = "table" if delta == "direct" else f"table+{delta}"
+            for rng, seed in SEEDS:
+                errs[key].append(window_vs_twin(ens, stem, "table", BLOCK, rng, seed, delta))
+    for delta in ("direct", "ising", "qary"):
+        key = "table" if delta == "direct" else f"table+{delta}"
+        errs[key].append(chunked_hash_vs_twin(
+            table_cells["spinel_ewald_sgc_2x2x2"], "spinel_ewald_sgc_2x2x2", "table", BLOCK,
+            delta))
+    # up to three recolorings per move: the runtime slot count body
+    errs["table"].append(window_vs_twin(load(MULTI_SLOT_CELL)[0], MULTI_SLOT_CELL,
+                                        "table", BLOCK, *SEEDS[1]))
+    print(f"phase 3: the table comparisons took {time.perf_counter() - t0:.1f} s")
     # the Wang-Landau chain: both moves, both RNG modes, a chunk boundary,
-    # update_period = 3, and the Ewald instantiation
+    # update_period = 3, the Ewald instantiation and the main path's own
+    # launch, with the direct body and with K1-Ising; K3 (q = 3) on the
+    # ternary window
+    t0 = time.perf_counter()
     wl_systems = {stem: load(stem) for stem in WL_CELLS}
-    errs["wl"] = []
-    for stem, move in WL_CELLS.items():
-        for rng, seed in SEEDS:
-            errs["wl"].append(wl_window_vs_twin(*wl_systems[stem], stem, move, rng, seed))
-    errs["wl"].append(wl_chunked_hash_vs_twin(
-        *wl_systems["aucu_wl_3x3x3"], "aucu_wl_3x3x3", "flip"))
-    errs["wl"].append(wl_window_vs_twin(
-        *wl_systems["aucu_wl_3x3x3"], "aucu_wl_3x3x3", "flip", *SEEDS[1],
-        update_period=3))
-    errs["wl"].append(wl_window_vs_twin(
-        *load("spinel_ewald_2x2x2"), "spinel_ewald_2x2x2", "swap", *SEEDS[1]))
+    wl_ewald = load(EWALD_QARY_CELL)
+    errs.update({"wl": [], "wl+ising": [], "wl+qary": []})
+    for delta, key in (("direct", "wl"), ("ising", "wl+ising")):
+        for stem, move in WL_CELLS.items():
+            for rng, seed in SEEDS:
+                errs[key].append(wl_window_vs_twin(*wl_systems[stem], stem, move, rng,
+                                                   seed, delta))
+        errs[key].append(wl_chunked_hash_vs_twin(
+            *wl_systems["aucu_wl_3x3x3"], "aucu_wl_3x3x3", "flip", delta))
+        errs[key].append(wl_window_vs_twin(
+            *wl_systems["aucu_wl_3x3x3"], "aucu_wl_3x3x3", "flip", *SEEDS[1], delta,
+            update_period=3))
+        errs[key].append(wl_window_vs_twin(
+            *wl_ewald, EWALD_QARY_CELL, "swap", *SEEDS[1], delta))
     for stem, move in WL_CELLS.items():  # the main path's own launch
         errs["wl"].append(wl_main_launch_vs_twin(*wl_systems[stem], stem, move))
-    builder.join()
-    if "error" in late_build:
-        raise late_build["error"]
-    report(late_build["built"])
+    errs["wl+ising"].append(wl_main_launch_vs_twin(
+        *wl_systems["aucu_wl_3x3x3"], "aucu_wl_3x3x3", "flip", "ising"))
+    sgc_wl = load(WL_QARY_CELL)
+    for rng, seed in SEEDS:
+        errs["wl+qary"].append(wl_window_vs_twin(*sgc_wl, WL_QARY_CELL, "flip", rng, seed,
+                                                 "qary"))
+    errs["wl+qary"].append(wl_chunked_hash_vs_twin(*sgc_wl, WL_QARY_CELL, "flip", "qary"))
+    print(f"phase 3: the Wang-Landau comparisons took {time.perf_counter() - t0:.1f} s")
+    join_build(1)
     # the distance chain: both cells and RNG modes, a chunk boundary, beta 0
     # and 50 (T = 0.02), no match term, and the main path's own launch
     fcc8, fcc64 = sqs_processors("sqs_fcc8")[0], sqs_processors("sqs_fcc_4x4x4")[0]
@@ -1989,85 +2149,127 @@ def main():
     print(f"phases 2-3 took {time.perf_counter() - t_start:.1f} s")
 
     # phase 4: the main paths; only these runs are counted
-    # launches of the flip and swap chains by site body, summed over the paths
-    flip_runs, flip_bodies = drive(
+    # launches of the chains by site body, summed over the paths
+    _, flip_bodies = drive(
         "flip", {stem: (TEMPERATURE, BLOCK) for stem in FLIP_CELLS}, card)
-    swap_runs, swap_bodies = drive("swap", SWAP_CELLS, card)
+    _, swap_bodies = drive("swap", SWAP_CELLS, card)
     swap_direct = drive_swap_direct(card)
-    table_runs, table_launches = drive("table", TABLE_CELLS, card)
+    # bench spinel-ewald on the default body, then each cell once with the
+    # other (direct or K1-Ising) and 2x2x2 with K3
+    table_runs, table_bodies = drive("table", TABLE_CELLS, card)
+    other = {stem: "direct" if chain.default_delta(ens.processor, ens.sublattices)
+             == "ising" else "ising" for stem, (ens, _) in table_runs.items()}
+    table_other = drive_bodies("table paths, the other body and K3", [
+        *(("table", stem, *TABLE_CELLS[stem], other[stem]) for stem in TABLE_CELLS),
+        ("table", "spinel_ewald_sgc_2x2x2", *TABLE_CELLS["spinel_ewald_sgc_2x2x2"], "qary")],
+        card)["table"]
+    # K3 with the Ewald term in K2 and with q = 4 in K1
+    qary_paths = drive_bodies("K3 paths with the Ewald term and q = 4", [
+        ("swap", EWALD_QARY_CELL, *SWAP_CELLS[EWALD_QARY_CELL], "qary"),
+        ("flip", Q4_CELL, TEMPERATURE, BLOCK, "qary")], card)
     _, sgc_bodies = drive_sgc(card)
     _, pt_bodies, exchange_launches = drive_tempering_cells(card)
     launches = {("flip", body): flip_bodies[body] + sgc_bodies[body] + pt_bodies[body]
                 for body in ("direct", "qary", "ising")}
     launches.update({("swap", body): swap_bodies[body] + swap_direct[body]
                      for body in ("direct", "qary", "ising")})
+    launches.update({("table", body): table_bodies[body] + table_other[body]
+                     for body in ("direct", "qary", "ising")})
+    launches[("flip", "qary4")] = qary_paths["flip"]["qary"]
+    launches[("swap", "qary+ewald")] = qary_paths["swap"]["qary"]
     tempering_vs_enumeration(card)
-    wl_runs, wl_launches = drive_wl_cells(card)
+    wl_runs, wl_bodies = drive_wl_cells(card)
+    launches.update({("wl", body): wl_bodies[body] for body in ("direct", "qary", "ising")})
     _, sqs_launches = drive_sqs_cells(card)
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
-    # phase 5: window timings, kernel against twin
-    timings = {("flip", stem): time_window(ens, stem, card, "flip", BLOCK)
-               for stem, (ens, _) in flip_runs.items()}
-    timings[("flip", "spinel_ewald_2x2x2")] = time_window(
-        swaps["spinel_ewald_2x2x2"], "spinel_ewald_2x2x2", card, "flip", BLOCK)
-    for stem, (ens, _) in swap_runs.items():
-        timings[("swap", stem)] = time_window(ens, stem, card, "swap", SWAP_CELLS[stem][1])
-    for stem, (ens, _) in table_runs.items():
-        timings[("table", stem)] = time_window(ens, stem, card, "table", BLOCK)
-    # the Wang-Landau chain beside the flip and swap chains on its tables
-    timings[("flip", "aucu_wl_3x3x3")] = time_window(
-        wl_runs["aucu_wl_3x3x3"][0], "aucu_wl_3x3x3", card, "flip", BLOCK)
+    # phase 5: window timings, kernel against twin (the flip and swap cells'
+    # direct body in the turns against K1-Ising below); the flip chain with
+    # the Ewald term, and the Wang-Landau chain at its main path's walkers
+    timings = {("flip", "spinel_ewald_2x2x2"): time_window(
+        swaps["spinel_ewald_2x2x2"], "spinel_ewald_2x2x2", card, "flip", BLOCK)}
     for stem, (ens, system, _) in wl_runs.items():
         move = WL_CELLS[stem]
         block = SWAP_CELLS[stem][1] if stem in SWAP_CELLS else BLOCK
-        timings[(f"wl-{move}", stem)] = time_wl_window(
-            ens, system, stem, card, move, WALKERS, block, twin_reps=3)
-        timings[(f"wl-{move} at {WL_WALKERS} walkers", stem)] = time_wl_window(
-            ens, system, stem, card, move, WL_WALKERS)
-        plain = timings[(move, stem)]["kernel_ms"]
-        mine = timings[(f"wl-{move}", stem)]["kernel_ms"]
-        print(f"phase 5 [{stem}]: the Wang-Landau {move} window takes "
-              f"{mine / plain:.3f}x the Metropolis {move} window on the same tables "
-              f"({mine:.4f} vs {plain:.4f} ms)")
+        for delta in ("direct", "ising"):
+            timings[(f"wl-{move} at {WL_WALKERS} walkers+{delta}", stem)] = time_wl_window(
+                ens, system, stem, card, move, WL_WALKERS, delta=delta)
     for name, timed in sqs_timed.items():
         timings[("distance", name)] = time_distance(name, card, timed, kernel_reps=5)
-    # K3 against the direct body on the same cells, in turns
-    for move, ens, name in (("flip", sgc, SGC_CELL), ("swap", ternary, TERNARY_CELL)):
+
+    def in_turns(label, time_fn, bodies):
+        """Two bodies timed in turns (a, b, b, a): the twin on the first turn
+        of each, the kernel's time the mean of its two turns."""
         turns = {}
-        for delta in ("direct", "qary", "qary", "direct"):
-            again = delta in turns
-            turns.setdefault(delta, []).append(time_window(
-                ens, name, card, move, BLOCK, twin_reps=0 if again else 3, delta=delta,
-                temperature=SGC_TEMPERATURE))
+        for delta in (bodies[0], bodies[1], bodies[1], bodies[0]):
+            turns.setdefault(delta, []).append(time_fn(delta, len(turns.get(delta, ()))))
         for delta, (first, second) in turns.items():
-            timings[(f"{move}+{delta}", name)] = {
+            timings[(f"{label}+{delta}", time_fn.stem)] = {
                 **first, "kernel_ms": (first["kernel_ms"] + second["kernel_ms"]) / 2}
-        direct, qary = (timings[(f"{move}+{d}", name)]["kernel_ms"] for d in ("direct", "qary"))
-        print(f"phase 5 [{move} {name}] {card}: K3 (q-ary) {qary:.4f} ms against the "
-              f"direct body {direct:.4f} ms per window (means of two turns): "
-              f"{'q-ary' if qary < direct else 'direct'} faster by "
-              f"{max(qary, direct) / min(qary, direct):.3f}x")
+        a, b = (timings[(f"{label}+{d}", time_fn.stem)]["kernel_ms"] for d in bodies)
+        print(f"phase 5 [{label} {time_fn.stem}] {card}: {bodies[1]} {b:.4f} ms against "
+              f"{bodies[0]} {a:.4f} ms per 100-step window at {WALKERS} walkers (means of "
+              f"two turns): {bodies[1] if b < a else bodies[0]} faster by "
+              f"{max(a, b) / min(a, b):.3f}x")
+
+    def window_timer(ens, stem, move, block, temperature=TEMPERATURE, twin_reps=3):
+        def time_fn(delta, turn):
+            return time_window(ens, stem, card, move, block,
+                               twin_reps=0 if turn else twin_reps, delta=delta,
+                               temperature=temperature)
+        time_fn.stem = stem
+        return time_fn
+
+    def wl_timer(ens, system, stem, move, block):
+        def time_fn(delta, turn):
+            return time_wl_window(ens, system, stem, card, move, WALKERS, block,
+                                  twin_reps=0 if turn else 1, delta=delta)
+        time_fn.stem = stem
+        return time_fn
+
+    # K3 against the direct body on the same cells, in turns
+    in_turns("flip", window_timer(sgc, SGC_CELL, "flip", BLOCK, SGC_TEMPERATURE),
+             ("direct", "qary"))
+    in_turns("swap", window_timer(ternary, TERNARY_CELL, "swap", BLOCK, SGC_TEMPERATURE),
+             ("direct", "qary"))
+    in_turns("flip", window_timer(q4, Q4_CELL, "flip", BLOCK, twin_reps=1),
+             ("direct", "qary"))
+    in_turns("swap", window_timer(swaps[EWALD_QARY_CELL], EWALD_QARY_CELL, "swap", BLOCK,
+                                  twin_reps=1), ("direct", "qary"))
     # K1-Ising against the direct body on every cell where its tables exist,
     # in turns; then the exchange kernel and one tempering segment
     for (stem, move), (block, temperature) in ISING_CELLS.items():
-        turns = {}
-        for delta in ("direct", "ising", "ising", "direct"):
-            again = delta in turns
-            turns.setdefault(delta, []).append(time_window(
-                ising_cells[stem], stem, card, move, block, twin_reps=0 if again else 1,
-                delta=delta, temperature=temperature))
-        for delta, (first, second) in turns.items():
-            timings[(f"{move}+{delta}", stem)] = {
-                **first, "kernel_ms": (first["kernel_ms"] + second["kernel_ms"]) / 2}
-        direct, ising = (timings[(f"{move}+{d}", stem)]["kernel_ms"] for d in ("direct", "ising"))
+        in_turns(move, window_timer(ising_cells[stem], stem, move, block, temperature,
+                                    twin_reps=1), ("direct", "ising"))
         tables = tables_of(ising_cells[stem], move, "ising")
         rows = float(tables.irows.double().mean()) * (2 if move == "swap" else 1)
-        print(f"phase 5 [{move} {stem}] {card}: K1-Ising {ising:.4f} ms against the direct "
-              f"body {direct:.4f} ms per window (means of two turns): "
-              f"{'Ising' if ising < direct else 'direct'} faster by "
-              f"{max(ising, direct) / min(ising, direct):.3f}x; Ising "
-              f"{ising * 1e6 / THIN / rows:.1f} ns per parity row ({rows:.0f} a step)")
+        ising = timings[(f"{move}+ising", stem)]["kernel_ms"]
+        print(f"phase 5 [{move} {stem}]: Ising {ising * 1e6 / THIN / rows:.1f} ns per "
+              f"parity row ({rows:.0f} a step)")
+    # the table and Wang-Landau chains: K1-Ising against the direct body on
+    # every cell of their main paths (the A/B that picks the default), K3
+    # against the direct body on its cells
+    for stem, ens in table_cells.items():
+        in_turns("table", window_timer(ens, stem, "table", BLOCK, twin_reps=1),
+                 ("direct", "ising"))
+    in_turns("table", window_timer(table_cells["spinel_ewald_sgc_2x2x2"],
+                                   "spinel_ewald_sgc_2x2x2", "table", BLOCK, twin_reps=1),
+             ("direct", "qary"))
+    for stem, (ens, system, _) in wl_runs.items():
+        move = WL_CELLS[stem]
+        block = SWAP_CELLS[stem][1] if stem in SWAP_CELLS else BLOCK
+        in_turns(f"wl-{move}", wl_timer(ens, system, stem, move, block),
+                 ("direct", "ising"))
+    in_turns("wl-flip", wl_timer(*sgc_wl, WL_QARY_CELL, "flip", BLOCK), ("direct", "qary"))
+    for chain_name, stems in (("table", TABLE_CELLS), ("wl-flip", ("aucu_wl_3x3x3",)),
+                              ("wl-swap", ("aucu_4x4x4",))):
+        wins = [timings[(f"{chain_name}+ising", stem)]["kernel_ms"]
+                < timings[(f"{chain_name}+direct", stem)]["kernel_ms"] for stem in stems]
+        first = next(iter(stems))
+        ens = table_cells[first] if chain_name == "table" else wl_runs[first][0]
+        default = chain.default_delta(ens.processor, ens.sublattices)
+        print(f"phase 5 [{chain_name}] {card}: K1-Ising beat the direct body on "
+              f"{sum(wins)} of {len(wins)} cells; default_delta names {default!r}")
     timings[("exchange", PT_CELL)] = time_exchange(card)
     for delta in ("ising", "direct"):
         timings[(f"segment+{delta}", PT_CELL)] = time_segment(card, ising_cells[PT_CELL],
@@ -2076,46 +2278,55 @@ def main():
         {f"{move} {stem}": v for (move, stem), v in timings.items()}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
 
-    def entry(move, stem, source, replaces, launches):
-        t = timings[(move, stem)]
-        name = move.split("-")[0].split("+")[0]  # "wl-flip" is the wl_chain kernel
+    def entry(name, timing, source, replaces, launches, err_key):
+        t = timings[timing]
         return {
-            "name": f"{name}_chain", "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(errs[name]), "ms": t["kernel_ms"],
-            "plain_ms": t["twin_ms"], "bound_ms": t["bound_ms"],
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max(errs[err_key]),
+            "ms": t["kernel_ms"], "plain_ms": t["twin_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": None,  # no single PyTorch call runs a Monte Carlo chain
         }
 
-    # each entry's launches are those of the body its times were taken on,
-    # on a cell where the main path ran that body: the direct flip body on
-    # sgc (its default there), the direct swap body on Au-Cu 4x4x4
+    # each entry's launches are those of its (kernel, body) pair on the main
+    # paths, its times that pair's on a cell where a main path ran it
+    flip_src, swap_src = "smol_tpu_torch/csrc/flip_chain.cu", "smol_tpu_torch/csrc/swap_chain.cu"
+    table_src, wl_src = "smol_tpu_torch/csrc/table_chain.cu", "smol_tpu_torch/csrc/wl_chain.cu"
+    body_src = "smol_tpu_torch/csrc/chain_common.cuh"
+    ref = "smol_tpu/ops/pallas_chain.py"
     kernels = [
-        {**entry("flip+direct", SGC_CELL, "smol_tpu_torch/csrc/flip_chain.cu",
-                 "smol_tpu/ops/pallas_chain.py:1545", launches[("flip", "direct")]),
-         "name": "flip_chain (direct body)"},
-        {**entry("swap+direct", QARY2_CELL, "smol_tpu_torch/csrc/swap_chain.cu",
-                 "smol_tpu/ops/pallas_chain.py:1817", launches[("swap", "direct")]),
-         "name": "swap_chain (direct body)"},
-        entry("table", "spinel_ewald_sgc_2x2x2", "smol_tpu_torch/csrc/table_chain.cu",
-              "smol_tpu/ops/pallas_chain.py:1701", table_launches),
-        entry("wl-flip", "aucu_wl_3x3x3", "smol_tpu_torch/csrc/wl_chain.cu",
-              "smol_tpu/ops/pallas_chain.py:1866", wl_launches),
-        entry("distance", "sqs_fcc8 shape 0", "smol_tpu_torch/csrc/distance_chain.cu",
-              "smol_tpu/ops/pallas_sqs.py:649", sqs_launches),
-        {**entry("flip+qary", SGC_CELL, "smol_tpu_torch/csrc/chain_common.cuh",
-                 "smol_tpu/ops/pallas_chain.py:519", launches[("flip", "qary")]),
-         "name": "qary_body (K3, in flip_chain)", "max_abs_err": max(errs["qary"])},
-        {**entry("flip+ising", PT_CELL, "smol_tpu_torch/csrc/chain_common.cuh",
-                 "smol_tpu/ops/pallas_chain.py:374", launches[("flip", "ising")]),
-         "name": "ising_body (K1-Ising, in flip_chain)", "max_abs_err": max(errs["ising"])},
-        {**entry("swap+ising", "aucu_4x4x4", "smol_tpu_torch/csrc/chain_common.cuh",
-                 "smol_tpu/ops/pallas_chain.py:410", launches[("swap", "ising")]),
-         "name": "ising_body (K1-Ising, in swap_chain)", "max_abs_err": max(errs["ising"])},
-        {**entry("exchange", PT_CELL, "smol_tpu_torch/csrc/tempering.cu",
-                 "smol_tpu/parallel/tempering.py:42", exchange_launches),
-         "name": "tempering_exchange", "max_abs_err": max(errs["exchange"])},
+        entry("flip_chain (direct body)", ("flip+direct", SGC_CELL), flip_src,
+              f"{ref}:1545", launches[("flip", "direct")], "flip"),
+        entry("swap_chain (direct body)", ("swap+direct", "aucu_4x4x4"), swap_src,
+              f"{ref}:1817", launches[("swap", "direct")], "swap"),
+        entry("table_chain (direct body)", ("table+direct", "spinel_ewald_sgc_2x2x2"),
+              table_src, f"{ref}:1701", launches[("table", "direct")], "table"),
+        entry("table_chain (K1-Ising body)", ("table+ising", "spinel_ewald_sgc_2x2x2"),
+              table_src, f"{ref}:1754", launches[("table", "ising")], "table+ising"),
+        entry("table_chain (K3 body, q = 2, Ewald)", ("table+qary", "spinel_ewald_sgc_2x2x2"),
+              table_src, f"{ref}:1754", launches[("table", "qary")], "table+qary"),
+        entry("wl_chain (direct body)", ("wl-flip+direct", "aucu_wl_3x3x3"), wl_src,
+              f"{ref}:1866", launches[("wl", "direct")], "wl"),
+        entry("wl_chain (K1-Ising body)", ("wl-flip+ising", "aucu_wl_3x3x3"), wl_src,
+              f"{ref}:1866", launches[("wl", "ising")], "wl+ising"),
+        entry("wl_chain (K3 body, q = 3)", ("wl-flip+qary", WL_QARY_CELL), wl_src,
+              f"{ref}:1866", launches[("wl", "qary")], "wl+qary"),
+        entry("distance_chain", ("distance", "sqs_fcc8 shape 0"),
+              "smol_tpu_torch/csrc/distance_chain.cu", "smol_tpu/ops/pallas_sqs.py:649",
+              sqs_launches, "distance"),
+        entry("qary_body (K3, in flip_chain)", ("flip+qary", SGC_CELL), body_src,
+              f"{ref}:519", launches[("flip", "qary")], "qary"),
+        entry("qary_body (K3, q = 4, in flip_chain)", ("flip+qary", Q4_CELL), body_src,
+              f"{ref}:519", launches[("flip", "qary4")], "qary4"),
+        entry("qary_body (K3, q = 2 with Ewald, in swap_chain)",
+              ("swap+qary", EWALD_QARY_CELL), body_src, f"{ref}:570",
+              launches[("swap", "qary+ewald")], "qary+ewald"),
+        entry("ising_body (K1-Ising, in flip_chain)", ("flip+ising", PT_CELL), body_src,
+              f"{ref}:374", launches[("flip", "ising")], "ising"),
+        entry("ising_body (K1-Ising, in swap_chain)", ("swap+ising", "aucu_4x4x4"), body_src,
+              f"{ref}:410", launches[("swap", "ising")], "ising"),
+        entry("tempering_exchange", ("exchange", PT_CELL), "smol_tpu_torch/csrc/tempering.cu",
+              "smol_tpu/parallel/tempering.py:42", exchange_launches, "exchange"),
     ]
     for k in kernels:  # every kernel of the paths ran on them
         check(k["launches"] > 0, f"{k['name']}: no launch on the main paths")

@@ -21,6 +21,11 @@ writes each supercell as a system file that ``smol_tpu_torch`` loads
   Wang-Landau flips, with the window the bench derives from its first 64
   starting occupancies (``default_rng(0).integers(0, 2, (2048, 27))``):
   five times their enthalpy span in about 250 bins;
+- ``torch_sgc_wl_3x3x3.npz``: ``bench.py``'s ``sgc`` expansion (ternary
+  Au-Ag-Cu FCC, decomposition processor, its chemical potentials) on
+  3x3x3, for Wang-Landau flips with K3, the q-ary body, with the window
+  the bench's scheme derives from 64 starting occupancies
+  ``default_rng(0).integers(0, 3, (64, 27))``;
 - ``torch_aucu_nn_2x2x2.npz``: the 8-site Au-Cu FCC with only the
   nearest-neighbour pair interaction (0.1 eV) and zero chemical
   potentials, whose density of states is countable, with the
@@ -55,6 +60,13 @@ writes each supercell as a system file that ``smol_tpu_torch`` loads
 - ``torch_spinel_cd_2x2x2.npz``: the semigrand bench spinel 2x2x2 in the
   decomposition form that ``bench.py`` builds (its features are the
   cluster interactions, its natural parameters the orbit multiplicities);
+- ``torch_rocksalt_q4_2x2x2.npz``: a mixed quaternary and binary
+  rocksalt, {Au, Ag, Cu, Pd} on the cation site and {Ni, Pt} on the anion
+  site (``random_expansion(..., {2: 3.0}, seed=3)``, pairs only: a
+  triplet of three quaternary sites would exceed the reference's largest
+  tensor; the decomposition processor, chemical potentials for semigrand
+  flips) on 2x2x2: the lcm of its code counts is 4, so K3 takes it with
+  q = 4 and the binary sites' frequencies scaled by 2;
 - ``torch_aucu_pt_3x3x3.npz``: ``bench.py``'s ``tempering`` config, the
   binary Au-Cu FCC expansion of ``canonical`` on 3x3x3 (27 sites) with
   zero chemical potentials (Au 0, Cu 0), built as the bench builds it,
@@ -71,7 +83,9 @@ The files are committed under ``tests/data``; regenerate them with
 
 from __future__ import annotations
 
+import os
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -84,7 +98,7 @@ CANONICAL = {  # file stem -> (system, supercell edge) of the canonical files
     "spinel_ewald_3x3x3": ("spinel_ewald", 3),
     "aucu_4x4x4": ("aucu", 4),
 }
-WANG_LANDAU = ("aucu_wl_3x3x3", "aucu_nn_2x2x2")  # the Wang-Landau files
+WANG_LANDAU = ("aucu_wl_3x3x3", "aucu_nn_2x2x2", "sgc_wl_3x3x3")  # the Wang-Landau files
 TABLE = {  # file stem -> (system, its argument) of the table-flip files
     "spinel_ewald_sgc_2x2x2": ("spinel_ewald_sgc", 2),
     "spinel_ewald_sgc_3x3x3": ("spinel_ewald_sgc", 3),
@@ -99,7 +113,45 @@ DECOMPOSITION = {  # file stem -> (system, supercell edge), as bench.py builds t
     "sgc_3x3x3": ("sgc", 3),
     "spinel_cd_2x2x2": ("spinel_cd", 2),
     "aucu_pt_3x3x3": ("aucu_pt", 3),
+    "rocksalt_q4_2x2x2": ("rocksalt_q4", 2),
 }
+Q4_MUS = {"Au": 0.05, "Ag": 0.0, "Cu": -0.05, "Pd": 0.02, "Ni": 0.0, "Pt": 0.03}
+
+
+def reference_native():
+    """Load the reference's native host library in this process, or raise.
+
+    ``smol_tpu.crystal.ewald`` sums the real-space Ewald pairs through the
+    library's ``ewald_real_sums`` where it loads, and through a numpy
+    fallback that fills the coincident pairs and sums in another order
+    where it does not; the committed Ewald files were written through the
+    library.  ``smol_tpu.utils.native`` builds it on first use into a cache
+    that every process shares and remembers a failed load for the whole
+    process, so a process that met another's half-written build would
+    export through the fallback.  A process that has not loaded it builds
+    its own copy here, in a private cache directory, and loads that.
+    Raises ``RuntimeError`` where it cannot (``SMOL_TPU_NO_NATIVE`` set, no
+    compiler).
+    """
+    from smol_tpu.utils import native
+
+    if native._LIB is None and not os.environ.get("SMOL_TPU_NO_NATIVE"):
+        saved = os.environ.get("XDG_CACHE_HOME")
+        os.environ["XDG_CACHE_HOME"] = tempfile.mkdtemp(prefix="smol_tpu_native_")
+        try:
+            native._TRIED = False  # forget a failed load: build afresh
+            native.available()
+        finally:
+            if saved is None:
+                del os.environ["XDG_CACHE_HOME"]
+            else:
+                os.environ["XDG_CACHE_HOME"] = saved
+    if native._LIB is None or os.environ.get("SMOL_TPU_NO_NATIVE"):
+        raise RuntimeError(
+            "the reference's native host library (native/smol_host.cpp, loaded by "
+            "smol_tpu.utils.native) is not loaded: SMOL_TPU_NO_NATIVE is set or "
+            "g++ could not build it; the committed Ewald matrices were summed by "
+            "its ewald_real_sums, and the numpy fallback sums in another order")
 
 
 def spinel_ensemble(n: int):
@@ -151,18 +203,38 @@ def aucu_pt_ensemble(n: int):
     )
 
 
+def rocksalt_q4_ensemble(n: int):
+    """{Au, Ag, Cu, Pd} x {Ni, Pt} rocksalt on an n x n x n supercell, with
+    chemical potentials (decomposition processor, as ``sgc_ensemble``)."""
+    from smol_tpu.benchmarks.systems import random_expansion
+    from smol_tpu.crystal import Lattice, Structure
+    from smol_tpu.moca import Ensemble
+
+    lat = Lattice(np.array([[0, 0.5, 0.5], [0.5, 0, 0.5], [0.5, 0.5, 0]]) * 4.2)
+    prim = Structure(
+        lat,
+        [{sp: 0.25 for sp in ("Au", "Ag", "Cu", "Pd")}, {"Ni": 0.5, "Pt": 0.5}],
+        [[0, 0, 0], [0.5, 0.5, 0.5]],
+    )
+    ce = random_expansion(prim, {2: 3.0}, seed=3)
+    return Ensemble.from_cluster_expansion(
+        ce, np.diag([n, n, n]), chemical_potentials=Q4_MUS
+    )
+
+
 def decomposition_system(stem: str) -> dict:
     """The system dict of one decomposition-form file."""
     from smol_tpu_torch.system import export_system
 
     kind, n = DECOMPOSITION[stem]
     build = {"sgc": sgc_ensemble, "spinel_cd": spinel_cd_ensemble,
-             "aucu_pt": aucu_pt_ensemble}[kind]
+             "aucu_pt": aucu_pt_ensemble, "rocksalt_q4": rocksalt_q4_ensemble}[kind]
     return export_system(build(n))
 
 
 def spinel_ewald_ensemble(n: int):
     """The spinel CE + Ewald on an n x n x n supercell, canonical."""
+    reference_native()  # the Ewald sums the committed files hold
     from smol_tpu.benchmarks.systems import random_expansion, spinel_prim
     from smol_tpu.moca import Ensemble
 
@@ -240,6 +312,13 @@ def wang_landau_system(stem: str) -> dict:
             0, 2, (2048, ensemble.num_sites)).astype(np.int32)
         system.update(wl_window(enthalpies(ensemble, starts[:64])))
         return system
+    if stem == "sgc_wl_3x3x3":
+        ensemble = sgc_ensemble(3)
+        system = export_system(ensemble)
+        starts = np.random.default_rng(0).integers(
+            0, 3, (64, ensemble.num_sites)).astype(np.int32)
+        system.update(wl_window(enthalpies(ensemble, starts)))
+        return system
     ensemble = aucu_nn_ensemble()
     system = export_system(ensemble)
     states = np.array(list(product((0, 1), repeat=8)), dtype=np.int32)
@@ -297,6 +376,7 @@ def limn_tiny_ensemble():
 
 def spinel_ewald_sgc_ensemble(n: int):
     """``bench.py``'s ``spinel-ewald``: the spinel CE + Ewald, semigrand."""
+    reference_native()  # the Ewald sums the committed files hold
     from smol_tpu.benchmarks.systems import random_expansion, spinel_prim
     from smol_tpu.moca import Ensemble
 

@@ -8,9 +8,10 @@ q-ary rows), and for ``bench.py``'s ``tempering`` (replica exchange on
 Au-Cu 3x3x3, 8192 replicas on a 300-3000 K ladder, an exchange every 10
 steps, once with each site body: K1-Ising and direct), a warm-up run and
 then a run of ``WINDOWS`` thinning windows (8192 walkers, 100 steps each)
-under ``torch.profiler``; for the two Wang-Landau cells (flips on Au-Cu 3x3x3,
-swaps on Au-Cu 4x4x4) the main path's run: 2048 walkers, six windows of
-15000 steps; for the two SQS cells (``bench.py``'s 20 shapes of 8 sites,
+under ``torch.profiler``, the table flips once more with each site body
+(direct and K1-Ising); for the two Wang-Landau cells (flips on Au-Cu
+3x3x3, swaps on Au-Cu 4x4x4) the main path's run, once with each site
+body (direct and K1-Ising): 2048 walkers, six windows of 15000 steps; for the two SQS cells (``bench.py``'s 20 shapes of 8 sites,
 and the 64-site shape) one warm ``generate`` of 2048 walkers x 4
 temperatures x 8000 steps per shape.  Prints, beside the card's name and
 power limit:
@@ -34,7 +35,7 @@ torch exchange, and a CUDA graph of the segments with the plain torch
 exchange and with the exchange kernel, replayed.
 
 Run from the repository root with ``python scripts/profile_torch_chain.py
-[metropolis] [sgc] [tempering] [wang-landau] [sqs]`` (the paths to trace;
+[metropolis] [table] [sgc] [tempering] [wang-landau] [sqs]`` (the paths to trace;
 all without an argument); it needs one CUDA device and ``nvcc`` (the
 kernels are built at first use).
 """
@@ -121,10 +122,11 @@ def metropolis_cell(stem, temperature, block, step_type, **options):
     return sampler, occ0
 
 
-def wang_landau_cell(stem, move):
+def wang_landau_cell(stem, move, delta=None):
     """(sampler, starting occupancies) of a Wang-Landau cell: the window of
     the system file, uniform starts for flips, shuffles of the file's
-    half-and-half occupancy for swaps."""
+    half-and-half occupancy for swaps; ``delta`` the site body (None: the
+    sampler's default)."""
     ensemble, system = load(stem)
     rng = np.random.default_rng(0)
     if move == "swap":
@@ -135,7 +137,7 @@ def wang_landau_cell(stem, move):
         ensemble, kernel_type="wang-landau", step_type=move, nwalkers=WL_WALKERS,
         seed=13, flatness=0.8, min_enthalpy=float(system["wl_min_enthalpy"]),
         max_enthalpy=float(system["wl_max_enthalpy"]),
-        bin_size=float(system["wl_bin_size"]))
+        bin_size=float(system["wl_bin_size"]), chain_delta=delta)
     return sampler, occ0
 
 
@@ -334,10 +336,17 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card)
-    paths = set(sys.argv[1:]) or {"metropolis", "sgc", "tempering", "wang-landau", "sqs"}
+    paths = set(sys.argv[1:]) or {"metropolis", "table", "sgc", "tempering", "wang-landau",
+                                  "sqs"}
     if "metropolis" in paths:
         for stem, args in CELLS.items():
             profile_cell(stem, card, *metropolis_cell(stem, *args), WINDOWS, THIN)
+    if "table" in paths:
+        for stem, args in CELLS.items():
+            if args[2] == "table-flip":
+                for delta in ("direct", "ising"):
+                    profile_cell(stem, card, *metropolis_cell(stem, *args, chain_delta=delta),
+                                 WINDOWS, THIN)
     if "sgc" in paths:
         for delta in ("direct", "qary"):
             profile_cell(SGC_CELL[0], card,
@@ -350,7 +359,9 @@ def main():
             tempering_window_ways(card, delta)
     if "wang-landau" in paths:
         for stem, move in WL_CELLS.items():
-            profile_cell(stem, card, *wang_landau_cell(stem, move), WL_WINDOWS, WL_THIN)
+            for delta in ("direct", "ising"):
+                profile_cell(stem, card, *wang_landau_cell(stem, move, delta), WL_WINDOWS,
+                             WL_THIN)
     if "sqs" in paths:
         for stem in SQS_CELLS:
             profile_sqs(stem, card)

@@ -21,9 +21,10 @@ Au-Cu 3x3x3, swaps on Au-Cu 4x4x4, each in its main path's sequence block;
 path's launch (8000 steps at 2048 walkers on the bench's first 8-site
 shape and on the 64-site shape, mean of 5, each on a copy of one starting
 state), and, where the checkout has them, the flip and swap cells of
-K1-Ising (``chip_smoke.ISING_CELLS``) with the Ising body.  Further
-arguments after the tree name the kinds to time (``flip``, ``swap``,
-``table``, ``wl``, ``distance``, ``ising``; all without).
+K1-Ising (``chip_smoke.ISING_CELLS``) with the Ising body, and the table
+and Wang-Landau cells with K1-Ising (``chip_smoke.TABLE_BODY_CELLS``).
+Further arguments after the tree name the kinds to time (``flip``,
+``swap``, ``table``, ``wl``, ``distance``, ``ising``; all without).
 Prints the card's name and power limit and one ``AB`` line per cell:
 label, move, cell, kernel ms, kernel ms without the Ewald term (``nan``
 for a cell without one); a distance line ends with a checksum of the
@@ -73,11 +74,22 @@ def main():
         t = chip_smoke.time_window(ensemble, stem, card, move, block, twin_reps=0,
                                    delta="ising", temperature=temperature)
         print("AB", label, f"{move}+ising", stem, t["kernel_ms"], float("nan"), flush=True)
+    # the table and Wang-Landau chains' K1-Ising body, where the checkout has it
+    bodies = hasattr(chip_smoke, "TABLE_BODY_CELLS") and "ising" in kinds
+    if bodies and "table" in kinds:
+        for stem in chip_smoke.TABLE_CELLS:
+            t = chip_smoke.time_window(chip_smoke.load(stem)[0], stem, card, "table",
+                                       chip_smoke.BLOCK, twin_reps=0, delta="ising")
+            print("AB", label, "table+ising", stem, t["kernel_ms"],
+                  t.get("kernel_no_ewald_ms", float("nan")), flush=True)
     for stem, move in wl_cells.items():
         block = chip_smoke.SWAP_CELLS.get(stem, (None, chip_smoke.BLOCK))[1]
-        t = chip_smoke.time_wl_window(*chip_smoke.load(stem), stem, card, move,
-                                      chip_smoke.WALKERS, block)
-        print("AB", label, f"wl-{move}", stem, t["kernel_ms"], float("nan"), flush=True)
+        for delta in ("direct", "ising") if bodies else ("direct",):
+            extra = {"delta": delta} if bodies else {}
+            t = chip_smoke.time_wl_window(*chip_smoke.load(stem), stem, card, move,
+                                          chip_smoke.WALKERS, block, **extra)
+            print("AB", label, f"wl-{move}" + ("+ising" if delta == "ising" else ""), stem,
+                  t["kernel_ms"], float("nan"), flush=True)
     for stem in sqs_cells:
         proc = chip_smoke.sqs_processors(stem)[0]
         ops = chip_smoke.distance_operands(proc, chip_smoke.SQS_STEPS,

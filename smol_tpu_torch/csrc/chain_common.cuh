@@ -17,7 +17,10 @@
 //   `ewald_delta` (:1651), in f64 over the block's codes in rank order;
 // - the whole delta of a flip and of a swap (flip_delta, swap_delta, with
 //   the body as a template parameter), which the Metropolis chains and the
-//   Wang-Landau chain call.
+//   Wang-Landau chain call; the table chain calls the body's add itself.
+//
+// Every body's rows carry the rank's Ewald row (ew, RE doubles: R with an
+// Ewald term, else none), so K4 goes with each of them.
 //
 // The plain torch twins in ops/chain.py sum in the same orders, so kernel
 // and twin give the same f64 deltas.  Build without fast-math: nothing may
@@ -188,26 +191,30 @@ __device__ __forceinline__ double ce_add(double dE, const Rows& rows,
 
 // K3's character rows of one rank in shared memory (ops/chain.py
 // qary_tables): row l is the character sum_k freq[l, k] code(nbr[l, k]) +
-// ms[l] code(self) (mod Q) with folded amplitudes ac[l], as[l].
-// The q-ary body takes no Ewald term (the tables refuse one).
+// ms[l] code(self) (mod Q) with folded amplitudes ac[l], as[l]; and, with
+// an Ewald term (binary sites: Q = 2), the Ewald row.
 struct QRows {
   double* ac;     // [Lq]
   double* as;     // [Lq]
+  double* ew;     // [RE] Ewald row V_r (RE = R with an Ewald term, else 0)
   int32_t* nbr;   // [Lq, NB] neighbour rank, -1 = none
   int32_t* freq;  // [Lq, NB] scaled frequency in [0, Q)
   int32_t* ms;    // [Lq] scaled self frequency in [1, Q)
 };
 
-__host__ __device__ __forceinline__ size_t qrows_bytes(int Lq, int NB) {
-  const size_t bytes = (size_t)Lq * 16 + (size_t)Lq * (2 * NB + 1) * 4;
+__host__ __device__ __forceinline__ size_t qrows_bytes(int Lq, int NB, int RE) {
+  const size_t bytes =
+      (size_t)Lq * 16 + (size_t)RE * 8 + (size_t)Lq * (2 * NB + 1) * 4;
   return (bytes + 15) / 16 * 16;
 }
 
-__device__ __forceinline__ QRows qrows_at(unsigned char* base, int Lq, int NB) {
+__device__ __forceinline__ QRows qrows_at(unsigned char* base, int Lq, int NB,
+                                          int RE) {
   QRows r;
   r.ac = reinterpret_cast<double*>(base);
   r.as = r.ac + Lq;
-  r.nbr = reinterpret_cast<int32_t*>(r.as + Lq);
+  r.ew = r.as + Lq;
+  r.nbr = reinterpret_cast<int32_t*>(r.ew + RE);
   r.freq = r.nbr + Lq * NB;
   r.ms = r.freq + Lq * NB;
   return r;
@@ -275,12 +282,14 @@ struct Direct {
 template <int Q>
 __device__ __forceinline__ int sigma_c(int w) {
   if constexpr (Q == 2) return 1 - 2 * w;
+  if constexpr (Q == 4) return (w == 0 ? 1 : 0) - (w == 2 ? 1 : 0);
   return w == 0 ? 1 : 0;
 }
 
 template <int Q>
 __device__ __forceinline__ int sigma_s(int w) {
   if constexpr (Q == 2) return 0;
+  if constexpr (Q == 4) return (w == 1 ? 1 : 0) - (w == 3 ? 1 : 0);
   return (w == 1 ? 1 : 0) - (w == 2 ? 1 : 0);
 }
 
@@ -327,10 +336,10 @@ struct Qary {
     if constexpr (NBT > 0) t.NB = NBT;
   }
   __host__ __device__ static size_t bytes(const Tables& t) {
-    return qrows_bytes(t.Lq, t.NB);
+    return qrows_bytes(t.Lq, t.NB, t.RE);
   }
   __device__ static Rows at(unsigned char* base, const Tables& t) {
-    return qrows_at(base, t.Lq, t.NB);
+    return qrows_at(base, t.Lq, t.NB, t.RE);
   }
   // Issue the asynchronous copy of rank u's rows into `dst` (all threads).
   __device__ static void copy(unsigned char* dst, int u, const Tables& t,
@@ -348,6 +357,10 @@ struct Qary {
                               sizeof(int32_t));
       __pipeline_memcpy_async(r.freq + x, t.qfreq + row0 * t.NB + x,
                               sizeof(int32_t));
+    }
+    const double* ew_u = t.ew_v + (size_t)u * t.RE;
+    for (int x = tid; x < t.RE; x += nt) {
+      __pipeline_memcpy_async(r.ew + x, ew_u + x, sizeof(double));
     }
     __pipeline_commit();
   }

@@ -142,7 +142,8 @@ flip_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
 using Kernel = decltype(&flip_chain_kernel<Direct<3>, false>);
 
 // The instantiation of a launch: the direct body with or without Ewald, K =
-// 3 or runtime K; K3 for q = 2 or 3 without Ewald, NB = 2 or runtime NB;
+// 3 or runtime K; K3 for q = 2 (with or without Ewald), 3 or 4, NB = 2 or
+// runtime NB;
 // K1-Ising for NW = 1 to 4 words, with or without Ewald.
 Kernel pick_kernel(int q, int nw, bool ew, int K, int NB) {
   switch (nw) {
@@ -157,9 +158,14 @@ Kernel pick_kernel(int q, int nw, bool ew, int K, int NB) {
     return ew ? (K == 3 ? flip_chain_kernel<Direct<3>, true> : flip_chain_kernel<Direct<0>, true>)
               : (K == 3 ? flip_chain_kernel<Direct<3>, false> : flip_chain_kernel<Direct<0>, false>);
   }
+  // an Ewald term needs binary sites, so K3 takes it with q = 2 only
+  if (q == 2) {
+    return ew ? (NB == 2 ? flip_chain_kernel<Qary<2, 2>, true> : flip_chain_kernel<Qary<2, 0>, true>)
+              : (NB == 2 ? flip_chain_kernel<Qary<2, 2>, false> : flip_chain_kernel<Qary<2, 0>, false>);
+  }
   if (ew) return nullptr;
-  if (q == 2) return NB == 2 ? flip_chain_kernel<Qary<2, 2>, false> : flip_chain_kernel<Qary<2, 0>, false>;
   if (q == 3) return NB == 2 ? flip_chain_kernel<Qary<3, 2>, false> : flip_chain_kernel<Qary<3, 0>, false>;
+  if (q == 4) return NB == 2 ? flip_chain_kernel<Qary<4, 2>, false> : flip_chain_kernel<Qary<4, 0>, false>;
   return nullptr;
 }
 

@@ -173,9 +173,14 @@ Kernel pick_kernel(int q, int nw, bool ew, int K, int NB) {
     return ew ? (K == 3 ? swap_chain_kernel<Direct<3>, true> : swap_chain_kernel<Direct<0>, true>)
               : (K == 3 ? swap_chain_kernel<Direct<3>, false> : swap_chain_kernel<Direct<0>, false>);
   }
+  // an Ewald term needs binary sites, so K3 takes it with q = 2 only
+  if (q == 2) {
+    return ew ? (NB == 2 ? swap_chain_kernel<Qary<2, 2>, true> : swap_chain_kernel<Qary<2, 0>, true>)
+              : (NB == 2 ? swap_chain_kernel<Qary<2, 2>, false> : swap_chain_kernel<Qary<2, 0>, false>);
+  }
   if (ew) return nullptr;
-  if (q == 2) return NB == 2 ? swap_chain_kernel<Qary<2, 2>, false> : swap_chain_kernel<Qary<2, 0>, false>;
   if (q == 3) return NB == 2 ? swap_chain_kernel<Qary<3, 2>, false> : swap_chain_kernel<Qary<3, 0>, false>;
+  if (q == 4) return NB == 2 ? swap_chain_kernel<Qary<4, 2>, false> : swap_chain_kernel<Qary<4, 0>, false>;
   return nullptr;
 }
 

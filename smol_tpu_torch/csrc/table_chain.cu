@@ -19,12 +19,15 @@
 //   identity proposal: nothing is computed, nothing accepted.
 // - A valid move recolors its valid slots in order.  Slot j's delta is
 //   taken against the occupancy as slots 0 .. j-1 left it (b_j is written
-//   into the slot's shared cell once its delta is known): its clusters'
-//   terms in order l = 0, 1, ..., then its Ewald term (b_j - a0[j]) *
-//   (C_r + V_r . occ), then minus its chemical work mu[r, b_j] - mu[r,
-//   a0[j]].  All in native f64 and in that order, as the plain torch twin
-//   in ops/chain.py sums (the reference adds double-float f32 pairs and
-//   takes the Ewald dot in f32).  Slots that are not valid contribute
+//   into the slot's shared cell, and into the walker's rank bits of the
+//   Ising body, once its delta is known): its site body's terms (the
+//   direct lookup's clusters in order l = 0, 1, ...; K3's character rows or
+//   K1-Ising's parity rows in row order, as the reference's `table_step`
+//   calls the system's site delta, :1754), then its Ewald term (b_j -
+//   a0[j]) * (C_r + V_r . occ), then minus its chemical work mu[r, b_j] -
+//   mu[r, a0[j]].  All in native f64 and in that order, as the plain torch
+//   twin in ops/chain.py sums (the reference adds double-float f32 pairs
+//   and takes the Ewald dot in f32).  Slots that are not valid contribute
 //   exactly zero in the reference and are skipped here; only valid slots'
 //   sites are known to be distinct.
 // - Plain Metropolis on -beta * dH with the f32 exponent and the step's one
@@ -37,13 +40,13 @@
 // system are identities (the drawn sites rarely hold the from-codes), and
 // a warp is as slow as its slowest walker, so a step costs about a valid
 // move wherever any of the warp's 32 walkers has one.  Direction and
-// ranks are known in advance, so the rows (nbr, stride, d2, g, Ewald row)
+// ranks are known in advance, so the rows (the body's and the Ewald row)
 // of the next step's valid slots are copied into shared memory with
 // cp.async, double buffered: two buffers of KM row sets.
 //
 // KMT is the slot count as a compile-time constant: 2 for one flip vector
 // of two recolorings plus the swap row (the spinel), 0 for a runtime count
-// up to 8, as KT is for the clusters' slot count K.
+// up to 8, as KT is for the clusters' slot count K of the direct body.
 //
 // The occupancy ([R, W] int8 codes, rank-major), enthalpy and accept counts
 // are updated in place.  The C entry point returns cudaGetLastError() after
@@ -57,10 +60,10 @@ using namespace smol;
 
 constexpr int kMaxTableSlots = 8;
 
-// KT: the clusters' slot count K as a compile-time constant (0: runtime K);
+// Body: Direct<KT>, Qary<Q, NBT> or Ising<NW>, as in flip_chain.cu;
 // KMT: the table move's slot count (0: runtime, at most kMaxTableSlots);
 // EW: the tables carry the Ewald fold (ew_v [R, R], ew_c [R]).
-template <int KT, int KMT, bool EW>
+template <class Body, int KMT, bool EW>
 __global__ void __launch_bounds__(kMaxThreads)
 table_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
                    int32_t* __restrict__ naccept,
@@ -75,16 +78,28 @@ table_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
                    const double* __restrict__ mu,
                    const int32_t* __restrict__ move_rows,
                    const double* __restrict__ ew_v,
-                   const double* __restrict__ ew_c, int R, int L, int K_rt,
-                   int TM, int C, int W, int block_size, int n_steps,
-                   int rng_mode, int km_rt, int n_rows) {
-  const int K = KT > 0 ? KT : K_rt;
+                   const double* __restrict__ ew_c,
+                   const int32_t* __restrict__ qnbr,
+                   const int32_t* __restrict__ qfreq,
+                   const int32_t* __restrict__ qms,
+                   const double* __restrict__ qac,
+                   const double* __restrict__ qas,
+                   const int32_t* __restrict__ qrows,
+                   const uint64_t* __restrict__ imask,
+                   const double* __restrict__ iamp,
+                   const int32_t* __restrict__ irows, int R, int L, int K,
+                   int TM, int C, int Lq, int NB, int Li, int NW, int W,
+                   int block_size, int n_steps, int rng_mode, int km_rt,
+                   int n_rows) {
+  // the tables with their compile-time counts, as swap_chain.cu takes them
+  Tables t{nbr, stride, d2, g, ew_v, qnbr, qfreq, qms, qac, qas, qrows,
+           L, K, TM, EW ? R : 0, Lq, NB, imask, iamp, irows, Li, NW};
+  Body::pin(t);
   const int KM = KMT > 0 ? KMT : km_rt;
   constexpr int kSlots = KMT > 0 ? KMT : kMaxTableSlots;
-  const int RE = EW ? R : 0;
   extern __shared__ __align__(16) unsigned char smem[];
   // two buffers (this step, next step) of KM row sets, then the codes
-  const size_t rb = rows_bytes(L, K, TM, RE);
+  const size_t rb = Body::bytes(t);
   int8_t* s_occ = reinterpret_cast<int8_t*>(smem + 2 * KM * rb);
 
   // the move table [3, n_rows, KM]: from-code, to-code, slot valid
@@ -101,6 +116,8 @@ table_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
   for (int r = 0; r < R; ++r) {
     s_occ[r * nt + tid] = occ[(size_t)r * W + wc];
   }
+  typename Body::Walker wk;  // the Ising body's rank bits; nothing otherwise
+  wk.load(s_occ, R, nt, tid);
   double e = enthalpy[wc];
   const float b32 = beta[wc];
   int nacc = 0;
@@ -117,9 +134,7 @@ table_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
 #pragma unroll
     for (int j = 0; j < KM; ++j) {
       if (__ldg(slot_valid + d * KM + j) > 0) {
-        copy_rows(rows_at(buf + j * rb, L, K, TM, RE),
-                  __ldg(my_ranks + (size_t)i * KM + j), nbr, stride, d2, g,
-                  ew_v, L, K, TM, RE, tid, nt);
+        Body::copy(buf + j * rb, __ldg(my_ranks + (size_t)i * KM + j), t, tid, nt);
       }
     }
   };
@@ -151,6 +166,7 @@ table_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
 
     if (valid) {
       double dE = 0.0;
+      typename Body::Walker wv = wk;  // the walker as the earlier slots left it
 #pragma unroll
       for (int j = 0; j < KM; ++j) {
         if (__ldg(sv + j) > 0) {
@@ -158,22 +174,24 @@ table_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
           const int to = __ldg(tc + j);
           const int a = a0[j];
           const int b = to >= 0 ? to : a0[j ^ 1];  // -2: the partner's code
-          const Rows rows = rows_at(buf + j * rb, L, K, TM, RE);
+          const typename Body::Rows rows = Body::at(buf + j * rb, t);
           // the Ewald term is taken first and added after the cluster terms:
           // the same sum in the same order, but with the dot issued first a
           // window ran a fifth faster on an H100 (swap_chain.cu does the same)
           double ewald = 0.0;
           if (EW) ewald = ewald_term(rows.ew, __ldg(ew_c + r), s_occ, nt, tid, R, b - a);
-          dE = ce_add<KT>(dE, rows, s_occ, nt, tid, L, K, TM, a, b);
+          dE = Body::add(dE, rows, t, r, s_occ, nt, tid, a, b, wv);
           if (EW) dE += ewald;
           const double work = __ldg(mu + r * C + b) - __ldg(mu + r * C + a);
           dE -= work;
           s_occ[r * nt + tid] = (int8_t)b;  // the next slot sees this one applied
+          wv.set(r, b);
         }
       }
       if (metropolis(b32, dE, draws.at(i, rng_mode).x)) {
         e += dE;
         ++nacc;
+        wk = wv;
       } else {
 #pragma unroll
         for (int j = 0; j < KM; ++j) {
@@ -194,9 +212,31 @@ table_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
   }
 }
 
-template <int KT, int KMT>
-auto pick_ewald(bool ew) {
-  return ew ? table_chain_kernel<KT, KMT, true> : table_chain_kernel<KT, KMT, false>;
+using Kernel = decltype(&table_chain_kernel<Direct<3>, 2, false>);
+
+// The site body of a launch for a slot count KMT, as flip_chain.cu picks it.
+template <int KMT>
+Kernel pick_body(int q, int nw, bool ew, int K, int NB) {
+  switch (nw) {
+    case 0: break;
+    case 1: return ew ? table_chain_kernel<Ising<1>, KMT, true> : table_chain_kernel<Ising<1>, KMT, false>;
+    case 2: return ew ? table_chain_kernel<Ising<2>, KMT, true> : table_chain_kernel<Ising<2>, KMT, false>;
+    case 3: return ew ? table_chain_kernel<Ising<3>, KMT, true> : table_chain_kernel<Ising<3>, KMT, false>;
+    case 4: return ew ? table_chain_kernel<Ising<4>, KMT, true> : table_chain_kernel<Ising<4>, KMT, false>;
+    default: return nullptr;
+  }
+  if (q == 0) {
+    return ew ? (K == 3 ? table_chain_kernel<Direct<3>, KMT, true> : table_chain_kernel<Direct<0>, KMT, true>)
+              : (K == 3 ? table_chain_kernel<Direct<3>, KMT, false> : table_chain_kernel<Direct<0>, KMT, false>);
+  }
+  if (q == 2) {  // an Ewald term needs binary sites: q = 2 only
+    return ew ? (NB == 2 ? table_chain_kernel<Qary<2, 2>, KMT, true> : table_chain_kernel<Qary<2, 0>, KMT, true>)
+              : (NB == 2 ? table_chain_kernel<Qary<2, 2>, KMT, false> : table_chain_kernel<Qary<2, 0>, KMT, false>);
+  }
+  if (ew) return nullptr;
+  if (q == 3) return NB == 2 ? table_chain_kernel<Qary<3, 2>, KMT, false> : table_chain_kernel<Qary<3, 0>, KMT, false>;
+  if (q == 4) return NB == 2 ? table_chain_kernel<Qary<4, 2>, KMT, false> : table_chain_kernel<Qary<4, 0>, KMT, false>;
+  return nullptr;
 }
 
 }  // namespace
@@ -208,28 +248,41 @@ extern "C" int smol_table_chain(void* occ, void* enthalpy, void* naccept,
                                 const void* nbr, const void* stride,
                                 const void* d2, const void* g, const void* mu,
                                 const void* move_rows, const void* ew_v,
-                                const void* ew_c, int R, int L, int K, int TM,
-                                int C, int W, int block_size, int n_steps,
-                                int rng_mode, int k_max, int n_rows,
-                                void* stream) {
+                                const void* ew_c, const void* qnbr,
+                                const void* qfreq, const void* qms,
+                                const void* qac, const void* qas,
+                                const void* qrows, const void* imask,
+                                const void* iamp, const void* irows, int R,
+                                int L, int K, int TM, int C, int W,
+                                int block_size, int n_steps, int rng_mode,
+                                int k_max, int n_rows, int q, int Lq, int NB,
+                                int Li, int NW, void* stream) {
   if (k_max < 2 || k_max > kMaxTableSlots) return (int)cudaErrorInvalidValue;
   const int threads = block_threads(W, block_size);
   const bool ew = ew_v != nullptr;
-  const size_t smem =
-      2 * (size_t)k_max * rows_bytes(L, K, TM, ew ? R : 0) + (size_t)R * threads;
-  auto kernel = k_max == 2
-                    ? (K == 3 ? pick_ewald<3, 2>(ew) : pick_ewald<0, 2>(ew))
-                    : (K == 3 ? pick_ewald<3, 0>(ew) : pick_ewald<0, 0>(ew));
+  const Tables t{(const int32_t*)nbr, (const int32_t*)stride, (const int32_t*)d2,
+                 (const double*)g, (const double*)ew_v, (const int32_t*)qnbr,
+                 (const int32_t*)qfreq, (const int32_t*)qms, (const double*)qac,
+                 (const double*)qas, (const int32_t*)qrows, L, K, TM, ew ? R : 0, Lq,
+                 NB, (const uint64_t*)imask, (const double*)iamp,
+                 (const int32_t*)irows, Li, NW};
+  const Kernel kernel = k_max == 2 ? pick_body<2>(q, NW, ew, K, NB)
+                                   : pick_body<0>(q, NW, ew, K, NB);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t rb = NW > 0   ? Ising<1>::bytes(t)
+                    : q == 0 ? Direct<0>::bytes(t)
+                             : Qary<2, 0>::bytes(t);
+  const size_t smem = 2 * (size_t)k_max * rb + (size_t)R * threads;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (W + threads - 1) / threads;
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (int8_t*)occ, (double*)enthalpy, (int32_t*)naccept, (const float*)beta,
       (const int32_t*)dirs, (const int32_t*)ranks, dir_stride, rank_stride,
-      (const int64_t*)seed, (const int32_t*)nbr, (const int32_t*)stride,
-      (const int32_t*)d2, (const double*)g, (const double*)mu,
-      (const int32_t*)move_rows, (const double*)ew_v, (const double*)ew_c, R,
-      L, K, TM, C, W, block_size, n_steps, rng_mode, k_max, n_rows);
+      (const int64_t*)seed, t.nbr, t.stride, t.d2, t.g, (const double*)mu,
+      (const int32_t*)move_rows, t.ew_v, (const double*)ew_c, t.qnbr, t.qfreq,
+      t.qms, t.qac, t.qas, t.qrows, t.imask, t.iamp, t.irows, R, L, K, TM, C,
+      Lq, NB, Li, NW, W, block_size, n_steps, rng_mode, k_max, n_rows);
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,11 @@
 // buffers, Philox or the reference's hash, and the deltas of flip_chain.cu
 // and swap_chain.cu (flip_delta and swap_delta of chain_common.cuh: cluster
 // terms, Ewald term, chemical work of a flip), summed in f64 in the same
-// order as the plain torch twin in ops/chain.py.
+// order as the plain torch twin in ops/chain.py.  The site body is a
+// template parameter, as in those kernels: the direct lookup, K3's q-ary
+// character rows or K1-Ising's parity rows, whose walker's rank bits are
+// updated after every accepted flip or swap; the reference takes the body
+// of the system in its Wang-Landau branches too (:1827, :1850).
 //
 // Per step: E' = E + dE, w' = E' - min_enthalpy, b' = clip(floor(w' /
 // bin_size), 0, B - 1).  The proposal is rejected if w' lies outside
@@ -79,9 +83,9 @@ __device__ __forceinline__ int wl_bin(double w, double bin_size, int B) {
   return q < 0.0 ? 0 : (q > (double)(B - 1) ? B - 1 : (int)q);
 }
 
-// MOVE: kFlip or kSwap; KT: the slot count K as a compile-time constant
-// (0: runtime K); EW: the tables carry the Ewald fold.
-template <int MOVE, int KT, bool EW>
+// MOVE: kFlip or kSwap; Body: Direct<KT>, Qary<Q, NBT> or Ising<NW>, as in
+// flip_chain.cu; EW: the tables carry the Ewald fold.
+template <int MOVE, class Body, bool EW>
 __global__ void __launch_bounds__(kMaxThreads)
 wl_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
                 int32_t* __restrict__ naccept, double* __restrict__ entropy,
@@ -98,25 +102,26 @@ wl_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
                 const double* __restrict__ mu,
                 const int32_t* __restrict__ ncode,
                 const double* __restrict__ ew_v,
-                const double* __restrict__ ew_c, int R, int L, int K_rt,
-                int TM, int C, int W, int block_size, int n_steps,
-                int rng_mode, WLParams p) {
-  const int K = KT > 0 ? KT : K_rt;
-  const int RE = EW ? R : 0;
+                const double* __restrict__ ew_c,
+                const int32_t* __restrict__ qnbr,
+                const int32_t* __restrict__ qfreq,
+                const int32_t* __restrict__ qms,
+                const double* __restrict__ qac,
+                const double* __restrict__ qas,
+                const int32_t* __restrict__ qrows,
+                const uint64_t* __restrict__ imask,
+                const double* __restrict__ iamp,
+                const int32_t* __restrict__ irows, int R, int L, int K,
+                int TM, int C, int Lq, int NB, int Li, int NW, int W,
+                int block_size, int n_steps, int rng_mode, WLParams p) {
+  // the tables with their compile-time counts, as swap_chain.cu takes them
+  Tables t{nbr, stride, d2, g, ew_v, qnbr, qfreq, qms, qac, qas, qrows,
+           L, K, TM, EW ? R : 0, Lq, NB, imask, iamp, irows, Li, NW};
+  Body::pin(t);
   constexpr int NR = MOVE == kSwap ? 2 : 1;  // row sets of one step
   extern __shared__ __align__(16) unsigned char smem[];
-  const size_t rb = rows_bytes(L, K, TM, RE);
+  const size_t rb = Body::bytes(t);
   int8_t* s_occ = reinterpret_cast<int8_t*>(smem + 2 * NR * rb);
-  Tables t{};  // the direct body's operands (flip_delta, swap_delta)
-  t.nbr = nbr;
-  t.stride = stride;
-  t.d2 = d2;
-  t.g = g;
-  t.ew_v = ew_v;
-  t.L = L;
-  t.K = K;
-  t.TM = TM;
-  t.RE = RE;
 
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -127,6 +132,8 @@ wl_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
   for (int r = 0; r < R; ++r) {
     s_occ[r * nt + tid] = occ[(size_t)r * W + wc];
   }
+  typename Body::Walker wk;  // the Ising body's rank bits; nothing otherwise
+  wk.load(s_occ, R, nt, tid);
   double e = enthalpy[wc];
   double modf = mod_factor[wc];
   int cnt = wl_counter[wc];
@@ -149,12 +156,8 @@ wl_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
 
   auto prefetch = [&](int i) {  // step i's rows into slot i & 1
     unsigned char* slot = smem + (i & 1) * NR * rb;
-    copy_rows(rows_at(slot, L, K, TM, RE), __ldg(my_useq + i), nbr, stride,
-              d2, g, ew_v, L, K, TM, RE, tid, nt);
-    if (MOVE == kSwap) {
-      copy_rows(rows_at(slot + rb, L, K, TM, RE), __ldg(my_vseq + i), nbr,
-                stride, d2, g, ew_v, L, K, TM, RE, tid, nt);
-    }
+    Body::copy(slot, __ldg(my_useq + i), t, tid, nt);
+    if (MOVE == kSwap) Body::copy(slot + rb, __ldg(my_vseq + i), t, tid, nt);
   };
   if (n_steps > 0) prefetch(0);
   __pipeline_wait_prior(0);
@@ -162,7 +165,7 @@ wl_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
 
   for (int i = 0; i < n_steps; ++i) {
     unsigned char* slot = smem + (i & 1) * NR * rb;
-    const Rows ru = rows_at(slot, L, K, TM, RE);
+    const typename Body::Rows ru = Body::at(slot, t);
     if (i + 1 < n_steps) prefetch(i + 1);
 
     // a thread beyond the last walker only copies rows and meets the barrier
@@ -173,22 +176,23 @@ wl_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
       const uint2 bits = draws.at(i, rng_mode);  // (r_u, r_j)
       int b;
       int8_t* cv = cu;
+      int v = u;
       bool is_move = true;
       double dE;
       if (MOVE == kSwap) {
-        const Rows rv = rows_at(slot + rb, L, K, TM, RE);
-        const int v = __ldg(my_vseq + i);
+        const typename Body::Rows rv = Body::at(slot + rb, t);
+        v = __ldg(my_vseq + i);
         cv = s_occ + v * nt + tid;
         b = *cv;
         is_move = a != b;
-        dE = swap_delta<Direct<KT>, EW>(ru, rv, t, u, v, cu, a, b, s_occ, nt, tid,
-                                        R, ew_c);
+        dE = swap_delta<Body, EW>(ru, rv, t, u, v, cu, a, b, s_occ, nt, tid, R,
+                                  ew_c, wk);
       } else {
         const int nc = max(__ldg(ncode + u) - 1, 1);
         const int j = (int)(bits.y % (uint32_t)nc);
         b = j + (j >= a ? 1 : 0);
-        dE = flip_delta<Direct<KT>, EW>(ru, t, u, a, b, s_occ, nt, tid, R, C, mu,
-                                        ew_c);
+        dE = flip_delta<Body, EW>(ru, t, u, a, b, s_occ, nt, tid, R, C, mu, ew_c,
+                                  wk);
       }
 
       // the Wang-Landau rule on the proposed bin
@@ -204,9 +208,11 @@ wl_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
       if (in_win && is_move && accept_exponent((float)(s_cur - s_new), bits.x)) {
         if (MOVE == kSwap) {
           *cv = (int8_t)a;
+          wk.set(v, a);
         } else {
           *cu = (int8_t)b;
         }
+        wk.set(u, b);
         e = e_new;
         w_cur = w_new;
         at = at_new;
@@ -271,10 +277,31 @@ wl_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
   }
 }
 
+using Kernel = decltype(&wl_chain_kernel<kFlip, Direct<3>, false>);
+
+// The instantiation of a launch, as flip_chain.cu picks it, for each move.
 template <int MOVE>
-auto pick_kernel(bool ew, int K) {
-  return ew ? (K == 3 ? wl_chain_kernel<MOVE, 3, true> : wl_chain_kernel<MOVE, 0, true>)
-            : (K == 3 ? wl_chain_kernel<MOVE, 3, false> : wl_chain_kernel<MOVE, 0, false>);
+Kernel pick_kernel(int q, int nw, bool ew, int K, int NB) {
+  switch (nw) {
+    case 0: break;
+    case 1: return ew ? wl_chain_kernel<MOVE, Ising<1>, true> : wl_chain_kernel<MOVE, Ising<1>, false>;
+    case 2: return ew ? wl_chain_kernel<MOVE, Ising<2>, true> : wl_chain_kernel<MOVE, Ising<2>, false>;
+    case 3: return ew ? wl_chain_kernel<MOVE, Ising<3>, true> : wl_chain_kernel<MOVE, Ising<3>, false>;
+    case 4: return ew ? wl_chain_kernel<MOVE, Ising<4>, true> : wl_chain_kernel<MOVE, Ising<4>, false>;
+    default: return nullptr;
+  }
+  if (q == 0) {
+    return ew ? (K == 3 ? wl_chain_kernel<MOVE, Direct<3>, true> : wl_chain_kernel<MOVE, Direct<0>, true>)
+              : (K == 3 ? wl_chain_kernel<MOVE, Direct<3>, false> : wl_chain_kernel<MOVE, Direct<0>, false>);
+  }
+  if (q == 2) {  // an Ewald term needs binary sites: q = 2 only
+    return ew ? (NB == 2 ? wl_chain_kernel<MOVE, Qary<2, 2>, true> : wl_chain_kernel<MOVE, Qary<2, 0>, true>)
+              : (NB == 2 ? wl_chain_kernel<MOVE, Qary<2, 2>, false> : wl_chain_kernel<MOVE, Qary<2, 0>, false>);
+  }
+  if (ew) return nullptr;
+  if (q == 3) return NB == 2 ? wl_chain_kernel<MOVE, Qary<3, 2>, false> : wl_chain_kernel<MOVE, Qary<3, 0>, false>;
+  if (q == 4) return NB == 2 ? wl_chain_kernel<MOVE, Qary<4, 2>, false> : wl_chain_kernel<MOVE, Qary<4, 0>, false>;
+  return nullptr;
 }
 
 }  // namespace
@@ -286,19 +313,34 @@ extern "C" int smol_wl_chain(void* occ, void* enthalpy, void* naccept,
                              int seq_stride, const void* seed, const void* nbr,
                              const void* stride, const void* d2, const void* g,
                              const void* mu, const void* ncode,
-                             const void* ew_v, const void* ew_c, int R, int L,
+                             const void* ew_v, const void* ew_c,
+                             const void* qnbr, const void* qfreq,
+                             const void* qms, const void* qac, const void* qas,
+                             const void* qrows, const void* imask,
+                             const void* iamp, const void* irows, int R, int L,
                              int K, int TM, int C, int W, int block_size,
                              int n_steps, int rng_mode, int move,
                              int num_levels, int check_period,
-                             int update_period, double min_enthalpy,
-                             double bin_size, double span, double mod_divisor,
-                             float flatness, void* stream) {
+                             int update_period, int q, int Lq, int NB, int Li,
+                             int NW, double min_enthalpy, double bin_size,
+                             double span, double mod_divisor, float flatness,
+                             void* stream) {
   if (move != kFlip && move != kSwap) return (int)cudaErrorInvalidValue;
   const int threads = block_threads(W, block_size);
   const bool ew = ew_v != nullptr;
-  const int row_sets = move == kSwap ? 4 : 2;
-  const size_t smem = row_sets * rows_bytes(L, K, TM, ew ? R : 0) + (size_t)R * threads;
-  auto kernel = move == kSwap ? pick_kernel<kSwap>(ew, K) : pick_kernel<kFlip>(ew, K);
+  const Tables t{(const int32_t*)nbr, (const int32_t*)stride, (const int32_t*)d2,
+                 (const double*)g, (const double*)ew_v, (const int32_t*)qnbr,
+                 (const int32_t*)qfreq, (const int32_t*)qms, (const double*)qac,
+                 (const double*)qas, (const int32_t*)qrows, L, K, TM, ew ? R : 0, Lq,
+                 NB, (const uint64_t*)imask, (const double*)iamp,
+                 (const int32_t*)irows, Li, NW};
+  const Kernel kernel = move == kSwap ? pick_kernel<kSwap>(q, NW, ew, K, NB)
+                                      : pick_kernel<kFlip>(q, NW, ew, K, NB);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t rb = NW > 0   ? Ising<1>::bytes(t)
+                    : q == 0 ? Direct<0>::bytes(t)
+                             : Qary<2, 0>::bytes(t);
+  const size_t smem = (move == kSwap ? 4 : 2) * rb + (size_t)R * threads;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   WLParams p;
@@ -315,10 +357,10 @@ extern "C" int smol_wl_chain(void* occ, void* enthalpy, void* naccept,
       (int8_t*)occ, (double*)enthalpy, (int32_t*)naccept, (double*)entropy,
       (int32_t*)hist, (int32_t*)occr, (double*)mod_factor,
       (int32_t*)wl_counter, (const int32_t*)useq, (const int32_t*)vseq,
-      seq_stride, (const int64_t*)seed, (const int32_t*)nbr,
-      (const int32_t*)stride, (const int32_t*)d2, (const double*)g,
-      (const double*)mu, (const int32_t*)ncode, (const double*)ew_v, (const double*)ew_c, R, L, K,
-      TM, C, W, block_size, n_steps, rng_mode, p);
+      seq_stride, (const int64_t*)seed, t.nbr, t.stride, t.d2, t.g,
+      (const double*)mu, (const int32_t*)ncode, t.ew_v, (const double*)ew_c,
+      t.qnbr, t.qfreq, t.qms, t.qac, t.qas, t.qrows, t.imask, t.iamp, t.irows,
+      R, L, K, TM, C, Lq, NB, Li, NW, W, block_size, n_steps, rng_mode, p);
   return (int)cudaGetLastError();
 }
 

@@ -102,14 +102,14 @@ class ChainKernel(MCKernel):
         proposal_mode: ``"random"`` or ``"sweep"`` (flips only).
         rng: ``"philox"`` (run mode) or ``"hash"`` (the reference's
             interpret-mode random numbers, for parity checks).
-        chain_delta: the flip and swap chains' site body, ``"direct"``,
-            ``"qary"`` (K3's Z_q character rows) or ``"ising"`` (K1-Ising's
-            parity rows), each for systems whose tables take it (see
-            :func:`~smol_tpu_torch.ops.chain.build_chain_tables`); None
-            (the default) takes the body
+        chain_delta: the chain's site body, ``"direct"``, ``"qary"``
+            (K3's Z_q character rows) or ``"ising"`` (K1-Ising's parity
+            rows), each for systems whose tables take it (see
+            :func:`~smol_tpu_torch.ops.chain.build_chain_tables`), in every
+            chain (flips, swaps, table moves, Wang-Landau); None (the
+            default) takes the body
             :func:`~smol_tpu_torch.ops.chain.default_delta` names for the
-            system and the chain.  Table moves and Wang-Landau take the
-            direct body only.
+            system and the chain.
         usher_kwargs: go to the usher of ``step_type``.
 
     What the reference sends to its per-step path (a bias, independent
@@ -142,10 +142,6 @@ class ChainKernel(MCKernel):
         self.rng = rng
         super().__init__(ensemble, step_type, seed=seed, **usher_kwargs)
         self._chain_tables = None
-        if chain_delta not in (None, "direct") and self.move == "table":
-            raise NotImplementedError(
-                f"the {chain_delta} body of table moves is not ported yet "
-                "(ROADMAP.md Queue 2)")
 
     @property
     def move(self) -> str:
@@ -175,7 +171,7 @@ class ChainKernel(MCKernel):
                 ),
                 sublattice_probabilities=usher.sublattice_probabilities,
                 delta=self.chain_delta or chain.default_delta(
-                    ens.processor, ens.sublattices, self.chain_name),
+                    ens.processor, ens.sublattices),
             )
         return self._chain_tables
 

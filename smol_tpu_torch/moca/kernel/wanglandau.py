@@ -43,7 +43,7 @@ class WangLandau(ChainKernel):
         mod_update: what a flat histogram divides the increment by
             (default 2).
         seed, shared_proposals, chain_block_size, proposal_mode, rng,
-        sublattice_probabilities: see
+        chain_delta, sublattice_probabilities: see
             :class:`~smol_tpu_torch.moca.kernel.base.ChainKernel`.
     """
 
@@ -84,10 +84,6 @@ class WangLandau(ChainKernel):
                 "per-step path, which is not ported yet (ROADMAP.md Queue 1 "
                 "item 6); the chain takes flips and swaps"
             )
-        if self.chain_delta not in (None, "direct"):
-            raise NotImplementedError(
-                f"the {self.chain_delta} body of the Wang-Landau chain is not "
-                "ported yet (ROADMAP.md Queue 2)")
 
     @property
     def bin_size(self):

@@ -145,7 +145,7 @@ class Sampler:
         kernel), ``"cpu-twin[...]"`` on the CPU (the plain
         torch chain), then ``ewald`` when the delta carries the Ewald term,
         the energy delta (``direct``: one table lookup per local cluster;
-        ``qary2`` or ``qary3``: the Z_q character rows of K3; ``ising``:
+        ``qary2``, ``qary3`` or ``qary4``: the Z_q character rows of K3; ``ising``:
         the parity rows of K1-Ising), the proposal schedule and, with
         replica exchange, ``replica-exchange@<period>``.
         """

@@ -41,14 +41,16 @@ KERNELS = {
     # L K TM W block_size n_steps rng_mode q Lq NB Li NW | stream
     "swap_chain": [_ptr] * 7 + [_i32] + [_ptr] * 16 + [_i32] * 13 + [_ptr],
     # occ enthalpy naccept beta dirs ranks | dir_stride rank_stride | seed nbr
-    # stride d2 g mu move_rows ew_v ew_c | R L K TM C W block_size n_steps
-    # rng_mode k_max n_rows | stream
-    "table_chain": [_ptr] * 6 + [_i32] * 2 + [_ptr] * 9 + [_i32] * 11 + [_ptr],
+    # stride d2 g mu move_rows ew_v ew_c qnbr qfreq qms qac qas qrows imask
+    # iamp irows | R L K TM C W block_size n_steps rng_mode k_max n_rows q Lq
+    # NB Li NW | stream
+    "table_chain": [_ptr] * 6 + [_i32] * 2 + [_ptr] * 18 + [_i32] * 16 + [_ptr],
     # occ enthalpy naccept entropy histogram occurrences mod_factor wl_counter
-    # useq vseq | seq_stride | seed nbr stride d2 g mu ncode ew_v ew_c | R L K
-    # TM C W block_size n_steps rng_mode move num_levels check_period
-    # update_period | min_enthalpy bin_size span mod_divisor | flatness | stream
-    "wl_chain": [_ptr] * 10 + [_i32] + [_ptr] * 9 + [_i32] * 13 + [_f64] * 4
+    # useq vseq | seq_stride | seed nbr stride d2 g mu ncode ew_v ew_c qnbr
+    # qfreq qms qac qas qrows imask iamp irows | R L K TM C W block_size
+    # n_steps rng_mode move num_levels check_period update_period q Lq NB Li
+    # NW | min_enthalpy bin_size span mod_divisor | flatness | stream
+    "wl_chain": [_ptr] * 10 + [_i32] + [_ptr] * 18 + [_i32] * 18 + [_f64] * 4
                 + [_f32] + [_ptr],
     # occ best_occ feat d best_d naccept beta useq vseq | seq_stride | seed nbr
     # stride d2 g seg target weight group_last group_diameter | R L K TM F W

@@ -49,8 +49,9 @@ L segments, dense membership matrices for the MXU) is kept.  With an Ewald term 
 the reference's fold in f64 (no hi/lo split): the Ewald change of rank u
 going from code a to b is (b - a) * (C_u + V_u . occ).
 
-The flip and swap chains have three bodies for the cluster-expansion
-delta of a site.  ``direct`` looks up each local cluster's
+Every chain (flips, swaps, table moves, Wang-Landau) takes one of three
+bodies for the cluster-expansion delta of a site, as the reference's one
+kernel serves all its moves with the body it picks (:1635-1649).  ``direct`` looks up each local cluster's
 coefficient-folded tensor: g[l, t_new] - g[l, t_old].  ``ising`` (the
 samplers' default where the system's tables take it: :func:`default_delta`)
 is K1-Ising, the reference's parity delta (``make_site_delta_ising`` :374,
@@ -68,7 +69,7 @@ recoloring the self site a -> b moves each character's phase
 u + m_self a to u + m_self b, where u = sum_j f_j code(nbr_j) is the
 neighbour phase; its rows (:func:`qary_tables`) are stored sparse, the
 neighbour ranks and their scaled frequencies, not as the reference's dense
-frequency matrix for the MXU.
+frequency matrix for the MXU.  Each body carries the Ewald fold beside it.
 """
 
 from __future__ import annotations
@@ -110,6 +111,7 @@ __all__ = [
     "table_sequences",
     "table_step_reference",
     "table_chain_reference",
+    "body_rows",
     "table_chain",
     "WLChain",
     "wl_step_reference",
@@ -127,7 +129,7 @@ RNG_MODES = {"philox": 0, "hash": 1}
 MOVES = ("flip", "swap", "table")
 MAX_TABLE_SLOTS = 8  # most site recolorings of one table move
 MAX_SHARED_BYTES = 232448  # shared memory one block can use on sm_90 (227 KB)
-DELTAS = ("direct", "qary", "ising")  # the flip and swap chains' site bodies
+DELTAS = ("direct", "qary", "ising")  # the chains' site bodies
 ISING_MAX_WORDS = 4  # 64-bit words of rank bits the Ising body holds (256 ranks)
 ISING_TOLERANCE = 1e-11  # the reference's relative check of the sign pattern
 QARY_MAX_ROWS = 2048  # the reference's limit on character rows per rank
@@ -135,9 +137,10 @@ QARY_MAX_ROWS = 2048  # the reference's limit on character rows per rank
 # (:453): every difference of cos(2 pi w / q) is fold_c times an integer in
 # {0, +-1, +-2}, likewise for sin, and the folded selectors below (its
 # _phase_sel :476, cos and sin over the fold, for w = 0 .. q - 1) take
-# those integers.  q = 4 is refused until a test covers it.
-QARY_FOLD = {2: (1.0, 0.0), 3: (1.5, np.sqrt(3.0) / 2.0)}
-QARY_SIGMA = {2: ((1, -1), (0, 0)), 3: ((1, 0, 0), (0, 1, -1))}
+# those integers.
+QARY_FOLD = {2: (1.0, 0.0), 3: (1.5, np.sqrt(3.0) / 2.0), 4: (1.0, 1.0)}
+QARY_SIGMA = {2: ((1, -1), (0, 0)), 3: ((1, 0, 0), (0, 1, -1)),
+              4: ((1, 0, -1, 0), (0, 1, 0, -1))}
 
 
 class QaryRefused(NotImplementedError):
@@ -222,25 +225,22 @@ def qary_tables(rank_sites, rank_of_site, sites3, strides3, g3, n_codes, tmax,
     single-code site holds code 0 and drops out); the tensor over the
     members' code grid; its characters (:func:`_characters`), each
     member's frequency scaled by q / (its code count), q the lcm of the
-    ranks' code counts.  Characters of the same (neighbour frequencies,
+    ranks' code counts (so mixed binary and quaternary sites ride one
+    q = 4 body, as the reference's do).  Characters of the same (neighbour frequencies,
     self frequency) merge across the rank's clusters, their amplitudes
     summed in insertion order, and the fold is applied after the merge.
     Raises :class:`QaryRefused` where the reference returns None: q not
     in {2, 3, 4}, a tensor index at or beyond ``tmax``, a row without a
     self slot, a reconstruction error above 1e-11 of the scale, more than
-    ``max_rows`` rows on a rank, or no row at all; and for q = 4, which
-    the port does not take yet (ROADMAP.md Queue 2).
+    ``max_rows`` rows on a rank, or no row at all.
     """
     R, (_, L0, K) = len(rank_sites), sites3.shape
     valid_cluster = strides3.sum(axis=2) > 0
     q = 1
     for site in rank_sites:
         q = lcm(q, int(n_codes[site]))
-    if q not in (2, 3, 4):
-        raise QaryRefused(f"the active code counts have lcm {q}, not 2, 3 or 4")
     if q not in QARY_FOLD:
-        raise QaryRefused("the q = 4 character body is not ported yet (ROADMAP.md "
-                          "Queue 2)")
+        raise QaryRefused(f"the active code counts have lcm {q}, not 2, 3 or 4")
     fold_c, fold_s = QARY_FOLD[q]
     cache = {}  # (code counts, strides, energy table) -> characters
     rows = [{} for _ in range(R)]  # (neighbours, ms) -> [neighbours, A_c, A_s]
@@ -503,21 +503,17 @@ def _rank_layout(ce, ewald, sublattices):
     return active, rank_sites, rank_of_site, n_codes
 
 
-def default_delta(processor, sublattices, chain="flip") -> str:
-    """The site body the samplers take without a ``chain_delta``.
+def default_delta(processor, sublattices) -> str:
+    """The site body the samplers take without a ``chain_delta``, in every
+    chain (flips, swaps, table moves, Wang-Landau).
 
-    ``chain`` is the kernel's chain: ``"flip"`` or ``"swap"`` take
     ``"ising"`` (K1-Ising) where the system's tables factor
     (:func:`ising_tables`) within ``ISING_MAX_WORDS`` words of rank bits,
     and ``"direct"`` elsewhere, as the reference's ``build_chain_tables``
-    picks its body by the system (:974-1029); table moves and the
-    Wang-Landau chains (``"table"``, ``"wl-flip"``, ``"wl-swap"``) take
-    the direct body, the only one ported there.  K1-Ising beat the direct
-    body on every cell where its tables exist, and K3 lost on its own
-    (PERF.md, each timed on the card), so K3 is never the default.
+    picks its body by the system (:974-1029).  K1-Ising beat the direct
+    body on every cell of every chain, and K3 lost to it on its own cells,
+    each timed on the card in turns (PERF.md), so K3 is never the default.
     """
-    if chain not in ("flip", "swap"):
-        return "direct"
     ce, ewald = _split_processor(processor)
     _, rank_sites, rank_of_site, n_codes = _rank_layout(ce, ewald, sublattices)
     it = ising_tables(rank_sites, rank_of_site, ce.local_sites, ce.local_strides,
@@ -537,14 +533,14 @@ def build_chain_tables(processor, sublattices, mu_table=None,
     single-code (code 0) site, and, with an Ewald term, binary active
     sites.  Raises ``NotImplementedError`` otherwise.
 
-    ``delta`` picks the flip and swap chains' site body: ``"direct"``,
-    ``"qary"``, K3's character rows (:func:`qary_tables`), which raises
-    where those refuse the system, and with an Ewald term (not ported
-    with that body yet, ROADMAP.md Queue 2), or ``"ising"``, K1-Ising's
-    parity rows (:func:`ising_tables`), which raises where the system does
-    not factor (a rank that is not binary, a basis that is not
-    sign-symmetric) and above ``ISING_MAX_WORDS`` * 64 ranks.  Nothing
-    falls back; :func:`default_delta` names the body the samplers take.
+    ``delta`` picks every chain's site body: ``"direct"``, ``"qary"``,
+    K3's character rows (:func:`qary_tables`), which raises where those
+    refuse the system, or ``"ising"``, K1-Ising's parity rows
+    (:func:`ising_tables`), which raises where the system does not factor
+    (a rank that is not binary, a basis that is not sign-symmetric) and
+    above ``ISING_MAX_WORDS`` * 64 ranks.  Each carries the Ewald fold.
+    Nothing falls back; :func:`default_delta` names the body the samplers
+    take.
     """
     if delta not in DELTAS:
         raise ValueError(f"unknown chain delta {delta!r}: one of {DELTAS}")
@@ -594,10 +590,6 @@ def build_chain_tables(processor, sublattices, mu_table=None,
         ew_v, ew_c = dev(V, torch.float64), dev(C, torch.float64)
     body = {}  # the fields of the q-ary or the Ising body
     if delta == "qary":
-        if ewald is not None:
-            raise NotImplementedError(
-                "the q-ary body with an Ewald term is not ported yet "
-                "(ROADMAP.md Queue 2)")
         qt = qary_tables(rank_sites, rank_of_site, sites3, strides3, g3, n_codes,
                          g3.shape[2])
         body = {"qary": qt.q, "qnbr": dev(qt.qnbr, torch.int32),
@@ -1127,7 +1119,8 @@ def table_step_reference(tables: ChainTables, tm: TableMove, occ, d, ranks,
     from-code and, on the swap row, the two codes differ; all of these
     read the codes from before the move.  dE sums, for each valid slot in
     order and against the occupancy as the earlier slots left it, the
-    slot's cluster terms in order l = 0 .. L-1, then its Ewald term, then
+    slot's site-body terms (the cluster terms in order l = 0 .. L-1, or
+    the q-ary or Ising rows in row order), then its Ewald term, then
     minus its chemical work, as the kernel does (``table_step`` of the
     reference, :1701-1785).  An invalid move is never accepted.
     """
@@ -1151,7 +1144,7 @@ def table_step_reference(tables: ChainTables, tm: TableMove, occ, d, ranks,
             continue  # a slot no walker's row uses adds exactly zero
         u, a, bj = ranks[:, j], a0[:, j], b[:, j]
         # where the slot is off, a == bj and every term below is exactly 0
-        for col in _ce_terms(tables, occ, u, a, bj).unbind(1):
+        for col in _site_terms(tables, occ, u, a, bj).unbind(1):
             dE = dE + col
         if tables.has_ewald:
             dE = dE + _ewald_term(tables, occ, u, bj - a)
@@ -1221,16 +1214,31 @@ def swap_chain_reference(occ, enthalpy, naccept, nmove, beta32, useq, vseq,
         nmove += is_move.to(nmove.dtype)
 
 
+def body_rows(tables: ChainTables) -> torch.Tensor:
+    """[R] int64: the rows the site body reads for a recoloring of each
+    rank (the direct body's L local clusters, or the rank's q-ary or Ising
+    rows)."""
+    if tables.ising:
+        return tables.irows.long()
+    if tables.qary:
+        return tables.qrows.long()
+    return torch.full((tables.num_ranks,), tables.nbr.shape[1], dtype=torch.int64,
+                      device=tables.device)
+
+
 def table_chain_reference(occ, enthalpy, naccept, beta32, dirs, ranks, seed,
                           tables, table_move, n_steps, block_size,
-                          rng="philox", margin=None, slack=0.0, nslot=None):
+                          rng="philox", margin=None, slack=0.0, nslot=None,
+                          nrow=None):
     """Plain torch twin of the CUDA table-chain kernel (same arguments).
 
     Updates ``occ``, ``enthalpy`` and ``naccept`` in place.  ``margin`` and
     ``slack`` as in :func:`swap_chain_reference`; invalid (identity)
     proposals never lower the margin.  ``nslot``, an optional [W] int32
     tensor, gains the site recolorings whose delta a walker had to
-    compute: the valid slots of its valid proposals.
+    compute: the valid slots of its valid proposals; ``nrow``, an optional
+    [W] int64 tensor, the site body's rows of those recolorings
+    (:func:`body_rows`).
     """
     W = occ.shape[1]
     walkers = torch.arange(W, device=occ.device)
@@ -1251,8 +1259,16 @@ def table_chain_reference(occ, enthalpy, naccept, beta32, dirs, ranks, seed,
             occ[slot_ranks[on, j], walkers[on]] = b[on, j].to(occ.dtype)
         if nslot is not None:
             nslot += (slot_on.sum(dim=1) * valid).to(nslot.dtype)
+        if nrow is not None:
+            rows = body_rows(tables)[slot_ranks] * slot_on
+            nrow += rows.sum(dim=1) * valid
         enthalpy += torch.where(accept, dE, torch.zeros_like(dE))
         naccept += accept.to(naccept.dtype)
+
+
+# the tables' Ewald fold and site-body tensors, whose addresses the kernels take
+BODY_TENSORS = ("ew_v", "ew_c", "qnbr", "qfreq", "qms", "qac", "qas", "qrows",
+                "imask", "iamp", "irows")
 
 
 def _check_operands(name, occ, enthalpy, counts, beta32, seqs, seed, tables,
@@ -1286,7 +1302,9 @@ def _check_operands(name, occ, enthalpy, counts, beta32, seqs, seed, tables,
                 f"{name} sequence: expected int32 [{groups}, >={n_steps}] "
                 f"(all of one layout), got {seq.dtype} {tuple(seq.shape)}"
             )
-    operands = [t for t, _, _ in expect] + [*seqs, tables.g]
+    body = [getattr(tables, name) for name in BODY_TENSORS
+            if getattr(tables, name, None) is not None]  # distance tables have none
+    operands = [t for t, _, _ in expect] + [*seqs, tables.g, *body]
     if any(t.device != occ.device for t in operands):
         raise ValueError(f"{name} operands lie on different devices")
     if not all(t.is_contiguous() for t in operands):
@@ -1306,41 +1324,27 @@ def _ewald_pointers(tables):
     return tables.ew_v.data_ptr(), tables.ew_c.data_ptr()
 
 
-def _qary_pointers(tables):
-    """K3's table pointers (all None for the direct body)."""
-    names = ("qnbr", "qfreq", "qms", "qac", "qas", "qrows")
-    if not tables.qary:
-        return (None,) * len(names)
-    return tuple(getattr(tables, name).data_ptr() for name in names)
+def _body_operands(tables):
+    """The site body's table pointers (K3's qnbr .. qrows, then K1-Ising's
+    imask, iamp, irows) and its (q, Lq, NB, Li, NW), in the kernels'
+    argument order: None and zeros for the fields of a body the tables do
+    not take."""
+    qary = ("qnbr", "qfreq", "qms", "qac", "qas", "qrows")
+    ising = ("imask", "iamp", "irows")
+    ptrs = [getattr(tables, name).data_ptr() if on else None
+            for names, on in ((qary, tables.qary), (ising, tables.ising))
+            for name in names]
+    q_shape = (tables.qary, *tables.qnbr.shape[1:]) if tables.qary else (0, 0, 0)
+    i_shape = (tables.imask.shape[1], tables.ising) if tables.ising else (0, 0)
+    return ptrs, (*q_shape, *i_shape)
 
 
-def _qary_shape(tables):
-    """(q, Lq, NB) of K3's rows, zeros for the direct body."""
-    if not tables.qary:
-        return 0, 0, 0
-    return tables.qary, *tables.qnbr.shape[1:]
-
-
-def _ising_pointers(tables):
-    """K1-Ising's table pointers (all None for another body)."""
-    names = ("imask", "iamp", "irows")
-    if not tables.ising:
-        return (None,) * len(names)
-    return tuple(getattr(tables, name).data_ptr() for name in names)
-
-
-def _ising_shape(tables):
-    """(Li, NW) of K1-Ising's rows, zeros for another body."""
-    if not tables.ising:
-        return 0, 0
-    return tables.imask.shape[1], tables.ising
-
-
-def _direct_only(name, tables):
-    if tables.qary or tables.ising:
-        raise NotImplementedError(
-            f"{name} takes the direct body only; its {tables.delta} body is not "
-            "ported yet (ROADMAP.md Queue 2)")
+def _count_launch(kernel, tables):
+    """One launch of ``kernel`` on ``tables``: ``launches``, and
+    ``qary_launches`` or ``ising_launches`` by the tables' body."""
+    kernel.launches += 1
+    kernel.qary_launches += bool(tables.qary)
+    kernel.ising_launches += bool(tables.ising)
 
 
 def flip_chain(occ, enthalpy, naccept, beta32, seq, seed, tables, n_steps,
@@ -1453,15 +1457,15 @@ class ChainLaunches:
                  tables.d2.data_ptr(), tables.g.data_ptr()]
         if move == "flip":
             args += [tables.mu.data_ptr(), tables.ncode.data_ptr()]
-        args += [*_ewald_pointers(tables), *_qary_pointers(tables),
-                 *_ising_pointers(tables), R, L, K, tables.g.shape[2]]
+        body_ptrs, body_shape = _body_operands(tables)
+        args += [*_ewald_pointers(tables), *body_ptrs, R, L, K, tables.g.shape[2]]
         if move == "flip":
             args.append(tables.mu.shape[1])
         args += [W, block_size]
         self.steps_slot = len(args)
-        args += [0, RNG_MODES[rng], *_qary_shape(tables), *_ising_shape(tables), stream]
+        args += [0, RNG_MODES[rng], *body_shape, stream]
         self.args = args
-        self.qary, self.ising = bool(tables.qary), bool(tables.ising)
+        self.tables = tables
         self.rows, self.max_steps = len(seed), seqs[0].shape[-1]
 
     def launch(self, k, n_steps):
@@ -1476,9 +1480,7 @@ class ChainLaunches:
         args[self.seed_slot] = self.seed_ptr + 8 * k
         args[self.steps_slot] = n_steps
         rc = self.entry(*args)
-        self.kernel.launches += 1
-        self.kernel.qary_launches += self.qary
-        self.kernel.ising_launches += self.ising
+        _count_launch(self.kernel, self.tables)
         _launch_check(self.lib, self.kernel.__name__, rc)
 
 
@@ -1494,15 +1496,14 @@ def _shared_bytes(tables, row_sets, W, block_size):
     one rank's rows (``rows_bytes`` of chain_common.cuh, ``qrows_bytes``
     for K3's character rows, ``irows_bytes`` for K1-Ising's parity rows)
     and the block's codes."""
+    ewald_row = tables.num_ranks if tables.has_ewald else 0
     if tables.ising:
-        ewald_row = tables.num_ranks if tables.has_ewald else 0
         row_set = (tables.iamp.shape[1] * (tables.ising + 1) + ewald_row) * 8
-    elif tables.qary:  # no Ewald row: the q-ary tables refuse the term
+    elif tables.qary:
         Lq, NB = tables.qnbr.shape[1:]
-        row_set = Lq * 16 + Lq * (2 * NB + 1) * 4
+        row_set = Lq * 16 + ewald_row * 8 + Lq * (2 * NB + 1) * 4
     else:
         L, K = tables.nbr.shape[1:]
-        ewald_row = tables.num_ranks if tables.has_ewald else 0
         row_set = L * tables.g.shape[2] * 8 + ewald_row * 8 + L * (2 * K + 1) * 4
     row_set = -(-row_set // 16) * 16
     return row_sets * row_set + tables.num_ranks * _cuda_block_threads(W, block_size)
@@ -1528,11 +1529,12 @@ def table_chain(occ, enthalpy, naccept, beta32, dirs, ranks, seed, tables,
     Arguments as :func:`flip_chain`, with the direction rows ``dirs``
     [G, >= n_steps] int32 and the slot ranks ``ranks`` [G, >= n_steps,
     k_max] int32 in place of ``seq``, and the :class:`TableMove` of the
-    same tables.  A CUDA tensor launches the kernel
-    (``table_chain.launches`` counts the launches); a CPU tensor runs
+    same tables; the tables' site body is the kernel's.  A CUDA tensor
+    launches the kernel (``table_chain.launches`` counts the launches,
+    ``table_chain.qary_launches`` and ``table_chain.ising_launches`` those
+    with the q-ary and the Ising body); a CPU tensor runs
     :func:`table_chain_reference`.
     """
-    _direct_only("table_chain", tables)
     _check_operands("table_chain", occ, enthalpy, (naccept,), beta32, (dirs,),
                     seed, tables, n_steps, block_size)
     k_max = table_move.k_max
@@ -1561,9 +1563,11 @@ def table_chain(occ, enthalpy, naccept, beta32, dirs, ranks, seed, tables,
             f"table_chain needs {smem} bytes of shared memory per block (two "
             f"buffers of k_max = {k_max} row sets of L = {L}, K = {K}, TM = "
             f"{tables.g.shape[2]}, Ewald row {R if tables.has_ewald else 0}, and "
-            f"{R} ranks of codes), above the card's {MAX_SHARED_BYTES}"
+            f"{R} ranks of codes; with the {tables.delta} body), above the card's "
+            f"{MAX_SHARED_BYTES}"
         )
     lib = _build.load_chain("table_chain")
+    body_ptrs, body_shape = _body_operands(tables)
     with torch.cuda.device(occ.device):
         stream = torch.cuda.current_stream(occ.device).cuda_stream
         rc = lib.smol_table_chain(
@@ -1572,15 +1576,17 @@ def table_chain(occ, enthalpy, naccept, beta32, dirs, ranks, seed, tables,
             dirs.stride(0), ranks.stride(0), seed.data_ptr(),
             tables.nbr.data_ptr(), tables.stride.data_ptr(),
             tables.d2.data_ptr(), tables.g.data_ptr(), tables.mu.data_ptr(),
-            rows.data_ptr(), *_ewald_pointers(tables), R, L, K,
+            rows.data_ptr(), *_ewald_pointers(tables), *body_ptrs, R, L, K,
             tables.g.shape[2], tables.mu.shape[1], W, block_size, n_steps,
-            RNG_MODES[rng], k_max, table_move.n_dirs + 2, stream,
+            RNG_MODES[rng], k_max, table_move.n_dirs + 2, *body_shape, stream,
         )
-    table_chain.launches += 1
+    _count_launch(table_chain, tables)
     _launch_check(lib, "table_chain", rc)
 
 
 table_chain.launches = 0
+table_chain.qary_launches = 0  # of the launches, those with K3's q-ary body
+table_chain.ising_launches = 0  # of the launches, those with K1-Ising's body
 
 
 # ---------------- Wang-Landau ----------------
@@ -1804,8 +1810,11 @@ def wl_chain(occ, enthalpy, naccept, entropy, histogram, occurrences,
         wl: the :class:`WLChain`; its flatness check counts the steps of
             this launch (a launch is one chunk).
 
-    A CUDA tensor launches the kernel (``wl_chain.launches`` counts the
-    launches); a CPU tensor runs :func:`wl_chain_reference`.
+    The tables' site body is the kernel's.  A CUDA tensor launches the
+    kernel (``wl_chain.launches`` counts the launches,
+    ``wl_chain.qary_launches`` and ``wl_chain.ising_launches`` those with
+    the q-ary and the Ising body); a CPU tensor runs
+    :func:`wl_chain_reference`.
     """
     if move not in ("flip", "swap"):
         raise ValueError("the Wang-Landau chain supports flip/swap moves only")
@@ -1816,7 +1825,6 @@ def wl_chain(occ, enthalpy, naccept, entropy, histogram, occurrences,
     if wl.num_levels < 1 or wl.check_period < 1 or wl.update_period < 1:
         raise ValueError("wl_chain: num_levels, check_period and update_period "
                          "must be positive")
-    _direct_only("wl_chain", tables)
     W = occ.shape[1]
     _check_operands(
         "wl_chain", occ, enthalpy, (naccept,), None, seqs, seed, tables, n_steps,
@@ -1843,6 +1851,7 @@ def wl_chain(occ, enthalpy, naccept, entropy, histogram, occurrences,
         )
     lib = _build.load_chain("wl_chain")
     vseq = seqs[1] if move == "swap" else seqs[0]
+    body_ptrs, body_shape = _body_operands(tables)
     with torch.cuda.device(occ.device):
         stream = torch.cuda.current_stream(occ.device).cuda_stream
         rc = lib.smol_wl_chain(
@@ -1852,17 +1861,19 @@ def wl_chain(occ, enthalpy, naccept, entropy, histogram, occurrences,
             vseq.data_ptr(), seqs[0].stride(0), seed.data_ptr(),
             tables.nbr.data_ptr(), tables.stride.data_ptr(),
             tables.d2.data_ptr(), tables.g.data_ptr(), tables.mu.data_ptr(),
-            tables.ncode.data_ptr(), *_ewald_pointers(tables), R, L, K,
+            tables.ncode.data_ptr(), *_ewald_pointers(tables), *body_ptrs, R, L, K,
             tables.g.shape[2], tables.mu.shape[1], W, block_size, n_steps,
             RNG_MODES[rng], MOVES.index(move), wl.num_levels, wl.check_period,
-            wl.update_period, wl.min_enthalpy, wl.bin_size, wl.span,
+            wl.update_period, *body_shape, wl.min_enthalpy, wl.bin_size, wl.span,
             wl.mod_divisor, wl.flatness, stream,
         )
-    wl_chain.launches += 1
+    _count_launch(wl_chain, tables)
     _launch_check(lib, "wl_chain", rc)
 
 
 wl_chain.launches = 0
+wl_chain.qary_launches = 0  # of the launches, those with K3's q-ary body
+wl_chain.ising_launches = 0  # of the launches, those with K1-Ising's body
 
 
 def wl_launch_operands(tables: ChainTables, wl: WLChain, move, occu, enthalpy,
@@ -1958,9 +1969,6 @@ def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
         raise ValueError(f"unknown rng mode: {rng!r}")
     if wl is not None and move == "table":
         raise ValueError("the Wang-Landau chain supports flip/swap moves only")
-    if wl is not None or move == "table":
-        _direct_only("the Wang-Landau chain" if wl is not None else "table_chain",
-                     tables)
     swap, table = move == "swap", move == "table"
     max_chunk = MAX_CHUNK_STEPS // table_move.k_max if table else MAX_CHUNK_STEPS
     chunk = min(n_steps, max_chunk) if rng == "hash" else n_steps

@@ -11,7 +11,8 @@ smol_tpu's Pallas chain.
   (ternary) and a binary Au-Cu FCC expanded on the indicator basis without
   orthonormalisation (the reference takes its q = 2 body there); the port's
   ``delta="ising"`` then raises, and so does a rank count beyond the
-  registers' words, and Wang-Landau and table moves refuse the body;
+  registers' words; Wang-Landau and table moves take the body where the
+  tables factor and refuse it where they do not;
 - (b) the Ising twin's flip and swap deltas equal a full recompute of
   features . theta, and the direct body's deltas, to 1e-12 of the energy
   scale, for every rank (flips) and every ordered rank pair (swaps);
@@ -189,20 +190,30 @@ def test_systems_that_do_not_factor_are_refused(monkeypatch):
     with pytest.raises(NotImplementedError, match="registers"):
         _tables(_port("aucu_pt_3x3x3"), "ising")
     monkeypatch.undo()
-    # Wang-Landau and table moves take the direct body only
+    # Wang-Landau and table moves take the body where the tables factor,
+    # and refuse it where they do not
     port = _port("aucu_pt_3x3x3")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        TorchSampler.from_ensemble(port, kernel_type="wang-landau", nwalkers=8, seed=3,
-                                   device="cpu", min_enthalpy=-30.0, max_enthalpy=0.0,
-                                   bin_size=0.1, chain_delta="ising")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        chain.make_shared_proposal_chain(_tables(port, "ising"), 10, wl=chain.WLChain(
-            min_enthalpy=0.0, bin_size=1.0, num_levels=4, flatness=0.8,
-            check_period=10, update_period=1, mod_divisor=2.0))
-    table = _port("spinel_ewald_sgc_2x2x2")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        TorchSampler.from_ensemble(table, 1000.0, 8, seed=3, device="cpu",
-                                   step_type="table-flip", chain_delta="ising")
+    wl = TorchSampler.from_ensemble(port, kernel_type="wang-landau", nwalkers=8, seed=3,
+                                    device="cpu", min_enthalpy=-30.0, max_enthalpy=0.0,
+                                    bin_size=0.1, chain_delta="ising")
+    assert wl.execution_path(10) == "cpu-twin[wl-flip]+ising+shared-proposals"
+    assert chain.make_shared_proposal_chain(_tables(port, "ising"), 10, wl=chain.WLChain(
+        min_enthalpy=0.0, bin_size=1.0, num_levels=4, flatness=0.8,
+        check_period=10, update_period=1, mod_divisor=2.0)) is not None
+    ternary_wl = TorchSampler.from_ensemble(
+        _port("sgc_3x3x3"), kernel_type="wang-landau", nwalkers=8, seed=3, device="cpu",
+        min_enthalpy=-30.0, max_enthalpy=0.0, bin_size=0.1, chain_delta="ising")
+    with pytest.raises(NotImplementedError, match="sign-symmetric"):
+        ternary_wl.execution_path(10)
+    table = TorchSampler.from_ensemble(_port("spinel_ewald_sgc_2x2x2"), 1000.0, 8, seed=3,
+                                       device="cpu", step_type="table-flip",
+                                       chain_delta="ising")
+    assert table.execution_path(10) == "cpu-twin[table]+ewald+ising+shared-proposals"
+    lmof = TorchSampler.from_ensemble(_port("lmof_2x2x2"), 1000.0, 8, seed=3,
+                                      device="cpu", step_type="table-flip",
+                                      chain_delta="ising")
+    with pytest.raises(NotImplementedError, match="sign-symmetric"):
+        lmof.execution_path(10)
 
 
 @pytest.mark.parametrize("stem,chain_name,words,expect", [
@@ -210,17 +221,19 @@ def test_systems_that_do_not_factor_are_refused(monkeypatch):
     ("aucu_4x4x4", "swap", 4, "ising"), ("spinel_ewald_2x2x2", "swap", 4, "ising"),
     ("spinel_3x3x3", "flip", 2, "direct"),  # 162 ranks above two words
     ("sgc_3x3x3", "flip", 4, "direct"),  # ternary: no Ising rows
-    ("aucu_pt_3x3x3", "wl-flip", 4, "direct"), ("aucu_4x4x4", "wl-swap", 4, "direct"),
-    ("spinel_ewald_sgc_2x2x2", "table", 4, "direct"),
+    ("aucu_pt_3x3x3", "wl-flip", 4, "ising"), ("aucu_4x4x4", "wl-swap", 4, "ising"),
+    ("spinel_ewald_sgc_2x2x2", "table", 4, "ising"),
+    ("spinel_ewald_sgc_3x3x3", "table", 2, "direct"),  # 162 ranks above two words
 ])
 def test_default_delta_names_the_samplers_body(monkeypatch, stem, chain_name, words,
                                                expect):
     """``default_delta`` is the one place the default body is chosen: K1-Ising
-    on flips and swaps where the tables factor within ``ISING_MAX_WORDS``
-    words, the direct lookup elsewhere; the kernels build what it names."""
+    on every chain (flips, swaps, table moves, Wang-Landau) where the tables
+    factor within ``ISING_MAX_WORDS`` words, the direct lookup elsewhere; the
+    kernels build what it names."""
     monkeypatch.setattr(chain, "ISING_MAX_WORDS", words)
     port = _port(stem)
-    assert chain.default_delta(port.processor, port.sublattices, chain_name) == expect
+    assert chain.default_delta(port.processor, port.sublattices) == expect
     if chain_name in ("flip", "swap"):
         kernel = TorchSampler.from_ensemble(port, 1000.0, 8, seed=3, device="cpu",
                                             step_type=chain_name).mckernel
@@ -308,6 +321,24 @@ def _ewald_f32_slack(tables):
 ])
 def test_trajectory_parity(name, move, n_steps, block, temperature):
     """(d): the hash-mode Ising twin against the interpret-mode reference."""
+    tables, port = _parity(name, move, n_steps, block, temperature, "ising")
+    # a sampler asked for the body names it, and takes it by default
+    ewald = "+ewald" if tables.has_ewald else ""
+    for delta in ("ising", None):
+        port_sampler = TorchSampler.from_ensemble(port, temperature, 8, seed=3,
+                                                  device="cpu", chain_delta=delta)
+        path = port_sampler.execution_path(10)
+        assert path == f"cpu-twin[{move}]{ewald}+ising+shared-proposals", path
+    direct = TorchSampler.from_ensemble(port, temperature, 8, seed=3, device="cpu",
+                                        chain_delta="direct")
+    assert direct.execution_path(10) == f"cpu-twin[{move}]{ewald}+direct+shared-proposals"
+
+
+def _parity(name, move, n_steps, block, temperature, delta):
+    """The hash-mode twin with the site body ``delta`` against the
+    interpret-mode reference, which takes that body too (the caller sets
+    ``SMOL_TPU_CHAIN_NO_ISING`` for its q-ary body on a binary system);
+    returns (the port's tables, the port ensemble)."""
     W, seed = 64, 2
     ref, port = _system(name)
     occ0 = random_occupancies(ref, W, seed)
@@ -318,7 +349,9 @@ def test_trajectory_parity(name, move, n_steps, block, temperature):
     mu = None if move == "swap" else ref.chemical_potential_table
     ref_tables = pallas_chain.build_chain_tables(ref.processor, ref.sublattices,
                                                  mu_table=mu)
-    assert ref_tables.ising  # the reference takes its Ising body
+    # the reference takes the body asked of the port
+    assert bool(ref_tables.ising) == (delta == "ising")
+    assert ref_tables.qary == (2 if delta == "qary" else 0)
     key = jax.random.key(seed)
     k_seed, k_seq = jax.random.split(jax.random.fold_in(key, 13))
     seed0 = jax.random.randint(k_seed, (), 0, np.int32(2**30 - 1), dtype=jnp.int32)
@@ -334,7 +367,7 @@ def test_trajectory_parity(name, move, n_steps, block, temperature):
     out = {k: np.asarray(v) for k, v in fn(state, key).items()
            if k in ("occupancy", "enthalpy", "naccept")}
 
-    tables = _tables(port, "ising", move)
+    tables = _tables(port, delta, move)
     slack = _ewald_f32_slack(tables)
     occu = torch.as_tensor(occ0)
     occ = occu[:, tables.rank_sites].T.to(torch.int8).contiguous()
@@ -368,13 +401,4 @@ def test_trajectory_parity(name, move, n_steps, block, temperature):
     if move == "swap":
         np.testing.assert_array_equal(np.sort(port_occ.numpy(), axis=1),
                                       np.sort(occ0, axis=1))
-    # a sampler asked for the body names it, and takes it by default
-    ewald = "+ewald" if tables.has_ewald else ""
-    for delta in ("ising", None):
-        port_sampler = TorchSampler.from_ensemble(port, temperature, 8, seed=3,
-                                                  device="cpu", chain_delta=delta)
-        path = port_sampler.execution_path(10)
-        assert path == f"cpu-twin[{move}]{ewald}+ising+shared-proposals", path
-    direct = TorchSampler.from_ensemble(port, temperature, 8, seed=3, device="cpu",
-                                        chain_delta="direct")
-    assert direct.execution_path(10) == f"cpu-twin[{move}]{ewald}+direct+shared-proposals"
+    return tables, port

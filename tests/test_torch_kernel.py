@@ -38,7 +38,15 @@ modes, and with masks padded to 2 and 4 words; the replica-exchange kernel
 must equal its twin bit for bit (betas, their f32 copies and the accepted
 counts) over 3000 sweeps, for even and odd walker counts; and a tempering
 window on the card must equal the same window of twins on the CPU, as must
-sweep-mode flips run in several segments of one call.
+sweep-mode flips run in several segments of one call.  The table-move and
+Wang-Landau kernels with K1-Ising's and K3's bodies must equal their twins
+the same way: table moves on the semigrand spinel CE + Ewald (1 and 3 words
+of rank bits, K3 with the Ewald term) and the tiny Li/Mn cell, in the
+runtime slot count body too; Wang-Landau flips and swaps on Au-Cu (the
+main paths' launch shapes), the 8-site cell, the spinel CE + Ewald, the
+ternary ``sgc`` window (q = 3) and the quaternary rocksalt (q = 4), with
+masks padded to 2 and 4 words; and K3 with q = 4, and q = 2 with the Ewald
+term, in the flip and swap kernels.
 """
 
 import dataclasses
@@ -339,14 +347,16 @@ WL_STATE = ("occ", "enthalpy", "naccept", "entropy", "histogram", "occurrences",
             "mod_factor", "wl_counter")
 
 
-def _wl_operands(card, cell, W, n_steps, block_size, move, bins=250, **options):
-    """Operands of one Wang-Landau launch on ``torch_<cell>.npz``: a window
-    of ``bins`` bins, five times as wide as the starting enthalpies span."""
+def _wl_operands(card, cell, W, n_steps, block_size, move, bins=250, delta="direct",
+                 **options):
+    """Operands of one Wang-Landau launch on ``torch_<cell>.npz`` with the
+    site body ``delta``: a window of ``bins`` bins, five times as wide as the
+    starting enthalpies span."""
     system = load_system(DATA / f"torch_{cell}.npz")
     ens = Ensemble.from_system(system, card)
     tables = chain.build_chain_tables(
         ens.processor, ens.sublattices,
-        mu_table=None if move == "swap" else ens.chemical_potential_table)
+        mu_table=None if move == "swap" else ens.chemical_potential_table, delta=delta)
     if move == "swap":  # every walker a shuffle of the file's composition
         rng = np.random.default_rng(3)
         occu = np.stack([rng.permuted(system["initial_occupancy"]) for _ in range(W)])
@@ -729,3 +739,103 @@ def test_sweep_segments_on_card_match_cpu(card, delta):
         assert torch.equal(outs["cuda"][key].cpu(), outs["cpu"][key]), key
     assert float((outs["cuda"]["enthalpy"].cpu() - outs["cpu"]["enthalpy"]).abs().max()) <= 1e-9
     assert 0 < int(outs["cpu"]["naccept"].sum()) < W * period * n_seg
+
+
+# ---------------- the site bodies in the table and Wang-Landau kernels ----------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+@pytest.mark.parametrize(
+    "cell,delta,W,block_size",
+    [("spinel_ewald_sgc_2x2x2", "ising", 256, 64),
+     ("spinel_ewald_sgc_3x3x3", "ising", 8192, 1024),  # NW = 3, the main path's shape
+     ("spinel_ewald_sgc_2x2x2", "ising", 200, 8),
+     ("spinel_ewald_sgc_2x2x2", "qary", 256, 64),  # K3 (q = 2) with the Ewald term
+     ("limn_tiny_2x1x1", "ising", 256, 64), ("limn_tiny_2x1x1", "qary", 256, 64)],
+)
+def test_table_kernel_bodies_match_twin(card, rng, cell, delta, W, block_size):
+    """K1-Ising and K3 in the table-move kernel against their twins."""
+    ops = _operands(card, cell, W, 400, block_size, move="table", delta=delta)
+    assert ops["tables"].delta == delta
+    counter = f"{delta}_launches"
+    before = getattr(chain.table_chain, counter)
+    _table_kernel_and_twin(ops, rng)
+    assert getattr(chain.table_chain, counter) - before == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delta", ["ising", "qary"])
+def test_table_kernel_bodies_runtime_slot_count(card, delta):
+    """The spinel's table padded to four slots: the runtime slot count body."""
+    ops = _operands(card, "spinel_ewald_sgc_2x2x2", 256, 400, 64, move="table",
+                    delta=delta)
+    tm = ops["table_move"]
+    padded = chain.make_table_move(
+        ops["tables"], tm.n_dirs, 4, tm.swap_weight,
+        *(np.pad(x, ((0, 0), (0, 2)), constant_values=fill)
+          for x, fill in ((tm.from_code, -1), (tm.to_code, -1), (tm.slot_valid, 0),
+                          (tm.slot_sub, 0))),
+        tm.dir_cum_probs,
+    )
+    _table_kernel_and_twin(ops, "philox", kernel_move=padded)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+@pytest.mark.parametrize(
+    "cell,move,delta,W,block_size",
+    [("aucu_wl_3x3x3", "flip", "ising", 256, 64),
+     ("aucu_wl_3x3x3", "flip", "ising", 8192, 1024),
+     ("aucu_wl_3x3x3", "flip", "ising", 2048, 1024),  # the main path's launch shape
+     ("aucu_4x4x4", "swap", "ising", 2048, 1024), ("aucu_4x4x4", "swap", "ising", 200, 8),
+     ("aucu_nn_2x2x2", "flip", "ising", 200, 8),
+     ("spinel_ewald_2x2x2", "swap", "ising", 256, 64),
+     ("spinel_ewald_2x2x2", "swap", "qary", 256, 64),  # q = 2 with the Ewald term
+     ("sgc_wl_3x3x3", "flip", "qary", 2048, 1024),  # q = 3
+     ("aucu_4x4x4", "swap", "qary", 256, 64),
+     ("rocksalt_q4_2x2x2", "flip", "qary", 256, 64)],  # q = 4
+)
+def test_wl_kernel_bodies_match_twin(card, rng, cell, move, delta, W, block_size):
+    """K1-Ising and K3 in the Wang-Landau kernel against their twins."""
+    bins = 10 if cell == "aucu_nn_2x2x2" else 250
+    ops = _wl_operands(card, cell, W, 400, block_size, move, bins=bins, delta=delta)
+    assert ops["tables"].delta == delta
+    counter = f"{delta}_launches"
+    before = getattr(chain.wl_chain, counter)
+    kernel, _ = _wl_kernel_and_twin(ops, rng)
+    assert getattr(chain.wl_chain, counter) - before == 1
+    if move == "swap":
+        counts = [(o["occ"] == 1).sum(dim=0) for o in (ops, kernel)]
+        assert torch.equal(*counts)  # each walker keeps its composition
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("words", [2, 4])
+@pytest.mark.parametrize("move,cell", [("flip", "aucu_wl_3x3x3"), ("swap", "aucu_4x4x4")])
+def test_wl_ising_wider_words_match_twin(card, words, move, cell):
+    """Masks padded with zero words take the Ising<2> and Ising<4> bodies."""
+    ops = _wl_operands(card, cell, 256, 400, 64, move, delta="ising")
+    t = ops["tables"]
+    padded = dataclasses.replace(
+        t, ising=words,
+        imask=torch.nn.functional.pad(t.imask, (0, words - t.ising)).contiguous())
+    _wl_kernel_and_twin(ops, "philox", kernel_tables=padded)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+@pytest.mark.parametrize(
+    "cell,move,q",
+    [("rocksalt_q4_2x2x2", "flip", 4), ("spinel_ewald_2x2x2", "flip", 2),
+     ("spinel_ewald_2x2x2", "swap", 2)],
+)
+def test_qary_q4_and_ewald_match_twin(card, rng, cell, move, q):
+    """K3 with q = 4 (mixed quaternary and binary sites) and with the Ewald
+    term in the flip and swap kernels."""
+    ops = _operands(card, cell, 256, 400, 64, move=move, delta="qary")
+    assert ops["tables"].qary == q
+    assert ops["tables"].has_ewald == cell.startswith("spinel_ewald")
+    kernel_fn, twin_fn = {"flip": (chain.flip_chain, chain.flip_chain_reference),
+                          "swap": (chain.swap_chain, chain.swap_chain_reference)}[move]
+    kernel, twin = _kernel_and_twin(ops, kernel_fn, twin_fn, rng)
+    _assert_same(kernel, twin, 400)

@@ -21,9 +21,9 @@ smol_tpu's Pallas chain.
   decisions within 4 f32 ulps of log U (the reference sums its deltas in
   double-float, the port in f64); enthalpies of equal walkers agree to
   1e-9;
-- the body is named in the execution path, refused where the tables
-  cannot take it (an Ewald term, table moves, Wang-Landau), and never
-  taken unasked.
+- the body is named in the execution path, taken with the Ewald term, by
+  table moves and by Wang-Landau, refused where the tables cannot take it
+  (code counts whose lcm is not 2, 3 or 4), and never taken unasked.
 """
 
 import sys
@@ -47,7 +47,7 @@ from smol_tpu_torch.ops import chain
 from smol_tpu_torch.system import export_system, load_system
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "scripts"))
-from export_torch_systems import data_path, sgc_ensemble  # noqa: E402
+from export_torch_systems import data_path, rocksalt_q4_ensemble, sgc_ensemble  # noqa: E402
 
 ULP_SLACK = 4
 W, N_STEPS, BLOCK = 64, 200, 32
@@ -84,6 +84,7 @@ def _system(name):
             "sgc": lambda: sgc_ensemble(3),
             "ternary": lambda: _ternary_canonical((3, 3, 3)),
             "aucu": lambda: _aucu((2, 2, 2), {"Au": 0.05, "Cu": -0.05}),
+            "q4": lambda: rocksalt_q4_ensemble(2),
         }[name]()
         _CACHE[name] = ref, TorchEnsemble.from_system(export_system(ref), "cpu")
     return _CACHE[name]
@@ -201,7 +202,7 @@ def _reference_run(ref, move, seed):
     state["occupancy"] = jnp.asarray(occ0)
     mu = None if move == "swap" else ref.chemical_potential_table
     ref_tables = pallas_chain.build_chain_tables(ref.processor, ref.sublattices, mu_table=mu)
-    assert ref_tables.qary in (2, 3)  # the reference takes its q-ary body
+    assert ref_tables.qary in (2, 3, 4)  # the reference takes its q-ary body
     key = jax.random.key(seed)
     k_seed, k_seq = jax.random.split(jax.random.fold_in(key, 13))
     seed0 = jax.random.randint(k_seed, (), 0, np.int32(2**30 - 1), dtype=jnp.int32)
@@ -215,8 +216,8 @@ def _reference_run(ref, move, seed):
     fn = pallas_chain.make_shared_proposal_chain(
         ref_tables, N_STEPS, block_size=BLOCK, interpret=True, move=move)
     out = fn(state, key)
-    return occ0, state, seqs, int(seed0), {k: np.asarray(out[k]) for k in
-                                           ("occupancy", "enthalpy", "naccept")}
+    out = {k: np.asarray(out[k]) for k in ("occupancy", "enthalpy", "naccept")}
+    return occ0, state, seqs, int(seed0), out, ref_tables.qary
 
 
 @pytest.mark.parametrize("name,move", [("sgc", "flip"), ("ternary", "swap"),
@@ -225,9 +226,16 @@ def test_trajectory_parity(name, move, monkeypatch):
     """(d): the hash-mode q-ary twin against the interpret-mode reference."""
     if name == "aucu":  # the reference would take its Ising body otherwise
         monkeypatch.setenv("SMOL_TPU_CHAIN_NO_ISING", "1")
+    _parity(name, move)
+
+
+def _parity(name, move):
+    """The hash-mode q-ary twin against the interpret-mode reference, which
+    takes its own q-ary body with the same q; returns the port's tables."""
     ref, port = _system(name)
-    occ0, state, seqs, seed, out = _reference_run(ref, move, seed=2)
+    occ0, state, seqs, seed, out, q_ref = _reference_run(ref, move, seed=2)
     tables = _tables(port, move)
+    assert tables.qary == q_ref
     occu = torch.as_tensor(occ0)
     occ = occu[:, tables.rank_sites].T.to(torch.int8).contiguous()
     enth = torch.tensor(np.array(state["enthalpy"]))
@@ -259,6 +267,7 @@ def test_trajectory_parity(name, move, monkeypatch):
     if move == "swap":
         np.testing.assert_array_equal(np.sort(port_occ.numpy(), axis=1),
                                       np.sort(occ0, axis=1))
+    return tables
 
 
 def test_sampler_names_the_body_and_refuses_what_it_cannot_take():
@@ -283,24 +292,24 @@ def test_sampler_names_the_body_and_refuses_what_it_cannot_take():
                                        chain_delta="ising")
     with pytest.raises(NotImplementedError, match="sign-symmetric"):
         ising.execution_path(10)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        TorchSampler.from_ensemble(port, kernel_type="wang-landau", nwalkers=8, seed=3,
-                                   device="cpu", min_enthalpy=-10.0, max_enthalpy=0.0,
-                                   bin_size=0.1, chain_delta="qary")
+    # Wang-Landau, the Ewald term and table moves take the body
+    wl = TorchSampler.from_ensemble(port, kernel_type="wang-landau", nwalkers=8, seed=3,
+                                    device="cpu", min_enthalpy=-10.0, max_enthalpy=0.0,
+                                    bin_size=0.1, chain_delta="qary")
+    assert wl.execution_path(10) == "cpu-twin[wl-flip]+qary3+shared-proposals"
     ewald = TorchEnsemble.from_system(load_system(data_path("spinel_ewald_2x2x2")), "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        chain.build_chain_tables(ewald.processor, ewald.sublattices, delta="qary")
+    tables = chain.build_chain_tables(ewald.processor, ewald.sublattices, delta="qary")
+    assert tables.qary == 2 and tables.has_ewald
     table = TorchEnsemble.from_system(load_system(data_path("spinel_ewald_sgc_2x2x2")),
                                       "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        TorchSampler.from_ensemble(table, 1000.0, 8, seed=3, device="cpu",
-                                   step_type="table-flip", chain_delta="qary")
-    tables = _tables(port)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        chain.make_shared_proposal_chain(tables, 10, wl=chain.WLChain(
-            min_enthalpy=0.0, bin_size=1.0, num_levels=4, flatness=0.8,
-            check_period=10, update_period=1, mod_divisor=2.0))
-    # a rank count with no q in {2, 3}: the table refuses, nothing falls back
+    table_sampler = TorchSampler.from_ensemble(table, 1000.0, 8, seed=3, device="cpu",
+                                               step_type="table-flip", chain_delta="qary")
+    assert table_sampler.execution_path(10) == \
+        "cpu-twin[table]+ewald+qary2+shared-proposals"
+    assert chain.make_shared_proposal_chain(_tables(port), 10, wl=chain.WLChain(
+        min_enthalpy=0.0, bin_size=1.0, num_levels=4, flatness=0.8,
+        check_period=10, update_period=1, mod_divisor=2.0)) is not None
+    # a rank count with no q in {2, 3, 4}: the table refuses, nothing falls back
     with pytest.raises(chain.QaryRefused, match="lcm"):
         chain.qary_tables(np.arange(2), np.arange(2), np.zeros((2, 1, 2), np.int64),
                           np.array([[[1, 5]], [[1, 5]]]), np.zeros((2, 1, 25)),

@@ -10,10 +10,16 @@
   rocksalt and the tiny enumeration cell) with its flip table, dimension
   ids and site charges, and of each Wang-Landau system (Au-Cu 3x3x3 with
   the bench's window, the 8-site nearest-neighbour cell with its exact
-  enthalpies), and of each SQS file (the bench's 20 shapes of 8 sites, in
+  enthalpies, the ternary ``sgc`` 3x3x3 with a window of the bench's
+  scheme), and of each SQS file (the bench's 20 shapes of 8 sites, in
   its generator's order, and the 64-site shape) shape for shape, and of
   each decomposition-form system (bench ``sgc`` 6x6x6 and 3x3x3, the bench
-  spinel 2x2x2), which the port loads with its decomposition processor;
+  spinel 2x2x2, the quaternary and binary rocksalt), which the port loads
+  with its decomposition processor;
+- a fresh export with an Ewald term runs the reference's native host
+  library, as the committed files were written, in whatever worker it
+  lands (``reference_native`` builds a private copy where the shared
+  build failed), and fails, not skips, where the library cannot load;
 - the exporter refuses a processor the port cannot evaluate, alone or as
   the expansion part of a composite;
 - with ``jax`` blocked from importing, a subprocess imports the port and
@@ -48,6 +54,7 @@ from export_torch_systems import (  # noqa: E402
     canonical_system,
     data_path,
     decomposition_system,
+    reference_native,
     spinel_ensemble,
     sqs_systems,
     system_path,
@@ -121,8 +128,8 @@ def test_committed_wang_landau_system_matches_fresh_export(stem):
         stored = committed[key]
         assert stored.dtype == np.asarray(value).dtype, key
         np.testing.assert_array_equal(stored, value, err_msg=key)
-    if stem == "aucu_wl_3x3x3":  # the bench's window: about 250 bins
-        assert "chemical_potential_table" not in committed
+    if stem in ("aucu_wl_3x3x3", "sgc_wl_3x3x3"):  # the bench's window: ~250 bins
+        assert ("chemical_potential_table" in committed) == stem.startswith("sgc")
         width = committed["wl_max_enthalpy"] - committed["wl_min_enthalpy"]
         assert 249 < width / committed["wl_bin_size"] <= 250
     else:  # 256 states on six levels, zero chemical potentials
@@ -170,6 +177,22 @@ def test_committed_decomposition_system_matches_fresh_export(stem):
         n = int(stem[4])
         assert num_orbits == 7 and committed["num_sites"] == n ** 3
         assert committed["local_g"].shape[1:] == (104, 27)
+
+
+def test_ewald_export_runs_the_reference_native_library():
+    from smol_tpu.utils import native
+
+    reference_native()
+    assert native._LIB is not None
+    assert native.ewald_real_sums(np.zeros((2, 3)), np.zeros((1, 3)), 1.0, 1.0) is not None
+
+
+def test_ewald_export_refuses_without_the_native_library(monkeypatch):
+    monkeypatch.setenv("SMOL_TPU_NO_NATIVE", "1")
+    with pytest.raises(RuntimeError, match="native host library"):
+        reference_native()
+    with pytest.raises(RuntimeError, match="native host library"):
+        canonical_system("spinel_ewald_2x2x2")
 
 
 def test_canonical_aucu_carries_its_wang_landau_window():
@@ -319,7 +342,7 @@ def test_port_runs_with_jax_blocked():
     assert "ok cpu-twin[flip]" in proc.stdout
     assert "ok cpu-twin[swap]+ewald" in proc.stdout
     assert "ok cpu-twin[table]+ewald" in proc.stdout
-    assert "ok cpu-twin[wl-flip]+direct" in proc.stdout
+    assert "ok cpu-twin[wl-flip]+ising" in proc.stdout  # the default body on Au-Cu
     assert "ok cpu-twin[distance]" in proc.stdout
     assert "ok cpu-twin[flip]+qary3" in proc.stdout
     assert "ok cpu-twin[flip]+ising+shared-proposals+replica-exchange@10" in proc.stdout

@@ -298,7 +298,11 @@ def _unused_slots_off_valid_ranks(dirs, ranks, slot_valid, num_ranks):
 
 
 def _trajectory_parity(kind, cell, W, n_steps, temperature, seed, monkeypatch,
-                       pad_to=None):
+                       pad_to=None, delta="direct"):
+    """The hash-mode table twin with the site body ``delta`` against the
+    interpret-mode reference chain, which takes its own body (K1-Ising on a
+    binary sign-symmetric system unless ``SMOL_TPU_CHAIN_NO_ISING`` is set);
+    returns (slack, chunks, the reference's accept counts)."""
     ref, usher, port = _systems(kind, cell)
     occ0 = random_occupancies(ref, W, seed)
     sampler = Sampler.from_ensemble(ref, temperature=temperature, nwalkers=W, seed=3,
@@ -310,8 +314,12 @@ def _trajectory_parity(kind, cell, W, n_steps, temperature, seed, monkeypatch,
     assert built is not None and built[1] == "table"
     ref_tables, _, ref_tm = built
 
-    kernel = _port_kernel(port)
+    kernel = _port_kernel(port, chain_delta=delta)
     tables, tm = kernel.chain_tables(), kernel.table_move()
+    assert tables.delta == delta
+    if delta != "direct":  # the reference takes the same body
+        assert bool(ref_tables.ising) == (delta == "ising")
+        assert ref_tables.qary == tables.qary
     if pad_to is not None:
         arrays = _pad_slots({n: getattr(ref_tm, n) for n in MOVE_ARRAYS[:4]}, pad_to)
         ref_tm = dataclasses.replace(ref_tm, k_max=pad_to, **arrays)
@@ -468,7 +476,8 @@ def test_sampler_keeps_charge_and_parity_e():
     W, nsteps, thin = 16, 400, 100
     sampler = TorchSampler.from_ensemble(port, 1000.0, W, seed=3, device="cpu",
                                          step_type="table-flip", chain_block_size=8)
-    assert sampler.execution_path(thin) == "cpu-twin[table]+ewald+direct+shared-proposals"
+    # the default body: K1-Ising, which the table chain takes where it factors
+    assert sampler.execution_path(thin) == "cpu-twin[table]+ewald+ising+shared-proposals"
     sampler.run(nsteps, system["initial_occupancy"], thin_by=thin)
     occ = sampler.samples.get_occupancies(flat=False)  # [S, W, N]
     assert occ.shape == (nsteps // thin, W, port.num_sites)

@@ -113,16 +113,20 @@ def _reference_draws(ref_tables, key, n_steps, W, block_size, move):
 
 
 def _chain_parity(ref, port, params, move, occ0, n_steps, block_size, seed,
-                  excuses=True):
-    """Reference interpret-mode chain against the port's twin; returns the
-    share of walkers that differ (each one excused by a margin)."""
+                  excuses=True, delta="direct"):
+    """Reference interpret-mode chain against the port's twin with the site
+    body ``delta``; returns the share of walkers that differ (each one
+    excused by a margin)."""
     W = len(occ0)
     mu = None if move == "swap" else ref.chemical_potential_table
     ref_tables = pallas_chain.build_chain_tables(ref.processor, ref.sublattices,
                                                  mu_table=mu)
     tables = chain.build_chain_tables(
         port.processor, port.sublattices,
-        mu_table=None if move == "swap" else port.chemical_potential_table)
+        mu_table=None if move == "swap" else port.chemical_potential_table, delta=delta)
+    if delta != "direct":  # the reference takes the same body
+        assert bool(ref_tables.ising) == (delta == "ising")
+        assert ref_tables.qary == tables.qary
     theta = torch.as_tensor(port.natural_parameters)
     enthalpy = port.compute_features(torch.as_tensor(occ0)) @ theta
     B = params["num_levels"]
@@ -327,7 +331,7 @@ def test_sampler_density_of_states(nn):
     0.8 of the reference's chain test."""
     _, port, window = nn
     system = load_system(data_path("aucu_nn_2x2x2"))
-    sampler = _nn_sampler(port, window, 8, seed=9, check_period=250)
+    sampler = _nn_sampler(port, window, 8, seed=9, check_period=250, chain_delta="direct")
     assert sampler.execution_path(2500) == "cpu-twin[wl-flip]+direct+shared-proposals"
     occ0 = np.random.default_rng(0).integers(0, 2, (8, 8)).astype(np.int32)
     sampler.run(10000, occ0, thin_by=2500)
