@@ -52,14 +52,20 @@ printing its last line when any phase fails:
    steps, the first 2500 of its 15000 steps (the twin's time sets that).
    The distance (SQS) chain against its twin, bit for bit on every walker
    (occupancy, best occupancy, features, score, best score, accepts),
-   2048 walkers from the generator's starts in blocks of 512: 300 steps on
-   the bench's first 8-site shape and on the 64-site shape in both RNG
-   modes, a hash-mode chain across the 2048-step chunk boundary through
-   ``make_distance_chain``, beta 0, beta 50 (T = 0.02), no match term, and
-   the main path's own launch (8000 philox steps at the first stage's
-   beta) on the bench shape, its first 2000 steps on the 64-site shape;
-   every walker keeps its composition and its score equals the exact
-   rescore.
+   2048 walkers from the generator's starts in blocks of 512, at the
+   chosen design (``sqs._DESIGN``: its lanes a walker, every rank's rows
+   resident in shared memory on the 8-site shapes, streamed on the 64-site
+   one): 300 steps on the bench's first 8-site shape and on the 64-site
+   shape in both RNG modes, a hash-mode chain across the 2048-step chunk
+   boundary through ``make_distance_chain``, beta 0, beta 50 (T = 0.02),
+   no match term, and the old design (one thread a walker, rows streamed);
+   one batched launch of the bench's 20 8-site shapes against the 20
+   per-shape launches and, across the chunk boundary, through
+   ``make_batched_distance_chain`` against one ``make_distance_chain`` per
+   shape, in both RNG modes; and the main paths' own launches at the first
+   stage's beta, the 20 shapes in one launch (300 philox steps) against
+   the batched twin and the first 2000 steps of the 64-site launch; every
+   walker keeps its composition and its score equals the exact rescore.
    K1-Ising, the parity body, in the flip chain on both semigrand spinels
    and on bench ``tempering``'s Au-Cu 3x3x3 (at 1000 K) and in the swap
    chain on Au-Cu 4x4x4 and the spinel CE + Ewald 2x2x2 and 3x3x3, in both
@@ -118,8 +124,9 @@ printing its last line when any phase fails:
    - SQS: ``StochasticSQSGenerator.from_processors(<shapes>,
      device="cuda").generate(mcmc_steps=8000, temperatures=linspace(5,
      0.02, 4), nwalkers=2048, seed=23)``, (a) ``bench.py``'s ``sqs``
-     config, the 20 shapes of 8 sites, (b) the 64-site shape, each cold
-     and then warm on the same generator (bit for bit the same search);
+     config, the 20 shapes of 8 sites, one launch a temperature for all of
+     them, (b) the 64-site shape, each cold and then warm on the same
+     generator (bit for bit the same search; 16 launches in all);
      checked: every launch's compositions and final score against the
      exact rescore (< 1e-9), the stored scores against an exact rescore on
      the CPU (< 1e-9), every walker's best no worse than its start, and a
@@ -170,10 +177,17 @@ printing its last line when any phase fails:
    is timed on both its cells beside the flip and swap chains on the same
    tables, and at the 2048 walkers of its main path, with the direct body
    and with K1-Ising.  The distance chain
-   is timed on the main path's own 8000-step launch at 2048 walkers on both
-   SQS shapes; on the launches of phase 3 that were timed (8000 steps on
-   the bench shape, 2000 on the 64-site one) beside the twin's time of the
-   same launch and the bound of the operations that launch's data needs.
+   is timed on the main path's own 8000-step launch at 2048 walkers a
+   shape (the 20 8-site shapes in one launch, the 64-site shape alone); on
+   the launches of phase 3 that were timed (300 steps of the 20 shapes in
+   one launch, 2000 of the 64-site one) beside the twin's time of the same
+   launch and the bound of the operations that launch's data needs, summed
+   over its shapes; and its design part by part, each pair in turns on
+   copies of one state of the 8000-step launch: the old design against
+   2, 4, 8 and 16 lanes on one shape, the 20 shapes in one launch at the
+   chosen lanes against 2, 4, 8 and 16, streamed against resident rows,
+   20 launches against one, the rows unpacked against packed, and the old
+   design against the new on both cells.
    K3 against the direct body on the same cells, in turns (direct, q-ary,
    q-ary, direct): the flip chain on ``sgc`` 6x6x6, the swap chain on the
    ternary CE 3x3x3; K3's operations are counted from the character rows
@@ -351,7 +365,8 @@ def table_move_of(ensemble, tables):
 def kernel_label(line):
     """A compiled chain kernel's template arguments, read off its mangled
     name: the site body, the Wang-Landau move, the table's slot count, the
-    distance chain's counts and whether it takes the Ewald term."""
+    distance chain's counts and row format, and whether it takes the Ewald
+    term."""
     kernel = re.search(r"([a-z]+_chain_kernel|[a-z_]+_kernel)", line)
     if kernel is None:
         return line.strip()
@@ -368,10 +383,12 @@ def kernel_label(line):
     slots = re.search(r"table_chain_kernel.*EELi(\d+)ELb", line)
     if slots:
         args.append(f"k_max={slots.group(1) if slots.group(1) != '0' else 'runtime'}")
-    counts = re.search(r"distance_chain_kernelILi(\d+)ELi(\d+)E", line)
+    counts = re.search(r"distance_chain_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E", line)
     if counts:
-        k, fmax = counts.groups()
-        args.append(f"K={k if k != '0' else 'runtime'}, FMAX={fmax}")
+        k, fmax, packed, one_lane = counts.groups()
+        args.append(f"K={k if k != '0' else 'runtime'}, FMAX={fmax}, "
+                    f"packed={packed == '1'}, one_lane={one_lane == '1'}")
+        return f"{name}<{', '.join(args)}>"
     ewald = re.search(r"Lb([01])E", line)
     if ewald:
         args.append(f"ewald={ewald.group(1) == '1'}")
@@ -1376,10 +1393,15 @@ def sqs_compositions(occu, proc):
                         for sl in proc.get_sublattices() for code in sl.encoding], dim=1)
 
 
+@functools.lru_cache(maxsize=None)
+def distance_tables(proc):
+    return sqs.build_distance_tables(proc)
+
+
 def distance_operands(proc, n_steps, beta, seed, occ_seed=7, seq_seed=17):
     """Operands of one distance launch at the main path's shape: 2048 walkers
     from the generator's starts (``random_starts``), blocks of 512."""
-    tables = sqs.build_distance_tables(proc)
+    tables = distance_tables(proc)
     occu = torch.as_tensor(
         random_starts(proc, SQS_WALKERS, np.random.default_rng(occ_seed)), device=proc.device)
     gen = torch.Generator(device=proc.device).manual_seed(seq_seed)
@@ -1399,7 +1421,7 @@ def occupancy_of(occ, tables):
     return occu
 
 
-def compare_distance(label, proc, kernel, twin, start, n_steps):
+def compare_distance(label, proc, kernel, twin, start, n_steps, quiet=False):
     """Kernel against twin: every walker equal bit for bit; returns the
     largest score difference (0.0)."""
     for key in DISTANCE_STATE:
@@ -1415,6 +1437,8 @@ def compare_distance(label, proc, kernel, twin, start, n_steps):
     check(drift < 1e-9, f"{label}: score vs exact rescore {drift}")
     accept = float(kernel["naccept"].double().mean()) / n_steps
     check(0.0 < accept < 1.0, f"{label}: acceptance {accept}")
+    if quiet:
+        return float((kernel["d"] - twin["d"]).abs().max())
     print(f"phase 3 [{label}]: kernel == twin bit for bit on all {len(kernel['d'])} "
           f"walkers (occupancy, best occupancy, features, score, best score, accepts), "
           f"score vs exact rescore {drift:.3e}, acceptance {accept:.4f}, best score "
@@ -1423,25 +1447,26 @@ def compare_distance(label, proc, kernel, twin, start, n_steps):
 
 
 def distance_vs_twin(proc, name, rng, seed, beta=2.0, n_steps=SQS_WINDOW, timed=False,
-                     match_weight=None):
-    """Phase 3: one launch, kernel against twin (with ``match_weight``, on
-    the shape's system with that match weight); with ``timed`` the twin's
-    time (CUDA events) and the work its data needs come back too."""
-    extra = ""
+                     match_weight=None, design=sqs._DESIGN):
+    """Phase 3: one launch of ``design``, kernel against twin (with
+    ``match_weight``, on the shape's system with that match weight); with
+    ``timed`` the twin's time (CUDA events) and the work its data needs
+    come back too."""
+    extra = "" if design == sqs._DESIGN else f", {design_name(design)}"
     if match_weight is not None:
         coefs = np.concatenate([[-match_weight], proc.coefs[1:]])
         proc = CorrelationDistanceProcessor({**proc.system, "distance_coefs": coefs},
                                             proc.device)
-        extra = f", match_weight {match_weight:g}"
+        extra += f", match_weight {match_weight:g}"
     ops = distance_operands(proc, n_steps, beta, seed)
     k, t = fresh_distance(ops), fresh_distance(ops)
-    sqs.distance_chain(**k, rng=rng)
+    sqs.distance_chain(**k, rng=rng, _design=design)
     work = torch.zeros((2, SQS_WALKERS), dtype=torch.int64, device=proc.device)
     start_ev = torch.cuda.Event(enable_timing=True)
     end_ev = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start_ev.record()
-    sqs.distance_chain_reference(**t, rng=rng, work=work)
+    sqs.distance_chain_reference(**t, rng=rng, work=work, lanes=design.lanes)
     end_ev.record()
     torch.cuda.synchronize()
     err = compare_distance(f"distance {name} {rng} seed {seed:#x}, beta {beta:g}, "
@@ -1453,6 +1478,130 @@ def distance_vs_twin(proc, name, rng, seed, beta=2.0, n_steps=SQS_WINDOW, timed=
 
 def fresh_distance(ops):
     return {key: (v.clone() if key in DISTANCE_STATE else v) for key, v in ops.items()}
+
+
+def batched_operands(procs, n_steps, beta, seed):
+    """Operands of one batched launch over the shapes ``procs`` at the main
+    path's shape (2048 walkers each, blocks of 512; shape s from starts
+    ``occ_seed`` 7 + s, pairs ``seq_seed`` 17 + s, seed ``seed`` + s), and
+    each shape's own launch's operands."""
+    shapes = [distance_operands(proc, n_steps, beta, seed + s, occ_seed=7 + s,
+                                seq_seed=17 + s) for s, proc in enumerate(procs)]
+    ops = {key: torch.stack([o[key] for o in shapes])
+           for key in (*DISTANCE_STATE, "beta32", "useq", "vseq")}
+    ops.update(seed=torch.cat([o["seed"] for o in shapes]), n_steps=n_steps,
+               batch=sqs.stack_distance_tables([o["tables"] for o in shapes]),
+               block_size=SQS_BLOCK)
+    return ops, shapes
+
+
+def batched_vs_per_shape(procs, name, rng, seed, n_steps=SQS_WINDOW, twin_shapes=()):
+    """Phase 3: one batched launch over ``procs`` against each shape's own
+    launch (the kernel, shape by shape), bit for bit on every walker of every
+    shape, and against the batched twin on the shapes ``twin_shapes``."""
+    ops, shapes = batched_operands(procs, n_steps, 2.0, seed)
+    lanes = sqs.launch_lanes(len(procs) * SQS_WALKERS)  # the batch's, for each shape too
+    k = fresh_distance(ops)
+    sqs.distance_chain_batched(**k, rng=rng)
+    err = 0.0
+    for s, one in enumerate(shapes):
+        mine = {key: k[key][s] for key in DISTANCE_STATE}
+        theirs = fresh_distance(one)
+        sqs.distance_chain(**theirs, rng=rng, _design=sqs._Design(lanes=lanes))
+        label = f"distance {name} batched, shape {s} of {len(procs)}, {rng}"
+        if s in twin_shapes:
+            twin = fresh_distance(one)
+            sqs.distance_chain_reference(**twin, rng=rng, lanes=lanes)
+            err = max(err, compare_distance(f"{label} against the twin", procs[s], mine,
+                                            twin, one, n_steps))
+        for key in DISTANCE_STATE:
+            check(torch.equal(mine[key], theirs[key]),
+                  f"{label}: {key} differs from the shape's own launch")
+    print(f"phase 3 [distance {name} batched, {rng}]: one launch of {len(procs)} shapes "
+          f"x {SQS_WALKERS} walkers == the {len(procs)} per-shape launches at its {lanes} "
+          f"lane(s) bit for bit (occupancy, best occupancy, features, score, best score, "
+          f"accepts)")
+    return err
+
+
+def batched_vs_twin(procs, name, rng, seed, beta, n_steps):
+    """Phase 3: one batched launch over ``procs`` (the main path's launch
+    shape) against the batched twin, bit for bit on every walker of every
+    shape, with the twin's time (CUDA events) and the work its data needs."""
+    ops, _ = batched_operands(procs, n_steps, beta, seed)
+    k, t = fresh_distance(ops), fresh_distance(ops)
+    sqs.distance_chain_batched(**k, rng=rng)
+    work = torch.zeros((len(procs), 2, SQS_WALKERS), dtype=torch.int64, device=k["d"].device)
+    start_ev = torch.cuda.Event(enable_timing=True)
+    end_ev = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start_ev.record()
+    sqs.distance_chain_batched_reference(**t, rng=rng, work=work)
+    end_ev.record()
+    torch.cuda.synchronize()
+    err = 0.0
+    for s, proc in enumerate(procs):
+        shape = {key: ops[key][s] for key in DISTANCE_STATE}
+        shape["tables"] = ops["batch"].shapes[s]
+        err = max(err, compare_distance(f"distance {name} {rng}, batched, shape {s}", proc,
+                                        {key: k[key][s] for key in DISTANCE_STATE},
+                                        {key: t[key][s] for key in DISTANCE_STATE}, shape,
+                                        n_steps, quiet=True))
+    accept = float(k["naccept"].double().mean()) / n_steps
+    print(f"phase 3 [distance {name} {rng}, the main path's launch: {len(procs)} shapes x "
+          f"{SQS_WALKERS} walkers in one launch, {n_steps} steps, beta {beta:g}]: kernel == "
+          f"twin bit for bit on every walker of every shape (occupancy, best occupancy, "
+          f"features, score, best score, accepts), each score == its exact rescore "
+          f"(< 1e-9), acceptance {accept:.4f}")
+    return err, {"ops": ops, "twin_ms": start_ev.elapsed_time(end_ev), "work": work,
+                 "procs": procs}
+
+
+def batched_chunked_vs_per_shape(procs, name, rng):
+    """Phase 3: ``make_batched_distance_chain`` over ``procs`` across a chunk
+    boundary (2048 steps, then 52, each counting its steps from 0 with the
+    next chunk seed), against one ``make_distance_chain`` per shape, from
+    the same generators' draws, bit for bit."""
+    n_steps, walkers = chain.MAX_CHUNK_STEPS + 52, SQS_WALKERS
+    tables = [distance_tables(proc) for proc in procs]
+
+    def states():
+        out = []
+        for s, proc in enumerate(procs):
+            occu = torch.as_tensor(random_starts(proc, walkers, np.random.default_rng(11 + s)),
+                                   device=proc.device)
+            scores = proc.compute_scores(occu)
+            out.append({"occupancy": occu, "enthalpy": scores.clone(),
+                        "beta": torch.full((walkers,), 2.0, dtype=torch.float64,
+                                           device=proc.device),
+                        "naccept": torch.zeros(walkers, dtype=torch.int32, device=proc.device),
+                        "best_enthalpy": scores.clone(), "best_occupancy": occu.clone()})
+        return out
+
+    def generators():
+        return [torch.Generator(device=proc.device).manual_seed(29 + s)
+                for s, proc in enumerate(procs)]
+
+    chunk = chain.MAX_CHUNK_STEPS
+    run = sqs.make_batched_distance_chain(tables, n_steps, [p.compute_corr for p in procs],
+                                          SQS_BLOCK, chunk, rng)
+    before = sqs.distance_chain.launches
+    batched = run(states(), generators())
+    check(sqs.distance_chain.launches - before == 2, "batched chunked run: two launches")
+    design = sqs._Design(lanes=sqs.launch_lanes(len(procs) * walkers))  # the batch's
+    for s, (proc, state, gen) in enumerate(zip(procs, states(), generators())):
+        own = sqs.make_distance_chain(tables[s], n_steps, proc.compute_corr, SQS_BLOCK,
+                                      chunk, rng, _design=design)(state, gen)
+        for key in ("occupancy", "best_occupancy", "enthalpy", "best_enthalpy", "naccept"):
+            check(torch.equal(batched[s][key], own[key]),
+                  f"batched chunked {rng} run, shape {s}: {key} differs from its own chain")
+    exact = max(float((p.compute_scores(st["occupancy"]) - st["enthalpy"]).abs().max())
+                for p, st in zip(procs, batched))
+    check(exact < 1e-9, f"batched chunked run: score vs exact rescore {exact}")
+    print(f"phase 3 [distance {name} batched, {rng}, {n_steps} steps in 2 chunks]: "
+          f"== one chain per shape bit for bit on all {len(procs)} shapes, score vs "
+          f"exact rescore {exact:.3e}")
+    return 0.0
 
 
 def distance_chunked_hash_vs_twin(proc, name):
@@ -1556,8 +1705,10 @@ def drive_sqs(stem, card):
     best_sqs = generator.get_best_sqs(1, remove_duplicates=False)[0]
     attempts = len(procs) * len(SQS_TEMPERATURES) * SQS_STEPS * SQS_WALKERS
     rate = attempts / wall
+    batches = len(generator._chain_fns(SQS_STEPS))  # launches per temperature
     print(f"phase 4 [sqs {stem}] {card}: {len(procs)} shapes x {len(SQS_TEMPERATURES)} "
-          f"temperatures x {SQS_STEPS} steps x {SQS_WALKERS} walkers, path {path}, "
+          f"temperatures x {SQS_STEPS} steps x {SQS_WALKERS} walkers in {batches} "
+          f"launch(es) a temperature, path {path}, "
           f"warm run {rate / 1e6:.1f} M attempts/s end to end ({wall:.4f} s for "
           f"{attempts} attempts), best score {best_sqs.score:.6f} (shape "
           f"{best_sqs.supercell_matrix.tolist()}), acceptance per stage "
@@ -1565,15 +1716,18 @@ def drive_sqs(stem, card):
           f"final score vs exact rescore {drift:.3e}, stored vs CPU rescore "
           f"{rescore:.3e}, warm == cold bit for bit; set-up: load {load_s:.4f} s, "
           f"cold run {cold_s:.4f} s ({cold_s - wall:+.4f} s over warm)")
-    return procs, rate
+    return procs, rate, batches
 
 
 def drive_sqs_cells(card):
-    """Phase 4 for SQS: counts set to 0 just before, read just after."""
+    """Phase 4 for SQS: counts set to 0 just before, read just after; one
+    launch per temperature for all the shapes of a cell, cold and warm."""
     sqs.distance_chain.launches = 0
     results = {stem: drive_sqs(stem, card) for stem in SQS_CELLS}
     launches = sqs.distance_chain.launches
-    expected = sum(2 * len(procs) * len(SQS_TEMPERATURES) for procs, _ in results.values())
+    expected = sum(2 * batches * len(SQS_TEMPERATURES) for _, _, batches in results.values())
+    check(expected == 2 * len(SQS_CELLS) * len(SQS_TEMPERATURES),
+          f"the shapes of a cell took {expected} launches, not one a temperature")
     check(launches == expected, f"{launches} distance kernel launches, not {expected}")
     print(f"phase 4: distance_chain launches on the SQS main path: {launches}")
     return results, launches
@@ -1905,22 +2059,24 @@ def distance_bound(ops, work):
     Bytes: every operand read once and every output written once (codes
     and best codes [R, W] int8, the feature plane [F, W] f64, score, best
     score and accept count in and out, beta, the pair sequences and the
-    tables).  Operations: what this launch's data needs, from the twin's
-    ``work`` count of the same launch: a null pair computes nothing; a
+    tables), summed over every shape of a batched launch.  Operations:
+    what this launch's data needs, from the twin's ``work`` count of the
+    same launch (every shape's): a null pair computes nothing; a
     non-null one two f64 operations per row of u and of v that it reads
     (the lookup difference and the sum), four per feature for the score
     (f + df, minus T, times W, the sum) and three more (w L, its
     subtraction, d_new - d).
     """
-    t, steps = ops["tables"], ops["n_steps"]
-    R, W = ops["occ"].shape
+    t, steps = ops["tables"] if "tables" in ops else ops["batch"], ops["n_steps"]
+    R, W = ops["occ"].shape[-2:]
+    W *= ops["occ"].numel() // (R * W)  # every shape's walkers
     F = t.num_feats
     table_tensors = [t.nbr, t.stride, t.d2, t.g, t.seg, t.target, t.weight,
                      t.group_last, t.group_diameter]
     nbytes = (4 * R * W + 2 * F * W * 8 + W * (4 * 8 + 2 * 4 + 4)
-              + sum(q[:, :steps].numel() * 4 for q in (ops["useq"], ops["vseq"]))
+              + sum(q[..., :steps].numel() * 4 for q in (ops["useq"], ops["vseq"]))
               + sum(x.numel() * x.element_size() for x in table_tensors))
-    nonnull, rows = (int(x) for x in work.sum(dim=1))
+    nonnull, rows = (int(x) for x in work.reshape(-1, 2, work.shape[-1]).sum(dim=(0, 2)))
     n_ops = 2 * rows + (4 * F + 3) * nonnull
     ops_s, bytes_s = n_ops / PEAK_F64_PER_S, nbytes / PEAK_BYTES_PER_S
     return (max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes",
@@ -1931,34 +2087,120 @@ def time_distance(name, card, timed, kernel_reps):
     """Phase 5: the kernel on the operands of a timed phase-3 launch (every
     repetition on a copy of its starting state), beside the twin's time and
     the bound of that launch; where that launch is shorter than the main
-    path's, the kernel alone on the main path's 8000-step launch too."""
+    path's, the kernel alone on the main path's 8000-step launch too (a
+    batched launch: every shape of the cell in one launch)."""
     ops, work = timed["ops"], timed["work"]
-    if ops["n_steps"] < SQS_STEPS:
-        main = distance_operands(timed["proc"], SQS_STEPS, 1.0 / SQS_TEMPERATURES[0],
-                                 SEEDS[1][1])
-        main_ms = cuda_ms(same_distance_window(main, kernel_reps), kernel_reps)
+    batched = "batch" in ops
+    window = same_batched_window if batched else same_distance_window
+    W, steps = ops["occ"].shape[-1], ops["n_steps"]
+    shapes = ops["batch"].num_shapes if batched else 1
+    if steps < SQS_STEPS:
+        beta, seed = 1.0 / SQS_TEMPERATURES[0], SEEDS[1][1]
+        main = (batched_operands(timed["procs"], SQS_STEPS, beta, seed)[0] if batched
+                else distance_operands(timed["procs"][0], SQS_STEPS, beta, seed))
+        main_ms = cuda_ms(window(main, kernel_reps), kernel_reps)
         print(f"phase 5 [distance {name}] {card}: the main path's {SQS_STEPS}-step "
-              f"launch at {SQS_WALKERS} walkers: kernel {main_ms:.4f} ms "
-              f"({main_ms * 1e3 / SQS_STEPS:.3f} us per step)")
-    kernel_ms = cuda_ms(same_distance_window(ops, kernel_reps), kernel_reps)
+              f"launch at {shapes} x {W} walkers: kernel {main_ms:.4f} ms "
+              f"({main_ms * 1e3 / SQS_STEPS:.3f} us per step, "
+              f"{shapes * W * SQS_STEPS / (main_ms * 1e-3) / 1e6:.1f} M attempts/s)")
+    kernel_ms = cuda_ms(window(ops, kernel_reps), kernel_reps)
     bound_ms, bound_by, nbytes, n_ops = distance_bound(ops, work)
-    W, steps = ops["occ"].shape[1], ops["n_steps"]
-    nonnull = int(work[0].sum())
-    rate = W * steps / (kernel_ms * 1e-3)
-    print(f"phase 5 [distance {name}] {card}: {steps}-step launch at {W} walkers "
-          f"({-(-W // 64)} CUDA blocks): kernel {kernel_ms:.4f} ms ({rate / 1e6:.1f} M "
-          f"attempts/s, {kernel_ms * 1e3 / steps:.3f} us per step), twin "
-          f"{timed['twin_ms']:.2f} ms, twin/kernel {timed['twin_ms'] / kernel_ms:.1f}x, "
+    nonnull = int(work.reshape(-1, 2, W)[:, 0].sum())
+    rate = shapes * W * steps / (kernel_ms * 1e-3)
+    lanes = sqs.launch_lanes(shapes * W)
+    design = sqs._Design(lanes=lanes)
+    blocks = shapes * -(-W // sqs.distance_block_walkers(W, SQS_BLOCK, design))
+    print(f"phase 5 [distance {name}] {card}: {steps}-step launch at {shapes} x {W} walkers "
+          f"({blocks} CUDA blocks, {lanes} lane(s) a walker): kernel {kernel_ms:.4f} "
+          f"ms ({rate / 1e6:.1f} M attempts/s, {kernel_ms * 1e3 / steps:.3f} us per step), "
+          f"twin {timed['twin_ms']:.2f} ms, twin/kernel {timed['twin_ms'] / kernel_ms:.1f}x, "
           f"bound {bound_ms * 1e3:.3f} us ({bound_by}; {nbytes / 1e6:.3f} MB, "
-          f"{n_ops / 1e6:.1f} M f64 operations; {nonnull} non-null of {W * steps} "
+          f"{n_ops / 1e6:.1f} M f64 operations; {nonnull} non-null of {shapes * W * steps} "
           f"proposals), kernel/bound {kernel_ms / bound_ms:.0f}x")
     return {"kernel_ms": kernel_ms, "twin_ms": timed["twin_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "steps": steps}
 
 
-def same_distance_window(ops, reps):
+def distance_ab(card, procs8, fcc64, reps=3):
+    """Phase 5: K7's design, part by part, each pair in turns (a, b, b, a)
+    on copies of one starting state of the main path's 8000-step launch at
+    the first stage's beta: (1) the old design (one thread a walker, rows
+    streamed, one shape a launch) against G = 2, 4, 8 and 16 lanes on one
+    shape, and the 20 8-site shapes in one launch at the chosen lanes
+    against G = 2, 4, 8 and 16; (2) streamed against resident rows; (3) the
+    20 8-site shapes as 20 launches against one; (4) the rows unpacked
+    against packed; then the old design against the new on each cell."""
+    beta, seed = 1.0 / SQS_TEMPERATURES[0], SEEDS[1][1]
+    old, new = sqs._OLD_DESIGN, sqs._DESIGN
+    lanes = dataclasses.replace(old, lanes=new.lanes)
+    single = distance_operands(procs8[0], SQS_STEPS, beta, seed)
+    full, _ = batched_operands(procs8, SQS_STEPS, beta, seed)
+    big = distance_operands(fcc64, SQS_STEPS, beta, seed)
+    shape0 = "sqs_fcc8 shape 0, one launch"
+    shapes = f"the {len(procs8)} sqs_fcc8 shapes"
+    sweep = (2, 4, 8, 16)
+    return {
+        "lanes": [distance_in_turns(f"1, lanes: {shape0}", card, single,
+                                    (old, dataclasses.replace(old, lanes=g)), reps)
+                  for g in sweep],
+        "batched lanes": [distance_in_turns(f"1, lanes: {shapes} in one launch", card, full,
+                                            (new, dataclasses.replace(new, lanes=g)), 1,
+                                            batched=True)
+                          for g in sweep],
+        "resident": distance_in_turns(
+            f"2, resident rows: {shape0}", card, single,
+            (lanes, dataclasses.replace(lanes, resident=True)), reps),
+        "batched": distance_in_turns(
+            f"3, one launch: {shapes}", card, full,
+            (dataclasses.replace(new, batched=False), new), 1, batched=True),
+        "packed": distance_in_turns(
+            f"4, packed rows: {shapes}", card, full,
+            (dataclasses.replace(new, packed=False), new), 1, batched=True),
+        "fcc8": distance_in_turns(f"old against new: {shapes}", card, full, (old, new), 1,
+                                  batched=True),
+        "fcc64": distance_in_turns("old against new: sqs_fcc_4x4x4", card, big, (old, new),
+                                   reps),
+    }
+
+
+def same_distance_window(ops, reps, design=sqs._DESIGN):
     copies = iter([fresh_distance(ops) for _ in range(reps + 1)])
-    return lambda: sqs.distance_chain(**next(copies))
+    return lambda: sqs.distance_chain(**next(copies), _design=design)
+
+
+def same_batched_window(ops, reps, design=sqs._DESIGN):
+    """One batched launch (``design.batched``), or one launch per shape, for
+    :func:`cuda_ms`, every call on a copy of the starting state."""
+    copies = iter([fresh_distance(ops) for _ in range(reps + 1)])
+    return lambda: sqs.distance_chain_batched(**next(copies), _design=design)
+
+
+def design_name(design, walkers=None):
+    """A design's label; with ``walkers`` (a launch's), its lanes for them."""
+    layout = {None: "fit", True: "resident", False: "streamed"}[design.resident]
+    lanes = design.lanes or (sqs.launch_lanes(walkers) if walkers else "auto")
+    return (f"G={lanes} {layout}"
+            f"{' packed' if design.packed else ''}{'' if design.batched else ' per-shape'}")
+
+
+def distance_in_turns(label, card, ops, designs, reps, batched=False):
+    """Two designs of the distance kernel timed in turns (a, b, b, a) on
+    copies of one starting state: each turn the mean of ``reps`` launches
+    (``batched``: of :func:`same_batched_window`).  Returns each design's
+    mean of its two turns, in ms."""
+    window = same_batched_window if batched else same_distance_window
+    turns = {design: [] for design in designs}
+    a, b = designs
+    for design in (a, b, b, a):
+        turns[design].append(cuda_ms(window(ops, reps, design), reps))
+    ta, tb = (sum(turns[d]) / len(turns[d]) for d in designs)
+    shapes, W = (ops["occ"].shape[0], ops["occ"].shape[2]) if batched else (1, ops["occ"].shape[1])
+    na, nb = (design_name(d, shapes * W if d.batched else W) for d in designs)
+    print(f"phase 5 [distance A/B {label}] {card}: {nb} {tb:.4f} ms against {na} {ta:.4f} "
+          f"ms (turns a, b, b, a: {turns[a][0]:.4f}, {turns[b][0]:.4f}, {turns[b][1]:.4f}, "
+          f"{turns[a][1]:.4f}), {nb if tb < ta else na} faster by "
+          f"{max(ta, tb) / min(ta, tb):.3f}x")
+    return {"a": ta, "b": tb, "turns": [turns[a][0], turns[b][0], turns[b][1], turns[a][1]]}
 
 
 def main():
@@ -2124,9 +2366,15 @@ def main():
     errs["wl+qary"].append(wl_chunked_hash_vs_twin(*sgc_wl, WL_QARY_CELL, "flip", "qary"))
     print(f"phase 3: the Wang-Landau comparisons took {time.perf_counter() - t0:.1f} s")
     join_build(1)
-    # the distance chain: both cells and RNG modes, a chunk boundary, beta 0
-    # and 50 (T = 0.02), no match term, and the main path's own launch
-    fcc8, fcc64 = sqs_processors("sqs_fcc8")[0], sqs_processors("sqs_fcc_4x4x4")[0]
+    # the distance chain at the chosen design (rows resident on the 8-site
+    # shapes, streamed on the 64-site one): both cells and RNG modes, a chunk
+    # boundary, beta 0 and 50 (T = 0.02), no match term, the old design;
+    # a batched launch of the 20 8-site shapes against their own launches
+    # and, across a chunk boundary, against one chain per shape, in both RNG
+    # modes; and the main paths' own launches against the twin
+    t0 = time.perf_counter()
+    procs8 = sqs_processors("sqs_fcc8")
+    fcc8, fcc64 = procs8[0], sqs_processors("sqs_fcc_4x4x4")[0]
     errs["distance"] = []
     for name, proc in (("sqs_fcc8 shape 0", fcc8), ("sqs_fcc_4x4x4", fcc64)):
         for rng, seed in SEEDS:
@@ -2136,16 +2384,23 @@ def main():
     errs["distance"].append(distance_vs_twin(fcc64, "sqs_fcc_4x4x4", *SEEDS[1], beta=50.0))
     errs["distance"].append(distance_vs_twin(fcc8, "sqs_fcc8 shape 0", *SEEDS[1],
                                              match_weight=0.0))
+    errs["distance"].append(distance_vs_twin(fcc8, "sqs_fcc8 shape 0", *SEEDS[0],
+                                             design=sqs._OLD_DESIGN))
+    for rng, seed in SEEDS:
+        errs["distance"].append(batched_vs_per_shape(procs8, "sqs_fcc8", rng, seed))
+        errs["distance"].append(batched_chunked_vs_per_shape(procs8, "sqs_fcc8", rng))
+    print(f"phase 3: the distance comparisons took {time.perf_counter() - t0:.1f} s")
     sqs_timed = {}
-    for name, proc, steps in (("sqs_fcc8 shape 0", fcc8, SQS_STEPS),
-                              ("sqs_fcc_4x4x4", fcc64, SQS_TWIN_STEPS)):
-        t0 = time.perf_counter()
-        err, sqs_timed[name] = distance_vs_twin(  # the first stage's launch
-            proc, f"{name}, the main path's launch:", *SEEDS[1],
-            beta=1.0 / SQS_TEMPERATURES[0], n_steps=steps, timed=True)
-        sqs_timed[name]["proc"] = proc
-        errs["distance"].append(err)
-        print(f"phase 3: that comparison took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    err, sqs_timed["sqs_fcc8 batched"] = batched_vs_twin(  # the first stage's launch
+        procs8, "sqs_fcc8", *SEEDS[1], beta=1.0 / SQS_TEMPERATURES[0], n_steps=SQS_WINDOW)
+    errs["distance"].append(err)
+    err, sqs_timed["sqs_fcc_4x4x4"] = distance_vs_twin(
+        fcc64, "sqs_fcc_4x4x4, the main path's launch:", *SEEDS[1],
+        beta=1.0 / SQS_TEMPERATURES[0], n_steps=SQS_TWIN_STEPS, timed=True)
+    sqs_timed["sqs_fcc_4x4x4"]["procs"] = [fcc64]
+    errs["distance"].append(err)
+    print(f"phase 3: the main launches against the twin took {time.perf_counter() - t0:.1f} s")
     print(f"phases 2-3 took {time.perf_counter() - t_start:.1f} s")
 
     # phase 4: the main paths; only these runs are counted
@@ -2196,6 +2451,7 @@ def main():
                 ens, system, stem, card, move, WL_WALKERS, delta=delta)
     for name, timed in sqs_timed.items():
         timings[("distance", name)] = time_distance(name, card, timed, kernel_reps=5)
+    distance_ab(card, procs8, fcc64)
 
     def in_turns(label, time_fn, bodies):
         """Two bodies timed in turns (a, b, b, a): the twin on the first turn
@@ -2311,7 +2567,7 @@ def main():
               f"{ref}:1866", launches[("wl", "ising")], "wl+ising"),
         entry("wl_chain (K3 body, q = 3)", ("wl-flip+qary", WL_QARY_CELL), wl_src,
               f"{ref}:1866", launches[("wl", "qary")], "wl+qary"),
-        entry("distance_chain", ("distance", "sqs_fcc8 shape 0"),
+        entry("distance_chain", ("distance", "sqs_fcc8 batched"),
               "smol_tpu_torch/csrc/distance_chain.cu", "smol_tpu/ops/pallas_sqs.py:649",
               sqs_launches, "distance"),
         entry("qary_body (K3, in flip_chain)", ("flip+qary", SGC_CELL), body_src,

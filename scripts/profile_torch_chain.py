@@ -59,7 +59,7 @@ from smol_tpu_torch.constants import kB  # noqa: E402
 from smol_tpu_torch.moca.ensemble import Ensemble, random_occupancies  # noqa: E402
 from smol_tpu_torch.moca.processor.distance import CorrelationDistanceProcessor  # noqa: E402
 from smol_tpu_torch.moca.sampler.sampler import Sampler  # noqa: E402
-from smol_tpu_torch.ops import chain  # noqa: E402
+from smol_tpu_torch.ops import chain, sqs  # noqa: E402
 from smol_tpu_torch.parallel import (  # noqa: E402
     ExchangeLaunches,
     exchange_betas,
@@ -268,7 +268,8 @@ def profile_cell(stem, card, sampler, occ0, windows, thin, segments=None):
 def profile_sqs(stem, card):
     """The SQS cell: one warm ``generate`` of ``bench.py``'s sqs config (all
     shapes of the file, 2048 walkers x 4 temperatures x 8000 steps), after a
-    first one that builds the tables; a window is one launch."""
+    first one that builds the tables; a window is one launch (all the
+    shapes of a temperature)."""
     systems = load_systems(ROOT / "tests" / "data" / f"torch_{stem}.npz")
     generator = StochasticSQSGenerator.from_processors(
         [CorrelationDistanceProcessor(s, "cuda") for s in systems], device="cuda")
@@ -280,8 +281,9 @@ def profile_sqs(stem, card):
 
     run()  # warm-up
     torch.cuda.synchronize()
+    before = sqs.distance_chain.launches
     prof, wall = profiled(run)
-    launches = len(systems) * len(temperatures)
+    launches = sqs.distance_chain.launches - before
     head = (f"[sqs {stem}] {card}: {generator.execution_path}, {len(systems)} shapes x "
             f"{len(temperatures)} temperatures x {SQS_STEPS} steps x {SQS_WALKERS} "
             f"walkers: wall {wall * 1e3:.3f} ms ({wall / launches * 1e3:.4f} ms per launch)")

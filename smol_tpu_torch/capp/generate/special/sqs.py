@@ -6,8 +6,10 @@ walkers of canonical swaps against its distance processor's score
 d = -w L + ||W (f - f_T)||_1 at kB = 1
 (https://doi.org/10.1016/j.calphad.2013.06.006): one composition-exact
 start, a random permutation of it within each sublattice per walker, then
-one launch of the distance chain per temperature (:mod:`smol_tpu_torch.ops.sqs`,
-the CUDA kernel on the card, its plain torch twin on the CPU), each walker
+per temperature one launch of the distance chain for all the shapes of the
+size (:mod:`smol_tpu_torch.ops.sqs`, the CUDA kernel on the card, its plain
+torch twin on the CPU; each shape draws as its own launch would, and sums
+as the launch's lanes do), each walker
 keeping its best (score, occupancy); the best occupancies are rescored
 exactly at the end.  The generator is built from distance processors
 (:meth:`StochasticSQSGenerator.from_processors`); what needs the host layer
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from smol_tpu_torch.capp.generate.random import generate_random_ordered_occupancy
-from smol_tpu_torch.ops.sqs import build_distance_tables, make_distance_chain
+from smol_tpu_torch.ops.sqs import build_distance_tables, make_batched_distance_chain
 
 __all__ = ["SQS", "SQSGenerator", "StochasticSQSGenerator", "random_starts"]
 
@@ -185,7 +187,7 @@ class StochasticSQSGenerator(SQSGenerator):
             )
         super().__init__(processors, device=device)
         self._tables = {}  # shape -> DistanceTables
-        self._chain_fns = {}  # (shape, steps) -> chain fn
+        self._chains = {}  # steps -> [(shapes, batched chain fn)]
         self.stage_records = []
         self.start_scores = []
 
@@ -204,16 +206,25 @@ class StochasticSQSGenerator(SQSGenerator):
             "the multicell sampler is not ported yet (ROADMAP.md Queue 1 item 6)"
         )
 
-    def _chain_fn(self, shape, mcmc_steps):
-        key = (shape, int(mcmc_steps))
-        if key not in self._chain_fns:
-            if shape not in self._tables:
-                self._tables[shape] = build_distance_tables(self._processors[shape])
-            self._chain_fns[key] = make_distance_chain(
-                self._tables[shape], int(mcmc_steps),
-                self._processors[shape].compute_corr,
-            )
-        return self._chain_fns[key]
+    def _chain_fns(self, mcmc_steps):
+        """[(shapes, chain fn)]: one batched distance chain per group of
+        shapes whose tables stack (equal ranks and features: every shape of
+        one size), for ``mcmc_steps`` steps."""
+        key = int(mcmc_steps)
+        if key not in self._chains:
+            for shape, processor in enumerate(self._processors):
+                if shape not in self._tables:
+                    self._tables[shape] = build_distance_tables(processor)
+            groups = {}
+            for shape, tables in self._tables.items():
+                groups.setdefault((tables.num_ranks, tables.num_feats), []).append(shape)
+            self._chains[key] = [
+                (shapes, make_batched_distance_chain(
+                    [self._tables[s] for s in shapes], key,
+                    [self._processors[s].compute_corr for s in shapes]))
+                for shapes in groups.values()
+            ]
+        return self._chains[key]
 
     def generate(self, mcmc_steps, temperatures=None, initial_occupancies=None,
                  clear_previous=True, max_save_num=None, nwalkers=32,
@@ -231,17 +242,27 @@ class StochasticSQSGenerator(SQSGenerator):
             seed: seed of the numpy generator that draws the starts and the
                 seeds of the chains' generators.
 
+        Every shape draws its starts and its generator's seed from the numpy
+        generator in shape order, as the reference's loop over shapes does;
+        then each temperature is one launch of the distance chain for all
+        shapes (per chunk), each shape drawing its pairs and seed from its
+        own generator, which gives what one launch per shape would at the
+        same lanes a walker (:func:`smol_tpu_torch.ops.sqs.launch_lanes`:
+        they follow the launch's walkers and set the order in which a
+        walker's feature changes are summed).
         ``start_scores`` then holds each shape's starting scores [W], and
-        ``stage_records``, for every launch, the shape, the temperature and
-        the walkers' occupancies, scores and accept counts at its end (all
-        on the generator's device).
+        ``stage_records``, shape by shape and for every temperature, the
+        shape, the temperature and the walkers' occupancies, scores and
+        accept counts at the end of that launch (all on the generator's
+        device).
         """
         if temperatures is None:
             temperatures = np.linspace(5.0, 0.01, 20)
         if clear_previous:
             self._best = []
         rng = np.random.default_rng(seed)
-        self.stage_records, self.start_scores = [], []
+        self.start_scores = []
+        states, generators = [], []
         for shape, processor in enumerate(self._processors):
             rng.integers(2**31)  # the reference's kernel seed: keeps its draws
             if initial_occupancies is not None:
@@ -254,23 +275,31 @@ class StochasticSQSGenerator(SQSGenerator):
             occu = torch.as_tensor(occus, dtype=torch.int32, device=self.device)
             scores = processor.compute_scores(occu)
             self.start_scores.append(scores.clone())
-            state = {
+            states.append({
                 "occupancy": occu, "enthalpy": scores,
                 "naccept": torch.zeros(nwalkers, dtype=torch.int32, device=self.device),
                 "best_enthalpy": scores.clone(), "best_occupancy": occu.clone(),
-            }
-            chain_fn = self._chain_fn(shape, mcmc_steps)
-            for temp in temperatures:
+            })
+            generators.append(generator)
+        records = [[] for _ in states]
+        chain_fns = self._chain_fns(mcmc_steps)
+        for temp in temperatures:
+            for state in states:
                 state["beta"] = torch.full((nwalkers,), 1.0 / float(temp),
                                            dtype=torch.float64, device=self.device)
                 state["window_naccept"] = torch.zeros_like(state["naccept"])
-                state = chain_fn(state, generator)
-                self.stage_records.append({
+            for shapes, chain_fn in chain_fns:
+                chain_fn([states[s] for s in shapes], [generators[s] for s in shapes])
+            for shape, state in enumerate(states):
+                records[shape].append({
                     "shape": shape, "temperature": float(temp),
                     "occupancy": state["occupancy"].clone(),
                     "enthalpy": state["enthalpy"].clone(),
                     "naccept": state["window_naccept"],
                 })
+        self.stage_records = [record for shape_records in records
+                              for record in shape_records]
+        for shape, (processor, state) in enumerate(zip(self._processors, states)):
             # exact batched rescore: the stored score is the processor's
             features = processor.compute_features(state["best_occupancy"])
             best_scores = features @ torch.as_tensor(processor.coefs, device=self.device)

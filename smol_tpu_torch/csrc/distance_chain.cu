@@ -4,10 +4,9 @@
 // :355, `kernel` :394, pallas_call :649): canonical swaps annealed against
 // the correlation distance d = -w L + sum_f W_f |f_f - T_f|, each walker
 // with its own intensive feature vector f, its score d and its best (score,
-// occupancy).  It keeps swap_chain.cu's frame (one thread per walker, the
-// block's codes in shared memory for the whole window, exogenous pairs
-// (u, v) shared by the walkers of a group, Philox or the reference's hash
-// from chain_common.cuh):
+// occupancy).  Exogenous pairs (u, v) are shared by the walkers of a
+// sequence group, the random bits are Philox or the reference's hash
+// (chain_common.cuh):
 //
 // - A rank's local rows (one per local cluster and correlation function of
 //   its orbit) hold their neighbour ranks and strides, their self stride
@@ -16,14 +15,10 @@
 //   Nothing of the TPU layout (bf16 stride planes, the 0/1 scatter matrix
 //   on the MXU, extent segments with select loops) is kept: a row's value
 //   change is two direct lookups, g[t_new] - g[t_old].
-// - The step's feature change df[f] sums, in f64 and in row order, u's rows
-//   going a -> b, then v's going b -> a against the occupancy with u
-//   already holding b (written into u's shared cell, and a put back on
-//   reject), as the reference (:416, :527-537).  F is a template bound
-//   FMAX: f and df live in registers, each feature's loop over its rows
-//   unrolled over f, so no register array is indexed at run time.  Two
-//   bodies: K = 3 with F <= 8 (the bench's FCC triplets, 5 features: 64
-//   registers, no spills) and the general one, runtime K with F <= 32.
+// - The step's feature change df[f] sums, in f64, u's rows going a -> b,
+//   then v's going b -> a against the occupancy with u already holding b
+//   (written into u's shared cell, and a put back on reject), as the
+//   reference (:416, :527-537).
 // - d_new from f + df: |f + df - T| per feature, the weighted sum in the
 //   order of the diameter groups with every product and sum rounded on its
 //   own (__dmul_rn, __dadd_rn: no fused multiply-add, which the plain torch
@@ -36,16 +31,56 @@
 //   walker whose d is below its best takes d and its codes as its best
 //   (:561-563).
 //
-// What bounds it on this card: the latency of each walker's dependent step
-// (a step reads 2 x up to L rows of K neighbour codes), not the roofline.
-// Both ranks are known in advance, so the next step's rows of u and v are
-// copied into shared memory with cp.async, double buffered (K8).  A thread
-// beyond the last walker takes part in the copies and the barriers only:
-// its whole step lies under one branch.
+// Lanes.  A walker is G consecutive threads of one warp (G = 1, 2, 4, 8 or
+// 16, `lanes`; one lane has its own instantiation, ONE_LANE, with no warp
+// synchronisation), and a block holds `walkers_per_block` walkers of one
+// sequence group.  Lane j takes rows seg[f] + j, seg[f] + j + G, ... of
+// each feature f, u's then v's, into its own partial df[FMAX] in row order;
+// the G partials then meet in a butterfly of __shfl_xor_sync (xor 1, 2,
+// 4, ...), after which every lane holds the same bits (f64 addition
+// commutes) and computes the score and the decision itself.  F is bounded
+// by the template's FMAX and each feature's loop is unrolled over f, so no
+// register array is indexed at run time.  Lane 0 writes the walker's
+// shared codes; a __syncwarp over the walker's lanes orders the write of b
+// into u's cell before v's rows, and the decision's writes before the next
+// step.  The best-codes copy and the codes' load and store are split
+// across the lanes.  At G = 1 this is the one-thread-per-walker chain.
 //
-// occ and best_occ ([R, W] int8, rank-major), feat ([F, W] f64), d, best_d
-// and naccept are updated in place.  The C entry point returns
-// cudaGetLastError() after the launch.
+// Tables.  A rank's rows are read unpacked (Rows: d2, K ranks, K strides,
+// 2 K + 1 loads a row) or, for K <= 3 and F <= 8, packed (PackedRows: one
+// 8-byte load a row, ops/sqs.py pack_rows; 38.6 KB for the 8 ranks of an
+// 8-site shape, against 49.3 KB unpacked).  Where all R ranks' row sets fit
+// in shared memory beside the block's codes (`resident`; the launcher's
+// shared-memory budget decides, from the shapes), the block copies them
+// once with cp.async and runs every step with no block barrier: only the
+// lanes of one walker synchronise.  Otherwise (the 64-site shape, 315 KB
+// packed) the next step's rows of u and v are streamed into a second
+// buffer with cp.async while this step runs (K8), behind one block barrier
+// a step.
+//
+// Batches.  One launch runs S shapes of one size: every per-walker operand
+// is [S, ...] shape-major, the tables are padded to the batch's largest L
+// (rows past a rank's seg end are never read), and block b serves shape
+// b / blocks_per_shape.  A walker draws with its index within its shape,
+// its shape's seed and its shape's pair sequences, so a batched launch
+// equals the S launches of one shape each, at the same lanes, bit for bit.
+//
+// What bounds it on this card: not the roofline (chip_smoke.py
+// `distance_bound`: the operations this launch's data needs, two f64
+// operations a row read and 4 F + 3 a non-null proposal, at the card's f64
+// rate; the kernel is two orders of magnitude above it, PERF.md).  One
+// shape's 2048 walkers are latency-bound: each step is a chain of
+// shared-memory loads per row (rows -> codes -> lookups), so the lanes cut
+// the rows a thread walks in turn by G and put G times more warps on the
+// card (G = 16 there).  A batch that fills the card (the 20 8-site shapes:
+// 40960 walkers, about 10 warps an SM at one lane) is bound by the
+// instructions and shared-memory loads issued, so it runs at one lane,
+// where no lane repeats the score, the draws and the decision, and with
+// packed rows (ops/sqs.py launch_lanes picks G from the launch's walkers).
+//
+// occ and best_occ ([S, R, W] int8, rank-major), feat ([S, F, W] f64), d,
+// best_d and naccept ([S, W]) are updated in place.  The C entry point
+// returns cudaGetLastError() after the launch.
 
 #include "chain_common.cuh"
 
@@ -53,41 +88,176 @@ namespace {
 
 using namespace smol;
 
-// df[f] += the change of each of the rank's rows of feature f (rows
-// seg[f] .. seg[f + 1] - 1, in order) going from code a to b.
-template <int KT, int FMAX>
-__device__ __forceinline__ void add_row_deltas(double (&df)[FMAX], const Rows& rows,
-                                               const int32_t* __restrict__ seg,
-                                               const int8_t* s_occ, int nt, int tid,
-                                               int K_rt, int TM, int F, int a,
-                                               int b) {
+constexpr int kDistanceThreads = 256;  // most threads of a block: walkers x lanes
+
+// Bytes of one rank-major row of the block's codes: one per walker, padded
+// so that the rows of different ranks start in different banks.
+__host__ __device__ __forceinline__ int code_pitch(int walkers_per_block) {
+  return (walkers_per_block + 3) / 4 * 4 + 4;
+}
+
+// The segment starts of every rank, [R, F + 1] int32, kept in shared memory.
+__host__ __device__ __forceinline__ size_t seg_bytes(int R, int F) {
+  return ((size_t)R * (F + 1) * 4 + 15) / 16 * 16;
+}
+
+// One rank's rows packed (ops/sqs.py pack_rows): the lookups g [L, TM] f64,
+// then per row one 8-byte word pair: d2 and three slots' ranks in bytes of
+// x, their strides in bytes of y (an empty slot: rank 0, stride 0).
+struct PackedRows {
+  double* g;
+  int2* meta;
+};
+
+__host__ __device__ __forceinline__ size_t packed_rows_bytes(int L, int TM) {
+  return ((size_t)L * TM * 8 + (size_t)L * 8 + 15) / 16 * 16;
+}
+
+__device__ __forceinline__ PackedRows packed_rows_at(unsigned char* base, int L, int TM) {
+  PackedRows r;
+  r.g = reinterpret_cast<double*>(base);
+  r.meta = reinterpret_cast<int2*>(r.g + (size_t)L * TM);
+  return r;
+}
+
+// Issue the asynchronous copy of rank u's packed rows into `dst` (all threads).
+__device__ __forceinline__ void copy_packed_rows(const PackedRows& dst, int u,
+                                                 const int2* __restrict__ meta,
+                                                 const double* __restrict__ g, int L,
+                                                 int TM, int tid, int nt) {
+  const double* g_u = g + (size_t)u * L * TM;
+  for (int x = tid; x < L * TM; x += nt) {
+    __pipeline_memcpy_async(dst.g + x, g_u + x, sizeof(double));
+  }
+  const int2* m_u = meta + (size_t)u * L;
+  for (int x = tid; x < L; x += nt) {
+    __pipeline_memcpy_async(dst.meta + x, m_u + x, sizeof(int2));
+  }
+  __pipeline_commit();
+}
+
+// A row's table index t at code a (d2 a + sum_k stride code(rank)) and its
+// self stride d2, from the unpacked rows (2 K + 1 loads) or the packed ones
+// (one 8-byte load: the same integers, so the same lookups).
+template <int KT>
+__device__ __forceinline__ int2 row_index(const Rows& rows, int j, const int8_t* codes,
+                                          int pitch, int K_rt, int a) {
   const int K = KT > 0 ? KT : K_rt;
+  const int d = rows.d2[j];
+  int t = d * a;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int n = rows.nbr[j * K + k];
+    const int code = n >= 0 ? (int)codes[n * pitch] : 0;
+    t += rows.st[j * K + k] * code;
+  }
+  return make_int2(t, d);
+}
+
+template <int KT>
+__device__ __forceinline__ int2 row_index(const PackedRows& rows, int j,
+                                          const int8_t* codes, int pitch, int, int a) {
+  const int2 m = rows.meta[j];
+  const unsigned x = (unsigned)m.x;
+  const unsigned y = (unsigned)m.y;
+  const int d = x & 0xFF;
+  const int t = d * a + (int)(y & 0xFF) * codes[((x >> 8) & 0xFF) * pitch] +
+                (int)((y >> 8) & 0xFF) * codes[((x >> 16) & 0xFF) * pitch] +
+                (int)((y >> 16) & 0xFF) * codes[(x >> 24) * pitch];
+  return make_int2(t, d);
+}
+
+// One lane: df[f] += the change of each of the rank's rows of feature f
+// (rows seg[f] .. seg[f + 1] - 1) going from code a to b, every row in
+// order, the row index running on from feature to feature and the
+// segment starts `seg` read from device memory; unrolled by 4, so that one
+// row's dependent shared loads overlap the next rows'.  On an H100 this
+// loop runs the one-lane launch 29 % faster (unpacked rows) and 11 %
+// faster (packed) than the lanes' loop below at one lane.  `codes` is the
+// walker's column of the block's codes.
+template <int KT, class RowsT, int FMAX>
+__device__ __forceinline__ void add_rows_in_order(double (&df)[FMAX], const RowsT& rows,
+                                                  const int32_t* __restrict__ seg,
+                                                  const int8_t* codes, int pitch, int K_rt,
+                                                  int TM, int F, int a, int b) {
   int j = __ldg(seg);
 #pragma unroll
   for (int f = 0; f < FMAX; ++f) {
     if (f < F) {
       const int end = __ldg(seg + f + 1);
       double acc = df[f];
-      // a feature's row count varies by rank; unrolled, one row's dependent
-      // shared loads overlap the next rows' (-19 % per launch, A/B on an H100)
 #pragma unroll 4
       for (; j < end; ++j) {
-        const int d = rows.d2[j];
-        int t = d * a;
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const int n = rows.nbr[j * K + k];
-          const int code = n >= 0 ? (int)s_occ[n * nt + tid] : 0;
-          t += rows.st[j * K + k] * code;
-        }
-        const int tn = t + d * (b - a);
-        const double term = rows.g[j * TM + tn] - rows.g[j * TM + t];
+        const int2 td = row_index<KT>(rows, j, codes, pitch, K_rt, a);
+        const double term = rows.g[j * TM + td.x + td.y * (b - a)] - rows.g[j * TM + td.x];
         acc += term;
       }
       df[f] = acc;
     }
   }
 }
+
+// Several lanes: df[f] += the change of this lane's rows of feature f (rows
+// seg[f] + lane, seg[f] + lane + lanes, ... before seg[f + 1], in order);
+// `seg` in shared memory.  A lane has only 1-6 rows of a feature here, and
+// the loop runs faster not unrolled (an H100: -21 % at 16 lanes).
+template <int KT, class RowsT, int FMAX>
+__device__ __forceinline__ void add_lane_rows(double (&df)[FMAX], const RowsT& rows,
+                                              const int32_t* seg, const int8_t* codes,
+                                              int pitch, int K_rt, int TM, int F, int lane,
+                                              int shift, int a, int b) {
+  const int lanes = 1 << shift;
+#pragma unroll
+  for (int f = 0; f < FMAX; ++f) {
+    if (f < F) {
+      const int first = seg[f] + lane;
+      const int count = (seg[f + 1] - first + lanes - 1) >> shift;  // this lane's rows
+      double acc = df[f];
+#pragma unroll 1
+      for (int q = 0; q < count; ++q) {
+        const int j = first + q * lanes;
+        const int2 td = row_index<KT>(rows, j, codes, pitch, K_rt, a);
+        const double term = rows.g[j * TM + td.x + td.y * (b - a)] - rows.g[j * TM + td.x];
+        acc += term;
+      }
+      df[f] = acc;
+    }
+  }
+}
+
+// The row sets of a launch: unpacked (Rows, any K) or packed (K <= 3).
+template <bool PACKED>
+struct RowSets {
+  using T = Rows;
+  static __host__ __device__ size_t bytes(int L, int K, int TM) {
+    return rows_bytes(L, K, TM, 0);
+  }
+  static __device__ T at(unsigned char* base, int L, int K, int TM) {
+    return rows_at(base, L, K, TM, 0);
+  }
+  static __device__ void copy(unsigned char* dst, int u, const int32_t* nbr,
+                              const int32_t* stride, const int32_t* d2, const int2*,
+                              const double* g, int L, int K, int TM, int tid, int nt) {
+    copy_rows(rows_at(dst, L, K, TM, 0), u, nbr, stride, d2, g, nullptr, L, K, TM, 0,
+              tid, nt);
+  }
+};
+
+template <>
+struct RowSets<true> {
+  using T = PackedRows;
+  static __host__ __device__ size_t bytes(int L, int, int TM) {
+    return packed_rows_bytes(L, TM);
+  }
+  static __device__ T at(unsigned char* base, int L, int, int TM) {
+    return packed_rows_at(base, L, TM);
+  }
+  static __device__ void copy(unsigned char* dst, int u, const int32_t*, const int32_t*,
+                              const int32_t*, const int2* meta, const double* g, int L,
+                              int, int TM, int tid, int nt) {
+    copy_packed_rows(packed_rows_at(dst, L, TM), u, meta, g, L, TM, tid, nt);
+  }
+};
 
 // The score of features fn: sum_f W_f |fn_f - T_f| - w L (see the top).
 template <int FMAX>
@@ -115,15 +285,15 @@ __device__ __forceinline__ double score(const double (&fn)[FMAX], const double* 
   return __dsub_rn(dsum, __dmul_rn(mw, ell));
 }
 
-template <int KT, int FMAX>
-__global__ void __launch_bounds__(kMaxThreads)
+template <int KT, int FMAX, bool PACKED, bool ONE_LANE>
+__global__ void __launch_bounds__(kDistanceThreads)
 distance_chain_kernel(int8_t* __restrict__ occ, int8_t* __restrict__ best_occ,
                       double* __restrict__ feat, double* __restrict__ dist,
                       double* __restrict__ best, int32_t* __restrict__ naccept,
                       const float* __restrict__ beta,
                       const int32_t* __restrict__ useq,
                       const int32_t* __restrict__ vseq, int seq_stride,
-                      const int64_t* __restrict__ seed_ptr,
+                      int seq_shape_stride, const int64_t* __restrict__ seeds,
                       const int32_t* __restrict__ nbr,
                       const int32_t* __restrict__ stride,
                       const int32_t* __restrict__ d2,
@@ -132,23 +302,60 @@ distance_chain_kernel(int8_t* __restrict__ occ, int8_t* __restrict__ best_occ,
                       const double* __restrict__ target,
                       const double* __restrict__ weight,
                       const int32_t* __restrict__ group_last,
-                      const double* __restrict__ group_diameter, int R, int L,
-                      int K_rt, int TM, int F, int W, int block_size, int n_steps,
-                      int rng_mode, double match_tol, double match_weight) {
+                      const double* __restrict__ group_diameter,
+                      const double* __restrict__ match,
+                      const int2* __restrict__ meta, int R, int L, int K_rt,
+                      int TM, int F, int W, int block_size, int n_steps,
+                      int rng_mode, int lanes, int walkers_per_block,
+                      int resident) {
+  using Sets = RowSets<PACKED>;
+  if (ONE_LANE) lanes = 1;
   const int K = KT > 0 ? KT : K_rt;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ double s_t[FMAX], s_w[FMAX], s_gd[FMAX];
   __shared__ int s_last[FMAX];
-  // two slots (this step, next step), each the rows of u then of v
-  const size_t rb = rows_bytes(L, K, TM, 0);
+  // the rows: every rank's (resident), or two slots (this step, next
+  // step) of u's then v's; then the segment starts, the codes, the best codes
+  const size_t rb = Sets::bytes(L, K, TM);
+  const int pitch = code_pitch(walkers_per_block);
+  int32_t* s_seg = reinterpret_cast<int32_t*>(smem + (resident ? R : 4) * rb);
+  int8_t* s_occ = reinterpret_cast<int8_t*>(s_seg) + seg_bytes(R, F);
+  int8_t* s_best = s_occ + (size_t)R * pitch;
+
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  int8_t* s_occ = reinterpret_cast<int8_t*>(smem + 4 * rb);
-  int8_t* s_best = s_occ + (size_t)R * nt;
+  const int shift = ONE_LANE ? 0 : __ffs(lanes) - 1;  // lanes is a power of two
+  const int wl = tid >> shift;         // the walker within the block
+  const int lane = tid & (lanes - 1);  // the lane within the walker
+  const unsigned group = lanes == 1 ? 1u : (1u << lanes) - 1u;
+  const unsigned mask = group << ((tid & 31) & ~(lanes - 1));  // the walker's lanes
 
-  const int w = blockIdx.x * nt + tid;
+  // this block's shape s and its first walker w0 within the shape
+  const int blocks_per_shape = (W + walkers_per_block - 1) / walkers_per_block;
+  const int s = blockIdx.x / blocks_per_shape;
+  const int w0 = (blockIdx.x % blocks_per_shape) * walkers_per_block;
+  const int w = w0 + wl;
   const bool live = w < W;
   const int wc = live ? w : W - 1;
+  occ += (size_t)s * R * W;
+  best_occ += (size_t)s * R * W;
+  feat += (size_t)s * F * W;
+  dist += (size_t)s * W;
+  best += (size_t)s * W;
+  naccept += (size_t)s * W;
+  beta += (size_t)s * W;
+  nbr += (size_t)s * R * L * K;
+  stride += (size_t)s * R * L * K;
+  d2 += (size_t)s * R * L;
+  g += (size_t)s * R * L * TM;
+  if (PACKED) meta += (size_t)s * R * L;
+  seg += (size_t)s * R * (F + 1);
+  target += (size_t)s * F;
+  weight += (size_t)s * F;
+  group_last += (size_t)s * F;
+  group_diameter += (size_t)s * F;
+  const double match_tol = match[2 * s];
+  const double match_weight = match[2 * s + 1];
 
   for (int f = tid; f < F; f += nt) {
     s_t[f] = target[f];
@@ -156,10 +363,15 @@ distance_chain_kernel(int8_t* __restrict__ occ, int8_t* __restrict__ best_occ,
     s_gd[f] = group_diameter[f];
     s_last[f] = group_last[f];
   }
-  for (int r = 0; r < R; ++r) {
-    s_occ[r * nt + tid] = occ[(size_t)r * W + wc];
-    s_best[r * nt + tid] = best_occ[(size_t)r * W + wc];
+  for (int x = tid; x < R * (F + 1); x += nt) s_seg[x] = seg[x];
+  for (int x = tid; x < R * walkers_per_block; x += nt) {
+    const int r = x / walkers_per_block;
+    const int c = x % walkers_per_block;
+    const size_t at = (size_t)r * W + min(w0 + c, W - 1);
+    s_occ[r * pitch + c] = occ[at];
+    s_best[r * pitch + c] = best_occ[at];
   }
+  int8_t* codes = s_occ + wl;
   double cur[FMAX];  // the walker's features
 #pragma unroll
   for (int k = 0; k < FMAX; ++k) cur[k] = k < F ? feat[(size_t)k * W + wc] : 0.0;
@@ -169,73 +381,96 @@ distance_chain_kernel(int8_t* __restrict__ occ, int8_t* __restrict__ best_occ,
   int nacc = 0;
 
   // the whole CUDA block lies in one sequence group (see the launcher)
-  const int grp = (blockIdx.x * nt) / block_size;
-  const int32_t* my_useq = useq + (size_t)grp * seq_stride;
-  const int32_t* my_vseq = vseq + (size_t)grp * seq_stride;
-  const Draws draws(*seed_ptr, grp, wc, block_size);
+  const int grp = w0 / block_size;
+  const int32_t* my_useq = useq + (size_t)s * seq_shape_stride + (size_t)grp * seq_stride;
+  const int32_t* my_vseq = vseq + (size_t)s * seq_shape_stride + (size_t)grp * seq_stride;
+  const Draws draws(seeds[s], grp, wc, block_size);
 
   auto prefetch = [&](int i) {  // step i's rows of u and v into slot i & 1
     unsigned char* slot = smem + (i & 1) * 2 * rb;
-    copy_rows(rows_at(slot, L, K, TM, 0), __ldg(my_useq + i), nbr, stride, d2, g,
-              nullptr, L, K, TM, 0, tid, nt);
-    copy_rows(rows_at(slot + rb, L, K, TM, 0), __ldg(my_vseq + i), nbr, stride, d2,
-              g, nullptr, L, K, TM, 0, tid, nt);
+    Sets::copy(slot, __ldg(my_useq + i), nbr, stride, d2, meta, g, L, K, TM, tid, nt);
+    Sets::copy(slot + rb, __ldg(my_vseq + i), nbr, stride, d2, meta, g, L, K, TM, tid,
+               nt);
   };
-  if (n_steps > 0) prefetch(0);
+  if (resident) {
+    for (int r = 0; r < R; ++r) {
+      Sets::copy(smem + r * rb, r, nbr, stride, d2, meta, g, L, K, TM, tid, nt);
+    }
+  } else if (n_steps > 0) {
+    prefetch(0);
+  }
   __pipeline_wait_prior(0);
   __syncthreads();
 
   for (int i = 0; i < n_steps; ++i) {
+    const int u = __ldg(my_useq + i);
+    const int v = __ldg(my_vseq + i);
     unsigned char* slot = smem + (i & 1) * 2 * rb;
-    const Rows ru = rows_at(slot, L, K, TM, 0);
-    const Rows rv = rows_at(slot + rb, L, K, TM, 0);
-    if (i + 1 < n_steps) prefetch(i + 1);
+    const typename Sets::T ru = Sets::at(resident ? smem + u * rb : slot, L, K, TM);
+    const typename Sets::T rv = Sets::at(resident ? smem + v * rb : slot + rb, L, K, TM);
+    if (!resident && i + 1 < n_steps) prefetch(i + 1);
 
-    if (live) {
-      const int u = __ldg(my_useq + i);
-      const int v = __ldg(my_vseq + i);
-      int8_t* cu = s_occ + u * nt + tid;
-      int8_t* cv = s_occ + v * nt + tid;
-      const int a = *cu;
-      const int b = *cv;
-
-      double df[FMAX];
+    int8_t* cu = codes + u * pitch;
+    int8_t* cv = codes + v * pitch;
+    const int a = *cu;
+    const int b = *cv;
+    double df[FMAX];
 #pragma unroll
-      for (int k = 0; k < FMAX; ++k) df[k] = 0.0;
-      add_row_deltas<KT, FMAX>(df, ru, seg + u * (F + 1), s_occ, nt, tid, K, TM, F,
-                               a, b);
+    for (int k = 0; k < FMAX; ++k) df[k] = 0.0;
+    if constexpr (ONE_LANE) {
+      add_rows_in_order<KT>(df, ru, seg + u * (F + 1), codes, pitch, K, TM, F, a, b);
       *cu = (int8_t)b;  // v's rows see u already holding b
-      add_row_deltas<KT, FMAX>(df, rv, seg + v * (F + 1), s_occ, nt, tid, K, TM, F,
-                               b, a);
-      double fn[FMAX];
-#pragma unroll
-      for (int k = 0; k < FMAX; ++k) fn[k] = cur[k] + df[k];
-      const double d_new = score<FMAX>(fn, s_t, s_w, s_last, s_gd, F, match_tol,
-                                       match_weight);
-
-      if (a != b && metropolis(b32, d_new - d_cur, draws.at(i, rng_mode).x)) {
-        *cv = (int8_t)a;
-#pragma unroll
-        for (int k = 0; k < FMAX; ++k) cur[k] = fn[k];
-        d_cur = d_new;
-        ++nacc;
-      } else {
-        *cu = (int8_t)a;
-      }
-      if (d_cur < bd) {
-        bd = d_cur;
-        for (int r = 0; r < R; ++r) s_best[r * nt + tid] = s_occ[r * nt + tid];
-      }
+      add_rows_in_order<KT>(df, rv, seg + v * (F + 1), codes, pitch, K, TM, F, b, a);
+    } else {
+      add_lane_rows<KT>(df, ru, s_seg + u * (F + 1), codes, pitch, K, TM, F, lane, shift,
+                        a, b);
+      __syncwarp(mask);  // every lane has read a before it changes
+      if (lane == 0) *cu = (int8_t)b;  // v's rows see u already holding b
+      __syncwarp(mask);
+      add_lane_rows<KT>(df, rv, s_seg + v * (F + 1), codes, pitch, K, TM, F, lane, shift,
+                        b, a);
     }
-    __pipeline_wait_prior(0);
-    __syncthreads();
+    for (int m = 1; m < lanes; m <<= 1) {  // the lanes' partials meet
+#pragma unroll
+      for (int k = 0; k < FMAX; ++k) df[k] += __shfl_xor_sync(mask, df[k], m);
+    }
+    double fn[FMAX];
+#pragma unroll
+    for (int k = 0; k < FMAX; ++k) fn[k] = cur[k] + df[k];
+    const double d_new = score<FMAX>(fn, s_t, s_w, s_last, s_gd, F, match_tol,
+                                     match_weight);
+
+    if (!ONE_LANE) __syncwarp(mask);  // every lane has read v's rows' codes
+    if (a != b && metropolis(b32, d_new - d_cur, draws.at(i, rng_mode).x)) {
+      if (lane == 0) *cv = (int8_t)a;
+#pragma unroll
+      for (int k = 0; k < FMAX; ++k) cur[k] = fn[k];
+      d_cur = d_new;
+      ++nacc;
+    } else if (lane == 0) {
+      *cu = (int8_t)a;
+    }
+    if (!ONE_LANE) __syncwarp(mask);  // the decision's writes, before the next step
+    if (d_cur < bd) {
+      bd = d_cur;
+      for (int r = lane; r < R; r += lanes) s_best[r * pitch + wl] = codes[r * pitch];
+    }
+    if (!resident) {
+      __pipeline_wait_prior(0);
+      __syncthreads();
+    }
   }
 
-  if (live) {
-    for (int r = 0; r < R; ++r) {
-      occ[(size_t)r * W + w] = s_occ[r * nt + tid];
-      best_occ[(size_t)r * W + w] = s_best[r * nt + tid];
+  __syncthreads();
+  for (int x = tid; x < R * walkers_per_block; x += nt) {
+    const int r = x / walkers_per_block;
+    const int c = x % walkers_per_block;
+    if (w0 + c < W) {
+      occ[(size_t)r * W + w0 + c] = s_occ[r * pitch + c];
+      best_occ[(size_t)r * W + w0 + c] = s_best[r * pitch + c];
     }
+  }
+  if (live && lane == 0) {
 #pragma unroll
     for (int k = 0; k < FMAX; ++k) {
       if (k < F) feat[(size_t)k * W + w] = cur[k];
@@ -246,25 +481,35 @@ distance_chain_kernel(int8_t* __restrict__ occ, int8_t* __restrict__ best_occ,
   }
 }
 
-template <int KT, int FMAX>
-cudaError_t launch(int threads, size_t smem, cudaStream_t stream, int8_t* occ,
-                   int8_t* best_occ, double* feat, double* dist, double* best,
-                   int32_t* naccept, const float* beta, const int32_t* useq,
-                   const int32_t* vseq, int seq_stride, const int64_t* seed,
-                   const int32_t* nbr, const int32_t* stride, const int32_t* d2,
-                   const double* g, const int32_t* seg, const double* target,
-                   const double* weight, const int32_t* group_last,
-                   const double* group_diameter, int R, int L, int K, int TM, int F,
-                   int W, int block_size, int n_steps, int rng_mode,
-                   double match_tol, double match_weight) {
-  auto kernel = distance_chain_kernel<KT, FMAX>;
+// Dynamic shared memory of one launch: the rows (every rank's, or four row
+// sets), the segment starts, the codes and the best codes.
+size_t shared_bytes(int R, int L, int K, int TM, int F, int walkers_per_block,
+                    int resident, int packed) {
+  const size_t rb = packed ? RowSets<true>::bytes(L, K, TM) : RowSets<false>::bytes(L, K, TM);
+  return (size_t)(resident ? R : 4) * rb + seg_bytes(R, F) +
+         2 * (size_t)R * code_pitch(walkers_per_block);
+}
+
+template <int KT, int FMAX, bool PACKED, bool ONE_LANE>
+cudaError_t launch(int blocks, int threads, size_t smem, cudaStream_t stream,
+                   int8_t* occ, int8_t* best_occ, double* feat, double* dist,
+                   double* best, int32_t* naccept, const float* beta,
+                   const int32_t* useq, const int32_t* vseq, int seq_stride,
+                   int seq_shape_stride, const int64_t* seeds, const int32_t* nbr,
+                   const int32_t* stride, const int32_t* d2, const double* g,
+                   const int32_t* seg, const double* target, const double* weight,
+                   const int32_t* group_last, const double* group_diameter,
+                   const double* match, const int2* meta, int R, int L, int K, int TM,
+                   int F, int W, int block_size, int n_steps, int rng_mode, int lanes,
+                   int walkers_per_block, int resident) {
+  auto kernel = distance_chain_kernel<KT, FMAX, PACKED, ONE_LANE>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (W + threads - 1) / threads;
   kernel<<<blocks, threads, smem, stream>>>(
-      occ, best_occ, feat, dist, best, naccept, beta, useq, vseq, seq_stride, seed,
-      nbr, stride, d2, g, seg, target, weight, group_last, group_diameter, R, L, K,
-      TM, F, W, block_size, n_steps, rng_mode, match_tol, match_weight);
+      occ, best_occ, feat, dist, best, naccept, beta, useq, vseq, seq_stride,
+      seq_shape_stride, seeds, nbr, stride, d2, g, seg, target, weight, group_last,
+      group_diameter, match, meta, R, L, K, TM, F, W, block_size, n_steps, rng_mode,
+      lanes, walkers_per_block, resident);
   return cudaGetLastError();
 }
 
@@ -273,24 +518,36 @@ cudaError_t launch(int threads, size_t smem, cudaStream_t stream, int8_t* occ,
 extern "C" int smol_distance_chain(
     void* occ, void* best_occ, void* feat, void* dist, void* best, void* naccept,
     const void* beta, const void* useq, const void* vseq, int seq_stride,
-    const void* seed, const void* nbr, const void* stride, const void* d2,
-    const void* g, const void* seg, const void* target, const void* weight,
-    const void* group_last, const void* group_diameter, int R, int L, int K, int TM,
-    int F, int W, int block_size, int n_steps, int rng_mode, double match_tol,
-    double match_weight, void* stream) {
-  if (F < 1 || F > 32) return (int)cudaErrorInvalidValue;
-  const int threads = block_threads(W, block_size);
-  const size_t smem = 4 * rows_bytes(L, K, TM, 0) + 2 * (size_t)R * threads;
-  auto run = (K == 3 && F <= 8) ? launch<3, 8> : launch<0, 32>;
-  return (int)run(threads, smem, (cudaStream_t)stream, (int8_t*)occ,
+    int seq_shape_stride, const void* seeds, const void* nbr, const void* stride,
+    const void* d2, const void* g, const void* seg, const void* target,
+    const void* weight, const void* group_last, const void* group_diameter,
+    const void* match, const void* meta, int S, int R, int L, int K, int TM, int F,
+    int W, int block_size, int n_steps, int rng_mode, int lanes, int walkers_per_block,
+    int resident, int packed, void* stream) {
+  const int threads = walkers_per_block * lanes;
+  const bool lanes_ok = lanes >= 1 && lanes <= 16 && (lanes & (lanes - 1)) == 0;
+  if (F < 1 || F > 32 || S < 1 || W < 1 || !lanes_ok || walkers_per_block < 1 ||
+      threads > kDistanceThreads || (W > block_size && block_size % walkers_per_block) ||
+      (packed && (meta == nullptr || F > 8))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int blocks = S * ((W + walkers_per_block - 1) / walkers_per_block);
+  const size_t smem = shared_bytes(R, L, K, TM, F, walkers_per_block, resident, packed);
+  // the K = 3 bodies packed or not, at one lane or several; the general body
+  const bool one = lanes == 1, k3 = K == 3 && F <= 8;
+  auto run = packed ? (one ? launch<3, 8, true, true> : launch<3, 8, true, false>)
+             : k3   ? (one ? launch<3, 8, false, true> : launch<3, 8, false, false>)
+                    : launch<0, 32, false, false>;
+  return (int)run(blocks, threads, smem, (cudaStream_t)stream, (int8_t*)occ,
                   (int8_t*)best_occ, (double*)feat, (double*)dist, (double*)best,
                   (int32_t*)naccept, (const float*)beta, (const int32_t*)useq,
-                  (const int32_t*)vseq, seq_stride, (const int64_t*)seed,
-                  (const int32_t*)nbr, (const int32_t*)stride, (const int32_t*)d2,
-                  (const double*)g, (const int32_t*)seg, (const double*)target,
-                  (const double*)weight, (const int32_t*)group_last,
-                  (const double*)group_diameter, R, L, K, TM, F, W, block_size,
-                  n_steps, rng_mode, match_tol, match_weight);
+                  (const int32_t*)vseq, seq_stride, seq_shape_stride,
+                  (const int64_t*)seeds, (const int32_t*)nbr, (const int32_t*)stride,
+                  (const int32_t*)d2, (const double*)g, (const int32_t*)seg,
+                  (const double*)target, (const double*)weight,
+                  (const int32_t*)group_last, (const double*)group_diameter,
+                  (const double*)match, (const int2*)meta, R, L, K, TM, F, W, block_size,
+                  n_steps, rng_mode, lanes, walkers_per_block, resident);
 }
 
 extern "C" const char* smol_cuda_error_string(int code) {

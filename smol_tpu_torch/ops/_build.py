@@ -52,11 +52,11 @@ KERNELS = {
     # NW | min_enthalpy bin_size span mod_divisor | flatness | stream
     "wl_chain": [_ptr] * 10 + [_i32] + [_ptr] * 18 + [_i32] * 18 + [_f64] * 4
                 + [_f32] + [_ptr],
-    # occ best_occ feat d best_d naccept beta useq vseq | seq_stride | seed nbr
-    # stride d2 g seg target weight group_last group_diameter | R L K TM F W
-    # block_size n_steps rng_mode | match_tol match_weight | stream
-    "distance_chain": [_ptr] * 9 + [_i32] + [_ptr] * 10 + [_i32] * 9 + [_f64] * 2
-                      + [_ptr],
+    # occ best_occ feat d best_d naccept beta useq vseq | seq_stride
+    # seq_shape_stride | seed nbr stride d2 g seg target weight group_last
+    # group_diameter match meta | S R L K TM F W block_size n_steps rng_mode
+    # lanes walkers_per_block resident packed | stream
+    "distance_chain": [_ptr] * 9 + [_i32] * 2 + [_ptr] * 12 + [_i32] * 14 + [_ptr],
     # beta beta32 enthalpy uniforms accepted | W phase | stream
     "tempering": [_ptr] * 5 + [_i32] * 2 + [_ptr],
 }

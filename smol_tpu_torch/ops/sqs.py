@@ -21,13 +21,18 @@ the walkers of a block share (as in :mod:`smol_tpu_torch.ops.chain`):
 3. accepts on the f32 exponent -beta (d_new - d), a null pair (equal codes)
    never, and keeps each walker's best (score, occupancy).
 
-The chain runs in :func:`distance_chain`: on a CUDA tensor it launches the
-hand-written kernel ``csrc/distance_chain.cu`` (K7); on a CPU tensor it runs
-:func:`distance_chain_reference`, the plain torch twin that does the same
-arithmetic in the same order.  Features, df and d are f64 (the reference's
-are f32 and double-float pairs).  A walker's rows are sorted by feature, and
-df of a feature sums that feature's rows of u, then of v, in row order; the
-score sums the features in the order of the diameter groups, each term
+The chain runs in :func:`distance_chain` (one shape) and
+:func:`distance_chain_batched` (S shapes of one size in one launch): on a
+CUDA tensor they launch the hand-written kernel ``csrc/distance_chain.cu``
+(K7); on a CPU tensor they run :func:`distance_chain_reference`, the plain
+torch twin that does the same arithmetic in the same order.  Features, df
+and d are f64 (the reference's are f32 and double-float pairs).  A walker's
+rows are sorted by feature; the kernel gives each walker G threads (lanes),
+lane j summing rows j, j + G, ... of each feature, u's then v's, and the
+lanes' partials meet in a butterfly, which the twin repeats
+(:func:`_lane_sum`; one lane sums every row in order).  A launch takes
+the fewest lanes that give it ``LANE_THREADS`` threads (:func:`launch_lanes`).  The score sums the
+features in the order of the diameter groups, each term
 ``W_f * |f_f + df_f - T_f|`` rounded on its own (no fused multiply-add), and
 subtracts ``w * L`` last.  Nothing of the TPU layout (bf16 stride planes,
 0/1 scatter matrices, extent segments) is kept.
@@ -35,6 +40,9 @@ subtracts ``w * L`` last.  Nothing of the TPU layout (bf16 stride planes,
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -46,7 +54,6 @@ from smol_tpu_torch.ops.chain import (
     RNG_MODES,
     SEED_STRIDE,
     _check_operands,
-    _cuda_block_threads,
     _launch_check,
     _lower_margin,
     _metropolis,
@@ -56,20 +63,32 @@ from smol_tpu_torch.ops.chain import (
 )
 
 __all__ = [
+    "DistanceBatch",
     "DistanceTables",
     "build_distance_tables",
+    "distance_block_walkers",
+    "launch_lanes",
     "distance_of",
     "distance_step_reference",
+    "pack_rows",
     "distance_chain_reference",
+    "distance_chain_batched_reference",
     "distance_chain",
+    "distance_chain_batched",
     "distance_chain_shared_bytes",
     "distance_launch_operands",
+    "make_batched_distance_chain",
     "make_distance_chain",
+    "stack_distance_tables",
 ]
 
 MAX_TENSOR = 63  # the reference's bound on a cluster tensor (pallas_chain.py:87)
 MAX_FEATURES = 32  # the kernel keeps f and df of a walker in registers
 MAX_SHARED_BYTES = 232448  # shared memory one block can use on sm_90 (227 KB)
+DISTANCE_THREADS = 256  # most threads of a CUDA block (kDistanceThreads)
+STATIC_SHARED_BYTES = 1024  # the kernel's per-feature constants (896 bytes at most)
+LANE_THREADS = 32768  # a launch takes the fewest lanes that give it this many threads
+MAX_LANES = 16
 
 
 @dataclass(frozen=True)
@@ -106,6 +125,7 @@ class DistanceTables:
     sub_offset: torch.Tensor  # [S] int64 first rank of each sublattice
     n_active: torch.Tensor  # [S] int64 ranks of each sublattice
     padded: dict  # nbr, stride [R, F, P, K]; d2 [R, F, P]; g [R, F, P, TM]
+    meta: torch.Tensor | None = None  # [R, L, 2] int32 packed rows (pack_rows)
 
     @property
     def num_ranks(self) -> int:
@@ -259,6 +279,7 @@ def build_distance_tables(processor) -> DistanceTables:
     def with_zero_row(x):
         return np.concatenate([x, np.zeros_like(x[:, :1])], axis=1)
 
+    meta = pack_rows(nbr, stride, d2)
     rr = np.arange(R)[:, None, None]
     nbr_p = with_zero_row(nbr)
     nbr_p[:, L] = -1
@@ -294,6 +315,7 @@ def build_distance_tables(processor) -> DistanceTables:
         cum_probs=dev(np.cumsum(np.full(len(active), 1.0 / len(active))), torch.float64),
         sub_offset=dev(np.concatenate([[0], np.cumsum(n_active)[:-1]]), torch.int64),
         n_active=dev(n_active, torch.int64),
+        meta=None if meta is None else dev(meta, torch.int32),
         padded={
             "nbr": dev(nbr_p[rr, slot], torch.int64),
             "stride": dev(with_zero_row(stride)[rr, slot], torch.int64),
@@ -301,6 +323,25 @@ def build_distance_tables(processor) -> DistanceTables:
             "g": dev(with_zero_row(g)[rr, slot], torch.float64),
         },
     )
+
+
+def pack_rows(nbr, stride, d2):
+    """[R, L, 2] int32: each row's self stride and up to three neighbour
+    slots in two words, one 8-byte load in the kernel, or None where a
+    field does not fit a byte (more than 3 slots, 256 ranks, a stride of
+    256).  Word 0 holds d2 in bits 0-7 and the slots' ranks in bits 8-15,
+    16-23, 24-31; word 1 their strides in bits 0-7, 8-15, 16-23.  An empty
+    slot (rank -1, stride 0) reads rank 0 times stride 0, which adds 0."""
+    R, L, K = nbr.shape
+    if K > 3 or R > 256 or stride.max(initial=0) > 255 or d2.max(initial=0) > 255:
+        return None
+    ranks = np.zeros((R, L, 3), dtype=np.int64)
+    strides = np.zeros((R, L, 3), dtype=np.int64)
+    ranks[..., :K] = np.where(nbr >= 0, nbr, 0)
+    strides[..., :K] = stride
+    words = np.stack([d2 | ranks[..., 0] << 8 | ranks[..., 1] << 16 | ranks[..., 2] << 24,
+                      strides[..., 0] | strides[..., 1] << 8 | strides[..., 2] << 16], axis=-1)
+    return words.astype(np.uint32).view(np.int32)
 
 
 def distance_of(tables: DistanceTables, plane):
@@ -333,15 +374,43 @@ def _row_terms(tables: DistanceTables, occ, u, a, b):
     return term.permute(1, 2, 0)
 
 
-def distance_step_reference(tables: DistanceTables, occ, feat, d, u, v, r_u, beta32):
+def _lane_sum(terms_u, terms_v, lanes):
+    """[F, W] feature change of a step, summed as the kernel's ``lanes``
+    lanes sum it: lane j adds rows j, j + lanes, ... of each feature, u's
+    then v's, in order from +0.0; then the lanes' partials meet in a
+    butterfly (lane j adds lane j ^ m's partial, m = 1, 2, 4, ...).
+
+    Padding rows add +0.0, which leaves a partial that starts at +0.0
+    unchanged, so padding the rows to a multiple of ``lanes`` changes no
+    bit."""
+    F, P, W = terms_u.shape
+    steps = -(-P // lanes)
+    partial = terms_u.new_zeros((F, lanes, W))
+    for terms in (terms_u, terms_v):
+        if steps * lanes != P:
+            terms = torch.nn.functional.pad(terms, (0, 0, 0, steps * lanes - P))
+        terms = terms.reshape(F, steps, lanes, W)
+        for k in range(steps):
+            partial = partial + terms[:, k]
+    m = 1
+    while m < lanes:
+        partner = torch.arange(lanes, device=partial.device) ^ m
+        partial = partial + partial[:, partner]
+        m <<= 1
+    return partial[:, 0]
+
+
+def distance_step_reference(tables: DistanceTables, occ, feat, d, u, v, r_u, beta32,
+                            lanes=1):
     """One swap proposal for every walker, without applying it.
 
     ``occ`` [R, W] int8 codes (left as it was), ``feat`` [F, W] f64, ``d``
     [W] f64 the walkers' scores, ``u``/``v`` [W] ranks, ``r_u`` [W] random
-    bits, ``beta32`` [W] f32.  Returns ``(accept, is_move, a, b, fn, d_new,
-    expo, log_u)``: u holds a and v holds b; ``fn`` [F, W] and ``d_new`` are
-    the features and score after the swap.  A null pair (a == b) is never
-    accepted.
+    bits, ``beta32`` [W] f32, ``lanes`` the kernel's threads per walker,
+    which set the order of df's sums (:func:`_lane_sum`).  Returns
+    ``(accept, is_move, a, b, fn, d_new, expo, log_u)``: u holds a and v
+    holds b; ``fn`` [F, W] and ``d_new`` are the features and score after
+    the swap.  A null pair (a == b) is never accepted.
     """
     walkers = torch.arange(occ.shape[1], device=occ.device)
     u, v = u.long(), v.long()
@@ -352,11 +421,7 @@ def distance_step_reference(tables: DistanceTables, occ, feat, d, u, v, r_u, bet
     occ[u, walkers] = b.to(occ.dtype)  # v's rows see u already holding b
     terms_v = _row_terms(tables, occ, v, b, a)
     occ[u, walkers] = a.to(occ.dtype)
-    df = torch.zeros_like(feat)
-    for terms in (terms_u, terms_v):
-        for k in range(terms.shape[1]):
-            df = df + terms[:, k]
-    fn = feat + df
+    fn = feat + _lane_sum(terms_u, terms_v, lanes)
     d_new = distance_of(tables, fn)
     accept, expo, log_u = _metropolis(d_new - d, r_u, beta32)
     return accept & is_move, is_move, a, b, fn, d_new, expo, log_u
@@ -364,19 +429,24 @@ def distance_step_reference(tables: DistanceTables, occ, feat, d, u, v, r_u, bet
 
 def distance_chain_reference(occ, best_occ, feat, d, best_d, naccept, beta32,
                              useq, vseq, seed, tables, n_steps, block_size,
-                             rng="philox", margin=None, slack=0.0, work=None):
+                             rng="philox", margin=None, slack=0.0, work=None,
+                             lanes=None):
     """Plain torch twin of the CUDA distance-chain kernel (same arguments).
 
     Updates ``occ``, ``best_occ``, ``feat``, ``d``, ``best_d`` and
-    ``naccept`` in place.  ``margin``, an optional [W] f32 tensor, is
-    lowered in place to each walker's closest decision beyond beta *
-    ``slack`` (the bound on another implementation's error in d_new - d), in
-    f32 ulps of log U (``ops/chain.py:_lower_margin``); null pairs never
-    lower it.  ``work``, an optional [2, W] int64 tensor, gains each
-    walker's non-null proposals (row 0) and the rows of u and v those
-    proposals read (row 1): the work its data needs.
+    ``naccept`` in place.  ``lanes`` is the kernel's threads per walker
+    (default: :func:`launch_lanes` of this launch's W walkers): the twin
+    sums each step's df in their order (:func:`_lane_sum`).
+    ``margin``, an optional [W] f32 tensor, is lowered in place to each
+    walker's closest decision beyond beta * ``slack`` (the bound on another
+    implementation's error in d_new - d), in f32 ulps of log U
+    (``ops/chain.py:_lower_margin``); null pairs never lower it.  ``work``,
+    an optional [2, W] int64 tensor, gains each walker's non-null proposals
+    (row 0) and the rows of u and v those proposals read (row 1): the work
+    its data needs.
     """
     W = occ.shape[1]
+    lanes = lanes or launch_lanes(W)
     walkers = torch.arange(W, device=occ.device)
     group = walkers // block_size
     r_u, _ = chain_draws(rng, int(seed[0]), n_steps, W, block_size, occ.device)
@@ -384,7 +454,7 @@ def distance_chain_reference(occ, best_occ, feat, d, best_d, naccept, beta32,
     for i in range(n_steps):
         u, v = useq[group, i].long(), vseq[group, i].long()
         accept, is_move, a, b, fn, d_new, expo, log_u = distance_step_reference(
-            tables, occ, feat, d, u, v, r_u[i], beta32
+            tables, occ, feat, d, u, v, r_u[i], beta32, lanes
         )
         if margin is not None:
             _lower_margin(margin, expo, log_u, beta32, slack, ~is_move)
@@ -401,17 +471,226 @@ def distance_chain_reference(occ, best_occ, feat, d, best_d, naccept, beta32,
         best_occ.copy_(torch.where(better, occ, best_occ))
 
 
-def distance_chain_shared_bytes(tables: DistanceTables, W, block_size):
-    """Dynamic shared memory of one launch, in bytes: two buffers of u's
-    and v's rows, and the block's codes and best codes."""
-    L, K = tables.nbr.shape[1:]
-    row_set = L * tables.g.shape[2] * 8 + L * (2 * K + 1) * 4
-    row_set = -(-row_set // 16) * 16
-    return 4 * row_set + 2 * tables.num_ranks * _cuda_block_threads(W, block_size)
+@dataclass(frozen=True)
+class DistanceBatch:
+    """The tables of S shapes of one size, stacked for one launch.
+
+    ``shapes`` holds each shape's :class:`DistanceTables` (the twin's);
+    the kernel's operands are stacked shape-major and padded to the
+    batch's largest L, K and TM (rows past a rank's ``seg`` end are never
+    read): ``nbr``, ``stride`` [S, R, L, K] int32, ``d2`` [S, R, L],
+    ``g`` [S, R, L, TM] f64, ``seg`` [S, R, F + 1], ``target``, ``weight``,
+    ``group_diameter`` [S, F] f64, ``group_last`` [S, F] int32,
+    ``match`` [S, 2] f64 (match_tol, match_weight) and, where every shape
+    has them, the packed rows ``meta`` [S, R, L, 2] int32 (:func:`pack_rows`).
+    """
+
+    shapes: tuple
+    nbr: torch.Tensor
+    stride: torch.Tensor
+    d2: torch.Tensor
+    g: torch.Tensor
+    seg: torch.Tensor
+    target: torch.Tensor
+    weight: torch.Tensor
+    group_last: torch.Tensor
+    group_diameter: torch.Tensor
+    match: torch.Tensor
+    meta: torch.Tensor | None = None  # [S, R, L, 2] int32 where every shape packs
+
+    @property
+    def num_shapes(self) -> int:
+        return len(self.shapes)
+
+    @property
+    def num_ranks(self) -> int:
+        return int(self.nbr.shape[1])
+
+    @property
+    def num_feats(self) -> int:
+        return int(self.seg.shape[2]) - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.g.device
+
+
+@functools.lru_cache(maxsize=None)
+def _match_tensor(device, match_tol, match_weight):
+    """[2] f64 (match_tol, match_weight) on ``device``, made once per value."""
+    return torch.tensor([match_tol, match_weight], dtype=torch.float64, device=device)
+
+
+def stack_distance_tables(tables_seq) -> DistanceBatch:
+    """The :class:`DistanceBatch` of shapes of one size (equal R and F).
+
+    One shape's batch is made of views of its tables, with no copy."""
+    tables_seq = tuple(tables_seq)
+    first = tables_seq[0]
+    R, F = first.num_ranks, first.num_feats
+    if any(t.num_ranks != R or t.num_feats != F or t.device != first.device
+           for t in tables_seq):
+        raise ValueError("a batch of distance tables needs equal ranks, features "
+                         "and device")
+    match = [_match_tensor(t.device, t.match_tol, t.match_weight) for t in tables_seq]
+    names = ("target", "weight", "group_last", "group_diameter")
+    packed = all(t.meta is not None for t in tables_seq)
+    if len(tables_seq) == 1:
+        return DistanceBatch(
+            shapes=tables_seq, nbr=first.nbr[None], stride=first.stride[None],
+            d2=first.d2[None], g=first.g[None], seg=first.seg[None],
+            **{name: getattr(first, name)[None] for name in names}, match=match[0][None],
+            meta=first.meta[None] if packed else None,
+        )
+    L = max(t.nbr.shape[1] for t in tables_seq)
+    K = max(t.nbr.shape[2] for t in tables_seq)
+    TM = max(t.g.shape[2] for t in tables_seq)
+    pad = torch.nn.functional.pad
+
+    def stacked(name, widths, value=0):
+        """The shapes' ``name`` tensors padded to ``widths`` after the rank axis."""
+        out = []
+        for t in tables_seq:
+            x = getattr(t, name)
+            spec = []  # torch's pad order: the last axis first
+            for width, n in reversed(list(zip(widths, x.shape[1:]))):
+                spec += [0, width - n]
+            out.append(pad(x, spec, value=value))
+        return torch.stack(out)
+
+    return DistanceBatch(
+        shapes=tables_seq, nbr=stacked("nbr", (L, K), -1), stride=stacked("stride", (L, K)),
+        d2=stacked("d2", (L,)), g=stacked("g", (L, TM)),
+        seg=torch.stack([t.seg for t in tables_seq]),
+        **{name: torch.stack([getattr(t, name) for t in tables_seq]) for name in names},
+        match=torch.stack(match), meta=stacked("meta", (L, 2)) if packed else None,
+    )
+
+
+@dataclass(frozen=True)
+class _Design:
+    """How the distance kernel is launched: its threads per walker (None:
+    :func:`launch_lanes` of the launch's walkers), whether every rank's rows
+    stay in shared memory (None: wherever they fit), whether a batch of
+    shapes is one launch, and whether the rows are read packed
+    (:func:`pack_rows`, where the tables have them and F <= 8).  Private:
+    the A/B of ``chip_smoke.py`` and the tests choose one; users get the
+    default."""
+
+    lanes: int | None = None
+    resident: bool | None = None
+    batched: bool = True
+    packed: bool = True
+
+
+_DESIGN = _Design()
+_OLD_DESIGN = _Design(lanes=1, resident=False, batched=False, packed=False)
+
+
+def launch_lanes(walkers, design=_DESIGN):
+    """Threads per walker of a launch of ``walkers`` walkers (every shape's):
+    the design's, else the fewest (1, 2, 4, 8 or 16) that give the launch
+    ``LANE_THREADS`` threads.  A launch that fills the card (the 20 8-site
+    shapes: 40960 walkers) runs fastest at one lane, since every further
+    lane repeats the score, the draws and the decision; one shape of 2048
+    walkers runs fastest at 16, spread over more warps (NVIDIA H100,
+    ``PERF.md``).  The lanes set the order of df's sums, so a shape's
+    features round as the lanes of its launch sum them; its draws do not
+    depend on the launch."""
+    if design.lanes:
+        return design.lanes
+    lanes = 1
+    while lanes < MAX_LANES and walkers * lanes < LANE_THREADS:
+        lanes *= 2
+    return lanes
+
+
+def _resolve(design, walkers):
+    """``design`` with its lanes for a launch of ``walkers`` walkers."""
+    return dataclasses.replace(design, lanes=launch_lanes(walkers, design))
+
+
+def distance_block_walkers(W, block_size, design=_DESIGN):
+    """Walkers of one CUDA block: a block must lie inside one sequence group
+    of ``block_size`` walkers, since its threads share the group's pairs."""
+    wb = min(64, DISTANCE_THREADS // launch_lanes(W, design))
+    return wb if W <= block_size or block_size % wb == 0 else math.gcd(block_size, wb)
+
+
+def _packed(tables, design):
+    """Whether a launch reads the packed rows (the K = 3 body, F <= 8)."""
+    return design.packed and tables.meta is not None and tables.num_feats <= 8
+
+
+def distance_chain_shared_bytes(tables, W, block_size, design=_DESIGN, resident=False):
+    """Dynamic shared memory of one launch of W walkers a shape, in bytes
+    (``shared_bytes`` of distance_chain.cu): every rank's rows
+    (``resident``) or two buffers of u's and v's rows, every rank's segment
+    starts, and the block's codes and best codes.  ``tables`` is a
+    :class:`DistanceTables` or a :class:`DistanceBatch`."""
+    design = _resolve(design, W * getattr(tables, "num_shapes", 1))
+    R, L, K = tables.nbr.shape[-3:]
+    meta = 8 * L if _packed(tables, design) else L * (2 * K + 1) * 4
+    row_set = -(-(L * tables.g.shape[-1] * 8 + meta) // 16) * 16
+    seg_bytes = -(-(R * (tables.num_feats + 1) * 4) // 16) * 16
+    pitch = -(-distance_block_walkers(W, block_size, design) // 4) * 4 + 4
+    return (R if resident else 4) * row_set + seg_bytes + 2 * R * pitch
+
+
+def _resident(tables, W, block_size, design):
+    """Whether a launch keeps every rank's rows in shared memory: where they
+    fit beside the codes and the kernel's static shared memory (at most
+    ``STATIC_SHARED_BYTES``)."""
+    smem = distance_chain_shared_bytes(tables, W, block_size, design, True)
+    fits = smem + STATIC_SHARED_BYTES <= MAX_SHARED_BYTES
+    if design.resident and not fits:
+        raise ValueError("distance_chain: every rank's rows do not fit in shared memory")
+    return fits if design.resident is None else design.resident
+
+
+def _launch(occ, best_occ, feat, d, best_d, naccept, beta32, useq, vseq, seed, batch,
+            n_steps, block_size, rng, design):
+    """One kernel launch over the [S, ...] operands of ``batch``."""
+    S, R, W = occ.shape
+    L, K = batch.nbr.shape[2:]
+    design = _resolve(design, S * W)
+    packed = _packed(batch, design)
+    resident = _resident(batch, W, block_size, design)
+    smem = distance_chain_shared_bytes(batch, W, block_size, design, resident)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"distance_chain needs {smem} bytes of shared memory per block, "
+            f"above the card's {MAX_SHARED_BYTES}"
+        )
+    lib = _build.load_chain("distance_chain")
+    with torch.cuda.device(occ.device):
+        stream = torch.cuda.current_stream(occ.device).cuda_stream
+        rc = lib.smol_distance_chain(
+            occ.data_ptr(), best_occ.data_ptr(), feat.data_ptr(), d.data_ptr(),
+            best_d.data_ptr(), naccept.data_ptr(), beta32.data_ptr(),
+            useq.data_ptr(), vseq.data_ptr(), useq.stride(1), useq.stride(0),
+            seed.data_ptr(), batch.nbr.data_ptr(), batch.stride.data_ptr(),
+            batch.d2.data_ptr(), batch.g.data_ptr(), batch.seg.data_ptr(),
+            batch.target.data_ptr(), batch.weight.data_ptr(),
+            batch.group_last.data_ptr(), batch.group_diameter.data_ptr(),
+            batch.match.data_ptr(), batch.meta.data_ptr() if packed else None, S, R, L, K,
+            batch.g.shape[3], batch.num_feats, W, block_size, n_steps, RNG_MODES[rng],
+            design.lanes, distance_block_walkers(W, block_size, design), int(resident),
+            int(packed), stream,
+        )
+    distance_chain.launches += 1
+    _launch_check(lib, "distance_chain", rc)
+
+
+def _check_device(name, occ, rng):
+    if occ.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {occ.device}")
+    if rng not in RNG_MODES:
+        raise ValueError(f"unknown rng mode: {rng!r}")
 
 
 def distance_chain(occ, best_occ, feat, d, best_d, naccept, beta32, useq, vseq,
-                   seed, tables, n_steps, block_size, rng="philox"):
+                   seed, tables, n_steps, block_size, rng="philox", _design=_DESIGN):
     """Run ``n_steps`` shared-proposal distance swaps on every walker, in place.
 
     Args:
@@ -429,7 +708,8 @@ def distance_chain(occ, best_occ, feat, d, best_d, naccept, beta32, useq, vseq,
         rng: ``"philox"`` (run mode) or ``"hash"`` (reference parity).
 
     A CUDA tensor launches the kernel (``distance_chain.launches`` counts the
-    launches); a CPU tensor runs :func:`distance_chain_reference`.
+    launches); a CPU tensor runs :func:`distance_chain_reference` with the
+    kernel's lanes.
     """
     R, W = occ.shape
     F = tables.num_feats
@@ -441,38 +721,95 @@ def distance_chain(occ, best_occ, feat, d, best_d, naccept, beta32, useq, vseq,
     )
     if occ.device.type == "cpu":
         distance_chain_reference(occ, best_occ, feat, d, best_d, naccept, beta32,
-                                 useq, vseq, seed, tables, n_steps, block_size, rng)
+                                 useq, vseq, seed, tables, n_steps, block_size, rng,
+                                 lanes=launch_lanes(W, _design))
         return
-    if occ.device.type != "cuda":
-        raise ValueError(f"distance_chain runs on cuda or cpu, not {occ.device}")
-    if rng not in RNG_MODES:
-        raise ValueError(f"unknown rng mode: {rng!r}")
-    L, K = tables.nbr.shape[1:]
-    smem = distance_chain_shared_bytes(tables, W, block_size)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"distance_chain needs {smem} bytes of shared memory per block, "
-            f"above the card's {MAX_SHARED_BYTES}"
-        )
-    lib = _build.load_chain("distance_chain")
-    with torch.cuda.device(occ.device):
-        stream = torch.cuda.current_stream(occ.device).cuda_stream
-        rc = lib.smol_distance_chain(
-            occ.data_ptr(), best_occ.data_ptr(), feat.data_ptr(), d.data_ptr(),
-            best_d.data_ptr(), naccept.data_ptr(), beta32.data_ptr(),
-            useq.data_ptr(), vseq.data_ptr(), useq.stride(0), seed.data_ptr(),
-            tables.nbr.data_ptr(), tables.stride.data_ptr(), tables.d2.data_ptr(),
-            tables.g.data_ptr(), tables.seg.data_ptr(), tables.target.data_ptr(),
-            tables.weight.data_ptr(), tables.group_last.data_ptr(),
-            tables.group_diameter.data_ptr(), R, L, K, tables.g.shape[2], F, W,
-            block_size, n_steps, RNG_MODES[rng], tables.match_tol,
-            tables.match_weight, stream,
-        )
-    distance_chain.launches += 1
-    _launch_check(lib, "distance_chain", rc)
+    _check_device("distance_chain", occ, rng)
+    _launch(occ[None], best_occ[None], feat[None], d[None], best_d[None], naccept[None],
+            beta32[None], useq[None], vseq[None], seed, stack_distance_tables((tables,)),
+            n_steps, block_size, rng, _design)
 
 
 distance_chain.launches = 0
+
+
+def _check_batch(occ, best_occ, feat, d, best_d, naccept, beta32, useq, vseq, seed,
+                 batch, n_steps, block_size):
+    """Raise ``ValueError`` on a batched operand the chain does not take."""
+    S, R, W = occ.shape
+    F = batch.num_feats
+    expect = ((occ, torch.int8, (batch.num_shapes, batch.num_ranks, W)),
+              (best_occ, torch.int8, (S, R, W)), (feat, torch.float64, (S, F, W)),
+              (d, torch.float64, (S, W)), (best_d, torch.float64, (S, W)),
+              (naccept, torch.int32, (S, W)), (beta32, torch.float32, (S, W)),
+              (seed, torch.int64, (S,)))
+    for tensor, dtype, shape in expect:
+        if tensor.dtype != dtype or tuple(tensor.shape) != shape:
+            raise ValueError(f"distance_chain_batched operand: expected {dtype} {shape}, "
+                             f"got {tensor.dtype} {tuple(tensor.shape)}")
+    groups = -(-W // block_size)
+    for seq in (useq, vseq):
+        if block_size < 1 or seq.dtype != torch.int32 or seq.dim() != 3 \
+                or tuple(seq.shape[:2]) != (S, groups) or seq.shape[2] < n_steps \
+                or seq.stride() != useq.stride():
+            raise ValueError(
+                f"distance_chain_batched sequence: expected int32 [{S}, {groups}, "
+                f">={n_steps}], got {seq.dtype} {tuple(seq.shape)}")
+    operands = [t for t, _, _ in expect] + [useq, vseq, batch.g]
+    if any(t.device != occ.device for t in operands):
+        raise ValueError("distance_chain_batched operands lie on different devices")
+    if not all(t.is_contiguous() for t in operands):
+        raise ValueError("distance_chain_batched operands must be contiguous")
+
+
+def distance_chain_batched_reference(occ, best_occ, feat, d, best_d, naccept, beta32,
+                                     useq, vseq, seed, batch, n_steps, block_size,
+                                     rng="philox", work=None, lanes=None):
+    """Plain torch twin of a batched launch: :func:`distance_chain_reference`
+    on each shape's slice of the [S, ...] operands, in place, at ``lanes``
+    (default: :func:`launch_lanes` of the launch's S x W walkers; ``work``,
+    an optional [S, 2, W] int64 tensor, gains each shape's work counts)."""
+    lanes = lanes or launch_lanes(occ.shape[0] * occ.shape[2])
+    for s, tables in enumerate(batch.shapes):
+        distance_chain_reference(occ[s], best_occ[s], feat[s], d[s], best_d[s],
+                                 naccept[s], beta32[s], useq[s], vseq[s], seed[s: s + 1],
+                                 tables, n_steps, block_size, rng,
+                                 work=None if work is None else work[s], lanes=lanes)
+
+
+def distance_chain_batched(occ, best_occ, feat, d, best_d, naccept, beta32, useq, vseq,
+                           seed, batch, n_steps, block_size, rng="philox",
+                           _design=_DESIGN):
+    """:func:`distance_chain` on S shapes of one size at once, in place.
+
+    Every operand gains a leading shape axis: ``occ``, ``best_occ`` [S, R,
+    W], ``feat`` [S, F, W], ``d``, ``best_d``, ``naccept``, ``beta32`` [S,
+    W], ``useq``, ``vseq`` [S, G, >= n_steps], ``seed`` [S]; ``batch`` is a
+    :class:`DistanceBatch`.  Each shape's walkers draw as that shape's own
+    launch would, so the result equals S launches of one shape each at the
+    batch's lanes (:func:`launch_lanes` of all S x W walkers).  A
+    CUDA tensor launches the kernel once (``distance_chain.launches``); a
+    CPU tensor runs :func:`distance_chain_batched_reference`.
+    """
+    _check_batch(occ, best_occ, feat, d, best_d, naccept, beta32, useq, vseq, seed,
+                 batch, n_steps, block_size)
+    S, _, W = occ.shape
+    _design = _resolve(_design, S * W if _design.batched else W)
+    if occ.device.type == "cpu":
+        distance_chain_batched_reference(occ, best_occ, feat, d, best_d, naccept, beta32,
+                                         useq, vseq, seed, batch, n_steps, block_size,
+                                         rng, lanes=_design.lanes)
+        return
+    _check_device("distance_chain_batched", occ, rng)
+    if _design.batched:
+        _launch(occ, best_occ, feat, d, best_d, naccept, beta32, useq, vseq, seed, batch,
+                n_steps, block_size, rng, _design)
+        return
+    for s, tables in enumerate(batch.shapes):  # one shape per launch
+        _launch(occ[s: s + 1], best_occ[s: s + 1], feat[s: s + 1], d[s: s + 1],
+                best_d[s: s + 1], naccept[s: s + 1], beta32[s: s + 1], useq[s: s + 1],
+                vseq[s: s + 1], seed[s: s + 1], stack_distance_tables((tables,)),
+                n_steps, block_size, rng, _design)
 
 
 def _walker_operands(tables: DistanceTables, corr, occu, best_occu):
@@ -506,7 +843,7 @@ def distance_launch_operands(tables: DistanceTables, base_corr_fn, occu, beta,
 
 def make_distance_chain(tables: DistanceTables, n_steps: int, base_corr_fn,
                         block_size: int = 512, chunk_steps: int | None = None,
-                        rng: str = "philox", seqs=None, seeds=None):
+                        rng: str = "philox", seqs=None, seeds=None, _design=_DESIGN):
     """Build ``fn(state, generator) -> state`` annealing ``n_steps`` swaps.
 
     ``base_corr_fn(occu [W, N]) -> [W, num_corr] f64`` returns the exact
@@ -527,28 +864,53 @@ def make_distance_chain(tables: DistanceTables, n_steps: int, base_corr_fn,
     takes seed ``seed0 + c * 999983`` (int32 wrap in hash mode) and counts
     its steps from 0.  ``seqs = (u_seqs, v_seqs)`` [n_chunks, G, chunk] and
     ``seeds`` [n_chunks] replace the draws (the tests pass the reference's
-    own).
+    own).  This is :func:`make_batched_distance_chain` over one shape.
+    """
+    run = make_batched_distance_chain(
+        (tables,), n_steps, (base_corr_fn,), block_size, chunk_steps, rng,
+        None if seqs is None else (seqs,), None if seeds is None else (seeds,), _design)
+
+    def fn(state, generator):
+        return run((state,), (generator,))[0]
+
+    return fn
+
+
+def make_batched_distance_chain(tables_seq, n_steps: int, base_corr_fns,
+                                block_size: int = 512, chunk_steps: int | None = None,
+                                rng: str = "philox", seqs=None, seeds=None,
+                                _design=_DESIGN):
+    """Build ``fn(states, generators) -> states``: :func:`make_distance_chain`'s
+    ``fn`` on S shapes of one size, one launch per chunk for all of them.
+
+    ``states``, ``generators``, ``base_corr_fns`` and (optionally) ``seqs``
+    and ``seeds`` hold one entry per shape of ``tables_seq``; every state
+    has the same number of walkers.  Each shape draws its pairs, then its
+    seed, from its own generator, in shape order, and its features are
+    recomputed exactly on entry, as its own ``make_distance_chain`` would:
+    the result equals one such chain per shape at the same lanes bit for
+    bit.  The lanes (:func:`launch_lanes` of all S x W walkers, where one
+    shape's chain takes those of its W) set the order of df's sums, so at
+    other lanes a shape's scores can differ in their last bits.
     """
     if rng not in RNG_MODES:
         raise ValueError(f"unknown rng mode: {rng!r}")
+    tables_seq = tuple(tables_seq)
+    batch = stack_distance_tables(tables_seq)
     default_chunk = MAX_CHUNK_STEPS if rng == "hash" else n_steps
     chunk = max(1, min(n_steps, chunk_steps or default_chunk))
     n_chunks = -(-n_steps // chunk)
-    rank_sites = tables.rank_sites
 
-    def fn(state, generator):
-        occu = state["occupancy"]
-        W = occu.shape[0]
-        device = occu.device
-        wb = min(block_size, -(-W // 128) * 128)
+    def draws(tables, generator, wb, W, device, shape_seqs, shape_seeds):
+        """One shape's pairs [n_chunks, G, chunk] and seeds [n_chunks]."""
         shape = (n_chunks, -(-W // wb), chunk)
-        if seqs is not None:
+        if shape_seqs is not None:
             useq, vseq = (torch.as_tensor(np.asarray(s), dtype=torch.int32, device=device)
-                          for s in seqs)
+                          for s in shape_seqs)
         else:
             useq, vseq = rank_pair_sequence(tables, generator, shape)
-        if seeds is not None:
-            seed = torch.as_tensor(np.asarray(seeds), dtype=torch.int64, device=device)
+        if shape_seeds is not None:
+            seed = torch.as_tensor(np.asarray(shape_seeds), dtype=torch.int64, device=device)
         elif rng == "hash":
             seed0 = torch.randint(0, 2**30 - 1, (1,), generator=generator,
                                   device=device, dtype=torch.int64)
@@ -557,25 +919,40 @@ def make_distance_chain(tables: DistanceTables, n_steps: int, base_corr_fn,
             seed0 = torch.randint(0, 2**62, (1,), generator=generator, device=device,
                                   dtype=torch.int64)
             seed = seed0 + torch.arange(n_chunks, device=device) * SEED_STRIDE
+        return useq, vseq, seed
 
-        occ, best_occ, feat, d = _walker_operands(
-            tables, base_corr_fn(occu), occu, state["best_occupancy"])
-        best_d = state["best_enthalpy"].clone()
-        nacc = torch.zeros(W, dtype=torch.int32, device=device)
-        beta32 = state["beta"].to(torch.float32)
+    def fn(states, generators):
+        W = states[0]["occupancy"].shape[0]
+        if any(state["occupancy"].shape[0] != W for state in states):
+            raise ValueError("every shape of a batch needs the same number of walkers")
+        device = states[0]["occupancy"].device
+        wb = min(block_size, -(-W // 128) * 128)
+        drawn = [draws(tables, gen, wb, W, device,
+                       None if seqs is None else seqs[s], None if seeds is None else seeds[s])
+                 for s, (tables, gen) in enumerate(zip(tables_seq, generators))]
+        useq, vseq, seed = (torch.stack(x, dim=1) for x in zip(*drawn))  # chunk-major
+        walkers = [_walker_operands(tables, corr_fn(state["occupancy"]),
+                                    state["occupancy"], state["best_occupancy"])
+                   for tables, corr_fn, state in zip(tables_seq, base_corr_fns, states)]
+        occ, best_occ, feat, d = (torch.stack(x) for x in zip(*walkers))
+        best_d = torch.stack([state["best_enthalpy"] for state in states])
+        nacc = torch.zeros((len(states), W), dtype=torch.int32, device=device)
+        beta32 = torch.stack([state["beta"] for state in states]).to(torch.float32)
         for c in range(n_chunks):
             steps = min(chunk, n_steps - c * chunk)
-            distance_chain(occ, best_occ, feat, d, best_d, nacc, beta32,
-                           useq[c].contiguous(), vseq[c].contiguous(),
-                           seed[c: c + 1].contiguous(), tables, steps, wb, rng)
-        occu[:, rank_sites] = occ.T.to(occu.dtype)
-        state["best_occupancy"][:, rank_sites] = best_occ.T.to(occu.dtype)
-        state["enthalpy"].copy_(d)
-        torch.minimum(state["best_enthalpy"], best_d, out=state["best_enthalpy"])
-        state["naccept"] += nacc
-        state["accepted"] = nacc > 0  # coarse: any accept in the window
-        if "window_naccept" in state:
-            state["window_naccept"] += nacc
-        return state
+            distance_chain_batched(occ, best_occ, feat, d, best_d, nacc, beta32,
+                                   useq[c].contiguous(), vseq[c].contiguous(),
+                                   seed[c].contiguous(), batch, steps, wb, rng, _design)
+        for s, (tables, state) in enumerate(zip(tables_seq, states)):
+            occu = state["occupancy"]
+            occu[:, tables.rank_sites] = occ[s].T.to(occu.dtype)
+            state["best_occupancy"][:, tables.rank_sites] = best_occ[s].T.to(occu.dtype)
+            state["enthalpy"].copy_(d[s])
+            torch.minimum(state["best_enthalpy"], best_d[s], out=state["best_enthalpy"])
+            state["naccept"] += nacc[s]
+            state["accepted"] = nacc[s] > 0  # coarse: any accept in the window
+            if "window_naccept" in state:
+                state["window_naccept"] += nacc[s]
+        return states
 
     return fn

@@ -29,7 +29,10 @@ distance (SQS) kernel must equal its twin bit for bit on every walker
 both RNG modes, at beta 0, 0.2, 2 and 50, on the bench's 8-site shapes and
 the 64-site one, at the main path's 2048 walkers in blocks of 512, with a
 partial CUDA block, sequence blocks below a CUDA block, without the match
-term, and in its general body (runtime K, up to 32 features).  The flip
+term, and in its general body (runtime K, up to 32 features); at 1 to 16
+lanes a walker with its rows resident or streamed, packed or not, against the twin
+summing in that many lanes' order; and as one launch over four 8-site
+shapes, against each shape's own launch and the batched twin.  The flip
 and swap kernels with K1-Ising's parity body must equal the Ising twin on
 the spinels (1 and 3 words of rank bits, with and without the Ewald
 term), bench ``tempering``'s Au-Cu 3x3x3 (its launch shape, and a partial
@@ -564,6 +567,58 @@ def test_distance_kernel_general_bodies(card):
                   "feat": torch.cat([ops["feat"], ops["feat"].new_zeros(extra, 256)])}
     kernel, _ = _distance_kernel_and_twin(ops, "philox", kernel_ops=kernel_ops)
     assert not bool(kernel["feat"][t.num_feats:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16])
+def test_distance_kernel_lanes_and_layouts(card, lanes, resident, packed):
+    """Each lane count, with every rank's rows resident or streamed, packed
+    or not, equals the twin summing in that many lanes' order; with a
+    partial block."""
+    from smol_tpu_torch.ops import sqs
+
+    ops, _ = _distance_operands(card, "sqs_fcc8", 200, 300, 64, beta=2.0, shape=3)
+    design = sqs._Design(lanes=lanes, resident=resident, packed=packed)
+    for rng in ("hash", "philox"):
+        kernel = {k: (v.clone() if k in DISTANCE_STATE else v) for k, v in ops.items()}
+        twin = {k: (v.clone() if k in DISTANCE_STATE else v) for k, v in ops.items()}
+        sqs.distance_chain(**kernel, rng=rng, _design=design)
+        sqs.distance_chain_reference(**twin, rng=rng, lanes=lanes)
+        torch.cuda.synchronize()
+        for key in DISTANCE_STATE:
+            assert torch.equal(kernel[key], twin[key]), (rng, key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+def test_distance_kernel_batched_launch(card, rng):
+    """One launch over four 8-site shapes (65 to 67 rows a rank, padded)
+    equals each shape's own launch and the batched twin, bit for bit."""
+    from smol_tpu_torch.ops import sqs
+
+    shapes = [_distance_operands(card, "sqs_fcc8", 160, 120, 32, 2.0, s)[0]
+              for s in (0, 1, 2, 11)]
+    for s, ops in enumerate(shapes):
+        ops["seed"] = ops["seed"] + s
+    names = (*DISTANCE_STATE, "beta32", "useq", "vseq")
+    stacked = {k: torch.stack([o[k] for o in shapes]) for k in names}
+    stacked.update(seed=torch.cat([o["seed"] for o in shapes]), n_steps=120, block_size=32,
+                   batch=sqs.stack_distance_tables([o["tables"] for o in shapes]))
+    twin = {k: (v.clone() if k in DISTANCE_STATE else v) for k, v in stacked.items()}
+    design = sqs._Design(lanes=2)  # the same lanes for the batch and each shape
+    before = sqs.distance_chain.launches
+    sqs.distance_chain_batched(**stacked, rng=rng, _design=design)
+    assert sqs.distance_chain.launches - before == 1
+    sqs.distance_chain_batched_reference(**twin, rng=rng, lanes=2)
+    for s, ops in enumerate(shapes):
+        own = {k: (v.clone() if k in DISTANCE_STATE else v) for k, v in ops.items()}
+        sqs.distance_chain(**own, rng=rng, _design=design)
+        torch.cuda.synchronize()
+        for key in DISTANCE_STATE:
+            assert torch.equal(stacked[key][s], own[key]), (s, key)
+            assert torch.equal(stacked[key][s], twin[key][s]), (s, key)
 
 
 @pytest.mark.cuda

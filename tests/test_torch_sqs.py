@@ -25,9 +25,22 @@
 - what the port refuses raises: the cluster-interaction distance, a
   non-swap step, duplicate removal, structures, shape enumeration, the
   multicell sampler, a restricted sublattice, ``device="cuda"`` without a
-  card; and the wrapper runs the twin for CPU tensors, counting no launch.
+  card; and the wrapper runs the twin for CPU tensors, counting no launch;
+- the kernel's lanes, batches and packed rows, through their twins: at
+  one lane the twin equals the twin recorded before lanes existed, bit for
+  bit (``torch_sqs_twin_one_lane.npz``, on an 8-site and the 64-site
+  shape, both RNG modes); at 1, 2, 4 and 8 lanes it meets the interpret-mode
+  reference under the excuse rule above; the batched twin over four 8-site
+  shapes equals each shape's own launch at the same lanes, and batched
+  ``generate`` equals the shape-by-shape search (best structures, start
+  scores, stage records), bit for bit; where the batch's lanes differ
+  from a shape's own, its draws, codes and accept counts stay equal and
+  its scores agree to 1e-12; the launch plan (lanes, resident or
+  streamed rows, walkers per block) follows the shapes; the packed rows
+  hold every row's integers.
 """
 
+import dataclasses
 import functools
 import sys
 from itertools import combinations
@@ -199,15 +212,37 @@ PARITY_CASES = {  # kind, cutoffs, supercell, processor kwargs, run kwargs
 }
 
 
-@pytest.mark.parametrize("case", sorted(PARITY_CASES))
-def test_twin_matches_interpret_reference(case):
+@functools.lru_cache(maxsize=None)
+def _parity_case(case):
+    """A parity case's processors, walkers and interpret-mode reference run
+    (read-only: shared by the cases at every lane count)."""
     kind, cutoffs, kwargs, run = PARITY_CASES[case]
     W, n_steps = run.get("W", 8), run.get("n_steps", 200)
     seed, chunk_steps, beta = run.get("seed", 0), run.get("chunk_steps"), 0.5
     ref, port = _pair(kind, cutoffs, np.diag([2, 2, 2]), **kwargs)
     occus = _random_occupancies(ref, W, seed)
-    out, (useqs, vseqs, seeds), wb, chunk = _reference_run(
-        ref, occus, beta, n_steps, W, seed, chunk_steps)
+    return (ref, port, occus, W, n_steps, chunk_steps, beta,
+            *_reference_run(ref, occus, beta, n_steps, W, seed, chunk_steps))
+
+
+@pytest.mark.parametrize("case", sorted(PARITY_CASES))
+def test_twin_matches_interpret_reference(case):
+    _check_twin_against_reference(case, None)  # the launch's own lanes
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", sorted(PARITY_CASES))
+def test_twin_lanes_match_interpret_reference(case, lanes):
+    """The twin summing as the kernel's ``lanes`` threads per walker sum
+    (lane partials, then the butterfly; one lane: every row in order, as
+    the batch of the bench's 20 8-site shapes sums) meets the reference as
+    the twin does, under the same excuse rule."""
+    _check_twin_against_reference(case, lanes)
+
+
+def _check_twin_against_reference(case, lanes):
+    (ref, port, occus, W, n_steps, chunk_steps, beta,
+     out, (useqs, vseqs, seeds), wb, chunk) = _parity_case(case)
 
     tables = sqs.build_distance_tables(port)
     occu = torch.as_tensor(occus)
@@ -222,7 +257,8 @@ def test_twin_matches_interpret_reference(case):
         sqs.distance_chain_reference(
             **{**ops, "useq": torch.as_tensor(useqs[c]), "vseq": torch.as_tensor(vseqs[c]),
                "n_steps": min(chunk, n_steps - c * chunk)},
-            seed=torch.tensor([seeds[c]]), rng="hash", margin=margin, slack=SCORE_SLACK)
+            seed=torch.tensor([seeds[c]]), rng="hash", margin=margin, slack=SCORE_SLACK,
+            lanes=lanes)
     port_occ = occus.copy()
     port_occ[:, tables.rank_sites.numpy()] = ops["occ"].T.numpy()
     port_best = occus.copy()
@@ -237,7 +273,8 @@ def test_twin_matches_interpret_reference(case):
     }
     chain_fn = sqs.make_distance_chain(tables, n_steps, port.compute_corr, block_size=W,
                                        chunk_steps=chunk_steps, rng="hash",
-                                       seqs=(useqs, vseqs), seeds=seeds)
+                                       seqs=(useqs, vseqs), seeds=seeds,
+                                       _design=sqs._Design(lanes=lanes))
     state = chain_fn(state, None)
     assert np.array_equal(state["occupancy"].numpy(), port_occ)
     assert np.array_equal(state["best_occupancy"].numpy(), port_best)
@@ -247,7 +284,7 @@ def test_twin_matches_interpret_reference(case):
 
     same = np.all(port_occ == out["occupancy"], axis=1)
     excused = np.flatnonzero(~same)
-    print(f"{case}: {len(excused)} of {W} walkers excused, least margin "
+    print(f"{case}, {lanes} lanes: {len(excused)} of {W} walkers excused, least margin "
           f"{float(margin.min()):.1f} ulps")
     for w in excused:
         assert margin[w] <= ULP_SLACK, (w, float(margin[w]))
@@ -378,3 +415,214 @@ def test_wrapper_runs_twin_on_cpu_and_checks_operands():
     ):
         with pytest.raises(ValueError):
             sqs.distance_chain(**{**ops, name: bad})
+
+
+# ---------------- the kernel's lanes, resident tables and batches ----------------
+
+ONE_LANE_FILE = Path(__file__).resolve().parent / "data" / "torch_sqs_twin_one_lane.npz"
+LAUNCH_STATE = ("occ", "best_occ", "feat", "d", "best_d", "naccept")
+BATCH_SHAPES = (0, 1, 2, 11)  # 67, 65, 66 and 67 rows a rank: padded to 67
+
+
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+@pytest.mark.parametrize("stem", ["sqs_fcc8", "sqs_fcc_4x4x4"])
+def test_one_lane_twin_equals_recorded_twin(stem, rng):
+    """At one lane (the old design) the twin sums every row of a feature in
+    order, as it did before the kernel had lanes: 60 steps of 16 walkers
+    (sequence blocks of 8, beta 3) on shape 0 of each file, from the
+    recorded start, equal the end that twin recorded, bit for bit.
+
+    ``torch_sqs_twin_one_lane.npz`` holds, per file and RNG mode, the
+    operands of ``distance_launch_operands`` for ``random_starts(proc, 16,
+    default_rng(5))``, beta 3, 60 steps, blocks of 8 and a generator seeded
+    9, with the launch seed 987654321 (hash) or 0x2545F4914F6CDD1D
+    (philox), and the end that ``distance_chain_reference`` of commit
+    9747d73 (the twin before lanes, which takes no ``lanes``) reached from
+    them.  It is that twin's record: written anew by this twin, the test
+    would compare the twin with itself."""
+    data = np.load(ONE_LANE_FILE)
+    key = f"{stem}_{rng}"
+    tables = sqs.build_distance_tables(
+        CorrelationDistanceProcessor(load_systems(data_path(stem))[0], "cpu"))
+    ops = {name: torch.as_tensor(data[f"{key}_in_{name}"]).clone() for name in
+           ("occ", "best_occ", "feat", "d", "best_d", "useq", "vseq", "seed", "beta32")}
+    ops["naccept"] = torch.zeros(16, dtype=torch.int32)
+    sqs.distance_chain(**ops, tables=tables, n_steps=60, block_size=8, rng=rng,
+                       _design=sqs._OLD_DESIGN)
+    for name in LAUNCH_STATE:
+        assert torch.equal(ops[name], torch.as_tensor(data[f"{key}_out_{name}"])), name
+    assert int(ops["naccept"].sum()) > 0
+
+
+@functools.lru_cache(maxsize=None)
+def _batch_processors():
+    return tuple(CorrelationDistanceProcessor(BENCH_SHAPES[s], "cpu") for s in BATCH_SHAPES)
+
+
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+def test_batched_twin_equals_per_shape_twins(rng):
+    """Four of the bench's shapes, of 65 to 67 rows a rank, in one batch
+    (tables padded to the largest): codes, best codes, features, scores,
+    best scores and accept counts equal each shape's own launch at the
+    same lanes, bit for bit."""
+    procs = _batch_processors()
+    tables = [sqs.build_distance_tables(p) for p in procs]
+    batch = sqs.stack_distance_tables(tables)
+    L = max(t.nbr.shape[1] for t in tables)
+    assert batch.nbr.shape == (len(procs), 8, L, 3) and batch.g.shape[2] == L
+    short = tables[1]  # 65 rows: its padding is never read
+    assert bool((batch.nbr[1, :, short.nbr.shape[1]:] == -1).all())
+    assert not bool(batch.g[1, :, short.g.shape[1]:].any())
+    W, steps, block = 24, 80, 8
+    per_shape = []
+    for s, (proc, t) in enumerate(zip(procs, tables)):
+        occu = torch.as_tensor(random_starts(proc, W, np.random.default_rng(s)))
+        ops = sqs.distance_launch_operands(
+            t, proc.compute_corr, occu, torch.full((W,), 4.0, dtype=torch.float64), steps,
+            block, torch.Generator().manual_seed(s))
+        ops["seed"] = torch.tensor([1000 + s], dtype=torch.int64)
+        per_shape.append(ops)
+    stacked = {name: torch.stack([ops[name] for ops in per_shape])
+               for name in (*LAUNCH_STATE, "beta32", "useq", "vseq")}
+    stacked["seed"] = torch.cat([ops["seed"] for ops in per_shape])
+    design = sqs._Design(lanes=4)  # the same lanes for the batch and each shape
+    sqs.distance_chain_batched(**stacked, batch=batch, n_steps=steps, block_size=block,
+                               rng=rng, _design=design)
+    for s, ops in enumerate(per_shape):
+        sqs.distance_chain(**ops, rng=rng, _design=design)
+        for name in LAUNCH_STATE:
+            assert torch.equal(stacked[name][s], ops[name]), (s, name)
+        assert int(ops["naccept"].sum()) > 0
+
+
+def _generate_shape_by_shape(procs, mcmc_steps, temperatures, nwalkers, seed):
+    """The search as one chain per shape, shape after shape, as the
+    reference generator loops (its ``sqs.py:418-482``), on the port's
+    one-shape chain: ``(best, start scores, stage records)``."""
+    rng = np.random.default_rng(seed)
+    best, starts, records = [], [], []
+    for shape, proc in enumerate(procs):
+        rng.integers(2**31)
+        occu = torch.as_tensor(random_starts(proc, nwalkers, rng), dtype=torch.int32)
+        generator = torch.Generator().manual_seed(int(rng.integers(2**31)))
+        scores = proc.compute_scores(occu)
+        starts.append(scores.clone())
+        state = {"occupancy": occu, "enthalpy": scores,
+                 "naccept": torch.zeros(nwalkers, dtype=torch.int32),
+                 "best_enthalpy": scores.clone(), "best_occupancy": occu.clone()}
+        chain_fn = sqs.make_distance_chain(sqs.build_distance_tables(proc), mcmc_steps,
+                                           proc.compute_corr)
+        for temp in temperatures:
+            state["beta"] = torch.full((nwalkers,), 1.0 / temp, dtype=torch.float64)
+            state["window_naccept"] = torch.zeros_like(state["naccept"])
+            state = chain_fn(state, generator)
+            records.append({"shape": shape, "temperature": temp,
+                            "occupancy": state["occupancy"].clone(),
+                            "enthalpy": state["enthalpy"].clone(),
+                            "naccept": state["window_naccept"]})
+        features = proc.compute_features(state["best_occupancy"])
+        best.append((shape, state["best_occupancy"].numpy(),
+                     (features @ torch.as_tensor(proc.coefs)).numpy(), features.numpy()))
+    return best, starts, records
+
+
+def test_generate_batched_equals_shape_by_shape():
+    """``generate`` runs each temperature as one chain over all shapes; its
+    best structures, start scores and stage records (shape-major) equal the
+    shape-by-shape search's bit for bit (at these sizes both launches take
+    16 lanes)."""
+    procs = _batch_processors()
+    temperatures = [2.0, 0.5]
+    generator = StochasticSQSGenerator.from_processors(procs, device="cpu")
+    generator.generate(mcmc_steps=60, temperatures=temperatures, nwalkers=8, seed=4)
+    assert [shapes for shapes, _ in generator._chain_fns(60)] == [list(range(len(procs)))]
+    best, starts, records = _generate_shape_by_shape(procs, 60, temperatures, 8, 4)
+    assert len(generator._best) == len(best)
+    for (s1, o1, sc1, f1), (s2, o2, sc2, f2) in zip(generator._best, best):
+        assert s1 == s2 and np.array_equal(o1, o2)
+        assert np.array_equal(sc1, sc2) and np.array_equal(f1, f2)
+    for mine, theirs in zip(generator.start_scores, starts):
+        assert torch.equal(mine, theirs)
+    assert len(generator.stage_records) == len(records) == len(procs) * len(temperatures)
+    for mine, theirs in zip(generator.stage_records, records):
+        assert mine["shape"] == theirs["shape"] and mine["temperature"] == theirs["temperature"]
+        for key in ("occupancy", "enthalpy", "naccept"):
+            assert torch.equal(mine[key], theirs[key]), key
+
+
+def test_batched_generate_lanes_follow_the_launch():
+    """Where a batch's lanes differ from a shape's own (4 shapes of 1024
+    walkers: 8 lanes together, 16 alone), what the batch does not change
+    and what it may: each shape's draws (starts, pairs, random numbers) are
+    its own, so its start scores are equal bit for bit and, with no
+    acceptance here within the rounding of its threshold, so are its codes
+    and accept counts at every stage; the order of df's sums follows the
+    launch, so its scores agree only to rounding (1e-12), and among
+    structures of one score a walker may keep another as its best."""
+    procs = _batch_processors()
+    W, temperatures = 1024, [2.0, 0.5]
+    assert sqs.launch_lanes(len(procs) * W) == 8 and sqs.launch_lanes(W) == 16
+    generator = StochasticSQSGenerator.from_processors(procs, device="cpu")
+    generator.generate(mcmc_steps=30, temperatures=temperatures, nwalkers=W, seed=4)
+    best, starts, records = _generate_shape_by_shape(procs, 30, temperatures, W, 4)
+    for mine, theirs in zip(generator.start_scores, starts):
+        assert torch.equal(mine, theirs)
+    assert len(generator.stage_records) == len(records)
+    for mine, theirs in zip(generator.stage_records, records):
+        assert mine["shape"] == theirs["shape"] and mine["temperature"] == theirs["temperature"]
+        assert torch.equal(mine["occupancy"], theirs["occupancy"])
+        assert torch.equal(mine["naccept"], theirs["naccept"])
+        torch.testing.assert_close(mine["enthalpy"], theirs["enthalpy"], rtol=0, atol=1e-12)
+    for (s1, _, sc1, _), (s2, _, sc2, _) in zip(generator._best, best):
+        assert s1 == s2
+        np.testing.assert_allclose(sc1, sc2, rtol=0, atol=1e-12)
+
+def test_launch_plan_from_shapes():
+    """The launch's shape follows the tables: every rank's rows stay in
+    shared memory where they fit beside the codes (the 8-site shapes, about
+    50 KB a block), and stream two ranks a step where they do not (the
+    64-site shape); a block lies in one sequence group."""
+    fcc8 = sqs.build_distance_tables(_batch_processors()[0])
+    fcc64 = sqs.build_distance_tables(CorrelationDistanceProcessor(
+        load_systems(data_path("sqs_fcc_4x4x4"))[0], "cpu"))
+    W, block = 2048, 512
+    design = sqs._DESIGN
+    assert sqs.launch_lanes(W) == 16 and sqs.launch_lanes(20 * W) == 1
+    assert sqs.launch_lanes(4 * W) == 4 and sqs.launch_lanes(W, sqs._OLD_DESIGN) == 1
+    assert sqs.distance_block_walkers(W, block) * sqs.launch_lanes(W) <= sqs.DISTANCE_THREADS
+    assert sqs._resident(fcc8, W, block, design)
+    unpacked = dataclasses.replace(design, packed=False)
+    assert 49_000 < sqs.distance_chain_shared_bytes(fcc8, W, block, unpacked, True) < 60_000
+    assert 38_000 < sqs.distance_chain_shared_bytes(
+        fcc8, W, block, dataclasses.replace(design, packed=True), True) < 45_000
+    assert not sqs._resident(fcc64, W, block, design)
+    assert sqs.distance_chain_shared_bytes(fcc64, W, block, design, True) > sqs.MAX_SHARED_BYTES
+    with pytest.raises(ValueError, match="do not fit"):
+        sqs._resident(fcc64, W, block, sqs._Design(resident=True))
+    assert not sqs._resident(fcc8, W, block, sqs._OLD_DESIGN)
+    assert sqs.distance_block_walkers(W, block, sqs._OLD_DESIGN) == 64
+    assert sqs.distance_block_walkers(96, 8) == 8  # sequence blocks below a CUDA block
+    batch = sqs.stack_distance_tables([fcc8, sqs.build_distance_tables(_batch_processors()[1])])
+    assert sqs._resident(batch, W, block, design)
+
+
+@pytest.mark.parametrize("stem", ["sqs_fcc8", "sqs_fcc_4x4x4"])
+def test_packed_rows_round_trip(stem):
+    """The packed rows (one 8-byte word pair a row) hold each row's self
+    stride, neighbour ranks and strides; an empty slot packs as rank 0 with
+    stride 0, so it adds 0 as the unpacked slot does; tables a byte cannot
+    hold have no packed rows."""
+    tables = sqs.build_distance_tables(
+        CorrelationDistanceProcessor(load_systems(data_path(stem))[0], "cpu"))
+    words = tables.meta.numpy().view(np.uint32).astype(np.int64)
+    nbr, stride = tables.nbr.numpy(), tables.stride.numpy()
+    np.testing.assert_array_equal(words[..., 0] & 0xFF, tables.d2.numpy())
+    for k in range(3):
+        np.testing.assert_array_equal((words[..., 0] >> 8 * (k + 1)) & 0xFF,
+                                      np.where(nbr[..., k] >= 0, nbr[..., k], 0))
+        np.testing.assert_array_equal((words[..., 1] >> 8 * k) & 0xFF, stride[..., k])
+    assert not stride[nbr < 0].any()
+    assert sqs.pack_rows(np.pad(nbr, ((0, 0), (0, 0), (0, 1)), constant_values=-1),
+                         np.pad(stride, ((0, 0), (0, 0), (0, 1))), tables.d2.numpy()) is None
+    assert sqs.pack_rows(nbr, stride + 256, tables.d2.numpy()) is None
+
