@@ -46,10 +46,17 @@ printing its last line when any phase fails:
    Au-Cu 3x3x3 at the bench's ~250 bins, swaps on Au-Cu 4x4x4, then one
    hash-mode run across the 2048-step chunk boundary, one with
    ``update_period = 3``, and swaps with the Ewald term on the spinel
-   CE + Ewald 2x2x2; every compared run must hold a flatness reset.
+   CE + Ewald 2x2x2; every compared run must hold a flatness reset.  Each
+   at the chosen launch design (``chain.wl_launch_plan``: 16 lanes a walker
+   at 2048 walkers, the K1-Ising rows resident and the direct rows
+   streamed, with the entropy in shared memory beside either), and on both
+   cells with both bodies once more with the planes global, with the
+   entropy in shared memory and in the old design (one thread a walker,
+   rows streamed, planes global), and with the K1-Ising rows streamed;
+   the twin sums at the kernel's lanes.
    Last, the main path's launch for both moves: 2048 walkers from planes
    of zeros, one philox window at flatness 0.8 with a check every 1000
-   steps, the first 2500 of its 15000 steps (the twin's time sets that).
+   steps, the first 1000 of its 15000 steps (the twin's time sets that).
    The distance (SQS) chain against its twin, bit for bit on every walker
    (occupancy, best occupancy, features, score, best score, accepts),
    2048 walkers from the generator's starts in blocks of 512, at the
@@ -172,8 +179,8 @@ printing its last line when any phase fails:
    bytes it must move over the memory rate and its f64 operations over
    the f64 rate (for table moves, the operations of the valid proposals
    only: an identity proposal computes nothing; for the Wang-Landau
-   planes, what the launch's data needs: the flatness passes, the cells
-   visited, the histograms reset).  The Wang-Landau chain
+   planes, what the launch's data needs: entropy and histogram once, the
+   cells visited, the histograms reset).  The Wang-Landau chain
    is timed on both its cells beside the flip and swap chains on the same
    tables, and at the 2048 walkers of its main path, with the direct body
    and with K1-Ising.  The distance chain
@@ -187,7 +194,15 @@ printing its last line when any phase fails:
    2, 4, 8 and 16 lanes on one shape, the 20 shapes in one launch at the
    chosen lanes against 2, 4, 8 and 16, streamed against resident rows,
    20 launches against one, the rows unpacked against packed, and the old
-   design against the new on both cells.
+   design against the new on both cells.  The Wang-Landau chain's design
+   likewise (``wl_ab``), on both its cells with K1-Ising and with the
+   direct body, on a 100-step window at 2048 walkers: the old design
+   against 2, 4, 8 and 16 lanes (rows streamed, planes global), streamed
+   against resident rows, the planes global against the entropy in
+   shared memory (also on a 1500-step launch), and the old design against
+   the new at 2048 and 8192 walkers (the old design run through the new
+   kernel at one lane; against the parent commit's own kernel, see
+   ``scripts/time_chain_windows.py``).
    K3 against the direct body on the same cells, in turns (direct, q-ary,
    q-ary, direct): the flip chain on ``sgc`` 6x6x6, the swap chain on the
    ternary CE 3x3x3; K3's operations are counted from the character rows
@@ -750,23 +765,35 @@ def compare_wl(label, kernel, twin, start_occ, tables, n_steps, need_reset=True)
     return err
 
 
+def wl_plan_label(ops, design=None):
+    """The launch a Wang-Landau operand set gets under ``design``: lanes,
+    blocks, rows resident or streamed, the planes in shared memory."""
+    W = ops["occ"].shape[1]
+    plan = chain.wl_launch_plan(ops["tables"], W, ops["block_size"], ops["move"],
+                                ops["wl"].num_levels, design)
+    return (f"G={plan.lanes}, {plan.blocks(W)} blocks of {plan.walkers_per_block} walkers, "
+            f"rows {'resident' if plan.resident else 'streamed'}, planes in shared "
+            f"memory: {chain.WL_PLANES[plan.planes]}, {plan.shared_bytes} B of it a block")
+
+
 def wl_window_vs_twin(ensemble, system, name, move, rng, seed, delta="direct",
-                      **options):
-    """Phase 3: one Wang-Landau launch, kernel against twin."""
+                      design=None, **options):
+    """Phase 3: one Wang-Landau launch, kernel (under ``design``; None: the
+    default) against the twin at the kernel's lanes."""
     ops = wl_operands(ensemble, system, move, WL_WALKERS, THIN, BLOCK, occ_seed=7,
                       seq_seed=17, delta=delta,
                       **{"flatness": 0.3, "check_period": 20, **options})
     ops["seed"] = torch.tensor([seed], dtype=torch.int64, device=ensemble.device)
     k = fresh(ops)
     t = fresh(ops)
-    chain.wl_chain(**k, rng=rng)
-    chain.wl_chain_reference(**t, rng=rng)
+    chain.wl_chain(**k, rng=rng, _design=design)
+    chain.wl_chain_reference(**t, rng=rng, lanes=chain.wl_lanes(WL_WALKERS, design))
     torch.cuda.synchronize()
     ewald = "+ewald" if ops["tables"].has_ewald else ""
     extra = "".join(f", {key}={value}" for key, value in options.items())
     return compare_wl(f"wl-{move}{ewald}+{body_label(ops['tables'])} {name} {rng} seed "
-                      f"{seed:#x}, {ops['wl'].num_levels} bins{extra}", k, t, ops["occ"],
-                      ops["tables"], THIN)
+                      f"{seed:#x}, {ops['wl'].num_levels} bins{extra}; "
+                      f"{wl_plan_label(ops, design)}", k, t, ops["occ"], ops["tables"], THIN)
 
 
 def wl_main_launch_vs_twin(ensemble, system, name, move, delta="direct"):
@@ -789,7 +816,8 @@ def wl_main_launch_vs_twin(ensemble, system, name, move, delta="direct"):
     err = compare_wl(f"wl-{move}+{body_label(ops['tables'])} {name} philox, the main "
                      f"path's launch: "
                      f"{WL_TWIN_STEPS} of its {WL_THIN} steps, {wl.num_levels} bins, "
-                     f"flatness {wl.flatness:g}, check_period {wl.check_period}", k, t,
+                     f"flatness {wl.flatness:g}, check_period {wl.check_period}; "
+                     f"{wl_plan_label(ops)}", k, t,
                      ops["occ"], ops["tables"], WL_TWIN_STEPS, need_reset=False)
     print(f"phase 3: that comparison took {time.perf_counter() - t0:.1f} s")
     return err
@@ -841,8 +869,8 @@ def wl_chunked_hash_vs_twin(ensemble, system, name, move, delta="direct"):
            for key in WL_PLANES},
     }
     return compare_wl(f"wl-{move}+{body_label(tables)} {name} hash {n_steps} steps, "
-                      f"2 chunks, {wl.num_levels} bins", kernel, twin, ops["occ"], tables,
-                      n_steps)
+                      f"2 chunks, {wl.num_levels} bins; {wl_plan_label(ops)}", kernel, twin,
+                      ops["occ"], tables, n_steps)
 
 
 # ---------------- the main paths ----------------
@@ -1982,15 +2010,17 @@ def time_segment(card, ensemble, delta, windows=20):
 def wl_bound(ops, after):
     """The least time of one Wang-Landau launch: (ms, by, bytes, operations).
 
-    Bytes: the chain's operands as :func:`bound` counts them, ``mod_factor``
-    and ``wl_counter`` read and written once, and of the three [B, W] planes
-    what this launch's data needs, read off ``after``, the state one such
-    launch leaves: entropy and histogram over all bins for every flatness
-    pass of the launch (12 B a cell), the cells that a walker visited (the
-    launch starts from planes of zeros, so those with an occurrence) read
-    once and written once in all three planes (16 B each way), and the
-    histogram's zeroing (4 B a bin) for every reset (``mod_factor`` halves
-    at each).  The occurrences are never moved in whole.
+    Bytes: every byte that this launch's data needs read once and written
+    once: the codes, enthalpy, accept count, ``mod_factor`` and
+    ``wl_counter`` in and out, the proposal sequences and the tables, and
+    of the three [B, W] planes what ``after``, the state one such launch
+    leaves, shows was needed: entropy and histogram over all bins once
+    (12 B a cell; the flatness test reads them all), the occurrences of
+    the cells a walker visited (the launch starts from planes of zeros, so
+    those with an occurrence) read and all three planes' such cells written
+    (4 B and 16 B), and the histogram's zeroing (4 B a bin) for every reset
+    (``mod_factor`` halves at each).  The same work for every launch
+    design, wherever it keeps the planes and however often it checks.
     Operations: the delta's (:func:`body_ops` on the rows of the ranks
     proposed, R + 2 per Ewald term, a flip's chemical work), and six per
     step for the rule and the bookkeeping (E + dE, minus the window's
@@ -2004,12 +2034,10 @@ def wl_bound(ops, after):
         table_tensors += [tables.mu, tables.ncode]
     if tables.has_ewald:
         table_tensors += [tables.ew_v, tables.ew_c]
-    check = ops["wl"].check_period
-    passes = steps // check + (1 if steps % check else 0)
     visited = int((after["occurrences"] > 0).sum())
     resets = int(torch.round(-torch.log2(after["mod_factor"] / ops["mod_factor"])).sum())
     nbytes = (2 * R * W + W * (2 * 8 + 2 * 4) + 2 * W * (8 + 4)
-              + passes * B * W * 12 + visited * 2 * 16 + resets * B * 4
+              + B * W * 12 + visited * (4 + 16) + resets * B * 4
               + sum(q[:, :steps].numel() * 4 for q in ops["seqs"])
               + sum(t.numel() * t.element_size() for t in table_tensors))
     sites = W * steps * len(ops["seqs"])
@@ -2037,8 +2065,7 @@ def time_wl_window(ensemble, system, name, card, move, walkers, block=BLOCK,
     rate = walkers * THIN / (kernel_ms * 1e-3)
     result = {"kernel_ms": kernel_ms, "bound_ms": bound_ms, "bound_by": bound_by}
     line = (f"phase 5 [wl-{move}+{body_label(ops['tables'])} {name}] {card}: 100-step "
-            f"window at {walkers} walkers "
-            f"({-(-walkers // 64)} CUDA blocks on "
+            f"window at {walkers} walkers ({wl_plan_label(ops)}; "
             f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs), "
             f"{ops['wl'].num_levels} bins: kernel {kernel_ms:.4f} ms "
             f"({rate / 1e6:.1f} M attempts/s), bound {bound_ms * 1e3:.3f} us "
@@ -2051,6 +2078,89 @@ def time_wl_window(ensemble, system, name, card, move, walkers, block=BLOCK,
                  f"{result['twin_ms'] / kernel_ms:.1f}x")
     print(line)
     return result
+
+
+def wl_design_name(design):
+    """A Wang-Landau launch design's label."""
+    if design == chain._WL_OLD_DESIGN:
+        return "old (G=1, streamed, global planes)"
+    rows = {None: "rows fit", True: "rows resident", False: "rows streamed"}[design.resident]
+    planes = ("planes fit" if design.planes is None
+              else f"planes {('global', 'entropy shared')[design.planes]}")
+    return f"G={design.lanes or 'rule'} {rows} {planes}"
+
+
+def wl_in_turns(label, card, ops, designs, reps):
+    """Two designs of the Wang-Landau kernel timed in turns (a, b, b, a) on
+    copies of one starting state: each turn the mean of ``reps`` launches.
+    Returns each design's mean of its two turns, in ms."""
+    turns = {design: [] for design in designs}
+    a, b = designs
+    for design in (a, b, b, a):
+        run = functools.partial(chain.wl_chain, _design=design)
+        turns[design].append(cuda_ms(same_window(run, ops, reps), reps))
+    ta, tb = (sum(turns[d]) / 2 for d in designs)
+    na, nb = (wl_design_name(d) for d in designs)
+    print(f"phase 5 [wl A/B {label}] {card}: {nb} {tb:.4f} ms against {na} {ta:.4f} ms "
+          f"(turns a, b, b, a: {turns[a][0]:.4f}, {turns[b][0]:.4f}, {turns[b][1]:.4f}, "
+          f"{turns[a][1]:.4f}; {wl_plan_label(ops, b)}), {nb if tb < ta else na} faster by "
+          f"{max(ta, tb) / min(ta, tb):.3f}x")
+    return {"a": ta, "b": tb}
+
+
+def wl_ab(card, wl_runs, reps=10):
+    """Phase 5: K6's design, part by part, each pair in turns (a, b, b, a)
+    on copies of one starting state of a 100-step window from fresh planes
+    (bench parameters), on the flip and the swap cell with the default
+    body (K1-Ising) and the direct body, at the main path's 2048 walkers:
+    (1) the old design (one thread a walker, rows streamed, planes global)
+    against G = 2, 4, 8 and 16 lanes, rows streamed and planes global; (2)
+    streamed against resident rows at the chosen lanes (where they fit);
+    (3) the planes global against the entropy in shared memory, on the
+    100-step window and on a 1500-step launch (the entropy's load and
+    write-back are a fixed cost of a launch); then the old design against
+    the default at 2048 and at 8192 walkers.  The old design runs through
+    this kernel at one lane."""
+    old = chain._WL_OLD_DESIGN
+    results = {}
+    for stem, (ens, system, _) in wl_runs.items():
+        move = WL_CELLS[stem]
+        block = SWAP_CELLS[stem][1] if stem in SWAP_CELLS else BLOCK
+        for delta in ("ising", "direct"):
+            ops = wl_operands(ens, system, move, WL_WALKERS, THIN, block, occ_seed=5,
+                              seq_seed=1, delta=delta)
+            ops["seed"] = torch.tensor([42], dtype=torch.int64, device=ens.device)
+            cell = f"wl-{move}+{delta} {stem}"
+            lanes = chain.wl_lanes(WL_WALKERS)
+            plan = chain.wl_launch_plan(ops["tables"], WL_WALKERS, block, move,
+                                        ops["wl"].num_levels)
+            streamed = chain._WLDesign(resident=False, planes=0)
+            rows = chain._WLDesign(resident=plan.resident, planes=0)
+            entropy = chain._WLDesign(resident=plan.resident, planes=1)
+            r = {"lanes": {g: wl_in_turns(f"1, lanes: {cell}", card, ops, (
+                old, chain._WLDesign(lanes=g, resident=False, planes=0)), reps)
+                for g in (2, 4, 8, 16)}}
+            if plan.resident:
+                r["resident"] = wl_in_turns(f"2, resident rows at G={lanes}: {cell}", card,
+                                            ops, (streamed, rows), reps)
+            # the planes' load and write-back are a fixed cost of each launch:
+            # part 3 also on a launch of a tenth of the main path's 15000 steps
+            long_ops = wl_operands(ens, system, move, WL_WALKERS, WL_THIN // 10, block,
+                                   occ_seed=5, seq_seed=1, delta=delta)
+            long_ops["seed"] = ops["seed"]
+            for steps, o in ((THIN, ops), (WL_THIN // 10, long_ops)):
+                r[f"entropy {steps}"] = wl_in_turns(
+                    f"3, the entropy in shared memory, {steps} steps: {cell}", card, o,
+                    (rows, entropy), reps)
+            r["old-new"] = wl_in_turns(f"old against new at {WL_WALKERS} walkers: {cell}",
+                                       card, ops, (old, chain._WL_DESIGN), reps)
+            big = wl_operands(ens, system, move, WALKERS, THIN, block, occ_seed=5,
+                              seq_seed=1, delta=delta)
+            big["seed"] = ops["seed"]
+            r["old-new 8192"] = wl_in_turns(f"old against new at {WALKERS} walkers: {cell}",
+                                            card, big, (old, chain._WL_DESIGN), reps)
+            results[cell] = r
+    return results
 
 
 def distance_bound(ops, work):
@@ -2355,6 +2465,18 @@ def main():
             update_period=3))
         errs[key].append(wl_window_vs_twin(
             *wl_ewald, EWALD_QARY_CELL, "swap", *SEEDS[1], delta))
+    # the launch's parts at the chosen lanes: planes global (0), the
+    # entropy in shared memory (1), K1-Ising's rows
+    # streamed, and the old design (one thread a walker, rows streamed,
+    # planes global)
+    for stem, move in WL_CELLS.items():
+        for delta, key in (("direct", "wl"), ("ising", "wl+ising")):
+            for design in (*(chain._WLDesign(planes=k) for k in range(2)),
+                           chain._WL_OLD_DESIGN):
+                errs[key].append(wl_window_vs_twin(*wl_systems[stem], stem, move, *SEEDS[0],
+                                                   delta, design))
+        errs["wl+ising"].append(wl_window_vs_twin(
+            *wl_systems[stem], stem, move, *SEEDS[1], "ising", chain._WLDesign(resident=False)))
     for stem, move in WL_CELLS.items():  # the main path's own launch
         errs["wl"].append(wl_main_launch_vs_twin(*wl_systems[stem], stem, move))
     errs["wl+ising"].append(wl_main_launch_vs_twin(
@@ -2452,6 +2574,7 @@ def main():
     for name, timed in sqs_timed.items():
         timings[("distance", name)] = time_distance(name, card, timed, kernel_reps=5)
     distance_ab(card, procs8, fcc64)
+    wl_ab(card, wl_runs)
 
     def in_turns(label, time_fn, bodies):
         """Two bodies timed in turns (a, b, b, a): the twin on the first turn

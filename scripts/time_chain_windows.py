@@ -1,13 +1,14 @@
 """Time the flip, swap, table, Wang-Landau and distance chains of one checkout on one GPU.
 
 For an A/B of two versions of a kernel on the same card, one after the other:
-unpack the other version beside this one (``git archive <commit> | tar -x
--C build/parent``) and run, in turns,
+unpack the other version beside this one (``mkdir -p ab_trees/parent; git
+archive <commit> | tar -x -C ab_trees/parent``; ``.gitignore`` lists
+``ab_trees/``) and run, in turns,
 
-    python scripts/time_chain_windows.py parent build/parent
+    python scripts/time_chain_windows.py parent ab_trees/parent
     python scripts/time_chain_windows.py change
     python scripts/time_chain_windows.py change
-    python scripts/time_chain_windows.py parent build/parent
+    python scripts/time_chain_windows.py parent ab_trees/parent
 
 Each run builds the named checkout's kernels (default: the checkout this
 script lies in) and times ``chip_smoke.time_window`` of that checkout: one
@@ -17,12 +18,13 @@ Ewald term, and Au-Cu) and on the charge-neutral table-flip cells (with
 and without the Ewald term), and, where the checkout has them, the two
 Wang-Landau cells (flips on
 Au-Cu 3x3x3, swaps on Au-Cu 4x4x4, each in its main path's sequence block;
-``chip_smoke.time_wl_window``) and the distance chain on the SQS main
+``chip_smoke.time_wl_window``, at 8192 walkers and at the Wang-Landau main
+path's 2048, with each site body the checkout has) and the distance chain on the SQS main
 path's launch (8000 steps at 2048 walkers on the bench's first 8-site
 shape and on the 64-site shape, mean of 5, each on a copy of one starting
 state), and, where the checkout has them, the flip and swap cells of
 K1-Ising (``chip_smoke.ISING_CELLS``) with the Ising body, and the table
-and Wang-Landau cells with K1-Ising (``chip_smoke.TABLE_BODY_CELLS``).
+cells with K1-Ising (``chip_smoke.TABLE_BODY_CELLS``).
 Further arguments after the tree name the kinds to time (``flip``,
 ``swap``, ``table``, ``wl``, ``distance``, ``ising``; all without).
 Prints the card's name and power limit and one ``AB`` line per cell:
@@ -82,14 +84,17 @@ def main():
                                        chip_smoke.BLOCK, twin_reps=0, delta="ising")
             print("AB", label, "table+ising", stem, t["kernel_ms"],
                   t.get("kernel_no_ewald_ms", float("nan")), flush=True)
+    wl_bodies = ("direct", "ising") if hasattr(chip_smoke, "TABLE_BODY_CELLS") else ("direct",)
+    wl_walkers = sorted({chip_smoke.WALKERS, getattr(chip_smoke, "WL_WALKERS", chip_smoke.WALKERS)})
     for stem, move in wl_cells.items():
         block = chip_smoke.SWAP_CELLS.get(stem, (None, chip_smoke.BLOCK))[1]
-        for delta in ("direct", "ising") if bodies else ("direct",):
-            extra = {"delta": delta} if bodies else {}
-            t = chip_smoke.time_wl_window(*chip_smoke.load(stem), stem, card, move,
-                                          chip_smoke.WALKERS, block, **extra)
-            print("AB", label, f"wl-{move}" + ("+ising" if delta == "ising" else ""), stem,
-                  t["kernel_ms"], float("nan"), flush=True)
+        for delta in wl_bodies:
+            extra = {"delta": delta} if len(wl_bodies) > 1 else {}
+            for walkers in wl_walkers:
+                t = chip_smoke.time_wl_window(*chip_smoke.load(stem), stem, card, move,
+                                              walkers, block, **extra)
+                print("AB", label, f"wl-{move}" + ("+ising" if delta == "ising" else ""),
+                      f"{stem}@{walkers}", t["kernel_ms"], float("nan"), flush=True)
     for stem in sqs_cells:
         proc = chip_smoke.sqs_processors(stem)[0]
         ops = chip_smoke.distance_operands(proc, chip_smoke.SQS_STEPS,

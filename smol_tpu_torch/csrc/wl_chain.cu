@@ -4,16 +4,11 @@
 // smol_tpu/ops/pallas_chain.py (make_shared_proposal_chain with
 // wl=WLChain: the accept :1866-1880, the bookkeeping and flatness check
 // :1899-1973, the initial carry :1978-1986), for move="flip" and
-// move="swap".  It keeps flip_chain.cu's frame: one thread per walker, the
-// block's codes in shared memory for the whole launch, the next step's
-// table rows (u's, and v's for a swap) prefetched with cp.async into two
-// buffers, Philox or the reference's hash, and the deltas of flip_chain.cu
-// and swap_chain.cu (flip_delta and swap_delta of chain_common.cuh: cluster
-// terms, Ewald term, chemical work of a flip), summed in f64 in the same
-// order as the plain torch twin in ops/chain.py.  The site body is a
-// template parameter, as in those kernels: the direct lookup, K3's q-ary
-// character rows or K1-Ising's parity rows, whose walker's rank bits are
-// updated after every accepted flip or swap; the reference takes the body
+// move="swap".  The deltas are those of flip_chain.cu and swap_chain.cu
+// (cluster terms, Ewald term, chemical work of a flip), summed in f64 in
+// the order of the plain torch twin in ops/chain.py (wl_chain_reference).
+// The site body is a template parameter: the direct lookup, K3's q-ary
+// character rows or K1-Ising's parity rows; the reference takes the body
 // of the system in its Wang-Landau branches too (:1827, :1850).
 //
 // Per step: E' = E + dE, w' = E' - min_enthalpy, b' = clip(floor(w' /
@@ -33,26 +28,64 @@
 // selects and row write-backs and its cap on the walker block exist for
 // the TPU's vector unit and VMEM and are not carried over.
 //
-// Where the planes live.  Entropy (f64), histogram and occurrences (int32)
-// are [B, W], bin-major like the occupancy's [R, W]: 16 bytes per bin and
-// walker, megabytes per launch, far above shared memory, so they stay in
-// global memory and are served by L2.  Bin-major makes the flatness pass
-// coalesced (the threads of a warp read neighbouring walkers of one bin)
-// and lets walkers of a warp that sit in one bin share a sector; the
-// state outside keeps the reference's [W, B] and is transposed once per
-// window by the caller.  The walker's own cell of each plane at its current
-// bin rides in registers (s_cur, h_cur, o_cur), so the only plane read on
-// the step's critical path is the proposed bin's: S[b'], with the
-// histogram and occurrences of b' loaded beside it in the same round trip
-// and used only on accept.  The three updates are then plain stores that
-// nothing waits for.  Every plane access is an ordinary load or store of
-// the walker's own thread (no read-only cache path), so a step reads what
-// the walker's earlier steps wrote.  Threads beyond the last walker take
-// part in the block's barriers and row copies and never touch a plane.
+// Lanes.  A walker is G consecutive threads of one warp (G = 1, 2, 4, 8 or
+// 16, `lanes`; ops/chain.py wl_lanes takes the fewest that give the launch
+// 32768 threads), and a block holds `walkers_per_block` walkers of
+// one sequence group, its codes in shared memory indexed by walker.  Lane j
+// takes rows j, j + G, j + 2G, ... of each rank's rows in row order from
+// +0.0 (the Ising body in batches of kLaneBatch rows whose loads are all
+// issued first, as ising_add does at one lane); the G partials meet in a
+// butterfly of __shfl_xor_sync (xor 1, 2, 4, ...), after which every lane
+// holds the same dE bits.  A swap sums u's rows then v's into one partial
+// (direct, K3) or butterflies u's and v's parity sums apart (K1-Ising,
+// whose sum is scaled per rank).  The Ewald dot stays in rank order on
+// every lane.  Every lane then draws, bins, reads S[b'] and decides for
+// itself, so each holds the walker's state (enthalpy, bin, S[b_cur],
+// mod_factor, counter and, for K1-Ising, the rank bits) in registers.
+// Lane 0 alone writes the walker's codes and plane cells; __syncwarp over
+// the walker's lanes orders the write of b into u's cell before v's rows,
+// every lane's reads before the decision's writes, and those writes before
+// the next step.  The flatness pass is split over the lanes (lane j takes
+// bins j, j + G, ...; the visited count, the integer sum and the minimum
+// meet by shuffles, exactly), and so is the histogram's zeroing.  At G = 1
+// the same code sums the rows in the order of flip_chain.cu's and
+// swap_chain.cu's one-thread delta.
 //
-// What bounds it on this card: as for the flip chain, the latency of each
-// walker's dependent step; the Wang-Landau rule adds one L2 round trip
-// (S[b']) between the delta and the decision.
+// Rows.  Where every rank's rows of the body fit in shared memory beside
+// the block's codes (`resident`; the launcher's budget decides from the
+// shapes: the Ising rows of Au-Cu 3x3x3, 50 KB, and 4x4x4, 118 KB), the
+// block copies them once with cp.async and runs every step with no block
+// barrier.  Otherwise (the direct rows, 11 KB a rank) the next step's rows
+// of u (and v) are streamed into a second buffer with cp.async while this
+// step runs (K8), behind one block barrier a step.
+//
+// Planes.  The entropy (f64), histogram and occurrences (int32) are [B, W]
+// in global memory, bin-major.  With `planes` = 1 the block keeps the
+// entropy in shared memory for the whole launch ([walker][B | 1]: a
+// walker's bins contiguous for the split flatness pass, the odd pitch
+// putting the walkers' rows in different banks), loaded at its start and
+// written back at its end; the launcher takes it wherever it fits beside
+// the rows and codes (ops/chain.py wl_launch_plan).  Every access is the
+// walker's own, so a step reads what its earlier steps wrote.  With the
+// entropy in shared memory the histogram and occurrences gain their count
+// by a fire-and-forget atomicAdd (nothing waits on an L2 round trip) and
+// are read only by the flatness pass; with all three global (`planes` =
+// 0) the walker's histogram cells at its current bin ride in registers and
+// the proposed bin's are loaded with S[b'], used only on accept.
+//
+// What bounds it on this card: not the roofline (chip_smoke.py wl_bound:
+// the operands, and of the planes what the launch's data needs, read and
+// written once, and the delta's f64 operations; the kernel stays tens of
+// times above it on an H100, PERF.md), but each walker's dependent step.
+// At one thread a walker that was the rows a thread walks in turn, on 32
+// of 132 SMs for bench wang-landau's 2048 walkers, and the per-step waits
+// (the cp.async wait and block barrier, S[b'] from L2).  The lanes divide
+// the rows by G and put G times more warps on the card, resident rows drop
+// the wait and the barrier, a resident entropy the L2 round trip.  What is
+// left is the step's fixed chain that every lane repeats (the draws, the
+// binning division, the decision, the shuffles): 8192 walkers at 4 lanes
+// take only about 1.6x as long as 2048 at 16, so the step's latency, not
+// the issue rate, bounds it.
 //
 // The C entry point returns cudaGetLastError() after the launch.
 
@@ -66,6 +99,8 @@ using namespace smol;
 
 constexpr int kFlip = 0;
 constexpr int kSwap = 1;
+constexpr int kWLThreads = 256;  // most threads of a block: walkers x lanes
+constexpr int kLaneBatch = 8;    // parity rows a lane loads before it sums them
 
 struct WLParams {
   int num_levels;     // B
@@ -83,10 +118,204 @@ __device__ __forceinline__ int wl_bin(double w, double bin_size, int B) {
   return q < 0.0 ? 0 : (q > (double)(B - 1) ? B - 1 : (int)q);
 }
 
+// Bytes of one rank-major row of the block's codes: one per walker, padded
+// so that the rows of different ranks start in different banks.
+__host__ __device__ __forceinline__ int code_pitch(int walkers_per_block) {
+  return (walkers_per_block + 3) / 4 * 4 + 4;
+}
+
+__host__ __device__ __forceinline__ size_t align16(size_t bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+// The block's entropy in shared memory: [walkers_per_block][plane_pitch(B)].
+__host__ __device__ __forceinline__ int plane_pitch(int B) { return B | 1; }
+
+__host__ __device__ __forceinline__ size_t planes_bytes(int B, int walkers_per_block,
+                                                        int planes) {
+  return planes ? align16((size_t)plane_pitch(B) * walkers_per_block * 8) : 0;
+}
+
+// Dynamic shared memory of one launch: the rows (every rank's, or two
+// buffers of the step's row sets), the planes, the codes.
+size_t shared_bytes(size_t rb, int R, int row_sets, int B, int walkers_per_block,
+                    int resident, int planes) {
+  return (resident ? (size_t)R : 2 * (size_t)row_sets) * rb +
+         planes_bytes(B, walkers_per_block, planes) +
+         align16((size_t)R * code_pitch(walkers_per_block));
+}
+
+// The lanes' partials meet: every lane ends with the sum, bit for bit the
+// same (f64 addition commutes).
+template <typename T>
+__device__ __forceinline__ T lane_sum(T x, unsigned mask, int lanes) {
+  for (int m = 1; m < lanes; m <<= 1) x += __shfl_xor_sync(mask, x, m);
+  return x;
+}
+
+// One lane's rows of a rank, for each body: rows lane, lane + lanes, ...
+// in row order.  The direct and q-ary bodies add their terms to `acc`
+// (kScaled false); the Ising body returns its rows' parity sum, which the
+// caller scales by -2 (b - a) after the lanes meet (kScaled true).
+template <class Body>
+struct Lanes;
+
+template <int KT>
+struct Lanes<Direct<KT>> {
+  static constexpr bool kScaled = false;
+  static __device__ __forceinline__ double add(double acc, const Rows& rows,
+                                               const Tables& t, int, const int8_t* codes,
+                                               int pitch, int a, int b, const NoWalker&,
+                                               int lane, int lanes) {
+    const int K = KT > 0 ? KT : t.K;
+#pragma unroll 1
+    for (int l = lane; l < t.L; l += lanes) {
+      const int d = rows.d2[l];
+      int x = d * a;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int n = rows.nbr[l * K + k];
+        const int code = n >= 0 ? (int)codes[n * pitch] : 0;
+        x += rows.st[l * K + k] * code;
+      }
+      const int xn = x + d * (b - a);
+      const double term = rows.g[l * t.TM + xn] - rows.g[l * t.TM + x];
+      acc += term;
+    }
+    return acc;
+  }
+};
+
+template <int Q, int NBT>
+struct Lanes<Qary<Q, NBT>> {
+  static constexpr bool kScaled = false;
+  static __device__ __forceinline__ double add(double acc, const QRows& r,
+                                               const Tables& t, int u, const int8_t* codes,
+                                               int pitch, int a, int b, const NoWalker&,
+                                               int lane, int lanes) {
+    const int NB = NBT > 0 ? NBT : t.NB;
+    const int n = __ldg(t.qrows + u);
+#pragma unroll 1
+    for (int l = lane; l < n; l += lanes) {
+      int ph = 0;
+#pragma unroll
+      for (int k = 0; k < NB; ++k) {
+        const int nb = r.nbr[l * NB + k];
+        const int code = nb >= 0 ? (int)codes[nb * pitch] : 0;
+        ph += r.freq[l * NB + k] * code;
+      }
+      const int m = r.ms[l];
+      const int wo = (ph + m * a) % Q;
+      const int wn = (ph + m * b) % Q;
+      double term = r.ac[l] * (double)(sigma_c<Q>(wn) - sigma_c<Q>(wo));
+      if constexpr (Q != 2) {
+        term += r.as[l] * (double)(sigma_s<Q>(wn) - sigma_s<Q>(wo));
+      }
+      acc += term;
+    }
+    return acc;
+  }
+};
+
+template <int NW>
+struct Lanes<Ising<NW>> {
+  static constexpr bool kScaled = true;
+  // The lane's parity sum from +0.0, in batches of kLaneBatch rows whose
+  // masks and amplitudes are all loaded before any is used (see
+  // ising_add); a row past the rank's count loads as mask 0 and amplitude
+  // +0.0 and adds +0.0, which leaves the sum (never -0.0) unchanged.
+  static __device__ __forceinline__ double sum(const IRows& r, const Tables& t, int u,
+                                               const Bits<NW>& bits, int lane, int lanes) {
+    const int n = __ldg(t.irows + u);
+    double s = 0.0;
+    for (int l0 = lane; l0 < n; l0 += kLaneBatch * lanes) {
+      uint64_t mask[kLaneBatch][NW];
+      double A[kLaneBatch];
+#pragma unroll
+      for (int j = 0; j < kLaneBatch; ++j) {
+        const int l = l0 + j * lanes;
+        const bool ok = l < n;
+#pragma unroll
+        for (int k = 0; k < NW; ++k) mask[j][k] = ok ? r.mask[l * NW + k] : 0ull;
+        A[j] = ok ? r.amp[l] : 0.0;
+      }
+      asm volatile("" ::: "memory");  // every load of the batch issued first
+#pragma unroll
+      for (int j = 0; j < kLaneBatch; ++j) s += ising_term<NW>(mask[j], A[j], bits);
+    }
+    return s;
+  }
+};
+
+// A flip's delta over the lanes: the body's rows, then the Ewald term (in
+// rank order, on every lane), then minus the chemical work; as flip_delta.
+template <class Body, bool EW>
+__device__ __forceinline__ double lane_flip_delta(
+    const typename Body::Rows& ru, const Tables& t, int u, int a, int b,
+    const int8_t* codes, int pitch, int R, int C, const double* __restrict__ mu,
+    const double* __restrict__ ew_c, const typename Body::Walker& wk, int lane,
+    int lanes, unsigned mask) {
+  using L = Lanes<Body>;
+  double dE;
+  if constexpr (L::kScaled) {
+    const double s = lane_sum(L::sum(ru, t, u, wk, lane, lanes), mask, lanes);
+    dE = 0.0 + (double)(-2 * (b - a)) * s;
+  } else {
+    dE = lane_sum(L::add(0.0, ru, t, u, codes, pitch, a, b, wk, lane, lanes), mask, lanes);
+  }
+  if constexpr (EW) {
+    dE += ewald_term(ru.ew, __ldg(ew_c + u), codes, pitch, 0, R, b - a);
+  }
+  const double work = __ldg(mu + u * C + b) - __ldg(mu + u * C + a);
+  dE -= work;
+  return dE;
+}
+
+// A swap's joint delta over the lanes, as swap_delta: u's rows going
+// a -> b, then (lane 0 writing b into u's cell between two warp barriers)
+// v's rows going b -> a, then u's Ewald term (taken before u is
+// recolored), then v's.  Leaves b in u's cell.
+template <class Body, bool EW>
+__device__ __forceinline__ double lane_swap_delta(
+    const typename Body::Rows& ru, const typename Body::Rows& rv, const Tables& t, int u,
+    int v, int8_t* cu, int a, int b, const int8_t* codes, int pitch, int R,
+    const double* __restrict__ ew_c, const typename Body::Walker& wk, int lane, int lanes,
+    unsigned mask) {
+  using L = Lanes<Body>;
+  double ewald_u = 0.0;
+  if constexpr (EW) {
+    ewald_u = ewald_term(ru.ew, __ldg(ew_c + u), codes, pitch, 0, R, b - a);
+  }
+  typename Body::Walker wv = wk;
+  wv.set(u, b);
+  double dE;
+  if constexpr (L::kScaled) {
+    const double su = L::sum(ru, t, u, wk, lane, lanes);
+    const double sv = L::sum(rv, t, v, wv, lane, lanes);
+    __syncwarp(mask);  // every lane has read a before it changes
+    if (lane == 0) *cu = (int8_t)b;  // v's Ewald term sees u holding b
+    __syncwarp(mask);
+    dE = 0.0 + (double)(-2 * (b - a)) * lane_sum(su, mask, lanes);
+    dE = dE + (double)(-2 * (a - b)) * lane_sum(sv, mask, lanes);
+  } else {
+    double acc = L::add(0.0, ru, t, u, codes, pitch, a, b, wk, lane, lanes);
+    __syncwarp(mask);  // every lane has read u's rows' codes before they change
+    if (lane == 0) *cu = (int8_t)b;  // v's rows see u already holding b
+    __syncwarp(mask);
+    acc = L::add(acc, rv, t, v, codes, pitch, b, a, wv, lane, lanes);
+    dE = lane_sum(acc, mask, lanes);
+  }
+  if constexpr (EW) {
+    dE += ewald_u;
+    dE += ewald_term(rv.ew, __ldg(ew_c + v), codes, pitch, 0, R, a - b);
+  }
+  return dE;
+}
+
 // MOVE: kFlip or kSwap; Body: Direct<KT>, Qary<Q, NBT> or Ising<NW>, as in
 // flip_chain.cu; EW: the tables carry the Ewald fold.
 template <int MOVE, class Body, bool EW>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kWLThreads)
 wl_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
                 int32_t* __restrict__ naccept, double* __restrict__ entropy,
                 int32_t* __restrict__ hist, int32_t* __restrict__ occr,
@@ -113,43 +342,56 @@ wl_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
                 const double* __restrict__ iamp,
                 const int32_t* __restrict__ irows, int R, int L, int K,
                 int TM, int C, int Lq, int NB, int Li, int NW, int W,
-                int block_size, int n_steps, int rng_mode, WLParams p) {
+                int block_size, int n_steps, int rng_mode, WLParams p, int lanes,
+                int walkers_per_block, int resident, int planes) {
   // the tables with their compile-time counts, as swap_chain.cu takes them
   Tables t{nbr, stride, d2, g, ew_v, qnbr, qfreq, qms, qac, qas, qrows,
            L, K, TM, EW ? R : 0, Lq, NB, imask, iamp, irows, Li, NW};
   Body::pin(t);
   constexpr int NR = MOVE == kSwap ? 2 : 1;  // row sets of one step
+  const int B = p.num_levels;
+  const int wpb = walkers_per_block;
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t rb = Body::bytes(t);
-  int8_t* s_occ = reinterpret_cast<int8_t*>(smem + 2 * NR * rb);
+  unsigned char* s_planes = smem + (resident ? (size_t)R : 2 * (size_t)NR) * rb;
+  const int bp = plane_pitch(B);
+  double* s_ent = reinterpret_cast<double*>(s_planes);
+  int8_t* s_occ = reinterpret_cast<int8_t*>(s_planes + planes_bytes(B, wpb, planes));
+  const int pitch = code_pitch(wpb);
 
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int w = blockIdx.x * nt + tid;
+  const int shift = __ffs(lanes) - 1;  // lanes is a power of two
+  const int wl = tid >> shift;         // the walker within the block
+  const int lane = tid & (lanes - 1);  // the lane within the walker
+  const unsigned group = lanes == 1 ? 1u : (1u << lanes) - 1u;
+  const unsigned mask = group << ((tid & 31) & ~(lanes - 1));  // the walker's lanes
+  const int w0 = blockIdx.x * wpb;
+  const int w = w0 + wl;
   const bool live = w < W;
-  const int wc = live ? w : W - 1;  // dead threads shadow the last walker
+  const int wc = live ? w : W - 1;  // dead walkers shadow the last one
 
-  for (int r = 0; r < R; ++r) {
-    s_occ[r * nt + tid] = occ[(size_t)r * W + wc];
+  for (int x = tid; x < R * wpb; x += nt) {
+    const int r = x / wpb;
+    const int c = x % wpb;
+    s_occ[r * pitch + c] = occ[(size_t)r * W + min(w0 + c, W - 1)];
   }
-  typename Body::Walker wk;  // the Ising body's rank bits; nothing otherwise
-  wk.load(s_occ, R, nt, tid);
-  double e = enthalpy[wc];
-  double modf = mod_factor[wc];
-  int cnt = wl_counter[wc];
-  int nacc = 0;
-  const int B = p.num_levels;
-
-  // the initial carry: the current window coordinate and bin, and the
-  // walker's own cell of each plane at that bin
-  double w_cur = e - p.min_enthalpy;
-  size_t at = (size_t)wl_bin(w_cur, p.bin_size, B) * W + wc;
-  double s_cur = live ? entropy[at] : 0.0;
-  int h_cur = live ? hist[at] : 0;
-  int o_cur = live ? occr[at] : 0;
+  for (int x = tid; x < B * wpb && planes; x += nt) {  // bin-major reads
+    const int bin = x / wpb;
+    const int c = x % wpb;
+    if (w0 + c < W) s_ent[c * bp + bin] = entropy[(size_t)bin * W + w0 + c];
+  }
+  // the walker's cells of each plane: cell `bin` at bin * stride
+  double* ent = planes ? s_ent + wl * bp : entropy + wc;
+  const size_t es = planes ? 1 : (size_t)W;
+  int32_t* hst = hist + wc;
+  int32_t* ocr = occr + wc;
+  const size_t hs = W;
+  const bool carry = !planes;  // histogram cells ride in registers
+  int8_t* codes = s_occ + wl;      // the walker's column of the codes
 
   // the whole CUDA block lies in one sequence group (see the launcher)
-  const int grp = (blockIdx.x * nt) / block_size;
+  const int grp = w0 / block_size;
   const int32_t* my_useq = useq + (size_t)grp * seq_stride;
   const int32_t* my_vseq = vseq + (size_t)grp * seq_stride;
   const Draws draws(*seed_ptr, grp, wc, block_size);
@@ -159,19 +401,38 @@ wl_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
     Body::copy(slot, __ldg(my_useq + i), t, tid, nt);
     if (MOVE == kSwap) Body::copy(slot + rb, __ldg(my_vseq + i), t, tid, nt);
   };
-  if (n_steps > 0) prefetch(0);
+  if (resident) {
+    for (int r = 0; r < R; ++r) Body::copy(smem + r * rb, r, t, tid, nt);
+  } else if (n_steps > 0) {
+    prefetch(0);
+  }
   __pipeline_wait_prior(0);
   __syncthreads();
 
+  typename Body::Walker wk;  // the Ising body's rank bits; nothing otherwise
+  wk.load(s_occ, R, pitch, wl);
+  double e = enthalpy[wc];
+  double modf = mod_factor[wc];
+  int cnt = wl_counter[wc];
+  int nacc = 0;
+
+  // the initial carry: the current window coordinate and bin, and the
+  // walker's own cells of the planes at that bin
+  double w_cur = e - p.min_enthalpy;
+  int bin_cur = wl_bin(w_cur, p.bin_size, B);
+  double s_cur = live ? ent[bin_cur * es] : 0.0;
+  int h_cur = live && carry ? hst[bin_cur * hs] : 0;
+  int o_cur = live && carry ? ocr[bin_cur * hs] : 0;
+
   for (int i = 0; i < n_steps; ++i) {
     unsigned char* slot = smem + (i & 1) * NR * rb;
-    const typename Body::Rows ru = Body::at(slot, t);
-    if (i + 1 < n_steps) prefetch(i + 1);
+    if (!resident && i + 1 < n_steps) prefetch(i + 1);
 
-    // a thread beyond the last walker only copies rows and meets the barrier
+    // a dead walker's lanes only copy rows and meet the block's barrier
     if (live) {
       const int u = __ldg(my_useq + i);
-      int8_t* cu = s_occ + u * nt + tid;
+      const typename Body::Rows ru = Body::at(resident ? smem + u * rb : slot, t);
+      int8_t* cu = codes + u * pitch;
       const int a = *cu;
       const uint2 bits = draws.at(i, rng_mode);  // (r_u, r_j)
       int b;
@@ -180,47 +441,50 @@ wl_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
       bool is_move = true;
       double dE;
       if (MOVE == kSwap) {
-        const typename Body::Rows rv = Body::at(slot + rb, t);
         v = __ldg(my_vseq + i);
-        cv = s_occ + v * nt + tid;
+        const typename Body::Rows rv =
+            Body::at(resident ? smem + v * rb : slot + rb, t);
+        cv = codes + v * pitch;
         b = *cv;
         is_move = a != b;
-        dE = swap_delta<Body, EW>(ru, rv, t, u, v, cu, a, b, s_occ, nt, tid, R,
-                                  ew_c, wk);
+        dE = lane_swap_delta<Body, EW>(ru, rv, t, u, v, cu, a, b, codes, pitch, R, ew_c, wk,
+                                       lane, lanes, mask);
       } else {
         const int nc = max(__ldg(ncode + u) - 1, 1);
         const int j = (int)(bits.y % (uint32_t)nc);
         b = j + (j >= a ? 1 : 0);
-        dE = flip_delta<Body, EW>(ru, t, u, a, b, s_occ, nt, tid, R, C, mu, ew_c,
-                                  wk);
+        dE = lane_flip_delta<Body, EW>(ru, t, u, a, b, codes, pitch, R, C, mu, ew_c, wk,
+                                       lane, lanes, mask);
       }
 
       // the Wang-Landau rule on the proposed bin
       const double e_new = e + dE;
       const double w_new = e_new - p.min_enthalpy;
-      const size_t at_new = (size_t)wl_bin(w_new, p.bin_size, B) * W + wc;
+      const int bin_new = wl_bin(w_new, p.bin_size, B);
       const bool in_win = w_new >= 0.0 && w_new < p.span;
-      // h and o are used on accept only; loaded here so that they share
-      // S[b']'s round trip
-      const double s_new = entropy[at_new];
-      const int h_new = hist[at_new];
-      const int o_new = occr[at_new];
+      const double s_new = ent[bin_new * es];
+      // used on accept only; loaded here so that they share S[b']'s round trip
+      const int h_new = carry ? hst[bin_new * hs] : 0;
+      const int o_new = carry ? ocr[bin_new * hs] : 0;
+      __syncwarp(mask);  // every lane has read the codes
       if (in_win && is_move && accept_exponent((float)(s_cur - s_new), bits.x)) {
-        if (MOVE == kSwap) {
-          *cv = (int8_t)a;
-          wk.set(v, a);
-        } else {
-          *cu = (int8_t)b;
+        if (lane == 0) {
+          if (MOVE == kSwap) {
+            *cv = (int8_t)a;
+          } else {
+            *cu = (int8_t)b;
+          }
         }
+        if (MOVE == kSwap) wk.set(v, a);
         wk.set(u, b);
         e = e_new;
         w_cur = w_new;
-        at = at_new;
+        bin_cur = bin_new;
         s_cur = s_new;
         h_cur = h_new;
         o_cur = o_new;
         ++nacc;
-      } else if (MOVE == kSwap) {
+      } else if (MOVE == kSwap && lane == 0) {
         *cu = (int8_t)a;
       }
 
@@ -231,45 +495,67 @@ wl_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
           s_cur += modf;
           ++h_cur;
           ++o_cur;
-          entropy[at] = s_cur;
-          hist[at] = h_cur;
-          occr[at] = o_cur;
+          if (lane == 0) {
+            ent[bin_cur * es] = s_cur;
+            if (carry) {
+              hst[bin_cur * hs] = h_cur;
+              ocr[bin_cur * hs] = o_cur;
+            } else {
+              atomicAdd(hst + bin_cur * hs, 1);
+              atomicAdd(ocr + bin_cur * hs, 1);
+            }
+          }
         }
       }
 
-      // the flatness check, on this launch's step count
+      // the flatness check, on this launch's step count, over the lanes
       if ((i + 1) % p.check_period == 0 || i + 1 == n_steps) {
+        __syncwarp(mask);  // lane 0's writes, before the pass
         int nvis = 0;
         int hmin = INT_MAX;
         long long hsum = 0;
 #pragma unroll 4
-        for (int bin = 0; bin < B; ++bin) {
-          const double s = entropy[(size_t)bin * W + wc];
-          const int h = hist[(size_t)bin * W + wc];
+        for (int bin = lane; bin < B; bin += lanes) {
+          const double s = ent[bin * es];
+          const int h = hst[bin * hs];
           if (s > 0.0) {
             ++nvis;
             hsum += h;
             hmin = min(hmin, h);
           }
         }
+        for (int m = 1; m < lanes; m <<= 1) {
+          nvis += __shfl_xor_sync(mask, nvis, m);
+          hsum += __shfl_xor_sync(mask, hsum, m);
+          hmin = min(hmin, __shfl_xor_sync(mask, hmin, m));
+        }
         const float hmean = (float)hsum / (float)max(nvis, 1);
         if (nvis >= 2 && (float)hmin > p.flatness * hmean) {
-          for (int bin = 0; bin < B; ++bin) {
-            hist[(size_t)bin * W + wc] = 0;
-          }
+          for (int bin = lane; bin < B; bin += lanes) hst[bin * hs] = 0;
           h_cur = 0;
           modf /= p.mod_divisor;
         }
       }
+      __syncwarp(mask);  // this step's writes, before the next
     }
-    __pipeline_wait_prior(0);
-    __syncthreads();
+    if (!resident) {
+      __pipeline_wait_prior(0);
+      __syncthreads();
+    }
   }
 
-  if (live) {
-    for (int r = 0; r < R; ++r) {
-      occ[(size_t)r * W + w] = s_occ[r * nt + tid];
-    }
+  __syncthreads();
+  for (int x = tid; x < R * wpb; x += nt) {
+    const int r = x / wpb;
+    const int c = x % wpb;
+    if (w0 + c < W) occ[(size_t)r * W + w0 + c] = s_occ[r * pitch + c];
+  }
+  for (int x = tid; x < B * wpb && planes; x += nt) {
+    const int bin = x / wpb;
+    const int c = x % wpb;
+    if (w0 + c < W) entropy[(size_t)bin * W + w0 + c] = s_ent[c * bp + bin];
+  }
+  if (live && lane == 0) {
     enthalpy[w] = e;
     naccept[w] += nacc;
     mod_factor[w] = modf;
@@ -322,11 +608,17 @@ extern "C" int smol_wl_chain(void* occ, void* enthalpy, void* naccept,
                              int n_steps, int rng_mode, int move,
                              int num_levels, int check_period,
                              int update_period, int q, int Lq, int NB, int Li,
-                             int NW, double min_enthalpy, double bin_size,
-                             double span, double mod_divisor, float flatness,
-                             void* stream) {
-  if (move != kFlip && move != kSwap) return (int)cudaErrorInvalidValue;
-  const int threads = block_threads(W, block_size);
+                             int NW, int lanes, int walkers_per_block,
+                             int resident, int planes, double min_enthalpy,
+                             double bin_size, double span, double mod_divisor,
+                             float flatness, void* stream) {
+  const int threads = walkers_per_block * lanes;
+  const bool lanes_ok = lanes >= 1 && lanes <= 16 && (lanes & (lanes - 1)) == 0;
+  if ((move != kFlip && move != kSwap) || W < 1 || !lanes_ok || walkers_per_block < 1 ||
+      threads > kWLThreads || (W > block_size && block_size % walkers_per_block) ||
+      planes < 0 || planes > 1) {
+    return (int)cudaErrorInvalidValue;
+  }
   const bool ew = ew_v != nullptr;
   const Tables t{(const int32_t*)nbr, (const int32_t*)stride, (const int32_t*)d2,
                  (const double*)g, (const double*)ew_v, (const int32_t*)qnbr,
@@ -340,7 +632,8 @@ extern "C" int smol_wl_chain(void* occ, void* enthalpy, void* naccept,
   const size_t rb = NW > 0   ? Ising<1>::bytes(t)
                     : q == 0 ? Direct<0>::bytes(t)
                              : Qary<2, 0>::bytes(t);
-  const size_t smem = (move == kSwap ? 4 : 2) * rb + (size_t)R * threads;
+  const size_t smem = shared_bytes(rb, R, move == kSwap ? 2 : 1, num_levels,
+                                   walkers_per_block, resident, planes);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   WLParams p;
@@ -352,7 +645,7 @@ extern "C" int smol_wl_chain(void* occ, void* enthalpy, void* naccept,
   p.span = span;
   p.mod_divisor = mod_divisor;
   p.flatness = flatness;
-  const int blocks = (W + threads - 1) / threads;
+  const int blocks = (W + walkers_per_block - 1) / walkers_per_block;
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (int8_t*)occ, (double*)enthalpy, (int32_t*)naccept, (double*)entropy,
       (int32_t*)hist, (int32_t*)occr, (double*)mod_factor,
@@ -360,7 +653,8 @@ extern "C" int smol_wl_chain(void* occ, void* enthalpy, void* naccept,
       seq_stride, (const int64_t*)seed, t.nbr, t.stride, t.d2, t.g,
       (const double*)mu, (const int32_t*)ncode, t.ew_v, (const double*)ew_c,
       t.qnbr, t.qfreq, t.qms, t.qac, t.qas, t.qrows, t.imask, t.iamp, t.irows,
-      R, L, K, TM, C, Lq, NB, Li, NW, W, block_size, n_steps, rng_mode, p);
+      R, L, K, TM, C, Lq, NB, Li, NW, W, block_size, n_steps, rng_mode, p, lanes,
+      walkers_per_block, resident, planes);
   return (int)cudaGetLastError();
 }
 

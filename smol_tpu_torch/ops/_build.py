@@ -49,8 +49,9 @@ KERNELS = {
     # useq vseq | seq_stride | seed nbr stride d2 g mu ncode ew_v ew_c qnbr
     # qfreq qms qac qas qrows imask iamp irows | R L K TM C W block_size
     # n_steps rng_mode move num_levels check_period update_period q Lq NB Li
-    # NW | min_enthalpy bin_size span mod_divisor | flatness | stream
-    "wl_chain": [_ptr] * 10 + [_i32] + [_ptr] * 18 + [_i32] * 18 + [_f64] * 4
+    # NW lanes walkers_per_block resident planes | min_enthalpy bin_size span
+    # mod_divisor | flatness | stream
+    "wl_chain": [_ptr] * 10 + [_i32] + [_ptr] * 18 + [_i32] * 22 + [_f64] * 4
                 + [_f32] + [_ptr],
     # occ best_occ feat d best_d naccept beta useq vseq | seq_stride
     # seq_shape_stride | seed nbr stride d2 g seg target weight group_last

@@ -75,7 +75,7 @@ frequency matrix for the MXU.  Each body carries the Ewald fold beside it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from math import lcm
+from math import gcd, lcm
 
 import numpy as np
 import torch
@@ -116,6 +116,11 @@ __all__ = [
     "WLChain",
     "wl_step_reference",
     "wl_chain_reference",
+    "WLPlan",
+    "wl_lanes",
+    "wl_block_walkers",
+    "wl_chain_shared_bytes",
+    "wl_launch_plan",
     "wl_chain",
     "wl_launch_operands",
     "make_shared_proposal_chain",
@@ -977,33 +982,133 @@ def _parity(x):
     return x & 1
 
 
-def _ising_terms(tables: ChainTables, occ, u, a, b):
-    """[W, 1] f64 change of rank u[w]'s parity rows, a -> b (K1-Ising).
-
-    S = sum over rows l of A_l (-1)^{t_l}, t_l the parity of the walker's
-    codes under the row's mask, taken from 0.0 in row order l = 0 .. Li-1,
-    as ``ising_add`` of chain_common.cuh sums; the change is -2 (b - a) S.
-    Every term is +-A_l and the scale 0 or +-2, so only the adds of S
-    round.  Padding rows (zero amplitude, zero mask) add +0.0.
-    """
+def _ising_rows(tables: ChainTables, occ, u):
+    """[W, Li] f64 signed amplitudes A_l (-1)^{t_l} of rank u[w]'s parity
+    rows against the walker's codes ``occ`` (padding rows: +0.0)."""
     words = _walker_words(occ, tables.ising)  # [W, NW]
     hits = tables.imask[u.long()] & words[:, None, :]  # [W, Li, NW]
     odd = _parity(hits).sum(dim=-1) % 2 == 1
     amp = tables.iamp[u.long()]
-    signed = torch.where(odd, -amp, amp)
-    s = torch.zeros(occ.shape[1], dtype=torch.float64, device=occ.device)
-    for l in range(signed.shape[1]):
-        s = s + signed[:, l]
-    return ((-2 * (b - a)).to(torch.float64) * s)[:, None]
+    return torch.where(odd, -amp, amp)
+
+
+def _lane_partials(terms, lanes, partial=None):
+    """[W, lanes] partial sums of the [W, P] f64 ``terms`` as the kernel's
+    lanes take them: lane j adds terms j, j + lanes, ... in order to its
+    partial (from +0.0, or from ``partial``).  Padding terms are +0.0,
+    which leaves a partial (never -0.0) unchanged.  At one lane, the terms
+    in order from +0.0."""
+    W, P = terms.shape
+    steps = -(-P // lanes)
+    if steps * lanes != P:
+        terms = torch.nn.functional.pad(terms, (0, steps * lanes - P))
+    terms = terms.reshape(W, steps, lanes)
+    if partial is None:
+        partial = terms.new_zeros((W, lanes))
+    for k in range(steps):
+        partial = partial + terms[:, k]
+    return partial
+
+
+def _lanes_meet(partial):
+    """[W] sum of the [W, lanes] partials in the Wang-Landau kernel's
+    butterfly: lane j adds lane j ^ m's partial, m = 1, 2, 4, ...; every
+    lane ends with the same bits."""
+    lanes = partial.shape[1]
+    m = 1
+    while m < lanes:
+        partner = torch.arange(lanes, device=partial.device) ^ m
+        partial = partial + partial[:, partner]
+        m <<= 1
+    return partial[:, 0]
+
+
+def _ising_sum(tables: ChainTables, occ, u, lanes=1):
+    """[W] f64 parity sum S of rank u[w]'s rows (K1-Ising): S = sum over
+    rows l of A_l (-1)^{t_l}, t_l the parity of the walker's codes under
+    the row's mask, as ``lanes`` lanes take it (:func:`_lane_partials`,
+    :func:`_lanes_meet`); at one lane in row order l = 0 .. Li-1 from 0.0,
+    as ``ising_add`` of chain_common.cuh sums.  Padding rows (zero
+    amplitude, zero mask) add +0.0."""
+    return _lanes_meet(_lane_partials(_ising_rows(tables, occ, u), lanes))
+
+
+def _ising_terms(tables: ChainTables, occ, u, a, b):
+    """[W, 1] f64 change of rank u[w]'s parity rows, a -> b (K1-Ising):
+    -2 (b - a) S.  Every term of S is +-A_l and the scale 0 or +-2, so only
+    the adds of S round."""
+    return ((-2 * (b - a)).to(torch.float64) * _ising_sum(tables, occ, u))[:, None]
+
+
+def _row_terms(tables: ChainTables, occ, u, a, b):
+    """[W, *] f64 row terms of the direct or the q-ary body, in row order."""
+    return _qary_terms(tables, occ, u, a, b) if tables.qary else _ce_terms(tables, occ, u, a, b)
 
 
 def _site_terms(tables: ChainTables, occ, u, a, b):
     """[W, *] f64 terms of the site body of the tables, in summation order."""
     if tables.ising:
         return _ising_terms(tables, occ, u, a, b)
-    if tables.qary:
-        return _qary_terms(tables, occ, u, a, b)
-    return _ce_terms(tables, occ, u, a, b)
+    return _row_terms(tables, occ, u, a, b)
+
+
+def _body_delta(tables: ChainTables, occ, u, a, b, lanes=1, v=None):
+    """[W] f64 change of the site body for u: a -> b and, for a swap, then
+    v: b -> a with u already holding b, summed as ``lanes`` lanes of the
+    kernels sum it.  The direct and q-ary bodies' row terms, u's then v's,
+    go into one partial a lane, and the partials meet after v's; K1-Ising's
+    parity sums of u and of v meet apart and are scaled by -2 (b - a) and
+    -2 (a - b) in turn from 0.0.  At one lane, the order of the one-thread
+    deltas of the flip and swap kernels.  Leaves b in u's cell when ``v``
+    is given, as ``swap_delta`` does."""
+    walkers = torch.arange(occ.shape[1], device=occ.device)
+    if tables.ising:
+        scale = (-2 * (b - a)).to(torch.float64)
+        dE = torch.zeros_like(scale) + scale * _ising_sum(tables, occ, u, lanes)
+        if v is not None:
+            occ[u, walkers] = b.to(occ.dtype)  # v's parities see u holding b
+            dE = dE + (-scale) * _ising_sum(tables, occ, v, lanes)
+        return dE
+    partial = _lane_partials(_row_terms(tables, occ, u, a, b), lanes)
+    if v is not None:
+        occ[u, walkers] = b.to(occ.dtype)  # v's rows see u already holding b
+        partial = _lane_partials(_row_terms(tables, occ, v, b, a), lanes, partial)
+    return _lanes_meet(partial)
+
+
+def _flip_proposal(tables: ChainTables, occ, u, r_j, lanes=1):
+    """``(a, b, dE)`` of a flip of rank u[w] (long): u holds a and is
+    proposed b, the r_j-th of the other codes, and dE sums the body's
+    change (:func:`_body_delta`), then the Ewald term, then minus the
+    chemical work."""
+    walkers = torch.arange(occ.shape[1], device=occ.device)
+    a = occ[u, walkers].long()
+    nc = torch.clamp(tables.ncode[u].long() - 1, min=1)
+    j = r_j % nc
+    b = j + (j >= a).long()
+    columns = [_body_delta(tables, occ, u, a, b, lanes)]
+    if tables.has_ewald:
+        columns.append(_ewald_term(tables, occ, u, b - a))
+    return a, b, _accumulate(*columns) - (tables.mu[u, b] - tables.mu[u, a])
+
+
+def _swap_proposal(tables: ChainTables, occ, u, v, lanes=1):
+    """``(a, b, dE)`` of a swap of ranks u[w] and v[w] (long): u holds a and
+    v holds b; dE sums the body's change (:func:`_body_delta`), then u's
+    Ewald term (taken before u is recolored), then v's with u holding b.
+    ``occ`` is left as it was."""
+    walkers = torch.arange(occ.shape[1], device=occ.device)
+    a = occ[u, walkers].long()
+    b = occ[v, walkers].long()
+    if tables.has_ewald:
+        ewald_u = _ewald_term(tables, occ, u, b - a)
+    # with the q-ary body, v's phases (with the Ising body, v's parities)
+    # take u's new code, which stands for the reference's rank-1 correction
+    columns = [_body_delta(tables, occ, u, a, b, lanes, v)]
+    if tables.has_ewald:
+        columns += [ewald_u, _ewald_term(tables, occ, v, a - b)]
+    occ[u, walkers] = a.to(occ.dtype)
+    return a, b, _accumulate(*columns)
 
 
 def _ewald_term(tables: ChainTables, occ, u, sign):
@@ -1058,17 +1163,7 @@ def flip_step_reference(tables: ChainTables, occ, u, r_u, r_j, beta32):
     times the parity rows' sum), then the Ewald term, then the chemical
     work, as the kernel does.
     """
-    walkers = torch.arange(occ.shape[1], device=occ.device)
-    u = u.long()
-    a = occ[u, walkers].long()
-    nc = torch.clamp(tables.ncode[u].long() - 1, min=1)
-    j = r_j % nc
-    b = j + (j >= a).long()
-
-    columns = list(_site_terms(tables, occ, u, a, b).unbind(1))
-    if tables.has_ewald:
-        columns.append(_ewald_term(tables, occ, u, b - a))
-    dE = _accumulate(*columns) - (tables.mu[u, b] - tables.mu[u, a])
+    _, b, dE = _flip_proposal(tables, occ, u.long(), r_j)
     accept, expo, log_u = _metropolis(dE, r_u, beta32)
     return accept, b, dE, expo, log_u
 
@@ -1084,24 +1179,8 @@ def swap_step_reference(tables: ChainTables, occ, u, v, r_u, beta32):
     occupancy), as the kernel does.  A null pair (a == b) is never
     accepted.
     """
-    walkers = torch.arange(occ.shape[1], device=occ.device)
-    u, v = u.long(), v.long()
-    a = occ[u, walkers].long()
-    b = occ[v, walkers].long()
+    a, b, dE = _swap_proposal(tables, occ, u.long(), v.long())
     is_move = a != b
-
-    columns = list(_site_terms(tables, occ, u, a, b).unbind(1))
-    if tables.has_ewald:
-        ewald_u = _ewald_term(tables, occ, u, b - a)
-    # v's delta sees u already holding b: with the q-ary body, v's phases
-    # (with the Ising body, v's parities) take u's new code, which stands
-    # for the reference's rank-1 correction
-    occ[u, walkers] = b.to(occ.dtype)
-    columns += list(_site_terms(tables, occ, v, b, a).unbind(1))
-    if tables.has_ewald:
-        columns += [ewald_u, _ewald_term(tables, occ, v, a - b)]
-    occ[u, walkers] = a.to(occ.dtype)
-    dE = _accumulate(*columns)
     accept, expo, log_u = _metropolis(dE, r_u, beta32)
     return accept & is_move, is_move, a, b, dE, expo, log_u
 
@@ -1491,11 +1570,14 @@ def _cuda_block_threads(W, block_size):
     return int(np.gcd(block_size, 64))
 
 
-def _shared_bytes(tables, row_sets, W, block_size):
-    """Dynamic shared memory of one launch, in bytes: ``row_sets`` sets of
-    one rank's rows (``rows_bytes`` of chain_common.cuh, ``qrows_bytes``
-    for K3's character rows, ``irows_bytes`` for K1-Ising's parity rows)
-    and the block's codes."""
+def _align16(nbytes):
+    return -(-nbytes // 16) * 16
+
+
+def _row_set_bytes(tables):
+    """Bytes of one rank's rows in shared memory: ``rows_bytes`` of
+    chain_common.cuh, ``qrows_bytes`` for K3's character rows,
+    ``irows_bytes`` for K1-Ising's parity rows."""
     ewald_row = tables.num_ranks if tables.has_ewald else 0
     if tables.ising:
         row_set = (tables.iamp.shape[1] * (tables.ising + 1) + ewald_row) * 8
@@ -1505,8 +1587,14 @@ def _shared_bytes(tables, row_sets, W, block_size):
     else:
         L, K = tables.nbr.shape[1:]
         row_set = L * tables.g.shape[2] * 8 + ewald_row * 8 + L * (2 * K + 1) * 4
-    row_set = -(-row_set // 16) * 16
-    return row_sets * row_set + tables.num_ranks * _cuda_block_threads(W, block_size)
+    return _align16(row_set)
+
+
+def _shared_bytes(tables, row_sets, W, block_size):
+    """Dynamic shared memory of one launch, in bytes: ``row_sets`` sets of
+    one rank's rows and the block's codes."""
+    return (row_sets * _row_set_bytes(tables)
+            + tables.num_ranks * _cuda_block_threads(W, block_size))
 
 
 def chain_shared_bytes(tables, move, W, block_size):
@@ -1672,8 +1760,119 @@ def _lower_bin_margin(bin_margin, w, wl: WLChain, counts):
     torch.minimum(bin_margin, gap, out=bin_margin)
 
 
+# ---- the kernel's launch: lanes, resident rows and planes ----
+
+WL_THREADS = 256  # most threads of a Wang-Landau block: walkers x lanes (kWLThreads)
+WL_LANE_THREADS = 32768  # a launch takes the fewest lanes that give it this many threads
+WL_MAX_LANES = 16
+WL_PLANES = ("global", "entropy")  # what the block keeps in shared memory
+
+
+@dataclass(frozen=True)
+class _WLDesign:
+    """How the Wang-Landau kernel is launched: its threads per walker (None:
+    :func:`wl_lanes` of the launch's walkers), whether every rank's rows
+    stay in shared memory (None: wherever they fit), and whether the block
+    keeps the entropy in shared memory (an index into ``WL_PLANES``; None:
+    wherever it fits).  Private: the A/B of
+    ``chip_smoke.py`` and the tests choose one; users get the default."""
+
+    lanes: int | None = None
+    resident: bool | None = None
+    planes: int | None = None
+
+
+_WL_DESIGN = _WLDesign()
+_WL_OLD_DESIGN = _WLDesign(lanes=1, resident=False, planes=0)
+
+
+@dataclass(frozen=True)
+class WLPlan:
+    """One Wang-Landau launch's shape: threads per walker, walkers per
+    CUDA block, whether every rank's rows are resident, whether the block
+    keeps the entropy in shared memory (``WL_PLANES``), and its dynamic shared
+    memory in bytes."""
+
+    lanes: int
+    walkers_per_block: int
+    resident: bool
+    planes: int
+    shared_bytes: int
+
+    def blocks(self, W: int) -> int:
+        return -(-W // self.walkers_per_block)
+
+
+def wl_lanes(W, design=None):
+    """Threads per walker of a launch of ``W`` walkers: the design's (None:
+    ``_WL_DESIGN``), else the fewest (1, 2, 4, 8 or 16) that give the
+    launch ``WL_LANE_THREADS`` threads (bench ``wang-landau``'s 2048
+    walkers: 16, which beat 2, 4 and 8 on both cells and bodies on an
+    H100, ``PERF.md``).  The lanes set the order of the delta's sums, and
+    the twin takes the same lanes for the same walkers."""
+    design = design or _WL_DESIGN
+    if design.lanes:
+        return design.lanes
+    lanes = 1
+    while lanes < WL_MAX_LANES and W * lanes < WL_LANE_THREADS:
+        lanes *= 2
+    return lanes
+
+
+def wl_block_walkers(W, block_size, design=None):
+    """Walkers of one CUDA block: a block must lie inside one sequence group
+    of ``block_size`` walkers, since its threads share the group's proposals."""
+    wb = min(64, WL_THREADS // wl_lanes(W, design))
+    return wb if W <= block_size or block_size % wb == 0 else gcd(block_size, wb)
+
+
+def wl_chain_shared_bytes(tables, move, num_levels, walkers_per_block, resident, planes):
+    """Dynamic shared memory of one Wang-Landau launch, in bytes
+    (``shared_bytes`` of wl_chain.cu): every rank's rows (``resident``) or
+    two buffers of the step's row sets (two for a swap), the entropy where
+    the block keeps it (``[walker][B | 1]``, 8 bytes a cell) and the block's
+    codes."""
+    row_sets = tables.num_ranks if resident else (4 if move == "swap" else 2)
+    plane_bytes = _align16(8 * (num_levels | 1) * walkers_per_block) if planes else 0
+    pitch = -(-walkers_per_block // 4) * 4 + 4
+    return (row_sets * _row_set_bytes(tables) + plane_bytes
+            + _align16(tables.num_ranks * pitch))
+
+
+def wl_launch_plan(tables, W, block_size, move, num_levels, design=None) -> WLPlan:
+    """The launch of ``W`` walkers: the design's lanes and walkers per
+    block; every rank's rows resident where they fit beside the codes; then
+    the entropy in shared memory where it fits beside both (on an H100,
+    ``PERF.md``, ``chip_smoke.py``'s ``wl_ab``, it was faster on three of
+    the four cells and bodies and level on the fourth).  Raises where even
+    the streamed rows and global planes do not fit, or where the design
+    (None: ``_WL_DESIGN``) asks for what does not."""
+    design = design or _WL_DESIGN
+    lanes = wl_lanes(W, design)
+    wpb = wl_block_walkers(W, block_size, design)
+
+    def fits(resident, planes):
+        smem = wl_chain_shared_bytes(tables, move, num_levels, wpb, resident, planes)
+        return smem <= MAX_SHARED_BYTES
+
+    resident = fits(True, 0) if design.resident is None else design.resident
+    if design.planes is None:
+        planes = int(fits(resident, 1))
+    else:
+        planes = design.planes
+    if not fits(resident, planes):
+        smem = wl_chain_shared_bytes(tables, move, num_levels, wpb, resident, planes)
+        raise ValueError(
+            f"wl_chain needs {smem} bytes of shared memory per block, above the "
+            f"card's {MAX_SHARED_BYTES}")
+    return WLPlan(lanes, wpb, resident, planes,
+                  wl_chain_shared_bytes(tables, move, num_levels, wpb, resident, planes))
+
+
+# ---- the twin ----
+
 def wl_step_reference(tables: ChainTables, wl: WLChain, occ, ranks, r_u, r_j,
-                      enthalpy, entropy, s_cur, move="flip"):
+                      enthalpy, entropy, s_cur, move="flip", lanes=1):
     """One Wang-Landau proposal for every walker, without applying it.
 
     ``occ`` [R, W] int8 codes (left as it was), ``ranks`` the proposal
@@ -1682,21 +1881,23 @@ def wl_step_reference(tables: ChainTables, wl: WLChain, occ, ranks, r_u, r_j,
     and ``s_cur`` [W] f64 the entropy of each walker's current bin.
     Returns ``(accept, is_move, a, b, dE, w_new, b_new, expo, log_u,
     in_win)``: u holds a and takes b (for a swap v holds b and takes a);
-    dE is :func:`flip_step_reference`'s or :func:`swap_step_reference`'s;
-    ``expo`` is the f32 exponent S[b_cur] - S[b_new] and ``log_u`` the f32
-    log uniform it is compared with.
+    the proposal and dE are :func:`flip_step_reference`'s and
+    :func:`swap_step_reference`'s (:func:`_flip_proposal`,
+    :func:`_swap_proposal`), dE summed as the kernel's ``lanes`` lanes sum
+    it (at one lane, in their order); ``expo`` is the f32 exponent
+    S[b_cur] - S[b_new] and ``log_u`` the f32 log uniform it is compared
+    with.
     """
     W = occ.shape[1]
     walkers = torch.arange(W, device=occ.device)
-    no_beta = torch.zeros(W, dtype=torch.float32, device=occ.device)
+    ranks = [r.long() for r in ranks]
     if move == "swap":
-        _, is_move, a, b, dE, _, log_u = swap_step_reference(
-            tables, occ, ranks[0], ranks[1], r_u, no_beta)
+        a, b, dE = _swap_proposal(tables, occ, *ranks, lanes)
+        is_move = a != b
     else:
-        _, b, dE, _, log_u = flip_step_reference(
-            tables, occ, ranks[0], r_u, r_j, no_beta)
-        a = occ[ranks[0].long(), walkers].long()
+        a, b, dE = _flip_proposal(tables, occ, ranks[0], r_j, lanes)
         is_move = torch.ones(W, dtype=torch.bool, device=occ.device)
+    log_u = torch.log(uniform01_from_bits(r_u))
     w_new = (enthalpy + dE) - wl.min_enthalpy
     b_new = _wl_bin(w_new, wl)
     in_win = (w_new >= 0) & (w_new < wl.span)
@@ -1722,12 +1923,14 @@ def _wl_flatness(entropy, histogram, mod_factor, wl: WLChain):
 def wl_chain_reference(occ, enthalpy, naccept, entropy, histogram, occurrences,
                        mod_factor, wl_counter, seqs, seed, tables, wl, n_steps,
                        block_size, move="flip", rng="philox", margin=None,
-                       bin_margin=None):
+                       bin_margin=None, lanes=None):
     """Plain torch twin of the CUDA Wang-Landau chain kernel (same arguments).
 
     Updates ``occ``, ``enthalpy``, ``naccept``, the planes ``entropy``,
     ``histogram``, ``occurrences`` [B, W], ``mod_factor`` and
-    ``wl_counter`` in place.  ``margin``, an optional [W] f32 tensor, is
+    ``wl_counter`` in place.  Each delta sums as the kernel's ``lanes``
+    lanes sum it (None: :func:`wl_lanes` of the walkers, the kernel's
+    default).  ``margin``, an optional [W] f32 tensor, is
     lowered to each walker's closest decision, |x - log U| in f32 ulps of
     log U (proposals outside the window and null swaps, decided
     regardless, do not count).  ``bin_margin``, an optional [W] tensor, is
@@ -1736,6 +1939,7 @@ def wl_chain_reference(occ, enthalpy, naccept, entropy, histogram, occurrences,
     and of every non-null proposal's.
     """
     W = occ.shape[1]
+    lanes = lanes or wl_lanes(W)
     walkers = torch.arange(W, device=occ.device)
     group = walkers // block_size
     r_u, r_j = chain_draws(rng, int(seed[0]), n_steps, W, block_size, occ.device)
@@ -1749,7 +1953,7 @@ def wl_chain_reference(occ, enthalpy, naccept, entropy, histogram, occurrences,
     for i in range(n_steps):
         ranks = [s[group, i].long() for s in seqs]
         accept, is_move, a, b, dE, w_new, b_new, expo, log_u, in_win = wl_step_reference(
-            tables, wl, occ, ranks, r_u[i], r_j[i], enthalpy, entropy, s_cur, move)
+            tables, wl, occ, ranks, r_u[i], r_j[i], enthalpy, entropy, s_cur, move, lanes)
         if margin is not None:
             _lower_margin(margin, expo, log_u, no_beta, 0.0, ~(in_win & is_move))
         if bin_margin is not None:
@@ -1787,15 +1991,9 @@ def _wl_operands(wl, W, entropy, histogram, occurrences, mod_factor, wl_counter)
     )
 
 
-def wl_chain_shared_bytes(tables, W, block_size, move):
-    """Dynamic shared memory of one Wang-Landau launch, in bytes: two
-    buffers of the step's row sets (two for a swap) and the block's codes."""
-    return _shared_bytes(tables, 4 if move == "swap" else 2, W, block_size)
-
-
 def wl_chain(occ, enthalpy, naccept, entropy, histogram, occurrences,
              mod_factor, wl_counter, seqs, seed, tables, wl, n_steps,
-             block_size, move="flip", rng="philox"):
+             block_size, move="flip", rng="philox", _design=None):
     """Run ``n_steps`` shared-proposal Wang-Landau steps on every walker.
 
     Args:
@@ -1813,8 +2011,10 @@ def wl_chain(occ, enthalpy, naccept, entropy, histogram, occurrences,
     The tables' site body is the kernel's.  A CUDA tensor launches the
     kernel (``wl_chain.launches`` counts the launches,
     ``wl_chain.qary_launches`` and ``wl_chain.ising_launches`` those with
-    the q-ary and the Ising body); a CPU tensor runs
-    :func:`wl_chain_reference`.
+    the q-ary and the Ising body) as :func:`wl_launch_plan` shapes it; a
+    CPU tensor runs :func:`wl_chain_reference` at the lanes the kernel
+    would take.  ``_design`` (private; None: ``_WL_DESIGN``) picks another
+    launch for the A/B of ``chip_smoke.py`` and the tests.
     """
     if move not in ("flip", "swap"):
         raise ValueError("the Wang-Landau chain supports flip/swap moves only")
@@ -1835,7 +2035,7 @@ def wl_chain(occ, enthalpy, naccept, entropy, histogram, occurrences,
     if occ.device.type == "cpu":
         wl_chain_reference(occ, enthalpy, naccept, entropy, histogram, occurrences,
                            mod_factor, wl_counter, seqs, seed, tables, wl, n_steps,
-                           block_size, move, rng)
+                           block_size, move, rng, lanes=wl_lanes(W, _design))
         return
     if occ.device.type != "cuda":
         raise ValueError(f"wl_chain runs on cuda or cpu, not {occ.device}")
@@ -1843,12 +2043,7 @@ def wl_chain(occ, enthalpy, naccept, entropy, histogram, occurrences,
         raise ValueError(f"unknown rng mode: {rng!r}")
     R = occ.shape[0]
     L, K = tables.nbr.shape[1:]
-    smem = wl_chain_shared_bytes(tables, W, block_size, move)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"wl_chain needs {smem} bytes of shared memory per block, above "
-            f"the card's {MAX_SHARED_BYTES}"
-        )
+    plan = wl_launch_plan(tables, W, block_size, move, wl.num_levels, _design)
     lib = _build.load_chain("wl_chain")
     vseq = seqs[1] if move == "swap" else seqs[0]
     body_ptrs, body_shape = _body_operands(tables)
@@ -1864,7 +2059,8 @@ def wl_chain(occ, enthalpy, naccept, entropy, histogram, occurrences,
             tables.ncode.data_ptr(), *_ewald_pointers(tables), *body_ptrs, R, L, K,
             tables.g.shape[2], tables.mu.shape[1], W, block_size, n_steps,
             RNG_MODES[rng], MOVES.index(move), wl.num_levels, wl.check_period,
-            wl.update_period, *body_shape, wl.min_enthalpy, wl.bin_size, wl.span,
+            wl.update_period, *body_shape, plan.lanes, plan.walkers_per_block,
+            int(plan.resident), plan.planes, wl.min_enthalpy, wl.bin_size, wl.span,
             wl.mod_divisor, wl.flatness, stream,
         )
     _count_launch(wl_chain, tables)

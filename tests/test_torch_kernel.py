@@ -23,7 +23,10 @@ up to three sites, and the spinel's table padded to four slots), keeping
 every walker's net charge.  The Wang-Landau kernel must equal its twin on
 every walker and every plane (entropies to 0.0), for flips and swaps, with
 both slot-count bodies, the Ewald term, a partial block, sequence blocks
-below a CUDA block, 8192 walkers and a flatness reset in every run.  The
+below a CUDA block, 8192 walkers and a flatness reset in every run; and in
+each launch design (1 to 16 lanes a walker, rows resident or streamed, the
+planes global or the entropy in shared memory), against
+the twin summing in that many lanes' order.  The
 distance (SQS) kernel must equal its twin bit for bit on every walker
 (occupancy, best occupancy, features, score, best score, accept count) in
 both RNG modes, at beta 0, 0.2, 2 and 50, on the bench's 8-site shapes and
@@ -384,13 +387,17 @@ def _wl_operands(card, cell, W, n_steps, block_size, move, bins=250, delta="dire
         seed=torch.tensor([12345], dtype=torch.int64, device=card))
 
 
-def _wl_kernel_and_twin(ops, rng, kernel_tables=None):
+def _wl_kernel_and_twin(ops, rng, kernel_tables=None, design=None):
+    """The kernel (launched as ``design`` says; None: the default) against
+    the twin at the kernel's lanes, on every walker and plane."""
     outs = []
-    for fn, tables in ((chain.wl_chain, kernel_tables or ops["tables"]),
-                       (chain.wl_chain_reference, ops["tables"])):
+    lanes = chain.wl_lanes(ops["occ"].shape[1], design)
+    for fn, tables, extra in ((chain.wl_chain, kernel_tables or ops["tables"],
+                               {"_design": design}),
+                              (chain.wl_chain_reference, ops["tables"], {"lanes": lanes})):
         run = {k: (v.clone() if k in WL_STATE else v) for k, v in ops.items()}
         before = chain.wl_chain.launches
-        fn(**{**run, "tables": tables}, rng=rng)
+        fn(**{**run, "tables": tables}, rng=rng, **extra)
         torch.cuda.synchronize()
         assert chain.wl_chain.launches - before == (1 if fn is chain.wl_chain else 0)
         outs.append(run)
@@ -443,6 +450,36 @@ def test_wl_kernel_general_slot_count_and_update_period(card, move, cell):
     )
     kernel, _ = _wl_kernel_and_twin(ops, "philox", kernel_tables=padded)
     assert bool((kernel["mod_factor"] == 0.5).any())
+
+
+WL_DESIGNS = {  # the launch's parts: lanes, rows resident or streamed, planes
+    "old": chain._WL_OLD_DESIGN,
+    "G2-streamed-global": chain._WLDesign(lanes=2, resident=False, planes=0),
+    "G4-fit-entropy": chain._WLDesign(lanes=4, planes=1),
+    "G8-streamed-entropy": chain._WLDesign(lanes=8, resident=False, planes=1),
+    "G16-fit": chain._WLDesign(lanes=16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+@pytest.mark.parametrize("design", sorted(WL_DESIGNS))
+@pytest.mark.parametrize("cell,move,delta,W,block_size", [
+    ("aucu_wl_3x3x3", "flip", "ising", 1000, 1024), ("aucu_4x4x4", "swap", "ising", 200, 8),
+    ("aucu_wl_3x3x3", "flip", "direct", 256, 64), ("aucu_4x4x4", "swap", "direct", 256, 64),
+    ("spinel_ewald_2x2x2", "swap", "ising", 256, 64),
+    ("sgc_wl_3x3x3", "flip", "qary", 200, 100)])
+def test_wl_kernel_designs_match_twin(card, rng, design, cell, move, delta, W, block_size):
+    """Each launch design (one thread a walker, 2 to 16 lanes; rows
+    resident where they fit or streamed; the planes global or the entropy
+    in shared memory) equals the twin summing in its lanes'
+    order, bit for bit, on every body, with a partial block and sequence
+    blocks below a CUDA block."""
+    ops = _wl_operands(card, cell, W, 300, block_size, move, delta=delta)
+    kernel, _ = _wl_kernel_and_twin(ops, rng, design=WL_DESIGNS[design])
+    if move == "swap":
+        counts = [(o["occ"] == 1).sum(dim=0) for o in (ops, kernel)]
+        assert torch.equal(*counts)  # each walker keeps its composition
 
 
 @pytest.mark.cuda

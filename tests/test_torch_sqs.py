@@ -26,18 +26,14 @@
   non-swap step, duplicate removal, structures, shape enumeration, the
   multicell sampler, a restricted sublattice, ``device="cuda"`` without a
   card; and the wrapper runs the twin for CPU tensors, counting no launch;
-- the kernel's lanes, batches and packed rows, through their twins: at
-  one lane the twin equals the twin recorded before lanes existed, bit for
-  bit (``torch_sqs_twin_one_lane.npz``, on an 8-site and the 64-site
-  shape, both RNG modes); at 1, 2, 4 and 8 lanes it meets the interpret-mode
-  reference under the excuse rule above; the batched twin over four 8-site
-  shapes equals each shape's own launch at the same lanes, and batched
-  ``generate`` equals the shape-by-shape search (best structures, start
-  scores, stage records), bit for bit; where the batch's lanes differ
-  from a shape's own, its draws, codes and accept counts stay equal and
-  its scores agree to 1e-12; the launch plan (lanes, resident or
-  streamed rows, walkers per block) follows the shapes; the packed rows
-  hold every row's integers.
+- the kernel's lanes and packed rows, through their twins: at one lane
+  the twin equals the twin recorded before lanes existed, bit for bit
+  (``torch_sqs_twin_one_lane.npz``, on an 8-site and the 64-site shape,
+  both RNG modes); at 1, 2, 4 and 8 lanes it meets the interpret-mode
+  reference under the excuse rule above; the launch plan (lanes, resident
+  or streamed rows, walkers per block) follows the shapes; the packed rows
+  hold every row's integers.  The batched launches are tested in
+  ``test_torch_sqs_batched.py``.
 """
 
 import dataclasses
@@ -417,7 +413,7 @@ def test_wrapper_runs_twin_on_cpu_and_checks_operands():
             sqs.distance_chain(**{**ops, name: bad})
 
 
-# ---------------- the kernel's lanes, resident tables and batches ----------------
+# ---------------- the kernel's lanes and resident tables ----------------
 
 ONE_LANE_FILE = Path(__file__).resolve().parent / "data" / "torch_sqs_twin_one_lane.npz"
 LAUNCH_STATE = ("occ", "best_occ", "feat", "d", "best_d", "naccept")
@@ -458,124 +454,6 @@ def test_one_lane_twin_equals_recorded_twin(stem, rng):
 def _batch_processors():
     return tuple(CorrelationDistanceProcessor(BENCH_SHAPES[s], "cpu") for s in BATCH_SHAPES)
 
-
-@pytest.mark.parametrize("rng", ["hash", "philox"])
-def test_batched_twin_equals_per_shape_twins(rng):
-    """Four of the bench's shapes, of 65 to 67 rows a rank, in one batch
-    (tables padded to the largest): codes, best codes, features, scores,
-    best scores and accept counts equal each shape's own launch at the
-    same lanes, bit for bit."""
-    procs = _batch_processors()
-    tables = [sqs.build_distance_tables(p) for p in procs]
-    batch = sqs.stack_distance_tables(tables)
-    L = max(t.nbr.shape[1] for t in tables)
-    assert batch.nbr.shape == (len(procs), 8, L, 3) and batch.g.shape[2] == L
-    short = tables[1]  # 65 rows: its padding is never read
-    assert bool((batch.nbr[1, :, short.nbr.shape[1]:] == -1).all())
-    assert not bool(batch.g[1, :, short.g.shape[1]:].any())
-    W, steps, block = 24, 80, 8
-    per_shape = []
-    for s, (proc, t) in enumerate(zip(procs, tables)):
-        occu = torch.as_tensor(random_starts(proc, W, np.random.default_rng(s)))
-        ops = sqs.distance_launch_operands(
-            t, proc.compute_corr, occu, torch.full((W,), 4.0, dtype=torch.float64), steps,
-            block, torch.Generator().manual_seed(s))
-        ops["seed"] = torch.tensor([1000 + s], dtype=torch.int64)
-        per_shape.append(ops)
-    stacked = {name: torch.stack([ops[name] for ops in per_shape])
-               for name in (*LAUNCH_STATE, "beta32", "useq", "vseq")}
-    stacked["seed"] = torch.cat([ops["seed"] for ops in per_shape])
-    design = sqs._Design(lanes=4)  # the same lanes for the batch and each shape
-    sqs.distance_chain_batched(**stacked, batch=batch, n_steps=steps, block_size=block,
-                               rng=rng, _design=design)
-    for s, ops in enumerate(per_shape):
-        sqs.distance_chain(**ops, rng=rng, _design=design)
-        for name in LAUNCH_STATE:
-            assert torch.equal(stacked[name][s], ops[name]), (s, name)
-        assert int(ops["naccept"].sum()) > 0
-
-
-def _generate_shape_by_shape(procs, mcmc_steps, temperatures, nwalkers, seed):
-    """The search as one chain per shape, shape after shape, as the
-    reference generator loops (its ``sqs.py:418-482``), on the port's
-    one-shape chain: ``(best, start scores, stage records)``."""
-    rng = np.random.default_rng(seed)
-    best, starts, records = [], [], []
-    for shape, proc in enumerate(procs):
-        rng.integers(2**31)
-        occu = torch.as_tensor(random_starts(proc, nwalkers, rng), dtype=torch.int32)
-        generator = torch.Generator().manual_seed(int(rng.integers(2**31)))
-        scores = proc.compute_scores(occu)
-        starts.append(scores.clone())
-        state = {"occupancy": occu, "enthalpy": scores,
-                 "naccept": torch.zeros(nwalkers, dtype=torch.int32),
-                 "best_enthalpy": scores.clone(), "best_occupancy": occu.clone()}
-        chain_fn = sqs.make_distance_chain(sqs.build_distance_tables(proc), mcmc_steps,
-                                           proc.compute_corr)
-        for temp in temperatures:
-            state["beta"] = torch.full((nwalkers,), 1.0 / temp, dtype=torch.float64)
-            state["window_naccept"] = torch.zeros_like(state["naccept"])
-            state = chain_fn(state, generator)
-            records.append({"shape": shape, "temperature": temp,
-                            "occupancy": state["occupancy"].clone(),
-                            "enthalpy": state["enthalpy"].clone(),
-                            "naccept": state["window_naccept"]})
-        features = proc.compute_features(state["best_occupancy"])
-        best.append((shape, state["best_occupancy"].numpy(),
-                     (features @ torch.as_tensor(proc.coefs)).numpy(), features.numpy()))
-    return best, starts, records
-
-
-def test_generate_batched_equals_shape_by_shape():
-    """``generate`` runs each temperature as one chain over all shapes; its
-    best structures, start scores and stage records (shape-major) equal the
-    shape-by-shape search's bit for bit (at these sizes both launches take
-    16 lanes)."""
-    procs = _batch_processors()
-    temperatures = [2.0, 0.5]
-    generator = StochasticSQSGenerator.from_processors(procs, device="cpu")
-    generator.generate(mcmc_steps=60, temperatures=temperatures, nwalkers=8, seed=4)
-    assert [shapes for shapes, _ in generator._chain_fns(60)] == [list(range(len(procs)))]
-    best, starts, records = _generate_shape_by_shape(procs, 60, temperatures, 8, 4)
-    assert len(generator._best) == len(best)
-    for (s1, o1, sc1, f1), (s2, o2, sc2, f2) in zip(generator._best, best):
-        assert s1 == s2 and np.array_equal(o1, o2)
-        assert np.array_equal(sc1, sc2) and np.array_equal(f1, f2)
-    for mine, theirs in zip(generator.start_scores, starts):
-        assert torch.equal(mine, theirs)
-    assert len(generator.stage_records) == len(records) == len(procs) * len(temperatures)
-    for mine, theirs in zip(generator.stage_records, records):
-        assert mine["shape"] == theirs["shape"] and mine["temperature"] == theirs["temperature"]
-        for key in ("occupancy", "enthalpy", "naccept"):
-            assert torch.equal(mine[key], theirs[key]), key
-
-
-def test_batched_generate_lanes_follow_the_launch():
-    """Where a batch's lanes differ from a shape's own (4 shapes of 1024
-    walkers: 8 lanes together, 16 alone), what the batch does not change
-    and what it may: each shape's draws (starts, pairs, random numbers) are
-    its own, so its start scores are equal bit for bit and, with no
-    acceptance here within the rounding of its threshold, so are its codes
-    and accept counts at every stage; the order of df's sums follows the
-    launch, so its scores agree only to rounding (1e-12), and among
-    structures of one score a walker may keep another as its best."""
-    procs = _batch_processors()
-    W, temperatures = 1024, [2.0, 0.5]
-    assert sqs.launch_lanes(len(procs) * W) == 8 and sqs.launch_lanes(W) == 16
-    generator = StochasticSQSGenerator.from_processors(procs, device="cpu")
-    generator.generate(mcmc_steps=30, temperatures=temperatures, nwalkers=W, seed=4)
-    best, starts, records = _generate_shape_by_shape(procs, 30, temperatures, W, 4)
-    for mine, theirs in zip(generator.start_scores, starts):
-        assert torch.equal(mine, theirs)
-    assert len(generator.stage_records) == len(records)
-    for mine, theirs in zip(generator.stage_records, records):
-        assert mine["shape"] == theirs["shape"] and mine["temperature"] == theirs["temperature"]
-        assert torch.equal(mine["occupancy"], theirs["occupancy"])
-        assert torch.equal(mine["naccept"], theirs["naccept"])
-        torch.testing.assert_close(mine["enthalpy"], theirs["enthalpy"], rtol=0, atol=1e-12)
-    for (s1, _, sc1, _), (s2, _, sc2, _) in zip(generator._best, best):
-        assert s1 == s2
-        np.testing.assert_allclose(sc1, sc2, rtol=0, atol=1e-12)
 
 def test_launch_plan_from_shapes():
     """The launch's shape follows the tables: every rank's rows stay in
