@@ -13,8 +13,8 @@ printing its last line when any phase fails:
    build time and each kernel's registers and spills (the flip, swap,
    table and Wang-Landau chains in each site body: direct, K3's q-ary rows
    for q = 2 (with or without the Ewald term), 3 and 4, and K1-Ising's
-   parity rows for 1 to 4 words of rank bits), and the dynamic shared
-   memory of the ``sgc`` launches;
+   parity rows for 1 to 4 words of rank bits), and the flip kernel's
+   launch plan on ``sgc`` (lanes, blocks, rows, shared memory);
 3. runs each kernel and its plain torch twin on the same inputs at the
    shapes the main paths give the kernel (8192 walkers, one 100-step
    window, sequence blocks of 1024, or 512 for Au-Cu), in ``hash`` mode
@@ -82,7 +82,20 @@ printing its last line when any phase fails:
    their f32 copies bit for bit.  K3 with q = 4 in the flip chain on the
    quaternary and binary rocksalt, and q = 2 with the Ewald term in both
    chains on the spinel CE + Ewald 2x2x2, both RNG modes and a chunk
-   crossing.  The site bodies of the table chain: K1-Ising on both
+   crossing.  K1 at every launch design, 1, 2, 4, 8 and 16 lanes a walker
+   with every rank's rows resident (where they fit) and streamed, against
+   the twin at the same lanes bit for bit (occupancies, accept counts and
+   enthalpies) on one main-path window in both RNG modes, for each body:
+   K1-Ising on both semigrand spinels, with the Ewald term on the spinel
+   CE + Ewald 2x2x2 and on bench ``tempering``'s Au-Cu 3x3x3; the direct
+   body with K = 3 on ``sgc`` 6x6x6 and with a runtime slot count and the
+   Ewald term (a fourth, empty slot) on the spinel CE + Ewald 2x2x2; K3
+   with q = 3 on ``sgc`` 6x6x6, q = 2 with the Ewald term and q = 4 (the
+   flip comparisons above, the chunk crossings included, hold the kernel
+   at its plan against the twin at the plan's lanes); and bench
+   ``spinel-independent``'s sweep schedule (``proposal_mode="sweep"``)
+   through ``make_shared_proposal_chain`` against the twin on the same
+   schedule, bit for bit, in both RNG modes.  The site bodies of the table chain: K1-Ising on both
    semigrand spinel CE + Ewald cells and K3 (q = 2, Ewald) on 2x2x2, in
    both RNG modes, each body across the chunk boundary; of the
    Wang-Landau chain: every comparison above once more with K1-Ising
@@ -203,6 +216,15 @@ printing its last line when any phase fails:
    the new at 2048 and 8192 walkers (the old design run through the new
    kernel at one lane; against the parent commit's own kernel, see
    ``scripts/time_chain_windows.py``).
+   K1's design (``flip_ab``), in turns (first design to last and back) on
+   copies of one starting state at 8192 walkers, on ``sgc`` 6x6x6 with K3
+   and the direct body, the q = 4 rocksalt with K3, both semigrand spinels
+   and bench ``tempering``'s Au-Cu 3x3x3 with K1-Ising, and the latter with
+   the direct body: 1, 2, 4, 8 and 16 lanes on a 100-step window, rows
+   streamed against resident where they fit, and on Au-Cu 3x3x3 the same
+   on ten 10-step segments in a CUDA graph, as the tempering path issues
+   them (against the parent commit's kernel, see
+   ``scripts/time_chain_windows.py``).
    K3 against the direct body on the same cells, in turns (direct, q-ary,
    q-ary, direct): the flip chain on ``sgc`` 6x6x6, the swap chain on the
    ternary CE 3x3x3; K3's operations are counted from the character rows
@@ -221,7 +243,9 @@ printing its last line when any phase fails:
 The line before the last is a JSON summary of the kernels, each chain once
 for each site body: an entry's launches are the main paths' launches of
 that (kernel, body) pair, its times that pair's on a cell where a main
-path ran it, and a pair no main path launched fails the run.  The last
+path ran it, and a pair no main path launched fails the run; the flip
+kernel's entries carry its launch plan on each main path's cell
+(``plan``).  The last
 line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -336,6 +360,30 @@ TABLE_BODY_CELLS = {"spinel_ewald_sgc_2x2x2": ("ising", "qary"),
 WL_QARY_CELL = "sgc_wl_3x3x3"
 EWALD_QARY_CELL = "spinel_ewald_2x2x2"
 Q4_CELL = "rocksalt_q4_2x2x2"
+# K1's launch designs: threads a walker and every rank's rows resident in
+# shared memory or streamed (phase 3 holds each against the twin at its
+# lanes, phase 5 times them in turns: flip_ab); and the cells of both,
+# (stem, site body, temperature, slot padding): every body of the flip
+# chain, with and without the Ewald term, the direct body with a fourth,
+# empty slot (the runtime slot count) on the spinel CE + Ewald
+FLIP_LANES = (1, 2, 4, 8, 16)
+FLIP_BODY_CELLS = (
+    ("spinel_2x2x2", "ising", TEMPERATURE, False),  # rows fit
+    ("spinel_3x3x3", "ising", TEMPERATURE, False),  # three words, rows streamed
+    ("spinel_ewald_2x2x2", "ising", TEMPERATURE, False),  # with the Ewald term
+    (PT_CELL, "ising", PT_TEMPERATURE, False),  # bench tempering's cell
+    (SGC_CELL, "direct", SGC_TEMPERATURE, False),  # K = 3
+    ("spinel_ewald_2x2x2", "direct", TEMPERATURE, True),  # runtime K, Ewald
+    (SGC_CELL, "qary", SGC_TEMPERATURE, False),  # K3, q = 3
+    ("spinel_ewald_2x2x2", "qary", TEMPERATURE, False),  # K3, q = 2 with Ewald
+    ("rocksalt_q4_2x2x2", "qary", TEMPERATURE, False),  # K3, q = 4
+)
+FLIP_AB_CELLS = (  # phase 5's sweep: (stem, site body, temperature)
+    (SGC_CELL, "qary", SGC_TEMPERATURE), (SGC_CELL, "direct", SGC_TEMPERATURE),
+    ("rocksalt_q4_2x2x2", "qary", TEMPERATURE), ("spinel_2x2x2", "ising", TEMPERATURE),
+    ("spinel_3x3x3", "ising", TEMPERATURE), (PT_CELL, "ising", PT_TEMPERATURE),
+    (PT_CELL, "direct", PT_TEMPERATURE),
+)
 SEEDS = (("hash", 987654321), ("philox", 0x2545F4914F6CDD1D))
 T_START = time.perf_counter()  # the script's start, for the phase 3 lines
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; FP64 (vector, not the
@@ -544,6 +592,11 @@ def compare(label, kernel, twin, margin, n_steps, invariant=None, start=None):
     return err
 
 
+def twin_lanes(move, tables, W):
+    """The flip twin sums at the lanes of the kernel's launch."""
+    return {"lanes": chain.flip_lanes(tables, W)} if move == "flip" else {}
+
+
 def body_label(tables):
     """The site body of ``tables`` as the execution path names it."""
     return f"qary{tables.qary}" if tables.qary else tables.delta
@@ -561,7 +614,7 @@ def window_vs_twin(ensemble, name, move, block, rng, seed, delta="direct",
     t = fresh(ops)
     margin = torch.full((WALKERS,), float("inf"), device=ensemble.device)
     kernel_fn(**k, rng=rng)
-    twin_fn(**t, rng=rng, margin=margin)
+    twin_fn(**t, rng=rng, margin=margin, **twin_lanes(move, tables, WALKERS))
     torch.cuda.synchronize()
     ewald = "+ewald" if tables.has_ewald else ""
     invariant = invariant_of(move, tables, ensemble)
@@ -629,7 +682,7 @@ def chunked_hash_vs_twin(ensemble, name, move, block, delta="direct"):
         rows = dict(zip(SEQUENCES[move], (s[c] for s in seqs)))
         twin_fn(**twin, **rows, n_steps=min(chunk, n_steps - c * chunk),
                 seed=torch.tensor([seed], dtype=torch.int64, device=device),
-                rng="hash", margin=margin)
+                rng="hash", margin=margin, **twin_lanes(move, tables, WALKERS))
     torch.cuda.synchronize()
     kernel = {"occ": state["occupancy"][:, tables.rank_sites].T.to(torch.int8),
               "enthalpy": state["enthalpy"], "naccept": state["naccept"]}
@@ -675,6 +728,115 @@ def exchange_vs_twin(device="cuda"):
     check(0.0 < acceptance <= 1.0, f"exchange acceptance {acceptance}")
     print(f"phase 3 [exchange {WALKERS} walkers]: kernel == twin bit for bit over "
           f"{PT_SWEEPS} sweeps (betas and their f32 copies), acceptance {acceptance:.4f}")
+    return 0.0
+
+
+# ---------------- K1's launch designs and the sweep schedule ----------------
+
+def padded_slots(tables):
+    """The direct body's tables with a fourth, empty slot (nbr -1, stride
+    0): the same deltas through the runtime slot count instantiation."""
+    return dataclasses.replace(
+        tables, nbr=torch.nn.functional.pad(tables.nbr, (0, 1), value=-1).contiguous(),
+        stride=torch.nn.functional.pad(tables.stride, (0, 1), value=0).contiguous())
+
+
+def flip_plan_label(tables, W=WALKERS, block=BLOCK, n_steps=THIN, design=None):
+    """The launch K1 takes under ``design``: lanes, blocks, rows."""
+    plan = chain.flip_launch_plan(tables, W, block, n_steps, design)
+    return (f"G={plan.lanes}, {plan.blocks(W)} blocks of {plan.walkers_per_block} walkers, "
+            f"rows {'resident' if plan.resident else 'streamed'}, {plan.shared_bytes} B "
+            f"of shared memory a block")
+
+
+def flip_designs(tables, W=WALKERS, block=BLOCK):
+    """K1's designs for a launch: every lane count, with the rows resident
+    (where they fit) and streamed."""
+    designs = []
+    for lanes in FLIP_LANES:
+        wpb = chain._block_walkers(W, block, lanes)
+        fits = chain.flip_chain_shared_bytes(tables, wpb, True) <= chain.MAX_SHARED_BYTES
+        designs += [chain._FlipDesign(lanes=lanes, resident=r) for r in (True, False)
+                    if fits or not r]
+    return designs
+
+
+def flip_designs_vs_twin(ensemble, name, delta, temperature, padded, rng, seed):
+    """Phase 3: K1 at every lane count and both row plans against the twin
+    at the same lanes, bit for bit (occupancies, accept counts, enthalpies),
+    on one main-path window."""
+    tables = tables_of(ensemble, "flip", delta)
+    if padded:
+        tables = padded_slots(tables)
+    ops = window_operands(ensemble, tables, "flip", BLOCK, occ_seed=7, seq_seed=17,
+                          temperature=temperature)
+    ops["seed"] = torch.tensor([seed], dtype=torch.int64, device=ensemble.device)
+    twins, designs = {}, flip_designs(tables)
+    for design in designs:
+        if design.lanes not in twins:
+            twins[design.lanes] = fresh(ops)
+            chain.flip_chain_reference(**twins[design.lanes], rng=rng, lanes=design.lanes)
+        k = fresh(ops)
+        chain.flip_chain(**k, rng=rng, _design=design)
+        torch.cuda.synchronize()
+        for key in ("occ", "naccept", "enthalpy"):
+            check(torch.equal(k[key], twins[design.lanes][key]),
+                  f"flip {name} {delta} {rng} G={design.lanes} resident={design.resident}: "
+                  f"{key} differs from the twin's")
+    accept = float(k["naccept"].double().mean()) / THIN
+    check(0.0 < accept < 1.0, f"flip {name} {delta}: acceptance {accept}")
+    ewald = "+ewald" if tables.has_ewald else ""
+    slots = f", K = {tables.nbr.shape[2]} (runtime)" if padded else ""
+    print(f"phase 3 [flip{ewald}+{body_label(tables)} {name}{slots} {rng} seed {seed:#x}, "
+          f"every design] at {time.perf_counter() - T_START:.1f} s: kernel == twin bit for "
+          f"bit on all {WALKERS} walkers at G = {sorted(twins)}, "
+          f"{sum(d.resident for d in designs)} resident and "
+          f"{sum(not d.resident for d in designs)} streamed launches; acceptance "
+          f"{accept:.4f}; the plan: {flip_plan_label(tables)}")
+    return 0.0
+
+
+def sweep_vs_twin(ensemble, name, rng, seed):
+    """Phase 3: bench ``spinel-independent``'s sweep schedule
+    (``proposal_mode="sweep"``: one fixed permutation of the ranks for every
+    walker) through ``make_shared_proposal_chain`` on the card, against the
+    twin on the same schedule, bit for bit."""
+    device = ensemble.device
+    tables = tables_of(ensemble, "flip", chain.default_delta(ensemble.processor,
+                                                             ensemble.sublattices))
+    run = chain.make_shared_proposal_chain(tables, THIN, block_size=BLOCK,
+                                           proposal_mode="sweep", rng=rng,
+                                           seeds=np.asarray([seed]))
+    occu = torch.as_tensor(random_occupancies(ensemble, WALKERS, 13), device=device)
+    beta = torch.full((WALKERS,), 1.0 / (kB * TEMPERATURE), dtype=torch.float64,
+                      device=device)
+    state = {"occupancy": occu.clone(),
+             "enthalpy": torch.zeros(WALKERS, dtype=torch.float64, device=device),
+             "beta": beta, "naccept": torch.zeros(WALKERS, dtype=torch.int32, device=device),
+             "accepted": torch.ones(WALKERS, dtype=torch.bool, device=device)}
+    before = chain.flip_chain.launches
+    state = run(state, None)
+    check(chain.flip_chain.launches - before == 1, "sweep: one launch")
+    sched = torch.as_tensor(chain.sweep_schedule(tables.num_ranks, THIN), device=device)
+    twin = dict(occ=occu[:, tables.rank_sites].T.to(torch.int8).contiguous(),
+                enthalpy=torch.zeros(WALKERS, dtype=torch.float64, device=device),
+                naccept=torch.zeros(WALKERS, dtype=torch.int32, device=device),
+                beta32=beta.to(torch.float32),
+                seq=sched.expand(WALKERS // BLOCK, THIN).contiguous(),
+                seed=torch.tensor([seed], dtype=torch.int64, device=device))
+    chain.flip_chain_reference(**twin, tables=tables, n_steps=THIN, block_size=BLOCK,
+                               rng=rng, lanes=chain.flip_lanes(tables, WALKERS))
+    torch.cuda.synchronize()
+    occ = state["occupancy"][:, tables.rank_sites].T.to(torch.int8)
+    check(torch.equal(occ, twin["occ"]), f"sweep {name} {rng}: occupancies")
+    check(torch.equal(state["naccept"], twin["naccept"]), f"sweep {name} {rng}: accepts")
+    check(torch.equal(state["enthalpy"], twin["enthalpy"]), f"sweep {name} {rng}: enthalpy")
+    accept = float(state["naccept"].double().mean()) / THIN
+    check(0.0 < accept < 1.0, f"sweep {name}: acceptance {accept}")
+    print(f"phase 3 [flip+{body_label(tables)} {name} sweep schedule, {rng} seed {seed:#x}] "
+          f"at {time.perf_counter() - T_START:.1f} s: make_shared_proposal_chain(proposal_mode"
+          f"=\"sweep\") == twin bit for bit on all {WALKERS} walkers, acceptance "
+          f"{accept:.4f}; {flip_plan_label(tables)}")
     return 0.0
 
 
@@ -2163,6 +2325,93 @@ def wl_ab(card, wl_runs, reps=10):
     return results
 
 
+def flip_design_name(design):
+    """A K1 launch design's label."""
+    rows = {None: "rows fit", True: "rows resident", False: "rows streamed"}[design.resident]
+    return f"G={design.lanes or 'rule'} {rows}"
+
+
+def flip_in_turns(label, card, time_fn, designs):
+    """K1's designs timed in turns, first to last and back (a, b, ..., b,
+    a): each design's time the mean of its two turns.  Returns {design:
+    ms}."""
+    turns = {design: [] for design in designs}
+    for design in (*designs, *reversed(designs)):
+        turns[design].append(time_fn(design))
+    means = {design: sum(t) / 2 for design, t in turns.items()}
+    best = min(means, key=means.get)
+    parts = "; ".join(f"{flip_design_name(d)} {means[d]:.4f} ms ({t[0]:.4f}, {t[1]:.4f})"
+                      for d, t in turns.items())
+    print(f"phase 5 [flip A/B {label}] {card}: {parts}; fastest {flip_design_name(best)}, "
+          f"{max(means.values()) / means[best]:.3f}x the slowest")
+    return means
+
+
+def flip_ab(card, cells, reps=10):
+    """Phase 5: K1's design in turns on copies of one starting state, on
+    each of ``FLIP_AB_CELLS`` at 8192 walkers: (1) G = 1, 2, 4, 8 and 16
+    lanes, rows as the plan takes them, on a 100-step window; (2) streamed
+    against resident rows, where they fit, at the plan's lanes and at the
+    fastest of (1); on bench tempering's cell also (3) a window's ten
+    10-step segments (a CUDA graph of the launches, as the tempering path
+    issues them) at each G, and streamed against resident there.  The
+    launch the plan takes is the default; the parent commit's kernel is
+    timed against it by ``scripts/time_chain_windows.py``."""
+    results = {}
+    segments = THIN // PT_PERIOD
+    for stem, delta, temperature in FLIP_AB_CELLS:
+        ens = cells[stem]
+        tables = tables_of(ens, "flip", delta)
+        cell = f"flip+{body_label(tables)} {stem}"
+        plan = chain.flip_launch_plan(tables, WALKERS, BLOCK, THIN)
+        ops = window_operands(ens, tables, "flip", BLOCK, occ_seed=5, seq_seed=1,
+                              temperature=temperature)
+        ops["seed"] = torch.tensor([42], dtype=torch.int64, device=ens.device)
+
+        def window(design):
+            run = functools.partial(chain.flip_chain, _design=design)
+            return cuda_ms(same_window(run, ops, reps), reps)
+
+        fits = any(d.resident for d in flip_designs(tables))
+        r = {"plan": flip_plan_label(tables)}
+        r["lanes"] = flip_in_turns(f"1, lanes: {cell}, 100 steps ({r['plan']})", card, window,
+                                   [chain._FlipDesign(lanes=g, resident=plan.resident)
+                                    for g in FLIP_LANES])
+        if fits:
+            fastest = min(r["lanes"], key=r["lanes"].get).lanes
+            for g in sorted({plan.lanes, fastest}):
+                r[f"resident G={g}"] = flip_in_turns(
+                    f"2, rows at G={g}: {cell}, 100 steps", card, window,
+                    [chain._FlipDesign(lanes=g, resident=False),
+                     chain._FlipDesign(lanes=g, resident=True)])
+        if stem == PT_CELL:
+            gen = torch.Generator(device=ens.device).manual_seed(11)
+            seqs = chain.rank_sequence(tables, gen, (segments, WALKERS // BLOCK, PT_PERIOD))
+            seeds = torch.randint(0, 2**62, (segments,), generator=gen, device=ens.device)
+            seg_ops = fresh(ops)
+
+            def segment(design):
+                def capture():
+                    launches = chain.ChainLaunches(
+                        "flip", seg_ops["occ"], seg_ops["enthalpy"], (seg_ops["naccept"],),
+                        ops["beta32"], (seqs,), seeds, tables, BLOCK, "philox", design)
+                    for k in range(segments):
+                        launches.launch(k, PT_PERIOD)
+                return graph_ms(capture, reps) / segments
+
+            seg_plan = chain.flip_launch_plan(tables, WALKERS, BLOCK, PT_PERIOD)
+            r["segment lanes"] = flip_in_turns(
+                f"3, lanes: {cell}, {PT_PERIOD}-step segments, per segment", card, segment,
+                [chain._FlipDesign(lanes=g, resident=seg_plan.resident) for g in FLIP_LANES])
+            if fits:
+                r["segment resident"] = flip_in_turns(
+                    f"3, rows at G={seg_plan.lanes}: {cell}, {PT_PERIOD}-step segments", card,
+                    segment, [chain._FlipDesign(lanes=seg_plan.lanes, resident=False),
+                              chain._FlipDesign(lanes=seg_plan.lanes, resident=True)])
+        results[cell] = r
+    return results
+
+
 def distance_bound(ops, work):
     """The least time of one distance launch: (ms, by, bytes, operations).
 
@@ -2358,9 +2607,8 @@ def main():
 
     sgc, ternary, aucu = (load(stem)[0] for stem in (SGC_CELL, TERNARY_CELL, QARY2_CELL))
     for delta in ("direct", "qary"):  # the bodies sgc's ternary tables take
-        smem = chain.chain_shared_bytes(tables_of(sgc, "flip", delta), "flip", WALKERS, BLOCK)
-        print(f"phase 2: {SGC_CELL} flip launch, {delta} body: {smem} bytes of dynamic "
-              f"shared memory per block of 64 walkers")
+        print(f"phase 2: {SGC_CELL} flip launch, {delta} body: "
+              f"{flip_plan_label(tables_of(sgc, 'flip', delta))}")
 
     # phase 3: kernels against twins at the main paths' shapes
     flips = {stem: load(stem)[0] for stem in FLIP_CELLS}
@@ -2423,6 +2671,19 @@ def main():
                                               SWAP_CELLS["aucu_4x4x4"][1], "ising"))
     errs["exchange"] = [exchange_vs_twin()]
     print(f"phase 3: the K1-Ising and exchange comparisons took "
+          f"{time.perf_counter() - t0:.1f} s")
+    # K1 at every lane count and row plan, each body, both RNG modes; the
+    # sweep schedule (bench spinel-independent)
+    t0 = time.perf_counter()
+    flip_cells = {stem: load(stem)[0] for stem, *_ in FLIP_BODY_CELLS}
+    for stem, delta, temperature, padded in FLIP_BODY_CELLS:
+        key = {"ising": "ising", "direct": "flip"}.get(delta, "qary")
+        for rng, seed in SEEDS:
+            errs[key].append(flip_designs_vs_twin(flip_cells[stem], stem, delta, temperature,
+                                                  padded, rng, seed))
+    for rng, seed in SEEDS:
+        errs["ising"].append(sweep_vs_twin(flips["spinel_2x2x2"], "spinel_2x2x2", rng, seed))
+    print(f"phase 3: K1's designs and the sweep schedule took "
           f"{time.perf_counter() - t0:.1f} s")
     join_build(0)
     # the table chain: the direct body on both spinel cells, K1-Ising on
@@ -2575,6 +2836,7 @@ def main():
         timings[("distance", name)] = time_distance(name, card, timed, kernel_reps=5)
     distance_ab(card, procs8, fcc64)
     wl_ab(card, wl_runs)
+    flip_ab(card, flip_cells)
 
     def in_turns(label, time_fn, bodies):
         """Two bodies timed in turns (a, b, b, a): the twin on the first turn
@@ -2657,15 +2919,22 @@ def main():
         {f"{move} {stem}": v for (move, stem), v in timings.items()}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
 
-    def entry(name, timing, source, replaces, launches, err_key):
+    def entry(name, timing, source, replaces, launches, err_key, plan=None):
         t = timings[timing]
-        return {
+        return {**({"plan": plan} if plan else {}),
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max(errs[err_key]),
             "ms": t["kernel_ms"], "plain_ms": t["twin_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": None,  # no single PyTorch call runs a Monte Carlo chain
         }
+
+    def flip_plans(delta, cells):
+        """K1's launch plan on each main path's cell of a body: its 100-step
+        windows and, on the tempering cell, its 10-step segments."""
+        return {stem: flip_plan_label(tables_of(ens, "flip", delta),
+                                      n_steps=PT_PERIOD if stem == PT_CELL else THIN)
+                for stem, ens in cells.items()}
 
     # each entry's launches are those of its (kernel, body) pair on the main
     # paths, its times that pair's on a cell where a main path ran it
@@ -2675,7 +2944,8 @@ def main():
     ref = "smol_tpu/ops/pallas_chain.py"
     kernels = [
         entry("flip_chain (direct body)", ("flip+direct", SGC_CELL), flip_src,
-              f"{ref}:1545", launches[("flip", "direct")], "flip"),
+              f"{ref}:1545", launches[("flip", "direct")], "flip",
+              flip_plans("direct", {SGC_CELL: sgc, PT_CELL: ising_cells[PT_CELL]})),
         entry("swap_chain (direct body)", ("swap+direct", "aucu_4x4x4"), swap_src,
               f"{ref}:1817", launches[("swap", "direct")], "swap"),
         entry("table_chain (direct body)", ("table+direct", "spinel_ewald_sgc_2x2x2"),
@@ -2694,14 +2964,17 @@ def main():
               "smol_tpu_torch/csrc/distance_chain.cu", "smol_tpu/ops/pallas_sqs.py:649",
               sqs_launches, "distance"),
         entry("qary_body (K3, in flip_chain)", ("flip+qary", SGC_CELL), body_src,
-              f"{ref}:519", launches[("flip", "qary")], "qary"),
+              f"{ref}:519", launches[("flip", "qary")], "qary",
+              flip_plans("qary", {SGC_CELL: sgc})),
         entry("qary_body (K3, q = 4, in flip_chain)", ("flip+qary", Q4_CELL), body_src,
-              f"{ref}:519", launches[("flip", "qary4")], "qary4"),
+              f"{ref}:519", launches[("flip", "qary4")], "qary4",
+              flip_plans("qary", {Q4_CELL: q4})),
         entry("qary_body (K3, q = 2 with Ewald, in swap_chain)",
               ("swap+qary", EWALD_QARY_CELL), body_src, f"{ref}:570",
               launches[("swap", "qary+ewald")], "qary+ewald"),
         entry("ising_body (K1-Ising, in flip_chain)", ("flip+ising", PT_CELL), body_src,
-              f"{ref}:374", launches[("flip", "ising")], "ising"),
+              f"{ref}:374", launches[("flip", "ising")], "ising",
+              flip_plans("ising", {**flips, PT_CELL: ising_cells[PT_CELL]})),
         entry("ising_body (K1-Ising, in swap_chain)", ("swap+ising", "aucu_4x4x4"), body_src,
               f"{ref}:410", launches[("swap", "ising")], "ising"),
         entry("tempering_exchange", ("exchange", PT_CELL), "smol_tpu_torch/csrc/tempering.cu",

@@ -12,7 +12,10 @@ archive <commit> | tar -x -C ab_trees/parent``; ``.gitignore`` lists
 
 Each run builds the named checkout's kernels (default: the checkout this
 script lies in) and times ``chip_smoke.time_window`` of that checkout: one
-100-step window at 8192 walkers on the semigrand spinel cells (flips), on
+100-step window at 8192 walkers on the semigrand spinel cells (flips) and,
+where the checkout has them, on the flip chain's other cells (bench
+``sgc`` 6x6x6 with K3 and with the direct body, the q = 4 rocksalt with K3,
+bench ``tempering``'s Au-Cu 3x3x3 with the direct body), on
 the canonical cells (swaps, the spinel CE + Ewald with and without the
 Ewald term, and Au-Cu) and on the charge-neutral table-flip cells (with
 and without the Ewald term), and, where the checkout has them, the two
@@ -24,9 +27,13 @@ path's launch (8000 steps at 2048 walkers on the bench's first 8-site
 shape and on the 64-site shape, mean of 5, each on a copy of one starting
 state), and, where the checkout has them, the flip and swap cells of
 K1-Ising (``chip_smoke.ISING_CELLS``) with the Ising body, and the table
-cells with K1-Ising (``chip_smoke.TABLE_BODY_CELLS``).
+cells with K1-Ising (``chip_smoke.TABLE_BODY_CELLS``), and bench
+``tempering``'s 10-step flip launches (``chip_smoke.time_segment``, with
+K1-Ising and the direct body: device time per launch in CUDA graphs of a
+window's ten).
 Further arguments after the tree name the kinds to time (``flip``,
-``swap``, ``table``, ``wl``, ``distance``, ``ising``; all without).
+``swap``, ``table``, ``wl``, ``distance``, ``ising``, ``segment``; all
+without).
 Prints the card's name and power limit and one ``AB`` line per cell:
 label, move, cell, kernel ms, kernel ms without the Ewald term (``nan``
 for a cell without one); a distance line ends with a checksum of the
@@ -43,7 +50,8 @@ from pathlib import Path
 def main():
     label = sys.argv[1]
     tree = Path(sys.argv[2] if len(sys.argv) > 2 else Path(__file__).parent.parent)
-    kinds = set(sys.argv[3:]) or {"flip", "swap", "table", "wl", "distance", "ising"}
+    kinds = set(sys.argv[3:]) or {"flip", "swap", "table", "wl", "distance", "ising",
+                                  "segment"}
     tree = tree.resolve()
     os.chdir(tree)
     sys.path.insert(0, str(tree))
@@ -55,7 +63,7 @@ def main():
     sqs_cells = getattr(chip_smoke, "SQS_CELLS", ()) if "distance" in kinds else ()
     ising_cells = getattr(chip_smoke, "ISING_CELLS", {}) if "ising" in kinds else {}
     chip_smoke._build.build_libraries(
-        tuple(name for name, on in (("flip_chain", "flip" in kinds or bool(ising_cells)),
+        tuple(name for name, on in (("flip_chain", bool(kinds & {"flip", "ising", "segment"})),
                                     ("swap_chain", "swap" in kinds or bool(ising_cells)),
                                     ("table_chain", "table" in kinds),
                                     ("wl_chain", bool(wl_cells)),
@@ -71,6 +79,24 @@ def main():
         t = chip_smoke.time_window(ensemble, stem, card, move, block, twin_reps=1)
         print("AB", label, move, stem, t["kernel_ms"],
               t.get("kernel_no_ewald_ms", float("nan")), flush=True)
+    # the flip chain's other bodies and cells, where the checkout has them:
+    # (stem constant, site body, temperature constant)
+    flip_bodies = [("SGC_CELL", "qary", "SGC_TEMPERATURE"),
+                   ("SGC_CELL", "direct", "SGC_TEMPERATURE"),
+                   ("Q4_CELL", "qary", "TEMPERATURE"), ("PT_CELL", "direct", "PT_TEMPERATURE")]
+    for stem_name, delta, temperature_name in flip_bodies if "flip" in kinds else ():
+        stem = getattr(chip_smoke, stem_name, None)
+        if stem is None:
+            continue
+        t = chip_smoke.time_window(chip_smoke.load(stem)[0], stem, card, "flip",
+                                   chip_smoke.BLOCK, twin_reps=0, delta=delta,
+                                   temperature=getattr(chip_smoke, temperature_name))
+        print("AB", label, f"flip+{delta}", stem, t["kernel_ms"], float("nan"), flush=True)
+    pt_cell = getattr(chip_smoke, "PT_CELL", None)
+    for delta in ("ising", "direct") if "segment" in kinds and pt_cell else ():
+        t = chip_smoke.time_segment(card, chip_smoke.load(pt_cell)[0], delta)
+        print("AB", label, f"segment+{delta}", pt_cell, t["launch_ms"], float("nan"),
+              flush=True)
     for (stem, move), (block, temperature) in ising_cells.items():
         ensemble = chip_smoke.load(stem)[0]
         t = chip_smoke.time_window(ensemble, stem, card, move, block, twin_reps=0,

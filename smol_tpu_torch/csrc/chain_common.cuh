@@ -15,9 +15,13 @@
 //   with the walker's codes as rank bits in registers, summed in row order;
 // - K4, the Ewald term sign * (C_r + V_r . occ) of pallas_chain.py
 //   `ewald_delta` (:1651), in f64 over the block's codes in rank order;
-// - the whole delta of a flip and of a swap (flip_delta, swap_delta, with
-//   the body as a template parameter), which the Metropolis chains and the
-//   Wang-Landau chain call; the table chain calls the body's add itself.
+// - the whole delta of a swap at one thread a walker (swap_delta, with the
+//   body as a template parameter), which the swap chain calls; the table
+//   chain calls the body's add itself;
+// - lanes: a walker as G consecutive threads of one warp, each summing
+//   every G-th of a rank's rows, the partials meeting in a butterfly of
+//   shuffles (Lanes<Body>, lane_sum, lane_flip_delta), which the flip and
+//   Wang-Landau chains call.
 //
 // Every body's rows carry the rank's Ewald row (ew, RE doubles: R with an
 // Ewald term, else none), so K4 goes with each of them.
@@ -92,11 +96,15 @@ struct Draws {
   }
 };
 
-// Accept on an f32 exponent: expo >= 0 or expo > log U, with U in (0, 1]
-// from the 31 random bits r_u, as the reference takes it (:1879, :1883).
+// log U in f32, U in (0, 1] from the 31 random bits r_u, as the reference
+// takes it (:1879).
+__device__ __forceinline__ float log_uniform(uint32_t r_u) {
+  return logf(((float)(r_u >> 7) + 1.0f) * 5.9604644775390625e-8f);
+}
+
+// Accept on an f32 exponent: expo >= 0 or expo > log U (:1883).
 __device__ __forceinline__ bool accept_exponent(float expo, uint32_t r_u) {
-  const float unif = ((float)(r_u >> 7) + 1.0f) * 5.9604644775390625e-8f;
-  return expo >= 0.0f || expo > logf(unif);
+  return expo >= 0.0f || expo > log_uniform(r_u);
 }
 
 // The Metropolis decision in f32, as the reference takes it (:1882).
@@ -533,25 +541,6 @@ __device__ __forceinline__ double ewald_term(const double* row, double c,
   return (double)sign * (c + acc);
 }
 
-// A flip's delta: rank u (rows `rows` of the body `Body`, the walker's
-// register state `wk`) going from code a to b.  Cluster terms, then the
-// Ewald term, then minus the chemical work mu[u, b] - mu[u, a] (mu is
-// [R, C]).
-template <class Body, bool EW>
-__device__ __forceinline__ double flip_delta(
-    const typename Body::Rows& rows, const Tables& t, int u, int a, int b,
-    const int8_t* s_occ, int nt, int tid, int R, int C,
-    const double* __restrict__ mu, const double* __restrict__ ew_c,
-    const typename Body::Walker& wk = typename Body::Walker()) {
-  double dE = Body::add(0.0, rows, t, u, s_occ, nt, tid, a, b, wk);
-  if constexpr (EW) {
-    dE += ewald_term(rows.ew, __ldg(ew_c + u), s_occ, nt, tid, R, b - a);
-  }
-  const double work = __ldg(mu + u * C + b) - __ldg(mu + u * C + a);
-  dE -= work;
-  return dE;
-}
-
 // A swap's joint delta: rank u (rows ru, cell cu) going a -> b, then rank v
 // (rows rv) going b -> a against the occupancy with u already holding b,
 // then u's Ewald term (taken before u is recolored), then v's.  Leaves b in
@@ -581,6 +570,219 @@ __device__ __forceinline__ double swap_delta(
     dE += ewald_u;
     dE += ewald_term(rv.ew, __ldg(ew_c + v), s_occ, nt, tid, R, a - b);
   }
+  return dE;
+}
+
+// ---- lanes: a walker as G consecutive threads of one warp (G = 1, 2, 4, 8
+// or 16), the block's codes [R][code_pitch] in shared memory, one byte a
+// walker (flip_chain.cu, wl_chain.cu) ----
+
+constexpr int kLaneBatch = 8;  // parity rows a lane loads before it sums them
+
+// Bytes of one rank-major row of the block's codes: one per walker, padded
+// so that the rows of different ranks start in different banks.
+__host__ __device__ __forceinline__ int code_pitch(int walkers_per_block) {
+  return (walkers_per_block + 3) / 4 * 4 + 4;
+}
+
+__host__ __device__ __forceinline__ size_t align16(size_t bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+// The lanes' partials meet: every lane ends with the sum, bit for bit the
+// same (f64 addition commutes).
+template <typename T>
+__device__ __forceinline__ T lane_sum(T x, unsigned mask, int lanes) {
+  for (int m = 1; m < lanes; m <<= 1) x += __shfl_xor_sync(mask, x, m);
+  return x;
+}
+
+// One lane's rows of a rank, for each body: rows lane, lane + lanes, ...
+// in row order.  The direct and q-ary bodies add their terms to `acc`
+// (kScaled false); the Ising body returns its rows' parity sum, which the
+// caller scales by -2 (b - a) after the lanes meet (kScaled true).
+template <class Body>
+struct Lanes;
+
+template <int KT>
+struct Lanes<Direct<KT>> {
+  static constexpr bool kScaled = false;
+  // BATCH > 1 (a compile-time slot count only): the lane's rows in batches
+  // of BATCH whose loads are all issued before any term is added; the
+  // terms are added in row order, as at BATCH = 1.  A row past the count
+  // reads the last row again and is not added.
+  template <int BATCH = 1>
+  static __device__ __forceinline__ double add(double acc, const Rows& rows,
+                                               const Tables& t, int, const int8_t* codes,
+                                               int pitch, int a, int b, const NoWalker&,
+                                               int lane, int lanes) {
+    const int K = KT > 0 ? KT : t.K;
+    if constexpr (BATCH > 1 && KT > 0) {
+      const int L = t.L;
+      for (int l0 = lane; l0 < L; l0 += BATCH * lanes) {
+        int x[BATCH], d[BATCH], lr[BATCH];
+#pragma unroll
+        for (int j = 0; j < BATCH; ++j) {
+          lr[j] = min(l0 + j * lanes, L - 1);
+          d[j] = rows.d2[lr[j]];
+          x[j] = d[j] * a;
+#pragma unroll
+          for (int k = 0; k < KT; ++k) {
+            const int n = rows.nbr[lr[j] * KT + k];
+            const int code = n >= 0 ? (int)codes[n * pitch] : 0;
+            x[j] += rows.st[lr[j] * KT + k] * code;
+          }
+        }
+        double term[BATCH];
+#pragma unroll
+        for (int j = 0; j < BATCH; ++j) {
+          const double* g = rows.g + lr[j] * t.TM;
+          term[j] = g[x[j] + d[j] * (b - a)] - g[x[j]];
+        }
+#pragma unroll
+        for (int j = 0; j < BATCH; ++j) {
+          if (l0 + j * lanes < L) acc += term[j];
+        }
+      }
+      return acc;
+    }
+#pragma unroll 1
+    for (int l = lane; l < t.L; l += lanes) {
+      const int d = rows.d2[l];
+      int x = d * a;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int n = rows.nbr[l * K + k];
+        const int code = n >= 0 ? (int)codes[n * pitch] : 0;
+        x += rows.st[l * K + k] * code;
+      }
+      const int xn = x + d * (b - a);
+      const double term = rows.g[l * t.TM + xn] - rows.g[l * t.TM + x];
+      acc += term;
+    }
+    return acc;
+  }
+};
+
+template <int Q, int NBT>
+struct Lanes<Qary<Q, NBT>> {
+  static constexpr bool kScaled = false;
+  // BATCH > 1 (a compile-time neighbour count only): as Lanes<Direct>.
+  template <int BATCH = 1>
+  static __device__ __forceinline__ double add(double acc, const QRows& r,
+                                               const Tables& t, int u, const int8_t* codes,
+                                               int pitch, int a, int b, const NoWalker&,
+                                               int lane, int lanes) {
+    const int NB = NBT > 0 ? NBT : t.NB;
+    const int n = __ldg(t.qrows + u);
+    if constexpr (BATCH > 1 && NBT > 0) {
+      for (int l0 = lane; l0 < n; l0 += BATCH * lanes) {
+        int wo[BATCH], wn[BATCH], lr[BATCH];
+#pragma unroll
+        for (int j = 0; j < BATCH; ++j) {
+          lr[j] = min(l0 + j * lanes, n - 1);
+          int ph = 0;
+#pragma unroll
+          for (int k = 0; k < NBT; ++k) {
+            const int nb = r.nbr[lr[j] * NBT + k];
+            const int code = nb >= 0 ? (int)codes[nb * pitch] : 0;
+            ph += r.freq[lr[j] * NBT + k] * code;
+          }
+          const int m = r.ms[lr[j]];
+          wo[j] = (ph + m * a) % Q;
+          wn[j] = (ph + m * b) % Q;
+        }
+        double term[BATCH];
+#pragma unroll
+        for (int j = 0; j < BATCH; ++j) {
+          term[j] = r.ac[lr[j]] * (double)(sigma_c<Q>(wn[j]) - sigma_c<Q>(wo[j]));
+          if constexpr (Q != 2) {
+            term[j] += r.as[lr[j]] * (double)(sigma_s<Q>(wn[j]) - sigma_s<Q>(wo[j]));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < BATCH; ++j) {
+          if (l0 + j * lanes < n) acc += term[j];
+        }
+      }
+      return acc;
+    }
+#pragma unroll 1
+    for (int l = lane; l < n; l += lanes) {
+      int ph = 0;
+#pragma unroll
+      for (int k = 0; k < NB; ++k) {
+        const int nb = r.nbr[l * NB + k];
+        const int code = nb >= 0 ? (int)codes[nb * pitch] : 0;
+        ph += r.freq[l * NB + k] * code;
+      }
+      const int m = r.ms[l];
+      const int wo = (ph + m * a) % Q;
+      const int wn = (ph + m * b) % Q;
+      double term = r.ac[l] * (double)(sigma_c<Q>(wn) - sigma_c<Q>(wo));
+      if constexpr (Q != 2) {
+        term += r.as[l] * (double)(sigma_s<Q>(wn) - sigma_s<Q>(wo));
+      }
+      acc += term;
+    }
+    return acc;
+  }
+};
+
+template <int NW>
+struct Lanes<Ising<NW>> {
+  static constexpr bool kScaled = true;
+  // The lane's parity sum from +0.0, in batches of kLaneBatch rows whose
+  // masks and amplitudes are all loaded before any is used (see
+  // ising_add); a row past the rank's count loads as mask 0 and amplitude
+  // +0.0 and adds +0.0, which leaves the sum (never -0.0) unchanged.
+  static __device__ __forceinline__ double sum(const IRows& r, const Tables& t, int u,
+                                               const Bits<NW>& bits, int lane, int lanes) {
+    const int n = __ldg(t.irows + u);
+    double s = 0.0;
+    for (int l0 = lane; l0 < n; l0 += kLaneBatch * lanes) {
+      uint64_t mask[kLaneBatch][NW];
+      double A[kLaneBatch];
+#pragma unroll
+      for (int j = 0; j < kLaneBatch; ++j) {
+        const int l = l0 + j * lanes;
+        const bool ok = l < n;
+#pragma unroll
+        for (int k = 0; k < NW; ++k) mask[j][k] = ok ? r.mask[l * NW + k] : 0ull;
+        A[j] = ok ? r.amp[l] : 0.0;
+      }
+      asm volatile("" ::: "memory");  // every load of the batch issued first
+#pragma unroll
+      for (int j = 0; j < kLaneBatch; ++j) s += ising_term<NW>(mask[j], A[j], bits);
+    }
+    return s;
+  }
+};
+
+// A flip's delta over the lanes: the body's rows, then the Ewald term (in
+// rank order, on every lane), then minus the chemical work (mu is [R, C]).
+// At one lane, the rows' terms in row order from +0.0.  BATCH: the direct
+// and q-ary rows a lane loads before it adds them (Lanes<Body>::add).
+template <class Body, bool EW, int BATCH = 1>
+__device__ __forceinline__ double lane_flip_delta(
+    const typename Body::Rows& ru, const Tables& t, int u, int a, int b,
+    const int8_t* codes, int pitch, int R, int C, const double* __restrict__ mu,
+    const double* __restrict__ ew_c, const typename Body::Walker& wk, int lane,
+    int lanes, unsigned mask) {
+  using L = Lanes<Body>;
+  double dE;
+  if constexpr (L::kScaled) {
+    const double s = lane_sum(L::sum(ru, t, u, wk, lane, lanes), mask, lanes);
+    dE = 0.0 + (double)(-2 * (b - a)) * s;
+  } else {
+    dE = lane_sum(L::template add<BATCH>(0.0, ru, t, u, codes, pitch, a, b, wk, lane, lanes),
+                  mask, lanes);
+  }
+  if constexpr (EW) {
+    dE += ewald_term(ru.ew, __ldg(ew_c + u), codes, pitch, 0, R, b - a);
+  }
+  const double work = __ldg(mu + u * C + b) - __ldg(mu + u * C + a);
+  dE -= work;
   return dE;
 }
 

@@ -7,12 +7,11 @@
 // (mu_work) and Metropolis accept, and the TPU's hardware PRNG
 // (smol_tpu/ops/prims.py).  What differs from the TPU design:
 //
-// - One thread per walker.  Walkers w with the same w / block_size share a
-//   row of the exogenous site sequence (the statistical contract of the
-//   reference); block_size is the statistical block, independent of the
-//   CUDA block size, which divides it so that a CUDA block shares one
-//   sequence row.  The steps of a whole window run in a loop inside the
-//   kernel.
+// - Walkers w with the same w / block_size share a row of the exogenous
+//   site sequence (the statistical contract of the reference); block_size
+//   is the statistical block, independent of the CUDA block, which lies
+//   inside one sequence group.  The steps of a whole window run in a loop
+//   inside the kernel.
 // - The energy delta of the site, in one of three bodies (chain_common.cuh):
 //   the direct lookup, one table load per local cluster:
 //   t = d2 * a + sum_k stride * code(nbr), dE = sum_l g[l, t_new] - g[l, t_old];
@@ -22,29 +21,59 @@
 //   the MXU; or K1-Ising, the parity rows of binary sign-symmetric systems:
 //   per row a mask load, an AND with the walker's codes held as rank bits
 //   in registers, a popcount and one f64 add (no gather of neighbour codes
-//   at all).  Each is summed in native f64 in row order, then the Ewald
-//   term (b - a) * (C_u + V_u . occ) in f64, then the chemical work (the
-//   reference needs double-float pairs and select loops because a TPU has
-//   no f64 vector unit and slow gathers, and takes the Ewald dot in f32).
-//   The plain torch twin in ops/chain.py sums in the same order, so both
-//   give the same f64 delta.
+//   at all).  Each is summed in native f64, then the Ewald term
+//   (b - a) * (C_u + V_u . occ) in f64 in rank order, then the chemical
+//   work (the reference needs double-float pairs and select loops because a
+//   TPU has no f64 vector unit and slow gathers, and takes the Ewald dot in
+//   f32).  The plain torch twin in ops/chain.py sums in the same order, so
+//   both give the same f64 delta.
 // - The acceptance exponent is taken in f32, as the reference does, so
 //   trajectories can be compared with it; the enthalpy accumulates in f64.
 // - Random numbers: Philox4x32-10 keyed by (seed, walker) with the step as
 //   counter in run mode, or the reference's interpret-mode hash of
 //   (seed, step, slot, lane) bit for bit in hash mode.
 //
-// What bounds it on this card: the steps of one walker form a dependent
-// chain (each decision needs the previous occupancy), so a step costs the
-// latency of its table lookups, not bandwidth, and a few thousand walkers
-// give only about two warps per SM to hide it.  The design keeps every
-// lookup on chip: the walkers' codes live in shared memory for the whole
-// window, and the proposal rank's rows (a few KB: nbr, stride, d2, g and
-// the Ewald row; or the character rows) are copied into shared memory one
-// step ahead with cp.async, double buffered, since the site sequence is
-// known in advance (the analog of the reference's streamed-table
-// prefetch).  Read straight from L2 instead, the rows cost two dependent
-// L2 round trips per local cluster.
+// Lanes.  A walker is G consecutive threads of one warp (G = 1, 2, 4, 8 or
+// 16, `lanes`; ops/chain.py flip_launch_plan picks it from the launch's
+// walkers and the site body), and a block holds `walkers_per_block`
+// walkers of one sequence group (at most 256 threads), their codes in
+// shared memory [R][code_pitch], one byte a walker, the padded pitch
+// putting the rows of different ranks in different banks.  Lane j takes
+// rows j, j + G, j + 2G, ... of the proposal rank's rows (the direct and
+// K3 rows in batches of kRowBatch, K1-Ising's in batches of kLaneBatch,
+// whose loads are issued before the terms are added in row order, from
+// +0.0); the G partials meet in a butterfly of __shfl_xor_sync, after
+// which every lane holds the same dE bits (Lanes<Body>, lane_flip_delta in
+// chain_common.cuh, shared with wl_chain.cu).  What a step needs before
+// its rows is drawn G steps at a time, one step a lane (the rank, its code
+// count, the Philox or hash bits and log U), and read with a shuffle, so a
+// lane draws once every G steps.  Every lane takes the Metropolis decision
+// and keeps its own copy of the walker's enthalpy and, for K1-Ising, rank
+// bits; lane 0 alone writes the code, behind __syncwarp over the walker's
+// lanes.  The Ewald dot stays in rank order on every lane.  At G = 1 the
+// same code sums the rows in row order, as the one-thread kernel did.
+//
+// Rows.  Where every rank's rows of the body fit in shared memory beside
+// the codes and the launch runs at least a step a rank (`resident`;
+// flip_launch_plan decides from the shapes: the K1-Ising rows of the spinel
+// 2x2x2, about 45 KB, and of Au-Cu 3x3x3, about 50 KB, on a 100-step
+// window), the block copies them once with cp.async and runs every step
+// with no block barrier.  Otherwise (K3's and the direct rows of `sgc` 6x6x6,
+// about 12 and 25 KB a rank over 216 ranks) the next step's rows are
+// streamed into a second buffer with cp.async while this step runs (K8),
+// behind one block barrier a step, since the site sequence is known in
+// advance (the analog of the reference's streamed-table prefetch).
+//
+// What bounds it on this card: not the roofline (chip_smoke.py's bound:
+// the kernel stays 30-130 times above it, PERF.md), but each walker's
+// dependent steps.  At one thread a walker, in blocks of 64, a launch of
+// 8192 walkers put about two warps on an SM, each walking its rank's rows
+// in turn (K3 on `sgc`: 336 rows a step).  The lanes divide the rows by G
+// and put G times more warps on the card, the batches put several rows'
+// loads in flight, the resident rows drop the per-step cp.async wait and
+// block barrier.  At the plan's G the step is bound by the SM's issue of
+// the work every lane repeats and of the rows, not by latency: twice the
+// lanes (twice the warps) ran slower on every cell measured.
 //
 // The occupancy ([R, W] int8 codes, rank-major), enthalpy and accept
 // counts are updated in place.  The C entry point returns
@@ -56,11 +85,21 @@ namespace {
 
 using namespace smol;
 
+constexpr int kFlipThreads = 256;  // most threads of a block: walkers x lanes
+constexpr int kRowBatch = 4;  // direct and K3 rows a lane loads before it adds them
+
+// Dynamic shared memory of one launch: the rows (every rank's, or two
+// buffers of one rank's) and the block's codes.
+size_t shared_bytes(size_t rb, int R, int walkers_per_block, int resident) {
+  return (resident ? (size_t)R : 2) * rb +
+         align16((size_t)R * code_pitch(walkers_per_block));
+}
+
 // Body: Direct<KT> (KT: the slot count K as a compile-time constant, 0:
 // runtime K), Qary<Q, NBT> (K3) or Ising<NW> (K1-Ising, NW words of rank
 // bits); EW: the tables carry the Ewald fold (ew_v [R, R], ew_c [R]).
 template <class Body, bool EW>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kFlipThreads)
 flip_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
                   int32_t* __restrict__ naccept,
                   const float* __restrict__ beta,
@@ -69,71 +108,114 @@ flip_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
                   const double* __restrict__ mu,
                   const int32_t* __restrict__ ncode,
                   const double* __restrict__ ew_c, int R, int C, int W,
-                  int block_size, int n_steps, int rng_mode) {
+                  int block_size, int n_steps, int rng_mode, int lanes,
+                  int walkers_per_block, int resident) {
   // the tables with their compile-time counts: the slot (or neighbour)
   // count of the body and, without an Ewald term, no Ewald row
   Tables t = tables;
   Body::pin(t);
   t.RE = EW ? R : 0;
+  const int wpb = walkers_per_block;
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t rb = Body::bytes(t);
-  int8_t* s_occ = reinterpret_cast<int8_t*>(smem + 2 * rb);
+  int8_t* s_occ = reinterpret_cast<int8_t*>(smem + (resident ? (size_t)R : 2) * rb);
+  const int pitch = code_pitch(wpb);
 
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int w = blockIdx.x * nt + tid;
+  const int shift = __ffs(lanes) - 1;  // lanes is a power of two
+  const int wl = tid >> shift;         // the walker within the block
+  const int lane = tid & (lanes - 1);  // the lane within the walker
+  const unsigned group = lanes == 1 ? 1u : (1u << lanes) - 1u;
+  const unsigned mask = group << ((tid & 31) & ~(lanes - 1));  // the walker's lanes
+  const int w0 = blockIdx.x * wpb;
+  const int w = w0 + wl;
   const bool live = w < W;
-  const int wc = live ? w : W - 1;  // dead threads shadow the last walker
+  const int wc = live ? w : W - 1;  // dead walkers shadow the last one
 
-  for (int r = 0; r < R; ++r) {
-    s_occ[r * nt + tid] = occ[(size_t)r * W + wc];
+  for (int x = tid; x < R * wpb; x += nt) {
+    const int r = x / wpb;
+    const int c = x % wpb;
+    s_occ[r * pitch + c] = occ[(size_t)r * W + min(w0 + c, W - 1)];
   }
+  int8_t* codes = s_occ + wl;  // the walker's column of the codes
+
+  // the whole CUDA block lies in one sequence group (see the launcher)
+  const int grp = w0 / block_size;
+  const int32_t* my_seq = seq + (size_t)grp * seq_stride;
+  const Draws draws(*seed_ptr, grp, wc, block_size);
+
+  if (resident) {
+    for (int r = 0; r < R; ++r) Body::copy(smem + r * rb, r, t, tid, nt);
+  } else if (n_steps > 0) {
+    Body::copy(smem, __ldg(my_seq), t, tid, nt);
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
   typename Body::Walker wk;  // the Ising body's rank bits; nothing otherwise
-  wk.load(s_occ, R, nt, tid);
+  wk.load(s_occ, R, pitch, wl);
   double e = enthalpy[wc];
   const float b32 = beta[wc];
   int nacc = 0;
 
-  // the whole CUDA block lies in one sequence group (see the launcher)
-  const int grp = (blockIdx.x * nt) / block_size;
-  const int32_t* my_seq = seq + (size_t)grp * seq_stride;
-  const Draws draws(*seed_ptr, grp, wc, block_size);
-
-  if (n_steps > 0) Body::copy(smem, __ldg(my_seq), t, tid, nt);
-  __pipeline_wait_prior(0);
-  __syncthreads();
-
+  // what a step needs before its rows, drawn G steps at a time: lane j
+  // takes step i + j (its rank, the rank's other codes, r_j and log U), and
+  // step i reads them from lane i % G
+  int my_u = 0, my_nc = 1;
+  uint32_t my_rj = 0;
+  float my_logu = 0.0f;
   for (int i = 0; i < n_steps; ++i) {
-    const typename Body::Rows rows = Body::at(smem + (i & 1) * rb, t);
-    if (i + 1 < n_steps) {  // prefetch the next step's rows
+    if (!resident && i + 1 < n_steps) {  // prefetch the next step's rows
       Body::copy(smem + ((i + 1) & 1) * rb, __ldg(my_seq + i + 1), t, tid, nt);
     }
-    const int u = __ldg(my_seq + i);
-    int8_t* cell = s_occ + u * nt + tid;
-    const int a = *cell;
+    // a dead walker's lanes only copy rows and meet the block's barrier
+    if (live) {
+      const int slot = i & (lanes - 1);
+      if (slot == 0 && i + lane < n_steps) {
+        const uint2 bits = draws.at(i + lane, rng_mode);  // (r_u, r_j)
+        my_u = __ldg(my_seq + i + lane);
+        my_nc = max(__ldg(ncode + my_u) - 1, 1);
+        my_rj = bits.y;
+        my_logu = log_uniform(bits.x);
+      }
+      const int u = __shfl_sync(mask, my_u, slot, lanes);
+      const int nc = __shfl_sync(mask, my_nc, slot, lanes);
+      const uint32_t r_j = __shfl_sync(mask, my_rj, slot, lanes);
+      const float log_u = __shfl_sync(mask, my_logu, slot, lanes);
+      const typename Body::Rows rows =
+          Body::at(smem + (resident ? (size_t)u : (size_t)(i & 1)) * rb, t);
+      int8_t* cell = codes + u * pitch;
+      const int a = *cell;
+      const int j = (int)(r_j % (uint32_t)nc);
+      const int b = j + (j >= a ? 1 : 0);
 
-    const uint2 bits = draws.at(i, rng_mode);  // (r_u, r_j)
-    const int nc = max(__ldg(ncode + u) - 1, 1);
-    const int j = (int)(bits.y % (uint32_t)nc);
-    const int b = j + (j >= a ? 1 : 0);
-
-    const double dE = flip_delta<Body, EW>(rows, t, u, a, b, s_occ, nt, tid, R,
-                                           C, mu, ew_c, wk);
-
-    if (metropolis(b32, dE, bits.x)) {
-      *cell = (int8_t)b;
-      wk.set(u, b);
-      e += dE;
-      ++nacc;
+      const double dE = lane_flip_delta<Body, EW, kRowBatch>(
+          rows, t, u, a, b, codes, pitch, R, C, mu, ew_c, wk, lane, lanes, mask);
+      __syncwarp(mask);  // every lane has read the codes
+      // the Metropolis decision in f32, as metropolis() takes it
+      const float expo = -b32 * (float)dE;
+      if (expo >= 0.0f || expo > log_u) {
+        if (lane == 0) *cell = (int8_t)b;
+        wk.set(u, b);
+        e += dE;
+        ++nacc;
+      }
+      __syncwarp(mask);  // this step's write, before the next step's reads
     }
-    __pipeline_wait_prior(0);
-    __syncthreads();
+    if (!resident) {
+      __pipeline_wait_prior(0);
+      __syncthreads();
+    }
   }
 
-  if (live) {
-    for (int r = 0; r < R; ++r) {
-      occ[(size_t)r * W + w] = s_occ[r * nt + tid];
-    }
+  __syncthreads();
+  for (int x = tid; x < R * wpb; x += nt) {
+    const int r = x / wpb;
+    const int c = x % wpb;
+    if (w0 + c < W) occ[(size_t)r * W + w0 + c] = s_occ[r * pitch + c];
+  }
+  if (live && lane == 0) {
     enthalpy[w] = e;
     naccept[w] += nacc;
   }
@@ -184,8 +266,15 @@ extern "C" int smol_flip_chain(void* occ, void* enthalpy, void* naccept,
                                const void* iamp, const void* irows, int R,
                                int L, int K, int TM, int C, int W,
                                int block_size, int n_steps, int rng_mode, int q,
-                               int Lq, int NB, int Li, int NW, void* stream) {
-  const int threads = block_threads(W, block_size);
+                               int Lq, int NB, int Li, int NW, int lanes,
+                               int walkers_per_block, int resident, void* stream) {
+  const int threads = walkers_per_block * lanes;
+  const bool lanes_ok = lanes >= 1 && lanes <= 16 && (lanes & (lanes - 1)) == 0;
+  if (W < 1 || !lanes_ok || walkers_per_block < 1 || threads > kFlipThreads ||
+      (W > block_size && block_size % walkers_per_block) || resident < 0 ||
+      resident > 1) {
+    return (int)cudaErrorInvalidValue;
+  }
   const bool ew = ew_v != nullptr;
   const Tables t{(const int32_t*)nbr, (const int32_t*)stride, (const int32_t*)d2,
                  (const double*)g, (const double*)ew_v, (const int32_t*)qnbr,
@@ -198,15 +287,15 @@ extern "C" int smol_flip_chain(void* occ, void* enthalpy, void* naccept,
   const size_t rb = NW > 0   ? Ising<1>::bytes(t)
                     : q == 0 ? Direct<0>::bytes(t)
                              : Qary<2, 0>::bytes(t);
-  const size_t smem = 2 * rb + (size_t)R * threads;
+  const size_t smem = shared_bytes(rb, R, walkers_per_block, resident);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (W + threads - 1) / threads;
+  const int blocks = (W + walkers_per_block - 1) / walkers_per_block;
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (int8_t*)occ, (double*)enthalpy, (int32_t*)naccept, (const float*)beta,
       (const int32_t*)seq, seq_stride, (const int64_t*)seed, t,
       (const double*)mu, (const int32_t*)ncode, (const double*)ew_c, R, C, W,
-      block_size, n_steps, rng_mode);
+      block_size, n_steps, rng_mode, lanes, walkers_per_block, resident);
   return (int)cudaGetLastError();
 }
 

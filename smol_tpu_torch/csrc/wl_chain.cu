@@ -100,7 +100,6 @@ using namespace smol;
 constexpr int kFlip = 0;
 constexpr int kSwap = 1;
 constexpr int kWLThreads = 256;  // most threads of a block: walkers x lanes
-constexpr int kLaneBatch = 8;    // parity rows a lane loads before it sums them
 
 struct WLParams {
   int num_levels;     // B
@@ -118,16 +117,6 @@ __device__ __forceinline__ int wl_bin(double w, double bin_size, int B) {
   return q < 0.0 ? 0 : (q > (double)(B - 1) ? B - 1 : (int)q);
 }
 
-// Bytes of one rank-major row of the block's codes: one per walker, padded
-// so that the rows of different ranks start in different banks.
-__host__ __device__ __forceinline__ int code_pitch(int walkers_per_block) {
-  return (walkers_per_block + 3) / 4 * 4 + 4;
-}
-
-__host__ __device__ __forceinline__ size_t align16(size_t bytes) {
-  return (bytes + 15) / 16 * 16;
-}
-
 // The block's entropy in shared memory: [walkers_per_block][plane_pitch(B)].
 __host__ __device__ __forceinline__ int plane_pitch(int B) { return B | 1; }
 
@@ -143,132 +132,6 @@ size_t shared_bytes(size_t rb, int R, int row_sets, int B, int walkers_per_block
   return (resident ? (size_t)R : 2 * (size_t)row_sets) * rb +
          planes_bytes(B, walkers_per_block, planes) +
          align16((size_t)R * code_pitch(walkers_per_block));
-}
-
-// The lanes' partials meet: every lane ends with the sum, bit for bit the
-// same (f64 addition commutes).
-template <typename T>
-__device__ __forceinline__ T lane_sum(T x, unsigned mask, int lanes) {
-  for (int m = 1; m < lanes; m <<= 1) x += __shfl_xor_sync(mask, x, m);
-  return x;
-}
-
-// One lane's rows of a rank, for each body: rows lane, lane + lanes, ...
-// in row order.  The direct and q-ary bodies add their terms to `acc`
-// (kScaled false); the Ising body returns its rows' parity sum, which the
-// caller scales by -2 (b - a) after the lanes meet (kScaled true).
-template <class Body>
-struct Lanes;
-
-template <int KT>
-struct Lanes<Direct<KT>> {
-  static constexpr bool kScaled = false;
-  static __device__ __forceinline__ double add(double acc, const Rows& rows,
-                                               const Tables& t, int, const int8_t* codes,
-                                               int pitch, int a, int b, const NoWalker&,
-                                               int lane, int lanes) {
-    const int K = KT > 0 ? KT : t.K;
-#pragma unroll 1
-    for (int l = lane; l < t.L; l += lanes) {
-      const int d = rows.d2[l];
-      int x = d * a;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int n = rows.nbr[l * K + k];
-        const int code = n >= 0 ? (int)codes[n * pitch] : 0;
-        x += rows.st[l * K + k] * code;
-      }
-      const int xn = x + d * (b - a);
-      const double term = rows.g[l * t.TM + xn] - rows.g[l * t.TM + x];
-      acc += term;
-    }
-    return acc;
-  }
-};
-
-template <int Q, int NBT>
-struct Lanes<Qary<Q, NBT>> {
-  static constexpr bool kScaled = false;
-  static __device__ __forceinline__ double add(double acc, const QRows& r,
-                                               const Tables& t, int u, const int8_t* codes,
-                                               int pitch, int a, int b, const NoWalker&,
-                                               int lane, int lanes) {
-    const int NB = NBT > 0 ? NBT : t.NB;
-    const int n = __ldg(t.qrows + u);
-#pragma unroll 1
-    for (int l = lane; l < n; l += lanes) {
-      int ph = 0;
-#pragma unroll
-      for (int k = 0; k < NB; ++k) {
-        const int nb = r.nbr[l * NB + k];
-        const int code = nb >= 0 ? (int)codes[nb * pitch] : 0;
-        ph += r.freq[l * NB + k] * code;
-      }
-      const int m = r.ms[l];
-      const int wo = (ph + m * a) % Q;
-      const int wn = (ph + m * b) % Q;
-      double term = r.ac[l] * (double)(sigma_c<Q>(wn) - sigma_c<Q>(wo));
-      if constexpr (Q != 2) {
-        term += r.as[l] * (double)(sigma_s<Q>(wn) - sigma_s<Q>(wo));
-      }
-      acc += term;
-    }
-    return acc;
-  }
-};
-
-template <int NW>
-struct Lanes<Ising<NW>> {
-  static constexpr bool kScaled = true;
-  // The lane's parity sum from +0.0, in batches of kLaneBatch rows whose
-  // masks and amplitudes are all loaded before any is used (see
-  // ising_add); a row past the rank's count loads as mask 0 and amplitude
-  // +0.0 and adds +0.0, which leaves the sum (never -0.0) unchanged.
-  static __device__ __forceinline__ double sum(const IRows& r, const Tables& t, int u,
-                                               const Bits<NW>& bits, int lane, int lanes) {
-    const int n = __ldg(t.irows + u);
-    double s = 0.0;
-    for (int l0 = lane; l0 < n; l0 += kLaneBatch * lanes) {
-      uint64_t mask[kLaneBatch][NW];
-      double A[kLaneBatch];
-#pragma unroll
-      for (int j = 0; j < kLaneBatch; ++j) {
-        const int l = l0 + j * lanes;
-        const bool ok = l < n;
-#pragma unroll
-        for (int k = 0; k < NW; ++k) mask[j][k] = ok ? r.mask[l * NW + k] : 0ull;
-        A[j] = ok ? r.amp[l] : 0.0;
-      }
-      asm volatile("" ::: "memory");  // every load of the batch issued first
-#pragma unroll
-      for (int j = 0; j < kLaneBatch; ++j) s += ising_term<NW>(mask[j], A[j], bits);
-    }
-    return s;
-  }
-};
-
-// A flip's delta over the lanes: the body's rows, then the Ewald term (in
-// rank order, on every lane), then minus the chemical work; as flip_delta.
-template <class Body, bool EW>
-__device__ __forceinline__ double lane_flip_delta(
-    const typename Body::Rows& ru, const Tables& t, int u, int a, int b,
-    const int8_t* codes, int pitch, int R, int C, const double* __restrict__ mu,
-    const double* __restrict__ ew_c, const typename Body::Walker& wk, int lane,
-    int lanes, unsigned mask) {
-  using L = Lanes<Body>;
-  double dE;
-  if constexpr (L::kScaled) {
-    const double s = lane_sum(L::sum(ru, t, u, wk, lane, lanes), mask, lanes);
-    dE = 0.0 + (double)(-2 * (b - a)) * s;
-  } else {
-    dE = lane_sum(L::add(0.0, ru, t, u, codes, pitch, a, b, wk, lane, lanes), mask, lanes);
-  }
-  if constexpr (EW) {
-    dE += ewald_term(ru.ew, __ldg(ew_c + u), codes, pitch, 0, R, b - a);
-  }
-  const double work = __ldg(mu + u * C + b) - __ldg(mu + u * C + a);
-  dE -= work;
-  return dE;
 }
 
 // A swap's joint delta over the lanes, as swap_delta: u's rows going

@@ -34,8 +34,9 @@ _ptr, _i32, _f64, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.
 KERNELS = {
     # occ enthalpy naccept beta seq | seq_stride | seed nbr stride d2 g mu
     # ncode ew_v ew_c qnbr qfreq qms qac qas qrows imask iamp irows | R L K
-    # TM C W block_size n_steps rng_mode q Lq NB Li NW | stream
-    "flip_chain": [_ptr] * 5 + [_i32] + [_ptr] * 18 + [_i32] * 14 + [_ptr],
+    # TM C W block_size n_steps rng_mode q Lq NB Li NW lanes walkers_per_block
+    # resident | stream
+    "flip_chain": [_ptr] * 5 + [_i32] + [_ptr] * 18 + [_i32] * 17 + [_ptr],
     # occ enthalpy naccept nmove beta useq vseq | seq_stride | seed nbr
     # stride d2 g ew_v ew_c qnbr qfreq qms qac qas qrows imask iamp irows | R
     # L K TM W block_size n_steps rng_mode q Lq NB Li NW | stream

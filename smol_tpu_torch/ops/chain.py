@@ -101,7 +101,10 @@ __all__ = [
     "flip_step_reference",
     "flip_chain_reference",
     "flip_chain",
-    "chain_shared_bytes",
+    "FlipPlan",
+    "flip_lanes",
+    "flip_chain_shared_bytes",
+    "flip_launch_plan",
     "swap_step_reference",
     "swap_chain_reference",
     "swap_chain",
@@ -1151,19 +1154,20 @@ def _lower_margin(margin, expo, log_u, beta32, slack, decided):
     torch.minimum(margin, gap, out=margin)
 
 
-def flip_step_reference(tables: ChainTables, occ, u, r_u, r_j, beta32):
+def flip_step_reference(tables: ChainTables, occ, u, r_u, r_j, beta32, lanes=1):
     """One flip proposal for every walker, without applying it.
 
     ``occ`` [R, W] int8 codes, ``u`` [W] proposal ranks, ``r_u``/``r_j``
     [W] random bits, ``beta32`` [W] f32.  Returns ``(accept, b, dE, expo,
     log_u)``: the decision, the proposed codes, the f64 enthalpy change and
-    the f32 exponent and log uniform it was decided on.  dE sums the
-    clusters' terms in order l = 0 .. L-1 (with the q-ary body, the
-    character rows' terms in row order; with the Ising body, -2 (b - a)
+    the f32 exponent and log uniform it was decided on.  dE sums the body's
+    rows as the kernel's ``lanes`` lanes sum them (:func:`_body_delta`; at
+    one lane the clusters' terms in order l = 0 .. L-1, with the q-ary body
+    the character rows' terms in row order, with the Ising body -2 (b - a)
     times the parity rows' sum), then the Ewald term, then the chemical
     work, as the kernel does.
     """
-    _, b, dE = _flip_proposal(tables, occ, u.long(), r_j)
+    _, b, dE = _flip_proposal(tables, occ, u.long(), r_j, lanes)
     accept, expo, log_u = _metropolis(dE, r_u, beta32)
     return accept, b, dE, expo, log_u
 
@@ -1238,14 +1242,16 @@ def table_step_reference(tables: ChainTables, tm: TableMove, occ, d, ranks,
 
 
 def flip_chain_reference(occ, enthalpy, naccept, beta32, seq, seed, tables,
-                         n_steps, block_size, rng="philox", margin=None):
+                         n_steps, block_size, rng="philox", margin=None, lanes=1):
     """Plain torch twin of the CUDA flip-chain kernel (same arguments).
 
-    Updates ``occ``, ``enthalpy`` and ``naccept`` in place.  ``margin``, an
-    optional [W] f32 tensor, is lowered in place to each walker's closest
-    decision: the smallest |expo - log U| in f32 ulps of log U, which
-    bounds where another implementation's last-bit rounding could decide
-    otherwise.
+    Updates ``occ``, ``enthalpy`` and ``naccept`` in place.  Each delta
+    sums as the kernel's ``lanes`` lanes sum it (:func:`flip_chain` takes
+    the launch's, :func:`flip_lanes`; at one lane, the one-thread order).
+    ``margin``, an optional [W] f32 tensor, is lowered in place to each
+    walker's closest decision: the smallest |expo - log U| in f32 ulps of
+    log U, which bounds where another implementation's last-bit rounding
+    could decide otherwise.
     """
     W = occ.shape[1]
     walkers = torch.arange(W, device=occ.device)
@@ -1254,7 +1260,7 @@ def flip_chain_reference(occ, enthalpy, naccept, beta32, seq, seed, tables,
     for i in range(n_steps):
         u = seq[group, i].long()
         accept, b, dE, expo, log_u = flip_step_reference(
-            tables, occ, u, r_u[i], r_j[i], beta32
+            tables, occ, u, r_u[i], r_j[i], beta32, lanes
         )
         if margin is not None:
             _lower_margin(margin, expo, log_u, beta32, 0.0, torch.zeros_like(accept))
@@ -1427,7 +1433,7 @@ def _count_launch(kernel, tables):
 
 
 def flip_chain(occ, enthalpy, naccept, beta32, seq, seed, tables, n_steps,
-               block_size, rng="philox"):
+               block_size, rng="philox", _design=None):
     """Run ``n_steps`` shared-proposal flips on every walker, in place.
 
     Args:
@@ -1445,17 +1451,21 @@ def flip_chain(occ, enthalpy, naccept, beta32, seq, seed, tables, n_steps,
 
     A CUDA tensor launches the kernel (``flip_chain.launches`` counts the
     launches, ``flip_chain.qary_launches`` and ``flip_chain.ising_launches``
-    those with the q-ary and the Ising body); a CPU tensor runs
-    :func:`flip_chain_reference`.
+    those with the q-ary and the Ising body) as :func:`flip_launch_plan`
+    shapes it; a CPU tensor runs :func:`flip_chain_reference` at the lanes
+    the kernel would take (:func:`flip_lanes`).  ``_design`` (private;
+    None: ``_FLIP_DESIGN``) picks another launch for the A/B of
+    ``chip_smoke.py`` and the tests.
     """
     if occ.device.type == "cpu":
         _check_operands("flip_chain", occ, enthalpy, (naccept,), beta32, (seq,),
                         seed, tables, n_steps, block_size)
-        flip_chain_reference(occ, enthalpy, naccept, beta32, seq, seed,
-                             tables, n_steps, block_size, rng)
+        flip_chain_reference(occ, enthalpy, naccept, beta32, seq, seed, tables,
+                             n_steps, block_size, rng,
+                             lanes=flip_lanes(tables, occ.shape[1], _design))
         return
     ChainLaunches("flip", occ, enthalpy, (naccept,), beta32, (seq[None],),
-                  seed, tables, block_size, rng).launch(0, n_steps)
+                  seed, tables, block_size, rng, _design).launch(0, n_steps)
 
 
 flip_chain.launches = 0
@@ -1503,11 +1513,13 @@ class ChainLaunches:
     tensors only; the object holds every operand whose address the list
     carries, so none returns to the allocator while a launch may read it.
     Every launch counts on the wrapper (``launches``, and
-    ``qary_launches`` or ``ising_launches`` by the tables' body).
+    ``qary_launches`` or ``ising_launches`` by the tables' body).  The flip
+    kernel's launch is planned once here (:func:`flip_launch_plan` for the
+    sequences' steps, under ``design``), not per launch.
     """
 
     def __init__(self, move, occ, enthalpy, counts, beta32, seqs, seed, tables,
-                 block_size, rng):
+                 block_size, rng, design=None):
         self.kernel = flip_chain if move == "flip" else swap_chain
         name = self.kernel.__name__
         rows = tuple(s[0] for s in seqs)
@@ -1542,8 +1554,11 @@ class ChainLaunches:
             args.append(tables.mu.shape[1])
         args += [W, block_size]
         self.steps_slot = len(args)
-        args += [0, RNG_MODES[rng], *body_shape, stream]
-        self.args = args
+        args += [0, RNG_MODES[rng], *body_shape]
+        if move == "flip":
+            plan = flip_launch_plan(tables, W, block_size, seqs[0].shape[-1], design)
+            args += [plan.lanes, plan.walkers_per_block, int(plan.resident)]
+        self.args = args + [stream]
         self.tables = tables
         self.rows, self.max_steps = len(seed), seqs[0].shape[-1]
 
@@ -1597,11 +1612,108 @@ def _shared_bytes(tables, row_sets, W, block_size):
             + tables.num_ranks * _cuda_block_threads(W, block_size))
 
 
-def chain_shared_bytes(tables, move, W, block_size):
-    """Dynamic shared memory of one flip- or swap-chain launch, in bytes:
-    two buffers of the step's row sets (u's, and v's for a swap) and the
-    block's codes."""
-    return _shared_bytes(tables, 4 if move == "swap" else 2, W, block_size)
+# ---- the flip kernel's launch: lanes and resident rows ----
+
+LANE_BLOCK_THREADS = 256  # most threads of a lane kernel's block: walkers x lanes
+# a flip launch takes the fewest lanes that give it this many threads, by
+# site body (at 8192 walkers: 4 lanes for the direct body, 8 for K3 and
+# K1-Ising, the fastest of 1-16 on every cell of chip_smoke.py's flip_ab on
+# an H100, PERF.md)
+FLIP_LANE_THREADS = {"direct": 32768, "qary": 65536, "ising": 65536}
+FLIP_MAX_LANES = 16
+
+
+@dataclass(frozen=True)
+class _FlipDesign:
+    """How the flip kernel is launched: its threads per walker (None:
+    :func:`flip_lanes` of the launch) and whether every rank's rows stay in
+    shared memory (None: wherever they fit).  Private: the A/B of
+    ``chip_smoke.py`` and the tests choose one; users get the default."""
+
+    lanes: int | None = None
+    resident: bool | None = None
+
+
+_FLIP_DESIGN = _FlipDesign()
+
+
+@dataclass(frozen=True)
+class FlipPlan:
+    """One flip launch's shape: threads per walker, walkers per CUDA
+    block, whether every rank's rows are resident in shared memory, and its
+    dynamic shared memory in bytes."""
+
+    lanes: int
+    walkers_per_block: int
+    resident: bool
+    shared_bytes: int
+
+    def blocks(self, W: int) -> int:
+        return -(-W // self.walkers_per_block)
+
+
+def flip_lanes(tables, W, design=None):
+    """Threads per walker of a flip launch of ``W`` walkers on ``tables``:
+    the design's (None: ``_FLIP_DESIGN``), else the fewest (1, 2, 4, 8 or
+    16) that give the launch ``FLIP_LANE_THREADS`` threads for the tables'
+    site body.  The lanes set the order of the delta's sums, and the twin
+    takes the same lanes for the same launch."""
+    design = design or _FLIP_DESIGN
+    if design.lanes:
+        return design.lanes
+    lanes = 1
+    while lanes < FLIP_MAX_LANES and W * lanes < FLIP_LANE_THREADS[tables.delta]:
+        lanes *= 2
+    return lanes
+
+
+def _block_walkers(W, block_size, lanes):
+    """Walkers of one CUDA block of a lane kernel: at most 64 and
+    ``LANE_BLOCK_THREADS`` threads, and a block must lie inside one
+    sequence group of ``block_size`` walkers, since its threads share the
+    group's proposals."""
+    wb = min(64, LANE_BLOCK_THREADS // lanes)
+    return wb if W <= block_size or block_size % wb == 0 else gcd(block_size, wb)
+
+
+def flip_chain_shared_bytes(tables, walkers_per_block, resident):
+    """Dynamic shared memory of one flip launch, in bytes (``shared_bytes``
+    of flip_chain.cu): every rank's rows (``resident``) or two buffers of
+    one rank's, and the block's codes, one byte a walker at a padded pitch."""
+    row_sets = tables.num_ranks if resident else 2
+    pitch = -(-walkers_per_block // 4) * 4 + 4
+    return row_sets * _row_set_bytes(tables) + _align16(tables.num_ranks * pitch)
+
+
+def flip_launch_plan(tables, W, block_size, n_steps, design=None) -> FlipPlan:
+    """The flip launch of ``W`` walkers for ``n_steps`` steps, from shapes
+    only: the lanes of :func:`flip_lanes`, the walkers a block of
+    :func:`_block_walkers`, and every rank's rows resident where they
+    fit beside the codes and the launch runs at least one step a rank (so
+    that it copies no more rows than streaming them would: a 100-step
+    window resident, bench tempering's 10-step segments on Au-Cu 3x3x3's
+    27 ranks streamed, each the faster on an H100, PERF.md).  Raises where
+    even the streamed rows do not fit, or where the design (None:
+    ``_FLIP_DESIGN``) asks for what does not."""
+    design = design or _FLIP_DESIGN
+    lanes = flip_lanes(tables, W, design)
+    wpb = _block_walkers(W, block_size, lanes)
+
+    def fits(resident):
+        return flip_chain_shared_bytes(tables, wpb, resident) <= MAX_SHARED_BYTES
+
+    if design.resident is None:
+        resident = fits(True) and n_steps >= tables.num_ranks
+    else:
+        resident = design.resident
+    smem = flip_chain_shared_bytes(tables, wpb, resident)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"flip_chain needs {smem} bytes of shared memory per block ("
+            f"{'every rank' if resident else 'two buffers'} of {tables.delta} rows of "
+            f"{_row_set_bytes(tables)} B and {tables.num_ranks} ranks of codes for "
+            f"{wpb} walkers), above the card's {MAX_SHARED_BYTES}")
+    return FlipPlan(lanes, wpb, resident, smem)
 
 
 def table_chain_shared_bytes(tables, k_max, W, block_size):
@@ -1762,7 +1874,7 @@ def _lower_bin_margin(bin_margin, w, wl: WLChain, counts):
 
 # ---- the kernel's launch: lanes, resident rows and planes ----
 
-WL_THREADS = 256  # most threads of a Wang-Landau block: walkers x lanes (kWLThreads)
+WL_THREADS = LANE_BLOCK_THREADS  # most threads of a Wang-Landau block (kWLThreads)
 WL_LANE_THREADS = 32768  # a launch takes the fewest lanes that give it this many threads
 WL_MAX_LANES = 16
 WL_PLANES = ("global", "entropy")  # what the block keeps in shared memory
@@ -1822,8 +1934,7 @@ def wl_lanes(W, design=None):
 def wl_block_walkers(W, block_size, design=None):
     """Walkers of one CUDA block: a block must lie inside one sequence group
     of ``block_size`` walkers, since its threads share the group's proposals."""
-    wb = min(64, WL_THREADS // wl_lanes(W, design))
-    return wb if W <= block_size or block_size % wb == 0 else gcd(block_size, wb)
+    return _block_walkers(W, block_size, wl_lanes(W, design))
 
 
 def wl_chain_shared_bytes(tables, move, num_levels, walkers_per_block, resident, planes):

@@ -138,7 +138,8 @@ def _reference_draws(ref_tables, key, n_steps, W, block_size):
 
 def _port_with_margins(tables, occu, enthalpy, beta, seqs, seeds, n_steps,
                        block_size):
-    """Hash-mode twin chunk by chunk, with each walker's closest decision.
+    """Hash-mode twin chunk by chunk, with each walker's closest decision,
+    summing at the lanes the flip launch takes (``chain.flip_lanes``).
 
     Returns (occupancy, enthalpy, naccept, margin) where margin is the
     smallest |expo - log U| over the run, in f32 ulps of log U.
@@ -153,7 +154,7 @@ def _port_with_margins(tables, occu, enthalpy, beta, seqs, seeds, n_steps,
         chain.flip_chain_reference(
             occ, enthalpy, nacc, beta.to(torch.float32), torch.as_tensor(seqs[c]),
             torch.tensor([seed]), tables, min(chunk, n_steps - c * chunk),
-            block_size, "hash", margin=margin,
+            block_size, "hash", margin=margin, lanes=chain.flip_lanes(tables, W),
         )
     out = occu.clone()
     out[:, tables.rank_sites] = occ.T.to(out.dtype)

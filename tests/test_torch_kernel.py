@@ -12,7 +12,12 @@ enthalpies to 1e-9 absolute), including a partial CUDA block, sequence
 blocks smaller than a CUDA block, the main paths' launch shapes (8192
 walkers in blocks of 1024, or 512 for Au-Cu), the Ewald term (the flip
 kernel on the canonical spinel CE + Ewald too) and the general (runtime
-slot count) kernels; a refused operand raises before any launch.  So must
+slot count) kernels, the flip twin summing at the lanes of the kernel's
+launch; a refused operand raises before any launch.  The flip kernel at
+each launch design (1 to 16 lanes a walker, rows resident where they fit
+or streamed) must equal the twin at the same lanes bit for bit
+(enthalpies too) in every site body, with and without the Ewald term, and
+a plan that cannot fit raises before any launch.  So must
 both with K3's q-ary body: q = 3 on bench ``sgc`` (3x3x3, and 6x6x6 at the
 main path's launch shape) and the ternary CE's canonical swaps, q = 2 on
 Au-Cu, and the runtime neighbour count body; and the direct body on the
@@ -115,13 +120,21 @@ def _operands(card, cell, W, n_steps, block_size, move="flip", delta="direct"):
 STATE = ("occ", "enthalpy", "naccept", "nmove")
 
 
+def _twin_lanes(ops, twin):
+    """The flip twin sums at the lanes of the kernel's launch."""
+    if twin is not chain.flip_chain_reference:
+        return {}
+    return {"lanes": chain.flip_lanes(ops["tables"], ops["occ"].shape[1])}
+
+
 def _kernel_and_twin(ops, kernel, twin, rng, kernel_tables=None):
     """Run kernel and twin on copies of ``ops``; return both results."""
     outs = []
     for fn, tables in ((kernel, kernel_tables or ops["tables"]), (twin, ops["tables"])):
         run = {k: (v.clone() if k in STATE else v) for k, v in ops.items()}
         before = kernel.launches
-        fn(**{**run, "tables": tables}, rng=rng)
+        fn(**{**run, "tables": tables}, rng=rng,
+           **(_twin_lanes(ops, twin) if fn is twin else {}))
         torch.cuda.synchronize()
         assert kernel.launches - before == (1 if fn is kernel else 0)
         outs.append(run)
@@ -150,7 +163,7 @@ def test_kernel_matches_twin(card, rng, cell, W, block_size):
         run = {k: (v.clone() if k in ("occ", "enthalpy", "naccept") else v)
                for k, v in ops.items()}
         before = chain.flip_chain.launches
-        fn(**run, rng=rng)
+        fn(**run, rng=rng, **_twin_lanes(ops, fn))
         torch.cuda.synchronize()
         launched = chain.flip_chain.launches - before
         assert launched == (1 if fn is chain.flip_chain else 0)
@@ -177,7 +190,7 @@ def test_general_slot_count_matches_twin(card, rng):
     for fn, tables in ((chain.flip_chain, padded), (chain.flip_chain_reference, t)):
         run = {k: (v.clone() if k in ("occ", "enthalpy", "naccept") else v)
                for k, v in ops.items()}
-        fn(**{**run, "tables": tables}, rng=rng)
+        fn(**{**run, "tables": tables}, rng=rng, **_twin_lanes(ops, fn))
         outs.append(run)
     torch.cuda.synchronize()
     kernel, twin = outs
@@ -931,3 +944,74 @@ def test_qary_q4_and_ewald_match_twin(card, rng, cell, move, q):
                           "swap": (chain.swap_chain, chain.swap_chain_reference)}[move]
     kernel, twin = _kernel_and_twin(ops, kernel_fn, twin_fn, rng)
     _assert_same(kernel, twin, 400)
+
+
+# ---------------- K1's launch: lanes and resident rows ----------------
+
+FLIP_DESIGNS = {  # threads a walker, every rank's rows resident (None: where they fit)
+    "G1-streamed": chain._FlipDesign(lanes=1, resident=False),
+    "G2-fit": chain._FlipDesign(lanes=2),
+    "G4-streamed": chain._FlipDesign(lanes=4, resident=False),
+    "G8-fit": chain._FlipDesign(lanes=8),
+    "G16-fit": chain._FlipDesign(lanes=16),
+    "G16-streamed": chain._FlipDesign(lanes=16, resident=False),
+}
+FLIP_BODY_CELLS = [  # (cell, site body): every body, with and without the Ewald term
+    ("spinel_2x2x2", "ising"),  # K1-Ising, one word, rows fit
+    ("spinel_3x3x3", "ising"),  # three words, rows streamed
+    ("spinel_ewald_2x2x2", "ising"),  # with the Ewald term
+    ("spinel_ewald_2x2x2", "qary"),  # K3, q = 2 with the Ewald term
+    ("spinel_ewald_2x2x2", "direct"),  # the direct body with the Ewald term
+    ("sgc_3x3x3", "qary"),  # K3, q = 3
+    ("sgc_3x3x3", "direct"),  # the direct body, TM = 27
+    ("rocksalt_q4_2x2x2", "qary"),  # K3, q = 4
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+@pytest.mark.parametrize("design", sorted(FLIP_DESIGNS))
+@pytest.mark.parametrize("cell,delta", FLIP_BODY_CELLS)
+def test_flip_kernel_designs_match_twin(card, rng, design, cell, delta):
+    """Each launch design of K1 (1 to 16 lanes a walker, rows resident
+    where they fit or streamed) equals the twin summing in its lanes'
+    order, bit for bit: occupancies, accept counts and enthalpies."""
+    ops = _operands(card, cell, 256, 300, 64, delta=delta)
+    assert ops["tables"].delta == delta
+    d = FLIP_DESIGNS[design]
+    kernel = {k: (v.clone() if k in STATE else v) for k, v in ops.items()}
+    twin = {k: (v.clone() if k in STATE else v) for k, v in ops.items()}
+    before = chain.flip_chain.launches
+    chain.flip_chain(**kernel, rng=rng, _design=d)
+    chain.flip_chain_reference(**twin, rng=rng, lanes=d.lanes)
+    torch.cuda.synchronize()
+    assert chain.flip_chain.launches - before == 1
+    for key in ("occ", "naccept", "enthalpy"):
+        assert torch.equal(kernel[key], twin[key]), key
+    assert 0 < float(kernel["naccept"].double().mean()) < 300
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["G2-fit", "G16-streamed"])
+def test_flip_kernel_partial_block_designs_match_twin(card, design):
+    """A partial CUDA block and sequence blocks of 8 walkers (blocks of 8
+    walkers), at two designs."""
+    ops = _operands(card, "aucu_pt_3x3x3", 200, 300, 8, delta="ising")
+    d = FLIP_DESIGNS[design]
+    kernel = {k: (v.clone() if k in STATE else v) for k, v in ops.items()}
+    twin = {k: (v.clone() if k in STATE else v) for k, v in ops.items()}
+    chain.flip_chain(**kernel, rng="philox", _design=d)
+    chain.flip_chain_reference(**twin, rng="philox", lanes=d.lanes)
+    torch.cuda.synchronize()
+    for key in ("occ", "naccept", "enthalpy"):
+        assert torch.equal(kernel[key], twin[key]), key
+
+
+@pytest.mark.cuda
+def test_flip_kernel_refuses_a_plan_that_does_not_fit(card):
+    """Rows asked resident where they do not fit raise before any launch."""
+    ops = _operands(card, "sgc_6x6x6", 8192, 10, 1024, delta="direct")
+    before = chain.flip_chain.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        chain.flip_chain(**ops, _design=chain._FlipDesign(resident=True))
+    assert chain.flip_chain.launches == before
