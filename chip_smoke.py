@@ -95,7 +95,17 @@ printing its last line when any phase fails:
    at its plan against the twin at the plan's lanes); and bench
    ``spinel-independent``'s sweep schedule (``proposal_mode="sweep"``)
    through ``make_shared_proposal_chain`` against the twin on the same
-   schedule, bit for bit, in both RNG modes.  The site bodies of the table chain: K1-Ising on both
+   schedule, bit for bit, in both RNG modes.  K2 and K5 likewise at every
+   launch design, 1 to 16 lanes with every rank's rows resident (where
+   they fit) and streamed and, with the Ewald term, K4 in rank order on
+   every lane and split over the lanes, against the twin in the same
+   order bit for bit (occupancies, accept and move counts, enthalpies)
+   with compositions and net charges kept, in both RNG modes: the swap
+   chain on the spinel CE + Ewald 2x2x2 (K1-Ising, direct, K3) and 3x3x3
+   (K1-Ising, direct), Au-Cu 4x4x4 (K1-Ising, direct) and the ternary
+   3x3x3 (K3), the table chain on the spinel CE + Ewald sgc 2x2x2
+   (K1-Ising, direct, K3) and 3x3x3 (K1-Ising, direct) and the
+   Li/Mn/vacancy, O/F rocksalt (three slots).  The site bodies of the table chain: K1-Ising on both
    semigrand spinel CE + Ewald cells and K3 (q = 2, Ewald) on 2x2x2, in
    both RNG modes, each body across the chunk boundary; of the
    Wang-Landau chain: every comparison above once more with K1-Ising
@@ -224,7 +234,10 @@ printing its last line when any phase fails:
    streamed against resident where they fit, and on Au-Cu 3x3x3 the same
    on ten 10-step segments in a CUDA graph, as the tempering path issues
    them (against the parent commit's kernel, see
-   ``scripts/time_chain_windows.py``).
+   ``scripts/time_chain_windows.py``).  K2's and K5's (``lane_ab``) on
+   the same swap and table cells as phase 3's (not the rocksalt): 1, 2,
+   4, 8 and 16 lanes, streamed against resident rows, and K4 in rank
+   order against split, at the plan's lanes and at the fastest.
    K3 against the direct body on the same cells, in turns (direct, q-ary,
    q-ary, direct): the flip chain on ``sgc`` 6x6x6, the swap chain on the
    ternary CE 3x3x3; K3's operations are counted from the character rows
@@ -243,10 +256,10 @@ printing its last line when any phase fails:
 The line before the last is a JSON summary of the kernels, each chain once
 for each site body: an entry's launches are the main paths' launches of
 that (kernel, body) pair, its times that pair's on a cell where a main
-path ran it, and a pair no main path launched fails the run; the flip
-kernel's entries carry its launch plan on each main path's cell
-(``plan``).  The last
-line is ``{"ok": true, "device": {...}}``.
+path ran it, and a pair no main path launched fails the run; the flip,
+swap and table kernels' entries carry their launch plan on each main
+path's cell (``plan``).  The last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -383,6 +396,28 @@ FLIP_AB_CELLS = (  # phase 5's sweep: (stem, site body, temperature)
     ("rocksalt_q4_2x2x2", "qary", TEMPERATURE), ("spinel_2x2x2", "ising", TEMPERATURE),
     ("spinel_3x3x3", "ising", TEMPERATURE), (PT_CELL, "ising", PT_TEMPERATURE),
     (PT_CELL, "direct", PT_TEMPERATURE),
+)
+# K2's and K5's launch designs (phase 3 holds each against the twin in its
+# order, phase 5 times them in turns: swap_ab, table_ab): (stem, site body,
+# sequence block, temperature) of every swap and table cell with each body
+# of its main paths and K3; the rocksalt's three-slot moves in phase 3 only
+SWAP_LANE_CELLS = (
+    ("spinel_ewald_2x2x2", "ising", BLOCK, TEMPERATURE),  # rows fit
+    ("spinel_ewald_2x2x2", "direct", BLOCK, TEMPERATURE),
+    ("spinel_ewald_2x2x2", "qary", BLOCK, TEMPERATURE),  # K3, q = 2 with Ewald
+    ("spinel_ewald_3x3x3", "ising", BLOCK, TEMPERATURE),  # three words, streamed
+    ("spinel_ewald_3x3x3", "direct", BLOCK, TEMPERATURE),
+    ("aucu_4x4x4", "ising", 512, 300.0),  # no Ewald term; rows fit (two waves)
+    ("aucu_4x4x4", "direct", 512, 300.0),
+    (TERNARY_CELL, "qary", BLOCK, SGC_TEMPERATURE),  # K3, q = 3
+)
+TABLE_LANE_CELLS = (
+    ("spinel_ewald_sgc_2x2x2", "ising", BLOCK, TEMPERATURE),  # rows fit
+    ("spinel_ewald_sgc_2x2x2", "direct", BLOCK, TEMPERATURE),
+    ("spinel_ewald_sgc_2x2x2", "qary", BLOCK, TEMPERATURE),  # rows fit (two waves)
+    ("spinel_ewald_sgc_3x3x3", "ising", BLOCK, TEMPERATURE),
+    ("spinel_ewald_sgc_3x3x3", "direct", BLOCK, TEMPERATURE),
+    (MULTI_SLOT_CELL, "direct", BLOCK, TEMPERATURE),  # the runtime slot count
 )
 SEEDS = (("hash", 987654321), ("philox", 0x2545F4914F6CDD1D))
 T_START = time.perf_counter()  # the script's start, for the phase 3 lines
@@ -592,11 +627,6 @@ def compare(label, kernel, twin, margin, n_steps, invariant=None, start=None):
     return err
 
 
-def twin_lanes(move, tables, W):
-    """The flip twin sums at the lanes of the kernel's launch."""
-    return {"lanes": chain.flip_lanes(tables, W)} if move == "flip" else {}
-
-
 def body_label(tables):
     """The site body of ``tables`` as the execution path names it."""
     return f"qary{tables.qary}" if tables.qary else tables.delta
@@ -614,7 +644,7 @@ def window_vs_twin(ensemble, name, move, block, rng, seed, delta="direct",
     t = fresh(ops)
     margin = torch.full((WALKERS,), float("inf"), device=ensemble.device)
     kernel_fn(**k, rng=rng)
-    twin_fn(**t, rng=rng, margin=margin, **twin_lanes(move, tables, WALKERS))
+    twin_fn(**t, rng=rng, margin=margin, **chain.twin_order(move, tables, WALKERS))
     torch.cuda.synchronize()
     ewald = "+ewald" if tables.has_ewald else ""
     invariant = invariant_of(move, tables, ensemble)
@@ -682,7 +712,7 @@ def chunked_hash_vs_twin(ensemble, name, move, block, delta="direct"):
         rows = dict(zip(SEQUENCES[move], (s[c] for s in seqs)))
         twin_fn(**twin, **rows, n_steps=min(chunk, n_steps - c * chunk),
                 seed=torch.tensor([seed], dtype=torch.int64, device=device),
-                rng="hash", margin=margin, **twin_lanes(move, tables, WALKERS))
+                rng="hash", margin=margin, **chain.twin_order(move, tables, WALKERS))
     torch.cuda.synchronize()
     kernel = {"occ": state["occupancy"][:, tables.rank_sites].T.to(torch.int8),
               "enthalpy": state["enthalpy"], "naccept": state["naccept"]}
@@ -741,23 +771,30 @@ def padded_slots(tables):
         stride=torch.nn.functional.pad(tables.stride, (0, 1), value=0).contiguous())
 
 
-def flip_plan_label(tables, W=WALKERS, block=BLOCK, n_steps=THIN, design=None):
-    """The launch K1 takes under ``design``: lanes, blocks, rows."""
-    plan = chain.flip_launch_plan(tables, W, block, n_steps, design)
+def plan_label(tables, W=WALKERS, block=BLOCK, n_steps=THIN, design=None,
+                    move="flip", k_max=2):
+    """The launch K1 (or K2, K5: ``move``) takes under ``design``: lanes,
+    blocks, rows, and for K2 and K5 with the Ewald term where K4 runs."""
+    plan = chain.launch_plan(move, tables, W, block, n_steps, k_max, design)
+    ewald = ""
+    if move != "flip" and tables.has_ewald:
+        ewald = f", K4 {'split over the lanes' if plan.split_ewald else 'in rank order'}"
     return (f"G={plan.lanes}, {plan.blocks(W)} blocks of {plan.walkers_per_block} walkers, "
             f"rows {'resident' if plan.resident else 'streamed'}, {plan.shared_bytes} B "
-            f"of shared memory a block")
+            f"of shared memory a block{ewald}")
 
 
-def flip_designs(tables, W=WALKERS, block=BLOCK):
-    """K1's designs for a launch: every lane count, with the rows resident
-    (where they fit) and streamed."""
+def lane_designs(tables, W=WALKERS, block=BLOCK, move="flip", k_max=2):
+    """K1's (or K2's, K5's) designs for a launch: every lane count, with
+    the rows resident (where they fit) and streamed, and for K2 and K5 with
+    the Ewald term above one lane K4 in rank order and split."""
     designs = []
     for lanes in FLIP_LANES:
         wpb = chain._block_walkers(W, block, lanes)
-        fits = chain.flip_chain_shared_bytes(tables, wpb, True) <= chain.MAX_SHARED_BYTES
-        designs += [chain._FlipDesign(lanes=lanes, resident=r) for r in (True, False)
-                    if fits or not r]
+        fits = chain.chain_shared_bytes(move, tables, wpb, True, k_max) <= chain.MAX_SHARED_BYTES
+        splits = (False, True) if move != "flip" and tables.has_ewald and lanes > 1 else (None,)
+        designs += [chain._LaneDesign(lanes=lanes, resident=r, split_ewald=x)
+                    for r in (True, False) if fits or not r for x in splits]
     return designs
 
 
@@ -771,7 +808,7 @@ def flip_designs_vs_twin(ensemble, name, delta, temperature, padded, rng, seed):
     ops = window_operands(ensemble, tables, "flip", BLOCK, occ_seed=7, seq_seed=17,
                           temperature=temperature)
     ops["seed"] = torch.tensor([seed], dtype=torch.int64, device=ensemble.device)
-    twins, designs = {}, flip_designs(tables)
+    twins, designs = {}, lane_designs(tables)
     for design in designs:
         if design.lanes not in twins:
             twins[design.lanes] = fresh(ops)
@@ -792,7 +829,50 @@ def flip_designs_vs_twin(ensemble, name, delta, temperature, padded, rng, seed):
           f"bit on all {WALKERS} walkers at G = {sorted(twins)}, "
           f"{sum(d.resident for d in designs)} resident and "
           f"{sum(not d.resident for d in designs)} streamed launches; acceptance "
-          f"{accept:.4f}; the plan: {flip_plan_label(tables)}")
+          f"{accept:.4f}; the plan: {plan_label(tables)}")
+    return 0.0
+
+
+def lane_designs_vs_twin(ensemble, name, move, delta, block, temperature, rng, seed):
+    """Phase 3: K2 or K5 (``move``) at every lane count, both row plans and,
+    with the Ewald term, K4 in rank order and split, against the twin in
+    the same order, bit for bit (occupancies, accept and move counts,
+    enthalpies), on one main-path window; compositions (swaps) and net
+    charges (table moves) kept."""
+    tables = tables_of(ensemble, move, delta)
+    ops = window_operands(ensemble, tables, move, block, occ_seed=7, seq_seed=17,
+                          temperature=temperature)
+    ops["seed"] = torch.tensor([seed], dtype=torch.int64, device=ensemble.device)
+    kernel_fn, twin_fn = KERNELS[move]
+    k_max = ops["table_move"].k_max if move == "table" else 2
+    invariant = invariant_of(move, tables, ensemble)
+    start = invariant(ops["occ"])
+    twins, designs = {}, lane_designs(tables, block=block, move=move, k_max=k_max)
+    for design in designs:
+        order = chain.twin_order(move, tables, WALKERS, design)
+        key = tuple(order.values())
+        if key not in twins:
+            twins[key] = fresh(ops)
+            twin_fn(**twins[key], rng=rng, **order)
+        k = fresh(ops)
+        kernel_fn(**k, rng=rng, _design=design)
+        torch.cuda.synchronize()
+        for name_ in ("occ", "naccept", "nmove", "enthalpy"):
+            if name_ in k:
+                check(torch.equal(k[name_], twins[key][name_]),
+                      f"{move} {name} {delta} {rng} {design}: {name_} differs from the twin's")
+        check(torch.equal(invariant(k["occ"]), start),
+              f"{move} {name} {delta} {rng} {design}: a composition or net charge changed")
+    accept = float(k["naccept"].double().mean()) / THIN
+    check(0.0 < accept < 1.0, f"{move} {name} {delta}: acceptance {accept}")
+    ewald = "+ewald" if tables.has_ewald else ""
+    print(f"phase 3 [{move}{ewald}+{body_label(tables)} {name} {rng} seed {seed:#x}, every "
+          f"design] at {time.perf_counter() - T_START:.1f} s: kernel == twin bit for bit on "
+          f"all {WALKERS} walkers at (G, K4 split) = {sorted(twins)}, "
+          f"{sum(d.resident for d in designs)} resident and "
+          f"{sum(not d.resident for d in designs)} streamed launches; acceptance "
+          f"{accept:.4f}; the plan: "
+          f"{plan_label(tables, block=block, move=move, k_max=k_max)}")
     return 0.0
 
 
@@ -836,7 +916,7 @@ def sweep_vs_twin(ensemble, name, rng, seed):
     print(f"phase 3 [flip+{body_label(tables)} {name} sweep schedule, {rng} seed {seed:#x}] "
           f"at {time.perf_counter() - T_START:.1f} s: make_shared_proposal_chain(proposal_mode"
           f"=\"sweep\") == twin bit for bit on all {WALKERS} walkers, acceptance "
-          f"{accept:.4f}; {flip_plan_label(tables)}")
+          f"{accept:.4f}; {plan_label(tables)}")
     return 0.0
 
 
@@ -2325,24 +2405,25 @@ def wl_ab(card, wl_runs, reps=10):
     return results
 
 
-def flip_design_name(design):
-    """A K1 launch design's label."""
+def lane_design_name(design):
+    """A K1, K2 or K5 launch design's label."""
     rows = {None: "rows fit", True: "rows resident", False: "rows streamed"}[design.resident]
-    return f"G={design.lanes or 'rule'} {rows}"
+    split = {None: "", True: " K4 split", False: " K4 ranked"}[design.split_ewald]
+    return f"G={design.lanes or 'rule'} {rows}{split}"
 
 
-def flip_in_turns(label, card, time_fn, designs):
-    """K1's designs timed in turns, first to last and back (a, b, ..., b,
-    a): each design's time the mean of its two turns.  Returns {design:
-    ms}."""
+def lanes_in_turns(label, card, time_fn, designs):
+    """K1's, K2's or K5's designs timed in turns, first to last and back
+    (a, b, ..., b, a): each design's time the mean of its two turns.
+    Returns {design: ms}."""
     turns = {design: [] for design in designs}
     for design in (*designs, *reversed(designs)):
         turns[design].append(time_fn(design))
     means = {design: sum(t) / 2 for design, t in turns.items()}
     best = min(means, key=means.get)
-    parts = "; ".join(f"{flip_design_name(d)} {means[d]:.4f} ms ({t[0]:.4f}, {t[1]:.4f})"
+    parts = "; ".join(f"{lane_design_name(d)} {means[d]:.4f} ms ({t[0]:.4f}, {t[1]:.4f})"
                       for d, t in turns.items())
-    print(f"phase 5 [flip A/B {label}] {card}: {parts}; fastest {flip_design_name(best)}, "
+    print(f"phase 5 [lane A/B {label}] {card}: {parts}; fastest {lane_design_name(best)}, "
           f"{max(means.values()) / means[best]:.3f}x the slowest")
     return means
 
@@ -2372,15 +2453,15 @@ def flip_ab(card, cells, reps=10):
             run = functools.partial(chain.flip_chain, _design=design)
             return cuda_ms(same_window(run, ops, reps), reps)
 
-        fits = any(d.resident for d in flip_designs(tables))
-        r = {"plan": flip_plan_label(tables)}
-        r["lanes"] = flip_in_turns(f"1, lanes: {cell}, 100 steps ({r['plan']})", card, window,
+        fits = any(d.resident for d in lane_designs(tables))
+        r = {"plan": plan_label(tables)}
+        r["lanes"] = lanes_in_turns(f"1, lanes: {cell}, 100 steps ({r['plan']})", card, window,
                                    [chain._FlipDesign(lanes=g, resident=plan.resident)
                                     for g in FLIP_LANES])
         if fits:
             fastest = min(r["lanes"], key=r["lanes"].get).lanes
             for g in sorted({plan.lanes, fastest}):
-                r[f"resident G={g}"] = flip_in_turns(
+                r[f"resident G={g}"] = lanes_in_turns(
                     f"2, rows at G={g}: {cell}, 100 steps", card, window,
                     [chain._FlipDesign(lanes=g, resident=False),
                      chain._FlipDesign(lanes=g, resident=True)])
@@ -2400,14 +2481,62 @@ def flip_ab(card, cells, reps=10):
                 return graph_ms(capture, reps) / segments
 
             seg_plan = chain.flip_launch_plan(tables, WALKERS, BLOCK, PT_PERIOD)
-            r["segment lanes"] = flip_in_turns(
+            r["segment lanes"] = lanes_in_turns(
                 f"3, lanes: {cell}, {PT_PERIOD}-step segments, per segment", card, segment,
                 [chain._FlipDesign(lanes=g, resident=seg_plan.resident) for g in FLIP_LANES])
             if fits:
-                r["segment resident"] = flip_in_turns(
+                r["segment resident"] = lanes_in_turns(
                     f"3, rows at G={seg_plan.lanes}: {cell}, {PT_PERIOD}-step segments", card,
                     segment, [chain._FlipDesign(lanes=seg_plan.lanes, resident=False),
                               chain._FlipDesign(lanes=seg_plan.lanes, resident=True)])
+        results[cell] = r
+    return results
+
+
+def lane_ab(card, move, cells, reps=10):
+    """Phase 5: K2's or K5's (``move``) design in turns on copies of one
+    starting state, on each cell of ``cells`` ((stem, site body, block,
+    temperature, ensemble)) at 8192 walkers, a 100-step window: (1) G = 1,
+    2, 4, 8 and 16 lanes, rows and K4 as the plan takes them; (2) streamed
+    against resident rows, where they fit, at the plan's lanes and at the
+    fastest of (1); (3) with the Ewald term, K4 in rank order on every lane
+    against split over the lanes, at the plan's lanes and at the fastest of
+    (1).  The launch the plan takes is the default; the parent commit's
+    kernel is timed against it by ``scripts/time_chain_windows.py``."""
+    results = {}
+    kernel_fn = KERNELS[move][0]
+    for stem, delta, block, temperature, ens in cells:
+        tables = tables_of(ens, move, delta)
+        cell = f"{move}+{body_label(tables)} {stem}"
+        ops = window_operands(ens, tables, move, block, occ_seed=5, seq_seed=1,
+                              temperature=temperature)
+        ops["seed"] = torch.tensor([42], dtype=torch.int64, device=ens.device)
+        k_max = ops["table_move"].k_max if move == "table" else 2
+        plan = chain.launch_plan(move, tables, WALKERS, block, THIN, k_max)
+
+        def window(design):
+            run = functools.partial(kernel_fn, _design=design)
+            return cuda_ms(same_window(run, ops, reps), reps)
+
+        label = plan_label(tables, block=block, move=move, k_max=k_max)
+        r = {"plan": label}
+        r["lanes"] = lanes_in_turns(
+            f"1, lanes: {cell}, 100 steps ({label})", card, window,
+            [chain._LaneDesign(lanes=g, resident=plan.resident, split_ewald=plan.split_ewald)
+             for g in FLIP_LANES])
+        fastest = min(r["lanes"], key=r["lanes"].get).lanes
+        if any(d.resident for d in lane_designs(tables, block=block, move=move, k_max=k_max)):
+            for g in sorted({plan.lanes, fastest}):
+                r[f"resident G={g}"] = lanes_in_turns(
+                    f"2, rows at G={g}: {cell}, 100 steps", card, window,
+                    [chain._LaneDesign(lanes=g, resident=x, split_ewald=plan.split_ewald)
+                     for x in (False, True)])
+        if tables.has_ewald:
+            for g in sorted({plan.lanes, fastest}):
+                r[f"split G={g}"] = lanes_in_turns(
+                    f"3, K4 at G={g}: {cell}, 100 steps", card, window,
+                    [chain._LaneDesign(lanes=g, resident=plan.resident, split_ewald=x)
+                     for x in (False, True)])
         results[cell] = r
     return results
 
@@ -2608,7 +2737,7 @@ def main():
     sgc, ternary, aucu = (load(stem)[0] for stem in (SGC_CELL, TERNARY_CELL, QARY2_CELL))
     for delta in ("direct", "qary"):  # the bodies sgc's ternary tables take
         print(f"phase 2: {SGC_CELL} flip launch, {delta} body: "
-              f"{flip_plan_label(tables_of(sgc, 'flip', delta))}")
+              f"{plan_label(tables_of(sgc, 'flip', delta))}")
 
     # phase 3: kernels against twins at the main paths' shapes
     flips = {stem: load(stem)[0] for stem in FLIP_CELLS}
@@ -2706,6 +2835,17 @@ def main():
     errs["table"].append(window_vs_twin(load(MULTI_SLOT_CELL)[0], MULTI_SLOT_CELL,
                                         "table", BLOCK, *SEEDS[1]))
     print(f"phase 3: the table comparisons took {time.perf_counter() - t0:.1f} s")
+    # K2 and K5 at every lane count, row plan and K4 split, each body, both
+    # RNG modes
+    t0 = time.perf_counter()
+    lane_cells = {stem: load(stem)[0] for stem, *_ in (*SWAP_LANE_CELLS, *TABLE_LANE_CELLS)}
+    for move, cells in (("swap", SWAP_LANE_CELLS), ("table", TABLE_LANE_CELLS)):
+        for stem, delta, block, temperature in cells:
+            key = move if delta == "direct" else f"table+{delta}" if move == "table" else delta
+            for rng, seed in SEEDS:
+                errs[key].append(lane_designs_vs_twin(lane_cells[stem], stem, move, delta,
+                                                      block, temperature, rng, seed))
+    print(f"phase 3: K2's and K5's designs took {time.perf_counter() - t0:.1f} s")
     # the Wang-Landau chain: both moves, both RNG modes, a chunk boundary,
     # update_period = 3, the Ewald instantiation and the main path's own
     # launch, with the direct body and with K1-Ising; K3 (q = 3) on the
@@ -2837,6 +2977,9 @@ def main():
     distance_ab(card, procs8, fcc64)
     wl_ab(card, wl_runs)
     flip_ab(card, flip_cells)
+    lane_ab(card, "swap", [(*c, lane_cells[c[0]]) for c in SWAP_LANE_CELLS])
+    lane_ab(card, "table", [(*c, lane_cells[c[0]]) for c in TABLE_LANE_CELLS
+                            if c[0] != MULTI_SLOT_CELL])
 
     def in_turns(label, time_fn, bodies):
         """Two bodies timed in turns (a, b, b, a): the twin on the first turn
@@ -2932,9 +3075,16 @@ def main():
     def flip_plans(delta, cells):
         """K1's launch plan on each main path's cell of a body: its 100-step
         windows and, on the tempering cell, its 10-step segments."""
-        return {stem: flip_plan_label(tables_of(ens, "flip", delta),
+        return {stem: plan_label(tables_of(ens, "flip", delta),
                                       n_steps=PT_PERIOD if stem == PT_CELL else THIN)
                 for stem, ens in cells.items()}
+
+    def lane_plans(move, delta, cells):
+        """K2's or K5's launch plan on each main path's cell of a body."""
+        return {stem: plan_label(
+            tables_of(ens, move, delta), move=move,
+            block=SWAP_CELLS[stem][1] if move == "swap" else BLOCK)
+            for stem, ens in cells.items()}
 
     # each entry's launches are those of its (kernel, body) pair on the main
     # paths, its times that pair's on a cell where a main path ran it
@@ -2947,13 +3097,18 @@ def main():
               f"{ref}:1545", launches[("flip", "direct")], "flip",
               flip_plans("direct", {SGC_CELL: sgc, PT_CELL: ising_cells[PT_CELL]})),
         entry("swap_chain (direct body)", ("swap+direct", "aucu_4x4x4"), swap_src,
-              f"{ref}:1817", launches[("swap", "direct")], "swap"),
+              f"{ref}:1817", launches[("swap", "direct")], "swap",
+              lane_plans("swap", "direct", {"aucu_4x4x4": swaps["aucu_4x4x4"]})),
         entry("table_chain (direct body)", ("table+direct", "spinel_ewald_sgc_2x2x2"),
-              table_src, f"{ref}:1701", launches[("table", "direct")], "table"),
+              table_src, f"{ref}:1701", launches[("table", "direct")], "table",
+              lane_plans("table", "direct", table_cells)),
         entry("table_chain (K1-Ising body)", ("table+ising", "spinel_ewald_sgc_2x2x2"),
-              table_src, f"{ref}:1754", launches[("table", "ising")], "table+ising"),
+              table_src, f"{ref}:1754", launches[("table", "ising")], "table+ising",
+              lane_plans("table", "ising", table_cells)),
         entry("table_chain (K3 body, q = 2, Ewald)", ("table+qary", "spinel_ewald_sgc_2x2x2"),
-              table_src, f"{ref}:1754", launches[("table", "qary")], "table+qary"),
+              table_src, f"{ref}:1754", launches[("table", "qary")], "table+qary",
+              lane_plans("table", "qary", {"spinel_ewald_sgc_2x2x2":
+                                           table_cells["spinel_ewald_sgc_2x2x2"]})),
         entry("wl_chain (direct body)", ("wl-flip+direct", "aucu_wl_3x3x3"), wl_src,
               f"{ref}:1866", launches[("wl", "direct")], "wl"),
         entry("wl_chain (K1-Ising body)", ("wl-flip+ising", "aucu_wl_3x3x3"), wl_src,
@@ -2971,12 +3126,14 @@ def main():
               flip_plans("qary", {Q4_CELL: q4})),
         entry("qary_body (K3, q = 2 with Ewald, in swap_chain)",
               ("swap+qary", EWALD_QARY_CELL), body_src, f"{ref}:570",
-              launches[("swap", "qary+ewald")], "qary+ewald"),
+              launches[("swap", "qary+ewald")], "qary+ewald",
+              lane_plans("swap", "qary", {EWALD_QARY_CELL: swaps[EWALD_QARY_CELL]})),
         entry("ising_body (K1-Ising, in flip_chain)", ("flip+ising", PT_CELL), body_src,
               f"{ref}:374", launches[("flip", "ising")], "ising",
               flip_plans("ising", {**flips, PT_CELL: ising_cells[PT_CELL]})),
         entry("ising_body (K1-Ising, in swap_chain)", ("swap+ising", "aucu_4x4x4"), body_src,
-              f"{ref}:410", launches[("swap", "ising")], "ising"),
+              f"{ref}:410", launches[("swap", "ising")], "ising",
+              lane_plans("swap", "ising", swaps)),
         entry("tempering_exchange", ("exchange", PT_CELL), "smol_tpu_torch/csrc/tempering.cu",
               "smol_tpu/parallel/tempering.py:42", exchange_launches, "exchange"),
     ]

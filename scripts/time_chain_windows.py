@@ -30,10 +30,13 @@ K1-Ising (``chip_smoke.ISING_CELLS``) with the Ising body, and the table
 cells with K1-Ising (``chip_smoke.TABLE_BODY_CELLS``), and bench
 ``tempering``'s 10-step flip launches (``chip_smoke.time_segment``, with
 K1-Ising and the direct body: device time per launch in CUDA graphs of a
-window's ten).
+window's ten), and, where the checkout has them, K3 in the swap chain
+(q = 2 with the Ewald term on ``chip_smoke.EWALD_QARY_CELL``, q = 3 on
+``chip_smoke.TERNARY_CELL``) and in the table chain (the
+``TABLE_BODY_CELLS`` that take it).
 Further arguments after the tree name the kinds to time (``flip``,
-``swap``, ``table``, ``wl``, ``distance``, ``ising``, ``segment``; all
-without).
+``swap``, ``table``, ``wl``, ``distance``, ``ising``, ``segment``,
+``qary``; all without).
 Prints the card's name and power limit and one ``AB`` line per cell:
 label, move, cell, kernel ms, kernel ms without the Ewald term (``nan``
 for a cell without one); a distance line ends with a checksum of the
@@ -51,7 +54,7 @@ def main():
     label = sys.argv[1]
     tree = Path(sys.argv[2] if len(sys.argv) > 2 else Path(__file__).parent.parent)
     kinds = set(sys.argv[3:]) or {"flip", "swap", "table", "wl", "distance", "ising",
-                                  "segment"}
+                                  "segment", "qary"}
     tree = tree.resolve()
     os.chdir(tree)
     sys.path.insert(0, str(tree))
@@ -64,8 +67,9 @@ def main():
     ising_cells = getattr(chip_smoke, "ISING_CELLS", {}) if "ising" in kinds else {}
     chip_smoke._build.build_libraries(
         tuple(name for name, on in (("flip_chain", bool(kinds & {"flip", "ising", "segment"})),
-                                    ("swap_chain", "swap" in kinds or bool(ising_cells)),
-                                    ("table_chain", "table" in kinds),
+                                    ("swap_chain", bool(kinds & {"swap", "qary"})
+                                     or bool(ising_cells)),
+                                    ("table_chain", bool(kinds & {"table", "qary"})),
                                     ("wl_chain", bool(wl_cells)),
                                     ("distance_chain", bool(sqs_cells))) if on))
     cells = [("flip", stem, chip_smoke.BLOCK) for stem in chip_smoke.FLIP_CELLS
@@ -110,6 +114,21 @@ def main():
                                        chip_smoke.BLOCK, twin_reps=0, delta="ising")
             print("AB", label, "table+ising", stem, t["kernel_ms"],
                   t.get("kernel_no_ewald_ms", float("nan")), flush=True)
+    # K3 in the swap and table chains, where the checkout has it
+    qary_cells = []
+    if "qary" in kinds and hasattr(chip_smoke, "TABLE_BODY_CELLS"):
+        qary_cells = [("swap", chip_smoke.EWALD_QARY_CELL, chip_smoke.BLOCK,
+                       chip_smoke.TEMPERATURE),
+                      ("swap", chip_smoke.TERNARY_CELL, chip_smoke.BLOCK,
+                       chip_smoke.SGC_TEMPERATURE)]
+        qary_cells += [("table", stem, chip_smoke.BLOCK, chip_smoke.TEMPERATURE)
+                       for stem, bodies in chip_smoke.TABLE_BODY_CELLS.items()
+                       if "qary" in bodies]
+    for move, stem, block, temperature in qary_cells:
+        t = chip_smoke.time_window(chip_smoke.load(stem)[0], stem, card, move, block,
+                                   twin_reps=0, delta="qary", temperature=temperature)
+        print("AB", label, f"{move}+qary", stem, t["kernel_ms"],
+              t.get("kernel_no_ewald_ms", float("nan")), flush=True)
     wl_bodies = ("direct", "ising") if hasattr(chip_smoke, "TABLE_BODY_CELLS") else ("direct",)
     wl_walkers = sorted({chip_smoke.WALKERS, getattr(chip_smoke, "WL_WALKERS", chip_smoke.WALKERS)})
     for stem, move in wl_cells.items():

@@ -14,14 +14,14 @@
 //   `make_site_delta_ising` (:374) and `make_swap_pair_delta_ising` (:410),
 //   with the walker's codes as rank bits in registers, summed in row order;
 // - K4, the Ewald term sign * (C_r + V_r . occ) of pallas_chain.py
-//   `ewald_delta` (:1651), in f64 over the block's codes in rank order;
-// - the whole delta of a swap at one thread a walker (swap_delta, with the
-//   body as a template parameter), which the swap chain calls; the table
-//   chain calls the body's add itself;
+//   `ewald_delta` (:1651), in f64 over the block's codes in rank order
+//   (ewald_term), or split over a walker's lanes (lane_ewald_term);
 // - lanes: a walker as G consecutive threads of one warp, each summing
 //   every G-th of a rank's rows, the partials meeting in a butterfly of
-//   shuffles (Lanes<Body>, lane_sum, lane_flip_delta), which the flip and
-//   Wang-Landau chains call.
+//   shuffles (Lanes<Body>, lane_sum), and the whole delta of a flip
+//   (lane_flip_delta: the flip and Wang-Landau chains) and of a swap
+//   (lane_swap_delta: the swap and Wang-Landau chains); the table chain
+//   calls Lanes<Body> itself, slot by slot.
 //
 // Every body's rows carry the rank's Ewald row (ew, RE doubles: R with an
 // Ewald term, else none), so K4 goes with each of them.
@@ -38,7 +38,6 @@
 
 namespace smol {
 
-constexpr int kMaxThreads = 64;
 constexpr int kRngPhilox = 0;
 constexpr int kRngHash = 1;
 
@@ -168,35 +167,6 @@ __device__ __forceinline__ void copy_rows(const Rows& dst, int u,
   __pipeline_commit();
 }
 
-// dE plus the cluster-expansion change of the rank whose rows are `rows`
-// going from code a to b, one term per local cluster in order l = 0, 1, ...:
-// t = d2 * a + sum_k stride * code(nbr), term = g[l, t + d2 (b - a)] - g[l, t].
-// KT > 0: the slot count K as a compile-time constant; KT == 0: runtime K.
-// On an H100 a runtime K ran 2.8x slower per step than the constant on the
-// spinel (K = 3), so K = 3 has its own instantiations.
-template <int KT>
-__device__ __forceinline__ double ce_add(double dE, const Rows& rows,
-                                         const int8_t* s_occ, int nt, int tid,
-                                         int L, int K_rt, int TM, int a,
-                                         int b) {
-  const int K = KT > 0 ? KT : K_rt;
-#pragma unroll 8
-  for (int l = 0; l < L; ++l) {
-    const int d = rows.d2[l];
-    int t = d * a;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int n = rows.nbr[l * K + k];
-      const int code = n >= 0 ? (int)s_occ[n * nt + tid] : 0;
-      t += rows.st[l * K + k] * code;
-    }
-    const int tn = t + d * (b - a);
-    const double term = rows.g[l * TM + tn] - rows.g[l * TM + t];
-    dE += term;
-  }
-  return dE;
-}
-
 // K3's character rows of one rank in shared memory (ops/chain.py
 // qary_tables): row l is the character sum_k freq[l, k] code(nbr[l, k]) +
 // ms[l] code(self) (mod Q) with folded amplitudes ac[l], as[l]; and, with
@@ -258,7 +228,12 @@ struct Tables {
   int Li, NW;
 };
 
-// The direct body: one rank's local-cluster rows (Rows), ce_add.
+// The direct body: one rank's local-cluster rows (Rows); a rank going
+// from code a to b changes each local cluster l by g[l, t + d2 (b - a)] -
+// g[l, t], t = d2 * a + sum_k stride * code(nbr) (Lanes<Direct>).  KT > 0:
+// the slot count K as a compile-time constant; KT == 0: runtime K.  On an
+// H100 a runtime K ran 2.8x slower per step than the constant on the
+// spinel (K = 3), so K = 3 has its own instantiations.
 template <int KT>
 struct Direct {
   using Rows = smol::Rows;
@@ -278,11 +253,6 @@ struct Direct {
     copy_rows(at(dst, t), u, t.nbr, t.stride, t.d2, t.g, t.ew_v, t.L, t.K,
               t.TM, t.RE, tid, nt);
   }
-  __device__ static double add(double dE, const Rows& r, const Tables& t, int u,
-                               const int8_t* s_occ, int nt, int tid, int a,
-                               int b, const Walker&) {
-    return ce_add<KT>(dE, r, s_occ, nt, tid, t.L, t.K, t.TM, a, b);
-  }
 };
 
 // K3's folded phase selectors, pallas_chain.py `_phase_sel` (:476): cos and
@@ -301,40 +271,13 @@ __device__ __forceinline__ int sigma_s(int w) {
   return (w == 1 ? 1 : 0) - (w == 2 ? 1 : 0);
 }
 
-// K3: dE plus the change of the rank's n character rows (rows `r`) when
-// its code goes a -> b, in row order l = 0 .. n-1.  The neighbour phase
-// u = sum_k freq * code(nbr) is an integer >= 0, the phases (u + ms a) mod Q
-// and (u + ms b) mod Q, and the row's change ac dc + as ds with dc, ds in
-// {0, +-1, +-2}: both products are exact, so whether nvcc contracts the sum
-// into an FMA or not, it rounds once, as the twin's does (Q = 2 has no sin
-// characters).  NBT > 0: the neighbours per row as a compile-time constant.
-template <int Q, int NBT>
-__device__ __forceinline__ double qary_add(double dE, const QRows& r, int n,
-                                           const int8_t* s_occ, int nt,
-                                           int tid, int NB_rt, int a, int b) {
-  const int NB = NBT > 0 ? NBT : NB_rt;
-#pragma unroll 4
-  for (int l = 0; l < n; ++l) {
-    int ph = 0;
-#pragma unroll
-    for (int k = 0; k < NB; ++k) {
-      const int nb = r.nbr[l * NB + k];
-      const int code = nb >= 0 ? (int)s_occ[nb * nt + tid] : 0;
-      ph += r.freq[l * NB + k] * code;
-    }
-    const int m = r.ms[l];
-    const int wo = (ph + m * a) % Q;
-    const int wn = (ph + m * b) % Q;
-    double term = r.ac[l] * (double)(sigma_c<Q>(wn) - sigma_c<Q>(wo));
-    if constexpr (Q != 2) {
-      term += r.as[l] * (double)(sigma_s<Q>(wn) - sigma_s<Q>(wo));
-    }
-    dE += term;
-  }
-  return dE;
-}
-
-// The q-ary body: a rank's qrows[u] character rows (QRows), qary_add.
+// The q-ary body: a rank's qrows[u] character rows (QRows).  A rank going
+// a -> b changes row l by ac dc + as ds: the neighbour phase u = sum_k freq
+// * code(nbr) is an integer >= 0, the phases (u + ms a) mod Q and (u + ms
+// b) mod Q, and dc, ds in {0, +-1, +-2}: both products are exact, so
+// whether nvcc contracts the sum into an FMA or not, it rounds once, as the
+// twin's does (Q = 2 has no sin characters; Lanes<Qary>).  NBT > 0: the
+// neighbours per row as a compile-time constant.
 template <int Q, int NBT>
 struct Qary {
   using Rows = QRows;
@@ -371,12 +314,6 @@ struct Qary {
       __pipeline_memcpy_async(r.ew + x, ew_u + x, sizeof(double));
     }
     __pipeline_commit();
-  }
-  __device__ static double add(double dE, const Rows& r, const Tables& t, int u,
-                               const int8_t* s_occ, int nt, int tid, int a,
-                               int b, const Walker&) {
-    return qary_add<Q, NBT>(dE, r, __ldg(t.qrows + u), s_occ, nt, tid, t.NB, a,
-                            b);
   }
 };
 
@@ -446,47 +383,11 @@ __device__ __forceinline__ double ising_term(const uint64_t (&mask)[NW], double 
   return __hiloint2double(__double2hiint(A) ^ (int)odd, __double2loint(A));
 }
 
-// K1-Ising: dE plus -2 (b - a) S for the rank's n rows, S = sum over rows l
-// of A_l (-1)^{t_l}, summed in row order l = 0 .. n-1 from 0.0.  Every term
-// is +-A_l exactly and the scale is 0 or +-2, so the f64 adds of S are the
-// only roundings, and the one dependent chain: the rows are taken in
-// batches of kIsingBatch whose masks and amplitudes are all loaded before
-// any is used, an empty asm with a memory clobber between the loads and
-// the sums (without it ptxas moved each row's shared-memory loads next to
-// their use, a round trip per row, in one loop as in batches).  The twin
-// (ops/chain.py _ising_terms) sums in this order.
-constexpr int kIsingBatch = 16;
-
-template <int NW>
-__device__ __forceinline__ double ising_add(double dE, const IRows& r, int n,
-                                            const Bits<NW>& bits, int a, int b) {
-  double s = 0.0;
-  int l = 0;
-  for (; l + kIsingBatch <= n; l += kIsingBatch) {
-    uint64_t mask[kIsingBatch][NW];
-    double A[kIsingBatch];
-#pragma unroll
-    for (int j = 0; j < kIsingBatch; ++j) {
-#pragma unroll
-      for (int k = 0; k < NW; ++k) mask[j][k] = r.mask[(l + j) * NW + k];
-      A[j] = r.amp[l + j];
-    }
-    asm volatile("" ::: "memory");  // every load of the batch issued first
-#pragma unroll
-    for (int j = 0; j < kIsingBatch; ++j) s += ising_term<NW>(mask[j], A[j], bits);
-  }
-  for (; l < n; ++l) {
-    uint64_t mask[NW];
-#pragma unroll
-    for (int k = 0; k < NW; ++k) mask[k] = r.mask[l * NW + k];
-    s += ising_term<NW>(mask, r.amp[l], bits);
-  }
-  return dE + (double)(-2 * (b - a)) * s;
-}
-
 // The Ising body: a rank's irows[u] parity rows (IRows) and the walker's
-// codes as bits (Bits<NW>), ising_add.  NW, the words of rank bits (1 to 4:
-// up to 256 ranks), is a compile-time constant.
+// codes as bits (Bits<NW>).  A rank going a -> b changes the energy by
+// -2 (b - a) S, S = sum over rows l of A_l (-1)^{t_l} (Lanes<Ising>).  NW,
+// the words of rank bits (1 to 4: up to 256 ranks), is a compile-time
+// constant.
 template <int NW>
 struct Ising {
   using Rows = IRows;
@@ -517,14 +418,6 @@ struct Ising {
     }
     __pipeline_commit();
   }
-  // inlined, so that the walker's bits stay in registers (a call taking
-  // them by reference would put them on the stack)
-  static __device__ __forceinline__ double add(double dE, const Rows& r,
-                                               const Tables& t, int u,
-                                               const int8_t*, int, int, int a,
-                                               int b, const Walker& bits) {
-    return ising_add<NW>(dE, r, __ldg(t.irows + u), bits, a, b);
-  }
 };
 
 // K4: sign * (C_r + V_r . occ) with the dot over the walker's codes in rank
@@ -541,41 +434,9 @@ __device__ __forceinline__ double ewald_term(const double* row, double c,
   return (double)sign * (c + acc);
 }
 
-// A swap's joint delta: rank u (rows ru, cell cu) going a -> b, then rank v
-// (rows rv) going b -> a against the occupancy with u already holding b,
-// then u's Ewald term (taken before u is recolored), then v's.  Leaves b in
-// u's cell: on accept the caller writes a into v's cell, on reject a back
-// into u's (and on accept updates the walker's register state `wk`).  With
-// the q-ary body v's phases read u's new code, which stands for the
-// reference's rank-1 correction `corr` (:596-603); with the Ising body v's
-// parities read a copy of the walker's bits with u's bit set to b, which
-// stands for the reference's membership correction (:424-432).
-template <class Body, bool EW>
-__device__ __forceinline__ double swap_delta(
-    const typename Body::Rows& ru, const typename Body::Rows& rv,
-    const Tables& t, int u, int v, int8_t* cu, int a, int b,
-    const int8_t* s_occ, int nt, int tid, int R,
-    const double* __restrict__ ew_c,
-    const typename Body::Walker& wk = typename Body::Walker()) {
-  double ewald_u = 0.0;
-  if constexpr (EW) {
-    ewald_u = ewald_term(ru.ew, __ldg(ew_c + u), s_occ, nt, tid, R, b - a);
-  }
-  double dE = Body::add(0.0, ru, t, u, s_occ, nt, tid, a, b, wk);
-  *cu = (int8_t)b;  // v's delta sees u already holding b
-  typename Body::Walker wv = wk;
-  wv.set(u, b);
-  dE = Body::add(dE, rv, t, v, s_occ, nt, tid, b, a, wv);
-  if constexpr (EW) {
-    dE += ewald_u;
-    dE += ewald_term(rv.ew, __ldg(ew_c + v), s_occ, nt, tid, R, a - b);
-  }
-  return dE;
-}
-
 // ---- lanes: a walker as G consecutive threads of one warp (G = 1, 2, 4, 8
 // or 16), the block's codes [R][code_pitch] in shared memory, one byte a
-// walker (flip_chain.cu, wl_chain.cu) ----
+// walker (every chain of this header) ----
 
 constexpr int kLaneBatch = 8;  // parity rows a lane loads before it sums them
 
@@ -732,10 +593,15 @@ struct Lanes<Qary<Q, NBT>> {
 template <int NW>
 struct Lanes<Ising<NW>> {
   static constexpr bool kScaled = true;
-  // The lane's parity sum from +0.0, in batches of kLaneBatch rows whose
-  // masks and amplitudes are all loaded before any is used (see
-  // ising_add); a row past the rank's count loads as mask 0 and amplitude
-  // +0.0 and adds +0.0, which leaves the sum (never -0.0) unchanged.
+  // The lane's parity sum from +0.0.  Every term is +-A_l exactly and the
+  // scale 0 or +-2, so the f64 adds of S are the only roundings, and the
+  // one dependent chain: the rows are taken in batches of kLaneBatch whose
+  // masks and amplitudes are all loaded before any is used, an empty asm
+  // with a memory clobber between the loads and the sums (without it
+  // ptxas moved each row's shared-memory loads next to their use, a round
+  // trip per row).  A row past the rank's count loads as mask 0 and
+  // amplitude +0.0 and adds +0.0, which leaves the sum (never -0.0)
+  // unchanged.  The twin (ops/chain.py _ising_sum) sums in this order.
   static __device__ __forceinline__ double sum(const IRows& r, const Tables& t, int u,
                                                const Bits<NW>& bits, int lane, int lanes) {
     const int n = __ldg(t.irows + u);
@@ -786,14 +652,80 @@ __device__ __forceinline__ double lane_flip_delta(
   return dE;
 }
 
-inline int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
+// K4 split over the lanes: lane j takes ranks j, j + G, ... of the dot in
+// rank order from +0.0, the partials meet in the butterfly, then sign *
+// (C_r + dot).  At one lane, ewald_term's sum.
+__device__ __forceinline__ double lane_ewald_term(const double* row, double c,
+                                                  const int8_t* codes, int pitch,
+                                                  int R, int sign, int lane,
+                                                  int lanes, unsigned mask) {
+  double acc = 0.0;
+#pragma unroll 4
+  for (int t = lane; t < R; t += lanes) acc += row[t] * (double)codes[t * pitch];
+  return (double)sign * (c + lane_sum(acc, mask, lanes));
+}
 
-// Threads of a CUDA block: a block must lie inside one sequence group of
-// block_size walkers, since its threads share the group's proposals.
-inline int block_threads(int W, int block_size) {
-  return (W <= block_size || block_size % kMaxThreads == 0)
-             ? kMaxThreads
-             : gcd(block_size, kMaxThreads);
+// K4 of rank u going a -> b (sign b - a): in rank order on every lane, or
+// split over the lanes (`split`).
+__device__ __forceinline__ double ewald_of(const double* row, double c,
+                                           const int8_t* codes, int pitch, int R,
+                                           int sign, int lane, int lanes,
+                                           unsigned mask, bool split) {
+  return split ? lane_ewald_term(row, c, codes, pitch, R, sign, lane, lanes, mask)
+               : ewald_term(row, c, codes, pitch, 0, R, sign);
+}
+
+// A swap's joint delta over the lanes: rank u (rows ru, cell cu) going
+// a -> b, then (lane 0 writing b into u's cell between two warp barriers)
+// rank v (rows rv) going b -> a against the occupancy with u already
+// holding b, then u's Ewald term (taken before u is recolored), then v's.
+// The direct and q-ary bodies sum u's rows then v's into one partial a
+// lane, which meet after v's; K1-Ising's parity sums of u and of v meet
+// apart, each scaled by its rank's -2 (b - a).  Leaves b in u's cell: on
+// accept the caller writes a into v's cell, on reject a back into u's (and
+// on accept updates the walker's register state `wk`).  With the q-ary
+// body v's phases read u's new code, which stands for the reference's
+// rank-1 correction `corr` (:596-603); with the Ising body v's parities
+// read a copy of the walker's bits with u's bit set to b, which stands for
+// the reference's membership correction (:424-432).  At one lane, the rows
+// in row order from +0.0.  BATCH: the direct and q-ary rows a lane loads
+// before it adds them (Lanes<Body>::add); `split`: K4 over the lanes.
+template <class Body, bool EW, int BATCH = 1>
+__device__ __forceinline__ double lane_swap_delta(
+    const typename Body::Rows& ru, const typename Body::Rows& rv, const Tables& t, int u,
+    int v, int8_t* cu, int a, int b, const int8_t* codes, int pitch, int R,
+    const double* __restrict__ ew_c, const typename Body::Walker& wk, int lane, int lanes,
+    unsigned mask, bool split = false) {
+  using L = Lanes<Body>;
+  double ewald_u = 0.0;
+  if constexpr (EW) {
+    ewald_u = ewald_of(ru.ew, __ldg(ew_c + u), codes, pitch, R, b - a, lane, lanes, mask,
+                       split);
+  }
+  typename Body::Walker wv = wk;
+  wv.set(u, b);
+  double dE;
+  if constexpr (L::kScaled) {
+    const double su = L::sum(ru, t, u, wk, lane, lanes);
+    const double sv = L::sum(rv, t, v, wv, lane, lanes);
+    __syncwarp(mask);  // every lane has read a before it changes
+    if (lane == 0) *cu = (int8_t)b;  // v's Ewald term sees u holding b
+    __syncwarp(mask);
+    dE = 0.0 + (double)(-2 * (b - a)) * lane_sum(su, mask, lanes);
+    dE = dE + (double)(-2 * (a - b)) * lane_sum(sv, mask, lanes);
+  } else {
+    double acc = L::template add<BATCH>(0.0, ru, t, u, codes, pitch, a, b, wk, lane, lanes);
+    __syncwarp(mask);  // every lane has read u's rows' codes before they change
+    if (lane == 0) *cu = (int8_t)b;  // v's rows see u already holding b
+    __syncwarp(mask);
+    acc = L::template add<BATCH>(acc, rv, t, v, codes, pitch, b, a, wv, lane, lanes);
+    dE = lane_sum(acc, mask, lanes);
+  }
+  if constexpr (EW) {
+    dE += ewald_u;
+    dE += ewald_of(rv.ew, __ldg(ew_c + v), codes, pitch, R, a - b, lane, lanes, mask, split);
+  }
+  return dE;
 }
 
 // Raise the dynamic shared-memory limit where the kernel needs above 48 KB.

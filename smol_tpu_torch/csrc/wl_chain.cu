@@ -34,7 +34,7 @@
 // one sequence group, its codes in shared memory indexed by walker.  Lane j
 // takes rows j, j + G, j + 2G, ... of each rank's rows in row order from
 // +0.0 (the Ising body in batches of kLaneBatch rows whose loads are all
-// issued first, as ising_add does at one lane); the G partials meet in a
+// issued first); the G partials meet in a
 // butterfly of __shfl_xor_sync (xor 1, 2, 4, ...), after which every lane
 // holds the same dE bits.  A swap sums u's rows then v's into one partial
 // (direct, K3) or butterflies u's and v's parity sums apart (K1-Ising,
@@ -48,8 +48,8 @@
 // the next step.  The flatness pass is split over the lanes (lane j takes
 // bins j, j + G, ...; the visited count, the integer sum and the minimum
 // meet by shuffles, exactly), and so is the histogram's zeroing.  At G = 1
-// the same code sums the rows in the order of flip_chain.cu's and
-// swap_chain.cu's one-thread delta.
+// the same code sums the rows in row order, as the one-thread kernels did
+// (lane_flip_delta, lane_swap_delta in chain_common.cuh).
 //
 // Rows.  Where every rank's rows of the body fit in shared memory beside
 // the block's codes (`resident`; the launcher's budget decides from the
@@ -132,47 +132,6 @@ size_t shared_bytes(size_t rb, int R, int row_sets, int B, int walkers_per_block
   return (resident ? (size_t)R : 2 * (size_t)row_sets) * rb +
          planes_bytes(B, walkers_per_block, planes) +
          align16((size_t)R * code_pitch(walkers_per_block));
-}
-
-// A swap's joint delta over the lanes, as swap_delta: u's rows going
-// a -> b, then (lane 0 writing b into u's cell between two warp barriers)
-// v's rows going b -> a, then u's Ewald term (taken before u is
-// recolored), then v's.  Leaves b in u's cell.
-template <class Body, bool EW>
-__device__ __forceinline__ double lane_swap_delta(
-    const typename Body::Rows& ru, const typename Body::Rows& rv, const Tables& t, int u,
-    int v, int8_t* cu, int a, int b, const int8_t* codes, int pitch, int R,
-    const double* __restrict__ ew_c, const typename Body::Walker& wk, int lane, int lanes,
-    unsigned mask) {
-  using L = Lanes<Body>;
-  double ewald_u = 0.0;
-  if constexpr (EW) {
-    ewald_u = ewald_term(ru.ew, __ldg(ew_c + u), codes, pitch, 0, R, b - a);
-  }
-  typename Body::Walker wv = wk;
-  wv.set(u, b);
-  double dE;
-  if constexpr (L::kScaled) {
-    const double su = L::sum(ru, t, u, wk, lane, lanes);
-    const double sv = L::sum(rv, t, v, wv, lane, lanes);
-    __syncwarp(mask);  // every lane has read a before it changes
-    if (lane == 0) *cu = (int8_t)b;  // v's Ewald term sees u holding b
-    __syncwarp(mask);
-    dE = 0.0 + (double)(-2 * (b - a)) * lane_sum(su, mask, lanes);
-    dE = dE + (double)(-2 * (a - b)) * lane_sum(sv, mask, lanes);
-  } else {
-    double acc = L::add(0.0, ru, t, u, codes, pitch, a, b, wk, lane, lanes);
-    __syncwarp(mask);  // every lane has read u's rows' codes before they change
-    if (lane == 0) *cu = (int8_t)b;  // v's rows see u already holding b
-    __syncwarp(mask);
-    acc = L::add(acc, rv, t, v, codes, pitch, b, a, wv, lane, lanes);
-    dE = lane_sum(acc, mask, lanes);
-  }
-  if constexpr (EW) {
-    dE += ewald_u;
-    dE += ewald_term(rv.ew, __ldg(ew_c + v), codes, pitch, 0, R, a - b);
-  }
-  return dE;
 }
 
 // MOVE: kFlip or kSwap; Body: Direct<KT>, Qary<Q, NBT> or Ising<NW>, as in

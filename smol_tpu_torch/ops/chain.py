@@ -101,9 +101,12 @@ __all__ = [
     "flip_step_reference",
     "flip_chain_reference",
     "flip_chain",
-    "FlipPlan",
+    "LanePlan",
+    "launch_lanes",
+    "twin_order",
     "flip_lanes",
-    "flip_chain_shared_bytes",
+    "chain_shared_bytes",
+    "launch_plan",
     "flip_launch_plan",
     "swap_step_reference",
     "swap_chain_reference",
@@ -1030,29 +1033,15 @@ def _ising_sum(tables: ChainTables, occ, u, lanes=1):
     """[W] f64 parity sum S of rank u[w]'s rows (K1-Ising): S = sum over
     rows l of A_l (-1)^{t_l}, t_l the parity of the walker's codes under
     the row's mask, as ``lanes`` lanes take it (:func:`_lane_partials`,
-    :func:`_lanes_meet`); at one lane in row order l = 0 .. Li-1 from 0.0,
-    as ``ising_add`` of chain_common.cuh sums.  Padding rows (zero
+    :func:`_lanes_meet`), as ``Lanes<Ising>::sum`` of chain_common.cuh
+    sums; at one lane in row order l = 0 .. Li-1 from 0.0.  Padding rows (zero
     amplitude, zero mask) add +0.0."""
     return _lanes_meet(_lane_partials(_ising_rows(tables, occ, u), lanes))
-
-
-def _ising_terms(tables: ChainTables, occ, u, a, b):
-    """[W, 1] f64 change of rank u[w]'s parity rows, a -> b (K1-Ising):
-    -2 (b - a) S.  Every term of S is +-A_l and the scale 0 or +-2, so only
-    the adds of S round."""
-    return ((-2 * (b - a)).to(torch.float64) * _ising_sum(tables, occ, u))[:, None]
 
 
 def _row_terms(tables: ChainTables, occ, u, a, b):
     """[W, *] f64 row terms of the direct or the q-ary body, in row order."""
     return _qary_terms(tables, occ, u, a, b) if tables.qary else _ce_terms(tables, occ, u, a, b)
-
-
-def _site_terms(tables: ChainTables, occ, u, a, b):
-    """[W, *] f64 terms of the site body of the tables, in summation order."""
-    if tables.ising:
-        return _ising_terms(tables, occ, u, a, b)
-    return _row_terms(tables, occ, u, a, b)
 
 
 def _body_delta(tables: ChainTables, occ, u, a, b, lanes=1, v=None):
@@ -1061,9 +1050,9 @@ def _body_delta(tables: ChainTables, occ, u, a, b, lanes=1, v=None):
     kernels sum it.  The direct and q-ary bodies' row terms, u's then v's,
     go into one partial a lane, and the partials meet after v's; K1-Ising's
     parity sums of u and of v meet apart and are scaled by -2 (b - a) and
-    -2 (a - b) in turn from 0.0.  At one lane, the order of the one-thread
-    deltas of the flip and swap kernels.  Leaves b in u's cell when ``v``
-    is given, as ``swap_delta`` does."""
+    -2 (a - b) in turn from 0.0.  At one lane, the rows in row order from
+    +0.0.  Leaves b in u's cell when ``v`` is given, as
+    ``lane_swap_delta`` does."""
     walkers = torch.arange(occ.shape[1], device=occ.device)
     if tables.ising:
         scale = (-2 * (b - a)).to(torch.float64)
@@ -1095,35 +1084,38 @@ def _flip_proposal(tables: ChainTables, occ, u, r_j, lanes=1):
     return a, b, _accumulate(*columns) - (tables.mu[u, b] - tables.mu[u, a])
 
 
-def _swap_proposal(tables: ChainTables, occ, u, v, lanes=1):
+def _swap_proposal(tables: ChainTables, occ, u, v, lanes=1, ewald_lanes=1):
     """``(a, b, dE)`` of a swap of ranks u[w] and v[w] (long): u holds a and
     v holds b; dE sums the body's change (:func:`_body_delta`), then u's
-    Ewald term (taken before u is recolored), then v's with u holding b.
-    ``occ`` is left as it was."""
+    Ewald term (taken before u is recolored), then v's with u holding b,
+    each dot over ``ewald_lanes`` lanes (:func:`_ewald_term`).  ``occ`` is
+    left as it was."""
     walkers = torch.arange(occ.shape[1], device=occ.device)
     a = occ[u, walkers].long()
     b = occ[v, walkers].long()
     if tables.has_ewald:
-        ewald_u = _ewald_term(tables, occ, u, b - a)
+        ewald_u = _ewald_term(tables, occ, u, b - a, ewald_lanes)
     # with the q-ary body, v's phases (with the Ising body, v's parities)
     # take u's new code, which stands for the reference's rank-1 correction
     columns = [_body_delta(tables, occ, u, a, b, lanes, v)]
     if tables.has_ewald:
-        columns += [ewald_u, _ewald_term(tables, occ, v, a - b)]
+        columns += [ewald_u, _ewald_term(tables, occ, v, a - b, ewald_lanes)]
     occ[u, walkers] = a.to(occ.dtype)
     return a, b, _accumulate(*columns)
 
 
-def _ewald_term(tables: ChainTables, occ, u, sign):
+def _ewald_term(tables: ChainTables, occ, u, sign, lanes=1):
     """[W] f64 Ewald change sign * (C_u + V_u . occ) of rank u[w].
 
-    The dot sums in rank order, t = 0 .. R-1, as the kernels' loop does;
-    codes are 0/1, so each product is exact and both give the same sum.
+    The dot sums as ``lanes`` lanes of the kernels take it: lane j the
+    ranks j, j + lanes, ... in order (:func:`_lane_partials`), the
+    partials meeting in the butterfly (:func:`_lanes_meet`); at one lane in
+    rank order, t = 0 .. R-1, as every lane's loop does where the dot is
+    not split.  Codes are 0/1, so each product is exact and kernel and twin
+    give the same sum.
     """
     prod = tables.ew_v[u] * occ.T.to(torch.float64)  # [W, R]
-    acc = torch.zeros(occ.shape[1], dtype=torch.float64, device=occ.device)
-    for t in range(prod.shape[1]):
-        acc = acc + prod[:, t]
+    acc = _lanes_meet(_lane_partials(prod, lanes))
     return sign.to(torch.float64) * (tables.ew_c[u] + acc)
 
 
@@ -1172,7 +1164,8 @@ def flip_step_reference(tables: ChainTables, occ, u, r_u, r_j, beta32, lanes=1):
     return accept, b, dE, expo, log_u
 
 
-def swap_step_reference(tables: ChainTables, occ, u, v, r_u, beta32):
+def swap_step_reference(tables: ChainTables, occ, u, v, r_u, beta32, lanes=1,
+                        split_ewald=False):
     """One swap proposal for every walker, without applying it.
 
     ``occ`` [R, W] int8 codes (left as it was), ``u``/``v`` [W] ranks,
@@ -1180,17 +1173,20 @@ def swap_step_reference(tables: ChainTables, occ, u, v, r_u, beta32):
     is_move, a, b, dE, expo, log_u)``: u holds a and v holds b; on accept
     u takes b and v takes a.  dE sums u's cluster terms, then v's with u
     already holding b, then u's Ewald term, then v's (against the same
-    occupancy), as the kernel does.  A null pair (a == b) is never
-    accepted.
+    occupancy), as the kernel's ``lanes`` lanes sum them
+    (:func:`_body_delta`; each Ewald dot over the lanes where
+    ``split_ewald``, else in rank order; at one lane, the one-thread
+    order).  A null pair (a == b) is never accepted.
     """
-    a, b, dE = _swap_proposal(tables, occ, u.long(), v.long())
+    a, b, dE = _swap_proposal(tables, occ, u.long(), v.long(), lanes,
+                              lanes if split_ewald else 1)
     is_move = a != b
     accept, expo, log_u = _metropolis(dE, r_u, beta32)
     return accept & is_move, is_move, a, b, dE, expo, log_u
 
 
 def table_step_reference(tables: ChainTables, tm: TableMove, occ, d, ranks,
-                         r_u, beta32):
+                         r_u, beta32, lanes=1, split_ewald=False):
     """One table-move proposal for every walker, without applying it.
 
     ``occ`` [R, W] int8 codes (left as it was), ``d`` [W] direction rows,
@@ -1205,7 +1201,12 @@ def table_step_reference(tables: ChainTables, tm: TableMove, occ, d, ranks,
     slot's site-body terms (the cluster terms in order l = 0 .. L-1, or
     the q-ary or Ising rows in row order), then its Ewald term, then
     minus its chemical work, as the kernel does (``table_step`` of the
-    reference, :1701-1785).  An invalid move is never accepted.
+    reference, :1701-1785).  The body's terms sum as the kernel's ``lanes``
+    lanes take them: lane 0 adds its rows onto the running dE and the
+    others from +0.0, the partials meeting in the butterfly (the Ising
+    body's parity sum meets first and is then scaled and added); the Ewald
+    dot over the lanes where ``split_ewald``, else in rank order; at one
+    lane, the one-thread order.  An invalid move is never accepted.
     """
     walkers = torch.arange(occ.shape[1], device=occ.device)
     d, ranks = d.long(), ranks.long()
@@ -1227,10 +1228,17 @@ def table_step_reference(tables: ChainTables, tm: TableMove, occ, d, ranks,
             continue  # a slot no walker's row uses adds exactly zero
         u, a, bj = ranks[:, j], a0[:, j], b[:, j]
         # where the slot is off, a == bj and every term below is exactly 0
-        for col in _site_terms(tables, occ, u, a, bj).unbind(1):
-            dE = dE + col
+        if tables.ising:
+            scale = (-2 * (bj - a)).to(torch.float64)
+            dE = dE + scale * _ising_sum(tables, occ, u, lanes)
+        else:
+            partial = torch.zeros((occ.shape[1], lanes), dtype=torch.float64,
+                                  device=occ.device)
+            partial[:, 0] = dE  # lane 0 carries the running dE
+            dE = _lanes_meet(_lane_partials(_row_terms(tables, occ, u, a, bj), lanes,
+                                            partial))
         if tables.has_ewald:
-            dE = dE + _ewald_term(tables, occ, u, bj - a)
+            dE = dE + _ewald_term(tables, occ, u, bj - a, lanes if split_ewald else 1)
         dE = dE - (tables.mu[u, bj] - tables.mu[u, a])
         written = on & valid  # distinct sites are certain only among these
         occ[u[written], walkers[written]] = bj[written].to(occ.dtype)
@@ -1271,11 +1279,14 @@ def flip_chain_reference(occ, enthalpy, naccept, beta32, seq, seed, tables,
 
 def swap_chain_reference(occ, enthalpy, naccept, nmove, beta32, useq, vseq,
                          seed, tables, n_steps, block_size, rng="philox",
-                         margin=None, slack=0.0):
+                         margin=None, slack=0.0, lanes=1, split_ewald=False):
     """Plain torch twin of the CUDA swap-chain kernel (same arguments).
 
     Updates ``occ``, ``enthalpy``, ``naccept`` and ``nmove`` (non-null
-    proposals) in place.  ``margin`` as in :func:`flip_chain_reference`,
+    proposals) in place.  Each delta sums as the kernel's ``lanes`` lanes
+    sum it, with the Ewald dots split over them where ``split_ewald``
+    (:func:`swap_chain` takes the launch's, :func:`twin_order`; at one
+    lane, the one-thread order).  ``margin`` as in :func:`flip_chain_reference`,
     with each distance taken beyond beta * ``slack`` (eV): where another
     implementation's delta may be off by up to ``slack``, its decision
     can differ only on walkers whose margin is a few ulps.  Null pairs
@@ -1288,7 +1299,7 @@ def swap_chain_reference(occ, enthalpy, naccept, nmove, beta32, useq, vseq,
     for i in range(n_steps):
         u, v = useq[group, i].long(), vseq[group, i].long()
         accept, is_move, a, b, dE, expo, log_u = swap_step_reference(
-            tables, occ, u, v, r_u[i], beta32
+            tables, occ, u, v, r_u[i], beta32, lanes, split_ewald
         )
         if margin is not None:
             _lower_margin(margin, expo, log_u, beta32, slack, ~is_move)
@@ -1314,10 +1325,14 @@ def body_rows(tables: ChainTables) -> torch.Tensor:
 def table_chain_reference(occ, enthalpy, naccept, beta32, dirs, ranks, seed,
                           tables, table_move, n_steps, block_size,
                           rng="philox", margin=None, slack=0.0, nslot=None,
-                          nrow=None):
+                          nrow=None, lanes=1, split_ewald=False):
     """Plain torch twin of the CUDA table-chain kernel (same arguments).
 
-    Updates ``occ``, ``enthalpy`` and ``naccept`` in place.  ``margin`` and
+    Updates ``occ``, ``enthalpy`` and ``naccept`` in place.  Each delta
+    sums as the kernel's ``lanes`` lanes sum it, with the Ewald dots split
+    over them where ``split_ewald`` (:func:`table_chain` takes the
+    launch's, :func:`twin_order`; at one lane, the one-thread order).
+    ``margin`` and
     ``slack`` as in :func:`swap_chain_reference`; invalid (identity)
     proposals never lower the margin.  ``nslot``, an optional [W] int32
     tensor, gains the site recolorings whose delta a walker had to
@@ -1332,7 +1347,8 @@ def table_chain_reference(occ, enthalpy, naccept, beta32, dirs, ranks, seed,
     for i in range(n_steps):
         slot_ranks = ranks[group, i].long()  # [W, k_max]
         accept, valid, _, b, dE, expo, log_u = table_step_reference(
-            tables, table_move, occ, dirs[group, i], slot_ranks, r_u[i], beta32
+            tables, table_move, occ, dirs[group, i], slot_ranks, r_u[i], beta32, lanes,
+            split_ewald
         )
         if margin is not None:
             _lower_margin(margin, expo, log_u, beta32, slack, ~valid)
@@ -1451,9 +1467,9 @@ def flip_chain(occ, enthalpy, naccept, beta32, seq, seed, tables, n_steps,
 
     A CUDA tensor launches the kernel (``flip_chain.launches`` counts the
     launches, ``flip_chain.qary_launches`` and ``flip_chain.ising_launches``
-    those with the q-ary and the Ising body) as :func:`flip_launch_plan`
+    those with the q-ary and the Ising body) as :func:`launch_plan`
     shapes it; a CPU tensor runs :func:`flip_chain_reference` at the lanes
-    the kernel would take (:func:`flip_lanes`).  ``_design`` (private;
+    the kernel would take (:func:`twin_order`).  ``_design`` (private;
     None: ``_FLIP_DESIGN``) picks another launch for the A/B of
     ``chip_smoke.py`` and the tests.
     """
@@ -1462,7 +1478,7 @@ def flip_chain(occ, enthalpy, naccept, beta32, seq, seed, tables, n_steps,
                         seed, tables, n_steps, block_size)
         flip_chain_reference(occ, enthalpy, naccept, beta32, seq, seed, tables,
                              n_steps, block_size, rng,
-                             lanes=flip_lanes(tables, occ.shape[1], _design))
+                             **twin_order("flip", tables, occ.shape[1], _design))
         return
     ChainLaunches("flip", occ, enthalpy, (naccept,), beta32, (seq[None],),
                   seed, tables, block_size, rng, _design).launch(0, n_steps)
@@ -1474,7 +1490,7 @@ flip_chain.ising_launches = 0  # of the launches, those with K1-Ising's body
 
 
 def swap_chain(occ, enthalpy, naccept, nmove, beta32, useq, vseq, seed,
-               tables, n_steps, block_size, rng="philox"):
+               tables, n_steps, block_size, rng="philox", _design=None):
     """Run ``n_steps`` shared-proposal swaps on every walker, in place.
 
     Arguments as :func:`flip_chain`, with the pair sequences ``useq`` and
@@ -1482,17 +1498,21 @@ def swap_chain(occ, enthalpy, naccept, nmove, beta32, useq, vseq, seed,
     and ``nmove`` [W] int32, to which the non-null proposals are added.
     A CUDA tensor launches the kernel (``swap_chain.launches`` counts the
     launches, ``swap_chain.qary_launches`` and ``swap_chain.ising_launches``
-    those with the q-ary and the Ising body); a CPU tensor runs
-    :func:`swap_chain_reference`.
+    those with the q-ary and the Ising body) as :func:`launch_plan` shapes
+    it; a CPU tensor runs :func:`swap_chain_reference` in the order the
+    kernel would sum (:func:`twin_order`).  ``_design`` (private; None:
+    ``_SWAP_DESIGN``) as for :func:`flip_chain`.
     """
     if occ.device.type == "cpu":
         _check_operands("swap_chain", occ, enthalpy, (naccept, nmove), beta32,
                         (useq, vseq), seed, tables, n_steps, block_size)
         swap_chain_reference(occ, enthalpy, naccept, nmove, beta32, useq, vseq,
-                             seed, tables, n_steps, block_size, rng)
+                             seed, tables, n_steps, block_size, rng,
+                             **twin_order("swap", tables, occ.shape[1], _design))
         return
     ChainLaunches("swap", occ, enthalpy, (naccept, nmove), beta32,
-                  (useq[None], vseq[None]), seed, tables, block_size, rng).launch(0, n_steps)
+                  (useq[None], vseq[None]), seed, tables, block_size, rng,
+                  _design).launch(0, n_steps)
 
 
 swap_chain.launches = 0
@@ -1513,9 +1533,9 @@ class ChainLaunches:
     tensors only; the object holds every operand whose address the list
     carries, so none returns to the allocator while a launch may read it.
     Every launch counts on the wrapper (``launches``, and
-    ``qary_launches`` or ``ising_launches`` by the tables' body).  The flip
-    kernel's launch is planned once here (:func:`flip_launch_plan` for the
-    sequences' steps, under ``design``), not per launch.
+    ``qary_launches`` or ``ising_launches`` by the tables' body).  The
+    launch is planned once here (:func:`launch_plan` for the sequences'
+    steps, under ``design``), not per launch.
     """
 
     def __init__(self, move, occ, enthalpy, counts, beta32, seqs, seed, tables,
@@ -1555,9 +1575,10 @@ class ChainLaunches:
         args += [W, block_size]
         self.steps_slot = len(args)
         args += [0, RNG_MODES[rng], *body_shape]
-        if move == "flip":
-            plan = flip_launch_plan(tables, W, block_size, seqs[0].shape[-1], design)
-            args += [plan.lanes, plan.walkers_per_block, int(plan.resident)]
+        plan = launch_plan(move, tables, W, block_size, seqs[0].shape[-1], design=design)
+        args += [plan.lanes, plan.walkers_per_block, int(plan.resident)]
+        if move == "swap":
+            args.append(int(plan.split_ewald))
         self.args = args + [stream]
         self.tables = tables
         self.rows, self.max_steps = len(seed), seqs[0].shape[-1]
@@ -1576,13 +1597,6 @@ class ChainLaunches:
         rc = self.entry(*args)
         _count_launch(self.kernel, self.tables)
         _launch_check(self.lib, self.kernel.__name__, rc)
-
-
-def _cuda_block_threads(W, block_size):
-    """Threads of a CUDA block, as ``block_threads`` of chain_common.cuh."""
-    if W <= block_size or block_size % 64 == 0:
-        return 64
-    return int(np.gcd(block_size, 64))
 
 
 def _align16(nbytes):
@@ -1605,66 +1619,113 @@ def _row_set_bytes(tables):
     return _align16(row_set)
 
 
-def _shared_bytes(tables, row_sets, W, block_size):
-    """Dynamic shared memory of one launch, in bytes: ``row_sets`` sets of
-    one rank's rows and the block's codes."""
-    return (row_sets * _row_set_bytes(tables)
-            + tables.num_ranks * _cuda_block_threads(W, block_size))
-
-
-# ---- the flip kernel's launch: lanes and resident rows ----
+# ---- the flip, swap and table kernels' launch: lanes and resident rows ----
 
 LANE_BLOCK_THREADS = 256  # most threads of a lane kernel's block: walkers x lanes
-# a flip launch takes the fewest lanes that give it this many threads, by
-# site body (at 8192 walkers: 4 lanes for the direct body, 8 for K3 and
-# K1-Ising, the fastest of 1-16 on every cell of chip_smoke.py's flip_ab on
-# an H100, PERF.md)
-FLIP_LANE_THREADS = {"direct": 32768, "qary": 65536, "ising": 65536}
-FLIP_MAX_LANES = 16
+# a launch takes the fewest lanes that give it this many threads, by move
+# and site body (at 8192 walkers: 32768 threads are 4 lanes, 65536 are 8),
+# the fastest of 1-16 lanes on the cells of chip_smoke.py's sweeps on an
+# H100 (flip_ab, lane_ab; PERF.md): a swap or table move's direct body
+# reads two or more ranks' rows a step, and takes 8 lanes where a flip's
+# takes 4
+LANE_THREADS = {
+    ("flip", "direct"): 32768, ("flip", "qary"): 65536, ("flip", "ising"): 65536,
+    ("swap", "direct"): 65536, ("swap", "qary"): 65536, ("swap", "ising"): 65536,
+    ("table", "direct"): 65536, ("table", "qary"): 65536, ("table", "ising"): 65536,
+}
+MAX_LANES = 16
+# the card's limits on the blocks one SM holds at once (an H100 SXM: 132
+# SMs, 2048 threads, 32 blocks and 228 KB of shared memory an SM, 1 KB of
+# which each block reserves); registers are not counted
+SM_COUNT = 132
+SM_THREADS = 2048
+SM_BLOCKS = 32
+SM_SHARED_BYTES = 233472
+# K4 split over a walker's lanes (lane j takes ranks j, j + G, ...) in the
+# swap and table kernels, else in rank order on every lane (as K1 and K6
+# take it): split ran 1.19-1.96x faster on every Ewald cell of
+# chip_smoke.py's lane_ab on an H100 (PERF.md)
+SPLIT_EWALD = {"flip": False, "swap": True, "table": True}
+STREAMED_ROW_SETS = {"flip": 2, "swap": 4}  # two buffers of a step's rows; table: 2 k_max
 
 
 @dataclass(frozen=True)
-class _FlipDesign:
-    """How the flip kernel is launched: its threads per walker (None:
-    :func:`flip_lanes` of the launch) and whether every rank's rows stay in
-    shared memory (None: wherever they fit).  Private: the A/B of
-    ``chip_smoke.py`` and the tests choose one; users get the default."""
+class _LaneDesign:
+    """How the flip, swap or table kernel is launched: its threads per
+    walker (None: :func:`launch_lanes` of the launch), whether every rank's
+    rows stay in shared memory (None: as :func:`launch_plan` decides) and whether the
+    swap and table kernels split K4 over the lanes (None: ``SPLIT_EWALD``).
+    Private: the A/B of ``chip_smoke.py`` and the tests choose one; users
+    get the default."""
 
     lanes: int | None = None
     resident: bool | None = None
+    split_ewald: bool | None = None
 
 
-_FLIP_DESIGN = _FlipDesign()
+_FlipDesign = _LaneDesign  # the name K1's callers use
+_FLIP_DESIGN = _LaneDesign()
+_SWAP_DESIGN = _LaneDesign()
+_TABLE_DESIGN = _LaneDesign()
+
+
+def _design_of(move, design):
+    """``design``, or the move's default (read at call time, so that a test
+    may replace it)."""
+    return design or {"flip": _FLIP_DESIGN, "swap": _SWAP_DESIGN, "table": _TABLE_DESIGN}[move]
 
 
 @dataclass(frozen=True)
-class FlipPlan:
-    """One flip launch's shape: threads per walker, walkers per CUDA
-    block, whether every rank's rows are resident in shared memory, and its
-    dynamic shared memory in bytes."""
+class LanePlan:
+    """One flip, swap or table launch's shape: threads per walker, walkers
+    per CUDA block, whether every rank's rows are resident in shared
+    memory, its dynamic shared memory in bytes, and whether K4 is split
+    over the lanes."""
 
     lanes: int
     walkers_per_block: int
     resident: bool
     shared_bytes: int
+    split_ewald: bool = False
 
     def blocks(self, W: int) -> int:
         return -(-W // self.walkers_per_block)
 
 
-def flip_lanes(tables, W, design=None):
-    """Threads per walker of a flip launch of ``W`` walkers on ``tables``:
-    the design's (None: ``_FLIP_DESIGN``), else the fewest (1, 2, 4, 8 or
-    16) that give the launch ``FLIP_LANE_THREADS`` threads for the tables'
-    site body.  The lanes set the order of the delta's sums, and the twin
-    takes the same lanes for the same launch."""
-    design = design or _FLIP_DESIGN
+def launch_lanes(move, tables, W, design=None):
+    """Threads per walker of a ``move`` launch of ``W`` walkers on
+    ``tables``: the design's (None: the move's default), else the fewest
+    (1, 2, 4, 8 or 16) that give the launch ``LANE_THREADS`` threads for
+    the move and the tables' site body.  The lanes set the order of the
+    delta's sums, and the twin takes the same lanes for the same launch."""
+    design = _design_of(move, design)
     if design.lanes:
         return design.lanes
     lanes = 1
-    while lanes < FLIP_MAX_LANES and W * lanes < FLIP_LANE_THREADS[tables.delta]:
+    while lanes < MAX_LANES and W * lanes < LANE_THREADS[(move, tables.delta)]:
         lanes *= 2
     return lanes
+
+
+def _split_ewald(move, tables, design=None):
+    """Whether the launch splits K4 over its lanes (only with an Ewald term)."""
+    split = _design_of(move, design).split_ewald
+    return tables.has_ewald and (SPLIT_EWALD[move] if split is None else split)
+
+
+def twin_order(move, tables, W, design=None) -> dict:
+    """The keyword arguments with which the ``move`` twin sums in the order
+    of the kernel's launch of ``W`` walkers: its lanes and, for swaps and
+    table moves, whether the Ewald dots are split over them."""
+    order = {"lanes": launch_lanes(move, tables, W, design)}
+    if move != "flip":
+        order["split_ewald"] = _split_ewald(move, tables, design)
+    return order
+
+
+def flip_lanes(tables, W, design=None):
+    """:func:`launch_lanes` of a flip launch."""
+    return launch_lanes("flip", tables, W, design)
 
 
 def _block_walkers(W, block_size, lanes):
@@ -1676,54 +1737,73 @@ def _block_walkers(W, block_size, lanes):
     return wb if W <= block_size or block_size % wb == 0 else gcd(block_size, wb)
 
 
-def flip_chain_shared_bytes(tables, walkers_per_block, resident):
-    """Dynamic shared memory of one flip launch, in bytes (``shared_bytes``
-    of flip_chain.cu): every rank's rows (``resident``) or two buffers of
-    one rank's, and the block's codes, one byte a walker at a padded pitch."""
-    row_sets = tables.num_ranks if resident else 2
+def chain_shared_bytes(move, tables, walkers_per_block, resident, k_max=2):
+    """Dynamic shared memory of one flip, swap or table launch, in bytes
+    (``shared_bytes`` of its .cu file): every rank's rows (``resident``)
+    or two buffers of a step's row sets (one rank's for a flip, u's and
+    v's for a swap, ``k_max`` slots' for a table move), and the block's
+    codes, one byte a walker at a padded pitch."""
+    streamed = 2 * k_max if move == "table" else STREAMED_ROW_SETS[move]
+    row_sets = tables.num_ranks if resident else streamed
     pitch = -(-walkers_per_block // 4) * 4 + 4
     return row_sets * _row_set_bytes(tables) + _align16(tables.num_ranks * pitch)
 
 
-def flip_launch_plan(tables, W, block_size, n_steps, design=None) -> FlipPlan:
-    """The flip launch of ``W`` walkers for ``n_steps`` steps, from shapes
-    only: the lanes of :func:`flip_lanes`, the walkers a block of
-    :func:`_block_walkers`, and every rank's rows resident where they
-    fit beside the codes and the launch runs at least one step a rank (so
+def _waves(blocks, threads, smem):
+    """Waves of ``blocks`` CUDA blocks of ``threads`` threads and ``smem``
+    bytes of shared memory each over the card's SMs (inf: it does not fit)."""
+    if smem > MAX_SHARED_BYTES:
+        return float("inf")
+    per_sm = min(SM_THREADS // threads, SM_BLOCKS, SM_SHARED_BYTES // (smem + 1024))
+    return -(-blocks // (SM_COUNT * per_sm))
+
+
+def launch_plan(move, tables, W, block_size, n_steps, k_max=2, design=None) -> LanePlan:
+    """The ``move`` launch ("flip", "swap" or "table", whose moves
+    recolor up to ``k_max`` sites) of ``W`` walkers for ``n_steps`` steps,
+    from shapes only: the lanes of :func:`launch_lanes`, the walkers a
+    block of :func:`_block_walkers`, every rank's rows resident where they
+    fit beside the codes, the launch runs at least one step a rank (so
     that it copies no more rows than streaming them would: a 100-step
     window resident, bench tempering's 10-step segments on Au-Cu 3x3x3's
-    27 ranks streamed, each the faster on an H100, PERF.md).  Raises where
-    even the streamed rows do not fit, or where the design (None:
-    ``_FLIP_DESIGN``) asks for what does not."""
-    design = design or _FLIP_DESIGN
-    lanes = flip_lanes(tables, W, design)
+    27 ranks streamed, each the faster on an H100, PERF.md) and the rows'
+    shared memory adds no wave of blocks over the SMs (Au-Cu 4x4x4's 115 KB
+    of K1-Ising rows hold one block of 32 walkers an SM, 256 blocks in two
+    waves, and ran 1.40x slower than streamed, PERF.md), and K4 split over
+    the lanes as ``SPLIT_EWALD`` says.  Raises where even the streamed rows
+    do not fit, or where the design (None: the move's default) asks for
+    what does not."""
+    design = _design_of(move, design)
+    lanes = launch_lanes(move, tables, W, design)
     wpb = _block_walkers(W, block_size, lanes)
 
-    def fits(resident):
-        return flip_chain_shared_bytes(tables, wpb, resident) <= MAX_SHARED_BYTES
+    def nbytes(resident):
+        return chain_shared_bytes(move, tables, wpb, resident, k_max)
 
     if design.resident is None:
-        resident = fits(True) and n_steps >= tables.num_ranks
+        blocks, threads = -(-W // wpb), wpb * lanes
+        resident = (n_steps >= tables.num_ranks
+                    and _waves(blocks, threads, nbytes(True))
+                    <= _waves(blocks, threads, nbytes(False)))
     else:
         resident = design.resident
-    smem = flip_chain_shared_bytes(tables, wpb, resident)
+    smem = nbytes(resident)
     if smem > MAX_SHARED_BYTES:
         raise ValueError(
-            f"flip_chain needs {smem} bytes of shared memory per block ("
-            f"{'every rank' if resident else 'two buffers'} of {tables.delta} rows of "
-            f"{_row_set_bytes(tables)} B and {tables.num_ranks} ranks of codes for "
+            f"{move}_chain needs {smem} bytes of shared memory per block ("
+            f"{'every rank' if resident else 'two buffers of a step'} of {tables.delta} "
+            f"rows of {_row_set_bytes(tables)} B and {tables.num_ranks} ranks of codes for "
             f"{wpb} walkers), above the card's {MAX_SHARED_BYTES}")
-    return FlipPlan(lanes, wpb, resident, smem)
+    return LanePlan(lanes, wpb, resident, smem, _split_ewald(move, tables, design))
 
 
-def table_chain_shared_bytes(tables, k_max, W, block_size):
-    """Dynamic shared memory of one table-chain launch, in bytes: two
-    buffers of ``k_max`` row sets and the block's codes."""
-    return _shared_bytes(tables, 2 * k_max, W, block_size)
+def flip_launch_plan(tables, W, block_size, n_steps, design=None) -> LanePlan:
+    """:func:`launch_plan` of a flip launch."""
+    return launch_plan("flip", tables, W, block_size, n_steps, design=design)
 
 
 def table_chain(occ, enthalpy, naccept, beta32, dirs, ranks, seed, tables,
-                table_move, n_steps, block_size, rng="philox"):
+                table_move, n_steps, block_size, rng="philox", _design=None):
     """Run ``n_steps`` shared-proposal table moves on every walker, in place.
 
     Arguments as :func:`flip_chain`, with the direction rows ``dirs``
@@ -1732,8 +1812,10 @@ def table_chain(occ, enthalpy, naccept, beta32, dirs, ranks, seed, tables,
     same tables; the tables' site body is the kernel's.  A CUDA tensor
     launches the kernel (``table_chain.launches`` counts the launches,
     ``table_chain.qary_launches`` and ``table_chain.ising_launches`` those
-    with the q-ary and the Ising body); a CPU tensor runs
-    :func:`table_chain_reference`.
+    with the q-ary and the Ising body) as :func:`launch_plan` shapes it,
+    planned once per call; a CPU tensor runs :func:`table_chain_reference`
+    in the order the kernel would sum (:func:`twin_order`).  ``_design``
+    (private; None: ``_TABLE_DESIGN``) as for :func:`flip_chain`.
     """
     _check_operands("table_chain", occ, enthalpy, (naccept,), beta32, (dirs,),
                     seed, tables, n_steps, block_size)
@@ -1747,25 +1829,18 @@ def table_chain(occ, enthalpy, naccept, beta32, dirs, ranks, seed, tables,
     rows = table_move.dev["rows"]
     if rows.device != occ.device or tuple(rows.shape[1:]) != (table_move.n_dirs + 2, k_max):
         raise ValueError("table_chain: the table move does not match its operands")
+    R, W = occ.shape
     if occ.device.type == "cpu":
         table_chain_reference(occ, enthalpy, naccept, beta32, dirs, ranks, seed,
-                              tables, table_move, n_steps, block_size, rng)
+                              tables, table_move, n_steps, block_size, rng,
+                              **twin_order("table", tables, W, _design))
         return
     if occ.device.type != "cuda":
         raise ValueError(f"table_chain runs on cuda or cpu, not {occ.device}")
     if rng not in RNG_MODES:
         raise ValueError(f"unknown rng mode: {rng!r}")
-    R, W = occ.shape
     L, K = tables.nbr.shape[1:]
-    smem = table_chain_shared_bytes(tables, k_max, W, block_size)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"table_chain needs {smem} bytes of shared memory per block (two "
-            f"buffers of k_max = {k_max} row sets of L = {L}, K = {K}, TM = "
-            f"{tables.g.shape[2]}, Ewald row {R if tables.has_ewald else 0}, and "
-            f"{R} ranks of codes; with the {tables.delta} body), above the card's "
-            f"{MAX_SHARED_BYTES}"
-        )
+    plan = launch_plan("table", tables, W, block_size, n_steps, k_max, _design)
     lib = _build.load_chain("table_chain")
     body_ptrs, body_shape = _body_operands(tables)
     with torch.cuda.device(occ.device):
@@ -1778,7 +1853,8 @@ def table_chain(occ, enthalpy, naccept, beta32, dirs, ranks, seed, tables,
             tables.d2.data_ptr(), tables.g.data_ptr(), tables.mu.data_ptr(),
             rows.data_ptr(), *_ewald_pointers(tables), *body_ptrs, R, L, K,
             tables.g.shape[2], tables.mu.shape[1], W, block_size, n_steps,
-            RNG_MODES[rng], k_max, table_move.n_dirs + 2, *body_shape, stream,
+            RNG_MODES[rng], k_max, table_move.n_dirs + 2, *body_shape, plan.lanes,
+            plan.walkers_per_block, int(plan.resident), int(plan.split_ewald), stream,
         )
     _count_launch(table_chain, tables)
     _launch_check(lib, "table_chain", rc)

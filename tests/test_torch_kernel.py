@@ -120,11 +120,16 @@ def _operands(card, cell, W, n_steps, block_size, move="flip", delta="direct"):
 STATE = ("occ", "enthalpy", "naccept", "nmove")
 
 
+TWIN_MOVES = {chain.flip_chain_reference: "flip", chain.swap_chain_reference: "swap",
+              chain.table_chain_reference: "table"}
+
+
 def _twin_lanes(ops, twin):
-    """The flip twin sums at the lanes of the kernel's launch."""
-    if twin is not chain.flip_chain_reference:
+    """The twin sums in the order of the kernel's launch (its lanes and,
+    for swaps and table moves, the Ewald split)."""
+    if twin not in TWIN_MOVES:
         return {}
-    return {"lanes": chain.flip_lanes(ops["tables"], ops["occ"].shape[1])}
+    return chain.twin_order(TWIN_MOVES[twin], ops["tables"], ops["occ"].shape[1])
 
 
 def _kernel_and_twin(ops, kernel, twin, rng, kernel_tables=None):
@@ -306,7 +311,7 @@ def _table_kernel_and_twin(ops, rng, kernel_move=None):
                          (chain.table_chain_reference, ops)):
         run = {k: (v.clone() if k in STATE else v) for k, v in operands.items()}
         before = chain.table_chain.launches
-        fn(**run, rng=rng)
+        fn(**run, rng=rng, **_twin_lanes(ops, fn))
         torch.cuda.synchronize()
         assert chain.table_chain.launches - before == (1 if fn is chain.table_chain else 0)
         outs.append(run)
@@ -1015,3 +1020,106 @@ def test_flip_kernel_refuses_a_plan_that_does_not_fit(card):
     with pytest.raises(ValueError, match="shared memory"):
         chain.flip_chain(**ops, _design=chain._FlipDesign(resident=True))
     assert chain.flip_chain.launches == before
+
+
+# ---------------- K2's and K5's launch: lanes, resident rows, K4 split ----------------
+
+LANE_DESIGNS = {  # threads a walker, rows resident (None: where they fit), K4 split
+    "G1-streamed": chain._LaneDesign(lanes=1, resident=False),
+    "G2-fit": chain._LaneDesign(lanes=2, split_ewald=False),
+    "G4-streamed-split": chain._LaneDesign(lanes=4, resident=False, split_ewald=True),
+    "G8-fit-split": chain._LaneDesign(lanes=8, split_ewald=True),
+    "G8-fit-ranked": chain._LaneDesign(lanes=8, split_ewald=False),
+    "G16-fit-split": chain._LaneDesign(lanes=16, split_ewald=True),
+    "G16-streamed": chain._LaneDesign(lanes=16, resident=False, split_ewald=False),
+}
+SWAP_BODY_CELLS = [  # (cell, site body): every body, with and without the Ewald term
+    ("spinel_ewald_2x2x2", "ising"),  # rows fit
+    ("spinel_ewald_2x2x2", "qary"),  # K3, q = 2 with the Ewald term, rows fit
+    ("spinel_ewald_2x2x2", "direct"),  # rows streamed
+    ("spinel_ewald_3x3x3", "ising"),  # three words, rows streamed
+    ("aucu_4x4x4", "ising"),  # no Ewald term, rows fit
+    ("aucu_4x4x4", "direct"),
+    ("sgc_3x3x3", "qary"),  # K3, q = 3
+]
+TABLE_BODY_CELLS = [
+    ("spinel_ewald_sgc_2x2x2", "ising"),
+    ("spinel_ewald_sgc_2x2x2", "qary"),
+    ("spinel_ewald_sgc_2x2x2", "direct"),
+    ("spinel_ewald_sgc_3x3x3", "ising"),
+    ("lmof_2x2x2", "direct"),  # three slots: the runtime slot count
+]
+
+
+def _design_vs_twin(ops, move, design, rng):
+    """The kernel under ``design`` and the twin in its order, bit for bit."""
+    kernel_fn = {"swap": chain.swap_chain, "table": chain.table_chain}[move]
+    twin_fn = {"swap": chain.swap_chain_reference, "table": chain.table_chain_reference}[move]
+    charges = ops.pop("charges", None)
+    kernel = {k: (v.clone() if k in STATE else v) for k, v in ops.items()}
+    twin = {k: (v.clone() if k in STATE else v) for k, v in ops.items()}
+    before = kernel_fn.launches
+    kernel_fn(**kernel, rng=rng, _design=design)
+    twin_fn(**twin, rng=rng, **chain.twin_order(move, ops["tables"], ops["occ"].shape[1],
+                                                design))
+    torch.cuda.synchronize()
+    assert kernel_fn.launches - before == 1
+    for key in ("occ", "naccept", "nmove", "enthalpy"):
+        if key in kernel:
+            assert torch.equal(kernel[key], twin[key]), key
+    assert 0 < float(kernel["naccept"].double().mean()) < ops["n_steps"]
+    if charges is not None:  # each walker keeps its net charge
+        net = [charges.gather(1, o["occ"].long()).sum(dim=0) for o in (ops, kernel)]
+        assert torch.equal(*net)
+    else:  # each walker keeps its composition
+        assert torch.equal(*(torch.sort(o["occ"], dim=0).values for o in (ops, kernel)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+@pytest.mark.parametrize("design", sorted(LANE_DESIGNS))
+@pytest.mark.parametrize("cell,delta", SWAP_BODY_CELLS)
+def test_swap_kernel_designs_match_twin(card, rng, design, cell, delta):
+    """Each launch design of K2 (1 to 16 lanes a walker, rows resident
+    where they fit or streamed, K4 in rank order or split over the lanes)
+    equals the twin summing in its order, bit for bit: occupancies, accept
+    and move counts, enthalpies."""
+    ops = _operands(card, cell, 256, 300, 64, move="swap", delta=delta)
+    assert ops["tables"].delta == delta
+    _design_vs_twin(ops, "swap", LANE_DESIGNS[design], rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+@pytest.mark.parametrize("design", sorted(LANE_DESIGNS))
+@pytest.mark.parametrize("cell,delta", TABLE_BODY_CELLS)
+def test_table_kernel_designs_match_twin(card, rng, design, cell, delta):
+    """Each launch design of K5, as for K2: occupancies, accept counts and
+    enthalpies bit for bit, every walker's net charge kept."""
+    ops = _operands(card, cell, 256, 300, 64, move="table", delta=delta)
+    assert ops["tables"].delta == delta
+    _design_vs_twin(ops, "table", LANE_DESIGNS[design], rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("move", ["swap", "table"])
+def test_partial_block_designs_match_twin(card, move):
+    """A partial CUDA block and sequence blocks of 8 walkers."""
+    cell = "spinel_ewald_2x2x2" if move == "swap" else "spinel_ewald_sgc_2x2x2"
+    for design in ("G2-fit", "G16-streamed", "G8-fit-split"):
+        ops = _operands(card, cell, 200, 300, 8, move=move, delta="ising")
+        _design_vs_twin(ops, move, LANE_DESIGNS[design], "philox")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("move", ["swap", "table"])
+def test_lane_kernel_refuses_a_plan_that_does_not_fit(card, move):
+    """Rows asked resident where they do not fit raise before any launch."""
+    cell = "spinel_ewald_3x3x3" if move == "swap" else "spinel_ewald_sgc_3x3x3"
+    ops = _operands(card, cell, 8192, 10, 1024, move=move, delta="direct")
+    ops.pop("charges", None)
+    kernel_fn = {"swap": chain.swap_chain, "table": chain.table_chain}[move]
+    before = kernel_fn.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel_fn(**ops, _design=chain._LaneDesign(resident=True))
+    assert kernel_fn.launches == before

@@ -182,6 +182,7 @@ def _trajectory_parity(ref, port, W, n_steps, block_size, temperature, seed):
             torch.as_tensor(useqs[c]), torch.as_tensor(vseqs[c]),
             torch.tensor([chunk_seed]), tables, min(chunk, n_steps - c * chunk),
             block_size, "hash", margin=margin, slack=slack,
+            **chain.twin_order("swap", tables, W),
         )
     port_occ = occu.clone()
     port_occ[:, tables.rank_sites] = occ.T.to(port_occ.dtype)

@@ -356,6 +356,7 @@ def _trajectory_parity(kind, cell, W, n_steps, temperature, seed, monkeypatch,
             occ, enth, nacc, beta.to(torch.float32), torch.as_tensor(dirs[c]),
             torch.as_tensor(ranks[c]), torch.tensor([chunk_seed]), tables, tm,
             min(chunk, n_steps - c * chunk), W, "hash", margin=margin, slack=slack,
+            **chain.twin_order("table", tables, W),
         )
     port_occ = occu.clone()
     port_occ[:, tables.rank_sites] = occ.T.to(port_occ.dtype)
@@ -544,8 +545,11 @@ def test_table_wrapper_runs_twin_on_cpu_and_checks_operands():
     ):
         with pytest.raises(ValueError):
             chain.table_chain(**{**ops, name: bad})
-    # shared memory: two buffers of k_max row sets and the block's codes
+    # shared memory: two buffers of k_max row sets (or every rank's rows,
+    # resident) and the block's codes at a padded pitch
     L, K = tables.nbr.shape[1:]
     row_set = -(-(L * tables.g.shape[2] * 8 + L * (2 * K + 1) * 4) // 16) * 16
-    assert chain.table_chain_shared_bytes(tables, tm.k_max, W, 8) == (
-        2 * tm.k_max * row_set + tables.num_ranks * 64)
+    plan = chain.launch_plan("table", tables, W, 8, 60, tm.k_max,
+                             chain._LaneDesign(resident=False))
+    codes = -(-tables.num_ranks * (plan.walkers_per_block + 4) // 16) * 16
+    assert plan.shared_bytes == 2 * tm.k_max * row_set + codes
