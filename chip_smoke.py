@@ -97,9 +97,8 @@ printing its last line when any phase fails:
    through ``make_shared_proposal_chain`` against the twin on the same
    schedule, bit for bit, in both RNG modes.  K2 and K5 likewise at every
    launch design, 1 to 16 lanes with every rank's rows resident (where
-   they fit) and streamed and, with the Ewald term, K4 in rank order on
-   every lane and split over the lanes, against the twin in the same
-   order bit for bit (occupancies, accept and move counts, enthalpies)
+   they fit) and streamed, against the twin in the same order bit for
+   bit (occupancies, accept and move counts, enthalpies)
    with compositions and net charges kept, in both RNG modes: the swap
    chain on the spinel CE + Ewald 2x2x2 (K1-Ising, direct, K3) and 3x3x3
    (K1-Ising, direct), Au-Cu 4x4x4 (K1-Ising, direct) and the ternary
@@ -236,8 +235,8 @@ printing its last line when any phase fails:
    them (against the parent commit's kernel, see
    ``scripts/time_chain_windows.py``).  K2's and K5's (``lane_ab``) on
    the same swap and table cells as phase 3's (not the rocksalt): 1, 2,
-   4, 8 and 16 lanes, streamed against resident rows, and K4 in rank
-   order against split, at the plan's lanes and at the fastest.
+   4, 8 and 16 lanes, and streamed against resident rows at the plan's
+   lanes and at the fastest.
    K3 against the direct body on the same cells, in turns (direct, q-ary,
    q-ary, direct): the flip chain on ``sgc`` 6x6x6, the swap chain on the
    ternary CE 3x3x3; K3's operations are counted from the character rows
@@ -774,27 +773,22 @@ def padded_slots(tables):
 def plan_label(tables, W=WALKERS, block=BLOCK, n_steps=THIN, design=None,
                     move="flip", k_max=2):
     """The launch K1 (or K2, K5: ``move``) takes under ``design``: lanes,
-    blocks, rows, and for K2 and K5 with the Ewald term where K4 runs."""
+    blocks, rows."""
     plan = chain.launch_plan(move, tables, W, block, n_steps, k_max, design)
-    ewald = ""
-    if move != "flip" and tables.has_ewald:
-        ewald = f", K4 {'split over the lanes' if plan.split_ewald else 'in rank order'}"
     return (f"G={plan.lanes}, {plan.blocks(W)} blocks of {plan.walkers_per_block} walkers, "
             f"rows {'resident' if plan.resident else 'streamed'}, {plan.shared_bytes} B "
-            f"of shared memory a block{ewald}")
+            f"of shared memory a block")
 
 
 def lane_designs(tables, W=WALKERS, block=BLOCK, move="flip", k_max=2):
     """K1's (or K2's, K5's) designs for a launch: every lane count, with
-    the rows resident (where they fit) and streamed, and for K2 and K5 with
-    the Ewald term above one lane K4 in rank order and split."""
+    the rows resident (where they fit) and streamed."""
     designs = []
     for lanes in FLIP_LANES:
         wpb = chain._block_walkers(W, block, lanes)
         fits = chain.chain_shared_bytes(move, tables, wpb, True, k_max) <= chain.MAX_SHARED_BYTES
-        splits = (False, True) if move != "flip" and tables.has_ewald and lanes > 1 else (None,)
-        designs += [chain._LaneDesign(lanes=lanes, resident=r, split_ewald=x)
-                    for r in (True, False) if fits or not r for x in splits]
+        designs += [chain._LaneDesign(lanes=lanes, resident=r)
+                    for r in (True, False) if fits or not r]
     return designs
 
 
@@ -834,9 +828,8 @@ def flip_designs_vs_twin(ensemble, name, delta, temperature, padded, rng, seed):
 
 
 def lane_designs_vs_twin(ensemble, name, move, delta, block, temperature, rng, seed):
-    """Phase 3: K2 or K5 (``move``) at every lane count, both row plans and,
-    with the Ewald term, K4 in rank order and split, against the twin in
-    the same order, bit for bit (occupancies, accept and move counts,
+    """Phase 3: K2 or K5 (``move``) at every lane count and both row plans,
+    against the twin at the same lanes, bit for bit (occupancies, accept and move counts,
     enthalpies), on one main-path window; compositions (swaps) and net
     charges (table moves) kept."""
     tables = tables_of(ensemble, move, delta)
@@ -850,7 +843,7 @@ def lane_designs_vs_twin(ensemble, name, move, delta, block, temperature, rng, s
     twins, designs = {}, lane_designs(tables, block=block, move=move, k_max=k_max)
     for design in designs:
         order = chain.twin_order(move, tables, WALKERS, design)
-        key = tuple(order.values())
+        key = order["lanes"]
         if key not in twins:
             twins[key] = fresh(ops)
             twin_fn(**twins[key], rng=rng, **order)
@@ -868,7 +861,7 @@ def lane_designs_vs_twin(ensemble, name, move, delta, block, temperature, rng, s
     ewald = "+ewald" if tables.has_ewald else ""
     print(f"phase 3 [{move}{ewald}+{body_label(tables)} {name} {rng} seed {seed:#x}, every "
           f"design] at {time.perf_counter() - T_START:.1f} s: kernel == twin bit for bit on "
-          f"all {WALKERS} walkers at (G, K4 split) = {sorted(twins)}, "
+          f"all {WALKERS} walkers at G = {sorted(twins)}, "
           f"{sum(d.resident for d in designs)} resident and "
           f"{sum(not d.resident for d in designs)} streamed launches; acceptance "
           f"{accept:.4f}; the plan: "
@@ -2408,8 +2401,7 @@ def wl_ab(card, wl_runs, reps=10):
 def lane_design_name(design):
     """A K1, K2 or K5 launch design's label."""
     rows = {None: "rows fit", True: "rows resident", False: "rows streamed"}[design.resident]
-    split = {None: "", True: " K4 split", False: " K4 ranked"}[design.split_ewald]
-    return f"G={design.lanes or 'rule'} {rows}{split}"
+    return f"G={design.lanes or 'rule'} {rows}"
 
 
 def lanes_in_turns(label, card, time_fn, designs):
@@ -2497,12 +2489,11 @@ def lane_ab(card, move, cells, reps=10):
     """Phase 5: K2's or K5's (``move``) design in turns on copies of one
     starting state, on each cell of ``cells`` ((stem, site body, block,
     temperature, ensemble)) at 8192 walkers, a 100-step window: (1) G = 1,
-    2, 4, 8 and 16 lanes, rows and K4 as the plan takes them; (2) streamed
+    2, 4, 8 and 16 lanes, rows as the plan takes them; (2) streamed
     against resident rows, where they fit, at the plan's lanes and at the
-    fastest of (1); (3) with the Ewald term, K4 in rank order on every lane
-    against split over the lanes, at the plan's lanes and at the fastest of
-    (1).  The launch the plan takes is the default; the parent commit's
-    kernel is timed against it by ``scripts/time_chain_windows.py``."""
+    fastest of (1).  The launch the plan takes is the default; the parent
+    commit's kernel is timed against it by
+    ``scripts/time_chain_windows.py``."""
     results = {}
     kernel_fn = KERNELS[move][0]
     for stem, delta, block, temperature, ens in cells:
@@ -2522,21 +2513,13 @@ def lane_ab(card, move, cells, reps=10):
         r = {"plan": label}
         r["lanes"] = lanes_in_turns(
             f"1, lanes: {cell}, 100 steps ({label})", card, window,
-            [chain._LaneDesign(lanes=g, resident=plan.resident, split_ewald=plan.split_ewald)
-             for g in FLIP_LANES])
+            [chain._LaneDesign(lanes=g, resident=plan.resident) for g in FLIP_LANES])
         fastest = min(r["lanes"], key=r["lanes"].get).lanes
         if any(d.resident for d in lane_designs(tables, block=block, move=move, k_max=k_max)):
             for g in sorted({plan.lanes, fastest}):
                 r[f"resident G={g}"] = lanes_in_turns(
                     f"2, rows at G={g}: {cell}, 100 steps", card, window,
-                    [chain._LaneDesign(lanes=g, resident=x, split_ewald=plan.split_ewald)
-                     for x in (False, True)])
-        if tables.has_ewald:
-            for g in sorted({plan.lanes, fastest}):
-                r[f"split G={g}"] = lanes_in_turns(
-                    f"3, K4 at G={g}: {cell}, 100 steps", card, window,
-                    [chain._LaneDesign(lanes=g, resident=plan.resident, split_ewald=x)
-                     for x in (False, True)])
+                    [chain._LaneDesign(lanes=g, resident=x) for x in (False, True)])
         results[cell] = r
     return results
 
@@ -2835,8 +2818,7 @@ def main():
     errs["table"].append(window_vs_twin(load(MULTI_SLOT_CELL)[0], MULTI_SLOT_CELL,
                                         "table", BLOCK, *SEEDS[1]))
     print(f"phase 3: the table comparisons took {time.perf_counter() - t0:.1f} s")
-    # K2 and K5 at every lane count, row plan and K4 split, each body, both
-    # RNG modes
+    # K2 and K5 at every lane count and row plan, each body, both RNG modes
     t0 = time.perf_counter()
     lane_cells = {stem: load(stem)[0] for stem, *_ in (*SWAP_LANE_CELLS, *TABLE_LANE_CELLS)}
     for move, cells in (("swap", SWAP_LANE_CELLS), ("table", TABLE_LANE_CELLS)):

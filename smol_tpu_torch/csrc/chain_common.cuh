@@ -21,7 +21,10 @@
 //   shuffles (Lanes<Body>, lane_sum), and the whole delta of a flip
 //   (lane_flip_delta: the flip and Wang-Landau chains) and of a swap
 //   (lane_swap_delta: the swap and Wang-Landau chains); the table chain
-//   calls Lanes<Body> itself, slot by slot.
+//   calls Lanes<Body> itself, slot by slot;
+// - the frame of those four chains: a thread's walker and lane, the
+//   block's codes loaded and stored (LaneFrame), the split draw of log U
+//   (lane_log_u) and the launch shapes they take (lane_launch_ok).
 //
 // Every body's rows carry the rank's Ewald row (ew, RE doubles: R with an
 // Ewald term, else none), so K4 goes with each of them.
@@ -458,6 +461,74 @@ __device__ __forceinline__ T lane_sum(T x, unsigned mask, int lanes) {
   return x;
 }
 
+// A thread's place in the block of a lane kernel (the flip, swap, table
+// and Wang-Landau chains): walker `wl` of the block's `wpb`, lane `lane`
+// of its `lanes`, and the block's codes of the occupancy ([R, W] int8,
+// rank-major) in shared memory [R][code_pitch(wpb)].  A walker past W is
+// dead: its lanes read the last walker's operands and write nothing.
+struct LaneFrame {
+  int tid, nt;       // the thread in the block, the block's threads
+  int lane, lanes;   // the lane within the walker, the walker's lanes
+  int wl, wpb;       // the walker within the block, walkers a block
+  int w0, w, wc, W;  // the block's first walker, the walker, the one it reads, all
+  int pitch;         // bytes of one rank's row of the block's codes
+  unsigned mask;     // the walker's lanes within the warp
+  bool live;
+
+  __device__ LaneFrame(int lanes_, int walkers_per_block, int W_)
+      : tid(threadIdx.x), nt(blockDim.x), lanes(lanes_), wpb(walkers_per_block), W(W_),
+        pitch(code_pitch(walkers_per_block)) {
+    const int shift = __ffs(lanes) - 1;  // lanes is a power of two
+    wl = tid >> shift;
+    lane = tid & (lanes - 1);
+    const unsigned group = lanes == 1 ? 1u : (1u << lanes) - 1u;
+    mask = group << ((tid & 31) & ~(lanes - 1));
+    w0 = blockIdx.x * wpb;
+    w = w0 + wl;
+    live = w < W;
+    wc = live ? w : W - 1;
+  }
+
+  // The block's codes into shared memory (a dead walker's column holds
+  // the last walker's), and back.
+  __device__ void load_codes(int8_t* s_occ, const int8_t* __restrict__ occ, int R) const {
+    for (int x = tid; x < R * wpb; x += nt) {
+      const int r = x / wpb;
+      const int c = x % wpb;
+      s_occ[r * pitch + c] = occ[(size_t)r * W + min(w0 + c, W - 1)];
+    }
+  }
+  __device__ void store_codes(int8_t* __restrict__ occ, const int8_t* s_occ, int R) const {
+    for (int x = tid; x < R * wpb; x += nt) {
+      const int r = x / wpb;
+      const int c = x % wpb;
+      if (w0 + c < W) occ[(size_t)r * W + w0 + c] = s_occ[r * pitch + c];
+    }
+  }
+};
+
+// log U of step i, drawn G steps at a time: at every G-th step lane j
+// draws step i + j into `mine` (r_u, the step's only uniform), and step i
+// reads it from lane i % G.
+__device__ __forceinline__ float lane_log_u(float& mine, const Draws& draws, int i,
+                                            int n_steps, int rng_mode, const LaneFrame& f) {
+  const int slot = i & (f.lanes - 1);
+  if (slot == 0 && i + f.lane < n_steps) mine = log_uniform(draws.at(i + f.lane, rng_mode).x);
+  return __shfl_sync(f.mask, mine, slot, f.lanes);
+}
+
+// Whether a lane kernel takes a launch's shape: G a power of two up to
+// 16, at most `max_threads` threads a block, a block inside one sequence
+// group of `block_size` walkers (its threads share the group's
+// proposals), `resident` 0 or 1.
+inline bool lane_launch_ok(int W, int lanes, int walkers_per_block, int block_size,
+                           int max_threads, int resident) {
+  const bool lanes_ok = lanes >= 1 && lanes <= 16 && (lanes & (lanes - 1)) == 0;
+  return W >= 1 && lanes_ok && walkers_per_block >= 1 &&
+         walkers_per_block * lanes <= max_threads &&
+         (W <= block_size || block_size % walkers_per_block == 0) && (resident == 0 || resident == 1);
+}
+
 // One lane's rows of a rank, for each body: rows lane, lane + lanes, ...
 // in row order.  The direct and q-ary bodies add their terms to `acc`
 // (kScaled false); the Ising body returns its rows' parity sum, which the
@@ -665,14 +736,15 @@ __device__ __forceinline__ double lane_ewald_term(const double* row, double c,
   return (double)sign * (c + lane_sum(acc, mask, lanes));
 }
 
-// K4 of rank u going a -> b (sign b - a): in rank order on every lane, or
-// split over the lanes (`split`).
+// K4 of a rank going a -> b (sign b - a): split over the lanes (SPLIT),
+// else in rank order on every lane.
+template <bool SPLIT>
 __device__ __forceinline__ double ewald_of(const double* row, double c,
                                            const int8_t* codes, int pitch, int R,
                                            int sign, int lane, int lanes,
-                                           unsigned mask, bool split) {
-  return split ? lane_ewald_term(row, c, codes, pitch, R, sign, lane, lanes, mask)
-               : ewald_term(row, c, codes, pitch, 0, R, sign);
+                                           unsigned mask) {
+  if constexpr (SPLIT) return lane_ewald_term(row, c, codes, pitch, R, sign, lane, lanes, mask);
+  return ewald_term(row, c, codes, pitch, 0, R, sign);
 }
 
 // A swap's joint delta over the lanes: rank u (rows ru, cell cu) going
@@ -689,18 +761,19 @@ __device__ __forceinline__ double ewald_of(const double* row, double c,
 // read a copy of the walker's bits with u's bit set to b, which stands for
 // the reference's membership correction (:424-432).  At one lane, the rows
 // in row order from +0.0.  BATCH: the direct and q-ary rows a lane loads
-// before it adds them (Lanes<Body>::add); `split`: K4 over the lanes.
-template <class Body, bool EW, int BATCH = 1>
+// before it adds them (Lanes<Body>::add); SPLIT: K4 over the lanes (the
+// swap chain), else in rank order on every lane (the Wang-Landau chain).
+template <class Body, bool EW, int BATCH = 1, bool SPLIT = false>
 __device__ __forceinline__ double lane_swap_delta(
     const typename Body::Rows& ru, const typename Body::Rows& rv, const Tables& t, int u,
     int v, int8_t* cu, int a, int b, const int8_t* codes, int pitch, int R,
     const double* __restrict__ ew_c, const typename Body::Walker& wk, int lane, int lanes,
-    unsigned mask, bool split = false) {
+    unsigned mask) {
   using L = Lanes<Body>;
-  double ewald_u = 0.0;
-  if constexpr (EW) {
-    ewald_u = ewald_of(ru.ew, __ldg(ew_c + u), codes, pitch, R, b - a, lane, lanes, mask,
-                       split);
+  double ewald_u = 0.0;  // taken before u is recolored
+  if constexpr (EW && !L::kScaled) {
+    ewald_u = ewald_of<SPLIT>(ru.ew, __ldg(ew_c + u), codes, pitch, R, b - a, lane, lanes,
+                              mask);
   }
   typename Body::Walker wv = wk;
   wv.set(u, b);
@@ -708,6 +781,12 @@ __device__ __forceinline__ double lane_swap_delta(
   if constexpr (L::kScaled) {
     const double su = L::sum(ru, t, u, wk, lane, lanes);
     const double sv = L::sum(rv, t, v, wv, lane, lanes);
+    // the parity sums read no codes: the dot after them ran K2's K1-Ising
+    // windows with the Ewald term 4-8 % faster on an H100 (PERF.md)
+    if constexpr (EW) {
+      ewald_u = ewald_of<SPLIT>(ru.ew, __ldg(ew_c + u), codes, pitch, R, b - a, lane, lanes,
+                                mask);
+    }
     __syncwarp(mask);  // every lane has read a before it changes
     if (lane == 0) *cu = (int8_t)b;  // v's Ewald term sees u holding b
     __syncwarp(mask);
@@ -723,7 +802,7 @@ __device__ __forceinline__ double lane_swap_delta(
   }
   if constexpr (EW) {
     dE += ewald_u;
-    dE += ewald_of(rv.ew, __ldg(ew_c + v), codes, pitch, R, a - b, lane, lanes, mask, split);
+    dE += ewald_of<SPLIT>(rv.ew, __ldg(ew_c + v), codes, pitch, R, a - b, lane, lanes, mask);
   }
   return dE;
 }

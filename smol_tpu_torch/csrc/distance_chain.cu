@@ -90,12 +90,6 @@ using namespace smol;
 
 constexpr int kDistanceThreads = 256;  // most threads of a block: walkers x lanes
 
-// Bytes of one rank-major row of the block's codes: one per walker, padded
-// so that the rows of different ranks start in different banks.
-__host__ __device__ __forceinline__ int code_pitch(int walkers_per_block) {
-  return (walkers_per_block + 3) / 4 * 4 + 4;
-}
-
 // The segment starts of every rank, [R, F + 1] int32, kept in shared memory.
 __host__ __device__ __forceinline__ size_t seg_bytes(int R, int F) {
   return ((size_t)R * (F + 1) * 4 + 15) / 16 * 16;

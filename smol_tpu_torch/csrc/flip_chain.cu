@@ -115,35 +115,19 @@ flip_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
   Tables t = tables;
   Body::pin(t);
   t.RE = EW ? R : 0;
-  const int wpb = walkers_per_block;
+  const LaneFrame f(lanes, walkers_per_block, W);
+  const int tid = f.tid, nt = f.nt, lane = f.lane, pitch = f.pitch;
+  const unsigned mask = f.mask;
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t rb = Body::bytes(t);
   int8_t* s_occ = reinterpret_cast<int8_t*>(smem + (resident ? (size_t)R : 2) * rb);
-  const int pitch = code_pitch(wpb);
-
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int shift = __ffs(lanes) - 1;  // lanes is a power of two
-  const int wl = tid >> shift;         // the walker within the block
-  const int lane = tid & (lanes - 1);  // the lane within the walker
-  const unsigned group = lanes == 1 ? 1u : (1u << lanes) - 1u;
-  const unsigned mask = group << ((tid & 31) & ~(lanes - 1));  // the walker's lanes
-  const int w0 = blockIdx.x * wpb;
-  const int w = w0 + wl;
-  const bool live = w < W;
-  const int wc = live ? w : W - 1;  // dead walkers shadow the last one
-
-  for (int x = tid; x < R * wpb; x += nt) {
-    const int r = x / wpb;
-    const int c = x % wpb;
-    s_occ[r * pitch + c] = occ[(size_t)r * W + min(w0 + c, W - 1)];
-  }
-  int8_t* codes = s_occ + wl;  // the walker's column of the codes
+  f.load_codes(s_occ, occ, R);
+  int8_t* codes = s_occ + f.wl;  // the walker's column of the codes
 
   // the whole CUDA block lies in one sequence group (see the launcher)
-  const int grp = w0 / block_size;
+  const int grp = f.w0 / block_size;
   const int32_t* my_seq = seq + (size_t)grp * seq_stride;
-  const Draws draws(*seed_ptr, grp, wc, block_size);
+  const Draws draws(*seed_ptr, grp, f.wc, block_size);
 
   if (resident) {
     for (int r = 0; r < R; ++r) Body::copy(smem + r * rb, r, t, tid, nt);
@@ -154,9 +138,9 @@ flip_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
   __syncthreads();
 
   typename Body::Walker wk;  // the Ising body's rank bits; nothing otherwise
-  wk.load(s_occ, R, pitch, wl);
-  double e = enthalpy[wc];
-  const float b32 = beta[wc];
+  wk.load(s_occ, R, pitch, f.wl);
+  double e = enthalpy[f.wc];
+  const float b32 = beta[f.wc];
   int nacc = 0;
 
   // what a step needs before its rows, drawn G steps at a time: lane j
@@ -170,7 +154,7 @@ flip_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
       Body::copy(smem + ((i + 1) & 1) * rb, __ldg(my_seq + i + 1), t, tid, nt);
     }
     // a dead walker's lanes only copy rows and meet the block's barrier
-    if (live) {
+    if (f.live) {
       const int slot = i & (lanes - 1);
       if (slot == 0 && i + lane < n_steps) {
         const uint2 bits = draws.at(i + lane, rng_mode);  // (r_u, r_j)
@@ -210,14 +194,10 @@ flip_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
   }
 
   __syncthreads();
-  for (int x = tid; x < R * wpb; x += nt) {
-    const int r = x / wpb;
-    const int c = x % wpb;
-    if (w0 + c < W) occ[(size_t)r * W + w0 + c] = s_occ[r * pitch + c];
-  }
-  if (live && lane == 0) {
-    enthalpy[w] = e;
-    naccept[w] += nacc;
+  f.store_codes(occ, s_occ, R);
+  if (f.live && lane == 0) {
+    enthalpy[f.w] = e;
+    naccept[f.w] += nacc;
   }
 }
 
@@ -268,11 +248,7 @@ extern "C" int smol_flip_chain(void* occ, void* enthalpy, void* naccept,
                                int block_size, int n_steps, int rng_mode, int q,
                                int Lq, int NB, int Li, int NW, int lanes,
                                int walkers_per_block, int resident, void* stream) {
-  const int threads = walkers_per_block * lanes;
-  const bool lanes_ok = lanes >= 1 && lanes <= 16 && (lanes & (lanes - 1)) == 0;
-  if (W < 1 || !lanes_ok || walkers_per_block < 1 || threads > kFlipThreads ||
-      (W > block_size && block_size % walkers_per_block) || resident < 0 ||
-      resident > 1) {
+  if (!lane_launch_ok(W, lanes, walkers_per_block, block_size, kFlipThreads, resident)) {
     return (int)cudaErrorInvalidValue;
   }
   const bool ew = ew_v != nullptr;
@@ -291,7 +267,7 @@ extern "C" int smol_flip_chain(void* occ, void* enthalpy, void* naccept,
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (W + walkers_per_block - 1) / walkers_per_block;
-  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  kernel<<<blocks, walkers_per_block * lanes, smem, (cudaStream_t)stream>>>(
       (int8_t*)occ, (double*)enthalpy, (int32_t*)naccept, (const float*)beta,
       (const int32_t*)seq, seq_stride, (const int64_t*)seed, t,
       (const double*)mu, (const int32_t*)ncode, (const double*)ew_c, R, C, W,

@@ -39,11 +39,14 @@
 // step a lane, and read with a shuffle, as in flip_chain.cu; the pair is
 // read each step.  Every lane takes the decision and keeps its own copy of
 // the enthalpy and, for K1-Ising, the rank bits; lane 0 alone writes
-// codes, behind __syncwarp over the walker's lanes.  The Ewald dot runs in
-// rank order on every lane, or split over the lanes (`split_ewald`: lane j
-// takes ranks j, j + G, ..., meeting in the butterfly; the plan's choice,
-// from the A/B in chip_smoke.py).  At G = 1 the rows are summed in row
-// order, as the one-thread kernel did.
+// codes, behind __syncwarp over the walker's lanes.  The Ewald dot is split
+// over the lanes too: lane j takes ranks j, j + G, ..., meeting in the
+// butterfly (in rank order on every lane, as K1 and K6 take it, it ran
+// 1.19-1.96x slower on an H100, PERF.md).  At G = 1 the rows and the dot
+// are summed in order, as the one-thread kernel did.  The frame (the
+// walker's lanes, the codes' load and store, the split draw) is
+// chain_common.cuh's LaneFrame, shared with the flip, table and
+// Wang-Landau chains.
 //
 // Rows.  Where every rank's rows of the body fit in shared memory beside
 // the codes, the launch runs at least a step a rank and the rows add no
@@ -59,7 +62,7 @@
 // 64, a launch of 8192 walkers put about two warps on an SM, each walking
 // two ranks' rows in turn.  The lanes divide the rows by G and put G times
 // more warps on the card; what every lane repeats (the pair, the decision,
-// the shuffles, and K4 where it is not split) stays.
+// the shuffles) stays.
 //
 // The occupancy ([R, W] int8 codes, rank-major), enthalpy, accept and move
 // counts are updated in place.  The C entry point returns
@@ -108,7 +111,7 @@ swap_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
                   const int32_t* __restrict__ irows, int R, int L, int K,
                   int TM, int Lq, int NB, int Li, int NW, int W,
                   int block_size, int n_steps, int rng_mode, int lanes,
-                  int walkers_per_block, int resident, int split_ewald) {
+                  int walkers_per_block, int resident) {
   // the tables with their compile-time counts: the slot (or neighbour)
   // count of the body and, without an Ewald term, no Ewald row.  The
   // pointers come in as __restrict__ parameters: taken from a Tables
@@ -117,37 +120,20 @@ swap_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
   Tables t{nbr, stride, d2, g, ew_v, qnbr, qfreq, qms, qac, qas, qrows,
            L, K, TM, EW ? R : 0, Lq, NB, imask, iamp, irows, Li, NW};
   Body::pin(t);
-  const int wpb = walkers_per_block;
+  const LaneFrame f(lanes, walkers_per_block, W);
+  const int tid = f.tid, nt = f.nt, lane = f.lane, pitch = f.pitch;
+  const unsigned mask = f.mask;
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t rb = Body::bytes(t);
   int8_t* s_occ = reinterpret_cast<int8_t*>(smem + (resident ? (size_t)R : 4) * rb);
-  const int pitch = code_pitch(wpb);
-
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int shift = __ffs(lanes) - 1;  // lanes is a power of two
-  const int wl = tid >> shift;         // the walker within the block
-  const int lane = tid & (lanes - 1);  // the lane within the walker
-  const unsigned group = lanes == 1 ? 1u : (1u << lanes) - 1u;
-  const unsigned mask = group << ((tid & 31) & ~(lanes - 1));  // the walker's lanes
-  const int w0 = blockIdx.x * wpb;
-  const int w = w0 + wl;
-  const bool live = w < W;
-  const int wc = live ? w : W - 1;  // dead walkers shadow the last one
-  const bool split = split_ewald != 0;
-
-  for (int x = tid; x < R * wpb; x += nt) {
-    const int r = x / wpb;
-    const int c = x % wpb;
-    s_occ[r * pitch + c] = occ[(size_t)r * W + min(w0 + c, W - 1)];
-  }
-  int8_t* codes = s_occ + wl;  // the walker's column of the codes
+  f.load_codes(s_occ, occ, R);
+  int8_t* codes = s_occ + f.wl;  // the walker's column of the codes
 
   // the whole CUDA block lies in one sequence group (see the launcher)
-  const int grp = w0 / block_size;
+  const int grp = f.w0 / block_size;
   const int32_t* my_useq = useq + (size_t)grp * seq_stride;
   const int32_t* my_vseq = vseq + (size_t)grp * seq_stride;
-  const Draws draws(*seed_ptr, grp, wc, block_size);
+  const Draws draws(*seed_ptr, grp, f.wc, block_size);
 
   auto prefetch = [&](int i) {  // step i's rows of u and v into buffers 2 (i & 1) + {0, 1}
     unsigned char* buf = smem + (i & 1) * 2 * rb;
@@ -163,24 +149,18 @@ swap_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
   __syncthreads();
 
   typename Body::Walker wk;  // the Ising body's rank bits; nothing otherwise
-  wk.load(s_occ, R, pitch, wl);
-  double e = enthalpy[wc];
-  const float b32 = beta[wc];
+  wk.load(s_occ, R, pitch, f.wl);
+  double e = enthalpy[f.wc];
+  const float b32 = beta[f.wc];
   int nacc = 0;
   int nmv = 0;
 
-  // log U drawn G steps at a time: lane j takes step i + j, and step i
-  // reads it from lane i % G
-  float my_logu = 0.0f;
+  float my_logu = 0.0f;  // log U, drawn G steps at a time (lane_log_u)
   for (int i = 0; i < n_steps; ++i) {
     if (!resident && i + 1 < n_steps) prefetch(i + 1);
     // a dead walker's lanes only copy rows and meet the block's barrier
-    if (live) {
-      const int slot = i & (lanes - 1);
-      if (slot == 0 && i + lane < n_steps) {
-        my_logu = log_uniform(draws.at(i + lane, rng_mode).x);
-      }
-      const float log_u = __shfl_sync(mask, my_logu, slot, lanes);
+    if (f.live) {
+      const float log_u = lane_log_u(my_logu, draws, i, n_steps, rng_mode, f);
       const int u = __ldg(my_useq + i);
       const int v = __ldg(my_vseq + i);
       const size_t bu = resident ? (size_t)u : (size_t)(i & 1) * 2;
@@ -192,9 +172,9 @@ swap_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
       const bool is_move = a != b;
       if (is_move) {
         // leaves b in u's cell: v's delta sees u already holding b
-        const double dE = lane_swap_delta<Body, EW, kRowBatch>(
+        const double dE = lane_swap_delta<Body, EW, kRowBatch, true>(
             Body::at(smem + bu * rb, t), Body::at(smem + bv * rb, t), t, u, v, cu, a, b,
-            codes, pitch, R, ew_c, wk, lane, lanes, mask, split);
+            codes, pitch, R, ew_c, wk, lane, lanes, mask);
         __syncwarp(mask);  // every lane has read the codes
         // the Metropolis decision in f32, as metropolis() takes it
         const float expo = -b32 * (float)dE;
@@ -218,15 +198,11 @@ swap_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
   }
 
   __syncthreads();
-  for (int x = tid; x < R * wpb; x += nt) {
-    const int r = x / wpb;
-    const int c = x % wpb;
-    if (w0 + c < W) occ[(size_t)r * W + w0 + c] = s_occ[r * pitch + c];
-  }
-  if (live && lane == 0) {
-    enthalpy[w] = e;
-    naccept[w] += nacc;
-    nmove[w] += nmv;
+  f.store_codes(occ, s_occ, R);
+  if (f.live && lane == 0) {
+    enthalpy[f.w] = e;
+    naccept[f.w] += nacc;
+    nmove[f.w] += nmv;
   }
 }
 
@@ -273,12 +249,8 @@ extern "C" int smol_swap_chain(void* occ, void* enthalpy, void* naccept,
                                int L, int K, int TM, int W, int block_size,
                                int n_steps, int rng_mode, int q, int Lq, int NB,
                                int Li, int NW, int lanes, int walkers_per_block,
-                               int resident, int split_ewald, void* stream) {
-  const int threads = walkers_per_block * lanes;
-  const bool lanes_ok = lanes >= 1 && lanes <= 16 && (lanes & (lanes - 1)) == 0;
-  if (W < 1 || !lanes_ok || walkers_per_block < 1 || threads > kSwapThreads ||
-      (W > block_size && block_size % walkers_per_block) || resident < 0 ||
-      resident > 1 || split_ewald < 0 || split_ewald > 1) {
+                               int resident, void* stream) {
+  if (!lane_launch_ok(W, lanes, walkers_per_block, block_size, kSwapThreads, resident)) {
     return (int)cudaErrorInvalidValue;
   }
   const bool ew = ew_v != nullptr;
@@ -297,13 +269,13 @@ extern "C" int smol_swap_chain(void* occ, void* enthalpy, void* naccept,
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (W + walkers_per_block - 1) / walkers_per_block;
-  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  kernel<<<blocks, walkers_per_block * lanes, smem, (cudaStream_t)stream>>>(
       (int8_t*)occ, (double*)enthalpy, (int32_t*)naccept, (int32_t*)nmove,
       (const float*)beta, (const int32_t*)useq, (const int32_t*)vseq,
       seq_stride, (const int64_t*)seed, t.nbr, t.stride, t.d2, t.g, t.ew_v,
       (const double*)ew_c, t.qnbr, t.qfreq, t.qms, t.qac, t.qas, t.qrows,
       t.imask, t.iamp, t.irows, R, L, K, TM, Lq, NB, Li, NW, W, block_size,
-      n_steps, rng_mode, lanes, walkers_per_block, resident, split_ewald);
+      n_steps, rng_mode, lanes, walkers_per_block, resident);
   return (int)cudaGetLastError();
 }
 

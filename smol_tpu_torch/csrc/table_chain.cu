@@ -43,16 +43,18 @@
 // kRowBatch, from the running dE on lane 0 and from +0.0 on the others;
 // K1-Ising's parity sum in batches of kLaneBatch from +0.0, scaled after
 // the lanes meet and added to dE), the partials meeting in a butterfly of
-// __shfl_xor_sync; then the Ewald term, in rank order on every lane or
-// split over the lanes (`split_ewald`, the plan's choice), and the
-// chemical work; then lane 0 writes b_j into the slot's cell between two
+// __shfl_xor_sync; then the Ewald term, split over the lanes in the same
+// way (in rank order on every lane it ran 1.19-1.96x slower on an H100,
+// PERF.md), and the chemical work; then lane 0 writes b_j into the slot's cell between two
 // __syncwarp, and every lane sets b_j in its own copy of the Ising bits,
 // so that slot j + 1 sees slot j applied.  The step's uniform is drawn G
 // steps at a time, one step a lane, and read with a shuffle, as in
 // flip_chain.cu; the direction and the slot ranks are read each step.
 // Every lane takes the decision and keeps its own enthalpy; lane 0 alone
 // writes codes.  At G = 1 the rows are summed in row order onto the
-// running dE, as the one-thread kernel did.
+// running dE, and the dot in rank order, as the one-thread kernel did.
+// The frame (the walker's lanes, the codes' load and store, the split
+// draw) is chain_common.cuh's LaneFrame.
 //
 // Rows.  Where every rank's rows of the body fit in shared memory beside
 // the codes, the launch runs at least a step a rank and the rows add no
@@ -71,7 +73,7 @@
 // a valid move.  With G lanes a warp holds 32 / G walkers, the rows of a
 // slot are divided by G, and the per-step waits go where the rows are
 // resident; what every lane repeats (the slots' codes and validity, the
-// decision, the shuffles, and K4 where it is not split) stays.
+// decision, the shuffles) stays.
 //
 // KMT is the slot count as a compile-time constant: 2 for one flip vector
 // of two recolorings plus the swap row (the spinel), 0 for a runtime count
@@ -128,8 +130,7 @@ table_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
                    const int32_t* __restrict__ irows, int R, int L, int K,
                    int TM, int C, int Lq, int NB, int Li, int NW, int W,
                    int block_size, int n_steps, int rng_mode, int km_rt,
-                   int n_rows, int lanes, int walkers_per_block, int resident,
-                   int split_ewald) {
+                   int n_rows, int lanes, int walkers_per_block, int resident) {
   using Ln = Lanes<Body>;
   // the tables with their compile-time counts, as swap_chain.cu takes them
   Tables t{nbr, stride, d2, g, ew_v, qnbr, qfreq, qms, qac, qas, qrows,
@@ -137,43 +138,27 @@ table_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
   Body::pin(t);
   const int KM = KMT > 0 ? KMT : km_rt;
   constexpr int kSlots = KMT > 0 ? KMT : kMaxTableSlots;
-  const int wpb = walkers_per_block;
+  const LaneFrame f(lanes, walkers_per_block, W);
+  const int tid = f.tid, nt = f.nt, lane = f.lane, pitch = f.pitch;
+  const unsigned mask = f.mask;
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t rb = Body::bytes(t);
   int8_t* s_occ =
       reinterpret_cast<int8_t*>(smem + (resident ? (size_t)R : 2 * (size_t)KM) * rb);
-  const int pitch = code_pitch(wpb);
 
   // the move table [3, n_rows, KM]: from-code, to-code, slot valid
   const int32_t* from_code = move_rows;
   const int32_t* to_code = move_rows + n_rows * KM;
   const int32_t* slot_valid = move_rows + 2 * n_rows * KM;
 
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int shift = __ffs(lanes) - 1;  // lanes is a power of two
-  const int wl = tid >> shift;         // the walker within the block
-  const int lane = tid & (lanes - 1);  // the lane within the walker
-  const unsigned group = lanes == 1 ? 1u : (1u << lanes) - 1u;
-  const unsigned mask = group << ((tid & 31) & ~(lanes - 1));  // the walker's lanes
-  const int w0 = blockIdx.x * wpb;
-  const int w = w0 + wl;
-  const bool live = w < W;
-  const int wc = live ? w : W - 1;  // dead walkers shadow the last one
-  const bool split = split_ewald != 0;
-
-  for (int x = tid; x < R * wpb; x += nt) {
-    const int r = x / wpb;
-    const int c = x % wpb;
-    s_occ[r * pitch + c] = occ[(size_t)r * W + min(w0 + c, W - 1)];
-  }
-  int8_t* codes = s_occ + wl;  // the walker's column of the codes
+  f.load_codes(s_occ, occ, R);
+  int8_t* codes = s_occ + f.wl;  // the walker's column of the codes
 
   // the whole CUDA block lies in one sequence group (see the launcher)
-  const int grp = w0 / block_size;
+  const int grp = f.w0 / block_size;
   const int32_t* my_dirs = dirs + (size_t)grp * dir_stride;
   const int32_t* my_ranks = ranks + (size_t)grp * rank_stride;
-  const Draws draws(*seed_ptr, grp, wc, block_size);
+  const Draws draws(*seed_ptr, grp, f.wc, block_size);
 
   auto prefetch = [&](int i) {  // step i's valid slots' rows into buffer i & 1
     unsigned char* buf = smem + (i & 1) * KM * rb;
@@ -194,23 +179,17 @@ table_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
   __syncthreads();
 
   typename Body::Walker wk;  // the Ising body's rank bits; nothing otherwise
-  wk.load(s_occ, R, pitch, wl);
-  double e = enthalpy[wc];
-  const float b32 = beta[wc];
+  wk.load(s_occ, R, pitch, f.wl);
+  double e = enthalpy[f.wc];
+  const float b32 = beta[f.wc];
   int nacc = 0;
 
-  // log U drawn G steps at a time: lane j takes step i + j, and step i
-  // reads it from lane i % G
-  float my_logu = 0.0f;
+  float my_logu = 0.0f;  // log U, drawn G steps at a time (lane_log_u)
   for (int i = 0; i < n_steps; ++i) {
     if (!resident && i + 1 < n_steps) prefetch(i + 1);
     // a dead walker's lanes only copy rows and meet the block's barrier
-    if (live) {
-      const int slot = i & (lanes - 1);
-      if (slot == 0 && i + lane < n_steps) {
-        my_logu = log_uniform(draws.at(i + lane, rng_mode).x);
-      }
-      const float log_u = __shfl_sync(mask, my_logu, slot, lanes);
+    if (f.live) {
+      const float log_u = lane_log_u(my_logu, draws, i, n_steps, rng_mode, f);
       const int d = __ldg(my_dirs + i);
       const int32_t* fc = from_code + d * KM;
       const int32_t* tc = to_code + d * KM;
@@ -247,8 +226,8 @@ table_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
             // first a one-thread window ran a fifth faster on an H100
             double ewald = 0.0;
             if constexpr (EW) {
-              ewald = ewald_of(rows.ew, __ldg(ew_c + r), codes, pitch, R, b - a, lane, lanes,
-                               mask, split);
+              ewald = lane_ewald_term(rows.ew, __ldg(ew_c + r), codes, pitch, R, b - a, lane,
+                                      lanes, mask);
             }
             if constexpr (Ln::kScaled) {
               const double s = lane_sum(Ln::sum(rows, t, r, wv, lane, lanes), mask, lanes);
@@ -290,14 +269,10 @@ table_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
   }
 
   __syncthreads();
-  for (int x = tid; x < R * wpb; x += nt) {
-    const int r = x / wpb;
-    const int c = x % wpb;
-    if (w0 + c < W) occ[(size_t)r * W + w0 + c] = s_occ[r * pitch + c];
-  }
-  if (live && lane == 0) {
-    enthalpy[w] = e;
-    naccept[w] += nacc;
+  f.store_codes(occ, s_occ, R);
+  if (f.live && lane == 0) {
+    enthalpy[f.w] = e;
+    naccept[f.w] += nacc;
   }
 }
 
@@ -346,13 +321,9 @@ extern "C" int smol_table_chain(void* occ, void* enthalpy, void* naccept,
                                 int block_size, int n_steps, int rng_mode,
                                 int k_max, int n_rows, int q, int Lq, int NB,
                                 int Li, int NW, int lanes, int walkers_per_block,
-                                int resident, int split_ewald, void* stream) {
-  const int threads = walkers_per_block * lanes;
-  const bool lanes_ok = lanes >= 1 && lanes <= 16 && (lanes & (lanes - 1)) == 0;
-  if (k_max < 2 || k_max > kMaxTableSlots || W < 1 || !lanes_ok ||
-      walkers_per_block < 1 || threads > kTableThreads ||
-      (W > block_size && block_size % walkers_per_block) || resident < 0 ||
-      resident > 1 || split_ewald < 0 || split_ewald > 1) {
+                                int resident, void* stream) {
+  if (k_max < 2 || k_max > kMaxTableSlots ||
+      !lane_launch_ok(W, lanes, walkers_per_block, block_size, kTableThreads, resident)) {
     return (int)cudaErrorInvalidValue;
   }
   const bool ew = ew_v != nullptr;
@@ -372,14 +343,14 @@ extern "C" int smol_table_chain(void* occ, void* enthalpy, void* naccept,
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (W + walkers_per_block - 1) / walkers_per_block;
-  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  kernel<<<blocks, walkers_per_block * lanes, smem, (cudaStream_t)stream>>>(
       (int8_t*)occ, (double*)enthalpy, (int32_t*)naccept, (const float*)beta,
       (const int32_t*)dirs, (const int32_t*)ranks, dir_stride, rank_stride,
       (const int64_t*)seed, t.nbr, t.stride, t.d2, t.g, (const double*)mu,
       (const int32_t*)move_rows, t.ew_v, (const double*)ew_c, t.qnbr, t.qfreq,
       t.qms, t.qac, t.qas, t.qrows, t.imask, t.iamp, t.irows, R, L, K, TM, C,
       Lq, NB, Li, NW, W, block_size, n_steps, rng_mode, k_max, n_rows, lanes,
-      walkers_per_block, resident, split_ewald);
+      walkers_per_block, resident);
   return (int)cudaGetLastError();
 }
 

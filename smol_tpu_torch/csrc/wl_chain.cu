@@ -172,32 +172,19 @@ wl_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
   Body::pin(t);
   constexpr int NR = MOVE == kSwap ? 2 : 1;  // row sets of one step
   const int B = p.num_levels;
-  const int wpb = walkers_per_block;
+  const LaneFrame f(lanes, walkers_per_block, W);
+  const int tid = f.tid, nt = f.nt, lane = f.lane, pitch = f.pitch;
+  const int wpb = f.wpb, wl = f.wl, w0 = f.w0, wc = f.wc;
+  const bool live = f.live;
+  const unsigned mask = f.mask;
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t rb = Body::bytes(t);
   unsigned char* s_planes = smem + (resident ? (size_t)R : 2 * (size_t)NR) * rb;
   const int bp = plane_pitch(B);
   double* s_ent = reinterpret_cast<double*>(s_planes);
   int8_t* s_occ = reinterpret_cast<int8_t*>(s_planes + planes_bytes(B, wpb, planes));
-  const int pitch = code_pitch(wpb);
 
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int shift = __ffs(lanes) - 1;  // lanes is a power of two
-  const int wl = tid >> shift;         // the walker within the block
-  const int lane = tid & (lanes - 1);  // the lane within the walker
-  const unsigned group = lanes == 1 ? 1u : (1u << lanes) - 1u;
-  const unsigned mask = group << ((tid & 31) & ~(lanes - 1));  // the walker's lanes
-  const int w0 = blockIdx.x * wpb;
-  const int w = w0 + wl;
-  const bool live = w < W;
-  const int wc = live ? w : W - 1;  // dead walkers shadow the last one
-
-  for (int x = tid; x < R * wpb; x += nt) {
-    const int r = x / wpb;
-    const int c = x % wpb;
-    s_occ[r * pitch + c] = occ[(size_t)r * W + min(w0 + c, W - 1)];
-  }
+  f.load_codes(s_occ, occ, R);
   for (int x = tid; x < B * wpb && planes; x += nt) {  // bin-major reads
     const int bin = x / wpb;
     const int c = x % wpb;
@@ -367,21 +354,17 @@ wl_chain_kernel(int8_t* __restrict__ occ, double* __restrict__ enthalpy,
   }
 
   __syncthreads();
-  for (int x = tid; x < R * wpb; x += nt) {
-    const int r = x / wpb;
-    const int c = x % wpb;
-    if (w0 + c < W) occ[(size_t)r * W + w0 + c] = s_occ[r * pitch + c];
-  }
+  f.store_codes(occ, s_occ, R);
   for (int x = tid; x < B * wpb && planes; x += nt) {
     const int bin = x / wpb;
     const int c = x % wpb;
     if (w0 + c < W) entropy[(size_t)bin * W + w0 + c] = s_ent[c * bp + bin];
   }
   if (live && lane == 0) {
-    enthalpy[w] = e;
-    naccept[w] += nacc;
-    mod_factor[w] = modf;
-    wl_counter[w] = cnt;
+    enthalpy[f.w] = e;
+    naccept[f.w] += nacc;
+    mod_factor[f.w] = modf;
+    wl_counter[f.w] = cnt;
   }
 }
 
@@ -434,11 +417,8 @@ extern "C" int smol_wl_chain(void* occ, void* enthalpy, void* naccept,
                              int resident, int planes, double min_enthalpy,
                              double bin_size, double span, double mod_divisor,
                              float flatness, void* stream) {
-  const int threads = walkers_per_block * lanes;
-  const bool lanes_ok = lanes >= 1 && lanes <= 16 && (lanes & (lanes - 1)) == 0;
-  if ((move != kFlip && move != kSwap) || W < 1 || !lanes_ok || walkers_per_block < 1 ||
-      threads > kWLThreads || (W > block_size && block_size % walkers_per_block) ||
-      planes < 0 || planes > 1) {
+  if ((move != kFlip && move != kSwap) || planes < 0 || planes > 1 ||
+      !lane_launch_ok(W, lanes, walkers_per_block, block_size, kWLThreads, resident)) {
     return (int)cudaErrorInvalidValue;
   }
   const bool ew = ew_v != nullptr;
@@ -468,7 +448,7 @@ extern "C" int smol_wl_chain(void* occ, void* enthalpy, void* naccept,
   p.mod_divisor = mod_divisor;
   p.flatness = flatness;
   const int blocks = (W + walkers_per_block - 1) / walkers_per_block;
-  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  kernel<<<blocks, walkers_per_block * lanes, smem, (cudaStream_t)stream>>>(
       (int8_t*)occ, (double*)enthalpy, (int32_t*)naccept, (double*)entropy,
       (int32_t*)hist, (int32_t*)occr, (double*)mod_factor,
       (int32_t*)wl_counter, (const int32_t*)useq, (const int32_t*)vseq,

@@ -40,13 +40,13 @@ KERNELS = {
     # occ enthalpy naccept nmove beta useq vseq | seq_stride | seed nbr
     # stride d2 g ew_v ew_c qnbr qfreq qms qac qas qrows imask iamp irows | R
     # L K TM W block_size n_steps rng_mode q Lq NB Li NW lanes
-    # walkers_per_block resident split_ewald | stream
-    "swap_chain": [_ptr] * 7 + [_i32] + [_ptr] * 16 + [_i32] * 17 + [_ptr],
+    # walkers_per_block resident | stream
+    "swap_chain": [_ptr] * 7 + [_i32] + [_ptr] * 16 + [_i32] * 16 + [_ptr],
     # occ enthalpy naccept beta dirs ranks | dir_stride rank_stride | seed nbr
     # stride d2 g mu move_rows ew_v ew_c qnbr qfreq qms qac qas qrows imask
     # iamp irows | R L K TM C W block_size n_steps rng_mode k_max n_rows q Lq
-    # NB Li NW lanes walkers_per_block resident split_ewald | stream
-    "table_chain": [_ptr] * 6 + [_i32] * 2 + [_ptr] * 18 + [_i32] * 20 + [_ptr],
+    # NB Li NW lanes walkers_per_block resident | stream
+    "table_chain": [_ptr] * 6 + [_i32] * 2 + [_ptr] * 18 + [_i32] * 19 + [_ptr],
     # occ enthalpy naccept entropy histogram occurrences mod_factor wl_counter
     # useq vseq | seq_stride | seed nbr stride d2 g mu ncode ew_v ew_c qnbr
     # qfreq qms qac qas qrows imask iamp irows | R L K TM C W block_size

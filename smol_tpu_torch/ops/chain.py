@@ -1164,8 +1164,7 @@ def flip_step_reference(tables: ChainTables, occ, u, r_u, r_j, beta32, lanes=1):
     return accept, b, dE, expo, log_u
 
 
-def swap_step_reference(tables: ChainTables, occ, u, v, r_u, beta32, lanes=1,
-                        split_ewald=False):
+def swap_step_reference(tables: ChainTables, occ, u, v, r_u, beta32, lanes=1):
     """One swap proposal for every walker, without applying it.
 
     ``occ`` [R, W] int8 codes (left as it was), ``u``/``v`` [W] ranks,
@@ -1174,19 +1173,17 @@ def swap_step_reference(tables: ChainTables, occ, u, v, r_u, beta32, lanes=1,
     u takes b and v takes a.  dE sums u's cluster terms, then v's with u
     already holding b, then u's Ewald term, then v's (against the same
     occupancy), as the kernel's ``lanes`` lanes sum them
-    (:func:`_body_delta`; each Ewald dot over the lanes where
-    ``split_ewald``, else in rank order; at one lane, the one-thread
-    order).  A null pair (a == b) is never accepted.
+    (:func:`_body_delta`; each Ewald dot split over the lanes too; at one
+    lane, the one-thread order).  A null pair (a == b) is never accepted.
     """
-    a, b, dE = _swap_proposal(tables, occ, u.long(), v.long(), lanes,
-                              lanes if split_ewald else 1)
+    a, b, dE = _swap_proposal(tables, occ, u.long(), v.long(), lanes, lanes)
     is_move = a != b
     accept, expo, log_u = _metropolis(dE, r_u, beta32)
     return accept & is_move, is_move, a, b, dE, expo, log_u
 
 
 def table_step_reference(tables: ChainTables, tm: TableMove, occ, d, ranks,
-                         r_u, beta32, lanes=1, split_ewald=False):
+                         r_u, beta32, lanes=1):
     """One table-move proposal for every walker, without applying it.
 
     ``occ`` [R, W] int8 codes (left as it was), ``d`` [W] direction rows,
@@ -1205,8 +1202,8 @@ def table_step_reference(tables: ChainTables, tm: TableMove, occ, d, ranks,
     lanes take them: lane 0 adds its rows onto the running dE and the
     others from +0.0, the partials meeting in the butterfly (the Ising
     body's parity sum meets first and is then scaled and added); the Ewald
-    dot over the lanes where ``split_ewald``, else in rank order; at one
-    lane, the one-thread order.  An invalid move is never accepted.
+    dot split over the lanes too; at one lane, the one-thread order.  An
+    invalid move is never accepted.
     """
     walkers = torch.arange(occ.shape[1], device=occ.device)
     d, ranks = d.long(), ranks.long()
@@ -1238,7 +1235,7 @@ def table_step_reference(tables: ChainTables, tm: TableMove, occ, d, ranks,
             dE = _lanes_meet(_lane_partials(_row_terms(tables, occ, u, a, bj), lanes,
                                             partial))
         if tables.has_ewald:
-            dE = dE + _ewald_term(tables, occ, u, bj - a, lanes if split_ewald else 1)
+            dE = dE + _ewald_term(tables, occ, u, bj - a, lanes)
         dE = dE - (tables.mu[u, bj] - tables.mu[u, a])
         written = on & valid  # distinct sites are certain only among these
         occ[u[written], walkers[written]] = bj[written].to(occ.dtype)
@@ -1279,15 +1276,15 @@ def flip_chain_reference(occ, enthalpy, naccept, beta32, seq, seed, tables,
 
 def swap_chain_reference(occ, enthalpy, naccept, nmove, beta32, useq, vseq,
                          seed, tables, n_steps, block_size, rng="philox",
-                         margin=None, slack=0.0, lanes=1, split_ewald=False):
+                         margin=None, slack=0.0, lanes=1):
     """Plain torch twin of the CUDA swap-chain kernel (same arguments).
 
     Updates ``occ``, ``enthalpy``, ``naccept`` and ``nmove`` (non-null
     proposals) in place.  Each delta sums as the kernel's ``lanes`` lanes
-    sum it, with the Ewald dots split over them where ``split_ewald``
-    (:func:`swap_chain` takes the launch's, :func:`twin_order`; at one
-    lane, the one-thread order).  ``margin`` as in :func:`flip_chain_reference`,
-    with each distance taken beyond beta * ``slack`` (eV): where another
+    sum it, the Ewald dots too (:func:`swap_chain` takes the launch's,
+    :func:`twin_order`; at one lane, the one-thread order).  ``margin`` as
+    in :func:`flip_chain_reference`, with each distance taken beyond beta
+    * ``slack`` (eV): where another
     implementation's delta may be off by up to ``slack``, its decision
     can differ only on walkers whose margin is a few ulps.  Null pairs
     never lower the margin.
@@ -1299,7 +1296,7 @@ def swap_chain_reference(occ, enthalpy, naccept, nmove, beta32, useq, vseq,
     for i in range(n_steps):
         u, v = useq[group, i].long(), vseq[group, i].long()
         accept, is_move, a, b, dE, expo, log_u = swap_step_reference(
-            tables, occ, u, v, r_u[i], beta32, lanes, split_ewald
+            tables, occ, u, v, r_u[i], beta32, lanes
         )
         if margin is not None:
             _lower_margin(margin, expo, log_u, beta32, slack, ~is_move)
@@ -1325,13 +1322,13 @@ def body_rows(tables: ChainTables) -> torch.Tensor:
 def table_chain_reference(occ, enthalpy, naccept, beta32, dirs, ranks, seed,
                           tables, table_move, n_steps, block_size,
                           rng="philox", margin=None, slack=0.0, nslot=None,
-                          nrow=None, lanes=1, split_ewald=False):
+                          nrow=None, lanes=1):
     """Plain torch twin of the CUDA table-chain kernel (same arguments).
 
     Updates ``occ``, ``enthalpy`` and ``naccept`` in place.  Each delta
-    sums as the kernel's ``lanes`` lanes sum it, with the Ewald dots split
-    over them where ``split_ewald`` (:func:`table_chain` takes the
-    launch's, :func:`twin_order`; at one lane, the one-thread order).
+    sums as the kernel's ``lanes`` lanes sum it, the Ewald dots too
+    (:func:`table_chain` takes the launch's, :func:`twin_order`; at one
+    lane, the one-thread order).
     ``margin`` and
     ``slack`` as in :func:`swap_chain_reference`; invalid (identity)
     proposals never lower the margin.  ``nslot``, an optional [W] int32
@@ -1347,8 +1344,7 @@ def table_chain_reference(occ, enthalpy, naccept, beta32, dirs, ranks, seed,
     for i in range(n_steps):
         slot_ranks = ranks[group, i].long()  # [W, k_max]
         accept, valid, _, b, dE, expo, log_u = table_step_reference(
-            tables, table_move, occ, dirs[group, i], slot_ranks, r_u[i], beta32, lanes,
-            split_ewald
+            tables, table_move, occ, dirs[group, i], slot_ranks, r_u[i], beta32, lanes
         )
         if margin is not None:
             _lower_margin(margin, expo, log_u, beta32, slack, ~valid)
@@ -1577,8 +1573,6 @@ class ChainLaunches:
         args += [0, RNG_MODES[rng], *body_shape]
         plan = launch_plan(move, tables, W, block_size, seqs[0].shape[-1], design=design)
         args += [plan.lanes, plan.walkers_per_block, int(plan.resident)]
-        if move == "swap":
-            args.append(int(plan.split_ewald))
         self.args = args + [stream]
         self.tables = tables
         self.rows, self.max_steps = len(seed), seqs[0].shape[-1]
@@ -1622,17 +1616,13 @@ def _row_set_bytes(tables):
 # ---- the flip, swap and table kernels' launch: lanes and resident rows ----
 
 LANE_BLOCK_THREADS = 256  # most threads of a lane kernel's block: walkers x lanes
-# a launch takes the fewest lanes that give it this many threads, by move
-# and site body (at 8192 walkers: 32768 threads are 4 lanes, 65536 are 8),
-# the fastest of 1-16 lanes on the cells of chip_smoke.py's sweeps on an
-# H100 (flip_ab, lane_ab; PERF.md): a swap or table move's direct body
-# reads two or more ranks' rows a step, and takes 8 lanes where a flip's
-# takes 4
-LANE_THREADS = {
-    ("flip", "direct"): 32768, ("flip", "qary"): 65536, ("flip", "ising"): 65536,
-    ("swap", "direct"): 65536, ("swap", "qary"): 65536, ("swap", "ising"): 65536,
-    ("table", "direct"): 65536, ("table", "qary"): 65536, ("table", "ising"): 65536,
-}
+# a launch takes the fewest lanes that give it this many threads (at 8192
+# walkers: 8 lanes), but a flip with the direct body half as many (4
+# lanes): the fastest of 1-16 lanes on the cells of chip_smoke.py's sweeps
+# on an H100 (flip_ab, lane_ab; PERF.md).  A swap or table move's direct
+# body reads two or more ranks' rows a step, a flip's one.
+LANE_THREADS = 65536
+FLIP_DIRECT_LANE_THREADS = 32768
 MAX_LANES = 16
 # the card's limits on the blocks one SM holds at once (an H100 SXM: 132
 # SMs, 2048 threads, 32 blocks and 228 KB of shared memory an SM, 1 KB of
@@ -1641,26 +1631,18 @@ SM_COUNT = 132
 SM_THREADS = 2048
 SM_BLOCKS = 32
 SM_SHARED_BYTES = 233472
-# K4 split over a walker's lanes (lane j takes ranks j, j + G, ...) in the
-# swap and table kernels, else in rank order on every lane (as K1 and K6
-# take it): split ran 1.19-1.96x faster on every Ewald cell of
-# chip_smoke.py's lane_ab on an H100 (PERF.md)
-SPLIT_EWALD = {"flip": False, "swap": True, "table": True}
-STREAMED_ROW_SETS = {"flip": 2, "swap": 4}  # two buffers of a step's rows; table: 2 k_max
 
 
 @dataclass(frozen=True)
 class _LaneDesign:
     """How the flip, swap or table kernel is launched: its threads per
-    walker (None: :func:`launch_lanes` of the launch), whether every rank's
-    rows stay in shared memory (None: as :func:`launch_plan` decides) and whether the
-    swap and table kernels split K4 over the lanes (None: ``SPLIT_EWALD``).
-    Private: the A/B of ``chip_smoke.py`` and the tests choose one; users
-    get the default."""
+    walker (None: :func:`launch_lanes` of the launch) and whether every
+    rank's rows stay in shared memory (None: as :func:`launch_plan`
+    decides).  Private: the A/B of ``chip_smoke.py`` and the tests choose
+    one; users get the default."""
 
     lanes: int | None = None
     resident: bool | None = None
-    split_ewald: bool | None = None
 
 
 _FlipDesign = _LaneDesign  # the name K1's callers use
@@ -1679,14 +1661,12 @@ def _design_of(move, design):
 class LanePlan:
     """One flip, swap or table launch's shape: threads per walker, walkers
     per CUDA block, whether every rank's rows are resident in shared
-    memory, its dynamic shared memory in bytes, and whether K4 is split
-    over the lanes."""
+    memory, and its dynamic shared memory in bytes."""
 
     lanes: int
     walkers_per_block: int
     resident: bool
     shared_bytes: int
-    split_ewald: bool = False
 
     def blocks(self, W: int) -> int:
         return -(-W // self.walkers_per_block)
@@ -1695,32 +1675,25 @@ class LanePlan:
 def launch_lanes(move, tables, W, design=None):
     """Threads per walker of a ``move`` launch of ``W`` walkers on
     ``tables``: the design's (None: the move's default), else the fewest
-    (1, 2, 4, 8 or 16) that give the launch ``LANE_THREADS`` threads for
-    the move and the tables' site body.  The lanes set the order of the
-    delta's sums, and the twin takes the same lanes for the same launch."""
+    (1, 2, 4, 8 or 16) that give the launch ``LANE_THREADS`` threads
+    (``FLIP_DIRECT_LANE_THREADS`` for a flip with the direct body).  The
+    lanes set the order of the delta's sums, and the twin takes the same
+    lanes for the same launch."""
     design = _design_of(move, design)
     if design.lanes:
         return design.lanes
+    threads = (FLIP_DIRECT_LANE_THREADS if (move, tables.delta) == ("flip", "direct")
+               else LANE_THREADS)
     lanes = 1
-    while lanes < MAX_LANES and W * lanes < LANE_THREADS[(move, tables.delta)]:
+    while lanes < MAX_LANES and W * lanes < threads:
         lanes *= 2
     return lanes
 
 
-def _split_ewald(move, tables, design=None):
-    """Whether the launch splits K4 over its lanes (only with an Ewald term)."""
-    split = _design_of(move, design).split_ewald
-    return tables.has_ewald and (SPLIT_EWALD[move] if split is None else split)
-
-
 def twin_order(move, tables, W, design=None) -> dict:
     """The keyword arguments with which the ``move`` twin sums in the order
-    of the kernel's launch of ``W`` walkers: its lanes and, for swaps and
-    table moves, whether the Ewald dots are split over them."""
-    order = {"lanes": launch_lanes(move, tables, W, design)}
-    if move != "flip":
-        order["split_ewald"] = _split_ewald(move, tables, design)
-    return order
+    of the kernel's launch of ``W`` walkers: its lanes."""
+    return {"lanes": launch_lanes(move, tables, W, design)}
 
 
 def flip_lanes(tables, W, design=None):
@@ -1743,8 +1716,8 @@ def chain_shared_bytes(move, tables, walkers_per_block, resident, k_max=2):
     or two buffers of a step's row sets (one rank's for a flip, u's and
     v's for a swap, ``k_max`` slots' for a table move), and the block's
     codes, one byte a walker at a padded pitch."""
-    streamed = 2 * k_max if move == "table" else STREAMED_ROW_SETS[move]
-    row_sets = tables.num_ranks if resident else streamed
+    step_sets = {"flip": 1, "swap": 2, "table": k_max}[move]
+    row_sets = tables.num_ranks if resident else 2 * step_sets
     pitch = -(-walkers_per_block // 4) * 4 + 4
     return row_sets * _row_set_bytes(tables) + _align16(tables.num_ranks * pitch)
 
@@ -1769,10 +1742,9 @@ def launch_plan(move, tables, W, block_size, n_steps, k_max=2, design=None) -> L
     27 ranks streamed, each the faster on an H100, PERF.md) and the rows'
     shared memory adds no wave of blocks over the SMs (Au-Cu 4x4x4's 115 KB
     of K1-Ising rows hold one block of 32 walkers an SM, 256 blocks in two
-    waves, and ran 1.40x slower than streamed, PERF.md), and K4 split over
-    the lanes as ``SPLIT_EWALD`` says.  Raises where even the streamed rows
-    do not fit, or where the design (None: the move's default) asks for
-    what does not."""
+    waves, and ran 1.40x slower than streamed, PERF.md).  Raises where
+    even the streamed rows do not fit, or where the design (None: the
+    move's default) asks for what does not."""
     design = _design_of(move, design)
     lanes = launch_lanes(move, tables, W, design)
     wpb = _block_walkers(W, block_size, lanes)
@@ -1794,7 +1766,7 @@ def launch_plan(move, tables, W, block_size, n_steps, k_max=2, design=None) -> L
             f"{'every rank' if resident else 'two buffers of a step'} of {tables.delta} "
             f"rows of {_row_set_bytes(tables)} B and {tables.num_ranks} ranks of codes for "
             f"{wpb} walkers), above the card's {MAX_SHARED_BYTES}")
-    return LanePlan(lanes, wpb, resident, smem, _split_ewald(move, tables, design))
+    return LanePlan(lanes, wpb, resident, smem)
 
 
 def flip_launch_plan(tables, W, block_size, n_steps, design=None) -> LanePlan:
@@ -1854,7 +1826,7 @@ def table_chain(occ, enthalpy, naccept, beta32, dirs, ranks, seed, tables,
             rows.data_ptr(), *_ewald_pointers(tables), *body_ptrs, R, L, K,
             tables.g.shape[2], tables.mu.shape[1], W, block_size, n_steps,
             RNG_MODES[rng], k_max, table_move.n_dirs + 2, *body_shape, plan.lanes,
-            plan.walkers_per_block, int(plan.resident), int(plan.split_ewald), stream,
+            plan.walkers_per_block, int(plan.resident), stream,
         )
     _count_launch(table_chain, tables)
     _launch_check(lib, "table_chain", rc)

@@ -125,8 +125,7 @@ TWIN_MOVES = {chain.flip_chain_reference: "flip", chain.swap_chain_reference: "s
 
 
 def _twin_lanes(ops, twin):
-    """The twin sums in the order of the kernel's launch (its lanes and,
-    for swaps and table moves, the Ewald split)."""
+    """The twin sums in the order of the kernel's launch (its lanes)."""
     if twin not in TWIN_MOVES:
         return {}
     return chain.twin_order(TWIN_MOVES[twin], ops["tables"], ops["occ"].shape[1])
@@ -1022,16 +1021,15 @@ def test_flip_kernel_refuses_a_plan_that_does_not_fit(card):
     assert chain.flip_chain.launches == before
 
 
-# ---------------- K2's and K5's launch: lanes, resident rows, K4 split ----------------
+# ---------------- K2's and K5's launch: lanes and resident rows ----------------
 
-LANE_DESIGNS = {  # threads a walker, rows resident (None: where they fit), K4 split
+LANE_DESIGNS = {  # threads a walker, rows resident (None: where they fit)
     "G1-streamed": chain._LaneDesign(lanes=1, resident=False),
-    "G2-fit": chain._LaneDesign(lanes=2, split_ewald=False),
-    "G4-streamed-split": chain._LaneDesign(lanes=4, resident=False, split_ewald=True),
-    "G8-fit-split": chain._LaneDesign(lanes=8, split_ewald=True),
-    "G8-fit-ranked": chain._LaneDesign(lanes=8, split_ewald=False),
-    "G16-fit-split": chain._LaneDesign(lanes=16, split_ewald=True),
-    "G16-streamed": chain._LaneDesign(lanes=16, resident=False, split_ewald=False),
+    "G2-fit": chain._LaneDesign(lanes=2),
+    "G4-streamed": chain._LaneDesign(lanes=4, resident=False),
+    "G8-fit": chain._LaneDesign(lanes=8),
+    "G16-fit": chain._LaneDesign(lanes=16),
+    "G16-streamed": chain._LaneDesign(lanes=16, resident=False),
 }
 SWAP_BODY_CELLS = [  # (cell, site body): every body, with and without the Ewald term
     ("spinel_ewald_2x2x2", "ising"),  # rows fit
@@ -1081,8 +1079,7 @@ def _design_vs_twin(ops, move, design, rng):
 @pytest.mark.parametrize("cell,delta", SWAP_BODY_CELLS)
 def test_swap_kernel_designs_match_twin(card, rng, design, cell, delta):
     """Each launch design of K2 (1 to 16 lanes a walker, rows resident
-    where they fit or streamed, K4 in rank order or split over the lanes)
-    equals the twin summing in its order, bit for bit: occupancies, accept
+    where they fit or streamed) equals the twin summing in its order, bit for bit: occupancies, accept
     and move counts, enthalpies."""
     ops = _operands(card, cell, 256, 300, 64, move="swap", delta=delta)
     assert ops["tables"].delta == delta
@@ -1106,7 +1103,7 @@ def test_table_kernel_designs_match_twin(card, rng, design, cell, delta):
 def test_partial_block_designs_match_twin(card, move):
     """A partial CUDA block and sequence blocks of 8 walkers."""
     cell = "spinel_ewald_2x2x2" if move == "swap" else "spinel_ewald_sgc_2x2x2"
-    for design in ("G2-fit", "G16-streamed", "G8-fit-split"):
+    for design in ("G2-fit", "G16-streamed", "G8-fit"):
         ops = _operands(card, cell, 200, 300, 8, move=move, delta="ising")
         _design_vs_twin(ops, move, LANE_DESIGNS[design], "philox")
 

@@ -2,9 +2,8 @@
 
 The kernel splits each walker's swap over G threads (lanes): lane j sums
 rows j, j + G, ... of u's rows and then of v's, the lanes' partials
-meeting in a butterfly, and the Ewald dots either run in rank order on
-every lane or are split over the lanes the same way; so G (and the split)
-set the order of the delta's sums, and the twin
+meeting in a butterfly, and the Ewald dots are split over the lanes the
+same way; so G sets the order of the delta's sums, and the twin
 (``ops/chain.py:swap_chain_reference``) takes the same for the same launch
 (``twin_order``).
 
@@ -13,9 +12,8 @@ set the order of the delta's sums, and the twin
   direct body on Au-Cu 4x4x4, K1-Ising, the direct body and K3 (q = 2)
   with the Ewald term on the spinel CE + Ewald 2x2x2, K3 (q = 3) and the
   direct body on the ternary 3x3x3, in both RNG modes.
-- (b) At G = 2, 4, 8 and 16, the Ewald dots in rank order and split, the
-  twin, and the chain factory that the sampler runs fed the same draws,
-  meet the interpret-mode Pallas reference under the rule of
+- (b) At G = 2, 4, 8 and 16 the twin, and the chain factory that the
+  sampler runs fed the same draws, meet the interpret-mode Pallas reference under the rule of
   ``test_torch_swap.py`` (``_trajectory_parity``): a walker may differ only
   where the twin shows one of its decisions within ``ULP_SLACK = 4`` f32
   ulps of log U beyond beta times the reference's f32 Ewald error, at
@@ -29,7 +27,7 @@ set the order of the delta's sums, and the twin
   rows resident where they fit beside the codes (the K1-Ising rows of
   Au-Cu 4x4x4 and of the spinel CE + Ewald 2x2x2, K3's of the latter;
   streamed elsewhere), a raise where a forced plan does not fit; the CPU
-  wrapper sums at the plan's lanes and Ewald split.
+  wrapper sums at the plan's lanes.
 """
 
 import sys
@@ -168,57 +166,54 @@ def _reference(cell):
 @pytest.mark.parametrize("cell,delta", [("spinel_ewald", "ising"), ("spinel_ewald", "direct"),
                                         ("ternary", "qary")])
 def test_lanes_match_interpret_reference(monkeypatch, cell, delta, lanes):
-    """(b): the twin and the chain factory at G lanes (each Ewald variant)
-    against the reference."""
+    """(b): the twin and the chain factory at G lanes against the reference."""
     r = _reference(cell)
     _, W, n_steps, block, _, _ = CELLS[cell]
     tables = _tables(r["port"], delta)
     slack = _ewald_f32_slack(tables)
     assert (slack > 0) == (cell == "spinel_ewald")
     occu = torch.as_tensor(r["occ0"])
-    for split in ((False, True) if tables.has_ewald else (False,)):
-        monkeypatch.setattr(chain, "_SWAP_DESIGN",
-                            chain._LaneDesign(lanes=lanes, split_ewald=split))
-        order = chain.twin_order("swap", tables, W)
-        assert order == {"lanes": lanes, "split_ewald": split}
-        occ = occu[:, tables.rank_sites].T.to(torch.int8).contiguous()
-        enth = r["enthalpy"].clone()
-        nacc = torch.zeros(W, dtype=torch.int32)
-        nmove = torch.zeros(W, dtype=torch.int32)
-        margin = torch.full((W,), float("inf"))
-        chain.swap_chain_reference(
-            occ, enth, nacc, nmove, r["beta"].to(torch.float32),
-            torch.as_tensor(r["useqs"][0]), torch.as_tensor(r["vseqs"][0]),
-            torch.tensor([int(r["seeds"][0])]), tables, n_steps, block, "hash",
-            margin=margin, slack=slack, **order)
-        port_occ = occu.clone()
-        port_occ[:, tables.rank_sites] = occ.T.to(port_occ.dtype)
+    monkeypatch.setattr(chain, "_SWAP_DESIGN", chain._LaneDesign(lanes=lanes))
+    order = chain.twin_order("swap", tables, W)
+    assert order == {"lanes": lanes}
+    occ = occu[:, tables.rank_sites].T.to(torch.int8).contiguous()
+    enth = r["enthalpy"].clone()
+    nacc = torch.zeros(W, dtype=torch.int32)
+    nmove = torch.zeros(W, dtype=torch.int32)
+    margin = torch.full((W,), float("inf"))
+    chain.swap_chain_reference(
+        occ, enth, nacc, nmove, r["beta"].to(torch.float32),
+        torch.as_tensor(r["useqs"][0]), torch.as_tensor(r["vseqs"][0]),
+        torch.tensor([int(r["seeds"][0])]), tables, n_steps, block, "hash",
+        margin=margin, slack=slack, **order)
+    port_occ = occu.clone()
+    port_occ[:, tables.rank_sites] = occ.T.to(port_occ.dtype)
 
-        # the chain factory, fed the same draws, is the twin loop exactly
-        state = {"occupancy": occu.clone(), "enthalpy": r["enthalpy"].clone(),
-                 "beta": r["beta"], "naccept": torch.zeros(W, dtype=torch.int32),
-                 "accepted": torch.ones(W, dtype=torch.bool),
-                 "nmove": torch.zeros(W, dtype=torch.int32)}
-        state = chain.make_shared_proposal_chain(
-            tables, n_steps, block_size=block, rng="hash", move="swap",
-            seqs=(r["useqs"], r["vseqs"]), seeds=r["seeds"])(state, None)
-        assert torch.equal(state["occupancy"], port_occ)
-        assert torch.equal(state["enthalpy"], enth)
-        assert torch.equal(state["naccept"], nacc)
-        assert torch.equal(state["nmove"], nmove)
+    # the chain factory, fed the same draws, is the twin loop exactly
+    state = {"occupancy": occu.clone(), "enthalpy": r["enthalpy"].clone(),
+             "beta": r["beta"], "naccept": torch.zeros(W, dtype=torch.int32),
+             "accepted": torch.ones(W, dtype=torch.bool),
+             "nmove": torch.zeros(W, dtype=torch.int32)}
+    state = chain.make_shared_proposal_chain(
+        tables, n_steps, block_size=block, rng="hash", move="swap",
+        seqs=(r["useqs"], r["vseqs"]), seeds=r["seeds"])(state, None)
+    assert torch.equal(state["occupancy"], port_occ)
+    assert torch.equal(state["enthalpy"], enth)
+    assert torch.equal(state["naccept"], nacc)
+    assert torch.equal(state["nmove"], nmove)
 
-        out = r["out"]
-        np.testing.assert_array_equal(nmove.numpy(), out["nmove"])
-        same = np.all(port_occ.numpy() == out["occupancy"], axis=1)
-        for w in np.flatnonzero(~same):
-            assert margin[w] <= ULP_SLACK, (w, float(margin[w]))
-        assert same.mean() >= 0.9, same.mean()
-        np.testing.assert_array_equal(nacc.numpy()[same], out["naccept"][same])
-        tol = 1e-9 + nacc.numpy()[same] * slack
-        assert np.all(np.abs(enth.numpy()[same] - out["enthalpy"][same]) <= tol)
-        assert 0 < out["naccept"].mean() < n_steps
-        np.testing.assert_array_equal(np.sort(port_occ.numpy(), axis=1),
-                                      np.sort(r["occ0"], axis=1))
+    out = r["out"]
+    np.testing.assert_array_equal(nmove.numpy(), out["nmove"])
+    same = np.all(port_occ.numpy() == out["occupancy"], axis=1)
+    for w in np.flatnonzero(~same):
+        assert margin[w] <= ULP_SLACK, (w, float(margin[w]))
+    assert same.mean() >= 0.9, same.mean()
+    np.testing.assert_array_equal(nacc.numpy()[same], out["naccept"][same])
+    tol = 1e-9 + nacc.numpy()[same] * slack
+    assert np.all(np.abs(enth.numpy()[same] - out["enthalpy"][same]) <= tol)
+    assert 0 < out["naccept"].mean() < n_steps
+    np.testing.assert_array_equal(np.sort(port_occ.numpy(), axis=1),
+                                  np.sort(r["occ0"], axis=1))
 
 
 # (c): the launch plan
@@ -239,8 +234,7 @@ def test_launch_plan_from_shapes(stem, delta, row_bytes, resident):
     launch runs at least a step a rank (a 100-step window, not a 10-step
     one) and the rows add no wave of blocks over the card's SMs, else two
     buffers of u's and v's rows; 8 lanes at 8192 walkers (``LANE_THREADS``),
-    256 threads a block; K4 split as ``SPLIT_EWALD`` says where there is an
-    Ewald term; a design that asks for rows that do not fit raises.  At 4
+    256 threads a block; a design that asks for rows that do not fit raises.  At 4
     lanes (64 walkers a block, 128 blocks: one wave at one block an SM)
     Au-Cu's and the spinel's K3 rows are resident."""
     W, block = 8192, 1024
@@ -252,7 +246,6 @@ def test_launch_plan_from_shapes(stem, delta, row_bytes, resident):
     assert plan.blocks(W) == 256
     codes = -(-R * 36 // 16) * 16
     assert plan.shared_bytes == (R if resident else 4) * row_bytes + codes
-    assert plan.split_ewald == (tables.has_ewald and chain.SPLIT_EWALD["swap"])
     assert not chain.launch_plan("swap", tables, W, block, R - 1).resident
     fits = R * row_bytes + codes <= chain.MAX_SHARED_BYTES
     if not fits:
@@ -265,9 +258,8 @@ def test_launch_plan_from_shapes(stem, delta, row_bytes, resident):
     assert four.resident == (fits and R * row_bytes + -(-R * 68 // 16) * 16
                              <= chain.MAX_SHARED_BYTES)
     forced = chain.launch_plan("swap", tables, W, block, 100,
-                               design=chain._LaneDesign(lanes=2, resident=False,
-                                                        split_ewald=False))
-    assert (forced.lanes, forced.resident, forced.split_ewald) == (2, False, False)
+                               design=chain._LaneDesign(lanes=2, resident=False))
+    assert (forced.lanes, forced.resident) == (2, False)
     assert forced.walkers_per_block == 64
 
 
@@ -288,8 +280,7 @@ def test_cpu_wrapper_sums_at_the_plan_lanes():
                beta32=torch.full((W,), 5.0, dtype=torch.float32),
                useq=useq, vseq=vseq, seed=torch.tensor([77], dtype=torch.int64),
                tables=tables, n_steps=n_steps, block_size=block)
-    for design in (None, chain._LaneDesign(lanes=2, split_ewald=False),
-                   chain._LaneDesign(lanes=8, split_ewald=True)):
+    for design in (None, chain._LaneDesign(lanes=2), chain._LaneDesign(lanes=8)):
         order = chain.twin_order("swap", tables, W, design)
         wrapper = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in ops.items()}
         twin = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in ops.items()}
@@ -298,5 +289,4 @@ def test_cpu_wrapper_sums_at_the_plan_lanes():
         for key in ("occ", "enthalpy", "naccept", "nmove"):
             assert torch.equal(wrapper[key], twin[key]), key
         assert int(wrapper["naccept"].sum()) > 0
-    assert chain.twin_order("swap", tables, W) == {
-        "lanes": 16, "split_ewald": chain.SPLIT_EWALD["swap"]}
+    assert chain.twin_order("swap", tables, W) == {"lanes": 16}

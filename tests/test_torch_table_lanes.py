@@ -4,9 +4,8 @@ The kernel splits each walker's table move over G threads (lanes): for
 each valid slot in order, lane j sums rows j, j + G, ... of the slot's
 rank (lane 0 onto the running dE, the others from +0.0; K1-Ising's parity
 sum from +0.0, scaled after the lanes meet), the lanes' partials meeting
-in a butterfly, and the Ewald dot either runs in rank order on every lane
-or is split over the lanes the same way; so G (and the split) set the
-order of the delta's sums, and the twin
+in a butterfly, and the Ewald dot is split over the lanes the same way;
+so G sets the order of the delta's sums, and the twin
 (``ops/chain.py:table_chain_reference``) takes the same for the same
 launch (``twin_order``).
 
@@ -16,11 +15,10 @@ launch (``twin_order``).
   CE + Ewald 2x2x2, K1-Ising on its 3x3x3 (three words of rank bits), and
   the direct body on the Li/Mn/vacancy, O/F rocksalt whose moves recolor
   up to three sites (the runtime slot count), in both RNG modes.
-- (b) At G = 2, 4, 8 and 16, the Ewald dots in rank order and split, the
-  twin, and the chain factory that the sampler runs fed the same draws,
-  meet the interpret-mode Pallas reference under the rule of
-  ``test_torch_tableflip.py`` (``_trajectory_parity``): a walker may differ
-  only where the twin shows one of its decisions within ``ULP_SLACK = 4``
+- (b) At G = 2, 4, 8 and 16 the twin, and the chain factory that the
+  sampler runs fed the same draws, meet the interpret-mode Pallas
+  reference under the rule of ``test_torch_tableflip.py``
+  (``_trajectory_parity``): a walker may differ only where the twin shows one of its decisions within ``ULP_SLACK = 4``
   f32 ulps of log U beyond beta times the reference's f32 Ewald error, at
   least 90 % of the walkers are equal and their accept counts agree
   exactly; every walker keeps its net charge and parity (e) holds below
@@ -32,7 +30,7 @@ launch (``twin_order``).
   rows resident where they fit beside the codes (the K1-Ising and K3 rows
   of the spinel CE + Ewald sgc 2x2x2; streamed elsewhere, in two buffers
   of k_max row sets), a raise where a forced plan does not fit; the CPU
-  wrapper sums at the plan's lanes and Ewald split.
+  wrapper sums at the plan's lanes.
 """
 
 import dataclasses
@@ -193,8 +191,7 @@ def _reference(cell):
 @pytest.mark.parametrize("cell,delta", [("spinel_ewald", "ising"), ("spinel_ewald", "direct"),
                                         ("lmof", "direct")])
 def test_lanes_match_interpret_reference(monkeypatch, cell, delta, lanes):
-    """(b): the twin and the chain factory at G lanes (each Ewald variant)
-    against the reference."""
+    """(b): the twin and the chain factory at G lanes against the reference."""
     r = _reference(cell)
     _, _, W, n_steps, _, _, pad_to = CELLS[cell]
     port = r["port"]
@@ -209,46 +206,44 @@ def test_lanes_match_interpret_reference(monkeypatch, cell, delta, lanes):
     occu = torch.as_tensor(r["occ0"])
     theta = torch.as_tensor(port.natural_parameters)
     sites = np.arange(port.num_sites)
-    for split in ((False, True) if tables.has_ewald else (False,)):
-        monkeypatch.setattr(chain, "_TABLE_DESIGN",
-                            chain._LaneDesign(lanes=lanes, split_ewald=split))
-        order = chain.twin_order("table", tables, W)
-        assert order == {"lanes": lanes, "split_ewald": split}
-        occ = occu[:, tables.rank_sites].T.to(torch.int8).contiguous()
-        enth = r["enthalpy"].clone()
-        nacc = torch.zeros(W, dtype=torch.int32)
-        margin = torch.full((W,), float("inf"))
-        chain.table_chain_reference(
-            occ, enth, nacc, r["beta"].to(torch.float32), torch.as_tensor(r["dirs"][0]),
-            torch.as_tensor(r["ranks"][0]), torch.tensor([int(r["seeds"][0])]), tables, tm,
-            n_steps, W, "hash", margin=margin, slack=slack, **order)
-        port_occ = occu.clone()
-        port_occ[:, tables.rank_sites] = occ.T.to(port_occ.dtype)
+    monkeypatch.setattr(chain, "_TABLE_DESIGN", chain._LaneDesign(lanes=lanes))
+    order = chain.twin_order("table", tables, W)
+    assert order == {"lanes": lanes}
+    occ = occu[:, tables.rank_sites].T.to(torch.int8).contiguous()
+    enth = r["enthalpy"].clone()
+    nacc = torch.zeros(W, dtype=torch.int32)
+    margin = torch.full((W,), float("inf"))
+    chain.table_chain_reference(
+        occ, enth, nacc, r["beta"].to(torch.float32), torch.as_tensor(r["dirs"][0]),
+        torch.as_tensor(r["ranks"][0]), torch.tensor([int(r["seeds"][0])]), tables, tm,
+        n_steps, W, "hash", margin=margin, slack=slack, **order)
+    port_occ = occu.clone()
+    port_occ[:, tables.rank_sites] = occ.T.to(port_occ.dtype)
 
-        # the chain factory, fed the same draws, is the twin loop exactly
-        state = {"occupancy": occu.clone(), "enthalpy": r["enthalpy"].clone(),
-                 "beta": r["beta"], "naccept": torch.zeros(W, dtype=torch.int32),
-                 "accepted": torch.ones(W, dtype=torch.bool)}
-        state = chain.make_shared_proposal_chain(
-            tables, n_steps, block_size=W, rng="hash", move="table", table_move=tm,
-            seqs=(r["dirs"], r["ranks"]), seeds=r["seeds"])(state, None)
-        assert torch.equal(state["occupancy"], port_occ)
-        assert torch.equal(state["enthalpy"], enth)
-        assert torch.equal(state["naccept"], nacc)
+    # the chain factory, fed the same draws, is the twin loop exactly
+    state = {"occupancy": occu.clone(), "enthalpy": r["enthalpy"].clone(),
+             "beta": r["beta"], "naccept": torch.zeros(W, dtype=torch.int32),
+             "accepted": torch.ones(W, dtype=torch.bool)}
+    state = chain.make_shared_proposal_chain(
+        tables, n_steps, block_size=W, rng="hash", move="table", table_move=tm,
+        seqs=(r["dirs"], r["ranks"]), seeds=r["seeds"])(state, None)
+    assert torch.equal(state["occupancy"], port_occ)
+    assert torch.equal(state["enthalpy"], enth)
+    assert torch.equal(state["naccept"], nacc)
 
-        out = r["out"]
-        same = np.all(port_occ.numpy() == out["occupancy"], axis=1)
-        for w in np.flatnonzero(~same):
-            assert margin[w] <= ULP_SLACK, (w, float(margin[w]))
-        assert same.mean() >= 0.9, same.mean()
-        np.testing.assert_array_equal(nacc.numpy()[same], out["naccept"][same])
-        assert 0 < out["naccept"].mean() < n_steps
-        assert not np.array_equal(port_occ.numpy(), r["occ0"])
-        # parity (e) and the net charge, on the port's own trajectory
-        exact = port.compute_features(port_occ) @ theta
-        assert float((enth - exact).abs().max()) < 1e-9
-        np.testing.assert_array_equal(port.site_charges[sites, port_occ.numpy()].sum(axis=1),
-                                      port.site_charges[sites, r["occ0"]].sum(axis=1))
+    out = r["out"]
+    same = np.all(port_occ.numpy() == out["occupancy"], axis=1)
+    for w in np.flatnonzero(~same):
+        assert margin[w] <= ULP_SLACK, (w, float(margin[w]))
+    assert same.mean() >= 0.9, same.mean()
+    np.testing.assert_array_equal(nacc.numpy()[same], out["naccept"][same])
+    assert 0 < out["naccept"].mean() < n_steps
+    assert not np.array_equal(port_occ.numpy(), r["occ0"])
+    # parity (e) and the net charge, on the port's own trajectory
+    exact = port.compute_features(port_occ) @ theta
+    assert float((enth - exact).abs().max()) < 1e-9
+    np.testing.assert_array_equal(port.site_charges[sites, port_occ.numpy()].sum(axis=1),
+                                  port.site_charges[sites, r["occ0"]].sum(axis=1))
 
 
 # (c): the launch plan
@@ -266,8 +261,7 @@ def test_launch_plan_from_shapes(stem, delta, k_max, row_bytes, resident):
     launch runs at least a step a rank (a 100-step window, not a 10-step
     one) and the rows add no wave of blocks over the card's SMs, else two
     buffers of k_max row sets; 8 lanes at 8192 walkers (``LANE_THREADS``),
-    256 threads a block; K4 split as ``SPLIT_EWALD`` says where there is
-    an Ewald term; a design that asks for rows that do not fit raises."""
+    256 threads a block; a design that asks for rows that do not fit raises."""
     W, block = 8192, 1024
     port = _file_port(stem)
     tables = _tables(port, delta)
@@ -278,7 +272,6 @@ def test_launch_plan_from_shapes(stem, delta, k_max, row_bytes, resident):
     assert (plan.lanes, plan.walkers_per_block, plan.resident) == (8, 32, resident)
     codes = -(-R * 36 // 16) * 16
     assert plan.shared_bytes == (R if resident else 2 * k_max) * row_bytes + codes
-    assert plan.split_ewald == (tables.has_ewald and chain.SPLIT_EWALD["table"])
     assert not chain.launch_plan("table", tables, W, block, R - 1, k_max).resident
     if R * row_bytes + codes > chain.MAX_SHARED_BYTES:
         with pytest.raises(ValueError, match="shared memory"):
@@ -308,8 +301,8 @@ def test_cpu_wrapper_sums_at_the_plan_lanes():
                beta32=torch.full((W,), 5.0, dtype=torch.float32),
                dirs=dirs, ranks=ranks, seed=torch.tensor([77], dtype=torch.int64),
                tables=tables, table_move=tm, n_steps=n_steps, block_size=block)
-    for design in (None, chain._LaneDesign(lanes=2, split_ewald=False),
-                   chain._LaneDesign(lanes=8, split_ewald=True, resident=True)):
+    for design in (None, chain._LaneDesign(lanes=2),
+                   chain._LaneDesign(lanes=8, resident=True)):
         order = chain.twin_order("table", tables, W, design)
         wrapper = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in ops.items()}
         twin = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in ops.items()}
@@ -318,5 +311,4 @@ def test_cpu_wrapper_sums_at_the_plan_lanes():
         for key in ("occ", "enthalpy", "naccept"):
             assert torch.equal(wrapper[key], twin[key]), key
         assert int(wrapper["naccept"].sum()) > 0
-    assert chain.twin_order("table", tables, W) == {
-        "lanes": 16, "split_ewald": chain.SPLIT_EWALD["table"]}
+    assert chain.twin_order("table", tables, W) == {"lanes": 16}
