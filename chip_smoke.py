@@ -194,6 +194,25 @@ printing its last line when any phase fails:
    set-up (system load, table build, and the cold run's excess over the
    warm one) is printed on its own.  Swaps also print the fraction of
    non-null proposals (pairs of different codes) and its rate;
+4b. built here (ROADMAP Queue 1 item 5's host layer, which imports
+   neither ``jax`` nor ``smol_tpu``): reads ``tests/data/lno_prim.json``
+   and ``golden_lno_ce.json`` through ``crystal.pmg_compat``, builds the
+   ``{2: 5, 3: 4.1}`` sinusoid subspace and computes the correlation vector
+   of each of the 27 golden structures from the structure, its supercell
+   matrix and its site mapping, within 1e-12 relative of smol's stored
+   numbers (tied orbits' columns permuted, one permutation for all 27);
+   builds bench ``spinel`` 2x2x2 and ``sgc`` 6x6x6 as ``bench.py`` builds
+   them (``random_expansion`` -> ``Ensemble.from_cluster_expansion``, the
+   decomposition processor, the bench's chemical potentials) and holds
+   every array to ``torch_spinel_cd_2x2x2.npz`` and ``torch_sgc_6x6x6.npz``
+   (integers equal, f64 within 1e-12 relative; printed: bit for bit or the
+   largest difference, and the host build time beside the card's name and
+   power limit); then runs each built ensemble, and the same from the
+   file, through ``Sampler.from_ensemble(T, 8192 walkers, seed=3).run(
+   20000, thin_by=100)`` (1000 K, 800 K) from the bench's starts with the
+   default site body: the traces equal bit for bit where the arrays were,
+   parity (e) in every run; counts set to 0 just before the runs, read
+   just after, and added to K1's launches;
 5. times one 100-step window at 8192 walkers, kernel against twin, for
    each cell (every repetition on a copy of the same starting state, the
    one the bound is worked out for), the kernels also without their Ewald term
@@ -265,6 +284,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import json
 import re
 import subprocess
@@ -276,8 +296,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from smol_tpu_torch.benchmarks.systems import fcc_ternary_prim, random_expansion, spinel_prim
 from smol_tpu_torch.capp.generate.special.sqs import StochasticSQSGenerator, random_starts
+from smol_tpu_torch.cofe import ClusterSubspace
 from smol_tpu_torch.constants import kB
+from smol_tpu_torch.crystal.pmg_compat import decode_pmg, load_pmg_json
 from smol_tpu_torch.moca.ensemble import Ensemble, random_occupancies
 from smol_tpu_torch.moca.kernel.tableflip import TableFlip
 from smol_tpu_torch.moca.processor.distance import CorrelationDistanceProcessor
@@ -290,7 +313,7 @@ from smol_tpu_torch.parallel import (
     make_temperature_ladder,
     tempering_exchange,
 )
-from smol_tpu_torch.system import load_system, load_systems
+from smol_tpu_torch.system import build_system, load_system, load_systems
 
 ROOT = Path(__file__).resolve().parent
 ULP_SLACK = 4
@@ -419,6 +442,17 @@ TABLE_LANE_CELLS = (
     (MULTI_SLOT_CELL, "direct", BLOCK, TEMPERATURE),  # the runtime slot count
 )
 SEEDS = (("hash", 987654321), ("philox", 0x2545F4914F6CDD1D))
+# phase 4b: systems built here, as bench.py builds them, against the files
+# exported from smol_tpu: stem -> (expansion, supercell edge, chemical
+# potentials, temperature); both take the decomposition processor
+BUILT_CELLS = {
+    "spinel_cd_2x2x2": (lambda: random_expansion(spinel_prim(), {2: 5.3, 3: 3.7}, seed=11),
+                        2, {"Li+": 0.1, "vacA0+": 0.0, "Mn3+": 0.05, "Mn4+": 0.0},
+                        TEMPERATURE),
+    "sgc_6x6x6": (lambda: random_expansion(fcc_ternary_prim(), {2: 5.5, 3: 4.0}, seed=7),
+                  6, {"Au": 0.05, "Ag": 0.0, "Cu": -0.05}, SGC_TEMPERATURE),
+}
+BUILD_REL_TOL = 1e-12  # |built - file| <= 1e-12 * max(1, max |file|), f64 arrays
 T_START = time.perf_counter()  # the script's start, for the phase 3 lines
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; FP64 (vector, not the
 # tensor cores) at 34 TFLOP/s, both at the 700 W limit
@@ -1301,6 +1335,137 @@ def drive_sgc(card):
           f"{bodies['qary']} of them with the q-ary body (K3), {bodies['direct']} with "
           f"the direct body (the ternary system's default)")
     return runs, bodies
+
+
+def golden_parity():
+    """Phase 4b (a): the correlation vectors of the 27 structures of
+    ``tests/data/golden_lno_ce.json``, computed by the port from each
+    structure, its supercell matrix and its site mapping, against the
+    numbers smol's own evaluator stored; the largest relative difference
+    (to max(1, |stored|)).  Orbits that tie exactly in smol's sort key keep
+    an order that depends on pymatgen's neighbour search, so the columns of
+    each tied group may be permuted, one permutation for all 27 (as
+    ``smol_tpu``'s own golden test allows)."""
+    data = ROOT / "tests" / "data"
+    golden = json.loads((data / "golden_lno_ce.json").read_text())
+    built = golden["construction"]
+    check(not built["ewald"], "the golden expansion has an Ewald term")
+    subspace = ClusterSubspace.from_cutoffs(
+        load_pmg_json(str(data / "lno_prim.json")),
+        {int(k): v for k, v in built["cutoffs"].items()}, basis=built["basis"])
+    mine = np.array([subspace.corr_from_structure(
+        decode_pmg(e["structure"]), scmatrix=np.asarray(e["supercell_matrix"]),
+        site_mapping=[int(x) for x in e["site_mapping"]]) for e in golden["entries"]])
+    stored = np.array([e["correlations"] for e in golden["entries"]], dtype=np.float64)
+    check(mine.shape == stored.shape, f"golden correlations of shape {mine.shape}")
+    groups = {}
+    for orbit in subspace.orbits:
+        key = (orbit.num_sites, round(orbit.base_cluster.diameter, 6), orbit.multiplicity,
+               len(orbit.bit_combos))
+        groups.setdefault(key, []).append(range(orbit.bit_id, orbit.bit_id + len(orbit)))
+    perm = np.arange(mine.shape[1])
+    for blocks in (g for g in groups.values() if len(g) > 1):
+        cols = np.concatenate(blocks)
+        best = min(itertools.permutations(blocks), key=lambda order: np.abs(
+            mine[:, np.concatenate(order)] - stored[:, cols]).max())
+        perm[cols] = np.concatenate(best)
+    rel = float((np.abs(mine[:, perm] - stored) / np.maximum(1.0, np.abs(stored))).max())
+    check(rel <= BUILD_REL_TOL, f"golden correlations differ by {rel:.3e} relative")
+    moved = int((perm != np.arange(len(perm))).sum())
+    print(f"phase 4b [golden_lno_ce]: {len(mine)} correlation vectors of "
+          f"{mine.shape[1]} functions from their structures, largest relative difference "
+          f"{rel:.3e} against smol's stored numbers ({moved} columns of tied orbits "
+          f"permuted)")
+    return rel
+
+
+def compare_arrays(built, stored):
+    """(bit for bit, largest |diff|) of a built system against its file, on
+    the file's keys that a build makes; raises on a mismatch."""
+    keys = sorted(k for k in stored if k != "initial_occupancy" and not k.startswith("wl_"))
+    check(sorted(built) == keys, f"built keys {sorted(built)} against the file's {keys}")
+    exact, largest = True, 0.0
+    for key in keys:
+        mine, theirs = np.asarray(built[key]), np.asarray(stored[key])
+        check(mine.dtype == theirs.dtype and mine.shape == theirs.shape,
+              f"{key}: {mine.dtype}{mine.shape} against {theirs.dtype}{theirs.shape}")
+        if theirs.dtype.kind == "f":
+            diff = float(np.abs(mine - theirs).max(initial=0.0))
+            scale = max(1.0, float(np.abs(theirs).max(initial=0.0)))
+            check(diff <= BUILD_REL_TOL * scale, f"{key}: differs by {diff:.3e}")
+            largest = max(largest, diff)
+        else:
+            check(np.array_equal(mine, theirs), f"{key}: integers differ")
+        exact = exact and np.array_equal(mine, theirs)
+    return exact, largest
+
+
+def drive_built(card):
+    """Phase 4b, built here: the golden correlations, then bench ``spinel``
+    2x2x2 and ``sgc`` 6x6x6 built on this machine as ``bench.py`` builds
+    them (``random_expansion`` -> ``Ensemble.from_cluster_expansion``,
+    decomposition processor, the bench's chemical potentials), held array
+    for array to the committed files, then each run as the main path runs
+    (8192 walkers x 20000 steps, thin_by 100, the default body, from the
+    bench's starts) beside the same run from the file: the traces equal bit
+    for bit where the arrays did, parity (e) in every run.  Counts set to 0
+    just before the runs, read just after."""
+    golden = golden_parity()
+    runs = {}
+    for stem, (expansion, n, mus, temperature) in BUILT_CELLS.items():
+        scm = np.diag([n, n, n])
+        t0 = time.perf_counter()
+        system = build_system(expansion(), scm, chemical_potentials=mus)
+        build_s = time.perf_counter() - t0
+        exact, largest = compare_arrays(system, load_system(
+            ROOT / "tests" / "data" / f"torch_{stem}.npz"))
+        t0 = time.perf_counter()
+        built = Ensemble.from_cluster_expansion(expansion(), scm, chemical_potentials=mus,
+                                                device="cuda")
+        torch.cuda.synchronize()
+        entry_s = time.perf_counter() - t0
+        print(f"phase 4b [{stem}] {card}: built here in {build_s:.4f} s on the host "
+              f"(Ensemble.from_cluster_expansion, build and load on the card: "
+              f"{entry_s:.4f} s); every array against the file "
+              f"{'bit for bit' if exact else 'within 1e-12 relative'}, largest "
+              f"difference {largest:.3e}")
+        runs[stem] = (built, load(stem)[0], temperature, exact)
+    reset_counts(chain.flip_chain)
+    expect = {"direct": 0, "qary": 0, "ising": 0}
+    for stem, (built, stored, temperature, exact) in runs.items():
+        traces = []
+        for label, ensemble in (("built", built), ("file", stored)):
+            sampler = Sampler.from_ensemble(ensemble, temperature, WALKERS, seed=3)
+            path = sampler.execution_path(THIN)
+            t0 = time.perf_counter()
+            sampler.run(NSTEPS, random_occupancies(ensemble, WALKERS, 0), thin_by=THIN)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            samples = sampler.samples
+            n = samples.num_samples
+            check(n == NSTEPS // THIN and path.startswith("cuda-chain[flip]"),
+                  f"{stem} ({label}): {n} samples, path {path}")
+            last_f = samples.get_feature_vectors(discard=n - 1)
+            last_h = samples.get_enthalpies(discard=n - 1)
+            check(np.isfinite(last_h).all() and np.isfinite(last_f).all(),
+                  f"{stem} ({label}): non-finite")
+            parity = float(np.abs(last_f @ ensemble.natural_parameters - last_h).max())
+            check(parity < 1e-9, f"{stem} ({label}): parity (e) {parity}")
+            traces.append((samples.get_occupancies(flat=False), samples.get_enthalpies()))
+            expect[chain.default_delta(ensemble.processor, ensemble.sublattices)] += n
+            print(f"phase 4b [{stem}, {label}] {card}: path {path}, T {temperature:g} K, "
+                  f"parity(e) {parity:.3e}, acceptance {float(sampler.efficiency()):.4f}, "
+                  f"{WALKERS * NSTEPS / wall / 1e6:.1f} M attempts/s ({wall:.4f} s, "
+                  f"cold)")
+        same = all(np.array_equal(a, b) for a, b in zip(*traces))
+        check(same or not exact, f"{stem}: the built system's trace differs from the file's")
+        verdict = "equal the file run's bit for bit" if same else "differ from the file run's"
+        print(f"phase 4b [{stem}]: the built run's occupancies and enthalpies {verdict}")
+    bodies = body_counts(chain.flip_chain)
+    check(bodies == expect, f"phase 4b: flip launches by body {bodies}, not {expect}")
+    print(f"phase 4b: flip_chain launches on the built paths: {chain.flip_chain.launches} "
+          f"(by site body {bodies})")
+    return golden, bodies
 
 
 def drive_tempering(card, delta):
@@ -2928,9 +3093,10 @@ def main():
         ("swap", EWALD_QARY_CELL, *SWAP_CELLS[EWALD_QARY_CELL], "qary"),
         ("flip", Q4_CELL, TEMPERATURE, BLOCK, "qary")], card)
     _, sgc_bodies = drive_sgc(card)
+    _, built_bodies = drive_built(card)
     _, pt_bodies, exchange_launches = drive_tempering_cells(card)
     launches = {("flip", body): flip_bodies[body] + sgc_bodies[body] + pt_bodies[body]
-                for body in ("direct", "qary", "ising")}
+                + built_bodies[body] for body in ("direct", "qary", "ising")}
     launches.update({("swap", body): swap_bodies[body] + swap_direct[body]
                      for body in ("direct", "qary", "ising")})
     launches.update({("table", body): table_bodies[body] + table_other[body]

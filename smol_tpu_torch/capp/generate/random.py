@@ -5,8 +5,8 @@ composition-exact occupancy (``_gen_composition_occu`` :105) at each
 sublattice's own composition, the start of an SQS search.  It draws from a
 numpy ``Generator`` exactly as the reference does, so the same generator
 state gives the same occupancy.  The unconstrained and charge-neutral
-occupancies, and compositions given by species, need the host layer
-(ROADMAP.md Queue 1 item 5).
+occupancies, and compositions given by species, wait for ROADMAP.md
+Queue 1 item 5(c).
 """
 
 from __future__ import annotations

@@ -30,7 +30,8 @@ from smol_tpu_torch.ops.sqs import build_distance_tables, make_batched_distance_
 
 __all__ = ["SQS", "SQSGenerator", "StochasticSQSGenerator", "random_starts"]
 
-HOST_LAYER = "the host layer is not ported yet (ROADMAP.md Queue 1 item 5)"
+ENUMERATION = ("the supercell enumeration and StructureMatcher are not ported yet "
+               "(ROADMAP.md Queue 1 item 5(d))")
 
 
 @dataclass(frozen=True)
@@ -45,7 +46,8 @@ class SQS:
 
     @property
     def structure(self):
-        raise NotImplementedError(f"an SQS structure needs species and sites: {HOST_LAYER}")
+        raise NotImplementedError(
+            f"an SQS structure needs the processor a structure builds: {ENUMERATION}")
 
 
 def random_starts(processor, nwalkers, rng) -> np.ndarray:
@@ -100,7 +102,7 @@ class SQSGenerator(ABC):
     @classmethod
     def from_structure(cls, *args, **kwargs):
         """Enumerating the supercell shapes of a structure: not ported."""
-        raise NotImplementedError(f"the shape enumeration needs crystal symmetry: {HOST_LAYER}")
+        raise NotImplementedError(f"enumerating the shapes: {ENUMERATION}")
 
     @classmethod
     def from_processors(cls, processors, device="cuda", **kwargs):
@@ -150,7 +152,7 @@ class SQSGenerator(ABC):
         """
         if remove_duplicates:
             raise NotImplementedError(
-                f"removing duplicates needs a structure matcher: {HOST_LAYER}")
+                f"removing duplicates needs a structure matcher: {ENUMERATION}")
         if num_structures > self.num_structures:
             warnings.warn(
                 f"num_structures exceeds the {self.num_structures} structures "

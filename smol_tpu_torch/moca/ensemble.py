@@ -10,8 +10,10 @@ default the orbit multiplicities); then -1 for the chemical-work feature
 when chemical potentials are set (semigrand; without them the ensemble is
 canonical); the
 per-(site, code) chemical-potential table feeds both the feature vector
-and the flip chain.  Built from a system dict rather than from a cluster
-expansion: the host layer that builds systems is not ported yet.
+and the flip chain.  Built from a system dict (:meth:`Ensemble.from_system`),
+which the port builds from a cluster expansion itself
+(:meth:`Ensemble.from_cluster_expansion`, :func:`smol_tpu_torch.system.
+build_system`) or loads from a file.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from smol_tpu_torch.cofe.space.domain import get_species
 from smol_tpu_torch.moca.processor.composite import CompositeProcessor
 from smol_tpu_torch.moca.processor.ewald import EwaldProcessor
 from smol_tpu_torch.moca.processor.expansion import (
@@ -30,7 +33,42 @@ from smol_tpu_torch.moca.sublattice import sublattices_from_system
 PROCESSORS = {"expansion": ClusterExpansionProcessor,
               "decomposition": ClusterDecompositionProcessor}
 
-__all__ = ["Ensemble", "random_occupancies"]
+__all__ = ["Ensemble", "chemical_potential_table", "random_occupancies"]
+
+
+def chemical_potential_table(sublattices, num_sites, chemical_potentials) -> np.ndarray:
+    """[num_sites, max code + 1] f64 per-(site, code) chemical potentials.
+
+    ``chemical_potentials`` maps each species of the active sublattices
+    (a ``Species`` or its name, ``"vacA0+"`` for a vacancy) to its value;
+    other species are ignored and a missing one raises ``ValueError``
+    (``smol_tpu/moca/ensemble.py:27-83``).  The sublattices are built ones
+    (:func:`~smol_tpu_torch.moca.sublattice.sublattices_from_site_spaces`).
+    """
+    active = [sl for sl in sublattices if sl.is_active]
+    species = list({sp for sl in active for sp in sl.site_space})
+    value = {get_species(k): v for k, v in chemical_potentials.items()}
+    value = {k: v for k, v in value.items() if k in species}
+    if set(value.keys()) != set(species):
+        raise ValueError(
+            "Chemical potentials are missing species; need values for "
+            f"each of: {species}"
+        )
+    num_cols = max(max(sl.encoding) for sl in sublattices) + 1
+    table = np.zeros((num_sites, num_cols))
+    for sl in active:
+        ordered = [value[sp] for sp in sl.site_space]
+        table[sl.sites[:, None], sl.encoding] = ordered
+    return table
+
+
+def _check_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but torch sees no CUDA device"
+        )
+    return device
 
 
 def random_occupancies(ensemble, count: int, seed: int) -> np.ndarray:
@@ -84,11 +122,7 @@ class Ensemble:
         ``chemical_potential_table`` is canonical; one with a
         ``flip_table`` can be sampled with table flips.
         """
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {device} requested but torch sees no CUDA device"
-            )
+        device = _check_device(device)
         kind = str(system.get("processor_type", "expansion"))
         if kind not in PROCESSORS:
             raise ValueError(f"unknown processor type {kind!r}")
@@ -120,6 +154,30 @@ class Ensemble:
             table_data=table_data,
             site_charges=system.get("site_charges"),
         )
+
+    @classmethod
+    def from_cluster_expansion(cls, cluster_expansion, supercell_matrix,
+                               processor_type="decomposition",
+                               use_concentration=False, chemical_potentials=None,
+                               device="cuda") -> "Ensemble":
+        """An ensemble of a cluster expansion on a supercell, with its tables
+        on ``device`` (``smol_tpu/moca/ensemble.py:104-161``).
+
+        The system is built on the host (:func:`smol_tpu_torch.system.
+        build_system`, the same arrays a system file holds), then loaded as
+        :meth:`from_system` loads one; ``processor_type`` is
+        ``"decomposition"`` (the default) or ``"expansion"``; with
+        ``chemical_potentials`` the ensemble is semigrand.  A subspace with
+        an Ewald term cannot be built yet (ROADMAP.md Queue 1 item 5(c)).
+        """
+        from smol_tpu_torch.system import build_system
+
+        _check_device(device)
+        system = build_system(
+            cluster_expansion, supercell_matrix, processor_type=processor_type,
+            chemical_potentials=chemical_potentials,
+            use_concentration=use_concentration)
+        return cls.from_system(system, device)
 
     # ---------------- properties ----------------
 

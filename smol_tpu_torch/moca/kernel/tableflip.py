@@ -44,7 +44,7 @@ class TableFlip(MCUsher):
             raise NotImplementedError(
                 "the system carries no flip table, and deriving one from the "
                 "sublattices' species (CompositionSpace) is not ported yet "
-                "(ROADMAP.md Queue 1 item 5)"
+                "(ROADMAP.md Queue 1 item 5(c))"
             )
         self.flip_table = np.array(flip_table, dtype=np.int64).reshape(
             len(flip_table), -1

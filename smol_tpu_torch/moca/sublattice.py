@@ -1,10 +1,14 @@
 """Sublattice: supercell sites sharing one site space.
 
-A minimal counterpart of ``smol_tpu/moca/sublattice.py``, built from a
-system dict: the site indices, the unrestricted (active) sites, the codes
-the sites may take and, where the system carries it, the fraction of each
-code (the site space's composition).  Species names stay with the
-reference.
+A minimal counterpart of ``smol_tpu/moca/sublattice.py``: the site
+indices, the unrestricted (active) sites, the codes the sites may take
+and, where the system carries it, the fraction of each code (the site
+space's composition).  Read from a system dict
+(:func:`sublattices_from_system`: species names stay with the builder), or
+built from a supercell's site spaces (:func:`sublattices_from_site_spaces`,
+which keeps each sublattice's site space), as the reference's processors
+build their default sublattices.  Restricting and splitting sites waits
+for ROADMAP.md Queue 1 item 5(c).
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["Sublattice", "sublattices_from_system"]
+__all__ = ["Sublattice", "sublattices_from_site_spaces", "sublattices_from_system"]
 
 
 @dataclass
@@ -24,10 +28,31 @@ class Sublattice:
     active_sites: np.ndarray  # [n_active] int64 unrestricted sites
     encoding: np.ndarray  # [n_codes] int32 allowed codes
     composition: np.ndarray | None = None  # [n_codes] f64 fraction of each code
+    site_space: object = None  # the SiteSpace of a built sublattice
 
     @property
     def is_active(self) -> bool:
         return len(self.active_sites) > 0
+
+
+def sublattices_from_site_spaces(site_spaces, allowed_species) -> list[Sublattice]:
+    """One sublattice a site space, in the order given: the sites whose
+    allowed species are the space's (``smol_tpu/moca/processor/base.py``
+    ``get_sublattices`` :127-140); a space of one species has no active
+    site (``smol_tpu/moca/sublattice.py:37-44``)."""
+    sublattices = []
+    for space in site_spaces:
+        species = list(space.keys())
+        sites = np.unique(np.array(
+            [i for i, allowed in enumerate(allowed_species) if allowed == species],
+            dtype=np.int64))
+        sublattices.append(Sublattice(
+            sites=sites,
+            active_sites=sites.copy() if len(space) > 1 else np.zeros(0, np.int64),
+            encoding=np.arange(len(space), dtype=np.int32),
+            site_space=space,
+        ))
+    return sublattices
 
 
 def _split(system, name):

@@ -1,11 +1,13 @@
-"""A cluster-expansion system carried from smol_tpu into the port as data.
+"""A cluster-expansion system as data: built by the port, or carried over.
 
-The JAX package builds a system on the host (crystal symmetry, cluster
-subspace, supercell packing, coefficient folding); the port does not
-repeat that work yet.  :func:`export_system` reads a built ``smol_tpu``
-ensemble and returns plain numpy arrays, which :func:`save_system` writes
-to a compressed ``.npz`` file and :func:`load_system` reads back.  These
-arrays are the port's "weights": the port loads them and runs on the card.
+A system is built on the host (crystal symmetry, cluster subspace,
+supercell packing, coefficient folding).  :func:`build_system` builds one
+from the port's own ``ClusterExpansion`` (no Ewald term yet: ROADMAP.md
+Queue 1 item 5(c)); :func:`export_system` reads a built ``smol_tpu``
+ensemble.  Both return the same plain numpy arrays, through the same
+helpers, which :func:`save_system` writes to a compressed ``.npz`` file and
+:func:`load_system` reads back.  These arrays are the port's "weights":
+the port loads them and runs on the card.
 
 The exporter is duck-typed: it reads attributes of the objects it is given
 and imports neither ``smol_tpu`` nor ``jax``.
@@ -87,6 +89,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = [
+    "build_system",
     "export_system",
     "export_distance_system",
     "save_system",
@@ -202,15 +205,8 @@ def export_system(ensemble, usher=None) -> dict:
         ),
     }
     if names == ["ClusterDecompositionProcessor"]:
-        system.update({
-            "processor_type": np.str_("decomposition"),
-            "inter_flat": np.asarray(processor._inter_flat, dtype=np.float64),
-            "offset": np.float64(processor._offset),
-            "orbit_offset": np.asarray(packed.orbit_offset, dtype=np.int32),
-            "cluster_orbit": np.asarray(packed.cluster_orbit, dtype=np.int32),
-            "orbit_cluster_count": np.asarray(packed.orbit_cluster_count,
-                                              dtype=np.float64),
-        })
+        system.update(_decomposition_fields(
+            packed, processor._inter_flat, processor._offset))
     mu_table = ensemble.chemical_potential_table
     if mu_table is not None:
         system["chemical_potential_table"] = np.asarray(
@@ -245,6 +241,19 @@ def _packed_fields(packed, size) -> dict:
     }
 
 
+def _decomposition_fields(packed, inter_flat, offset) -> dict:
+    """The fields of a cluster-decomposition processor."""
+    return {
+        "processor_type": np.str_("decomposition"),
+        "inter_flat": np.asarray(inter_flat, dtype=np.float64),
+        "offset": np.float64(offset),
+        "orbit_offset": np.asarray(packed.orbit_offset, dtype=np.int32),
+        "cluster_orbit": np.asarray(packed.cluster_orbit, dtype=np.int32),
+        "orbit_cluster_count": np.asarray(packed.orbit_cluster_count,
+                                          dtype=np.float64),
+    }
+
+
 def _sublattice_fields(subs) -> dict:
     sub_sites, sub_off = _ragged([s.sites for s in subs], np.int64)
     act_sites, act_off = _ragged([s.active_sites for s in subs], np.int64)
@@ -256,6 +265,77 @@ def _sublattice_fields(subs) -> dict:
         "sublattice_active_sites_offsets": act_off,
         "sublattice_encoding": enc,
         "sublattice_encoding_offsets": enc_off,
+    }
+
+
+def build_system(cluster_expansion, supercell_matrix, processor_type="decomposition",
+                 chemical_potentials=None, use_concentration=False) -> dict:
+    """The system dict of a cluster expansion on a supercell.
+
+    Builds what ``smol_tpu``'s ``Ensemble.from_cluster_expansion`` builds
+    (``smol_tpu/moca/ensemble.py:104-161``; the processors' host
+    construction, ``moca/processor/expansion.py:99-303``, and their default
+    sublattices, ``moca/processor/base.py:30-52, 127-140``) and returns the
+    keys that :func:`export_system` writes for such an ensemble, with the
+    same arithmetic.  ``processor_type`` is ``"decomposition"`` (natural
+    parameters the orbit multiplicities) or ``"expansion"`` (the
+    coefficients); ``chemical_potentials``, a dict of species (or names)
+    to values, makes the system semigrand.  A ``ClusterExpansion`` of the
+    port has no external term (``EwaldTerm`` waits for ROADMAP.md Queue 1
+    item 5(c)).
+    """
+    from smol_tpu_torch.cofe.space.domain import get_allowed_species, get_site_spaces
+    from smol_tpu_torch.moca.ensemble import chemical_potential_table
+    from smol_tpu_torch.moca.sublattice import sublattices_from_site_spaces
+    from smol_tpu_torch.ops.packing import pack_interactions, pack_supercell
+
+    subspace = cluster_expansion.cluster_subspace
+    orbits = subspace.orbits
+    scmatrix = np.array(supercell_matrix, dtype=np.int64)
+    packed = pack_supercell(subspace, scmatrix)
+    extra = {}
+    if processor_type == "decomposition":
+        coefs = np.atleast_1d(np.asarray(subspace.orbit_multiplicities, dtype=np.float64))
+        tensors = tuple(np.asarray(t, dtype=np.float64)
+                        for t in cluster_expansion.cluster_interaction_tensors)
+        inter_flat, offset = pack_interactions(subspace, tensors)
+        energy = [np.float64(coefs[0] * offset)] + [
+            coefs[o.id] * t for o, t in zip(orbits, tensors[1:])]
+        extra = _decomposition_fields(packed, inter_flat, offset)
+    elif processor_type == "expansion":
+        coefs = np.atleast_1d(np.asarray(cluster_expansion.coefs, dtype=np.float64))
+        if len(coefs) != subspace.num_corr_functions:
+            raise ValueError(
+                f"Got {len(coefs)} coefficients, need {subspace.num_corr_functions}.")
+        energy = [np.float64(coefs[0])] + [
+            sum(coefs[o.bit_id + k] * o.correlation_tensors[k] for k in range(len(o)))
+            for o in orbits]
+    else:
+        raise ValueError(f"Processor type {processor_type} not supported!")
+    # coefficient-folded energy tensors, weighted by size / clusters of an orbit
+    energy_flat, _ = pack_interactions(subspace, energy)
+    energy_weights = packed.size / np.maximum(packed.orbit_cluster_count, 1)
+    energy_weights[0] = 0.0
+    sites, strides, d2, g, _ = local_arrays(packed, energy_flat, energy_weights)
+
+    supercell = subspace.structure.copy().make_supercell(scmatrix)
+    spaces = tuple(sorted(set(get_site_spaces(supercell, include_measure=use_concentration))))
+    sublattices = sublattices_from_site_spaces(spaces, get_allowed_species(supercell))
+    params = coefs
+    if chemical_potentials is not None:
+        extra["chemical_potential_table"] = chemical_potential_table(
+            sublattices, packed.num_sites, chemical_potentials)
+        params = np.append(coefs, -1.0)
+    return {
+        **_packed_fields(packed, packed.size),
+        "num_energy_coefs": np.int64(len(coefs)),
+        "local_sites": sites,
+        "local_strides": strides,
+        "local_d2": d2,
+        "local_g": g,
+        **_sublattice_fields(sublattices),
+        "natural_parameters": np.asarray(params, dtype=np.float64),
+        **extra,
     }
 
 

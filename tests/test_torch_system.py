@@ -330,6 +330,23 @@ def test_port_runs_with_jax_blocked():
         sampler.run(100, rng.integers(0, 2, (16, ens.num_sites)), thin_by=50)
         assert sampler.samples.get_temperatures().shape == (32,)
         print("ok", sampler.execution_path(50))
+        # the host layer: build a system here and sample it, every module
+        # of the port imported, and the built-here phase's golden check
+        import importlib, pkgutil
+        import smol_tpu_torch
+        for info in pkgutil.walk_packages(smol_tpu_torch.__path__, "smol_tpu_torch."):
+            importlib.import_module(info.name)
+        from smol_tpu_torch.benchmarks.systems import fcc_binary_prim, random_expansion
+        ce = random_expansion(fcc_binary_prim(), {{2: 6.0, 3: 4.0}}, seed=7)
+        ens = Ensemble.from_cluster_expansion(ce, np.diag([2, 2, 2]),
+                                              chemical_potentials={{"Au": 0.0, "Cu": 0.1}},
+                                              device="cpu")
+        sampler = Sampler.from_ensemble(ens, 800.0, 16, seed=3, device="cpu")
+        sampler.run(100, rng.integers(0, 2, (16, ens.num_sites)), thin_by=50)
+        assert sampler.samples.num_samples == 2
+        print("ok built", sampler.execution_path(50))
+        import chip_smoke
+        assert chip_smoke.golden_parity() <= 1e-12
         bad = [m for m in sys.modules if m == "smol_tpu" or m.startswith("smol_tpu.")]
         assert not bad, bad
         """
@@ -346,6 +363,8 @@ def test_port_runs_with_jax_blocked():
     assert "ok cpu-twin[distance]" in proc.stdout
     assert "ok cpu-twin[flip]+qary3" in proc.stdout
     assert "ok cpu-twin[flip]+ising+shared-proposals+replica-exchange@10" in proc.stdout
+    assert "ok built cpu-twin[flip]" in proc.stdout
+    assert "phase 4b [golden_lno_ce]" in proc.stdout
 
 
 def test_port_never_imports_jax_or_reference():
@@ -372,6 +391,14 @@ def test_port_never_imports_jax_or_reference():
     assert (package / "csrc" / "distance_chain.cu").exists()
     assert (package / "csrc" / "tempering.cu").exists()
     assert (package / "moca" / "kernel" / "wanglandau.py").exists()
+    for module in ("utils/exceptions.py", "utils/class_utils.py", "serial.py",
+                   "crystal/data.py", "crystal/species.py", "crystal/coord.py",
+                   "crystal/lattice.py", "crystal/structure.py", "crystal/symmetry.py",
+                   "crystal/pmg_compat.py", "cofe/space/domain.py", "cofe/space/basis.py",
+                   "cofe/space/cluster.py", "cofe/space/orbit.py",
+                   "cofe/space/clusterspace.py", "cofe/expansion.py", "ops/packing.py",
+                   "benchmarks/systems.py"):
+        assert (package / module).exists(), module  # the host layer, checked above
     from smol_tpu_torch.ops import _build
 
     assert sorted(_build.KERNELS) == [
