@@ -213,6 +213,27 @@ printing its last line when any phase fails:
    default site body: the traces equal bit for bit where the arrays were,
    parity (e) in every run; counts set to 0 just before the runs, read
    just after, and added to K1's launches;
+4c. built here, with Ewald: the 27 golden LNO vectors with an Ewald term
+   (``golden_lno_ce_ewald.json``: the cluster columns within 1e-12
+   relative of smol's, the Ewald column, smol's pymatgen sum, within
+   1e-10); bench ``spinel-ewald`` 2x2x2 exactly as ``bench.py`` builds it
+   (``random_expansion(..., ewald=True)`` -> ``Ensemble.
+   from_cluster_expansion``: the decomposition composed with the Ewald
+   term, the bench's chemical potentials -> ``generate_random_ordered_
+   occupancy(..., charge_neutral=True, rng=default_rng(0))`` ->
+   ``Sampler.from_ensemble(..., step_type="table-flip")``, whose usher
+   derives its flip table from a ``CompositionSpace``), every array held
+   to ``torch_spinel_ewald_cd_sgc_2x2x2.npz``, usher keys and start
+   included (the Ewald matrix's largest difference printed); the 3x3x3
+   expansion form held to ``torch_spinel_ewald_sgc_3x3x3.npz`` and the
+   canonical 2x2x2 expansion form to ``torch_spinel_ewald_2x2x2.npz``;
+   then 8192 walkers x 20000 steps (thin_by 100, 1000 K, the default
+   body) of table flips (K5 with K4) from the built 2x2x2 system and from
+   its file, bit for bit, of table flips on the built 3x3x3 and of
+   canonical swaps (K2 with K4) on the built 2x2x2 and its file, bit for
+   bit: each run's host build time, rate, acceptance, parity (e) and the
+   net charge of every record (0); counts set to 0 just before the runs,
+   read just after, and added to K5's and K2's launches;
 5. times one 100-step window at 8192 walkers, kernel against twin, for
    each cell (every repetition on a copy of the same starting state, the
    one the bound is worked out for), the kernels also without their Ewald term
@@ -297,8 +318,10 @@ import numpy as np
 import torch
 
 from smol_tpu_torch.benchmarks.systems import fcc_ternary_prim, random_expansion, spinel_prim
+from smol_tpu_torch.capp.generate.random import generate_random_ordered_occupancy
 from smol_tpu_torch.capp.generate.special.sqs import StochasticSQSGenerator, random_starts
 from smol_tpu_torch.cofe import ClusterSubspace
+from smol_tpu_torch.cofe.extern import EwaldTerm
 from smol_tpu_torch.constants import kB
 from smol_tpu_torch.crystal.pmg_compat import decode_pmg, load_pmg_json
 from smol_tpu_torch.moca.ensemble import Ensemble, random_occupancies
@@ -453,6 +476,16 @@ BUILT_CELLS = {
                   6, {"Au": 0.05, "Ag": 0.0, "Cu": -0.05}, SGC_TEMPERATURE),
 }
 BUILD_REL_TOL = 1e-12  # |built - file| <= 1e-12 * max(1, max |file|), f64 arrays
+# phase 4c: bench spinel-ewald built here: stem -> (supercell edge,
+# processor type, chemical potentials, move); table flips and swaps at 1000 K
+BENCH_MUS = {"Li+": 0.1, "vacA0+": 0.0, "Mn3+": 0.05, "Mn4+": 0.0}
+BUILT_EWALD_CELLS = {
+    "spinel_ewald_cd_sgc_2x2x2": (2, "decomposition", BENCH_MUS, "table"),
+    "spinel_ewald_sgc_3x3x3": (3, "expansion", BENCH_MUS, "table"),
+    "spinel_ewald_2x2x2": (2, "expansion", None, "swap"),
+}
+FILE_RUNS = ("spinel_ewald_cd_sgc_2x2x2", "spinel_ewald_2x2x2")  # also run from the file
+GOLDEN_EWALD_TOL = 1e-10  # smol's stored Ewald column is pymatgen's sum
 T_START = time.perf_counter()  # the script's start, for the phase 3 lines
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; FP64 (vector, not the
 # tensor cores) at 34 TFLOP/s, both at the 700 W limit
@@ -1337,7 +1370,7 @@ def drive_sgc(card):
     return runs, bodies
 
 
-def golden_parity():
+def golden_parity(name="golden_lno_ce", phase="4b"):
     """Phase 4b (a): the correlation vectors of the 27 structures of
     ``tests/data/golden_lno_ce.json``, computed by the port from each
     structure, its supercell matrix and its site mapping, against the
@@ -1345,19 +1378,30 @@ def golden_parity():
     (to max(1, |stored|)).  Orbits that tie exactly in smol's sort key keep
     an order that depends on pymatgen's neighbour search, so the columns of
     each tied group may be permuted, one permutation for all 27 (as
-    ``smol_tpu``'s own golden test allows)."""
+    ``smol_tpu``'s own golden test allows).  With ``golden_lno_ce_ewald``
+    (phase 4c) the subspace takes an Ewald term, whose column (smol's
+    pymatgen sum) is held to ``GOLDEN_EWALD_TOL`` apart from the rest."""
     data = ROOT / "tests" / "data"
-    golden = json.loads((data / "golden_lno_ce.json").read_text())
+    golden = json.loads((data / f"{name}.json").read_text())
     built = golden["construction"]
-    check(not built["ewald"], "the golden expansion has an Ewald term")
+    check(built["ewald"] == name.endswith("ewald"), f"{name}: its Ewald term")
     subspace = ClusterSubspace.from_cutoffs(
         load_pmg_json(str(data / "lno_prim.json")),
         {int(k): v for k, v in built["cutoffs"].items()}, basis=built["basis"])
+    if built["ewald"]:
+        subspace.add_external_term(EwaldTerm())
     mine = np.array([subspace.corr_from_structure(
         decode_pmg(e["structure"]), scmatrix=np.asarray(e["supercell_matrix"]),
         site_mapping=[int(x) for x in e["site_mapping"]]) for e in golden["entries"]])
     stored = np.array([e["correlations"] for e in golden["entries"]], dtype=np.float64)
     check(mine.shape == stored.shape, f"golden correlations of shape {mine.shape}")
+    ewald_note = ""
+    if built["ewald"]:
+        rel = float((np.abs(mine[:, -1] - stored[:, -1])
+                     / np.maximum(1.0, np.abs(stored[:, -1]))).max())
+        check(rel <= GOLDEN_EWALD_TOL, f"golden Ewald column differs by {rel:.3e} relative")
+        ewald_note = f", the Ewald column within {rel:.3e} relative of smol's pymatgen sum"
+        mine, stored = mine[:, :-1], stored[:, :-1]
     groups = {}
     for orbit in subspace.orbits:
         key = (orbit.num_sites, round(orbit.base_cluster.diameter, 6), orbit.multiplicity,
@@ -1372,19 +1416,20 @@ def golden_parity():
     rel = float((np.abs(mine[:, perm] - stored) / np.maximum(1.0, np.abs(stored))).max())
     check(rel <= BUILD_REL_TOL, f"golden correlations differ by {rel:.3e} relative")
     moved = int((perm != np.arange(len(perm))).sum())
-    print(f"phase 4b [golden_lno_ce]: {len(mine)} correlation vectors of "
+    print(f"phase {phase} [{name}]: {len(mine)} correlation vectors of "
           f"{mine.shape[1]} functions from their structures, largest relative difference "
           f"{rel:.3e} against smol's stored numbers ({moved} columns of tied orbits "
-          f"permuted)")
+          f"permuted){ewald_note}")
     return rel
 
 
 def compare_arrays(built, stored):
-    """(bit for bit, largest |diff|) of a built system against its file, on
-    the file's keys that a build makes; raises on a mismatch."""
+    """(bit for bit, largest |diff|, the keys not bit for bit) of a built
+    system against its file, on the file's keys that a build makes; raises
+    on a mismatch."""
     keys = sorted(k for k in stored if k != "initial_occupancy" and not k.startswith("wl_"))
     check(sorted(built) == keys, f"built keys {sorted(built)} against the file's {keys}")
-    exact, largest = True, 0.0
+    inexact, largest = [], 0.0
     for key in keys:
         mine, theirs = np.asarray(built[key]), np.asarray(stored[key])
         check(mine.dtype == theirs.dtype and mine.shape == theirs.shape,
@@ -1396,8 +1441,9 @@ def compare_arrays(built, stored):
             largest = max(largest, diff)
         else:
             check(np.array_equal(mine, theirs), f"{key}: integers differ")
-        exact = exact and np.array_equal(mine, theirs)
-    return exact, largest
+        if not np.array_equal(mine, theirs):
+            inexact.append(key)
+    return not inexact, largest, inexact
 
 
 def drive_built(card):
@@ -1417,7 +1463,7 @@ def drive_built(card):
         t0 = time.perf_counter()
         system = build_system(expansion(), scm, chemical_potentials=mus)
         build_s = time.perf_counter() - t0
-        exact, largest = compare_arrays(system, load_system(
+        exact, largest, _ = compare_arrays(system, load_system(
             ROOT / "tests" / "data" / f"torch_{stem}.npz"))
         t0 = time.perf_counter()
         built = Ensemble.from_cluster_expansion(expansion(), scm, chemical_potentials=mus,
@@ -1466,6 +1512,142 @@ def drive_built(card):
     print(f"phase 4b: flip_chain launches on the built paths: {chain.flip_chain.launches} "
           f"(by site body {bodies})")
     return golden, bodies
+
+
+def drive_built_ewald(card):
+    """Phase 4c, built here with Ewald: the golden vectors with an Ewald
+    term, then bench ``spinel-ewald`` 2x2x2 as ``bench.py`` builds it, its
+    3x3x3 expansion form and the canonical 2x2x2, each held array for array
+    (usher keys and start included) to its committed file, then run:
+    8192 walkers x 20000 steps of table flips (K5 + K4) or swaps (K2 + K4),
+    from the built system and, for ``FILE_RUNS``, from the file, bit for
+    bit.  Counts set to 0 just before the runs, read just after; returns
+    the launches by kernel and body."""
+    t0 = time.perf_counter()
+    _build.load_host_ewald()  # g++, where this checkout has not built it yet
+    library_s = time.perf_counter() - t0
+    golden_parity("golden_lno_ce_ewald", phase="4c")
+    data = ROOT / "tests" / "data"
+    t0 = time.perf_counter()
+    ce = random_expansion(spinel_prim(), {2: 5.3, 3: 3.7}, seed=11, ewald=True)
+    print(f"phase 4c {card}: the host Ewald library loaded in {library_s:.4f} s (g++ "
+          f"where not yet built), bench spinel-ewald's expansion built in "
+          f"{time.perf_counter() - t0:.4f} s on the host")
+    runs, exact_stems = [], {}
+    for stem, (n, kind, mus, move) in BUILT_EWALD_CELLS.items():
+        scm = np.diag([n, n, n])
+        stored = load_system(data / f"torch_{stem}.npz")
+        t0 = time.perf_counter()
+        system = build_system(ce, scm, processor_type=kind, chemical_potentials=mus,
+                              table_flip=move == "table")
+        build_s = time.perf_counter() - t0
+        exact, largest, inexact = compare_arrays(system, stored)
+        ewald_diff = float(np.abs(system["ewald_matrix"] - stored["ewald_matrix"]).max())
+        # the flow a user runs: the ensemble, its neutral start, the sampler
+        t0 = time.perf_counter()
+        ensemble = Ensemble.from_cluster_expansion(ce, scm, processor_type=kind,
+                                                   chemical_potentials=mus, device="cuda")
+        torch.cuda.synchronize()
+        entry_s = time.perf_counter() - t0
+        check(len(ensemble.processor.processors) == 2
+              and type(ensemble.processor.processors[0]).__name__ == {
+                  "decomposition": "ClusterDecompositionProcessor",
+                  "expansion": "ClusterExpansionProcessor"}[kind],
+              f"{stem}: processors {ensemble.processor.processors}")
+        t0 = time.perf_counter()
+        occ0 = generate_random_ordered_occupancy(ensemble.processor, charge_neutral=True,
+                                                 rng=np.random.default_rng(0))
+        start_s = time.perf_counter() - t0
+        check(np.array_equal(occ0, stored["initial_occupancy"]),
+              f"{stem}: the neutral start differs from the file's")
+        print(f"phase 4c [{stem}] {card}: built here in {build_s:.4f} s on the host "
+              f"(Ensemble.from_cluster_expansion, build and load on the card: "
+              f"{entry_s:.4f} s; the charge-neutral start {start_s:.4f} s, equal to the "
+              f"file's); every array against the file "
+              f"{'bit for bit' if exact else 'within 1e-12 relative'}, largest difference "
+              f"{largest:.3e}, of the {len(system['ewald_matrix'])}-row Ewald matrix "
+              f"{ewald_diff:.3e}; not bit for bit: {', '.join(inexact) or 'none'}")
+        # a canonical file carries no site charges: the built sublattices' serve
+        charges = ensemble.site_charges
+        runs.append((stem, "built", ensemble, occ0, move, build_s + entry_s, charges))
+        if stem in FILE_RUNS:
+            runs.append((stem, "file", load(stem)[0], occ0, move, 0.0, charges))
+            exact_stems[stem] = (exact, inexact, ewald_diff)
+    reset_counts(chain.table_chain, chain.swap_chain)
+    expect = {move: {"direct": 0, "qary": 0, "ising": 0} for move in ("table", "swap")}
+    traces = {}
+    for stem, label, ensemble, occ0, move, host_s, charges in runs:
+        sampler = Sampler.from_ensemble(
+            ensemble, TEMPERATURE, WALKERS, seed=3,
+            step_type="table-flip" if move == "table" else None)
+        path = sampler.execution_path(THIN)
+        check(path.startswith(f"cuda-chain[{move}]+ewald"), f"{stem} ({label}): path {path}")
+        if move == "table":  # the usher's table: derived here, stored in the file
+            usher = sampler.mckernel.mcusher
+            stored = load_system(data / f"torch_{stem}.npz")
+            check(np.array_equal(usher.flip_table, stored["flip_table"]),
+                  f"{stem} ({label}): flip table {usher.flip_table.tolist()}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler.run(NSTEPS, np.tile(occ0, (WALKERS, 1)), thin_by=THIN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        samples = sampler.samples
+        n = samples.num_samples
+        check(n == NSTEPS // THIN, f"{stem} ({label}): {n} samples")
+        last_f = samples.get_feature_vectors(discard=n - 1)
+        last_h = samples.get_enthalpies(discard=n - 1)
+        check(np.isfinite(last_h).all() and np.isfinite(last_f).all(),
+              f"{stem} ({label}): non-finite")
+        parity = float(np.abs(last_f @ ensemble.natural_parameters - last_h).max())
+        check(parity < 1e-9, f"{stem} ({label}): parity (e) {parity}")
+        occupancies = samples.get_occupancies(flat=False)  # [S, W, N]
+        sites = np.arange(ensemble.num_sites)
+        net = np.stack([charges[sites, record].sum(axis=-1) for record in occupancies])
+        check(not net.any(), f"{stem} ({label}): net charges {np.unique(net)}")
+        accept = float(sampler.efficiency())
+        check(0.0 < accept < 1.0, f"{stem} ({label}): acceptance {accept}")
+        delta = chain.default_delta(ensemble.processor, ensemble.sublattices)
+        expect[move][delta] += n
+        traces.setdefault(stem, []).append((occupancies, samples.get_enthalpies()))
+        build = f"host build {host_s:.4f} s, " if label == "built" else ""
+        print(f"phase 4c [{stem}, {label}] {card}: path {path}, T {TEMPERATURE:g} K, "
+              f"{build}{WALKERS * NSTEPS / wall / 1e6:.1f} M attempts/s ({wall:.4f} s for "
+              f"{WALKERS} walkers x {NSTEPS} steps, cold), acceptance {accept:.4f}, "
+              f"parity(e) {parity:.3e}, net charge 0 on all {n} x {WALKERS} records")
+    for stem, (exact, inexact, ewald_diff) in exact_stems.items():
+        (occ_b, h_b), (occ_f, h_f) = traces[stem]
+        if np.array_equal(occ_b, occ_f) and np.array_equal(h_b, h_f):
+            print(f"phase 4c [{stem}]: the built run's occupancies and enthalpies equal "
+                  f"the file run's bit for bit")
+            continue
+        # where the arrays are the file's bits, so must the runs be; where a
+        # last bit differs, a decision that sits on it may go the other way
+        check(not exact, f"phase 4c [{stem}]: the built run differs from the file run")
+        why = (f"the built arrays [{', '.join(inexact)}] differ from the file's in their "
+               f"last bits (the Ewald matrix by {ewald_diff:.3e}; scripts/ewald_host_terms.py "
+               f"finds the steps where this host rounds otherwise than the file's)")
+        parted = (occ_b != occ_f).any(axis=-1)  # [S, W]
+        if not parted.any():
+            dh = float(np.abs(h_b - h_f).max())
+            print(f"phase 4c [{stem}]: the built run's occupancies equal the file run's on "
+                  f"every record and walker, its enthalpies within {dh:.3e} eV of them, not "
+                  f"bit for bit: {why}")
+            continue
+        walkers = int(parted.any(axis=0).sum())
+        first = int(np.flatnonzero(parted.any(axis=1))[0])
+        together = ~parted.any(axis=0)
+        dh = float(np.abs(h_b - h_f).reshape(parted.shape)[:, together].max(initial=0.0))
+        print(f"phase 4c [{stem}]: the built run differs from the file run: "
+              f"{int((~parted).all(axis=1).sum())} of {len(parted)} records equal on every "
+              f"walker, {walkers} of {WALKERS} walkers part (first at record {first}), the "
+              f"others' enthalpies within {dh:.3e} eV; why: {why}, so the tables' last bits "
+              f"differ and a decision within them of log U goes the other way; each run "
+              f"keeps parity (e) and the net charge on its own")
+    bodies = {"table": body_counts(chain.table_chain), "swap": body_counts(chain.swap_chain)}
+    check(bodies == expect, f"phase 4c: launches by body {bodies}, not {expect}")
+    print(f"phase 4c: launches on the built Ewald paths by kernel and site body {bodies}")
+    return bodies
 
 
 def drive_tempering(card, delta):
@@ -3094,13 +3276,16 @@ def main():
         ("flip", Q4_CELL, TEMPERATURE, BLOCK, "qary")], card)
     _, sgc_bodies = drive_sgc(card)
     _, built_bodies = drive_built(card)
+    t0 = time.perf_counter()
+    ewald_bodies = drive_built_ewald(card)
+    print(f"phase 4c took {time.perf_counter() - t0:.1f} s")
     _, pt_bodies, exchange_launches = drive_tempering_cells(card)
     launches = {("flip", body): flip_bodies[body] + sgc_bodies[body] + pt_bodies[body]
                 + built_bodies[body] for body in ("direct", "qary", "ising")}
     launches.update({("swap", body): swap_bodies[body] + swap_direct[body]
-                     for body in ("direct", "qary", "ising")})
+                     + ewald_bodies["swap"][body] for body in ("direct", "qary", "ising")})
     launches.update({("table", body): table_bodies[body] + table_other[body]
-                     for body in ("direct", "qary", "ising")})
+                     + ewald_bodies["table"][body] for body in ("direct", "qary", "ising")})
     launches[("flip", "qary4")] = qary_paths["flip"]["qary"]
     launches[("swap", "qary+ewald")] = qary_paths["swap"]["qary"]
     tempering_vs_enumeration(card)

@@ -36,6 +36,12 @@ writes each supercell as a system file that ``smol_tpu_torch`` loads
   potentials, for charge-neutral semigrand table flips: the ``TableFlip``
   usher's flip table and dimension ids, the site charges and a
   charge-neutral ``initial_occupancy``;
+- ``torch_spinel_ewald_cd_sgc_2x2x2.npz``: ``bench.py``'s ``spinel-ewald``
+  exactly as the bench builds it (``bench.py:359-393``): the spinel with
+  an Ewald term, ``from_cluster_expansion``'s default processor (the
+  decomposition, composed with the Ewald term), the bench chemical
+  potentials, the ``TableFlip`` usher's keys and the charge-neutral
+  ``initial_occupancy`` the bench draws first from ``default_rng(0)``;
 - ``torch_lmof_2x2x2.npz``: a small Li+/Mn3+/vacancy, O2-/F- rocksalt
   whose charge-neutral flips recolor up to three sites (the table chain's
   multi-slot case), with a charge-neutral ``initial_occupancy``;
@@ -102,6 +108,7 @@ WANG_LANDAU = ("aucu_wl_3x3x3", "aucu_nn_2x2x2", "sgc_wl_3x3x3")  # the Wang-Lan
 TABLE = {  # file stem -> (system, its argument) of the table-flip files
     "spinel_ewald_sgc_2x2x2": ("spinel_ewald_sgc", 2),
     "spinel_ewald_sgc_3x3x3": ("spinel_ewald_sgc", 3),
+    "spinel_ewald_cd_sgc_2x2x2": ("spinel_ewald_cd_sgc", 2),
     "lmof_2x2x2": ("lmof", (2, 2, 2)),
     "limn_tiny_2x1x1": ("limn_tiny", None),
 }
@@ -387,6 +394,19 @@ def spinel_ewald_sgc_ensemble(n: int):
     )
 
 
+def spinel_ewald_cd_sgc_ensemble(n: int):
+    """``bench.py``'s ``spinel-ewald`` as the bench builds it: the spinel CE +
+    Ewald, semigrand, with the default processor (a decomposition composed
+    with the Ewald term)."""
+    reference_native()  # the Ewald sums the committed files hold
+    from smol_tpu.benchmarks.systems import random_expansion, spinel_prim
+    from smol_tpu.moca import Ensemble
+
+    ce = random_expansion(spinel_prim(), {2: 5.3, 3: 3.7}, seed=11, ewald=True)
+    return Ensemble.from_cluster_expansion(
+        ce, np.diag([n, n, n]), chemical_potentials=BENCH_MUS)
+
+
 def lmof_initial_occupancy(ensemble) -> np.ndarray:
     """Half Li+, half Mn3+ on the cation sites, O2- on the anion sites."""
     cations = np.asarray(ensemble.sublattices[0].sites)
@@ -403,11 +423,12 @@ def table_system(stem: str) -> dict:
     kind, arg = TABLE[stem]
     ensemble = {
         "spinel_ewald_sgc": spinel_ewald_sgc_ensemble,
+        "spinel_ewald_cd_sgc": spinel_ewald_cd_sgc_ensemble,
         "lmof": lmof_ensemble,
         "limn_tiny": lambda _: limn_tiny_ensemble(),
     }[kind](arg)
     system = export_system(ensemble, usher=TableFlip(ensemble.sublattices))
-    if kind == "spinel_ewald_sgc":
+    if kind in ("spinel_ewald_sgc", "spinel_ewald_cd_sgc"):
         system["initial_occupancy"] = initial_occupancy("spinel_ewald", ensemble)
     elif kind == "lmof":
         system["initial_occupancy"] = lmof_initial_occupancy(ensemble)

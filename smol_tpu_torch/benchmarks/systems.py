@@ -1,9 +1,6 @@
 """Standard benchmark systems (BASELINE.md configs).
 
-Counterpart of ``smol_tpu/benchmarks/systems.py``, whose code it copies,
-apart from the Ewald term: ``random_expansion(..., ewald=True)`` raises
-``NotImplementedError`` until ``EwaldTerm`` is ported (ROADMAP.md Queue 1
-item 5(c)).
+Counterpart of ``smol_tpu/benchmarks/systems.py``, whose code it copies.
 
 Builders for the prim structures + cluster expansions used by the benchmark
 and driver configs:
@@ -20,6 +17,7 @@ import numpy as np
 
 from smol_tpu_torch.cofe import ClusterSubspace
 from smol_tpu_torch.cofe.expansion import ClusterExpansion
+from smol_tpu_torch.cofe.extern import EwaldTerm
 from smol_tpu_torch.crystal import Lattice, Structure
 
 __all__ = [
@@ -93,12 +91,12 @@ def random_expansion(
     basis: str = "sinusoid",
 ) -> ClusterExpansion:
     """A ClusterExpansion with random ECIs (synthetic fit) on a prim."""
-    if ewald:
-        raise NotImplementedError(
-            "EwaldTerm (smol_tpu/cofe/extern/ewald.py) is not ported yet "
-            "(ROADMAP.md Queue 1 item 5(c))")
     subspace = ClusterSubspace.from_cutoffs(prim, cutoffs, basis=basis)
+    if ewald:
+        subspace.add_external_term(EwaldTerm())
     rng = np.random.default_rng(seed)
     coefs = rng.normal(scale=scale, size=len(subspace))
     coefs[0] = -1.0
+    if ewald:
+        coefs[-1] = ewald_coef
     return ClusterExpansion(subspace, coefs)

@@ -25,7 +25,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from smol_tpu_torch.capp.generate.random import generate_random_ordered_occupancy
 from smol_tpu_torch.ops.sqs import build_distance_tables, make_batched_distance_chain
 
 __all__ = ["SQS", "SQSGenerator", "StochasticSQSGenerator", "random_starts"]
@@ -50,12 +49,40 @@ class SQS:
             f"an SQS structure needs the processor a structure builds: {ENUMERATION}")
 
 
+def _composition_occupancy(processor, rng, tol=1e-6) -> np.ndarray:
+    """A random encoded occupancy [N] int32 at the sublattices' compositions.
+
+    Each sublattice of ``processor.get_sublattices()`` gets round(x * n)
+    sites of each code of fraction x, drawn without replacement from its
+    sites in code order (``rng.choice``, as the reference's
+    ``_gen_composition_occu``, ``capp/generate/random.py:105``).  Raises
+    ``ValueError`` where a code's count x * n is not within ``tol`` of an
+    integer.
+    """
+    sublattices = processor.get_sublattices()
+    occu = np.zeros(sum(len(sl.sites) for sl in sublattices), dtype=np.int64)
+    for sl in sublattices:
+        if sl.composition is None:
+            raise ValueError("the system carries no sublattice compositions")
+        for fraction in sl.composition:
+            count = len(sl.sites) * fraction
+            if abs(round(count) - count) > tol:
+                raise ValueError("composition is not compatible with supercell size.")
+        remaining = list(sl.sites)
+        for fraction, code in zip(sl.composition, sl.encoding):
+            sites = rng.choice(remaining, size=round(fraction * len(sl.sites)),
+                               replace=False)
+            occu[sites] = code
+            remaining = [i for i in remaining if i not in sites]
+    return np.ascontiguousarray(occu, dtype=np.int32)
+
+
 def random_starts(processor, nwalkers, rng) -> np.ndarray:
     """Starting occupancies [nwalkers, N] int32 of one shape: one
     composition-exact occupancy, then an independent uniform permutation of
     it within each sublattice per walker (the reference's :436-448, with the
     same draws from the numpy generator ``rng``)."""
-    occu0 = generate_random_ordered_occupancy(processor, rng=rng)
+    occu0 = _composition_occupancy(processor, rng)
     occus = np.tile(occu0, (nwalkers, 1))
     for sl in processor.get_sublattices():
         sites = np.asarray(sl.sites)

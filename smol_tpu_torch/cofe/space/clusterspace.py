@@ -1,7 +1,7 @@
 """ClusterSubspace: the set of orbits/correlation functions of a CE.
 
 Counterpart of ``smol_tpu/cofe/space/clusterspace.py``, whose code it
-copies, without structure matching, external terms and the Potts subspace.
+copies, without structure matching and the Potts subspace.
 In this module "the reference" is smol (CederGroupHub/smol).
 
 Re-design of the reference workhorse (smol/cofe/space/clusterspace.py).
@@ -16,8 +16,8 @@ through the port's packed correlations (``ops/correlations.py``) on the
 CPU.  What needs ``StructureMatcher`` (``scmatrix_from_structure``,
 ``structure_site_mapping``, and a structure's occupancy without a
 ``site_mapping``) raises ``NotImplementedError`` naming ROADMAP.md Queue 1
-item 5(d); an external term (``EwaldTerm``) names item 5(c), and
-``PottsSubspace`` and the ``evaluator`` of ``ops/ref.py`` item 5(b).
+item 5(d), and ``PottsSubspace`` and the ``evaluator`` of ``ops/ref.py``
+item 5(b).
 """
 
 from __future__ import annotations
@@ -355,11 +355,11 @@ class ClusterSubspace(MSONable):
     # ---------------- external terms ----------------
 
     def add_external_term(self, term):
-        """Add an external feature term (e.g. EwaldTerm): not ported."""
-        raise NotImplementedError(
-            f"external terms ({type(term).__name__}; EwaldTerm, "
-            "smol_tpu/cofe/extern/ewald.py) are not ported yet (ROADMAP.md "
-            "Queue 1 item 5(c))")
+        """Add an external feature term (e.g. EwaldTerm)."""
+        for added in self._external_terms:
+            if isinstance(term, type(added)):
+                raise ValueError(f"This subspace already has a {type(term)}.")
+        self._external_terms.append(term)
 
     # ---------------- structure evaluation ----------------
 
@@ -377,8 +377,17 @@ class ClusterSubspace(MSONable):
             structure, scmatrix=scmatrix, site_mapping=site_mapping, encode=True
         )
         corr = self.corr_from_occupancy(occu, scmatrix)
+        size = self.num_prims_from_matrix(scmatrix)
+
+        if self.external_terms:
+            supercell = self.structure.copy().make_supercell(scmatrix)
+            extras = [
+                np.atleast_1d(term.value_from_occupancy(occu, supercell)) / size
+                for term in self._external_terms
+            ]
+            corr = np.concatenate([corr, *extras])
         if not normalized:
-            corr = corr * self.num_prims_from_matrix(scmatrix)
+            corr = corr * size
         return corr
 
     def corr_from_occupancy(self, occu, scmatrix) -> np.ndarray:

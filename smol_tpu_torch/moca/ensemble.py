@@ -3,10 +3,10 @@
 Counterpart of ``smol_tpu/moca/ensemble.py`` (``Ensemble`` :85).  The
 processor is the one the system file names (``processor_type``, :104-126):
 a cluster expansion (the default of a file without the key), whose natural
-parameters are its coefficients, then the Ewald coefficient when the
-system has an Ewald term (the composite processor of :142-156), or a
-cluster decomposition, whose natural parameters are its coefficients (by
-default the orbit multiplicities); then -1 for the chemical-work feature
+parameters are its coefficients, or a cluster decomposition, whose
+natural parameters are its coefficients (by default the orbit
+multiplicities); either followed by the Ewald coefficient when the system
+has an Ewald term (the composite processor of :142-156); then -1 for the chemical-work feature
 when chemical potentials are set (semigrand; without them the ensemble is
 canonical); the
 per-(site, code) chemical-potential table feeds both the feature vector
@@ -29,6 +29,7 @@ from smol_tpu_torch.moca.processor.expansion import (
     ClusterExpansionProcessor,
 )
 from smol_tpu_torch.moca.sublattice import sublattices_from_system
+from smol_tpu_torch.system import site_charges
 
 PROCESSORS = {"expansion": ClusterExpansionProcessor,
               "decomposition": ClusterDecompositionProcessor}
@@ -111,26 +112,26 @@ class Ensemble:
         )
 
     @classmethod
-    def from_system(cls, system: dict, device) -> "Ensemble":
+    def from_system(cls, system: dict, device, sublattices=None) -> "Ensemble":
         """An ensemble from a system dict, with its tables on ``device``.
 
         The processor is the one ``processor_type`` names (``"expansion"``
         for a file without the key, or ``"decomposition"``).  A system
-        with ``ewald_matrix`` gets the composite processor (the expansion,
-        then the Ewald term; with a decomposition it raises
-        ``NotImplementedError``); one without a
+        with ``ewald_matrix`` gets the composite processor (the expansion
+        or decomposition, then the Ewald term); one without a
         ``chemical_potential_table`` is canonical; one with a
-        ``flip_table`` can be sampled with table flips.
+        ``flip_table`` can be sampled with table flips.  ``sublattices``
+        are the system's with their site spaces, where the caller built
+        them (:meth:`from_cluster_expansion`); a system file's carry no
+        species.
         """
         device = _check_device(device)
         kind = str(system.get("processor_type", "expansion"))
         if kind not in PROCESSORS:
             raise ValueError(f"unknown processor type {kind!r}")
-        if kind == "decomposition" and "ewald_matrix" in system:
-            raise NotImplementedError(
-                "a cluster decomposition with an Ewald term is not ported yet "
-                "(ROADMAP.md Queue 1 item 6)")
-        processor = PROCESSORS[kind](system, device)
+        if sublattices is None:
+            sublattices = sublattices_from_system(system)
+        processor = PROCESSORS[kind](system, device, sublattices)
         if "ewald_matrix" in system:
             processor = CompositeProcessor([processor, EwaldProcessor(system, device)])
         if processor.num_energy_coefs != int(system["num_energy_coefs"]):
@@ -146,13 +147,20 @@ class Ensemble:
                 "flip_table": np.asarray(system["flip_table"]),
                 "dim_ids": [ids[off[i]: off[i + 1]] for i in range(len(off) - 1)],
             }
+        charges = system.get("site_charges")
+        if charges is None and all(sl.site_space is not None for sl in sublattices):
+            allowed = [None] * processor.num_sites  # each site's species, code order
+            for sl in sublattices:
+                for site in sl.sites:
+                    allowed[site] = sl.species
+            charges = site_charges(allowed)
         return cls(
             processor,
-            sublattices_from_system(system),
+            sublattices,
             system["natural_parameters"],
             system.get("chemical_potential_table"),
             table_data=table_data,
-            site_charges=system.get("site_charges"),
+            site_charges=charges,
         )
 
     @classmethod
@@ -165,19 +173,21 @@ class Ensemble:
 
         The system is built on the host (:func:`smol_tpu_torch.system.
         build_system`, the same arrays a system file holds), then loaded as
-        :meth:`from_system` loads one; ``processor_type`` is
-        ``"decomposition"`` (the default) or ``"expansion"``; with
-        ``chemical_potentials`` the ensemble is semigrand.  A subspace with
-        an Ewald term cannot be built yet (ROADMAP.md Queue 1 item 5(c)).
+        :meth:`from_system` loads one, with the sublattices' site spaces
+        (for the table-flip usher's flip table and the charge-neutral
+        occupancies of ``generate_random_ordered_occupancy``);
+        ``processor_type`` is ``"decomposition"`` (the default) or
+        ``"expansion"``, composed with the Ewald term where the subspace has
+        one; with ``chemical_potentials`` the ensemble is semigrand.
         """
-        from smol_tpu_torch.system import build_system
+        from smol_tpu_torch.system import _build
 
         _check_device(device)
-        system = build_system(
+        system, sublattices = _build(
             cluster_expansion, supercell_matrix, processor_type=processor_type,
             chemical_potentials=chemical_potentials,
             use_concentration=use_concentration)
-        return cls.from_system(system, device)
+        return cls.from_system(system, device, sublattices)
 
     # ---------------- properties ----------------
 
@@ -217,7 +227,8 @@ class Ensemble:
 
     @property
     def site_charges(self):
-        """[num_sites, max codes] f64 charge of each (site, code), or None."""
+        """[num_sites, max codes] f64 charge of each (site, code): the
+        system's, or its built sublattices' species'; else None."""
         return self._site_charges
 
     # ---------------- feature evaluation ----------------

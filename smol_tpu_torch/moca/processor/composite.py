@@ -26,6 +26,10 @@ class CompositeProcessor:
         self.num_sites = first.num_sites
         self.num_energy_coefs = sum(p.num_energy_coefs for p in self.processors)
 
+    def get_sublattices(self):
+        """The sublattices of the first processor (all share the supercell)."""
+        return self.processors[0].get_sublattices()
+
     def compute_features(self, occupancies: torch.Tensor) -> torch.Tensor:
         """Feature vectors [W, num_energy_coefs] f64 of occupancies [W, N]."""
         return torch.cat([p.compute_features(occupancies) for p in self.processors],

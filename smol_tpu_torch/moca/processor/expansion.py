@@ -15,9 +15,12 @@ of the system file, as the reference builds them for each processor.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
+from smol_tpu_torch.moca.sublattice import sublattices_from_system
 from smol_tpu_torch.ops import correlations as corr_ops
 
 __all__ = ["ClusterExpansionProcessor", "ClusterDecompositionProcessor"]
@@ -29,10 +32,14 @@ class ClusterExpansionProcessor:
     Args:
         system: a system dict (:mod:`smol_tpu_torch.system`).
         device: where the packed tables and evaluations live.
+        sublattices: the supercell's sublattices with their site spaces
+            (a built system's); by default the system's, without species.
     """
 
-    def __init__(self, system: dict, device):
+    def __init__(self, system: dict, device, sublattices=None):
         self.device = torch.device(device)
+        self._sublattices = (sublattices_from_system(system) if sublattices is None
+                             else sublattices)
         self.num_sites = int(system["num_sites"])
         self.size = int(system["size"])
         self.num_corr = int(system["num_corr"])
@@ -43,6 +50,11 @@ class ClusterExpansionProcessor:
         self.local_strides = np.asarray(system["local_strides"])
         self.local_d2 = np.asarray(system["local_d2"])
         self.local_g = np.asarray(system["local_g"], dtype=np.float64)
+
+    def get_sublattices(self):
+        """The supercell's sublattices, in the reference's order (copies, as
+        the reference builds them anew each call)."""
+        return copy.deepcopy(self._sublattices)
 
     def compute_features(self, occupancies: torch.Tensor) -> torch.Tensor:
         """Feature vectors [W, num_corr] f64 of occupancies [W, N]."""
@@ -60,8 +72,8 @@ class ClusterDecompositionProcessor(ClusterExpansionProcessor):
     orbit (the system's ``inter_flat``, ``offset``, ``orbit_offset``,
     ``cluster_orbit`` and ``orbit_cluster_count``)."""
 
-    def __init__(self, system: dict, device):
-        super().__init__(system, device)
+    def __init__(self, system: dict, device, sublattices=None):
+        super().__init__(system, device, sublattices)
         self.interactions = corr_ops.interactions_to_device(system, self.device)
         self.num_orbits = self.interactions.num_orbits
         self.num_energy_coefs = self.num_orbits  # one coefficient per orbit

@@ -6,9 +6,9 @@ and, where the system carries it, the fraction of each code (the site
 space's composition).  Read from a system dict
 (:func:`sublattices_from_system`: species names stay with the builder), or
 built from a supercell's site spaces (:func:`sublattices_from_site_spaces`,
-which keeps each sublattice's site space), as the reference's processors
-build their default sublattices.  Restricting and splitting sites waits
-for ROADMAP.md Queue 1 item 5(c).
+which keeps each sublattice's site space and so its species), as the
+reference's processors build their default sublattices.  Restricting and
+splitting sites waits for ROADMAP.md Queue 1 item 5(c).
 """
 
 from __future__ import annotations
@@ -33,6 +33,27 @@ class Sublattice:
     @property
     def is_active(self) -> bool:
         return len(self.active_sites) > 0
+
+    @property
+    def species(self) -> tuple:
+        """The species of the site space, in code order (a built sublattice;
+        one read from a system file carries none and raises)."""
+        if self.site_space is None:
+            raise ValueError(
+                "this sublattice carries no species: it was read from a system "
+                "file; build the ensemble with Ensemble.from_cluster_expansion")
+        return tuple(self.site_space.keys())
+
+    def restrict_sites(self, sites):
+        """Freeze sites: not ported (the chains refuse restricted sites)."""
+        raise NotImplementedError(
+            "restricting sublattice sites is not ported yet (ROADMAP.md Queue 1 "
+            "item 5(c)); the chains take no restricted site (item 6)")
+
+    def split_by_species(self, occu, species_in_partitions):
+        """Split by occupied species: not ported."""
+        raise NotImplementedError(
+            "splitting sublattices is not ported yet (ROADMAP.md Queue 1 item 5(c))")
 
 
 def sublattices_from_site_spaces(site_spaces, allowed_species) -> list[Sublattice]:

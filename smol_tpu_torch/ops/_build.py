@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
 Each ``csrc/<name>.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, under
@@ -7,6 +7,12 @@ shared library with a plain C interface, at first use, under
 the headers in ``csrc/``, so an edited source is rebuilt and a stale
 library is never loaded.  Nothing is built or loaded when a module is
 imported.
+
+The host library ``csrc/host_ewald.cpp`` (the real-space Ewald sums of
+:class:`smol_tpu_torch.crystal.ewald.EwaldSummation`) is compiled the same
+way by ``g++`` (:func:`load_host_ewald`), with :data:`HOST_FLAGS`.  Every
+build writes a private file and renames it into place, so a process never
+loads another's half-written library; a failed build raises.
 """
 
 from __future__ import annotations
@@ -20,7 +26,10 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "KERNELS", "build_libraries", "load_chain"]
+import numpy as np
+
+__all__ = ["BUILD_DIR", "CSRC_DIR", "HOST_FLAGS", "KERNELS", "build_libraries",
+           "host_ewald_real_sums", "load_chain", "load_host_ewald"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "smol_tpu_torch"
@@ -129,3 +138,53 @@ def load_chain(name: str) -> ctypes.CDLL:
     lib.smol_cuda_error_string.argtypes = [_i32]
     lib.smol_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# g++ flags of the host library: no -march=native and no contraction into
+# fused multiply-adds beyond the two the source writes out, so the sums do
+# not depend on whether the CPU has FMA or how the compiler contracts
+# (csrc/host_ewald.cpp)
+HOST_FLAGS = ("-O2", "-ffp-contract=off", "-fopenmp", "-shared", "-fPIC")
+
+
+@functools.lru_cache(maxsize=None)
+def load_host_ewald() -> ctypes.CDLL:
+    """The host Ewald library (built with ``g++`` on first call), or raise
+    ``RuntimeError`` where it cannot build or load."""
+    source = CSRC_DIR / "host_ewald.cpp"
+    digest = hashlib.sha1(source.read_bytes() + " ".join(HOST_FLAGS).encode())
+    lib = BUILD_DIR / f"libhost_ewald_{digest.hexdigest()[:12]}.so"
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cxx = shutil.which("g++") or shutil.which("c++")
+        if cxx is None:
+            raise RuntimeError("g++ not found: the host Ewald library needs it")
+        proc = subprocess.run([cxx, *HOST_FLAGS, str(source), "-o", str(tmp)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on {source} (exit {proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)
+    try:
+        handle = ctypes.CDLL(str(lib))
+    except OSError as err:
+        raise RuntimeError(f"cannot load the host Ewald library {lib}: {err}") from err
+    entry = handle.smol_host_ewald_real_sums
+    entry.argtypes = [_ptr, ctypes.c_int64, _ptr, ctypes.c_int64, _f64, _f64, _ptr]
+    entry.restype = None
+    return handle
+
+
+def host_ewald_real_sums(coords, img_cart, sqrt_eta: float, rmax: float):
+    """[n, n] f64: for each site pair, the sum over the periodic images of
+    erfc(sqrt_eta r) / r for 0 < r <= rmax, in image order (``csrc/
+    host_ewald.cpp``); coincident pairs are skipped."""
+    coords = np.ascontiguousarray(coords, dtype=np.float64)
+    img = np.ascontiguousarray(img_cart, dtype=np.float64)
+    n = len(coords)
+    out = np.zeros((n, n), dtype=np.float64)
+    load_host_ewald().smol_host_ewald_real_sums(
+        coords.ctypes.data, n, img.ctypes.data, len(img), float(sqrt_eta),
+        float(rmax), out.ctypes.data)
+    return out

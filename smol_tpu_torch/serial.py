@@ -111,7 +111,6 @@ _REFERENCE = "smol_tpu"
 # classes a saved document may name that the port does not have yet, by
 # the ROADMAP.md item that ports them (others name Queue 1)
 _WAITING = {
-    "EwaldTerm": "Queue 1 item 5(c)",
     "PottsSubspace": "Queue 1 item 5(b)",
     "StructureWrangler": "Queue 1 item 7",
     "ComputedStructureEntry": "Queue 1 item 7",

@@ -1,10 +1,9 @@
 """A cluster-expansion system as data: built by the port, or carried over.
 
 A system is built on the host (crystal symmetry, cluster subspace,
-supercell packing, coefficient folding).  :func:`build_system` builds one
-from the port's own ``ClusterExpansion`` (no Ewald term yet: ROADMAP.md
-Queue 1 item 5(c)); :func:`export_system` reads a built ``smol_tpu``
-ensemble.  Both return the same plain numpy arrays, through the same
+supercell packing, coefficient folding, the Ewald matrix).
+:func:`build_system` builds one from the port's own ``ClusterExpansion``;
+:func:`export_system` reads a built ``smol_tpu`` ensemble.  Both return the same plain numpy arrays, through the same
 helpers, which :func:`save_system` writes to a compressed ``.npz`` file and
 :func:`load_system` reads back.  These arrays are the port's "weights":
 the port loads them and runs on the card.
@@ -38,15 +37,17 @@ Keys of a system dict (N sites, C clusters of at most K sites, P
   [orbits] int32, ``cluster_orbit`` [C] int32 and ``orbit_cluster_count``
   [orbits] f64; ``num_energy_coefs`` is then the orbit count and
   ``natural_parameters`` starts with the decomposition's coefficients;
-- for a cluster expansion with an Ewald term (the reference's
-  ``CompositeProcessor`` of a cluster-expansion and an ``EwaldProcessor``):
+- for a cluster expansion or decomposition with an Ewald term (the
+  reference's ``CompositeProcessor`` of a cluster-expansion or
+  cluster-decomposition processor and an ``EwaldProcessor``):
   ``ewald_matrix`` [n_ew, n_ew] f64, ``ewald_inds`` [N, max codes] int32
   (the Ewald row of each (site, code), -1 for a vacancy) and
   ``ewald_coef`` 0-d f64.  ``num_energy_coefs`` and
-  ``natural_parameters`` then hold the expansion's coefficients followed
-  by the Ewald coefficient;
+  ``natural_parameters`` then hold the expansion's (or decomposition's)
+  coefficients followed by the Ewald coefficient;
 - for table flips (``export_system(ensemble, usher=...)`` with the
-  reference's ``TableFlip`` usher): ``flip_table`` [F, D] int64, the flip
+  reference's ``TableFlip`` usher, or ``build_system(...,
+  table_flip=True)`` with the port's): ``flip_table`` [F, D] int64, the flip
   vectors over the D (sublattice, species) dimensions of the composition
   space; ``usher_dim_ids`` with ``usher_dim_ids_offsets`` [S + 1], each
   sublattice's dimension ids (one per code, in code order) concatenated
@@ -158,33 +159,24 @@ def export_system(ensemble, usher=None) -> dict:
     The ensemble's processor must be a cluster-expansion processor (its
     features are the extensive correlation vector), the form the port's
     :class:`~smol_tpu_torch.moca.processor.expansion.ClusterExpansionProcessor`
-    evaluates, alone or in a composite followed by an Ewald processor
-    (``from_cluster_expansion(..., processor_type="expansion")``), or a
-    cluster-decomposition processor alone (``from_cluster_expansion``'s
+    evaluates (``from_cluster_expansion(..., processor_type="expansion")``),
+    or a cluster-decomposition processor (``from_cluster_expansion``'s
     default), whose features the port's
     :class:`~smol_tpu_torch.moca.processor.expansion.ClusterDecompositionProcessor`
-    evaluates.  A composite of a decomposition and an Ewald term raises
-    ``NotImplementedError``.  With ``usher``, a ``TableFlip`` usher of the
-    ensemble's sublattices, the system also carries its flip table, its
-    dimension ids and the site charges (see the module docstring).
+    evaluates, either alone or in a composite followed by an Ewald
+    processor.  With ``usher``, a ``TableFlip`` usher of the ensemble's
+    sublattices, the system also carries its flip table, its dimension ids
+    and the site charges (see the module docstring).
     """
     processor = ensemble.processor
     parts = getattr(processor, "processors", [processor])
     names = [type(p).__name__ for p in parts]
-    if names == ["ClusterDecompositionProcessor", "EwaldProcessor"]:
-        raise NotImplementedError(
-            "a cluster decomposition with an Ewald term is not ported yet "
-            "(ROADMAP.md Queue 1 item 6); build the ensemble with "
-            "processor_type='expansion'"
-        )
-    if names not in (["ClusterExpansionProcessor"],
-                     ["ClusterExpansionProcessor", "EwaldProcessor"],
-                     ["ClusterDecompositionProcessor"]):
+    if names[0] not in ("ClusterExpansionProcessor", "ClusterDecompositionProcessor") \
+            or names[1:] not in ([], ["EwaldProcessor"]):
         raise ValueError(
-            "export_system needs a ClusterExpansionProcessor, alone or "
-            "followed by an EwaldProcessor in a composite, or a "
-            "ClusterDecompositionProcessor alone; got "
-            f"{type(processor).__name__} of {names}"
+            "export_system needs a ClusterExpansionProcessor or a "
+            "ClusterDecompositionProcessor, alone or followed by an "
+            f"EwaldProcessor in a composite; got {type(processor).__name__} of {names}"
         )
     ewald = parts[1] if len(parts) == 2 else None
     processor = parts[0]
@@ -204,7 +196,7 @@ def export_system(ensemble, usher=None) -> dict:
             ensemble.natural_parameters, dtype=np.float64
         ),
     }
-    if names == ["ClusterDecompositionProcessor"]:
+    if names[0] == "ClusterDecompositionProcessor":
         system.update(_decomposition_fields(
             packed, processor._inter_flat, processor._offset))
     mu_table = ensemble.chemical_potential_table
@@ -217,12 +209,20 @@ def export_system(ensemble, usher=None) -> dict:
         system["ewald_inds"] = np.asarray(ewald._ewald_inds, dtype=np.int32)
         system["ewald_coef"] = np.float64(np.atleast_1d(ewald.coefs)[0])
     if usher is not None:
-        system["flip_table"] = np.asarray(usher.flip_table, dtype=np.int64)
-        system["usher_dim_ids"], system["usher_dim_ids_offsets"] = _ragged(
-            usher.dim_ids, np.int64
-        )
-        system["site_charges"] = site_charges(ensemble.processor.allowed_species)
+        system.update(_usher_fields(usher, ensemble.processor.allowed_species))
     return system
+
+
+def _usher_fields(usher, allowed_species) -> dict:
+    """The fields of a ``TableFlip`` usher: its flip table, its dimension
+    ids and the site charges."""
+    dim_ids, dim_ids_offsets = _ragged(usher.dim_ids, np.int64)
+    return {
+        "flip_table": np.asarray(usher.flip_table, dtype=np.int64),
+        "usher_dim_ids": dim_ids,
+        "usher_dim_ids_offsets": dim_ids_offsets,
+        "site_charges": site_charges(allowed_species),
+    }
 
 
 def _packed_fields(packed, size) -> dict:
@@ -269,28 +269,45 @@ def _sublattice_fields(subs) -> dict:
 
 
 def build_system(cluster_expansion, supercell_matrix, processor_type="decomposition",
-                 chemical_potentials=None, use_concentration=False) -> dict:
+                 chemical_potentials=None, use_concentration=False,
+                 table_flip=False) -> dict:
     """The system dict of a cluster expansion on a supercell.
 
     Builds what ``smol_tpu``'s ``Ensemble.from_cluster_expansion`` builds
     (``smol_tpu/moca/ensemble.py:104-161``; the processors' host
-    construction, ``moca/processor/expansion.py:99-303``, and their default
-    sublattices, ``moca/processor/base.py:30-52, 127-140``) and returns the
-    keys that :func:`export_system` writes for such an ensemble, with the
-    same arithmetic.  ``processor_type`` is ``"decomposition"`` (natural
+    construction, ``moca/processor/expansion.py:99-303`` and
+    ``moca/processor/ewald.py:40-80``, and their default sublattices,
+    ``moca/processor/base.py:30-52, 127-140``) and returns the keys that
+    :func:`export_system` writes for such an ensemble, with the same
+    arithmetic.  ``processor_type`` is ``"decomposition"`` (natural
     parameters the orbit multiplicities) or ``"expansion"`` (the
-    coefficients); ``chemical_potentials``, a dict of species (or names)
-    to values, makes the system semigrand.  A ``ClusterExpansion`` of the
-    port has no external term (``EwaldTerm`` waits for ROADMAP.md Queue 1
-    item 5(c)).
+    coefficients); an ``EwaldTerm`` of the subspace adds the Ewald keys,
+    and the expansion's last coefficient to the natural parameters, as the
+    reference's composite processor; ``chemical_potentials``, a dict of
+    species (or names) to values, makes the system semigrand.
+    ``table_flip=True`` adds the keys of a
+    :class:`~smol_tpu_torch.moca.kernel.tableflip.TableFlip` usher with
+    its defaults: the flip table it derives, its dimension ids and the
+    site charges.
     """
+    return _build(cluster_expansion, supercell_matrix, processor_type,
+                  chemical_potentials, use_concentration, table_flip)[0]
+
+
+def _build(cluster_expansion, supercell_matrix, processor_type="decomposition",
+           chemical_potentials=None, use_concentration=False, table_flip=False):
+    """(system dict, its sublattices with their site spaces) of
+    :func:`build_system`."""
     from smol_tpu_torch.cofe.space.domain import get_allowed_species, get_site_spaces
+    from smol_tpu_torch.crystal.ewald import EwaldSummation
     from smol_tpu_torch.moca.ensemble import chemical_potential_table
+    from smol_tpu_torch.moca.kernel.tableflip import TableFlip
     from smol_tpu_torch.moca.sublattice import sublattices_from_site_spaces
     from smol_tpu_torch.ops.packing import pack_interactions, pack_supercell
 
     subspace = cluster_expansion.cluster_subspace
     orbits = subspace.orbits
+    n_ext = len(subspace.external_terms)
     scmatrix = np.array(supercell_matrix, dtype=np.int64)
     packed = pack_supercell(subspace, scmatrix)
     extra = {}
@@ -303,7 +320,8 @@ def build_system(cluster_expansion, supercell_matrix, processor_type="decomposit
             coefs[o.id] * t for o, t in zip(orbits, tensors[1:])]
         extra = _decomposition_fields(packed, inter_flat, offset)
     elif processor_type == "expansion":
-        coefs = np.atleast_1d(np.asarray(cluster_expansion.coefs, dtype=np.float64))
+        coefs = cluster_expansion.coefs[:-n_ext] if n_ext else cluster_expansion.coefs
+        coefs = np.atleast_1d(np.asarray(coefs, dtype=np.float64))
         if len(coefs) != subspace.num_corr_functions:
             raise ValueError(
                 f"Got {len(coefs)} coefficients, need {subspace.num_corr_functions}.")
@@ -319,16 +337,32 @@ def build_system(cluster_expansion, supercell_matrix, processor_type="decomposit
     sites, strides, d2, g, _ = local_arrays(packed, energy_flat, energy_weights)
 
     supercell = subspace.structure.copy().make_supercell(scmatrix)
+    allowed = get_allowed_species(supercell)
     spaces = tuple(sorted(set(get_site_spaces(supercell, include_measure=use_concentration))))
-    sublattices = sublattices_from_site_spaces(spaces, get_allowed_species(supercell))
+    sublattices = sublattices_from_site_spaces(spaces, allowed)
     params = coefs
+    if n_ext:  # the reference's composite: the Ewald processor of the first term
+        term = subspace.external_terms[0]
+        structure, inds = term.get_ewald_structure(supercell)
+        summation = EwaldSummation(
+            structure, real_space_cut=term.real_space_cut,
+            recip_space_cut=term.recip_space_cut, eta=term.eta)
+        ewald_coef = np.float64(np.atleast_1d(cluster_expansion.coefs[-1])[0])
+        extra["ewald_matrix"] = np.ascontiguousarray(
+            term.get_ewald_matrix(summation), dtype=np.float64)
+        extra["ewald_inds"] = np.ascontiguousarray(inds, dtype=np.int32)
+        extra["ewald_coef"] = ewald_coef
+        params = np.append(params, ewald_coef)
+    num_energy_coefs = len(params)
     if chemical_potentials is not None:
         extra["chemical_potential_table"] = chemical_potential_table(
             sublattices, packed.num_sites, chemical_potentials)
-        params = np.append(coefs, -1.0)
-    return {
+        params = np.append(params, -1.0)
+    if table_flip:
+        extra.update(_usher_fields(TableFlip(sublattices), allowed))
+    system = {
         **_packed_fields(packed, packed.size),
-        "num_energy_coefs": np.int64(len(coefs)),
+        "num_energy_coefs": np.int64(num_energy_coefs),
         "local_sites": sites,
         "local_strides": strides,
         "local_d2": d2,
@@ -337,6 +371,7 @@ def build_system(cluster_expansion, supercell_matrix, processor_type="decomposit
         "natural_parameters": np.asarray(params, dtype=np.float64),
         **extra,
     }
+    return system, sublattices
 
 
 def export_distance_system(processor) -> dict:

@@ -7,9 +7,9 @@ cluster subspace and expansion.  Each of the 11 Ewald-free system files in
 ``scripts/export_torch_systems.py``; the port's build of the same
 expansion on the same supercell must hold every array of the file:
 integers exactly, f64 within 1e-12 relative (|diff| <= 1e-12 * max(1,
-max |file|)).  The two table-flip files are held to every key but the
-usher's (the flip table, dimension ids and site charges wait for
-``CompositionSpace``, ROADMAP.md Queue 1 item 5(c)).  Keys that the export
+max |file|)).  The two table-flip files are held here to every key but the
+usher's; ``tests/test_torch_build_ewald.py`` builds them with the usher's
+keys too, and the Ewald files.  Keys that the export
 script adds beside ``export_system`` (a starting occupancy, a Wang-Landau
 window, exact enthalpies) are not part of a build.
 """
@@ -188,5 +188,18 @@ def test_missing_chemical_potential_raises():
 
 
 def test_ewald_expansion_raises():
-    with pytest.raises(NotImplementedError, match=r"5\(c\)"):
-        random_expansion(spinel_prim(), {2: 5.3}, ewald=True)
+    """``random_expansion(..., ewald=True)`` is ported: its subspace carries
+    an Ewald term and its coefficients are the reference's."""
+    from smol_tpu.benchmarks.systems import random_expansion as ref_expansion
+    from smol_tpu.benchmarks.systems import spinel_prim as ref_spinel_prim
+    from smol_tpu_torch.cofe.extern import EwaldTerm
+
+    for coef in (0.1, 0.25):
+        mine = random_expansion(spinel_prim(), {2: 5.3, 3: 3.7}, seed=11, ewald=True,
+                                ewald_coef=coef)
+        theirs = ref_expansion(ref_spinel_prim(), {2: 5.3, 3: 3.7}, seed=11, ewald=True,
+                               ewald_coef=coef)
+        assert [type(t) for t in mine.cluster_subspace.external_terms] == [EwaldTerm]
+        assert len(mine.coefs) == mine.cluster_subspace.num_corr_functions + 1
+        np.testing.assert_array_equal(mine.coefs, theirs.coefs)
+        assert mine.coefs[-1] == coef

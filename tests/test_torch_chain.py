@@ -32,15 +32,17 @@ import jax.numpy as jnp
 from smol_tpu.benchmarks.systems import fcc_ternary_prim, random_expansion
 from smol_tpu.moca import Ensemble, Sampler
 from smol_tpu.ops import pallas_chain
+from smol_tpu_torch.benchmarks.systems import random_expansion as torch_random_expansion
+from smol_tpu_torch.benchmarks.systems import spinel_prim as torch_spinel_prim
 from smol_tpu_torch.constants import kB
 from smol_tpu_torch.moca.ensemble import Ensemble as TorchEnsemble
 from smol_tpu_torch.moca.ensemble import random_occupancies
 from smol_tpu_torch.moca.sampler.sampler import Sampler as TorchSampler
 from smol_tpu_torch.ops import chain
-from smol_tpu_torch.system import export_system
+from smol_tpu_torch.system import export_system, load_system
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "scripts"))
-from export_torch_systems import spinel_ensemble  # noqa: E402
+from export_torch_systems import BENCH_MUS, ROOT, spinel_ensemble  # noqa: E402
 
 ULP_SLACK = 4
 
@@ -315,9 +317,19 @@ def test_sampler_device_is_explicit(spinel):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
                                    bias_type="square-charge")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
-                                   step_type="table-flip")  # no flip table
+    with pytest.raises(ValueError, match="no species"):  # a file: no flip table,
+        TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",  # no species
+                                   step_type="table-flip")
+    # built here, the spinel derives the flip table stored with its Ewald form
+    built = TorchEnsemble.from_cluster_expansion(
+        torch_random_expansion(torch_spinel_prim(), {2: 5.3, 3: 3.7}, seed=11),
+        np.diag([2, 2, 2]), processor_type="expansion", chemical_potentials=BENCH_MUS,
+        device="cpu")
+    usher = TorchSampler.from_ensemble(built, 1000.0, 4, seed=1, device="cpu",
+                                       step_type="table-flip").mckernel.mcusher
+    stored = load_system(ROOT / "tests" / "data" / "torch_spinel_ewald_sgc_2x2x2.npz")
+    np.testing.assert_array_equal(usher.flip_table, stored["flip_table"])
+    np.testing.assert_array_equal(np.concatenate(usher.dim_ids), stored["usher_dim_ids"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
                                    kernel_type="uniformly-random")

@@ -232,9 +232,14 @@ def test_classes_the_port_lacks_name_their_item():
     from smol_tpu.benchmarks.systems import random_expansion, spinel_prim
     from smol_tpu.cofe import PottsSubspace
 
-    ewald = _reference_doc(random_expansion(spinel_prim(), {2: 4.0}, seed=11, ewald=True))
-    with pytest.raises(NotImplementedError, match=r"EwaldTerm.*5\(c\)"):
-        process_decoded(ewald)
+    from smol_tpu_torch.cofe.extern import EwaldTerm
+
+    ref_ce = random_expansion(spinel_prim(), {2: 4.0}, seed=11, ewald=True)
+    ewald = process_decoded(_reference_doc(ref_ce))  # ported: decodes to the port's
+    assert type(ewald) is ClusterExpansion
+    terms = ewald.cluster_subspace.external_terms
+    assert [type(t) for t in terms] == [EwaldTerm] and terms[0].use_term == "total"
+    np.testing.assert_array_equal(ewald.coefs, ref_ce.coefs)
     potts = _reference_doc(PottsSubspace.from_cutoffs(_binary(__import__(
         "smol_tpu.crystal", fromlist=["Lattice"])), {2: 3.0}))
     with pytest.raises(NotImplementedError, match=r"PottsSubspace.*5\(b\)"):
@@ -248,8 +253,13 @@ def test_structure_matching_waits_for_its_item():
         subspace.corr_from_structure(structure)
     with pytest.raises(NotImplementedError, match=r"5\(d\)"):
         subspace.occupancy_from_structure(structure, scmatrix=np.eye(3, dtype=int))
-    with pytest.raises(NotImplementedError, match=r"5\(c\)"):
-        subspace.add_external_term(object())
+    from smol_tpu_torch.cofe.extern import EwaldTerm
+
+    size = len(subspace)  # external terms are ported: one Ewald term a subspace
+    subspace.add_external_term(EwaldTerm())
+    assert len(subspace) == size + 1
+    with pytest.raises(ValueError, match="already has"):
+        subspace.add_external_term(EwaldTerm(use_term="real"))
     prim = Structure(Lattice(ROCKSALT * 3.8), [{"Au": 0.5, "Cu": 0.5}], [[0, 0, 0]])
     with pytest.raises(NotImplementedError, match=r"5\(d\)"):
         ClusterSubspace.from_cutoffs(prim, {2: 3.0}, ltol=0.3)

@@ -57,7 +57,10 @@ runtime slot count body too; Wang-Landau flips and swaps on Au-Cu (the
 main paths' launch shapes), the 8-site cell, the spinel CE + Ewald, the
 ternary ``sgc`` window (q = 3) and the quaternary rocksalt (q = 4), with
 masks padded to 2 and 4 words; and K3 with q = 4, and q = 2 with the Ewald
-term, in the flip and swap kernels.
+term, in the flip and swap kernels.  The table-move and swap kernels, each with
+the Ewald term, on bench ``spinel-ewald`` 2x2x2 built here as ``bench.py``
+builds it (the decomposition composed with the Ewald term, the usher's
+flip table derived), in the direct and K1-Ising bodies.
 """
 
 import dataclasses
@@ -83,11 +86,15 @@ def card():
     return torch.device("cuda")
 
 
-def _operands(card, cell, W, n_steps, block_size, move="flip", delta="direct"):
+def _operands(card, cell, W, n_steps, block_size, move="flip", delta="direct",
+              ensemble=None):
     """Operands of one launch on system file ``torch_<cell>.npz`` (a bare
-    supercell name is the semigrand spinel), with the site body ``delta``."""
-    stem = cell if "_" in cell else f"spinel_{cell}"
-    ens = Ensemble.from_system(load_system(DATA / f"torch_{stem}.npz"), card)
+    supercell name is the semigrand spinel), or on ``ensemble``, with the
+    site body ``delta``."""
+    ens = ensemble
+    if ens is None:
+        stem = cell if "_" in cell else f"spinel_{cell}"
+        ens = Ensemble.from_system(load_system(DATA / f"torch_{stem}.npz"), card)
     tables = chain.build_chain_tables(
         ens.processor, ens.sublattices, mu_table=ens.chemical_potential_table,
         delta=delta,
@@ -107,7 +114,7 @@ def _operands(card, cell, W, n_steps, block_size, move="flip", delta="direct"):
         ops["useq"], ops["vseq"] = chain.rank_pair_sequence(tables, gen, shape)
         ops["nmove"] = torch.zeros(W, dtype=torch.int32, device=card)
     elif move == "table":
-        usher = TableFlip(ens.sublattices, **ens.table_data)
+        usher = TableFlip(ens.sublattices, **(ens.table_data or {}))  # or derived
         ops["table_move"] = chain.build_table_move(tables, usher)
         ops["dirs"], ops["ranks"] = chain.table_sequences(
             tables, ops["table_move"], gen, shape)
@@ -319,6 +326,7 @@ def _table_kernel_and_twin(ops, rng, kernel_move=None):
     net = [charges.gather(1, o["occ"].long()).sum(dim=0) for o in (ops, kernel)]
     assert torch.equal(*net)  # each walker keeps its net charge
     assert not torch.equal(kernel["occ"], ops["occ"])
+    return kernel, twin
 
 
 @pytest.mark.cuda
@@ -333,6 +341,45 @@ def test_table_kernel_matches_twin(card, rng, cell, W, block_size):
     ops = _operands(card, cell, W, 400, block_size, move="table")
     assert ops["table_move"].k_max == (3 if cell == "lmof_2x2x2" else 2)
     _table_kernel_and_twin(ops, rng)
+
+
+@pytest.fixture(scope="module")
+def built_spinel_ewald(card):
+    """Bench ``spinel-ewald`` 2x2x2 built here as ``bench.py`` builds it (the
+    decomposition composed with the Ewald term), semigrand and canonical."""
+    from smol_tpu_torch.benchmarks.systems import random_expansion, spinel_prim
+
+    ce = random_expansion(spinel_prim(), {2: 5.3, 3: 3.7}, seed=11, ewald=True)
+    mus = {"Li+": 0.1, "vacA0+": 0.0, "Mn3+": 0.05, "Mn4+": 0.0}
+    return {move: Ensemble.from_cluster_expansion(
+        ce, np.diag([2, 2, 2]), chemical_potentials=mus if move == "table" else None,
+        device=card) for move in ("table", "swap")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+@pytest.mark.parametrize("delta", ["direct", "ising"])
+@pytest.mark.parametrize("move,W,block_size", [
+    ("table", 256, 64), ("table", 8192, 1024),  # the last: the main path's shape
+    ("swap", 256, 64), ("swap", 8192, 1024)])
+def test_built_ewald_kernels_match_twin(card, built_spinel_ewald, rng, delta, move, W,
+                                        block_size):
+    """K5 and K2, each with K4, on the decomposition + Ewald system built
+    here (its usher's flip table derived), against their twins bit for bit."""
+    ens = built_spinel_ewald[move]
+    assert type(ens.processor.processors[0]).__name__ == "ClusterDecompositionProcessor"
+    ops = _operands(card, None, W, 400, block_size, move=move, delta=delta, ensemble=ens)
+    assert ops["tables"].has_ewald and ops["tables"].delta == delta
+    if move == "table":
+        assert ops["table_move"].k_max == 2
+        kernel, twin = _table_kernel_and_twin(ops, rng)
+    else:
+        kernel, twin = _kernel_and_twin(ops, chain.swap_chain, chain.swap_chain_reference,
+                                        rng)
+        _assert_same(kernel, twin, 400)
+        counts = [(o["occ"] == 1).sum(dim=0) for o in (ops, kernel)]
+        assert torch.equal(*counts)  # each walker keeps its composition
+    assert torch.equal(kernel["enthalpy"], twin["enthalpy"])  # bit for bit
 
 
 @pytest.mark.cuda

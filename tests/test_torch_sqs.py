@@ -56,8 +56,7 @@ from smol_tpu.moca.processor.distance import CorrelationDistanceProcessor as Ref
 from smol_tpu.ops import pallas_chain, pallas_sqs
 from smol_tpu.ops.correlations import corr_from_occupancy
 from smol_tpu_torch.capp import StochasticSQSGenerator
-from smol_tpu_torch.capp.generate.random import generate_random_ordered_occupancy
-from smol_tpu_torch.capp.generate.special.sqs import random_starts
+from smol_tpu_torch.capp.generate.special.sqs import _composition_occupancy, random_starts
 from smol_tpu_torch.moca.processor.distance import (
     ClusterInteractionDistanceProcessor,
     CorrelationDistanceProcessor,
@@ -326,7 +325,7 @@ def test_starts_follow_reference():
             perms = rng.random((5, len(sl.sites))).argsort(axis=1)
             expect[:, sl.sites] = occu0[sl.sites][perms]
         np.testing.assert_array_equal(
-            generate_random_ordered_occupancy(port, rng=np.random.default_rng(7)), occu0)
+            _composition_occupancy(port, np.random.default_rng(7)), occu0)
         np.testing.assert_array_equal(random_starts(port, 5, np.random.default_rng(7)), expect)
 
 

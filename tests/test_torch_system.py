@@ -21,7 +21,8 @@
   lands (``reference_native`` builds a private copy where the shared
   build failed), and fails, not skips, where the library cannot load;
 - the exporter refuses a processor the port cannot evaluate, alone or as
-  the expansion part of a composite;
+  the first part of a composite, and exports the decomposition + Ewald
+  composite of bench ``spinel-ewald`` (``torch_spinel_ewald_cd_sgc_2x2x2.npz``);
 - with ``jax`` blocked from importing, a subprocess imports the port and
   runs short CPU slices from the system files, semigrand flips,
   canonical swaps with Ewald, table flips, Wang-Landau flips, an SQS
@@ -56,6 +57,7 @@ from export_torch_systems import (  # noqa: E402
     decomposition_system,
     reference_native,
     spinel_ensemble,
+    spinel_ewald_cd_sgc_ensemble,
     sqs_systems,
     system_path,
     table_system,
@@ -235,14 +237,29 @@ def test_export_requires_expansion_processor():
 
 
 def test_export_refuses_composite_of_decomposition():
-    from smol_tpu.benchmarks.systems import random_expansion, spinel_prim
-    from smol_tpu.moca import Ensemble
+    """The composite of a decomposition and an Ewald term, which the
+    exporter refused before it was ported, exports: bench ``spinel-ewald``
+    as ``bench.py`` builds it equals the committed file."""
+    from smol_tpu.moca.kernel.tableflip import TableFlip
+    from smol_tpu_torch.moca.ensemble import Ensemble as TorchEnsemble
 
-    ce = random_expansion(spinel_prim(), {2: 4.0}, seed=11, ewald=True)
-    ens = Ensemble.from_cluster_expansion(ce, np.diag([1, 1, 1]))
-    assert type(ens.processor).__name__ == "CompositeProcessor"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-        export_system(ens)
+    ens = spinel_ewald_cd_sgc_ensemble(2)
+    assert [type(p).__name__ for p in ens.processor.processors] == [
+        "ClusterDecompositionProcessor", "EwaldProcessor"]
+    fresh = export_system(ens, usher=TableFlip(ens.sublattices))
+    committed = load_system(data_path("spinel_ewald_cd_sgc_2x2x2"))
+    assert sorted(fresh) == sorted(k for k in committed if k != "initial_occupancy")
+    for key, value in fresh.items():
+        assert committed[key].dtype == np.asarray(value).dtype, key
+        np.testing.assert_array_equal(committed[key], value, err_msg=key)
+    assert str(committed["processor_type"]) == "decomposition"
+    num_orbits = len(committed["orbit_cluster_count"])
+    assert committed["num_energy_coefs"] == num_orbits + 1  # the Ewald coefficient
+    np.testing.assert_array_equal(committed["natural_parameters"][-2:],
+                                  [committed["ewald_coef"], -1.0])
+    port = TorchEnsemble.from_system(committed, "cpu")
+    assert [type(p).__name__ for p in port.processor.processors] == [
+        "ClusterDecompositionProcessor", "EwaldProcessor"]
 
 
 def test_save_load_roundtrip(tmp_path):
@@ -345,6 +362,21 @@ def test_port_runs_with_jax_blocked():
         sampler.run(100, rng.integers(0, 2, (16, ens.num_sites)), thin_by=50)
         assert sampler.samples.num_samples == 2
         print("ok built", sampler.execution_path(50))
+        # with an Ewald term: bench spinel-ewald's flow, built here
+        from smol_tpu_torch.benchmarks.systems import spinel_prim
+        from smol_tpu_torch.capp.generate.random import generate_random_ordered_occupancy
+        ce = random_expansion(spinel_prim(), {{2: 5.3, 3: 3.7}}, seed=11, ewald=True)
+        ens = Ensemble.from_cluster_expansion(
+            ce, np.diag([1, 1, 1]), device="cpu",
+            chemical_potentials={{"Li+": 0.1, "vacA0+": 0.0, "Mn3+": 0.05, "Mn4+": 0.0}})
+        occ0 = generate_random_ordered_occupancy(ens.processor, charge_neutral=True,
+                                                 rng=np.random.default_rng(0))
+        sampler = Sampler.from_ensemble(ens, 1000.0, 16, seed=3, device="cpu",
+                                        step_type="table-flip")
+        sampler.run(100, np.tile(occ0, (16, 1)), thin_by=50)
+        occs = sampler.samples.get_occupancies()
+        assert not ens.site_charges[np.arange(ens.num_sites), occs].sum(axis=1).any()
+        print("ok built", sampler.execution_path(50))
         import chip_smoke
         assert chip_smoke.golden_parity() <= 1e-12
         bad = [m for m in sys.modules if m == "smol_tpu" or m.startswith("smol_tpu.")]
@@ -364,6 +396,7 @@ def test_port_runs_with_jax_blocked():
     assert "ok cpu-twin[flip]+qary3" in proc.stdout
     assert "ok cpu-twin[flip]+ising+shared-proposals+replica-exchange@10" in proc.stdout
     assert "ok built cpu-twin[flip]" in proc.stdout
+    assert "ok built cpu-twin[table]+ewald" in proc.stdout
     assert "phase 4b [golden_lno_ce]" in proc.stdout
 
 
@@ -397,7 +430,10 @@ def test_port_never_imports_jax_or_reference():
                    "crystal/pmg_compat.py", "cofe/space/domain.py", "cofe/space/basis.py",
                    "cofe/space/cluster.py", "cofe/space/orbit.py",
                    "cofe/space/clusterspace.py", "cofe/expansion.py", "ops/packing.py",
-                   "benchmarks/systems.py"):
+                   "benchmarks/systems.py", "crystal/ewald.py", "cofe/extern/ewald.py",
+                   "csrc/host_ewald.cpp", "moca/occu_utils.py", "utils/math.py",
+                   "moca/composition/constraints.py", "moca/composition/space.py",
+                   "capp/generate/random.py"):
         assert (package / module).exists(), module  # the host layer, checked above
     from smol_tpu_torch.ops import _build
 

@@ -298,12 +298,14 @@ def _unused_slots_off_valid_ranks(dirs, ranks, slot_valid, num_ranks):
 
 
 def _trajectory_parity(kind, cell, W, n_steps, temperature, seed, monkeypatch,
-                       pad_to=None, delta="direct"):
+                       pad_to=None, delta="direct", systems=None):
     """The hash-mode table twin with the site body ``delta`` against the
     interpret-mode reference chain, which takes its own body (K1-Ising on a
     binary sign-symmetric system unless ``SMOL_TPU_CHAIN_NO_ISING`` is set);
-    returns (slack, chunks, the reference's accept counts)."""
-    ref, usher, port = _systems(kind, cell)
+    ``systems`` is (reference ensemble, its usher, port ensemble), by
+    default ``_systems(kind, cell)``; returns (slack, chunks, the
+    reference's accept counts)."""
+    ref, usher, port = systems or _systems(kind, cell)
     occ0 = random_occupancies(ref, W, seed)
     sampler = Sampler.from_ensemble(ref, temperature=temperature, nwalkers=W, seed=3,
                                     step_type="table-flip")
@@ -501,9 +503,23 @@ def test_table_flip_device_and_refusals():
     # the default step type stays the single flip
     default = TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu")
     assert default.execution_path(10).startswith("cpu-twin[flip]+ewald")
-    # a system without a flip table cannot take table flips yet
+    # a system without a flip table derives the stored one from its species
+    from smol_tpu_torch.benchmarks.systems import random_expansion as torch_expansion
+    from smol_tpu_torch.benchmarks.systems import spinel_prim as torch_spinel_prim
+
+    built = TorchEnsemble.from_cluster_expansion(
+        torch_expansion(torch_spinel_prim(), {2: 5.3, 3: 3.7}, seed=11, ewald=True),
+        np.diag([2, 2, 2]), processor_type="expansion", chemical_potentials=BENCH_MUS,
+        device="cpu")
+    assert built.table_data is None
+    derived = TorchSampler.from_ensemble(built, 1000.0, 4, seed=1, device="cpu",
+                                         step_type="table-flip").mckernel.mcusher
+    np.testing.assert_array_equal(derived.flip_table, port.table_data["flip_table"])
+    for mine, stored in zip(derived.dim_ids, port.table_data["dim_ids"]):
+        np.testing.assert_array_equal(mine, stored)
+    # a system file without one carries no species to derive it from
     bare = TorchEnsemble.from_system(load_system(data_path("spinel_ewald_2x2x2")), "cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="no species"):
         TorchSampler.from_ensemble(bare, 1000.0, 4, seed=1, device="cpu",
                                    step_type="table-flip")
     sweep = TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
