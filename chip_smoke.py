@@ -234,6 +234,26 @@ printing its last line when any phase fails:
    bit: each run's host build time, rate, acceptance, parity (e) and the
    net charge of every record (0); counts set to 0 just before the runs,
    read just after, and added to K5's and K2's launches;
+4d. the reference's host API: bench ``spinel`` 2x2x2 built by hand as the
+   reference's users build it (``ClusterDecompositionProcessor(subspace,
+   scmatrix, interaction tensors, device="cuda")`` -> ``Ensemble(
+   processor)`` -> ``ensemble.chemical_potentials = {...}``), run as phase
+   4b runs it (K1, the default body), equal to phase 4b's built run bit
+   for bit, and again from ``Ensemble.from_dict(json.loads(json.dumps(
+   ensemble.as_dict())))``, bit for bit; 1000 single flips from its
+   records, ``compute_feature_vector_change`` (the local delta over the
+   flipped site's clusters) against the full recompute within 1e-12
+   relative (parity (b)), and ``compute_average_drift``; then
+   ``chemical_potentials = None``: the path takes swaps, one window on K2
+   with parity (e); bench ``sqs`` as ``bench.py`` builds it
+   (``StochasticSQSGenerator.from_structure(fcc_binary_prim(), {2: 5.0, 3:
+   3.5}, 8)``, its host build time printed as set-up), its 20 shapes equal
+   to ``torch_sqs_fcc8.npz`` array for array, a search of phase 3's launch
+   size (300 steps, 2048 walkers a shape, the 4 temperatures) beside the
+   same search from the file (best scores and occupancies equal), and
+   ``get_best_sqs(5, remove_duplicates=True)`` with each structure's
+   formula; counts set to 0 just before the runs, read just after, and
+   added to K1's, K2's and K7's launches;
 5. times one 100-step window at 8192 walkers, kernel against twin, for
    each cell (every repetition on a copy of the same starting state, the
    one the bound is worked out for), the kernels also without their Ewald term
@@ -317,7 +337,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from smol_tpu_torch.benchmarks.systems import fcc_ternary_prim, random_expansion, spinel_prim
+from smol_tpu_torch.benchmarks.systems import (
+    fcc_binary_prim,
+    fcc_ternary_prim,
+    random_expansion,
+    spinel_prim,
+)
 from smol_tpu_torch.capp.generate.random import generate_random_ordered_occupancy
 from smol_tpu_torch.capp.generate.special.sqs import StochasticSQSGenerator, random_starts
 from smol_tpu_torch.cofe import ClusterSubspace
@@ -327,6 +352,7 @@ from smol_tpu_torch.crystal.pmg_compat import decode_pmg, load_pmg_json
 from smol_tpu_torch.moca.ensemble import Ensemble, random_occupancies
 from smol_tpu_torch.moca.kernel.tableflip import TableFlip
 from smol_tpu_torch.moca.processor.distance import CorrelationDistanceProcessor
+from smol_tpu_torch.moca.processor.expansion import ClusterDecompositionProcessor
 from smol_tpu_torch.moca.sampler.sampler import Sampler
 from smol_tpu_torch.ops import _build, chain, sqs
 from smol_tpu_torch.parallel import (
@@ -476,6 +502,9 @@ BUILT_CELLS = {
                   6, {"Au": 0.05, "Ag": 0.0, "Cu": -0.05}, SGC_TEMPERATURE),
 }
 BUILD_REL_TOL = 1e-12  # |built - file| <= 1e-12 * max(1, max |file|), f64 arrays
+# phase 4d: the reference's host API, on phase 4b's bench spinel
+HOST_API_CELL = "spinel_cd_2x2x2"
+HOST_API_FLIPS = 1000  # single flips held to a full recompute
 # phase 4c: bench spinel-ewald built here: stem -> (supercell edge,
 # processor type, chemical potentials, move); table flips and swaps at 1000 K
 BENCH_MUS = {"Li+": 0.1, "vacA0+": 0.0, "Mn3+": 0.05, "Mn4+": 0.0}
@@ -1478,6 +1507,7 @@ def drive_built(card):
         runs[stem] = (built, load(stem)[0], temperature, exact)
     reset_counts(chain.flip_chain)
     expect = {"direct": 0, "qary": 0, "ising": 0}
+    built_traces = {}
     for stem, (built, stored, temperature, exact) in runs.items():
         traces = []
         for label, ensemble in (("built", built), ("file", stored)):
@@ -1503,6 +1533,7 @@ def drive_built(card):
                   f"parity(e) {parity:.3e}, acceptance {float(sampler.efficiency()):.4f}, "
                   f"{WALKERS * NSTEPS / wall / 1e6:.1f} M attempts/s ({wall:.4f} s, "
                   f"cold)")
+        built_traces[stem] = traces[0]
         same = all(np.array_equal(a, b) for a, b in zip(*traces))
         check(same or not exact, f"{stem}: the built system's trace differs from the file's")
         verdict = "equal the file run's bit for bit" if same else "differ from the file run's"
@@ -1511,7 +1542,7 @@ def drive_built(card):
     check(bodies == expect, f"phase 4b: flip launches by body {bodies}, not {expect}")
     print(f"phase 4b: flip_chain launches on the built paths: {chain.flip_chain.launches} "
           f"(by site body {bodies})")
-    return golden, bodies
+    return golden, bodies, built_traces
 
 
 def drive_built_ewald(card):
@@ -1648,6 +1679,167 @@ def drive_built_ewald(card):
     check(bodies == expect, f"phase 4c: launches by body {bodies}, not {expect}")
     print(f"phase 4c: launches on the built Ewald paths by kernel and site body {bodies}")
     return bodies
+
+
+def flip_run(ensemble, temperature):
+    """The bench spinel's main path, as phase 4b runs it: 8192 walkers x
+    20000 steps thinned by 100 from ``random_occupancies(ensemble, 8192,
+    0)``, seed 3; returns (occupancies [S, W, N], enthalpies [S * W], path)."""
+    sampler = Sampler.from_ensemble(ensemble, temperature, WALKERS, seed=3)
+    path = sampler.execution_path(THIN)
+    sampler.run(NSTEPS, random_occupancies(ensemble, WALKERS, 0), thin_by=THIN)
+    torch.cuda.synchronize()
+    samples = sampler.samples
+    return samples.get_occupancies(flat=False), samples.get_enthalpies(), path
+
+
+def drive_host_api(card, built_trace):
+    """Phase 4d, the reference's host API on the card.  (i) bench ``spinel``
+    2x2x2 built by hand as the reference's users build it: the
+    decomposition processor from ``(subspace, supercell matrix,
+    interaction tensors)``, ``Ensemble(processor)``, then
+    ``ensemble.chemical_potentials = ...``; its run on K1 must equal phase
+    4b's built run (``built_trace``) bit for bit, directly and after a JSON
+    round trip; 1000 single flips from its records, their local delta held
+    to a full recompute (parity (b)), and the average drift; then ``None``
+    set: swaps, one window on K2 with parity (e).  (ii) bench ``sqs`` built from the
+    structure (``StochasticSQSGenerator.from_structure``), its 20 shapes
+    held to ``torch_sqs_fcc8.npz`` array for array, a search of phase 3's
+    launch size beside the same search from the file (equal best scores
+    and occupancies), and the five best distinct SQS.  Counts set to 0
+    just before the runs, read just after; returns the launches by kernel
+    and body."""
+    expansion, n, mus, temperature = BUILT_CELLS[HOST_API_CELL]
+    ce = expansion()
+    t0 = time.perf_counter()
+    processor = ClusterDecompositionProcessor(ce.cluster_subspace, np.diag([n, n, n]),
+                                              ce.cluster_interaction_tensors, device="cuda")
+    ensemble = Ensemble(processor)
+    ensemble.chemical_potentials = mus
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    doc = json.loads(json.dumps(ensemble.as_dict()))
+    loaded = Ensemble.from_dict(doc, device="cuda")
+    torch.cuda.synchronize()
+    json_s = time.perf_counter() - t0
+    check(np.array_equal(loaded.natural_parameters, ensemble.natural_parameters)
+          and np.array_equal(loaded.chemical_potential_table,
+                             ensemble.chemical_potential_table),
+          "4d: the JSON round trip changed the natural parameters or the mu table")
+    print(f"phase 4d [{HOST_API_CELL}] {card}: ClusterDecompositionProcessor(subspace, "
+          f"scmatrix, interaction tensors) + Ensemble(processor) + chemical_potentials "
+          f"set in {build_s:.4f} s on the host and the card; JSON round trip "
+          f"({len(json.dumps(doc))} bytes) in {json_s:.4f} s")
+    reset_counts(chain.flip_chain, chain.swap_chain)
+    expect = {move: {"direct": 0, "qary": 0, "ising": 0} for move in ("flip", "swap")}
+    ref_occ, ref_h = built_trace
+    for label, ens in (("by hand", ensemble), ("from JSON", loaded)):
+        occ, h, path = flip_run(ens, temperature)
+        check(path.startswith("cuda-chain[flip]"), f"4d ({label}): path {path}")
+        check(np.array_equal(occ, ref_occ) and np.array_equal(h, ref_h),
+              f"4d ({label}): the run differs from phase 4b's built run")
+        expect["flip"][chain.default_delta(ens.processor, ens.sublattices)] += len(occ)
+        print(f"phase 4d [{HOST_API_CELL}, {label}] {card}: path {path}, occupancies and "
+              f"enthalpies of all {len(occ)} x {WALKERS} records equal phase 4b's built "
+              f"run bit for bit")
+    # parity (b): the local delta of single flips from the recorded occupancies
+    rng = np.random.default_rng(5)
+    flat = occ.reshape(-1, ensemble.num_sites)
+    active = np.concatenate([sl.active_sites for sl in ensemble.active_sublattices])
+    ncodes = np.array([len(species) for species in processor.allowed_species])
+    worst = 0.0
+    t0 = time.perf_counter()
+    for _ in range(HOST_API_FLIPS):
+        occupancy = flat[rng.integers(len(flat))].astype(np.int32)
+        site = int(rng.choice(active))
+        code = int((occupancy[site] + rng.integers(1, ncodes[site])) % ncodes[site])
+        change = ensemble.compute_feature_vector_change(occupancy, [(site, code)])
+        after = occupancy.copy()
+        after[site] = code
+        before = ensemble.compute_feature_vector(occupancy)
+        full = ensemble.compute_feature_vector(after) - before
+        worst = max(worst, float(np.abs(change - full).max())
+                    / max(1.0, float(np.abs(before).max())))
+    flips_s = time.perf_counter() - t0
+    check(worst <= 1e-12, f"4d: a flip's feature change vs the full recompute {worst:.3e}")
+    t0 = time.perf_counter()
+    drift = processor.compute_average_drift()
+    drift_s = time.perf_counter() - t0
+    print(f"phase 4d [{HOST_API_CELL}] {card}: {HOST_API_FLIPS} single flips from the "
+          f"records, compute_feature_vector_change against the full recompute within "
+          f"{worst:.3e} relative ({flips_s:.4f} s); compute_average_drift (forward, "
+          f"reverse) {drift[0]:.3e}, {drift[1]:.3e} ({drift_s:.4f} s)")
+    # the reset: canonical swaps, one window on K2 from the last records
+    ensemble.chemical_potentials = None
+    check(ensemble.chemical_potential_table is None
+          and len(ensemble.natural_parameters) == ensemble.num_energy_coefs,
+          "4d: the reset left the mu table or the -1 natural parameter")
+    sampler = Sampler.from_ensemble(ensemble, temperature, WALKERS, seed=3)
+    path = sampler.execution_path(THIN)
+    check(path.startswith("cuda-chain[swap]"), f"4d (reset): path {path}")
+    sampler.run(THIN, occ[-1], thin_by=THIN)
+    torch.cuda.synchronize()
+    samples = sampler.samples
+    last_f, last_h = samples.get_feature_vectors(), samples.get_enthalpies()
+    parity = float(np.abs(last_f @ ensemble.natural_parameters - last_h).max())
+    check(np.isfinite(last_h).all() and parity < 1e-9, f"4d (reset): parity (e) {parity}")
+    kept = all(np.array_equal(np.sort(a[sl.sites]), np.sort(b[sl.sites]))
+               for a, b in zip(samples.get_occupancies(), occ[-1])
+               for sl in ensemble.active_sublattices)
+    check(kept, "4d (reset): a swap changed a walker's composition")
+    expect["swap"][chain.default_delta(ensemble.processor, ensemble.sublattices)] += 1
+    print(f"phase 4d [{HOST_API_CELL}, chemical_potentials = None] {card}: path {path}, "
+          f"one window, parity(e) {parity:.3e}, compositions kept")
+    bodies = {"flip": body_counts(chain.flip_chain), "swap": body_counts(chain.swap_chain)}
+    check(bodies == expect, f"4d: launches by body {bodies}, not {expect}")
+
+    # (ii) bench sqs from the structure
+    t0 = time.perf_counter()
+    generator = StochasticSQSGenerator.from_structure(
+        fcc_binary_prim(), cutoffs={2: 5.0, 3: 3.5}, supercell_size=8, device="cuda")
+    torch.cuda.synchronize()
+    sqs_build_s = time.perf_counter() - t0
+    stored = load_systems(ROOT / "tests" / "data" / "torch_sqs_fcc8.npz")
+    check(len(generator.processors) == len(stored) == 20,
+          f"4d: {len(generator.processors)} shapes")
+    for shape, (processor, system) in enumerate(zip(generator.processors, stored)):
+        check(sorted(processor.system) == sorted(system), f"4d: shape {shape}'s keys")
+        for key, value in system.items():
+            mine = np.asarray(processor.system[key])
+            check(mine.dtype == value.dtype and mine.shape == value.shape
+                  and np.array_equal(mine, value), f"4d: shape {shape}'s {key}")
+    print(f"phase 4d [sqs_fcc8 from the structure] {card}: StochasticSQSGenerator."
+          f"from_structure(fcc_binary_prim(), {{2: 5.0, 3: 3.5}}, 8) built in "
+          f"{sqs_build_s:.4f} s on the host and the card (set-up); its 20 shapes' "
+          f"supercell matrices and distance tables equal torch_sqs_fcc8.npz array for array")
+    from_file = StochasticSQSGenerator.from_processors(sqs_processors("sqs_fcc8"),
+                                                       device="cuda")
+    sqs.distance_chain.launches = 0
+    for g in (generator, from_file):
+        g.generate(mcmc_steps=SQS_WINDOW, temperatures=SQS_TEMPERATURES,
+                   nwalkers=SQS_WALKERS, seed=SQS_SEED)
+    torch.cuda.synchronize()
+    distance_launches = sqs.distance_chain.launches
+    check(generator.execution_path == "cuda-distance-chain",
+          f"4d: path {generator.execution_path}")
+    for (s1, o1, b1, f1), (s2, o2, b2, f2) in zip(generator._best, from_file._best):
+        check(s1 == s2 and np.array_equal(o1, o2) and np.array_equal(b1, b2)
+              and np.array_equal(f1, f2), f"4d: shape {s1}'s search differs from the file's")
+    check(distance_launches == 2 * len(SQS_TEMPERATURES),
+          f"4d: {distance_launches} distance launches")
+    t0 = time.perf_counter()
+    best = generator.get_best_sqs(num_structures=5, remove_duplicates=True)
+    best_s = time.perf_counter() - t0
+    check(len(best) == 5 and all(a.score <= b.score for a, b in zip(best, best[1:])),
+          f"4d: {len(best)} distinct SQS")
+    formulas = [sqs_.structure.composition.formula for sqs_ in best]
+    print(f"phase 4d [sqs_fcc8 from the structure] {card}: {SQS_WINDOW} steps x "
+          f"{len(SQS_TEMPERATURES)} temperatures x {SQS_WALKERS} walkers a shape, best "
+          f"scores and occupancies of all 20 shapes equal the file's search; "
+          f"get_best_sqs(5, remove_duplicates=True) in {best_s:.4f} s: scores "
+          f"{[round(b.score, 6) for b in best]}, formulas {formulas}")
+    return bodies, distance_launches
 
 
 def drive_tempering(card, delta):
@@ -1993,7 +2185,7 @@ DISTANCE_STATE = ("occ", "best_occ", "feat", "d", "best_d", "naccept")
 def sqs_processors(stem, device="cuda"):
     """The distance processors of an SQS file, one per supercell shape."""
     systems = load_systems(ROOT / "tests" / "data" / f"torch_{stem}.npz")
-    return [CorrelationDistanceProcessor(system, device) for system in systems]
+    return [CorrelationDistanceProcessor.from_system(system, device) for system in systems]
 
 
 def sqs_compositions(occu, proc):
@@ -2065,7 +2257,7 @@ def distance_vs_twin(proc, name, rng, seed, beta=2.0, n_steps=SQS_WINDOW, timed=
     extra = "" if design == sqs._DESIGN else f", {design_name(design)}"
     if match_weight is not None:
         coefs = np.concatenate([[-match_weight], proc.coefs[1:]])
-        proc = CorrelationDistanceProcessor({**proc.system, "distance_coefs": coefs},
+        proc = CorrelationDistanceProcessor.from_system({**proc.system, "distance_coefs": coefs},
                                             proc.device)
         extra += f", match_weight {match_weight:g}"
     ops = distance_operands(proc, n_steps, beta, seed)
@@ -2304,7 +2496,7 @@ def drive_sqs(stem, card):
     # stored scores against an exact rescore on the CPU; never behind a start
     rescore, found = 0.0, np.inf
     for (shape, occupancies, scores, _), start in zip(generator._best, generator.start_scores):
-        cpu = CorrelationDistanceProcessor(procs[shape].system, "cpu")
+        cpu = CorrelationDistanceProcessor.from_system(procs[shape].system, "cpu")
         exact = cpu.compute_scores(torch.as_tensor(occupancies)).numpy()
         rescore = max(rescore, float(np.abs(exact - scores).max()))
         check(bool((scores <= start.cpu().numpy() + 1e-12).all()),
@@ -3275,15 +3467,20 @@ def main():
         ("swap", EWALD_QARY_CELL, *SWAP_CELLS[EWALD_QARY_CELL], "qary"),
         ("flip", Q4_CELL, TEMPERATURE, BLOCK, "qary")], card)
     _, sgc_bodies = drive_sgc(card)
-    _, built_bodies = drive_built(card)
+    _, built_bodies, built_traces = drive_built(card)
     t0 = time.perf_counter()
     ewald_bodies = drive_built_ewald(card)
     print(f"phase 4c took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    api_bodies, api_distance = drive_host_api(card, built_traces[HOST_API_CELL])
+    print(f"phase 4d took {time.perf_counter() - t0:.1f} s")
     _, pt_bodies, exchange_launches = drive_tempering_cells(card)
     launches = {("flip", body): flip_bodies[body] + sgc_bodies[body] + pt_bodies[body]
-                + built_bodies[body] for body in ("direct", "qary", "ising")}
+                + built_bodies[body] + api_bodies["flip"][body]
+                for body in ("direct", "qary", "ising")}
     launches.update({("swap", body): swap_bodies[body] + swap_direct[body]
-                     + ewald_bodies["swap"][body] for body in ("direct", "qary", "ising")})
+                     + ewald_bodies["swap"][body] + api_bodies["swap"][body]
+                     for body in ("direct", "qary", "ising")})
     launches.update({("table", body): table_bodies[body] + table_other[body]
                      + ewald_bodies["table"][body] for body in ("direct", "qary", "ising")})
     launches[("flip", "qary4")] = qary_paths["flip"]["qary"]
@@ -3450,7 +3647,7 @@ def main():
               f"{ref}:1866", launches[("wl", "qary")], "wl+qary"),
         entry("distance_chain", ("distance", "sqs_fcc8 batched"),
               "smol_tpu_torch/csrc/distance_chain.cu", "smol_tpu/ops/pallas_sqs.py:649",
-              sqs_launches, "distance"),
+              sqs_launches + api_distance, "distance"),
         entry("qary_body (K3, in flip_chain)", ("flip+qary", SGC_CELL), body_src,
               f"{ref}:519", launches[("flip", "qary")], "qary",
               flip_plans("qary", {SGC_CELL: sgc})),

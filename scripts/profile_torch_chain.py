@@ -272,7 +272,7 @@ def profile_sqs(stem, card):
     shapes of a temperature)."""
     systems = load_systems(ROOT / "tests" / "data" / f"torch_{stem}.npz")
     generator = StochasticSQSGenerator.from_processors(
-        [CorrelationDistanceProcessor(s, "cuda") for s in systems], device="cuda")
+        [CorrelationDistanceProcessor.from_system(s, "cuda") for s in systems], device="cuda")
     temperatures = np.linspace(5.0, 0.02, 4)
 
     def run():

@@ -11,42 +11,52 @@ size (:mod:`smol_tpu_torch.ops.sqs`, the CUDA kernel on the card, its plain
 torch twin on the CPU; each shape draws as its own launch would, and sums
 as the launch's lanes do), each walker
 keeping its best (score, occupancy); the best occupancies are rescored
-exactly at the end.  The generator is built from distance processors
-(:meth:`StochasticSQSGenerator.from_processors`); what needs the host layer
-(structures, duplicate removal, shape enumeration) raises.
+exactly at the end.  The generator is built from a disordered structure
+as the reference builds it (:meth:`SQSGenerator.from_structure`: the
+subspace from its cutoffs, every supercell shape of the size that the
+prim's symmetry tells apart, one distance processor each, their local
+tables padded to the widest), or from distance processors
+(:meth:`SQSGenerator.from_processors`).  The best structures come back as
+:class:`SQS` records, symmetry-equivalent ones removed by the
+``StructureMatcher`` (``crystal/matcher.py``).
 """
 
 from __future__ import annotations
 
 import warnings
 from abc import ABC, abstractmethod
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from smol_tpu_torch.capp.generate.enumerate import enumerate_supercell_matrices
+from smol_tpu_torch.cofe import ClusterSubspace
+from smol_tpu_torch.crystal.matcher import StructureMatcher
+from smol_tpu_torch.moca.processor.distance import CorrelationDistanceProcessor
 from smol_tpu_torch.ops.sqs import build_distance_tables, make_batched_distance_chain
 
 __all__ = ["SQS", "SQSGenerator", "StochasticSQSGenerator", "random_starts"]
-
-ENUMERATION = ("the supercell enumeration and StructureMatcher are not ported yet "
-               "(ROADMAP.md Queue 1 item 5(d))")
 
 
 @dataclass(frozen=True)
 class SQS:
     """One SQS found: its occupancy [N] int32, its exact score and distance
-    features, and its supercell matrix."""
+    features, its supercell matrix, and the processor of its shape, which
+    gives its ``structure``."""
 
     occupancy: np.ndarray
     score: float
     feature_distance: np.ndarray
     supercell_matrix: np.ndarray
+    processor: object = field(default=None, repr=False, compare=False)
 
     @property
     def structure(self):
-        raise NotImplementedError(
-            f"an SQS structure needs the processor a structure builds: {ENUMERATION}")
+        """The ordered structure of the occupancy (the reference's
+        ``SQS.structure``); a processor loaded from a system dict has no
+        structure and raises ``ValueError``."""
+        return self.processor.structure_from_occupancy(self.occupancy)
 
 
 def _composition_occupancy(processor, rng, tol=1e-6) -> np.ndarray:
@@ -127,9 +137,62 @@ class SQSGenerator(ABC):
         self._best = []  # per shape: (occupancies [W, N], scores [W], features [W, F])
 
     @classmethod
-    def from_structure(cls, *args, **kwargs):
-        """Enumerating the supercell shapes of a structure: not ported."""
-        raise NotImplementedError(f"enumerating the shapes: {ENUMERATION}")
+    def from_structure(cls, structure, cutoffs, supercell_size, basis="indicator",
+                       orthonormal=True, use_concentration=True, feature_type="correlation",
+                       target_vector=None, target_weights=None, match_weight=1.0,
+                       match_tol=1e-5, supercell_matrices=None, device="cuda", **kwargs):
+        """A generator of a disordered structure (the reference's :150-164
+        and its constructor, :63-148): the subspace of ``cutoffs`` (built
+        with ``use_concentration``), then one correlation distance processor
+        (built with the constructor's default ``use_concentration=True``) for
+        each of ``supercell_matrices`` or, by default, each supercell shape
+        of ``supercell_size`` that the prim's symmetry tells apart, least
+        skewed first (``enumerate_supercell_matrices``, reversed), their
+        local tables padded to the widest; ``kwargs`` go to the
+        generator."""
+        subspace = ClusterSubspace.from_cutoffs(
+            structure, cutoffs, basis=basis, orthonormal=orthonormal,
+            use_concentration=use_concentration)
+        if feature_type == "cluster-interaction":
+            raise NotImplementedError(
+                "the cluster-interaction distance is not ported yet (ROADMAP.md "
+                "Queue 1 item 6)")
+        if feature_type == "correlation":
+            num_features = len(subspace)
+        else:
+            raise ValueError(
+                f"feature_type {feature_type} not supported; options are "
+                "'correlation', 'cluster-interaction'.")
+        if target_weights is None:
+            target_weights = np.ones(num_features - 1)
+        elif len(target_weights) != num_features - 1:
+            raise ValueError(f"target_weights must be of length {num_features - 1}")
+        if target_vector is None:
+            target_vector = np.zeros(num_features)
+        elif len(target_vector) != num_features:
+            raise ValueError(f"target vector must be of length {num_features}")
+        if supercell_matrices is not None:
+            for scm in supercell_matrices:
+                if np.asarray(scm).shape != (3, 3):
+                    raise ValueError("supercell matrices must be 3x3")
+                if not np.isclose(abs(np.linalg.det(scm)), supercell_size):
+                    raise ValueError("supercell matrices must have determinant equal to "
+                                     "supercell_size")
+        else:
+            supercell_matrices = enumerate_supercell_matrices(supercell_size,
+                                                              subspace.symops)
+            supercell_matrices.reverse()  # least-skewed last -> first used
+        processors = [
+            CorrelationDistanceProcessor(
+                subspace, scm, use_concentration=True, target_vector=target_vector,
+                target_weights=target_weights, match_weight=match_weight,
+                match_tol=match_tol, device=device)
+            for scm in supercell_matrices
+        ]
+        width = max(p.local_width for p in processors)
+        for p in processors:
+            p.repad_local_tables(width)
+        return cls(processors, device=device, **kwargs)
 
     @classmethod
     def from_processors(cls, processors, device="cuda", **kwargs):
@@ -140,6 +203,12 @@ class SQSGenerator(ABC):
     @property
     def processors(self):
         return self._processors
+
+    @property
+    def cluster_subspace(self):
+        """The shapes' cluster subspace (None for processors loaded from
+        system dicts)."""
+        return self._processors[0].cluster_subspace
 
     @property
     def num_structures(self) -> int:
@@ -170,16 +239,15 @@ class SQSGenerator(ABC):
 
     def get_best_sqs(self, num_structures=1, remove_duplicates=True):
         """The best SQS found so far, ranked by score (ties in shape, then
-        walker order).
+        walker order), as the reference's :237-263.
 
-        ``remove_duplicates=True``, the reference's default, drops
-        symmetry-equivalent structures with a structure matcher, which is
-        not ported yet: it raises ``NotImplementedError``.  Pass
-        ``remove_duplicates=False`` to rank every walker's best as it is.
+        ``remove_duplicates`` drops a structure that the ``StructureMatcher``
+        fits to a better one kept before it.  The ranking is walked only
+        until ``num_structures`` are kept, and an occupancy of a shape seen
+        before is dropped without a fit (it fits its first occurrence, or
+        the kept structure that one fitted): what is returned is the
+        reference's, which builds and matches every record first.
         """
-        if remove_duplicates:
-            raise NotImplementedError(
-                f"removing duplicates needs a structure matcher: {ENUMERATION}")
         if num_structures > self.num_structures:
             warnings.warn(
                 f"num_structures exceeds the {self.num_structures} structures "
@@ -190,13 +258,27 @@ class SQSGenerator(ABC):
             for i, (_, _, scores, _) in enumerate(self._best)
             for w, score in enumerate(scores)
         )
-        best = []
-        for score, i, w in records[:num_structures]:
+        best, structures, seen = [], [], set()
+        matcher = StructureMatcher()
+        for score, i, w in records:
+            if len(best) == num_structures:
+                break
             shape, occupancies, _, features = self._best[i]
-            best.append(SQS(
-                occupancy=occupancies[w], score=score, feature_distance=features[w],
-                supercell_matrix=self._processors[shape].supercell_matrix,
-            ))
+            processor = self._processors[shape]
+            sqs = SQS(occupancy=occupancies[w], score=score, feature_distance=features[w],
+                      supercell_matrix=processor.supercell_matrix, processor=processor)
+            if remove_duplicates:
+                key = (shape, occupancies[w].tobytes())
+                if key in seen:
+                    continue
+                seen.add(key)
+                structure = sqs.structure
+                if any(matcher.fit(structure, kept) for kept in structures):
+                    continue
+                structures.append(structure)
+            best.append(sqs)
+        if len(best) < num_structures:
+            warnings.warn(f"Only {len(best)} distinct SQS could be returned.")
         return best
 
 

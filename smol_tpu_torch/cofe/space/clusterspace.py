@@ -1,7 +1,7 @@
 """ClusterSubspace: the set of orbits/correlation functions of a CE.
 
 Counterpart of ``smol_tpu/cofe/space/clusterspace.py``, whose code it
-copies, without structure matching and the Potts subspace.
+copies, without the Potts subspace.
 In this module "the reference" is smol (CederGroupHub/smol).
 
 Re-design of the reference workhorse (smol/cofe/space/clusterspace.py).
@@ -13,11 +13,10 @@ kernels here and through packed JAX device kernels in the processor layer
 
 In the port, ``corr_from_occupancy`` and ``corr_from_structure`` evaluate
 through the port's packed correlations (``ops/correlations.py``) on the
-CPU.  What needs ``StructureMatcher`` (``scmatrix_from_structure``,
-``structure_site_mapping``, and a structure's occupancy without a
-``site_mapping``) raises ``NotImplementedError`` naming ROADMAP.md Queue 1
-item 5(d), and ``PottsSubspace`` and the ``evaluator`` of ``ops/ref.py``
-item 5(b).
+CPU, and structures are matched to the prim by the port's copy of the
+reference's ``StructureMatcher`` (``crystal/matcher.py``).
+``PottsSubspace`` and the ``evaluator`` of ``ops/ref.py`` raise
+``NotImplementedError`` naming ROADMAP.md Queue 1 item 5(b).
 """
 
 from __future__ import annotations
@@ -46,6 +45,7 @@ from smol_tpu_torch.crystal import (
     is_coord_subset_pbc,
     lattice_points_in_supercell,
 )
+from smol_tpu_torch.crystal.matcher import StructureMatcher
 from smol_tpu_torch.ops import correlations as corr_ops
 from smol_tpu_torch.ops.packing import pack_supercell
 from smol_tpu_torch.serial import MSONable, process_decoded
@@ -101,9 +101,6 @@ def get_complete_mapping(mapping) -> list:
 class ClusterSubspace(MSONable):
     """A subspace of cluster-expansion correlation functions.
 
-    Structure matching is not ported: ``supercell_matcher``,
-    ``site_matcher`` and matcher keywords raise ``NotImplementedError``.
-
     Attributes:
         symops: symmetry operations of the prim structure.
         num_corr_functions: total correlation functions incl. the empty one.
@@ -135,11 +132,8 @@ class ClusterSubspace(MSONable):
             ):
                 raise SymmetryError(SYMMETRY_ERROR_MESSAGE)
 
-        if supercell_matcher is not None or site_matcher is not None or matcher_kwargs:
-            raise NotImplementedError(
-                "structure matching (smol_tpu/crystal/matcher.py) is not ported yet "
-                "(ROADMAP.md Queue 1 item 5(d)); pass scmatrix and site_mapping")
-
+        self._sc_matcher = supercell_matcher or StructureMatcher(**matcher_kwargs)
+        self._site_matcher = site_matcher or StructureMatcher(**matcher_kwargs)
 
         self._orbits = orbits
         self._external_terms = []
@@ -447,17 +441,26 @@ class ClusterSubspace(MSONable):
         several candidates tie the SITE MAPPING picks the right one —
         the disambiguation pymatgen performs inside its full-structure
         fit (reference reliance: smol/cofe/space/clusterspace.py:908).
-        Not ported.
         """
-        raise NotImplementedError(
-            "structure matching (smol_tpu/crystal/matcher.py) is not ported yet "
-            "(ROADMAP.md Queue 1 item 5(d)); pass scmatrix and site_mapping")
+        cands = self._sc_matcher.get_supercell_matrix_candidates(
+            structure, self.structure
+        )
+        if not cands:
+            raise StructureMatchError("Supercell could not be found from structure.")
+        cands = [(-m if np.linalg.det(m) < 0 else m) for m in cands]
+        if len(cands) > 1:
+            for scmatrix in cands:
+                supercell = self.structure.copy().make_supercell(scmatrix)
+                if self._site_matcher.get_mapping(supercell, structure) is not None:
+                    return scmatrix
+        return cands[0]
 
     def structure_site_mapping(self, supercell, structure) -> list:
-        """Site mapping of structure onto a prim supercell: not ported."""
-        raise NotImplementedError(
-            "structure matching (smol_tpu/crystal/matcher.py) is not ported yet "
-            "(ROADMAP.md Queue 1 item 5(d)); pass scmatrix and site_mapping")
+        """Site mapping of structure onto a prim supercell."""
+        mapping = self._site_matcher.get_mapping(supercell, structure)
+        if mapping is None:
+            raise StructureMatchError("Mapping could not be found from structure.")
+        return mapping.tolist()
 
     # ---------------- supercell orbit indices ----------------
 

@@ -10,8 +10,12 @@ cluster diameter up to which every feature matches the target within
 ``match_tol`` (diameter groups in ascending order), w the match weight and
 W the target weights; ``coefs = [-w, *W]``
 (https://doi.org/10.1016/j.calphad.2013.06.006).  The processor is built
-from a distance system dict (:func:`smol_tpu_torch.system.export_distance_system`)
-and evaluates on its device.
+as the reference's is, from ``(subspace, supercell matrix, target vector,
+match weight, target weights, match tol)``
+(:func:`smol_tpu_torch.system.build_distance_system`), or loaded from a
+distance system dict (``from_system``;
+:func:`smol_tpu_torch.system.export_distance_system` writes one from the
+reference's processor), and evaluates on its device.
 """
 
 from __future__ import annotations
@@ -19,8 +23,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from smol_tpu_torch.moca.sublattice import sublattices_from_system
+from smol_tpu_torch.moca.processor.base import Processor
 from smol_tpu_torch.ops import correlations as corr_ops
+from smol_tpu_torch.serial import process_decoded
+from smol_tpu_torch.system import build_distance_system, pad_local_tables
 
 __all__ = [
     "CorrelationDistanceProcessor",
@@ -28,43 +34,78 @@ __all__ = [
 ]
 
 
-class CorrelationDistanceProcessor:
+class CorrelationDistanceProcessor(Processor):
     """Distance of a supercell occupancy from a target correlation vector.
 
     Args:
-        system: a distance system dict (one supercell shape).
+        cluster_subspace: the port's ``ClusterSubspace`` (no external terms).
+        supercell_matrix: [3, 3] integer supercell matrix.
+        use_concentration: see :class:`~smol_tpu_torch.moca.processor.base.Processor`.
+        target_vector: the target correlation vector (by default zeros).
+        match_weight: w, the weight of the exact-match diameter.
+        target_weights: W, one a correlation function but the first (by
+            default ones).
+        match_tol: the tolerance of a feature's exact match.
         device: where the packed tables and evaluations live.
     """
 
-    def __init__(self, system: dict, device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {self.device} requested but torch sees no CUDA device; "
-                "pass device='cpu' to evaluate on the CPU"
-            )
+    def __init__(self, cluster_subspace, supercell_matrix, use_concentration=False,
+                 target_vector=None, match_weight=1.0, target_weights=None,
+                 match_tol=1e-5, device="cuda"):
+        if target_vector is None:
+            target_vector = np.zeros(len(cluster_subspace))
+        if target_weights is None:
+            target_weights = np.ones(len(cluster_subspace) - 1)
+        super().__init__(cluster_subspace, supercell_matrix,
+                         np.ones(cluster_subspace.num_corr_functions),
+                         use_concentration, device)
+        self._load(build_distance_system(
+            cluster_subspace, self._scmatrix, target_vector, match_weight, match_tol,
+            target_weights, use_concentration))
+
+    @classmethod
+    def from_system(cls, system: dict, device="cuda"):
+        """The processor of a distance system dict (one supercell shape), its
+        tables on ``device``."""
+        processor = cls.__new__(cls)
+        processor._init_from_system(system, device, system["distance_coefs"])
+        processor._load(system)
+        return processor
+
+    def _load(self, system):
         self.system = system
-        self.num_sites = int(system["num_sites"])
-        self.size = int(system["size"])
         self.num_corr = int(system["num_corr"])
         self.packed = corr_ops.to_device(system, self.device)
         self.target_vector = np.asarray(system["target_vector"], dtype=np.float64)
         self.coefs = np.asarray(system["distance_coefs"], dtype=np.float64)
         self.match_tol = float(system["match_tol"])
-        self.supercell_matrix = np.asarray(system["supercell_matrix"])
         features = np.asarray(system["diameter_group_features"])
         offsets = np.asarray(system["diameter_group_features_offsets"])
         self.diameter_groups = [
             (float(diameter), features[offsets[g]: offsets[g + 1]].tolist())
             for g, diameter in enumerate(system["diameter_group_diameters"])
         ]
-        self._sublattices = sublattices_from_system(system)
         self._target_dev = torch.as_tensor(self.target_vector, device=self.device)
         self._coefs_dev = torch.as_tensor(self.coefs, device=self.device)
 
+    def repad_local_tables(self, width):
+        """Pad the local tables to ``width`` local clusters a site, as the
+        reference pads the shapes of one search to their widest
+        (:func:`smol_tpu_torch.system.pad_local_tables`)."""
+        self._load(pad_local_tables(self.system, width))
+
+    @property
+    def local_width(self) -> int:
+        """Local clusters a site of the local tables."""
+        return int(self.system["local_orbit"].shape[1])
+
     def get_sublattices(self):
-        """The supercell's sublattices, in the reference's order."""
-        return self._sublattices
+        """The supercell's sublattices, in the reference's order: built anew
+        each call, or a loaded processor's own list (the one the distance
+        tables read)."""
+        if self._subspace is None:
+            return self._sublattices
+        return super().get_sublattices()
 
     def exact_match_max_diameter(self, distance_vector) -> float:
         """Largest diameter up to which every feature matches the target."""
@@ -113,9 +154,63 @@ class CorrelationDistanceProcessor:
         )
         return features
 
-    def compute_property(self, occupancy) -> float:
-        """Score of one occupancy [N]: coefs . features."""
-        return float(self.coefs @ self.compute_feature_vector(occupancy))
+    def _base_feature_vector(self, occupancy) -> np.ndarray:
+        """The extensive correlation vector of one occupancy [N], host f64."""
+        occu = torch.as_tensor(np.asarray(occupancy, dtype=np.int64), device=self.device)
+        return self.compute_corr(occu[None, :])[0].cpu().numpy() * self.size
+
+    def _distances(self, occupancy, flips, vector) -> tuple[np.ndarray, np.ndarray]:
+        """(|f_i - vector|, |f_f - vector|): the intensive correlation vector
+        before and after a flip list (applied in order on a copy)."""
+        occupancy = np.asarray(occupancy, dtype=np.int32)
+        occu_f = occupancy.copy()
+        for site, code in flips:
+            occu_f[site] = code
+        vector = np.asarray(vector, dtype=np.float64)
+        return tuple(np.abs(self._base_feature_vector(occu) / self.size - vector)
+                     for occu in (occupancy, occu_f))
+
+    def compute_feature_vector_distances(self, occupancy, flips) -> np.ndarray:
+        """[2, num_corr] |f - T| before and after a flip list, slot 0 zero."""
+        dist_i, dist_f = self._distances(occupancy, flips, self.target_vector)
+        dist_i[0] = dist_f[0] = 0.0
+        return np.stack([dist_i, dist_f])
+
+    def compute_feature_vector_distance_change(
+        self, feature_vector, occupancy, flips
+    ) -> np.ndarray:
+        """Change in |f - feature_vector| (elementwise) from a flip list,
+        against any fixed vector instead of the target (the reference's
+        ``distance.py:141-161``)."""
+        dist_i, dist_f = self._distances(occupancy, flips, feature_vector)
+        return dist_f - dist_i
+
+    def compute_feature_vector_change(self, occupancy, flips) -> np.ndarray:
+        distances = self.compute_feature_vector_distances(occupancy, flips)
+        if self.coefs[0] != 0:
+            distances[0, 0] = self.exact_match_max_diameter(distances[0])
+            distances[1, 0] = self.exact_match_max_diameter(distances[1])
+        return distances[1] - distances[0]
+
+    def as_dict(self) -> dict:
+        d = super().as_dict()
+        d["target_vector"] = self.target_vector.tolist()
+        d["match_weight"] = -float(self.coefs[0])
+        d["match_tol"] = self.match_tol
+        return d
+
+    @classmethod
+    def from_dict(cls, d, device="cuda"):
+        """As the reference's (``distance.py:266-273``), which keeps no target
+        weights: they come back as ones."""
+        return cls(
+            process_decoded(d["cluster_subspace"]),
+            np.array(d["supercell_matrix"]),
+            target_vector=np.array(d["target_vector"]),
+            match_weight=d["match_weight"],
+            match_tol=d.get("match_tol", 1e-5),
+            device=device,
+        )
 
 
 class ClusterInteractionDistanceProcessor:

@@ -7,78 +7,186 @@ expansion's feature vector is the extensive correlation vector,
 ``corr * size``; the decomposition's is the extensive cluster-interaction
 vector, ``interactions * size``, one entry per orbit, whose natural
 parameters are the decomposition's coefficients (by default the orbit
-multiplicities).  Both processors also hold the per-site local-cluster
-arrays (host numpy) from which the chains build their tables
-(:mod:`smol_tpu_torch.ops.chain`): the coefficient-folded energy tensors
-of the system file, as the reference builds them for each processor.
+multiplicities).  Each processor builds its fields from ``(subspace,
+supercell matrix, coefficients)`` (:func:`smol_tpu_torch.system.
+expansion_fields`, :func:`~smol_tpu_torch.system.decomposition_fields`),
+or loads them from a system dict (``from_system``), and holds the per-site
+local-cluster arrays (host numpy) from which the chains build their tables
+(:mod:`smol_tpu_torch.ops.chain`): the coefficient-folded energy tensors,
+as the reference builds them for each processor.  A flip's feature change
+is the reference's local delta, over the (function, cluster) pairs (or
+the clusters) that hold the flipped site
+(:func:`smol_tpu_torch.ops.correlations.local_delta`).
 """
 
 from __future__ import annotations
 
-import copy
-
 import numpy as np
-import torch
 
-from smol_tpu_torch.moca.sublattice import sublattices_from_system
+from smol_tpu_torch.moca.processor.base import Processor
 from smol_tpu_torch.ops import correlations as corr_ops
+from smol_tpu_torch.serial import process_decoded
+from smol_tpu_torch.system import decomposition_fields, expansion_fields
 
 __all__ = ["ClusterExpansionProcessor", "ClusterDecompositionProcessor"]
 
 
-class ClusterExpansionProcessor:
+class ClusterExpansionProcessor(Processor):
     """Features of a supercell occupancy under a cluster expansion.
 
     Args:
-        system: a system dict (:mod:`smol_tpu_torch.system`).
+        cluster_subspace: the port's ``ClusterSubspace``.
+        supercell_matrix: [3, 3] integer supercell matrix.
+        coefficients: one a correlation function.
+        use_concentration: see :class:`~smol_tpu_torch.moca.processor.base.Processor`.
         device: where the packed tables and evaluations live.
-        sublattices: the supercell's sublattices with their site spaces
-            (a built system's); by default the system's, without species.
     """
 
-    def __init__(self, system: dict, device, sublattices=None):
-        self.device = torch.device(device)
-        self._sublattices = (sublattices_from_system(system) if sublattices is None
-                             else sublattices)
-        self.num_sites = int(system["num_sites"])
-        self.size = int(system["size"])
-        self.num_corr = int(system["num_corr"])
-        self.num_energy_coefs = self.num_corr  # one coefficient per feature
-        self.packed = corr_ops.to_device(system, self.device)
+    def __init__(self, cluster_subspace, supercell_matrix, coefficients,
+                 use_concentration=False, device="cuda"):
+        super().__init__(cluster_subspace, supercell_matrix, coefficients,
+                         use_concentration, device)
+        if len(self.coefs) != cluster_subspace.num_corr_functions:
+            raise ValueError(
+                f"Got {len(self.coefs)} coefficients, need "
+                f"{cluster_subspace.num_corr_functions}."
+            )
+        self._load(expansion_fields(cluster_subspace, self._scmatrix, self.coefs))
+
+    @classmethod
+    def from_system(cls, system: dict, device, sublattices=None):
+        """The processor of a system dict, its tables on ``device``; its
+        coefficients are the system's first natural parameters, and
+        ``sublattices`` (by default the system's) its sublattices."""
+        processor = cls.__new__(cls)
+        processor._init_from_system(
+            system, device, np.asarray(system["natural_parameters"])[:processor._width(system)],
+            sublattices)
+        processor._load(system)
+        return processor
+
+    @staticmethod
+    def _width(system) -> int:
+        """The number of features of the system's processor."""
+        return int(system["num_corr"])
+
+    def _load(self, fields):
+        """Move the packed fields to the device and keep the local arrays."""
+        self.fields = fields  # host arrays: the system keys of this processor
+        self._local = None
+        self.num_corr = int(fields["num_corr"])
+        self.packed = corr_ops.to_device(fields, self.device)
         # host arrays of the per-site local clusters (chain-table input)
-        self.local_sites = np.asarray(system["local_sites"])
-        self.local_strides = np.asarray(system["local_strides"])
-        self.local_d2 = np.asarray(system["local_d2"])
-        self.local_g = np.asarray(system["local_g"], dtype=np.float64)
+        self.local_sites = np.asarray(fields["local_sites"])
+        self.local_strides = np.asarray(fields["local_strides"])
+        self.local_d2 = np.asarray(fields["local_d2"])
+        self.local_g = np.asarray(fields["local_g"], dtype=np.float64)
 
-    def get_sublattices(self):
-        """The supercell's sublattices, in the reference's order (copies, as
-        the reference builds them anew each call)."""
-        return copy.deepcopy(self._sublattices)
-
-    def compute_features(self, occupancies: torch.Tensor) -> torch.Tensor:
+    def compute_features(self, occupancies):
         """Feature vectors [W, num_corr] f64 of occupancies [W, N]."""
         return corr_ops.corr_from_occupancy(occupancies, self.packed) * self.size
 
-    def compute_feature_vector(self, occupancy) -> np.ndarray:
-        """Feature vector of one occupancy [N], as a host array."""
-        occu = torch.as_tensor(np.asarray(occupancy), device=self.device)
-        return self.compute_features(occu[None, :])[0].cpu().numpy()
+    def _local_entries(self):
+        """Each site's (function, cluster) pairs, built at first use."""
+        return corr_ops.local_entries(self.fields, self.fields["pair_cluster"],
+                                      self.fields["pair_offset"], self.fields["pair_fn"],
+                                      self.device)
+
+    def _feature_change(self, occupancy, site, code):
+        if self._local is None:
+            self._local = self._local_entries()
+        return corr_ops.local_delta(occupancy, site, code, self._local,
+                                    *self._delta_tables())
+
+    def _delta_tables(self):
+        """(flat value table, cluster count a feature) of the local delta."""
+        return self.packed.corr_flat, self.packed.fn_cluster_count
+
+    def _change_scale(self):
+        return self.size
+
+    @classmethod
+    def from_dict(cls, d, device="cuda"):
+        return cls(
+            process_decoded(d["cluster_subspace"]),
+            np.array(d["supercell_matrix"]),
+            coefficients=np.array(d["coefficients"]),
+            device=device,
+        )
 
 
 class ClusterDecompositionProcessor(ClusterExpansionProcessor):
     """Features of a supercell occupancy under a cluster decomposition:
     the cluster-interaction vector times the supercell size, one entry per
-    orbit (the system's ``inter_flat``, ``offset``, ``orbit_offset``,
-    ``cluster_orbit`` and ``orbit_cluster_count``)."""
+    orbit; the default coefficients are the orbit multiplicities.
 
-    def __init__(self, system: dict, device, sublattices=None):
-        super().__init__(system, device, sublattices)
-        self.interactions = corr_ops.interactions_to_device(system, self.device)
+    Args:
+        cluster_subspace: the port's ``ClusterSubspace``.
+        supercell_matrix: [3, 3] integer supercell matrix.
+        interaction_tensors: the expansion's ``cluster_interaction_tensors``.
+        coefficients: one an orbit; by default the orbit multiplicities.
+        use_concentration: see :class:`~smol_tpu_torch.moca.processor.base.Processor`.
+        device: where the packed tables and evaluations live.
+    """
+
+    def __init__(self, cluster_subspace, supercell_matrix, interaction_tensors,
+                 coefficients=None, use_concentration=False, device="cuda"):
+        if len(interaction_tensors) != cluster_subspace.num_orbits:
+            raise ValueError(
+                f"Need {cluster_subspace.num_orbits} interaction tensors, got "
+                f"{len(interaction_tensors)}."
+            )
+        coefficients = (
+            cluster_subspace.orbit_multiplicities
+            if coefficients is None
+            else coefficients
+        )
+        Processor.__init__(self, cluster_subspace, supercell_matrix, coefficients,
+                           use_concentration, device)
+        self._interaction_tensors = tuple(
+            np.asarray(t, dtype=np.float64) for t in interaction_tensors
+        )
+        self._load(decomposition_fields(cluster_subspace, self._scmatrix,
+                                        self._interaction_tensors, self.coefs))
+
+    @staticmethod
+    def _width(system) -> int:
+        return len(np.asarray(system["orbit_cluster_count"]))
+
+    def _load(self, fields):
+        super()._load(fields)
+        self.interactions = corr_ops.interactions_to_device(fields, self.device)
         self.num_orbits = self.interactions.num_orbits
-        self.num_energy_coefs = self.num_orbits  # one coefficient per orbit
 
-    def compute_features(self, occupancies: torch.Tensor) -> torch.Tensor:
+    def compute_features(self, occupancies):
         """Feature vectors [W, num_orbits] f64 of occupancies [W, N]."""
         return corr_ops.interactions_from_occupancy(
             occupancies, self.packed, self.interactions) * self.size
+
+    def _local_entries(self):
+        """Each site's clusters, built at first use."""
+        orbit = np.asarray(self.fields["cluster_orbit"], dtype=np.int64)
+        return corr_ops.local_entries(self.fields, np.arange(len(orbit)),
+                                      np.asarray(self.fields["orbit_offset"])[orbit],
+                                      orbit, self.device)
+
+    def _delta_tables(self):
+        return self.interactions.inter_flat, self.interactions.orbit_cluster_count
+
+    def as_dict(self) -> dict:
+        d = super().as_dict()
+        d["interaction_tensors"] = [
+            np.asarray(t).tolist() for t in self._interaction_tensors
+        ]
+        return d
+
+    @classmethod
+    def from_dict(cls, d, device="cuda"):
+        return cls(
+            process_decoded(d["cluster_subspace"]),
+            np.array(d["supercell_matrix"]),
+            tuple(np.array(t) for t in d["interaction_tensors"]),
+            coefficients=np.array(d["coefficients"]),
+            device=device,
+        )
+

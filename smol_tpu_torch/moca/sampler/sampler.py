@@ -16,6 +16,7 @@ fails, and it runs on the CPU only when the caller asks for
 
 from __future__ import annotations
 
+import time
 from warnings import warn
 
 import numpy as np
@@ -58,7 +59,7 @@ class Sampler:
     @classmethod
     def from_ensemble(cls, ensemble, temperature=None, nwalkers=1, seed=None,
                       device="cuda", step_type=None, kernel_type="Metropolis",
-                      replica_exchange_period=None, **kwargs):
+                      replica_exchange_period=None, seeds=None, **kwargs):
         """A Sampler of ``ensemble`` on ``device``.
 
         The default step type is ``"flip"`` for a semigrand ensemble and
@@ -72,7 +73,9 @@ class Sampler:
         ``bin_size``.  A ``temperature`` ladder [nwalkers] with
         ``replica_exchange_period`` runs parallel tempering: every period
         steps adjacent walkers try to exchange their temperatures
-        (:mod:`smol_tpu_torch.parallel.tempering`).
+        (:mod:`smol_tpu_torch.parallel.tempering`).  ``seeds``, the
+        reference's seeds of several kernels, is not ported: one kernel runs
+        every walker from ``seed``.
         """
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -90,6 +93,10 @@ class Sampler:
             step_type = (
                 "flip" if ensemble.chemical_potential_table is not None else "swap"
             )
+        if seeds is not None:
+            raise NotImplementedError(
+                "seeds (one seed a kernel) is not ported yet: one kernel runs every "
+                "walker from seed (ROADMAP.md Queue 1 item 6)")
         # a thermal kernel takes its temperature first; Wang-Landau takes none
         args = () if temperature is None else (temperature,)
         kernel = mckernel_factory(
@@ -214,10 +221,13 @@ class Sampler:
             self._state["pt_accepted"] = torch.zeros_like(self._state["naccept"])
         return self._state
 
-    def run(self, nsteps, initial_occupancies=None, thin_by=1,
-            stream_chunk=0, profile_dir=None, aux_every=None,
-            samples_per_launch=None):
+    def run(self, nsteps, initial_occupancies=None, thin_by=1, progress=False,
+            stream_chunk=0, stream_file=None, keep_last_chunk=False, swmr_mode=False,
+            samples_per_launch=None, profile_dir=None, aux_every=None):
         """Run ``nsteps`` MC steps per walker, saving a sample every ``thin_by``.
+
+        The reference's parameters, in its order (``smol_tpu/moca/sampler/
+        sampler.py:348-361``).
 
         Args:
             nsteps: total MC steps per walker.
@@ -226,20 +236,26 @@ class Sampler:
                 sampler, from the container's last sample, with the
                 kernel's aux state (the Wang-Landau record) restored.
             thin_by: steps between saved samples.
+            progress: print each launch's progress and its attempts per
+                second on the host; the device is waited for at the end of
+                each launch of windows, never inside one.
+            samples_per_launch: records stacked per launch of windows; by
+                default as many as fill about 256 MB (at least one), and at
+                most ``aux_every`` where aux records are kept.
             aux_every: cadence, in samples, of the aux records (the
                 cumulative Wang-Landau planes, see
                 ``SampleContainer.aux_traced_values``).  By default one
                 record is saved at the end of the run: every record is
                 cumulative, so the last one carries the result.
-            samples_per_launch: records stacked per launch of windows; by
-                default as many as fill about 256 MB (at least one), and at
-                most ``aux_every`` where aux records are kept.
-            stream_chunk, profile_dir: not ported yet; must be left at
-                their defaults.
+            stream_chunk, stream_file, keep_last_chunk, swmr_mode,
+            profile_dir: HDF5 streaming and profiling, not ported yet; must
+                be left at their defaults.
         """
-        if stream_chunk or profile_dir is not None:
+        if (stream_chunk or stream_file is not None or keep_last_chunk or swmr_mode
+                or profile_dir is not None):
             raise NotImplementedError(
-                "HDF5 streaming and profiling are not ported yet "
+                "HDF5 streaming (stream_chunk, stream_file, keep_last_chunk, "
+                "swmr_mode) and profiling (profile_dir) are not ported yet "
                 "(ROADMAP.md Queue 1 item 6)"
             )
         if nsteps % thin_by != 0:
@@ -276,6 +292,7 @@ class Sampler:
             launch = min(per_launch, nsamples - done)
             if has_aux and aux_every is not None:
                 launch = min(launch, int(aux_every) - since_aux)
+            t_launch = time.perf_counter()
             self._state, traces = run_chain_fused(
                 self._state, self._generator, chain_fn,
                 lambda st: self._record(st, thin_by), launch,
@@ -287,3 +304,10 @@ class Sampler:
                     aux_every is not None and since_aux >= int(aux_every))):
                 self._container.save_aux_record(self._aux_record(self._state))
                 since_aux = 0
+            if progress:
+                if self._kernel.device.type == "cuda":  # the launch's end
+                    torch.cuda.synchronize(self._kernel.device)
+                elapsed = time.perf_counter() - t_launch
+                attempts = launch * thin_by * self._nwalkers
+                print(f"sampled {done}/{nsamples} (x{thin_by} steps, "
+                      f"{attempts / max(elapsed, 1e-9) / 1e6:.1f} M attempts/s)")

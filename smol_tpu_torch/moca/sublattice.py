@@ -7,8 +7,11 @@ space's composition).  Read from a system dict
 (:func:`sublattices_from_system`: species names stay with the builder), or
 built from a supercell's site spaces (:func:`sublattices_from_site_spaces`,
 which keeps each sublattice's site space and so its species), as the
-reference's processors build their default sublattices.  Restricting and
-splitting sites waits for ROADMAP.md Queue 1 item 5(c).
+reference's processors build their default sublattices.  A built
+sublattice is serialized as the reference's is (``as_dict``/``from_dict``,
+``smol_tpu/moca/sublattice.py:178-194``), so that either package's saved
+ensemble loads into the port.  Restricting and splitting sites waits for
+ROADMAP.md Queue 1 item 5(c).
 """
 
 from __future__ import annotations
@@ -17,11 +20,13 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from smol_tpu_torch.serial import MSONable, process_decoded
+
 __all__ = ["Sublattice", "sublattices_from_site_spaces", "sublattices_from_system"]
 
 
-@dataclass
-class Sublattice:
+@dataclass(eq=False)
+class Sublattice(MSONable):
     """A set of supercell sites with a common set of codes."""
 
     sites: np.ndarray  # [n] int64 site indices
@@ -44,6 +49,10 @@ class Sublattice:
                 "file; build the ensemble with Ensemble.from_cluster_expansion")
         return tuple(self.site_space.keys())
 
+    @property
+    def restricted_sites(self) -> np.ndarray:
+        return np.setdiff1d(self.sites, self.active_sites)
+
     def restrict_sites(self, sites):
         """Freeze sites: not ported (the chains refuse restricted sites)."""
         raise NotImplementedError(
@@ -54,6 +63,44 @@ class Sublattice:
         """Split by occupied species: not ported."""
         raise NotImplementedError(
             "splitting sublattices is not ported yet (ROADMAP.md Queue 1 item 5(c))")
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, Sublattice)
+            and other.site_space == self.site_space
+            and np.array_equal(other.encoding, self.encoding)
+            and np.array_equal(other.sites, self.sites)
+            and np.array_equal(other.active_sites, self.active_sites)
+        )
+
+    def as_dict(self) -> dict:
+        """The reference's record of a built sublattice."""
+        if self.site_space is None:
+            raise ValueError("a sublattice read from a system file has no site space")
+        return {
+            "@module": type(self).__module__,
+            "@class": type(self).__name__,
+            "site_space": self.site_space.as_dict(),
+            "sites": self.sites.tolist(),
+            "active_sites": self.active_sites.tolist(),
+            "encoding": self.encoding.tolist(),
+        }
+
+    @classmethod
+    def from_dict(cls, d):
+        space = process_decoded(d["site_space"])
+        return cls(
+            sites=np.unique(np.asarray(d["sites"], dtype=np.int64)),
+            active_sites=np.asarray(d["active_sites"], dtype=np.int64),
+            encoding=np.asarray(d["encoding"], dtype=np.int32),
+            composition=_fractions(space),
+            site_space=space,
+        )
+
+
+def _fractions(space) -> np.ndarray:
+    """[n_codes] f64 the site space's fraction of each code."""
+    return np.array([space[sp] for sp in space], dtype=np.float64)
 
 
 def sublattices_from_site_spaces(site_spaces, allowed_species) -> list[Sublattice]:
@@ -71,6 +118,7 @@ def sublattices_from_site_spaces(site_spaces, allowed_species) -> list[Sublattic
             sites=sites,
             active_sites=sites.copy() if len(space) > 1 else np.zeros(0, np.int64),
             encoding=np.arange(len(space), dtype=np.int32),
+            composition=_fractions(space),
             site_space=space,
         ))
     return sublattices

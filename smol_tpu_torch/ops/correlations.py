@@ -1,7 +1,9 @@
 """Correlation and cluster-interaction vectors of a batch of occupancies.
 
 Counterpart of ``smol_tpu/ops/correlations.py`` (``tensor_indices`` :125,
-``corr_from_occupancy`` :149, ``interactions_from_occupancy`` :159).  The
+``corr_from_occupancy`` :149, ``interactions_from_occupancy`` :159; the
+local delta of one flip, ``delta_corr_single_flip`` :270 and
+``delta_interactions_single_flip`` :247, is :func:`local_delta`).  The
 reference selects each cluster's tensor value from precomputed planes,
 because gathers are slow on a TPU; here the value is one direct gather, and
 the functions' (or orbits') sums one reduction over the (function, cluster)
@@ -29,6 +31,9 @@ __all__ = [
     "PackedInteractions",
     "interactions_to_device",
     "interactions_from_occupancy",
+    "LocalEntries",
+    "local_entries",
+    "local_delta",
 ]
 
 
@@ -57,6 +62,18 @@ class PackedInteractions:
     cluster_offset: torch.Tensor  # [num_orbits * Cmax] int64 tensor start
     cluster_weight: torch.Tensor  # [num_orbits, Cmax] f64: 1 a cluster, 0 padding
     orbit_cluster_count: torch.Tensor  # [num_orbits] f64
+
+
+@dataclass(frozen=True)
+class LocalEntries:
+    """The entries ((function, cluster) pairs, or clusters) whose cluster
+    holds each site, [N, L] with every site's row padded to the longest:
+    the per-site rows of the reference's local delta (``_site_block``)."""
+
+    sites: torch.Tensor  # [N, L, K] int64 the entry's cluster sites
+    strides: torch.Tensor  # [N, L, K] int64 their strides, 0 a padded slot
+    offset: torch.Tensor  # [N, L] int64 start of the entry's tensor
+    group: torch.Tensor  # [N, L] int64 its function (or orbit), -1 padding
 
 
 def _grouped(keys, num_groups):
@@ -168,4 +185,68 @@ def interactions_from_occupancy(occu: torch.Tensor, packed: PackedTensors,
     sums = (vals.view(len(vals), *weight.shape) * weight).sum(dim=-1)
     out = sums / inter.orbit_cluster_count
     out[:, 0] = inter.offset
+    return out
+
+
+def local_entries(system: dict, entry_cluster, entry_offset, entry_group,
+                  device) -> LocalEntries:
+    """Each site's local entries: the entries (``entry_cluster`` [E], one
+    cluster each, with their tensor starts and groups) whose cluster holds
+    the site in a real slot (a nonzero stride), each once, in entry order,
+    every site's row padded to the longest (the reference's per-site
+    ``lp_*`` and ``loc_*`` tables)."""
+    cluster_sites = np.asarray(system["cluster_sites"], dtype=np.int64)
+    cluster_strides = np.asarray(system["cluster_strides"], dtype=np.int64)
+    entry_cluster = np.asarray(entry_cluster, dtype=np.int64)
+    num_sites, num_entries = int(system["num_sites"]), len(entry_cluster)
+    slots = np.where(cluster_strides[entry_cluster] != 0,
+                     cluster_sites[entry_cluster], -1).ravel()
+    owner = np.repeat(np.arange(num_entries), cluster_sites.shape[1])
+    key = np.unique(slots[slots >= 0] * num_entries + owner[slots >= 0])
+    site, entry = key // num_entries, key % num_entries  # by site, then entry
+    order, slot, width = _grouped(site, num_sites)
+    entry = entry[order]
+
+    def table(values, fill):
+        out = np.full((num_sites * width,) + values.shape[1:], fill, dtype=np.int64)
+        out[slot] = values
+        return torch.as_tensor(out.reshape((num_sites, width) + values.shape[1:]),
+                               device=device)
+
+    cluster = entry_cluster[entry]
+    return LocalEntries(
+        sites=table(cluster_sites[cluster], 0),
+        strides=table(cluster_strides[cluster], 0),
+        offset=table(np.asarray(entry_offset, dtype=np.int64)[entry], 0),
+        group=table(np.asarray(entry_group, dtype=np.int64)[entry], -1),
+    )
+
+
+def local_delta(occu: torch.Tensor, site: torch.Tensor, new_code: torch.Tensor,
+                local: LocalEntries, flat: torch.Tensor,
+                group_count: torch.Tensor) -> torch.Tensor:
+    """Feature changes [W, G] f64 of one flip a walker, from the flipped
+    site's local entries alone (the reference's ``_local_delta_vals`` and
+    its per-group sums, ``delta_corr_single_flip`` :270,
+    ``delta_interactions_single_flip`` :247).
+
+    Each local entry's value after the flip less its value before, a site
+    repeated in a cluster (a small supercell) taking the new code in every
+    slot; summed by group in entry order, a reduction along one dimension,
+    and divided by the group's cluster count.  Entry 0 is 0.
+    """
+    occu = torch.atleast_2d(occu).long()
+    site, new_code = site.long(), new_code.long()
+    walkers = torch.arange(len(occu), device=occu.device)[:, None, None]
+    sites, strides = local.sites[site], local.strides[site]  # [W, L, K]
+    codes = occu[walkers, sites]
+    flipped = torch.where(sites == site[:, None, None], new_code[:, None, None], codes)
+    offset, group = local.offset[site], local.group[site]  # [W, L]
+    dvals = (flat[offset + (flipped * strides).sum(dim=-1)]
+             - flat[offset + (codes * strides).sum(dim=-1)])
+    groups = torch.arange(len(group_count), device=occu.device)
+    in_group = group[:, :, None] == groups  # [W, L, G]; padding (-1) in none
+    sums = torch.where(in_group, dvals[:, :, None], 0.0).sum(dim=1)
+    out = sums / group_count
+    out[:, 0] = 0.0
     return out

@@ -93,6 +93,12 @@ __all__ = [
     "build_system",
     "export_system",
     "export_distance_system",
+    "build_distance_system",
+    "pad_local_tables",
+    "expansion_fields",
+    "decomposition_fields",
+    "ewald_summation",
+    "ewald_fields",
     "save_system",
     "load_system",
     "save_systems",
@@ -268,6 +274,81 @@ def _sublattice_fields(subs) -> dict:
     }
 
 
+def energy_fields(subspace, supercell_matrix, energy_tensors) -> tuple[dict, object]:
+    """(fields, packed supercell) of a processor's coefficient-folded energy
+    tensors on a supercell: the packed fields and the per-site local arrays
+    (``local_sites``, ``local_strides``, ``local_d2``, ``local_g``) of the
+    reference's ``_energy_tables`` (``moca/processor/expansion.py:118-128``),
+    with the same arithmetic."""
+    from smol_tpu_torch.ops.packing import pack_interactions, pack_supercell
+
+    packed = pack_supercell(subspace, np.array(supercell_matrix, dtype=np.int64))
+    energy_flat, _ = pack_interactions(subspace, energy_tensors)
+    energy_weights = packed.size / np.maximum(packed.orbit_cluster_count, 1)
+    energy_weights[0] = 0.0
+    sites, strides, d2, g, _ = local_arrays(packed, energy_flat, energy_weights)
+    return {
+        **_packed_fields(packed, packed.size),
+        "local_sites": sites,
+        "local_strides": strides,
+        "local_d2": d2,
+        "local_g": g,
+    }, packed
+
+
+def expansion_fields(subspace, supercell_matrix, coefficients) -> dict:
+    """The fields of a cluster-expansion processor (``coefficients``, one a
+    correlation function) on a supercell: its energy tensors are, per orbit,
+    the coefficients times the correlation tensors (the reference's
+    ``expansion.py:207-216``)."""
+    coefs = np.atleast_1d(np.asarray(coefficients, dtype=np.float64))
+    energy = [np.float64(coefs[0])] + [
+        sum(coefs[o.bit_id + k] * o.correlation_tensors[k] for k in range(len(o)))
+        for o in subspace.orbits]
+    return energy_fields(subspace, supercell_matrix, energy)[0]
+
+
+def decomposition_fields(subspace, supercell_matrix, interaction_tensors,
+                         coefficients) -> dict:
+    """The fields of a cluster-decomposition processor (``coefficients``, one
+    an orbit) on a supercell: its energy tensors are, per orbit, the
+    coefficient times the interaction tensor (the reference's
+    ``expansion.py:285-292``), and the interaction keys of the module
+    docstring."""
+    from smol_tpu_torch.ops.packing import pack_interactions
+
+    coefs = np.atleast_1d(np.asarray(coefficients, dtype=np.float64))
+    tensors = tuple(np.asarray(t, dtype=np.float64) for t in interaction_tensors)
+    inter_flat, offset = pack_interactions(subspace, tensors)
+    energy = [np.float64(coefs[0] * offset)] + [
+        coefs[o.id] * t for o, t in zip(subspace.orbits, tensors[1:])]
+    fields, packed = energy_fields(subspace, supercell_matrix, energy)
+    return {**fields, **_decomposition_fields(packed, inter_flat, offset)}
+
+
+def ewald_summation(ewald_term, supercell):
+    """(the ``EwaldSummation`` of a supercell's Ewald structure, its
+    ``ewald_inds``), as the reference's ``EwaldProcessor`` builds them
+    (``moca/processor/ewald.py:52-70``)."""
+    from smol_tpu_torch.crystal.ewald import EwaldSummation
+
+    structure, inds = ewald_term.get_ewald_structure(supercell)
+    summation = EwaldSummation(
+        structure, real_space_cut=ewald_term.real_space_cut,
+        recip_space_cut=ewald_term.recip_space_cut, eta=ewald_term.eta)
+    return summation, inds
+
+
+def ewald_fields(ewald_term, summation, ewald_inds, coefficient) -> dict:
+    """The Ewald keys of the module docstring."""
+    return {
+        "ewald_matrix": np.ascontiguousarray(ewald_term.get_ewald_matrix(summation),
+                                             dtype=np.float64),
+        "ewald_inds": np.ascontiguousarray(ewald_inds, dtype=np.int32),
+        "ewald_coef": np.float64(np.atleast_1d(coefficient)[0]),
+    }
+
+
 def build_system(cluster_expansion, supercell_matrix, processor_type="decomposition",
                  chemical_potentials=None, use_concentration=False,
                  table_flip=False) -> dict:
@@ -278,9 +359,13 @@ def build_system(cluster_expansion, supercell_matrix, processor_type="decomposit
     construction, ``moca/processor/expansion.py:99-303`` and
     ``moca/processor/ewald.py:40-80``, and their default sublattices,
     ``moca/processor/base.py:30-52, 127-140``) and returns the keys that
-    :func:`export_system` writes for such an ensemble, with the same
-    arithmetic.  ``processor_type`` is ``"decomposition"`` (natural
-    parameters the orbit multiplicities) or ``"expansion"`` (the
+    :func:`export_system` writes for such an ensemble: the fields of the
+    processors that
+    :func:`smol_tpu_torch.moca.ensemble.cluster_expansion_processor`
+    builds on the CPU (:func:`expansion_fields`,
+    :func:`decomposition_fields`, :func:`ewald_fields`) and their
+    sublattices.  ``processor_type`` is ``"decomposition"``
+    (natural parameters the orbit multiplicities) or ``"expansion"`` (the
     coefficients); an ``EwaldTerm`` of the subspace adds the Ewald keys,
     and the expansion's last coefficient to the natural parameters, as the
     reference's composite processor; ``chemical_potentials``, a dict of
@@ -290,88 +375,28 @@ def build_system(cluster_expansion, supercell_matrix, processor_type="decomposit
     its defaults: the flip table it derives, its dimension ids and the
     site charges.
     """
-    return _build(cluster_expansion, supercell_matrix, processor_type,
-                  chemical_potentials, use_concentration, table_flip)[0]
-
-
-def _build(cluster_expansion, supercell_matrix, processor_type="decomposition",
-           chemical_potentials=None, use_concentration=False, table_flip=False):
-    """(system dict, its sublattices with their site spaces) of
-    :func:`build_system`."""
-    from smol_tpu_torch.cofe.space.domain import get_allowed_species, get_site_spaces
-    from smol_tpu_torch.crystal.ewald import EwaldSummation
-    from smol_tpu_torch.moca.ensemble import chemical_potential_table
+    from smol_tpu_torch.moca.ensemble import (
+        chemical_potential_table,
+        cluster_expansion_processor,
+    )
     from smol_tpu_torch.moca.kernel.tableflip import TableFlip
-    from smol_tpu_torch.moca.sublattice import sublattices_from_site_spaces
-    from smol_tpu_torch.ops.packing import pack_interactions, pack_supercell
 
-    subspace = cluster_expansion.cluster_subspace
-    orbits = subspace.orbits
-    n_ext = len(subspace.external_terms)
-    scmatrix = np.array(supercell_matrix, dtype=np.int64)
-    packed = pack_supercell(subspace, scmatrix)
-    extra = {}
-    if processor_type == "decomposition":
-        coefs = np.atleast_1d(np.asarray(subspace.orbit_multiplicities, dtype=np.float64))
-        tensors = tuple(np.asarray(t, dtype=np.float64)
-                        for t in cluster_expansion.cluster_interaction_tensors)
-        inter_flat, offset = pack_interactions(subspace, tensors)
-        energy = [np.float64(coefs[0] * offset)] + [
-            coefs[o.id] * t for o, t in zip(orbits, tensors[1:])]
-        extra = _decomposition_fields(packed, inter_flat, offset)
-    elif processor_type == "expansion":
-        coefs = cluster_expansion.coefs[:-n_ext] if n_ext else cluster_expansion.coefs
-        coefs = np.atleast_1d(np.asarray(coefs, dtype=np.float64))
-        if len(coefs) != subspace.num_corr_functions:
-            raise ValueError(
-                f"Got {len(coefs)} coefficients, need {subspace.num_corr_functions}.")
-        energy = [np.float64(coefs[0])] + [
-            sum(coefs[o.bit_id + k] * o.correlation_tensors[k] for k in range(len(o)))
-            for o in orbits]
-    else:
-        raise ValueError(f"Processor type {processor_type} not supported!")
-    # coefficient-folded energy tensors, weighted by size / clusters of an orbit
-    energy_flat, _ = pack_interactions(subspace, energy)
-    energy_weights = packed.size / np.maximum(packed.orbit_cluster_count, 1)
-    energy_weights[0] = 0.0
-    sites, strides, d2, g, _ = local_arrays(packed, energy_flat, energy_weights)
-
-    supercell = subspace.structure.copy().make_supercell(scmatrix)
-    allowed = get_allowed_species(supercell)
-    spaces = tuple(sorted(set(get_site_spaces(supercell, include_measure=use_concentration))))
-    sublattices = sublattices_from_site_spaces(spaces, allowed)
-    params = coefs
-    if n_ext:  # the reference's composite: the Ewald processor of the first term
-        term = subspace.external_terms[0]
-        structure, inds = term.get_ewald_structure(supercell)
-        summation = EwaldSummation(
-            structure, real_space_cut=term.real_space_cut,
-            recip_space_cut=term.recip_space_cut, eta=term.eta)
-        ewald_coef = np.float64(np.atleast_1d(cluster_expansion.coefs[-1])[0])
-        extra["ewald_matrix"] = np.ascontiguousarray(
-            term.get_ewald_matrix(summation), dtype=np.float64)
-        extra["ewald_inds"] = np.ascontiguousarray(inds, dtype=np.int32)
-        extra["ewald_coef"] = ewald_coef
-        params = np.append(params, ewald_coef)
-    num_energy_coefs = len(params)
+    processor = cluster_expansion_processor(cluster_expansion, supercell_matrix,
+                                            processor_type, use_concentration, device="cpu")
+    fields = {}
+    for part in getattr(processor, "processors", [processor]):
+        fields.update(part.fields)
+    sublattices = processor.get_sublattices()
+    params = processor.coefs
+    fields["num_energy_coefs"] = np.int64(len(params))
     if chemical_potentials is not None:
-        extra["chemical_potential_table"] = chemical_potential_table(
-            sublattices, packed.num_sites, chemical_potentials)
+        fields["chemical_potential_table"] = chemical_potential_table(
+            sublattices, processor.num_sites, chemical_potentials)
         params = np.append(params, -1.0)
     if table_flip:
-        extra.update(_usher_fields(TableFlip(sublattices), allowed))
-    system = {
-        **_packed_fields(packed, packed.size),
-        "num_energy_coefs": np.int64(num_energy_coefs),
-        "local_sites": sites,
-        "local_strides": strides,
-        "local_d2": d2,
-        "local_g": g,
-        **_sublattice_fields(sublattices),
-        "natural_parameters": np.asarray(params, dtype=np.float64),
-        **extra,
-    }
-    return system, sublattices
+        fields.update(_usher_fields(TableFlip(sublattices), processor.allowed_species))
+    return {**fields, **_sublattice_fields(sublattices),
+            "natural_parameters": np.asarray(params, dtype=np.float64)}
 
 
 def export_distance_system(processor) -> dict:
@@ -387,20 +412,56 @@ def export_distance_system(processor) -> dict:
             "export_distance_system needs a CorrelationDistanceProcessor, got "
             f"{type(processor).__name__}"
         )
-    packed = processor.packed
+    return _distance_fields(
+        processor.packed, processor.size, processor.get_sublattices(),
+        processor._diameter_groups, processor.target_vector, processor.coefs,
+        processor.match_tol, processor.supercell_matrix)
+
+
+def build_distance_system(subspace, supercell_matrix, target_vector, match_weight,
+                          match_tol, target_weights, use_concentration=False) -> dict:
+    """The distance system of one supercell shape, built from the port's own
+    subspace: the keys :func:`export_distance_system` writes for the
+    reference's ``CorrelationDistanceProcessor(subspace, supercell_matrix,
+    use_concentration, target_vector, match_weight, target_weights,
+    match_tol)`` (``smol_tpu/moca/processor/distance.py:70-92, 233-255``),
+    before any re-padding of its local tables (:func:`pad_local_tables`)."""
+    from smol_tpu_torch.cofe.space.domain import get_allowed_species, get_site_spaces
+    from smol_tpu_torch.moca.sublattice import sublattices_from_site_spaces
+    from smol_tpu_torch.ops.packing import pack_supercell
+
+    if len(subspace.external_terms) > 0:
+        raise ValueError("The cluster subspace cannot have external terms.")
+    if match_weight < 0:
+        raise ValueError("The match weight must be a positive number.")
+    if len(target_weights) != len(target_vector) - 1:
+        raise ValueError("target_weights must have length len(target_vector) - 1.")
+    scmatrix = np.array(supercell_matrix, dtype=np.int64)
+    packed = pack_supercell(subspace, scmatrix)
+    supercell = subspace.structure.copy().make_supercell(scmatrix)
+    spaces = tuple(sorted(set(get_site_spaces(supercell, include_measure=use_concentration))))
+    sublattices = sublattices_from_site_spaces(spaces, get_allowed_species(supercell))
+    groups = [(float(diameter), [i for orbit in orbits
+                                 for i in range(orbit.bit_id, orbit.bit_id + len(orbit))])
+              for diameter, orbits in subspace.orbits_by_diameter.items()]
+    coefs = np.concatenate([[-match_weight], target_weights])
+    return _distance_fields(packed, subspace.num_prims_from_matrix(scmatrix), sublattices,
+                            groups, target_vector, coefs, match_tol, scmatrix)
+
+
+def _distance_fields(packed, size, sublattices, groups, target_vector, coefs, match_tol,
+                     supercell_matrix) -> dict:
     sites, strides, d2, _, _ = local_arrays(
         packed, np.zeros(len(packed.corr_flat)), np.zeros(len(packed.orbit_tensor_size))
     )
     lc = np.asarray(packed.local_clusters)
     orbit = np.asarray(packed.cluster_orbit)[np.where(lc >= 0, lc, 0)]
-    subs = processor.get_sublattices()
-    groups = processor._diameter_groups
     features, feature_off = _ragged([indices for _, indices in groups], np.int64)
     composition, _ = _ragged(
-        [[sl.site_space[sp] for sp in sl.species] for sl in subs], np.float64
+        [[sl.site_space[sp] for sp in sl.species] for sl in sublattices], np.float64
     )
     return {
-        **_packed_fields(packed, processor.size),
+        **_packed_fields(packed, size),
         "local_sites": sites,
         "local_strides": strides,
         "local_d2": d2,
@@ -408,16 +469,35 @@ def export_distance_system(processor) -> dict:
         "orbit_bit_id": np.asarray(packed.orbit_bit_id, dtype=np.int32),
         "orbit_num_combos": np.asarray(packed.orbit_num_combos, dtype=np.int32),
         "orbit_tensor_size": np.asarray(packed.orbit_tensor_size, dtype=np.int32),
-        **_sublattice_fields(subs),
+        **_sublattice_fields(sublattices),
         "sublattice_composition": composition,
-        "target_vector": np.asarray(processor.target_vector, dtype=np.float64),
-        "distance_coefs": np.asarray(processor.coefs, dtype=np.float64),
-        "match_tol": np.float64(processor.match_tol),
+        "target_vector": np.asarray(target_vector, dtype=np.float64),
+        "distance_coefs": np.asarray(coefs, dtype=np.float64),
+        "match_tol": np.float64(match_tol),
         "diameter_group_features": features,
         "diameter_group_features_offsets": feature_off,
         "diameter_group_diameters": np.array([d for d, _ in groups], dtype=np.float64),
-        "supercell_matrix": np.asarray(processor.supercell_matrix, dtype=np.int64),
+        "supercell_matrix": np.asarray(supercell_matrix, dtype=np.int64),
     }
+
+
+def pad_local_tables(system: dict, width: int) -> dict:
+    """A distance system with its local tables padded to ``width`` local
+    clusters a site, as the reference's ``repad_local_tables`` pads the
+    shapes of one search to their widest (``capp/generate/special/sqs.py:
+    142-147``): each added cluster is padding (sites, strides and d2 0,
+    orbit -1)."""
+    extra = int(width) - system["local_orbit"].shape[1]
+    if extra <= 0:
+        return system
+    padded = dict(system)
+    for key in ("local_sites", "local_strides", "local_d2"):
+        pad = [(0, 0)] * system[key].ndim
+        pad[1] = (0, extra)
+        padded[key] = np.pad(system[key], pad)
+    padded["local_orbit"] = np.pad(system["local_orbit"], [(0, 0), (0, extra)],
+                                   constant_values=-1)
+    return padded
 
 
 def save_system(system: dict, path) -> None:

@@ -1,14 +1,15 @@
 """Integer/lattice math: HNF, SNF, Diophantine solvers, flip-table tools.
 
 Counterpart of ``smol_tpu/utils/math.py``, whose code it copies, the part
-that ``moca/composition/space.py`` needs: without
-``yield_hermite_normal_forms``, ``gcdex``, ``flip_weights_mask`` and
+that ``moca/composition/space.py`` and the supercell enumeration
+(``capp/generate/enumerate.py``) need: without ``flip_weights_mask`` and
 ``choose_section_from_partition`` (ROADMAP.md Queue 1 item 5(c)). In
 this module "the reference" is smol (CederGroupHub/smol).
 
 Covers the reference's math utilities (smol/utils/math.py) with the optional
 cvxpy/polytope dependencies replaced by scipy.optimize (linprog/milp):
 
+- Hermite normal form enumeration (supercell matrices),
 - Smith normal form and integer Diophantine systems A n = b,
 - enumeration of natural-number solutions of bounded integer polytopes,
 - flip-table basis optimization and ergodicity augmentation.
@@ -17,7 +18,7 @@ cvxpy/polytope dependencies replaced by scipy.optimize (linprog/milp):
 from __future__ import annotations
 
 from fractions import Fraction
-from itertools import combinations
+from itertools import combinations, product
 
 import numpy as np
 from scipy.optimize import LinearConstraint, linprog, milp
@@ -27,6 +28,8 @@ NUM_TOL = 1e-6
 
 __all__ = [
     "NUM_TOL",
+    "yield_hermite_normal_forms",
+    "gcdex",
     "rationalize_number",
     "integerize_vector",
     "integerize_multiple",
@@ -46,6 +49,24 @@ __all__ = [
 ]
 
 
+
+
+def yield_hermite_normal_forms(determinant: int):
+    """Yield all 3x3 lower-triangular HNF matrices of a given determinant."""
+    for a in (x for x in range(1, determinant + 1) if determinant % x == 0):
+        quotient = determinant // a
+        for c in (x for x in range(1, quotient + 1) if quotient % x == 0):
+            f = quotient // c
+            for b, d, e in product(range(c), range(f), range(f)):
+                yield np.array([[a, 0, 0], [b, c, 0], [d, e, f]], dtype=int)
+
+
+def gcdex(a: int, b: int):
+    """Extended Euclid: returns (x, y, g) with a*x + b*y = g = gcd(a, b)."""
+    if a == 0:
+        return 0, 1, b
+    x1, y1, g = gcdex(b % a, a)
+    return y1 - (b // a) * x1, x1, g
 
 
 def rationalize_number(a: float, max_denominator: int = 1000, dtol: float = NUM_TOL):

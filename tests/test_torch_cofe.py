@@ -247,12 +247,27 @@ def test_classes_the_port_lacks_name_their_item():
 
 
 def test_structure_matching_waits_for_its_item():
+    """Structure matching is ported (the name is the refusal's it replaced):
+    without a supercell matrix or a site mapping, a golden structure's
+    matrix, occupancy and correlations are ``smol_tpu``'s own; the
+    matcher's keywords reach it."""
+    from smol_tpu.cofe import ClusterSubspace as RefSubspace
+    from smol_tpu.crystal.pmg_compat import decode_pmg as ref_decode
+    from smol_tpu.crystal.pmg_compat import load_pmg_json as ref_load
+
     golden, subspace = _golden_subspace()
-    structure = decode_pmg(golden["entries"][0]["structure"])
-    with pytest.raises(NotImplementedError, match=r"5\(d\)"):
-        subspace.corr_from_structure(structure)
-    with pytest.raises(NotImplementedError, match=r"5\(d\)"):
-        subspace.occupancy_from_structure(structure, scmatrix=np.eye(3, dtype=int))
+    ref = RefSubspace.from_cutoffs(ref_load(str(DATA / "lno_prim.json")), {2: 5, 3: 4.1},
+                                   basis="sinusoid")
+    entry = golden["entries"][0]
+    structure, ref_structure = decode_pmg(entry["structure"]), ref_decode(entry["structure"])
+    scmatrix = subspace.scmatrix_from_structure(structure)
+    np.testing.assert_array_equal(scmatrix, ref.scmatrix_from_structure(ref_structure))
+    assert abs(np.linalg.det(scmatrix)) == abs(np.linalg.det(entry["supercell_matrix"]))
+    np.testing.assert_array_equal(
+        subspace.occupancy_from_structure(structure, encode=True),
+        ref.occupancy_from_structure(ref_structure, encode=True))
+    _close(subspace.corr_from_structure(structure), ref.corr_from_structure(ref_structure),
+           "corr")
     from smol_tpu_torch.cofe.extern import EwaldTerm
 
     size = len(subspace)  # external terms are ported: one Ewald term a subspace
@@ -261,5 +276,5 @@ def test_structure_matching_waits_for_its_item():
     with pytest.raises(ValueError, match="already has"):
         subspace.add_external_term(EwaldTerm(use_term="real"))
     prim = Structure(Lattice(ROCKSALT * 3.8), [{"Au": 0.5, "Cu": 0.5}], [[0, 0, 0]])
-    with pytest.raises(NotImplementedError, match=r"5\(d\)"):
-        ClusterSubspace.from_cutoffs(prim, {2: 3.0}, ltol=0.3)
+    loose = ClusterSubspace.from_cutoffs(prim, {2: 3.0}, ltol=0.3)
+    assert loose._sc_matcher.ltol == loose._site_matcher.ltol == 0.3

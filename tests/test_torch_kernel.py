@@ -574,7 +574,7 @@ def _distance_operands(card, stem, W, n_steps, block_size, beta=2.0, shape=0):
 
     path = DATA / f"torch_{stem}.npz"
     systems = load_systems(path)
-    proc = CorrelationDistanceProcessor(systems[shape], card)
+    proc = CorrelationDistanceProcessor.from_system(systems[shape], card)
     tables = sqs.build_distance_tables(proc)
     rng = np.random.default_rng(3)
     half = np.arange(proc.num_sites) % 2

@@ -80,7 +80,7 @@ def _subspace(kind, cutoffs):
 def _pair(kind, cutoffs, scm, **kwargs):
     """(reference processor, port processor on the CPU) of one shape."""
     ref = RefProcessor(_subspace(kind, tuple(cutoffs.items())), np.asarray(scm), **kwargs)
-    return ref, CorrelationDistanceProcessor(export_distance_system(ref), "cpu")
+    return ref, CorrelationDistanceProcessor.from_system(export_distance_system(ref), "cpu")
 
 
 def _weighted(kind, cutoffs, seed=3):
@@ -307,7 +307,7 @@ def _small_generator_shapes():
 
     ref = RefGenerator.from_structure(fcc_binary_prim(), {2: 4.0}, supercell_size=8)
     refs = ref.processors[:4]
-    return refs, [CorrelationDistanceProcessor(export_distance_system(p), "cpu")
+    return refs, [CorrelationDistanceProcessor.from_system(export_distance_system(p), "cpu")
                   for p in refs]
 
 
@@ -371,22 +371,36 @@ def test_refusals():
     generator = StochasticSQSGenerator.from_processors(ports[:1], device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         generator.sampler
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        StochasticSQSGenerator.from_structure(fcc_binary_prim(), {2: 4.0}, 8)
+    # the shapes of a structure are enumerated (item 5(d) is ported): the
+    # reference's twenty 8-site fcc shapes, least skewed first
+    from smol_tpu.capp.generate.enumerate import enumerate_supercell_matrices
+
+    from smol_tpu_torch.benchmarks.systems import fcc_binary_prim as port_fcc
+
+    built = StochasticSQSGenerator.from_structure(port_fcc(), {2: 4.0}, 8, device="cpu")
+    expect = enumerate_supercell_matrices(
+        8, ClusterSubspace.from_cutoffs(fcc_binary_prim(), {2: 4.0}).symops)[::-1]
+    assert len(built.processors) == len(expect) == 20
+    for processor, scm in zip(built.processors, expect):
+        np.testing.assert_array_equal(processor.supercell_matrix, scm)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        StochasticSQSGenerator.from_structure(port_fcc(), {2: 4.0}, 8, device="cpu",
+                                              feature_type="cluster-interaction")
+    # shapes loaded from system dicts have no structures to give or match
     generator.generate(mcmc_steps=5, temperatures=[1.0], nwalkers=2, seed=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="subspace"):
         generator.get_best_sqs(1, remove_duplicates=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="subspace"):
         generator.get_best_sqs(1)  # the reference's default removes duplicates
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="subspace"):
         generator.get_best_sqs(1, remove_duplicates=False)[0].structure
-    restricted = CorrelationDistanceProcessor(ports[0].system, "cpu")
+    restricted = CorrelationDistanceProcessor.from_system(ports[0].system, "cpu")
     restricted.get_sublattices()[0].active_sites = restricted.get_sublattices()[0].sites[1:]
     with pytest.raises(NotImplementedError, match="restricted"):
         sqs.build_distance_tables(restricted)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
-            CorrelationDistanceProcessor(ports[0].system)
+            CorrelationDistanceProcessor.from_system(ports[0].system)
         with pytest.raises(RuntimeError, match="CUDA"):
             StochasticSQSGenerator.from_processors(ports)
 
@@ -438,7 +452,7 @@ def test_one_lane_twin_equals_recorded_twin(stem, rng):
     data = np.load(ONE_LANE_FILE)
     key = f"{stem}_{rng}"
     tables = sqs.build_distance_tables(
-        CorrelationDistanceProcessor(load_systems(data_path(stem))[0], "cpu"))
+        CorrelationDistanceProcessor.from_system(load_systems(data_path(stem))[0], "cpu"))
     ops = {name: torch.as_tensor(data[f"{key}_in_{name}"]).clone() for name in
            ("occ", "best_occ", "feat", "d", "best_d", "useq", "vseq", "seed", "beta32")}
     ops["naccept"] = torch.zeros(16, dtype=torch.int32)
@@ -451,7 +465,7 @@ def test_one_lane_twin_equals_recorded_twin(stem, rng):
 
 @functools.lru_cache(maxsize=None)
 def _batch_processors():
-    return tuple(CorrelationDistanceProcessor(BENCH_SHAPES[s], "cpu") for s in BATCH_SHAPES)
+    return tuple(CorrelationDistanceProcessor.from_system(BENCH_SHAPES[s], "cpu") for s in BATCH_SHAPES)
 
 
 def test_launch_plan_from_shapes():
@@ -460,7 +474,7 @@ def test_launch_plan_from_shapes():
     50 KB a block), and stream two ranks a step where they do not (the
     64-site shape); a block lies in one sequence group."""
     fcc8 = sqs.build_distance_tables(_batch_processors()[0])
-    fcc64 = sqs.build_distance_tables(CorrelationDistanceProcessor(
+    fcc64 = sqs.build_distance_tables(CorrelationDistanceProcessor.from_system(
         load_systems(data_path("sqs_fcc_4x4x4"))[0], "cpu"))
     W, block = 2048, 512
     design = sqs._DESIGN
@@ -490,7 +504,7 @@ def test_packed_rows_round_trip(stem):
     stride 0, so it adds 0 as the unpacked slot does; tables a byte cannot
     hold have no packed rows."""
     tables = sqs.build_distance_tables(
-        CorrelationDistanceProcessor(load_systems(data_path(stem))[0], "cpu"))
+        CorrelationDistanceProcessor.from_system(load_systems(data_path(stem))[0], "cpu"))
     words = tables.meta.numpy().view(np.uint32).astype(np.int64)
     nbr, stride = tables.nbr.numpy(), tables.stride.numpy()
     np.testing.assert_array_equal(words[..., 0] & 0xFF, tables.d2.numpy())

@@ -36,7 +36,7 @@ BATCH_SHAPES = (0, 1, 2, 11)  # 67, 65, 66 and 67 rows a rank: padded to 67
 
 @functools.lru_cache(maxsize=None)
 def _batch_processors():
-    return tuple(CorrelationDistanceProcessor(BENCH_SHAPES[s], "cpu") for s in BATCH_SHAPES)
+    return tuple(CorrelationDistanceProcessor.from_system(BENCH_SHAPES[s], "cpu") for s in BATCH_SHAPES)
 
 
 @pytest.mark.parametrize("rng", ["hash", "philox"])

@@ -327,7 +327,7 @@ def test_port_runs_with_jax_blocked():
         from smol_tpu_torch.system import load_systems
         shapes = load_systems({str(data_path("sqs_fcc8"))!r})[:2]
         generator = StochasticSQSGenerator.from_processors(
-            [CorrelationDistanceProcessor(s, "cpu") for s in shapes], device="cpu")
+            [CorrelationDistanceProcessor.from_system(s, "cpu") for s in shapes], device="cpu")
         generator.generate(mcmc_steps=20, temperatures=[1.0], nwalkers=4, seed=0)
         assert generator.num_structures == 8
         print("ok", generator.execution_path)

@@ -222,21 +222,6 @@ def test_chain_parity_flips_mid_bin_levels(nn):
     _chain_parity(ref, port, params, "flip", occ0, 400, 32, seed=0, excuses=False)
 
 
-def test_chain_parity_flips_bench_window(bench):
-    """Au-Cu 3x3x3 at the bench's ~250 bins, two blocks of 64 walkers."""
-    ref, port, window = bench
-    params = _wl_params(window, flatness=0.3, check_period=20)
-    assert params["num_levels"] >= 250
-    occ0 = np.random.default_rng(0).integers(0, 2, (128, 27)).astype(np.int32)
-    _chain_parity(ref, port, params, "flip", occ0, 300, 64, seed=1)
-
-
-def test_chain_parity_swaps(aucu4):
-    """Au-Cu 4x4x4 at fixed composition: pair sequences, null swaps."""
-    ref, port, window = aucu4
-    params = _wl_params(window, flatness=0.3, check_period=20)
-    occ0 = half_occupancies(64, 128, seed=2)
-    _chain_parity(ref, port, params, "swap", occ0, 300, 64, seed=2)
 
 
 def test_chain_parity_across_chunk_boundary(nn):
