@@ -254,6 +254,26 @@ printing its last line when any phase fails:
    ``get_best_sqs(5, remove_duplicates=True)`` with each structure's
    formula; counts set to 0 just before the runs, read just after, and
    added to K1's, K2's and K7's launches;
+4e. the per-step path (plain torch ops over all walkers, each with its own
+   proposals), where the reference's kernels leave the chain: bench
+   ``spinel-independent-random`` (bench ``spinel`` built here as phase 4b
+   builds it, ``shared_proposals=False``, 8192 walkers at 1000 K, seed 3,
+   ``STEP_NSTEPS`` steps thinned by 100 from the bench's starts): its
+   execution path, attempts/s, the device idle share of five more windows
+   under ``torch.profiler`` and parity (e), and its mean enthalpy against
+   the K1 chain run of the same system from the same starts (after
+   ``STEP_DISCARD`` records; within ``STEP_TOLERANCE`` standard errors,
+   the per-step one over walkers, the chain's over its sequence blocks);
+   canonical per-step swaps on the spinel CE + Ewald 2x2x2 (compositions
+   kept at every record); a fugacity-biased and a square-charge-biased
+   flip run (the latter's mean |net charge| below the unbiased run's), the
+   multi-step and composite ushers and ``kernel_type="uniformly-random"``
+   on the built spinel; per-step replica exchange on bench ``tempering``'s
+   cell with ``thin_by=15`` and a period of 10 (the ladder permuted at
+   every record, one exchange-kernel launch every 10 steps); ``anneal``
+   over three temperatures; parity (e) in every run.  Counts set to 0 just
+   before these runs and read just after: no chain launched, the exchange
+   kernel's launches added to its entry;
 5. times one 100-step window at 8192 walkers, kernel against twin, for
    each cell (every repetition on a copy of the same starting state, the
    one the bound is worked out for), the kernels also without their Ewald term
@@ -515,6 +535,16 @@ BUILT_EWALD_CELLS = {
 }
 FILE_RUNS = ("spinel_ewald_cd_sgc_2x2x2", "spinel_ewald_2x2x2")  # also run from the file
 GOLDEN_EWALD_TOL = 1e-10  # smol's stored Ewald column is pymatgen's sum
+# phase 4e: the per-step path; bench spinel-independent-random is bench
+# spinel (phase 4b's built cell) with independent proposals
+STEP_CELL = "spinel_cd_2x2x2"
+STEP_NSTEPS = 3000
+STEP_DISCARD = 20  # records before the per-step and K1 means are compared
+STEP_TOLERANCE = 5.0  # standard errors allowed between the two means
+STEP_SHORT = 500  # the other per-step runs
+STEP_PT_THIN = 15  # replica exchange with a thin_by the period does not divide
+STEP_PT_NSTEPS = 600
+ANNEAL_TEMPERATURES = (2000.0, 1000.0, 500.0)
 T_START = time.perf_counter()  # the script's start, for the phase 3 lines
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; FP64 (vector, not the
 # tensor cores) at 34 TFLOP/s, both at the 700 W limit
@@ -1840,6 +1870,196 @@ def drive_host_api(card, built_trace):
           f"get_best_sqs(5, remove_duplicates=True) in {best_s:.4f} s: scores "
           f"{[round(b.score, 6) for b in best]}, formulas {formulas}")
     return bodies, distance_launches
+
+
+def device_idle_share(run):
+    """(wall s, device busy s, idle share) of ``run()`` under
+    ``torch.profiler``: busy is the union of the device activity intervals
+    of the trace, the idle share 1 - busy / wall; busy and the share are
+    None where the trace holds no device events."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    intervals = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not intervals:
+        return wall, None, None
+    busy, last = 0.0, -np.inf
+    for start, end in intervals:
+        if end > last:
+            busy += end - max(start, last)
+            last = end
+    busy *= 1e-6  # us -> s
+    return wall, busy, 1.0 - busy / wall
+
+
+def step_parity(label, ensemble, sampler):
+    """Parity (e) of every record of a run: recorded enthalpy against
+    features . theta, and finite values."""
+    f = sampler.samples.get_feature_vectors()
+    h = sampler.samples.get_enthalpies()
+    check(np.isfinite(h).all() and np.isfinite(f).all(), f"{label}: non-finite")
+    parity = float(np.abs(f @ ensemble.natural_parameters - h).max())
+    check(parity < 1e-9, f"{label}: parity (e) {parity}")
+    return parity
+
+
+def step_run(label, ensemble, card, nsteps, occ0, temperature=TEMPERATURE, thin=THIN,
+             **options):
+    """One run on the per-step path at 8192 walkers, seed 3: checks its
+    execution path and parity (e) and prints them with its rate."""
+    args = () if temperature is None else (temperature,)
+    sampler = Sampler.from_ensemble(ensemble, *args, nwalkers=WALKERS, seed=3, **options)
+    path = sampler.execution_path(thin)  # builds the step
+    check(path.startswith("cuda-step["), f"{label}: path {path}")
+    t0 = time.perf_counter()
+    sampler.run(nsteps, occ0, thin_by=thin)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(sampler.samples.num_samples == nsteps // thin, f"{label}: samples")
+    parity = step_parity(label, ensemble, sampler)
+    print(f"phase 4e [{label}] {card}: path {path}, {WALKERS} walkers x {nsteps} steps, "
+          f"acceptance {float(sampler.efficiency()):.4f}, parity(e) {parity:.3e}, "
+          f"{WALKERS * nsteps / wall / 1e6:.3f} M attempts/s ({wall:.4f} s, cold)")
+    return sampler, wall
+
+
+def walker_mean(enthalpies, groups):
+    """(mean, standard error) of enthalpies [S, W]: the walkers' time means
+    averaged, the error over ``groups`` equal groups of walkers' means."""
+    means = enthalpies.mean(axis=0).reshape(groups, -1).mean(axis=1)
+    return float(means.mean()), float(means.std(ddof=1) / np.sqrt(groups))
+
+
+def net_charge(ensemble, occupancies):
+    """|net charge| [..., W] of occupancies [..., W, N] from the site charges."""
+    charges = ensemble.site_charges
+    return np.abs(np.take_along_axis(
+        np.broadcast_to(charges, occupancies.shape[:-1] + charges.shape),
+        occupancies[..., None].astype(np.int64), axis=-1)[..., 0].sum(axis=-1))
+
+
+def drive_step_path(card):
+    """Phase 4e, the per-step path on the card (see the module docstring).
+    Returns the exchange kernel's launches on it."""
+    expansion, n, mus, temperature = BUILT_CELLS[STEP_CELL]
+    built = Ensemble.from_cluster_expansion(expansion(), np.diag([n, n, n]),
+                                            chemical_potentials=mus, device="cuda")
+    occ0 = random_occupancies(built, WALKERS, 0)
+    # the K1 chain run of the same system, before the counts are set to 0
+    k1 = Sampler.from_ensemble(built, temperature, WALKERS, seed=3)
+    k1_path = k1.execution_path(THIN)
+    check(k1_path.startswith("cuda-chain[flip]"), f"K1 path {k1_path}")
+    k1.run(STEP_NSTEPS, occ0, thin_by=THIN)
+    reset_counts(chain.flip_chain, chain.swap_chain, chain.table_chain, exchange_betas)
+    label = f"spinel-independent-random {STEP_CELL}"
+    sampler, wall = step_run(label, built, card, STEP_NSTEPS, occ0, temperature,
+                             shared_proposals=False)
+    path = sampler.execution_path(THIN)
+    check(path == "cuda-step[flip]+general+independent-proposals", f"{label}: path {path}")
+    rate = WALKERS * STEP_NSTEPS / wall
+    windows = 5
+    pwall, busy, idle = device_idle_share(lambda: sampler.run(windows * THIN, thin_by=THIN))
+    mine = walker_mean(sampler.samples.get_enthalpies(flat=False)[STEP_DISCARD:
+                                                                 STEP_NSTEPS // THIN], 64)
+    theirs = walker_mean(k1.samples.get_enthalpies(discard=STEP_DISCARD, flat=False),
+                         WALKERS // BLOCK)
+    se = float(np.hypot(mine[1], theirs[1]))
+    check(abs(mine[0] - theirs[0]) < STEP_TOLERANCE * se,
+          f"{label}: mean enthalpy {mine[0]} against K1's {theirs[0]} (se {se})")
+    steps = windows * THIN
+    print(f"phase 4e [{label}] {card}: {rate / 1e6:.3f} M attempts/s end to end "
+          f"({wall:.4f} s for {WALKERS} walkers x {STEP_NSTEPS} steps, thinned by {THIN}, "
+          f"cold); {windows} more windows under torch.profiler: wall {pwall * 1e3:.3f} ms, "
+          + (f"device busy {busy * 1e3:.3f} ms, idle share {idle:.4f} of the profiled "
+             f"wall; busy {busy / steps * 1e3:.4f} ms a step against "
+             f"{wall / STEP_NSTEPS * 1e3:.4f} ms a step unprofiled: idle share "
+             f"{1 - busy / steps / (wall / STEP_NSTEPS):.4f}" if busy is not None
+             else "device idle share not measured (no device events in the trace)")
+          + f"; mean enthalpy over records {STEP_DISCARD}-{STEP_NSTEPS // THIN} "
+          f"{mine[0]:.6f} eV (se {mine[1]:.2e}, 64 groups of walkers) against the K1 "
+          f"chain's {theirs[0]:.6f} eV (se {theirs[1]:.2e}, {WALKERS // BLOCK} sequence "
+          f"blocks; path {k1_path}): difference {mine[0] - theirs[0]:+.2e} eV, "
+          f"{abs(mine[0] - theirs[0]) / se:.2f} standard errors (limit {STEP_TOLERANCE:g})")
+    unbiased_charge = float(net_charge(built, sampler.samples.get_occupancies(
+        flat=False)[STEP_NSTEPS // THIN - 1]).mean())
+    # canonical swaps on the spinel CE + Ewald: compositions kept
+    ewald, system = load("spinel_ewald_2x2x2")
+    start = np.tile(np.asarray(system["initial_occupancy"]), (WALKERS, 1))
+    swaps, _ = step_run("swap spinel_ewald_2x2x2", ewald, card, STEP_SHORT, start,
+                        shared_proposals=False)
+    occ = swaps.samples.get_occupancies(flat=False)
+    for sl in ewald.sublattices:
+        for code in sl.encoding:
+            check(bool(((occ[..., sl.sites] == code).sum(axis=-1)
+                        == (start[0, sl.sites] == code).sum()).all()),
+                  "per-step swaps changed a composition")
+    print(f"phase 4e [swap spinel_ewald_2x2x2] {card}: every walker keeps its composition "
+          f"at all {len(occ)} records; non-null proposals "
+          f"{float(swaps._state['nmove'].double().mean()) / STEP_SHORT:.4f}")
+    # the biases, the multi-step and composite ushers, the uniformly random kernel
+    step_run("fugacity-bias", built, card, STEP_SHORT, occ0, temperature,
+             bias_type="fugacity-bias")
+    charged, _ = step_run("square-charge-bias", built, card, STEP_SHORT, occ0, temperature,
+                          bias_type="square-charge-bias", bias_kwargs={"penalty": 0.5})
+    biased_charge = float(net_charge(built, charged.samples.get_occupancies(
+        flat=False)[-1]).mean())
+    check(biased_charge < unbiased_charge,
+          f"square-charge bias: mean |net charge| {biased_charge} not below {unbiased_charge}")
+    print(f"phase 4e [square-charge-bias] {card}: mean |net charge| at the last record "
+          f"{biased_charge:.4f} against {unbiased_charge:.4f} unbiased")
+    step_run("multi-step", built, card, STEP_SHORT, occ0, temperature,
+             step_type="multi-step", mcusher="flip", step_lengths=[1, 2, 3])
+    step_run("composite", built, card, STEP_SHORT, occ0, temperature,
+             step_type="composite", mcushers=["flip", "swap"], mcusher_weights=[1, 2])
+    uniform, _ = step_run("uniformly-random", built, card, STEP_SHORT, occ0, None,
+                          kernel_type="uniformly-random")
+    check(float(uniform.efficiency()) == 1.0, "uniformly-random: a step was rejected")
+    # replica exchange with a thin_by the period does not divide
+    pt, _ = load(PT_CELL)
+    ladder = make_temperature_ladder(*PT_LADDER, WALKERS)
+    pt_occ = np.random.default_rng(0).integers(0, 2, (WALKERS, pt.num_sites)).astype(np.int32)
+    tempering, _ = step_run(f"tempering {PT_CELL}, thin_by {STEP_PT_THIN}", pt, card,
+                            STEP_PT_NSTEPS, pt_occ, ladder, thin=STEP_PT_THIN,
+                            replica_exchange_period=PT_PERIOD)
+    temps = tempering.samples.get_temperatures(flat=False)
+    recorded = np.sort(1.0 / (kB * (1.0 / (kB * ladder))))
+    check(bool((np.sort(temps, axis=1) == recorded).all()),
+          "per-step tempering: a record's temperatures are not a permutation of the ladder")
+    check(tempering._state["pt_counter"] == STEP_PT_NSTEPS, "per-step tempering: counter")
+    exchanges = exchange_betas.launches
+    check(exchanges == STEP_PT_NSTEPS // PT_PERIOD,
+          f"per-step tempering: {exchanges} exchange launches")
+    accepted = int(tempering._state["pt_accepted"].sum())
+    print(f"phase 4e [tempering {PT_CELL}] {card}: the ladder permuted at all "
+          f"{len(temps)} records, {exchanges} exchange-kernel launches, exchange "
+          f"acceptance {accepted / exchange_attempts(WALKERS, STEP_PT_NSTEPS // PT_PERIOD):.4f}")
+    # anneal over three temperatures, on the per-step path
+    annealer = Sampler.from_ensemble(built, ANNEAL_TEMPERATURES[0], WALKERS, seed=3,
+                                     shared_proposals=False)
+    t0 = time.perf_counter()
+    annealer.anneal(list(ANNEAL_TEMPERATURES), STEP_SHORT, occ0, thin_by=THIN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    temps = annealer.samples.get_temperatures(flat=False)[:, 0]
+    per = STEP_SHORT // THIN
+    check(np.allclose(temps, np.repeat(ANNEAL_TEMPERATURES, per), rtol=1e-12, atol=0),
+          f"anneal: recorded temperatures {temps}")
+    parity = step_parity("anneal", built, annealer)
+    means = annealer.samples.get_enthalpies(flat=False).mean(axis=1)
+    print(f"phase 4e [anneal {ANNEAL_TEMPERATURES}] {card}: {len(temps)} records, mean "
+          f"enthalpy at the end of each temperature "
+          + ", ".join(f"{means[(k + 1) * per - 1]:.4f}" for k in range(3))
+          + f" eV, parity(e) {parity:.3e} ({wall:.4f} s)")
+    launched = {k.__name__: k.launches for k in (chain.flip_chain, chain.swap_chain,
+                                                 chain.table_chain)}
+    check(not any(launched.values()), f"the per-step path launched a chain: {launched}")
+    print(f"phase 4e: no chain launched on the per-step paths; exchange kernel launches "
+          f"{exchanges}")
+    return exchanges
 
 
 def drive_tempering(card, delta):
@@ -3475,6 +3695,9 @@ def main():
     api_bodies, api_distance = drive_host_api(card, built_traces[HOST_API_CELL])
     print(f"phase 4d took {time.perf_counter() - t0:.1f} s")
     _, pt_bodies, exchange_launches = drive_tempering_cells(card)
+    t0 = time.perf_counter()
+    exchange_launches += drive_step_path(card)
+    print(f"phase 4e took {time.perf_counter() - t0:.1f} s")
     launches = {("flip", body): flip_bodies[body] + sgc_bodies[body] + pt_bodies[body]
                 + built_bodies[body] + api_bodies["flip"][body]
                 for body in ("direct", "qary", "ising")}

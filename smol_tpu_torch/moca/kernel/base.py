@@ -1,12 +1,23 @@
-"""MC kernel base classes: walker state, chain options and temperature.
+"""MC kernel base classes: walker state, bias, chain options, temperature.
 
-Counterpart of ``smol_tpu/moca/kernel/base.py`` (``full_features_fn``
-:282, ``state_occupancy``/``initial_state`` :338-384,
+Counterpart of ``smol_tpu/moca/kernel/base.py`` (``MCKernel`` :106-384,
 ``ThermalKernelMixin`` :387-430).  The batched walker state is a dict of
 tensors on the ensemble's device and holds the plain ``occupancy`` [W, N]
 int32 (the reference packs it into words for its TPU fast path).
-:class:`ChainKernel` holds what the kernels that run on the
-shared-proposal chains share: the chain's options, its move and its tables.
+
+A kernel runs its steps on one of two paths, chosen once from its
+configuration, as the reference chooses (``metropolis.py:197-239``):
+
+- the hand-written chains of :mod:`smol_tpu_torch.ops.chain` (one launch
+  a window; :class:`ChainKernel`), with shared proposals (or the flip
+  sweep), no bias, a ``Flip``, ``Swap`` or ``TableFlip`` usher and a
+  system the chain tables take (:func:`~smol_tpu_torch.ops.chain.
+  chain_refusal`);
+- the per-step path of :mod:`smol_tpu_torch.ops.mc` everywhere else
+  (:meth:`MCKernel.make_step_fn`): plain torch ops over all walkers, each
+  walker with its own proposals.
+
+A kernel that fails to build or launch raises; it never falls back.
 """
 
 from __future__ import annotations
@@ -17,28 +28,78 @@ import numpy as np
 import torch
 
 from smol_tpu_torch.constants import kB
-from smol_tpu_torch.moca.kernel.mcusher import Swap, mcusher_factory
+from smol_tpu_torch.moca.kernel.bias import MCBias, mcbias_factory
+from smol_tpu_torch.moca.kernel.mcusher import Flip, MCUsher, Swap, mcusher_factory
 from smol_tpu_torch.moca.kernel.tableflip import TableFlip
+from smol_tpu_torch.moca.metadata import Metadata
+from smol_tpu_torch.moca.trace import Trace
 from smol_tpu_torch.ops import chain
+from smol_tpu_torch.ops import mc as devmc
+from smol_tpu_torch.utils.class_utils import get_subclasses
 
-__all__ = ["MCKernel", "ChainKernel", "ThermalKernelMixin"]
+__all__ = ["MCKernel", "ChainKernel", "ThermalKernelMixin", "ALL_MCUSHERS", "ALL_BIAS"]
+
+
+def _sum_log_priori(fns, occu, sites, codes, valid):
+    total = 0.0
+    for f in fns:
+        total = total + f(occu, sites, codes, valid)
+    return total
+
+
+# evaluated when a kernel checks them, since subclasses may be defined later;
+# staticmethod so that class-attribute access does not bind them as methods
+ALL_MCUSHERS = staticmethod(lambda: list(get_subclasses(MCUsher)))
+ALL_BIAS = staticmethod(lambda: list(get_subclasses(MCBias)))
+
+
+def _names(valid):
+    return valid() if callable(valid) else valid
 
 
 class MCKernel:
-    """An MC transition kernel over an ensemble."""
+    """An MC transition kernel over an ensemble.
 
+    Args:
+        ensemble: the :class:`~smol_tpu_torch.moca.ensemble.Ensemble`.
+        step_type: the usher (``"flip"``, ``"swap"``, ``"multi-step"``,
+            ``"composite"`` or ``"table-flip"``); ``args`` and ``kwargs``
+            go to it.
+        seed: seed of the run's generator.
+        bias_type: a bias (``"fugacity-bias"``, ``"square-charge-bias"``,
+            ``"square-hyperplane-bias"``), with ``bias_kwargs``.
+    """
+
+    valid_mcushers = None  # usher class names this kernel takes (None: all)
+    valid_bias = None  # bias class names this kernel takes (None: none)
     track_features = False  # the state carries (and the sampler records) features
     trace_names = ()  # state entries recorded with every sample, by name
     aux_traces = {}  # state entry -> the aux trace that records it
 
-    def __init__(self, ensemble, step_type, *, seed=None, **usher_kwargs):
+    def __init__(self, ensemble, step_type, *args, seed=None, bias_type=None,
+                 bias_kwargs=None, **kwargs):
         self._ensemble = ensemble
         self.natural_params = np.asarray(ensemble.natural_parameters)
         self._seed = int(seed) if seed is not None else secrets.randbits(62)
-        self.mcusher = mcusher_factory(
-            step_type, ensemble.sublattices, table_data=ensemble.table_data,
-            **usher_kwargs,
-        )
+        self._usher = self._bias = None
+        self.mcusher = mcusher_factory(step_type, ensemble.sublattices, *args,
+                                       table_data=ensemble.table_data, **kwargs)
+        self._spec = Metadata(type(self).__name__, seed=self._seed, step=self.mcusher.spec)
+        if bias_type is not None:
+            self.bias = mcbias_factory(bias_type, ensemble.sublattices,
+                                       **(bias_kwargs or {}))
+            self._spec.bias = self.bias.spec
+
+    # ---------------- properties ----------------
+
+    @property
+    def ensemble(self):
+        return self._ensemble
+
+    @property
+    def spec(self):
+        """Metadata specification for reproducibility."""
+        return self._spec
 
     @property
     def seed(self) -> int:
@@ -47,6 +108,36 @@ class MCKernel:
     @property
     def device(self) -> torch.device:
         return self._ensemble.device
+
+    @property
+    def mcusher(self):
+        return self._usher
+
+    @mcusher.setter
+    def mcusher(self, usher):
+        valid = _names(self.valid_mcushers)
+        if valid is not None and type(usher).__name__ not in valid:
+            raise ValueError(f"{type(usher)} is not a valid MCUsher for this kernel.")
+        self._usher = usher
+
+    @property
+    def bias(self):
+        return self._bias
+
+    @bias.setter
+    def bias(self, bias):
+        valid = _names(self.valid_bias)
+        if valid is None or type(bias).__name__ not in valid:
+            raise ValueError(f"{type(bias)} is not a valid MCBias for this kernel.")
+        self._bias = bias
+
+    @property
+    def runs_chain(self) -> bool:
+        """Whether the kernel's steps run on a hand-written chain (else on the
+        per-step path)."""
+        return False
+
+    # ---------------- walker state ----------------
 
     def full_features_fn(self):
         """``occupancies [W, N] -> features [W, F]`` incl. chemical work."""
@@ -80,6 +171,53 @@ class MCKernel:
             state["features"] = feats
         return state
 
+    def compute_initial_trace(self, occupancy) -> Trace:
+        """Absolute-value trace of one occupancy [N] (host arrays)."""
+        trace = Trace()
+        trace.occupancy = occupancy
+        trace.features = self._ensemble.compute_feature_vector(occupancy)
+        trace.enthalpy = np.array([np.dot(self.natural_params, trace.features)],
+                                  dtype=np.float64)
+        if self._bias is not None:
+            trace.bias = np.array([self._bias.compute_bias(occupancy)], dtype=np.float64)
+        trace.accepted = np.array([True], dtype=bool)
+        return trace
+
+    # ---------------- the per-step path ----------------
+
+    def _check_step_path(self):
+        if any(len(s.active_sites) != len(s.sites) for s in self.mcusher.active_sublattices):
+            raise NotImplementedError(
+                "restricted sites are not ported yet (ROADMAP.md Queue 1 item 5(c))")
+
+    def _device_applier(self):
+        """The step applier of the ensemble's batched deltas (with the
+        feature change where the kernel tracks features)."""
+        processor = self._ensemble.processor
+        processor.prepare_deltas()
+        table = self._ensemble.chemical_potential_table
+        mu = None if table is None else torch.as_tensor(table, dtype=torch.float64,
+                                                        device=self.device)
+        return devmc.make_step_applier(
+            processor.delta_energy, mu_table=mu,
+            delta_features_fn=processor.delta_features if self.track_features else None)
+
+    def _device_log_priori(self):
+        """The usher's a-priori factor plus the bias change, or None."""
+        usher_fn = self.mcusher.device_log_priori(self.device)
+        bias_fn = None if self._bias is None else self._bias.device_delta_fn(self.device)
+        fns = tuple(f for f in (usher_fn, bias_fn) if f is not None)
+        if not fns:
+            return None
+        if len(fns) == 1:
+            return fns[0]
+        return lambda *args: _sum_log_priori(fns, *args)
+
+    def make_step_fn(self):
+        """One step of every walker on the per-step path,
+        ``step(state, generator) -> state``."""
+        raise NotImplementedError
+
     def make_chain_fn(self, n_steps: int):
         """Fused multi-step chain function ``fn(state, generator) -> state``."""
         raise NotImplementedError
@@ -92,11 +230,13 @@ class MCKernel:
 
 class ChainKernel(MCKernel):
     """A kernel whose steps run on the shared-proposal chains of
-    :mod:`smol_tpu_torch.ops.chain`.
+    :mod:`smol_tpu_torch.ops.chain` where its configuration allows
+    (:attr:`runs_chain`), else on the per-step path.
 
     Args:
-        shared_proposals: must be True unless ``proposal_mode="sweep"``:
-            walkers of one block share the proposal site sequence.
+        shared_proposals: walkers of one chain block share the proposal
+            site sequence (False: every walker draws its own, on the
+            per-step path; the flip sweep is walker-independent anyway).
         chain_block_size: walkers per block (the sharing granularity),
             taken as given.
         proposal_mode: ``"random"`` or ``"sweep"`` (flips only).
@@ -110,38 +250,43 @@ class ChainKernel(MCKernel):
             default) takes the body
             :func:`~smol_tpu_torch.ops.chain.default_delta` names for the
             system and the chain.
-        usher_kwargs: go to the usher of ``step_type``.
-
-    What the reference sends to its per-step path (a bias, independent
-    proposals) raises ``NotImplementedError`` naming the ROADMAP.md item
-    that ports it; nothing silently takes another path.
+        args, kwargs: go to :class:`MCKernel` (the usher, the seed and the
+            bias).
     """
 
-    def __init__(self, ensemble, step_type, *, seed=None, bias_type=None,
-                 shared_proposals=True, chain_block_size=1024,
-                 proposal_mode="random", rng="philox", chain_delta=None,
-                 **usher_kwargs):
-        if bias_type is not None:
-            raise NotImplementedError(
-                "MC biases are not ported yet (ROADMAP.md Queue 1 item 6)"
-            )
+    def __init__(self, ensemble, step_type, *args, shared_proposals=True,
+                 chain_block_size=1024, proposal_mode="random", rng="philox",
+                 chain_delta=None, **kwargs):
         if proposal_mode not in ("random", "sweep"):
             raise ValueError(f"unknown proposal mode: {proposal_mode!r}")
-        if not shared_proposals and proposal_mode != "sweep":
-            raise NotImplementedError(
-                "independent per-walker proposals are not ported yet "
-                "(ROADMAP.md Queue 1 item 6)"
-            )
         if rng not in chain.RNG_MODES:
             raise ValueError(f"unknown rng mode: {rng!r}")
         if chain_delta is not None and chain_delta not in chain.DELTAS:
             raise ValueError(f"unknown chain delta {chain_delta!r}: one of {chain.DELTAS}")
+        self.shared_proposals = bool(shared_proposals)
         self.chain_delta = chain_delta
         self.chain_block_size = int(chain_block_size)
         self.proposal_mode = str(proposal_mode)
         self.rng = rng
-        super().__init__(ensemble, step_type, seed=seed, **usher_kwargs)
+        super().__init__(ensemble, step_type, *args, **kwargs)
         self._chain_tables = None
+        self._runs_chain = self._chain_refusal() is None
+
+    def _chain_refusal(self):
+        """Why this configuration takes the per-step path, or None where it
+        runs on a chain."""
+        if not self.shared_proposals and self.proposal_mode != "sweep":
+            return "independent proposals"
+        if self._bias is not None:
+            return "a bias"
+        if type(self.mcusher) not in (Flip, Swap, TableFlip):
+            return f"a {type(self.mcusher).__name__} usher"
+        ens = self._ensemble
+        return chain.chain_refusal(ens.processor, ens.sublattices)
+
+    @property
+    def runs_chain(self) -> bool:
+        return self._runs_chain
 
     @property
     def move(self) -> str:
@@ -202,6 +347,11 @@ class ThermalKernelMixin:
             raise ValueError("the temperature is a scalar or a per-walker ladder [W]")
         self._temperature = float(temperature) if temperature.ndim == 0 else temperature
         self.beta = 1.0 / (self._kB * self._temperature)
+
+    def compute_initial_trace(self, occupancy):
+        trace = super().compute_initial_trace(occupancy)
+        trace.temperature = np.array([self.temperature], dtype=np.float64)
+        return trace
 
     def initial_state(self, occupancies) -> dict:
         state = super().initial_state(occupancies)

@@ -8,7 +8,12 @@ directions, the probability of attempting a canonical swap instead, and a
 probabilities the embedded swaps follow.  The proposals themselves are
 drawn on the device by the chain
 (:func:`smol_tpu_torch.ops.chain.table_sequences`), exogenously and
-symmetrically, so no a-priori factor enters the acceptance.
+symmetrically, so no a-priori factor enters the acceptance.  The
+reference's per-step proposal and its a-priori factor
+(``tableflip.py:241-508``), which its kernels take with a bias, with
+independent proposals or where the chain cannot honour the usher, are not
+ported yet: :meth:`TableFlip.device_proposal` raises naming ROADMAP.md
+Queue 1 item 6.
 
 The flip table is derived as the reference derives it (:41-104): the
 dimension ids of each sublattice's species (``get_dim_ids_by_sublattice``)
@@ -99,3 +104,9 @@ class TableFlip(MCUsher):
                 f"{n_flips} flip vectors!"
             )
         self._swapper = Swap(sublattices)
+
+    def device_proposal(self, device="cpu"):
+        raise NotImplementedError(
+            "the per-step TableFlip proposal (a bias, independent proposals, or "
+            "an usher the table chain cannot take) is not ported yet (ROADMAP.md "
+            "Queue 1 item 6)")

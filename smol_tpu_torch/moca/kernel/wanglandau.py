@@ -13,8 +13,10 @@ estimator on the thinned subchain).
 
 The reference's host single-walker path (``_accept_step``,
 ``_do_post_step``, the ``dos``/``levels`` properties of one walker) and
-its per-step device path are not ported yet (ROADMAP.md Queue 1 item 6);
-what the reference sends to the latter raises ``NotImplementedError``.
+its per-step Wang-Landau are not ported yet (ROADMAP.md Queue 1 item 6);
+what the reference sends to the latter (a bias, independent proposals,
+other ushers, systems the chain tables refuse) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,8 +44,9 @@ class WangLandau(ChainKernel):
         update_period: in-window steps between entropy updates.
         mod_update: what a flat histogram divides the increment by
             (default 2).
-        seed, shared_proposals, chain_block_size, proposal_mode, rng,
-        chain_delta, sublattice_probabilities: see
+        args, kwargs: the usher's (``sublattice_probabilities``), the seed,
+            and ``shared_proposals``, ``chain_block_size``,
+            ``proposal_mode``, ``rng``, ``chain_delta``: see
             :class:`~smol_tpu_torch.moca.kernel.base.ChainKernel`.
     """
 
@@ -58,9 +61,12 @@ class WangLandau(ChainKernel):
     }
 
     def __init__(self, ensemble, step_type, min_enthalpy, max_enthalpy,
-                 bin_size, *, flatness=0.8, mod_factor=1.0, check_period=1000,
-                 update_period=1, mod_update=None, seed=None,
-                 sublattice_probabilities=None, **chain_options):
+                 bin_size, *args, flatness=0.8, mod_factor=1.0, check_period=1000,
+                 update_period=1, mod_update=None, bias_type=None, **kwargs):
+        if bias_type is not None:  # the reference takes none on its chain
+            raise NotImplementedError(
+                "a biased Wang-Landau run takes the reference's per-step "
+                "Wang-Landau, which is not ported yet (ROADMAP.md Queue 1 item 6)")
         if min_enthalpy > max_enthalpy:
             raise ValueError("min_enthalpy cannot be larger than max_enthalpy.")
         if (max_enthalpy - min_enthalpy) / bin_size <= 1:
@@ -74,14 +80,12 @@ class WangLandau(ChainKernel):
         self._window = (min_enthalpy, max_enthalpy, bin_size)
         self._mod_divisor = float(mod_update) if mod_update is not None else 2.0
         self._levels = np.arange(min_enthalpy, max_enthalpy, bin_size)
-        super().__init__(
-            ensemble, step_type, seed=seed,
-            sublattice_probabilities=sublattice_probabilities, **chain_options,
-        )
-        if self.move == "table":
+        super().__init__(ensemble, step_type, *args, **kwargs)
+        refusal = "a table-flip usher" if self.move == "table" else self._chain_refusal()
+        if refusal is not None:
             raise NotImplementedError(
-                "Wang-Landau sampling with this usher takes the reference's "
-                "per-step path, which is not ported yet (ROADMAP.md Queue 1 "
+                f"Wang-Landau sampling with {refusal} takes the reference's "
+                "per-step Wang-Landau, which is not ported yet (ROADMAP.md Queue 1 "
                 "item 6); the chain takes flips and swaps"
             )
 

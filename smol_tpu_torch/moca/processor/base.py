@@ -138,6 +138,24 @@ class Processor(MSONable):
         supercell size for the intensive device deltas)."""
         return 1.0
 
+    def prepare_deltas(self):
+        """Build the tables of :meth:`delta_features` and
+        :meth:`delta_energy` now (at their first call otherwise), so that
+        the first step of a chain copies nothing to the device."""
+
+    def delta_features(self, occupancies: torch.Tensor, sites: torch.Tensor,
+                       codes: torch.Tensor) -> torch.Tensor:
+        """Feature changes [W, F] f64 of one flip a walker: ``sites`` [W] of
+        occupancies [W, N] take ``codes`` [W], on the device (the
+        reference's ``delta_features_fn``)."""
+        return self._feature_change(occupancies, sites, codes) * self._change_scale()
+
+    def delta_energy(self, occupancies: torch.Tensor, sites: torch.Tensor,
+                     codes: torch.Tensor) -> torch.Tensor:
+        """Energy changes [W] f64 of one flip a walker, on the device (the
+        reference's ``delta_energy_fn``)."""
+        raise NotImplementedError
+
     def compute_feature_vector(self, occupancy) -> np.ndarray:
         """Extensive feature vector of an encoded occupancy [N], as host f64."""
         occu = torch.as_tensor(np.asarray(occupancy, dtype=np.int64), device=self.device)

@@ -65,6 +65,23 @@ class CompositeProcessor(Processor):
         return torch.cat([p.compute_features(occupancies) for p in self._processors],
                          dim=1)
 
+    def prepare_deltas(self):
+        for processor in self._processors:
+            processor.prepare_deltas()
+
+    def delta_features(self, occupancies, sites, codes):
+        """Feature changes [W, num_energy_coefs] f64 of one flip a walker."""
+        return torch.cat([p.delta_features(occupancies, sites, codes)
+                          for p in self._processors], dim=1)
+
+    def delta_energy(self, occupancies, sites, codes):
+        """Energy changes [W] f64 of one flip a walker: the sub-processors'
+        summed in order."""
+        total = self._processors[0].delta_energy(occupancies, sites, codes)
+        for processor in self._processors[1:]:
+            total = total + processor.delta_energy(occupancies, sites, codes)
+        return total
+
     def compute_feature_vector_change(self, occupancy, flips) -> np.ndarray:
         return np.concatenate(
             [p.compute_feature_vector_change(occupancy, flips) for p in self._processors]

@@ -84,6 +84,10 @@ class EwaldProcessor(Processor):
         return ewald_ops.delta_ewald_single_flip(
             occupancy, site, code, self._matrix, self._inds)[:, None]
 
+    def delta_energy(self, occupancies, sites, codes):
+        return self.coef * ewald_ops.delta_ewald_single_flip(
+            occupancies, sites, codes, self._matrix, self._inds)
+
     def as_dict(self) -> dict:
         d = super().as_dict()
         d["ewald_term"] = self._ewald_term.as_dict()

@@ -22,6 +22,7 @@ the clusters) that hold the flipped site
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from smol_tpu_torch.moca.processor.base import Processor
 from smol_tpu_torch.ops import correlations as corr_ops
@@ -73,7 +74,7 @@ class ClusterExpansionProcessor(Processor):
     def _load(self, fields):
         """Move the packed fields to the device and keep the local arrays."""
         self.fields = fields  # host arrays: the system keys of this processor
-        self._local = None
+        self._local = self._energy_weights = None
         self.num_corr = int(fields["num_corr"])
         self.packed = corr_ops.to_device(fields, self.device)
         # host arrays of the per-site local clusters (chain-table input)
@@ -93,8 +94,7 @@ class ClusterExpansionProcessor(Processor):
                                       self.device)
 
     def _feature_change(self, occupancy, site, code):
-        if self._local is None:
-            self._local = self._local_entries()
+        self.prepare_deltas()
         return corr_ops.local_delta(occupancy, site, code, self._local,
                                     *self._delta_tables())
 
@@ -104,6 +104,27 @@ class ClusterExpansionProcessor(Processor):
 
     def _change_scale(self):
         return self.size
+
+    def prepare_deltas(self):
+        if self._local is None:
+            self._local = self._local_entries()
+        if self._energy_weights is None:
+            weights = self.coefs * self.size / np.maximum(self._group_count(), 1)
+            weights[0] = 0.0
+            self._energy_weights = torch.as_tensor(  # the padding's 0 last
+                np.append(weights, 0.0), dtype=torch.float64, device=self.device)
+
+    def _group_count(self):
+        """Host cluster count of each feature."""
+        return np.asarray(self.fields["fn_cluster_count"], dtype=np.float64)
+
+    def delta_energy(self, occupancies, sites, codes):
+        """Energy changes [W] f64 of one flip a walker: the local entries'
+        changes, each weighted by its feature's coefficient x size / cluster
+        count (:func:`~smol_tpu_torch.ops.correlations.local_energy_delta`)."""
+        self.prepare_deltas()
+        return corr_ops.local_energy_delta(occupancies, sites, codes, self._local,
+                                           self._delta_tables()[0], self._energy_weights)
 
     @classmethod
     def from_dict(cls, d, device="cuda"):
@@ -172,6 +193,9 @@ class ClusterDecompositionProcessor(ClusterExpansionProcessor):
 
     def _delta_tables(self):
         return self.interactions.inter_flat, self.interactions.orbit_cluster_count
+
+    def _group_count(self):
+        return np.asarray(self.fields["orbit_cluster_count"], dtype=np.float64)
 
     def as_dict(self) -> dict:
         d = super().as_dict()

@@ -151,6 +151,11 @@ class SampleContainer:
         free, _ = torch.cuda.mem_get_info(device)
         return (free + self._pending_bytes) // 2
 
+    def clear(self):
+        """Remove every sample and aux record."""
+        self._batches, self._pending, self._aux_records = [], [], []
+        self._pending_bytes = 0
+
     def save_aux_record(self, record: dict, sample_index=None):
         """Append one aux record, tensors [W, ...] that nothing modifies
         later; they stay where they are.  ``sample_index`` is the sample

@@ -1,21 +1,27 @@
-"""Sampler: drives the flip, swap, table or Wang-Landau chain and stores its traces.
+"""Sampler: drives the chains or the per-step path and stores their traces.
 
-Counterpart of ``smol_tpu/moca/sampler/sampler.py``.  ``run`` drives one
-chain call per thinning window (:func:`smol_tpu_torch.ops.mc.run_chain_fused`)
-on the ensemble's device (with replica exchange, one call of thin_by /
-period segments with an exchange sweep after each, the reference's
-``sampler.py:252-273``), in launches of a bounded number of records
-(about 256 MB each, as the reference's ``samples_per_launch``); the records
-stay on the device, in the
-:class:`~smol_tpu_torch.moca.sampler.container.SampleContainer`, until a
-reader asks for them or their bytes pass the container's cap.  The device
-is explicit: with ``device="cuda"`` the chain runs the CUDA kernel or
-fails, and it runs on the CPU only when the caller asks for
+Counterpart of ``smol_tpu/moca/sampler/sampler.py``.  ``run`` drives, on
+the ensemble's device, either the kernel's hand-written chain, one call
+per thinning window (:func:`smol_tpu_torch.ops.mc.run_chain_fused`; with
+replica exchange, one call of thin_by / period segments with an exchange
+sweep after each, the reference's ``sampler.py:252-273``), or, where the
+kernel's configuration takes it (independent proposals, a bias, the
+multi-step and composite ushers, the uniformly random kernel, systems the
+chain tables refuse, and replica exchange with a ``thin_by`` the period
+does not divide), the per-step path (:func:`smol_tpu_torch.ops.mc.
+run_chain`), as the reference dispatches (:453-465, :505-509).  It runs
+in launches of a bounded number of records (about 256 MB each, as the
+reference's ``samples_per_launch``); the records stay on the device, in
+the :class:`~smol_tpu_torch.moca.sampler.container.SampleContainer`,
+until a reader asks for them or their bytes pass the container's cap.
+The device is explicit: with ``device="cuda"`` the chain runs the CUDA
+kernel or fails, and it runs on the CPU only when the caller asks for
 ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import re
 import time
 from warnings import warn
 
@@ -25,8 +31,9 @@ import torch
 from smol_tpu_torch.constants import kB
 from smol_tpu_torch.moca.kernel.metropolis import mckernel_factory
 from smol_tpu_torch.moca.sampler.container import SampleContainer
-from smol_tpu_torch.ops.mc import run_chain_fused
-from smol_tpu_torch.parallel.tempering import make_tempering_chain
+from smol_tpu_torch.moca.trace import Trace
+from smol_tpu_torch.ops.mc import run_chain, run_chain_fused, step_window
+from smol_tpu_torch.parallel.tempering import make_tempering_chain, make_tempering_step
 
 __all__ = ["Sampler"]
 
@@ -51,6 +58,7 @@ class Sampler:
         self._nwalkers = int(nwalkers)
         self._state = None
         self._chain_fns = {}
+        self._step_fn = None
         self._generator = torch.Generator(device=kernel.device)
         self._generator.manual_seed(kernel.seed)
         if not kernel.track_features:
@@ -93,10 +101,8 @@ class Sampler:
             step_type = (
                 "flip" if ensemble.chemical_potential_table is not None else "swap"
             )
-        if seeds is not None:
-            raise NotImplementedError(
-                "seeds (one seed a kernel) is not ported yet: one kernel runs every "
-                "walker from seed (ROADMAP.md Queue 1 item 6)")
+        if seed is None and seeds:
+            seed = seeds[0]
         # a thermal kernel takes its temperature first; Wang-Landau takes none
         args = () if temperature is None else (temperature,)
         kernel = mckernel_factory(
@@ -119,57 +125,94 @@ class Sampler:
     def mckernel(self):
         return self._kernel
 
+    @property
+    def mckernels(self):
+        """The one kernel that runs every walker, in a list (the reference's
+        API)."""
+        return [self._kernel]
+
+    @property
+    def seeds(self):
+        return [self._kernel.seed]
+
+    @property
+    def nwalkers(self) -> int:
+        return self._nwalkers
+
     def efficiency(self, discard=0, flat=True):
         return self._container.sampling_efficiency(discard=discard, flat=flat)
+
+    def clear_samples(self):
+        """Remove the container's samples (the walker state stays)."""
+        self._container.clear()
 
     # ---------------- running ----------------
 
     def _get_chain_fn(self, thin_by: int):
-        """The chain of one thinning window: with replica exchange, thin_by /
+        """The chain of one thinning window (with replica exchange, thin_by /
         period segments of the kernel's period chain with an exchange sweep
-        after each (``make_tempering_chain``)."""
+        after each, ``make_tempering_chain``), or None where the window
+        takes the per-step path: a kernel that does not run on a chain, or
+        a ``thin_by`` the exchange period does not divide."""
         if thin_by not in self._chain_fns:
-            period = self._replica_exchange_period
-            if period is None:
-                fn = self._kernel.make_chain_fn(thin_by)
-            elif thin_by % period:
-                raise NotImplementedError(
-                    f"replica exchange runs a window of thin_by / period segments; "
-                    f"thin_by {thin_by} is not a multiple of the period {period}, "
-                    "which needs the per-step path (ROADMAP.md Queue 1 item 6)")
-            else:
-                fn = make_tempering_chain(self._kernel.make_chain_fn(period),
-                                          thin_by // period)
+            period, kernel = self._replica_exchange_period, self._kernel
+            fn = None
+            if kernel.runs_chain:
+                if period is None:
+                    fn = kernel.make_chain_fn(thin_by)
+                elif thin_by % period == 0:
+                    fn = make_tempering_chain(kernel.make_chain_fn(period), thin_by // period)
             self._chain_fns[thin_by] = fn
         return self._chain_fns[thin_by]
+
+    def _get_step_fn(self):
+        """One step of every walker on the per-step path (with replica
+        exchange, an exchange sweep every period steps,
+        ``make_tempering_step``)."""
+        if self._step_fn is None:
+            fn = self._kernel.make_step_fn()
+            if self._replica_exchange_period is not None:
+                fn = make_tempering_step(fn, self._replica_exchange_period)
+            self._step_fn = fn
+        return self._step_fn
 
     def execution_path(self, thin_by: int = 1) -> str:
         """The path ``run(thin_by=...)`` dispatches, as one string.
 
-        ``"cuda-chain[flip]"``, ``"cuda-chain[swap]"``,
+        On a chain: ``"cuda-chain[flip]"``, ``"cuda-chain[swap]"``,
         ``"cuda-chain[table]"``, ``"cuda-chain[wl-flip]"`` or
         ``"cuda-chain[wl-swap]"`` on a CUDA device (the hand-written
         kernel), ``"cpu-twin[...]"`` on the CPU (the plain
         torch chain), then ``ewald`` when the delta carries the Ewald term,
         the energy delta (``direct``: one table lookup per local cluster;
         ``qary2``, ``qary3`` or ``qary4``: the Z_q character rows of K3; ``ising``:
-        the parity rows of K1-Ising), the proposal schedule and, with
-        replica exchange, ``replica-exchange@<period>``.
+        the parity rows of K1-Ising) and the proposal schedule.  On the
+        per-step path: ``"cuda-step[<usher>]"`` or ``"cpu-step[<usher>]"``
+        (the usher's step type, ``flip``, ``swap``, ``multi-step`` or
+        ``composite``), ``general`` and ``independent-proposals`` (the
+        reference's ``"xla-step+general+independent-proposals"``).  With
+        replica exchange, ``replica-exchange@<period>`` last.
         """
-        self._get_chain_fn(int(thin_by))
         kern = self._kernel
-        where = "cuda-chain" if kern.device.type == "cuda" else "cpu-twin"
-        parts = [f"{where}[{kern.chain_name}]"]
-        tables = kern.chain_tables()
-        if tables.has_ewald:
-            parts.append("ewald")
-        parts.append(f"qary{tables.qary}" if tables.qary else tables.delta)
-        if kern.proposal_mode == "sweep":
-            parts.append("sweep-schedule+independent-walkers")
+        cuda = kern.device.type == "cuda"
+        if self._get_chain_fn(int(thin_by)) is None:
+            self._get_step_fn()
+            # the usher's step type: "MultiStep" -> "multi-step"
+            usher = re.sub(r"(?<!^)(?=[A-Z])", "-", type(kern.mcusher).__name__).lower()
+            parts = [f"{'cuda' if cuda else 'cpu'}-step[{usher}]", "general",
+                     "independent-proposals"]
         else:
-            parts.append("shared-proposals")
-        if kern.rng == "hash":
-            parts.append("hash-rng")
+            parts = [f"{'cuda-chain' if cuda else 'cpu-twin'}[{kern.chain_name}]"]
+            tables = kern.chain_tables()
+            if tables.has_ewald:
+                parts.append("ewald")
+            parts.append(f"qary{tables.qary}" if tables.qary else tables.delta)
+            if kern.proposal_mode == "sweep":
+                parts.append("sweep-schedule+independent-walkers")
+            else:
+                parts.append("shared-proposals")
+            if kern.rng == "hash":
+                parts.append("hash-rng")
         if self._replica_exchange_period is not None:
             parts.append(f"replica-exchange@{self._replica_exchange_period}")
         return "+".join(parts)
@@ -216,7 +259,8 @@ class Sampler:
             occupancies = np.repeat(occupancies, self._nwalkers, axis=0)
         self._state = self._kernel.initial_state(occupancies)
         if self._replica_exchange_period is not None:
-            self._state["pt_counter"] = 0  # exchange sweeps so far (a host int)
+            # a host int: the chain's segments, or the per-step path's steps
+            self._state["pt_counter"] = 0
             # accepted exchanges, at each pair's left member
             self._state["pt_accepted"] = torch.zeros_like(self._state["naccept"])
         return self._state
@@ -279,6 +323,8 @@ class Sampler:
             self._generator.manual_seed(
                 self._kernel.seed + self._container.num_samples)
         chain_fn = self._get_chain_fn(int(thin_by))
+        if chain_fn is None:  # the per-step path
+            chain_fn = step_window(self._get_step_fn(), int(thin_by))
         nsamples = nsteps // thin_by
         if samples_per_launch is None:
             samples_per_launch = max(
@@ -311,3 +357,55 @@ class Sampler:
                 attempts = launch * thin_by * self._nwalkers
                 print(f"sampled {done}/{nsamples} (x{thin_by} steps, "
                       f"{attempts / max(elapsed, 1e-9) / 1e6:.1f} M attempts/s)")
+
+    def sample(self, nsteps, initial_occupancies, thin_by=1, progress=False):
+        """A generator of a host :class:`~smol_tpu_torch.moca.trace.Trace`
+        every ``thin_by`` steps, on the per-step path, as the reference's
+        always is (``smol_tpu/moca/sampler/sampler.py:643-673``).
+
+        Each trace holds the walkers' ``occupancy``, ``enthalpy``,
+        ``accepted``, ``accept_rate`` (and ``temperature``) of the sample,
+        and their exact ``features``; nothing goes to the container.  The
+        reference's API: prefer :meth:`run`, which keeps its records on the
+        device.  ``progress`` is accepted and ignored, as there.
+        """
+        self.setup_sample(initial_occupancies)
+        step_fn = self._get_step_fn()
+        features = self._kernel.full_features_fn()
+        for _ in range(nsteps // thin_by):
+            self._state, traces = run_chain(
+                self._state, self._generator, step_fn,
+                lambda st: self._record(st, thin_by), 1, thin_by)
+            values = {name: value[0] for name, value in traces.items()}
+            values.setdefault("features", features(values["occupancy"]))
+            yield Trace(**{name: value.cpu().numpy() for name, value in values.items()})
+
+    def anneal(self, temperatures, mcmc_steps, initial_occupancies=None, thin_by=1,
+               progress=False, stream_chunk=0, stream_file=None, swmr_mode=True):
+        """Simulated annealing: ``mcmc_steps`` at each temperature in turn,
+        from the hottest down (``smol_tpu/moca/sampler/sampler.py:675-721``).
+
+        Every walker takes each temperature before its run (the state's
+        beta is reset), and the samples of all runs stay in the container,
+        in order.  HDF5 streaming (``stream_chunk``, ``stream_file``) is not
+        ported yet (ROADMAP.md Queue 1 item 6); ``swmr_mode`` only matters
+        with it.
+        """
+        if temperatures[0] < temperatures[-1]:
+            raise ValueError(
+                "End temperature is greater than start temperature: "
+                f"{temperatures[-1]:.2f} > {temperatures[0]:.2f}."
+            )
+        if stream_chunk or stream_file is not None:
+            raise NotImplementedError(
+                "HDF5 streaming (stream_chunk, stream_file) is not ported yet "
+                "(ROADMAP.md Queue 1 item 6)")
+        if not hasattr(self._kernel, "temperature"):
+            raise ValueError("annealing needs a kernel with a temperature")
+        for i, temperature in enumerate(temperatures):
+            self._kernel.temperature = temperature
+            if self._state is not None and "beta" in self._state:
+                self._state["beta"] = torch.full_like(self._state["beta"],
+                                                      self._kernel.beta)
+            self.run(mcmc_steps, initial_occupancies=None if i else initial_occupancies,
+                     thin_by=thin_by, progress=progress)

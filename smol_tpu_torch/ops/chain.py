@@ -93,6 +93,7 @@ __all__ = [
     "IsingTables",
     "ising_tables",
     "build_chain_tables",
+    "chain_refusal",
     "fold_ewald",
     "rank_sequence",
     "rank_pair_sequence",
@@ -511,7 +512,26 @@ def _rank_layout(ce, ewald, sublattices):
     rank_sites = np.concatenate([np.asarray(s.active_sites) for s in active])
     rank_of_site = -np.ones(n, dtype=np.int64)
     rank_of_site[rank_sites] = np.arange(len(rank_sites))
+    nb_sites = ce.local_sites[rank_sites]  # [R, L, K]
+    frozen = ((ce.local_strides[rank_sites] > 0) & (nb_sites != rank_sites[:, None, None])
+              & (rank_of_site[nb_sites] < 0))
+    if np.any(frozen & (n_codes[nb_sites] != 1)):
+        raise NotImplementedError("a local cluster reaches a frozen multi-code site")
     return active, rank_sites, rank_of_site, n_codes
+
+
+def chain_refusal(processor, sublattices):
+    """Why the chains cannot take a system, or None where they can: the
+    requirement checks of :func:`build_chain_tables`, without its tables
+    (the reference's ``build_chain_tables`` returns None on the same
+    systems, ``pallas_chain.py:840-890``).  A kernel whose system they
+    refuse takes the per-step path (:mod:`smol_tpu_torch.ops.mc`)."""
+    try:
+        ce, ewald = _split_processor(processor)
+        _rank_layout(ce, ewald, sublattices)
+    except NotImplementedError as refusal:
+        return str(refusal)
+    return None
 
 
 def default_delta(processor, sublattices) -> str:
@@ -568,9 +588,6 @@ def build_chain_tables(processor, sublattices, mu_table=None,
     st = strides3[rank_sites]
     is_self = nb_sites == rank_sites[:, None, None]
     nbr = rank_of_site[nb_sites]
-    frozen = (st > 0) & ~is_self & (nbr < 0)
-    if np.any(frozen & (n_codes[nb_sites] != 1)):
-        raise NotImplementedError("a local cluster reaches a frozen multi-code site")
     contributes = (st > 0) & ~is_self & (nbr >= 0)
     nbr = np.where(contributes, nbr, -1)
     st = np.where(contributes, st, 0)
@@ -777,14 +794,14 @@ def build_table_move(tables: ChainTables, usher) -> TableMove:
     flip weights, which break the proposal's symmetry; a flip vector that
     touches an inactive sublattice or changes a sublattice's site count; a
     direction of more than ``MAX_TABLE_SLOTS`` recolorings) the reference
-    falls back to its per-step path; the port has none yet and raises
+    falls back to its per-step TableFlip; the port has none yet and raises
     ``NotImplementedError``.
     """
 
     def refuse(why):
         return NotImplementedError(
             f"the table chain cannot take this usher ({why}), and the "
-            "per-step path is not ported yet (ROADMAP.md Queue 1 item 6)"
+            "per-step TableFlip is not ported yet (ROADMAP.md Queue 1 item 6)"
         )
 
     flip_table = np.asarray(usher.flip_table, dtype=np.int64)  # [F, D]

@@ -33,7 +33,9 @@ __all__ = [
     "interactions_from_occupancy",
     "LocalEntries",
     "local_entries",
+    "local_changes",
     "local_delta",
+    "local_energy_delta",
 ]
 
 
@@ -222,31 +224,51 @@ def local_entries(system: dict, entry_cluster, entry_offset, entry_group,
     )
 
 
+def local_changes(occu: torch.Tensor, site: torch.Tensor, new_code: torch.Tensor,
+                  local: LocalEntries, flat: torch.Tensor):
+    """(value changes [W, L] f64, groups [W, L]) of the flipped site's local
+    entries, one flip a walker (the reference's ``_local_delta_vals``):
+    each entry's value after the flip less its value before, a site
+    repeated in a cluster (a small supercell) taking the new code in every
+    slot; a padding entry's group is -1."""
+    occu = torch.atleast_2d(occu).long()
+    site, new_code = site.long(), new_code.long()
+    sites, strides = local.sites[site], local.strides[site]  # [W, L, K]
+    codes = occu.gather(1, sites.reshape(len(occu), -1)).reshape(sites.shape)
+    flipped = torch.where(sites == site[:, None, None], new_code[:, None, None], codes)
+    offset = local.offset[site]  # [W, L]
+    dvals = (flat[offset + (flipped * strides).sum(dim=-1)]
+             - flat[offset + (codes * strides).sum(dim=-1)])
+    return dvals, local.group[site]
+
+
 def local_delta(occu: torch.Tensor, site: torch.Tensor, new_code: torch.Tensor,
                 local: LocalEntries, flat: torch.Tensor,
                 group_count: torch.Tensor) -> torch.Tensor:
     """Feature changes [W, G] f64 of one flip a walker, from the flipped
-    site's local entries alone (the reference's ``_local_delta_vals`` and
-    its per-group sums, ``delta_corr_single_flip`` :270,
-    ``delta_interactions_single_flip`` :247).
+    site's local entries alone (the reference's per-group sums,
+    ``delta_corr_single_flip`` :270, ``delta_interactions_single_flip``
+    :247).
 
-    Each local entry's value after the flip less its value before, a site
-    repeated in a cluster (a small supercell) taking the new code in every
-    slot; summed by group in entry order, a reduction along one dimension,
-    and divided by the group's cluster count.  Entry 0 is 0.
+    The entries' changes (:func:`local_changes`) summed by group in entry
+    order, a reduction along one dimension, and divided by the group's
+    cluster count.  Entry 0 is 0.
     """
-    occu = torch.atleast_2d(occu).long()
-    site, new_code = site.long(), new_code.long()
-    walkers = torch.arange(len(occu), device=occu.device)[:, None, None]
-    sites, strides = local.sites[site], local.strides[site]  # [W, L, K]
-    codes = occu[walkers, sites]
-    flipped = torch.where(sites == site[:, None, None], new_code[:, None, None], codes)
-    offset, group = local.offset[site], local.group[site]  # [W, L]
-    dvals = (flat[offset + (flipped * strides).sum(dim=-1)]
-             - flat[offset + (codes * strides).sum(dim=-1)])
-    groups = torch.arange(len(group_count), device=occu.device)
+    dvals, group = local_changes(occu, site, new_code, local, flat)
+    groups = torch.arange(len(group_count), device=dvals.device)
     in_group = group[:, :, None] == groups  # [W, L, G]; padding (-1) in none
     sums = torch.where(in_group, dvals[:, :, None], 0.0).sum(dim=1)
     out = sums / group_count
     out[:, 0] = 0.0
     return out
+
+
+def local_energy_delta(occu: torch.Tensor, site: torch.Tensor, new_code: torch.Tensor,
+                       local: LocalEntries, flat: torch.Tensor,
+                       weights: torch.Tensor) -> torch.Tensor:
+    """Energy changes [W] f64 of one flip a walker: the entries' changes
+    (:func:`local_changes`) weighted by their group's ``weights`` [G + 1]
+    (coefficient x supercell size / cluster count, 0 for group 0 and, last,
+    for the padding), the reference's ``delta_energy_single_flip`` (:227)."""
+    dvals, group = local_changes(occu, site, new_code, local, flat)
+    return (dvals * weights[group]).sum(dim=1)

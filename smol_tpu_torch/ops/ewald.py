@@ -55,7 +55,8 @@ def delta_ewald_single_flip(occu, site, new_code, ewald_matrix, ewald_inds):
     r = inds[site, occu[walkers, site]]
     a_valid, r_valid = a >= 0, r >= 0
     a_safe, r_safe = a.clamp(min=0), r.clamp(min=0)
-    b[walkers[r_valid], r_safe[r_valid]] = 0.0
+    # the removed row zeroed where it exists (no boolean index: no host wait)
+    b[walkers, r_safe] = torch.where(r_valid, 0.0, b[walkers, r_safe])
     zero = torch.zeros((), dtype=torch.float64, device=occu.device)
     ma_b = torch.where(a_valid, (ewald_matrix[a_safe] * b).sum(dim=1), zero)
     mr_b = torch.where(r_valid, (ewald_matrix[r_safe] * b).sum(dim=1), zero)

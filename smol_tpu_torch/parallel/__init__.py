@@ -6,6 +6,7 @@ from smol_tpu_torch.parallel.tempering import (
     exchange_betas,
     make_temperature_ladder,
     make_tempering_chain,
+    make_tempering_step,
     tempering_exchange,
 )
 
@@ -16,4 +17,5 @@ __all__ = [
     "exchange_attempts",
     "ExchangeLaunches",
     "make_tempering_chain",
+    "make_tempering_step",
 ]

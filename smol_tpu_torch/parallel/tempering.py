@@ -2,7 +2,7 @@
 
 Counterpart of ``smol_tpu/parallel/tempering.py``
 (``make_temperature_ladder`` :33, ``tempering_exchange`` :42,
-``make_tempering_chain`` :82).  Walkers carry a temperature ladder in
+``make_tempering_chain`` :82, ``make_tempering_step`` :110).  Walkers carry a temperature ladder in
 ``state["beta"]`` [W] f64; after every segment of ``period`` chain steps,
 adjacent walkers (l, l + 1) exchange their temperatures with probability
 min(1, exp[(beta_l - beta_r)(H_l - H_r)]), which preserves the detailed
@@ -19,6 +19,9 @@ decisions.  :func:`make_tempering_chain` runs a thinning window as
 segments of a chain of :func:`smol_tpu_torch.ops.chain.make_shared_proposal_chain`
 in one call: the window's sequences, seeds and exchange uniforms are drawn
 at once, and a segment costs the host two launches and no wait.
+:func:`make_tempering_step` wraps a step of the per-step path
+(:mod:`smol_tpu_torch.ops.mc`) with the same exchange every ``period``
+steps, through the same kernel on the card.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ __all__ = [
     "exchange_attempts",
     "ExchangeLaunches",
     "make_tempering_chain",
+    "make_tempering_step",
 ]
 
 
@@ -204,3 +208,32 @@ def make_tempering_chain(chain_fn, n_segments: int, uniforms=None):
         return chain_fn(state, generator, segments=n_segments, between=between)
 
     return fn
+
+
+def make_tempering_step(step_fn, exchange_period: int = 10):
+    """A per-step path's step with a replica-exchange sweep every
+    ``exchange_period`` steps (``smol_tpu/parallel/tempering.py:110-133``).
+
+    ``state["pt_counter"]``, a host int, counts the steps here: after step
+    c, with c a multiple of the period, the walkers exchange with phase
+    (c // period) % 2, on uniforms [W] f64 drawn from the generator, in
+    place (:func:`exchange_betas`: the kernel on the card; it gains one to
+    ``state["pt_accepted"]`` at the left member of each accepted pair).
+    The decision to exchange is the host counter's, so a window never
+    waits for the device.
+    """
+    period = int(exchange_period)
+
+    def step(state, generator):
+        state = step_fn(state, generator)
+        state["pt_counter"] += 1
+        counter = state["pt_counter"]
+        if counter % period == 0:
+            beta = state["beta"]
+            uniforms = torch.rand(beta.shape[0], generator=generator, dtype=torch.float64,
+                                  device=beta.device)
+            exchange_betas(beta, beta.to(torch.float32), state["enthalpy"], uniforms,
+                           (counter // period) % 2, state.get("pt_accepted"))
+        return state
+
+    return step

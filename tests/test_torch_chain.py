@@ -314,9 +314,16 @@ def test_sampler_device_is_explicit(spinel):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchSampler.from_ensemble(port, 1000.0, 4, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a bias takes the per-step path; a file's sublattices carry no charges
+    d = sum(len(s.encoding) for s in port.sublattices)
+    biased = TorchSampler.from_ensemble(
+        port, 1000.0, 4, seed=1, device="cpu", bias_type="square-hyperplane-bias",
+        bias_kwargs={"hyperplane_normals": [[1.0] + [0.0] * (d - 1)],
+                     "hyperplane_intercepts": [4.0]})
+    assert biased.execution_path(10) == "cpu-step[flip]+general+independent-proposals"
+    with pytest.raises(ValueError, match="no species"):
         TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
-                                   bias_type="square-charge")
+                                   bias_type="square-charge-bias")
     with pytest.raises(ValueError, match="no species"):  # a file: no flip table,
         TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",  # no species
                                    step_type="table-flip")
@@ -330,17 +337,17 @@ def test_sampler_device_is_explicit(spinel):
     stored = load_system(ROOT / "tests" / "data" / "torch_spinel_ewald_sgc_2x2x2.npz")
     np.testing.assert_array_equal(usher.flip_table, stored["flip_table"])
     np.testing.assert_array_equal(np.concatenate(usher.dim_ids), stored["usher_dim_ids"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
-                                   kernel_type="uniformly-random")
+    uniform = TorchSampler.from_ensemble(port, nwalkers=4, seed=1, device="cpu",
+                                         kernel_type="uniformly-random")
+    assert uniform.execution_path(10) == "cpu-step[flip]+general+independent-proposals"
     with pytest.raises(TypeError):  # Wang-Landau takes a window, no temperature
         TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
                                    kernel_type="wang-landau")
-    # replica exchange is ported: a window the period does not divide still
-    # needs the per-step path, and a ladder needs one temperature per walker
+    # replica exchange is ported: a window the period does not divide takes
+    # the per-step path, and a ladder needs one temperature per walker
     tempering = TorchSampler.from_ensemble(port, [900.0, 1000.0], 4, seed=1,
                                            device="cpu", replica_exchange_period=10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tempering.execution_path(15)
+    assert tempering.execution_path(15) == (
+        "cpu-step[flip]+general+independent-proposals+replica-exchange@10")
     with pytest.raises(ValueError, match="ladder"):
         tempering.setup_sample(np.zeros((4, port.num_sites), dtype=np.int32))

@@ -4,9 +4,10 @@
 (``smol_tpu/moca/sampler/sampler.py:348-361``), so a positional call means
 the same in both packages: ``run(10, occ, 10, True)`` asks for progress,
 which prints one line a launch of windows on the host.  HDF5 streaming
-(``stream_chunk``, ``stream_file``, ``keep_last_chunk``, ``swmr_mode``),
-``profile_dir`` and ``from_ensemble(..., seeds=...)`` are not ported and
-raise ``NotImplementedError`` naming ROADMAP.md Queue 1 item 6.
+(``stream_chunk``, ``stream_file``, ``keep_last_chunk``, ``swmr_mode``) and
+``profile_dir`` are not ported and raise ``NotImplementedError`` naming
+ROADMAP.md Queue 1 item 6; ``from_ensemble(..., seeds=...)`` takes the
+first seed, as the reference does.
 """
 
 import inspect
@@ -72,8 +73,17 @@ def test_streaming_and_profiling_name_their_item(ensemble, option):
 
 
 def test_seeds_name_their_item(ensemble):
-    """The reference's argument checks first (the device), then the refusal."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        Sampler.from_ensemble(ensemble, 1000.0, 2, device="cpu", seeds=[1, 2])
+    """``seeds``: the first seeds the one kernel where ``seed`` is None, as in
+    the reference; the device is checked as before."""
+    sampler = Sampler.from_ensemble(ensemble, 1000.0, 2, device="cpu", seeds=[1, 2])
+    assert sampler.seeds == [1] and sampler.mckernel.seed == 1
+    assert sampler.mckernels == [sampler.mckernel] and sampler.nwalkers == 2
+    seeded = Sampler.from_ensemble(ensemble, 1000.0, 2, device="cpu", seed=1)
+    for s in (sampler, seeded):
+        s.run(20, _start(ensemble, 2), thin_by=10)
+    np.testing.assert_array_equal(sampler.samples.get_occupancies(),
+                                  seeded.samples.get_occupancies())
+    assert Sampler.from_ensemble(ensemble, 1000.0, 2, device="cpu", seed=5,
+                                 seeds=[1, 2]).seeds == [5]
     with pytest.raises(ValueError, match="lives on"):
         Sampler.from_ensemble(ensemble, 1000.0, 2, device="meta", seeds=[1, 2])

@@ -324,9 +324,9 @@ def test_sampler_default_step_type_and_refusals():
     tables = _tables(port)
     with pytest.raises(ValueError, match="move"):
         chain.make_shared_proposal_chain(tables, 10, move="wang-landau")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
-                                   shared_proposals=False)
+    independent = TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
+                                             shared_proposals=False)
+    assert independent.execution_path(10) == "cpu-step[swap]+general+independent-proposals"
 
 
 def test_swap_wrapper_runs_twin_on_cpu_and_checks_operands():

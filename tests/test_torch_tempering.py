@@ -16,8 +16,8 @@ exact results.
 - the sampler with a ladder and ``replica_exchange_period=10``: the betas
   of every record are a permutation of the ladder, ``get_temperatures``
   returns the records, the exchange counter counts segments, a ``thin_by``
-  the period does not divide raises, and the execution path ends in
-  ``+replica-exchange@10``;
+  the period does not divide takes the per-step path (its counter counting
+  steps), and the execution path ends in ``+replica-exchange@10``;
 - (d) on the 8-site Au-Cu FCC with flips at zero chemical potential, each
   ladder temperature's mean enthalpy matches exact Boltzmann enumeration
   (256 states) within 4 standard errors (batch means over the records of
@@ -219,8 +219,18 @@ def test_sampler_runs_replica_exchange():
     feats = sampler.samples.get_feature_vectors()
     enth = sampler.samples.get_enthalpies()
     assert np.abs(feats @ port.natural_parameters - enth).max() < 1e-9
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        sampler.run(45, thin_by=15)
+    # a window the period does not divide takes the per-step path, whose
+    # counter goes on counting steps; the exchange still permutes the ladder
+    assert sampler.execution_path(15) == (
+        "cpu-step[flip]+general+independent-proposals+replica-exchange@10")
+    sampler.run(45, thin_by=15)
+    assert sampler.samples.num_samples == 8 + 3
+    assert sampler._state["pt_counter"] == 400 // period + 45
+    for t in sampler.samples.get_temperatures(flat=False):
+        np.testing.assert_array_equal(np.sort(t), recorded_ladder)
+    feats = sampler.samples.get_feature_vectors()
+    enth = sampler.samples.get_enthalpies()
+    assert np.abs(feats @ port.natural_parameters - enth).max() < 1e-9
     short = TorchSampler.from_ensemble(port, temperature=ladder, nwalkers=8, seed=3,
                                        device="cpu", replica_exchange_period=period)
     with pytest.raises(ValueError, match="ladder of 16 for 8 walkers"):
