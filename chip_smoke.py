@@ -274,6 +274,26 @@ printing its last line when any phase fails:
    over three temperatures; parity (e) in every run.  Counts set to 0 just
    before these runs and read just after: no chain launched, the exchange
    kernel's launches added to its entry;
+4f. what the chains refuse, on the per-step path (``drive_step_refusals``):
+   bench ``spinel`` built as phase 4b builds it with the first quarter of
+   each active sublattice's sites restricted (semigrand flips, 8192
+   walkers: its path, the restricted sites unchanged at every record,
+   parity (e)); per-step table flips (``shared_proposals=False``) on bench
+   ``spinel-ewald`` built as phase 4c builds it, at 3000 K: path, net
+   charge 0 at every record, parity (e), attempts/s, the device idle share
+   of two more windows under ``torch.profiler``, and the mean enthalpy of
+   the later records within ``STEP_TOLERANCE`` standard errors of a K5 run
+   of the same system, temperature and start (run before the counts are
+   set to 0); per-step Wang-Landau on bench ``wang-landau`` (2048 walkers,
+   independent proposals) and with table flips on the built
+   ``spinel-ewald`` over 50 bins spanning the K5 run's enthalpies, from its
+   last records: the plane invariants, parity (e), net charge 0; the
+   8-site log-DOS on the per-step path against the exact degeneracies
+   (64 walkers: their mean within ``REFUSED_DOS_MEAN_TOLERANCE``, the
+   median walker within ``WL_DOS_TOLERANCE``); the container's getters on
+   these runs' containers against numpy over their records; the phase's
+   wall time.  Counts set to 0 after the K5 run and read at the end: no
+   kernel launched;
 5. times one 100-step window at 8192 walkers, kernel against twin, for
    each cell (every repetition on a copy of the same starting state, the
    one the bound is worked out for), the kernels also without their Ewald term
@@ -545,6 +565,32 @@ STEP_SHORT = 500  # the other per-step runs
 STEP_PT_THIN = 15  # replica exchange with a thin_by the period does not divide
 STEP_PT_NSTEPS = 600
 ANNEAL_TEMPERATURES = (2000.0, 1000.0, 500.0)
+# phase 4f: what the chains refuse, on the per-step path: steps of each run
+REFUSED_STEPS = {"restricted": 500, "table": 1500, "k5": 6000, "wl": 1500,
+                 "wl_table": 600, "dos": 8000}
+REFUSED_TABLE_CELL = "spinel_ewald_cd_sgc_2x2x2"  # bench spinel-ewald, built here
+# the per-step table flips against K5 at 3000 K: at the bench's 1000 K the
+# per-step walkers sit in the degenerate ground level within 100 steps while
+# K5, which proposes mostly identities, takes tens of thousands to get there
+REFUSED_TABLE_TEMPERATURE = 3000.0
+REFUSED_TABLE_DISCARD = {"table": 5, "k5": 30}  # records before the means
+REFUSED_WL_BINS = 50  # the table-flip window over the K5 run's enthalpies
+# the 8-site density of states on the per-step path: the walkers' mean
+# log-DOS within REFUSED_DOS_MEAN_TOLERANCE of exact, the median walker's
+# within WL_DOS_TOLERANCE.  K6's check holds every walker to the latter
+# after 200000 steps; at the per-step path's 3-5 ms a step a run of that
+# length takes minutes, and in a short one a walker may stay off through
+# the levels it found late (the worst of 16 walkers 0.58 and 0.86 off on
+# the card after 20000 and 30000 steps, the median walker 0.13-0.26).  The
+# walkers' mean, which a sampler that breaks detailed balance moves at
+# every walker alike, read 0.033 on the card and 0.01-0.11 over 12 seeds on
+# the CPU; the reference's table-flip Wang-Landau, which leaves out the
+# a-priori factor, is 0.72 off on its cell
+REFUSED_DOS_MEAN_TOLERANCE = 0.25
+REFUSED_DOS_FLATNESS, REFUSED_DOS_CHECK = 0.7, 250
+GETTER_TOL = 1e-12  # the container's getters against numpy, relative to max(1, |value|)
+GETTER_SUM_TOL = 1e-9  # means and variances over every record (sums of 1e5-1e6 terms)
+PARITY_TOL = 1e-9  # an accumulated enthalpy against features . theta, parity (e)
 T_START = time.perf_counter()  # the script's start, for the phase 3 lines
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; FP64 (vector, not the
 # tensor cores) at 34 TFLOP/s, both at the 700 W limit
@@ -1908,7 +1954,7 @@ def step_parity(label, ensemble, sampler):
 
 
 def step_run(label, ensemble, card, nsteps, occ0, temperature=TEMPERATURE, thin=THIN,
-             **options):
+             phase="4e", **options):
     """One run on the per-step path at 8192 walkers, seed 3: checks its
     execution path and parity (e) and prints them with its rate."""
     args = () if temperature is None else (temperature,)
@@ -1921,8 +1967,8 @@ def step_run(label, ensemble, card, nsteps, occ0, temperature=TEMPERATURE, thin=
     wall = time.perf_counter() - t0
     check(sampler.samples.num_samples == nsteps // thin, f"{label}: samples")
     parity = step_parity(label, ensemble, sampler)
-    print(f"phase 4e [{label}] {card}: path {path}, {WALKERS} walkers x {nsteps} steps, "
-          f"acceptance {float(sampler.efficiency()):.4f}, parity(e) {parity:.3e}, "
+    print(f"phase {phase} [{label}] {card}: path {path}, {WALKERS} walkers x {nsteps} "
+          f"steps, acceptance {float(sampler.efficiency()):.4f}, parity(e) {parity:.3e}, "
           f"{WALKERS * nsteps / wall / 1e6:.3f} M attempts/s ({wall:.4f} s, cold)")
     return sampler, wall
 
@@ -2060,6 +2106,236 @@ def drive_step_path(card):
     print(f"phase 4e: no chain launched on the per-step paths; exchange kernel launches "
           f"{exchanges}")
     return exchanges
+
+
+def getters_vs_numpy(label, ensemble, samples):
+    """The container's getters on a run's records against numpy over the
+    same occupancies and features: energies, their variance and minimum
+    (value and occupancy), the mean features and their variance, the steps
+    and shape, and, where the sublattices carry species, the species counts
+    and compositions and one sampled structure."""
+    occ = samples.get_occupancies(flat=False)  # [S, W, N]
+    feats = samples.get_feature_vectors(flat=False)
+    S, W, N = occ.shape
+    ncoef = ensemble.num_energy_coefs
+    params = np.asarray(samples.natural_parameters)
+    energies = feats[..., :ncoef] @ params[:ncoef]
+    flat_f = feats.reshape(S * W, -1)
+
+    worst = {}
+
+    def close(mine, theirs, what, tol=GETTER_TOL):
+        mine, theirs = np.asarray(mine), np.asarray(theirs)
+        scale = max(1.0, float(np.abs(theirs).max()))
+        check(mine.shape == theirs.shape, f"{label}: {what} shape")
+        worst[what] = float(np.abs(mine - theirs).max()) / scale
+        check(worst[what] <= tol, f"{label}: {what} off by {worst[what]:.3e} relative")
+
+    close(samples.get_energies(flat=False), energies, "get_energies")
+    close(samples.get_minimum_energy(), energies.min(), "get_minimum_energy")
+    # sums over every record: the device's order of summation, not numpy's
+    close(samples.energy_variance(), energies.ravel().var(), "energy_variance",
+          GETTER_SUM_TOL)
+    close(samples.mean_feature_vector(), flat_f.mean(axis=0), "mean_feature_vector",
+          GETTER_SUM_TOL)
+    close(samples.feature_vector_variance(), flat_f.var(axis=0), "feature_vector_variance",
+          GETTER_SUM_TOL)
+    # the occupancy of the least energy (walkers tie on it: held by its energy)
+    low = samples.get_minimum_energy_occupancy()
+    check(bool((occ.reshape(S * W, N) == low).all(axis=1).any()),
+          f"{label}: get_minimum_energy_occupancy is no record")
+    low_e = ensemble.compute_feature_vector(low)[:ncoef] @ params[:ncoef]
+    close(low_e, energies.min(), "the energy of get_minimum_energy_occupancy",
+          PARITY_TOL)
+    check(samples.shape == (W, N) and samples.total_mc_steps
+          == S * samples.total_mc_steps_per_sample, f"{label}: shape and steps")
+    checked = ["energies", "minimum", "features"]
+    if all(sl.site_space is not None for sl in samples.sublattices):
+        total = {}
+        for sl in samples.sublattices:
+            counts = (occ[..., sl.sites][..., None] == sl.encoding).sum(axis=-2)
+            check(np.array_equal(samples.get_sublattice_species_counts(sl, flat=False),
+                                 counts), f"{label}: species counts")
+            for sp, c in zip(sl.species, np.moveaxis(counts, -1, 0)):
+                total[str(sp)] = total.get(str(sp), 0) + c
+        for sp, comp in samples.get_compositions(flat=False).items():
+            close(comp, total[str(sp)] / N, f"composition of {sp}")
+        structure = samples.get_sampled_structures([S * W - 1])[0]
+        vacancies = sum(int((occ[-1, -1, sl.sites] == code).sum())
+                        for sl in samples.sublattices
+                        for sp, code in zip(sl.species, sl.encoding)
+                        if str(sp).startswith("vac"))
+        check(len(structure) == N - vacancies, f"{label}: sampled structure")
+        checked += ["species counts", "compositions", "a sampled structure"]
+    checked.append("largest relative differences " + ", ".join(
+        f"{what} {value:.2e}" for what, value in worst.items()))
+    return checked
+
+
+def drive_step_refusals(card):
+    """Phase 4f, what the chains refuse, on the per-step path (see the module
+    docstring)."""
+    t_phase = time.perf_counter()
+    # the systems, and the K5 run the per-step table flips are held to,
+    # before the counts are set to 0
+    expansion, n, mus, temperature = BUILT_CELLS[STEP_CELL]
+    spinel = Ensemble.from_cluster_expansion(expansion(), np.diag([n, n, n]),
+                                             chemical_potentials=mus, device="cuda")
+    n, kind, ewald_mus, _ = BUILT_EWALD_CELLS[REFUSED_TABLE_CELL]
+    ewald = Ensemble.from_cluster_expansion(
+        random_expansion(spinel_prim(), {2: 5.3, 3: 3.7}, seed=11, ewald=True),
+        np.diag([n, n, n]), processor_type=kind, chemical_potentials=ewald_mus,
+        device="cuda")
+    start = np.tile(generate_random_ordered_occupancy(
+        ewald.processor, charge_neutral=True, rng=np.random.default_rng(0)), (WALKERS, 1))
+    k5 = Sampler.from_ensemble(ewald, REFUSED_TABLE_TEMPERATURE, WALKERS, seed=3,
+                               step_type="table-flip")
+    k5_path = k5.execution_path(THIN)
+    check(k5_path.startswith("cuda-chain[table]+ewald"), f"K5 path {k5_path}")
+    k5.run(REFUSED_STEPS["k5"], start, thin_by=THIN)
+    reset_counts(chain.flip_chain, chain.swap_chain, chain.table_chain, chain.wl_chain,
+                 exchange_betas)
+    getters = {}
+
+    # (a) restricted sites: the first quarter of each active sublattice's sites
+    pinned = np.concatenate([sl.active_sites[: len(sl.active_sites) // 4]
+                             for sl in spinel.active_sublattices])
+    spinel.restrict_sites(pinned)
+    occ0 = random_occupancies(spinel, WALKERS, 0)
+    label = f"restricted {STEP_CELL}"
+    restricted, _ = step_run(label, spinel, card, REFUSED_STEPS["restricted"], occ0,
+                             temperature, phase="4f")
+    path = restricted.execution_path(THIN)
+    check(path == "cuda-step[flip]+general+independent-proposals", f"{label}: path {path}")
+    occ = restricted.samples.get_occupancies(flat=False)
+    check(bool((occ[:, :, pinned] == occ0[None][:, :, pinned]).all()),
+          f"{label}: a restricted site moved")
+    check(bool((occ != occ0[None]).any(axis=(0, 2)).all()),
+          f"{label}: a walker never moved")
+    multi = sum(len(sl.sites) for sl in spinel.sublattices if len(sl.encoding) > 1)
+    print(f"phase 4f [{label}] {card}: {len(pinned)} of {multi} active sites restricted; "
+          f"chain refusal: {chain.chain_refusal(spinel.processor, spinel.sublattices)}; "
+          f"every restricted site keeps its start's code at all {len(occ)} records")
+    getters[label] = getters_vs_numpy(label, spinel, restricted.samples)
+
+    # (b) per-step table flips, against the K5 run of the same system and start
+    label = f"table-flip {REFUSED_TABLE_CELL}, shared_proposals=False"
+    nsteps = REFUSED_STEPS["table"]
+    tables, wall = step_run(label, ewald, card, nsteps, start,
+                            REFUSED_TABLE_TEMPERATURE, phase="4f",
+                            step_type="table-flip", shared_proposals=False)
+    path = tables.execution_path(THIN)
+    check(path == "cuda-step[table-flip]+general+independent-proposals",
+          f"{label}: path {path}")
+    records = nsteps // THIN
+    occ = tables.samples.get_occupancies(flat=False)
+    net = net_charge(ewald, occ)
+    check(bool((net == 0).all()), f"{label}: a record is not neutral")
+    check(bool((net_charge(ewald, k5.samples.get_occupancies(flat=False)) == 0).all()),
+          "K5 run: a record is not neutral")
+    rate = WALKERS * nsteps / wall
+    windows = 2
+    pwall, busy, share = device_idle_share(lambda: tables.run(windows * THIN, thin_by=THIN))
+    idle = ("not measured (no device events in the trace)" if busy is None else
+            f"{share:.4f} of the profiled wall ({windows} windows, {pwall * 1e3:.3f} ms, "
+            f"busy {busy / (windows * THIN) * 1e3:.4f} ms a step against "
+            f"{wall / nsteps * 1e3:.4f} ms a step unprofiled: idle share "
+            f"{1 - busy / (windows * THIN) / (wall / nsteps):.4f})")
+    skip, k5_skip = REFUSED_TABLE_DISCARD["table"], REFUSED_TABLE_DISCARD["k5"]
+    mine = walker_mean(tables.samples.get_enthalpies(flat=False)[skip:records], 64)
+    theirs = walker_mean(k5.samples.get_enthalpies(discard=k5_skip, flat=False),
+                         WALKERS // BLOCK)
+    se = float(np.hypot(mine[1], theirs[1]))
+    check(abs(mine[0] - theirs[0]) < STEP_TOLERANCE * se,
+          f"{label}: mean enthalpy {mine[0]} against K5's {theirs[0]} (se {se})")
+    print(f"phase 4f [{label}] {card}: {rate / 1e6:.3f} M attempts/s end to end "
+          f"({wall:.4f} s for {WALKERS} walkers x {nsteps} steps, cold); device "
+          f"idle share {idle}; net charge 0 at all {records} records; at "
+          f"{REFUSED_TABLE_TEMPERATURE:g} K the mean enthalpy over records "
+          f"{skip}-{records} {mine[0]:.6f} eV (se {mine[1]:.2e}, 64 groups of "
+          f"walkers) against the K5 chain's over records {k5_skip}-"
+          f"{REFUSED_STEPS['k5'] // THIN} of {REFUSED_STEPS['k5']} steps from the same "
+          f"start "
+          f"{theirs[0]:.6f} eV (se {theirs[1]:.2e}, {WALKERS // BLOCK} sequence "
+          f"blocks; path {k5_path}): difference "
+          f"{mine[0] - theirs[0]:+.2e} eV, {abs(mine[0] - theirs[0]) / se:.2f} standard "
+          f"errors (limit {STEP_TOLERANCE:g}); acceptance {float(tables.efficiency()):.4f} "
+          f"against K5's {float(k5.efficiency()):.4f}")
+    getters[label] = getters_vs_numpy(label, ewald, tables.samples)
+
+    # (c) Wang-Landau: bench wang-landau with independent proposals, table
+    # flips on the built spinel-ewald over its K5 run's enthalpies
+    system = load_system(ROOT / "tests" / "data" / "torch_aucu_wl_3x3x3.npz")
+    aucu = Ensemble.from_system(system, "cuda")
+    k5_enthalpies = k5.samples.get_enthalpies()
+    lo, hi = float(k5_enthalpies.min()), float(k5_enthalpies.max())
+    bin_size = (hi - lo) / (REFUSED_WL_BINS - 2)
+    runs = (
+        ("wang-landau aucu_wl_3x3x3, shared_proposals=False", aucu, "flip",
+         wl_starts(aucu, system, "flip", WL_WALKERS, 0), wl_window_of(system),
+         {"shared_proposals": False}, REFUSED_STEPS["wl"]),
+        (f"wang-landau table-flip {REFUSED_TABLE_CELL}", ewald, "table-flip",
+         k5.samples.get_occupancies(flat=False)[-1][:WL_WALKERS],
+         {"min_enthalpy": lo - bin_size, "max_enthalpy": hi + bin_size,
+          "bin_size": bin_size}, {}, REFUSED_STEPS["wl_table"]),
+    )
+    for label, ensemble, step_type, occ0, window, options, nsteps in runs:
+        sampler = Sampler.from_ensemble(
+            ensemble, kernel_type="wang-landau", step_type=step_type, nwalkers=WL_WALKERS,
+            seed=WL_SEED, flatness=0.8, **window, **options)
+        path = sampler.execution_path(nsteps // 3)
+        check(path == f"cuda-step[{step_type}]+general+independent-proposals",
+              f"{label}: path {path}")
+        t0 = time.perf_counter()
+        sampler.run(nsteps, occ0, thin_by=nsteps // 3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        plane_invariants(label, sampler._state, nsteps)
+        parity = step_parity(label, ensemble, sampler)
+        extra = ""
+        if step_type == "table-flip":
+            net = net_charge(ensemble, sampler.samples.get_occupancies())
+            check(bool((net == 0).all()), f"{label}: a record is not neutral")
+            extra = ", net charge 0 at every record"
+        visited = (sampler._state["entropy"] > 0).sum(dim=1).double()
+        print(f"phase 4f [{label}] {card}: path {path}, {WL_WALKERS} walkers x "
+              f"{nsteps} steps, {len(sampler.mckernel._levels)} bins, acceptance "
+              f"{float(sampler.efficiency()):.4f}, parity(e) {parity:.3e}, bins visited per "
+              f"walker {float(visited.mean()):.1f}, {WL_WALKERS * nsteps / wall / 1e6:.3f} "
+              f"M attempts/s ({wall:.4f} s, {wall / nsteps * 1e3:.4f} ms a step, cold); the "
+              f"plane invariants hold{extra}")
+        getters[label] = getters_vs_numpy(label, ensemble, sampler.samples)
+
+    # (d) the 8-site density of states on the per-step path
+    nsteps = REFUSED_STEPS["dos"]
+    diff, degeneracies, path, wall, _ = wl_dos_errors(
+        nsteps, 4, flatness=REFUSED_DOS_FLATNESS, check_period=REFUSED_DOS_CHECK,
+        shared_proposals=False)
+    check(path == "cuda-step[flip]+general+independent-proposals",
+          f"8-site DOS: path {path}")
+    errors = np.abs(diff).max(axis=1)
+    mean_error = float(np.abs(diff.mean(axis=0)).max())
+    median = float(np.median(errors))
+    check(mean_error < REFUSED_DOS_MEAN_TOLERANCE and median < WL_DOS_TOLERANCE,
+          f"per-step density of states: the walkers' mean off by {mean_error}, the "
+          f"median walker by {median}")
+    print(f"phase 4f [wl {WL_DOS_CELL}, {path}] {card}: {WL_DOS_WALKERS} walkers x "
+          f"{nsteps} steps in {wall:.4f} s ({wall / nsteps * 1e3:.4f} ms a step), flatness "
+          f"{REFUSED_DOS_FLATNESS:g} checked every {REFUSED_DOS_CHECK} steps, log-DOS "
+          f"against the exact degeneracies {degeneracies}: the walkers' mean log-DOS off "
+          f"by {mean_error:.4f} (limit {REFUSED_DOS_MEAN_TOLERANCE}), the median walker by "
+          f"{median:.4f} (limit {WL_DOS_TOLERANCE}), the worst by "
+          f"{float(errors.max()):.4f}")
+
+    launched = {k.__name__: k.launches for k in (chain.flip_chain, chain.swap_chain,
+                                                 chain.table_chain, chain.wl_chain,
+                                                 exchange_betas)}
+    check(not any(launched.values()), f"phase 4f launched a kernel: {launched}")
+    for label, checked in getters.items():
+        print(f"phase 4f [{label}]: the container's getters equal numpy on the records: "
+              + ", ".join(checked))
+    print(f"phase 4f {card}: no chain launched on the refused paths; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def drive_tempering(card, delta):
@@ -2321,16 +2597,16 @@ def drive_wl(stem, move, card, delta=None):
     return ensemble, system, rate
 
 
-def drive_wl_dos(card, delta):
-    """Phase 4 (c): the density of states of the 8-site system on the card.
-
-    The window and bin of the reference's own test of this system (levels
-    mid-bin).  Its flatness 0.7 with a check every 250 steps halves the
-    modification factor faster than the entropies can follow, and the
-    error it leaves stays (about 0.25 for the median walker of 64, 0.6 for
-    the worst, whatever the run's length); a check every 5000 steps at
-    flatness 0.9 leaves 0.07 and 0.23.
-    """
+def wl_dos_errors(nsteps, records, **options):
+    """A Wang-Landau run on the 8-site system on the card, held to its exact
+    density of states: the window and bin of the reference's own test of
+    this system (levels mid-bin), ``WL_DOS_WALKERS`` walkers from
+    ``default_rng(0)``, seed 9, ``nsteps`` steps in ``records`` records,
+    ``options`` to the sampler.  Checks the plane invariants and that the
+    entropy is positive exactly on the system's levels.  Returns each
+    walker's log-DOS less exact at each level [W, L] (both relative to the
+    lowest level), the degeneracies, the execution path, the run's wall
+    time and the sampler."""
     ensemble, system = load(WL_DOS_CELL)
     exact_e = system["exact_enthalpies"]
     levels = np.unique(np.round(exact_e, 9))
@@ -2339,32 +2615,45 @@ def drive_wl_dos(card, delta):
     sampler = Sampler.from_ensemble(
         ensemble, kernel_type="wang-landau", step_type="flip",
         min_enthalpy=lo, max_enthalpy=float(levels[-1] + bin_size), bin_size=bin_size,
-        flatness=0.9, check_period=5000, nwalkers=WL_DOS_WALKERS, seed=9,
-        chain_delta=delta)
-    path = sampler.execution_path(WL_DOS_NSTEPS // 10)
-    check(f"+{delta}+" in path, f"execution path {path}")
+        nwalkers=WL_DOS_WALKERS, seed=9, **options)
+    path = sampler.execution_path(nsteps // records)
     occ0 = np.random.default_rng(0).integers(
         0, 2, (WL_DOS_WALKERS, ensemble.num_sites)).astype(np.int32)
     t0 = time.perf_counter()
-    sampler.run(WL_DOS_NSTEPS, occ0, thin_by=WL_DOS_NSTEPS // 10)
+    sampler.run(nsteps, occ0, thin_by=nsteps // records)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    plane_invariants(WL_DOS_CELL, sampler._state, WL_DOS_NSTEPS)
+    plane_invariants(WL_DOS_CELL, sampler._state, nsteps)
     entropy = sampler.samples.get_trace_value("entropy", flat=False)[-1]  # [W, B]
     dos = np.bincount(np.floor((exact_e - lo) / bin_size).astype(int),
                       minlength=entropy.shape[1])
     visited = dos > 0
     check(bool((entropy[:, visited] > 0).all()) and bool((entropy[:, ~visited] == 0).all()),
-          "density of states: entropy off the system's levels")
+          f"density of states ({path}): entropy off the system's levels")
     estimate = entropy[:, visited] - entropy[:, visited][:, :1]
     exact = np.log(dos[visited]) - np.log(dos[visited][0])
-    worst = float(np.abs(estimate - exact).max())
+    return estimate - exact, dos[visited].tolist(), path, wall, sampler
+
+
+def drive_wl_dos(card, delta):
+    """Phase 4 (c): the density of states of the 8-site system on the card.
+
+    Its reference test's flatness 0.7 with a check every 250 steps halves
+    the modification factor faster than the entropies can follow, and the
+    error it leaves stays (about 0.25 for the median walker of 64, 0.6 for
+    the worst, whatever the run's length); a check every 5000 steps at
+    flatness 0.9 leaves 0.07 and 0.23.
+    """
+    diff, degeneracies, path, wall, sampler = wl_dos_errors(
+        WL_DOS_NSTEPS, 10, flatness=0.9, check_period=5000, chain_delta=delta)
+    check(f"+{delta}+" in path, f"execution path {path}")
+    worst = float(np.abs(diff).max())
     check(worst < WL_DOS_TOLERANCE,
           f"density of states: log-DOS off by {worst} on some walker")
     mod = sampler._state["mod_factor"]
     print(f"phase 4 [wl {WL_DOS_CELL}, {delta} body] {card}: {WL_DOS_WALKERS} walkers x "
           f"{WL_DOS_NSTEPS} steps in {wall:.4f} s, log-DOS against the exact "
-          f"degeneracies {dos[visited].tolist()}: worst walker off by {worst:.4f} "
+          f"degeneracies {degeneracies}: worst walker off by {worst:.4f} "
           f"(limit {WL_DOS_TOLERANCE}), mod_factor {float(mod.min()):g} to "
           f"{float(mod.max()):g}")
     return worst
@@ -3698,6 +3987,7 @@ def main():
     t0 = time.perf_counter()
     exchange_launches += drive_step_path(card)
     print(f"phase 4e took {time.perf_counter() - t0:.1f} s")
+    drive_step_refusals(card)
     launches = {("flip", body): flip_bodies[body] + sgc_bodies[body] + pt_bodies[body]
                 + built_bodies[body] + api_bodies["flip"][body]
                 for body in ("direct", "qary", "ising")}

@@ -196,9 +196,9 @@ class Ensemble(MSONable):
     Args:
         processor: the port's processor (a cluster expansion or
             decomposition, or their composite with an Ewald term).
-        sublattices: the processor's default sublattices (the default);
-            others (restricted or split) wait for ROADMAP.md Queue 1 item
-            5(c).
+        sublattices: the processor's default sublattices (the default),
+            or others: restricted or split ones (kernels over them run on
+            the per-step path, as the reference's do).
         chemical_potentials: a dict of species (or names) to values; makes
             the ensemble semigrand.
     """
@@ -208,13 +208,8 @@ class Ensemble(MSONable):
     chemical_potentials = ChemicalPotentialManager()
 
     def __init__(self, processor, sublattices=None, chemical_potentials=None):
-        defaults = processor.get_sublattices()
         if sublattices is None:
-            sublattices = defaults
-        elif list(sublattices) != defaults:
-            raise NotImplementedError(
-                "sublattices other than the processor's defaults (restricted or "
-                "split ones) are not ported yet (ROADMAP.md Queue 1 item 5(c))")
+            sublattices = processor.get_sublattices()
         self.thermo_boundaries = {}
         self._params = np.asarray(processor.coefs, dtype=np.float64)
         self._processor = processor
@@ -403,13 +398,35 @@ class Ensemble(MSONable):
     # ---------------- sublattice management ----------------
 
     def split_sublattice_by_species(self, sublattice_id, occu, species_in_partitions):
-        """Split a sublattice by its occupied species: not ported."""
-        self._sublattices[sublattice_id].split_by_species(occu, species_in_partitions)
+        """Split a sublattice by its occupied species (topotactic workflows);
+        the chemical potentials, where set, are set again over the new
+        sublattices (``smol_tpu/moca/ensemble.py:231-250``)."""
+        splits = self._sublattices[sublattice_id].split_by_species(
+            occu, species_in_partitions
+        )
+        self._sublattices = (
+            self._sublattices[:sublattice_id]
+            + splits
+            + self._sublattices[sublattice_id + 1:]
+        )
+        if self.chemical_potentials is not None:
+            value = {
+                sp: mu for sp, mu in self.chemical_potentials.items()
+                if sp in self.species
+            }
+            self._chemical_potentials = None
+            self._params = self._params[:-1]
+            self.chemical_potentials = value
 
     def restrict_sites(self, sites):
-        """Freeze sites: not ported."""
+        """Freeze the given sites in every sublattice."""
         for sublattice in self._sublattices:
             sublattice.restrict_sites(sites)
+
+    def reset_restricted_sites(self):
+        """Reactivate every restricted site."""
+        for sublattice in self._sublattices:
+            sublattice.reset_restricted_sites()
 
     def as_dict(self) -> dict:
         return {

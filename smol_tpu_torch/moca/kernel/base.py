@@ -10,9 +10,11 @@ configuration, as the reference chooses (``metropolis.py:197-239``):
 
 - the hand-written chains of :mod:`smol_tpu_torch.ops.chain` (one launch
   a window; :class:`ChainKernel`), with shared proposals (or the flip
-  sweep), no bias, a ``Flip``, ``Swap`` or ``TableFlip`` usher and a
-  system the chain tables take (:func:`~smol_tpu_torch.ops.chain.
-  chain_refusal`);
+  sweep), no bias, a ``Flip``, ``Swap`` or ``TableFlip`` usher (one the
+  table chain can honour, :func:`~smol_tpu_torch.ops.chain.
+  table_move_refusal`) and a system the chain tables take
+  (:func:`~smol_tpu_torch.ops.chain.chain_refusal`: no restricted site,
+  default encodings);
 - the per-step path of :mod:`smol_tpu_torch.ops.mc` everywhere else
   (:meth:`MCKernel.make_step_fn`): plain torch ops over all walkers, each
   walker with its own proposals.
@@ -185,11 +187,6 @@ class MCKernel:
 
     # ---------------- the per-step path ----------------
 
-    def _check_step_path(self):
-        if any(len(s.active_sites) != len(s.sites) for s in self.mcusher.active_sublattices):
-            raise NotImplementedError(
-                "restricted sites are not ported yet (ROADMAP.md Queue 1 item 5(c))")
-
     def _device_applier(self):
         """The step applier of the ensemble's batched deltas (with the
         feature change where the kernel tracks features)."""
@@ -282,7 +279,10 @@ class ChainKernel(MCKernel):
         if type(self.mcusher) not in (Flip, Swap, TableFlip):
             return f"a {type(self.mcusher).__name__} usher"
         ens = self._ensemble
-        return chain.chain_refusal(ens.processor, ens.sublattices)
+        refusal = chain.chain_refusal(ens.processor, ens.sublattices)
+        if refusal is None and type(self.mcusher) is TableFlip:
+            refusal = chain.table_move_refusal(self.mcusher)
+        return refusal
 
     @property
     def runs_chain(self) -> bool:

@@ -10,9 +10,10 @@ temperature or on a per-walker ladder (replica exchange).  Every other
 configuration, as in the reference, runs on the per-step path
 (:meth:`Metropolis.make_step_fn`, :mod:`smol_tpu_torch.ops.mc`):
 independent proposals, a bias, the ``MultiStep`` and ``Composite``
-ushers, and systems the chain tables refuse.  ``UniformlyRandom``, the
-infinite-temperature kernel, always runs on the per-step path.  The
-per-step ``TableFlip`` raises naming the ROADMAP.md item that ports it.
+ushers, a ``TableFlip`` usher the table chain cannot honour, and systems
+the chain tables refuse (restricted sites, split sublattices).
+``UniformlyRandom``, the infinite-temperature kernel, always runs on the
+per-step path.
 The factory also builds the Wang-Landau kernel
 (:mod:`smol_tpu_torch.moca.kernel.wanglandau`).
 """
@@ -87,7 +88,6 @@ class Metropolis(ThermalKernelMixin, ChainKernel):
         """One Metropolis step of every walker on the per-step path, each
         walker with its own proposal (``smol_tpu/moca/kernel/metropolis.py:
         187-190``)."""
-        self._check_step_path()
         propose_fn, _ = self.mcusher.device_proposal(self.device)
         return devmc.make_metropolis_step(propose_fn, self._device_applier(),
                                           self._device_log_priori())
@@ -120,7 +120,6 @@ class UniformlyRandom(MCKernel):
     valid_bias = ALL_BIAS
 
     def make_step_fn(self):
-        self._check_step_path()
         propose_fn, _ = self.mcusher.device_proposal(self.device)
         log_priori = self._device_log_priori()
         if log_priori is None:

@@ -8,12 +8,14 @@ directions, the probability of attempting a canonical swap instead, and a
 probabilities the embedded swaps follow.  The proposals themselves are
 drawn on the device by the chain
 (:func:`smol_tpu_torch.ops.chain.table_sequences`), exogenously and
-symmetrically, so no a-priori factor enters the acceptance.  The
-reference's per-step proposal and its a-priori factor
-(``tableflip.py:241-508``), which its kernels take with a bias, with
-independent proposals or where the chain cannot honour the usher, are not
-ported yet: :meth:`TableFlip.device_proposal` raises naming ROADMAP.md
-Queue 1 item 6.
+symmetrically, so no a-priori factor enters the acceptance.  Where the
+reference's kernels leave the chain (a bias, independent proposals,
+restricted sites, Wang-Landau, or an usher the table chain cannot honour)
+they take the per-step proposal and its a-priori factor
+(``tableflip.py:241-508``): :meth:`TableFlip.device_proposal` and
+:meth:`TableFlip.device_log_priori`, plain torch over all walkers
+(:func:`smol_tpu_torch.ops.mc.table_flip_proposal`,
+:func:`~smol_tpu_torch.ops.mc.table_flip_log_priori`).
 
 The flip table is derived as the reference derives it (:41-104): the
 dimension ids of each sublattice's species (``get_dim_ids_by_sublattice``)
@@ -27,11 +29,15 @@ sublattices, which carry no species, need one.
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
+import torch
 
 from smol_tpu_torch.moca.composition.space import CompositionSpace
 from smol_tpu_torch.moca.kernel.mcusher import MCUsher, Swap
-from smol_tpu_torch.moca.occu_utils import get_dim_ids_by_sublattice
+from smol_tpu_torch.moca.occu_utils import get_dim_ids_by_sublattice, get_dim_ids_table
+from smol_tpu_torch.ops import mc
 
 __all__ = ["TableFlip"]
 
@@ -104,9 +110,58 @@ class TableFlip(MCUsher):
                 f"{n_flips} flip vectors!"
             )
         self._swapper = Swap(sublattices)
+        # the species counts' bounds and the (site, code) -> dimension
+        # tables of the reference's usher (tableflip.py:71-104)
+        self.max_n = [len(sl.active_sites) for sl in sublattices for _ in sl.encoding]
+        self._dim_ids_table = get_dim_ids_table(sublattices, active_only=True)
+        self._dim_ids_full = get_dim_ids_table(sublattices, active_only=False)
+        self._flip_tables = None
+
+    @property
+    def flip_tables(self) -> mc.TableFlipTables:
+        """The per-step proposal's tables, as host tensors (built once)."""
+        if self._flip_tables is None:
+            directions = np.concatenate([(u, -u) for u in self.flip_table], axis=0)
+            dim_block = -np.ones(self.d, dtype=np.int64)
+            code_of_dim = np.zeros(self.d, dtype=np.int64)
+            active = []
+            for bi, (sublatt, dim_ids) in enumerate(zip(self.sublattices, self.dim_ids)):
+                if not sublatt.is_active:
+                    continue
+                active.append(sublatt.active_sites.astype(np.int64))
+                for j, d in enumerate(dim_ids):
+                    dim_block[d] = bi
+                    code_of_dim[d] = sublatt.encoding[j]
+            act_sites = np.concatenate(active)
+            # the largest total removal count of any direction
+            width = max(2, int(max(-dvec[dvec < 0].sum() for dvec in directions)))
+
+            def host(x, dtype=torch.int64):
+                return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype)
+
+            self._flip_tables = mc.TableFlipTables(
+                directions=host(directions),
+                weights=host(self.flip_weights, torch.float64),
+                max_n=host(self.max_n),
+                dims_table=host(self._dim_ids_table),
+                act_sites=host(act_sites),
+                act_dims=host(self._dim_ids_table[act_sites]),
+                dim_block=host(dim_block),
+                code_of_dim=host(code_of_dim),
+                width=width,
+                swap_weight=self.swap_weight,
+            )
+        return self._flip_tables
 
     def device_proposal(self, device="cpu"):
-        raise NotImplementedError(
-            "the per-step TableFlip proposal (a bias, independent proposals, or "
-            "an usher the table chain cannot take) is not ported yet (ROADMAP.md "
-            "Queue 1 item 6)")
+        """(proposal, step width) of the per-step table flip
+        (:func:`~smol_tpu_torch.ops.mc.table_flip_proposal`), its embedded
+        swaps the swapper's."""
+        tables = self.flip_tables.to(device)
+        swap, _ = self._swapper.device_proposal(device)
+        return partial(mc.table_flip_proposal, tables, swap), tables.width
+
+    def device_log_priori(self, device="cpu"):
+        """``(occu, sites, codes, valid) -> [W]`` log a-priori factor of a
+        table flip (:func:`~smol_tpu_torch.ops.mc.table_flip_log_priori`)."""
+        return partial(mc.table_flip_log_priori, self.flip_tables.to(device))

@@ -1,22 +1,30 @@
-"""The Wang-Landau kernel on the shared-proposal chain.
+"""The Wang-Landau kernel, on the shared-proposal chain or the per-step path.
 
 Counterpart of ``smol_tpu/moca/kernel/wanglandau.py`` (constructor :27-86,
-``_build_chain_tables`` :208-238, ``make_chain_fn`` :240-309,
-``restore_aux_state`` :311-344, ``initial_state`` :346-363): flat-histogram
-sampling of the density of states over enthalpy bins, with ``Flip`` or
-``Swap`` moves.  Every walker carries its own window state (entropy,
-histogram, occurrences, modification factor), which the chain
-(:class:`smol_tpu_torch.ops.chain.WLChain`) updates at every step; the
-per-bin cumulative mean features are updated here once per thinning
-window, from the exact features at the window's end (the reference's
-estimator on the thinned subchain).
+``make_step_fn`` :189-201, ``_build_chain_tables`` :208-238,
+``make_chain_fn`` :240-309, ``restore_aux_state`` :311-344,
+``initial_state`` :346-363): flat-histogram sampling of the density of
+states over enthalpy bins.  Every walker carries its own window state
+(entropy, histogram, occurrences, modification factor).  With ``Flip`` or
+``Swap`` moves, shared proposals and a system the chain tables take, the
+chain (:class:`smol_tpu_torch.ops.chain.WLChain`) updates it at every step
+and the per-bin cumulative mean features are updated here once per
+thinning window, from the exact features at the window's end (the
+reference's estimator on the thinned subchain).  Everything else the
+reference sends to its per-step Wang-Landau (``_wl_step``), and so does the
+port (:meth:`WangLandau.make_step_fn`, :func:`smol_tpu_torch.ops.mc.
+make_wang_landau_step`): independent proposals, the ``TableFlip``,
+``MultiStep`` and ``Composite`` ushers, and systems the chain tables
+refuse, restricted sites among them; there the mean features are updated
+at every step, with ``occurrences`` as their count, and the exponent
+carries the usher's a-priori factor (the table flips' detailed balance),
+which the reference's ``_wl_step`` leaves out (ROADMAP.md Queue 3, C10).
+Both paths share the state's planes.  Like the reference's, the kernel takes no bias: a
+``bias_type`` raises ``ValueError``.
 
 The reference's host single-walker path (``_accept_step``,
-``_do_post_step``, the ``dos``/``levels`` properties of one walker) and
-its per-step Wang-Landau are not ported yet (ROADMAP.md Queue 1 item 6);
-what the reference sends to the latter (a bias, independent proposals,
-other ushers, systems the chain tables refuse) raises
-``NotImplementedError``.
+``_do_post_step``, the ``dos``/``levels`` properties of one walker) is not
+ported yet (ROADMAP.md Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -25,16 +33,20 @@ import numpy as np
 import torch
 
 from smol_tpu_torch.moca.kernel.base import ChainKernel
+from smol_tpu_torch.moca.kernel.tableflip import TableFlip
 from smol_tpu_torch.ops import chain
+from smol_tpu_torch.ops import mc as devmc
 
 __all__ = ["WangLandau"]
 
 class WangLandau(ChainKernel):
-    """Wang-Landau sampling kernel of flips or swaps.
+    """Wang-Landau sampling kernel.
 
     Args:
         ensemble: the :class:`~smol_tpu_torch.moca.ensemble.Ensemble`.
-        step_type: ``"flip"`` or ``"swap"``.
+        step_type: any usher's (``"flip"``, ``"swap"``, ``"table-flip"``,
+            ``"multi-step"``, ``"composite"``); flips and swaps run on the
+            chain where the configuration allows, the rest per step.
         min_enthalpy, max_enthalpy, bin_size: the window [min, max) and
             the width of its bins, in eV.
         flatness: a histogram is flat when its least count over the
@@ -62,11 +74,7 @@ class WangLandau(ChainKernel):
 
     def __init__(self, ensemble, step_type, min_enthalpy, max_enthalpy,
                  bin_size, *args, flatness=0.8, mod_factor=1.0, check_period=1000,
-                 update_period=1, mod_update=None, bias_type=None, **kwargs):
-        if bias_type is not None:  # the reference takes none on its chain
-            raise NotImplementedError(
-                "a biased Wang-Landau run takes the reference's per-step "
-                "Wang-Landau, which is not ported yet (ROADMAP.md Queue 1 item 6)")
+                 update_period=1, mod_update=None, **kwargs):
         if min_enthalpy > max_enthalpy:
             raise ValueError("min_enthalpy cannot be larger than max_enthalpy.")
         if (max_enthalpy - min_enthalpy) / bin_size <= 1:
@@ -80,14 +88,15 @@ class WangLandau(ChainKernel):
         self._window = (min_enthalpy, max_enthalpy, bin_size)
         self._mod_divisor = float(mod_update) if mod_update is not None else 2.0
         self._levels = np.arange(min_enthalpy, max_enthalpy, bin_size)
+        # valid_bias is None: a bias_type raises ValueError, as the reference's
         super().__init__(ensemble, step_type, *args, **kwargs)
-        refusal = "a table-flip usher" if self.move == "table" else self._chain_refusal()
-        if refusal is not None:
-            raise NotImplementedError(
-                f"Wang-Landau sampling with {refusal} takes the reference's "
-                "per-step Wang-Landau, which is not ported yet (ROADMAP.md Queue 1 "
-                "item 6); the chain takes flips and swaps"
-            )
+
+    def _chain_refusal(self):
+        """The chain's refusals; besides, the Wang-Landau chain takes flips
+        and swaps only (``smol_tpu/moca/kernel/wanglandau.py:222-223``)."""
+        if type(self.mcusher) is TableFlip:
+            return "a TableFlip usher"
+        return super()._chain_refusal()
 
     @property
     def bin_size(self):
@@ -133,6 +142,18 @@ class WangLandau(ChainKernel):
         # how many window ends each bin's mean features average over
         state["wl_mean_counts"] = zeros(nwalkers, nlev, dtype=torch.int32)
         return state
+
+    def make_step_fn(self):
+        """One Wang-Landau step of every walker on the per-step path, each
+        with its own proposal, the usher's a-priori factor in the exponent
+        (:func:`~smol_tpu_torch.ops.mc.make_wang_landau_step`)."""
+        propose_fn, _ = self.mcusher.device_proposal(self.device)
+        return devmc.make_wang_landau_step(
+            propose_fn, self._device_applier(),
+            min_enthalpy=float(self._window[0]), bin_size=float(self._window[2]),
+            flatness=float(self.flatness), check_period=int(self.check_period),
+            update_period=int(self.update_period), mod_divisor=float(self._mod_divisor),
+            log_priori_fn=self.mcusher.device_log_priori(self.device))
 
     def make_chain_fn(self, n_steps: int, seqs=None, seeds=None):
         """``fn(state, generator) -> state`` of one thinning window.

@@ -26,17 +26,31 @@ their own: each record is cumulative, so the last one carries the result.
 They too stay device tensors until read, and
 :meth:`SampleContainer.get_trace_value` serves them by name on the record
 axis.  HDF5 storage is not ported yet (ROADMAP.md Queue 1 item 6).
+
+The reference's getters (``container.py:127-450``) read the same records:
+energies, feature means and variances, minima and their occupancies,
+orbit factors, species counts and compositions (per sublattice and in
+total), sampled structures; the means and variances of recorded or derived
+quantities reduce on the device (:meth:`SampleContainer.mean_trace_value`),
+the others are numpy over the host copy of the selected rows, as the
+reference's.  :meth:`SampleContainer.vacuum` gathers every sample into one
+host batch (the reference trims its preallocated arrays), and
+``as_dict``/``from_dict`` write and read the reference's record.
 """
 
 from __future__ import annotations
 
+from collections import defaultdict
+
 import numpy as np
 import torch
 
+from smol_tpu_torch.moca.metadata import Metadata
 from smol_tpu_torch.ops.reductions import (
     masked_min_segments,
     masked_stats_segments,
 )
+from smol_tpu_torch.serial import MSONable, jsanitize, process_decoded
 
 __all__ = ["SampleContainer"]
 
@@ -54,15 +68,21 @@ def _to_host(tensor):
     return host
 
 
-class SampleContainer:
+class SampleContainer(MSONable):
     """Holds the sampled traces of an MC run.
 
     Args:
-        ensemble: the ensemble sampled from.
+        ensemble: the ensemble sampled from, or a dict of its specs
+            (``num_sites``, ``system_size``, ``natural_parameters``,
+            ``num_energy_coefs``; a container read back without its
+            ensemble).
         trace_names: the recorded quantities (``occupancy`` first).
         traces: optional restored batch, a dict of arrays [k, W, ...]
             holding every name in ``trace_names``.
         aux_names: the quantities recorded as aux records.
+        nwalkers: the walkers of a record (read from the records where
+            there are any).
+        sampling_metadata: a dict kept as the container's ``metadata``.
 
     ``pending_bytes_max``: the bytes of record batches kept where the run
     wrote them before they move to host memory.  None (the default) keeps
@@ -74,8 +94,24 @@ class SampleContainer:
     pending_bytes_max = None
     PENDING_BYTES_KEPT = 2 << 30  # kept on the device without asking (the reference's cap)
 
-    def __init__(self, ensemble, trace_names, traces=None, aux_names=()):
-        self._ensemble = ensemble
+    def __init__(self, ensemble, trace_names, traces=None, aux_names=(), nwalkers=None,
+                 sampling_metadata=None):
+        if isinstance(ensemble, dict):
+            self._ensemble, self._ensemble_specs, self._sublattices = None, ensemble, []
+        else:
+            self._ensemble = ensemble
+            self._ensemble_specs = {
+                "num_sites": ensemble.num_sites,
+                "system_size": ensemble.system_size,
+                "natural_parameters": np.asarray(ensemble.natural_parameters),
+                "num_energy_coefs": ensemble.num_energy_coefs,
+            }
+            self._sublattices = ensemble.sublattices
+        meta = dict(sampling_metadata or {})
+        meta.pop("cls_name", None)
+        self.metadata = Metadata("SampleContainer", **meta)
+        self._nwalkers = nwalkers
+        self.total_mc_steps_per_sample = 1
         self._names = tuple(trace_names)
         self._aux_names = tuple(aux_names)
         self._aux_records = []  # (dict of tensors [W, ...], sample index)
@@ -95,8 +131,31 @@ class SampleContainer:
     # ---------------- properties ----------------
 
     @property
+    def ensemble(self):
+        return self._ensemble
+
+    @property
+    def sublattices(self):
+        return self._sublattices
+
+    @property
     def natural_parameters(self) -> np.ndarray:
-        return np.asarray(self._ensemble.natural_parameters)
+        return np.asarray(self._ensemble_specs["natural_parameters"])
+
+    @property
+    def _num_energy_coefs(self) -> int:
+        return int(self._ensemble_specs["num_energy_coefs"])
+
+    @property
+    def total_mc_steps(self) -> int:
+        return self.total_mc_steps_per_sample * self.num_samples
+
+    @property
+    def shape(self) -> tuple:
+        """(nwalkers, num_sites)."""
+        nwalkers = (self._batches[0]["occupancy"].shape[1] if self._batches
+                    else self._nwalkers)
+        return (nwalkers, int(self._ensemble_specs["num_sites"]))
 
     @property
     def traced_values(self) -> list:
@@ -127,9 +186,11 @@ class SampleContainer:
             raise ValueError(f"{name} is not a traced quantity.")
         self._derived[name] = fn
 
-    def save_sampled_traces(self, traces):
-        """Append a batch of records [k, W, ...]; it stays where it is until
-        the kept batches pass the cap, when they all move to host memory."""
+    def save_sampled_traces(self, traces, thinned_by: int = 1):
+        """Append a batch of records [k, W, ...], each ``thinned_by`` steps
+        apart; it stays where it is until the kept batches pass the cap,
+        when they all move to host memory."""
+        self.total_mc_steps_per_sample = int(thinned_by)
         if not len(traces["occupancy"]):
             return
         batch = dict(traces)
@@ -281,13 +342,181 @@ class SampleContainer:
 
     def mean_energy(self, discard=0, thin_by=1, flat=True):
         """Mean energy, without the chemical work when mu were set."""
-        ncoef = self._ensemble.num_energy_coefs
-        if len(self.natural_parameters) == ncoef:
+        if len(self.natural_parameters) == self._num_energy_coefs:
             return self.mean_enthalpy(discard, thin_by, flat)
-        features = self.get_feature_vectors(discard, thin_by, flat)
-        energies = features[..., :ncoef] @ self.natural_parameters[:ncoef]
-        return energies.mean(axis=0)
+        return self.get_energies(discard, thin_by, flat).mean(axis=0)
 
     def sampling_efficiency(self, discard=0, flat=True):
         """Mean acceptance fraction of the recorded windows."""
         return self.mean_trace_value("accept_rate", discard, flat=flat)
+
+    # ---------------- the reference's getters (container.py:301-450) ----------------
+
+    def get_energies(self, discard=0, thin_by=1, flat=True):
+        """Energies (excluding chemical work when mu were set)."""
+        if len(self.natural_parameters) == self._num_energy_coefs:
+            return self.get_enthalpies(discard, thin_by, flat)
+        features = self.get_feature_vectors(discard, thin_by, flat)
+        return features[..., : self._num_energy_coefs] @ self.natural_parameters[
+            : self._num_energy_coefs
+        ]
+
+    def get_orbit_factors(self, function_orbit_ids, discard=0, thin_by=1, flat=True):
+        """Per-orbit sums of the natural-parameter-weighted features (the
+        reference's grouping along the feature axis of every sample)."""
+        vals = self.natural_parameters * self.get_feature_vectors(
+            discard=discard, thin_by=thin_by, flat=flat
+        )
+        ids = np.asarray(function_orbit_ids)
+        return np.stack(
+            [vals[..., ids == i].sum(axis=-1) for i in range(int(ids.max()) + 1)],
+            axis=-1,
+        )
+
+    def energy_variance(self, discard=0, thin_by=1, flat=True):
+        if len(self.natural_parameters) == self._num_energy_coefs:
+            return self.enthalpy_variance(discard, thin_by, flat)
+        return self.get_energies(discard, thin_by, flat).var(axis=0)
+
+    def mean_feature_vector(self, discard=0, thin_by=1, flat=True):
+        return self.mean_trace_value("features", discard, thin_by, flat)
+
+    def feature_vector_variance(self, discard=0, thin_by=1, flat=True):
+        return self.trace_value_variance("features", discard, thin_by, flat)
+
+    def get_minimum_energy(self, discard=0, thin_by=1, flat=True):
+        return self.get_energies(discard, thin_by, flat).min(axis=0)
+
+    def _minimum_occupancy(self, values, discard, thin_by, flat):
+        inds = values.argmin(axis=0)
+        occus = self.get_occupancies(discard, thin_by, flat)
+        if flat:
+            return occus[inds]
+        return occus[inds, np.arange(self.shape[0])]
+
+    def get_minimum_enthalpy_occupancy(self, discard=0, thin_by=1, flat=True):
+        return self._minimum_occupancy(self.get_enthalpies(discard, thin_by, flat),
+                                       discard, thin_by, flat)
+
+    def get_minimum_energy_occupancy(self, discard=0, thin_by=1, flat=True):
+        return self._minimum_occupancy(self.get_energies(discard, thin_by, flat),
+                                       discard, thin_by, flat)
+
+    def get_sublattice_species_counts(self, sublattice, discard=0, thin_by=1, flat=True):
+        """Per-sample counts of each code of a sublattice (encoding order)."""
+        if sublattice not in self._sublattices:
+            raise ValueError("Sublattice provided is not recognized.")
+        sub_occus = self.get_occupancies(discard, thin_by, flat=False)[..., sublattice.sites]
+        counts = np.stack(
+            [(sub_occus == code).sum(axis=-1) for code in sublattice.encoding], axis=-1
+        ).astype(np.float64)
+        return counts.reshape(-1, *counts.shape[2:]) if flat else counts
+
+    def get_sublattice_compositions(self, sublattice, discard=0, thin_by=1, flat=True):
+        counts = self.get_sublattice_species_counts(sublattice, discard, thin_by, flat)
+        return counts / len(sublattice.sites)
+
+    def get_species_counts(self, discard=0, thin_by=1, flat=True):
+        """Dict species -> per-sample counts across all sublattices."""
+        counts = defaultdict(float)
+        for sublattice in self._sublattices:
+            sub = self.get_sublattice_species_counts(sublattice, discard, thin_by, flat)
+            for species, count in zip(sublattice.species, np.moveaxis(sub, -1, 0)):
+                counts[species] = counts[species] + count
+        return dict(counts)
+
+    def get_compositions(self, discard=0, thin_by=1, flat=True):
+        counts = self.get_species_counts(discard, thin_by, flat)
+        return {sp: c / self.shape[1] for sp, c in counts.items()}
+
+    def mean_composition(self, discard=0, thin_by=1, flat=True):
+        return {sp: c.mean(axis=0)
+                for sp, c in self.get_compositions(discard, thin_by, flat).items()}
+
+    def composition_variance(self, discard=0, thin_by=1, flat=True):
+        return {sp: c.var(axis=0)
+                for sp, c in self.get_compositions(discard, thin_by, flat).items()}
+
+    def mean_sublattice_composition(self, sublattice, discard=0, thin_by=1, flat=True):
+        return self.get_sublattice_compositions(sublattice, discard, thin_by,
+                                                flat).mean(axis=0)
+
+    def sublattice_composition_variance(self, sublattice, discard=0, thin_by=1, flat=True):
+        return self.get_sublattice_compositions(sublattice, discard, thin_by,
+                                                flat).var(axis=0)
+
+    def get_sampled_structures(self, indices=None, flat=True):
+        """The sampled occupancies as structures (needs the ensemble)."""
+        if self._ensemble is None:
+            raise RuntimeError("Ensemble is not available in this container.")
+        occus = self.get_occupancies(flat=flat)
+        indices = range(len(occus)) if indices is None else indices
+        return [self._ensemble.processor.structure_from_occupancy(occus[i])
+                for i in indices]
+
+    # ---------------- the reference's record ----------------
+
+    def vacuum(self):
+        """Gather every sample into one host batch, the derived values filled
+        in, and every aux record into host memory."""
+        if len(self._batches) > 1 or any(
+                v.device.type != "cpu" for b in self._batches for v in b.values()) or (
+                self._batches and set(self._names) - set(self._batches[0])):
+            masks = self._selection(0, 1)
+            batch = {}
+            for name in self._names:
+                segments, kept = self._segments(name, masks)
+                batch[name] = torch.cat([
+                    values.index_select(0, torch.as_tensor(np.flatnonzero(m),
+                                                           device=values.device)).cpu()
+                    for values, m in zip(segments, kept)])
+            self._batches = [batch]
+        self._pending, self._pending_bytes = [], 0
+        self._aux_records = [({name: value.cpu() for name, value in record.items()}, index)
+                             for record, index in self._aux_records]
+
+    def as_dict(self) -> dict:
+        """The reference's record (``container.py:740-757``)."""
+        self.vacuum()
+        batch = self._batches[0] if self._batches else {}
+        trace = {name: batch[name].numpy() for name in self._names if name in batch}
+        aux = {name: np.stack([record[name].numpy() for record, _ in self._aux_records])
+               for name in self._aux_names if self._aux_records}
+        return {
+            "@module": type(self).__module__,
+            "@class": type(self).__name__,
+            "ensemble_specs": jsanitize(self._ensemble_specs),
+            "metadata": jsanitize(vars(self.metadata)),
+            "trace": {k: v.tolist() for k, v in trace.items()},
+            "trace_dtypes": {k: str(v.dtype) for k, v in trace.items()},
+            "aux_trace": {k: v.tolist() for k, v in aux.items()},
+            "aux_dtypes": {k: str(v.dtype) for k, v in aux.items()},
+            "aux_indices": self.aux_sample_indices.tolist(),
+            "nsamples": self.num_samples,
+            "total_mc_steps_per_sample": self.total_mc_steps_per_sample,
+            "sublattices": [s.as_dict() for s in self._sublattices],
+        }
+
+    @classmethod
+    def from_dict(cls, d, ensemble=None):
+        """A container of an ``as_dict`` record (the port's or the
+        reference's), on ``ensemble`` where given, else on the record's
+        specs (then the features are the recorded ones)."""
+        specs = dict(d["ensemble_specs"])
+        specs["natural_parameters"] = np.array(specs["natural_parameters"])
+        traces = {k: np.array(v, dtype=d["trace_dtypes"][k]) for k, v in d["trace"].items()}
+        names = tuple(traces)
+        aux = {k: np.array(v, dtype=d["aux_dtypes"][k])
+               for k, v in d.get("aux_trace", {}).items()}
+        nwalkers = traces["occupancy"].shape[1] if traces.get("occupancy") is not None \
+            and traces["occupancy"].ndim == 3 else None
+        container = cls(ensemble if ensemble is not None else specs, names,
+                        traces=traces if d["nsamples"] else None, aux_names=tuple(aux),
+                        nwalkers=nwalkers, sampling_metadata=d.get("metadata"))
+        container._sublattices = [process_decoded(s) for s in d.get("sublattices", [])]
+        for k, index in enumerate(d.get("aux_indices", [])):
+            container._aux_records.append(
+                ({name: torch.as_tensor(values[k]) for name, values in aux.items()},
+                 int(index)))
+        container.total_mc_steps_per_sample = d["total_mc_steps_per_sample"]
+        return container

@@ -6,8 +6,10 @@ per thinning window (:func:`smol_tpu_torch.ops.mc.run_chain_fused`; with
 replica exchange, one call of thin_by / period segments with an exchange
 sweep after each, the reference's ``sampler.py:252-273``), or, where the
 kernel's configuration takes it (independent proposals, a bias, the
-multi-step and composite ushers, the uniformly random kernel, systems the
-chain tables refuse, and replica exchange with a ``thin_by`` the period
+multi-step and composite ushers, a table-flip usher the table chain cannot
+honour, the uniformly random kernel, Wang-Landau with any of these or with
+table flips, systems the chain tables refuse, restricted and split
+sublattices among them, and replica exchange with a ``thin_by`` the period
 does not divide), the per-step path (:func:`smol_tpu_torch.ops.mc.
 run_chain`), as the reference dispatches (:453-465, :505-509).  It runs
 in launches of a bounded number of records (about 256 MB each, as the
@@ -111,7 +113,8 @@ class Sampler:
         names = TRACE_NAMES + (("temperature",) if hasattr(kernel, "temperature") else ())
         container = SampleContainer(
             ensemble, names + tuple(kernel.trace_names),
-            aux_names=tuple(kernel.aux_traces.values()))
+            aux_names=tuple(kernel.aux_traces.values()), nwalkers=nwalkers,
+            sampling_metadata=ensemble.thermo_boundaries)
         return cls(kernel, container, nwalkers=nwalkers,
                    replica_exchange_period=replica_exchange_period)
 
@@ -188,8 +191,9 @@ class Sampler:
         ``qary2``, ``qary3`` or ``qary4``: the Z_q character rows of K3; ``ising``:
         the parity rows of K1-Ising) and the proposal schedule.  On the
         per-step path: ``"cuda-step[<usher>]"`` or ``"cpu-step[<usher>]"``
-        (the usher's step type, ``flip``, ``swap``, ``multi-step`` or
-        ``composite``), ``general`` and ``independent-proposals`` (the
+        (the usher's step type, ``flip``, ``swap``, ``table-flip``,
+        ``multi-step`` or ``composite``), ``general`` and
+        ``independent-proposals`` (the
         reference's ``"xla-step+general+independent-proposals"``).  With
         replica exchange, ``replica-exchange@<period>`` last.
         """
@@ -343,7 +347,7 @@ class Sampler:
                 self._state, self._generator, chain_fn,
                 lambda st: self._record(st, thin_by), launch,
             )
-            self._container.save_sampled_traces(traces)
+            self._container.save_sampled_traces(traces, thinned_by=thin_by)
             done += launch
             since_aux += launch
             if has_aux and (done >= nsamples or (

@@ -10,8 +10,11 @@ which keeps each sublattice's site space and so its species), as the
 reference's processors build their default sublattices.  A built
 sublattice is serialized as the reference's is (``as_dict``/``from_dict``,
 ``smol_tpu/moca/sublattice.py:178-194``), so that either package's saved
-ensemble loads into the port.  Restricting and splitting sites waits for
-ROADMAP.md Queue 1 item 5(c).
+ensemble loads into the port.  Restricting (freezing) sites and splitting
+a sublattice by its occupied species are the reference's
+(``smol_tpu/moca/sublattice.py:66-125``): a frozen site keeps its code, and
+the hand-written chains refuse such sublattices, so kernels over them run
+on the per-step path (:mod:`smol_tpu_torch.ops.mc`).
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from smol_tpu_torch.cofe.space.domain import SiteSpace, Vacancy
+from smol_tpu_torch.crystal.species import Composition
 from smol_tpu_torch.serial import MSONable, process_decoded
 
 __all__ = ["Sublattice", "sublattices_from_site_spaces", "sublattices_from_system"]
@@ -54,15 +59,82 @@ class Sublattice(MSONable):
         return np.setdiff1d(self.sites, self.active_sites)
 
     def restrict_sites(self, sites):
-        """Freeze sites: not ported (the chains refuse restricted sites)."""
-        raise NotImplementedError(
-            "restricting sublattice sites is not ported yet (ROADMAP.md Queue 1 "
-            "item 5(c)); the chains take no restricted site (item 6)")
+        """Freeze the given sites (no MC step may touch them)."""
+        self.active_sites = np.array(
+            [i for i in self.active_sites if i not in sites], dtype=np.int64
+        )
 
-    def split_by_species(self, occu, species_in_partitions):
-        """Split by occupied species: not ported."""
-        raise NotImplementedError(
-            "splitting sublattices is not ported yet (ROADMAP.md Queue 1 item 5(c))")
+    def reset_restricted_sites(self):
+        """Reactivate all sites (no-op for single-species sublattices)."""
+        n_species = len(self.encoding) if self.site_space is None else len(self.site_space)
+        if n_species > 1:
+            self.active_sites = self.sites.copy()
+
+    def split_by_species(self, occu, species_in_partitions) -> list["Sublattice"]:
+        """Split into sublattices by the species ``occu`` puts on the sites.
+
+        ``species_in_partitions`` lists each part's species (or their
+        codes); a part of one species is restricted whole.  The
+        reference's (``smol_tpu/moca/sublattice.py:75-125``); a sublattice
+        read from a system file carries no species and raises
+        ``ValueError``.
+        """
+        if self.site_space is None:
+            raise ValueError(
+                "this sublattice carries no species: it was read from a system "
+                "file; build the ensemble with Ensemble.from_cluster_expansion")
+        occu = np.asarray(occu)
+        if all(
+            isinstance(sp, (int, np.integer))
+            for part in species_in_partitions
+            for sp in part
+        ):
+            codes_in_partitions = species_in_partitions
+        else:
+            def get_index(sp, species):
+                if isinstance(sp, Vacancy):
+                    for i, sp2 in enumerate(species):
+                        if isinstance(sp2, Vacancy):
+                            return i
+                return species.index(sp)
+
+            codes_in_partitions = [
+                [self.encoding[get_index(sp, self.species)] for sp in part]
+                for part in species_in_partitions
+            ]
+
+        parts = []
+        for species_codes in codes_in_partitions:
+            part_comp, part_sites, part_actives = {}, [], []
+            part_codes = sorted(species_codes)
+            for code in part_codes:
+                sp_id = int(np.where(self.encoding == code)[0][0])
+                sp = self.species[sp_id]
+                part_comp[sp] = self.site_space[sp]
+                part_sites.extend(self.sites[occu[self.sites] == code].tolist())
+                part_actives.extend(
+                    self.active_sites[occu[self.active_sites] == code].tolist()
+                )
+            total = sum(part_comp.values())
+            part_comp = Composition(
+                {
+                    sp: amt / total
+                    for sp, amt in part_comp.items()
+                    if not isinstance(sp, Vacancy)
+                }
+            )
+            space = SiteSpace(part_comp)
+            part = Sublattice(
+                sites=np.unique(np.array(part_sites, dtype=np.int64)),
+                active_sites=np.array(part_actives, dtype=np.int64),
+                encoding=np.array(part_codes, dtype=np.int32),
+                composition=_fractions(space),
+                site_space=space,
+            )
+            if len(part_codes) == 1:
+                part.restrict_sites(part.sites)
+            parts.append(part)
+        return parts
 
     def __eq__(self, other):
         return (
@@ -74,13 +146,12 @@ class Sublattice(MSONable):
         )
 
     def as_dict(self) -> dict:
-        """The reference's record of a built sublattice."""
-        if self.site_space is None:
-            raise ValueError("a sublattice read from a system file has no site space")
+        """The reference's record of a built sublattice (one read from a
+        system file records ``site_space`` None, and only the port loads it)."""
         return {
             "@module": type(self).__module__,
             "@class": type(self).__name__,
-            "site_space": self.site_space.as_dict(),
+            "site_space": None if self.site_space is None else self.site_space.as_dict(),
             "sites": self.sites.tolist(),
             "active_sites": self.active_sites.tolist(),
             "encoding": self.encoding.tolist(),
@@ -88,12 +159,12 @@ class Sublattice(MSONable):
 
     @classmethod
     def from_dict(cls, d):
-        space = process_decoded(d["site_space"])
+        space = None if d["site_space"] is None else process_decoded(d["site_space"])
         return cls(
             sites=np.unique(np.asarray(d["sites"], dtype=np.int64)),
             active_sites=np.asarray(d["active_sites"], dtype=np.int64),
             encoding=np.asarray(d["encoding"], dtype=np.int32),
-            composition=_fractions(space),
+            composition=None if space is None else _fractions(space),
             site_space=space,
         )
 

@@ -94,6 +94,7 @@ __all__ = [
     "ising_tables",
     "build_chain_tables",
     "chain_refusal",
+    "table_move_refusal",
     "fold_ewald",
     "rank_sequence",
     "rank_pair_sequence",
@@ -499,9 +500,14 @@ def _rank_layout(ce, ewald, sublattices):
     active = [s for s in sublattices if s.is_active]
     if not active:
         raise NotImplementedError("no active sublattice: nothing to flip")
-    for s in active:
+    # every sublattice's, frozen ones too: the tables read a frozen site's
+    # single code as code 0, so the part of a split sublattice that keeps
+    # only code c > 0 would sum the wrong clusters (the reference checks
+    # the active sublattices only, pallas_chain.py:879-883)
+    for s in sublattices:
         if not np.array_equal(s.encoding, np.arange(len(s.encoding))):
             raise NotImplementedError("non-default sublattice encodings")
+    for s in active:
         if len(s.active_sites) != len(s.sites):
             raise NotImplementedError("sublattices with restricted sites")
     if ewald is not None and any(len(s.encoding) != 2 for s in active):
@@ -786,33 +792,23 @@ def make_table_move(tables, n_dirs, k_max, swap_weight, from_code, to_code,
     )
 
 
-def build_table_move(tables: ChainTables, usher) -> TableMove:
-    """Expand a TableFlip usher's flip table into the chain's TableMove.
+class _TableRefusal(Exception):
+    """Why the table chain cannot take an usher."""
 
-    Counterpart of ``pallas_chain.py:1233-1325``, with the same arrays.
-    Where the chain cannot honour the usher exactly (direction-asymmetric
-    flip weights, which break the proposal's symmetry; a flip vector that
-    touches an inactive sublattice or changes a sublattice's site count; a
-    direction of more than ``MAX_TABLE_SLOTS`` recolorings) the reference
-    falls back to its per-step TableFlip; the port has none yet and raises
-    ``NotImplementedError``.
-    """
 
-    def refuse(why):
-        return NotImplementedError(
-            f"the table chain cannot take this usher ({why}), and the "
-            "per-step TableFlip is not ported yet (ROADMAP.md Queue 1 item 6)"
-        )
-
+def _table_slots(usher):
+    """(flip weights [2F], per direction its (active sublattice, from code,
+    to code) slots, k_max) of a TableFlip usher, or :class:`_TableRefusal`
+    where the chain cannot honour it (``pallas_chain.py:1233-1290``)."""
     flip_table = np.asarray(usher.flip_table, dtype=np.int64)  # [F, D]
     if flip_table.size == 0:
-        raise refuse("its flip table is empty")
+        raise _TableRefusal("its flip table is empty")
     weights = np.asarray(usher.flip_weights, dtype=np.float64)  # [2F]
     pairs = weights.reshape(-1, 2)
     if not np.allclose(pairs[:, 0], pairs[:, 1]):
-        raise refuse("direction-asymmetric flip weights")
+        raise _TableRefusal("direction-asymmetric flip weights")
     if weights.sum() <= 0:
-        raise refuse("its flip weights sum to zero")
+        raise _TableRefusal("its flip weights sum to zero")
 
     # each dimension -> (active sublattice index, code); the active
     # sublattices in the order of the tables' rank layout
@@ -832,7 +828,7 @@ def build_table_move(tables: ChainTables, usher) -> TableMove:
     slots = []  # per direction: (active sublattice, from code, to code) each
     for u in directions:
         if np.any((u != 0) & (dim_sub < 0)):
-            raise refuse("a flip vector touches an inactive sublattice")
+            raise _TableRefusal("a flip vector touches an inactive sublattice")
         dir_slots = []
         for sub in range(n_active):
             removed, added = [], []
@@ -840,17 +836,49 @@ def build_table_move(tables: ChainTables, usher) -> TableMove:
                 target = removed if u[dim] < 0 else added
                 target.extend([int(dim_code[dim])] * int(abs(u[dim])))
             if len(removed) != len(added):
-                raise refuse("a flip vector changes a sublattice's site count")
+                raise _TableRefusal("a flip vector changes a sublattice's site count")
             dir_slots.extend((sub, fc, tc) for fc, tc in zip(removed, added))
         if not dir_slots:
-            raise refuse("a flip vector changes nothing")
+            raise _TableRefusal("a flip vector changes nothing")
         slots.append(dir_slots)
 
-    n_dirs = len(directions)
     k_max = max(2, max(len(dir_slots) for dir_slots in slots))
     if k_max > MAX_TABLE_SLOTS:
-        raise refuse(f"a direction of {k_max} > {MAX_TABLE_SLOTS} recolorings")
+        raise _TableRefusal(f"a direction of {k_max} > {MAX_TABLE_SLOTS} recolorings")
+    return weights, slots, k_max
 
+
+def table_move_refusal(usher):
+    """Why the table chain cannot take a TableFlip usher, or None where it
+    can (the reference's ``build_table_move`` returns None on the same
+    ushers); a kernel with such an usher takes the per-step TableFlip."""
+    try:
+        _table_slots(usher)
+    except _TableRefusal as why:
+        return f"the table chain cannot take this usher ({why})"
+    return None
+
+
+def build_table_move(tables: ChainTables, usher) -> TableMove:
+    """Expand a TableFlip usher's flip table into the chain's TableMove.
+
+    Counterpart of ``pallas_chain.py:1233-1325``, with the same arrays.
+    Where the chain cannot honour the usher exactly (direction-asymmetric
+    flip weights, which break the proposal's symmetry; a flip vector that
+    touches an inactive sublattice or changes a sublattice's site count; a
+    direction of more than ``MAX_TABLE_SLOTS`` recolorings;
+    :func:`table_move_refusal`) the reference returns None and its kernel
+    takes its per-step TableFlip; here the kernel decides that from its
+    configuration before it builds a chain, and this raises
+    ``NotImplementedError``.
+    """
+    try:
+        weights, slots, k_max = _table_slots(usher)
+    except _TableRefusal as why:
+        raise NotImplementedError(
+            f"the table chain cannot take this usher ({why}); a kernel with it "
+            "takes the per-step TableFlip") from None
+    n_dirs = len(slots)
     rows = n_dirs + 2  # + the swap row and the null row
     from_code = -np.ones((rows, k_max), dtype=np.int32)
     to_code = -np.ones((rows, k_max), dtype=np.int32)

@@ -11,12 +11,14 @@ thinning window.
 - :func:`sublattice_tables`: the active sublattices as padded tensors.
 - proposals, ``propose(occu [W, N], generator) -> (sites [W, S],
   codes [W, S], valid [W, S], log_priori)``: :func:`flip_proposal`,
-  :func:`swap_proposal`, :func:`multistep_proposal` and
-  :func:`composite_proposal` (bind their tables with ``functools.partial``).
+  :func:`swap_proposal`, :func:`multistep_proposal`,
+  :func:`composite_proposal` and :func:`table_flip_proposal` (bind their
+  tables with ``functools.partial``), and the table flip's a-priori factor
+  :func:`table_flip_log_priori`.
 - :func:`make_step_applier`: the S flips applied in sequence against the
   evolving occupancy, with the enthalpy change (and the feature change).
-- :func:`make_metropolis_step`, :func:`make_uniform_step`: the kernels'
-  steps over the walker state.
+- :func:`make_metropolis_step`, :func:`make_uniform_step`,
+  :func:`make_wang_landau_step`: the kernels' steps over the walker state.
 - :func:`run_chain` (the per-step path, windows of :func:`step_window`)
   and :func:`run_chain_fused` (the hand-written chains, one call a
   window): windows and their records.
@@ -40,10 +42,14 @@ __all__ = [
     "swap_proposal",
     "multistep_proposal",
     "composite_proposal",
+    "TableFlipTables",
+    "table_flip_proposal",
+    "table_flip_log_priori",
     "apply_flips",
     "make_step_applier",
     "make_metropolis_step",
     "make_uniform_step",
+    "make_wang_landau_step",
     "step_window",
     "run_chain",
     "run_chain_fused",
@@ -237,6 +243,158 @@ def composite_proposal(proposals, width, cum_probs, occu, generator):
     return sites, codes, valid, log_priori
 
 
+class TableFlipTables(NamedTuple):
+    """A TableFlip usher's tables for the per-step proposal and its a-priori
+    factor (:func:`table_flip_proposal`, :func:`table_flip_log_priori`)."""
+
+    directions: torch.Tensor  # [2F, D] int64 signed flip vectors: u, -u per row
+    weights: torch.Tensor  # [2F] f64 weight of each signed direction
+    max_n: torch.Tensor  # [D] int64 active sites of each dimension's sublattice
+    dims_table: torch.Tensor  # [N, C] int64 dimension of (site, code), -1 off the active sites
+    act_sites: torch.Tensor  # [A] int64 active sites of the active sublattices, in order
+    act_dims: torch.Tensor  # [A, C] int64 dims_table's rows of the active sites
+    dim_block: torch.Tensor  # [D] int64 sublattice of each dimension (-1 inactive)
+    code_of_dim: torch.Tensor  # [D] int64 the code each dimension counts
+    width: int  # slots of a proposal: the most sites a direction removes (at least 2)
+    swap_weight: float  # probability of a canonical swap instead
+
+    def to(self, device) -> "TableFlipTables":
+        return TableFlipTables(*(t.to(device) if torch.is_tensor(t) else t for t in self))
+
+
+def _sorted_by(keys, ties):
+    """Per row, the indices ordering ``keys`` [W, K] ascending, equal keys by
+    ``ties`` [W, K], equal ties by index (two stable sorts)."""
+    by_ties = torch.argsort(ties, dim=1, stable=True)
+    return by_ties.gather(1, torch.argsort(keys.gather(1, by_ties), dim=1, stable=True))
+
+
+def _dim_counts(dims, n_dims):
+    """[W, n_dims] int64 count of each dimension in ``dims`` [W, K] (-1 is
+    counted nowhere)."""
+    counts = torch.zeros((dims.shape[0], n_dims + 1), dtype=torch.int64, device=dims.device)
+    return counts.scatter_add_(1, dims + 1, torch.ones_like(dims))[:, 1:]
+
+
+def _feasible_weights(tables: TableFlipTables, counts):
+    """[W, 2F] the direction weights, zero where a direction would take a
+    count below 0 or above its sublattice's active sites."""
+    after = counts[:, None, :] + tables.directions[None]
+    feasible = ~((after < 0).any(dim=2) | (after > tables.max_n).any(dim=2))
+    return tables.weights * feasible
+
+
+def table_flip_proposal(tables: TableFlipTables, swap, occu, generator):
+    """A charge-neutral table flip (the TableFlip usher's per-step move,
+    ``smol_tpu/moca/kernel/tableflip.py:241-408``).
+
+    A signed direction by its weight among those the walker's species
+    counts allow; the sites it removes, uniform without replacement in each
+    dimension (each active site ranked within its dimension by a uniform
+    key, ties by position); the removed sites shuffled within their
+    sublattice (ranked by a second uniform key) and dealt to the
+    dimensions that gain, in dimension order.  With probability
+    ``swap_weight``, or where no direction is allowed, the walker takes
+    the canonical swap ``swap(occu, generator)`` instead.  Slots past the
+    removals are invalid; the step is ``tables.width`` slots wide.
+    """
+    W, device = occu.shape[0], occu.device
+    n_dirs, D = tables.directions.shape
+    A, width = tables.act_sites.shape[0], tables.width
+    u = _uniforms(occu, generator, 2)  # the swap draw, the direction draw
+    r1 = _uniforms(occu, generator, A)
+    r2 = _uniforms(occu, generator, width)
+    s_sites, s_codes, s_valid, _ = swap(occu, generator)
+
+    occ_act = occu[:, tables.act_sites].long()
+    d_act = tables.act_dims[torch.arange(A, device=device)[None, :], occ_act]  # [W, A]
+    counts = _dim_counts(d_act, D)
+    w = _feasible_weights(tables, counts)
+    total = w.sum(dim=1)
+    any_flip = total > 0
+    cdf = w.cumsum(dim=1) / torch.where(any_flip, total, 1.0)[:, None]
+    idx = torch.searchsorted(cdf, u[:, 1:2].contiguous(), right=True)[:, 0]
+    u_vec = tables.directions[idx.clamp(max=n_dirs - 1)]  # [W, D]
+
+    # removal: the first kneg[d] sites of dimension d by the key r1
+    kneg = (-u_vec).clamp(min=0)
+    kneg_c = kneg.cumsum(dim=1)
+    order = _sorted_by(d_act, r1)  # by dimension, then r1, then position
+    d_sorted = d_act.gather(1, order)
+    d_index = d_sorted.clamp(min=0)
+    first = (d_act < 0).sum(dim=1, keepdim=True) + counts.cumsum(dim=1) - counts
+    rank = torch.arange(A, device=device)[None, :] - first.gather(1, d_index)
+    pick = (d_sorted >= 0) & (rank < kneg.gather(1, d_index))
+    slot = torch.where(pick, (kneg_c - kneg).gather(1, d_index) + rank, width)
+    removed = torch.zeros((W, width + 1), dtype=torch.int64, device=device)
+    removed = removed.scatter(1, slot, tables.act_sites[order])[:, :width]
+    n_removed = kneg_c[:, -1:]
+
+    # assignment: shuffle the removed sites within their sublattice, deal
+    iota_w = torch.arange(width, device=device)
+    filled = iota_w[None, :] < n_removed
+    slot_dim = (iota_w[None, :, None] >= kneg_c[:, None, :]).sum(dim=2).clamp(max=D - 1)
+    block = torch.where(filled, tables.dim_block[slot_dim], D)  # the unfilled last
+    sites = torch.where(filled, removed.gather(1, _sorted_by(block, r2)), 0)
+    kpos_c = u_vec.clamp(min=0).cumsum(dim=1)
+    dest_dim = (iota_w[None, :, None] >= kpos_c[:, None, :]).sum(dim=2).clamp(max=D - 1)
+    codes = tables.code_of_dim[dest_dim]
+    valid = filled & any_flip[:, None]
+
+    use_swap = ((u[:, 0] < tables.swap_weight) | ~any_flip)[:, None]
+
+    def padded(x):
+        return torch.cat([x, x.new_zeros((W, width - x.shape[1]))], dim=1)
+
+    sites = torch.where(use_swap, padded(s_sites), sites)
+    codes = torch.where(use_swap, padded(s_codes), codes)
+    valid = torch.where(use_swap, padded(s_valid), valid)
+    return sites, codes, valid, 0.0
+
+
+def table_flip_log_priori(tables: TableFlipTables, occu, sites, codes, valid):
+    """[W] f64 log a-priori factor of table-flip steps (the TableFlip usher's
+    ``device_log_priori``, ``smol_tpu/moca/kernel/tableflip.py:410-508``):
+    log of the reverse direction's probability after the step over the
+    forward one's before it, plus sum over the changed dimensions of
+    lgamma(n + 1) - lgamma(n' + 1); 0 for a step that changes no count (a
+    swap)."""
+    dt = tables.dims_table
+    N, C = dt.shape
+    D = tables.directions.shape[1]
+    device = occu.device
+    iota_d = torch.arange(D, device=device)
+
+    def dims_of(s, c):
+        return dt[s, c.long().clamp(max=C - 1)]
+
+    def onehot(dims):
+        return (dims[..., None] == iota_d).to(torch.float64)
+
+    old = dims_of(sites, occu.gather(1, sites))
+    new = dims_of(sites, codes)
+    dn = torch.where(valid[..., None], onehot(new) - onehot(old), 0.0).sum(dim=1)  # [W, D]
+    is_swap = (dn == 0).all(dim=1)
+    match = (tables.directions.to(torch.float64)[None] == dn[:, None, :]).all(dim=2)
+    forward = match.to(torch.uint8).argmax(dim=1)
+    reverse = forward ^ 1  # the other sign of the same flip vector
+
+    occ = occu.long()
+    dims = torch.where(occ < C, dt[torch.arange(N, device=device)[None, :],
+                                   occ.clamp(max=C - 1)], -1)
+    counts = _dim_counts(dims, D)
+    n_next = counts + dn.long()
+    n_now_f, n_next_f = counts.to(torch.float64), n_next.to(torch.float64)
+    w_now = _feasible_weights(tables, counts)
+    w_next = _feasible_weights(tables, n_next)
+    p_now = _column(w_now, forward) / w_now.sum(dim=1)
+    p_next = _column(w_next, reverse) / w_next.sum(dim=1)
+    log_factor = torch.log(p_next / p_now)
+    log_factor = log_factor + torch.where(
+        dn != 0, torch.lgamma(n_now_f + 1.0) - torch.lgamma(n_next_f + 1.0), 0.0).sum(dim=1)
+    return torch.where(is_swap, 0.0, log_factor)
+
+
 # ---------------------------------------------------------------------------
 # step application: sequential flips + enthalpy / feature deltas
 # ---------------------------------------------------------------------------
@@ -297,6 +455,14 @@ def _update(state, accept, occu_new, dh, dfeat):
     return state
 
 
+def _accept_metropolis(generator, exponent):
+    """[W] bool: exponent >= 0, or exponent > log u for a uniform u in [0, 1)
+    f64 of each walker (``smol_tpu/ops/mc.py:426-428``)."""
+    u = torch.rand(exponent.shape[0], generator=generator, dtype=torch.float64,
+                   device=exponent.device)
+    return (exponent >= 0) | (exponent > torch.log(u))
+
+
 def make_metropolis_step(propose_fn, apply_fn, log_priori_fn=None):
     """Metropolis-Hastings step ``step(state, generator) -> state``.
 
@@ -314,9 +480,7 @@ def make_metropolis_step(propose_fn, apply_fn, log_priori_fn=None):
             log_priori = log_priori + log_priori_fn(occu, sites, codes, valid)
         occu_new, dh, dfeat = apply_fn(occu, sites, codes, valid)
         exponent = -state["beta"] * dh + log_priori
-        u = torch.rand(occu.shape[0], generator=generator, dtype=torch.float64,
-                       device=occu.device)
-        accept = (exponent >= 0) | (exponent > torch.log(u))
+        accept = _accept_metropolis(generator, exponent)
         if "nmove" in state:
             state["nmove"] = state["nmove"] + valid.any(dim=1).to(torch.int32)
         return _update(state, accept, occu_new, dh, dfeat)
@@ -334,6 +498,92 @@ def make_uniform_step(propose_fn, apply_fn):
         occu_new, dh, dfeat = apply_fn(occu, sites, codes, valid)
         accept = torch.ones(occu.shape[0], dtype=torch.bool, device=occu.device)
         return _update(state, accept, occu_new, dh, dfeat)
+
+    return step
+
+
+def make_wang_landau_step(propose_fn, apply_fn, min_enthalpy: float, bin_size: float,
+                          flatness: float = 0.8, check_period: int = 1000,
+                          update_period: int = 1, mod_divisor: float = 2.0,
+                          log_priori_fn=None):
+    """Wang-Landau step ``step(state, generator) -> state`` (the reference's
+    ``_wl_step``, ``smol_tpu/ops/mc.py:528-655``).
+
+    State entries besides the Metropolis step's (no ``beta``): ``features``
+    [W, F] f64, ``entropy`` [W, L] f64, ``histogram`` and ``occurrences``
+    [W, L] int32, ``mean_features`` [W, L, F] f64, ``mod_factor`` [W] f64
+    and ``wl_counter`` [W] int32, the walker's steps in the window.  A move
+    that leaves the window [min, min + L bin) is rejected; inside, it is
+    accepted as Metropolis with the exponent S(now) - S(next) plus the
+    proposal's log a-priori factor (and ``log_priori_fn``'s, the usher's,
+    where given).  Then, at the walker's bin where it is in the window: the
+    counter counts the step, the bin's mean features take in the features
+    with ``occurrences`` as their count, every ``update_period`` counted
+    steps the entropy gains ``mod_factor`` and the histogram and
+    occurrences one, and every ``check_period`` counted steps a histogram
+    whose visited bins all exceed ``flatness`` times their mean is reset and
+    ``mod_factor`` divided by ``mod_divisor``.  The planes are updated in
+    place, by gathers and scatters at each walker's bin.
+    """
+
+    def bin_of(e):
+        return torch.floor((e - min_enthalpy) / e.new_tensor(bin_size)).long()
+
+    def step(state, generator):
+        occu, enthalpy, features = state["occupancy"], state["enthalpy"], state["features"]
+        entropy, histogram = state["entropy"], state["histogram"]
+        occurrences, mean = state["occurrences"], state["mean_features"]
+        mod_factor = state["mod_factor"]
+        num_levels = entropy.shape[1]
+        max_enthalpy = min_enthalpy + num_levels * bin_size
+
+        sites, codes, valid, log_priori = propose_fn(occu, generator)
+        if log_priori_fn is not None:
+            log_priori = log_priori + log_priori_fn(occu, sites, codes, valid)
+        occu_new, dh, dfeat = apply_fn(occu, sites, codes, valid)
+        new_enthalpy = enthalpy + dh
+        bin_id = bin_of(enthalpy).clamp(0, num_levels - 1)
+        new_bin = bin_of(new_enthalpy).clamp(0, num_levels - 1)
+        in_window = (new_enthalpy >= min_enthalpy) & (new_enthalpy < max_enthalpy)
+        exponent = _column(entropy, bin_id) - _column(entropy, new_bin) + log_priori
+        accept = in_window & _accept_metropolis(generator, exponent)
+
+        occu = torch.where(accept[:, None], occu_new, occu)
+        enthalpy = torch.where(accept, new_enthalpy, enthalpy)
+        features = torch.where(accept[:, None], features + dfeat, features)
+
+        # at the walker's bin after the step, where it is in the window
+        cur_bin = bin_of(enthalpy).clamp(0, num_levels - 1)
+        cur_valid = (enthalpy >= min_enthalpy) & (enthalpy < max_enthalpy)
+        counter = state["wl_counter"] + cur_valid.to(torch.int32)
+        cell = cur_bin[:, None]
+        total = occurrences.gather(1, cell).to(torch.float64)  # [W, 1]
+        cur_mean = mean.gather(1, cell[:, :, None].expand(-1, 1, mean.shape[2]))[:, 0]
+        new_mean = (features + total * cur_mean) / (total + 1)
+        mean[torch.arange(len(cur_bin), device=cur_bin.device), cur_bin] = torch.where(
+            cur_valid[:, None], new_mean, cur_mean)
+        update = cur_valid & (counter % update_period == 0)
+        entropy.scatter_add_(1, cell, torch.where(update, mod_factor, 0.0)[:, None])
+        histogram.scatter_add_(1, cell, update.to(histogram.dtype)[:, None])
+        occurrences.scatter_add_(1, cell, update.to(occurrences.dtype)[:, None])
+
+        # the flatness check, every check_period counted steps
+        check = cur_valid & (counter % check_period == 0)
+        visited = entropy > 0
+        nvisited = visited.sum(dim=1)
+        hmean = (torch.where(visited, histogram, 0).sum(dim=1).to(torch.float64)
+                 / nvisited.clamp(min=1))
+        flat = (nvisited >= 2) & torch.where(
+            visited, histogram > flatness * hmean[:, None], True).all(dim=1)
+        reset = check & flat
+        histogram.masked_fill_(reset[:, None], 0)
+
+        state["occupancy"], state["enthalpy"], state["features"] = occu, enthalpy, features
+        state["mod_factor"] = torch.where(reset, mod_factor / mod_divisor, mod_factor)
+        state["wl_counter"] = counter
+        state["accepted"] = accept
+        state["naccept"] = state["naccept"] + accept.to(torch.int32)
+        return state
 
     return step
 

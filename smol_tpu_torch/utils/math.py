@@ -3,7 +3,8 @@
 Counterpart of ``smol_tpu/utils/math.py``, whose code it copies, the part
 that ``moca/composition/space.py`` and the supercell enumeration
 (``capp/generate/enumerate.py``) need: without ``flip_weights_mask`` and
-``choose_section_from_partition`` (ROADMAP.md Queue 1 item 5(c)). In
+``choose_section_from_partition``, which only the host single-walker
+``TableFlip`` takes (ROADMAP.md Queue 1 item 6). In
 this module "the reference" is smol (CederGroupHub/smol).
 
 Covers the reference's math utilities (smol/utils/math.py) with the optional

@@ -412,9 +412,20 @@ def test_built_table_twin_matches_interpret_reference(cell, W, n_steps, monkeypa
 
 
 def test_restricting_and_splitting_sites_name_their_item(spinel_pair):
-    _, port = spinel_pair
+    """Restricting and splitting the built spinel's sublattices, as the
+    reference's (held to smol_tpu's in ``tests/test_torch_restricted.py``)."""
+    ref, port = spinel_pair
     sublattice = port.processor.get_sublattices()[0]
-    with pytest.raises(NotImplementedError, match=r"5\(c\)"):
-        sublattice.restrict_sites(sublattice.sites[:2])
-    with pytest.raises(NotImplementedError, match=r"5\(c\)"):
-        sublattice.split_by_species(np.zeros(port.num_sites, dtype=int), [[0], [1]])
+    theirs = ref.processor.get_sublattices()[0]
+    for sl in (sublattice, theirs):
+        sl.restrict_sites(sublattice.sites[:2])
+    np.testing.assert_array_equal(sublattice.active_sites, theirs.active_sites)
+    assert len(sublattice.restricted_sites) == 2
+    occu = np.zeros(port.num_sites, dtype=int)
+    occu[sublattice.sites[::2]] = 1
+    parts = sublattice.split_by_species(occu, [[0], [1]])
+    for mine, other in zip(parts, theirs.split_by_species(occu, [[0], [1]])):
+        np.testing.assert_array_equal(mine.sites, other.sites)
+        np.testing.assert_array_equal(mine.active_sites, other.active_sites)
+        np.testing.assert_array_equal(mine.encoding, other.encoding)
+        assert not mine.is_active  # a part of one species is frozen whole

@@ -218,8 +218,9 @@ def test_ensemble_json_round_trips_both_ways(fcc, mus):
 
 def test_reference_properties_and_refusals(spinel):
     """``system_size``, ``active_sublattices``, ``restricted_sites`` and
-    ``species`` as the reference's; other sublattices than the processor's
-    defaults, and restricting sites, wait for item 5(c)."""
+    ``species`` as the reference's; so are other sublattices than the
+    processor's defaults, in the constructor and through
+    ``from_cluster_expansion``, and restricting sites."""
     mine, theirs, ce = spinel
     assert mine.system_size == theirs.system_size == 8
     assert len(mine.active_sublattices) == len(theirs.active_sublattices)
@@ -228,13 +229,23 @@ def test_reference_properties_and_refusals(spinel):
     np.testing.assert_array_equal(mine.restricted_sites, theirs.restricted_sites)
     assert sorted(map(str, mine.species)) == sorted(map(str, theirs.species))
     assert mine.num_energy_coefs == theirs.num_energy_coefs
-    with pytest.raises(NotImplementedError, match=r"5\(c\)"):
-        Ensemble(mine.processor, mine.sublattices[:1])
-    with pytest.raises(NotImplementedError, match=r"5\(c\)"):
-        Ensemble.from_cluster_expansion(ce, np.diag([2, 2, 2]), device="cpu",
-                                        sublattices=mine.sublattices[1:])
-    with pytest.raises(NotImplementedError, match=r"5\(c\)"):
-        mine.restrict_sites([0])
+    from smol_tpu.moca import Ensemble as RefEnsemble
+
+    subset = Ensemble(mine.processor, mine.sublattices[:1])
+    ref_subset = RefEnsemble(theirs.processor, theirs.sublattices[:1])
+    assert len(subset.sublattices) == len(ref_subset.sublattices) == 1
+    np.testing.assert_array_equal(subset.sublattices[0].sites, ref_subset.sublattices[0].sites)
+    built = Ensemble.from_cluster_expansion(ce, np.diag([2, 2, 2]), device="cpu",
+                                            sublattices=mine.sublattices[1:])
+    assert built.sublattices == mine.sublattices[1:]
+    pinned = [int(mine.active_sublattices[0].sites[0])]
+    for ensemble in (mine, theirs):
+        ensemble.restrict_sites(pinned)
+    np.testing.assert_array_equal(mine.restricted_sites, theirs.restricted_sites)
+    assert pinned[0] in mine.restricted_sites
+    for ensemble in (mine, theirs):
+        ensemble.reset_restricted_sites()
+    np.testing.assert_array_equal(mine.restricted_sites, theirs.restricted_sites)
 
 
 def test_file_ensemble_keeps_its_table_and_refuses_species():

@@ -165,8 +165,9 @@ def test_table_move_guards_raise_where_reference_falls_back(guard):
         ref_tables, TableFlip(ref.sublattices, **GUARDS[guard])) is None
     kernel = _port_kernel(port)
     mine = TorchTableFlip(port.sublattices, **{**port.table_data, **GUARDS[guard]})
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="table chain cannot take"):
         chain.build_table_move(kernel.chain_tables(), mine)
+    assert chain.table_move_refusal(mine).startswith("the table chain cannot take")
     with pytest.raises(ValueError, match="weights"):
         TorchTableFlip(port.sublattices, **port.table_data, flip_weights=[1.0] * 3)
 

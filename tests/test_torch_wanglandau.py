@@ -396,10 +396,10 @@ def test_refusals(nn):
     with pytest.raises(ValueError, match="flip/swap moves only"):
         chain.make_shared_proposal_chain(tables, 10, move="table", wl=wl,
                                          table_move=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        WangLandau(port, "flip", **window, bias_type="square-charge")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        WangLandau(port, "flip", **window, shared_proposals=False)
+    with pytest.raises(NotImplementedError, match="not implemented as a subclass of MCBias"):
+        WangLandau(port, "flip", **window, bias_type="square-charge")  # as the reference
+    # independent proposals take the per-step Wang-Landau
+    assert not WangLandau(port, "flip", **window, shared_proposals=False).runs_chain
     kernel = WangLandau(port, "flip", **window, shared_proposals=False,
                         proposal_mode="sweep")  # sweeps are independent anyway
     assert kernel.make_chain_fn(8) is not None
