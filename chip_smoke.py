@@ -294,6 +294,29 @@ printing its last line when any phase fails:
    these runs' containers against numpy over their records; the phase's
    wall time.  Counts set to 0 after the K5 run and read at the end: no
    kernel launched;
+4g. the SQS generator whole (``drive_sqs_generator``): ``sqs-fcc8-wide``
+   (Au-Cu FCC, pairs to 9, triplets to 6, quadruplets to 5 Angstrom, the
+   20 8-site shapes, 41 features) built here; K7's wide body (F > 32),
+   its rows packed in one word and unpacked, against its twin bit for bit
+   in both RNG modes on a 300-step launch of the 20 shapes at the main
+   path's lanes, packed on one shape at 1 and 16 lanes, then timed at the
+   main path's launch shape beside the twin and the bound, and the two row
+   layouts in turns; the search on bench ``sqs``'s schedule (2048 walkers
+   x 4 temperatures x 8000 steps: one wide launch a temperature, counts
+   set to 0 just before and read just after), each best equal to its exact
+   CPU rescore; ``sqs-ternary12-step`` (Au-Ag-Cu FCC, pairs to 7, triplets
+   to 5 Angstrom, 12 sites, 60 features, every shape over the reference's
+   8 MB table budget) on the per-step path, cut to its first
+   ``TERNARY_STEP_SHAPES`` shapes and ``TERNARY_STEP_TEMPERATURES`` x
+   ``TERNARY_STEP_STEPS`` at ``TERNARY_STEP_WALKERS`` walkers a shape:
+   path, attempts/s cold and the set-up share (a 0-step call), ms a step,
+   the idle share of a short profiled part, compositions, rescores; flip
+   steps and the cluster-interaction distance on four of bench ``sqs``'s
+   shapes per step; ``generator.sampler.run`` (the multicell sampler) on
+   ``sqs-fcc8-wide``: hops, features against exact, parity (e), ms a step;
+   the host ``Metropolis.single_step`` and Wang-Landau steps against exact
+   features (parity (e)); no distance launch on the per-step searches;
+   the time of each of its parts;
 5. times one 100-step window at 8192 walkers, kernel against twin, for
    each cell (every repetition on a copy of the same starting state, the
    one the bound is worked out for), the kernels also without their Ewald term
@@ -372,6 +395,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -383,6 +407,7 @@ from smol_tpu_torch.benchmarks.systems import (
     random_expansion,
     spinel_prim,
 )
+from smol_tpu_torch.capp.generate.enumerate import enumerate_supercell_matrices
 from smol_tpu_torch.capp.generate.random import generate_random_ordered_occupancy
 from smol_tpu_torch.capp.generate.special.sqs import StochasticSQSGenerator, random_starts
 from smol_tpu_torch.cofe import ClusterSubspace
@@ -453,6 +478,35 @@ SQS_SEED = 23
 SQS_BLOCK = 512  # the generator's sequence block
 SQS_WINDOW = 300  # phase 3's launches
 SQS_TWIN_STEPS = 2000  # the twin's part of the 64-site launch (its time sets it)
+# phase 4g: sqs-fcc8-wide, Au-Cu FCC with pairs to 9, triplets to 6
+# and quadruplets to 5 Angstrom at size 8 (20 shapes, F = 41: K7's wide
+# body), on bench sqs's schedule; its kernel-vs-twin launches take few
+# walkers (the twin's padded rows: W x F x P x TM doubles a step)
+WIDE_CELL = "sqs-fcc8-wide"
+WIDE_CUTOFFS = {2: 9.0, 3: 6.0, 4: 5.0}
+WIDE_SIZE = 8
+WIDE_TWIN_WALKERS = 32
+WIDE_TIMED_STEPS = 20  # the timed launch at the main path's shape, twin beside it
+WIDE_AB_STEPS = 500  # the packed word against unpacked rows, in turns
+WIDE_LANE_STEPS = 100  # one shape's launches at 1 and 16 lanes against the twin
+# sqs-ternary12-step: ternary Au-Ag-Cu FCC, pairs to 7 and triplets to 5
+# Angstrom at size 12 (41 shapes, F = 60): over the reference's 8 MB table
+# budget, so per step; cut to its first 4 shapes (every one of the 41 is
+# over the budget) and 2 temperatures x 200 steps, to stay in phase 4g's
+# time at about 4 ms a step of a shape
+TERNARY_STEP_CELL = "sqs-ternary12-step"
+TERNARY_STEP_CUTOFFS = {2: 7.0, 3: 5.0}
+TERNARY_STEP_SIZE = 12
+TERNARY_STEP_SHAPES = 4
+TERNARY_STEP_WALKERS = 256
+TERNARY_STEP_TEMPERATURES = (5.0, 0.02)
+TERNARY_STEP_STEPS = 200
+STEP_VARIANT_SHAPES = 4  # the fcc8 shapes of the flip and cluster-interaction searches
+STEP_VARIANT_STEPS = 30
+IDLE_STEPS = 10  # steps of the profiled part of the per-step search (one shape)
+MULTICELL_STEPS = 2000
+MULTICELL_THIN = 100
+HOST_STEPS = 500  # host single-walker steps of each run
 # bench.py's tempering config: 8192 replicas on Au-Cu FCC 3x3x3 with zero
 # chemical potentials (decomposition processor), a geometric ladder over
 # 300-3000 K, an exchange every 10 steps, starts default_rng(0).integers(0,
@@ -658,6 +712,10 @@ def kernel_label(line):
         args.append(f"K={k if k != '0' else 'runtime'}, FMAX={fmax}, "
                     f"packed={packed == '1'}, one_lane={one_lane == '1'}")
         return f"{name}<{', '.join(args)}>"
+    wide = re.search(r"distance_chain_wide_kernelILi(\d+)ELb([01])E", line)
+    if wide:
+        k, packed = wide.groups()
+        return f"{name}<K={k if k != '0' else 'runtime'}, packed={packed == '1'}>"
     ewald = re.search(r"Lb([01])E", line)
     if ewald:
         args.append(f"ewald={ewald.group(1) == '1'}")
@@ -677,9 +735,11 @@ def ptxas_summary(log):
     return lines
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of ``fn`` in ms over ``reps`` calls after a warm-up."""
-    fn()
+def cuda_ms(fn, reps, warm=True):
+    """Mean device time of ``fn`` in ms over ``reps`` calls after a warm-up
+    (``warm``)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -2709,14 +2769,16 @@ def distance_tables(proc):
     return sqs.build_distance_tables(proc)
 
 
-def distance_operands(proc, n_steps, beta, seed, occ_seed=7, seq_seed=17):
+def distance_operands(proc, n_steps, beta, seed, occ_seed=7, seq_seed=17,
+                      walkers=SQS_WALKERS):
     """Operands of one distance launch at the main path's shape: 2048 walkers
-    from the generator's starts (``random_starts``), blocks of 512."""
+    (or ``walkers``) from the generator's starts (``random_starts``),
+    blocks of 512."""
     tables = distance_tables(proc)
     occu = torch.as_tensor(
-        random_starts(proc, SQS_WALKERS, np.random.default_rng(occ_seed)), device=proc.device)
+        random_starts(proc, walkers, np.random.default_rng(occ_seed)), device=proc.device)
     gen = torch.Generator(device=proc.device).manual_seed(seq_seed)
-    beta = torch.full((SQS_WALKERS,), beta, dtype=torch.float64, device=proc.device)
+    beta = torch.full((walkers,), beta, dtype=torch.float64, device=proc.device)
     ops = sqs.distance_launch_operands(tables, proc.compute_corr, occu, beta, n_steps,
                                        SQS_BLOCK, gen)
     ops["seed"] = torch.tensor([seed], dtype=torch.int64, device=proc.device)
@@ -2736,8 +2798,14 @@ def compare_distance(label, proc, kernel, twin, start, n_steps, quiet=False):
     """Kernel against twin: every walker equal bit for bit; returns the
     largest score difference (0.0)."""
     for key in DISTANCE_STATE:
-        if key in kernel:
-            check(torch.equal(kernel[key], twin[key]), f"{label}: {key} differs from the twin's")
+        if key in kernel and not torch.equal(kernel[key], twin[key]):
+            diff = (kernel[key] != twin[key]).reshape(-1, kernel[key].shape[-1]).any(dim=0)
+            w = int(diff.nonzero()[0])
+            check(False, f"{label}: {key} differs from the twin's on {int(diff.sum())} walkers; "
+                         f"walker {w}: kernel {kernel[key][..., w].tolist()}, twin "
+                         f"{twin[key][..., w].tolist()}, start {start[key][..., w].tolist()}, "
+                         f"best_d kernel {float(kernel['best_d'][w])} twin "
+                         f"{float(twin['best_d'][w])} start {float(start['best_d'][w])}")
     tables = start["tables"]
     before = sqs_compositions(occupancy_of(start["occ"], tables), proc)
     for key in ("occ", "best_occ"):
@@ -2791,13 +2859,14 @@ def fresh_distance(ops):
     return {key: (v.clone() if key in DISTANCE_STATE else v) for key, v in ops.items()}
 
 
-def batched_operands(procs, n_steps, beta, seed):
+def batched_operands(procs, n_steps, beta, seed, walkers=SQS_WALKERS):
     """Operands of one batched launch over the shapes ``procs`` at the main
-    path's shape (2048 walkers each, blocks of 512; shape s from starts
-    ``occ_seed`` 7 + s, pairs ``seq_seed`` 17 + s, seed ``seed`` + s), and
-    each shape's own launch's operands."""
+    path's shape (2048 walkers each, or ``walkers``, blocks of 512; shape s
+    from starts ``occ_seed`` 7 + s, pairs ``seq_seed`` 17 + s, seed
+    ``seed`` + s), and each shape's own launch's operands."""
     shapes = [distance_operands(proc, n_steps, beta, seed + s, occ_seed=7 + s,
-                                seq_seed=17 + s) for s, proc in enumerate(procs)]
+                                seq_seed=17 + s, walkers=walkers)
+              for s, proc in enumerate(procs)]
     ops = {key: torch.stack([o[key] for o in shapes])
            for key in (*DISTANCE_STATE, "beta32", "useq", "vseq")}
     ops.update(seed=torch.cat([o["seed"] for o in shapes]), n_steps=n_steps,
@@ -3042,6 +3111,385 @@ def drive_sqs_cells(card):
     check(launches == expected, f"{launches} distance kernel launches, not {expected}")
     print(f"phase 4: distance_chain launches on the SQS main path: {launches}")
     return results, launches
+
+
+# ---------------- phase 4g: the SQS generator whole ----------------
+
+def wide_generator(device="cuda"):
+    """``sqs-fcc8-wide``: the 20 8-site Au-Cu FCC shapes of ``WIDE_CUTOFFS``,
+    built on this machine as a user builds them; (generator, host seconds)."""
+    t0 = time.perf_counter()
+    generator = StochasticSQSGenerator.from_structure(fcc_binary_prim(), WIDE_CUTOFFS,
+                                                      WIDE_SIZE, device=device)
+    torch.cuda.synchronize()
+    return generator, time.perf_counter() - t0
+
+
+def wide_kernel_vs_twin(procs):
+    """Phase 4g: K7's wide body (F > 32) against its twin, bit for bit on every
+    walker, in both RNG modes: one 300-step launch of the 20 shapes at the
+    main path's lanes (those of 20 x 2048 walkers), its rows packed in one
+    word (the default) and unpacked (``_Design(packed=False)``, the layout
+    of rows that do not pack: more than 4 slots, 256 ranks), each against
+    the one twin run; and one shape's ``WIDE_LANE_STEPS``-step launch at 1
+    and 16 lanes; at
+    ``WIDE_TWIN_WALKERS`` walkers a shape (the twin's padded rows take W x
+    F x P x TM doubles a step).  Returns the largest score difference
+    (0.0)."""
+    err = 0.0
+    F = distance_tables(procs[0]).num_feats
+    check(F > sqs.REGISTER_FEATURES, f"{WIDE_CELL} has {F} features")
+    for rng, seed in SEEDS:
+        ops, _ = batched_operands(procs, SQS_WINDOW, 2.0, seed, walkers=WIDE_TWIN_WALKERS)
+        batch = ops["batch"]
+        check(sqs.wide_launch(batch) and batch.meta4 is not None,
+              "the wide launch plan, rows packed")
+        lanes = sqs.launch_lanes(len(procs) * SQS_WALKERS, tables=batch)
+        t = fresh_distance(ops)
+        sqs.distance_chain_batched_reference(**t, rng=rng, lanes=lanes)
+        for layout, packed in (("packed", True), ("unpacked", False)):
+            k = fresh_distance(ops)
+            before = sqs.distance_chain.wide_launches
+            sqs.distance_chain_batched(**k, rng=rng,
+                                       _design=sqs._Design(lanes=lanes, packed=packed))
+            check(sqs.distance_chain.wide_launches == before + 1, "no wide launch")
+            for s, proc in enumerate(procs):
+                shape = {key: ops[key][s] for key in DISTANCE_STATE}
+                shape["tables"] = batch.shapes[s]
+                err = max(err, compare_distance(
+                    f"wide {rng}, {layout}, batched, shape {s}", proc,
+                    {key: k[key][s] for key in DISTANCE_STATE},
+                    {key: t[key][s] for key in DISTANCE_STATE}, shape, SQS_WINDOW, quiet=True))
+            print(f"phase 4g [K7 wide body, {WIDE_CELL}, {rng}, rows {layout}]: one "
+                  f"{SQS_WINDOW}-step launch of {len(procs)} shapes x {WIDE_TWIN_WALKERS} "
+                  f"walkers at {lanes} lanes, F = {F}: kernel == twin bit for bit on every "
+                  f"walker of every shape (occupancy, best occupancy, features, score, best "
+                  f"score, accepts), compositions kept, each score == its exact rescore "
+                  f"(< 1e-9)")
+        for one_lanes in (1, 16):
+            ops1 = distance_operands(procs[0], WIDE_LANE_STEPS, 2.0, seed,
+                                     walkers=2 * WIDE_TWIN_WALKERS)
+            k, t = fresh_distance(ops1), fresh_distance(ops1)
+            sqs.distance_chain(**k, rng=rng, _design=sqs._Design(lanes=one_lanes))
+            sqs.distance_chain_reference(**t, rng=rng, lanes=one_lanes)
+            err = max(err, compare_distance(f"K7 wide body, {WIDE_CELL} shape 0, {rng}, "
+                                            f"{WIDE_LANE_STEPS} steps, {one_lanes} lane(s)",
+                                            procs[0], k, t, ops1, WIDE_LANE_STEPS))
+    return err
+
+
+def wide_timed(procs, card, reps=2):
+    """Phase 4g: the wide body at the main path's launch shape (the 20 shapes x
+    2048 walkers, its lanes): its ``WIDE_TIMED_STEPS``-step launch against the
+    twin (bit for bit), its time, the twin's and the bound; the packed word
+    against unpacked rows in turns on a ``WIDE_AB_STEPS``-step launch; and
+    the kernel's 8000-step launch alone."""
+    beta, seed = 1.0 / SQS_TEMPERATURES[0], SEEDS[1][1]
+    ops, _ = batched_operands(procs, WIDE_TIMED_STEPS, beta, seed)
+    lanes = sqs.launch_lanes(len(procs) * SQS_WALKERS, tables=ops["batch"])
+    k, t = fresh_distance(ops), fresh_distance(ops)
+    sqs.distance_chain_batched(**k, rng="philox")
+    work = torch.zeros((len(procs), 2, SQS_WALKERS), dtype=torch.int64, device=k["d"].device)
+    start_ev = torch.cuda.Event(enable_timing=True)
+    end_ev = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start_ev.record()
+    sqs.distance_chain_batched_reference(**t, rng="philox", work=work)
+    end_ev.record()
+    torch.cuda.synchronize()
+    twin_ms = start_ev.elapsed_time(end_ev)
+    for key in DISTANCE_STATE:
+        check(torch.equal(k[key], t[key]), f"wide timed launch: {key} differs from the twin's")
+    kernel_ms = cuda_ms(same_batched_window(ops, reps), reps)
+    bound_ms, bound_by, nbytes, n_ops = distance_bound(ops, work)
+    ab_ops, _ = batched_operands(procs, WIDE_AB_STEPS, beta, seed)
+    ab = distance_in_turns(f"{WIDE_CELL}, {WIDE_AB_STEPS} steps, rows unpacked against packed",
+                           card, ab_ops, (sqs._Design(lanes=lanes, packed=False),
+                                          sqs._Design(lanes=lanes)), 1, batched=True,
+                           phase="4g")
+    main, _ = batched_operands(procs, SQS_STEPS, beta, seed)
+    main_ms = cuda_ms(same_batched_window(main, 1), 1, warm=False)  # the body ran above
+    attempts = len(procs) * SQS_WALKERS * SQS_STEPS
+    print(f"phase 4g [K7 wide body, {WIDE_CELL}] {card}: {WIDE_TIMED_STEPS}-step launch at "
+          f"{len(procs)} x {SQS_WALKERS} walkers ({lanes} lanes): kernel == twin bit for bit, "
+          f"kernel "
+          f"{kernel_ms:.4f} ms, twin {twin_ms:.2f} ms, bound {bound_ms * 1e3:.3f} us "
+          f"({bound_by}; {nbytes / 1e6:.3f} MB, {n_ops / 1e6:.1f} M f64 operations), "
+          f"kernel/bound {kernel_ms / bound_ms:.0f}x; the main path's {SQS_STEPS}-step "
+          f"launch {main_ms:.4f} ms ({main_ms * 1e3 / SQS_STEPS:.3f} us per step, "
+          f"{attempts / (main_ms * 1e-3) / 1e6:.1f} M attempts/s)")
+    return {"kernel_ms": kernel_ms, "twin_ms": twin_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "main_ms": main_ms, "unpacked_ms": ab["a"],
+            "packed_ms": ab["b"]}
+
+
+def drive_sqs_wide(card, generator, build_s):
+    """Phase 4g: ``sqs-fcc8-wide``'s search as a user calls it, bench ``sqs``'s
+    schedule, on K7's wide body: one launch a temperature for the 20 shapes;
+    each best equals its exact rescore.  Counts set to 0 just before, read
+    just after; returns (wide launches, rate)."""
+    procs = generator.processors
+    sqs.distance_chain.launches = sqs.distance_chain.wide_launches = 0
+    t0 = time.perf_counter()
+    generator.generate(mcmc_steps=SQS_STEPS, temperatures=SQS_TEMPERATURES,
+                       nwalkers=SQS_WALKERS, seed=SQS_SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, wide = sqs.distance_chain.launches, sqs.distance_chain.wide_launches
+    path = generator.execution_path
+    check(path == "cuda-distance-chain", f"{WIDE_CELL}: execution path {path}")
+    check(launches == wide == len(SQS_TEMPERATURES),
+          f"{WIDE_CELL}: {launches} launches, {wide} of the wide body")
+    rescore = sqs_rescore_error(generator)
+    best = generator.get_best_sqs(1, remove_duplicates=False)[0]
+    attempts = len(procs) * len(SQS_TEMPERATURES) * SQS_STEPS * SQS_WALKERS
+    F = distance_tables(procs[0]).num_feats
+    print(f"phase 4g [{WIDE_CELL}] {card}: {len(procs)} shapes of {WIDE_SIZE} sites, F = {F}, "
+          f"built here in {build_s:.4f} s (set-up); {len(SQS_TEMPERATURES)} temperatures x "
+          f"{SQS_STEPS} steps x {SQS_WALKERS} walkers, path {path}, {launches} launches "
+          f"(the wide body), {attempts / wall / 1e6:.3f} M attempts/s end to end "
+          f"({wall:.4f} s, cold), best score {best.score:.6f}, stored vs exact CPU rescore "
+          f"{rescore:.3e}")
+    return wide, attempts / wall
+
+
+def sqs_stage_checks(label, generator, keep_compositions=True):
+    """Every stage of a per-step search: compositions kept (swaps), each
+    stored best equal to its exact CPU rescore; returns that error."""
+    if keep_compositions:
+        for rec in generator.stage_records:
+            proc = generator.processors[rec["shape"]]
+            occu = rec["occupancy"]
+            target = torch.as_tensor([round(x * len(sl.sites)) for sl in proc.get_sublattices()
+                                      for x in sl.composition], device=occu.device)
+            check(bool((sqs_compositions(occu, proc) == target).all()),
+                  f"{label}: a walker's composition changed")
+    return sqs_rescore_error(generator)
+
+
+def first_shapes(prim, size, count):
+    """The first ``count`` supercell matrices of ``size`` in
+    ``from_structure``'s order (``enumerate_supercell_matrices``, least
+    skewed first), so that a generator builds only those shapes."""
+    symops = ClusterSubspace.from_cutoffs(prim, {2: 3.0}).symops
+    return enumerate_supercell_matrices(size, symops)[::-1][:count]
+
+
+def drive_sqs_step(card):
+    """Phase 4g: the searches the reference runs per step, on the per-step
+    path: ``sqs-ternary12-step`` (its first ``TERNARY_STEP_SHAPES`` shapes
+    of 61 features, each over the reference's 8 MB table budget;
+    ``TERNARY_STEP_TEMPERATURES`` x ``TERNARY_STEP_STEPS`` at
+    ``TERNARY_STEP_WALKERS`` walkers a shape), cold as a user calls it, then
+    a 0-step call for the set-up share (kernels, starts, rescore), with its
+    attempts/s, ms a step and device idle share; then flip steps and the
+    cluster-interaction distance on bench ``sqs``'s first
+    ``STEP_VARIANT_SHAPES`` fcc8 shapes.  No distance launch."""
+    t0 = time.perf_counter()
+    generator = StochasticSQSGenerator.from_structure(
+        fcc_ternary_prim(), TERNARY_STEP_CUTOFFS, TERNARY_STEP_SIZE, device="cuda",
+        supercell_matrices=first_shapes(fcc_ternary_prim(), TERNARY_STEP_SIZE,
+                                        TERNARY_STEP_SHAPES))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    procs = generator.processors
+    refused = sum(sqs.build_distance_tables(p) is None for p in procs)
+    check(refused == len(procs), f"{TERNARY_STEP_CELL}: the chain took {len(procs) - refused} "
+                                 "shapes")
+    sqs.distance_chain.launches = 0
+
+    def search(steps):
+        t = time.perf_counter()
+        generator.generate(mcmc_steps=steps, temperatures=TERNARY_STEP_TEMPERATURES,
+                           nwalkers=TERNARY_STEP_WALKERS, seed=SQS_SEED)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    wall = search(TERNARY_STEP_STEPS)
+    path = generator.execution_path
+    check(path == "cuda-step", f"{TERNARY_STEP_CELL}: execution path {path}")
+    check(sqs.distance_chain.launches == 0, f"{TERNARY_STEP_CELL}: a distance launch")
+    rescore = sqs_stage_checks(TERNARY_STEP_CELL, generator)
+    best = generator.get_best_sqs(1, remove_duplicates=False)[0]
+    setup = search(0)
+    # the idle share of a short profiled search (the profiler's events of
+    # the whole search would take longer to gather than the search)
+    part = StochasticSQSGenerator.from_processors(procs[:1], device="cuda")
+    part_wall, busy, idle = device_idle_share(lambda: part.generate(
+        mcmc_steps=IDLE_STEPS, temperatures=TERNARY_STEP_TEMPERATURES[:1],
+        nwalkers=TERNARY_STEP_WALKERS, seed=SQS_SEED))
+    steps = len(procs) * len(TERNARY_STEP_TEMPERATURES) * TERNARY_STEP_STEPS
+    attempts = steps * TERNARY_STEP_WALKERS
+    F = len(procs[0].target_vector) - 1
+    print(f"phase 4g [{TERNARY_STEP_CELL}] {card}: {len(procs)} shapes of {TERNARY_STEP_SIZE} "
+          f"sites, F = {F}, none taken by the reference's chain; built here in {build_s:.4f} s "
+          f"(set-up); {len(TERNARY_STEP_TEMPERATURES)} temperatures x {TERNARY_STEP_STEPS} "
+          f"steps x {TERNARY_STEP_WALKERS} walkers a shape, path {path}, "
+          f"{attempts / wall / 1e6:.4f} M attempts/s end to end ({wall:.4f} s, cold); a 0-step "
+          f"call {setup:.4f} s (kernels, starts, rescore: {setup / wall:.4f} of the search), "
+          f"so {(wall - setup) * 1e3 / steps:.4f} ms a step of a shape "
+          f"({attempts / (wall - setup) / 1e6:.4f} M attempts/s in the steps); profiled, "
+          f"{IDLE_STEPS} steps of one shape: {part_wall * 1e3 / IDLE_STEPS:.4f} ms a step "
+          f"(its set-up included), device busy {busy:.4f} s, idle share {idle:.4f}; best score "
+          f"{best.score:.6f}, compositions kept, stored vs exact CPU rescore {rescore:.3e}")
+    fcc8 = first_shapes(fcc_binary_prim(), 8, STEP_VARIANT_SHAPES)
+    shapes = StochasticSQSGenerator.from_structure(
+        fcc_binary_prim(), {2: 5.0, 3: 3.5}, 8, device="cuda",
+        supercell_matrices=fcc8).processors
+    ci = StochasticSQSGenerator.from_structure(
+        fcc_binary_prim(), {2: 5.0, 3: 3.5}, 8, device="cuda",
+        feature_type="cluster-interaction", supercell_matrices=fcc8).processors
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the reference's warning on flips
+        variants = (("flip steps", StochasticSQSGenerator.from_processors(
+                         shapes, device="cuda", step_type="flip"), False),
+                    ("cluster-interaction", StochasticSQSGenerator.from_processors(
+                         ci, device="cuda"), True))
+    for label, gen, canonical in variants:
+        t0 = time.perf_counter()
+        gen.generate(mcmc_steps=STEP_VARIANT_STEPS, temperatures=TERNARY_STEP_TEMPERATURES,
+                     nwalkers=TERNARY_STEP_WALKERS, seed=SQS_SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(gen.execution_path == "cuda-step", f"{label}: path {gen.execution_path}")
+        rescore = sqs_stage_checks(label, gen, keep_compositions=canonical)
+        steps = len(gen.processors) * len(TERNARY_STEP_TEMPERATURES) * STEP_VARIANT_STEPS
+        print(f"phase 4g [sqs fcc8, {label}] {card}: {len(gen.processors)} shapes, "
+              f"{len(TERNARY_STEP_TEMPERATURES)} temperatures x {STEP_VARIANT_STEPS} steps, path "
+              f"{gen.execution_path}, {wall * 1e3 / steps:.4f} ms a step of a shape (set-up "
+              f"included), best score "
+              f"{gen.get_best_sqs(1, remove_duplicates=False)[0].score:.6f}, stored vs "
+              f"exact CPU rescore {rescore:.3e}")
+    check(sqs.distance_chain.launches == 0, "a distance launch on the per-step searches")
+
+
+def drive_multicell(card, generator):
+    """Phase 4g: the generator's multicell sampler (``generator.sampler``) on
+    ``sqs-fcc8-wide``: one walker hopping among the 20 shapes for
+    ``MULTICELL_STEPS`` steps on the host loop, each shape's kernel first
+    given a start of its own (a shape never given one holds the zero
+    occupancy with zero stored features, as in the reference, and a hop to
+    it is judged against those); hops accepted, every record's features
+    equal to its kernel's exact features (< 1e-9) and its enthalpy to
+    features . theta (parity (e))."""
+    sampler = generator.sampler
+    procs = generator.processors
+    rng = np.random.default_rng(SQS_SEED)
+    starts = np.stack([random_starts(proc, 1, rng)[0] for proc in procs])
+    sampler.mckernel.set_aux_state(starts)
+    t0 = time.perf_counter()
+    sampler.run(MULTICELL_STEPS, starts[:1], thin_by=MULTICELL_THIN)
+    wall = time.perf_counter() - t0
+    samples = sampler.samples
+    index = samples.get_trace_value("kernel_index")
+    occs = samples.get_occupancies()
+    feats = samples.get_trace_value("features")
+    enthalpy = samples.get_trace_value("enthalpy")
+    check(sampler.execution_path() == "host-single-step", "multicell path")
+    hops = len(set(index.tolist()))
+    check(hops > 1, f"multicell: no hop accepted ({index.tolist()})")
+    exact = np.array([procs[k].compute_feature_vector(o) for k, o in zip(index, occs)])
+    feat_err = float(np.abs(exact - feats).max())
+    parity = float(np.abs(feats @ samples.natural_parameters - enthalpy).max())
+    check(feat_err < 1e-9 and parity < 1e-9, f"multicell: features {feat_err}, (e) {parity}")
+    print(f"phase 4g [multicell sampler, {WIDE_CELL}] {card}: generator.sampler.run("
+          f"{MULTICELL_STEPS}, thin_by={MULTICELL_THIN}), path {sampler.execution_path()}, "
+          f"{hops} of {len(procs)} shapes visited, {wall * 1e3 / MULTICELL_STEPS:.4f} ms a step "
+          f"(host loop), recorded features vs exact {feat_err:.3e}, parity (e) {parity:.3e}")
+
+
+def drive_host_steps(card):
+    """Phase 4g: the host single-walker API on the card: ``Metropolis.
+    single_step`` (flips on bench ``spinel`` 2x2x2, swaps on Au-Cu 4x4x4)
+    and Wang-Landau's on the 8-site Au-Cu window, ``HOST_STEPS`` steps each;
+    the summed accepted deltas equal the final occupancy's exact features
+    and enthalpy (parity (e), < 1e-9)."""
+    from smol_tpu_torch.moca.kernel import Metropolis, WangLandau
+
+    runs = (("flip", "spinel_2x2x2", {"temperature": TEMPERATURE}),
+            ("swap", "aucu_4x4x4", {"temperature": 300.0}),
+            ("flip", WL_DOS_CELL, None))
+    for step_type, stem, options in runs:
+        ens, system = load(stem)
+        if options is None:  # the window of wl_dos_errors: every level mid-bin
+            levels = np.unique(np.round(system["exact_enthalpies"], 9))
+            bin_size = float(levels[1] - levels[0])
+            kernel = WangLandau(ens, step_type, min_enthalpy=float(levels[0] - bin_size / 2),
+                                max_enthalpy=float(levels[-1] + bin_size), bin_size=bin_size,
+                                check_period=HOST_STEPS // 4, seed=SQS_SEED)
+            label = "WangLandau"
+        else:
+            kernel = Metropolis(ens, step_type, options["temperature"], seed=SQS_SEED)
+            label = "Metropolis"
+        occ = np.asarray(system.get("initial_occupancy", random_occupancies(ens, 1, 0)[0]),
+                         dtype=np.int32).copy()
+        kernel.set_aux_state(occ)
+        features = kernel.compute_initial_trace(occ).features.astype(np.float64)
+        accepted = 0
+        t0 = time.perf_counter()
+        for _ in range(HOST_STEPS):
+            trace = kernel.single_step(occ)
+            if trace.accepted:
+                features = features + trace.delta_trace.features
+                accepted += 1
+        wall = time.perf_counter() - t0
+        exact = ens.compute_feature_vector(occ)
+        feat_err = float(np.abs(exact - features).max())
+        parity = abs(float(exact @ kernel.natural_params) - float(features @ kernel.natural_params))
+        if options is None:
+            parity = max(parity, abs(kernel._current_enthalpy
+                                     - float(exact @ kernel.natural_params)))
+        check(feat_err < 1e-9 and parity < 1e-9 and accepted > 0,
+              f"{label} single_step on {stem}: features {feat_err}, (e) {parity}, {accepted}")
+        extra = (f", {len(kernel.levels)} levels visited, mod factor {kernel.mod_factor:g}"
+                 if options is None else "")
+        print(f"phase 4g [{label}.single_step {step_type} {stem}] {card}: {HOST_STEPS} steps, "
+              f"{accepted} accepted, {wall * 1e3 / HOST_STEPS:.4f} ms a step, summed deltas vs "
+              f"exact features {feat_err:.3e}, parity (e) {parity:.3e}{extra}")
+
+
+def drive_sqs_generator(card):
+    """Phase 4g: the SQS generator whole.  K7's wide body against its
+    twin and timed; ``sqs-fcc8-wide``'s search on it (counts set to 0 just
+    before, read just after); the per-step searches; the multicell sampler;
+    the host single-walker steps.  Returns (wide launches, wide timing)."""
+    t_phase = time.perf_counter()
+    generator, build_s = wide_generator()
+    procs = generator.processors
+    parts = {"build": build_s}
+
+    def timed_part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t
+        return out
+
+    err = timed_part("kernel vs twin", wide_kernel_vs_twin, procs)
+    timed = timed_part("timing", wide_timed, procs, card)
+    wide, _ = timed_part("search", drive_sqs_wide, card, generator, build_s)
+    timed_part("per step", drive_sqs_step, card)
+    timed_part("multicell", drive_multicell, card, generator)
+    timed_part("host steps", drive_host_steps, card)
+    print(f"phase 4g took {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{name} {sec:.1f} s" for name, sec in parts.items()) + ")")
+    return wide, {**timed, "err": err}
+
+
+def sqs_rescore_error(generator):
+    """The largest difference of a stored best score from its exact rescore
+    on the CPU (each distinct best occupancy scored once); fails the script
+    past 1e-9."""
+    rescore = 0.0
+    for shape, occupancies, scores, _ in generator._best:
+        proc = generator.processors[shape]
+        cpu = (CorrelationDistanceProcessor.from_system(proc.system, "cpu")
+               if isinstance(proc, CorrelationDistanceProcessor)
+               else type(proc).from_dict(proc.as_dict(), device="cpu"))
+        distinct, index = np.unique(occupancies, axis=0, return_inverse=True)
+        exact = cpu.compute_scores(torch.as_tensor(distinct)).numpy()[index.reshape(-1)]
+        rescore = max(rescore, float(np.abs(exact - scores).max()))
+    check(rescore < 1e-9, f"stored score vs exact CPU rescore {rescore}")
+    return rescore
 
 
 # ---------------- timing and bounds ----------------
@@ -3702,7 +4150,7 @@ def design_name(design, walkers=None):
             f"{' packed' if design.packed else ''}{'' if design.batched else ' per-shape'}")
 
 
-def distance_in_turns(label, card, ops, designs, reps, batched=False):
+def distance_in_turns(label, card, ops, designs, reps, batched=False, phase="5"):
     """Two designs of the distance kernel timed in turns (a, b, b, a) on
     copies of one starting state: each turn the mean of ``reps`` launches
     (``batched``: of :func:`same_batched_window`).  Returns each design's
@@ -3715,7 +4163,7 @@ def distance_in_turns(label, card, ops, designs, reps, batched=False):
     ta, tb = (sum(turns[d]) / len(turns[d]) for d in designs)
     shapes, W = (ops["occ"].shape[0], ops["occ"].shape[2]) if batched else (1, ops["occ"].shape[1])
     na, nb = (design_name(d, shapes * W if d.batched else W) for d in designs)
-    print(f"phase 5 [distance A/B {label}] {card}: {nb} {tb:.4f} ms against {na} {ta:.4f} "
+    print(f"phase {phase} [distance A/B {label}] {card}: {nb} {tb:.4f} ms against {na} {ta:.4f} "
           f"ms (turns a, b, b, a: {turns[a][0]:.4f}, {turns[b][0]:.4f}, {turns[b][1]:.4f}, "
           f"{turns[a][1]:.4f}), {nb if tb < ta else na} faster by "
           f"{max(ta, tb) / min(ta, tb):.3f}x")
@@ -3988,6 +4436,8 @@ def main():
     exchange_launches += drive_step_path(card)
     print(f"phase 4e took {time.perf_counter() - t0:.1f} s")
     drive_step_refusals(card)
+    wide_launches, wide_timing = drive_sqs_generator(card)
+    errs["distance-wide"] = [wide_timing["err"]]
     launches = {("flip", body): flip_bodies[body] + sgc_bodies[body] + pt_bodies[body]
                 + built_bodies[body] + api_bodies["flip"][body]
                 for body in ("direct", "qary", "ising")}
@@ -4008,7 +4458,8 @@ def main():
     # direct body in the turns against K1-Ising below); the flip chain with
     # the Ewald term, and the Wang-Landau chain at its main path's walkers
     timings = {("flip", "spinel_ewald_2x2x2"): time_window(
-        swaps["spinel_ewald_2x2x2"], "spinel_ewald_2x2x2", card, "flip", BLOCK)}
+        swaps["spinel_ewald_2x2x2"], "spinel_ewald_2x2x2", card, "flip", BLOCK),
+        ("distance-wide", WIDE_CELL): wide_timing}
     for stem, (ens, system, _) in wl_runs.items():
         move = WL_CELLS[stem]
         block = SWAP_CELLS[stem][1] if stem in SWAP_CELLS else BLOCK
@@ -4161,6 +4612,9 @@ def main():
         entry("distance_chain", ("distance", "sqs_fcc8 batched"),
               "smol_tpu_torch/csrc/distance_chain.cu", "smol_tpu/ops/pallas_sqs.py:649",
               sqs_launches + api_distance, "distance"),
+        entry("distance_chain (wide body, F > 32)", ("distance-wide", WIDE_CELL),
+              "smol_tpu_torch/csrc/distance_chain.cu", "smol_tpu/ops/pallas_sqs.py:649",
+              wide_launches, "distance-wide"),
         entry("qary_body (K3, in flip_chain)", ("flip+qary", SGC_CELL), body_src,
               f"{ref}:519", launches[("flip", "qary")], "qary",
               flip_plans("qary", {SGC_CELL: sgc})),

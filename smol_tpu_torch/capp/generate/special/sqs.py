@@ -1,17 +1,34 @@
-"""Special quasi-random structure (SQS) generation on the distance chain.
+"""Special quasi-random structure (SQS) generation.
 
 Counterpart of ``smol_tpu/capp/generate/special/sqs.py``
 (``StochasticSQSGenerator`` :274).  Each supercell shape anneals a batch of
-walkers of canonical swaps against its distance processor's score
+walkers against its distance processor's score
 d = -w L + ||W (f - f_T)||_1 at kB = 1
 (https://doi.org/10.1016/j.calphad.2013.06.006): one composition-exact
 start, a random permutation of it within each sublattice per walker, then
-per temperature one launch of the distance chain for all the shapes of the
-size (:mod:`smol_tpu_torch.ops.sqs`, the CUDA kernel on the card, its plain
-torch twin on the CPU; each shape draws as its own launch would, and sums
-as the launch's lanes do), each walker
-keeping its best (score, occupancy); the best occupancies are rescored
-exactly at the end.  The generator is built from a disordered structure
+the annealing, each walker keeping its best (score, occupancy); the best
+occupancies are rescored exactly at the end.  A shape runs where the
+reference's runs (``sqs.py:302-312``, ``_chain_anneal_fn`` :350-381):
+
+- canonical swaps of a correlation distance whose tables the reference's
+  chain takes (:func:`smol_tpu_torch.ops.sqs.build_distance_tables`) run on
+  the distance chain, per temperature one launch for all such shapes of
+  the size (:mod:`smol_tpu_torch.ops.sqs`, the CUDA kernel on the card,
+  its plain torch twin on the CPU; each shape draws as its own launch
+  would, and sums as the launch's lanes do);
+- every other shape (another step type, the cluster-interaction distance,
+  tables the reference refuses, its 8 MB budget among them) runs on the
+  per-step path, as the reference's ``"xla-step"``: a
+  :class:`~smol_tpu_torch.moca.kernel.metropolis.Metropolis` kernel of the
+  step type at kB = 1 over its ensemble, one step of every walker at a
+  time (:meth:`~smol_tpu_torch.moca.kernel.metropolis.Metropolis.make_step_fn`),
+  each walker's best tracked after every step (``_step_tracking_best``,
+  :39-48).
+
+:attr:`StochasticSQSGenerator.sampler` is the reference's multicell
+sampler: one Metropolis kernel a shape under a
+:class:`~smol_tpu_torch.moca.kernel.multicell.MulticellMetropolis`, run by
+:meth:`~smol_tpu_torch.moca.sampler.sampler.Sampler.run` on its host loop.  The generator is built from a disordered structure
 as the reference builds it (:meth:`SQSGenerator.from_structure`: the
 subspace from its cutoffs, every supercell shape of the size that the
 prim's symmetry tells apart, one distance processor each, their local
@@ -33,7 +50,14 @@ import torch
 from smol_tpu_torch.capp.generate.enumerate import enumerate_supercell_matrices
 from smol_tpu_torch.cofe import ClusterSubspace
 from smol_tpu_torch.crystal.matcher import StructureMatcher
-from smol_tpu_torch.moca.processor.distance import CorrelationDistanceProcessor
+from smol_tpu_torch.moca.ensemble import Ensemble
+from smol_tpu_torch.moca.kernel.metropolis import Metropolis
+from smol_tpu_torch.moca.kernel.multicell import MulticellMetropolis
+from smol_tpu_torch.moca.processor.distance import (
+    ClusterInteractionDistanceProcessor,
+    CorrelationDistanceProcessor,
+)
+from smol_tpu_torch.moca.sampler.sampler import Sampler
 from smol_tpu_torch.ops.sqs import build_distance_tables, make_batched_distance_chain
 
 __all__ = ["SQS", "SQSGenerator", "StochasticSQSGenerator", "random_starts"]
@@ -119,12 +143,11 @@ class SQSGenerator(ABC):
                 "device='cuda' requested but torch sees no CUDA device; pass "
                 "device='cpu' to run the plain torch chain on the CPU"
             )
+        kinds = {type(p) for p in processors}
+        if len(kinds) != 1 or not kinds <= {CorrelationDistanceProcessor,
+                                            ClusterInteractionDistanceProcessor}:
+            raise ValueError("the processors are distance processors of one kind")
         for p in processors:
-            if type(p).__name__ != "CorrelationDistanceProcessor":
-                raise NotImplementedError(
-                    f"{type(p).__name__}: only the correlation distance is ported "
-                    "(ROADMAP.md Queue 1 item 6)"
-                )
             if p.device.type != device.type or (
                 device.index is not None and p.device != device
             ):
@@ -134,6 +157,8 @@ class SQSGenerator(ABC):
         self._processors = list(processors)
         self.device = device
         self.supercell_size = processors[0].size
+        self.feature_type = ("correlation" if isinstance(processors[0], CorrelationDistanceProcessor)
+                             else "cluster-interaction")
         self._best = []  # per shape: (occupancies [W, N], scores [W], features [W, F])
 
     @classmethod
@@ -143,22 +168,24 @@ class SQSGenerator(ABC):
                        match_tol=1e-5, supercell_matrices=None, device="cuda", **kwargs):
         """A generator of a disordered structure (the reference's :150-164
         and its constructor, :63-148): the subspace of ``cutoffs`` (built
-        with ``use_concentration``), then one correlation distance processor
-        (built with the constructor's default ``use_concentration=True``) for
-        each of ``supercell_matrices`` or, by default, each supercell shape
-        of ``supercell_size`` that the prim's symmetry tells apart, least
-        skewed first (``enumerate_supercell_matrices``, reversed), their
-        local tables padded to the widest; ``kwargs`` go to the
+        with ``use_concentration``), then one distance processor of
+        ``feature_type`` (``"correlation"``, or ``"cluster-interaction"``:
+        one feature an orbit), built with the constructor's default
+        ``use_concentration=True``, for each of ``supercell_matrices`` or,
+        by default, each supercell shape of ``supercell_size`` that the
+        prim's symmetry tells apart, least skewed first
+        (``enumerate_supercell_matrices``, reversed), the correlation
+        processors' local tables padded to the widest; ``kwargs`` go to the
         generator."""
         subspace = ClusterSubspace.from_cutoffs(
             structure, cutoffs, basis=basis, orthonormal=orthonormal,
             use_concentration=use_concentration)
-        if feature_type == "cluster-interaction":
-            raise NotImplementedError(
-                "the cluster-interaction distance is not ported yet (ROADMAP.md "
-                "Queue 1 item 6)")
         if feature_type == "correlation":
             num_features = len(subspace)
+            proc_cls = CorrelationDistanceProcessor
+        elif feature_type == "cluster-interaction":
+            num_features = subspace.num_orbits
+            proc_cls = ClusterInteractionDistanceProcessor
         else:
             raise ValueError(
                 f"feature_type {feature_type} not supported; options are "
@@ -183,15 +210,16 @@ class SQSGenerator(ABC):
                                                               subspace.symops)
             supercell_matrices.reverse()  # least-skewed last -> first used
         processors = [
-            CorrelationDistanceProcessor(
+            proc_cls(
                 subspace, scm, use_concentration=True, target_vector=target_vector,
                 target_weights=target_weights, match_weight=match_weight,
                 match_tol=match_tol, device=device)
             for scm in supercell_matrices
         ]
-        width = max(p.local_width for p in processors)
-        for p in processors:
-            p.repad_local_tables(width)
+        if feature_type == "correlation":
+            width = max(p.local_width for p in processors)
+            for p in processors:
+                p.repad_local_tables(width)
         return cls(processors, device=device, **kwargs)
 
     @classmethod
@@ -282,53 +310,106 @@ class SQSGenerator(ABC):
         return best
 
 
+def _step_tracking_best(step, state, generator):
+    """One step of every walker, then each walker's best (score, occupancy)
+    where the step left it lower (the reference's ``_step_tracking_best``,
+    :39-48)."""
+    state = step(state, generator)
+    better = state["enthalpy"] < state["best_enthalpy"]
+    state["best_enthalpy"] = torch.where(better, state["enthalpy"], state["best_enthalpy"])
+    state["best_occupancy"] = torch.where(better[:, None], state["occupancy"],
+                                          state["best_occupancy"])
+    return state
+
+
 class StochasticSQSGenerator(SQSGenerator):
     """Simulated-annealing SQS search, walker-parallel per supercell shape.
 
-    Each shape runs a batch of canonical-swap chains (kB = 1 temperatures)
-    on the distance chain; walkers in blocks of 512 (the reference's kernel
-    blocks) share their swap pairs.
+    Each shape runs a batch of chains of ``step_type`` moves (kB = 1
+    temperatures): canonical swaps of a correlation distance the chain
+    takes on the distance chain, where walkers in blocks of 512 (the
+    reference's kernel blocks) share their swap pairs; every other shape on
+    the per-step path, each walker with its own proposals.
+
+    Args:
+        processors: one distance processor a shape, all of one kind.
+        device: where they live (``"cuda"``: the card; ``"cpu"`` on request).
+        step_type: the usher of the search (``"swap"``; another warns, as
+            the reference's, and runs on the per-step path).
+        temperature: the multicell sampler's temperature (:attr:`sampler`).
+        kernel_kwargs: more arguments of each shape's Metropolis kernel.
     """
 
-    def __init__(self, processors, device="cuda", step_type="swap"):
-        if step_type != "swap":
-            raise NotImplementedError(
-                f"step_type={step_type!r}: only swaps run on the distance chain, and "
-                "the per-step path is not ported yet (ROADMAP.md Queue 1 item 6)"
-            )
+    def __init__(self, processors, device="cuda", step_type="swap", temperature=5.0,
+                 kernel_kwargs=None):
         super().__init__(processors, device=device)
-        self._tables = {}  # shape -> DistanceTables
+        if step_type != "swap":
+            warnings.warn(
+                f"Step type {step_type} was provided; swap steps are "
+                "recommended for fixed-composition SQS searches.",
+                UserWarning,
+            )
+        self._step_type = step_type
+        self._temperature = temperature
+        self._kernel_kwargs = dict(kernel_kwargs or {})
+        self._sampler = None
+        self._tables = {}  # shape -> DistanceTables, or None on the per-step path
         self._chains = {}  # steps -> [(shapes, batched chain fn)]
+        self._exec_paths = []  # each shape's path in the last generate
         self.stage_records = []
         self.start_scores = []
 
     @property
     def execution_path(self) -> str:
-        """``"cuda-distance-chain"`` on the card, ``"cpu-twin[distance]"`` on
-        the CPU; ``"not-run"`` before the first ``generate``."""
-        if not self.stage_records:
+        """The paths of the last ``generate``: ``"cuda-distance-chain"`` or
+        ``"cpu-twin[distance]"`` for the shapes on the distance chain,
+        ``"cuda-step"`` or ``"cpu-step"`` for those on the per-step path,
+        ``"mixed:<path>,<path>"`` where the shapes took both (the
+        reference's :302-312); ``"not-run"`` before the first."""
+        if not self._exec_paths:
             return "not-run"
-        return "cuda-distance-chain" if self.device.type == "cuda" else "cpu-twin[distance]"
+        paths = sorted(set(self._exec_paths))
+        return paths[0] if len(paths) == 1 else "mixed:" + ",".join(paths)
 
     @property
     def sampler(self):
-        """The reference's MulticellMetropolis sampler: not ported."""
-        raise NotImplementedError(
-            "the multicell sampler is not ported yet (ROADMAP.md Queue 1 item 6)"
-        )
+        """A :class:`~smol_tpu_torch.moca.sampler.sampler.Sampler` over a
+        :class:`~smol_tpu_torch.moca.kernel.multicell.MulticellMetropolis`
+        of one Metropolis kernel of the step type a shape, all at kB = 1
+        (the reference's :315-348), one walker on the host loop of
+        ``Sampler.run``; built once."""
+        if self._sampler is None:
+            kernels = []
+            for proc in self._processors:
+                kernel = Metropolis(Ensemble(proc), self._step_type,
+                                    temperature=self._temperature, **self._kernel_kwargs)
+                kernel.kB = 1.0  # unitless annealing temperatures
+                kernels.append(kernel)
+            multicell = MulticellMetropolis(kernels, temperature=self._temperature)
+            multicell.kB = 1.0
+            container = Sampler._empty_container(kernels[0].ensemble, multicell, 1)
+            self._sampler = Sampler(multicell, container, nwalkers=1)
+        return self._sampler
+
+    def _shape_tables(self, shape):
+        """The shape's distance tables, or None where the reference's chain
+        refuses it (another step type than swaps included)."""
+        if shape not in self._tables:
+            self._tables[shape] = (build_distance_tables(self._processors[shape])
+                                   if self._step_type == "swap" else None)
+        return self._tables[shape]
 
     def _chain_fns(self, mcmc_steps):
         """[(shapes, chain fn)]: one batched distance chain per group of
-        shapes whose tables stack (equal ranks and features: every shape of
-        one size), for ``mcmc_steps`` steps."""
+        chain shapes whose tables stack (equal ranks and features: every
+        shape of one size), for ``mcmc_steps`` steps."""
         key = int(mcmc_steps)
         if key not in self._chains:
-            for shape, processor in enumerate(self._processors):
-                if shape not in self._tables:
-                    self._tables[shape] = build_distance_tables(processor)
             groups = {}
-            for shape, tables in self._tables.items():
-                groups.setdefault((tables.num_ranks, tables.num_feats), []).append(shape)
+            for shape in range(len(self._processors)):
+                tables = self._shape_tables(shape)
+                if tables is not None:
+                    groups.setdefault((tables.num_ranks, tables.num_feats), []).append(shape)
             self._chains[key] = [
                 (shapes, make_batched_distance_chain(
                     [self._tables[s] for s in shapes], key,
@@ -343,7 +424,7 @@ class StochasticSQSGenerator(SQSGenerator):
         """Run the annealed search (the reference's :383-517).
 
         Args:
-            mcmc_steps: swap attempts per temperature per walker.
+            mcmc_steps: steps per temperature per walker.
             temperatures: unitless ladder (default linspace(5, 0.01, 20)).
             initial_occupancies: optional [n_shapes, N] start points.
             clear_previous: drop previously found structures.
@@ -351,21 +432,23 @@ class StochasticSQSGenerator(SQSGenerator):
             nwalkers: walkers per supercell shape.
             progress: print each shape's best score.
             seed: seed of the numpy generator that draws the starts and the
-                seeds of the chains' generators.
+                seeds of the shapes' kernels and generators.
 
-        Every shape draws its starts and its generator's seed from the numpy
-        generator in shape order, as the reference's loop over shapes does;
-        then each temperature is one launch of the distance chain for all
-        shapes (per chunk), each shape drawing its pairs and seed from its
-        own generator, which gives what one launch per shape would at the
-        same lanes a walker (:func:`smol_tpu_torch.ops.sqs.launch_lanes`:
-        they follow the launch's walkers and set the order in which a
-        walker's feature changes are summed).
+        Every shape draws its kernel's seed, its starts and its generator's
+        seed from the numpy generator in shape order, as the reference's
+        loop over shapes does.  Then each temperature is one launch of the
+        distance chain for all the chain shapes (per chunk), each drawing
+        its pairs and seed from its own generator, which gives what one
+        launch per shape would at the same lanes a walker
+        (:func:`smol_tpu_torch.ops.sqs.launch_lanes`: they follow the
+        launch's walkers and set the order in which a walker's feature
+        changes are summed); and ``mcmc_steps`` steps of the per-step path
+        for each other shape, shape by shape, each from its own generator.
         ``start_scores`` then holds each shape's starting scores [W], and
         ``stage_records``, shape by shape and for every temperature, the
         shape, the temperature and the walkers' occupancies, scores and
-        accept counts at the end of that launch (all on the generator's
-        device).
+        accept counts at the end of that temperature (all on the
+        generator's device).
         """
         if temperatures is None:
             temperatures = np.linspace(5.0, 0.01, 20)
@@ -373,9 +456,9 @@ class StochasticSQSGenerator(SQSGenerator):
             self._best = []
         rng = np.random.default_rng(seed)
         self.start_scores = []
-        states, generators = [], []
+        states, generators, kernels = [], [], []
         for shape, processor in enumerate(self._processors):
-            rng.integers(2**31)  # the reference's kernel seed: keeps its draws
+            kernel_seed = int(rng.integers(2**31))
             if initial_occupancies is not None:
                 occu0 = np.asarray(initial_occupancies[shape], dtype=np.int32)
                 occus = np.tile(occu0, (nwalkers, 1))
@@ -383,15 +466,33 @@ class StochasticSQSGenerator(SQSGenerator):
                 occus = random_starts(processor, nwalkers, rng)
             generator = torch.Generator(device=self.device)
             generator.manual_seed(int(rng.integers(2**31)))
-            occu = torch.as_tensor(occus, dtype=torch.int32, device=self.device)
-            scores = processor.compute_scores(occu)
+            if self._shape_tables(shape) is None:  # the per-step path
+                kernel = Metropolis(Ensemble(processor), self._step_type,
+                                    temperature=float(temperatures[0]), seed=kernel_seed,
+                                    **self._kernel_kwargs)
+                kernel.kB = 1.0
+                state = kernel.initial_state(occus)
+                scores = state["enthalpy"]
+            else:
+                kernel = None
+                occu = torch.as_tensor(occus, dtype=torch.int32, device=self.device)
+                scores = processor.compute_scores(occu)
+                state = {"occupancy": occu, "enthalpy": scores,
+                         "naccept": torch.zeros(nwalkers, dtype=torch.int32,
+                                                device=self.device)}
             self.start_scores.append(scores.clone())
-            states.append({
-                "occupancy": occu, "enthalpy": scores,
-                "naccept": torch.zeros(nwalkers, dtype=torch.int32, device=self.device),
-                "best_enthalpy": scores.clone(), "best_occupancy": occu.clone(),
-            })
+            state["best_enthalpy"] = scores.clone()
+            state["best_occupancy"] = state["occupancy"].clone()
+            states.append(state)
             generators.append(generator)
+            kernels.append(kernel)
+        cuda = self.device.type == "cuda"
+        self._exec_paths = [
+            ("cuda-step" if cuda else "cpu-step") if kernel is not None
+            else ("cuda-distance-chain" if cuda else "cpu-twin[distance]")
+            for kernel in kernels]
+        steps = {shape: kernel.make_step_fn() for shape, kernel in enumerate(kernels)
+                 if kernel is not None}
         records = [[] for _ in states]
         chain_fns = self._chain_fns(mcmc_steps)
         for temp in temperatures:
@@ -401,6 +502,13 @@ class StochasticSQSGenerator(SQSGenerator):
                 state["window_naccept"] = torch.zeros_like(state["naccept"])
             for shapes, chain_fn in chain_fns:
                 chain_fn([states[s] for s in shapes], [generators[s] for s in shapes])
+            for shape, step in steps.items():
+                state = states[shape]
+                start = state["naccept"].clone()
+                for _ in range(int(mcmc_steps)):
+                    state = _step_tracking_best(step, state, generators[shape])
+                state["window_naccept"] = state["naccept"] - start
+                states[shape] = state
             for shape, state in enumerate(states):
                 records[shape].append({
                     "shape": shape, "temperature": float(temp),

@@ -475,6 +475,320 @@ distance_chain_kernel(int8_t* __restrict__ occ, int8_t* __restrict__ best_occ,
   }
 }
 
+// ---- the wide body: any F ----
+//
+// The bodies above keep a walker's features and feature change in registers,
+// unrolled over FMAX <= 32, and its pair's rows in shared memory.  Above 32
+// features (the 41-feature Au-Cu FCC distance of up to 2084 rows a rank:
+// 342 KB of rows a rank as the register bodies lay them out), and wherever
+// their streamed row sets do not fit, the wide body runs instead:
+//
+// - A row's values are its feature's (corr_flat / fn_cluster_count of its
+//   function), so one table gf [F, TM] f64 in shared memory serves every
+//   rank's rows; a row itself is d2, K neighbour ranks and K strides, read
+//   from device memory through the L1 and L2 caches (all shapes' rows of
+//   the 20-shape Au-Cu launch: 5.3 MB packed), packed in one 16-byte word
+//   where they fit (ops/sqs.py pack_wide_rows).  The walkers of a block
+//   share the pair (u, v), so a warp reads the same row at the same time.
+// - Feature by feature: u's rows (a -> b), then v's (b -> a), each lane its
+//   rows j, j + G, ... of the feature in order into one f64 register; the
+//   lanes' partials meet in the __shfl_xor_sync butterfly; fn = f + df, its
+//   term of the score summed on at once.  This is the other bodies' order:
+//   their df[f] is also u's rows of f, then v's, from 0.  u's cell holds b
+//   from the start of the step: u's rows never read u (a row's own slots are
+//   its self stride d2), and v's rows must see b there.
+// - Each walker keeps f and fn in two shared-memory buffers [2][F][walkers]
+//   (feature-major: a warp's walkers read consecutive words); an accept
+//   swaps them.  Lane f mod G writes fn[f].
+//
+// So the wide body equals the plain torch twin (ops/sqs.py
+// distance_chain_reference) bit for bit, in both RNG modes, at every lane
+// count.  Its launches take the fewest lanes that give them 131072
+// threads (ops/sqs.py launch_lanes): more warps to hide the L2 latency,
+// while the shared memory of a walker does not grow with its lanes.
+
+// Dynamic shared memory of a block of the wide body (ops/sqs.py
+// wide_shared_bytes): gf [F, TM], the score's constants [3][F] and each
+// walker's f and fn [2][F][walkers] in f64; the group ends [F] and the
+// segment starts [R][F + 1] in int32; the codes and the best codes.
+__host__ __device__ __forceinline__ size_t wide_shared_bytes(int R, int F, int TM,
+                                                             int walkers_per_block) {
+  const size_t doubles = (size_t)F * (TM + 3 + 2 * walkers_per_block) * 8;
+  const size_t ints = ((size_t)F + (size_t)R * (F + 1)) * 4;
+  return doubles + (ints + 15) / 16 * 16 + 2 * (size_t)R * code_pitch(walkers_per_block);
+}
+
+// A wide row's table index t at code a and its self stride d2: from the
+// unpacked rows (d2 [L], nbr and stride [L, K] of the rank) or from one
+// packed 16-byte word (x: d2, y: four ranks' bytes, z: four strides' bytes).
+template <bool PACK4>
+struct WideRows {
+  const int32_t* nbr;
+  const int32_t* st;
+  const int32_t* d2;
+  __device__ __forceinline__ int2 index(int j, const int8_t* codes, int pitch, int K,
+                                        int a) const {
+    const int d = __ldg(d2 + j);
+    int t = d * a;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int n = __ldg(nbr + j * K + k);
+      t += __ldg(st + j * K + k) * (n >= 0 ? (int)codes[n * pitch] : 0);
+    }
+    return make_int2(t, d);
+  }
+};
+
+template <>
+struct WideRows<true> {
+  const int4* meta;
+  __device__ __forceinline__ int2 index(int j, const int8_t* codes, int pitch, int,
+                                        int a) const {
+    const int4 m = __ldg(meta + j);
+    const unsigned y = (unsigned)m.y;
+    const unsigned z = (unsigned)m.z;
+    const int t = m.x * a + (int)(z & 0xFF) * codes[(y & 0xFF) * pitch] +
+                  (int)((z >> 8) & 0xFF) * codes[((y >> 8) & 0xFF) * pitch] +
+                  (int)((z >> 16) & 0xFF) * codes[((y >> 16) & 0xFF) * pitch] +
+                  (int)(z >> 24) * codes[(y >> 24) * pitch];
+    return make_int2(t, m.x);
+  }
+};
+
+template <bool PACK4>
+__device__ __forceinline__ WideRows<PACK4> wide_rows(int u, const int32_t* nbr,
+                                                     const int32_t* stride, const int32_t* d2,
+                                                     const int4* meta, int L, int K) {
+  WideRows<PACK4> r;
+  if constexpr (PACK4) {
+    r.meta = meta + (size_t)u * L;
+  } else {
+    r.nbr = nbr + (size_t)u * L * K;
+    r.st = stride + (size_t)u * L * K;
+    r.d2 = d2 + (size_t)u * L;
+  }
+  return r;
+}
+
+// One lane: acc += the change of this lane's rows j = first, first + lanes,
+// ... before end (in order) going from code a to b; gf the feature's values.
+template <class RowsT>
+__device__ __forceinline__ double add_wide_rows(double acc, const RowsT& rows,
+                                                const double* gf, int first, int end,
+                                                const int8_t* codes, int pitch, int K,
+                                                int shift, int a, int b) {
+  const int lanes = 1 << shift;
+  const int count = (end - first + lanes - 1) >> shift;  // this lane's rows
+#pragma unroll 4
+  for (int q = 0; q < count; ++q) {
+    const int2 td = rows.index(first + q * lanes, codes, pitch, K, a);
+    acc += gf[td.x + td.y * (b - a)] - gf[td.x];
+  }
+  return acc;
+}
+
+template <bool PACK4>
+__global__ void __launch_bounds__(kDistanceThreads)
+distance_chain_wide_kernel(int8_t* __restrict__ occ, int8_t* __restrict__ best_occ,
+                           double* __restrict__ feat, double* __restrict__ dist,
+                           double* __restrict__ best, int32_t* __restrict__ naccept,
+                           const float* __restrict__ beta,
+                           const int32_t* __restrict__ useq,
+                           const int32_t* __restrict__ vseq, int seq_stride,
+                           int seq_shape_stride, const int64_t* __restrict__ seeds,
+                           const int32_t* __restrict__ nbr,
+                           const int32_t* __restrict__ stride,
+                           const int32_t* __restrict__ d2,
+                           const double* __restrict__ gfeat,
+                           const int32_t* __restrict__ seg,
+                           const double* __restrict__ target,
+                           const double* __restrict__ weight,
+                           const int32_t* __restrict__ group_last,
+                           const double* __restrict__ group_diameter,
+                           const double* __restrict__ match,
+                           const int4* __restrict__ meta, int R, int L, int K, int TM,
+                           int F, int W, int block_size, int n_steps, int rng_mode,
+                           int lanes, int walkers_per_block) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int wpb = walkers_per_block;
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* s_g = reinterpret_cast<double*>(smem);  // [F][TM]
+  double* s_t = s_g + (size_t)F * TM;
+  double* s_w = s_t + F;
+  double* s_gd = s_w + F;
+  double* s_f = s_gd + F;  // [2][F][wpb]: each walker's f and fn
+  int32_t* s_last = reinterpret_cast<int32_t*>(s_f + 2 * (size_t)F * wpb);
+  int32_t* s_seg = s_last + F;  // [R][F + 1]
+  const size_t ints = ((size_t)F + (size_t)R * (F + 1)) * 4;
+  int8_t* s_occ = reinterpret_cast<int8_t*>(s_last) + (ints + 15) / 16 * 16;
+  const int pitch = code_pitch(wpb);
+  int8_t* s_best = s_occ + (size_t)R * pitch;
+
+  const int shift = __ffs(lanes) - 1;  // lanes is a power of two
+  const int wl = tid >> shift;         // the walker within the block
+  const int lane = tid & (lanes - 1);  // the lane within the walker
+  const unsigned group = lanes == 1 ? 1u : (1u << lanes) - 1u;
+  const unsigned mask = group << ((tid & 31) & ~(lanes - 1));  // the walker's lanes
+
+  const int blocks_per_shape = (W + wpb - 1) / wpb;
+  const int s = blockIdx.x / blocks_per_shape;
+  const int w0 = (blockIdx.x % blocks_per_shape) * wpb;
+  const int w = w0 + wl;
+  const bool live = w < W;
+  const int wc = live ? w : W - 1;
+  occ += (size_t)s * R * W;
+  best_occ += (size_t)s * R * W;
+  feat += (size_t)s * F * W;
+  dist += (size_t)s * W;
+  best += (size_t)s * W;
+  naccept += (size_t)s * W;
+  beta += (size_t)s * W;
+  if (PACK4) {
+    meta += (size_t)s * R * L;
+  } else {
+    nbr += (size_t)s * R * L * K;
+    stride += (size_t)s * R * L * K;
+    d2 += (size_t)s * R * L;
+  }
+  gfeat += (size_t)s * F * TM;
+  seg += (size_t)s * R * (F + 1);
+  target += (size_t)s * F;
+  weight += (size_t)s * F;
+  group_last += (size_t)s * F;
+  group_diameter += (size_t)s * F;
+  const double match_tol = match[2 * s];
+  const double match_weight = match[2 * s + 1];
+
+  for (int x = tid; x < F * TM; x += nt) s_g[x] = gfeat[x];
+  for (int f = tid; f < F; f += nt) {
+    s_t[f] = target[f];
+    s_w[f] = weight[f];
+    s_gd[f] = group_diameter[f];
+    s_last[f] = group_last[f];
+  }
+  for (int x = tid; x < R * (F + 1); x += nt) s_seg[x] = seg[x];
+  for (int x = tid; x < R * wpb; x += nt) {
+    const int r = x / wpb;
+    const int c = x % wpb;
+    const size_t at = (size_t)r * W + min(w0 + c, W - 1);
+    s_occ[r * pitch + c] = occ[at];
+    s_best[r * pitch + c] = best_occ[at];
+  }
+  for (int k = lane; k < F; k += lanes) s_f[(size_t)k * wpb + wl] = feat[(size_t)k * W + wc];
+  int8_t* codes = s_occ + wl;
+  int cur = 0;  // the buffer of f; fn goes to the other
+  double d_cur = dist[wc];
+  double bd = best[wc];
+  const float b32 = beta[wc];
+  int nacc = 0;
+
+  const int grp = w0 / block_size;
+  const int32_t* my_useq = useq + (size_t)s * seq_shape_stride + (size_t)grp * seq_stride;
+  const int32_t* my_vseq = vseq + (size_t)s * seq_shape_stride + (size_t)grp * seq_stride;
+  const Draws draws(seeds[s], grp, wc, block_size);
+  __syncthreads();
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int u = __ldg(my_useq + i);
+    const int v = __ldg(my_vseq + i);
+    const auto ru = wide_rows<PACK4>(u, nbr, stride, d2, meta, L, K);
+    const auto rv = wide_rows<PACK4>(v, nbr, stride, d2, meta, L, K);
+    const int32_t* seg_u = s_seg + u * (F + 1);
+    const int32_t* seg_v = s_seg + v * (F + 1);
+    int8_t* cu = codes + u * pitch;
+    int8_t* cv = codes + v * pitch;
+    const int a = *cu;
+    const int b = *cv;
+    __syncwarp(mask);  // every lane has read a before it changes
+    if (lane == 0) *cu = (int8_t)b;  // v's rows see u holding b; u's never read u
+    __syncwarp(mask);
+    const double* f_cur = s_f + (size_t)cur * F * wpb + wl;
+    double* f_new = s_f + (size_t)(cur ^ 1) * F * wpb + wl;
+    double dsum = 0.0;
+    double ell = 0.0;
+    bool running = true;
+    bool group_ok = true;
+    for (int f = 0; f < F; ++f) {
+      const double* gf = s_g + (size_t)f * TM;
+      double df = add_wide_rows(0.0, ru, gf, seg_u[f] + lane, seg_u[f + 1], codes, pitch, K,
+                                shift, a, b);
+      df = add_wide_rows(df, rv, gf, seg_v[f] + lane, seg_v[f + 1], codes, pitch, K, shift,
+                         b, a);
+      for (int m = 1; m < lanes; m <<= 1) df += __shfl_xor_sync(mask, df, m);
+      const double fn = f_cur[(size_t)f * wpb] + df;
+      if ((f & (lanes - 1)) == lane) f_new[(size_t)f * wpb] = fn;
+      // the score of fn, feature by feature: the other bodies' score()
+      const double x = fabs(__dsub_rn(fn, s_t[f]));
+      dsum = __dadd_rn(dsum, __dmul_rn(s_w[f], x));
+      group_ok = group_ok && x <= match_tol;
+      if (s_last[f]) {
+        running = running && group_ok;
+        if (running) ell = fmax(ell, s_gd[f]);
+        group_ok = true;
+      }
+    }
+    const double d_new = __dsub_rn(dsum, __dmul_rn(match_weight, ell));
+
+    __syncwarp(mask);  // every lane has read v's rows' codes
+    if (a != b && metropolis(b32, d_new - d_cur, draws.at(i, rng_mode).x)) {
+      if (lane == 0) *cv = (int8_t)a;
+      cur ^= 1;
+      d_cur = d_new;
+      ++nacc;
+    } else if (lane == 0) {
+      *cu = (int8_t)a;
+    }
+    __syncwarp(mask);  // the decision's writes and fn, before the next step
+    if (d_cur < bd) {
+      bd = d_cur;
+      for (int r = lane; r < R; r += lanes) s_best[r * pitch + wl] = codes[r * pitch];
+    }
+  }
+
+  __syncthreads();
+  for (int x = tid; x < R * wpb; x += nt) {
+    const int r = x / wpb;
+    const int c = x % wpb;
+    if (w0 + c < W) {
+      occ[(size_t)r * W + w0 + c] = s_occ[r * pitch + c];
+      best_occ[(size_t)r * W + w0 + c] = s_best[r * pitch + c];
+    }
+  }
+  if (live) {
+    const double* f_out = s_f + (size_t)cur * F * wpb + wl;
+    for (int k = lane; k < F; k += lanes) feat[(size_t)k * W + w] = f_out[(size_t)k * wpb];
+  }
+  if (live && lane == 0) {
+    dist[w] = d_cur;
+    best[w] = bd;
+    naccept[w] += nacc;
+  }
+}
+
+template <bool PACK4>
+cudaError_t launch_wide(int blocks, int threads, size_t smem, cudaStream_t stream,
+                        int8_t* occ, int8_t* best_occ, double* feat, double* dist,
+                        double* best, int32_t* naccept, const float* beta,
+                        const int32_t* useq, const int32_t* vseq, int seq_stride,
+                        int seq_shape_stride, const int64_t* seeds, const int32_t* nbr,
+                        const int32_t* stride, const int32_t* d2, const double* gfeat,
+                        const int32_t* seg, const double* target, const double* weight,
+                        const int32_t* group_last, const double* group_diameter,
+                        const double* match, const int4* meta, int R, int L, int K,
+                        int TM, int F, int W, int block_size, int n_steps, int rng_mode,
+                        int lanes, int walkers_per_block) {
+  auto kernel = distance_chain_wide_kernel<PACK4>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, threads, smem, stream>>>(
+      occ, best_occ, feat, dist, best, naccept, beta, useq, vseq, seq_stride,
+      seq_shape_stride, seeds, nbr, stride, d2, gfeat, seg, target, weight, group_last,
+      group_diameter, match, meta, R, L, K, TM, F, W, block_size, n_steps, rng_mode, lanes,
+      walkers_per_block);
+  return cudaGetLastError();
+}
+
 // Dynamic shared memory of one launch: the rows (every rank's, or four row
 // sets), the segment starts, the codes and the best codes.
 size_t shared_bytes(int R, int L, int K, int TM, int F, int walkers_per_block,
@@ -517,15 +831,33 @@ extern "C" int smol_distance_chain(
     const void* weight, const void* group_last, const void* group_diameter,
     const void* match, const void* meta, int S, int R, int L, int K, int TM, int F,
     int W, int block_size, int n_steps, int rng_mode, int lanes, int walkers_per_block,
-    int resident, int packed, void* stream) {
+    int resident, int packed, int wide, void* stream) {
+  // g: the rows' values [S, R, L, TM], or for the wide body each feature's
+  // [S, F, TM]; meta: packed rows [S, R, L, 2] (F <= 8), or for the wide
+  // body [S, R, L, 4] (ops/sqs.py pack_rows, pack_wide_rows)
   const int threads = walkers_per_block * lanes;
   const bool lanes_ok = lanes >= 1 && lanes <= 16 && (lanes & (lanes - 1)) == 0;
-  if (F < 1 || F > 32 || S < 1 || W < 1 || !lanes_ok || walkers_per_block < 1 ||
-      threads > kDistanceThreads || (W > block_size && block_size % walkers_per_block) ||
-      (packed && (meta == nullptr || F > 8))) {
+  if (F < 1 || (!wide && F > 32) || S < 1 || W < 1 || !lanes_ok ||
+      walkers_per_block < 1 || threads > kDistanceThreads ||
+      (W > block_size && block_size % walkers_per_block) ||
+      (packed && (meta == nullptr || (!wide && F > 8))) || (wide && resident)) {
     return (int)cudaErrorInvalidValue;
   }
   const int blocks = S * ((W + walkers_per_block - 1) / walkers_per_block);
+  if (wide) {  // rows in device memory, gf, f and fn in shared memory
+    const size_t smem = wide_shared_bytes(R, F, TM, walkers_per_block);
+    auto run = packed ? launch_wide<true> : launch_wide<false>;
+    return (int)run(blocks, threads, smem, (cudaStream_t)stream, (int8_t*)occ,
+                    (int8_t*)best_occ, (double*)feat, (double*)dist, (double*)best,
+                    (int32_t*)naccept, (const float*)beta, (const int32_t*)useq,
+                    (const int32_t*)vseq, seq_stride, seq_shape_stride,
+                    (const int64_t*)seeds, (const int32_t*)nbr, (const int32_t*)stride,
+                    (const int32_t*)d2, (const double*)g, (const int32_t*)seg,
+                    (const double*)target, (const double*)weight,
+                    (const int32_t*)group_last, (const double*)group_diameter,
+                    (const double*)match, (const int4*)meta, R, L, K, TM, F, W,
+                    block_size, n_steps, rng_mode, lanes, walkers_per_block);
+  }
   const size_t smem = shared_bytes(R, L, K, TM, F, walkers_per_block, resident, packed);
   // the K = 3 bodies packed or not, at one lane or several; the general body
   const bool one = lanes == 1, k3 = K == 3 && F <= 8;

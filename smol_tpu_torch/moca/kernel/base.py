@@ -1,9 +1,21 @@
 """MC kernel base classes: walker state, bias, chain options, temperature.
 
-Counterpart of ``smol_tpu/moca/kernel/base.py`` (``MCKernel`` :106-384,
-``ThermalKernelMixin`` :387-430).  The batched walker state is a dict of
-tensors on the ensemble's device and holds the plain ``occupancy`` [W, N]
-int32 (the reference packs it into words for its TPU fast path).
+Counterpart of ``smol_tpu/moca/kernel/base.py`` (``MCKernelInterface``
+:58-95, ``StandardSingleStepMixin`` :98-150, ``MCKernel`` :153-384,
+``ThermalKernelMixin`` :387-430, ``MetropolisAcceptMixin`` :433-444).  The
+batched walker state is a dict of tensors on the ensemble's device and
+holds the plain ``occupancy`` [W, N] int32 (the reference packs it into
+words for its TPU fast path).
+
+A kernel also has the reference's host single-walker API, numpy over one
+occupancy [N]: :meth:`StandardSingleStepMixin.single_step` proposes with
+the usher's ``propose_step``, takes the step's feature change from the
+ensemble's ``compute_feature_vector_change`` (and the bias change from the
+bias's ``compute_bias_change``) into the kernel's ``trace``, accepts with
+the kernel's ``_accept_step`` and applies the step in place.  The kernel's
+``np.random.default_rng(seed)`` is shared by the usher and the bias and is
+drawn from in the reference's order, so the same seed gives the
+reference's trajectory.
 
 A kernel runs its steps on one of two paths, chosen once from its
 configuration, as the reference chooses (``metropolis.py:197-239``):
@@ -25,6 +37,7 @@ A kernel that fails to build or launch raises; it never falls back.
 from __future__ import annotations
 
 import secrets
+from math import log
 
 import numpy as np
 import torch
@@ -34,12 +47,21 @@ from smol_tpu_torch.moca.kernel.bias import MCBias, mcbias_factory
 from smol_tpu_torch.moca.kernel.mcusher import Flip, MCUsher, Swap, mcusher_factory
 from smol_tpu_torch.moca.kernel.tableflip import TableFlip
 from smol_tpu_torch.moca.metadata import Metadata
-from smol_tpu_torch.moca.trace import Trace
+from smol_tpu_torch.moca.trace import StepTrace, Trace
 from smol_tpu_torch.ops import chain
 from smol_tpu_torch.ops import mc as devmc
 from smol_tpu_torch.utils.class_utils import get_subclasses
 
-__all__ = ["MCKernel", "ChainKernel", "ThermalKernelMixin", "ALL_MCUSHERS", "ALL_BIAS"]
+__all__ = [
+    "MCKernelInterface",
+    "StandardSingleStepMixin",
+    "MCKernel",
+    "ChainKernel",
+    "ThermalKernelMixin",
+    "MetropolisAcceptMixin",
+    "ALL_MCUSHERS",
+    "ALL_BIAS",
+]
 
 
 def _sum_log_priori(fns, occu, sites, codes, valid):
@@ -59,7 +81,77 @@ def _names(valid):
     return valid() if callable(valid) else valid
 
 
-class MCKernel:
+class MCKernelInterface:
+    """What every MC kernel offers (the reference's :58-95): the ``trace`` of
+    its last host step, its ``spec``, ``single_step``,
+    ``compute_initial_trace`` and ``set_aux_state``.  Kernels that do not
+    follow the propose/accept decomposition (the multicell kernels)
+    implement it directly."""
+
+    @property
+    def trace(self):
+        """The :class:`~smol_tpu_torch.moca.trace.StepTrace` of the last host
+        step."""
+        return self._trace
+
+    @property
+    def spec(self):
+        """Metadata specification for reproducibility."""
+        return self._spec
+
+    def single_step(self, occupancy):
+        """One MC step on one occupancy [N] (changed in place); returns the
+        step trace."""
+        raise NotImplementedError
+
+    def compute_initial_trace(self, occupancy):
+        """Absolute-value trace of one occupancy [N]."""
+        raise NotImplementedError
+
+    def set_aux_state(self, occupancy, *args, **kwargs):
+        """Set auxiliary state from an initial or checkpoint occupancy."""
+
+
+class StandardSingleStepMixin:
+    """The standard host step: propose, trace, accept, apply, post (the
+    reference's :98-150).  Subclasses give ``_accept_step``;
+    ``_do_post_step`` is a hook (Wang-Landau's histogram updates)."""
+
+    def _compute_step_trace(self, occupancy, step):
+        delta_trace = self._trace.delta_trace
+        delta_trace.features = self._ensemble.compute_feature_vector_change(
+            occupancy, step)
+        delta_trace.enthalpy = np.array(
+            np.dot(self.natural_params, delta_trace.features), dtype=np.float64)
+        if self._bias is not None:
+            delta_trace.bias = np.array(
+                self._bias.compute_bias_change(occupancy, step), dtype=np.float64)
+
+    def _accept_step(self, occupancy, step) -> bool:
+        """Accept or reject the step on the current delta trace."""
+        raise NotImplementedError
+
+    def _do_accept_step(self, occupancy, step):
+        for site, code in step:
+            occupancy[site] = code
+        self.mcusher.update_aux_state(step)
+        return occupancy
+
+    def _do_post_step(self):
+        return
+
+    def single_step(self, occupancy):
+        """One MC step on one occupancy [N] (changed in place)."""
+        step = self.mcusher.propose_step(occupancy)
+        self._compute_step_trace(occupancy, step)
+        if self._accept_step(occupancy, step):
+            occupancy = self._do_accept_step(occupancy, step)
+        self._trace.occupancy = occupancy
+        self._do_post_step()
+        return self._trace
+
+
+class MCKernel(StandardSingleStepMixin, MCKernelInterface):
     """An MC transition kernel over an ensemble.
 
     Args:
@@ -83,12 +175,16 @@ class MCKernel:
         self._ensemble = ensemble
         self.natural_params = np.asarray(ensemble.natural_parameters)
         self._seed = int(seed) if seed is not None else secrets.randbits(62)
+        # the host steps' generator, shared by the usher and the bias
+        self._rng = np.random.default_rng(self._seed)
+        self._trace = StepTrace(accepted=np.array(True))
         self._usher = self._bias = None
         self.mcusher = mcusher_factory(step_type, ensemble.sublattices, *args,
-                                       table_data=ensemble.table_data, **kwargs)
+                                       table_data=ensemble.table_data, rng=self._rng,
+                                       **kwargs)
         self._spec = Metadata(type(self).__name__, seed=self._seed, step=self.mcusher.spec)
         if bias_type is not None:
-            self.bias = mcbias_factory(bias_type, ensemble.sublattices,
+            self.bias = mcbias_factory(bias_type, ensemble.sublattices, rng=self._rng,
                                        **(bias_kwargs or {}))
             self._spec.bias = self.bias.spec
 
@@ -97,11 +193,6 @@ class MCKernel:
     @property
     def ensemble(self):
         return self._ensemble
-
-    @property
-    def spec(self):
-        """Metadata specification for reproducibility."""
-        return self._spec
 
     @property
     def seed(self) -> int:
@@ -131,6 +222,8 @@ class MCKernel:
         valid = _names(self.valid_bias)
         if valid is None or type(bias).__name__ not in valid:
             raise ValueError(f"{type(bias)} is not a valid MCBias for this kernel.")
+        if "bias" not in self._trace.delta_trace.names:
+            self._trace.delta_trace.bias = np.zeros(1)
         self._bias = bias
 
     @property
@@ -172,6 +265,10 @@ class MCKernel:
         if self.track_features:
             state["features"] = feats
         return state
+
+    def set_aux_state(self, occupancy, *args, **kwargs):
+        """Set the usher's aux state from an initial or checkpoint occupancy."""
+        self.mcusher.set_aux_state(occupancy, *args, **kwargs)
 
     def compute_initial_trace(self, occupancy) -> Trace:
         """Absolute-value trace of one occupancy [N] (host arrays)."""
@@ -336,6 +433,17 @@ class ThermalKernelMixin:
         self.temperature = temperature
 
     @property
+    def kB(self):
+        """Boltzmann's constant of beta (settable: 1 for unitless
+        temperatures, as the SQS search's)."""
+        return self._kB
+
+    @kB.setter
+    def kB(self, value):
+        self._kB = value
+        self.beta = 1.0 / (self._kB * self._temperature)
+
+    @property
     def temperature(self):
         """Temperature (a float, or a per-walker array for a ladder)."""
         return self._temperature
@@ -347,6 +455,7 @@ class ThermalKernelMixin:
             raise ValueError("the temperature is a scalar or a per-walker ladder [W]")
         self._temperature = float(temperature) if temperature.ndim == 0 else temperature
         self.beta = 1.0 / (self._kB * self._temperature)
+        self._trace.temperature = temperature
 
     def compute_initial_trace(self, occupancy):
         trace = super().compute_initial_trace(occupancy)
@@ -363,3 +472,18 @@ class ThermalKernelMixin:
         state["beta"] = torch.as_tensor(
             np.broadcast_to(beta, (nwalkers,)).copy(), device=self.device)
         return state
+
+
+class MetropolisAcceptMixin:
+    """The host Metropolis-Hastings test (the reference's :433-444): accept
+    where -beta dH + the usher's log a-priori factor (+ the bias change) is
+    >= 0, or above the log of a uniform draw of the kernel's generator."""
+
+    def _accept_step(self, occupancy, step):
+        log_factor = self.mcusher.compute_log_priori_factor(occupancy, step)
+        exponent = -self.beta * self._trace.delta_trace.enthalpy + log_factor
+        if self._bias is not None:
+            exponent += self._trace.delta_trace.bias
+        self._trace.accepted = np.array(
+            True if exponent >= 0 else exponent > log(self._rng.random()))
+        return self._trace.accepted

@@ -95,11 +95,11 @@ class MCBias:
             occu_next[site] = code
         return self.compute_bias(occu_next) - self.compute_bias(occupancy)
 
-    def device_bias_fn(self, device="cpu"):
+    def device_bias_fn(self, device="cuda"):
         """``(occu [W, N]) -> [W]`` f64 bias values, on ``device``."""
         raise NotImplementedError
 
-    def device_delta_fn(self, device="cpu"):
+    def device_delta_fn(self, device="cuda"):
         """``(occu, sites, codes, valid) -> [W]`` f64 bias changes."""
         return partial(_generic_delta, self.device_bias_fn(device))
 
@@ -166,10 +166,10 @@ class FugacityBias(MCBias):
     def _log_table(self, device):
         return torch.as_tensor(np.log(self._fu_table), dtype=torch.float64, device=device)
 
-    def device_bias_fn(self, device="cpu"):
+    def device_bias_fn(self, device="cuda"):
         return partial(_fugacity_bias, self._log_table(device))
 
-    def device_delta_fn(self, device="cpu"):
+    def device_delta_fn(self, device="cuda"):
         """The table's change at the flipped sites (cheaper than two full
         evaluations)."""
         return partial(_fugacity_delta, self._log_table(device))
@@ -196,7 +196,7 @@ class SquareChargeBias(MCBias):
         c = np.sum(self._c_table[np.arange(len(occupancy)), occupancy])
         return float(-self.penalty * c**2)
 
-    def device_bias_fn(self, device="cpu"):
+    def device_bias_fn(self, device="cuda"):
         return partial(_square_charge_bias,
                        torch.as_tensor(self._c_table, dtype=torch.float64, device=device),
                        float(self.penalty))
@@ -227,7 +227,7 @@ class SquareHyperplaneBias(MCBias):
         n = self._counts(occupancy)
         return float(-self.penalty * np.sum((self._A @ n - self._b) ** 2))
 
-    def device_bias_fn(self, device="cpu"):
+    def device_bias_fn(self, device="cuda"):
         def dev(x):
             return torch.as_tensor(x, device=device)
 

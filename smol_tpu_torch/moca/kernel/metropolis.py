@@ -13,13 +13,18 @@ independent proposals, a bias, the ``MultiStep`` and ``Composite``
 ushers, a ``TableFlip`` usher the table chain cannot honour, and systems
 the chain tables refuse (restricted sites, split sublattices).
 ``UniformlyRandom``, the infinite-temperature kernel, always runs on the
-per-step path.
+per-step path.  Both have the reference's host single-walker accept
+(``single_step``; :class:`~smol_tpu_torch.moca.kernel.base.
+MetropolisAcceptMixin`, and ``UniformlyRandom._accept_step``, :316-326).
 The factory also builds the Wang-Landau kernel
 (:mod:`smol_tpu_torch.moca.kernel.wanglandau`).
 """
 
 from __future__ import annotations
 
+from math import log
+
+import numpy as np
 import torch
 
 from smol_tpu_torch.moca.kernel.base import (
@@ -27,6 +32,7 @@ from smol_tpu_torch.moca.kernel.base import (
     ALL_MCUSHERS,
     ChainKernel,
     MCKernel,
+    MetropolisAcceptMixin,
     ThermalKernelMixin,
 )
 from smol_tpu_torch.moca.kernel.mcusher import Swap
@@ -45,7 +51,7 @@ def _zero_beta_step(metro_step, state, generator):
     return state
 
 
-class Metropolis(ThermalKernelMixin, ChainKernel):
+class Metropolis(MetropolisAcceptMixin, ThermalKernelMixin, ChainKernel):
     """Metropolis-Hastings kernel.
 
     Args:
@@ -119,6 +125,16 @@ class UniformlyRandom(MCKernel):
     valid_mcushers = ALL_MCUSHERS
     valid_bias = ALL_BIAS
 
+    def _accept_step(self, occupancy, step):
+        """The host test at beta 0: the a-priori factor and the bias change
+        only."""
+        exponent = self.mcusher.compute_log_priori_factor(occupancy, step)
+        if self._bias is not None:
+            exponent += self._trace.delta_trace.bias
+        self._trace.accepted = np.array(
+            True if exponent >= 0 else exponent > log(self._rng.random()))
+        return self._trace.accepted
+
     def make_step_fn(self):
         propose_fn, _ = self.mcusher.device_proposal(self.device)
         log_priori = self._device_log_priori()
@@ -136,9 +152,7 @@ def mckernel_factory(kernel_type, ensemble, step_type, *args, **kwargs):
     name = kernel_type.replace("-", "").replace("_", "").lower()
     kernels = {"metropolis": Metropolis, "uniformlyrandom": UniformlyRandom,
                "wanglandau": WangLandau}
-    if name not in kernels:
+    if name not in kernels:  # the reference's derived_class_factory refusal
         raise NotImplementedError(
-            f"kernel type {kernel_type!r} is not ported yet (ROADMAP.md "
-            "Queue 1 item 6)"
-        )
+            f"{kernel_type} is not implemented as a subclass of MCKernel.")
     return kernels[name](ensemble, step_type, *args, **kwargs)

@@ -22,12 +22,17 @@ which the reference's ``_wl_step`` leaves out (ROADMAP.md Queue 3, C10).
 Both paths share the state's planes.  Like the reference's, the kernel takes no bias: a
 ``bias_type`` raises ``ValueError``.
 
-The reference's host single-walker path (``_accept_step``,
-``_do_post_step``, the ``dos``/``levels`` properties of one walker) is not
-ported yet (ROADMAP.md Queue 1 item 6).
+The reference's host single-walker path (:94-187) is the kernel's too: one
+walker's entropy, histogram, occurrences and mean features on the host
+(``levels``, ``entropy``, ``dos``, ``histogram``), ``single_step`` with
+``_accept_step`` (the usher's a-priori factor in the exponent, as the
+reference's host step has it), ``_do_accept_step`` and ``_do_post_step``;
+``set_aux_state`` sets the walker's features and enthalpy first.
 """
 
 from __future__ import annotations
+
+from math import log
 
 import numpy as np
 import torch
@@ -88,8 +93,22 @@ class WangLandau(ChainKernel):
         self._window = (min_enthalpy, max_enthalpy, bin_size)
         self._mod_divisor = float(mod_update) if mod_update is not None else 2.0
         self._levels = np.arange(min_enthalpy, max_enthalpy, bin_size)
+        # the host single walker's state
+        self._current_enthalpy = np.inf
+        self._entropy = np.zeros(len(self._levels))
+        self._histogram = np.zeros(len(self._levels), dtype=int)
+        self._occurrences = np.zeros(len(self._levels), dtype=int)
+        self._steps_counter = 0
         # valid_bias is None: a bias_type raises ValueError, as the reference's
         super().__init__(ensemble, step_type, *args, **kwargs)
+        self._current_features = np.zeros(len(self.natural_params))
+        self._mean_features = np.zeros((len(self._levels), len(self.natural_params)))
+        self.spec.min_enthalpy = min_enthalpy
+        self.spec.max_enthalpy = max_enthalpy
+        self.spec.bin_size = bin_size
+        self.spec.flatness = flatness
+        self.spec.check_period = check_period
+        self.spec.update_period = update_period
 
     def _chain_refusal(self):
         """The chain's refusals; besides, the Wang-Landau chain takes flips
@@ -108,8 +127,92 @@ class WangLandau(ChainKernel):
 
     @property
     def mod_factor(self):
-        """The starting entropy increment (each walker keeps its own)."""
+        """The entropy increment: the host walker's; on the device each walker
+        starts from it and keeps its own."""
         return self._m
+
+    # ---------------- the host single walker ----------------
+
+    @property
+    def levels(self):
+        """The host walker's visited enthalpy levels."""
+        return self._levels[self._entropy > 0]
+
+    @property
+    def entropy(self):
+        """The host walker's entropy on its visited levels."""
+        return self._entropy[self._entropy > 0]
+
+    @property
+    def dos(self):
+        """The host walker's density of states, relative to its least."""
+        return np.exp(self.entropy - self.entropy.min())
+
+    @property
+    def histogram(self):
+        return self._histogram[self._entropy > 0]
+
+    def _get_bin_id(self, e):
+        if e == np.inf:
+            return np.inf
+        return int((e - self._window[0]) // self._window[2])
+
+    def _accept_step(self, occupancy, step):
+        bin_id = self._get_bin_id(self._current_enthalpy)
+        new_enthalpy = self._current_enthalpy + float(self._trace.delta_trace.enthalpy)
+        if new_enthalpy < self._window[0] or new_enthalpy >= self._window[1]:
+            self._trace.accepted = np.array(False)
+        else:
+            new_bin = self._get_bin_id(new_enthalpy)
+            log_factor = self.mcusher.compute_log_priori_factor(occupancy, step)
+            exponent = self._entropy[bin_id] - self._entropy[new_bin] + log_factor
+            self._trace.accepted = np.array(
+                True if exponent >= 0 else exponent > log(self._rng.random()))
+        return self._trace.accepted
+
+    def _do_accept_step(self, occupancy, step):
+        occupancy = super()._do_accept_step(occupancy, step)
+        self._current_features = self._current_features + np.asarray(
+            self._trace.delta_trace.features)
+        self._current_enthalpy += float(self._trace.delta_trace.enthalpy)
+        return occupancy
+
+    def _do_post_step(self):
+        bin_id = self._get_bin_id(self._current_enthalpy)
+        if 0 <= bin_id < len(self._levels):
+            self._steps_counter += 1
+            total = self._occurrences[bin_id]
+            self._mean_features[bin_id] = (
+                self._current_features + total * self._mean_features[bin_id]) / (total + 1)
+            if self._steps_counter % self.update_period == 0:
+                self._entropy[bin_id] += self._m
+                self._histogram[bin_id] += 1
+                self._occurrences[bin_id] += 1
+        self._trace_planes(self._trace)
+        if self._steps_counter and self._steps_counter % self.check_period == 0:
+            histogram = self._histogram[self._entropy > 0]
+            if len(histogram) >= 2 and (histogram > self.flatness * histogram.mean()).all():
+                self._histogram[:] = 0
+                self._m /= self._mod_divisor
+
+    def _trace_planes(self, trace):
+        trace.histogram = self._histogram
+        trace.occurrences = self._occurrences
+        trace.entropy = self._entropy
+        trace.cumulative_mean_features = self._mean_features
+        trace.mod_factor = np.array([self._m])
+
+    def compute_initial_trace(self, occupancy):
+        trace = super().compute_initial_trace(occupancy)
+        self._trace_planes(trace)
+        return trace
+
+    def set_aux_state(self, occupancy, *args, **kwargs):
+        """The host walker's features and enthalpy from an occupancy [N]."""
+        features = np.array(self._ensemble.compute_feature_vector(occupancy))
+        self._current_features = features
+        self._current_enthalpy = float(np.dot(features, self.natural_params))
+        self.mcusher.set_aux_state(occupancy)
 
     def wl_chain(self) -> chain.WLChain:
         """The chain's static Wang-Landau parameters."""

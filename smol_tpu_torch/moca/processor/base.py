@@ -166,12 +166,12 @@ class Processor(MSONable):
         applied in order on a copy (the reference's ``expansion.py:229-240``)."""
         occu = torch.as_tensor(np.asarray(occupancy, dtype=np.int64),
                                device=self.device)[None, :].clone()
-        delta = 0.0
+        delta = np.zeros(self.num_energy_coefs)  # an empty step changes nothing
         for site, code in flips:
             site_code = torch.tensor([[int(site)], [int(code)]], device=self.device)
             delta = delta + self._feature_change(occu, *site_code)[0].cpu().numpy()
             occu[0, int(site)] = int(code)
-        return np.atleast_1d(np.asarray(delta, dtype=np.float64)) * self._change_scale()
+        return delta * self._change_scale()
 
     def compute_feature_vector_distance_change(self, feature_vector, occupancy, flips):
         """Change in |f - feature_vector| from a flip list: only the distance

@@ -19,6 +19,14 @@ until a reader asks for them or their bytes pass the container's cap.
 The device is explicit: with ``device="cuda"`` the chain runs the CUDA
 kernel or fails, and it runs on the CPU only when the caller asks for
 ``device="cpu"``.
+
+A kernel with no step function, the multicell kernel
+(:class:`~smol_tpu_torch.moca.kernel.multicell.MulticellMetropolis`), whose
+hops depend on state held on the host, runs down the reference's host loop
+instead (``_run_host``, ``sampler.py:550-641``): ``single_step`` a walker
+a step, the accepted delta traces summed into its features and enthalpy,
+one record batch at the end; its ``execution_path`` is
+``"host-single-step"`` and it records each sample's ``kernel_index``.
 """
 
 from __future__ import annotations
@@ -110,13 +118,28 @@ class Sampler:
         kernel = mckernel_factory(
             kernel_type, ensemble, step_type, *args, seed=seed, **kwargs
         )
-        names = TRACE_NAMES + (("temperature",) if hasattr(kernel, "temperature") else ())
-        container = SampleContainer(
-            ensemble, names + tuple(kernel.trace_names),
-            aux_names=tuple(kernel.aux_traces.values()), nwalkers=nwalkers,
-            sampling_metadata=ensemble.thermo_boundaries)
+        container = cls._empty_container(ensemble, kernel, nwalkers)
         return cls(kernel, container, nwalkers=nwalkers,
                    replica_exchange_period=replica_exchange_period)
+
+    @staticmethod
+    def _empty_container(ensemble, kernel, nwalkers):
+        """An empty container for ``kernel``'s records of ``nwalkers`` walkers
+        (the reference's ``_empty_container``, ``sampler.py:106-150``): the
+        temperature where the kernel has one, the kernel index of a
+        multicell kernel, the kernel's own traces and aux traces."""
+        names = TRACE_NAMES + (("temperature",) if hasattr(kernel, "temperature") else ())
+        if hasattr(kernel, "current_kernel"):
+            names += ("kernel_index",)
+        return SampleContainer(
+            ensemble, names + tuple(getattr(kernel, "trace_names", ())),
+            aux_names=tuple(getattr(kernel, "aux_traces", {}).values()), nwalkers=nwalkers,
+            sampling_metadata=ensemble.thermo_boundaries)
+
+    @property
+    def _host_kernel(self) -> bool:
+        """Whether the kernel runs on the host loop (it has no step function)."""
+        return not hasattr(self._kernel, "make_step_fn")
 
     # ---------------- properties ----------------
 
@@ -195,9 +218,12 @@ class Sampler:
         ``multi-step`` or ``composite``), ``general`` and
         ``independent-proposals`` (the
         reference's ``"xla-step+general+independent-proposals"``).  With
-        replica exchange, ``replica-exchange@<period>`` last.
+        replica exchange, ``replica-exchange@<period>`` last.  A multicell
+        kernel's: ``"host-single-step"``.
         """
         kern = self._kernel
+        if self._host_kernel:
+            return "host-single-step"
         cuda = kern.device.type == "cuda"
         if self._get_chain_fn(int(thin_by)) is None:
             self._get_step_fn()
@@ -298,7 +324,17 @@ class Sampler:
             stream_chunk, stream_file, keep_last_chunk, swmr_mode,
             profile_dir: HDF5 streaming and profiling, not ported yet; must
                 be left at their defaults.
+
+        A kernel with no step function (a multicell kernel) runs down the
+        host loop, which, as the reference's, refuses streaming and
+        profiling with ``ValueError`` (``sampler.py:398-405``).
         """
+        if self._host_kernel:
+            if stream_chunk > 0 or profile_dir is not None:
+                raise ValueError(
+                    "Host-kernel sampling supports neither HDF5 streaming "
+                    "nor profiling; run without stream_chunk/profile_dir.")
+            return self._run_host(nsteps, initial_occupancies, thin_by, progress)
         if (stream_chunk or stream_file is not None or keep_last_chunk or swmr_mode
                 or profile_dir is not None):
             raise NotImplementedError(
@@ -361,6 +397,89 @@ class Sampler:
                 attempts = launch * thin_by * self._nwalkers
                 print(f"sampled {done}/{nsamples} (x{thin_by} steps, "
                       f"{attempts / max(elapsed, 1e-9) / 1e6:.1f} M attempts/s)")
+
+    def _run_host(self, nsteps, initial_occupancies=None, thin_by=1, progress=False):
+        """Sample a host kernel with the reference's per-step loop
+        (``sampler.py:550-641``): per step, per walker, ``single_step``, the
+        accepted delta traces summed into the walker's features and
+        enthalpy; one record every ``thin_by`` steps, saved as one batch at
+        the end of the run.  A multicell kernel takes one walker, whose
+        hop state the kernel holds."""
+        kernel = self._kernel
+        if nsteps % thin_by != 0:
+            warn(
+                f"nsteps {nsteps} is not a multiple of thin_by {thin_by}; "
+                f"the last {nsteps % thin_by} steps are ignored.",
+                RuntimeWarning,
+            )
+        if initial_occupancies is None:
+            if self._container.num_samples == 0:
+                raise RuntimeError(
+                    "No saved samples to take initial occupancies from; "
+                    "they must be provided."
+                )
+            initial_occupancies = self._container.last_trace_value("occupancy").cpu().numpy()
+        occupancies = np.atleast_2d(np.asarray(initial_occupancies, dtype=np.int32)).copy()
+        if occupancies.shape[0] != self._nwalkers:
+            raise ValueError(
+                f"Initial occupancies have {occupancies.shape[0]} walkers; "
+                f"expected {self._nwalkers}."
+            )
+        nwalkers = occupancies.shape[0]
+        multicell = hasattr(kernel, "current_kernel")
+        if multicell and nwalkers != 1:
+            raise ValueError(
+                "Host multicell sampling supports a single walker (the hop "
+                "state lives on the kernel)."
+            )
+        if multicell:
+            kernel.set_aux_state(occupancies[0])
+
+        feats = np.zeros((nwalkers, len(kernel.natural_params)))
+        enth = np.zeros(nwalkers)
+        for w in range(nwalkers):
+            trace0 = kernel.compute_initial_trace(occupancies[w])
+            feats[w] = np.asarray(trace0.features, dtype=np.float64).reshape(-1)
+            enth[w] = float(np.asarray(trace0.enthalpy).reshape(-1)[0])
+
+        nsamples = nsteps // thin_by
+        dtypes = {"occupancy": np.int32, "accepted": bool, "kernel_index": np.int64}
+        shapes = {"occupancy": (nwalkers, occupancies.shape[1]), "features": feats.shape}
+        batch = {name: np.zeros((nsamples, *shapes.get(name, (nwalkers,))),
+                                dtypes.get(name, np.float64))
+                 for name in self._container.traced_values
+                 if name not in self._container.aux_traced_values}
+        t0 = time.perf_counter()
+        for s in range(nsamples):
+            accepted_ct = np.zeros(nwalkers)
+            last_acc = np.zeros(nwalkers, dtype=bool)
+            for _ in range(thin_by):
+                for w in range(nwalkers):
+                    trace = kernel.single_step(occupancies[w])
+                    acc = bool(np.asarray(trace.accepted))
+                    if acc:
+                        feats[w] += np.asarray(trace.delta_trace.features,
+                                               dtype=np.float64).reshape(-1)
+                        enth[w] += float(np.asarray(trace.delta_trace.enthalpy).reshape(-1)[0])
+                    accepted_ct[w] += acc
+                    last_acc[w] = acc
+            batch["occupancy"][s] = occupancies
+            batch["features"][s] = feats
+            batch["enthalpy"][s] = enth
+            batch["accepted"][s] = last_acc
+            batch["accept_rate"][s] = accepted_ct / thin_by
+            if "temperature" in batch:
+                batch["temperature"][s] = kernel.temperature
+            if "kernel_index" in batch:
+                batch["kernel_index"][s] = kernel._current_kernel_index
+        self._container.save_sampled_traces(
+            {name: torch.from_numpy(value) for name, value in batch.items()},
+            thinned_by=thin_by)
+        if progress:
+            elapsed = time.perf_counter() - t0
+            attempts = nsamples * thin_by * nwalkers
+            print(f"host-sampled {nsamples} samples (x{thin_by} steps, "
+                  f"{attempts / max(elapsed, 1e-9):.0f} attempts/s)")
 
     def sample(self, nsteps, initial_occupancies, thin_by=1, progress=False):
         """A generator of a host :class:`~smol_tpu_torch.moca.trace.Trace`

@@ -81,6 +81,7 @@ import numpy as np
 import torch
 
 from smol_tpu_torch.moca.processor.composite import CompositeProcessor
+from smol_tpu_torch.moca.processor.distance import DistanceProcessor
 from smol_tpu_torch.moca.processor.ewald import EwaldProcessor
 from smol_tpu_torch.moca.processor.expansion import ClusterExpansionProcessor
 from smol_tpu_torch.ops import _build
@@ -447,7 +448,12 @@ class ChainTables:
 
 
 def _split_processor(processor):
-    """(expansion part, Ewald part or None) of a processor (ref :854-866)."""
+    """(expansion part, Ewald part or None) of a processor (ref :854-866).
+
+    A distance processor's score is no sum over local clusters: the chains
+    refuse it, as the reference's do (``fastmc.py:136``)."""
+    if isinstance(processor, DistanceProcessor):
+        raise NotImplementedError("a distance processor has no local energy tables")
     if not isinstance(processor, CompositeProcessor):
         return processor, None
     parts = processor.processors

@@ -31,11 +31,25 @@ rows are sorted by feature; the kernel gives each walker G threads (lanes),
 lane j summing rows j, j + G, ... of each feature, u's then v's, and the
 lanes' partials meet in a butterfly, which the twin repeats
 (:func:`_lane_sum`; one lane sums every row in order).  A launch takes
-the fewest lanes that give it ``LANE_THREADS`` threads (:func:`launch_lanes`).  The score sums the
+the fewest lanes that give it ``LANE_THREADS`` threads (:func:`launch_lanes`).
+Up to ``REGISTER_FEATURES`` features the kernel keeps f and df in
+registers and the pair's rows in shared memory; above that, and wherever
+the rows do not fit in shared memory, it runs its wide body
+(:func:`wide_launch`): each feature's values in one table in shared
+memory (every row of a feature holds the same values), the rows read from
+device memory packed in one 16-byte word (:func:`pack_wide_rows`), a
+walker's f and fn in shared memory, feature by feature, with the same sums
+in the same order.  The score sums the
 features in the order of the diameter groups, each term
 ``W_f * |f_f + df_f - T_f|`` rounded on its own (no fused multiply-add), and
 subtracts ``w * L`` last.  Nothing of the TPU layout (bf16 stride planes,
 0/1 scatter matrices, extent segments) is kept.
+
+Which shapes take the chain is the reference's choice
+(:func:`build_distance_tables` returns None where the reference's
+``pallas_sqs.build_distance_tables`` does, its 8 MB table budget
+included, :func:`reference_table_bytes`); the SQS search runs the rest
+on the per-step path.
 """
 
 from __future__ import annotations
@@ -66,6 +80,8 @@ __all__ = [
     "DistanceBatch",
     "DistanceTables",
     "build_distance_tables",
+    "pack_wide_rows",
+    "reference_table_bytes",
     "distance_block_walkers",
     "launch_lanes",
     "distance_of",
@@ -76,6 +92,8 @@ __all__ = [
     "distance_chain",
     "distance_chain_batched",
     "distance_chain_shared_bytes",
+    "wide_launch",
+    "wide_shared_bytes",
     "distance_launch_operands",
     "make_batched_distance_chain",
     "make_distance_chain",
@@ -83,11 +101,14 @@ __all__ = [
 ]
 
 MAX_TENSOR = 63  # the reference's bound on a cluster tensor (pallas_chain.py:87)
-MAX_FEATURES = 32  # the kernel keeps f and df of a walker in registers
+MAX_CODES = 16  # the reference's bound on a site's codes (fastmc.py:50)
+REFERENCE_TABLE_BUDGET = 8 * 2**20  # the reference's table bytes (pallas_sqs.py:70)
+REGISTER_FEATURES = 32  # the most features of the kernel's register bodies (FMAX)
 MAX_SHARED_BYTES = 232448  # shared memory one block can use on sm_90 (227 KB)
 DISTANCE_THREADS = 256  # most threads of a CUDA block (kDistanceThreads)
 STATIC_SHARED_BYTES = 1024  # the kernel's per-feature constants (896 bytes at most)
 LANE_THREADS = 32768  # a launch takes the fewest lanes that give it this many threads
+WIDE_LANE_THREADS = 131072  # the same for the wide body, which holds more warps an SM
 MAX_LANES = 16
 
 
@@ -126,6 +147,8 @@ class DistanceTables:
     n_active: torch.Tensor  # [S] int64 ranks of each sublattice
     padded: dict  # nbr, stride [R, F, P, K]; d2 [R, F, P]; g [R, F, P, TM]
     meta: torch.Tensor | None = None  # [R, L, 2] int32 packed rows (pack_rows)
+    gfeat: torch.Tensor | None = None  # [F, TM] f64 each feature's values (every row's)
+    meta4: torch.Tensor | None = None  # [R, L, 4] int32 wide rows (pack_wide_rows)
 
     @property
     def num_ranks(self) -> int:
@@ -160,26 +183,41 @@ def _function_offsets(system) -> np.ndarray:
     return fn_off
 
 
-def build_distance_tables(processor) -> DistanceTables:
-    """Distance tables of a :class:`CorrelationDistanceProcessor`, on its device.
+def reference_table_bytes(num_ranks, max_rows, num_feats, tensor_max) -> int:
+    """The bytes of the reference's distance tables of these shapes
+    (``pallas_sqs.py:317``: its bf16 stride planes [R, Ld, RP], its f32
+    value and self-stride rows [R, Ld, 2 TM + 1] and its bf16 scatter
+    matrices [R, FP, Ld], with Ld the power of two from 8 that holds a
+    rank's rows, RP the ranks and FP the features, each rounded up to a
+    multiple of 8, at least 8).  Above ``REFERENCE_TABLE_BUDGET`` the
+    reference refuses its chain (:318-319), and so does the port: the rule
+    decides the path, whatever the port's own layout needs."""
+    ld = 8
+    while ld < max_rows:
+        ld *= 2
+    rpad = max(8, -(-num_ranks // 8) * 8)
+    fpad = max(8, -(-num_feats // 8) * 8)
+    return (2 * num_ranks * ld * rpad + 4 * num_ranks * ld * (2 * tensor_max + 1)
+            + 2 * num_ranks * fpad * ld)
 
-    Requirements, as the reference's (``pallas_sqs.py:131-168``): active
-    sublattices with default (arange) encodings and no restricted sites,
-    a positive self stride in every local cluster, every other slot on an
-    active or a single-code site, tensors of at most ``MAX_TENSOR``
-    entries; and at most ``MAX_FEATURES`` features.  The reference falls
-    back to its per-step path where it cannot build the tables; the port
-    has none and raises ``NotImplementedError``.
+
+def build_distance_tables(processor) -> DistanceTables | None:
+    """Distance tables of a :class:`CorrelationDistanceProcessor`, on its
+    device, or None where the reference's chain refuses the processor
+    (``pallas_sqs.py:100-330``), which then runs on the per-step path.
+
+    The reference's refusals: another processor than the correlation
+    distance, a tensor of more than ``MAX_TENSOR`` entries, no active
+    sublattice, non-default (arange) encodings or restricted sites, a site
+    of more than ``MAX_CODES`` codes, a local cluster without a positive
+    self stride or reaching a frozen multi-code site, a row whose strides
+    on one neighbour rank sum to 256 or more, no feature or no row, and
+    tables of more than ``REFERENCE_TABLE_BUDGET`` bytes as the reference
+    lays them out (:func:`reference_table_bytes`).  Any number of features
+    is taken: above ``REGISTER_FEATURES`` the kernel runs its wide body.
     """
-
-    def refuse(why):
-        return NotImplementedError(
-            f"the distance chain cannot take this processor ({why}), and the "
-            "per-step path is not ported yet (ROADMAP.md Queue 1 item 6)"
-        )
-
     if type(processor).__name__ != "CorrelationDistanceProcessor":
-        raise refuse("only the correlation distance has tables")
+        return None
     system = processor.system
     sublattices = processor.get_sublattices()
     n = processor.num_sites
@@ -189,19 +227,21 @@ def build_distance_tables(processor) -> DistanceTables:
     tsize = np.asarray(system["orbit_tensor_size"]).astype(np.int64)
     tmax = int(tsize.max())
     if tmax > MAX_TENSOR:
-        raise refuse(f"a tensor of {tmax} > {MAX_TENSOR} entries")
+        return None
 
     active = [s for s in sublattices if s.is_active]
     if not active:
-        raise refuse("no active sublattice")
+        return None
     for s in active:
         if not np.array_equal(s.encoding, np.arange(len(s.encoding))):
-            raise refuse("non-default sublattice encodings")
+            return None  # non-default sublattice encodings
         if len(s.active_sites) != len(s.sites):
-            raise refuse("sublattices with restricted sites")
+            return None  # restricted sites
     n_codes = np.ones(n, dtype=np.int64)
     for s in sublattices:
         n_codes[s.sites] = len(s.encoding)
+    if n_codes.max() > MAX_CODES:
+        return None
 
     rank_sites = np.concatenate([np.asarray(s.active_sites) for s in active])
     R = len(rank_sites)
@@ -210,13 +250,19 @@ def build_distance_tables(processor) -> DistanceTables:
     valid = orbit >= 0  # [N, L0]
     is_self = (sites3 == np.arange(n)[:, None, None]) & (strides3 > 0)
     d2_all = np.where(is_self, strides3, 0).sum(axis=2)
-    if np.any(valid & (d2_all <= 0)):
-        raise refuse("a local cluster without a positive self stride")
+    if np.any(valid & (d2_all <= 0)) or d2_all.max(initial=0) >= 2**24:
+        return None  # a local cluster without a positive self stride
     nbr_rank = rank_of_site[sites3]
     frozen = (strides3 > 0) & ~is_self & (nbr_rank < 0) & valid[:, :, None]
     if np.any(frozen & (n_codes[sites3] != 1)):
-        raise refuse("a local cluster reaches a frozen multi-code site")
+        return None  # a local cluster reaches a frozen multi-code site
     contributes = (strides3 > 0) & ~is_self & (nbr_rank >= 0) & valid[:, :, None]
+    # a row's strides summed on each neighbour rank (the reference's bf16
+    # stride planes hold them below 256)
+    on_rank = np.where(contributes, strides3, 0)
+    same = nbr_rank[:, :, :, None] == nbr_rank[:, :, None, :]
+    if (same * on_rank[:, :, None, :]).sum(axis=3).max(initial=0) >= 256:
+        return None
 
     # features in the order of the diameter groups (the plane rows)
     feature_ids, groups = [], []
@@ -226,9 +272,7 @@ def build_distance_tables(processor) -> DistanceTables:
         groups.append((g0, len(feature_ids), float(diameter)))
     F = len(feature_ids)
     if F == 0:
-        raise refuse("no feature")
-    if F > MAX_FEATURES:
-        raise refuse(f"{F} > {MAX_FEATURES} features")
+        return None
     row_of_fn = -np.ones(processor.num_corr, dtype=np.int64)
     row_of_fn[feature_ids] = np.arange(F)
     fn_off = _function_offsets(system)
@@ -250,7 +294,10 @@ def build_distance_tables(processor) -> DistanceTables:
                     mine.append((int(row_of_fn[fn]), int(l), fn))
         mine.sort(key=lambda row: row[0])
         rows.append(mine)
-    L = max(1, max(len(mine) for mine in rows))
+    max_rows = max(len(mine) for mine in rows)
+    if max_rows == 0 or reference_table_bytes(R, max_rows, F, tmax) > REFERENCE_TABLE_BUDGET:
+        return None
+    L = max_rows
     K = sites3.shape[2]
     nbr = -np.ones((R, L, K), dtype=np.int64)
     stride = np.zeros((R, L, K), dtype=np.int64)
@@ -280,6 +327,14 @@ def build_distance_tables(processor) -> DistanceTables:
         return np.concatenate([x, np.zeros_like(x[:, :1])], axis=1)
 
     meta = pack_rows(nbr, stride, d2)
+    meta4 = pack_wide_rows(nbr, stride, d2)
+    # a row's values are its feature's (corr_flat / fn_cluster_count of its
+    # function), so one [F, TM] table serves every rank's rows of a feature
+    gfeat = np.zeros((F, tmax), dtype=np.float64)
+    for f in range(F):
+        ranks = np.flatnonzero(seg[:, f + 1] > seg[:, f])
+        if len(ranks):
+            gfeat[f] = g[ranks[0], seg[ranks[0], f]]
     rr = np.arange(R)[:, None, None]
     nbr_p = with_zero_row(nbr)
     nbr_p[:, L] = -1
@@ -316,6 +371,8 @@ def build_distance_tables(processor) -> DistanceTables:
         sub_offset=dev(np.concatenate([[0], np.cumsum(n_active)[:-1]]), torch.int64),
         n_active=dev(n_active, torch.int64),
         meta=None if meta is None else dev(meta, torch.int32),
+        gfeat=dev(gfeat, torch.float64),
+        meta4=None if meta4 is None else dev(meta4, torch.int32),
         padded={
             "nbr": dev(nbr_p[rr, slot], torch.int64),
             "stride": dev(with_zero_row(stride)[rr, slot], torch.int64),
@@ -341,6 +398,25 @@ def pack_rows(nbr, stride, d2):
     strides[..., :K] = stride
     words = np.stack([d2 | ranks[..., 0] << 8 | ranks[..., 1] << 16 | ranks[..., 2] << 24,
                       strides[..., 0] | strides[..., 1] << 8 | strides[..., 2] << 16], axis=-1)
+    return words.astype(np.uint32).view(np.int32)
+
+
+def pack_wide_rows(nbr, stride, d2):
+    """[R, L, 4] int32: each row in one 16-byte word of the wide body, or None
+    where a field does not fit (more than 4 slots, 256 ranks, a stride of
+    256): d2; the slots' ranks in bytes 0-3 of word 1; their strides in bytes
+    0-3 of word 2; word 3 unused.  An empty slot reads rank 0 times stride
+    0."""
+    R, L, K = nbr.shape
+    if K > 4 or R > 256 or stride.max(initial=0) > 255:
+        return None
+    ranks = np.zeros((R, L, 4), dtype=np.int64)
+    strides = np.zeros((R, L, 4), dtype=np.int64)
+    ranks[..., :K] = np.where(nbr >= 0, nbr, 0)
+    strides[..., :K] = stride
+    shifts = np.array([0, 8, 16, 24])
+    words = np.stack([d2, (ranks << shifts).sum(axis=-1), (strides << shifts).sum(axis=-1),
+                      np.zeros_like(d2)], axis=-1)
     return words.astype(np.uint32).view(np.int32)
 
 
@@ -446,7 +522,7 @@ def distance_chain_reference(occ, best_occ, feat, d, best_d, naccept, beta32,
     its data needs.
     """
     W = occ.shape[1]
-    lanes = lanes or launch_lanes(W)
+    lanes = lanes or launch_lanes(W, tables=tables)
     walkers = torch.arange(W, device=occ.device)
     group = walkers // block_size
     r_u, _ = chain_draws(rng, int(seed[0]), n_steps, W, block_size, occ.device)
@@ -497,6 +573,8 @@ class DistanceBatch:
     group_diameter: torch.Tensor
     match: torch.Tensor
     meta: torch.Tensor | None = None  # [S, R, L, 2] int32 where every shape packs
+    gfeat: torch.Tensor | None = None  # [S, F, TM] f64
+    meta4: torch.Tensor | None = None  # [S, R, L, 4] int32 where every shape packs
 
     @property
     def num_shapes(self) -> int:
@@ -535,12 +613,14 @@ def stack_distance_tables(tables_seq) -> DistanceBatch:
     match = [_match_tensor(t.device, t.match_tol, t.match_weight) for t in tables_seq]
     names = ("target", "weight", "group_last", "group_diameter")
     packed = all(t.meta is not None for t in tables_seq)
+    packed4 = all(t.meta4 is not None for t in tables_seq)
     if len(tables_seq) == 1:
         return DistanceBatch(
             shapes=tables_seq, nbr=first.nbr[None], stride=first.stride[None],
             d2=first.d2[None], g=first.g[None], seg=first.seg[None],
             **{name: getattr(first, name)[None] for name in names}, match=match[0][None],
-            meta=first.meta[None] if packed else None,
+            meta=first.meta[None] if packed else None, gfeat=first.gfeat[None],
+            meta4=first.meta4[None] if packed4 else None,
         )
     L = max(t.nbr.shape[1] for t in tables_seq)
     K = max(t.nbr.shape[2] for t in tables_seq)
@@ -564,6 +644,7 @@ def stack_distance_tables(tables_seq) -> DistanceBatch:
         seg=torch.stack([t.seg for t in tables_seq]),
         **{name: torch.stack([getattr(t, name) for t in tables_seq]) for name in names},
         match=torch.stack(match), meta=stacked("meta", (L, 2)) if packed else None,
+        gfeat=stacked("gfeat", (TM,)), meta4=stacked("meta4", (L, 4)) if packed4 else None,
     )
 
 
@@ -572,8 +653,9 @@ class _Design:
     """How the distance kernel is launched: its threads per walker (None:
     :func:`launch_lanes` of the launch's walkers), whether every rank's rows
     stay in shared memory (None: wherever they fit), whether a batch of
-    shapes is one launch, and whether the rows are read packed
-    (:func:`pack_rows`, where the tables have them and F <= 8).  Private:
+    shapes is one launch, and whether the rows are read packed where the
+    tables have them (:func:`pack_rows`, F <= 8; :func:`pack_wide_rows` in
+    the wide body, 1.93-1.98x the unpacked rows on the H100).  Private:
     the A/B of ``chip_smoke.py`` and the tests choose one; users get the
     default."""
 
@@ -587,7 +669,7 @@ _DESIGN = _Design()
 _OLD_DESIGN = _Design(lanes=1, resident=False, batched=False, packed=False)
 
 
-def launch_lanes(walkers, design=_DESIGN):
+def launch_lanes(walkers, design=_DESIGN, tables=None):
     """Threads per walker of a launch of ``walkers`` walkers (every shape's):
     the design's, else the fewest (1, 2, 4, 8 or 16) that give the launch
     ``LANE_THREADS`` threads.  A launch that fills the card (the 20 8-site
@@ -596,25 +678,45 @@ def launch_lanes(walkers, design=_DESIGN):
     walkers runs fastest at 16, spread over more warps (NVIDIA H100,
     ``PERF.md``).  The lanes set the order of df's sums, so a shape's
     features round as the lanes of its launch sum them; its draws do not
-    depend on the launch."""
+    depend on the launch.  Given the launch's ``tables`` (a
+    :class:`DistanceTables` or a :class:`DistanceBatch`), a launch of the
+    wide body (:func:`wide_launch`) takes the fewest that give it
+    ``WIDE_LANE_THREADS``: its rows come from the L2 cache, whose latency
+    more warps hide, and its shared memory a walker (f and fn) does not
+    grow with the lanes."""
     if design.lanes:
         return design.lanes
+    wide = tables is not None and wide_launch(tables)
+    target = WIDE_LANE_THREADS if wide else LANE_THREADS
     lanes = 1
-    while lanes < MAX_LANES and walkers * lanes < LANE_THREADS:
+    while lanes < MAX_LANES and walkers * lanes < target:
         lanes *= 2
     return lanes
 
 
-def _resolve(design, walkers):
+def _resolve(design, walkers, tables):
     """``design`` with its lanes for a launch of ``walkers`` walkers."""
-    return dataclasses.replace(design, lanes=launch_lanes(walkers, design))
+    return dataclasses.replace(design, lanes=launch_lanes(walkers, design, tables))
 
 
-def distance_block_walkers(W, block_size, design=_DESIGN):
+def distance_block_walkers(W, block_size, design=_DESIGN, tables=None):
     """Walkers of one CUDA block: a block must lie inside one sequence group
-    of ``block_size`` walkers, since its threads share the group's pairs."""
-    wb = min(64, DISTANCE_THREADS // launch_lanes(W, design))
-    return wb if W <= block_size or block_size % wb == 0 else math.gcd(block_size, wb)
+    of ``block_size`` walkers, since its threads share the group's pairs.
+    Given the launch's ``tables`` (a :class:`DistanceTables` or a
+    :class:`DistanceBatch`) of the wide body, they are halved until the
+    block's shared memory fits (:func:`wide_shared_bytes`)."""
+    wide = tables is not None and wide_launch(tables)
+    lanes = launch_lanes(W, design, tables)
+    wb = min(64, DISTANCE_THREADS // lanes)
+    wb = wb if W <= block_size or block_size % wb == 0 else math.gcd(block_size, wb)
+    if wide:
+        R, F, TM = tables.nbr.shape[-3], tables.num_feats, tables.g.shape[-1]
+        while wide_shared_bytes(R, F, TM, wb) > MAX_SHARED_BYTES:
+            if wb == 1:
+                raise ValueError(f"distance_chain: {F} features a walker do not fit "
+                                 "in shared memory")
+            wb = wb // 2 if wb % 2 == 0 else 1
+    return wb
 
 
 def _packed(tables, design):
@@ -622,13 +724,20 @@ def _packed(tables, design):
     return design.packed and tables.meta is not None and tables.num_feats <= 8
 
 
-def distance_chain_shared_bytes(tables, W, block_size, design=_DESIGN, resident=False):
-    """Dynamic shared memory of one launch of W walkers a shape, in bytes
-    (``shared_bytes`` of distance_chain.cu): every rank's rows
-    (``resident``) or two buffers of u's and v's rows, every rank's segment
-    starts, and the block's codes and best codes.  ``tables`` is a
-    :class:`DistanceTables` or a :class:`DistanceBatch`."""
-    design = _resolve(design, W * getattr(tables, "num_shapes", 1))
+def wide_shared_bytes(R, F, TM, walkers_per_block) -> int:
+    """Dynamic shared memory of a block of the wide body, in bytes
+    (``wide_shared_bytes`` of distance_chain.cu): each feature's values
+    [F, TM] and the score's constants (f64), each walker's f and fn, the
+    group ends and the segment starts (int32), the codes and the best
+    codes."""
+    doubles = F * (TM + 3 + 2 * walkers_per_block) * 8
+    ints = -(-((F + R * (F + 1)) * 4) // 16) * 16
+    pitch = -(-walkers_per_block // 4) * 4 + 4
+    return doubles + ints + 2 * R * pitch
+
+
+def _register_bytes(tables, W, block_size, design, resident):
+    """Dynamic shared memory of a launch of a register body (F <= 32)."""
     R, L, K = tables.nbr.shape[-3:]
     meta = 8 * L if _packed(tables, design) else L * (2 * K + 1) * 4
     row_set = -(-(L * tables.g.shape[-1] * 8 + meta) // 16) * 16
@@ -637,10 +746,42 @@ def distance_chain_shared_bytes(tables, W, block_size, design=_DESIGN, resident=
     return (R if resident else 4) * row_set + seg_bytes + 2 * R * pitch
 
 
+def wide_launch(tables) -> bool:
+    """Whether launches of ``tables`` run the kernel's wide body: above
+    ``REGISTER_FEATURES`` features, or where the register bodies' four
+    streamed row sets do not fit in shared memory beside the codes of the
+    largest block."""
+    if tables.num_feats > REGISTER_FEATURES:
+        return True
+    R, L, K = tables.nbr.shape[-3:]
+    row_set = -(-(L * tables.g.shape[-1] * 8 + L * (2 * K + 1) * 4) // 16) * 16
+    seg_bytes = -(-(R * (tables.num_feats + 1) * 4) // 16) * 16
+    return 4 * row_set + seg_bytes + 2 * R * 68 + STATIC_SHARED_BYTES > MAX_SHARED_BYTES
+
+
+def distance_chain_shared_bytes(tables, W, block_size, design=_DESIGN, resident=False):
+    """Dynamic shared memory of one launch of W walkers a shape, in bytes
+    (``shared_bytes`` of distance_chain.cu): every rank's rows
+    (``resident``) or two buffers of u's and v's rows, every rank's segment
+    starts, and the block's codes and best codes; for the wide body
+    (:func:`wide_launch`, which keeps no rows), :func:`wide_shared_bytes`.
+    ``tables`` is a :class:`DistanceTables` or a :class:`DistanceBatch`."""
+    design = _resolve(design, W * getattr(tables, "num_shapes", 1), tables)
+    if wide_launch(tables):
+        wb = distance_block_walkers(W, block_size, design, tables)
+        return wide_shared_bytes(tables.nbr.shape[-3], tables.num_feats,
+                                 tables.g.shape[-1], wb)
+    return _register_bytes(tables, W, block_size, design, resident)
+
+
 def _resident(tables, W, block_size, design):
     """Whether a launch keeps every rank's rows in shared memory: where they
     fit beside the codes and the kernel's static shared memory (at most
-    ``STATIC_SHARED_BYTES``)."""
+    ``STATIC_SHARED_BYTES``); never in the wide body."""
+    if wide_launch(tables):
+        if design.resident:
+            raise ValueError("distance_chain: the wide body keeps no rows in shared memory")
+        return False
     smem = distance_chain_shared_bytes(tables, W, block_size, design, True)
     fits = smem + STATIC_SHARED_BYTES <= MAX_SHARED_BYTES
     if design.resident and not fits:
@@ -653,8 +794,12 @@ def _launch(occ, best_occ, feat, d, best_d, naccept, beta32, useq, vseq, seed, b
     """One kernel launch over the [S, ...] operands of ``batch``."""
     S, R, W = occ.shape
     L, K = batch.nbr.shape[2:]
-    design = _resolve(design, S * W)
-    packed = _packed(batch, design)
+    wide = wide_launch(batch)
+    design = _resolve(design, S * W, batch)
+    # the wide body reads each feature's values [S, F, TM] and its rows
+    # packed in one 16-byte word where they fit (pack_wide_rows)
+    packed = (design.packed and batch.meta4 is not None) if wide else _packed(batch, design)
+    meta = batch.meta4 if wide else batch.meta
     resident = _resident(batch, W, block_size, design)
     smem = distance_chain_shared_bytes(batch, W, block_size, design, resident)
     if smem > MAX_SHARED_BYTES:
@@ -670,15 +815,17 @@ def _launch(occ, best_occ, feat, d, best_d, naccept, beta32, useq, vseq, seed, b
             best_d.data_ptr(), naccept.data_ptr(), beta32.data_ptr(),
             useq.data_ptr(), vseq.data_ptr(), useq.stride(1), useq.stride(0),
             seed.data_ptr(), batch.nbr.data_ptr(), batch.stride.data_ptr(),
-            batch.d2.data_ptr(), batch.g.data_ptr(), batch.seg.data_ptr(),
-            batch.target.data_ptr(), batch.weight.data_ptr(),
+            batch.d2.data_ptr(), (batch.gfeat if wide else batch.g).data_ptr(),
+            batch.seg.data_ptr(), batch.target.data_ptr(), batch.weight.data_ptr(),
             batch.group_last.data_ptr(), batch.group_diameter.data_ptr(),
-            batch.match.data_ptr(), batch.meta.data_ptr() if packed else None, S, R, L, K,
+            batch.match.data_ptr(), meta.data_ptr() if packed else None, S, R, L, K,
             batch.g.shape[3], batch.num_feats, W, block_size, n_steps, RNG_MODES[rng],
-            design.lanes, distance_block_walkers(W, block_size, design), int(resident),
-            int(packed), stream,
+            design.lanes, distance_block_walkers(W, block_size, design, batch),
+            int(resident), int(packed), int(wide), stream,
         )
     distance_chain.launches += 1
+    if wide:
+        distance_chain.wide_launches += 1
     _launch_check(lib, "distance_chain", rc)
 
 
@@ -722,7 +869,7 @@ def distance_chain(occ, best_occ, feat, d, best_d, naccept, beta32, useq, vseq,
     if occ.device.type == "cpu":
         distance_chain_reference(occ, best_occ, feat, d, best_d, naccept, beta32,
                                  useq, vseq, seed, tables, n_steps, block_size, rng,
-                                 lanes=launch_lanes(W, _design))
+                                 lanes=launch_lanes(W, _design, tables))
         return
     _check_device("distance_chain", occ, rng)
     _launch(occ[None], best_occ[None], feat[None], d[None], best_d[None], naccept[None],
@@ -731,6 +878,7 @@ def distance_chain(occ, best_occ, feat, d, best_d, naccept, beta32, useq, vseq,
 
 
 distance_chain.launches = 0
+distance_chain.wide_launches = 0  # of them, launches of the wide body
 
 
 def _check_batch(occ, best_occ, feat, d, best_d, naccept, beta32, useq, vseq, seed,
@@ -769,7 +917,7 @@ def distance_chain_batched_reference(occ, best_occ, feat, d, best_d, naccept, be
     on each shape's slice of the [S, ...] operands, in place, at ``lanes``
     (default: :func:`launch_lanes` of the launch's S x W walkers; ``work``,
     an optional [S, 2, W] int64 tensor, gains each shape's work counts)."""
-    lanes = lanes or launch_lanes(occ.shape[0] * occ.shape[2])
+    lanes = lanes or launch_lanes(occ.shape[0] * occ.shape[2], tables=batch)
     for s, tables in enumerate(batch.shapes):
         distance_chain_reference(occ[s], best_occ[s], feat[s], d[s], best_d[s],
                                  naccept[s], beta32[s], useq[s], vseq[s], seed[s: s + 1],
@@ -794,7 +942,7 @@ def distance_chain_batched(occ, best_occ, feat, d, best_d, naccept, beta32, useq
     _check_batch(occ, best_occ, feat, d, best_d, naccept, beta32, useq, vseq, seed,
                  batch, n_steps, block_size)
     S, _, W = occ.shape
-    _design = _resolve(_design, S * W if _design.batched else W)
+    _design = _resolve(_design, S * W if _design.batched else W, batch)
     if occ.device.type == "cpu":
         distance_chain_batched_reference(occ, best_occ, feat, d, best_d, naccept, beta32,
                                          useq, vseq, seed, batch, n_steps, block_size,

@@ -1,10 +1,9 @@
 """Integer/lattice math: HNF, SNF, Diophantine solvers, flip-table tools.
 
 Counterpart of ``smol_tpu/utils/math.py``, whose code it copies, the part
-that ``moca/composition/space.py`` and the supercell enumeration
-(``capp/generate/enumerate.py``) need: without ``flip_weights_mask`` and
-``choose_section_from_partition``, which only the host single-walker
-``TableFlip`` takes (ROADMAP.md Queue 1 item 6). In
+that ``moca/composition/space.py``, the supercell enumeration
+(``capp/generate/enumerate.py``) and the host single-walker ``TableFlip``
+(``flip_weights_mask``, ``choose_section_from_partition``) need.  In
 this module "the reference" is smol (CederGroupHub/smol).
 
 Covers the reference's math utilities (smol/utils/math.py) with the optional
@@ -47,6 +46,8 @@ __all__ = [
     "count_row_matches",
     "get_optimal_basis",
     "get_ergodic_vectors",
+    "flip_weights_mask",
+    "choose_section_from_partition",
 ]
 
 
@@ -527,3 +528,29 @@ def get_ergodic_vectors(n0, vs, xs, k: int = 3):
             break
     return selected
 
+
+def flip_weights_mask(flip_vectors, n, max_n=None) -> np.ndarray:
+    """Feasibility of each flip direction and its inverse given counts n."""
+    flips = np.asarray(flip_vectors, dtype=np.int64)
+    directions = np.concatenate([(u, -u) for u in flips], axis=0)
+    n = np.asarray(n)
+    if max_n is None:
+        max_n = np.full(len(n), np.inf)
+    elif isinstance(max_n, (int, np.integer)):
+        max_n = np.full(len(n), max_n)
+    else:
+        max_n = np.asarray(max_n)
+    return ~(
+        np.any(directions + n < 0, axis=-1) | np.any(directions + n > max_n, axis=-1)
+    )
+
+
+def choose_section_from_partition(probabilities, rng=None) -> int:
+    """Sample an index proportional to the given (unnormalized) weights."""
+    rng = np.random.default_rng(rng)
+    p = np.asarray(probabilities, dtype=np.float64)
+    if np.allclose(p, 0):
+        p = np.ones(len(p))
+    if not np.all(p >= -NUM_TOL):
+        raise ValueError("Probabilities contain negative number.")
+    return int(rng.choice(len(p), p=p / p.sum()))

@@ -22,10 +22,12 @@
 - the generator on the CPU draws the reference's starting occupancies from
   the same seed, keeps every composition, never loses ground, stores exact
   scores and finds a matched shell (a negative score) on a small cell;
-- what the port refuses raises: the cluster-interaction distance, a
-  non-swap step, duplicate removal, structures, shape enumeration, the
-  multicell sampler, a restricted sublattice, ``device="cuda"`` without a
-  card; and the wrapper runs the twin for CPU tensors, counting no launch;
+- what the port once refused is the reference's now (the
+  cluster-interaction distance, a non-swap step with the reference's
+  warning, the multicell sampler, no distance tables for a restricted
+  sublattice, shape enumeration); shapes loaded from system dicts give no
+  structures, and ``device="cuda"`` without a card raises; the wrapper
+  runs the twin for CPU tensors, counting no launch;
 - the kernel's lanes and packed rows, through their twins: at one lane
   the twin equals the twin recorded before lanes existed, bit for bit
   (``torch_sqs_twin_one_lane.npz``, on an 8-site and the 64-site shape,
@@ -364,28 +366,42 @@ def test_generator_on_cpu():
 
 def test_refusals():
     refs, ports = _small_generator_shapes()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ClusterInteractionDistanceProcessor(ports[0].system, "cpu")
-    with pytest.raises(NotImplementedError, match="step_type"):
-        StochasticSQSGenerator(ports, device="cpu", step_type="flip")
-    generator = StochasticSQSGenerator.from_processors(ports[:1], device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        generator.sampler
-    # the shapes of a structure are enumerated (item 5(d) is ported): the
-    # reference's twenty 8-site fcc shapes, least skewed first
+    # what the port refused before is the reference's now: the
+    # cluster-interaction distance, non-swap steps (with the reference's
+    # warning), the multicell sampler, a restricted sublattice on the
+    # per-step path (no distance tables)
     from smol_tpu.capp.generate.enumerate import enumerate_supercell_matrices
+    from smol_tpu.moca.processor.distance import ClusterInteractionDistanceProcessor as RefCI
 
     from smol_tpu_torch.benchmarks.systems import fcc_binary_prim as port_fcc
+    from smol_tpu_torch.cofe import ClusterSubspace as PortSubspace
+    from smol_tpu_torch.moca.kernel.multicell import MulticellMetropolis
 
+    scm = ports[0].supercell_matrix
+    ci = ClusterInteractionDistanceProcessor(PortSubspace.from_cutoffs(port_fcc(), {2: 4.0}),
+                                             scm, device="cpu")
+    ref_ci = RefCI(ClusterSubspace.from_cutoffs(fcc_binary_prim(), {2: 4.0}), scm)
+    occu = np.arange(8, dtype=np.int32) % 2
+    np.testing.assert_allclose(ci.compute_feature_vector(occu),
+                               ref_ci.compute_feature_vector(occu), rtol=0, atol=1e-12)
+    with pytest.warns(UserWarning, match="Step type flip"):
+        StochasticSQSGenerator(ports, device="cpu", step_type="flip")
+    generator = StochasticSQSGenerator.from_processors(ports[:1], device="cpu")
+    assert isinstance(generator.sampler.mckernel, MulticellMetropolis)
+    assert generator.sampler.execution_path() == "host-single-step"
+    # the shapes of a structure are enumerated (item 5(d) is ported): the
+    # reference's twenty 8-site fcc shapes, least skewed first
     built = StochasticSQSGenerator.from_structure(port_fcc(), {2: 4.0}, 8, device="cpu")
     expect = enumerate_supercell_matrices(
         8, ClusterSubspace.from_cutoffs(fcc_binary_prim(), {2: 4.0}).symops)[::-1]
     assert len(built.processors) == len(expect) == 20
     for processor, scm in zip(built.processors, expect):
         np.testing.assert_array_equal(processor.supercell_matrix, scm)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        StochasticSQSGenerator.from_structure(port_fcc(), {2: 4.0}, 8, device="cpu",
-                                              feature_type="cluster-interaction")
+    interaction = StochasticSQSGenerator.from_structure(port_fcc(), {2: 4.0}, 8, device="cpu",
+                                                        feature_type="cluster-interaction")
+    assert interaction.feature_type == "cluster-interaction"
+    assert all(isinstance(p, ClusterInteractionDistanceProcessor)
+               for p in interaction.processors)
     # shapes loaded from system dicts have no structures to give or match
     generator.generate(mcmc_steps=5, temperatures=[1.0], nwalkers=2, seed=0)
     with pytest.raises(ValueError, match="subspace"):
@@ -396,8 +412,7 @@ def test_refusals():
         generator.get_best_sqs(1, remove_duplicates=False)[0].structure
     restricted = CorrelationDistanceProcessor.from_system(ports[0].system, "cpu")
     restricted.get_sublattices()[0].active_sites = restricted.get_sublattices()[0].sites[1:]
-    with pytest.raises(NotImplementedError, match="restricted"):
-        sqs.build_distance_tables(restricted)
+    assert sqs.build_distance_tables(restricted) is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             CorrelationDistanceProcessor.from_system(ports[0].system)

@@ -4,12 +4,12 @@ each shape's own, through the port's twins.
 - the batched twin over four of the bench's 8-site shapes equals each
   shape's own launch at the same lanes, bit for bit;
 - batched ``generate`` equals the shape-by-shape search (best
-  structures, start scores, stage records), bit for bit;
-- where the batch's lanes differ from a shape's own, its draws, codes and
-  accept counts stay equal and its scores agree to 1e-12.
+  structures, start scores, stage records), bit for bit.
 
 These tests take about half of the SQS tests' time; they sit in a file of
-their own so that ``--dist loadfile`` runs them on a worker of their own.
+their own so that ``--dist loadfile`` runs them on a worker of their own,
+and the batch whose lanes differ from its shapes' own in another
+(``tests/test_torch_sqs_batched_lanes.py``).
 """
 
 import functools
@@ -128,31 +128,3 @@ def test_generate_batched_equals_shape_by_shape():
         assert mine["shape"] == theirs["shape"] and mine["temperature"] == theirs["temperature"]
         for key in ("occupancy", "enthalpy", "naccept"):
             assert torch.equal(mine[key], theirs[key]), key
-
-
-def test_batched_generate_lanes_follow_the_launch():
-    """Where a batch's lanes differ from a shape's own (4 shapes of 1024
-    walkers: 8 lanes together, 16 alone), what the batch does not change
-    and what it may: each shape's draws (starts, pairs, random numbers) are
-    its own, so its start scores are equal bit for bit and, with no
-    acceptance here within the rounding of its threshold, so are its codes
-    and accept counts at every stage; the order of df's sums follows the
-    launch, so its scores agree only to rounding (1e-12), and among
-    structures of one score a walker may keep another as its best."""
-    procs = _batch_processors()
-    W, temperatures = 1024, [2.0, 0.5]
-    assert sqs.launch_lanes(len(procs) * W) == 8 and sqs.launch_lanes(W) == 16
-    generator = StochasticSQSGenerator.from_processors(procs, device="cpu")
-    generator.generate(mcmc_steps=30, temperatures=temperatures, nwalkers=W, seed=4)
-    best, starts, records = _generate_shape_by_shape(procs, 30, temperatures, W, 4)
-    for mine, theirs in zip(generator.start_scores, starts):
-        assert torch.equal(mine, theirs)
-    assert len(generator.stage_records) == len(records)
-    for mine, theirs in zip(generator.stage_records, records):
-        assert mine["shape"] == theirs["shape"] and mine["temperature"] == theirs["temperature"]
-        assert torch.equal(mine["occupancy"], theirs["occupancy"])
-        assert torch.equal(mine["naccept"], theirs["naccept"])
-        torch.testing.assert_close(mine["enthalpy"], theirs["enthalpy"], rtol=0, atol=1e-12)
-    for (s1, _, sc1, _), (s2, _, sc2, _) in zip(generator._best, best):
-        assert s1 == s2
-        np.testing.assert_allclose(sc1, sc2, rtol=0, atol=1e-12)
