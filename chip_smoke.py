@@ -296,12 +296,16 @@ printing its last line when any phase fails:
    kernel launched;
 4g. the SQS generator whole (``drive_sqs_generator``): ``sqs-fcc8-wide``
    (Au-Cu FCC, pairs to 9, triplets to 6, quadruplets to 5 Angstrom, the
-   20 8-site shapes, 41 features) built here; K7's wide body (F > 32),
-   its rows packed in one word and unpacked, against its twin bit for bit
-   in both RNG modes on a 300-step launch of the 20 shapes at the main
-   path's lanes, packed on one shape at 1 and 16 lanes, then timed at the
-   main path's launch shape beside the twin and the bound, and the two row
-   layouts in turns; the search on bench ``sqs``'s schedule (2048 walkers
+   20 8-site shapes, 41 features) built here; K7's wide body (F > 32,
+   each step's rows staged in shared memory by bulk copies), its rows
+   staged as rank rows and as slot rows, against its twin bit for bit in
+   both RNG modes on a ``WIDE_TWIN_STEPS``-step launch of the 20 shapes at
+   the main path's lanes, rank rows on one shape at 1 and 16 lanes (at 16
+   also a chunk a feature), then timed at the main path's launch shape
+   beside the twin and the bound (kernel/bound of the 20-step and the
+   8000-step launch), and the design's parts in turns (rank against slot
+   rows, the lanes, the stages, the walkers a block); the search on bench
+   ``sqs``'s schedule (2048 walkers
    x 4 temperatures x 8000 steps: one wide launch a temperature, counts
    set to 0 just before and read just after), each best equal to its exact
    CPU rescore; ``sqs-ternary12-step`` (Au-Ag-Cu FCC, pairs to 7, triplets
@@ -486,8 +490,9 @@ WIDE_CELL = "sqs-fcc8-wide"
 WIDE_CUTOFFS = {2: 9.0, 3: 6.0, 4: 5.0}
 WIDE_SIZE = 8
 WIDE_TWIN_WALKERS = 32
+WIDE_TWIN_STEPS = 100  # the 20 shapes' launch against the twin
 WIDE_TIMED_STEPS = 20  # the timed launch at the main path's shape, twin beside it
-WIDE_AB_STEPS = 500  # the packed word against unpacked rows, in turns
+WIDE_AB_STEPS = 500  # the design's parts in turns
 WIDE_LANE_STEPS = 100  # one shape's launches at 1 and 16 lanes against the twin
 # sqs-ternary12-step: ternary Au-Ag-Cu FCC, pairs to 7 and triplets to 5
 # Angstrom at size 12 (41 shapes, F = 60): over the reference's 8 MB table
@@ -712,10 +717,10 @@ def kernel_label(line):
         args.append(f"K={k if k != '0' else 'runtime'}, FMAX={fmax}, "
                     f"packed={packed == '1'}, one_lane={one_lane == '1'}")
         return f"{name}<{', '.join(args)}>"
-    wide = re.search(r"distance_chain_wide_kernelILi(\d+)ELb([01])E", line)
+    wide = re.search(r"distance_chain_wide_kernelILi(\d+)E", line)
     if wide:
-        k, packed = wide.groups()
-        return f"{name}<K={k if k != '0' else 'runtime'}, packed={packed == '1'}>"
+        words = wide.group(1)
+        return f"{name}<{f'rank rows of {words} words' if words != '0' else 'slot rows'}>"
     ewald = re.search(r"Lb([01])E", line)
     if ewald:
         args.append(f"ewald={ewald.group(1) == '1'}")
@@ -3127,31 +3132,33 @@ def wide_generator(device="cuda"):
 
 def wide_kernel_vs_twin(procs):
     """Phase 4g: K7's wide body (F > 32) against its twin, bit for bit on every
-    walker, in both RNG modes: one 300-step launch of the 20 shapes at the
-    main path's lanes (those of 20 x 2048 walkers), its rows packed in one
-    word (the default) and unpacked (``_Design(packed=False)``, the layout
-    of rows that do not pack: more than 4 slots, 256 ranks), each against
-    the one twin run; and one shape's ``WIDE_LANE_STEPS``-step launch at 1
-    and 16 lanes; at
-    ``WIDE_TWIN_WALKERS`` walkers a shape (the twin's padded rows take W x
-    F x P x TM doubles a step).  Returns the largest score difference
-    (0.0)."""
+    walker, in both RNG modes: one ``WIDE_TWIN_STEPS``-step launch of the 20
+    shapes at the main path's lanes (those of 20 x 2048 walkers), its rows
+    staged as rank rows (the default) and as slot rows
+    (``_Design(packed=False)``, the layout of rows that do not pack: more
+    than 8 ranks, a stride sum above 255), each against the one twin run;
+    and one shape's ``WIDE_LANE_STEPS``-step launch at 1 and 16 lanes, the
+    16-lane one also with stages of the least size the plan allows (one
+    feature's rows of u and v, so that a step runs as many chunks as it has
+    features); at ``WIDE_TWIN_WALKERS`` walkers a shape (the twin's padded
+    rows take W x F x P x TM doubles a step).  Returns the largest score
+    difference (0.0)."""
     err = 0.0
     F = distance_tables(procs[0]).num_feats
     check(F > sqs.REGISTER_FEATURES, f"{WIDE_CELL} has {F} features")
     for rng, seed in SEEDS:
-        ops, _ = batched_operands(procs, SQS_WINDOW, 2.0, seed, walkers=WIDE_TWIN_WALKERS)
+        ops, _ = batched_operands(procs, WIDE_TWIN_STEPS, 2.0, seed, walkers=WIDE_TWIN_WALKERS)
         batch = ops["batch"]
-        check(sqs.wide_launch(batch) and batch.meta4 is not None,
-              "the wide launch plan, rows packed")
+        check(sqs.wide_launch(batch) and batch.rank_rows is not None,
+              "the wide launch plan, rank rows")
         lanes = sqs.launch_lanes(len(procs) * SQS_WALKERS, tables=batch)
         t = fresh_distance(ops)
         sqs.distance_chain_batched_reference(**t, rng=rng, lanes=lanes)
-        for layout, packed in (("packed", True), ("unpacked", False)):
+        for layout, packed in (("rank rows", True), ("slot rows", False)):
             k = fresh_distance(ops)
             before = sqs.distance_chain.wide_launches
-            sqs.distance_chain_batched(**k, rng=rng,
-                                       _design=sqs._Design(lanes=lanes, packed=packed))
+            design = sqs._Design(lanes=lanes, packed=packed)
+            sqs.distance_chain_batched(**k, rng=rng, _design=design)
             check(sqs.distance_chain.wide_launches == before + 1, "no wide launch")
             for s, proc in enumerate(procs):
                 shape = {key: ops[key][s] for key in DISTANCE_STATE}
@@ -3159,31 +3166,63 @@ def wide_kernel_vs_twin(procs):
                 err = max(err, compare_distance(
                     f"wide {rng}, {layout}, batched, shape {s}", proc,
                     {key: k[key][s] for key in DISTANCE_STATE},
-                    {key: t[key][s] for key in DISTANCE_STATE}, shape, SQS_WINDOW, quiet=True))
-            print(f"phase 4g [K7 wide body, {WIDE_CELL}, {rng}, rows {layout}]: one "
-                  f"{SQS_WINDOW}-step launch of {len(procs)} shapes x {WIDE_TWIN_WALKERS} "
-                  f"walkers at {lanes} lanes, F = {F}: kernel == twin bit for bit on every "
-                  f"walker of every shape (occupancy, best occupancy, features, score, best "
-                  f"score, accepts), compositions kept, each score == its exact rescore "
-                  f"(< 1e-9)")
+                    {key: t[key][s] for key in DISTANCE_STATE}, shape, WIDE_TWIN_STEPS,
+                    quiet=True))
+            plan = sqs.wide_plan(batch, WIDE_TWIN_WALKERS, SQS_BLOCK, design)
+            print(f"phase 4g [K7 wide body, {WIDE_CELL}, {rng}, {layout}]: one "
+                  f"{WIDE_TWIN_STEPS}-step launch of {len(procs)} shapes x "
+                  f"{WIDE_TWIN_WALKERS} walkers at {lanes} lanes, F = {F}, stages of "
+                  f"{plan.stage_bytes} B ({plan.row_bytes} B a row): kernel == twin bit for "
+                  f"bit on every walker of every shape (occupancy, best occupancy, features, "
+                  f"score, best score, accepts), compositions kept, each score == its exact "
+                  f"rescore (< 1e-9)")
+        ops1 = distance_operands(procs[0], WIDE_LANE_STEPS, 2.0, seed,
+                                 walkers=2 * WIDE_TWIN_WALKERS)
+        tables = distance_tables(procs[0])
         for one_lanes in (1, 16):
-            ops1 = distance_operands(procs[0], WIDE_LANE_STEPS, 2.0, seed,
-                                     walkers=2 * WIDE_TWIN_WALKERS)
-            k, t = fresh_distance(ops1), fresh_distance(ops1)
-            sqs.distance_chain(**k, rng=rng, _design=sqs._Design(lanes=one_lanes))
+            t = fresh_distance(ops1)
             sqs.distance_chain_reference(**t, rng=rng, lanes=one_lanes)
-            err = max(err, compare_distance(f"K7 wide body, {WIDE_CELL} shape 0, {rng}, "
-                                            f"{WIDE_LANE_STEPS} steps, {one_lanes} lane(s)",
-                                            procs[0], k, t, ops1, WIDE_LANE_STEPS))
+            designs = [sqs._Design(lanes=one_lanes)]
+            if one_lanes == 16:  # a chunk a feature: the ring's smallest stage
+                least = 2 * (-(-tables.feature_rows_max * 8 // 16) * 16 + 16)
+                designs.append(sqs._Design(lanes=one_lanes, stage_bytes=least))
+            for design in designs:
+                k = fresh_distance(ops1)
+                sqs.distance_chain(**k, rng=rng, _design=design)
+                stage = sqs.wide_plan(tables, 2 * WIDE_TWIN_WALKERS, SQS_BLOCK,
+                                      design).stage_bytes
+                err = max(err, compare_distance(
+                    f"K7 wide body, {WIDE_CELL} shape 0, {rng}, {WIDE_LANE_STEPS} steps, "
+                    f"{one_lanes} lane(s), stages of {stage} B", procs[0], k, t, ops1,
+                    WIDE_LANE_STEPS))
     return err
+
+
+def wide_designs(batch, lanes):
+    """The wide body's design parts at the 20-shape launch, each pair (the
+    other, the default) for :func:`distance_in_turns`: the rank rows against
+    slot rows; the plan's lanes against 1, 2, 4 and 8; the stages two
+    blocks an SM leave (a step in two chunks) against a whole step a stage
+    (one block an SM); 64 walkers a block against 32."""
+    new = sqs._Design(lanes=lanes)
+    whole = 2 * (-(-batch.rows_max * 8 // 16) * 16)  # a step's rank rows of u and v
+    return {
+        "rows": ("rank rows against slot rows", sqs._Design(lanes=lanes, packed=False), new),
+        **{f"lanes {g}": (f"{lanes} lanes against {g}", sqs._Design(lanes=g), new)
+           for g in (1, 2, 4, 8) if g != lanes},
+        "stage": ("two blocks an SM against a whole step a stage",
+                  sqs._Design(lanes=lanes, stage_bytes=whole), new),
+        "walkers": ("64 walkers a block against 32", sqs._Design(lanes=lanes, walkers=32),
+                    new),
+    }
 
 
 def wide_timed(procs, card, reps=2):
     """Phase 4g: the wide body at the main path's launch shape (the 20 shapes x
     2048 walkers, its lanes): its ``WIDE_TIMED_STEPS``-step launch against the
-    twin (bit for bit), its time, the twin's and the bound; the packed word
-    against unpacked rows in turns on a ``WIDE_AB_STEPS``-step launch; and
-    the kernel's 8000-step launch alone."""
+    twin (bit for bit), its time, the twin's and the bound; each part of the
+    design against its alternative in turns on a ``WIDE_AB_STEPS``-step
+    launch (:func:`wide_designs`); and the kernel's 8000-step launch alone."""
     beta, seed = 1.0 / SQS_TEMPERATURES[0], SEEDS[1][1]
     ops, _ = batched_operands(procs, WIDE_TIMED_STEPS, beta, seed)
     lanes = sqs.launch_lanes(len(procs) * SQS_WALKERS, tables=ops["batch"])
@@ -3203,24 +3242,27 @@ def wide_timed(procs, card, reps=2):
     kernel_ms = cuda_ms(same_batched_window(ops, reps), reps)
     bound_ms, bound_by, nbytes, n_ops = distance_bound(ops, work)
     ab_ops, _ = batched_operands(procs, WIDE_AB_STEPS, beta, seed)
-    ab = distance_in_turns(f"{WIDE_CELL}, {WIDE_AB_STEPS} steps, rows unpacked against packed",
-                           card, ab_ops, (sqs._Design(lanes=lanes, packed=False),
-                                          sqs._Design(lanes=lanes)), 1, batched=True,
-                           phase="4g")
+    ab = {name: distance_in_turns(f"{WIDE_CELL}, {WIDE_AB_STEPS} steps, {label}", card,
+                                  ab_ops, pair, 1, batched=True, phase="4g")
+          for name, (label, *pair) in wide_designs(ops["batch"], lanes).items()}
     main, _ = batched_operands(procs, SQS_STEPS, beta, seed)
     main_ms = cuda_ms(same_batched_window(main, 1), 1, warm=False)  # the body ran above
     attempts = len(procs) * SQS_WALKERS * SQS_STEPS
+    plan = sqs.wide_plan(ops["batch"], SQS_WALKERS, SQS_BLOCK, sqs._Design(lanes=lanes))
     print(f"phase 4g [K7 wide body, {WIDE_CELL}] {card}: {WIDE_TIMED_STEPS}-step launch at "
-          f"{len(procs)} x {SQS_WALKERS} walkers ({lanes} lanes): kernel == twin bit for bit, "
-          f"kernel "
+          f"{len(procs)} x {SQS_WALKERS} walkers ({lanes} lanes, {plan.walkers} walkers a "
+          f"block, stages of {plan.stage_bytes} B, {plan.shared_bytes} B of shared memory a "
+          f"block): kernel == twin bit for bit, kernel "
           f"{kernel_ms:.4f} ms, twin {twin_ms:.2f} ms, bound {bound_ms * 1e3:.3f} us "
           f"({bound_by}; {nbytes / 1e6:.3f} MB, {n_ops / 1e6:.1f} M f64 operations), "
-          f"kernel/bound {kernel_ms / bound_ms:.0f}x; the main path's {SQS_STEPS}-step "
+          f"kernel/bound {kernel_ms / bound_ms:.1f}x; the main path's {SQS_STEPS}-step "
           f"launch {main_ms:.4f} ms ({main_ms * 1e3 / SQS_STEPS:.3f} us per step, "
-          f"{attempts / (main_ms * 1e-3) / 1e6:.1f} M attempts/s)")
+          f"{attempts / (main_ms * 1e-3) / 1e6:.1f} M attempts/s, kernel/bound "
+          f"{main_ms / (bound_ms * SQS_STEPS / WIDE_TIMED_STEPS):.1f}x against 400 times the "
+          f"{WIDE_TIMED_STEPS}-step bound)")
     return {"kernel_ms": kernel_ms, "twin_ms": twin_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "main_ms": main_ms, "unpacked_ms": ab["a"],
-            "packed_ms": ab["b"]}
+            "bound_by": bound_by, "main_ms": main_ms,
+            "ab": {name: r["turns"] for name, r in ab.items()}}
 
 
 def drive_sqs_wide(card, generator, build_s):
@@ -4146,8 +4188,10 @@ def design_name(design, walkers=None):
     """A design's label; with ``walkers`` (a launch's), its lanes for them."""
     layout = {None: "fit", True: "resident", False: "streamed"}[design.resident]
     lanes = design.lanes or (sqs.launch_lanes(walkers) if walkers else "auto")
+    wide = "".join(f" {name}={value}" for name, value in (
+        ("walkers", design.walkers), ("stage", design.stage_bytes)) if value)
     return (f"G={lanes} {layout}"
-            f"{' packed' if design.packed else ''}{'' if design.batched else ' per-shape'}")
+            f"{' packed' if design.packed else ''}{'' if design.batched else ' per-shape'}{wide}")
 
 
 def distance_in_turns(label, card, ops, designs, reps, batched=False, phase="5"):

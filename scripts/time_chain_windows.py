@@ -33,10 +33,14 @@ K1-Ising and the direct body: device time per launch in CUDA graphs of a
 window's ten), and, where the checkout has them, K3 in the swap chain
 (q = 2 with the Ewald term on ``chip_smoke.EWALD_QARY_CELL``, q = 3 on
 ``chip_smoke.TERNARY_CELL``) and in the table chain (the
-``TABLE_BODY_CELLS`` that take it).
+``TABLE_BODY_CELLS`` that take it), and, where the checkout has it, K7's
+wide body on ``chip_smoke.WIDE_CELL`` (``wide``: the 20 shapes x 2048
+walkers in one launch of ``chip_smoke.WIDE_AB_STEPS`` and one of
+``chip_smoke.SQS_STEPS`` steps, each once after a warm-up launch, each on a
+copy of one starting state, at the checkout's launch plan).
 Further arguments after the tree name the kinds to time (``flip``,
 ``swap``, ``table``, ``wl``, ``distance``, ``ising``, ``segment``,
-``qary``; all without).
+``qary``, ``wide``; all without).
 Prints the card's name and power limit and one ``AB`` line per cell:
 label, move, cell, kernel ms, kernel ms without the Ewald term (``nan``
 for a cell without one); a distance line ends with a checksum of the
@@ -54,7 +58,7 @@ def main():
     label = sys.argv[1]
     tree = Path(sys.argv[2] if len(sys.argv) > 2 else Path(__file__).parent.parent)
     kinds = set(sys.argv[3:]) or {"flip", "swap", "table", "wl", "distance", "ising",
-                                  "segment", "qary"}
+                                  "segment", "qary", "wide"}
     tree = tree.resolve()
     os.chdir(tree)
     sys.path.insert(0, str(tree))
@@ -64,6 +68,7 @@ def main():
     print(card)
     wl_cells = getattr(chip_smoke, "WL_CELLS", {}) if "wl" in kinds else {}
     sqs_cells = getattr(chip_smoke, "SQS_CELLS", ()) if "distance" in kinds else ()
+    wide = "wide" in kinds and hasattr(chip_smoke, "wide_generator")
     ising_cells = getattr(chip_smoke, "ISING_CELLS", {}) if "ising" in kinds else {}
     chip_smoke._build.build_libraries(
         tuple(name for name, on in (("flip_chain", bool(kinds & {"flip", "ising", "segment"})),
@@ -71,7 +76,7 @@ def main():
                                      or bool(ising_cells)),
                                     ("table_chain", bool(kinds & {"table", "qary"})),
                                     ("wl_chain", bool(wl_cells)),
-                                    ("distance_chain", bool(sqs_cells))) if on))
+                                    ("distance_chain", bool(sqs_cells) or wide)) if on))
     cells = [("flip", stem, chip_smoke.BLOCK) for stem in chip_smoke.FLIP_CELLS
              if "flip" in kinds]
     cells += [("table", stem, chip_smoke.BLOCK) for stem in chip_smoke.TABLE_CELLS
@@ -151,6 +156,17 @@ def main():
         checksum = (float(out["d"].sum()), int(out["occ"].long().sum()),
                     int(out["naccept"].sum()))
         print("AB", label, "distance", stem, ms, float("nan"), checksum, flush=True)
+    procs = chip_smoke.wide_generator()[0].processors if wide else ()
+    for steps in (chip_smoke.WIDE_AB_STEPS, chip_smoke.SQS_STEPS) if wide else ():
+        ops, _ = chip_smoke.batched_operands(procs, steps, 1.0 / chip_smoke.SQS_TEMPERATURES[0],
+                                             chip_smoke.SEEDS[1][1])
+        ms = chip_smoke.cuda_ms(chip_smoke.same_batched_window(ops, 1), 1)
+        out = chip_smoke.fresh_distance(ops)
+        chip_smoke.sqs.distance_chain_batched(**out)
+        checksum = (float(out["d"].sum()), int(out["occ"].long().sum()),
+                    int(out["naccept"].sum()))
+        print("AB", label, "wide", f"{chip_smoke.WIDE_CELL}@{steps}", ms, float("nan"),
+              checksum, flush=True)
 
 
 if __name__ == "__main__":

@@ -475,120 +475,232 @@ distance_chain_kernel(int8_t* __restrict__ occ, int8_t* __restrict__ best_occ,
   }
 }
 
-// ---- the wide body: any F ----
+// ---- the wide body: any F, each step's rows staged in shared memory ----
 //
 // The bodies above keep a walker's features and feature change in registers,
 // unrolled over FMAX <= 32, and its pair's rows in shared memory.  Above 32
-// features (the 41-feature Au-Cu FCC distance of up to 2084 rows a rank:
-// 342 KB of rows a rank as the register bodies lay them out), and wherever
-// their streamed row sets do not fit, the wide body runs instead:
+// features (the 41-feature Au-Cu FCC distance of up to 2084 rows a rank),
+// and wherever their streamed row sets do not fit, the wide body runs
+// instead:
 //
 // - A row's values are its feature's (corr_flat / fn_cluster_count of its
 //   function), so one table gf [F, TM] f64 in shared memory serves every
-//   rank's rows; a row itself is d2, K neighbour ranks and K strides, read
-//   from device memory through the L1 and L2 caches (all shapes' rows of
-//   the 20-shape Au-Cu launch: 5.3 MB packed), packed in one 16-byte word
-//   where they fit (ops/sqs.py pack_wide_rows).  The walkers of a block
-//   share the pair (u, v), so a warp reads the same row at the same time.
+//   rank's rows.  Each walker keeps f and fn in two shared buffers
+//   [2][F][walkers] (feature-major: a warp's walkers read consecutive
+//   words); an accept swaps them.  Lane f mod G writes fn[f].
+// - Every walker of a block reads the same rows in a step (they share the
+//   pair (u, v)), so the block stages them: one thread issues Tensor Memory
+//   Accelerator bulk copies (cp.async.bulk, completion on an mbarrier) of
+//   u's and v's rows from device memory into a ring of two stages, a chunk
+//   ahead of the walkers, and the walkers read each row by shared-memory
+//   broadcast.  A chunk is a run of features whose rows of u and of v fit
+//   one stage; a block barrier after each chunk frees its stage for the
+//   copy two chunks on.  The stages take what two blocks an SM leave of its
+//   shared memory (ops/sqs.py wide_plan; 128 registers a thread), so two
+//   blocks share an SM: for the 41-feature distance 115704 bytes a block,
+//   a step's 33344 bytes of rows in two chunks.
+// - Rows come in one of two layouts (ops/sqs.py pack_rank_rows,
+//   pack_slot_rows).  Rank rows, where R <= 8 and a row's strides summed
+//   on any rank and its self stride d2 are below 256: one byte a rank, the
+//   row's strides summed on that rank and, on its own rank, d2.  The walker
+//   holds its codes in registers, one byte a rank, so a row's table index t
+//   is a dot product of bytes (__dp4a) with the codes before the swap, and
+//   t + d2 (b - a) the same with the codes after the row's own change: no
+//   code loads, no decode.  Slot rows take any row: d2, the K ranks and the
+//   K strides as int32, the codes read from the block's codes in shared
+//   memory (u's cell holds b from the start of the step: u's rows never
+//   read u, and v's rows must see b there).
 // - Feature by feature: u's rows (a -> b), then v's (b -> a), each lane its
 //   rows j, j + G, ... of the feature in order into one f64 register; the
 //   lanes' partials meet in the __shfl_xor_sync butterfly; fn = f + df, its
 //   term of the score summed on at once.  This is the other bodies' order:
-//   their df[f] is also u's rows of f, then v's, from 0.  u's cell holds b
-//   from the start of the step: u's rows never read u (a row's own slots are
-//   its self stride d2), and v's rows must see b there.
-// - Each walker keeps f and fn in two shared-memory buffers [2][F][walkers]
-//   (feature-major: a warp's walkers read consecutive words); an accept
-//   swaps them.  Lane f mod G writes fn[f].
+//   their df[f] is also u's rows of f, then v's, from 0.
 //
 // So the wide body equals the plain torch twin (ops/sqs.py
 // distance_chain_reference) bit for bit, in both RNG modes, at every lane
-// count.  Its launches take the fewest lanes that give them 131072
-// threads (ops/sqs.py launch_lanes): more warps to hide the L2 latency,
-// while the shared memory of a walker does not grow with its lanes.
+// count.  What bounds it on this card: the instructions and shared-memory
+// loads a row issues (three loads with rank rows: the row, two values) and
+// their latency, which the 16 warps of two blocks an SM hide in part; its
+// rows' bytes from device memory, about 33 KB a step a block for the
+// 41-feature distance, are a few percent of the L2 cache's rate.
+
+constexpr int kWideThreads = 256;  // most threads of a block of the wide body
+constexpr int kWideBlocks = 2;     // its blocks an SM: 128 registers a thread
+constexpr int kStages = 2;         // the ring's stages
 
 // Dynamic shared memory of a block of the wide body (ops/sqs.py
-// wide_shared_bytes): gf [F, TM], the score's constants [3][F] and each
-// walker's f and fn [2][F][walkers] in f64; the group ends [F] and the
-// segment starts [R][F + 1] in int32; the codes and the best codes.
+// wide_shared_bytes): the ring's stages and their mbarriers; gf [F, TM], the
+// score's constants [3][F] and each walker's f and fn [2][F][walkers] in
+// f64; the group ends [F] and the segment starts [R][F + 1] in int32; the
+// codes and the best codes.
 __host__ __device__ __forceinline__ size_t wide_shared_bytes(int R, int F, int TM,
-                                                             int walkers_per_block) {
+                                                             int walkers_per_block,
+                                                             int stage_bytes) {
   const size_t doubles = (size_t)F * (TM + 3 + 2 * walkers_per_block) * 8;
   const size_t ints = ((size_t)F + (size_t)R * (F + 1)) * 4;
-  return doubles + (ints + 15) / 16 * 16 + 2 * (size_t)R * code_pitch(walkers_per_block);
+  return (size_t)kStages * stage_bytes + 16 + doubles + align16(ints) +
+         2 * (size_t)R * code_pitch(walkers_per_block);
 }
 
-// A wide row's table index t at code a and its self stride d2: from the
-// unpacked rows (d2 [L], nbr and stride [L, K] of the rank) or from one
-// packed 16-byte word (x: d2, y: four ranks' bytes, z: four strides' bytes).
-template <bool PACK4>
-struct WideRows {
-  const int32_t* nbr;
-  const int32_t* st;
-  const int32_t* d2;
-  __device__ __forceinline__ int2 index(int j, const int8_t* codes, int pitch, int K,
-                                        int a) const {
-    const int d = __ldg(d2 + j);
-    int t = d * a;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int n = __ldg(nbr + j * K + k);
-      t += __ldg(st + j * K + k) * (n >= 0 ? (int)codes[n * pitch] : 0);
+// Bytes of a slot row: d2, K ranks, K strides (int32), padded to 16.
+__host__ __device__ __forceinline__ int slot_row_bytes(int K) {
+  return (int)align16((size_t)(1 + 2 * K) * 4);
+}
+
+__device__ __forceinline__ uint32_t shared_address(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void stage_barrier_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(shared_address(bar))
+               : "memory");
+}
+
+// The producer's one arrival on a stage's barrier, which then waits for
+// `bytes` of bulk copies.
+__device__ __forceinline__ void stage_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   shared_address(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// A bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from device memory into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(shared_address(dst)),
+      "l"(src), "r"(bytes), "r"(shared_address(bar))
+      : "memory");
+}
+
+// Wait until the phase of `bar` of this parity has completed.
+__device__ __forceinline__ void stage_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(shared_address(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Rows j0 .. j1 - 1 of a rank as one bulk copy moves them: from the 16-byte
+// boundary at or below row j0 to the one at or above row j1 (a rank's rows
+// start on a boundary: ops/sqs.py pads each rank to row_pitch rows).
+__device__ __forceinline__ int part_begin(int j0, int rb) { return (j0 * rb) & ~15; }
+
+__device__ __forceinline__ int part_bytes(int j0, int j1, int rb) {
+  return j1 > j0 ? ((j1 * rb + 15) & ~15) - part_begin(j0, rb) : 0;
+}
+
+// The end of the chunk that starts at feature f0 of the pair whose segment
+// starts are seg_u and seg_v: the most features whose rows of u and of v fit
+// one stage, at least one (the plan's stage holds any one feature's).
+__device__ __forceinline__ int chunk_end(const int32_t* seg_u, const int32_t* seg_v,
+                                         int f0, int F, int rb, int stage_bytes) {
+  auto bytes = [&](int f1) {
+    return part_bytes(seg_u[f0], seg_u[f1], rb) + part_bytes(seg_v[f0], seg_v[f1], rb);
+  };
+  if (bytes(F) <= stage_bytes) return F;
+  int f1 = f0 + 1;
+  while (f1 < F && bytes(f1 + 1) <= stage_bytes) ++f1;
+  return f1;
+}
+
+// The ring's producer, held by thread 0: the chunks of the steps in order,
+// chunk k into stage k mod kStages.
+struct StageRing {
+  unsigned char* stages;
+  uint64_t* bars;
+  const unsigned char* rows;  // the shape's rows, rank_bytes a rank
+  size_t rank_bytes;
+  const int32_t* seg;  // [R][F + 1] in shared memory
+  const int32_t* useq;
+  const int32_t* vseq;
+  int rb, stage_bytes, F, n_steps;
+  int step = 0, f = 0, k = 0;  // the next chunk: its step, first feature, index
+
+  __device__ void issue() {
+    if (step >= n_steps) return;
+    const int u = __ldg(useq + step);
+    const int v = __ldg(vseq + step);
+    const int32_t* su = seg + u * (F + 1);
+    const int32_t* sv = seg + v * (F + 1);
+    const int f1 = chunk_end(su, sv, f, F, rb, stage_bytes);
+    const int bu = part_bytes(su[f], su[f1], rb);
+    const int bv = part_bytes(sv[f], sv[f1], rb);
+    unsigned char* dst = stages + (size_t)(k % kStages) * stage_bytes;
+    uint64_t* bar = bars + k % kStages;
+    stage_expect(bar, (uint32_t)(bu + bv));
+    if (bu) bulk_copy(dst, rows + u * rank_bytes + part_begin(su[f], rb), bu, bar);
+    if (bv) bulk_copy(dst + bu, rows + v * rank_bytes + part_begin(sv[f], rb), bv, bar);
+    ++k;
+    f = f1;
+    if (f == F) {
+      f = 0;
+      ++step;
     }
-    return make_int2(t, d);
   }
 };
 
-template <>
-struct WideRows<true> {
-  const int4* meta;
-  __device__ __forceinline__ int2 index(int j, const int8_t* codes, int pitch, int,
-                                        int a) const {
-    const int4 m = __ldg(meta + j);
-    const unsigned y = (unsigned)m.y;
-    const unsigned z = (unsigned)m.z;
-    const int t = m.x * a + (int)(z & 0xFF) * codes[(y & 0xFF) * pitch] +
-                  (int)((z >> 8) & 0xFF) * codes[((y >> 8) & 0xFF) * pitch] +
-                  (int)((z >> 16) & 0xFF) * codes[((y >> 16) & 0xFF) * pitch] +
-                  (int)(z >> 24) * codes[(y >> 24) * pitch];
-    return make_int2(t, m.x);
-  }
-};
-
-template <bool PACK4>
-__device__ __forceinline__ WideRows<PACK4> wide_rows(int u, const int32_t* nbr,
-                                                     const int32_t* stride, const int32_t* d2,
-                                                     const int4* meta, int L, int K) {
-  WideRows<PACK4> r;
-  if constexpr (PACK4) {
-    r.meta = meta + (size_t)u * L;
-  } else {
-    r.nbr = nbr + (size_t)u * L * K;
-    r.st = stride + (size_t)u * L * K;
-    r.d2 = d2 + (size_t)u * L;
-  }
-  return r;
+// A walker's codes in registers, a byte a rank: rank r's in byte r mod 4 of
+// c.x (r < 4) or c.y.
+__device__ __forceinline__ int code_of(uint2 c, int r) {
+  return (int)(((r < 4 ? c.x : c.y) >> ((r & 3) * 8)) & 0xFFu);
 }
 
-// One lane: acc += the change of this lane's rows j = first, first + lanes,
-// ... before end (in order) going from code a to b; gf the feature's values.
-template <class RowsT>
-__device__ __forceinline__ double add_wide_rows(double acc, const RowsT& rows,
+__device__ __forceinline__ uint2 with_code(uint2 c, int r, int code) {
+  const int sh = (r & 3) * 8;
+  const uint32_t keep = ~(0xFFu << sh), put = (uint32_t)code << sh;
+  return r < 4 ? make_uint2((c.x & keep) | put, c.y) : make_uint2(c.x, (c.y & keep) | put);
+}
+
+// One lane: acc += the change of this lane's rank rows j = first, first +
+// lanes, ... before end (in order), row j at rows + 8 j; gf the feature's
+// values; the row's index t with the codes before its change (cf), t + d2
+// (b - a) with those after (ct).
+__device__ __forceinline__ double add_rank_rows(double acc, const unsigned char* rows,
                                                 const double* gf, int first, int end,
-                                                const int8_t* codes, int pitch, int K,
-                                                int shift, int a, int b) {
-  const int lanes = 1 << shift;
-  const int count = (end - first + lanes - 1) >> shift;  // this lane's rows
+                                                uint2 cf, uint2 ct, int shift) {
+  const int count = (end - first + (1 << shift) - 1) >> shift;  // this lane's rows
+  const uint2* p = reinterpret_cast<const uint2*>(rows) + first;
 #pragma unroll 4
   for (int q = 0; q < count; ++q) {
-    const int2 td = rows.index(first + q * lanes, codes, pitch, K, a);
-    acc += gf[td.x + td.y * (b - a)] - gf[td.x];
+    const uint2 m = p[q << shift];
+    const int t = (int)__dp4a(m.x, cf.x, __dp4a(m.y, cf.y, 0u));
+    const int tn = (int)__dp4a(m.x, ct.x, __dp4a(m.y, ct.y, 0u));
+    acc += gf[tn] - gf[t];
   }
   return acc;
 }
 
-template <bool PACK4>
-__global__ void __launch_bounds__(kDistanceThreads)
+// The same from slot rows (row j at rows + j * rb), the codes in shared memory.
+__device__ __forceinline__ double add_slot_rows(double acc, const unsigned char* rows,
+                                                const double* gf, int first, int end,
+                                                const int8_t* codes, int pitch, int K,
+                                                int rb, int shift, int a, int b) {
+  const int lanes = 1 << shift;
+  const int count = (end - first + lanes - 1) >> shift;
+#pragma unroll 2
+  for (int q = 0; q < count; ++q) {
+    const int32_t* row = reinterpret_cast<const int32_t*>(rows + (first + q * lanes) * rb);
+    const int d = row[0];
+    int t = d * a;
+    for (int k = 0; k < K; ++k) t += row[1 + K + k] * (int)codes[row[1 + k] * pitch];
+    acc += gf[t + d * (b - a)] - gf[t];
+  }
+  return acc;
+}
+
+// RANK: rank rows (8 bytes, R <= 8), else slot rows.
+template <bool RANK>
+__global__ void __launch_bounds__(kWideThreads, kWideBlocks)
 distance_chain_wide_kernel(int8_t* __restrict__ occ, int8_t* __restrict__ best_occ,
                            double* __restrict__ feat, double* __restrict__ dist,
                            double* __restrict__ best, int32_t* __restrict__ naccept,
@@ -596,24 +708,24 @@ distance_chain_wide_kernel(int8_t* __restrict__ occ, int8_t* __restrict__ best_o
                            const int32_t* __restrict__ useq,
                            const int32_t* __restrict__ vseq, int seq_stride,
                            int seq_shape_stride, const int64_t* __restrict__ seeds,
-                           const int32_t* __restrict__ nbr,
-                           const int32_t* __restrict__ stride,
-                           const int32_t* __restrict__ d2,
+                           const unsigned char* __restrict__ rows,
                            const double* __restrict__ gfeat,
                            const int32_t* __restrict__ seg,
                            const double* __restrict__ target,
                            const double* __restrict__ weight,
                            const int32_t* __restrict__ group_last,
                            const double* __restrict__ group_diameter,
-                           const double* __restrict__ match,
-                           const int4* __restrict__ meta, int R, int L, int K, int TM,
-                           int F, int W, int block_size, int n_steps, int rng_mode,
-                           int lanes, int walkers_per_block) {
+                           const double* __restrict__ match, int R, int K, int TM, int F,
+                           int W, int block_size, int n_steps, int rng_mode, int lanes,
+                           int walkers_per_block, int row_pitch, int stage_bytes) {
+  const int rb = RANK ? 8 : slot_row_bytes(K);
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int wpb = walkers_per_block;
   extern __shared__ __align__(16) unsigned char smem[];
-  double* s_g = reinterpret_cast<double*>(smem);  // [F][TM]
+  unsigned char* s_stage = smem;  // [kStages][stage_bytes]
+  uint64_t* s_bar = reinterpret_cast<uint64_t*>(smem + (size_t)kStages * stage_bytes);
+  double* s_g = reinterpret_cast<double*>(smem + (size_t)kStages * stage_bytes + 16);
   double* s_t = s_g + (size_t)F * TM;
   double* s_w = s_t + F;
   double* s_gd = s_w + F;
@@ -621,7 +733,7 @@ distance_chain_wide_kernel(int8_t* __restrict__ occ, int8_t* __restrict__ best_o
   int32_t* s_last = reinterpret_cast<int32_t*>(s_f + 2 * (size_t)F * wpb);
   int32_t* s_seg = s_last + F;  // [R][F + 1]
   const size_t ints = ((size_t)F + (size_t)R * (F + 1)) * 4;
-  int8_t* s_occ = reinterpret_cast<int8_t*>(s_last) + (ints + 15) / 16 * 16;
+  int8_t* s_occ = reinterpret_cast<int8_t*>(s_last) + align16(ints);
   const int pitch = code_pitch(wpb);
   int8_t* s_best = s_occ + (size_t)R * pitch;
 
@@ -644,13 +756,8 @@ distance_chain_wide_kernel(int8_t* __restrict__ occ, int8_t* __restrict__ best_o
   best += (size_t)s * W;
   naccept += (size_t)s * W;
   beta += (size_t)s * W;
-  if (PACK4) {
-    meta += (size_t)s * R * L;
-  } else {
-    nbr += (size_t)s * R * L * K;
-    stride += (size_t)s * R * L * K;
-    d2 += (size_t)s * R * L;
-  }
+  const size_t rank_bytes = (size_t)row_pitch * rb;
+  rows += (size_t)s * R * rank_bytes;
   gfeat += (size_t)s * F * TM;
   seg += (size_t)s * R * (F + 1);
   target += (size_t)s * F;
@@ -660,6 +767,10 @@ distance_chain_wide_kernel(int8_t* __restrict__ occ, int8_t* __restrict__ best_o
   const double match_tol = match[2 * s];
   const double match_weight = match[2 * s + 1];
 
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) stage_barrier_init(s_bar + st);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   for (int x = tid; x < F * TM; x += nt) s_g[x] = gfeat[x];
   for (int f = tid; f < F; f += nt) {
     s_t[f] = target[f];
@@ -689,63 +800,114 @@ distance_chain_wide_kernel(int8_t* __restrict__ occ, int8_t* __restrict__ best_o
   const Draws draws(seeds[s], grp, wc, block_size);
   __syncthreads();
 
+  uint2 cw = make_uint2(0u, 0u);  // rank rows: the walker's codes, a byte a rank
+  if constexpr (RANK) {
+    for (int r = 0; r < R; ++r) cw = with_code(cw, r, (uint8_t)codes[r * pitch]);
+  }
+  StageRing ring{s_stage, s_bar, rows, rank_bytes, s_seg, my_useq, my_vseq, rb,
+                 stage_bytes, F, n_steps};
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) ring.issue();
+  }
+  int chunk = 0;  // the chunk the walkers take next
+
   for (int i = 0; i < n_steps; ++i) {
     const int u = __ldg(my_useq + i);
     const int v = __ldg(my_vseq + i);
-    const auto ru = wide_rows<PACK4>(u, nbr, stride, d2, meta, L, K);
-    const auto rv = wide_rows<PACK4>(v, nbr, stride, d2, meta, L, K);
     const int32_t* seg_u = s_seg + u * (F + 1);
     const int32_t* seg_v = s_seg + v * (F + 1);
     int8_t* cu = codes + u * pitch;
     int8_t* cv = codes + v * pitch;
-    const int a = *cu;
-    const int b = *cv;
-    __syncwarp(mask);  // every lane has read a before it changes
-    if (lane == 0) *cu = (int8_t)b;  // v's rows see u holding b; u's never read u
-    __syncwarp(mask);
+    int a, b;
+    uint2 c1 = cw, c2 = cw;  // rank rows: the codes after u's, v's change
+    if constexpr (RANK) {
+      a = code_of(cw, u);
+      b = code_of(cw, v);
+      c1 = with_code(cw, u, b);
+      c2 = with_code(c1, v, a);
+    } else {
+      a = *cu;
+      b = *cv;
+      __syncwarp(mask);  // every lane has read a before it changes
+      if (lane == 0) *cu = (int8_t)b;  // v's rows see u holding b; u's never read u
+      __syncwarp(mask);
+    }
     const double* f_cur = s_f + (size_t)cur * F * wpb + wl;
     double* f_new = s_f + (size_t)(cur ^ 1) * F * wpb + wl;
     double dsum = 0.0;
     double ell = 0.0;
     bool running = true;
     bool group_ok = true;
-    for (int f = 0; f < F; ++f) {
-      const double* gf = s_g + (size_t)f * TM;
-      double df = add_wide_rows(0.0, ru, gf, seg_u[f] + lane, seg_u[f + 1], codes, pitch, K,
-                                shift, a, b);
-      df = add_wide_rows(df, rv, gf, seg_v[f] + lane, seg_v[f + 1], codes, pitch, K, shift,
-                         b, a);
-      for (int m = 1; m < lanes; m <<= 1) df += __shfl_xor_sync(mask, df, m);
-      const double fn = f_cur[(size_t)f * wpb] + df;
-      if ((f & (lanes - 1)) == lane) f_new[(size_t)f * wpb] = fn;
-      // the score of fn, feature by feature: the other bodies' score()
-      const double x = fabs(__dsub_rn(fn, s_t[f]));
-      dsum = __dadd_rn(dsum, __dmul_rn(s_w[f], x));
-      group_ok = group_ok && x <= match_tol;
-      if (s_last[f]) {
-        running = running && group_ok;
-        if (running) ell = fmax(ell, s_gd[f]);
-        group_ok = true;
+    for (int f0 = 0; f0 < F;) {
+      const int f1 = chunk_end(seg_u, seg_v, f0, F, rb, stage_bytes);
+      const unsigned char* stage = s_stage + (size_t)(chunk % kStages) * stage_bytes;
+      const unsigned char* rows_u = stage - part_begin(seg_u[f0], rb);
+      const unsigned char* rows_v =
+          stage + part_bytes(seg_u[f0], seg_u[f1], rb) - part_begin(seg_v[f0], rb);
+      stage_wait(s_bar + chunk % kStages, (uint32_t)(chunk / kStages) & 1u);
+      for (int f = f0; f < f1; ++f) {
+        const double* gf = s_g + (size_t)f * TM;
+        double df;
+        if constexpr (RANK) {
+          df = add_rank_rows(0.0, rows_u, gf, seg_u[f] + lane, seg_u[f + 1], cw, c1, shift);
+          df = add_rank_rows(df, rows_v, gf, seg_v[f] + lane, seg_v[f + 1], c1, c2, shift);
+        } else {
+          df = add_slot_rows(0.0, rows_u, gf, seg_u[f] + lane, seg_u[f + 1], codes, pitch,
+                             K, rb, shift, a, b);
+          df = add_slot_rows(df, rows_v, gf, seg_v[f] + lane, seg_v[f + 1], codes, pitch,
+                             K, rb, shift, b, a);
+        }
+        for (int m = 1; m < lanes; m <<= 1) df += __shfl_xor_sync(mask, df, m);
+        const double fn = f_cur[(size_t)f * wpb] + df;
+        if ((f & (lanes - 1)) == lane) f_new[(size_t)f * wpb] = fn;
+        // the score of fn, feature by feature: the other bodies' score()
+        const double x = fabs(__dsub_rn(fn, s_t[f]));
+        dsum = __dadd_rn(dsum, __dmul_rn(s_w[f], x));
+        group_ok = group_ok && x <= match_tol;
+        if (s_last[f]) {
+          running = running && group_ok;
+          if (running) ell = fmax(ell, s_gd[f]);
+          group_ok = true;
+        }
       }
+      __syncthreads();  // every walker is done with the stage (and fn is written)
+      if (tid == 0) ring.issue();
+      ++chunk;
+      f0 = f1;
     }
     const double d_new = __dsub_rn(dsum, __dmul_rn(match_weight, ell));
 
-    __syncwarp(mask);  // every lane has read v's rows' codes
-    if (a != b && metropolis(b32, d_new - d_cur, draws.at(i, rng_mode).x)) {
-      if (lane == 0) *cv = (int8_t)a;
+    const bool accept = a != b && metropolis(b32, d_new - d_cur, draws.at(i, rng_mode).x);
+    if (accept) {
       cur ^= 1;
       d_cur = d_new;
       ++nacc;
-    } else if (lane == 0) {
-      *cu = (int8_t)a;
     }
-    __syncwarp(mask);  // the decision's writes and fn, before the next step
-    if (d_cur < bd) {
-      bd = d_cur;
-      for (int r = lane; r < R; r += lanes) s_best[r * pitch + wl] = codes[r * pitch];
+    if constexpr (RANK) {
+      if (accept) cw = c2;
+      if (d_cur < bd) {
+        bd = d_cur;
+        for (int r = lane; r < R; r += lanes) s_best[r * pitch + wl] = (int8_t)code_of(cw, r);
+      }
+    } else {
+      if (lane == 0) {
+        if (accept) {
+          *cv = (int8_t)a;
+        } else {
+          *cu = (int8_t)a;
+        }
+      }
+      __syncwarp(mask);  // the decision's writes, before the copy and the next step
+      if (d_cur < bd) {
+        bd = d_cur;
+        for (int r = lane; r < R; r += lanes) s_best[r * pitch + wl] = codes[r * pitch];
+      }
     }
   }
 
+  if constexpr (RANK) {  // the codes back into the block's
+    for (int r = lane; r < R; r += lanes) codes[r * pitch] = (int8_t)code_of(cw, r);
+  }
   __syncthreads();
   for (int x = tid; x < R * wpb; x += nt) {
     const int r = x / wpb;
@@ -766,26 +928,26 @@ distance_chain_wide_kernel(int8_t* __restrict__ occ, int8_t* __restrict__ best_o
   }
 }
 
-template <bool PACK4>
+template <bool RANK>
 cudaError_t launch_wide(int blocks, int threads, size_t smem, cudaStream_t stream,
                         int8_t* occ, int8_t* best_occ, double* feat, double* dist,
                         double* best, int32_t* naccept, const float* beta,
                         const int32_t* useq, const int32_t* vseq, int seq_stride,
-                        int seq_shape_stride, const int64_t* seeds, const int32_t* nbr,
-                        const int32_t* stride, const int32_t* d2, const double* gfeat,
-                        const int32_t* seg, const double* target, const double* weight,
+                        int seq_shape_stride, const int64_t* seeds,
+                        const unsigned char* rows, const double* gfeat, const int32_t* seg,
+                        const double* target, const double* weight,
                         const int32_t* group_last, const double* group_diameter,
-                        const double* match, const int4* meta, int R, int L, int K,
-                        int TM, int F, int W, int block_size, int n_steps, int rng_mode,
-                        int lanes, int walkers_per_block) {
-  auto kernel = distance_chain_wide_kernel<PACK4>;
+                        const double* match, int R, int K, int TM, int F, int W,
+                        int block_size, int n_steps, int rng_mode, int lanes,
+                        int walkers_per_block, int row_pitch, int stage_bytes) {
+  auto kernel = distance_chain_wide_kernel<RANK>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, threads, smem, stream>>>(
       occ, best_occ, feat, dist, best, naccept, beta, useq, vseq, seq_stride,
-      seq_shape_stride, seeds, nbr, stride, d2, gfeat, seg, target, weight, group_last,
-      group_diameter, match, meta, R, L, K, TM, F, W, block_size, n_steps, rng_mode, lanes,
-      walkers_per_block);
+      seq_shape_stride, seeds, rows, gfeat, seg, target, weight, group_last, group_diameter,
+      match, R, K, TM, F, W, block_size, n_steps, rng_mode, lanes, walkers_per_block,
+      row_pitch, stage_bytes);
   return cudaGetLastError();
 }
 
@@ -831,32 +993,38 @@ extern "C" int smol_distance_chain(
     const void* weight, const void* group_last, const void* group_diameter,
     const void* match, const void* meta, int S, int R, int L, int K, int TM, int F,
     int W, int block_size, int n_steps, int rng_mode, int lanes, int walkers_per_block,
-    int resident, int packed, int wide, void* stream) {
+    int resident, int packed, int wide, int stage_bytes, void* stream) {
   // g: the rows' values [S, R, L, TM], or for the wide body each feature's
-  // [S, F, TM]; meta: packed rows [S, R, L, 2] (F <= 8), or for the wide
-  // body [S, R, L, 4] (ops/sqs.py pack_rows, pack_wide_rows)
+  // [S, F, TM]; meta: packed rows [S, R, L, 2] (F <= 8, ops/sqs.py
+  // pack_rows), or for the wide body its staged rows [S, R, L, words]
+  // int32: rank rows (packed, ops/sqs.py pack_rank_rows) or slot rows
+  // (pack_slot_rows), L rows a rank
   const int threads = walkers_per_block * lanes;
   const bool lanes_ok = lanes >= 1 && lanes <= 16 && (lanes & (lanes - 1)) == 0;
   if (F < 1 || (!wide && F > 32) || S < 1 || W < 1 || !lanes_ok ||
-      walkers_per_block < 1 || threads > kDistanceThreads ||
+      walkers_per_block < 1 || threads > (wide ? kWideThreads : kDistanceThreads) ||
       (W > block_size && block_size % walkers_per_block) ||
       (packed && (meta == nullptr || (!wide && F > 8))) || (wide && resident)) {
     return (int)cudaErrorInvalidValue;
   }
   const int blocks = S * ((W + walkers_per_block - 1) / walkers_per_block);
-  if (wide) {  // rows in device memory, gf, f and fn in shared memory
-    const size_t smem = wide_shared_bytes(R, F, TM, walkers_per_block);
+  if (wide) {  // the rows staged in a ring of shared memory, gf, f and fn too
+    const int rb = packed ? 8 : slot_row_bytes(K);
+    if (meta == nullptr || (packed && R > 8) || stage_bytes < 16 || stage_bytes % 16 ||
+        (L * rb) % 16) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const size_t smem = wide_shared_bytes(R, F, TM, walkers_per_block, stage_bytes);
     auto run = packed ? launch_wide<true> : launch_wide<false>;
     return (int)run(blocks, threads, smem, (cudaStream_t)stream, (int8_t*)occ,
                     (int8_t*)best_occ, (double*)feat, (double*)dist, (double*)best,
                     (int32_t*)naccept, (const float*)beta, (const int32_t*)useq,
                     (const int32_t*)vseq, seq_stride, seq_shape_stride,
-                    (const int64_t*)seeds, (const int32_t*)nbr, (const int32_t*)stride,
-                    (const int32_t*)d2, (const double*)g, (const int32_t*)seg,
-                    (const double*)target, (const double*)weight,
+                    (const int64_t*)seeds, (const unsigned char*)meta, (const double*)g,
+                    (const int32_t*)seg, (const double*)target, (const double*)weight,
                     (const int32_t*)group_last, (const double*)group_diameter,
-                    (const double*)match, (const int4*)meta, R, L, K, TM, F, W,
-                    block_size, n_steps, rng_mode, lanes, walkers_per_block);
+                    (const double*)match, R, K, TM, F, W, block_size, n_steps, rng_mode,
+                    lanes, walkers_per_block, L, stage_bytes);
   }
   const size_t smem = shared_bytes(R, L, K, TM, F, walkers_per_block, resident, packed);
   // the K = 3 bodies packed or not, at one lane or several; the general body

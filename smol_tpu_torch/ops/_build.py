@@ -67,8 +67,8 @@ KERNELS = {
     # occ best_occ feat d best_d naccept beta useq vseq | seq_stride
     # seq_shape_stride | seed nbr stride d2 g seg target weight group_last
     # group_diameter match meta | S R L K TM F W block_size n_steps rng_mode
-    # lanes walkers_per_block resident packed wide | stream
-    "distance_chain": [_ptr] * 9 + [_i32] * 2 + [_ptr] * 12 + [_i32] * 15 + [_ptr],
+    # lanes walkers_per_block resident packed wide stage_bytes | stream
+    "distance_chain": [_ptr] * 9 + [_i32] * 2 + [_ptr] * 12 + [_i32] * 16 + [_ptr],
     # beta beta32 enthalpy uniforms accepted | W phase | stream
     "tempering": [_ptr] * 5 + [_i32] * 2 + [_ptr],
 }

@@ -35,11 +35,13 @@ the fewest lanes that give it ``LANE_THREADS`` threads (:func:`launch_lanes`).
 Up to ``REGISTER_FEATURES`` features the kernel keeps f and df in
 registers and the pair's rows in shared memory; above that, and wherever
 the rows do not fit in shared memory, it runs its wide body
-(:func:`wide_launch`): each feature's values in one table in shared
-memory (every row of a feature holds the same values), the rows read from
-device memory packed in one 16-byte word (:func:`pack_wide_rows`), a
-walker's f and fn in shared memory, feature by feature, with the same sums
-in the same order.  The score sums the
+(:func:`wide_launch`, planned by :func:`wide_plan`): each feature's values
+in one table in shared memory (every row of a feature holds the same
+values), each step's rows copied into shared memory once a block by bulk
+copies a chunk ahead, as rank rows (:func:`pack_rank_rows`: a dot product
+of bytes with the walker's codes in registers) where they fit, else as
+slot rows (:func:`pack_slot_rows`), a walker's f and fn in shared memory,
+feature by feature, with the same sums in the same order.  The score sums the
 features in the order of the diameter groups, each term
 ``W_f * |f_f + df_f - T_f|`` rounded on its own (no fused multiply-add), and
 subtracts ``w * L`` last.  Nothing of the TPU layout (bf16 stride planes,
@@ -80,7 +82,8 @@ __all__ = [
     "DistanceBatch",
     "DistanceTables",
     "build_distance_tables",
-    "pack_wide_rows",
+    "pack_rank_rows",
+    "pack_slot_rows",
     "reference_table_bytes",
     "distance_block_walkers",
     "launch_lanes",
@@ -93,6 +96,7 @@ __all__ = [
     "distance_chain_batched",
     "distance_chain_shared_bytes",
     "wide_launch",
+    "wide_plan",
     "wide_shared_bytes",
     "distance_launch_operands",
     "make_batched_distance_chain",
@@ -110,6 +114,10 @@ STATIC_SHARED_BYTES = 1024  # the kernel's per-feature constants (896 bytes at m
 LANE_THREADS = 32768  # a launch takes the fewest lanes that give it this many threads
 WIDE_LANE_THREADS = 131072  # the same for the wide body, which holds more warps an SM
 MAX_LANES = 16
+WIDE_THREADS = 256  # most threads of a block of the wide body (kWideThreads)
+WIDE_STAGES = 2  # the wide body's ring of row stages (kStages)
+WIDE_BLOCKS = 2  # blocks of the wide body an SM holds (kWideBlocks): its stages' size
+SM_SHARED_BYTES = 233472  # an SM's shared memory on sm_90 (228 KB), 1 KB of it a block's
 
 
 @dataclass(frozen=True)
@@ -148,7 +156,14 @@ class DistanceTables:
     padded: dict  # nbr, stride [R, F, P, K]; d2 [R, F, P]; g [R, F, P, TM]
     meta: torch.Tensor | None = None  # [R, L, 2] int32 packed rows (pack_rows)
     gfeat: torch.Tensor | None = None  # [F, TM] f64 each feature's values (every row's)
-    meta4: torch.Tensor | None = None  # [R, L, 4] int32 wide rows (pack_wide_rows)
+    rank_rows: torch.Tensor | None = None  # [R, Lp, 2] int32 (pack_rank_rows)
+    rows_max: int = 0  # the most rows of a rank
+    feature_rows_max: int = 0  # the most rows of a rank on one feature
+
+    @functools.cached_property
+    def slot_rows(self) -> torch.Tensor:
+        """[R, Lp, 4 n] int32, :func:`pack_slot_rows`, made at first use."""
+        return pack_slot_rows(self.nbr, self.stride, self.d2)
 
     @property
     def num_ranks(self) -> int:
@@ -327,7 +342,10 @@ def build_distance_tables(processor) -> DistanceTables | None:
         return np.concatenate([x, np.zeros_like(x[:, :1])], axis=1)
 
     meta = pack_rows(nbr, stride, d2)
-    meta4 = pack_wide_rows(nbr, stride, d2)
+    # the wide body's rank rows, an even count a rank (16-byte boundaries)
+    rank_rows = pack_rank_rows(nbr, stride, d2)
+    if rank_rows is not None:
+        rank_rows = np.pad(rank_rows, ((0, 0), (0, L % 2), (0, 0)))
     # a row's values are its feature's (corr_flat / fn_cluster_count of its
     # function), so one [F, TM] table serves every rank's rows of a feature
     gfeat = np.zeros((F, tmax), dtype=np.float64)
@@ -372,7 +390,9 @@ def build_distance_tables(processor) -> DistanceTables | None:
         n_active=dev(n_active, torch.int64),
         meta=None if meta is None else dev(meta, torch.int32),
         gfeat=dev(gfeat, torch.float64),
-        meta4=None if meta4 is None else dev(meta4, torch.int32),
+        rank_rows=None if rank_rows is None else dev(rank_rows, torch.int32),
+        rows_max=int((seg[:, -1] - seg[:, 0]).max()),
+        feature_rows_max=P,
         padded={
             "nbr": dev(nbr_p[rr, slot], torch.int64),
             "stride": dev(with_zero_row(stride)[rr, slot], torch.int64),
@@ -401,23 +421,46 @@ def pack_rows(nbr, stride, d2):
     return words.astype(np.uint32).view(np.int32)
 
 
-def pack_wide_rows(nbr, stride, d2):
-    """[R, L, 4] int32: each row in one 16-byte word of the wide body, or None
-    where a field does not fit (more than 4 slots, 256 ranks, a stride of
-    256): d2; the slots' ranks in bytes 0-3 of word 1; their strides in bytes
-    0-3 of word 2; word 3 unused.  An empty slot reads rank 0 times stride
-    0."""
+def pack_rank_rows(nbr, stride, d2):
+    """[R, L, 2] int32: each row of the wide body as one byte a rank, or
+    None where they do not fit (more than 8 ranks, a self stride or a row's
+    strides summed on one rank above 255, a neighbour slot on the row's own
+    rank).  Byte r holds the row's strides summed over its slots on rank r
+    and, on the row's own rank, its self stride d2, so that with a walker's
+    codes c (one byte a rank) the row's index d2 a + sum_k stride_k
+    c(nbr_k) is sum_r byte_r c_r, the kernel's dot product of bytes; with
+    the row's own code changed from a to b it is that index plus d2 (b -
+    a).  Padding rows are 0."""
     R, L, K = nbr.shape
-    if K > 4 or R > 256 or stride.max(initial=0) > 255:
+    if R > 8 or d2.max(initial=0) > 255:
         return None
-    ranks = np.zeros((R, L, 4), dtype=np.int64)
-    strides = np.zeros((R, L, 4), dtype=np.int64)
-    ranks[..., :K] = np.where(nbr >= 0, nbr, 0)
-    strides[..., :K] = stride
+    on_rank = np.zeros((R, L, R), dtype=np.int64)
+    for k in range(K):
+        r, j = np.nonzero(nbr[..., k] >= 0)
+        np.add.at(on_rank, (r, j, nbr[r, j, k]), stride[r, j, k])
+    own = np.arange(R)
+    if on_rank.max(initial=0) > 255 or on_rank[own, :, own].any():
+        return None
+    on_rank[own, :, own] = d2
+    full = np.zeros((R, L, 8), dtype=np.int64)
+    full[..., :R] = on_rank
     shifts = np.array([0, 8, 16, 24])
-    words = np.stack([d2, (ranks << shifts).sum(axis=-1), (strides << shifts).sum(axis=-1),
-                      np.zeros_like(d2)], axis=-1)
-    return words.astype(np.uint32).view(np.int32)
+    packed = (full.reshape(R, L, 2, 4) << shifts).sum(axis=-1)
+    return packed.astype(np.uint32).view(np.int32)
+
+
+def pack_slot_rows(nbr, stride, d2):
+    """[..., Lp, 4 n] int32 from the rows' tensors [..., L, K] (``nbr``,
+    ``stride``) and [..., L] (``d2``): each row of the wide body as d2, its K
+    slots' ranks and their K strides, padded with zeros to a multiple of
+    four words (16 bytes), and the rows to an even count Lp (a rank's rows
+    start on a 16-byte boundary); an empty slot (rank -1, stride 0) reads
+    rank 0 times stride 0.  Every row takes this layout; the wide body reads
+    it where the rank rows (:func:`pack_rank_rows`) do not fit."""
+    L, K = nbr.shape[-2:]
+    words = -(-(1 + 2 * K) // 4) * 4
+    rows = torch.cat([d2[..., None], nbr.clamp(min=0), stride], dim=-1).to(torch.int32)
+    return torch.nn.functional.pad(rows, (0, words - 1 - 2 * K, 0, L % 2))
 
 
 def distance_of(tables: DistanceTables, plane):
@@ -558,7 +601,11 @@ class DistanceBatch:
     ``g`` [S, R, L, TM] f64, ``seg`` [S, R, F + 1], ``target``, ``weight``,
     ``group_diameter`` [S, F] f64, ``group_last`` [S, F] int32,
     ``match`` [S, 2] f64 (match_tol, match_weight) and, where every shape
-    has them, the packed rows ``meta`` [S, R, L, 2] int32 (:func:`pack_rows`).
+    has them, the packed rows ``meta`` [S, R, L, 2] int32 (:func:`pack_rows`);
+    for the wide body each feature's values ``gfeat`` [S, F, TM], where every
+    shape has them the rank rows ``rank_rows`` [S, R, Lp, words] int32, Lp
+    the rows a rank padded to an even count (a rank's rows start on a
+    16-byte boundary), and the slot rows (:attr:`slot_rows`).
     """
 
     shapes: tuple
@@ -574,7 +621,7 @@ class DistanceBatch:
     match: torch.Tensor
     meta: torch.Tensor | None = None  # [S, R, L, 2] int32 where every shape packs
     gfeat: torch.Tensor | None = None  # [S, F, TM] f64
-    meta4: torch.Tensor | None = None  # [S, R, L, 4] int32 where every shape packs
+    rank_rows: torch.Tensor | None = None  # [S, R, Lp, 2] int32 where every shape packs
 
     @property
     def num_shapes(self) -> int:
@@ -591,6 +638,19 @@ class DistanceBatch:
     @property
     def device(self) -> torch.device:
         return self.g.device
+
+    @functools.cached_property
+    def slot_rows(self) -> torch.Tensor:
+        """[S, R, Lp, 4 n] int32, :func:`pack_slot_rows`, made at first use."""
+        return pack_slot_rows(self.nbr, self.stride, self.d2)
+
+    @property
+    def rows_max(self) -> int:
+        return max(t.rows_max for t in self.shapes)
+
+    @property
+    def feature_rows_max(self) -> int:
+        return max(t.feature_rows_max for t in self.shapes)
 
 
 @functools.lru_cache(maxsize=None)
@@ -613,20 +673,19 @@ def stack_distance_tables(tables_seq) -> DistanceBatch:
     match = [_match_tensor(t.device, t.match_tol, t.match_weight) for t in tables_seq]
     names = ("target", "weight", "group_last", "group_diameter")
     packed = all(t.meta is not None for t in tables_seq)
-    packed4 = all(t.meta4 is not None for t in tables_seq)
+    rank = all(t.rank_rows is not None for t in tables_seq)
     if len(tables_seq) == 1:
         return DistanceBatch(
             shapes=tables_seq, nbr=first.nbr[None], stride=first.stride[None],
             d2=first.d2[None], g=first.g[None], seg=first.seg[None],
             **{name: getattr(first, name)[None] for name in names}, match=match[0][None],
             meta=first.meta[None] if packed else None, gfeat=first.gfeat[None],
-            meta4=first.meta4[None] if packed4 else None,
+            rank_rows=first.rank_rows[None] if rank else None,
         )
     L = max(t.nbr.shape[1] for t in tables_seq)
     K = max(t.nbr.shape[2] for t in tables_seq)
     TM = max(t.g.shape[2] for t in tables_seq)
     pad = torch.nn.functional.pad
-
     def stacked(name, widths, value=0):
         """The shapes' ``name`` tensors padded to ``widths`` after the rank axis."""
         out = []
@@ -644,7 +703,8 @@ def stack_distance_tables(tables_seq) -> DistanceBatch:
         seg=torch.stack([t.seg for t in tables_seq]),
         **{name: torch.stack([getattr(t, name) for t in tables_seq]) for name in names},
         match=torch.stack(match), meta=stacked("meta", (L, 2)) if packed else None,
-        gfeat=stacked("gfeat", (TM,)), meta4=stacked("meta4", (L, 4)) if packed4 else None,
+        gfeat=stacked("gfeat", (TM,)),
+        rank_rows=stacked("rank_rows", (L + L % 2, first.rank_rows.shape[-1])) if rank else None,
     )
 
 
@@ -654,15 +714,18 @@ class _Design:
     :func:`launch_lanes` of the launch's walkers), whether every rank's rows
     stay in shared memory (None: wherever they fit), whether a batch of
     shapes is one launch, and whether the rows are read packed where the
-    tables have them (:func:`pack_rows`, F <= 8; :func:`pack_wide_rows` in
-    the wide body, 1.93-1.98x the unpacked rows on the H100).  Private:
-    the A/B of ``chip_smoke.py`` and the tests choose one; users get the
-    default."""
+    tables have them (:func:`pack_rows`, F <= 8; in the wide body the rank
+    rows, :func:`pack_rank_rows`, else the slot rows).  For the wide body
+    also its walkers a block and the bytes of a stage of its ring (None:
+    :func:`wide_plan`'s).  Private: the A/B of ``chip_smoke.py`` and the
+    tests choose one; users get the default."""
 
     lanes: int | None = None
     resident: bool | None = None
     batched: bool = True
     packed: bool = True
+    walkers: int | None = None
+    stage_bytes: int | None = None
 
 
 _DESIGN = _Design()
@@ -681,9 +744,11 @@ def launch_lanes(walkers, design=_DESIGN, tables=None):
     depend on the launch.  Given the launch's ``tables`` (a
     :class:`DistanceTables` or a :class:`DistanceBatch`), a launch of the
     wide body (:func:`wide_launch`) takes the fewest that give it
-    ``WIDE_LANE_THREADS``: its rows come from the L2 cache, whose latency
-    more warps hide, and its shared memory a walker (f and fn) does not
-    grow with the lanes."""
+    ``WIDE_LANE_THREADS``: 4 lanes at the 20-shape launch, faster there
+    than 1, 2 or 8 on the H100 (``PERF.md``): its shared memory a walker (f
+    and fn) does not grow with the lanes, so more lanes put more warps on an
+    SM, until what every lane repeats (the segment starts, the butterfly,
+    the score) outweighs them."""
     if design.lanes:
         return design.lanes
     wide = tables is not None and wide_launch(tables)
@@ -703,20 +768,17 @@ def distance_block_walkers(W, block_size, design=_DESIGN, tables=None):
     """Walkers of one CUDA block: a block must lie inside one sequence group
     of ``block_size`` walkers, since its threads share the group's pairs.
     Given the launch's ``tables`` (a :class:`DistanceTables` or a
-    :class:`DistanceBatch`) of the wide body, they are halved until the
-    block's shared memory fits (:func:`wide_shared_bytes`)."""
-    wide = tables is not None and wide_launch(tables)
+    :class:`DistanceBatch`) of the wide body, :func:`wide_plan`'s."""
+    if tables is not None and wide_launch(tables):
+        return wide_plan(tables, W, block_size, design).walkers
     lanes = launch_lanes(W, design, tables)
-    wb = min(64, DISTANCE_THREADS // lanes)
-    wb = wb if W <= block_size or block_size % wb == 0 else math.gcd(block_size, wb)
-    if wide:
-        R, F, TM = tables.nbr.shape[-3], tables.num_feats, tables.g.shape[-1]
-        while wide_shared_bytes(R, F, TM, wb) > MAX_SHARED_BYTES:
-            if wb == 1:
-                raise ValueError(f"distance_chain: {F} features a walker do not fit "
-                                 "in shared memory")
-            wb = wb // 2 if wb % 2 == 0 else 1
-    return wb
+    return _group_walkers(W, block_size, min(64, DISTANCE_THREADS // lanes))
+
+
+def _group_walkers(W, block_size, wb):
+    """``wb`` walkers a block, or fewer where a block would straddle two
+    sequence groups."""
+    return wb if W <= block_size or block_size % wb == 0 else math.gcd(block_size, wb)
 
 
 def _packed(tables, design):
@@ -724,16 +786,72 @@ def _packed(tables, design):
     return design.packed and tables.meta is not None and tables.num_feats <= 8
 
 
-def wide_shared_bytes(R, F, TM, walkers_per_block) -> int:
+def wide_shared_bytes(R, F, TM, walkers_per_block, stage_bytes) -> int:
     """Dynamic shared memory of a block of the wide body, in bytes
-    (``wide_shared_bytes`` of distance_chain.cu): each feature's values
-    [F, TM] and the score's constants (f64), each walker's f and fn, the
-    group ends and the segment starts (int32), the codes and the best
-    codes."""
+    (``wide_shared_bytes`` of distance_chain.cu): the ring's
+    ``WIDE_STAGES`` stages of ``stage_bytes`` and their barriers (16
+    bytes), each feature's values [F, TM] and the score's constants (f64),
+    each walker's f and fn, the group ends and the segment starts (int32),
+    the codes and the best codes."""
     doubles = F * (TM + 3 + 2 * walkers_per_block) * 8
     ints = -(-((F + R * (F + 1)) * 4) // 16) * 16
     pitch = -(-walkers_per_block // 4) * 4 + 4
-    return doubles + ints + 2 * R * pitch
+    return WIDE_STAGES * stage_bytes + 16 + doubles + ints + 2 * R * pitch
+
+
+@dataclass(frozen=True)
+class WidePlan:
+    """The launch of the wide body: walkers a block, its staged rows (the
+    batch's tensor [S, R, Lp, words] and ``rank``, whether they are rank
+    rows), a row's bytes, a stage's bytes, the block's dynamic shared
+    memory."""
+
+    walkers: int
+    rows: torch.Tensor
+    rank: bool
+    row_bytes: int
+    stage_bytes: int
+    shared_bytes: int
+
+
+def _align16(n):
+    return -(-n // 16) * 16
+
+
+def wide_plan(tables, W, block_size, design=_DESIGN) -> WidePlan:
+    """How the wide body launches ``tables`` (a :class:`DistanceTables` or
+    a :class:`DistanceBatch`) at W walkers a shape: rank rows where the
+    tables have them and the design reads packed rows, else slot rows;
+    min(64, ``WIDE_THREADS`` / lanes) walkers a block (the design's where
+    it names them), inside one sequence group; the ring's two stages take
+    what is left of ``WIDE_BLOCKS`` blocks' share of an SM's shared memory
+    (the kernel's registers hold that many blocks an SM, faster than one
+    block an SM on the H100, ``PERF.md``), a whole step's rows of u and v
+    where they fit, else fed feature-chunk by feature-chunk: a stage holds
+    at least any one feature's rows of u and v, each from a 16-byte
+    boundary.  Where that does not fit, the walkers a block are halved.
+    Raises ``ValueError`` where nothing fits."""
+    lanes = launch_lanes(W, design, tables)
+    rank = design.packed and tables.rank_rows is not None
+    rows = tables.rank_rows if rank else tables.slot_rows
+    rows = rows if rows.dim() == 4 else rows[None]
+    row_bytes = 4 * rows.shape[-1]
+    R, F, TM = tables.nbr.shape[-3], tables.num_feats, tables.g.shape[-1]
+    whole = 2 * _align16(tables.rows_max * row_bytes)  # a step's rows of u and v
+    least = 2 * (_align16(tables.feature_rows_max * row_bytes) + 16)
+    share = SM_SHARED_BYTES // WIDE_BLOCKS - 1024
+    wb = _group_walkers(W, block_size, design.walkers or min(64, WIDE_THREADS // lanes))
+    while True:
+        rest = wide_shared_bytes(R, F, TM, wb, 0)
+        stage = design.stage_bytes or min(whole, (share - rest) // WIDE_STAGES // 16 * 16)
+        if least <= stage and rest + WIDE_STAGES * stage <= MAX_SHARED_BYTES:
+            break
+        if wb == 1 or design.walkers or design.stage_bytes:
+            raise ValueError(
+                f"distance_chain: the wide body's block ({wb} walkers, {F} features, "
+                f"stages of at least {least} bytes) does not fit in shared memory")
+        wb = wb // 2 if wb % 2 == 0 else 1
+    return WidePlan(wb, rows, rank, row_bytes, stage, rest + WIDE_STAGES * stage)
 
 
 def _register_bytes(tables, W, block_size, design, resident):
@@ -764,13 +882,11 @@ def distance_chain_shared_bytes(tables, W, block_size, design=_DESIGN, resident=
     (``shared_bytes`` of distance_chain.cu): every rank's rows
     (``resident``) or two buffers of u's and v's rows, every rank's segment
     starts, and the block's codes and best codes; for the wide body
-    (:func:`wide_launch`, which keeps no rows), :func:`wide_shared_bytes`.
-    ``tables`` is a :class:`DistanceTables` or a :class:`DistanceBatch`."""
+    (:func:`wide_launch`), :func:`wide_plan`'s.  ``tables`` is a
+    :class:`DistanceTables` or a :class:`DistanceBatch`."""
     design = _resolve(design, W * getattr(tables, "num_shapes", 1), tables)
     if wide_launch(tables):
-        wb = distance_block_walkers(W, block_size, design, tables)
-        return wide_shared_bytes(tables.nbr.shape[-3], tables.num_feats,
-                                 tables.g.shape[-1], wb)
+        return wide_plan(tables, W, block_size, design).shared_bytes
     return _register_bytes(tables, W, block_size, design, resident)
 
 
@@ -780,7 +896,8 @@ def _resident(tables, W, block_size, design):
     ``STATIC_SHARED_BYTES``); never in the wide body."""
     if wide_launch(tables):
         if design.resident:
-            raise ValueError("distance_chain: the wide body keeps no rows in shared memory")
+            raise ValueError("distance_chain: the wide body stages each step's rows; "
+                             "it keeps no rank's rows resident")
         return False
     smem = distance_chain_shared_bytes(tables, W, block_size, design, True)
     fits = smem + STATIC_SHARED_BYTES <= MAX_SHARED_BYTES
@@ -796,12 +913,15 @@ def _launch(occ, best_occ, feat, d, best_d, naccept, beta32, useq, vseq, seed, b
     L, K = batch.nbr.shape[2:]
     wide = wide_launch(batch)
     design = _resolve(design, S * W, batch)
-    # the wide body reads each feature's values [S, F, TM] and its rows
-    # packed in one 16-byte word where they fit (pack_wide_rows)
-    packed = (design.packed and batch.meta4 is not None) if wide else _packed(batch, design)
-    meta = batch.meta4 if wide else batch.meta
     resident = _resident(batch, W, block_size, design)
-    smem = distance_chain_shared_bytes(batch, W, block_size, design, resident)
+    if wide:  # each feature's values [S, F, TM] and the staged rows
+        plan = wide_plan(batch, W, block_size, design)
+        meta, packed, wb, stage = plan.rows, int(plan.rank), plan.walkers, plan.stage_bytes
+        L, smem = plan.rows.shape[2], plan.shared_bytes
+    else:
+        packed, meta, stage = int(_packed(batch, design)), batch.meta, 0
+        wb = distance_block_walkers(W, block_size, design, batch)
+        smem = distance_chain_shared_bytes(batch, W, block_size, design, resident)
     if smem > MAX_SHARED_BYTES:
         raise ValueError(
             f"distance_chain needs {smem} bytes of shared memory per block, "
@@ -818,10 +938,9 @@ def _launch(occ, best_occ, feat, d, best_d, naccept, beta32, useq, vseq, seed, b
             batch.d2.data_ptr(), (batch.gfeat if wide else batch.g).data_ptr(),
             batch.seg.data_ptr(), batch.target.data_ptr(), batch.weight.data_ptr(),
             batch.group_last.data_ptr(), batch.group_diameter.data_ptr(),
-            batch.match.data_ptr(), meta.data_ptr() if packed else None, S, R, L, K,
-            batch.g.shape[3], batch.num_feats, W, block_size, n_steps, RNG_MODES[rng],
-            design.lanes, distance_block_walkers(W, block_size, design, batch),
-            int(resident), int(packed), int(wide), stream,
+            batch.match.data_ptr(), meta.data_ptr() if packed or wide else None, S, R, L,
+            K, batch.g.shape[3], batch.num_feats, W, block_size, n_steps, RNG_MODES[rng],
+            design.lanes, wb, int(resident), packed, int(wide), stage, stream,
         )
     distance_chain.launches += 1
     if wide:

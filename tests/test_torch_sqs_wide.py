@@ -14,9 +14,9 @@ one of its decisions within 4 f32 ulps of log U beyond beta * slack);
 every score equals its exact rescore, compositions are kept.  The
 reference's chain takes these shapes (7.99 MB of its 8 MB table budget), so
 the port's does too, and its launch plan takes the wide body with its rows
-packed in one word and each feature's values in one table; rows whose
-fields do not fit the word (more than 4 slots, 256 ranks, a stride of
-256) stay unpacked.
+staged as rank rows (a byte a rank) and each feature's values in one
+table; rows whose bytes do not fit (more than 16 ranks, a stride sum of
+256) are staged as slot rows.
 """
 
 import functools
@@ -82,20 +82,28 @@ def test_wide_tables_and_plan():
         assert (sqs.reference_table_bytes(tables.num_ranks, rows, 41, 16)
                 <= sqs.REFERENCE_TABLE_BUDGET)
         assert tables.num_feats == 41 > sqs.REGISTER_FEATURES
-        assert sqs.wide_launch(tables) and tables.meta4 is not None
+        assert sqs.wide_launch(tables) and tables.rank_rows is not None
         assert sqs.launch_lanes(20 * 2048, tables=tables) == 4  # the 20 shapes' launch
         assert sqs.launch_lanes(2048, tables=tables) == 16
         assert not sqs._resident(tables, 2048, 512, sqs._Design(lanes=4))
         wb = sqs.distance_block_walkers(2048, 512, sqs._Design(lanes=4), tables)
-        assert wb == 64 and sqs.wide_shared_bytes(8, 41, 16, wb) <= sqs.MAX_SHARED_BYTES
-        # the packed word holds every row's integers
-        meta = tables.meta4.numpy().view(np.uint32).astype(np.int64)
+        plan = sqs.wide_plan(tables, 2048, 512, sqs._Design(lanes=4))
+        assert wb == plan.walkers == 64 and plan.rank
+        assert plan.shared_bytes == sqs.wide_shared_bytes(8, 41, 16, wb, plan.stage_bytes)
+        assert plan.shared_bytes <= sqs.MAX_SHARED_BYTES
+        # the rank rows hold every row's integers: byte r' the strides on rank
+        # r', the self stride on the own rank
+        L = tables.nbr.shape[1]
+        words = tables.rank_rows.numpy()[:, :L].view(np.uint32).astype(np.int64)
+        rows = ((words[..., None] >> np.array([0, 8, 16, 24])) & 0xFF).reshape(8, L, 8)
         nbr, stride = tables.nbr.numpy(), tables.stride.numpy()
-        np.testing.assert_array_equal(meta[..., 0], tables.d2.numpy())
-        for k in range(nbr.shape[2]):
-            np.testing.assert_array_equal((meta[..., 1] >> (8 * k)) & 0xFF,
-                                          np.where(nbr[..., k] >= 0, nbr[..., k], 0))
-            np.testing.assert_array_equal((meta[..., 2] >> (8 * k)) & 0xFF, stride[..., k])
+        for r in range(tables.num_ranks):
+            expect = np.zeros((L, 8), dtype=np.int64)
+            for k in range(nbr.shape[2]):
+                on = nbr[r, :, k] >= 0
+                np.add.at(expect, (np.flatnonzero(on), nbr[r, on, k]), stride[r, on, k])
+            expect[:, r] = tables.d2.numpy()[r]
+            np.testing.assert_array_equal(rows[r], expect)
         # each feature's values serve every rank's rows of the feature
         seg, g = tables.seg.numpy(), tables.g.numpy()
         for r in range(tables.num_ranks):
@@ -141,25 +149,28 @@ def test_twin_matches_interpret_reference(shape, lanes):
 
 
 def test_wide_rows_pack_where_they_fit():
-    """The wide body reads a row from one packed 16-byte word where its
-    fields fit (at most 4 slots, 256 ranks, strides below 256), else the
-    unpacked rows (``pack_wide_rows`` returns None)."""
+    """The wide body stages rank rows where their bytes fit (at most 8
+    ranks, a stride sum or a self stride below 256); else ``pack_rank_rows``
+    returns None and it stages the slot rows, which hold any row: d2, the
+    slots' ranks (an empty slot reads rank 0 times stride 0) and strides,
+    padded to a multiple of four words, the rows to an even count."""
     rng = np.random.default_rng(0)
-    R, L, K = 6, 5, 3
-    nbr = rng.integers(-1, R, (R, L, K)).astype(np.int32)
-    stride = rng.integers(0, 256, (R, L, K)).astype(np.int32)
-    d2 = rng.integers(0, 2**31 - 1, (R, L)).astype(np.int32)
-    words = sqs.pack_wide_rows(nbr, stride, d2).view(np.uint32).astype(np.int64)
-    np.testing.assert_array_equal(words[..., 0], d2)
-    for k in range(K):
-        np.testing.assert_array_equal((words[..., 1] >> (8 * k)) & 0xFF,
-                                      np.maximum(nbr[..., k], 0))
-        np.testing.assert_array_equal((words[..., 2] >> (8 * k)) & 0xFF, stride[..., k])
-    assert (words[..., 1:3] >> (8 * K) == 0).all() and (words[..., 3] == 0).all()
-    wide5 = np.zeros((R, L, 5), dtype=np.int32)
-    assert sqs.pack_wide_rows(wide5, wide5, d2) is None  # 5 slots
-    big = stride.copy()
-    big[0, 0, 0] = 256
-    assert sqs.pack_wide_rows(nbr, big, d2) is None
-    many = np.zeros((257, 1, K), dtype=np.int32)
-    assert sqs.pack_wide_rows(many, many, np.zeros((257, 1), dtype=np.int32)) is None
+    R, L = 6, 5
+    for K in (3, 5):
+        nbr = rng.integers(-1, R, (R, L, K)).astype(np.int32)
+        stride = np.where(nbr >= 0, rng.integers(0, 300, (R, L, K)), 0).astype(np.int32)
+        d2 = rng.integers(0, 2**31 - 1, (R, L)).astype(np.int32)
+        assert sqs.pack_rank_rows(nbr, stride, d2) is None  # d2 above 255
+        rows = sqs.pack_slot_rows(*map(torch.as_tensor, (nbr, stride, d2))).numpy()
+        assert rows.shape == (R, L + 1, -(-(1 + 2 * K) // 4) * 4)  # an even count of rows
+        assert (rows[:, L] == 0).all()
+        rows = rows[:, :L]
+        np.testing.assert_array_equal(rows[..., 0], d2)
+        np.testing.assert_array_equal(rows[..., 1:1 + K], np.maximum(nbr, 0))
+        np.testing.assert_array_equal(rows[..., 1 + K:1 + 2 * K], stride)
+        assert (rows[..., 1 + 2 * K:] == 0).all()
+    many = np.zeros((9, 1, 1), dtype=np.int32)
+    assert sqs.pack_rank_rows(many - 1, many, np.zeros((9, 1), dtype=np.int32)) is None
+    few = np.zeros((8, 1, 1), dtype=np.int32)
+    assert sqs.pack_rank_rows(few - 1, few, np.zeros((8, 1), dtype=np.int32)).shape == (
+        8, 1, 2)
