@@ -79,7 +79,16 @@ printing its last line when any phase fails:
    RNG modes, and a hash chain across the chunk boundary in each kernel,
    against the Ising twin; then the replica-exchange kernel against its
    twin over 3000 sweeps of alternating phase at 8192 walkers, betas and
-   their f32 copies bit for bit.  K3 with q = 4 in the flip chain on the
+   their f32 copies bit for bit; then bench ``tempering``'s window (8192
+   walkers, the ladder, ten 10-step segments) in one cooperative launch
+   of K1 (``chain.flip_window``) against the segment launches and the
+   exchange launches from one start, with the K1-Ising and the direct
+   bodies, philox and hash draws, first phase 1 and 0: codes, enthalpy,
+   beta, beta32, accept and exchange counts bit for bit, the ladder a
+   permutation, the plan printed (``chain.tempering_window_plan``); and
+   against its twin on the card (the segments' flip twin, then the
+   exchange's twin, as the port's CPU tempering chain runs them).  K3 with
+   q = 4 in the flip chain on the
    quaternary and binary rocksalt, and q = 2 with the Ewald term in both
    chains on the spinel CE + Ewald 2x2x2, both RNG modes and a chunk
    crossing.  K1 at every launch design, 1, 2, 4, 8 and 16 lanes a walker
@@ -164,10 +173,11 @@ printing its last line when any phase fails:
      ``Ensemble.from_system(aucu_pt 3x3x3)`` -> ``Sampler.from_ensemble(
      temperature=make_temperature_ladder(300, 3000, 8192), nwalkers=8192,
      seed=3, replica_exchange_period=10)`` -> ``run(20000 steps,
-     thin_by=100)`` from the bench's starts (200 windows of 10 segments, a
-     flip launch and an exchange launch each), on the default body
-     (K1-Ising) and once more with ``chain_delta="direct"``; checked: the
-     execution path,
+     thin_by=100)`` from the bench's starts (200 windows of 10 segments,
+     each window one cooperative launch of K1 that runs its segments and
+     exchanges), on the default body (K1-Ising) and once more with
+     ``chain_delta="direct"``; checked: the execution path, one windowed
+     launch a window and no segment launch or exchange launch,
      parity (e) on the last record, every record's temperatures a
      permutation of the ladder, the walkers travelling along it (each
      walker's rung at the first and the last record: more than
@@ -375,9 +385,12 @@ printing its last line when any phase fails:
    paths, the measurement ``default_delta`` follows; K3 against the
    direct body in the table chain (spinel 2x2x2) and the Wang-Landau chain
    (the ternary window); the exchange
-   kernel at 8192 walkers against its plain version and its bound; one
-   tempering segment (a 10-step flip launch and an exchange) on the
-   device's clock and a 100-step window of 10 segments on the host's.
+   kernel at 8192 walkers against its plain version and its bound; bench
+   ``tempering``'s window in turns (segments, windowed, windowed,
+   segments): the windowed launch against a CUDA graph of its 10 flip
+   launches and 10 exchange launches on the device's clock, a 100-step
+   window through the tempering chain each way on the host's, what an
+   exchange costs inside the launch, the window's twin and bound.
 
 The line before the last is a JSON summary of the kernels, each chain once
 for each site body: an entry's launches are the main paths' launches of
@@ -428,7 +441,9 @@ from smol_tpu_torch.parallel import (
     ExchangeLaunches,
     exchange_attempts,
     exchange_betas,
+    exchange_betas_reference,
     make_temperature_ladder,
+    make_tempering_chain,
     tempering_exchange,
 )
 from smol_tpu_torch.system import build_system, load_system, load_systems
@@ -997,6 +1012,172 @@ def exchange_vs_twin(device="cuda"):
     return 0.0
 
 
+def pt_window_operands(ensemble, tables, rng="philox", segments=THIN // PT_PERIOD, seed=11):
+    """One tempering window's operands on bench ``tempering``'s cell: the
+    bench's starts, their enthalpies, the ladder's betas, ``segments``
+    segments' sequences and seeds, and the exchange uniforms."""
+    device = ensemble.device
+    occu = torch.as_tensor(np.random.default_rng(0).integers(  # bench.py:503-505
+        0, 2, (WALKERS, ensemble.num_sites)).astype(np.int32), device=device)
+    theta = torch.as_tensor(ensemble.natural_parameters, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    beta = pt_betas(device)
+    if rng == "hash":
+        seeds = torch.randint(0, 2**30 - 1, (segments,), generator=gen, device=device)
+    else:
+        seeds = torch.randint(0, 2**62, (segments,), generator=gen, device=device)
+    return dict(
+        occ=occu[:, tables.rank_sites].T.to(torch.int8).contiguous(),
+        enthalpy=(ensemble.compute_features(occu) @ theta).contiguous(),
+        naccept=torch.zeros(WALKERS, dtype=torch.int32, device=device),
+        beta=beta, beta32=beta.to(torch.float32),
+        seqs=chain.rank_sequence(tables, gen, (segments, WALKERS // BLOCK, PT_PERIOD)),
+        seeds=seeds,
+        uniforms=torch.rand((segments, WALKERS), generator=gen, dtype=torch.float64,
+                            device=device),
+        accepted=torch.zeros(WALKERS, dtype=torch.int32, device=device))
+
+
+PT_WINDOW_STATE = ("occ", "enthalpy", "naccept", "beta", "beta32", "accepted")
+
+
+def segment_window(ops, tables, rng, phase0):
+    """A tempering window segment by segment, as the port issued it before
+    the windowed launch: a flip launch and an exchange launch a segment."""
+    launches = chain.ChainLaunches("flip", ops["occ"], ops["enthalpy"], (ops["naccept"],),
+                                   ops["beta32"], (ops["seqs"],), ops["seeds"], tables,
+                                   BLOCK, rng)
+    exchanges = ExchangeLaunches(ops["beta"], ops["beta32"], ops["enthalpy"],
+                                 ops["uniforms"], ops["accepted"])
+    for s in range(len(ops["seeds"])):
+        launches.launch(s, PT_PERIOD)
+        exchanges(s, phase0 + s)
+
+
+def windowed(ops, tables, rng, phase0):
+    """The same window in one cooperative launch of K1 (``flip_window``)."""
+    chain.flip_window(ops["occ"], ops["enthalpy"], ops["naccept"], ops["beta"],
+                      ops["beta32"], ops["seqs"], ops["seeds"], tables, PT_PERIOD, BLOCK,
+                      ops["uniforms"], phase0, ops["accepted"], rng)
+
+
+def window_twin(twin, ops, tables, phase0, lanes, margin=None):
+    """The window's twin on the card, in place on ``twin``'s state, as the
+    port's tempering chain runs it on the CPU: each segment's flips
+    (``flip_chain_reference`` at the kernel's ``lanes``; ``margin`` as
+    there), then the exchange's twin (``exchange_betas_reference``)."""
+    for s in range(len(ops["seeds"])):
+        chain.flip_chain_reference(twin["occ"], twin["enthalpy"], twin["naccept"],
+                                   twin["beta32"], ops["seqs"][s], ops["seeds"][s: s + 1],
+                                   tables, PT_PERIOD, BLOCK, "philox", margin, lanes)
+        exchange_betas_reference(twin["beta"], twin["beta32"], twin["enthalpy"],
+                                 ops["uniforms"][s], (phase0 + s) % 2, twin["accepted"])
+
+
+def segments_only(chain_fn):
+    """``chain_fn`` (``make_shared_proposal_chain``'s) with the tempering
+    chain's exchanges left out of its calls, so that a window runs segment
+    by segment, a flip launch and an exchange launch a segment, as the
+    port issued it before the windowed launch."""
+    def fn(state, generator, exchange=None, **kwargs):
+        return chain_fn(state, generator, **kwargs)
+    return fn
+
+
+def window_plan_label(tables, segments=THIN // PT_PERIOD):
+    plan = chain.tempering_window_plan(tables, WALKERS, BLOCK, PT_PERIOD, segments,
+                                       device="cuda")
+    shape = (f"{plan.launch.lanes} lanes, {plan.launch.walkers_per_block} walkers a block, "
+             f"rows {'resident' if plan.launch.resident else 'streamed'}, "
+             f"{plan.launch.shared_bytes} B of shared memory; " if plan.launch else "")
+    return (f"{'windowed' if plan.windowed else 'segment by segment'} ({plan.reason}; "
+            f"{shape}{plan.blocks} blocks, {plan.resident_blocks} resident at once)")
+
+
+def tempering_window_vs_twin(ensemble, tables, delta, card):
+    """Phase 3: bench ``tempering``'s window in one launch of K1 against its
+    twin on the card (:func:`window_twin`), from one start.  Tolerance: a walker equals the twin
+    (codes, accepted flips, beta, its f32 copy) unless a flip decision
+    within ULP_SLACK f32 ulps of log U lies within one walker a sweep of it
+    (an exchange carries a difference one walker along the ladder a sweep);
+    at least 0.99 of the walkers equal; their enthalpies within 1e-9 eV, the
+    exchange counts summed over the equal walkers' pairs equal too.
+    Returns the largest enthalpy difference."""
+    ops = pt_window_operands(ensemble, tables, seed=13)
+    kernel = {k: ops[k].clone() for k in PT_WINDOW_STATE}
+    twin = {k: ops[k].clone() for k in PT_WINDOW_STATE}
+    margin = torch.full((WALKERS,), float("inf"), device=ensemble.device)
+    segments = len(ops["seeds"])
+    windowed({**ops, **kernel}, tables, "philox", 1)
+    window_twin(twin, ops, tables, 1, chain.flip_lanes(tables, WALKERS), margin)
+    torch.cuda.synchronize()
+    same = ((kernel["occ"] == twin["occ"]).all(dim=0) & (kernel["naccept"] == twin["naccept"])
+            & (kernel["beta"] == twin["beta"]) & (kernel["beta32"] == twin["beta32"]))
+    near = (margin <= ULP_SLACK).double()[None, None]
+    tainted = torch.nn.functional.max_pool1d(near, 2 * segments + 1, 1, segments)[0, 0] > 0
+    check(bool((same | tainted).all()),
+          f"tempering window {delta}: {int((~same & ~tainted).sum())} walkers differ from the "
+          "twin without a near tie")
+    check(float(same.double().mean()) >= 0.99, f"tempering window {delta}: too many "
+                                               "near-tie mismatches")
+    err = float((kernel["enthalpy"] - twin["enthalpy"])[same].abs().max())
+    check(err <= 1e-9, f"tempering window {delta}: enthalpy difference {err}")
+    pair_same = same & torch.roll(same, -1) & torch.roll(same, 1)
+    check(torch.equal(kernel["accepted"][pair_same], twin["accepted"][pair_same]),
+          f"tempering window {delta}: exchange counts differ from the twin's")
+    print(f"phase 3 [tempering window {PT_CELL}, {delta}] {card}: windowed launch == twin "
+          f"on {int(same.sum())}/{WALKERS} walkers ({int((~same).sum())} near a tie), max "
+          f"|dH| {err:.3e}, {int(kernel['accepted'].sum())} accepted exchanges")
+    return err
+
+
+def window_vs_segments(card):
+    """Phase 3: bench ``tempering``'s window (8192 walkers, the ladder, ten
+    10-step segments) in one cooperative launch of K1 against the segment
+    launches and exchange launches from one start, with the K1-Ising and
+    the direct bodies, philox and hash draws, first phase 1 and 0: codes,
+    enthalpy, beta, beta32 and both counts bit for bit, the ladder still a
+    permutation; and against its twin (:func:`tempering_window_vs_twin`).  Returns
+    the largest difference from the twin."""
+    ensemble, _ = load(PT_CELL)
+    errs = []
+    for delta in ("ising", "direct"):
+        tables = tables_of(ensemble, "flip", delta)
+        plan = chain.tempering_window_plan(tables, WALKERS, BLOCK, PT_PERIOD,
+                                           THIN // PT_PERIOD, device="cuda")
+        check(plan.windowed, f"{PT_CELL} {delta}: the plan does not take the window "
+                             f"({plan.reason})")
+        for rng, phase0 in (("philox", 1), ("hash", 0), ("philox", 0)):
+            ops = pt_window_operands(ensemble, tables, rng)
+            runs = []
+            for run in (segment_window, windowed):
+                mine = {k: (ops[k].clone() if k in PT_WINDOW_STATE else ops[k]) for k in ops}
+                before = chain.flip_window.launches
+                run(mine, tables, rng, phase0)
+                torch.cuda.synchronize()
+                runs.append((mine, chain.flip_window.launches - before))
+            (seg, seg_windows), (win, win_windows) = runs
+            check(seg_windows == 0 and win_windows == 1, "flip_window launches")
+            for key in PT_WINDOW_STATE:
+                check(torch.equal(seg[key], win[key]),
+                      f"{PT_CELL} {delta} {rng}: the windowed launch's {key} differs "
+                      "from the segment launches'")
+            check(torch.equal(torch.sort(win["beta"]).values,
+                              torch.sort(ops["beta"]).values),
+                  f"{PT_CELL} {delta}: the betas are no longer the ladder")
+            check(torch.equal(win["beta32"], win["beta"].to(torch.float32)),
+                  f"{PT_CELL} {delta}: beta32 is not the betas' rounding")
+            check(int(win["accepted"].sum()) > 0 and int(win["naccept"].sum()) > 0,
+                  f"{PT_CELL} {delta}: no exchange or no flip accepted")
+            print(f"phase 3 [tempering window {PT_CELL}, {delta}, {rng}, first phase "
+                  f"{phase0}] {card}: one windowed launch == {len(ops['seeds'])} flip "
+                  f"launches + exchange launches bit for bit (codes, enthalpy, beta, beta32, "
+                  f"{int(win['naccept'].sum())} accepted flips, {int(win['accepted'].sum())} "
+                  f"accepted exchanges); plan {window_plan_label(tables)}")
+        errs.append(tempering_window_vs_twin(ensemble, tables, delta, card))
+    return max(errs)
+
+
 # ---------------- K1's launch designs and the sweep schedule ----------------
 
 def padded_slots(tables):
@@ -1366,7 +1547,7 @@ def drive_main_path(move, stem, card, temperature, block, capped=False, **option
     runs = []
     for _ in ("cold", "warm", "capped")[:3 if capped else 2]:
         t0 = time.perf_counter()
-        sampler = Sampler.from_ensemble(ensemble, temperature, WALKERS, seed=3,
+        sampler = Sampler.from_ensemble(ensemble, temperature, nwalkers=WALKERS, seed=3,
                                         chain_block_size=block, step_type=step_type,
                                         **options)
         sampler.samples.pending_bytes_max = 1 if len(runs) == 2 else None
@@ -1450,7 +1631,8 @@ def drive_main_path(move, stem, card, temperature, block, capped=False, **option
     return ensemble, rate
 
 
-BODY_KERNELS = (chain.flip_chain, chain.swap_chain, chain.table_chain, chain.wl_chain)
+BODY_KERNELS = (chain.flip_chain, chain.flip_window, chain.swap_chain, chain.table_chain,
+                chain.wl_chain)
 
 
 def reset_counts(*kernels):
@@ -1652,7 +1834,7 @@ def drive_built(card):
     for stem, (built, stored, temperature, exact) in runs.items():
         traces = []
         for label, ensemble in (("built", built), ("file", stored)):
-            sampler = Sampler.from_ensemble(ensemble, temperature, WALKERS, seed=3)
+            sampler = Sampler.from_ensemble(ensemble, temperature, nwalkers=WALKERS, seed=3)
             path = sampler.execution_path(THIN)
             t0 = time.perf_counter()
             sampler.run(NSTEPS, random_occupancies(ensemble, WALKERS, 0), thin_by=THIN)
@@ -1750,7 +1932,7 @@ def drive_built_ewald(card):
     traces = {}
     for stem, label, ensemble, occ0, move, host_s, charges in runs:
         sampler = Sampler.from_ensemble(
-            ensemble, TEMPERATURE, WALKERS, seed=3,
+            ensemble, TEMPERATURE, nwalkers=WALKERS, seed=3,
             step_type="table-flip" if move == "table" else None)
         path = sampler.execution_path(THIN)
         check(path.startswith(f"cuda-chain[{move}]+ewald"), f"{stem} ({label}): path {path}")
@@ -1826,7 +2008,7 @@ def flip_run(ensemble, temperature):
     """The bench spinel's main path, as phase 4b runs it: 8192 walkers x
     20000 steps thinned by 100 from ``random_occupancies(ensemble, 8192,
     0)``, seed 3; returns (occupancies [S, W, N], enthalpies [S * W], path)."""
-    sampler = Sampler.from_ensemble(ensemble, temperature, WALKERS, seed=3)
+    sampler = Sampler.from_ensemble(ensemble, temperature, nwalkers=WALKERS, seed=3)
     path = sampler.execution_path(THIN)
     sampler.run(NSTEPS, random_occupancies(ensemble, WALKERS, 0), thin_by=THIN)
     torch.cuda.synchronize()
@@ -1916,7 +2098,7 @@ def drive_host_api(card, built_trace):
     check(ensemble.chemical_potential_table is None
           and len(ensemble.natural_parameters) == ensemble.num_energy_coefs,
           "4d: the reset left the mu table or the -1 natural parameter")
-    sampler = Sampler.from_ensemble(ensemble, temperature, WALKERS, seed=3)
+    sampler = Sampler.from_ensemble(ensemble, temperature, nwalkers=WALKERS, seed=3)
     path = sampler.execution_path(THIN)
     check(path.startswith("cuda-chain[swap]"), f"4d (reset): path {path}")
     sampler.run(THIN, occ[-1], thin_by=THIN)
@@ -2061,11 +2243,12 @@ def drive_step_path(card):
                                             chemical_potentials=mus, device="cuda")
     occ0 = random_occupancies(built, WALKERS, 0)
     # the K1 chain run of the same system, before the counts are set to 0
-    k1 = Sampler.from_ensemble(built, temperature, WALKERS, seed=3)
+    k1 = Sampler.from_ensemble(built, temperature, nwalkers=WALKERS, seed=3)
     k1_path = k1.execution_path(THIN)
     check(k1_path.startswith("cuda-chain[flip]"), f"K1 path {k1_path}")
     k1.run(STEP_NSTEPS, occ0, thin_by=THIN)
-    reset_counts(chain.flip_chain, chain.swap_chain, chain.table_chain, exchange_betas)
+    reset_counts(chain.flip_chain, chain.flip_window, chain.swap_chain, chain.table_chain,
+                 exchange_betas)
     label = f"spinel-independent-random {STEP_CELL}"
     sampler, wall = step_run(label, built, card, STEP_NSTEPS, occ0, temperature,
                              shared_proposals=False)
@@ -2149,7 +2332,7 @@ def drive_step_path(card):
           f"{len(temps)} records, {exchanges} exchange-kernel launches, exchange "
           f"acceptance {accepted / exchange_attempts(WALKERS, STEP_PT_NSTEPS // PT_PERIOD):.4f}")
     # anneal over three temperatures, on the per-step path
-    annealer = Sampler.from_ensemble(built, ANNEAL_TEMPERATURES[0], WALKERS, seed=3,
+    annealer = Sampler.from_ensemble(built, ANNEAL_TEMPERATURES[0], nwalkers=WALKERS, seed=3,
                                      shared_proposals=False)
     t0 = time.perf_counter()
     annealer.anneal(list(ANNEAL_TEMPERATURES), STEP_SHORT, occ0, thin_by=THIN)
@@ -2165,8 +2348,8 @@ def drive_step_path(card):
           f"enthalpy at the end of each temperature "
           + ", ".join(f"{means[(k + 1) * per - 1]:.4f}" for k in range(3))
           + f" eV, parity(e) {parity:.3e} ({wall:.4f} s)")
-    launched = {k.__name__: k.launches for k in (chain.flip_chain, chain.swap_chain,
-                                                 chain.table_chain)}
+    launched = {k.__name__: k.launches for k in (chain.flip_chain, chain.flip_window,
+                                                 chain.swap_chain, chain.table_chain)}
     check(not any(launched.values()), f"the per-step path launched a chain: {launched}")
     print(f"phase 4e: no chain launched on the per-step paths; exchange kernel launches "
           f"{exchanges}")
@@ -2253,7 +2436,7 @@ def drive_step_refusals(card):
         device="cuda")
     start = np.tile(generate_random_ordered_occupancy(
         ewald.processor, charge_neutral=True, rng=np.random.default_rng(0)), (WALKERS, 1))
-    k5 = Sampler.from_ensemble(ewald, REFUSED_TABLE_TEMPERATURE, WALKERS, seed=3,
+    k5 = Sampler.from_ensemble(ewald, REFUSED_TABLE_TEMPERATURE, nwalkers=WALKERS, seed=3,
                                step_type="table-flip")
     k5_path = k5.execution_path(THIN)
     check(k5_path.startswith("cuda-chain[table]+ewald"), f"K5 path {k5_path}")
@@ -2544,18 +2727,23 @@ def tempering_vs_enumeration(card, copies=128, t_ladder=(600.0, 4000.0, 6)):
 
 def drive_tempering_cells(card):
     """Phase 4 for bench ``tempering``, with the Ising body (K1-Ising) and
-    with the direct body; counts set to 0 just before, read just after."""
-    reset_counts(chain.flip_chain, exchange_betas)
+    with the direct body; counts set to 0 just before, read just after:
+    one windowed K1 launch a 100-step window, no segment launch of K1 and
+    no exchange launch."""
+    reset_counts(chain.flip_chain, chain.flip_window, exchange_betas)
     runs = {delta: drive_tempering(card, delta) for delta in (None, "direct")}
-    bodies, exchanges = body_counts(chain.flip_chain), exchange_betas.launches
-    segments = 2 * (NSTEPS // PT_PERIOD)  # cold and warm
-    check(bodies == {"direct": segments, "qary": 0, "ising": segments}
-          and exchanges == 2 * segments,
-          f"tempering path: flip launches by body {bodies}, {exchanges} exchange launches")
-    print(f"phase 4: on the tempering path flip_chain launches "
-          f"{chain.flip_chain.launches} ({bodies['ising']} with the Ising body, "
-          f"{bodies['direct']} with the direct body), exchange kernel launches {exchanges}")
-    return runs, bodies, exchanges
+    bodies, windows = body_counts(chain.flip_chain), body_counts(chain.flip_window)
+    exchanges = exchange_betas.launches
+    per_body = 2 * (NSTEPS // THIN)  # cold and warm
+    check(windows == {"direct": per_body, "qary": 0, "ising": per_body}
+          and chain.flip_chain.launches == 0 and exchanges == 0,
+          f"tempering path: windowed launches by body {windows}, {chain.flip_chain.launches} "
+          f"flip launches, {exchanges} exchange launches")
+    print(f"phase 4: on the tempering path flip_window launches "
+          f"{chain.flip_window.launches} ({windows['ising']} with the Ising body, "
+          f"{windows['direct']} with the direct body: one a 100-step window), flip_chain "
+          f"launches {chain.flip_chain.launches}, exchange kernel launches {exchanges}")
+    return runs, bodies, windows
 
 
 def plane_invariants(label, state, steps):
@@ -3722,62 +3910,185 @@ def time_exchange(card, sweeps=10):
             "bound_by": bound_by}
 
 
-def time_segment(card, ensemble, delta, windows=20):
-    """Phase 5: tempering segments at 8192 walkers on the device's clock (a
-    CUDA graph of a window's 10 segments, each a 10-step flip launch and an
-    exchange, as the port issues them; and of the 10 flip launches alone),
-    and a whole 100-step window through the tempering chain on the host's
-    clock (draws, launches, the occupancy's gather and scatter)."""
-    from smol_tpu_torch.parallel import make_tempering_chain
+def window_bound(tables, ops):
+    """The least time of one tempering window (ms, "bytes" or
+    "operations"): K1's bytes and operations over the window's sequences
+    (:func:`bound` of one launch of all the segments' steps on their rows:
+    the codes read and written once), and the exchange sweeps': each
+    sweep's uniforms (8 B a walker) and three f64 operations a pair, the
+    betas read and written once (f64 and f32: 20 B a walker), the exchange
+    counts read and written once (8 B a walker)."""
+    n, groups, steps = ops["seqs"].shape
+    flat = {"occ": ops["occ"], "n_steps": n * steps, "block_size": BLOCK,
+            "seq": ops["seqs"].permute(1, 0, 2).reshape(groups, n * steps)}
+    _, _, nbytes, n_ops, _ = bound(tables, flat, "flip")
+    nbytes += n * WALKERS * 8 + WALKERS * (20 + 8)
+    n_ops += 3 * exchange_attempts(WALKERS, n)
+    bytes_s, ops_s = nbytes / PEAK_BYTES_PER_S, n_ops / PEAK_F64_PER_S
+    return max(bytes_s, ops_s) * 1e3, "bytes" if bytes_s >= ops_s else "operations"
 
+
+def time_segment(card, ensemble, delta, windows=20, reps=20):
+    """Phase 5: bench ``tempering``'s window at 8192 walkers (ten 10-step
+    segments with an exchange after each), in turns (segments, windowed,
+    windowed, segments) from one start.  On the device's clock: the
+    windowed launch (one cooperative launch of K1, ``flip_window``)
+    against a CUDA graph of the window's 10 flip launches and 10 exchange
+    launches, as the port issued them before (and of the 10 flip launches
+    alone, once).  On the host's clock: a 100-step window through the
+    tempering chain (draws, launches, the occupancy's gather and scatter),
+    and bench ``tempering`` end to end (``Sampler.run`` of 20000 steps
+    thinned by 100, warm, as phase 4 runs it), each way (segment by
+    segment: :func:`segments_only`).  What an exchange costs inside
+    the launch: a window of ten 10-step segments against one of one
+    100-step segment (one exchange), both at one temperature, so that the
+    exchanges change no walker's trajectory, each launch from a copy of
+    the same start, over 9 sweeps.  The plain version (the window's twin
+    on the card) once, and the window's bound."""
     segments = THIN // PT_PERIOD
     tables = tables_of(ensemble, "flip", delta)
-    ops = window_operands(ensemble, tables, "flip", BLOCK, occ_seed=5, seq_seed=1,
-                          n_steps=PT_PERIOD)
+    ops = pt_window_operands(ensemble, tables)
     device = ensemble.device
-    gen = torch.Generator(device=device).manual_seed(11)
-    seqs = chain.rank_sequence(tables, gen, (segments, WALKERS // BLOCK, PT_PERIOD))
-    seeds = torch.randint(0, 2**62, (segments,), generator=gen, device=device)
-    u = torch.rand((segments, WALKERS), generator=gen, dtype=torch.float64, device=device)
-    beta = pt_betas(device)
-    beta32 = beta.to(torch.float32)
+    run_ops = {**ops, **{k: ops[k].clone() for k in PT_WINDOW_STATE}}
 
-    def window(exchange):
-        launches = chain.ChainLaunches("flip", ops["occ"], ops["enthalpy"],
-                                       (ops["naccept"],), beta32, (seqs,), seeds, tables,
-                                       BLOCK, "philox")
-        exchanges = ExchangeLaunches(beta, beta32, ops["enthalpy"], u, None)
+    def graph_window(exchange):
+        launches = chain.ChainLaunches("flip", run_ops["occ"], run_ops["enthalpy"],
+                                       (run_ops["naccept"],), run_ops["beta32"],
+                                       (ops["seqs"],), ops["seeds"], tables, BLOCK, "philox")
+        exchanges = ExchangeLaunches(run_ops["beta"], run_ops["beta32"],
+                                     run_ops["enthalpy"], ops["uniforms"], None)
         for s in range(segments):
             launches.launch(s, PT_PERIOD)
             if exchange:
                 exchanges(s, (s + 1) % 2)
 
-    segment_ms = graph_ms(lambda: window(True)) / segments
-    launch_ms = graph_ms(lambda: window(False)) / segments
-    occu = torch.as_tensor(random_occupancies(ensemble, WALKERS, 5), device=device)
-    theta = torch.as_tensor(ensemble.natural_parameters, device=device)
-    state = {"occupancy": occu,
-             "enthalpy": (ensemble.compute_features(occu) @ theta).contiguous(),
-             "beta": pt_betas(device),
-             "naccept": torch.zeros(WALKERS, dtype=torch.int32, device=device),
-             "accepted": torch.ones(WALKERS, dtype=torch.bool, device=device),
-             "pt_counter": 0}
-    run = make_tempering_chain(chain.make_shared_proposal_chain(
-        tables, PT_PERIOD, block_size=BLOCK), segments)
-    run(state, gen)
+    plan = chain.tempering_window_plan(tables, WALKERS, BLOCK, PT_PERIOD, segments,
+                                       device=device)
+    design = chain._LaneDesign(plan.launch.lanes, plan.launch.resident)
+
+    def window_launch(state, seqs, seeds):
+        return chain.ChainLaunches("flip", state["occ"], state["enthalpy"],
+                                   (state["naccept"],), state["beta32"], (seqs,), seeds,
+                                   tables, BLOCK, "philox", design)
+
+    launch = window_launch(run_ops, ops["seqs"], ops["seeds"])
+
+    def host_window(windowed):
+        occu = torch.as_tensor(np.random.default_rng(0).integers(
+            0, 2, (WALKERS, ensemble.num_sites)).astype(np.int32), device=device)
+        st = {"occupancy": occu, "enthalpy": ops["enthalpy"].clone(), "beta": pt_betas(device),
+              "naccept": torch.zeros(WALKERS, dtype=torch.int32, device=device),
+              "accepted": torch.ones(WALKERS, dtype=torch.bool, device=device),
+              "pt_counter": 0,
+              "pt_accepted": torch.zeros(WALKERS, dtype=torch.int32, device=device)}
+        gen = torch.Generator(device=device).manual_seed(11)
+        chain_fn = chain.make_shared_proposal_chain(tables, PT_PERIOD, block_size=BLOCK)
+        run = make_tempering_chain(chain_fn if windowed else segments_only(chain_fn),
+                                   segments)
+        before = chain.flip_window.launches
+        run(st, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(windows):
+            run(st, gen)
+        torch.cuda.synchronize()
+        took = (time.perf_counter() - t0) / windows * 1e3
+        check(chain.flip_window.launches - before == (windows + 1 if windowed else 0),
+              "the host-clock windows took the wrong path")
+        return took
+
+    # bench tempering end to end, as phase 4 runs it: one warm-up run a way
+    ladder = make_temperature_ladder(*PT_LADDER, WALKERS)
+    occ0 = np.random.default_rng(0).integers(0, 2, (WALKERS, ensemble.num_sites))
+    samplers = {}
+    for way in ("segments", "windowed"):
+        samplers[way] = Sampler.from_ensemble(ensemble, temperature=ladder, nwalkers=WALKERS,
+                                              seed=3, chain_block_size=BLOCK,
+                                              replica_exchange_period=PT_PERIOD,
+                                              chain_delta=delta)
+    # the segment way: the sampler's window (its chain cache's entry for
+    # thin_by) built on the kernel's chain without the windowed launch
+    samplers["segments"]._chain_fns[THIN] = make_tempering_chain(
+        segments_only(samplers["segments"]._kernel.make_chain_fn(PT_PERIOD)),
+        THIN // PT_PERIOD)
+
+    def sampler_run(way):
+        before = chain.flip_window.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samplers[way].run(NSTEPS, occ0, thin_by=THIN)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        windows = NSTEPS // THIN if way == "windowed" else 0
+        check(chain.flip_window.launches - before == windows,
+              f"bench tempering {way}: {chain.flip_window.launches - before} windows")
+        samplers[way].clear_samples()
+        return WALKERS * NSTEPS / took
+
+    for way in samplers:
+        sampler_run(way)
+    turns = {"segments": [], "windowed": []}
+    for way in ("segments", "windowed", "windowed", "segments"):
+        if way == "segments":
+            device_ms = graph_ms(lambda: graph_window(True), reps)
+        else:
+            device_ms = cuda_ms(lambda: launch.window(
+                PT_PERIOD, run_ops["beta"], ops["uniforms"], 1, run_ops["accepted"]), reps)
+        turns[way].append((device_ms, host_window(way == "windowed"), sampler_run(way)))
+    seg_ms, win_ms, seg_host, win_host, seg_rate, win_rate = (
+        sum(t[k] for t in turns[w]) / 2 for k in range(3) for w in ("segments", "windowed"))
+    launch_ms = graph_ms(lambda: graph_window(False), reps)
+
+    # an exchange inside the launch: ten segments against one, one temperature
+    flat = {**ops, "beta": torch.full_like(ops["beta"], 1.0 / (kB * PT_TEMPERATURE))}
+    flat["beta32"] = flat["beta"].to(torch.float32)
+    long_seqs = ops["seqs"].permute(1, 0, 2).reshape(1, WALKERS // BLOCK, THIN).contiguous()
+    copies = {k: flat[k].clone() for k in PT_WINDOW_STATE}
+    ten = window_launch(copies, ops["seqs"], ops["seeds"])
+    one = window_launch(copies, long_seqs, ops["seeds"][:1])
+
+    def from_start(launcher, n_steps, uniforms):
+        def run():
+            for k in PT_WINDOW_STATE:
+                copies[k].copy_(flat[k])
+            launcher.window(n_steps, copies["beta"], uniforms, 1, copies["accepted"])
+        return run
+
+    ten_ms = cuda_ms(from_start(ten, PT_PERIOD, ops["uniforms"]), reps)
+    one_ms = cuda_ms(from_start(one, THIN, ops["uniforms"][:1]), reps)
+    sweep_ms = (ten_ms - one_ms) / (segments - 1)
+
+    twin = {k: ops[k].clone() for k in PT_WINDOW_STATE}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(windows):
-        run(state, gen)
+    window_twin(twin, ops, tables, 1, plan.launch.lanes)
     torch.cuda.synchronize()
-    window_ms = (time.perf_counter() - t0) / windows * 1e3
-    print(f"phase 5 [tempering segment {PT_CELL}, {delta}] {card}: on the device "
-          f"{launch_ms * 1e3:.2f} us per {PT_PERIOD}-step flip launch, "
-          f"{segment_ms * 1e3:.2f} us per segment (launch and exchange; graphs of a "
-          f"window's {segments}); a 100-step window on the host's clock "
-          f"{window_ms:.4f} ms against {segments * segment_ms:.4f} ms of its segments' "
-          f"kernels")
-    return {"launch_ms": launch_ms, "segment_ms": segment_ms, "window_ms": window_ms}
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    bound_ms, bound_by = window_bound(tables, ops)
+    print(f"phase 5 [tempering window {PT_CELL}, {delta}] {card}: on the device, per "
+          f"100-step window of {segments} segments, in turns (segments, windowed, "
+          f"windowed, segments; means of two turns): windowed launch {win_ms:.4f} ms "
+          f"(turns {turns['windowed'][0][0]:.4f}, {turns['windowed'][1][0]:.4f}), graph of "
+          f"{segments} flip launches + {segments} exchange launches {seg_ms:.4f} ms (turns "
+          f"{turns['segments'][0][0]:.4f}, {turns['segments'][1][0]:.4f}): "
+          f"{seg_ms / win_ms:.3f}x; the flip launches alone {launch_ms:.4f} ms; at one "
+          f"temperature from one start, ten 10-step segments in the windowed launch "
+          f"{ten_ms:.4f} ms against one 100-step segment {one_ms:.4f} ms, so an exchange "
+          f"inside the launch costs {sweep_ms * 1e3:.2f} us a sweep; on the host's clock a "
+          f"100-step window through the tempering chain {win_host:.4f} ms windowed against "
+          f"{seg_host:.4f} ms segment by segment ({seg_host / win_host:.3f}x); bench "
+          f"tempering end to end (Sampler.run, {WALKERS} walkers x {NSTEPS} steps, warm) "
+          f"{win_rate / 1e6:.1f} M attempts/s windowed (turns "
+          f"{turns['windowed'][0][2] / 1e6:.1f}, {turns['windowed'][1][2] / 1e6:.1f}) against "
+          f"{seg_rate / 1e6:.1f} M segment by segment (turns {turns['segments'][0][2] / 1e6:.1f}"
+          f", {turns['segments'][1][2] / 1e6:.1f}): {win_rate / seg_rate:.3f}x; the twin on "
+          f"the card {twin_ms:.2f} ms; bound {bound_ms * 1e3:.3f} us ({bound_by}), "
+          f"windowed/bound {win_ms / bound_ms:.0f}x; plan {window_plan_label(tables)}")
+    return {"kernel_ms": win_ms, "twin_ms": twin_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "segments_ms": seg_ms, "launch_ms": launch_ms / segments,
+            "ten_ms": ten_ms, "one_segment_ms": one_ms, "sweep_ms": sweep_ms,
+            "window_ms": win_host, "segments_window_ms": seg_host, "rate": win_rate,
+            "segments_rate": seg_rate}
 
 
 def wl_bound(ops, after):
@@ -4322,7 +4633,8 @@ def main():
     errs["ising"].append(chunked_hash_vs_twin(swaps["aucu_4x4x4"], "aucu_4x4x4", "swap",
                                               SWAP_CELLS["aucu_4x4x4"][1], "ising"))
     errs["exchange"] = [exchange_vs_twin()]
-    print(f"phase 3: the K1-Ising and exchange comparisons took "
+    errs["window"] = [window_vs_segments(card)]
+    print(f"phase 3: the K1-Ising, exchange and tempering-window comparisons took "
           f"{time.perf_counter() - t0:.1f} s")
     # K1 at every lane count and row plan, each body, both RNG modes; the
     # sweep schedule (bench spinel-independent)
@@ -4475,9 +4787,9 @@ def main():
     t0 = time.perf_counter()
     api_bodies, api_distance = drive_host_api(card, built_traces[HOST_API_CELL])
     print(f"phase 4d took {time.perf_counter() - t0:.1f} s")
-    _, pt_bodies, exchange_launches = drive_tempering_cells(card)
+    _, pt_bodies, pt_windows = drive_tempering_cells(card)
     t0 = time.perf_counter()
-    exchange_launches += drive_step_path(card)
+    exchange_launches = drive_step_path(card)  # the chain path launches none
     print(f"phase 4e took {time.perf_counter() - t0:.1f} s")
     drive_step_refusals(card)
     wide_launches, wide_timing = drive_sqs_generator(card)
@@ -4594,8 +4906,8 @@ def main():
               f"{sum(wins)} of {len(wins)} cells; default_delta names {default!r}")
     timings[("exchange", PT_CELL)] = time_exchange(card)
     for delta in ("ising", "direct"):
-        timings[(f"segment+{delta}", PT_CELL)] = time_segment(card, ising_cells[PT_CELL],
-                                                              delta)
+        timings[(f"window+{delta}", PT_CELL)] = time_segment(card, ising_cells[PT_CELL],
+                                                             delta)
     print("timings " + card + ": " + json.dumps(
         {f"{move} {stem}": v for (move, stem), v in timings.items()}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
@@ -4612,9 +4924,8 @@ def main():
 
     def flip_plans(delta, cells):
         """K1's launch plan on each main path's cell of a body: its 100-step
-        windows and, on the tempering cell, its 10-step segments."""
-        return {stem: plan_label(tables_of(ens, "flip", delta),
-                                      n_steps=PT_PERIOD if stem == PT_CELL else THIN)
+        windows."""
+        return {stem: plan_label(tables_of(ens, "flip", delta))
                 for stem, ens in cells.items()}
 
     def lane_plans(move, delta, cells):
@@ -4633,7 +4944,7 @@ def main():
     kernels = [
         entry("flip_chain (direct body)", ("flip+direct", SGC_CELL), flip_src,
               f"{ref}:1545", launches[("flip", "direct")], "flip",
-              flip_plans("direct", {SGC_CELL: sgc, PT_CELL: ising_cells[PT_CELL]})),
+              flip_plans("direct", {SGC_CELL: sgc})),
         entry("swap_chain (direct body)", ("swap+direct", "aucu_4x4x4"), swap_src,
               f"{ref}:1817", launches[("swap", "direct")], "swap",
               lane_plans("swap", "direct", {"aucu_4x4x4": swaps["aucu_4x4x4"]})),
@@ -4671,12 +4982,20 @@ def main():
               lane_plans("swap", "qary", {EWALD_QARY_CELL: swaps[EWALD_QARY_CELL]})),
         entry("ising_body (K1-Ising, in flip_chain)", ("flip+ising", PT_CELL), body_src,
               f"{ref}:374", launches[("flip", "ising")], "ising",
-              flip_plans("ising", {**flips, PT_CELL: ising_cells[PT_CELL]})),
+              flip_plans("ising", flips)),
         entry("ising_body (K1-Ising, in swap_chain)", ("swap+ising", "aucu_4x4x4"), body_src,
               f"{ref}:410", launches[("swap", "ising")], "ising",
               lane_plans("swap", "ising", swaps)),
-        entry("tempering_exchange", ("exchange", PT_CELL), "smol_tpu_torch/csrc/tempering.cu",
-              "smol_tpu/parallel/tempering.py:42", exchange_launches, "exchange"),
+        entry("tempering_exchange (the per-step path's sweeps)", ("exchange", PT_CELL),
+              "smol_tpu_torch/csrc/tempering.cu", "smol_tpu/parallel/tempering.py:42",
+              exchange_launches, "exchange"),
+        entry("flip_window (K1's tempering window, K1-Ising body: ten segments and "
+              "their exchanges in one cooperative launch)", ("window+ising", PT_CELL),
+              flip_src, f"{ref}:374", pt_windows["ising"], "window",
+              {PT_CELL: window_plan_label(tables_of(ising_cells[PT_CELL], "flip", "ising"))}),
+        entry("flip_window (K1's tempering window, direct body)", ("window+direct", PT_CELL),
+              flip_src, f"{ref}:1545", pt_windows["direct"], "window",
+              {PT_CELL: window_plan_label(tables_of(ising_cells[PT_CELL], "flip", "direct"))}),
     ]
     for k in kernels:  # every kernel of the paths ran on them
         check(k["launches"] > 0, f"{k['name']}: no launch on the main paths")

@@ -6,7 +6,9 @@ semigrand spinel CE + Ewald), and for ``bench.py``'s ``sgc`` (ternary
 flips on 6x6x6 at 800 K, once with each site body: direct and K3's
 q-ary rows), and for ``bench.py``'s ``tempering`` (replica exchange on
 Au-Cu 3x3x3, 8192 replicas on a 300-3000 K ladder, an exchange every 10
-steps, once with each site body: K1-Ising and direct), a warm-up run and
+steps, once with each site body: K1-Ising and direct, each with the
+window in one launch of the flip kernel and segment by segment), a
+warm-up run and
 then a run of ``WINDOWS`` thinning windows (8192 walkers, 100 steps each)
 under ``torch.profiler``, the table flips once more with each site body
 (direct and K1-Ising); for the two Wang-Landau cells (flips on Au-Cu
@@ -27,8 +29,8 @@ power limit:
 
 For tempering it then times a 100-step window of 10 segments on the
 host's clock (mean of 50 windows after a warm-up): the port's whole
-window (draws, occupancy gather and scatter, and per segment a flip
-launch and an exchange-kernel launch, no graph), and the 10 segments
+window (draws, occupancy gather and scatter, and the window's one launch
+of the flip kernel, which runs its segments and exchanges), and the 10 segments
 alone on one window's fixed draws four ways: the port's launches
 (``ChainLaunches`` and the exchange kernel), the wrappers with the plain
 torch exchange, and a CUDA graph of the segments with the plain torch
@@ -116,7 +118,7 @@ def metropolis_cell(stem, temperature, block, step_type, **options):
     occ0 = system.get("initial_occupancy")
     if occ0 is None:
         occ0 = random_occupancies(ensemble, WALKERS, 0)
-    sampler = Sampler.from_ensemble(ensemble, temperature, WALKERS, seed=3,
+    sampler = Sampler.from_ensemble(ensemble, temperature, nwalkers=WALKERS, seed=3,
                                     chain_block_size=block, step_type=step_type,
                                     **options)
     return sampler, occ0
@@ -141,15 +143,25 @@ def wang_landau_cell(stem, move, delta=None):
     return sampler, occ0
 
 
-def tempering_cell(delta):
+def tempering_cell(delta, windowed=True):
     """(sampler, starting occupancies) of ``bench.py``'s ``tempering`` with
-    the site body ``delta``."""
+    the site body ``delta``; ``windowed=False`` runs its windows segment by
+    segment, a flip launch and an exchange launch a segment (the sampler's
+    window built on its kernel's chain with the exchanges left out of the
+    chain's calls)."""
     ensemble, _ = load(PT_CELL)
     ladder = make_temperature_ladder(*PT_LADDER, WALKERS)
     occ0 = np.random.default_rng(0).integers(0, 2, (WALKERS, ensemble.num_sites))
     sampler = Sampler.from_ensemble(ensemble, temperature=ladder, nwalkers=WALKERS,
                                     seed=3, replica_exchange_period=PT_PERIOD,
                                     chain_delta=delta)
+    if not windowed:
+        chain_fn = sampler._kernel.make_chain_fn(PT_PERIOD)
+
+        def segments_only(state, generator, exchange=None, **kwargs):
+            return chain_fn(state, generator, **kwargs)
+
+        sampler._chain_fns[THIN] = make_tempering_chain(segments_only, THIN // PT_PERIOD)
     return sampler, occ0.astype(np.int32)
 
 
@@ -355,8 +367,10 @@ def main():
                          *metropolis_cell(*SGC_CELL, None, chain_delta=delta), WINDOWS, THIN)
     if "tempering" in paths:
         for delta in ("ising", "direct"):
-            profile_cell(PT_CELL, card, *tempering_cell(delta), WINDOWS, THIN,
-                         segments=THIN // PT_PERIOD)
+            for windowed in (True, False):  # one launch a window, then segment by segment
+                profile_cell(f"{PT_CELL}, {'windowed' if windowed else 'segments'}", card,
+                             *tempering_cell(delta, windowed), WINDOWS, THIN,
+                             segments=THIN // PT_PERIOD)
         for delta in ("ising", "direct"):
             tempering_window_ways(card, delta)
     if "wang-landau" in paths:

@@ -93,7 +93,7 @@ def c11():
     for name, ens, sampler_of in (
             ("smol_tpu", ref, lambda e: RefSampler.from_ensemble(e, temperature=2000.0,
                                                                nwalkers=8, seed=8)),
-            ("port", port, lambda e: Sampler.from_ensemble(e, 2000.0, 8, seed=8,
+            ("port", port, lambda e: Sampler.from_ensemble(e, 2000.0, nwalkers=8, seed=8,
                                                            device="cpu"))):
         ens.split_sublattice_by_species(0, occ, [[0, 1], [2]])
         sampler = sampler_of(ens)

@@ -28,21 +28,24 @@ reference's runs (``sqs.py:302-312``, ``_chain_anneal_fn`` :350-381):
 :attr:`StochasticSQSGenerator.sampler` is the reference's multicell
 sampler: one Metropolis kernel a shape under a
 :class:`~smol_tpu_torch.moca.kernel.multicell.MulticellMetropolis`, run by
-:meth:`~smol_tpu_torch.moca.sampler.sampler.Sampler.run` on its host loop.  The generator is built from a disordered structure
-as the reference builds it (:meth:`SQSGenerator.from_structure`: the
-subspace from its cutoffs, every supercell shape of the size that the
-prim's symmetry tells apart, one distance processor each, their local
-tables padded to the widest), or from distance processors
-(:meth:`SQSGenerator.from_processors`).  The best structures come back as
-:class:`SQS` records, symmetry-equivalent ones removed by the
-``StructureMatcher`` (``crystal/matcher.py``).
+:meth:`~smol_tpu_torch.moca.sampler.sampler.Sampler.run` on its host loop.  The generator is built as the reference builds
+it (:class:`SQSGenerator`: from a cluster subspace and a supercell size,
+every supercell shape of the size that the prim's symmetry tells apart,
+or the given supercell matrices, one distance processor each, their local
+tables padded to the widest; or around given distance processors), from a
+disordered structure (:meth:`SQSGenerator.from_structure`) or from
+distance processors (:meth:`SQSGenerator.from_processors`).  The best
+structures come back as :class:`SQS` records, symmetry-equivalent ones
+removed by the ``StructureMatcher`` (``crystal/matcher.py``), and an
+ordered structure is scored as the reference scores it
+(:meth:`SQSGenerator.compute_score`).
 """
 
 from __future__ import annotations
 
 import warnings
 from abc import ABC, abstractmethod
-from dataclasses import dataclass, field
+from collections import namedtuple
 
 import numpy as np
 import torch
@@ -63,24 +66,18 @@ from smol_tpu_torch.ops.sqs import build_distance_tables, make_batched_distance_
 __all__ = ["SQS", "SQSGenerator", "StochasticSQSGenerator", "random_starts"]
 
 
-@dataclass(frozen=True)
-class SQS:
-    """One SQS found: its occupancy [N] int32, its exact score and distance
-    features, its supercell matrix, and the processor of its shape, which
-    gives its ``structure``."""
+class SQS(namedtuple("SQS", ["structure", "score", "feature_distance", "supercell_matrix"])):
+    """One SQS found: the reference's record (:36), which unpacks as
+    ``(structure, score, feature_distance, supercell_matrix)``; its encoded
+    ``occupancy`` [N] int32 and the ``processor`` of its shape ride along
+    as attributes."""
 
-    occupancy: np.ndarray
-    score: float
-    feature_distance: np.ndarray
-    supercell_matrix: np.ndarray
-    processor: object = field(default=None, repr=False, compare=False)
-
-    @property
-    def structure(self):
-        """The ordered structure of the occupancy (the reference's
-        ``SQS.structure``); a processor loaded from a system dict has no
-        structure and raises ``ValueError``."""
-        return self.processor.structure_from_occupancy(self.occupancy)
+    def __new__(cls, structure, score, feature_distance, supercell_matrix, occupancy=None,
+                processor=None):
+        record = super().__new__(cls, structure, score, feature_distance, supercell_matrix)
+        record.occupancy = occupancy
+        record.processor = processor
+        return record
 
 
 def _composition_occupancy(processor, rng, tol=1e-6) -> np.ndarray:
@@ -132,64 +129,49 @@ def _matrix_key(matrix):
 
 
 class SQSGenerator(ABC):
-    """An SQS search over the supercell shapes of its distance processors."""
+    """An SQS search over the supercell shapes of its distance processors.
 
-    def __init__(self, processors, device="cuda"):
-        if not processors:
-            raise ValueError("at least one processor is required")
+    Built as the reference's (``sqs.py:60-147``): one distance processor of
+    ``feature_type`` (``"correlation"``, or ``"cluster-interaction"``: one
+    feature an orbit) a shape of ``supercell_size`` over
+    ``cluster_subspace``, for each of ``supercell_matrices`` or, by
+    default, each supercell shape that the prim's symmetry tells apart,
+    least skewed first (``enumerate_supercell_matrices``, reversed), with
+    ``target_vector`` (by default zeros), ``target_weights`` (by default
+    ones), ``use_concentration``, ``match_weight`` and ``match_tol``; or
+    around the given ``processors`` (not with ``supercell_matrices``),
+    which must share the subspace (None for processors loaded from system
+    dicts, which have none) and the size.  The correlation processors'
+    local tables are padded to the widest.  ``device`` is where the
+    processors live (``"cuda"``: the card; ``"cpu"`` on request).
+    """
+
+    def __init__(self, cluster_subspace, supercell_size, feature_type="correlation",
+                 target_vector=None, target_weights=None, use_concentration=True,
+                 match_weight=1.0, match_tol=1e-5, supercell_matrices=None,
+                 processors=None, device="cuda"):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "device='cuda' requested but torch sees no CUDA device; pass "
                 "device='cpu' to run the plain torch chain on the CPU"
             )
-        kinds = {type(p) for p in processors}
-        if len(kinds) != 1 or not kinds <= {CorrelationDistanceProcessor,
-                                            ClusterInteractionDistanceProcessor}:
-            raise ValueError("the processors are distance processors of one kind")
-        for p in processors:
-            if p.device.type != device.type or (
-                device.index is not None and p.device != device
-            ):
-                raise ValueError(f"a processor lives on {p.device}, not on {device}")
-        if len({p.size for p in processors}) != 1:
-            raise ValueError("processors must have one supercell size")
-        self._processors = list(processors)
-        self.device = device
-        self.supercell_size = processors[0].size
-        self.feature_type = ("correlation" if isinstance(processors[0], CorrelationDistanceProcessor)
-                             else "cluster-interaction")
-        self._best = []  # per shape: (occupancies [W, N], scores [W], features [W, F])
-
-    @classmethod
-    def from_structure(cls, structure, cutoffs, supercell_size, basis="indicator",
-                       orthonormal=True, use_concentration=True, feature_type="correlation",
-                       target_vector=None, target_weights=None, match_weight=1.0,
-                       match_tol=1e-5, supercell_matrices=None, device="cuda", **kwargs):
-        """A generator of a disordered structure (the reference's :150-164
-        and its constructor, :63-148): the subspace of ``cutoffs`` (built
-        with ``use_concentration``), then one distance processor of
-        ``feature_type`` (``"correlation"``, or ``"cluster-interaction"``:
-        one feature an orbit), built with the constructor's default
-        ``use_concentration=True``, for each of ``supercell_matrices`` or,
-        by default, each supercell shape of ``supercell_size`` that the
-        prim's symmetry tells apart, least skewed first
-        (``enumerate_supercell_matrices``, reversed), the correlation
-        processors' local tables padded to the widest; ``kwargs`` go to the
-        generator."""
-        subspace = ClusterSubspace.from_cutoffs(
-            structure, cutoffs, basis=basis, orthonormal=orthonormal,
-            use_concentration=use_concentration)
         if feature_type == "correlation":
-            num_features = len(subspace)
             proc_cls = CorrelationDistanceProcessor
         elif feature_type == "cluster-interaction":
-            num_features = subspace.num_orbits
             proc_cls = ClusterInteractionDistanceProcessor
         else:
             raise ValueError(
                 f"feature_type {feature_type} not supported; options are "
                 "'correlation', 'cluster-interaction'.")
+        if cluster_subspace is None:  # loaded processors: their own count
+            if not processors:
+                raise ValueError("a generator without a cluster subspace needs processors")
+            num_features = processors[0].num_features
+        elif feature_type == "correlation":
+            num_features = len(cluster_subspace)
+        else:
+            num_features = cluster_subspace.num_orbits
         if target_weights is None:
             target_weights = np.ones(num_features - 1)
         elif len(target_weights) != num_features - 1:
@@ -199,44 +181,83 @@ class SQSGenerator(ABC):
         elif len(target_vector) != num_features:
             raise ValueError(f"target vector must be of length {num_features}")
         if supercell_matrices is not None:
+            if processors is not None:
+                raise ValueError("processors and supercell_matrices cannot both be specified")
             for scm in supercell_matrices:
                 if np.asarray(scm).shape != (3, 3):
                     raise ValueError("supercell matrices must be 3x3")
                 if not np.isclose(abs(np.linalg.det(scm)), supercell_size):
                     raise ValueError("supercell matrices must have determinant equal to "
                                      "supercell_size")
-        else:
+        elif processors is None:
             supercell_matrices = enumerate_supercell_matrices(supercell_size,
-                                                              subspace.symops)
+                                                              cluster_subspace.symops)
             supercell_matrices.reverse()  # least-skewed last -> first used
-        processors = [
-            proc_cls(
-                subspace, scm, use_concentration=True, target_vector=target_vector,
-                target_weights=target_weights, match_weight=match_weight,
-                match_tol=match_tol, device=device)
-            for scm in supercell_matrices
-        ]
+        if processors is None:
+            processors = [
+                proc_cls(cluster_subspace, scm, use_concentration=use_concentration,
+                         target_vector=target_vector, target_weights=target_weights,
+                         match_weight=match_weight, match_tol=match_tol, device=device)
+                for scm in supercell_matrices
+            ]
+        else:
+            if not processors:
+                raise ValueError("at least one processor is required")
+            if processors[0].cluster_subspace != cluster_subspace:
+                raise ValueError("Processors must share the generator's cluster subspace")
+            if not all(p.size == supercell_size for p in processors):
+                raise ValueError("processors must have the generator's size")
+            if not all(type(p) is proc_cls for p in processors):
+                raise ValueError(f"the processors are not all {proc_cls.__name__}s")
+            for p in processors:
+                if p.device.type != device.type or (
+                    device.index is not None and p.device != device
+                ):
+                    raise ValueError(f"a processor lives on {p.device}, not on {device}")
         if feature_type == "correlation":
             width = max(p.local_width for p in processors)
             for p in processors:
-                p.repad_local_tables(width)
-        return cls(processors, device=device, **kwargs)
+                if p.local_width != width:
+                    p.repad_local_tables(width)
+        self.cluster_subspace = cluster_subspace
+        self.supercell_size = supercell_size
+        self.feature_type = feature_type
+        self.device = device
+        self._processors = list(processors)
+        self._best = []  # per shape: (occupancies [W, N], scores [W], features [W, F])
 
     @classmethod
-    def from_processors(cls, processors, device="cuda", **kwargs):
-        """A generator over prebuilt distance processors, one per shape
-        (the reference's :171-194)."""
-        return cls(processors, device=device, **kwargs)
+    def from_structure(cls, structure, cutoffs, supercell_size, basis="indicator",
+                       orthonormal=True, use_concentration=True, **kwargs):
+        """A generator of a disordered structure (the reference's :150-164):
+        the subspace of ``cutoffs`` (built with ``use_concentration``), then
+        the constructor with ``kwargs``, whose ``use_concentration`` for the
+        processors keeps its default."""
+        subspace = ClusterSubspace.from_cutoffs(
+            structure, cutoffs, basis=basis, orthonormal=orthonormal,
+            use_concentration=use_concentration)
+        return cls(subspace, supercell_size, **kwargs)
+
+    @classmethod
+    def from_processors(cls, processors, **kwargs):
+        """A generator over prebuilt distance processors, one per shape (the
+        reference's :171-194): the subspace, size, feature type, target
+        vector and weights, match weight and tolerance are the first
+        processor's."""
+        if not processors:
+            raise ValueError("at least one processor is required")
+        p0 = processors[0]
+        feature_type = ("correlation" if isinstance(p0, CorrelationDistanceProcessor)
+                        else "cluster-interaction")
+        return cls(p0.cluster_subspace, p0.size, feature_type=feature_type,
+                   target_vector=np.asarray(p0.target_vector),
+                   target_weights=np.asarray(p0.coefs[1:]),
+                   match_weight=float(-p0.coefs[0]), match_tol=float(p0.match_tol),
+                   processors=list(processors), **kwargs)
 
     @property
     def processors(self):
         return self._processors
-
-    @property
-    def cluster_subspace(self):
-        """The shapes' cluster subspace (None for processors loaded from
-        system dicts)."""
-        return self._processors[0].cluster_subspace
 
     @property
     def num_structures(self) -> int:
@@ -246,35 +267,50 @@ class SQSGenerator(ABC):
     def generate(self, *args, **kwargs):
         """Run the SQS search."""
 
-    def _processor_of(self, supercell_matrix):
+    def compute_score(self, structure, supercell_matrix=None) -> float:
+        """Exact SQS score of an ordered structure of one of the shapes (the
+        reference's :208-212): its supercell matrix found by the subspace
+        where not given, the structure encoded by that shape's processor."""
+        processor = self._get_structure_processor(structure, supercell_matrix)
+        return processor.compute_property(processor.occupancy_from_structure(structure))
+
+    def compute_feature_distance(self, structure, supercell_matrix=None) -> np.ndarray:
+        """Distance features of an ordered structure of one of the shapes
+        (the reference's :214-217)."""
+        processor = self._get_structure_processor(structure, supercell_matrix)
+        return processor.compute_feature_vector(processor.occupancy_from_structure(structure))
+
+    def _get_structure_processor(self, structure, supercell_matrix):
         if supercell_matrix is None:
-            if len(self._processors) == 1:
-                return self._processors[0]
-            raise ValueError("with several shapes, give the supercell matrix")
+            if self.cluster_subspace is None:
+                raise ValueError("a generator of loaded processors has no cluster subspace "
+                                 "to find a structure's supercell matrix")
+            supercell_matrix = self.cluster_subspace.scmatrix_from_structure(structure)
+        if not np.isclose(abs(np.linalg.det(supercell_matrix)), self.supercell_size):
+            raise ValueError("Invalid supercell matrix: determinant must equal supercell_size")
         key = _matrix_key(supercell_matrix)
         for processor in self._processors:
             if _matrix_key(processor.supercell_matrix) == key:
                 return processor
         raise ValueError("No processor matches the given supercell matrix.")
 
-    def compute_score(self, occupancy, supercell_matrix=None) -> float:
-        """Exact SQS score of an occupancy [N] of one of the shapes."""
-        return self._processor_of(supercell_matrix).compute_property(occupancy)
-
-    def compute_feature_distance(self, occupancy, supercell_matrix=None) -> np.ndarray:
-        """Distance features of an occupancy [N] of one of the shapes."""
-        return self._processor_of(supercell_matrix).compute_feature_vector(occupancy)
-
-    def get_best_sqs(self, num_structures=1, remove_duplicates=True):
+    def get_best_sqs(self, num_structures=1, remove_duplicates=True,
+                     reduction_algorithm=None):
         """The best SQS found so far, ranked by score (ties in shape, then
-        walker order), as the reference's :237-263.
+        walker order), as the reference's :237-263, whose
+        ``reduction_algorithm`` it takes and, as the reference, does not
+        use.
 
         ``remove_duplicates`` drops a structure that the ``StructureMatcher``
         fits to a better one kept before it.  The ranking is walked only
         until ``num_structures`` are kept, and an occupancy of a shape seen
         before is dropped without a fit (it fits its first occurrence, or
         the kept structure that one fitted): what is returned is the
-        reference's, which builds and matches every record first.
+        reference's, which builds and matches every record first.  A
+        record's structure is built where its shape's processor has a
+        cluster subspace; a processor loaded from a system dict has none,
+        so its records carry ``structure=None``, and ``remove_duplicates``,
+        which must build them to match them, raises ``ValueError`` there.
         """
         if num_structures > self.num_structures:
             warnings.warn(
@@ -286,25 +322,26 @@ class SQSGenerator(ABC):
             for i, (_, _, scores, _) in enumerate(self._best)
             for w, score in enumerate(scores)
         )
-        best, structures, seen = [], [], set()
+        best, seen = [], set()
         matcher = StructureMatcher()
         for score, i, w in records:
             if len(best) == num_structures:
                 break
             shape, occupancies, _, features = self._best[i]
-            processor = self._processors[shape]
-            sqs = SQS(occupancy=occupancies[w], score=score, feature_distance=features[w],
-                      supercell_matrix=processor.supercell_matrix, processor=processor)
             if remove_duplicates:
                 key = (shape, occupancies[w].tobytes())
                 if key in seen:
                     continue
                 seen.add(key)
-                structure = sqs.structure
-                if any(matcher.fit(structure, kept) for kept in structures):
-                    continue
-                structures.append(structure)
-            best.append(sqs)
+            processor = self._processors[shape]
+            structure = (processor.structure_from_occupancy(occupancies[w])
+                         if remove_duplicates or processor.cluster_subspace is not None
+                         else None)
+            if remove_duplicates and any(matcher.fit(structure, kept.structure)
+                                         for kept in best):
+                continue
+            best.append(SQS(structure, score, features[w], processor.supercell_matrix,
+                            occupancy=occupancies[w], processor=processor))
         if len(best) < num_structures:
             warnings.warn(f"Only {len(best)} distinct SQS could be returned.")
         return best
@@ -331,18 +368,19 @@ class StochasticSQSGenerator(SQSGenerator):
     reference's kernel blocks) share their swap pairs; every other shape on
     the per-step path, each walker with its own proposals.
 
+    Takes the arguments of :class:`SQSGenerator` and, keyword-only, as
+    the reference's (``sqs.py:282-299``):
+
     Args:
-        processors: one distance processor a shape, all of one kind.
-        device: where they live (``"cuda"``: the card; ``"cpu"`` on request).
         step_type: the usher of the search (``"swap"``; another warns, as
             the reference's, and runs on the per-step path).
         temperature: the multicell sampler's temperature (:attr:`sampler`).
         kernel_kwargs: more arguments of each shape's Metropolis kernel.
     """
 
-    def __init__(self, processors, device="cuda", step_type="swap", temperature=5.0,
-                 kernel_kwargs=None):
-        super().__init__(processors, device=device)
+    def __init__(self, *args, kernel_kwargs=None, step_type="swap", temperature=5.0,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
         if step_type != "swap":
             warnings.warn(
                 f"Step type {step_type} was provided; swap steps are "

@@ -1,8 +1,10 @@
 // Pieces shared by the chain kernels flip_chain.cu, swap_chain.cu,
-// table_chain.cu, wl_chain.cu and distance_chain.cu.
+// table_chain.cu, wl_chain.cu and distance_chain.cu, and by the exchange
+// kernel tempering.cu.
 //
 // - the random bits: the reference's interpret-mode hash, bit for bit, and
 //   Philox4x32-10 (replacing the TPU hardware PRNG of smol_tpu/ops/prims.py);
+// - the replica-exchange decision of a pair (exchange_accept);
 // - one rank's table rows in shared memory and their cp.async prefetch
 //   (the analog of the reference's streamed-table DMA, pallas_chain.py
 //   :1590-1626);
@@ -112,6 +114,18 @@ __device__ __forceinline__ bool accept_exponent(float expo, uint32_t r_u) {
 // The Metropolis decision in f32, as the reference takes it (:1882).
 __device__ __forceinline__ bool metropolis(float beta, double dE, uint32_t r_u) {
   return accept_exponent(-beta * (float)dE, r_u);
+}
+
+// The replica-exchange decision of the pair (l, l + 1), as the reference
+// takes it at the left member (smol_tpu/parallel/tempering.py:42): with d =
+// (beta_l - beta_r) (H_l - H_r) in f64, exchange if d >= 0 or d > log u_l.
+// The product of two differences forms no fused multiply-add, so both
+// members of a pair, each calling this on the same four values and u_l,
+// reach the same bits (tempering.cu, and the windowed flip chain).
+__device__ __forceinline__ bool exchange_accept(double beta_l, double beta_r,
+                                                double h_l, double h_r, double u_l) {
+  const double d = (beta_l - beta_r) * (h_l - h_r);
+  return d >= 0.0 || d > log(u_l);
 }
 
 struct Rows {  // one rank's table rows in shared memory

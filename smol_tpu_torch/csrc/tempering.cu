@@ -3,21 +3,23 @@
 // The exchange step of smol_tpu/parallel/tempering.py `tempering_exchange`
 // (:42).  In the reference it is a handful of jnp operations that XLA fuses
 // between two launches of the Pallas chain; it is not a Pallas kernel.  On
-// the GPU the same operations in torch are about eight launches, and an
-// exchange follows every segment of `period` chain steps (10 on bench
-// `tempering`, tens of microseconds of chain kernel), so they would cost
-// the host more than the segment costs the card.  This kernel is the whole
-// sweep in one launch.
+// the GPU the same operations in torch are about eight launches.  This
+// kernel is the whole sweep in one launch.  It serves the per-step path
+// (an exchange every `period` steps) and the chain windows the windowed
+// flip chain does not take (swaps, table moves, a grid that is not
+// co-resident); a window of flips runs its exchanges inside its one
+// cooperative launch of flip_chain.cu (`smol_flip_window`), on the same
+// decision.
 //
 // One thread per pair (l, l + 1) with l = 2 p + phase and l + 1 < W (no
 // wrapping pair).  The decision is made at the left member and shared with
-// its partner, as the reference does: with d = (beta_l - beta_r) (H_l - H_r)
-// in f64, the pair exchanges its temperatures if d >= 0 or d > log u_l, u
-// the walker's uniform in [0, 1).  An exchange swaps beta_l and beta_r
-// (f64) and the f32 copies beta32 that the flip and swap chains read, so
-// the next segment needs no conversion launch, and, where a count is
-// given, adds one to the left member's accepted exchanges.  The plain
-// torch twin is `tempering_exchange` in
+// its partner, as the reference does (exchange_accept in chain_common.cuh:
+// with d = (beta_l - beta_r) (H_l - H_r) in f64, the pair exchanges its
+// temperatures if d >= 0 or d > log u_l, u the walker's uniform in [0, 1)).
+// An exchange swaps beta_l and beta_r (f64) and the f32 copies beta32 that
+// the flip and swap chains read, so the next segment needs no conversion
+// launch, and, where a count is given, adds one to the left member's
+// accepted exchanges.  The plain torch twin is `tempering_exchange` in
 // smol_tpu_torch/parallel/tempering.py; both take the product of two
 // differences (no fused multiply-add can form) and the f64 log, so they
 // make the same decisions bit for bit.
@@ -26,8 +28,7 @@
 // at most 16 bytes per walker, under a microsecond of bandwidth at 8192
 // walkers.  The C entry point returns cudaGetLastError() after the launch.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "chain_common.cuh"
 
 namespace {
 
@@ -44,8 +45,7 @@ exchange_kernel(double* __restrict__ beta, float* __restrict__ beta32,
   if (r >= W) return;
   const double bl = beta[l];
   const double br = beta[r];
-  const double d = (bl - br) * (enthalpy[l] - enthalpy[r]);
-  if (d >= 0.0 || d > log(uniforms[l])) {
+  if (smol::exchange_accept(bl, br, enthalpy[l], enthalpy[r], uniforms[l])) {
     beta[l] = br;
     beta[r] = bl;
     beta32[l] = (float)br;

@@ -122,6 +122,12 @@ class Processor(MSONable):
         """The number of coefficients, one a feature."""
         return len(self.coefs)
 
+    @property
+    def num_features(self) -> int:
+        """Length of the feature vector (the reference's abstract property,
+        ``base.py:178-181``; each processor gives its own)."""
+        raise NotImplementedError
+
     def compute_features(self, occupancies: torch.Tensor) -> torch.Tensor:
         """Feature vectors [W, F] f64 of occupancies [W, N], on the device."""
         raise NotImplementedError

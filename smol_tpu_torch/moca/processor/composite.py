@@ -49,6 +49,12 @@ class CompositeProcessor(Processor):
     def processors(self) -> list:
         return self._processors
 
+    @property
+    def num_features(self) -> int:
+        """The sub-processors' features together (the reference's
+        ``composite.py:63``)."""
+        return sum(p.num_features for p in self._processors)
+
     def add_processor(self, processor: Processor):
         """Add a sub-processor (same subspace and supercell required)."""
         if processor.cluster_subspace != self._subspace:

@@ -246,6 +246,12 @@ class CorrelationDistanceProcessor(DistanceProcessor, Processor):
         self._load(pad_local_tables(self.system, width))
 
     @property
+    def num_features(self) -> int:
+        """The correlation functions, as the reference's processor (a
+        cluster-expansion processor) counts them."""
+        return self.num_corr
+
+    @property
     def local_width(self) -> int:
         """Local clusters a site of the local tables."""
         return int(self.system["local_orbit"].shape[1])

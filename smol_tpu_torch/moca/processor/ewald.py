@@ -71,6 +71,11 @@ class EwaldProcessor(Processor):
         return self._ewald_term
 
     @property
+    def num_features(self) -> int:
+        """One: the Ewald energy (the reference's ``ewald.py:83``)."""
+        return 1
+
+    @property
     def ewald_summation(self):
         """The ``EwaldSummation`` of the supercell's Ewald structure."""
         self._require_subspace("ewald_summation")

@@ -83,6 +83,11 @@ class ClusterExpansionProcessor(Processor):
         self.local_d2 = np.asarray(fields["local_d2"])
         self.local_g = np.asarray(fields["local_g"], dtype=np.float64)
 
+    @property
+    def num_features(self) -> int:
+        """The correlation functions (the reference's ``expansion.py:213``)."""
+        return self.num_corr
+
     def compute_features(self, occupancies):
         """Feature vectors [W, num_corr] f64 of occupancies [W, N]."""
         return corr_ops.corr_from_occupancy(occupancies, self.packed) * self.size
@@ -178,6 +183,11 @@ class ClusterDecompositionProcessor(ClusterExpansionProcessor):
         super()._load(fields)
         self.interactions = corr_ops.interactions_to_device(fields, self.device)
         self.num_orbits = self.interactions.num_orbits
+
+    @property
+    def num_features(self) -> int:
+        """The orbits (the reference's ``expansion.py:305``)."""
+        return self.num_orbits
 
     def compute_features(self, occupancies):
         """Feature vectors [W, num_orbits] f64 of occupancies [W, N]."""

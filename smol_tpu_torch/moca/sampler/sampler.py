@@ -75,25 +75,30 @@ class Sampler:
             container.set_derived_value("features", kernel.full_features_fn())
 
     @classmethod
-    def from_ensemble(cls, ensemble, temperature=None, nwalkers=1, seed=None,
-                      device="cuda", step_type=None, kernel_type="Metropolis",
-                      replica_exchange_period=None, seeds=None, **kwargs):
+    def from_ensemble(cls, ensemble, *args, step_type=None, kernel_type=None, seeds=None,
+                      seed=None, nwalkers=1, replica_exchange_period=None, device="cuda",
+                      **kwargs):
         """A Sampler of ``ensemble`` on ``device``.
 
-        The default step type is ``"flip"`` for a semigrand ensemble and
-        ``"swap"`` for a canonical one (no chemical potentials), as in the
-        reference; ``"table-flip"`` takes the constrained (charge-neutral)
-        moves of the system's flip table.  ``kwargs`` go to the kernel:
-        :class:`~smol_tpu_torch.moca.kernel.metropolis.Metropolis`, which
-        needs a ``temperature``, or, with ``kernel_type="wang-landau"``,
+        As the reference's (``sampler.py:59-98``), every positional argument
+        after the ensemble and ``kwargs`` go to the kernel:
+        :class:`~smol_tpu_torch.moca.kernel.metropolis.Metropolis` (the
+        default ``kernel_type``), which takes a ``temperature`` first, or,
+        with ``kernel_type="wang-landau"``,
         :class:`~smol_tpu_torch.moca.kernel.wanglandau.WangLandau`, which
         takes none and needs ``min_enthalpy``, ``max_enthalpy`` and
-        ``bin_size``.  A ``temperature`` ladder [nwalkers] with
+        ``bin_size``; what a kernel does not take goes on to its usher.
+        ``nwalkers``, ``seed`` and ``device`` are keywords.  The default
+        step type is ``"flip"`` for a semigrand ensemble and ``"swap"`` for
+        a canonical one (no chemical potentials), as in the reference;
+        ``"table-flip"`` takes the constrained (charge-neutral) moves of the
+        system's flip table.  A ``temperature`` ladder [nwalkers] with
         ``replica_exchange_period`` runs parallel tempering: every period
         steps adjacent walkers try to exchange their temperatures
         (:mod:`smol_tpu_torch.parallel.tempering`).  ``seeds``, the
         reference's seeds of several kernels, is not ported: one kernel runs
-        every walker from ``seed``.
+        every walker from ``seed``, the first of ``seeds`` where no ``seed``
+        is given.
         """
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -111,10 +116,10 @@ class Sampler:
             step_type = (
                 "flip" if ensemble.chemical_potential_table is not None else "swap"
             )
+        if kernel_type is None:
+            kernel_type = "Metropolis"
         if seed is None and seeds:
             seed = seeds[0]
-        # a thermal kernel takes its temperature first; Wang-Landau takes none
-        args = () if temperature is None else (temperature,)
         kernel = mckernel_factory(
             kernel_type, ensemble, step_type, *args, seed=seed, **kwargs
         )

@@ -28,7 +28,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "HOST_FLAGS", "KERNELS", "build_libraries",
+__all__ = ["BUILD_DIR", "CSRC_DIR", "ENTRIES", "HOST_FLAGS", "KERNELS", "build_libraries",
            "host_ewald_real_sums", "load_chain", "load_host_ewald"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -71,6 +71,17 @@ KERNELS = {
     "distance_chain": [_ptr] * 9 + [_i32] * 2 + [_ptr] * 12 + [_i32] * 16 + [_ptr],
     # beta beta32 enthalpy uniforms accepted | W phase | stream
     "tempering": [_ptr] * 5 + [_i32] * 2 + [_ptr],
+}
+# name -> {further entry point of its library: argtypes}
+ENTRIES = {
+    "flip_chain": {
+        # smol_flip_chain's operands but the stream | beta64 snap uniforms
+        # accepted | seq_segment | n_segments phase0 | stream
+        "smol_flip_window": KERNELS["flip_chain"][:-1] + [_ptr] * 4 + [ctypes.c_int64]
+                            + [_i32] * 2 + [_ptr],
+        # q NW ewald K NB threads smem | out
+        "smol_flip_window_blocks_per_sm": [_i32] * 7 + [_ptr],
+    },
 }
 
 
@@ -132,9 +143,11 @@ def load_chain(name: str) -> ctypes.CDLL:
     """The library of kernel ``name`` (built on first call), with signatures."""
     (path, _, _), = build_libraries([name]).values()
     lib = ctypes.CDLL(str(path))
-    entry = getattr(lib, f"smol_{name}")
-    entry.argtypes = KERNELS[name]
-    entry.restype = _i32
+    for entry_name, argtypes in {f"smol_{name}": KERNELS[name],
+                                 **ENTRIES.get(name, {})}.items():
+        entry = getattr(lib, entry_name)
+        entry.argtypes = argtypes
+        entry.restype = _i32
     lib.smol_cuda_error_string.argtypes = [_i32]
     lib.smol_cuda_error_string.restype = ctypes.c_char_p
     return lib

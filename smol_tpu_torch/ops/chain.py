@@ -74,6 +74,8 @@ frequency matrix for the MXU.  Each body carries the Ewald fold beside it.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass
 from math import gcd, lcm
 
@@ -1627,6 +1629,7 @@ class ChainLaunches:
         self.args = args + [stream]
         self.tables = tables
         self.rows, self.max_steps = len(seed), seqs[0].shape[-1]
+        self.snap = None  # the window's snapshots where the caller gives none
 
     def launch(self, k, n_steps):
         """Launch ``n_steps`` steps on sequence row ``k`` and seed ``k``."""
@@ -1642,6 +1645,49 @@ class ChainLaunches:
         rc = self.entry(*args)
         _count_launch(self.kernel, self.tables)
         _launch_check(self.lib, self.kernel.__name__, rc)
+
+    def window(self, n_steps, beta, uniforms, phase0, accepted, snap=None):
+        """One cooperative launch of the flip kernel's window
+        (``smol_flip_window``): every sequence row and seed a segment of
+        ``n_steps`` steps, each followed by an exchange sweep of phase
+        (``phase0`` + s) % 2 on row s of ``uniforms`` [n, W] f64, which
+        exchanges ``beta`` [W] f64 with the f32 copy the chain reads and
+        adds to ``accepted`` ([W] int32 or None).  ``snap``, a [2, 2, W]
+        f64 buffer, holds the segments' snapshots (None: one the object
+        allocates at its first window).  Counts on :func:`flip_window`; a
+        launch that fails raises."""
+        W = beta.shape[0]
+        if self.kernel is not flip_chain:
+            raise ValueError("the window runs flips only")
+        for tensor, dtype, shape in ((beta, torch.float64, (W,)),
+                                     (uniforms, torch.float64, (self.rows, W)),
+                                     *(() if accepted is None else
+                                       ((accepted, torch.int32, (W,)),))):
+            if tensor.dtype != dtype or tuple(tensor.shape) != shape \
+                    or not tensor.is_contiguous() or tensor.device != beta.device:
+                raise ValueError(f"flip_window operand: expected contiguous {dtype} {shape} "
+                                 f"on {beta.device}, got {tensor.dtype} "
+                                 f"{tuple(tensor.shape)} on {tensor.device}")
+        if not 0 <= n_steps <= self.max_steps:
+            raise ValueError(f"flip_window: {n_steps} steps of sequences of {self.max_steps}")
+        if snap is None:  # [2][2][W]: by segment parity, enthalpies then betas
+            if self.snap is None:
+                self.snap = _window_snapshot(W, beta.device)
+            snap = self.snap
+        if snap.dtype != torch.float64 or tuple(snap.shape) != (2, 2, W) \
+                or not snap.is_contiguous() or snap.device != beta.device:
+            raise ValueError(f"flip_window: a contiguous float64 (2, 2, {W}) snapshot on "
+                             f"{beta.device}")
+        self.window_operands = (beta, uniforms, accepted, snap)
+        args = list(self.args)
+        args[self.steps_slot] = n_steps
+        seq_segment = self.seq_rows[0][1] // 4  # int32 elements a segment
+        rc = self.lib.smol_flip_window(
+            *args[:-1], beta.data_ptr(), snap.data_ptr(), uniforms.data_ptr(),
+            None if accepted is None else accepted.data_ptr(), seq_segment, self.rows,
+            int(phase0) % 2, args[-1])
+        _count_launch(flip_window, self.tables)
+        _launch_check(self.lib, "flip_window", rc)
 
 
 def _align16(nbytes):
@@ -1823,6 +1869,124 @@ def launch_plan(move, tables, W, block_size, n_steps, k_max=2, design=None) -> L
 def flip_launch_plan(tables, W, block_size, n_steps, design=None) -> LanePlan:
     """:func:`launch_plan` of a flip launch."""
     return launch_plan("flip", tables, W, block_size, n_steps, design=design)
+
+
+# ---- K1's tempering window: a window's segments and exchanges in one launch ----
+
+@dataclass(frozen=True)
+class WindowPlan:
+    """How a tempering window runs on the card: ``windowed``, all its
+    segments and exchange sweeps in one cooperative launch of K1 of shape
+    ``launch`` (``blocks`` blocks, of which the card holds
+    ``resident_blocks`` at once), or segment by segment, a chain launch
+    and an exchange launch a segment; ``reason`` says why."""
+
+    windowed: bool
+    reason: str
+    launch: LanePlan | None = None
+    blocks: int = 0
+    resident_blocks: int = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _window_blocks_per_sm(q, nw, ewald, K, NB, threads, smem, device_index):
+    """Blocks of the window kernel one SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    lib = _build.load_chain("flip_chain")
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = lib.smol_flip_window_blocks_per_sm(q, nw, ewald, K, NB, threads, smem,
+                                                ctypes.addressof(out))
+    _launch_check(lib, "flip_window occupancy", rc)
+    return out.value
+
+
+def tempering_window_plan(tables, W, block_size, n_steps, segments, move="flip",
+                          rng="philox", device=None, blocks_per_sm=None) -> WindowPlan:
+    """How a tempering window of ``segments`` segments of ``n_steps``
+    ``move`` steps of ``W`` walkers runs, decided once a window from shapes:
+    in one cooperative launch of K1 (:func:`flip_window`) where the moves
+    are flips, a segment is one chunk (any philox segment; a hash-mode
+    segment of at most ``MAX_CHUNK_STEPS``) and every block of the launch
+    (:func:`launch_plan` for the window's steps) is resident at once on the
+    card (``blocks_per_sm``, else asked of the card on ``device``, the
+    tables' by default); else segment by segment: swaps, table moves, a
+    longer hash-mode segment, a grid that does not fit, and on the CPU,
+    where the twins run."""
+    if move != "flip":
+        return WindowPlan(False, f"{move} moves run segment by segment")
+    if rng == "hash" and n_steps > MAX_CHUNK_STEPS:
+        return WindowPlan(False, f"a hash-mode segment of {n_steps} steps is "
+                                 f"{-(-n_steps // MAX_CHUNK_STEPS)} chunks")
+    device = torch.device(device) if device is not None else tables.device
+    if blocks_per_sm is None and device.type != "cuda":
+        return WindowPlan(False, f"the twins run on the {device.type} segment by segment")
+    launch = launch_plan("flip", tables, W, block_size, segments * n_steps)
+    blocks = launch.blocks(W)
+    sms = SM_COUNT
+    if blocks_per_sm is None:
+        q, _, NB, _, NW = _body_operands(tables)[1]
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        blocks_per_sm = _window_blocks_per_sm(
+            q, NW, int(tables.has_ewald), tables.nbr.shape[2], NB,
+            launch.walkers_per_block * launch.lanes, launch.shared_bytes, index)
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+    resident = blocks_per_sm * sms
+    if blocks > resident:
+        return WindowPlan(False, f"{blocks} blocks, of which the card holds {resident} "
+                                 "at once", launch, blocks, resident)
+    return WindowPlan(True, "one cooperative launch a window", launch, blocks, resident)
+
+
+def _window_snapshot(W, device):
+    """The [2, 2, W] f64 snapshots of a window of ``W`` walkers: by segment
+    parity, the walkers' enthalpies, then their betas."""
+    return torch.empty((2, 2, W), dtype=torch.float64, device=device)
+
+
+def _window_launches(plan, occ, enthalpy, naccept, beta32, seqs, seeds, tables, block_size,
+                     rng):
+    """The window's launch object on ``plan``'s shape; raises where the
+    plan runs the window segment by segment."""
+    if not plan.windowed:
+        raise ValueError(f"flip_window: the plan runs this window segment by segment "
+                         f"({plan.reason})")
+    return ChainLaunches("flip", occ, enthalpy, (naccept,), beta32, (seqs,), seeds, tables,
+                         block_size, rng, _LaneDesign(plan.launch.lanes, plan.launch.resident))
+
+
+def flip_window(occ, enthalpy, naccept, beta, beta32, seqs, seeds, tables, n_steps,
+                block_size, uniforms, phase0, accepted=None, rng="philox"):
+    """A tempering window of flips, in place: segment s runs ``n_steps``
+    flips (:func:`flip_chain`) on sequence row ``seqs[s]`` ([n, G, >=
+    n_steps] int32) and seed ``seeds[s]`` ([n] int64), then an exchange
+    sweep of phase (``phase0`` + s) % 2 on ``uniforms[s]`` ([n, W] f64),
+    which exchanges ``beta`` [W] f64 and its f32 copy ``beta32`` (what the
+    flips read) and adds the accepted exchanges to ``accepted`` ([W]
+    int32, at each pair's left member) where given.
+
+    CUDA tensors only: one cooperative launch of K1's window
+    (``flip_window.launches`` counts the launches, ``qary_launches`` and
+    ``ising_launches`` those of the q-ary and Ising bodies) as
+    :func:`tempering_window_plan` shapes it; raises where the plan does
+    not take the window.  The window's plain twin is the tempering chain
+    segment by segment (:func:`flip_chain_reference`, then
+    :func:`~smol_tpu_torch.parallel.tempering.exchange_betas_reference`),
+    which is how a CPU tensor runs it
+    (:func:`~smol_tpu_torch.parallel.tempering.make_tempering_chain`).
+    """
+    if occ.device.type != "cuda":
+        raise ValueError(f"flip_window runs on cuda, not {occ.device}: elsewhere a "
+                         "tempering window runs segment by segment")
+    plan = tempering_window_plan(tables, occ.shape[1], block_size, n_steps, len(seeds),
+                                 rng=rng, device=occ.device)
+    _window_launches(plan, occ, enthalpy, naccept, beta32, seqs, seeds, tables, block_size,
+                     rng).window(n_steps, beta, uniforms, phase0, accepted)
+
+
+flip_window.launches = 0
+flip_window.qary_launches = 0  # of the launches, those with K3's q-ary body
+flip_window.ising_launches = 0  # of the launches, those with K1-Ising's body
 
 
 def table_chain(occ, enthalpy, naccept, beta32, dirs, ranks, seed, tables,
@@ -2362,6 +2526,14 @@ def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
     wait.  ``beta32`` [W] f32 is what the chain reads, which ``cb`` may
     change in place together with ``state["beta"]`` (replica exchange,
     :func:`smol_tpu_torch.parallel.tempering.make_tempering_chain`).
+    ``exchange=(uniforms, phase0, accepted)`` gives the exchange sweeps
+    that ``cb`` runs: uniforms [k, W] f64, the first sweep's phase and the
+    [W] int32 count of accepted exchanges (or None).  Where
+    :func:`tempering_window_plan` takes the window (flips on the card, one
+    chunk a segment, a co-resident grid; planned at the first window of a
+    walker count and kept), the k segments and sweeps run in one launch of
+    K1 (:func:`flip_window`) and ``cb`` is not called.  Without
+    ``exchange`` the segments run one launch each with ``cb`` between.
     """
     if move not in MOVES:
         raise ValueError(f"unknown move type: {move!r}")
@@ -2384,7 +2556,19 @@ def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
     def as_seq(x, device):
         return torch.as_tensor(np.asarray(x), dtype=torch.int32, device=device)
 
-    def fn(state, generator, segments=1, between=None):
+    windows = {}  # (W, segments, device) -> the window's plan and snapshots
+
+    def window_of(W, segments, device):
+        """The plan of a tempering window, decided at its first use, and its
+        snapshots where the plan takes the window in one launch."""
+        key = (W, segments, device)
+        if key not in windows:
+            plan = tempering_window_plan(tables, W, block_size, n_steps, segments, move,
+                                         rng, device)
+            windows[key] = plan, (_window_snapshot(W, device) if plan.windowed else None)
+        return windows[key]
+
+    def fn(state, generator, segments=1, between=None, exchange=None):
         if segments != 1 and wl is not None:
             raise ValueError("segments are defined for the Metropolis chains")
         occu = state["occupancy"]
@@ -2433,7 +2617,14 @@ def make_shared_proposal_chain(tables: ChainTables, n_steps: int,
             planes = [state[name].T.contiguous() for name in plane_names]  # [B, W]
         else:
             beta32 = state["beta"].to(torch.float32)
-            if device.type == "cuda" and not table:  # checked once per window
+            plan, snap = (window_of(W, segments, device)
+                          if exchange is not None and device.type == "cuda" else (None, None))
+            if plan is not None and plan.windowed:
+                _window_launches(plan, occ, state["enthalpy"], nacc, beta32, seq[0], seed,
+                                 tables, block_size, rng).window(n_steps, state["beta"],
+                                                                 *exchange, snap)
+                launches = 0  # the window ran in one launch
+            elif device.type == "cuda" and not table:  # checked once per window
                 launcher = ChainLaunches(
                     move, occ, state["enthalpy"], (nacc, nmv) if swap else (nacc,),
                     beta32, seq, seed, tables, block_size, rng)

@@ -4,6 +4,7 @@ from smol_tpu_torch.parallel.tempering import (
     ExchangeLaunches,
     exchange_attempts,
     exchange_betas,
+    exchange_betas_reference,
     make_temperature_ladder,
     make_tempering_chain,
     make_tempering_step,
@@ -14,6 +15,7 @@ __all__ = [
     "make_temperature_ladder",
     "tempering_exchange",
     "exchange_betas",
+    "exchange_betas_reference",
     "exchange_attempts",
     "ExchangeLaunches",
     "make_tempering_chain",

@@ -14,11 +14,14 @@ two scalars per pair, whatever the system size.
 On a CUDA tensor :func:`exchange_betas` launches the hand-written kernel
 ``csrc/tempering.cu`` (one launch per sweep, where the plain torch
 exchange is about eight); on a CPU tensor it runs
-:func:`tempering_exchange`, the plain torch twin that makes the same
-decisions.  :func:`make_tempering_chain` runs a thinning window as
+:func:`exchange_betas_reference`, the plain torch twin that makes the
+same decisions (:func:`tempering_exchange`).  :func:`make_tempering_chain` runs a thinning window as
 segments of a chain of :func:`smol_tpu_torch.ops.chain.make_shared_proposal_chain`
 in one call: the window's sequences, seeds and exchange uniforms are drawn
-at once, and a segment costs the host two launches and no wait.
+at once.  A window of flips on the card is one cooperative launch of the
+flip kernel that runs every segment and exchange
+(``ops.chain.flip_window``); elsewhere a segment costs the host two
+launches and no wait.
 :func:`make_tempering_step` wraps a step of the per-step path
 (:mod:`smol_tpu_torch.ops.mc`) with the same exchange every ``period``
 steps, through the same kernel on the card.
@@ -35,6 +38,7 @@ __all__ = [
     "make_temperature_ladder",
     "tempering_exchange",
     "exchange_betas",
+    "exchange_betas_reference",
     "exchange_attempts",
     "ExchangeLaunches",
     "make_tempering_chain",
@@ -148,15 +152,11 @@ def exchange_betas(beta, beta32, enthalpy, uniforms, phase, accepted=None):
     contiguous on one device.  ``accepted``, an optional [W] int32 count,
     gains one at the left member of each accepted pair.  A CUDA tensor
     launches the kernel (``exchange_betas.launches`` counts the launches);
-    a CPU tensor runs :func:`tempering_exchange`.
+    a CPU tensor runs :func:`exchange_betas_reference`.
     """
     _check_exchange(beta, beta32, enthalpy, uniforms, accepted)
     if beta.device.type == "cpu":
-        new, left = _exchange(beta, enthalpy, uniforms, phase)
-        beta.copy_(new)
-        beta32.copy_(new.to(torch.float32))
-        if accepted is not None:
-            accepted += left.to(torch.int32)
+        exchange_betas_reference(beta, beta32, enthalpy, uniforms, phase, accepted)
         return
     if beta.device.type != "cuda":
         raise ValueError(f"exchange_betas runs on cuda or cpu, not {beta.device}")
@@ -166,22 +166,38 @@ def exchange_betas(beta, beta32, enthalpy, uniforms, phase, accepted=None):
 exchange_betas.launches = 0
 
 
+def exchange_betas_reference(beta, beta32, enthalpy, uniforms, phase, accepted=None):
+    """Plain torch twin of :func:`exchange_betas` (same arguments, in place,
+    on any device): :func:`tempering_exchange`'s betas, their f32 rounding
+    into ``beta32``, one count at each accepted pair's left member."""
+    new, left = _exchange(beta, enthalpy, uniforms, phase)
+    beta.copy_(new)
+    beta32.copy_(new.to(torch.float32))
+    if accepted is not None:
+        accepted += left.to(torch.int32)
+
+
 def make_tempering_chain(chain_fn, n_segments: int, uniforms=None):
     """Parallel tempering: ``n_segments`` segments of ``chain_fn`` with an
     exchange sweep after each.
 
     ``chain_fn`` runs one exchange period of steps, as
     :func:`~smol_tpu_torch.ops.chain.make_shared_proposal_chain` builds it:
-    it takes ``segments`` and ``between`` and runs all segments in one
-    call.  ``fn(state, generator) -> state`` draws the window's exchange
-    uniforms [n_segments, W] f64 from ``generator`` in one call (or takes
-    ``uniforms`` of that shape: the tests pass the reference's), runs the
-    segments and, after segment s, increments ``state["pt_counter"]`` (a
-    host int counting segments, as the reference's does) and exchanges
-    with phase ``pt_counter % 2``: the first sweep pairs (1, 2), (3, 4), ...
-    A ``state["pt_accepted"]`` [W] int32 gains the accepted exchanges
-    (at each pair's left member; :func:`exchange_attempts` counts the
-    tries).
+    it takes ``segments``, ``between`` and ``exchange`` and runs all
+    segments in one call.  ``fn(state, generator) -> state`` draws the
+    window's exchange uniforms [n_segments, W] f64 from ``generator`` in
+    one call (or takes ``uniforms`` of that shape: the tests pass the
+    reference's), runs the segments and, after segment s, exchanges with
+    phase ``(pt_counter + s + 1) % 2``, ``pt_counter`` being
+    ``state["pt_counter"]`` (a host int counting segments, as the
+    reference's does) at the window's start: the first sweep of a run
+    pairs (1, 2), (3, 4), ...  The counter gains ``n_segments``.  A
+    ``state["pt_accepted"]`` [W] int32 gains the accepted exchanges (at
+    each pair's left member; :func:`exchange_attempts` counts the tries).
+    Where the chain takes the window in one launch (flips on the card,
+    ``ops.chain.tempering_window_plan``), the exchanges run inside it;
+    elsewhere one exchange launch (:class:`ExchangeLaunches`) follows each
+    segment's launch, or on the CPU :func:`exchange_betas`.
     """
 
     def fn(state, generator):
@@ -192,12 +208,12 @@ def make_tempering_chain(chain_fn, n_segments: int, uniforms=None):
         else:
             u = torch.rand((n_segments, beta.shape[0]), generator=generator,
                            dtype=torch.float64, device=beta.device)
+        start, accepted = state["pt_counter"], state.get("pt_accepted")
         exchanges = None  # on the card: the window's launches, checked once
 
         def between(s, beta32):
             nonlocal exchanges
-            state["pt_counter"] += 1
-            phase, accepted = state["pt_counter"] % 2, state.get("pt_accepted")
+            phase = (start + s + 1) % 2
             if beta.device.type != "cuda":
                 exchange_betas(beta, beta32, enthalpy, u[s], phase, accepted)
                 return
@@ -205,7 +221,10 @@ def make_tempering_chain(chain_fn, n_segments: int, uniforms=None):
                 exchanges = ExchangeLaunches(beta, beta32, enthalpy, u, accepted)
             exchanges(s, phase)
 
-        return chain_fn(state, generator, segments=n_segments, between=between)
+        state = chain_fn(state, generator, segments=n_segments, between=between,
+                         exchange=(u, (start + 1) % 2, accepted))
+        state["pt_counter"] = start + n_segments
+        return state
 
     return fn
 

@@ -271,7 +271,7 @@ def test_default_delta_names_the_measured_body(stem, chain_name, expect):
     assert chain.default_delta(port.processor, port.sublattices) == expect
     step = {"wl-flip": "flip", "wl-swap": "swap", "table": "table-flip"}[chain_name]
     if chain_name == "table":
-        sampler = TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
+        sampler = TorchSampler.from_ensemble(port, 1000.0, nwalkers=4, seed=1, device="cpu",
                                              step_type=step)
     else:
         system = load_system(data_path(stem))
@@ -287,7 +287,7 @@ def test_refusals_that_remain():
     """A body the tables cannot take raises; nothing falls back."""
     lmof = _port("lmof_2x2x2")  # ternary x binary: no Ising rows, lcm 6
     for delta, why in (("ising", "sign-symmetric"), ("qary", "lcm 6")):
-        sampler = TorchSampler.from_ensemble(lmof, 1000.0, 4, seed=1, device="cpu",
+        sampler = TorchSampler.from_ensemble(lmof, 1000.0, nwalkers=4, seed=1, device="cpu",
                                              step_type="table-flip", chain_delta=delta)
         with pytest.raises(NotImplementedError, match=why):
             sampler.execution_path(10)
@@ -315,4 +315,4 @@ def test_refusals_that_remain():
     # device is asked for explicitly and never replaced by the CPU
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
-            TorchSampler.from_ensemble(q4, 1000.0, 4, seed=1, chain_delta="qary")
+            TorchSampler.from_ensemble(q4, 1000.0, nwalkers=4, seed=1, chain_delta="qary")

@@ -264,7 +264,7 @@ def test_averages_match_enumeration(proposal_mode):
 
     W = 64
     sampler = TorchSampler.from_ensemble(
-        port, temperature, W, seed=23, device="cpu", chain_block_size=1,
+        port, temperature, nwalkers=W, seed=23, device="cpu", chain_block_size=1,
         proposal_mode=proposal_mode,
     )
     occ0 = np.random.default_rng(4).integers(0, 2, (W, ref.num_sites))
@@ -313,26 +313,26 @@ def test_sampler_device_is_explicit(spinel):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
-        TorchSampler.from_ensemble(port, 1000.0, 4, seed=1)
+        TorchSampler.from_ensemble(port, 1000.0, nwalkers=4, seed=1)
     # a bias takes the per-step path; a file's sublattices carry no charges
     d = sum(len(s.encoding) for s in port.sublattices)
     biased = TorchSampler.from_ensemble(
-        port, 1000.0, 4, seed=1, device="cpu", bias_type="square-hyperplane-bias",
+        port, 1000.0, nwalkers=4, seed=1, device="cpu", bias_type="square-hyperplane-bias",
         bias_kwargs={"hyperplane_normals": [[1.0] + [0.0] * (d - 1)],
                      "hyperplane_intercepts": [4.0]})
     assert biased.execution_path(10) == "cpu-step[flip]+general+independent-proposals"
     with pytest.raises(ValueError, match="no species"):
-        TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
+        TorchSampler.from_ensemble(port, 1000.0, nwalkers=4, seed=1, device="cpu",
                                    bias_type="square-charge-bias")
     with pytest.raises(ValueError, match="no species"):  # a file: no flip table,
-        TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",  # no species
+        TorchSampler.from_ensemble(port, 1000.0, nwalkers=4, seed=1, device="cpu",  # no species
                                    step_type="table-flip")
     # built here, the spinel derives the flip table stored with its Ewald form
     built = TorchEnsemble.from_cluster_expansion(
         torch_random_expansion(torch_spinel_prim(), {2: 5.3, 3: 3.7}, seed=11),
         np.diag([2, 2, 2]), processor_type="expansion", chemical_potentials=BENCH_MUS,
         device="cpu")
-    usher = TorchSampler.from_ensemble(built, 1000.0, 4, seed=1, device="cpu",
+    usher = TorchSampler.from_ensemble(built, 1000.0, nwalkers=4, seed=1, device="cpu",
                                        step_type="table-flip").mckernel.mcusher
     stored = load_system(ROOT / "tests" / "data" / "torch_spinel_ewald_sgc_2x2x2.npz")
     np.testing.assert_array_equal(usher.flip_table, stored["flip_table"])
@@ -341,11 +341,11 @@ def test_sampler_device_is_explicit(spinel):
                                          kernel_type="uniformly-random")
     assert uniform.execution_path(10) == "cpu-step[flip]+general+independent-proposals"
     with pytest.raises(TypeError):  # Wang-Landau takes a window, no temperature
-        TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
+        TorchSampler.from_ensemble(port, 1000.0, nwalkers=4, seed=1, device="cpu",
                                    kernel_type="wang-landau")
     # replica exchange is ported: a window the period does not divide takes
     # the per-step path, and a ladder needs one temperature per walker
-    tempering = TorchSampler.from_ensemble(port, [900.0, 1000.0], 4, seed=1,
+    tempering = TorchSampler.from_ensemble(port, [900.0, 1000.0], nwalkers=4, seed=1,
                                            device="cpu", replica_exchange_period=10)
     assert tempering.execution_path(15) == (
         "cpu-step[flip]+general+independent-proposals+replica-exchange@10")

@@ -61,7 +61,7 @@ def containers():
     theirs = RefEnsemble.from_cluster_expansion(
         ref_systems.random_expansion(ref_systems.spinel_prim(), {2: 5.3, 3: 3.7}, seed=11),
         np.diag([2, 2, 2]), chemical_potentials=SPINEL_MUS)
-    sampler = Sampler.from_ensemble(mine, 1000.0, W, seed=3, device="cpu")
+    sampler = Sampler.from_ensemble(mine, 1000.0, nwalkers=W, seed=3, device="cpu")
     occ0 = np.zeros((W, mine.num_sites), dtype=np.int32)
     rng = np.random.default_rng(1)
     for sl in mine.sublattices:

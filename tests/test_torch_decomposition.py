@@ -137,7 +137,7 @@ def test_sampler_parity_e_on_sgc(delta):
     """(e) on the CPU: recorded enthalpy == decomposition features . theta."""
     _, port = _pair("sgc_3x3x3")
     W = 16
-    sampler = TorchSampler.from_ensemble(port, 800.0, W, seed=3, device="cpu",
+    sampler = TorchSampler.from_ensemble(port, 800.0, nwalkers=W, seed=3, device="cpu",
                                          chain_block_size=8, chain_delta=delta)
     sampler.run(300, random_occupancies(port, W, 0), thin_by=50)
     feats = sampler.samples.get_feature_vectors()

@@ -160,10 +160,10 @@ def test_spinel_setter_builds_the_bench_table(spinel):
 def test_sampler_move_follows_the_setter(fcc):
     """Semigrand flips after the set, canonical swaps after the reset."""
     mine, _ = fcc
-    assert Sampler.from_ensemble(mine, 1000.0, 4, seed=1, device="cpu") \
+    assert Sampler.from_ensemble(mine, 1000.0, nwalkers=4, seed=1, device="cpu") \
         .execution_path().startswith("cpu-twin[swap]")
     mine.chemical_potentials = FCC_MUS
-    sampler = Sampler.from_ensemble(mine, 1000.0, 4, seed=1, device="cpu")
+    sampler = Sampler.from_ensemble(mine, 1000.0, nwalkers=4, seed=1, device="cpu")
     assert sampler.execution_path().startswith("cpu-twin[flip]")
     sampler.run(20, _occupancies(mine, 4, seed=2), thin_by=10)
     samples = sampler.samples
@@ -171,7 +171,7 @@ def test_sampler_move_follows_the_setter(fcc):
     assert feats.shape[1] == len(mine.natural_parameters)
     assert float(np.abs(feats @ mine.natural_parameters - samples.get_enthalpies()).max()) < 1e-9
     mine.chemical_potentials = None
-    assert Sampler.from_ensemble(mine, 1000.0, 4, seed=1, device="cpu") \
+    assert Sampler.from_ensemble(mine, 1000.0, nwalkers=4, seed=1, device="cpu") \
         .execution_path().startswith("cpu-twin[swap]")
 
 
@@ -267,11 +267,11 @@ def test_file_ensemble_keeps_its_table_and_refuses_species():
         ensemble.chemical_potentials = SPINEL_MUS
     np.testing.assert_array_equal(ensemble.chemical_potential_table, table)
     np.testing.assert_array_equal(ensemble.natural_parameters, system["natural_parameters"])
-    assert Sampler.from_ensemble(ensemble, 1000.0, 2, device="cpu") \
+    assert Sampler.from_ensemble(ensemble, 1000.0, nwalkers=2, device="cpu") \
         .execution_path().startswith("cpu-twin[flip]")
     ensemble.chemical_potentials = None
     assert ensemble.chemical_potentials is None and ensemble.chemical_potential_table is None
     np.testing.assert_array_equal(ensemble.natural_parameters,
                                   system["natural_parameters"][:-1])
-    assert Sampler.from_ensemble(ensemble, 1000.0, 2, device="cpu") \
+    assert Sampler.from_ensemble(ensemble, 1000.0, nwalkers=2, device="cpu") \
         .execution_path().startswith("cpu-twin[swap]")

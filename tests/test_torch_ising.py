@@ -174,12 +174,12 @@ def test_systems_that_do_not_factor_are_refused(monkeypatch):
         assert mine is None and ref is None
         with pytest.raises(NotImplementedError, match="sign-symmetric"):
             _tables(port, "ising")
-        sampler = TorchSampler.from_ensemble(port, 800.0, 8, seed=3, device="cpu",
+        sampler = TorchSampler.from_ensemble(port, 800.0, nwalkers=8, seed=3, device="cpu",
                                              chain_delta="ising")
         with pytest.raises(NotImplementedError, match="sign-symmetric"):
             sampler.execution_path(10)
         # the default body is the direct lookup there
-        default = TorchSampler.from_ensemble(port, 800.0, 8, seed=3, device="cpu")
+        default = TorchSampler.from_ensemble(port, 800.0, nwalkers=8, seed=3, device="cpu")
         assert default.execution_path(10).endswith("+direct+shared-proposals")
     ref = _system("indicator")[0]
     ref_tables = pallas_chain.build_chain_tables(ref.processor, ref.sublattices,
@@ -205,11 +205,11 @@ def test_systems_that_do_not_factor_are_refused(monkeypatch):
         min_enthalpy=-30.0, max_enthalpy=0.0, bin_size=0.1, chain_delta="ising")
     with pytest.raises(NotImplementedError, match="sign-symmetric"):
         ternary_wl.execution_path(10)
-    table = TorchSampler.from_ensemble(_port("spinel_ewald_sgc_2x2x2"), 1000.0, 8, seed=3,
+    table = TorchSampler.from_ensemble(_port("spinel_ewald_sgc_2x2x2"), 1000.0, nwalkers=8, seed=3,
                                        device="cpu", step_type="table-flip",
                                        chain_delta="ising")
     assert table.execution_path(10) == "cpu-twin[table]+ewald+ising+shared-proposals"
-    lmof = TorchSampler.from_ensemble(_port("lmof_2x2x2"), 1000.0, 8, seed=3,
+    lmof = TorchSampler.from_ensemble(_port("lmof_2x2x2"), 1000.0, nwalkers=8, seed=3,
                                       device="cpu", step_type="table-flip",
                                       chain_delta="ising")
     with pytest.raises(NotImplementedError, match="sign-symmetric"):
@@ -235,7 +235,7 @@ def test_default_delta_names_the_samplers_body(monkeypatch, stem, chain_name, wo
     port = _port(stem)
     assert chain.default_delta(port.processor, port.sublattices) == expect
     if chain_name in ("flip", "swap"):
-        kernel = TorchSampler.from_ensemble(port, 1000.0, 8, seed=3, device="cpu",
+        kernel = TorchSampler.from_ensemble(port, 1000.0, nwalkers=8, seed=3, device="cpu",
                                             step_type=chain_name).mckernel
         assert kernel.chain_tables().delta == expect
 
@@ -325,11 +325,11 @@ def test_trajectory_parity(name, move, n_steps, block, temperature):
     # a sampler asked for the body names it, and takes it by default
     ewald = "+ewald" if tables.has_ewald else ""
     for delta in ("ising", None):
-        port_sampler = TorchSampler.from_ensemble(port, temperature, 8, seed=3,
+        port_sampler = TorchSampler.from_ensemble(port, temperature, nwalkers=8, seed=3,
                                                   device="cpu", chain_delta=delta)
         path = port_sampler.execution_path(10)
         assert path == f"cpu-twin[{move}]{ewald}+ising+shared-proposals", path
-    direct = TorchSampler.from_ensemble(port, temperature, 8, seed=3, device="cpu",
+    direct = TorchSampler.from_ensemble(port, temperature, nwalkers=8, seed=3, device="cpu",
                                         chain_delta="direct")
     assert direct.execution_path(10) == f"cpu-twin[{move}]{ewald}+direct+shared-proposals"
 

@@ -272,9 +272,9 @@ def _parity(name, move):
 
 def test_sampler_names_the_body_and_refuses_what_it_cannot_take():
     port = TorchEnsemble.from_system(load_system(data_path("sgc_3x3x3")), "cpu")
-    direct = TorchSampler.from_ensemble(port, 800.0, 8, seed=3, device="cpu")
+    direct = TorchSampler.from_ensemble(port, 800.0, nwalkers=8, seed=3, device="cpu")
     assert direct.execution_path(10) == "cpu-twin[flip]+direct+shared-proposals"
-    qary = TorchSampler.from_ensemble(port, 800.0, 8, seed=3, device="cpu",
+    qary = TorchSampler.from_ensemble(port, 800.0, nwalkers=8, seed=3, device="cpu",
                                       chain_delta="qary")
     assert qary.execution_path(10) == "cpu-twin[flip]+qary3+shared-proposals"
     occ0 = random_occupancies(port, 8, 0)
@@ -285,10 +285,10 @@ def test_sampler_names_the_body_and_refuses_what_it_cannot_take():
     # the two bodies compute one delta to f64 roundoff: one trajectory
     np.testing.assert_allclose(runs[0], runs[1], rtol=0, atol=1e-9)
     with pytest.raises(ValueError, match="chain delta"):
-        TorchSampler.from_ensemble(port, 800.0, 8, seed=3, device="cpu",
+        TorchSampler.from_ensemble(port, 800.0, nwalkers=8, seed=3, device="cpu",
                                    chain_delta="parity")
     # the Ising body is ported, and a ternary system refuses it
-    ising = TorchSampler.from_ensemble(port, 800.0, 8, seed=3, device="cpu",
+    ising = TorchSampler.from_ensemble(port, 800.0, nwalkers=8, seed=3, device="cpu",
                                        chain_delta="ising")
     with pytest.raises(NotImplementedError, match="sign-symmetric"):
         ising.execution_path(10)
@@ -302,7 +302,7 @@ def test_sampler_names_the_body_and_refuses_what_it_cannot_take():
     assert tables.qary == 2 and tables.has_ewald
     table = TorchEnsemble.from_system(load_system(data_path("spinel_ewald_sgc_2x2x2")),
                                       "cpu")
-    table_sampler = TorchSampler.from_ensemble(table, 1000.0, 8, seed=3, device="cpu",
+    table_sampler = TorchSampler.from_ensemble(table, 1000.0, nwalkers=8, seed=3, device="cpu",
                                                step_type="table-flip", chain_delta="qary")
     assert table_sampler.execution_path(10) == \
         "cpu-twin[table]+ewald+qary2+shared-proposals"

@@ -201,7 +201,7 @@ def test_chain_refusal_and_paths():
     nn.restrict_sites([0, 5])
     assert chain.chain_refusal(nn.processor, nn.sublattices) == \
         "sublattices with restricted sites"
-    sampler = Sampler.from_ensemble(nn, 1000.0, 4, seed=1, device="cpu")
+    sampler = Sampler.from_ensemble(nn, 1000.0, nwalkers=4, seed=1, device="cpu")
     assert not sampler.mckernel.runs_chain
     assert sampler.execution_path(10) == "cpu-step[flip]+general+independent-proposals"
     wl = Sampler.from_ensemble(nn, kernel_type="wang-landau", min_enthalpy=-1.0,
@@ -209,7 +209,7 @@ def test_chain_refusal_and_paths():
                                device="cpu")
     assert wl.execution_path(10) == "cpu-step[flip]+general+independent-proposals"
     nn.reset_restricted_sites()
-    assert Sampler.from_ensemble(nn, 1000.0, 4, seed=1, device="cpu").mckernel.runs_chain
+    assert Sampler.from_ensemble(nn, 1000.0, nwalkers=4, seed=1, device="cpu").mckernel.runs_chain
     # a split part that keeps a code other than 0 is refused too: the chain
     # tables would read its frozen sites as code 0
     ternary = _port("ternary")
@@ -233,7 +233,7 @@ def test_pinned_flips_match_enumeration():
     w = np.exp(-(h - h.min()) / (kB * temperature))
     exact = float(h @ w / w.sum())
     nn.restrict_sites(pinned)
-    sampler = Sampler.from_ensemble(nn, temperature, walkers, seed=7, device="cpu")
+    sampler = Sampler.from_ensemble(nn, temperature, nwalkers=walkers, seed=7, device="cpu")
     sampler.run(3000, start, thin_by=10)
     occ = sampler.samples.get_occupancies(flat=False)
     assert np.all(occ[:, :, pinned] == [1, 0])
@@ -254,7 +254,7 @@ def test_split_swaps_keep_part_compositions(partition):
     ternary.split_sublattice_by_species(0, occ, partition)
     parts = ternary.sublattices
     assert [list(p.encoding) for p in parts] == partition
-    sampler = Sampler.from_ensemble(ternary, 2000.0, 16, seed=8, device="cpu")
+    sampler = Sampler.from_ensemble(ternary, 2000.0, nwalkers=16, seed=8, device="cpu")
     assert sampler.execution_path(10) == "cpu-step[swap]+general+independent-proposals"
     sampler.run(400, occ, thin_by=10)
     records = sampler.samples.get_occupancies(flat=False)  # [S, W, N]

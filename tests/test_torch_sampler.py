@@ -47,7 +47,7 @@ def _initial(ensemble, seed=0):
 def port_run():
     ens = TorchEnsemble.from_system(load_system(system_path("2x2x2")), "cpu")
     sampler = TorchSampler.from_ensemble(
-        ens, 1000.0, W, seed=3, device="cpu", chain_block_size=16
+        ens, 1000.0, nwalkers=W, seed=3, device="cpu", chain_block_size=16
     )
     sampler.run(NSTEPS, _initial(ens), thin_by=THIN)
     return ens, sampler
@@ -136,7 +136,7 @@ def test_continue_run_and_seed_reproducibility(port_run):
     ens, _ = port_run
     runs = []
     for _ in range(2):
-        s = TorchSampler.from_ensemble(ens, 1000.0, 8, seed=11, device="cpu")
+        s = TorchSampler.from_ensemble(ens, 1000.0, nwalkers=8, seed=11, device="cpu")
         s.run(40, _initial(ens)[:8], thin_by=20)
         s.run(40, thin_by=20)  # continues from the current state
         runs.append(s.samples.get_occupancies())
@@ -155,7 +155,7 @@ def test_run_leaves_initial_occupancies_untouched(port_run):
     before = occ0.copy()
     runs = []
     for _ in range(2):
-        s = TorchSampler.from_ensemble(ens, 1000.0, 8, seed=5, device="cpu")
+        s = TorchSampler.from_ensemble(ens, 1000.0, nwalkers=8, seed=5, device="cpu")
         s.run(40, occ0, thin_by=20)
         runs.append(s.samples.get_enthalpies())
     np.testing.assert_array_equal(occ0, before)
@@ -207,7 +207,7 @@ def test_bounded_launches_and_record_cap(port_run):
 
     runs = []
     for per_launch, cap in ((None, None), (3, 1)):
-        s = TorchSampler.from_ensemble(ens, 1000.0, 8, seed=7, device="cpu")
+        s = TorchSampler.from_ensemble(ens, 1000.0, nwalkers=8, seed=7, device="cpu")
         s.samples.pending_bytes_max = cap
         launches.clear()
         import smol_tpu_torch.moca.sampler.sampler as sampler_module

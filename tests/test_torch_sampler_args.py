@@ -48,13 +48,13 @@ def test_run_takes_the_reference_parameters_in_order():
 
 def test_positional_progress_prints_each_launch(ensemble, capsys):
     """``run(10, occ, 10, True)``: the fourth argument is ``progress``."""
-    sampler = Sampler.from_ensemble(ensemble, 1000.0, 4, seed=2, device="cpu")
+    sampler = Sampler.from_ensemble(ensemble, 1000.0, nwalkers=4, seed=2, device="cpu")
     sampler.run(40, _start(ensemble, 4), 10, True, samples_per_launch=2)
     lines = capsys.readouterr().out.splitlines()
     assert [line.split(" (")[0] for line in lines] == ["sampled 2/4", "sampled 4/4"]
     assert all("M attempts/s" in line for line in lines)
     assert sampler.samples.num_samples == 4
-    quiet = Sampler.from_ensemble(ensemble, 1000.0, 4, seed=2, device="cpu")
+    quiet = Sampler.from_ensemble(ensemble, 1000.0, nwalkers=4, seed=2, device="cpu")
     quiet.run(40, _start(ensemble, 4), 10, False, samples_per_launch=2)
     assert capsys.readouterr().out == ""
     np.testing.assert_array_equal(quiet.samples.get_occupancies(),
@@ -66,7 +66,7 @@ def test_positional_progress_prints_each_launch(ensemble, capsys):
     {"swmr_mode": True}, {"profile_dir": "profile"},
 ])
 def test_streaming_and_profiling_name_their_item(ensemble, option):
-    sampler = Sampler.from_ensemble(ensemble, 1000.0, 2, seed=2, device="cpu")
+    sampler = Sampler.from_ensemble(ensemble, 1000.0, nwalkers=2, seed=2, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         sampler.run(10, _start(ensemble, 2), **option)
     assert sampler.samples.num_samples == 0
@@ -75,15 +75,15 @@ def test_streaming_and_profiling_name_their_item(ensemble, option):
 def test_seeds_name_their_item(ensemble):
     """``seeds``: the first seeds the one kernel where ``seed`` is None, as in
     the reference; the device is checked as before."""
-    sampler = Sampler.from_ensemble(ensemble, 1000.0, 2, device="cpu", seeds=[1, 2])
+    sampler = Sampler.from_ensemble(ensemble, 1000.0, nwalkers=2, device="cpu", seeds=[1, 2])
     assert sampler.seeds == [1] and sampler.mckernel.seed == 1
     assert sampler.mckernels == [sampler.mckernel] and sampler.nwalkers == 2
-    seeded = Sampler.from_ensemble(ensemble, 1000.0, 2, device="cpu", seed=1)
+    seeded = Sampler.from_ensemble(ensemble, 1000.0, nwalkers=2, device="cpu", seed=1)
     for s in (sampler, seeded):
         s.run(20, _start(ensemble, 2), thin_by=10)
     np.testing.assert_array_equal(sampler.samples.get_occupancies(),
                                   seeded.samples.get_occupancies())
-    assert Sampler.from_ensemble(ensemble, 1000.0, 2, device="cpu", seed=5,
+    assert Sampler.from_ensemble(ensemble, 1000.0, nwalkers=2, device="cpu", seed=5,
                                  seeds=[1, 2]).seeds == [5]
     with pytest.raises(ValueError, match="lives on"):
-        Sampler.from_ensemble(ensemble, 1000.0, 2, device="meta", seeds=[1, 2])
+        Sampler.from_ensemble(ensemble, 1000.0, nwalkers=2, device="meta", seeds=[1, 2])

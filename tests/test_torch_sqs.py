@@ -332,8 +332,16 @@ def test_starts_follow_reference():
 
 
 def test_generator_on_cpu():
-    _, ports = _small_generator_shapes()
-    generator = StochasticSQSGenerator.from_processors(ports, device="cpu")
+    from smol_tpu_torch.benchmarks.systems import fcc_binary_prim as port_fcc
+    from smol_tpu_torch.cofe import ClusterSubspace as PortSubspace
+
+    _, loaded = _small_generator_shapes()
+    # the same four shapes, built by the reference's constructor, so that
+    # the records carry structures to score
+    generator = StochasticSQSGenerator(
+        PortSubspace.from_cutoffs(port_fcc(), {2: 4.0}), 8,
+        supercell_matrices=[p.supercell_matrix for p in loaded], device="cpu")
+    ports = generator.processors
     assert generator.execution_path == "not-run"
     W, temperatures = 16, np.linspace(2.0, 0.02, 4)
     generator.generate(mcmc_steps=150, temperatures=temperatures, nwalkers=W, seed=11)
@@ -352,10 +360,10 @@ def test_generator_on_cpu():
     best = generator.get_best_sqs(num_structures=5, remove_duplicates=False)
     assert len(best) == 5 and all(a.score <= b.score for a, b in zip(best, best[1:]))
     for record in best:
-        exact = generator.compute_score(record.occupancy, record.supercell_matrix)
+        exact = generator.compute_score(record.structure, record.supercell_matrix)
         assert abs(exact - record.score) < 1e-9
         np.testing.assert_allclose(
-            generator.compute_feature_distance(record.occupancy, record.supercell_matrix),
+            generator.compute_feature_distance(record.structure, record.supercell_matrix),
             record.feature_distance, rtol=0, atol=1e-12)
     assert best[0].score < 0  # a matched shell exists and is found
     generator.generate(mcmc_steps=20, temperatures=[1.0], nwalkers=4, seed=1,
@@ -385,7 +393,7 @@ def test_refusals():
     np.testing.assert_allclose(ci.compute_feature_vector(occu),
                                ref_ci.compute_feature_vector(occu), rtol=0, atol=1e-12)
     with pytest.warns(UserWarning, match="Step type flip"):
-        StochasticSQSGenerator(ports, device="cpu", step_type="flip")
+        StochasticSQSGenerator.from_processors(ports, device="cpu", step_type="flip")
     generator = StochasticSQSGenerator.from_processors(ports[:1], device="cpu")
     assert isinstance(generator.sampler.mckernel, MulticellMetropolis)
     assert generator.sampler.execution_path() == "host-single-step"
@@ -408,8 +416,7 @@ def test_refusals():
         generator.get_best_sqs(1, remove_duplicates=True)
     with pytest.raises(ValueError, match="subspace"):
         generator.get_best_sqs(1)  # the reference's default removes duplicates
-    with pytest.raises(ValueError, match="subspace"):
-        generator.get_best_sqs(1, remove_duplicates=False)[0].structure
+    assert generator.get_best_sqs(1, remove_duplicates=False)[0].structure is None
     restricted = CorrelationDistanceProcessor.from_system(ports[0].system, "cpu")
     restricted.get_sublattices()[0].active_sites = restricted.get_sublattices()[0].sites[1:]
     assert sqs.build_distance_tables(restricted) is None

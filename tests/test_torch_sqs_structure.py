@@ -129,5 +129,5 @@ def test_generate_then_best_structures():
         structure = sqs.structure
         assert len(structure) == 8
         assert sorted(str(s.specie) for s in structure) == ["Au"] * 4 + ["Cu"] * 4
-        assert abs(generator.compute_score(sqs.occupancy, sqs.supercell_matrix)
+        assert abs(generator.compute_score(sqs.structure, sqs.supercell_matrix)
                    - sqs.score) < 1e-12

@@ -295,7 +295,7 @@ def test_uniformly_random_kernel():
 def test_per_step_swaps_keep_compositions_and_parity():
     system = load_system(DATA / "torch_spinel_ewald_2x2x2.npz")
     ens = Ensemble.from_system(system, "cpu")
-    sampler = Sampler.from_ensemble(ens, 1000.0, 32, seed=7, device="cpu",
+    sampler = Sampler.from_ensemble(ens, 1000.0, nwalkers=32, seed=7, device="cpu",
                                     shared_proposals=False)
     assert sampler.execution_path(20) == "cpu-step[swap]+general+independent-proposals"
     occ0 = np.tile(np.asarray(system["initial_occupancy"]), (32, 1))
@@ -341,7 +341,7 @@ def test_anneal(shared_proposals):
 
 def test_sample_yields_traces():
     ens = Ensemble.from_system(load_system(DATA / "torch_spinel_2x2x2.npz"), "cpu")
-    sampler = Sampler.from_ensemble(ens, 1000.0, 4, seed=5, device="cpu")
+    sampler = Sampler.from_ensemble(ens, 1000.0, nwalkers=4, seed=5, device="cpu")
     occ0 = np.random.default_rng(2).integers(0, 2, (4, ens.num_sites)).astype(np.int32)
     traces = list(sampler.sample(100, occ0, thin_by=10))
     assert len(traces) == 10 and all(isinstance(t, Trace) for t in traces)

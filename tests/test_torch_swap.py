@@ -241,7 +241,7 @@ def test_sampler_conserves_composition(stem):
     system = load_system(data_path(stem))
     port = TorchEnsemble.from_system(system, "cpu")
     W, nsteps, thin = 16, 400, 100
-    sampler = TorchSampler.from_ensemble(port, 1000.0, W, seed=3, device="cpu",
+    sampler = TorchSampler.from_ensemble(port, 1000.0, nwalkers=W, seed=3, device="cpu",
                                          chain_block_size=8)
     sampler.run(nsteps, system["initial_occupancy"], thin_by=thin)
     occ = sampler.samples.get_occupancies(flat=False)  # [S, W, N]
@@ -293,7 +293,7 @@ def test_canonical_averages_match_enumeration():
     exact = float(h @ weights / weights.sum())
 
     W = 64
-    sampler = TorchSampler.from_ensemble(port, temperature, W, seed=23, device="cpu",
+    sampler = TorchSampler.from_ensemble(port, temperature, nwalkers=W, seed=23, device="cpu",
                                          chain_block_size=1)
     occ0 = states[np.random.default_rng(4).integers(0, 70, W)]
     sampler.run(3000, occ0, thin_by=20)
@@ -311,20 +311,20 @@ def test_sampler_default_step_type_and_refusals():
     # the default body: K1-Ising, where the system's tables take it
     for ens, path in ((port, "cpu-twin[swap]+ising+shared-proposals"),
                       (ewald, "cpu-twin[swap]+ewald+ising+shared-proposals")):
-        sampler = TorchSampler.from_ensemble(ens, 1000.0, 4, seed=1, device="cpu")
+        sampler = TorchSampler.from_ensemble(ens, 1000.0, nwalkers=4, seed=1, device="cpu")
         assert sampler.execution_path(10) == path
         if torch.cuda.is_available():
             continue
         with pytest.raises(RuntimeError, match="CUDA"):
-            TorchSampler.from_ensemble(ens, 1000.0, 4, seed=1)
-    sweep = TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
+            TorchSampler.from_ensemble(ens, 1000.0, nwalkers=4, seed=1)
+    sweep = TorchSampler.from_ensemble(port, 1000.0, nwalkers=4, seed=1, device="cpu",
                                        proposal_mode="sweep")
     with pytest.raises(ValueError, match="sweep"):
         sweep.run(10, random_occupancies(port, 4, 0), thin_by=10)
     tables = _tables(port)
     with pytest.raises(ValueError, match="move"):
         chain.make_shared_proposal_chain(tables, 10, move="wang-landau")
-    independent = TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
+    independent = TorchSampler.from_ensemble(port, 1000.0, nwalkers=4, seed=1, device="cpu",
                                              shared_proposals=False)
     assert independent.execution_path(10) == "cpu-step[swap]+general+independent-proposals"
 

@@ -294,19 +294,19 @@ def test_port_runs_with_jax_blocked():
             codes[sl.sites] = len(sl.encoding)
         rng = np.random.default_rng(0)
         occ = (rng.random((64, ens.num_sites)) * codes).astype(np.int32)
-        sampler = Sampler.from_ensemble(ens, 1000.0, 64, seed=3, device="cpu")
+        sampler = Sampler.from_ensemble(ens, 1000.0, nwalkers=64, seed=3, device="cpu")
         sampler.run(200, occ, thin_by=50)
         assert sampler.samples.num_samples == 4
         print("ok", sampler.execution_path(50))
         system = load_system({str(data_path("spinel_ewald_2x2x2"))!r})
         ens = Ensemble.from_system(system, "cpu")
-        sampler = Sampler.from_ensemble(ens, 1000.0, 16, seed=3, device="cpu")
+        sampler = Sampler.from_ensemble(ens, 1000.0, nwalkers=16, seed=3, device="cpu")
         sampler.run(100, system["initial_occupancy"], thin_by=50)
         assert sampler.samples.num_samples == 2
         print("ok", sampler.execution_path(50))
         system = load_system({str(data_path("spinel_ewald_sgc_2x2x2"))!r})
         ens = Ensemble.from_system(system, "cpu")
-        sampler = Sampler.from_ensemble(ens, 1000.0, 16, seed=3, device="cpu",
+        sampler = Sampler.from_ensemble(ens, 1000.0, nwalkers=16, seed=3, device="cpu",
                                         step_type="table-flip")
         sampler.run(100, system["initial_occupancy"], thin_by=50)
         assert sampler.samples.num_samples == 2
@@ -332,7 +332,7 @@ def test_port_runs_with_jax_blocked():
         assert generator.num_structures == 8
         print("ok", generator.execution_path)
         ens = Ensemble.from_system(load_system({str(data_path("sgc_3x3x3"))!r}), "cpu")
-        sampler = Sampler.from_ensemble(ens, 800.0, 16, seed=3, device="cpu",
+        sampler = Sampler.from_ensemble(ens, 800.0, nwalkers=16, seed=3, device="cpu",
                                         chain_delta="qary")
         sampler.run(100, (rng.random((16, ens.num_sites)) * 3).astype(np.int32),
                     thin_by=50)
@@ -341,7 +341,7 @@ def test_port_runs_with_jax_blocked():
         print("ok", sampler.execution_path(50))
         from smol_tpu_torch.parallel import make_temperature_ladder
         ens = Ensemble.from_system(load_system({str(data_path("aucu_pt_3x3x3"))!r}), "cpu")
-        sampler = Sampler.from_ensemble(ens, make_temperature_ladder(300.0, 3000.0, 16), 16,
+        sampler = Sampler.from_ensemble(ens, make_temperature_ladder(300.0, 3000.0, 16), nwalkers=16,
                                         seed=3, device="cpu", chain_delta="ising",
                                         replica_exchange_period=10)
         sampler.run(100, rng.integers(0, 2, (16, ens.num_sites)), thin_by=50)
@@ -358,7 +358,7 @@ def test_port_runs_with_jax_blocked():
         ens = Ensemble.from_cluster_expansion(ce, np.diag([2, 2, 2]),
                                               chemical_potentials={{"Au": 0.0, "Cu": 0.1}},
                                               device="cpu")
-        sampler = Sampler.from_ensemble(ens, 800.0, 16, seed=3, device="cpu")
+        sampler = Sampler.from_ensemble(ens, 800.0, nwalkers=16, seed=3, device="cpu")
         sampler.run(100, rng.integers(0, 2, (16, ens.num_sites)), thin_by=50)
         assert sampler.samples.num_samples == 2
         print("ok built", sampler.execution_path(50))
@@ -371,7 +371,7 @@ def test_port_runs_with_jax_blocked():
             chemical_potentials={{"Li+": 0.1, "vacA0+": 0.0, "Mn3+": 0.05, "Mn4+": 0.0}})
         occ0 = generate_random_ordered_occupancy(ens.processor, charge_neutral=True,
                                                  rng=np.random.default_rng(0))
-        sampler = Sampler.from_ensemble(ens, 1000.0, 16, seed=3, device="cpu",
+        sampler = Sampler.from_ensemble(ens, 1000.0, nwalkers=16, seed=3, device="cpu",
                                         step_type="table-flip")
         sampler.run(100, np.tile(occ0, (16, 1)), thin_by=50)
         occs = sampler.samples.get_occupancies()

@@ -104,7 +104,7 @@ def _systems(kind, cell):
 
 
 def _port_kernel(port, **kwargs):
-    sampler = TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
+    sampler = TorchSampler.from_ensemble(port, 1000.0, nwalkers=4, seed=1, device="cpu",
                                          step_type="table-flip", **kwargs)
     return sampler._kernel
 
@@ -461,7 +461,7 @@ def test_tableflip_averages_match_enumeration():
     exact = float(h @ weights / weights.sum())
 
     W = 32
-    sampler = TorchSampler.from_ensemble(port, temperature, W, seed=23, device="cpu",
+    sampler = TorchSampler.from_ensemble(port, temperature, nwalkers=W, seed=23, device="cpu",
                                          step_type="table-flip", chain_block_size=4)
     sampler.run(4000, states[0], thin_by=20)
     occs = sampler.samples.get_occupancies(flat=True)
@@ -478,7 +478,7 @@ def test_sampler_keeps_charge_and_parity_e():
     system = load_system(data_path("spinel_ewald_sgc_2x2x2"))
     port = TorchEnsemble.from_system(system, "cpu")
     W, nsteps, thin = 16, 400, 100
-    sampler = TorchSampler.from_ensemble(port, 1000.0, W, seed=3, device="cpu",
+    sampler = TorchSampler.from_ensemble(port, 1000.0, nwalkers=W, seed=3, device="cpu",
                                          step_type="table-flip", chain_block_size=8)
     # the default body: K1-Ising, which the table chain takes where it factors
     assert sampler.execution_path(thin) == "cpu-twin[table]+ewald+ising+shared-proposals"
@@ -500,9 +500,9 @@ def test_table_flip_device_and_refusals():
     port = TorchEnsemble.from_system(system, "cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
-            TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, step_type="table-flip")
+            TorchSampler.from_ensemble(port, 1000.0, nwalkers=4, seed=1, step_type="table-flip")
     # the default step type stays the single flip
-    default = TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu")
+    default = TorchSampler.from_ensemble(port, 1000.0, nwalkers=4, seed=1, device="cpu")
     assert default.execution_path(10).startswith("cpu-twin[flip]+ewald")
     # a system without a flip table derives the stored one from its species
     from smol_tpu_torch.benchmarks.systems import random_expansion as torch_expansion
@@ -513,7 +513,7 @@ def test_table_flip_device_and_refusals():
         np.diag([2, 2, 2]), processor_type="expansion", chemical_potentials=BENCH_MUS,
         device="cpu")
     assert built.table_data is None
-    derived = TorchSampler.from_ensemble(built, 1000.0, 4, seed=1, device="cpu",
+    derived = TorchSampler.from_ensemble(built, 1000.0, nwalkers=4, seed=1, device="cpu",
                                          step_type="table-flip").mckernel.mcusher
     np.testing.assert_array_equal(derived.flip_table, port.table_data["flip_table"])
     for mine, stored in zip(derived.dim_ids, port.table_data["dim_ids"]):
@@ -521,9 +521,9 @@ def test_table_flip_device_and_refusals():
     # a system file without one carries no species to derive it from
     bare = TorchEnsemble.from_system(load_system(data_path("spinel_ewald_2x2x2")), "cpu")
     with pytest.raises(ValueError, match="no species"):
-        TorchSampler.from_ensemble(bare, 1000.0, 4, seed=1, device="cpu",
+        TorchSampler.from_ensemble(bare, 1000.0, nwalkers=4, seed=1, device="cpu",
                                    step_type="table-flip")
-    sweep = TorchSampler.from_ensemble(port, 1000.0, 4, seed=1, device="cpu",
+    sweep = TorchSampler.from_ensemble(port, 1000.0, nwalkers=4, seed=1, device="cpu",
                                        step_type="table-flip", proposal_mode="sweep")
     with pytest.raises(ValueError, match="sweep"):
         sweep.run(10, system["initial_occupancy"], thin_by=10)

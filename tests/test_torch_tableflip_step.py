@@ -230,7 +230,7 @@ def test_per_step_table_flips_match_enumeration(pinned):
     start = np.array([0, 1, 0, 1, 0, 0, 0, 0], dtype=np.int32)  # Li, vac; Mn3+, Mn4+
     assert _net_charge(port, start) == 0
     port.restrict_sites(list(pinned))
-    sampler = TorchSampler.from_ensemble(port, temperature, 48, seed=5, device="cpu",
+    sampler = TorchSampler.from_ensemble(port, temperature, nwalkers=48, seed=5, device="cpu",
                                          step_type="table-flip", shared_proposals=False)
     usher = sampler.mckernel.mcusher
     assert sampler.execution_path(10) == "cpu-step[table-flip]+general+independent-proposals"

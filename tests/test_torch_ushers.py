@@ -169,7 +169,7 @@ def test_mcusher_factory(ensemble):
 def test_multistep_and_composite_runs(step_type, kwargs):
     """Both ushers run on the per-step path, with parity (e)."""
     ens = Ensemble.from_system(load_system(data_path("spinel_2x2x2")), "cpu")
-    sampler = Sampler.from_ensemble(ens, 1000.0, 16, seed=5, device="cpu",
+    sampler = Sampler.from_ensemble(ens, 1000.0, nwalkers=16, seed=5, device="cpu",
                                     step_type=step_type, **kwargs)
     assert sampler.execution_path(10) == \
         f"cpu-step[{step_type}]+general+independent-proposals"
